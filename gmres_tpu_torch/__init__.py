@@ -1,0 +1,67 @@
+"""gmres_tpu_torch — the PyTorch/CUDA port of ``gmres_tpu``.
+
+The first slice of the port: the flagship solve of ``gmres_tpu`` —
+restarted Householder GMRES on the matrix-free 5-point Poisson operator,
+preconditioned by the reference's cbpr2 Chebyshev polynomial or by the
+geometric multigrid V-cycle, in full float64 or with float32 Arnoldi
+cycles certified on the float64 true residual.
+
+Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
+``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
+and never ``jax``. On a CUDA tensor the stencil runs in kernel K1
+(``csrc/stencil5.cu``) and the order-k Chebyshev smoothers in kernel K2
+(``csrc/chebk.cu``), both built with ``nvcc`` for ``sm_90a`` at first use;
+on a CPU tensor both take their plain PyTorch versions.
+"""
+
+from gmres_tpu_torch.types import (
+    GmresResult,
+    LinearOperator,
+    Preconditioner,
+    SolverStatus,
+    as_tensor,
+)
+from gmres_tpu_torch.solvers.gmres import gmres
+from gmres_tpu_torch.precond.chebyshev import (
+    chebyshev_preconditioner,
+    chebyshev_stencil_preconditioner,
+)
+from gmres_tpu_torch.precond.multigrid import (
+    MultigridPlan,
+    poisson_multigrid_preconditioner,
+    prolong_repeat,
+    restrict_sum,
+)
+from gmres_tpu_torch.models.poisson import (
+    poisson_apply,
+    poisson_matrix,
+    poisson_operator,
+    poisson_spectral_bounds,
+    tuned_poisson_preconditioner,
+)
+from gmres_tpu_torch.ops.stencil import stencil5_cuda
+from gmres_tpu_torch.ops.fused import chebk_cuda
+
+__all__ = [
+    "GmresResult",
+    "LinearOperator",
+    "Preconditioner",
+    "SolverStatus",
+    "as_tensor",
+    "gmres",
+    "chebyshev_preconditioner",
+    "chebyshev_stencil_preconditioner",
+    "MultigridPlan",
+    "poisson_multigrid_preconditioner",
+    "prolong_repeat",
+    "restrict_sum",
+    "poisson_apply",
+    "poisson_matrix",
+    "poisson_operator",
+    "poisson_spectral_bounds",
+    "tuned_poisson_preconditioner",
+    "stencil5_cuda",
+    "chebk_cuda",
+]
+
+__version__ = "0.1.0"

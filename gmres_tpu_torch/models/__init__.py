@@ -1,0 +1,1 @@
+"""models of the PyTorch/CUDA port (mirrors gmres_tpu/models)."""

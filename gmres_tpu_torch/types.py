@@ -1,0 +1,87 @@
+"""Core result/status types of the PyTorch port.
+
+Counterpart of ``gmres_tpu/types.py``: the same status codes and the same
+GMRES result fields, as a plain dataclass over tensors (no pytree
+registration is needed in eager PyTorch).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+# A linear operator is any callable y = A(x) mapping a tensor to a tensor
+# of the same shape; the grid shape travels in the closure.
+LinearOperator = Callable[[Any], Any]
+
+# A preconditioner is z = M⁻¹(r): same contract as the operator.
+Preconditioner = Callable[[Any], Any]
+
+
+class SolverStatus(enum.IntEnum):
+    """Termination status (same codes as ``gmres_tpu.SolverStatus``)."""
+
+    CONVERGED = 0
+    MAX_ITERATIONS = 1
+    BREAKDOWN = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class GmresResult:
+    """Result of a restarted GMRES(m) solve.
+
+    Attributes (the fields of ``gmres_tpu.GmresResult``):
+      x: solution tensor.
+      iterations: inner iterations in the final restart cycle (``n_out``).
+      restarts: restart cycles performed.
+      residual: final relative residual, a 0-d tensor.
+      status: SolverStatus code.
+      residual_history: (m,) per-inner-iteration relative residual of the
+        last restart cycle.
+      v_err: (m+1,) orthogonality audit (zeros unless requested).
+
+    The loop counters are Python ints: the eager loops decide on the host,
+    so they are known there without another device read.
+
+    Beyond the JAX fields:
+      host_syncs: device→host reads the solve made to decide its loops
+        (one per inner iteration that tests convergence, one per restart,
+        one for the initial residual). On a CUDA tensor each is a stream
+        synchronisation.
+    """
+
+    x: torch.Tensor
+    iterations: int
+    restarts: int
+    residual: torch.Tensor
+    status: int
+    residual_history: torch.Tensor
+    v_err: torch.Tensor
+    host_syncs: int = 0
+
+    @property
+    def converged(self) -> bool:
+        return self.status == SolverStatus.CONVERGED
+
+    def to_numpy(self) -> dict:
+        """The JAX result fields as numpy values, for field-by-field
+        comparison with ``gmres_tpu``."""
+        out = {}
+        for name in ("x", "iterations", "restarts", "residual", "status",
+                     "residual_history", "v_err"):
+            v = getattr(self, name)
+            out[name] = (v.detach().cpu().numpy()
+                         if isinstance(v, torch.Tensor) else np.asarray(v))
+        return out
+
+
+def as_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array (b, x0, a dense A) as a tensor on an explicit device,
+    cast to ``dtype`` when given. Copies, so the caller's array is never
+    aliased by the solver's in-place buffers."""
+    t = torch.as_tensor(np.asarray(a)).to(device=device, copy=True)
+    return t if dtype is None else t.to(dtype)

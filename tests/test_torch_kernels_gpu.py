@@ -1,0 +1,102 @@
+"""Kernels K1 and K2 of the PyTorch port on the card, against their plain
+PyTorch versions, and the main path's use of them.
+
+Every test here needs a CUDA device and skips without one. The file
+imports neither jax nor gmres_tpu, so it also runs on a machine without
+JAX; there, skip the JAX-configuring conftest:
+
+    python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import gmres_tpu_torch as tt
+from gmres_tpu_torch.ops import fused as tfu
+from gmres_tpu_torch.ops import stencil as tst
+from tests.torch_parity import cuda_device, np_poisson, rel_err, seeded, to_torch  # noqa: F401
+
+pytestmark = pytest.mark.gpu
+
+COEFS = (4.0, -1.2, -0.8, -1.1, -0.9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [75, 300, 1024])
+def test_k1_matches_plain(cuda_device, dtype, n):
+    x = to_torch(seeded(19, (n, n)), cuda_device).to(dtype)
+    top = to_torch(seeded(20, n), cuda_device).to(dtype)
+    bot = to_torch(seeded(21, n), cuda_device).to(dtype)
+    before = tst.stencil5_cuda.launches
+    y = tst.stencil_5pt_pallas(x, COEFS)
+    yh = tst.stencil_5pt_pallas_halo(x, top, bot, COEFS)
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches == before + 2
+    # Built with -fmad=false: the same roundings as the plain version.
+    torch.testing.assert_close(y, tst.stencil_5pt_general(x, *COEFS), rtol=0, atol=0)
+    torch.testing.assert_close(yh, tst.stencil_5pt_halo(x, top, bot, COEFS),
+                               rtol=0, atol=0)
+
+
+def test_k1_refuses_what_it_does_not_take(cuda_device):
+    with pytest.raises(TypeError):
+        tst.stencil_5pt_routed(torch.zeros((8, 8), dtype=torch.float16,
+                                           device=cuda_device))
+    x = torch.zeros((8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tst.stencil5_cuda(x.T)
+    with pytest.raises(ValueError, match="halo row"):
+        tst.stencil5_cuda(x, torch.zeros(8, device=cuda_device))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+@pytest.mark.parametrize("n,order", [(16, 32), (75, 32), (75, 3), (150, 3),
+                                     (300, 3), (300, 1), (300, 2), (64, 200)])
+def test_k2_matches_plain(cuda_device, dtype, rtol, n, order):
+    """Both K2 paths (whole grid in shared memory; one launch per sweep,
+    also for a grid that fits but has more sweeps than the kernel carries)
+    against the plain recurrence. The plain version divides by θ as a
+    multiplication by 1/θ (PyTorch's rule for a scalar divisor on CUDA), a
+    last-bit difference that the deep polynomials amplify."""
+    lam_min = 8.0 * np.sin(np.pi / (2 * (n + 1))) ** 2
+    theta, _, steps = tfu.chebyshev_k_scalars(lam_min if order > 3 else 2.0, 8.0, order)
+    r = to_torch(seeded(54, (n, n)), cuda_device).to(dtype)
+    before = tfu.chebk_cuda.launches
+    z = tfu.chebyshev_k_poisson_pallas(r, order, lam_min if order > 3 else 2.0, 8.0)
+    torch.cuda.synchronize()
+    assert tfu.chebk_cuda.launches > before
+    assert rel_err(z, tfu.poly_stencil_smoother_plain(r, theta, steps)) < rtol
+
+
+@pytest.mark.parametrize("n", [75, 300])
+def test_k2_jacobi_general_coefficients(cuda_device, n):
+    """Damped Jacobi on a non-symmetric stencil (the convection-diffusion
+    smoother's form), on both K2 paths."""
+    theta, steps = tfu.jacobi_k_scalars(0.7, COEFS[0], 8)
+    r = to_torch(seeded(55, (n, n)), cuda_device).to(torch.float32)
+    z = tfu.poly_stencil_smoother_pallas(r, theta, steps, COEFS)
+    assert rel_err(z, tfu.poly_stencil_smoother_plain(r, theta, steps, COEFS)) < 1e-5
+
+
+def test_mg_solve_runs_on_the_kernels_and_matches_cpu(cuda_device):
+    """The mg configuration at 64² on the card launches K1 and K2, converges
+    on the float64 true residual, and agrees with the port's CPU solve."""
+    n = 64
+    b = np_poisson(np.ones((n, n)))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        k1, k2 = tst.stencil5_cuda.launches, tfu.chebk_cuda.launches
+        res = tt.gmres(tt.poisson_operator(n), tt.as_tensor(b, dev), restart=10,
+                       tol=1e-8, M=tt.poisson_multigrid_preconditioner(n),
+                       compute_v_err=False, inner_dtype=torch.float32,
+                       certify="true")
+        x = res.x.cpu().numpy()
+        rel = np.linalg.norm(b - np_poisson(x)) / np.linalg.norm(b)
+        out[dev.type] = (res, rel, tst.stencil5_cuda.launches - k1,
+                         tfu.chebk_cuda.launches - k2)
+    (rg, relg, k1g, k2g), (rc, relc, k1c, k2c) = out["cuda"], out["cpu"]
+    assert rg.status == rc.status == 0 and relg <= 1e-8 and relc <= 1e-8
+    assert k1g > 0 and k2g > 0 and k1c == 0 and k2c == 0
+    assert abs((rg.restarts - 1) * 10 + rg.iterations
+               - (rc.restarts - 1) * 10 - rc.iterations) <= 2

@@ -1,0 +1,69 @@
+"""Helpers for the parity tests of the PyTorch port (tests/test_torch_*.py).
+
+Each test makes its inputs with numpy from a seed, hands the same arrays
+to a ``gmres_tpu`` function (on the CPU, float64 enabled by conftest.py)
+and to its ``gmres_tpu_torch`` counterpart, and compares the results as
+numpy arrays. Tests that need a CUDA device take the ``cuda_device``
+fixture, which skips when there is none; the decision is made when the
+test runs, never at import, so every pytest-xdist worker collects the
+same tests.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+# Several pytest-xdist workers share the machine: one intra-op thread each.
+torch.set_num_threads(1)
+
+
+def seeded(seed: int, shape, dtype=np.float64) -> np.ndarray:
+    """Standard-normal numpy array from a seed."""
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """A numpy (or JAX) array as a torch tensor with its own memory."""
+    return torch.as_tensor(np.array(a, copy=True)).to(device)
+
+
+def to_np(a) -> np.ndarray:
+    """A torch tensor or JAX array as a numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def rel_err(a, b) -> float:
+    """max|a − b| / max|b| (max|a − b| when b is all zero)."""
+    a, b = to_np(a), to_np(b)
+    dt = np.result_type(a, b, np.float64)
+    a, b = a.astype(dt), b.astype(dt)
+    scale = np.max(np.abs(b)) if b.size else 0.0
+    diff = np.max(np.abs(a - b)) if b.size else 0.0
+    return float(diff / scale) if scale > 0 else float(diff)
+
+
+def total_inner(res, m: int) -> int:
+    """Inner iterations over all restart cycles of a GMRES result."""
+    return (int(res.restarts) - 1) * m + int(res.iterations)
+
+
+def np_poisson(x: np.ndarray) -> np.ndarray:
+    """Independent float64 5-point Laplacian (zero boundaries)."""
+    y = 4.0 * x
+    y[:, 1:] -= x[:, :-1]
+    y[:, :-1] -= x[:, 1:]
+    y[1:, :] -= x[:-1, :]
+    y[:-1, :] -= x[1:, :]
+    return y
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels K1/K2 run only on the card)")
+    return torch.device("cuda", 0)
