@@ -1,26 +1,32 @@
 """gmres_tpu_torch — the PyTorch/CUDA port of ``gmres_tpu``.
 
-The first slice of the port: the flagship solve of ``gmres_tpu`` —
+The first slice of the port is the flagship solve of ``gmres_tpu``:
 restarted Householder GMRES on the matrix-free 5-point Poisson operator,
 preconditioned by the reference's cbpr2 Chebyshev polynomial or by the
 geometric multigrid V-cycle, in full float64 or with float32 Arnoldi
-cycles certified on the float64 true residual.
+cycles certified on the float64 true residual. The second is the sparse
+path: the CSR/COO/ELL/DIA/HYB/BSR formats (``ops/sparse.py``) under
+classic and pipelined conjugate gradients (``solvers/cg.py``).
 
 Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
 ``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
 and never ``jax``. On a CUDA tensor the stencil runs in kernel K1
 (``csrc/stencil5.cu``) and the order-k Chebyshev smoothers in kernel K2
-(``csrc/chebk.cu``), both built with ``nvcc`` for ``sm_90a`` at first use;
-on a CPU tensor both take their plain PyTorch versions.
+(``csrc/chebk.cu``), the DIA SpMV (DIA and HYB operators) in kernel K3
+(``csrc/dia_spmv.cu``) and the BSR SpMV in kernel K4
+(``csrc/bsr_spmv.cu``), all built with ``nvcc`` for ``sm_90a`` at first
+use; on a CPU tensor each takes its plain PyTorch version.
 """
 
 from gmres_tpu_torch.types import (
     GmresResult,
     LinearOperator,
     Preconditioner,
+    SolveResult,
     SolverStatus,
     as_tensor,
 )
+from gmres_tpu_torch.solvers.cg import cg
 from gmres_tpu_torch.solvers.gmres import gmres
 from gmres_tpu_torch.precond.chebyshev import (
     chebyshev_preconditioner,
@@ -39,6 +45,28 @@ from gmres_tpu_torch.models.poisson import (
     poisson_spectral_bounds,
     tuned_poisson_preconditioner,
 )
+from gmres_tpu_torch.ops.sparse import (
+    BSRMatrix,
+    COOMatrix,
+    CSRMatrix,
+    DIAMatrix,
+    ELLMatrix,
+    HYBMatrix,
+    bsr_from_dense,
+    bsr_spmv_cuda,
+    coo_from_dense,
+    coo_to_hyb,
+    csr_from_dense,
+    csr_to_ell,
+    csr_to_hyb,
+    dia_from_dense,
+    dia_spmv_cuda,
+    ell_from_dense,
+    poisson_csr,
+    poisson_dia,
+    sparse_from_numpy,
+    sparse_operator,
+)
 from gmres_tpu_torch.ops.stencil import stencil5_cuda
 from gmres_tpu_torch.ops.fused import chebk_cuda
 
@@ -46,8 +74,10 @@ __all__ = [
     "GmresResult",
     "LinearOperator",
     "Preconditioner",
+    "SolveResult",
     "SolverStatus",
     "as_tensor",
+    "cg",
     "gmres",
     "chebyshev_preconditioner",
     "chebyshev_stencil_preconditioner",
@@ -60,8 +90,28 @@ __all__ = [
     "poisson_operator",
     "poisson_spectral_bounds",
     "tuned_poisson_preconditioner",
+    "BSRMatrix",
+    "COOMatrix",
+    "CSRMatrix",
+    "DIAMatrix",
+    "ELLMatrix",
+    "HYBMatrix",
+    "bsr_from_dense",
+    "coo_from_dense",
+    "coo_to_hyb",
+    "csr_from_dense",
+    "csr_to_ell",
+    "csr_to_hyb",
+    "dia_from_dense",
+    "ell_from_dense",
+    "poisson_csr",
+    "poisson_dia",
+    "sparse_from_numpy",
+    "sparse_operator",
     "stencil5_cuda",
     "chebk_cuda",
+    "dia_spmv_cuda",
+    "bsr_spmv_cuda",
 ]
 
 __version__ = "0.1.0"

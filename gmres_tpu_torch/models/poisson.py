@@ -57,8 +57,10 @@ def tuned_poisson_preconditioner(nsize: int, aggressiveness: float = 30.0):
     return m, order, lo, lam_max
 
 
-def poisson_matrix(nsize: int, dtype=torch.float64, device=None) -> torch.Tensor:
-    """Dense N²×N² 5-point Laplacian, A = I⊗K + K⊗I with K = tridiag(−1, 2, −1)."""
+def poisson_matrix(nsize: int, dtype=torch.float64,
+                   device="cuda") -> torch.Tensor:
+    """Dense N²×N² 5-point Laplacian, A = I⊗K + K⊗I with K = tridiag(−1, 2, −1),
+    built on ``device`` (the card unless the caller asks for the CPU)."""
     eye = torch.eye(nsize, dtype=dtype, device=device)
     k = (2.0 * eye
          - torch.diag(torch.ones(nsize - 1, dtype=dtype, device=device), 1)

@@ -2,11 +2,13 @@
 
 The sources are compiled with ``nvcc`` into one shared library with a plain
 C interface, loaded with ``ctypes``, at the first launch — never at import,
-so the package imports on machines without ``nvcc`` or a card. The library
-name carries a hash of the sources and flags; it is built to a temporary
-file and renamed into place, so an interrupted or racing build never
-satisfies the existence check (the scheme of ``native/loader.py``). The
-build directory, ``gmres_tpu_torch/_build/``, is listed in ``.gitignore``.
+so the package imports on machines without ``nvcc`` or a card. Each source
+is compiled by its own ``nvcc`` process, all started together, and the
+objects are then linked into the library. The library name carries a hash
+of the sources and flags; it is built to a temporary file and renamed into
+place, so an interrupted or racing build never satisfies the existence
+check (the scheme of ``native/loader.py``). The build directory,
+``gmres_tpu_torch/_build/``, is listed in ``.gitignore``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     # Products and sums round separately, as in the plain PyTorch versions.
     "-fmad=false",
     # Registers, shared memory and spills per kernel, kept in the build log.
@@ -67,13 +69,32 @@ def _build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(srcs, objs)]
+    logs, failed = [], []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        logs.append(f"== {os.path.basename(s)}\n{out}")
+        if p.returncode != 0:
+            failed.append(os.path.basename(s))
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, so)
     return so
 
@@ -91,6 +112,13 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"gt_chebk_{suffix}")
             fn.argtypes = [vp, vp, vp, vp, i32, i32, real, vp, i32, vp, i32,
                            i32, vp]
+            fn.restype = i32
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"gt_dia_spmv_{suffix}")
+            fn.argtypes = [vp, vp, vp, i32, i32, vp, i32, i32, i32, vp]
+            fn.restype = i32
+            fn = getattr(lib, f"gt_bsr_spmv_{suffix}")
+            fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
             fn.restype = i32
         lib.gt_cuda_error_string.argtypes = [i32]
         lib.gt_cuda_error_string.restype = ctypes.c_char_p

@@ -33,3 +33,26 @@ def tree_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def tree_norm(a: torch.Tensor) -> torch.Tensor:
     """2-norm ‖a‖₂, real even for complex a."""
     return torch.sqrt(tree_vdot(a, a).real)
+
+
+def tree_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a - b
+
+
+def tree_axpy(alpha: torch.Tensor, x: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """y + alpha·x."""
+    return y + alpha * x
+
+
+def tree_zeros_like(a: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(a)
+
+
+def batched_vdot(pairs) -> torch.Tensor:
+    """k inner products Σ conj(aᵢ)·bᵢ stacked into one (k,) tensor, so a
+    solver reads all k back from the device at once. Each is one ``vdot``
+    (one read of each operand; stacking the operands first would copy
+    them)."""
+    return torch.stack([torch.vdot(a.reshape(-1), b.reshape(-1))
+                        for a, b in pairs])

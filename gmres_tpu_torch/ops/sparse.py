@@ -1,0 +1,654 @@
+"""Sparse-matrix formats and SpMV: containers, host-side constructors, the
+plain PyTorch SpMVs and kernels K3 and K4.
+
+Counterpart of ``gmres_tpu/ops/sparse.py``, with the same names:
+
+* **Containers** ``CSRMatrix``, ``COOMatrix``, ``ELLMatrix``, ``DIAMatrix``,
+  ``HYBMatrix`` and ``BSRMatrix``: frozen dataclasses over tensors, with
+  ``shape`` (and DIA's ``offsets``) as plain-tuple metadata. Indices are
+  int32, as in JAX.
+* **Host-side constructors** (``csr_from_dense`` … ``bsr_from_dense``): the
+  same numpy code as the JAX module, so the same split and the same order
+  come out; the arrays are then placed on an explicit ``device`` (the card
+  unless the caller asks for the CPU) and ``dtype``. The converters that
+  take a container (``csr_to_ell``, ``csr_to_hyb``, ``coo_to_hyb``) leave
+  their result on the input's device. ``sparse_from_numpy`` builds a
+  container from the numpy arrays of a JAX container's fields: the way to
+  hand the very same matrix to both packages.
+* **Plain SpMVs** (``dia_spmv``, ``csr_spmv``, ``coo_spmv``, ``ell_spmv``,
+  ``bsr_spmv``): JAX computes them outside any Pallas kernel, so plain
+  PyTorch is their port (``index_add_`` takes the place of
+  ``segment_sum``). They run on any device.
+* **Kernels.** ``dia_spmv_pallas`` is kernel K3 (``csrc/dia_spmv.cu``) and
+  ``bsr_spmv_pallas`` kernel K4 (``csrc/bsr_spmv.cu``), behind the names
+  and data arguments of the Pallas entry points. A CPU tensor takes the
+  plain version, a CUDA tensor of float32 or float64 launches the kernel,
+  and any other CUDA dtype raises.
+* ``hyb_spmv`` and ``sparse_operator`` route by device in the same way: on
+  a CUDA tensor, DIA and the DIA part of HYB always run in K3, and BSR in
+  K4; HYB's ELL residue is the plain gather, as in JAX.
+
+JAX's ``use_pallas``, ``interpret`` and ``block_rows`` have no
+counterpart: the tensor's device decides, and one launch covers any size.
+An operand on another device than the matrix raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from gmres_tpu_torch.ops import _cuda
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRMatrix:
+    """Compressed sparse rows: data (nnz,), indices (nnz,) column ids,
+    indptr (nrows+1,) row offsets."""
+
+    data: torch.Tensor
+    indices: torch.Tensor
+    indptr: torch.Tensor
+    shape: tuple
+
+    @property
+    def nnz(self) -> int:
+        return self.data.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class COOMatrix:
+    """Coordinate format: data/row/col all (nnz,), rows sorted ascending."""
+
+    data: torch.Tensor
+    row: torch.Tensor
+    col: torch.Tensor
+    shape: tuple
+
+    @property
+    def nnz(self) -> int:
+        return self.data.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ELLMatrix:
+    """ELLPACK: data (nrows, k), cols (nrows, k); padding entries have
+    value 0 and column 0 (they contribute nothing)."""
+
+    data: torch.Tensor
+    cols: torch.Tensor
+    shape: tuple
+
+    @property
+    def row_width(self) -> int:
+        return self.data.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DIAMatrix:
+    """Diagonal format: data (ndiags, n) holds each diagonal aligned to
+    ROW index (data[k, i] = A[i, i + offsets[k]], zero where out of
+    range)."""
+
+    data: torch.Tensor
+    offsets: tuple
+    shape: tuple
+
+    @property
+    def ndiags(self) -> int:
+        return self.data.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class HYBMatrix:
+    """Hybrid DIA + ELL: well-occupied diagonals in ``dia``, straggler
+    entries in a small-k ``ell`` residue (None when the matrix is fully
+    diagonal). Built by ``csr_to_hyb``/``coo_to_hyb``."""
+
+    dia: DIAMatrix
+    ell: ELLMatrix | None
+    shape: tuple
+
+    @property
+    def nnz_dia(self) -> int:
+        return int((self.dia.data != 0).sum())
+
+
+@dataclasses.dataclass(frozen=True)
+class BSRMatrix:
+    """Block-sparse rows with dense (bs, bs) blocks in ELL layout:
+    data (n_block_rows, k, bs, bs), block_cols (n_block_rows, k); padding
+    blocks are all-zero with block-column 0."""
+
+    data: torch.Tensor
+    block_cols: torch.Tensor
+    shape: tuple
+
+    @property
+    def block_size(self) -> int:
+        return self.data.shape[-1]
+
+
+# ---------------------------------------------------------------------------
+# Construction (host-side numpy, then placed on the device).
+# ---------------------------------------------------------------------------
+
+
+def _values(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A copy of ``a`` on ``device`` (the caller's array is never aliased),
+    cast to ``dtype`` when given."""
+    t = torch.from_numpy(np.array(a, order="C")).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _index(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.int32, order="C")).to(device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def csr_from_dense(a, tol: float = 0.0, device="cuda", dtype=None) -> CSRMatrix:
+    """Build CSR from a dense matrix (host-side; numpy)."""
+    a = np.asarray(a)
+    mask = np.abs(a) > tol
+    row_counts = mask.sum(axis=1)
+    indptr = np.zeros(a.shape[0] + 1, dtype=np.int32)
+    np.cumsum(row_counts, out=indptr[1:])
+    rows, cols = np.nonzero(mask)
+    return CSRMatrix(
+        data=_values(a[rows, cols], device, dtype),
+        indices=_index(cols, device),
+        indptr=_index(indptr, device),
+        shape=a.shape,
+    )
+
+
+def coo_from_dense(a, tol: float = 0.0, device="cuda", dtype=None) -> COOMatrix:
+    a = np.asarray(a)
+    rows, cols = np.nonzero(np.abs(a) > tol)  # row-major ⇒ rows sorted
+    return COOMatrix(
+        data=_values(a[rows, cols], device, dtype),
+        row=_index(rows, device),
+        col=_index(cols, device),
+        shape=a.shape,
+    )
+
+
+def ell_from_dense(a, tol: float = 0.0, device="cuda", dtype=None) -> ELLMatrix:
+    a = np.asarray(a)
+    mask = np.abs(a) > tol
+    k = max(int(mask.sum(axis=1).max()), 1)
+    nrows = a.shape[0]
+    data = np.zeros((nrows, k), dtype=a.dtype)
+    cols = np.zeros((nrows, k), dtype=np.int32)
+    for i in range(nrows):
+        (nz,) = np.nonzero(mask[i])
+        data[i, : nz.size] = a[i, nz]
+        cols[i, : nz.size] = nz
+    return ELLMatrix(data=_values(data, device, dtype),
+                     cols=_index(cols, device), shape=a.shape)
+
+
+def csr_to_ell(a: CSRMatrix, row_width: int | None = None) -> ELLMatrix:
+    """Repack CSR as ELL (host-side), on the input's device."""
+    data = _host(a.data)
+    indices = _host(a.indices)
+    indptr = _host(a.indptr)
+    counts = np.diff(indptr)
+    k = int(row_width if row_width is not None else max(counts.max(), 1))
+    nrows = a.shape[0]
+    out_d = np.zeros((nrows, k), dtype=data.dtype)
+    out_c = np.zeros((nrows, k), dtype=np.int32)
+    for i in range(nrows):
+        lo, hi = indptr[i], indptr[i + 1]
+        out_d[i, : hi - lo] = data[lo:hi]
+        out_c[i, : hi - lo] = indices[lo:hi]
+    dev = a.data.device
+    return ELLMatrix(data=_values(out_d, dev), cols=_index(out_c, dev),
+                     shape=a.shape)
+
+
+def poisson_csr(nsize: int, dtype=torch.float64, device="cuda") -> CSRMatrix:
+    """5-point Laplacian (C-order flattening) assembled directly in CSR,
+    never densified."""
+    n = nsize * nsize
+    idx = np.arange(n)
+    i, j = idx // nsize, idx % nsize
+    diags = []  # (offset, values, valid-mask)
+    diags.append((0, np.full(n, 4.0), np.ones(n, bool)))
+    diags.append((-nsize, np.full(n, -1.0), i > 0))
+    diags.append((-1, np.full(n, -1.0), j > 0))
+    diags.append((1, np.full(n, -1.0), j < nsize - 1))
+    diags.append((nsize, np.full(n, -1.0), i < nsize - 1))
+    rows, cols, vals = [], [], []
+    for off, v, m in diags:
+        rows.append(idx[m])
+        cols.append(idx[m] + off)
+        vals.append(v[m])
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    vals = np.concatenate(vals)
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    np.cumsum(indptr, out=indptr)
+    return CSRMatrix(
+        data=_values(vals, device, dtype),
+        indices=_index(cols, device),
+        indptr=_index(indptr, device),
+        shape=(n, n),
+    )
+
+
+def dia_from_dense(a, tol: float = 0.0, device="cuda", dtype=None) -> DIAMatrix:
+    """Extract every nonzero diagonal (host-side)."""
+    a = np.asarray(a)
+    n = a.shape[0]
+    offsets = []
+    rows = []
+    for off in range(-(n - 1), n):
+        d = np.diagonal(a, offset=off)
+        if np.any(np.abs(d) > tol):
+            row = np.zeros(n, dtype=a.dtype)
+            if off >= 0:
+                row[: n - off] = d
+            else:
+                row[-off:] = d
+            offsets.append(off)
+            rows.append(row)
+    return DIAMatrix(
+        data=_values(np.stack(rows) if rows else np.zeros((1, n)), device, dtype),
+        offsets=tuple(offsets) if offsets else (0,),
+        shape=a.shape,
+    )
+
+
+def csr_to_hyb(
+    a: CSRMatrix,
+    min_occupancy: float = 0.25,
+    max_diags: int = 64,
+) -> HYBMatrix:
+    """Split CSR into DIA (diagonals occupied on ≥ min_occupancy of
+    eligible rows; when more than max_diags qualify, the most-covered are
+    kept) + an ELL residue for the leftovers (host-side, on the input's
+    device). The split is exact: every nonzero lands in exactly one part."""
+    n_rows, n_cols = a.shape
+    data = _host(a.data)
+    indices = _host(a.indices)
+    indptr = _host(a.indptr)
+    dev = a.data.device
+    rows = np.repeat(np.arange(n_rows), np.diff(indptr))
+    offs = indices.astype(np.int64) - rows
+    uniq, counts = np.unique(offs, return_counts=True)
+    # Occupancy relative to the diagonal's maximum possible length.
+    max_len = np.minimum(n_rows - np.maximum(uniq, 0),
+                         n_cols + np.minimum(uniq, 0))
+    occ = counts / np.maximum(max_len, 1)
+    eligible = occ >= min_occupancy
+    chosen = uniq[eligible]
+    if chosen.size > max_diags:
+        # Most-covered first, with numpy's argsort order among ties, as in
+        # the JAX module.
+        order = np.argsort(-counts[eligible])
+        chosen = chosen[order[:max_diags]]
+    dia_offsets = tuple(int(o) for o in np.sort(chosen))
+    dia_data = np.zeros((max(len(dia_offsets), 1), n_rows),
+                        dtype=data.dtype)
+    in_dia = np.isin(offs, chosen)
+    if dia_offsets:
+        k_idx = np.searchsorted(np.asarray(dia_offsets), offs[in_dia])
+        dia_data[k_idx, rows[in_dia]] = data[in_dia]
+
+    res_mask = ~in_dia
+    ell = None
+    if res_mask.any():
+        r_rows = rows[res_mask]  # sorted (CSR order)
+        r_cols = indices[res_mask]
+        r_data = data[res_mask]
+        counts_r = np.bincount(r_rows, minlength=n_rows)
+        k = int(counts_r.max())
+        ell_d = np.zeros((n_rows, k), dtype=data.dtype)
+        ell_c = np.zeros((n_rows, k), dtype=np.int32)
+        starts = np.zeros(n_rows + 1, dtype=np.int64)
+        np.cumsum(counts_r, out=starts[1:])
+        slot = np.arange(r_rows.size) - starts[r_rows]
+        ell_d[r_rows, slot] = r_data
+        ell_c[r_rows, slot] = r_cols
+        ell = ELLMatrix(data=_values(ell_d, dev), cols=_index(ell_c, dev),
+                        shape=a.shape)
+    dia = DIAMatrix(
+        data=_values(dia_data, dev),
+        offsets=dia_offsets if dia_offsets else (0,),
+        shape=a.shape,
+    )
+    return HYBMatrix(dia=dia, ell=ell, shape=a.shape)
+
+
+def coo_to_hyb(
+    a: COOMatrix, min_occupancy: float = 0.25, max_diags: int = 64
+) -> HYBMatrix:
+    """COO → HYB via the CSR splitter (host-side; rows must be sorted, the
+    COOMatrix contract)."""
+    row = _host(a.row)
+    indptr = np.zeros(a.shape[0] + 1, dtype=np.int64)
+    np.add.at(indptr, row + 1, 1)
+    np.cumsum(indptr, out=indptr)
+    csr = CSRMatrix(data=a.data, indices=a.col,
+                    indptr=_index(indptr, a.data.device), shape=a.shape)
+    return csr_to_hyb(csr, min_occupancy=min_occupancy, max_diags=max_diags)
+
+
+def poisson_dia(nsize: int, dtype=torch.float64, device="cuda") -> DIAMatrix:
+    """5-point Laplacian directly in DIA (never densified): offsets
+    (−N, −1, 0, 1, N)."""
+    n = nsize * nsize
+    j = np.arange(n) % nsize
+    main = np.full(n, 4.0)
+    west = np.where(j > 0, -1.0, 0.0)    # A[i, i-1]
+    east = np.where(j < nsize - 1, -1.0, 0.0)  # A[i, i+1]
+    north = np.full(n, -1.0)
+    north[n - nsize:] = 0.0              # A[i, i+N] valid for i < n-N
+    south = np.full(n, -1.0)
+    south[:nsize] = 0.0                  # A[i, i-N] valid for i >= N
+    data = np.stack([south, west, main, east, north])
+    return DIAMatrix(
+        data=_values(data, device, dtype),
+        offsets=(-nsize, -1, 0, 1, nsize),
+        shape=(n, n),
+    )
+
+
+def bsr_from_dense(a, block_size: int, tol: float = 0.0, device="cuda",
+                   dtype=None) -> BSRMatrix:
+    """Blocked ELL from dense (host-side). Rows/cols must divide by
+    block_size; a block is kept if any entry is nonzero."""
+    a = np.asarray(a)
+    bs = block_size
+    nbr, nbc = a.shape[0] // bs, a.shape[1] // bs
+    blocks = a.reshape(nbr, bs, nbc, bs).transpose(0, 2, 1, 3)
+    occupied = np.abs(blocks).max(axis=(2, 3)) > tol  # (nbr, nbc)
+    k = max(int(occupied.sum(axis=1).max()), 1)
+    data = np.zeros((nbr, k, bs, bs), dtype=a.dtype)
+    cols = np.zeros((nbr, k), dtype=np.int32)
+    for i in range(nbr):
+        (nz,) = np.nonzero(occupied[i])
+        data[i, : nz.size] = blocks[i, nz]
+        cols[i, : nz.size] = nz
+    return BSRMatrix(data=_values(data, device, dtype),
+                     block_cols=_index(cols, device), shape=a.shape)
+
+
+def _check_range(name: str, idx: np.ndarray, hi: int) -> None:
+    if idx.size and (idx.min() < 0 or idx.max() >= hi):
+        raise ValueError(f"{name}: index out of range [0, {hi})")
+
+
+def sparse_from_numpy(kind: str, arrays: dict, shape, offsets=None,
+                      device="cuda"):
+    """A port container from the numpy arrays of a JAX container's fields
+    (``kind`` is "csr", "coo", "ell", "dia", "hyb" or "bsr"; the keys of
+    ``arrays`` are the field names). A HYB takes nested dicts for ``dia``
+    and ``ell`` (``ell`` may be None), and ``offsets`` for its DIA part.
+    Values keep their dtype, indices become int32, and indices outside the
+    matrix raise."""
+    shape = tuple(int(s) for s in shape)
+    n_rows, n_cols = shape
+    arr = {k: (v if isinstance(v, dict) or v is None else np.asarray(v))
+           for k, v in arrays.items()}
+    if kind == "csr":
+        _check_range("csr indices", arr["indices"], n_cols)
+        return CSRMatrix(data=_values(arr["data"], device),
+                         indices=_index(arr["indices"], device),
+                         indptr=_index(arr["indptr"], device), shape=shape)
+    if kind == "coo":
+        _check_range("coo row", arr["row"], n_rows)
+        _check_range("coo col", arr["col"], n_cols)
+        return COOMatrix(data=_values(arr["data"], device),
+                         row=_index(arr["row"], device),
+                         col=_index(arr["col"], device), shape=shape)
+    if kind == "ell":
+        _check_range("ell cols", arr["cols"], n_cols)
+        return ELLMatrix(data=_values(arr["data"], device),
+                         cols=_index(arr["cols"], device), shape=shape)
+    if kind == "dia":
+        if offsets is None or len(offsets) != arr["data"].shape[0]:
+            raise ValueError("dia: one offset per row of data is required")
+        return DIAMatrix(data=_values(arr["data"], device),
+                         offsets=tuple(int(o) for o in offsets), shape=shape)
+    if kind == "hyb":
+        ell = arr.get("ell")
+        return HYBMatrix(
+            dia=sparse_from_numpy("dia", arr["dia"], shape, offsets, device),
+            ell=None if ell is None else sparse_from_numpy("ell", ell, shape,
+                                                           device=device),
+            shape=shape)
+    if kind == "bsr":
+        bs = arr["data"].shape[-1]
+        _check_range("bsr block_cols", arr["block_cols"], n_cols // bs)
+        return BSRMatrix(data=_values(arr["data"], device),
+                         block_cols=_index(arr["block_cols"], device),
+                         shape=shape)
+    raise ValueError(f"unknown sparse kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Plain SpMVs (any device).
+# ---------------------------------------------------------------------------
+
+
+def dia_spmv(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y_i = Σ_k data[k, i] · x[i + off_k]: one roll + multiply-add per
+    diagonal in offset order, from zeros. Out-of-range positions carry zero
+    coefficients by construction, so the roll's wrap-around adds 0·x there
+    (a NaN or Inf of x at a wrapped position would still poison y; K3 never
+    reads those positions)."""
+    xf = x.reshape(-1)
+    y = torch.zeros_like(xf)
+    for k, off in enumerate(a.offsets):
+        y = y + a.data[k] * torch.roll(xf, -off)
+    return y
+
+
+def csr_row_ids(a: CSRMatrix) -> torch.Tensor:
+    """Per-nnz row ids from indptr (one searchsorted); loop-invariant for a
+    fixed matrix (``sparse_operator`` computes it once)."""
+    return torch.searchsorted(
+        a.indptr, torch.arange(a.nnz, dtype=a.indptr.dtype,
+                               device=a.indptr.device),
+        right=True, out_int32=True,
+    ) - 1
+
+
+def _segment_sum(prod: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros(n, dtype=prod.dtype, device=prod.device).index_add_(
+        0, rows, prod)
+
+
+def csr_spmv(a: CSRMatrix, x: torch.Tensor,
+             rows: torch.Tensor | None = None) -> torch.Tensor:
+    """y = A x: products gathered per nonzero, summed into rows with
+    ``index_add_`` (``rows`` from ``csr_row_ids``, recomputed when not
+    supplied)."""
+    if rows is None:
+        rows = csr_row_ids(a)
+    prod = a.data * x.reshape(-1)[a.indices]
+    return _segment_sum(prod, rows, a.shape[0])
+
+
+def coo_spmv(a: COOMatrix, x: torch.Tensor) -> torch.Tensor:
+    prod = a.data * x.reshape(-1)[a.col]
+    return _segment_sum(prod, a.row, a.shape[0])
+
+
+def ell_spmv(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x: one gather (nrows, k) + one dense row reduction."""
+    return torch.sum(a.data * x.reshape(-1)[a.cols], dim=1)
+
+
+def bsr_spmv(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Gather the x blocks, batched block matvec (einsum), in the promoted
+    dtype of the blocks and x, returned in x's dtype (JAX's
+    ``preferred_element_type=x.dtype``)."""
+    bs = a.block_size
+    xb = x.reshape(-1, bs)  # (n_block_cols, bs)
+    gathered = xb[a.block_cols]  # (nbr, k, bs)
+    dt = torch.promote_types(a.data.dtype, x.dtype)
+    return torch.einsum("rkab,rkb->ra", a.data.to(dt),
+                        gathered.to(dt)).reshape(-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernels K3 and K4.
+# ---------------------------------------------------------------------------
+
+# K3 takes its offsets as kernel parameters, at most this many per launch;
+# a DIA with more diagonals runs in several launches, each adding its
+# diagonals to the previous one's y in offset order (the same order of sums
+# as one launch). Must match kMaxDiags in csrc/dia_spmv.cu.
+DIA_MAX_DIAGS_PER_LAUNCH = 64
+
+
+def _check_same_device(what: str, x: torch.Tensor, *tensors) -> None:
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{what}: operand on {x.device}, matrix on "
+                             f"{t.device}")
+
+
+def _check_kernel_operands(what: str, x: torch.Tensor, values: torch.Tensor,
+                           *index) -> None:
+    """Device, dtype and contiguity checks before pointers reach a kernel."""
+    if not x.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+    _cuda.suffix(x.dtype)
+    _check_same_device(what, x, values, *index)
+    if values.dtype != x.dtype:
+        raise TypeError(f"{what}: matrix {values.dtype} and operand {x.dtype} "
+                        "differ")
+    for t in (x, values, *index):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous tensors")
+    for t in index:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: indices must be int32, got {t.dtype}")
+
+
+def dia_spmv_cuda(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch K3 on a CUDA operand: y (shape[0],) = A·x for x of shape[1]
+    entries (any shape, read flat). ``dia_spmv_cuda.launches`` counts
+    launches."""
+    xf = x.reshape(-1)
+    _check_kernel_operands("dia_spmv_cuda", xf, a.data)
+    n_rows, n_cols = a.shape
+    nd = len(a.offsets)
+    if xf.numel() != n_cols or tuple(a.data.shape) != (nd, n_rows):
+        raise ValueError(
+            f"dia_spmv_cuda: data {tuple(a.data.shape)} with {nd} offsets "
+            f"and x of {xf.numel()} entries do not fit shape {a.shape}")
+    if a.data.numel() >= 2**31 or n_cols >= 2**31:
+        raise ValueError("dia_spmv_cuda: matrix too large for one launch")
+    y = torch.empty(n_rows, dtype=xf.dtype, device=xf.device)
+    fn = getattr(_cuda.load(), f"gt_dia_spmv_{_cuda.suffix(xf.dtype)}")
+    row_bytes = n_rows * a.data.element_size()
+    for c0 in range(0, nd, DIA_MAX_DIAGS_PER_LAUNCH):
+        offs = a.offsets[c0:c0 + DIA_MAX_DIAGS_PER_LAUNCH]
+        rc = fn(a.data.data_ptr() + c0 * row_bytes, xf.data_ptr(),
+                y.data_ptr(), n_rows, n_cols,
+                (ctypes.c_int * len(offs))(*offs), len(offs), int(c0 > 0),
+                xf.device.index, _cuda.stream_of(xf))
+        _cuda.check(rc, "dia_spmv_cuda")
+        dia_spmv_cuda.launches += 1
+    return y
+
+
+dia_spmv_cuda.launches = 0
+
+
+def bsr_spmv_cuda(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Launch K4 on a CUDA operand: y (nbr·bs,) = A·x for x of nbc·bs
+    entries. ``bsr_spmv_cuda.launches`` counts launches."""
+    xf = x.reshape(-1)
+    _check_kernel_operands("bsr_spmv_cuda", xf, a.data, a.block_cols)
+    nbr, k, bs, bs2 = a.data.shape
+    if (bs != bs2 or k < 1 or tuple(a.block_cols.shape) != (nbr, k)
+            or a.shape[0] != nbr * bs or xf.numel() != a.shape[1]
+            or a.shape[1] % bs):
+        raise ValueError(
+            f"bsr_spmv_cuda: data {tuple(a.data.shape)}, block_cols "
+            f"{tuple(a.block_cols.shape)} and x of {xf.numel()} entries do "
+            f"not fit shape {a.shape}")
+    if a.data.numel() >= 2**31 or bs * xf.element_size() > 48 * 1024:
+        raise ValueError("bsr_spmv_cuda: matrix too large for one launch")
+    y = torch.empty(nbr * bs, dtype=xf.dtype, device=xf.device)
+    fn = getattr(_cuda.load(), f"gt_bsr_spmv_{_cuda.suffix(xf.dtype)}")
+    rc = fn(a.data.data_ptr(), a.block_cols.data_ptr(), xf.data_ptr(),
+            y.data_ptr(), nbr, k, bs, xf.device.index, _cuda.stream_of(xf))
+    _cuda.check(rc, "bsr_spmv_cuda")
+    bsr_spmv_cuda.launches += 1
+    return y
+
+
+bsr_spmv_cuda.launches = 0
+
+
+def dia_spmv_pallas(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
+    """DIA SpMV: the plain version for a CPU operand, K3 for a CUDA one."""
+    _check_same_device("dia_spmv_pallas", x, a.data)
+    if x.device.type == "cpu":
+        return dia_spmv(a, x)
+    return dia_spmv_cuda(a, x)
+
+
+def bsr_spmv_pallas(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
+    """BSR SpMV: the plain version for a CPU operand, K4 for a CUDA one."""
+    _check_same_device("bsr_spmv_pallas", x, a.data, a.block_cols)
+    if x.device.type == "cpu":
+        return bsr_spmv(a, x)
+    return bsr_spmv_cuda(a, x)
+
+
+def hyb_spmv(a: HYBMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for the hybrid format: the DIA part routed like
+    ``dia_spmv_pallas`` plus the gather-ELL residue."""
+    y = dia_spmv_pallas(a.dia, x)
+    if a.ell is not None:
+        y = y + ell_spmv(a.ell, x)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Operator adapters.
+# ---------------------------------------------------------------------------
+
+
+def sparse_operator(a) -> Callable:
+    """Wrap any sparse container as a LinearOperator closure over flat
+    vectors; an operand on another device than the matrix raises."""
+    if isinstance(a, CSRMatrix):
+        rows = csr_row_ids(a)
+        spmv, ref = (lambda x: csr_spmv(a, x, rows=rows)), a.data
+    elif isinstance(a, COOMatrix):
+        spmv, ref = (lambda x: coo_spmv(a, x)), a.data
+    elif isinstance(a, ELLMatrix):
+        spmv, ref = (lambda x: ell_spmv(a, x)), a.data
+    elif isinstance(a, BSRMatrix):
+        spmv, ref = (lambda x: bsr_spmv_pallas(a, x)), a.data
+    elif isinstance(a, HYBMatrix):
+        spmv, ref = (lambda x: hyb_spmv(a, x)), a.dia.data
+    elif isinstance(a, DIAMatrix):
+        spmv, ref = (lambda x: dia_spmv_pallas(a, x)), a.data
+    else:
+        raise TypeError(f"not a sparse matrix: {type(a)}")
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        _check_same_device("sparse_operator", x, ref)
+        return spmv(x)
+
+    return apply

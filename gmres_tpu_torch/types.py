@@ -1,7 +1,7 @@
 """Core result/status types of the PyTorch port.
 
 Counterpart of ``gmres_tpu/types.py``: the same status codes and the same
-GMRES result fields, as a plain dataclass over tensors (no pytree
+GMRES and CG result fields, as plain dataclasses over tensors (no pytree
 registration is needed in eager PyTorch).
 """
 
@@ -28,6 +28,54 @@ class SolverStatus(enum.IntEnum):
     CONVERGED = 0
     MAX_ITERATIONS = 1
     BREAKDOWN = 2
+
+
+def _fields_numpy(res, names) -> dict:
+    out = {}
+    for name in names:
+        v = getattr(res, name)
+        out[name] = (v.detach().cpu().numpy()
+                     if isinstance(v, torch.Tensor) else np.asarray(v))
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveResult:
+    """Result of a CG solve.
+
+    Attributes (the fields of ``gmres_tpu.SolveResult``):
+      x: solution tensor, shaped like b.
+      iterations: iterations performed.
+      residual: final absolute residual ‖r‖₂, a 0-d tensor (the true
+        residual ‖b − A x‖ once an iteration ran).
+      status: SolverStatus code.
+      residual_history: (max_iterations,) per-iteration ‖r‖₂, padded with
+        the final residual past the last iteration.
+
+    The loop counters are Python ints, as in ``GmresResult``.
+
+    Beyond the JAX fields:
+      host_syncs: device→host reads the solve made to decide its loop: the
+        initial residual, one per iteration, the final certification, and
+        the target when ``rtol`` is given.
+    """
+
+    x: torch.Tensor
+    iterations: int
+    residual: torch.Tensor
+    status: int
+    residual_history: torch.Tensor
+    host_syncs: int = 0
+
+    @property
+    def converged(self) -> bool:
+        return self.status == SolverStatus.CONVERGED
+
+    def to_numpy(self) -> dict:
+        """The JAX result fields as numpy values, for field-by-field
+        comparison with ``gmres_tpu``."""
+        return _fields_numpy(self, ("x", "iterations", "residual", "status",
+                                    "residual_history"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,13 +118,8 @@ class GmresResult:
     def to_numpy(self) -> dict:
         """The JAX result fields as numpy values, for field-by-field
         comparison with ``gmres_tpu``."""
-        out = {}
-        for name in ("x", "iterations", "restarts", "residual", "status",
-                     "residual_history", "v_err"):
-            v = getattr(self, name)
-            out[name] = (v.detach().cpu().numpy()
-                         if isinstance(v, torch.Tensor) else np.asarray(v))
-        return out
+        return _fields_numpy(self, ("x", "iterations", "restarts", "residual",
+                                    "status", "residual_history", "v_err"))
 
 
 def as_tensor(a, device, dtype=None) -> torch.Tensor:

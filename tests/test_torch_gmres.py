@@ -93,7 +93,7 @@ def test_householder_matches_numpy_golden():
     """The dense-matrix path against the explicit-reflector numpy oracle
     of tests/golden.py (the same check tests/test_gmres.py makes of JAX)."""
     nsize, m = 10, 25
-    a = tt.poisson_matrix(nsize)
+    a = tt.poisson_matrix(nsize, device="cpu")
     np.testing.assert_array_equal(a.numpy(), np.asarray(gt.poisson_matrix(nsize)))
     bf = a @ torch.ones(nsize * nsize, dtype=torch.float64)
     res = tt.gmres(a, bf, restart=m, tol=1e-10, breakdown_check=False)

@@ -1,5 +1,5 @@
-"""Kernels K1 and K2 of the PyTorch port on the card, against their plain
-PyTorch versions, and the main path's use of them.
+"""Kernels K1, K2, K3 and K4 of the PyTorch port on the card, against their
+plain PyTorch versions, and the main paths' use of them.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither jax nor gmres_tpu, so it also runs on a machine without
@@ -14,6 +14,7 @@ import torch
 
 import gmres_tpu_torch as tt
 from gmres_tpu_torch.ops import fused as tfu
+from gmres_tpu_torch.ops import sparse as tsp
 from gmres_tpu_torch.ops import stencil as tst
 from tests.torch_parity import cuda_device, np_poisson, rel_err, seeded, to_torch  # noqa: F401
 
@@ -100,3 +101,117 @@ def test_mg_solve_runs_on_the_kernels_and_matches_cpu(cuda_device):
     assert k1g > 0 and k2g > 0 and k1c == 0 and k2c == 0
     assert abs((rg.restarts - 1) * 10 + rg.iterations
                - (rc.restarts - 1) * 10 - rc.iterations) <= 2
+
+
+# ---------------------------------------------------------------------------
+# K3 (DIA SpMV) and K4 (BSR SpMV).
+# ---------------------------------------------------------------------------
+
+
+def _wide_dia(device, dtype, n=700, offsets=(-301, -128, -17, 0, 17, 256, 301)):
+    rng = np.random.default_rng(60)
+    dense = np.zeros((n, n))
+    for off in offsets:
+        dense += np.diag(rng.standard_normal(n - abs(off)), k=off)
+    return tt.dia_from_dense(dense, device=device, dtype=dtype)
+
+
+def _block_tridiagonal(device, dtype, nbr, bs, seed=61):
+    """Random blocks on the block tridiagonal; the first and last block rows
+    carry one all-zero padding block with block column 0."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((nbr, 3, bs, bs))
+    cols = np.stack([np.arange(nbr) - 1, np.arange(nbr), np.arange(nbr) + 1], 1)
+    data[0, 0] = 0.0
+    cols[0] = (0, 0, 1)
+    data[-1, 2] = 0.0
+    cols[-1] = (nbr - 2, nbr - 1, 0)
+    a = tt.sparse_from_numpy("bsr", {"data": data, "block_cols": cols},
+                             (nbr * bs, nbr * bs), device=device)
+    return tsp.BSRMatrix(data=a.data.to(dtype), block_cols=a.block_cols,
+                         shape=a.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["poisson 300", "poisson 1024", "wide 700",
+                                  "hyb 64", "199 diagonals"])
+def test_k3_matches_plain_bitwise(cuda_device, dtype, case):
+    """Built with -fmad=false and summed in offset order from zero, K3 gives
+    dia_spmv's bits on finite inputs; 199 diagonals take four launches that
+    keep that order."""
+    if case.startswith("poisson"):
+        a = tt.poisson_dia(int(case.split()[1]), dtype=dtype, device=cuda_device)
+    elif case == "wide 700":
+        a = _wide_dia(cuda_device, dtype)
+    elif case == "hyb 64":
+        a = tt.csr_to_hyb(tt.poisson_csr(64, dtype=dtype, device=cuda_device)).dia
+    else:
+        a = tt.dia_from_dense(seeded(62, (100, 100)), device=cuda_device, dtype=dtype)
+        assert a.ndiags == 199
+    x = to_torch(seeded(63, a.shape[1]), cuda_device).to(dtype)
+    before = tsp.dia_spmv_cuda.launches
+    y = tsp.dia_spmv_pallas(a, x)
+    torch.cuda.synchronize()
+    assert tsp.dia_spmv_cuda.launches - before == -(-a.ndiags // 64)
+    torch.testing.assert_close(y, tsp.dia_spmv(a, x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
+@pytest.mark.parametrize("nbr,bs", [(16, 128), (64, 64), (40, 8), (7, 100)])
+def test_k4_matches_einsum(cuda_device, dtype, rtol, nbr, bs):
+    """K4 against the einsum of bsr_spmv, whose order of sums is cuBLAS's:
+    within rtol of max|y|."""
+    a = _block_tridiagonal(cuda_device, dtype, nbr, bs)
+    x = to_torch(seeded(64, nbr * bs), cuda_device).to(dtype)
+    before = tsp.bsr_spmv_cuda.launches
+    y = tsp.bsr_spmv_pallas(a, x)
+    torch.cuda.synchronize()
+    assert tsp.bsr_spmv_cuda.launches == before + 1
+    assert rel_err(y, tsp.bsr_spmv(a, x)) < rtol
+
+
+def test_k3_k4_refuse_what_they_do_not_take(cuda_device):
+    a = tt.poisson_dia(8, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tsp.dia_spmv_pallas(a, torch.zeros(64, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(TypeError):
+        tsp.dia_spmv_pallas(tt.poisson_dia(8, dtype=torch.float16, device=cuda_device),
+                            torch.zeros(64, dtype=torch.float16, device=cuda_device))
+    with pytest.raises(ValueError, match="operand on"):
+        tsp.dia_spmv_pallas(tt.poisson_dia(8, device="cpu"),
+                            torch.zeros(64, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(ValueError, match="do not fit"):
+        tsp.dia_spmv_pallas(a, torch.zeros(63, dtype=torch.float32, device=cuda_device))
+    b = _block_tridiagonal(cuda_device, torch.float32, 4, 8)
+    with pytest.raises(ValueError, match="do not fit"):
+        tsp.bsr_spmv_pallas(b, torch.zeros(31, device=cuda_device))
+
+
+def test_sparse_cg_runs_on_the_kernels(cuda_device):
+    """cbpr2 CG at 64² on the HYB operator launches K3, on the BSR operator
+    K4; both converge to tol 1e-9 and take within 2 iterations of each
+    other and of the port's CPU solve."""
+    n = 64
+    b = np_poisson(np.ones((n, n))).reshape(-1)
+    iters = {}
+    for name, dev in (("hyb", cuda_device), ("bsr", cuda_device), ("cpu", "cpu")):
+        if name == "bsr":
+            mat = tt.bsr_from_dense(tt.poisson_matrix(n, device="cpu").numpy(), n,
+                                    device=dev)
+        else:
+            mat = tt.csr_to_hyb(tt.poisson_csr(n, device=dev))
+        op = tt.sparse_operator(mat)
+        k3, k4 = tsp.dia_spmv_cuda.launches, tsp.bsr_spmv_cuda.launches
+        res = tt.cg(op, tt.as_tensor(b, dev), tol=1e-9,
+                    M=tt.chebyshev_preconditioner(op, 0.2, 8.2))
+        x = res.x.cpu().numpy().reshape(n, n)
+        assert res.status == 0
+        assert np.linalg.norm(b - np_poisson(x).reshape(-1)) < 1e-9
+        launched = (tsp.dia_spmv_cuda.launches - k3, tsp.bsr_spmv_cuda.launches - k4)
+        # One SpMV in M(b) before the loop, two per iteration (A p and the
+        # one inside cbpr2), one in the final certification.
+        assert launched == {"hyb": (2 * res.iterations + 2, 0),
+                            "bsr": (0, 2 * res.iterations + 2),
+                            "cpu": (0, 0)}[name]
+        iters[name] = res.iterations
+    assert max(iters.values()) - min(iters.values()) <= 2

@@ -100,6 +100,6 @@ def test_poisson_model_matches():
     assert rel_err(tt.poisson_operator(n, flat=True)(to_torch(x.reshape(-1))),
                    gt.poisson_operator(n, flat=True)(jnp.asarray(x.reshape(-1)))) < 1e-15
     assert tt.poisson_spectral_bounds(n) == gt.poisson_spectral_bounds(n)
-    np.testing.assert_array_equal(to_np(tt.poisson_matrix(4, dtype=torch.float32)),
+    np.testing.assert_array_equal(to_np(tt.poisson_matrix(4, dtype=torch.float32, device="cpu")),
                                   to_np(gt.poisson_matrix(4, dtype=jnp.float32)))
 

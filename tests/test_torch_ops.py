@@ -144,6 +144,25 @@ def test_blas_ops_match():
                    jblas.tree_vdot(jnp.asarray(zc), jnp.asarray(zc[::-1]))) < TOL64
 
 
+def test_cg_blas_ops_match():
+    """The tree ops CG needs, real and complex: batched_vdot stacks the k
+    inner products (conjugating the first operand) into one (k,) tensor."""
+    a, b, c = seeded(506, (6, 5)), seeded(507, (6, 5)), seeded(508, (6, 5))
+    ta, tb, tc = to_torch(a), to_torch(b), to_torch(c)
+    ja, jb, jc = jnp.asarray(a), jnp.asarray(b), jnp.asarray(c)
+    assert rel_err(tblas.tree_sub(ta, tb), jblas.tree_sub(ja, jb)) == 0.0
+    assert rel_err(tblas.tree_axpy(torch.tensor(0.3, dtype=torch.float64), ta, tb),
+                   jblas.tree_axpy(jnp.asarray(0.3), ja, jb)) == 0.0
+    z = tblas.tree_zeros_like(ta)
+    assert z.shape == ta.shape and z.dtype == ta.dtype and not z.any()
+    out = tblas.batched_vdot([(ta, tb), (tb, tc), (ta, ta)])
+    assert out.shape == (3,)
+    assert rel_err(out, jblas.batched_vdot([(ja, jb), (jb, jc), (ja, ja)])) < TOL64
+    zc, zd = seeded(509, 5) + 1j * seeded(510, 5), seeded(511, 5) - 1j * seeded(512, 5)
+    assert rel_err(tblas.batched_vdot([(to_torch(zc), to_torch(zd))]),
+                   jblas.batched_vdot([(jnp.asarray(zc), jnp.asarray(zd))])) < TOL64
+
+
 def test_fortran_sign_matches_including_signed_zero():
     a = np.array([1.5, -2.0, 3.0, -4.0, 0.5])
     b = np.array([2.0, -1.0, 0.0, -0.0, -3.0])
@@ -166,6 +185,9 @@ def test_types_mirror_jax():
     jax_fields = [f.name for f in
                   gmres_tpu.GmresResult.__dataclass_fields__.values()]
     port_fields = list(gmres_tpu_torch.GmresResult.__dataclass_fields__)
+    assert port_fields[:len(jax_fields)] == jax_fields
+    jax_fields = list(gmres_tpu.SolveResult.__dataclass_fields__)
+    port_fields = list(gmres_tpu_torch.SolveResult.__dataclass_fields__)
     assert port_fields[:len(jax_fields)] == jax_fields
     t = gmres_tpu_torch.as_tensor(np.arange(3.0), "cpu", torch.float32)
     assert t.dtype == torch.float32 and t.device.type == "cpu"

@@ -65,5 +65,5 @@ def np_poisson(x: np.ndarray) -> np.ndarray:
 def cuda_device():
     """The first CUDA device; skips the test where there is none."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels K1/K2 run only on the card)")
+        pytest.skip("needs a CUDA device (the port's CUDA kernels run only on the card)")
     return torch.device("cuda", 0)
