@@ -41,6 +41,27 @@ Phases:
    phase 5's iteration count on the stencil; CG on the BSR form of the 64²
    Poisson matrix, which must launch K4.
 10. At 64², check that the port's GPU and CPU CG on the HYB operator agree.
+11. Compare kernel K5 (fused cbpr2 with halo rows) and kernel K7 (fused CG
+    update, K7a; fused axpy-dot, K7b) with their plain versions: K5 bitwise
+    at 304² float64 (the strong-scaling shard) with zero and with random
+    halo rows and at 2048² float32; K7 on a 2048² float32 and a 304² float64
+    block (elementwise outputs bitwise, the float32 sums to a stated
+    tolerance). Print times, bounds, the time of F.conv2d with K5's
+    function as a 3×3 cross kernel (cuDNN, TF32 off), and the time of the
+    eager torch calls that K7 fuses (add, sub, dot; add, dot). Then call K7 through the
+    public entry points as a per-shard caller would (no solver calls K7, as
+    in gmres_tpu).
+12. The strong-scaling configuration on the explicit-halo route with the
+    fused halo cbpr2 (the program itself applies the reference cbpr2 over
+    the GSPMD operator; the mathematics is the same): a one-rank NCCL
+    process group made here, the port's mesh, the 304² right-hand side
+    sharded over it, the halo operator (K1) and the fused halo cbpr2 (K5)
+    under MGSR GMRES (cgs2,
+    m=50, float64) at tol 1e-8 and 1e-15, the median wall of 3 solves, the
+    counts against the JAX package's, the launches of K1 and K5 against the
+    operator and preconditioner applications, a profiled solve; then the
+    same solve on plain tensors (the DTensor layer's cost), one mgs2 solve
+    and one CG solve on the same operators.
 
 Any failure raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
@@ -52,6 +73,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -79,6 +101,22 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # Inner iterations of the reference configuration at 300² recorded by the
 # JAX package (BENCH_r05.json, decomposition, CPU run).
 JAX_REFERENCE_INNER = 1200
+# The strong-scaling program's configuration (benchmarks/cli.py): 304²,
+# m=50, MGSR with cgs2, cbpr2 on REF_EIG, float64, up to 1000 restarts.
+STRONG_N = 304
+STRONG_M = 50
+# gmres_tpu's counts for it (restarts, inner iterations of the last cycle),
+# from jax.jit(gmres(..., variant="mgsr")) of the JAX package on the CPU, the
+# same on its explicit-halo route on 1 and 8 devices, except that at 1e-15
+# the last cycle takes 20 iterations on 1 device and 21 on 8 (the order of
+# rounding): the check allows 2 inner iterations.
+JAX_STRONG_COUNTS = {1e-8: (24, 15), 1e-15: (56, 21)}
+STRONG_REPEATS = 3
+# The program certifies the preconditioned norm ‖M(b − A x)‖/‖b‖. Its
+# independent numpy recomputation must meet tol, times this factor: at 1e-15
+# the float64 rounding of b − A x over 304² points is a tenth of the target
+# (the port's CPU solve: 9.943e-16 certified, 1.157e-15 recomputed in numpy).
+STRONG_ROUNDING = {1e-8: 1.0, 1e-15: 2.0}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -662,6 +700,307 @@ def phase_sparse_solvers(gt_torch, hyb, bsr_small, dev, ref_inner):
     return k4_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: K5 and K7.
+# ---------------------------------------------------------------------------
+
+
+def fused_work(numel, dt, vectors, flops_per_point):
+    """Bytes: `vectors` passes over numel elements of dt (each input read once,
+    each output written once); flops per point in dt."""
+    import torch
+
+    item = torch.empty((), dtype=dt).element_size()
+    return vectors * numel * item, flops_per_point * numel, dt, None
+
+
+def check_pair(name, outs_k, outs_p, rtols):
+    """Per-output relative errors of a kernel returning several tensors."""
+    errs = []
+    for i, (a, b, rtol) in enumerate(zip(outs_k, outs_p, rtols)):
+        abs_err = float((a.double() - b.double()).abs().max())
+        scale = float(b.double().abs().max())
+        rel = abs_err / scale if scale > 0 else abs_err
+        require(rel <= rtol, f"{name}: output {i} disagrees with the plain "
+                f"version (rel err {rel:.3e} > {rtol:.0e})")
+        errs.append((abs_err, rel))
+    return errs
+
+
+def cheb2_conv(r, top, bot, d, alpha, coefs):
+    """K5's yardstick, one F.conv2d: by linearity z = r/d + α(r − A(r)/d) is
+    a 5-point stencil, (1/d + α − α·c0/d)·r − (α/d)·Σ c_k·r_neighbour. With
+    halo rows the block is extended by them and padded only at the sides."""
+    import torch
+    import torch.nn.functional as F
+
+    c0, cw, ce, cs, cn = coefs
+    s = -alpha / d
+    w = torch.tensor([[0.0, s * cs, 0.0],
+                      [s * cw, 1.0 / d + alpha - alpha * c0 / d, s * ce],
+                      [0.0, s * cn, 0.0]], dtype=r.dtype, device=r.device)
+    w = w.reshape(1, 1, 3, 3)
+    if top is None:
+        return lambda: F.conv2d(r[None, None], w, padding=1)[0, 0]
+    ext = torch.cat([top.reshape(1, -1), r, bot.reshape(1, -1)])
+    return lambda: F.conv2d(ext[None, None], w, padding=(0, 1))[0, 0]
+
+
+def phase_fused_kernels(gt_torch, rng, dev):
+    """K5 and K7 against their plain versions; returns the records and the
+    K7 launches of the per-shard calls."""
+    import torch
+
+    from gmres_tpu_torch.ops import fused
+
+    records = {"K5": [], "K7a": [], "K7b": []}
+    print("phase 11: K5 and K7 against their plain versions", flush=True)
+    d, alpha = fused.chebyshev_ref_scalars(*REF_EIG)
+    coefs = (4.0, -1.0, -1.0, -1.0, -1.0)
+    for n, dt, halos in ((STRONG_N, torch.float64, "zero"),
+                         (STRONG_N, torch.float64, "random"),
+                         (2048, torch.float32, "random")):
+        tag = "f32" if dt == torch.float32 else "f64"
+        r = torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
+        top = bot = None
+        if halos == "random":
+            top = torch.as_tensor(rng.standard_normal(n)).to(dev, dt)
+            bot = torch.as_tensor(rng.standard_normal(n)).to(dev, dt)
+        item = r.element_size()
+        records["K5"].append(compare(
+            f"K5 {n}x{n} {tag} {halos} halo rows",
+            lambda: fused.cheb2_cuda(r, top, bot, d, alpha, coefs),
+            lambda: fused.chebyshev_poisson_fused_plain(r, top, bot, d, alpha, coefs),
+            0.0, 200 if n <= 304 else 50,
+            work=((2 * n * n + (2 * n if top is not None else 0)) * item,
+                  14 * n * n, dt, None),
+            library=cheb2_conv(r, top, bot, d, alpha, coefs)))
+    for n, dt in ((2048, torch.float32), (STRONG_N, torch.float64)):
+        tag = "f32" if dt == torch.float32 else "f64"
+        x, r, p, ap = (torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
+                       for _ in range(4))
+        a = torch.tensor(0.37, dtype=dt, device=dev)
+        reps = 200 if n <= 304 else 50
+        for name, kernel, plain, work, calls, pair in (
+            ("K7a", lambda: fused.cg_fused_update_cuda(x, r, p, ap, a),
+             lambda: fused.cg_fused_update_plain(x, r, p, ap, a),
+             fused_work(n * n, dt, 6, 6), "add, sub, dot",
+             lambda: torch.dot(torch.sub(r, ap, alpha=0.37).view(-1),
+                               torch.add(x, p, alpha=0.37).view(-1))),
+            ("K7b", lambda: fused.axpy_dot_cuda(a, x, r, p),
+             lambda: fused.axpy_dot_plain(a, x, r, p),
+             fused_work(n * n, dt, 4, 4), "add, dot",
+             lambda: torch.dot(torch.add(r, x, alpha=0.37).view(-1), p.view(-1))),
+        ):
+            case = f"{name} {n}x{n} {tag}"
+            outs_k, outs_p = kernel(), plain()
+            torch.cuda.synchronize()
+            # Elementwise outputs bitwise (-fmad=false); the float32 sum in
+            # another order than torch.sum's over n² terms: 1e-5 relative.
+            errs = check_pair(case, outs_k, outs_p,
+                              (0.0,) * (len(outs_k) - 1) + (1e-5,))
+            again = kernel()[-1]
+            torch.cuda.synchronize()
+            require(float(again) == float(outs_k[-1]),
+                    f"{case}: the sum changed between two calls")
+            rec = {"case": case, "max_abs_err": max(e[0] for e in errs),
+                   "max_rel_err": max(e[1] for e in errs),
+                   "sum_rel_err": errs[-1][1],
+                   "ms": device_ms(kernel, reps), "plain_ms": device_ms(plain, reps),
+                   "library_ms": None, "torch_pair_ms": device_ms(pair, reps)}
+            rec["bound_ms"], rec["bound_by"] = bound(*work[:3])
+            records[name].append(rec)
+            print(f"  {case:42s} elementwise bitwise, sum rel_err "
+                  f"{errs[-1][1]:.3e} (tol 1e-05), deterministic  device: kernel "
+                  f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                  f"{100 * rec['bound_ms'] / rec['ms']:.0f}% of it)", flush=True)
+            print(f"  {case:42s} yardstick, not one call: the eager torch "
+                  f"calls ({calls}) {rec['torch_pair_ms']:.4f} ms", flush=True)
+    # The per-shard use of K7 (no solver calls it): a CG step's x/r update
+    # and an axpy-dot on the strong-scaling shard, through the public names.
+    x, r, p, ap = (torch.as_tensor(rng.standard_normal((STRONG_N, STRONG_N)))
+                   .to(dev, torch.float64) for _ in range(4))
+    fused.cg_fused_update_cuda.launches = fused.axpy_dot_cuda.launches = 0
+    x, r, rsq = gt_torch.cg_fused_update(x, r, p, ap, 0.5)
+    p, pz = gt_torch.axpy_dot(float(rsq), p, r, ap)
+    torch.cuda.synchronize()
+    k7 = (fused.cg_fused_update_cuda.launches, fused.axpy_dot_cuda.launches)
+    require(k7 == (1, 1) and bool(torch.isfinite(pz)),
+            f"phase 11: per-shard K7 calls launched {k7}")
+    return records, k7
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the strong-scaling path on a one-rank mesh.
+# ---------------------------------------------------------------------------
+
+
+def cbpr2_scalars():
+    """cbpr2's (d, α) on REF_EIG, the reference's closed form."""
+    lo, hi = REF_EIG
+    c, d = (hi - lo) / 2.0, (hi + lo) / 2.0
+    return d, 1.0 / (d - (c / d / 2.0) ** 2)
+
+
+def np_cbpr2(r):
+    """Independent float64 cbpr2 (z = r/d; z += α(r − A z)) in numpy."""
+    d, alpha = cbpr2_scalars()
+    z = r / d
+    return z + alpha * (r - np_stencil(z))
+
+
+def cbpr2_min_eigenvalue(n):
+    """The least eigenvalue of cbpr2's M = p(A) over A's spectrum: p is
+    linear and decreasing, so it is p(λ_max). ‖b − A x‖ ≤ ‖M(b − A x)‖ / it."""
+    import math
+
+    d, alpha = cbpr2_scalars()
+    lam_max = 8.0 * math.sin(n * math.pi / (2 * (n + 1))) ** 2
+    return 1.0 / d + alpha * (1.0 - lam_max / d)
+
+
+def counted(fn, calls, key):
+    def wrapped(v):
+        calls[key] += 1
+        return fn(v)
+
+    return wrapped
+
+
+def phase_strong_scaling(gt_torch, dev, workdir):
+    """Phase 12 on a one-rank NCCL group made here (a file rendezvous in
+    `workdir`); returns the launches of K1 and K5 over the timed solves."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        return strong_scaling_solves(gt_torch, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def strong_scaling_solves(gt_torch, dev):
+    """The solves of phase 12 on a one-rank process group."""
+    import numpy as np
+
+    from gmres_tpu_torch.ops import fused, stencil
+
+    n, m = STRONG_N, STRONG_M
+    mesh = gt_torch.solver_mesh(1)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.shard_grid_vector(gt_torch.as_tensor(b_np, dev), mesh)
+    calls = {"A": 0, "M": 0}
+    op = counted(gt_torch.halo_poisson_operator(mesh), calls, "A")
+    m_inv = counted(gt_torch.halo_chebyshev_preconditioner(mesh, *REF_EIG),
+                    calls, "M")
+    p_min = cbpr2_min_eigenvalue(n)
+    launches = {"K1": 0, "K5": 0}
+
+    def check(res, tol, tag):
+        require(gt_torch.ops.blas.is_dtensor(res.x), f"{tag}: x is not sharded")
+        x = res.x.full_tensor().cpu().numpy()
+        require(x.shape == (n, n) and bool(np.isfinite(x).all()),
+                f"{tag}: x is not a finite {n}x{n} grid")
+        r = b_np - np_stencil(x)
+        prec = float(np.linalg.norm(np_cbpr2(r)) / np.linalg.norm(b_np))
+        true = float(np.linalg.norm(r) / np.linalg.norm(b_np))
+        factor = STRONG_ROUNDING[tol]
+        require(res.status == 0, f"{tag}: status {res.status}")
+        require(prec < factor * tol, f"{tag}: numpy ‖M(b − A x)‖/‖b‖ {prec:.3e} "
+                f">= {factor} × tol")
+        require(true <= factor * tol / p_min, f"{tag}: numpy ‖b − A x‖/‖b‖ "
+                f"{true:.3e} > {factor} × tol / λ_min(M) = {factor * tol / p_min:.3e}")
+        return prec, true
+
+    for tol, (j_restarts, j_iters) in JAX_STRONG_COUNTS.items():
+        def solve(tol=tol):
+            return gt_torch.gmres(op, b, restart=m, tol=tol, M=m_inv,
+                                  variant="mgsr", orthogonalization="cgs2",
+                                  max_restarts=1000, compute_v_err=False)
+
+        res, t_warm = timed(solve)  # warm-up
+        stencil.stencil5_cuda.launches = fused.cheb2_cuda.launches = 0
+        calls["A"] = calls["M"] = 0
+        times = []
+        for _ in range(STRONG_REPEATS):
+            res, t_solve = timed(solve)
+            times.append(t_solve)
+        k1, k5 = stencil.stencil5_cuda.launches, fused.cheb2_cuda.launches
+        launches["K1"] += k1
+        launches["K5"] += k5
+        total = (res.restarts - 1) * m + res.iterations
+        j_total = (j_restarts - 1) * m + j_iters
+        prec, true = check(res, tol, f"strong-scaling tol {tol:g}")
+        print(f"phase 12: strong-scaling {n}x{n} halo, 1 rank, mgsr cgs2 m={m} "
+              f"f64 tol {tol:g}: status {res.status}, {res.restarts} restarts, "
+              f"{res.iterations} in the last cycle, {total} inner iterations "
+              f"(gmres_tpu: {j_restarts}, {j_iters}, {j_total}), {res.host_syncs} "
+              f"host syncs, residual {float(res.residual):.4e}, numpy "
+              f"‖M(b − A x)‖/‖b‖ {prec:.4e}, ‖b − A x‖/‖b‖ {true:.4e}; wall s over "
+              f"{STRONG_REPEATS} solves: {quartiles(times)} (warm-up {t_warm:.4f}); "
+              f"{1e3 * float(np.median(times)) / total:.4f} ms per inner "
+              f"iteration; launches over the {STRONG_REPEATS} solves: K1 {k1} "
+              f"(operator applications {calls['A']}), K5 {k5} (preconditioner "
+              f"applications {calls['M']})", flush=True)
+        require(abs(total - j_total) <= 2,
+                f"strong-scaling tol {tol:g}: {total} inner iterations, "
+                f"gmres_tpu {j_total}")
+        require(k1 == calls["A"] > 0 and k5 == calls["M"] > 0,
+                f"strong-scaling tol {tol:g}: launches K1 {k1} K5 {k5} against "
+                f"applications A {calls['A']} M {calls['M']}")
+        if tol == TOL:
+            profile_solve(solve, f"strong-scaling {n}x{n} tol {tol:g}",
+                          float(np.median(times)))
+
+    j_total = (JAX_STRONG_COUNTS[TOL][0] - 1) * m + JAX_STRONG_COUNTS[TOL][1]
+    # The cost of the DTensor layer: the same solve (tol 1e-8) on plain
+    # tensors, with the single-device operator and cbpr2 (K1 only).
+    b_plain = gt_torch.as_tensor(b_np, dev)
+    op_plain = gt_torch.poisson_operator(n)
+    m_plain = gt_torch.chebyshev_preconditioner(op_plain, *REF_EIG)
+    for _ in range(2):  # a warm-up, then the timed solve
+        res, t_plain = timed(lambda: gt_torch.gmres(
+            op_plain, b_plain, restart=m, tol=TOL, M=m_plain, variant="mgsr",
+            max_restarts=1000, compute_v_err=False))
+    total = (res.restarts - 1) * m + res.iterations
+    print(f"phase 12: the same mgsr cgs2 solve at tol {TOL:g} on plain tensors "
+          f"(poisson_operator, cbpr2 on it): status {res.status}, {total} inner "
+          f"iterations, {t_plain:.4f} s = {1e3 * t_plain / total:.4f} ms per "
+          f"inner iteration", flush=True)
+    require(res.status == 0 and abs(total - j_total) <= 2,
+            "strong-scaling on plain tensors failed")
+
+    # The dryrun_multichip pair: MGSR with mgs2, and CG, on the same operators.
+    stencil.stencil5_cuda.launches = fused.cheb2_cuda.launches = 0
+    res, t_solve = timed(lambda: gt_torch.gmres(
+        op, b, restart=m, tol=TOL, M=m_inv, variant="mgsr",
+        orthogonalization="mgs2", max_restarts=1000, compute_v_err=False))
+    total = (res.restarts - 1) * m + res.iterations
+    prec, true = check(res, TOL, "strong-scaling mgs2")
+    print(f"phase 12: mgsr mgs2 tol {TOL:g}: status {res.status}, {total} inner "
+          f"iterations, numpy ‖M(b − A x)‖/‖b‖ {prec:.4e}, {t_solve:.4f} s, "
+          f"launches K1 {stencil.stencil5_cuda.launches} K5 "
+          f"{fused.cheb2_cuda.launches}", flush=True)
+    require(abs(total - j_total) <= 2,
+            f"strong-scaling mgs2: {total} inner iterations, cgs2's JAX count {j_total}")
+    launches["K1"] += stencil.stencil5_cuda.launches
+    launches["K5"] += fused.cheb2_cuda.launches
+    stencil.stencil5_cuda.launches = fused.cheb2_cuda.launches = 0
+    res, t_solve = timed(lambda: gt_torch.cg(op, b, tol=CG_TOL, M=m_inv))
+    err = abs_residual(b_np, res.x.full_tensor(), n)
+    print(f"phase 12: cbpr2 CG on the halo operator, tol {CG_TOL:g} absolute: "
+          f"status {res.status}, {res.iterations} iterations, numpy ‖b − A x‖ "
+          f"{err:.3e}, {t_solve:.4f} s, launches K1 {stencil.stencil5_cuda.launches} "
+          f"K5 {fused.cheb2_cuda.launches}", flush=True)
+    require(res.status == 0 and err < CG_TOL and fused.cheb2_cuda.launches > 0,
+            "strong-scaling CG failed")
+    launches["K1"] += stencil.stencil5_cuda.launches
+    launches["K5"] += fused.cheb2_cuda.launches
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -797,7 +1136,15 @@ def main() -> int:
     launches["K4"] = phase_sparse_solvers(gt_torch, hyb, bsr_small, dev,
                                           ref_inner)
 
-    def report(name, src, replaces, also, n_launches, timed_at):
+    # Phase 11: K5 and K7 against their plain versions; K7's per-shard calls.
+    fused_records, k7_launches = phase_fused_kernels(gt_torch, rng, dev)
+    records.update(fused_records)
+
+    # Phase 12: the strong-scaling path (halo operator, K1 and K5, MGSR).
+    with tempfile.TemporaryDirectory() as workdir:
+        strong = phase_strong_scaling(gt_torch, dev, workdir)
+
+    def report(name, src, replaces, also, n_launches, timed_at, **extra):
         recs = records[name]
         rec = [r for r in recs if r["case"] == timed_at][0]
         return {
@@ -807,13 +1154,16 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "timed_at": timed_at,
+            "library_ms": rec["library_ms"], "timed_at": timed_at, **extra,
         }
 
     print(json.dumps({"kernels": [
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
-               launches[2048][0] + launches[300][0], "K1 2048x2048 f32"),
+               launches[2048][0] + launches[300][0] + strong["K1"],
+               "K1 2048x2048 f32",
+               launches_by_path={"mg (phase 4)": launches[2048][0] + launches[300][0],
+                                 "strong-scaling (phase 12)": strong["K1"]}),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                launches[2048][1] + launches[300][1], "K2 order 3 2048x2048 f32"),
@@ -823,6 +1173,17 @@ def main() -> int:
         report("K4", "gmres_tpu_torch/csrc/bsr_spmv.cu",
                "gmres_tpu/ops/sparse.py:488", [], launches["K4"],
                f"K4 {BSR_CASES[-1][0]} f32"),
+        report("K5", "gmres_tpu_torch/csrc/cheb2_fused.cu",
+               "gmres_tpu/ops/fused.py:129", [], strong["K5"],
+               f"K5 {STRONG_N}x{STRONG_N} f64 zero halo rows"),
+        report("K7a", "gmres_tpu_torch/csrc/cg_fused.cu",
+               "gmres_tpu/ops/fused.py:50", [], k7_launches[0],
+               f"K7a {STRONG_N}x{STRONG_N} f64",
+               launched_by="phase 11 per-shard call; no solver calls it, as in gmres_tpu"),
+        report("K7b", "gmres_tpu_torch/csrc/cg_fused.cu",
+               "gmres_tpu/ops/fused.py:94", [], k7_launches[1],
+               f"K7b {STRONG_N}x{STRONG_N} f64",
+               launched_by="phase 11 per-shard call; no solver calls it, as in gmres_tpu"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

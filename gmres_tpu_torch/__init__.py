@@ -6,7 +6,10 @@ preconditioned by the reference's cbpr2 Chebyshev polynomial or by the
 geometric multigrid V-cycle, in full float64 or with float32 Arnoldi
 cycles certified on the float64 true residual. The second is the sparse
 path: the CSR/COO/ELL/DIA/HYB/BSR formats (``ops/sparse.py``) under
-classic and pipelined conjugate gradients (``solvers/cg.py``).
+classic and pipelined conjugate gradients (``solvers/cg.py``). The third
+is the distributed explicit-halo path (``parallel/``): a 1-D device mesh,
+row-sharded DTensor grid vectors, the halo stencil operator and the fused
+cbpr2 preconditioner, under MGSR GMRES and CG.
 
 Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
 ``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
@@ -14,8 +17,10 @@ and never ``jax``. On a CUDA tensor the stencil runs in kernel K1
 (``csrc/stencil5.cu``) and the order-k Chebyshev smoothers in kernel K2
 (``csrc/chebk.cu``), the DIA SpMV (DIA and HYB operators) in kernel K3
 (``csrc/dia_spmv.cu``) and the BSR SpMV in kernel K4
-(``csrc/bsr_spmv.cu``), all built with ``nvcc`` for ``sm_90a`` at first
-use; on a CPU tensor each takes its plain PyTorch version.
+(``csrc/bsr_spmv.cu``), the fused cbpr2 application in kernel K5
+(``csrc/cheb2_fused.cu``) and the fused CG update and axpy-dot in kernel
+K7 (``csrc/cg_fused.cu``), all built with ``nvcc`` for ``sm_90a`` at
+first use; on a CPU tensor each takes its plain PyTorch version.
 """
 
 from gmres_tpu_torch.types import (
@@ -68,7 +73,28 @@ from gmres_tpu_torch.ops.sparse import (
     sparse_operator,
 )
 from gmres_tpu_torch.ops.stencil import stencil5_cuda
-from gmres_tpu_torch.ops.fused import chebk_cuda
+from gmres_tpu_torch.ops.fused import (
+    axpy_dot,
+    axpy_dot_cuda,
+    cg_fused_update,
+    cg_fused_update_cuda,
+    cheb2_cuda,
+    chebk_cuda,
+    chebyshev_poisson_fused,
+)
+from gmres_tpu_torch.parallel.mesh import (
+    GRID_AXIS,
+    grid_sharding,
+    init_multihost,
+    shard_grid_vector,
+    solver_mesh,
+)
+from gmres_tpu_torch.parallel.halo import (
+    halo_chebyshev_preconditioner,
+    halo_exchange,
+    halo_poisson_operator,
+    halo_stencil_operator,
+)
 
 __all__ = [
     "GmresResult",
@@ -112,6 +138,21 @@ __all__ = [
     "chebk_cuda",
     "dia_spmv_cuda",
     "bsr_spmv_cuda",
+    "cheb2_cuda",
+    "cg_fused_update_cuda",
+    "axpy_dot_cuda",
+    "chebyshev_poisson_fused",
+    "cg_fused_update",
+    "axpy_dot",
+    "GRID_AXIS",
+    "grid_sharding",
+    "init_multihost",
+    "shard_grid_vector",
+    "solver_mesh",
+    "halo_chebyshev_preconditioner",
+    "halo_exchange",
+    "halo_poisson_operator",
+    "halo_stencil_operator",
 ]
 
 __version__ = "0.1.0"

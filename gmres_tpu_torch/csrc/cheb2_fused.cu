@@ -1,0 +1,94 @@
+// K5: the fused degree-2 Chebyshev (cbpr2) application on a (rows, cols)
+// block with explicit halo rows, for Hopper (sm_90a).
+//
+//   ar(i,j) = c0·r(i,j) + cw·r(i,j−1) + ce·r(i,j+1) + cs·r(i−1,j) + cn·r(i+1,j)
+//   z(i,j)  = r(i,j)·inv_d + alpha·(r(i,j) − ar(i,j)·inv_d)
+//
+// with zeros outside the block, except that row −1 is read from `top` and row
+// `rows` from `bot` when those pointers are not null (a null pointer is a zero
+// row — the Dirichlet boundary, or a shard with no neighbour there). By
+// linearity A(r/d) = A(r)/d, so this is the reference's three cbpr2 loops
+// (z = r/d; z += α(r − A z)) in one pass.
+//
+// Replaces the Pallas kernel `_cheb_kernel` (gmres_tpu/ops/fused.py, behind
+// chebyshev_poisson_fused), which the distributed halo_chebyshev_preconditioner
+// runs on each shard. The TPU kernel loads the whole shard into VMEM as one
+// block; here one launch covers any (rows, cols) with one thread per point.
+//
+// What bounds it: memory. Each point reads r once and writes z once (the four
+// neighbour reads hit L1/L2: neighbouring threads own neighbouring points) and
+// does 14 flops: ~0.9 flop/byte in float64, ~1.75 in float32, far under the
+// card's balance point. At 304² float64 (the strong-scaling shard on one card)
+// the block is 1.5 MB and the launch itself dominates; at 2048² float32
+// (33.6 MB) the HBM bound is ~10 µs. The design only has to stream, as K1's:
+// 32 consecutive columns per warp so every load and store is coalesced, no
+// shared memory.
+//
+// Rounding: the stencil sum in the order of the plain PyTorch version
+// (c0·r + cw·W + ce·E + cs·S + cn·N, left to right), then the epilogue in the
+// JAX kernel's order, with 1/d rounded to the dtype on the host. The library is
+// built with -fmad=false, so each product and sum rounds as the separate
+// PyTorch operations do: the target is bit-identity with the plain version.
+//
+// C interface (ctypes): returns cudaGetLastError() after the launch.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+
+template <typename T>
+__global__ void cheb2_kernel(const T* __restrict__ r, const T* __restrict__ top,
+                             const T* __restrict__ bot, T* __restrict__ z,
+                             int rows, int cols, T inv_d, T alpha, T c0, T cw,
+                             T ce, T cs, T cn) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= rows || j >= cols) return;
+  const long long idx = (long long)i * cols + j;
+  const T zero = T(0);
+  const T rc = r[idx];
+  const T w = j > 0 ? r[idx - 1] : zero;
+  const T e = j + 1 < cols ? r[idx + 1] : zero;
+  const T s = i > 0 ? r[idx - cols] : (top != nullptr ? top[j] : zero);
+  const T n = i + 1 < rows ? r[idx + cols] : (bot != nullptr ? bot[j] : zero);
+  const T ar = c0 * rc + cw * w + ce * e + cs * s + cn * n;
+  z[idx] = rc * inv_d + alpha * (rc - ar * inv_d);
+}
+
+template <typename T>
+int launch(const T* r, const T* top, const T* bot, T* z, int rows, int cols,
+           T inv_d, T alpha, T c0, T cw, T ce, T cs, T cn, int device,
+           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((cols + kBlockX - 1) / kBlockX, (rows + kBlockY - 1) / kBlockY);
+  cheb2_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+      r, top, bot, z, rows, cols, inv_d, alpha, c0, cw, ce, cs, cn);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int gt_cheb2_f32(const float* r, const float* top, const float* bot, float* z,
+                 int rows, int cols, float inv_d, float alpha, float c0,
+                 float cw, float ce, float cs, float cn, int device,
+                 void* stream) {
+  return launch<float>(r, top, bot, z, rows, cols, inv_d, alpha, c0, cw, ce, cs,
+                       cn, device, stream);
+}
+
+int gt_cheb2_f64(const double* r, const double* top, const double* bot,
+                 double* z, int rows, int cols, double inv_d, double alpha,
+                 double c0, double cw, double ce, double cs, double cn,
+                 int device, void* stream) {
+  return launch<double>(r, top, bot, z, rows, cols, inv_d, alpha, c0, cw, ce,
+                        cs, cn, device, stream);
+}
+
+}  // extern "C"

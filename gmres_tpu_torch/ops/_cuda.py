@@ -113,6 +113,9 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [vp, vp, vp, vp, i32, i32, real, vp, i32, vp, i32,
                            i32, vp]
             fn.restype = i32
+            fn = getattr(lib, f"gt_cheb2_{suffix}")
+            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 7 + [i32, vp]
+            fn.restype = i32
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"gt_dia_spmv_{suffix}")
             fn.argtypes = [vp, vp, vp, i32, i32, vp, i32, i32, i32, vp]
@@ -120,10 +123,18 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"gt_bsr_spmv_{suffix}")
             fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
             fn.restype = i32
+            fn = getattr(lib, f"gt_cg_update_{suffix}")
+            fn.argtypes = [vp] * 9 + [i32, i32, i32, vp]
+            fn.restype = i32
+            fn = getattr(lib, f"gt_axpy_dot_{suffix}")
+            fn.argtypes = [vp] * 7 + [i32, i32, i32, vp]
+            fn.restype = i32
         lib.gt_cuda_error_string.argtypes = [i32]
         lib.gt_cuda_error_string.restype = ctypes.c_char_p
         lib.gt_chebk_max_smem_steps.argtypes = []
         lib.gt_chebk_max_smem_steps.restype = i32
+        lib.gt_fused_reduce_blocks.argtypes = [i32]
+        lib.gt_fused_reduce_blocks.restype = i32
         _LIB = lib
     return _LIB
 

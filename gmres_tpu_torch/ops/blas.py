@@ -5,29 +5,61 @@ contractions around XLA:TPU's slow f64 ``dot``; that route has no reason
 to exist here, so ``row_contract``/``row_combine`` are plain
 ``tensordot`` (cuBLAS on the card, which keeps float32 products in full
 float32 as long as ``torch.backends.cuda.matmul.allow_tf32`` is False).
+
+Row-sharded vectors (``DTensor`` with ``[Shard(0)]``, see
+``parallel/mesh.py``): the reductions here are where a solver's values
+cross from the sharded vectors to its small state (Hessenberg column,
+Givens rotations, norms, step lengths). Each returns a plain tensor,
+all-reduced over the mesh (``as_plain``): DTensor refuses to combine a
+plain tensor with a DTensor in a product, and dispatching the solver's
+dozens of tiny per-iteration operations through DTensor would cost host
+time for nothing. Everything else a solver does is elementwise on the
+vectors and stays sharded. On plain tensors nothing changes.
 """
 
 from __future__ import annotations
 
 import torch
 
+if torch.distributed.is_available():
+    from torch.distributed.tensor import DTensor, Replicate
+else:  # a torch built without distributed: no tensor is a DTensor
+    DTensor, Replicate = (), None
+
+
+def is_dtensor(x) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor``."""
+    return isinstance(x, DTensor)
+
+
+def as_plain(t: torch.Tensor) -> torch.Tensor:
+    """A plain tensor holding the whole value of ``t``: a DTensor's
+    partial sums are all-reduced over its mesh (one collective), a
+    replicated DTensor is unwrapped; a plain tensor is returned as is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
 
 def row_contract(rows: torch.Tensor, v: torch.Tensor,
                  conj: bool = False) -> torch.Tensor:
     """Basis contraction (R, *shape) × (*shape) → (R,): rowsᵢ·v."""
     r = rows.conj() if conj else rows
-    return r.reshape(r.shape[0], -1) @ v.reshape(-1)
+    return as_plain(r.reshape(r.shape[0], -1) @ v.reshape(-1))
 
 
 def row_combine(coefs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Linear combination (R, *extra) × (R, *shape) → (*extra, *shape):
-    out[e] = Σᵢ coefs[i, e]·rowsᵢ (``tensordot(coefs, rows, dims=([0], [0]))``)."""
+    out[e] = Σᵢ coefs[i, e]·rowsᵢ (``tensordot(coefs, rows, dims=([0], [0]))``).
+    Communication-free on sharded rows: the coefficients are replicated."""
+    if is_dtensor(rows) and not is_dtensor(coefs):
+        coefs = DTensor.from_local(
+            coefs, rows.device_mesh, [Replicate()] * rows.device_mesh.ndim,
+            run_check=False)
     return torch.tensordot(coefs, rows, dims=([0], [0]))
 
 
 def tree_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Scalar inner product Σ conj(aᵢ)·bᵢ (0-d tensor)."""
-    return torch.sum(a.conj() * b)
+    return as_plain(torch.sum(a.conj() * b))
 
 
 def tree_norm(a: torch.Tensor) -> torch.Tensor:
@@ -51,8 +83,8 @@ def tree_zeros_like(a: torch.Tensor) -> torch.Tensor:
 
 def batched_vdot(pairs) -> torch.Tensor:
     """k inner products Σ conj(aᵢ)·bᵢ stacked into one (k,) tensor, so a
-    solver reads all k back from the device at once. Each is one ``vdot``
-    (one read of each operand; stacking the operands first would copy
-    them)."""
-    return torch.stack([torch.vdot(a.reshape(-1), b.reshape(-1))
-                        for a, b in pairs])
+    solver reads all k back from the device at once (and a mesh reduces all
+    k in one all-reduce). Each is one ``vdot`` (one read of each operand;
+    stacking the operands first would copy them)."""
+    return as_plain(torch.stack([torch.vdot(a.reshape(-1), b.reshape(-1))
+                                 for a, b in pairs]))

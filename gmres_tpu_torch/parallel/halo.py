@@ -1,0 +1,143 @@
+"""Explicit halo-exchange distributed stencil operator.
+
+Counterpart of ``gmres_tpu/parallel/halo.py``. The (N, N) grid is
+row-partitioned over the mesh (``parallel/mesh.py``): each rank owns a
+(rows_local, N) block, and the 5-point stencil needs exactly one row from
+each neighbour per application. JAX's ``shard_map`` becomes
+``torch.distributed.tensor.experimental.local_map``: the operators take
+and return row-sharded DTensors, and run on each rank's local block. A
+plain tensor is taken as this rank's block as it is.
+
+The halo exchange is two one-row messages to each neighbouring rank
+(``isend``/``irecv``). Rank 0 receives no row from above and the last rank
+none from below: those halo rows stay zero, which IS the homogeneous
+Dirichlet truncation of the reference, so physical boundaries need no
+special case. A one-rank mesh sends nothing.
+
+Each operator exchanges the halo rows, then runs the block through a
+function that routes by device: ``stencil_5pt_pallas_halo`` (K1 on a CUDA
+block) for the operator, ``chebyshev_poisson_fused`` (K5) for the order-2
+preconditioner, each the plain PyTorch version on a CPU block. JAX's
+interior-first overlap of the exchange (``_local_stencil_overlapped``) is
+not ported: on the CPU it only orders the rounding of the boundary rows
+differently, and on the card it waits for multi-card runs that can measure
+it. The JAX ``use_pallas``/``interpret`` switches have no counterpart: the
+device decides, as everywhere in the port.
+
+The RDMA operators of the JAX module (``rdma_stencil_operator``,
+``rdma_chebyshev_preconditioner``, in-kernel remote copies) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+import torch.distributed as dist
+
+from gmres_tpu_torch.ops.fused import (
+    chebyshev_poisson_fused,
+    chebyshev_ref_scalars,
+)
+from gmres_tpu_torch.ops.stencil import stencil_5pt_pallas_halo
+from gmres_tpu_torch.parallel.mesh import GRID_AXIS
+
+LAPLACE_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
+
+
+def halo_exchange(blk: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exchange one-row halos with the neighbouring ranks of ``group`` (a
+    process group, such as ``mesh.get_group("grid")``; None is the default
+    group).
+
+    Returns (top, bottom), each (1, ncols): ``top`` is the neighbour row
+    above this block (zeros on rank 0), ``bottom`` the row below (zeros on
+    the last rank)."""
+    top = torch.zeros((1, blk.shape[1]), dtype=blk.dtype, device=blk.device)
+    bottom = torch.zeros_like(top)
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    if size == 1:
+        return top, bottom
+    ops = []
+    if rank > 0:
+        up = dist.get_global_rank(group, rank - 1)
+        ops += [dist.P2POp(dist.isend, blk[:1].contiguous(), up, group),
+                dist.P2POp(dist.irecv, top, up, group)]
+    if rank < size - 1:
+        down = dist.get_global_rank(group, rank + 1)
+        ops += [dist.P2POp(dist.isend, blk[-1:].contiguous(), down, group),
+                dist.P2POp(dist.irecv, bottom, down, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return top, bottom
+
+
+def _sharded(mesh, fn: Callable) -> Callable:
+    """``fn`` on each rank's block of a row-sharded DTensor (local_map)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(fn, out_placements=[Shard(0)], in_placements=([Shard(0)],),
+                     device_mesh=mesh)
+
+
+def halo_stencil_operator(
+    mesh,
+    coefs=LAPLACE_COEFS,
+    axis: str = GRID_AXIS,
+) -> Callable:
+    """Matrix-free 5-point stencil over a row-partitioned (N, N) grid with
+    explicit halo exchange: K1 on a CUDA block, its plain version on a CPU
+    block.
+
+    The returned callable has the standard LinearOperator contract and
+    composes with the solvers, which never know the operator is
+    distributed."""
+    group = mesh.get_group(axis)
+    coefs = tuple(float(c) for c in coefs)
+
+    def apply_local(blk):
+        top, bottom = halo_exchange(blk, group)
+        return stencil_5pt_pallas_halo(blk, top, bottom, coefs)
+
+    return _sharded(mesh, apply_local)
+
+
+def halo_poisson_operator(mesh) -> Callable:
+    """Distributed Laplacian (the reference Poisson operator's semantics)."""
+    return halo_stencil_operator(mesh, LAPLACE_COEFS)
+
+
+def halo_chebyshev_preconditioner(
+    mesh,
+    lam_min: float,
+    lam_max: float,
+    coefs=LAPLACE_COEFS,
+    axis: str = GRID_AXIS,
+    order: int = 2,
+) -> Callable:
+    """Distributed Chebyshev preconditioner over the halo operator.
+
+    order=2 (default) is cbpr2 fused: one halo exchange and one pass
+    producing z = r·(1/d) + α(r − A(r)·(1/d)): K5 on a CUDA block, its
+    plain version on a CPU block. order>2 composes the general
+    semi-iteration over the halo stencil operator (one halo exchange per
+    sweep)."""
+    from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
+
+    if order != 2:
+        a_halo = halo_stencil_operator(mesh, coefs, axis=axis)
+        return chebyshev_preconditioner(
+            a_halo, lam_min, lam_max, order=order, reference_form=False
+        )
+
+    d, alpha = chebyshev_ref_scalars(lam_min, lam_max)
+    group = mesh.get_group(axis)
+    coefs = tuple(float(c) for c in coefs)
+
+    def m_inv_local(r_blk):
+        top, bottom = halo_exchange(r_blk, group)
+        return chebyshev_poisson_fused(r_blk, top, bottom, d, alpha, coefs)
+
+    return _sharded(mesh, m_inv_local)

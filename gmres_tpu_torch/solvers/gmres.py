@@ -1,13 +1,19 @@
-"""Restarted GMRES(m) with Householder (Walker '84) Arnoldi, in eager PyTorch.
+"""Restarted GMRES(m) with Householder (Walker '84) and MGS-with-
+reorthogonalisation (MGSR) Arnoldi, in eager PyTorch.
 
-Counterpart of the Householder variant of ``gmres_tpu/solvers/gmres.py``,
-with the same options and the same arithmetic:
+Counterpart of ``gmres_tpu/solvers/gmres.py``, with the same variants,
+options and arithmetic:
 
 * Fixed-size basis buffers (m+1, *shape), zero-initialised; reflector
   products in compact-WY form (ops/householder.py); Givens updates on an
   accumulated rotation matrix (ops/givens.py); masked back-substitution
   (ops/tri.py). The small-matrix state (H, g, Ω, y) is kept in the outer
   dtype.
+* MGSR orthogonalises twice per column, by classical ("cgs2": one basis
+  contraction and one rank update per pass) or modified ("mgs2": one dot
+  per basis row, the JAX ``lax.scan`` as a Python loop) Gram-Schmidt.
+  Both passes touch only the rows written so far: the JAX buffers' zero
+  rows contribute exact zeros, so skipping them changes no value.
 * Mixed precision (``inner_dtype``): Arnoldi cycles in the work dtype,
   residuals and Hessenberg state in the outer dtype, convergence certified
   at restart boundaries (GMRES-IR).
@@ -22,7 +28,13 @@ convergence reads one boolean from the device, and each restart reads one
 status code (``GmresResult.host_syncs`` counts them). The loop indices are
 Python ints, so indexing the buffers reads nothing back.
 
-The MGSR variant is not ported yet (ROADMAP queue 1, item 2).
+Row-sharded vectors: MGSR runs unchanged on a ``[Shard(0)]`` DTensor b
+(``parallel/mesh.py``). Its basis is then sharded along the grid rows, the
+reductions of ``ops/blas.py`` all-reduce over the mesh and return plain
+tensors, so the small state stays plain and identical on every rank. The
+Householder variant indexes single flat components of the vectors, which
+JAX reaches only through GSPMD; it raises NotImplementedError on a
+DTensor.
 """
 
 from __future__ import annotations
@@ -33,7 +45,13 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.ops import householder as wy
-from gmres_tpu_torch.ops.blas import tree_vdot
+from gmres_tpu_torch.ops.blas import (
+    as_plain,
+    is_dtensor,
+    row_combine,
+    row_contract,
+    tree_vdot,
+)
 from gmres_tpu_torch.ops.flat import flat_add, flat_get, mask_ge
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.tri import masked_back_substitution
@@ -87,6 +105,55 @@ def _v_err_householder(gram: torch.Tensor, n_out: int, dtype) -> torch.Tensor:
     return torch.cat([v, torch.zeros(1, dtype=v.dtype, device=v.device)]).to(dtype)
 
 
+def _v_err_mgsr(gram: torch.Tensor, n_out: int, rdtype) -> torch.Tensor:
+    """Cumulative orthogonality chain of the MGSR reference:
+    v_err(j+1)² = v_err(j)² + Σ_{i≤j} 2|Vi·V_{j+1}|² + |V_{j+1}·V_{j+1} − 1|²."""
+    mp1 = gram.shape[0]
+    idx = torch.arange(mp1, device=gram.device)
+    sq = gram.abs() ** 2
+    off = torch.where(idx[None, :] < idx[:, None], sq, torch.zeros_like(sq))
+    a = 2.0 * torch.sum(off, dim=1) + (torch.diagonal(gram) - 1.0).abs() ** 2
+    active = (idx >= 1) & (idx <= n_out)
+    a = torch.where(active, a, torch.zeros_like(a))
+    return torch.sqrt(torch.cumsum(a, 0)).to(rdtype) * active.to(rdtype)
+
+
+def _cgs_pass(v_basis: torch.Tensor, w: torch.Tensor):
+    """Classical Gram-Schmidt pass over the basis rows given: h = V̄·w,
+    w ← w − Vᵀh (one all-reduce on a mesh)."""
+    h = row_contract(v_basis, w, conj=True)
+    return h, w - row_combine(h, v_basis)
+
+
+def _mgs_pass(v_basis: torch.Tensor, w: torch.Tensor):
+    """Modified Gram-Schmidt pass: sequential over the basis rows given,
+    one dot (one all-reduce on a mesh) per row."""
+    hs = []
+    for i in range(v_basis.shape[0]):
+        v_row = v_basis[i]
+        h = tree_vdot(v_row, w)  # ⟨v, w⟩: conjugate-linear in v
+        w = w - h * v_row
+        hs.append(h)
+    return torch.stack(hs), w
+
+
+def _inner_floor(beta, beta0, rel_prev, tol, inner_gain, certify_true,
+                 mixed, tiny):
+    """The inner convergence floor of one cycle (shared by both variants).
+    Certification is in another norm than the inner estimate: stop the
+    cycle when the work dtype can no longer improve it, or near the target
+    projected through the preconditioned/true norm ratio measured at the
+    restart boundary. In mixed mode stop at ~ε_work of the cycle-start
+    residual."""
+    if certify_true:
+        return (beta / beta0) * torch.clamp(
+            0.1 * tol / torch.clamp(rel_prev, min=tiny), min=inner_gain
+        )
+    if mixed:
+        return torch.clamp((beta / beta0) * inner_gain, min=tol)
+    return tol
+
+
 # ---------------------------------------------------------------------------
 # Restarted driver: each restart starts from the preconditioned true
 # residual (outer dtype), runs one Arnoldi cycle in the work dtype, updates
@@ -110,6 +177,7 @@ def _restarted(
     work_dtype,
 ):
     dtype = b.dtype
+    rdtype = dtype.to_real()  # norms and the residual history
     beta0 = _norm(b)
     tiny = torch.finfo(dtype).tiny
 
@@ -136,7 +204,7 @@ def _restarted(
     converged = bool((beta0 == 0) | (rel_init < tol))
     breakdown = False
     x, k, n_out, rel_prev = x0, 0, 0, rel_init
-    ferr = torch.zeros((m,), dtype=dtype, device=b.device)
+    ferr = torch.zeros((m,), dtype=rdtype, device=b.device)
     basis = None
     while k < max_restarts and not converged and not breakdown:
         x_new, n_out, ferr, h_val, basis, inner_syncs = cycle(
@@ -223,18 +291,8 @@ def _gmres_householder(
         giv = givens_init(m, g0)._replace(beta0=beta0)
         hmat = torch.zeros((m + 1, m), dtype=dtype, device=dev)
         ferr = torch.zeros((m,), dtype=dtype, device=dev)
-        if certify_true:
-            # Certification is in another norm than the inner estimate:
-            # stop the cycle when the work dtype can no longer improve it,
-            # or near the target projected through the preconditioned/true
-            # norm ratio measured at the restart boundary.
-            inner_floor = (beta / beta0) * torch.clamp(
-                0.1 * tol / torch.clamp(rel_prev, min=tiny), min=inner_gain
-            )
-        elif mixed:
-            inner_floor = torch.clamp((beta / beta0) * inner_gain, min=tol)
-        else:
-            inner_floor = tol
+        inner_floor = _inner_floor(beta, beta0, rel_prev, tol, inner_gain,
+                                   certify_true, mixed, tiny)
 
         syncs = 0
         t = 0
@@ -310,6 +368,102 @@ def _gmres_householder(
 
 
 # ---------------------------------------------------------------------------
+# MGSR variant.
+# ---------------------------------------------------------------------------
+
+
+def _gmres_mgsr(
+    A: LinearOperator,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    m: int,
+    tol: float,
+    max_restarts: int,
+    M: Optional[Preconditioner],
+    orthogonalization: str,
+    check_inner: bool,
+    compute_v_err: bool,
+    work_dtype,
+    certify_true: bool,
+) -> GmresResult:
+    dtype = b.dtype
+    rdtype = dtype.to_real()
+    dev = b.device
+    mixed = work_dtype != dtype
+    ortho = _cgs_pass if orthogonalization == "cgs2" else _mgs_pass
+    inner_gain = float(torch.finfo(work_dtype).eps) * 10.0
+    tiny = torch.finfo(dtype).tiny
+
+    def cycle(x, w, beta, beta0, rel_prev):
+        # β-normalised in the outer dtype before the work-dtype cast.
+        bsafe = _nonzero_or_one(beta)
+        w_work = (w / bsafe).to(work_dtype)
+        # Built from w so that a sharded b gives a basis sharded alike.
+        v_basis = torch.stack([w_work] + [torch.zeros_like(w_work)] * m)
+        g0 = torch.zeros((m + 1,), dtype=dtype, device=dev)
+        g0[0] = beta
+        giv = givens_init(m, g0)._replace(beta0=beta0.to(dtype))
+        hmat = torch.zeros((m + 1, m), dtype=dtype, device=dev)
+        ferr = torch.zeros((m,), dtype=rdtype, device=dev)
+        inner_floor = _inner_floor(beta, beta0, rel_prev, tol, inner_gain,
+                                   certify_true, mixed, tiny)
+
+        syncs = 0
+        t = 0
+        while True:
+            z = A(v_basis[t])
+            w_t = M(z) if M is not None else z
+            # Two passes with H accumulated (the reference's `do k=1,2`),
+            # over the t+1 rows written so far.
+            h1, w_t = ortho(v_basis[: t + 1], w_t)
+            h2, w_t = ortho(v_basis[: t + 1], w_t)
+            h_val = _norm(w_t)
+            hcol = torch.zeros((m + 1,), dtype=dtype, device=dev)
+            hcol[: t + 1] = (h1 + h2).to(dtype)
+            hcol[t + 1] = h_val.to(dtype)
+            giv, col, g_next = givens_step(giv, hcol, t)
+            hmat[:, t] = col
+            rel = g_next.abs() / giv.beta0.abs()
+            ferr[t] = rel
+            # V(:, t+1) is written unconditionally, as the reference does.
+            v_basis[t + 1] = w_t / _nonzero_or_one(h_val).to(work_dtype)
+            t += 1
+            if t >= m:
+                break
+            if check_inner or mixed:
+                converged = (rel < inner_floor) | (h_val.to(rdtype) < tol)
+                syncs += 1
+                if bool(converged):
+                    break
+        n_out = t
+
+        y = masked_back_substitution(hmat, giv.g, n_out)
+        # x += Σ y_r V_r, y normalised by β before the work-dtype cast and
+        # rescaled in the outer dtype.
+        dx = row_combine((y / bsafe).to(work_dtype), v_basis[:m])
+        x = x + bsafe * dx.to(dtype)
+        return x, n_out, ferr, h_val.to(rdtype), v_basis, syncs
+
+    x, k, n_out, ferr, v_basis, status, residual, syncs = _restarted(
+        cycle, A, b, x0, m, tol, max_restarts, M, mixed,
+        breakdown_check=True, certify_true=certify_true,
+        work_dtype=work_dtype,
+    )
+
+    if compute_v_err and v_basis is not None:
+        vf = v_basis.reshape(m + 1, -1)
+        gram = as_plain(vf.conj() @ vf.T).to(dtype)  # Hermitian Gram
+        v_err = _v_err_mgsr(gram, n_out, rdtype)
+    else:
+        v_err = torch.zeros((m + 1,), dtype=rdtype, device=dev)
+
+    return GmresResult(
+        x=x, iterations=n_out, restarts=k, residual=residual,
+        status=status, residual_history=ferr, v_err=v_err, host_syncs=syncs,
+    )
+
+
+# ---------------------------------------------------------------------------
 # Public entry point.
 # ---------------------------------------------------------------------------
 
@@ -336,14 +490,16 @@ def gmres(
     The arguments are those of ``gmres_tpu.gmres``:
       A: callable operator y = A(x) on tensors shaped like b, or a dense
         (n, n) matrix (tensor or numpy array) for a flat b.
-      b: right-hand side tensor; its device is the device of the solve.
+      b: right-hand side tensor; its device is the device of the solve. A
+        row-sharded DTensor (``shard_grid_vector``) runs the mgsr variant
+        over the mesh.
       restart: Krylov dimension m per cycle (clamped to b.numel() − 1).
       tol: relative-residual tolerance.
       max_restarts: restart cap.
       M: optional left preconditioner z = M(r).
-      variant: "householder"; "mgsr" is not ported yet and raises
-        NotImplementedError.
-      orthogonalization: validated for "mgsr" ("cgs2" or "mgs2").
+      variant: "householder" (compact-WY Walker '84) or "mgsr".
+      orthogonalization: for mgsr, "cgs2" (classical Gram-Schmidt twice)
+        or "mgs2" (modified Gram-Schmidt twice).
       check_inner: test convergence every inner iteration (False: only at
         restart boundaries).
       compute_v_err: run the orthogonality audit.
@@ -361,6 +517,11 @@ def gmres(
         raise ValueError(
             "variant='householder' is real-only (the Walker sign "
             "convention and reflector algebra assume real arithmetic)"
+        )
+    if is_dtensor(b) and variant == "householder":
+        raise NotImplementedError(
+            "variant='householder' on a row-sharded DTensor b is not ported: "
+            "use variant='mgsr' (ROADMAP queue 1, item 8)"
         )
     op = _as_operator(A, b.device)
     if b.numel() == 1:
@@ -398,7 +559,8 @@ def gmres(
     if variant == "mgsr":
         if orthogonalization not in ("cgs2", "mgs2"):
             raise ValueError(f"unknown orthogonalization {orthogonalization}")
-        raise NotImplementedError(
-            "variant='mgsr' is not ported yet: ROADMAP queue 1, item 2"
+        return _gmres_mgsr(
+            op, b, x0, restart, tol, max_restarts, M, orthogonalization,
+            check_inner, compute_v_err, work_dtype, certify_true,
         )
     raise ValueError(f"unknown variant {variant}")

@@ -164,7 +164,7 @@ def test_one_by_one(a_val):
 def test_probes():
     """The verify-skill probes: bad variant / orthogonalization / certify
     raise ValueError; max_restarts hit gives status 1; b = 0 converges in
-    0 iterations; the MGSR variant is not ported yet."""
+    0 iterations; the MGSR variant runs (it raised before it was ported)."""
     n = 8
     op = tt.poisson_operator(n)
     b = tt.as_tensor(seeded(803, (n, n)), "cpu")
@@ -176,8 +176,7 @@ def test_probes():
         tt.gmres(op, b, certify="nope")
     with pytest.raises(ValueError, match="real-only"):
         tt.gmres(op, b.to(torch.complex128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.gmres(op, b, variant="mgsr")
+    assert tt.gmres(op, b, variant="mgsr").converged
     with pytest.raises(TypeError):
         tt.gmres("not an operator", b)
 
@@ -192,3 +191,97 @@ def test_probes():
     assert rt.status == 0 and rt.iterations == 0 and rt.restarts == 0
     assert not rt.x.any() and rt.host_syncs == 1
     np.testing.assert_array_equal(ft["residual_history"], fj["residual_history"])
+
+
+# ---------------------------------------------------------------------------
+# The MGSR variant.
+# ---------------------------------------------------------------------------
+
+
+def _mgsr_pair(n, ortho, precond, rhs, **kw):
+    """gmres_tpu and the port, MGSR, on the same float64 rhs."""
+    b = (_poisson_rhs(n) if rhs == "ones" else seeded(810, (n, n)))
+    common = dict(restart=20, tol=1e-10, max_restarts=300, variant="mgsr",
+                  orthogonalization=ortho)
+    jkw, tkw = dict(kw), dict(kw)
+    if "inner_dtype" in kw:
+        jkw["inner_dtype"], tkw["inner_dtype"] = jnp.float32, torch.float32
+    mj = (gt.chebyshev_preconditioner(gt.poisson_operator(n), 0.2, 8.2)
+          if precond else None)
+    mt = (tt.chebyshev_preconditioner(tt.poisson_operator(n), 0.2, 8.2)
+          if precond else None)
+    rj = gt.gmres(gt.poisson_operator(n), jnp.asarray(b), M=mj, **common, **jkw)
+    rt = tt.gmres(tt.poisson_operator(n), tt.as_tensor(b, "cpu"), M=mt,
+                  **common, **tkw)
+    return b, rj, rt
+
+
+def _assert_mgsr_close(ft, fj):
+    """Counts equal; x to 1e-9; the residual history and the residual (both
+    relative to ‖b‖) to 1e-9 above an absolute 1e-12: the last cycle starts
+    from a true residual of ~1e-10·‖b‖ recomputed at every restart, which
+    carries the rounding of all earlier cycles (up to 14 here); v_err (the
+    cumulative chain, ~1e-15 for a float64 basis) to its rounding floor of
+    1e-14."""
+    _assert_same_counts(ft, fj)
+    assert rel_err(ft["x"], fj["x"]) < 1e-9
+    np.testing.assert_allclose(ft["residual_history"], fj["residual_history"],
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(ft["residual"], fj["residual"], rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(ft["v_err"], fj["v_err"], rtol=0, atol=1e-14)
+
+
+@pytest.mark.parametrize("ortho", ["cgs2", "mgs2"])
+@pytest.mark.parametrize("n,precond,rhs", [(24, True, "ones"), (32, False, "ones"),
+                                           (48, True, "seeded"), (64, True, "ones")])
+def test_mgsr_matches_jax(ortho, n, precond, rhs):
+    _, rj, rt = _mgsr_pair(n, ortho, precond, rhs)
+    ft = rt.to_numpy()
+    assert rt.converged
+    _assert_mgsr_close(ft, _fields(rj))
+    assert 0 < ft["v_err"].max() < 1e-13
+
+
+@pytest.mark.parametrize("ortho", ["cgs2", "mgs2"])
+def test_mgsr_mixed_certified_matches_jax(ortho):
+    """float32 Arnoldi cycles certified on the float64 true residual: the
+    float32 sums run in another order than XLA's, so the inner iterations
+    may differ, by at most 2 in all."""
+    b, rj, rt = _mgsr_pair(48, ortho, True, "ones", inner_dtype="f32",
+                           certify="true")
+    assert int(rj.status) == rt.status == 0
+    assert abs(total_inner(rt, 20) - total_inner(rj, 20)) <= 2
+    for x in (rt.x.numpy(), np.asarray(rj.x)):
+        assert np.linalg.norm(b - np_poisson(x)) / np.linalg.norm(b) <= 1e-10
+    assert rt.x.dtype == torch.float64 and rt.v_err.max() < 1e-5
+
+
+def test_mgsr_options_match_jax():
+    """check_inner=False (restart-boundary checks only: one host read per
+    restart) and an x0 give JAX's counts and history."""
+    n = 16
+    b, x0 = seeded(811, (n, n)), seeded(812, (n, n))
+    kw = dict(restart=8, tol=1e-9, max_restarts=200, variant="mgsr",
+              check_inner=False)
+    rj = gt.gmres(gt.poisson_operator(n), jnp.asarray(b), x0=jnp.asarray(x0), **kw)
+    rt = tt.gmres(tt.poisson_operator(n), tt.as_tensor(b, "cpu"),
+                  x0=tt.as_tensor(x0, "cpu"), **kw)
+    _assert_mgsr_close(rt.to_numpy(), _fields(rj))
+    assert rt.host_syncs == 1 + rt.restarts
+
+
+@pytest.mark.parametrize("ortho", ["cgs2", "mgs2"])
+def test_mgsr_complex_dense_matches_jax(ortho):
+    """MGSR on a complex dense operator (the Householder variant is
+    real-only): conjugated projections, a real residual history and v_err."""
+    rng = np.random.default_rng(813)
+    n = 40
+    a = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+         + 20.0 * np.eye(n))
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    kw = dict(restart=10, tol=1e-10, variant="mgsr", orthogonalization=ortho)
+    rj = gt.gmres(a, jnp.asarray(b), **kw)
+    rt = tt.gmres(a, tt.as_tensor(b, "cpu"), **kw)
+    assert rt.converged and rt.x.dtype == torch.complex128
+    assert rt.residual_history.dtype == rt.v_err.dtype == torch.float64
+    _assert_mgsr_close(rt.to_numpy(), _fields(rj))

@@ -1,0 +1,174 @@
+"""The distributed explicit-halo path of the PyTorch port against
+gmres_tpu.parallel, at 1, 2 and 4 ranks.
+
+Each world size runs as that many gloo processes on the CPU
+(tests/torch_halo_worker.py), which rendezvous on a file under the
+test's temporary directory, so concurrent test workers never share a
+port. Every rank drives the port on row-sharded DTensors and writes its
+local blocks; the blocks are assembled here and held against JAX's
+shard_map halo path on the 8-virtual-device CPU mesh (conftest.py), with
+the same numpy-seeded inputs. Tolerances: the operators and
+preconditioners to 1e-13 relative (a shard boundary moves where a halo
+row is added, which may change a last bit); the solvers' counts equal and
+their solutions to 1e-9 relative (solves to tol 1e-9/1e-10 from the same
+operators); residual histories to 1e-9 relative above a 1e-15 floor, and
+CG's certified residual above the 1e-13 floor of its own rounding.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch.multiprocessing as mp
+
+import gmres_tpu as gt
+from gmres_tpu.models.convection_diffusion import convection_diffusion_coefs
+from gmres_tpu.parallel.halo import (
+    halo_chebyshev_preconditioner,
+    halo_poisson_operator,
+    halo_stencil_operator,
+)
+from gmres_tpu.parallel.mesh import shard_grid_vector, solver_mesh
+from tests import torch_halo_worker
+from tests.torch_parity import np_poisson, rel_err, seeded
+
+N_OP = 32      # operator and preconditioner grid, and CG's
+N_GMRES = 24   # GMRES grid (tests/test_halo.py's)
+RESTART = 12
+ORTHOS = ("cgs2", "mgs2")
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return {
+        "x": seeded(900, (N_OP, N_OP)),
+        "coefs": convection_diffusion_coefs(0.4, 0.2),
+        "b_cg": np_poisson(np.ones((N_OP, N_OP))),
+        "b_gmres": np_poisson(np.ones((N_GMRES, N_GMRES))),
+        "restart": RESTART,
+    }
+
+
+@pytest.fixture(scope="module")
+def jax_ref(cases):
+    """JAX's halo path on the 8-device mesh: the same cases as the worker."""
+    mesh = solver_mesh(8)
+
+    def shard(a):
+        return shard_grid_vector(jnp.asarray(a), mesh)
+
+    x = shard(cases["x"])
+    ref = {
+        "y_poisson": jax.jit(halo_poisson_operator(mesh))(x),
+        "y_general": jax.jit(halo_stencil_operator(mesh, cases["coefs"]))(x),
+    }
+    for order in (2, 4):
+        m_inv = halo_chebyshev_preconditioner(mesh, 0.2, 8.2, order=order)
+        ref[f"z_order{order}"] = jax.jit(m_inv)(x)
+    op = halo_poisson_operator(mesh)
+    m_inv = halo_chebyshev_preconditioner(mesh, 0.2, 8.2)
+    res = jax.jit(lambda v: gt.cg(op, v, tol=1e-9, max_iterations=2000,
+                                  M=m_inv))(shard(cases["b_cg"]))
+    ref["cg"] = res
+    for ortho in ORTHOS:
+        ref[f"gmres_{ortho}"] = jax.jit(
+            lambda v, o=ortho: gt.gmres(op, v, restart=RESTART, tol=1e-10,
+                                        M=m_inv, max_restarts=100,
+                                        variant="mgsr", orthogonalization=o)
+        )(shard(cases["b_gmres"]))
+    return ref
+
+
+@pytest.fixture(scope="module", params=(1, 2, 4), ids=lambda w: f"world{w}")
+def port(request, cases, tmp_path_factory):
+    """The worker's outputs at one world size: row blocks concatenated in
+    rank order, per-rank scalars checked equal on every rank."""
+    world = request.param
+    out_dir = tmp_path_factory.mktemp(f"halo_world{world}")
+    mp.spawn(torch_halo_worker.run,
+             args=(world, os.path.join(out_dir, "rendezvous"), str(out_dir),
+                   cases),
+             nprocs=world)
+    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
+    out = {"world": world}
+    for key in ranks[0].files:
+        vals = [z[key] for z in ranks]
+        if vals[0].ndim == 2:
+            out[key] = np.concatenate(vals, axis=0)
+        else:
+            for v in vals[1:]:
+                np.testing.assert_array_equal(v, vals[0])
+            out[key] = vals[0]
+    return out
+
+
+def test_halo_operators_match_jax(port, jax_ref, cases):
+    """The Laplacian and a convection–diffusion stencil (general
+    coefficients, tests/test_halo.py's) over the sharded grid, on the mesh
+    init_multihost made over every rank."""
+    assert tuple(port["mesh_shape"]) == (port["world"],)
+    for key in ("y_poisson", "y_general"):
+        assert port[key].shape == (N_OP, N_OP)
+        assert rel_err(port[key], jax_ref[key]) < 1e-13, key
+    # and against an independent numpy Laplacian
+    assert rel_err(port["y_poisson"], np_poisson(cases["x"])) < 1e-13
+    # Each rank's plain block through the operator gives its sharded result.
+    np.testing.assert_array_equal(port["y_poisson_plain_block"], port["y_poisson"])
+
+
+@pytest.mark.parametrize("order", [2, 4])
+def test_halo_chebyshev_preconditioner_matches_jax(port, jax_ref, order):
+    key = f"z_order{order}"
+    assert rel_err(port[key], jax_ref[key]) < 1e-13
+
+
+def test_cg_on_halo_operator_matches_jax(port, jax_ref):
+    ref = jax_ref["cg"]
+    iterations, status = port["cg_counts"]
+    assert status == int(ref.status) == 0
+    assert iterations == int(ref.iterations)
+    assert rel_err(port["cg_x"], ref.x) < 1e-9
+    # The certified ‖b − A x‖ (~4e-10) carries the rounding of a float64
+    # stencil over a unit-sized solution: ~1e-15 absolute.
+    np.testing.assert_allclose(port["cg_residual"], float(ref.residual),
+                               rtol=1e-6, atol=1e-13)
+
+
+@pytest.mark.parametrize("ortho", ORTHOS)
+def test_mgsr_gmres_on_halo_operator_matches_jax(port, jax_ref, ortho):
+    ref = jax_ref[f"gmres_{ortho}"]
+    iterations, restarts, status = port[f"gmres_{ortho}_counts"]
+    assert status == int(ref.status) == 0
+    assert (iterations, restarts) == (int(ref.iterations), int(ref.restarts))
+    assert bool(port[f"gmres_{ortho}_x_is_sharded"])
+    assert rel_err(port[f"gmres_{ortho}_x"], ref.x) < 1e-9
+    np.testing.assert_allclose(port[f"gmres_{ortho}_history"],
+                               np.asarray(ref.residual_history),
+                               rtol=1e-9, atol=1e-15)
+    # v_err sits at the rounding floor of a float64 basis (~1e-15).
+    np.testing.assert_allclose(port[f"gmres_{ortho}_v_err"],
+                               np.asarray(ref.v_err), rtol=0, atol=1e-14)
+
+
+def test_householder_refuses_sharded_rhs(port):
+    """A DTensor b under variant='householder' raises NotImplementedError
+    naming the ROADMAP, not a bare assertion from inside the cycle."""
+    msg = str(port["householder_refused"])
+    assert "not ported" in msg and "ROADMAP" in msg
+
+
+def test_mesh_errors_match_jax(port):
+    """solver_mesh asked for more ranks than exist, and shard_grid_vector of
+    31 rows over 2 or 4 ranks, raise ValueError with gmres_tpu's messages."""
+    world = port["world"]
+    with pytest.raises(ValueError) as jax_mesh:
+        solver_mesh(world + 1, devices=jax.devices()[:world])
+    assert str(port["mesh_error"]) == str(jax_mesh.value)
+    if world == 1:
+        assert str(port["shard_error"]) == ""
+    else:
+        with pytest.raises(ValueError) as jax_shard:
+            shard_grid_vector(jnp.zeros((31, 31)), solver_mesh(world))
+        assert str(port["shard_error"]) == str(jax_shard.value)

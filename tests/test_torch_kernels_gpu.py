@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3 and K4 of the PyTorch port on the card, against their
-plain PyTorch versions, and the main paths' use of them.
+"""Kernels K1, K2, K3, K4, K5 and K7 of the PyTorch port on the card,
+against their plain PyTorch versions, and the main paths' use of them.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither jax nor gmres_tpu, so it also runs on a machine without
@@ -215,3 +215,104 @@ def test_sparse_cg_runs_on_the_kernels(cuda_device):
                             "cpu": (0, 0)}[name]
         iters[name] = res.iterations
     assert max(iters.values()) - min(iters.values()) <= 2
+
+
+# ---------------------------------------------------------------------------
+# K5 (fused cbpr2) and K7 (fused CG update, axpy-dot); the halo path.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(304, 304), (76, 304), (1, 40), (2048, 2048)])
+@pytest.mark.parametrize("halos", ["none", "random"])
+def test_k5_matches_plain_bitwise(cuda_device, dtype, shape, halos):
+    """Built with -fmad=false, K5 repeats the plain version's roundings."""
+    r = to_torch(seeded(70, shape), cuda_device).to(dtype)
+    top = bot = None
+    if halos == "random":
+        top = to_torch(seeded(71, (1, shape[1])), cuda_device).to(dtype)
+        bot = to_torch(seeded(72, shape[1]), cuda_device).to(dtype)
+    d, alpha = tfu.chebyshev_ref_scalars(0.2, 8.2)
+    before = tfu.cheb2_cuda.launches
+    z = tt.chebyshev_poisson_fused(r, top, bot, d, alpha, COEFS)
+    torch.cuda.synchronize()
+    assert tfu.cheb2_cuda.launches == before + 1
+    torch.testing.assert_close(
+        z, tfu.chebyshev_poisson_fused_plain(r, top, bot, d, alpha, COEFS),
+        rtol=0, atol=0)
+
+
+def test_k5_k7_refuse_what_they_do_not_take(cuda_device):
+    half = torch.zeros((8, 8), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError):
+        tt.chebyshev_poisson_fused(half, None, None, 4.2, 0.25)
+    x = torch.zeros((8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="halo row"):
+        tt.chebyshev_poisson_fused(x, torch.zeros(8, device=cuda_device), None, 4.2, 0.25)
+    with pytest.raises(ValueError, match="differ"):
+        tt.cg_fused_update(x, x, x, x[:4], 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tt.axpy_dot(0.5, x.T, x.T, x.T)
+    with pytest.raises(TypeError):
+        tt.axpy_dot(0.5, half, half, half)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(304, 304), (2048, 2048), (1000,), (7,)])
+def test_k7_matches_plain(cuda_device, dtype, shape):
+    """The elementwise outputs bitwise; the float32 sums, taken in another
+    order than torch.sum's, to 1e-5 relative; the same bits on a second
+    call (no atomics). α may be a 0-d tensor on the card."""
+    x, r, p, ap = (to_torch(seeded(73 + s, shape), cuda_device).to(dtype)
+                   for s in range(4))
+    alpha = torch.tensor(0.37, dtype=torch.float64, device=cuda_device)
+    before = (tfu.cg_fused_update_cuda.launches, tfu.axpy_dot_cuda.launches)
+    xo, ro, rsq = tt.cg_fused_update(x, r, p, ap, alpha)
+    yo, dot = tt.axpy_dot(-1.25, x, r, p)
+    torch.cuda.synchronize()
+    assert (tfu.cg_fused_update_cuda.launches, tfu.axpy_dot_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    xp, rp, rsqp = tfu.cg_fused_update_plain(x, r, p, ap, alpha)
+    yp, dotp = tfu.axpy_dot_plain(-1.25, x, r, p)
+    torch.testing.assert_close(xo, xp, rtol=0, atol=0)
+    torch.testing.assert_close(ro, rp, rtol=0, atol=0)
+    torch.testing.assert_close(yo, yp, rtol=0, atol=0)
+    assert rsq.dtype == dot.dtype == torch.float32 and rsq.shape == dot.shape == ()
+    assert abs(float(rsq) - float(rsqp)) <= 1e-5 * abs(float(rsqp))
+    assert abs(float(dot) - float(dotp)) <= 1e-5 * float((yp.float() * p.float()).abs().sum())
+    assert float(tt.cg_fused_update(x, r, p, ap, alpha)[2]) == float(rsq)
+
+
+def test_halo_path_runs_on_the_kernels(cuda_device, tmp_path):
+    """On a one-rank mesh of the card (an NCCL group made here, on a file
+    rendezvous), the halo operator launches K1 and the order-2 halo
+    preconditioner K5; MGSR GMRES on them converges."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        _halo_path_on_one_rank(cuda_device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _halo_path_on_one_rank(cuda_device):
+    n = 64
+    mesh = tt.solver_mesh(1)
+    b_np = np_poisson(np.ones((n, n)))
+    b = tt.shard_grid_vector(tt.as_tensor(b_np, cuda_device), mesh)
+    op = tt.halo_poisson_operator(mesh)
+    m_inv = tt.halo_chebyshev_preconditioner(mesh, 0.2, 8.2)
+    x = tt.shard_grid_vector(to_torch(seeded(74, (n, n)), cuda_device), mesh)
+    k1, k5 = tst.stencil5_cuda.launches, tfu.cheb2_cuda.launches
+    y, z = op(x), m_inv(x)
+    torch.cuda.synchronize()
+    assert (tst.stencil5_cuda.launches, tfu.cheb2_cuda.launches) == (k1 + 1, k5 + 1)
+    assert rel_err(y.to_local(), np_poisson(seeded(74, (n, n)))) < 1e-14
+    res = tt.gmres(op, b, restart=20, tol=1e-10, M=m_inv, variant="mgsr",
+                   compute_v_err=False)
+    xs = res.x.full_tensor().cpu().numpy()
+    assert res.status == 0
+    assert np.linalg.norm(b_np - np_poisson(xs)) / np.linalg.norm(b_np) < 1e-9
+    assert tfu.cheb2_cuda.launches > k5 + 1

@@ -1,0 +1,96 @@
+"""One rank of the port's distributed explicit-halo path, for
+tests/test_torch_halo.py.
+
+``run(rank, world, init_file, out_dir, cases)`` joins a gloo process group
+of ``world`` CPU processes through ``init_multihost`` (rendezvous on
+``init_file``), which returns the port's mesh over every rank, and drives
+every case on row-sharded DTensors. Each rank
+writes its local blocks and its solvers' counts to
+``out_dir/rank{rank}.npz``; the test assembles the blocks and holds them
+against ``gmres_tpu`` in the parent process. This module imports no JAX,
+so each spawned process starts with torch alone.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def run(rank: int, world: int, init_file: str, out_dir: str, cases: dict) -> None:
+    import gmres_tpu_torch as tt
+
+    torch.set_num_threads(1)
+    mesh = tt.init_multihost(f"file://{init_file}", world, rank, device_type="cpu")
+    try:
+        _drive(rank, mesh, out_dir, cases)
+    finally:
+        dist.destroy_process_group()
+
+
+def _local(t) -> np.ndarray:
+    return t.to_local().numpy()
+
+
+def _drive(rank: int, mesh, out_dir: str, cases: dict) -> None:
+    import gmres_tpu_torch as tt
+
+    out = {"mesh_shape": np.asarray(tuple(mesh.shape))}
+
+    def shard(a):
+        return tt.shard_grid_vector(torch.as_tensor(a), mesh)
+
+    x = shard(cases["x"])
+    out["y_poisson"] = _local(tt.halo_poisson_operator(mesh)(x))
+    # A plain tensor is taken as this rank's block.
+    out["y_poisson_plain_block"] = tt.halo_poisson_operator(mesh)(x.to_local()).numpy()
+    out["y_general"] = _local(tt.halo_stencil_operator(mesh, cases["coefs"])(x))
+    for order in (2, 4):
+        m_inv = tt.halo_chebyshev_preconditioner(mesh, 0.2, 8.2, order=order)
+        out[f"z_order{order}"] = _local(m_inv(x))
+
+    op = tt.halo_poisson_operator(mesh)
+    m_inv = tt.halo_chebyshev_preconditioner(mesh, 0.2, 8.2)
+    b_cg = shard(cases["b_cg"])
+    res = tt.cg(op, b_cg, tol=1e-9, max_iterations=2000, M=m_inv)
+    out["cg_x"] = _local(res.x)
+    out["cg_counts"] = np.array([res.iterations, res.status])
+    out["cg_residual"] = np.asarray(float(res.residual))
+
+    b_gm = shard(cases["b_gmres"])
+    for ortho in ("cgs2", "mgs2"):
+        res = tt.gmres(op, b_gm, restart=cases["restart"], tol=1e-10, M=m_inv,
+                       max_restarts=100, variant="mgsr",
+                       orthogonalization=ortho)
+        out[f"gmres_{ortho}_x"] = _local(res.x)
+        out[f"gmres_{ortho}_counts"] = np.array(
+            [res.iterations, res.restarts, res.status])
+        out[f"gmres_{ortho}_history"] = res.residual_history.numpy()
+        out[f"gmres_{ortho}_v_err"] = res.v_err.numpy()
+        out[f"gmres_{ortho}_x_is_sharded"] = np.asarray(
+            tt.ops.blas.is_dtensor(res.x))
+
+    try:
+        tt.gmres(op, b_gm, restart=4, variant="householder")
+        out["householder_refused"] = np.asarray("")
+    except NotImplementedError as exc:
+        out["householder_refused"] = np.asarray(str(exc))
+
+    out["mesh_error"] = np.asarray(_error(
+        lambda: tt.solver_mesh(dist.get_world_size() + 1, device_type="cpu")))
+    out["shard_error"] = np.asarray(_error(
+        lambda: tt.shard_grid_vector(torch.zeros((31, 31)), mesh)))
+
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def _error(fn) -> str:
+    """The message of the ValueError fn raises ("" if it raises none)."""
+    try:
+        fn()
+    except ValueError as exc:
+        return str(exc)
+    return ""
