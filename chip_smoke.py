@@ -54,7 +54,7 @@ Phases:
 12. The strong-scaling configuration on the explicit-halo route with the
     fused halo cbpr2 (the program itself applies the reference cbpr2 over
     the GSPMD operator; the mathematics is the same): a one-rank NCCL
-    process group made here, the port's mesh, the 304² right-hand side
+    process group, the port's mesh, the 304² right-hand side
     sharded over it, the halo operator (K1) and the fused halo cbpr2 (K5)
     under MGSR GMRES (cgs2,
     m=50, float64) at tol 1e-8 and 1e-15, the median wall of 3 solves, the
@@ -62,8 +62,26 @@ Phases:
     operator and preconditioner applications, a profiled solve; then the
     same solve on plain tensors (the DTensor layer's cost), one mgs2 solve
     and one CG solve on the same operators.
+13. Compare kernel K6 (the float64-accurate stencil on (hi, lo) float32
+    pairs) with its plain version, bitwise in both components and within
+    1e-13 of the float64 oracle, at 2048² and 4096² (Poisson and general
+    coefficients), timed by CUDA-graph replay beside its bound and the
+    float64 F.conv2d (the nearest PyTorch call); then run the port's
+    ``roofline`` program at its defaults (1024, 2048, 4096; reps 20;
+    order 8), which prints every row, and check that K1, K2 and K6 were
+    launched and that no row exceeds 1.05 of the HBM peak without a stated
+    traffic model.
+14. On the same one-rank NCCL group: compare kernel K8 (the RDMA route's
+    affine stencil, interior then edges) with its plain version, bitwise,
+    at 304² and 2048² float32, with F.conv2d of the affine weights as the
+    yardstick; then float32 MGSR GMRES at 304² with the RDMA operator and
+    the RDMA cbpr2 (m=50, tol 1e-5) and CG on the RDMA operator (1e-4
+    relative), 3 timed solves each, checked in numpy, with K8's launches
+    against the operator and preconditioner applications and a profiled
+    solve.
 
-Any failure raises and exits non-zero. The line before the last is the
+Phases 12–14 share one NCCL process group made by the script. Any failure
+raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
 """
 
@@ -117,6 +135,17 @@ STRONG_REPEATS = 3
 # the float64 rounding of b − A x over 304² points is a tenth of the target
 # (the port's CPU solve: 9.943e-16 certified, 1.157e-15 recomputed in numpy).
 STRONG_ROUNDING = {1e-8: 1.0, 1e-15: 2.0}
+# The roofline program's default grids (benchmarks/cli.py), and the general
+# coefficients of tests/test_dd_stencil.py for K6's second entry point.
+ROOFLINE_GRIDS = (1024, 2048, 4096)
+GENERAL_COEFS = (4.3, -1.2, -0.7, -1.9, -0.1)
+# The RDMA route's solves (tests/test_rdma.py, dryrun_multichip): float32
+# MGSR GMRES to 1e-5 with cbpr2 on REF_EIG, and CG on the operator to 1e-4.
+# At 304² float32 CG's true residual floors near 5.7e-4 absolute (the port's
+# CPU run), above an absolute 1e-4, and gmres_tpu's certification would then
+# end the solve in BREAKDOWN; so CG is held to 1e-4 relative to ‖b‖ (rtol).
+RDMA_GMRES_TOL = 1e-5
+RDMA_CG_TOL = 1e-4
 
 
 def require(cond: bool, msg: str) -> None:
@@ -727,23 +756,29 @@ def check_pair(name, outs_k, outs_p, rtols):
     return errs
 
 
-def cheb2_conv(r, top, bot, d, alpha, coefs):
-    """K5's yardstick, one F.conv2d: by linearity z = r/d + α(r − A(r)/d) is
-    a 5-point stencil, (1/d + α − α·c0/d)·r − (α/d)·Σ c_k·r_neighbour. With
-    halo rows the block is extended by them and padded only at the sides."""
+def affine_conv(r, top, bot, coefs7):
+    """The yardstick of K5 and K8, one F.conv2d: a·r + b·A(r) is a 5-point
+    stencil with weights (a + b·c0) at the centre and b·c_k at the
+    neighbours. With halo rows the block is extended by them and padded only
+    at the sides; without (None), padded all round."""
     import torch
     import torch.nn.functional as F
 
-    c0, cw, ce, cs, cn = coefs
-    s = -alpha / d
-    w = torch.tensor([[0.0, s * cs, 0.0],
-                      [s * cw, 1.0 / d + alpha - alpha * c0 / d, s * ce],
-                      [0.0, s * cn, 0.0]], dtype=r.dtype, device=r.device)
+    c0, cw, ce, cs, cn, a, b = coefs7
+    w = torch.tensor([[0.0, b * cs, 0.0],
+                      [b * cw, a + b * c0, b * ce],
+                      [0.0, b * cn, 0.0]], dtype=r.dtype, device=r.device)
     w = w.reshape(1, 1, 3, 3)
     if top is None:
         return lambda: F.conv2d(r[None, None], w, padding=1)[0, 0]
     ext = torch.cat([top.reshape(1, -1), r, bot.reshape(1, -1)])
     return lambda: F.conv2d(ext[None, None], w, padding=(0, 1))[0, 0]
+
+
+def cheb2_conv(r, top, bot, d, alpha, coefs):
+    """K5's yardstick: by linearity z = r/d + α(r − A(r)/d) is the affine
+    stencil (1/d + α)·r − (α/d)·A(r)."""
+    return affine_conv(r, top, bot, (*coefs, 1.0 / d + alpha, -alpha / d))
 
 
 def phase_fused_kernels(gt_torch, rng, dev):
@@ -868,15 +903,19 @@ def counted(fn, calls, key):
     return wrapped
 
 
-def phase_strong_scaling(gt_torch, dev, workdir):
-    """Phase 12 on a one-rank NCCL group made here (a file rendezvous in
-    `workdir`); returns the launches of K1 and K5 over the timed solves."""
+def phases_on_one_rank(gt_torch, rng, dev, workdir):
+    """Phases 12–14 on a one-rank NCCL group made here (a file rendezvous in
+    `workdir`); returns phase 12's launches of K1 and K5, and phase 13's and
+    14's records and launches."""
     import torch.distributed as dist
 
     dist.init_process_group("nccl", init_method=f"file://{workdir}/rendezvous",
                             rank=0, world_size=1)
     try:
-        return strong_scaling_solves(gt_torch, dev)
+        strong = strong_scaling_solves(gt_torch, dev)
+        roofline = phase_roofline(gt_torch, rng, dev, workdir)
+        rdma = phase_rdma(gt_torch, rng, dev)
+        return strong, roofline, rdma
     finally:
         dist.destroy_process_group()
 
@@ -999,6 +1038,214 @@ def strong_scaling_solves(gt_torch, dev):
     launches["K1"] += stencil.stencil5_cuda.launches
     launches["K5"] += fused.cheb2_cuda.launches
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: K6 and the roofline program.
+# ---------------------------------------------------------------------------
+
+
+def phase_roofline(gt_torch, rng, dev, workdir):
+    """K6 against its plain version, then the port's roofline program at its
+    defaults; returns K6's records and the launches of K1, K2 and K6 during
+    the program."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.ops import dd, fused, stencil
+
+    records = {"K6": []}
+    print("phase 13: K6 against its plain version", flush=True)
+    cross = torch.tensor([[0.0, -1.0, 0.0], [-1.0, 4.0, -1.0], [0.0, -1.0, 0.0]],
+                         dtype=torch.float64, device=dev).reshape(1, 1, 3, 3)
+    for n in ROOFLINE_GRIDS[1:]:
+        x = torch.as_tensor(rng.standard_normal((n, n))).to(dev)
+        hi, lo = dd.dd_from_f64(x)
+        for label, coefs in (("poisson", stencil.POISSON_COEFS), ("general", GENERAL_COEFS)):
+            case = f"K6 {n}x{n} {label}"
+
+            def kernel(coefs=coefs):
+                return stencil.stencil5_dd_cuda(hi, lo, coefs)
+
+            def plain(coefs=coefs):
+                return stencil.stencil_5pt_dd_plain(hi, lo, coefs)
+
+            outs_k, outs_p = kernel(), plain()
+            torch.cuda.synchronize()
+            # -fmad=false and the plain version's order: both components bitwise.
+            errs = check_pair(case, outs_k, outs_p, (0.0, 0.0))
+            oracle = stencil.stencil_5pt_general(x, *coefs)
+            err64 = float((dd.dd_to_f64(outs_k) - oracle).abs().max() / oracle.abs().max())
+            require(err64 < 1e-13, f"{case}: {err64:.3e} from the float64 oracle")
+            rec = {"case": case, "max_abs_err": max(e[0] for e in errs),
+                   "max_rel_err": max(e[1] for e in errs), "oracle_rel_err": err64,
+                   "ms": device_ms(kernel, 50), "plain_ms": device_ms(plain, 50),
+                   "library_ms": None}
+            # Pairs in and out: 16 B a point; 9 float64 flops a point.
+            rec["bound_ms"], rec["bound_by"] = bound(16 * n * n, 9 * n * n, torch.float64)
+            if label == "poisson":
+                # No PyTorch call computes the stencil on pairs; the nearest is
+                # K1's yardstick, the float64 cross as one F.conv2d (cuDNN).
+                rec["nearest_library_ms"] = call_ms(
+                    lambda: F.conv2d(x[None, None], cross, padding=1)[0, 0], 50)
+            records["K6"].append(rec)
+            near = rec.get("nearest_library_ms")
+            print(f"  {case:42s} bitwise (both components), {err64:.2e} from the "
+                  f"float64 oracle  device: kernel {rec['ms']:.4f} ms plain "
+                  f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}, {100 * rec['bound_ms'] / rec['ms']:.0f}% of it)"
+                  + ("" if near is None else
+                     f"  nearest library call (float64 F.conv2d) {near:.4f} ms"),
+                  flush=True)
+
+    print(f"phase 13: python -m gmres_tpu_torch.benchmarks roofline (grids "
+          f"{','.join(map(str, ROOFLINE_GRIDS))}, reps 20, order 8)", flush=True)
+    jsonl = os.path.join(workdir, "roofline.jsonl")
+    counters = (stencil.stencil5_cuda, fused.chebk_cuda, stencil.stencil5_dd_cuda)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    cli.main(["roofline", "--jsonl", jsonl])
+    seconds = time.perf_counter() - t0
+    k1, k2, k6 = (c.launches for c in counters)
+    with open(jsonl) as f:
+        rows = [json.loads(line) for line in f]
+    print(f"phase 13: roofline program {seconds:.1f} s, {len(rows)} rows; launches "
+          f"(captured in the chains' CUDA graphs, each replayed): K1 {k1}, K2 {k2}, "
+          f"K6 {k6}", flush=True)
+    names = {r["name"] for r in rows}
+    for n in ROOFLINE_GRIDS:
+        for row in (f"stencil-plain-f32-{n}", f"stencil-plain-f64-{n}",
+                    f"stencil-pallas-blocked-f32-{n}", f"stencil-pallas-dd-f64-{n}",
+                    f"chebk8-blocked-f32-{n}", f"mg-vcycle-f32-{n}"):
+            require(row in names, f"roofline: row {row} missing")
+    require(k1 > 0 and k2 > 0 and k6 > 0,
+            f"roofline: K1 {k1}, K2 {k2}, K6 {k6} launches")
+    kind = torch.cuda.get_device_name(0)
+    for r in rows:
+        require(r["device"] == kind and r["timing"].startswith("CUDA graph"),
+                f"roofline {r['name']}: not timed on the card by CUDA graph")
+        frac = r["fraction_of_peak"]
+        require(frac is not None and np.isfinite(frac) and frac > 0,
+                f"roofline {r['name']}: fraction of peak {frac}")
+        require(frac <= 1.05 or "note" in r or r.get("l2_resident"),
+                f"roofline {r['name']}: {frac:.3f} of peak without a traffic model")
+    return records, {"K1": k1, "K2": k2, "K6": k6}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: K8 and the RDMA route on a one-rank mesh.
+# ---------------------------------------------------------------------------
+
+
+def phase_rdma(gt_torch, rng, dev):
+    """K8 against its plain version, then f32 MGSR GMRES with A and M on the
+    RDMA route and CG on the RDMA operator at the strong-scaling grid;
+    returns K8's records and launches."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.ops import fused, stencil_rdma as rd
+    from gmres_tpu_torch.parallel.halo import (
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+
+    records = {"K8": []}
+    print("phase 14: K8 against its plain version", flush=True)
+    d, alpha = fused.chebyshev_ref_scalars(*REF_EIG)
+    coefs = (4.0, -1.0, -1.0, -1.0, -1.0)
+    forms = {"operator": (0.0, 1.0), "cbpr2": (1.0 / d + alpha, -alpha / d)}
+    for n, form, halos in ((STRONG_N, "operator", "zero"), (STRONG_N, "cbpr2", "zero"),
+                           (STRONG_N, "cbpr2", "random"), (2048, "operator", "zero"),
+                           (2048, "cbpr2", "random")):
+        dt = torch.float32
+        x = torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
+        top = torch.zeros((1, n), dtype=dt, device=dev)
+        bot = torch.zeros_like(top)
+        if halos == "random":
+            top = torch.as_tensor(rng.standard_normal((1, n))).to(dev, dt)
+            bot = torch.as_tensor(rng.standard_normal((1, n))).to(dev, dt)
+        c7 = (*coefs, *forms[form])
+        c = rd._coefs7(c7, dt)
+        records["K8"].append(compare(
+            f"K8 {n}x{n} f32 {form} {halos} halo rows",
+            lambda: rd.rdma_edges_cuda(rd.rdma_interior_cuda(x, c), top, bot, c),
+            lambda: rd.rdma_edges_plain(rd.rdma_interior_plain(x, c), top, bot, c),
+            0.0, 200 if n <= STRONG_N else 50,
+            # x and the two halo rows read, y written; 12 flops a point, and
+            # 3 more at each point of the two boundary rows.
+            work=((2 * n * n + 2 * n) * 4, 12 * n * n + 6 * n, dt, None),
+            library=affine_conv(x, top if halos == "random" else None, bot, c7)))
+
+    n = STRONG_N
+    mesh = gt_torch.solver_mesh(1)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.shard_grid_vector(gt_torch.as_tensor(b_np, dev, torch.float32), mesh)
+    calls = {"A": 0, "M": 0}
+    op = counted(rdma_stencil_operator(mesh), calls, "A")
+    m_inv = counted(rdma_chebyshev_preconditioner(mesh, *REF_EIG), calls, "M")
+    p_min = cbpr2_min_eigenvalue(n)
+    nb = float(np.linalg.norm(b_np))
+    launches = {"interior": 0, "edges": 0}
+
+    solves = (
+        ("gmres", lambda: gt_torch.gmres(op, b, restart=STRONG_M, tol=RDMA_GMRES_TOL,
+                                         M=m_inv, variant="mgsr", max_restarts=1000,
+                                         compute_v_err=False)),
+        ("cg", lambda: gt_torch.cg(op, b, tol=RDMA_CG_TOL, rtol=RDMA_CG_TOL)),
+    )
+    for name, solve in solves:
+        res, t_warm = timed(solve)  # warm-up
+        rd.rdma_interior_cuda.launches = rd.rdma_edges_cuda.launches = 0
+        calls["A"] = calls["M"] = 0
+        times = []
+        for _ in range(STRONG_REPEATS):
+            res, t_solve = timed(solve)
+            times.append(t_solve)
+        interior, edges = rd.rdma_interior_cuda.launches, rd.rdma_edges_cuda.launches
+        launches["interior"] += interior
+        launches["edges"] += edges
+        require(gt_torch.ops.blas.is_dtensor(res.x), f"rdma {name}: x is not sharded")
+        x = res.x.full_tensor().cpu().numpy()
+        require(x.dtype == np.float32 and x.shape == (n, n) and bool(np.isfinite(x).all()),
+                f"rdma {name}: x is not a finite float32 {n}x{n} grid")
+        r = b_np - np_stencil(x.astype(np.float64))
+        true = float(np.linalg.norm(r))
+        if name == "gmres":
+            total = (res.restarts - 1) * STRONG_M + res.iterations
+            prec = float(np.linalg.norm(np_cbpr2(r)) / nb)
+            counts = (f"{res.restarts} restarts, {res.iterations} in the last cycle, "
+                      f"{total} inner iterations")
+            check = (f"numpy ‖M(b − A x)‖/‖b‖ {prec:.4e}, ‖b − A x‖/‖b‖ "
+                     f"{true / nb:.4e}")
+            # The certified norm is float32 arithmetic; numpy recomputes it in
+            # float64 from the float32 x (CPU rehearsal: 9.9315e-6 against a
+            # certified 9.9279e-6), hence the 10%.
+            ok = (prec < 1.1 * RDMA_GMRES_TOL
+                  and true / nb <= 1.1 * RDMA_GMRES_TOL / p_min)
+            applied = calls["A"] + calls["M"]
+        else:
+            counts = f"{res.iterations} iterations"
+            check = f"numpy ‖b − A x‖ {true:.4e} (target {RDMA_CG_TOL * nb:.4e})"
+            ok = true < 1.1 * RDMA_CG_TOL * nb
+            applied = calls["A"]
+            require(calls["M"] == 0, "rdma cg: a preconditioner was applied")
+        print(f"phase 14: {name} {n}x{n} on the RDMA route, 1 rank, f32: status "
+              f"{res.status}, {counts}, {res.host_syncs} host syncs, residual "
+              f"{float(res.residual):.4e}, {check}; wall s over {STRONG_REPEATS} solves: "
+              f"{quartiles(times)} (warm-up {t_warm:.4f}); K8 launches over the "
+              f"{STRONG_REPEATS} solves: interior {interior}, edges {edges} "
+              f"(applications: A {calls['A']}, M {calls['M']})", flush=True)
+        require(res.status == 0, f"rdma {name}: status {res.status}")
+        require(ok, f"rdma {name}: the numpy residual misses the tolerance ({check})")
+        require(interior == edges == applied > 0,
+                f"rdma {name}: K8 launches {interior}/{edges} against {applied} "
+                f"applications")
+        profile_solve(solve, f"rdma {name} {n}x{n}", float(np.median(times)))
+    return records, launches
 
 
 def main() -> int:
@@ -1140,9 +1387,13 @@ def main() -> int:
     fused_records, k7_launches = phase_fused_kernels(gt_torch, rng, dev)
     records.update(fused_records)
 
-    # Phase 12: the strong-scaling path (halo operator, K1 and K5, MGSR).
+    # Phase 12: the strong-scaling path (halo operator, K1 and K5, MGSR);
+    # phase 13: K6 and the roofline program; phase 14: K8 and the RDMA route.
     with tempfile.TemporaryDirectory() as workdir:
-        strong = phase_strong_scaling(gt_torch, dev, workdir)
+        strong, (dd_records, roof), (rdma_records, k8) = phases_on_one_rank(
+            gt_torch, rng, dev, workdir)
+    records.update(dd_records)
+    records.update(rdma_records)
 
     def report(name, src, replaces, also, n_launches, timed_at, **extra):
         recs = records[name]
@@ -1157,16 +1408,19 @@ def main() -> int:
             "library_ms": rec["library_ms"], "timed_at": timed_at, **extra,
         }
 
+    mg_k1, mg_k2 = launches[2048][0] + launches[300][0], launches[2048][1] + launches[300][1]
+    roofline_path = "roofline program (phase 13; launches captured in CUDA graphs)"
     print(json.dumps({"kernels": [
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
-               launches[2048][0] + launches[300][0] + strong["K1"],
-               "K1 2048x2048 f32",
-               launches_by_path={"mg (phase 4)": launches[2048][0] + launches[300][0],
-                                 "strong-scaling (phase 12)": strong["K1"]}),
+               mg_k1 + strong["K1"] + roof["K1"], "K1 2048x2048 f32",
+               launches_by_path={"mg (phase 4)": mg_k1,
+                                 "strong-scaling (phase 12)": strong["K1"],
+                                 roofline_path: roof["K1"]}),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
-               launches[2048][1] + launches[300][1], "K2 order 3 2048x2048 f32"),
+               mg_k2 + roof["K2"], "K2 order 3 2048x2048 f32",
+               launches_by_path={"mg (phase 4)": mg_k2, roofline_path: roof["K2"]}),
         report("K3", "gmres_tpu_torch/csrc/dia_spmv.cu",
                "gmres_tpu/ops/sparse.py:567", [], launches["K3"],
                f"K3 HYB {CG_GRIDS[-1]}x{CG_GRIDS[-1]} f64"),
@@ -1184,6 +1438,19 @@ def main() -> int:
                "gmres_tpu/ops/fused.py:94", [], k7_launches[1],
                f"K7b {STRONG_N}x{STRONG_N} f64",
                launched_by="phase 11 per-shard call; no solver calls it, as in gmres_tpu"),
+        report("K6", "gmres_tpu_torch/csrc/stencil5_dd.cu",
+               "gmres_tpu/ops/stencil.py:388", ["gmres_tpu/ops/stencil.py:519"],
+               roof["K6"], f"K6 {ROOFLINE_GRIDS[-1]}x{ROOFLINE_GRIDS[-1]} poisson",
+               launched_by=roofline_path,
+               library_note="no PyTorch call computes the stencil on (hi, lo) "
+               "pairs; nearest_library_ms is the float64 cross as one F.conv2d",
+               nearest_library_ms=[r["nearest_library_ms"] for r in records["K6"]
+                                   if "nearest_library_ms" in r][-1]),
+        report("K8", "gmres_tpu_torch/csrc/stencil5_rdma.cu",
+               "gmres_tpu/ops/stencil_rdma.py:41", [], k8["interior"],
+               f"K8 {STRONG_N}x{STRONG_N} f32 operator zero halo rows",
+               launches_by_path={"rdma gmres and cg (phase 14), interior": k8["interior"]},
+               edge_launches=k8["edges"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -9,7 +9,11 @@ path: the CSR/COO/ELL/DIA/HYB/BSR formats (``ops/sparse.py``) under
 classic and pipelined conjugate gradients (``solvers/cg.py``). The third
 is the distributed explicit-halo path (``parallel/``): a 1-D device mesh,
 row-sharded DTensor grid vectors, the halo stencil operator and the fused
-cbpr2 preconditioner, under MGSR GMRES and CG.
+cbpr2 preconditioner, under MGSR GMRES and CG. The fourth is the
+``roofline`` program (``benchmarks/``, ``utils/``) with the float64-accurate
+stencil on (hi, lo) float32 pairs (``ops/dd.py``, ``ops/stencil.py``), and
+the RDMA-route operators (``ops/stencil_rdma.py``,
+``parallel/halo.py:rdma_*``, not exported here, as in ``gmres_tpu``).
 
 Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
 ``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
@@ -18,8 +22,10 @@ and never ``jax``. On a CUDA tensor the stencil runs in kernel K1
 (``csrc/chebk.cu``), the DIA SpMV (DIA and HYB operators) in kernel K3
 (``csrc/dia_spmv.cu``) and the BSR SpMV in kernel K4
 (``csrc/bsr_spmv.cu``), the fused cbpr2 application in kernel K5
-(``csrc/cheb2_fused.cu``) and the fused CG update and axpy-dot in kernel
-K7 (``csrc/cg_fused.cu``), all built with ``nvcc`` for ``sm_90a`` at
+(``csrc/cheb2_fused.cu``), the stencil on pairs in kernel K6
+(``csrc/stencil5_dd.cu``), the fused CG update and axpy-dot in kernel K7
+(``csrc/cg_fused.cu``) and the RDMA route's affine stencil in kernel K8
+(``csrc/stencil5_rdma.cu``), all built with ``nvcc`` for ``sm_90a`` at
 first use; on a CPU tensor each takes its plain PyTorch version.
 """
 

@@ -116,6 +116,15 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"gt_cheb2_{suffix}")
             fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 7 + [i32, vp]
             fn.restype = i32
+            fn = getattr(lib, f"gt_rdma_interior_{suffix}")
+            fn.argtypes = [vp, vp, i32, i32] + [real] * 7 + [i32, vp]
+            fn.restype = i32
+            fn = getattr(lib, f"gt_rdma_edges_{suffix}")
+            fn.argtypes = [vp, vp, vp, i32, i32] + [real] * 3 + [i32, vp]
+            fn.restype = i32
+        lib.gt_stencil5_dd.argtypes = ([vp] * 4 + [i32, i32]
+                                       + [ctypes.c_double] * 5 + [i32, vp])
+        lib.gt_stencil5_dd.restype = i32
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"gt_dia_spmv_{suffix}")
             fn.argtypes = [vp, vp, vp, i32, i32, vp, i32, i32, i32, vp]

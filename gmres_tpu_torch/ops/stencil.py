@@ -14,6 +14,11 @@ Counterpart of ``gmres_tpu/ops/stencil.py``:
   device: a CPU tensor takes the plain version, a CUDA tensor of float32 or
   float64 launches K1, and any other CUDA dtype raises. This replaces the
   TPU gate ``_pallas_routable`` (f32-only, VMEM-feasible tilings).
+* ``stencil_5pt_dd_pallas_blocked`` / ``stencil_5pt_dd_general_pallas_blocked``
+  — the float64-accurate stencil on (hi, lo) float32 pairs: kernel K6
+  (``csrc/stencil5_dd.cu``) for a CUDA pair, the plain float64 route for a
+  CPU pair; ``stencil_5pt_f64_via_dd``, ``stencil_5pt_f64_dd_chain`` and
+  ``stencil_5pt_general_f64_via_dd`` split, apply and recombine.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from gmres_tpu_torch.ops import _cuda
+from gmres_tpu_torch.ops.dd import dd_from_f64, dd_to_f64
 
 POISSON_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
 
@@ -166,3 +172,95 @@ def stencil_5pt_routed(x: torch.Tensor) -> torch.Tensor:
 def stencil_5pt_routed_general(x: torch.Tensor, coefs) -> torch.Tensor:
     """General-coefficient form of ``stencil_5pt_routed``."""
     return stencil_5pt_pallas(x, coefs)
+
+
+def stencil_blocked_feasible(n: int) -> bool:
+    """True iff K1 (and K6) can take an (n, n) grid. The TPU version asks
+    whether a VMEM row tiling exists; one launch here covers every grid
+    within ``_cuda.check_grid``'s limits."""
+    return 1 <= n <= 65535 * 8 and n * n < 2**31
+
+
+# ---------------------------------------------------------------------------
+# Kernel K6: the float64-accurate stencil on (hi, lo) float32 pairs.
+# ---------------------------------------------------------------------------
+
+
+def stencil_5pt_dd_plain(x_hi: torch.Tensor, x_lo: torch.Tensor,
+                         coefs=POISSON_COEFS):
+    """The plain PyTorch version of K6 (runs on any device): the pair
+    widened to float64 (hi + lo), ``stencil_5pt_general`` in float64 with
+    the float64 coefficients, split back by ``dd_from_f64``."""
+    x = x_hi.to(torch.float64) + x_lo.to(torch.float64)
+    return dd_from_f64(stencil_5pt_general(x, *_coef_list(coefs)))
+
+
+def _check_pair(x_hi: torch.Tensor, x_lo: torch.Tensor, what: str) -> None:
+    for t in (x_hi, x_lo):
+        _cuda.check_grid(t, what)
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: a pair is two float32 tensors, not {t.dtype}")
+    if x_hi.shape != x_lo.shape or x_hi.device != x_lo.device:
+        raise ValueError(f"{what}: hi and lo differ in shape or device")
+
+
+def stencil5_dd_cuda(x_hi: torch.Tensor, x_lo: torch.Tensor, coefs=None):
+    """Launch K6 on a CUDA (hi, lo) float32 pair; returns the result pair.
+    ``stencil5_dd_cuda.launches`` counts launches."""
+    _check_pair(x_hi, x_lo, "stencil5_dd_cuda")
+    c = _coef_list(coefs)
+    y_hi, y_lo = torch.empty_like(x_hi), torch.empty_like(x_lo)
+    rc = _cuda.load().gt_stencil5_dd(
+        x_hi.data_ptr(), x_lo.data_ptr(), y_hi.data_ptr(), y_lo.data_ptr(),
+        x_hi.shape[0], x_hi.shape[1], *c, x_hi.device.index,
+        _cuda.stream_of(x_hi))
+    _cuda.check(rc, "stencil5_dd_cuda")
+    stencil5_dd_cuda.launches += 1
+    return y_hi, y_lo
+
+
+stencil5_dd_cuda.launches = 0
+
+
+def stencil_5pt_dd_general_pallas_blocked(x_hi: torch.Tensor,
+                                          x_lo: torch.Tensor, coefs):
+    """Stencil with five arbitrary float64 coefficients on a (hi, lo)
+    float32 pair, pair in and pair out: the plain version for a CPU pair,
+    K6 for a CUDA pair. More accurate than the JAX kernel's ~2⁻⁴⁸ (see
+    ``csrc/stencil5_dd.cu``). The Pallas arguments ``interpret`` and
+    ``block_rows`` have no counterpart: the pair's device decides, and one
+    launch covers any grid. The coefficients need no pre-split
+    (``coef_split12`` exists only for Mosaic)."""
+    if x_hi.device.type == "cpu":
+        return stencil_5pt_dd_plain(x_hi, x_lo, coefs)
+    return stencil5_dd_cuda(x_hi, x_lo, coefs)
+
+
+def stencil_5pt_dd_pallas_blocked(x_hi: torch.Tensor, x_lo: torch.Tensor):
+    """Poisson stencil on a (hi, lo) float32 pair, routed like
+    ``stencil_5pt_dd_general_pallas_blocked`` (the coefficients
+    (4, −1, −1, −1, −1) are exact in float64, so one kernel serves both)."""
+    return stencil_5pt_dd_general_pallas_blocked(x_hi, x_lo, POISSON_COEFS)
+
+
+def stencil_5pt_f64_via_dd(x: torch.Tensor) -> torch.Tensor:
+    """One float64 Poisson stencil application through the pair route:
+    split, K6 (or its plain version), recombine."""
+    return dd_to_f64(stencil_5pt_dd_pallas_blocked(*dd_from_f64(x)))
+
+
+def stencil_5pt_f64_dd_chain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k chained float64 Poisson applications in pair space (one split, one
+    recombine), as a pair-resident solver loop would run them. The pair
+    keeps float32's exponent range: the unnormalised Laplacian grows up to
+    8× a step, so chains much past 20 overflow hi."""
+    hi, lo = dd_from_f64(x)
+    for _ in range(k):
+        hi, lo = stencil_5pt_dd_pallas_blocked(hi, lo)
+    return dd_to_f64((hi, lo))
+
+
+def stencil_5pt_general_f64_via_dd(x: torch.Tensor, coefs) -> torch.Tensor:
+    """One general-coefficient float64 stencil application through the pair
+    route (split, kernel, recombine)."""
+    return dd_to_f64(stencil_5pt_dd_general_pallas_blocked(*dd_from_f64(x), coefs))

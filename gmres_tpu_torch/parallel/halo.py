@@ -24,9 +24,12 @@ differently, and on the card it waits for multi-card runs that can measure
 it. The JAX ``use_pallas``/``interpret`` switches have no counterpart: the
 device decides, as everywhere in the port.
 
-The RDMA operators of the JAX module (``rdma_stencil_operator``,
-``rdma_chebyshev_preconditioner``, in-kernel remote copies) are not
-ported yet.
+The RDMA operators (``rdma_stencil_operator``,
+``rdma_chebyshev_preconditioner``) take the same blocks through
+``ops/stencil_rdma.py`` (kernel K8): the halo messages are posted first, the
+interior is computed while they travel, and the two boundary rows are
+corrected after the wait, in the order of the TPU kernel's in-kernel remote
+copies.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from gmres_tpu_torch.ops.fused import (
     chebyshev_ref_scalars,
 )
 from gmres_tpu_torch.ops.stencil import stencil_5pt_pallas_halo
+from gmres_tpu_torch.ops.stencil_rdma import stencil_5pt_rdma
 from gmres_tpu_torch.parallel.mesh import GRID_AXIS
 
 LAPLACE_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
@@ -102,6 +106,48 @@ def halo_stencil_operator(
         return stencil_5pt_pallas_halo(blk, top, bottom, coefs)
 
     return _sharded(mesh, apply_local)
+
+
+def rdma_stencil_operator(
+    mesh,
+    coefs=LAPLACE_COEFS,
+    axis: str = GRID_AXIS,
+) -> Callable:
+    """Matrix-free 5-point stencil over a row-partitioned grid on the RDMA
+    route (``ops/stencil_rdma.py``): the halo messages are posted first and
+    overlap the interior, and only the two boundary rows wait for them. The
+    same LinearOperator contract and boundary semantics as
+    :func:`halo_stencil_operator`; K8 on a CUDA block, its plain version on
+    a CPU block, in float32 or float64."""
+    group = mesh.get_group(axis)
+    coefs7 = (*(float(c) for c in coefs), 0.0, 1.0)
+
+    def apply_local(blk):
+        return stencil_5pt_rdma(blk, coefs7, group)
+
+    return _sharded(mesh, apply_local)
+
+
+def rdma_chebyshev_preconditioner(
+    mesh,
+    lam_min: float,
+    lam_max: float,
+    coefs=LAPLACE_COEFS,
+    axis: str = GRID_AXIS,
+) -> Callable:
+    """Degree-2 Chebyshev preconditioner (cbpr2) as one RDMA-route stencil
+    application: by linearity z = r/d + α(r − A(r)/d) = (1/d + α)·r −
+    (α/d)·A(r), the affine form of ``stencil_5pt_rdma`` with
+    (a, b) = (1/d + α, −α/d), computed in Python floats and rounded to the
+    block's dtype as gmres_tpu rounds them (not K5's host-rounded 1/d)."""
+    d, alpha = chebyshev_ref_scalars(lam_min, lam_max)
+    coefs7 = (*(float(c) for c in coefs), 1.0 / d + alpha, -alpha / d)
+    group = mesh.get_group(axis)
+
+    def m_inv_local(r_blk):
+        return stencil_5pt_rdma(r_blk, coefs7, group)
+
+    return _sharded(mesh, m_inv_local)
 
 
 def halo_poisson_operator(mesh) -> Callable:

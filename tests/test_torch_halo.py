@@ -13,6 +13,10 @@ row is added, which may change a last bit); the solvers' counts equal and
 their solutions to 1e-9 relative (solves to tol 1e-9/1e-10 from the same
 operators); residual histories to 1e-9 relative above a 1e-15 floor, and
 CG's certified residual above the 1e-13 floor of its own rounding.
+
+The same processes drive the RDMA route (``ops/stencil_rdma.py``), held
+against JAX's RDMA route in interpret mode on a mesh of as many devices as
+ranks (the ``jax_rdma`` fixture), with float32 tolerances stated per test.
 """
 
 import os
@@ -29,13 +33,18 @@ from gmres_tpu.parallel.halo import (
     halo_chebyshev_preconditioner,
     halo_poisson_operator,
     halo_stencil_operator,
+    rdma_chebyshev_preconditioner,
+    rdma_stencil_operator,
 )
 from gmres_tpu.parallel.mesh import shard_grid_vector, solver_mesh
 from tests import torch_halo_worker
 from tests.torch_parity import np_poisson, rel_err, seeded
 
 N_OP = 32      # operator and preconditioner grid, and CG's
-N_GMRES = 24   # GMRES grid (tests/test_halo.py's)
+N_GMRES = 24   # GMRES grid (tests/test_halo.py's), also on the RDMA route
+# CG on the RDMA route: JAX's interpret mode simulates each remote copy on
+# the host (~0.25 s an application on 4 devices), so its grid is small.
+N_RDMA_CG = 16
 RESTART = 12
 ORTHOS = ("cgs2", "mgs2")
 
@@ -45,8 +54,11 @@ def cases():
     return {
         "x": seeded(900, (N_OP, N_OP)),
         "coefs": convection_diffusion_coefs(0.4, 0.2),
+        "coefs_asym": convection_diffusion_coefs(0.7, 0.3),
         "b_cg": np_poisson(np.ones((N_OP, N_OP))),
         "b_gmres": np_poisson(np.ones((N_GMRES, N_GMRES))),
+        "b_rdma_gmres": np_poisson(np.ones((N_GMRES, N_GMRES))).astype(np.float32),
+        "b_rdma_cg": np_poisson(np.ones((N_RDMA_CG, N_RDMA_CG))).astype(np.float32),
         "restart": RESTART,
     }
 
@@ -150,6 +162,68 @@ def test_mgsr_gmres_on_halo_operator_matches_jax(port, jax_ref, ortho):
     # v_err sits at the rounding floor of a float64 basis (~1e-15).
     np.testing.assert_allclose(port[f"gmres_{ortho}_v_err"],
                                np.asarray(ref.v_err), rtol=0, atol=1e-14)
+
+
+@pytest.fixture(scope="module")
+def jax_rdma(port, cases):
+    """JAX's RDMA route (Pallas interpret mode, simulated remote copies) on a
+    mesh of as many devices as the port has ranks: a shard boundary moves
+    where a halo row is added, so only equal partitions compare closely."""
+    mesh = solver_mesh(port["world"])
+
+    def shard(a):
+        return shard_grid_vector(jnp.asarray(a), mesh)
+
+    x32 = shard(cases["x"].astype(np.float32))
+    op = rdma_stencil_operator(mesh, interpret=True)
+    m_inv = rdma_chebyshev_preconditioner(mesh, 0.2, 8.2, interpret=True)
+    return {
+        "rdma_poisson": op(x32),
+        "rdma_asym": rdma_stencil_operator(mesh, cases["coefs_asym"],
+                                           interpret=True)(x32),
+        "rdma_cbpr2": m_inv(x32),
+        "gmres": jax.jit(lambda v: gt.gmres(
+            op, v, restart=30, tol=1e-5, M=m_inv, max_restarts=10,
+            variant="mgsr", compute_v_err=False))(shard(cases["b_rdma_gmres"])),
+        "cg": jax.jit(lambda v: gt.cg(op, v, tol=1e-4, max_iterations=500))(
+            shard(cases["b_rdma_cg"])),
+    }
+
+
+@pytest.mark.parametrize("key", ["rdma_poisson", "rdma_asym", "rdma_cbpr2"])
+def test_rdma_operators_match_jax(port, jax_rdma, cases, key):
+    """The RDMA Laplacian, the asymmetric convection–diffusion stencil (top
+    halo weighted by the south coefficient: tests/test_rdma.py's
+    swapped-halo check) and the RDMA cbpr2, in float32. Tolerance: a few
+    float32 ulps of max|y|, since XLA:CPU may contract the interpret-mode
+    kernel's products and sums into fused multiply-adds."""
+    assert port[key].dtype == np.float32 and port[key].shape == (N_OP, N_OP)
+    assert rel_err(port[key], jax_rdma[key]) < 1e-6
+    if key == "rdma_poisson":
+        assert rel_err(port["rdma_poisson_f64"], np_poisson(cases["x"])) < 1e-14
+
+
+def test_rdma_gmres_matches_jax(port, jax_rdma):
+    """f32 MGSR GMRES with A and M on the RDMA route: counts within 2 of
+    JAX's, and both solutions at the manufactured x = 1 to f32 accuracy
+    (two float32 solves to tol 1e-5 agree to 1e-4 relative)."""
+    ref = jax_rdma["gmres"]
+    iterations, restarts, status = port["rdma_gmres_counts"]
+    assert status == int(ref.status) == 0
+    assert abs((restarts - 1) * 30 + iterations
+               - (int(ref.restarts) - 1) * 30 - int(ref.iterations)) <= 2
+    np.testing.assert_allclose(port["rdma_gmres_x"], 1.0, atol=1e-3)
+    assert rel_err(port["rdma_gmres_x"], ref.x) < 1e-4
+
+
+def test_rdma_cg_matches_jax(port, jax_rdma):
+    """CG on the RDMA operator (dryrun_multichip's stanza), float32."""
+    ref = jax_rdma["cg"]
+    iterations, status = port["rdma_cg_counts"]
+    assert status == int(ref.status) == 0
+    assert abs(iterations - int(ref.iterations)) <= 2
+    np.testing.assert_allclose(port["rdma_cg_x"], 1.0, atol=1e-3)
+    assert rel_err(port["rdma_cg_x"], ref.x) < 1e-4
 
 
 def test_householder_refuses_sharded_rhs(port):

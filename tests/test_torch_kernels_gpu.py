@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3, K4, K5 and K7 of the PyTorch port on the card,
-against their plain PyTorch versions, and the main paths' use of them.
+"""Kernels K1–K8 of the PyTorch port on the card, against their plain
+PyTorch versions, and the main paths' use of them.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither jax nor gmres_tpu, so it also runs on a machine without
@@ -13,9 +13,11 @@ import pytest
 import torch
 
 import gmres_tpu_torch as tt
+from gmres_tpu_torch.ops import dd as tdd
 from gmres_tpu_torch.ops import fused as tfu
 from gmres_tpu_torch.ops import sparse as tsp
 from gmres_tpu_torch.ops import stencil as tst
+from gmres_tpu_torch.ops import stencil_rdma as trd
 from tests.torch_parity import cuda_device, np_poisson, rel_err, seeded, to_torch  # noqa: F401
 
 pytestmark = pytest.mark.gpu
@@ -286,13 +288,15 @@ def test_k7_matches_plain(cuda_device, dtype, shape):
 def test_halo_path_runs_on_the_kernels(cuda_device, tmp_path):
     """On a one-rank mesh of the card (an NCCL group made here, on a file
     rendezvous), the halo operator launches K1 and the order-2 halo
-    preconditioner K5; MGSR GMRES on them converges."""
+    preconditioner K5; MGSR GMRES on them converges. The RDMA operators
+    launch K8 and give the bits of the plain route on the CPU."""
     import torch.distributed as dist
 
     dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
                             rank=0, world_size=1)
     try:
         _halo_path_on_one_rank(cuda_device)
+        _rdma_path_on_one_rank(cuda_device)
     finally:
         dist.destroy_process_group()
 
@@ -316,3 +320,107 @@ def _halo_path_on_one_rank(cuda_device):
     assert res.status == 0
     assert np.linalg.norm(b_np - np_poisson(xs)) / np.linalg.norm(b_np) < 1e-9
     assert tfu.cheb2_cuda.launches > k5 + 1
+
+
+def _rdma_path_on_one_rank(cuda_device):
+    from gmres_tpu_torch.parallel.halo import (
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+
+    n = 64
+    mesh = tt.solver_mesh(1)
+    group = mesh.get_group("grid")
+    x_np = seeded(75, (n, n)).astype(np.float32)
+    x = tt.shard_grid_vector(to_torch(x_np, cuda_device), mesh)
+    op = rdma_stencil_operator(mesh, COEFS)
+    m_inv = rdma_chebyshev_preconditioner(mesh, 0.2, 8.2)
+    d, alpha = tfu.chebyshev_ref_scalars(0.2, 8.2)
+    before = (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches)
+    y, z = op(x).to_local(), m_inv(x).to_local()
+    torch.cuda.synchronize()
+    assert (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches) == (
+        before[0] + 2, before[1] + 2)
+    # The plain route on a CPU block of the same one-rank group.
+    x_cpu = to_torch(x_np)
+    torch.testing.assert_close(
+        y.cpu(), trd.stencil_5pt_rdma(x_cpu, (*COEFS, 0.0, 1.0), group), rtol=0, atol=0)
+    torch.testing.assert_close(
+        z.cpu(), trd.stencil_5pt_rdma(x_cpu, (*tst.POISSON_COEFS, 1.0 / d + alpha,
+                                              -alpha / d), group), rtol=0, atol=0)
+    b_np = np_poisson(np.ones((n, n))).astype(np.float32)
+    b = tt.shard_grid_vector(to_torch(b_np, cuda_device), mesh)
+    a = rdma_stencil_operator(mesh)
+    k8 = trd.rdma_interior_cuda.launches
+    res = tt.gmres(a, b, restart=30, tol=1e-5, M=m_inv, max_restarts=20,
+                   variant="mgsr", compute_v_err=False)
+    assert res.status == 0 and trd.rdma_interior_cuda.launches > k8
+    np.testing.assert_allclose(res.x.full_tensor().cpu().numpy(), 1.0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K6 (the stencil on (hi, lo) float32 pairs) and K8 (the RDMA route's
+# affine stencil).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("coefs", [tst.POISSON_COEFS, COEFS], ids=["poisson", "general"])
+@pytest.mark.parametrize("shape", [(2048, 2048), (77, 130)])
+def test_k6_matches_plain_bitwise(cuda_device, coefs, shape):
+    """K6 works in float64 in the plain version's order (-fmad=false): both
+    components bitwise; and within 1e-13 of the float64 oracle."""
+    x = to_torch(seeded(80, shape), cuda_device)
+    hi, lo = tdd.dd_from_f64(x)
+    before = tst.stencil5_dd_cuda.launches
+    yk = tst.stencil_5pt_dd_general_pallas_blocked(hi, lo, coefs)
+    torch.cuda.synchronize()
+    assert tst.stencil5_dd_cuda.launches == before + 1
+    yp = tst.stencil_5pt_dd_plain(hi, lo, coefs)
+    assert yk[0].dtype == yk[1].dtype == torch.float32
+    torch.testing.assert_close(yk[0], yp[0], rtol=0, atol=0)
+    torch.testing.assert_close(yk[1], yp[1], rtol=0, atol=0)
+    assert rel_err(tdd.dd_to_f64(yk), tst.stencil_5pt_general(x, *coefs)) < 1e-13
+
+
+def test_k6_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((8, 8), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        tst.stencil_5pt_dd_pallas_blocked(x, x)
+    h = torch.zeros((8, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="differ"):
+        tst.stencil_5pt_dd_pallas_blocked(h, torch.zeros((8, 9), device=cuda_device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(304, 304), (2048, 2048), (1, 40)])
+@pytest.mark.parametrize("halos", ["zero", "random"])
+def test_k8_matches_plain_bitwise(cuda_device, dtype, shape, halos):
+    """Interior then edges, as the operator runs them, for the stencil
+    (a, b) = (0, 1) and cbpr2's affine form: the plain version's bits."""
+    d, alpha = tfu.chebyshev_ref_scalars(0.2, 8.2)
+    x = to_torch(seeded(81, shape), cuda_device).to(dtype)
+    top = torch.zeros((1, shape[1]), dtype=dtype, device=cuda_device)
+    bot = torch.zeros_like(top)
+    if halos == "random":
+        top = to_torch(seeded(82, (1, shape[1])), cuda_device).to(dtype)
+        bot = to_torch(seeded(83, (1, shape[1])), cuda_device).to(dtype)
+    for ab in ((0.0, 1.0), (1.0 / d + alpha, -alpha / d)):
+        c = trd._coefs7((*COEFS, *ab), dtype)
+        before = (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches)
+        yk = trd.rdma_edges_cuda(trd.rdma_interior_cuda(x, c), top, bot, c)
+        torch.cuda.synchronize()
+        assert (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches) == (
+            before[0] + 1, before[1] + 1)
+        yp = trd.rdma_edges_plain(trd.rdma_interior_plain(x, c), top, bot, c)
+        torch.testing.assert_close(yk, yp, rtol=0, atol=0)
+
+
+def test_k8_refuses_what_it_does_not_take(cuda_device):
+    c = trd._coefs7((*COEFS, 0.0, 1.0), torch.float16)
+    with pytest.raises(TypeError):
+        trd.rdma_interior_cuda(torch.zeros((8, 8), dtype=torch.float16,
+                                           device=cuda_device), c)
+    y = torch.zeros((8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="halo row"):
+        trd.rdma_edges_cuda(y, torch.zeros(8, device=cuda_device),
+                            torch.zeros(16, device=cuda_device), c)

@@ -4,7 +4,8 @@ tests/test_torch_halo.py.
 ``run(rank, world, init_file, out_dir, cases)`` joins a gloo process group
 of ``world`` CPU processes through ``init_multihost`` (rendezvous on
 ``init_file``), which returns the port's mesh over every rank, and drives
-every case on row-sharded DTensors. Each rank
+every case on row-sharded DTensors, on the explicit-halo route and on the
+RDMA route. Each rank
 writes its local blocks and its solvers' counts to
 ``out_dir/rank{rank}.npz``; the test assembles the blocks and holds them
 against ``gmres_tpu`` in the parent process. This module imports no JAX,
@@ -73,6 +74,8 @@ def _drive(rank: int, mesh, out_dir: str, cases: dict) -> None:
         out[f"gmres_{ortho}_x_is_sharded"] = np.asarray(
             tt.ops.blas.is_dtensor(res.x))
 
+    _drive_rdma(mesh, shard, cases, out)
+
     try:
         tt.gmres(op, b_gm, restart=4, variant="householder")
         out["householder_refused"] = np.asarray("")
@@ -85,6 +88,34 @@ def _drive(rank: int, mesh, out_dir: str, cases: dict) -> None:
         lambda: tt.shard_grid_vector(torch.zeros((31, 31)), mesh)))
 
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def _drive_rdma(mesh, shard, cases: dict, out: dict) -> None:
+    """The RDMA route (ops/stencil_rdma.py): the operators in float32 (as
+    the JAX kernel runs) and the Laplacian in float64, then MGSR GMRES with
+    A and M on the route and CG on the operator, in float32."""
+    import gmres_tpu_torch as tt
+    from gmres_tpu_torch.parallel.halo import (
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+
+    x32 = shard(cases["x"].astype(np.float32))
+    op = rdma_stencil_operator(mesh)
+    m_inv = rdma_chebyshev_preconditioner(mesh, 0.2, 8.2)
+    out["rdma_poisson"] = _local(op(x32))
+    out["rdma_poisson_f64"] = _local(op(shard(cases["x"])))
+    out["rdma_asym"] = _local(rdma_stencil_operator(mesh, cases["coefs_asym"])(x32))
+    out["rdma_cbpr2"] = _local(m_inv(x32))
+    # Householder refuses a sharded b (ROADMAP), so GMRES runs MGSR here and
+    # in the JAX reference alike.
+    res = tt.gmres(op, shard(cases["b_rdma_gmres"]), restart=30, tol=1e-5,
+                   M=m_inv, max_restarts=10, variant="mgsr", compute_v_err=False)
+    out["rdma_gmres_x"] = _local(res.x)
+    out["rdma_gmres_counts"] = np.array([res.iterations, res.restarts, res.status])
+    res = tt.cg(op, shard(cases["b_rdma_cg"]), tol=1e-4, max_iterations=500)
+    out["rdma_cg_x"] = _local(res.x)
+    out["rdma_cg_counts"] = np.array([res.iterations, res.status])
 
 
 def _error(fn) -> str:
