@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of gmres_tpu_torch (the PyTorch/CUDA port) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # the smoke run below
+    python3 chip_smoke.py --k2-paths [OUT]     # K2's path table (JSONL to OUT)
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
-built for sm_90a). It imports torch, numpy and gmres_tpu_torch only.
-Phases:
+built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
+``--k2-paths`` mode builds the kernels, then forces every path of kernel K2
+that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
+float32 and float64), holds each bitwise to the per-sweep path and times it
+by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
+Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
    power limit as nvidia-smi reports them.
@@ -17,13 +22,17 @@ Phases:
    the main path gives them; print the error against a tolerance stated
    per case, each kernel's and plain version's time (CUDA events, after a
    warm-up), the bound and, for K1, the time of F.conv2d with the cross
-   kernel (the one PyTorch call that computes the same stencil).
+   kernel (the one PyTorch call that computes the same stencil). Each K2
+   case also runs on K2's per-sweep path: the routed path (printed with its
+   cluster or tile) must give the same bits and take no longer (3% for
+   noise).
 4. Solve the multigrid ``mg`` configuration (Householder GMRES, m=10,
    float32 Arnoldi cycles certified on the float64 true residual) at 300²
    and 2048²; check convergence with a float64 true residual computed
    independently in numpy, and that K1 and K2 were launched during the
-   solves; profile one more solve of each (device time by kernel, and the
-   device's busy share of the wall time).
+   solves, K2 on its cluster path at both sizes (the coarse solves) and on
+   its tiled path at 2048² (printed by path); profile one more solve of each
+   (device time by kernel, and the device's busy share of the wall time).
 5. Solve the reference configuration at 300² (float64, cbpr2, m=50).
 6. At 64², check that the GPU solve and the port's CPU solve agree.
 7. Compare kernel K3 (DIA SpMV) and kernel K4 (BSR SpMV) with their plain
@@ -69,8 +78,9 @@ Phases:
     float64 F.conv2d (the nearest PyTorch call); then run the port's
     ``roofline`` program at its defaults (1024, 2048, 4096; reps 20;
     order 8), which prints every row, and check that K1, K2 and K6 were
-    launched and that no row exceeds 1.05 of the HBM peak without a stated
-    traffic model.
+    launched, that no row exceeds 1.05 of the HBM peak without a stated
+    traffic model, and that K2's rows carry their fraction of the single
+    pass (r read once, z written once).
 14. On the same one-rank NCCL group: compare kernel K8 (the RDMA route's
     affine stencil, interior then edges) with its plain version, bitwise,
     at 304² and 2048² float32, with F.conv2d of the affine weights as the
@@ -302,6 +312,36 @@ def stencil_work(n, dt, sweeps=0, halo=False):
     return (2 * n * n + (2 * n if halo else 0)) * item, flops, dt, None
 
 
+def k2_compare(name, r, theta, steps, coefs, rtol, reps, sweeps):
+    """K2 on the path chebk_plan routes, against its plain version (compare),
+    then against the per-sweep path in the same run: the same bits, and a
+    time no worse than the per-sweep path's (3% for noise)."""
+    import torch
+
+    from gmres_tpu_torch.ops import fused
+
+    path = fused.chebk_plan(*r.shape, len(steps) // 2, r.dtype)
+    n = r.shape[0]
+    rec = compare(name, lambda: fused.chebk_cuda(r, theta, steps, coefs),
+                  lambda: fused.poly_stencil_smoother_plain(r, theta, steps, coefs),
+                  rtol, reps, work=stencil_work(n, r.dtype, sweeps=sweeps))
+    z_c = fused.chebk_cuda(r, theta, steps, coefs, _path=("sweep", None))
+    z_k = fused.chebk_cuda(r, theta, steps, coefs)
+    torch.cuda.synchronize()
+    require(torch.equal(z_k, z_c), f"{name}: the {path[0]} path differs from the "
+            "per-sweep path")
+    rec["path"], rec["param"] = path
+    rec["sweep_ms"] = device_ms(
+        lambda: fused.chebk_cuda(r, theta, steps, coefs, _path=("sweep", None)), reps)
+    print(f"  {name:42s} path {path[0]} {path[1]}: {rec['ms']:.4f} ms, per-sweep "
+          f"path {rec['sweep_ms']:.4f} ms ({rec['sweep_ms'] / rec['ms']:.2f}x), bound "
+          f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); bitwise equal to the "
+          "per-sweep path", flush=True)
+    require(rec["ms"] <= 1.03 * rec["sweep_ms"],
+            f"{name}: the {path[0]} path is slower than the per-sweep path")
+    return rec
+
+
 def phase_kernels(gt_torch, rng, dev):
     import numpy as np
     import torch
@@ -309,7 +349,7 @@ def phase_kernels(gt_torch, rng, dev):
 
     from gmres_tpu_torch.ops import fused, stencil
 
-    sizes = (300, 150, 75, 1024, 2048)
+    sizes = (300, 150, 128, 75, 1024, 2048)
     records = {"K1": [], "K2": []}
     print("phase 3: kernels against their plain versions", flush=True)
     coefs = (4.0, -1.0, -1.0, -1.0, -1.0)
@@ -338,33 +378,108 @@ def phase_kernels(gt_torch, rng, dev):
                 rtol, reps, work=stencil_work(n, dt, halo=True)))
             # Order-3 smoother on [2, 8]: the V-cycle's pre/post smoother.
             theta, _, steps = fused.chebyshev_k_scalars(2.0, 8.0, 3)
-            records["K2"].append(compare(
-                f"K2 order 3 {n}x{n} {tag}",
-                lambda: fused.chebk_cuda(x, theta, steps, coefs),
-                lambda: fused.poly_stencil_smoother_plain(x, theta, steps, coefs),
-                1e-5 if dt == torch.float32 else 1e-13, reps,
-                work=stencil_work(n, dt, sweeps=2)))
+            records["K2"].append(k2_compare(
+                f"K2 order 3 {n}x{n} {tag}", x, theta, steps, coefs,
+                1e-5 if dt == torch.float32 else 1e-13, reps, 2))
     for n in (75, 16):
         lam_min = 8.0 * np.sin(np.pi / (2 * (n + 1))) ** 2
         theta, _, steps = fused.chebyshev_k_scalars(lam_min, 8.0, 32)
         for dt, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-11)):
             tag = "f32" if dt == torch.float32 else "f64"
             r = torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
-            records["K2"].append(compare(
-                f"K2 order 32 {n}x{n} {tag} (coarse solve)",
-                lambda: fused.chebk_cuda(r, theta, steps, coefs),
-                lambda: fused.poly_stencil_smoother_plain(r, theta, steps, coefs),
-                rtol, 200, work=stencil_work(n, dt, sweeps=31)))
-    # Damped Jacobi on a general (non-symmetric) stencil, per-sweep path.
+            records["K2"].append(k2_compare(
+                f"K2 order 32 {n}x{n} {tag} (coarse solve)", r, theta, steps, coefs,
+                rtol, 200, 31))
+    # Damped Jacobi on a general (non-symmetric) stencil.
     gcoefs = (4.0, -1.2, -0.8, -1.1, -0.9)
     theta, steps = fused.jacobi_k_scalars(0.7, gcoefs[0], 8)
     r = torch.as_tensor(rng.standard_normal((300, 300))).to(dev, torch.float32)
-    records["K2"].append(compare(
-        "K2 Jacobi order 8 300x300 f32 general coefs",
-        lambda: fused.chebk_cuda(r, theta, steps, gcoefs),
-        lambda: fused.poly_stencil_smoother_plain(r, theta, steps, gcoefs),
-        1e-5, 200, work=stencil_work(300, torch.float32, sweeps=7)))
+    records["K2"].append(k2_compare(
+        "K2 Jacobi order 8 300x300 f32 general coefs", r, theta, steps, gcoefs,
+        1e-5, 200, 7))
     return records
+
+
+# ---------------------------------------------------------------------------
+# K2's path table (`python3 chip_smoke.py --k2-paths [out.jsonl]`): every
+# path that can take each multigrid shape, forced, timed beside the per-sweep
+# path and held bitwise to it. ops/fused.py's chebk_plan is set from it.
+# ---------------------------------------------------------------------------
+
+K2_PATH_SIZES = (16, 32, 64, 75, 128, 150, 256, 300, 512, 1024, 2048, 4096)
+K2_TILES = ((8, 32), (16, 32), (16, 64), (32, 64), (16, 128), (32, 128), (64, 64),
+            (16, 256), (32, 256), (64, 128), (8, 128), (8, 256))
+
+
+def k2_candidates(r, nsteps):
+    """Every cluster size (with each ghost depth) and tile (with each thread
+    count) that can take r."""
+    from gmres_tpu_torch.ops import fused
+
+    rows, cols = r.shape
+    item = r.element_size()
+    out = [("sweep", None)]
+    for c in fused.CLUSTER_SIZES:
+        for g in ((0,) if c == 1 else (1, 2, 4, 8)):
+            if (fused.cluster_fits(rows, cols, c, g, item)
+                    and fused._cluster_schedulable(item == 8, rows, cols, c,
+                                                   fused.cluster_threads(rows, cols, c, g),
+                                                   g, r.device.index) > 0):
+                out.append(("cluster", (c, g)))
+    for t in K2_TILES:
+        if t[0] > 2 * rows or t[1] > 2 * cols:
+            continue
+        if fused.tile_fits(t, nsteps, item):
+            th = fused.tile_threads(t, nsteps, item)
+            out.extend(("tiled", (*t, n)) for n in sorted({th, min(512, 2 * th)}))
+    return out
+
+
+def k2_paths(dev, out_path=None) -> None:
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(SEED)
+    rows_out = []
+    print("K2 paths: device ms per call (CUDA-graph replay); every fused path "
+          "bitwise equal to the per-sweep path", flush=True)
+    for n in K2_PATH_SIZES:
+        for order in ((3, 8, 32) if n <= 512 else (3, 8)):
+            for dt in (torch.float32, torch.float64):
+                tag = "f32" if dt == torch.float32 else "f64"
+                lam_min = 8.0 * np.sin(np.pi / (2 * (n + 1))) ** 2
+                theta, _, steps = fused.chebyshev_k_scalars(
+                    lam_min if order > 3 else 2.0, 8.0, order)
+                r = torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
+                ref = fused.chebk_cuda(r, theta, steps, _path=("sweep", None))
+                reps = 20 if n <= 512 else 5
+                times = {}
+                for path in k2_candidates(r, order - 1):
+                    z = fused.chebk_cuda(r, theta, steps, _path=path)
+                    torch.cuda.synchronize()
+                    require(torch.equal(z, ref), f"K2 {path} {n}x{n} order {order} "
+                            f"{tag}: not bitwise equal to the per-sweep path")
+                    t = device_ms(lambda p=path: fused.chebk_cuda(r, theta, steps, _path=p),
+                                  reps)
+                    times[path] = t
+                    rows_out.append({"n": n, "order": order, "dtype": tag,
+                                     "path": path[0], "param": path[1], "ms": t})
+                t_c = times[("sweep", None)]
+                best = {}
+                for (p, param), t in times.items():
+                    if p not in best or t < best[p][1]:
+                        best[p] = (param, t)
+                print(f"  {n:5d}² order {order:2d} {tag}: sweep {t_c:.4f}"
+                      + "".join(f"  {p} {best[p][0]} {best[p][1]:.4f} "
+                                f"({t_c / best[p][1]:.2f}x)"
+                                for p in ("cluster", "tiled") if p in best), flush=True)
+                del r, ref
+    if out_path:
+        with open(out_path, "w") as f:
+            for row in rows_out:
+                f.write(json.dumps(row) + "\n")
 
 
 # ---------------------------------------------------------------------------
@@ -1132,6 +1247,10 @@ def phase_roofline(gt_torch, rng, dev, workdir):
                 f"roofline {r['name']}: fraction of peak {frac}")
         require(frac <= 1.05 or "note" in r or r.get("l2_resident"),
                 f"roofline {r['name']}: {frac:.3f} of peak without a traffic model")
+        if r["name"].startswith("chebk"):
+            single = r.get("fraction_of_single_pass")
+            require(single is not None and np.isfinite(single) and 0 < single,
+                    f"roofline {r['name']}: fraction_of_single_pass {single}")
     return records, {"K1": k1, "K2": k2, "K6": k6}
 
 
@@ -1290,6 +1409,11 @@ def main() -> int:
     for line in _cuda.build_log.splitlines():
         if "Used" in line or "spill" in line or "error" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    if sys.argv[1:2] == ["--k2-paths"]:
+        section = _cuda.build_log.split("== chebk.cu")[-1].split("\n== ")[0]
+        print(f"  ptxas, chebk.cu:{section}", flush=True)
+        k2_paths(dev, sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
 
     # Phase 3: kernels against their plain versions.
     rng = np.random.default_rng(SEED)
@@ -1302,12 +1426,14 @@ def main() -> int:
         res, t_warm = timed(solve)  # warm-up
         stencil.stencil5_cuda.launches = 0
         fused.chebk_cuda.launches = 0
+        fused.chebk_cuda.launches_by_path = dict.fromkeys(fused.chebk_cuda.launches_by_path, 0)
         times = []
         for _ in range(SOLVE_REPEATS):
             res, t_solve = timed(solve)
             times.append(t_solve)
         k1, k2 = stencil.stencil5_cuda.launches, fused.chebk_cuda.launches
-        launches[n] = (k1, k2)
+        k2_paths_mg = dict(fused.chebk_cuda.launches_by_path)
+        launches[n] = (k1, k2, k2_paths_mg)
         rel = true_rel(b_np, res.x)
         total_inner = (res.restarts - 1) * 10 + res.iterations
         print(f"phase 4: mg {n}x{n} ({m_inv.levels} levels): status "
@@ -1318,12 +1444,18 @@ def main() -> int:
               f"{np.percentile(times, 25):.4f}-{np.percentile(times, 75):.4f} "
               f"min {min(times):.4f} max {max(times):.4f} (warm-up "
               f"{t_warm:.4f}); "
-              f"launches over the {SOLVE_REPEATS} solves: K1 {k1}, K2 {k2}",
+              f"launches over the {SOLVE_REPEATS} solves: K1 {k1}, K2 {k2} (by path: "
+              f"{k2_paths_mg}; levels {m_inv.plan.sizes}, K2 plans: "
+              f"{[fused.chebk_plan(m, m, 2, torch.float32) for m in m_inv.plan.sizes[:-1]]} "
+              f"and coarse {fused.chebk_plan(*(m_inv.plan.sizes[-1],) * 2, 31, torch.float32)})",
               flush=True)
         profile_solve(solve, f"mg {n}x{n}", float(np.median(times)))
         require(res.status == 0, f"mg {n}: not converged (status {res.status})")
         require(rel <= TOL, f"mg {n}: true relative residual {rel:.3e} > {TOL}")
         require(k1 > 0 and k2 > 0, f"mg {n}: K1/K2 not launched ({k1}, {k2})")
+        require(k2_paths_mg["cluster"] > 0 and (n < 2048 or k2_paths_mg["tiled"] > 0),
+                f"mg {n}: K2 launches by path {k2_paths_mg}")
+        require(sum(k2_paths_mg.values()) == k2, f"mg {n}: K2 launches by path do not add up")
         require(tuple(res.x.shape) == (n, n), f"mg {n}: wrong x shape")
 
     # Phase 5: the reference configuration (float64 cbpr2, m=50) at 300².
@@ -1409,6 +1541,8 @@ def main() -> int:
         }
 
     mg_k1, mg_k2 = launches[2048][0] + launches[300][0], launches[2048][1] + launches[300][1]
+    mg_k2_paths = {p: launches[2048][2][p] + launches[300][2][p] for p in launches[300][2]}
+    coarse = [r for r in records["K2"] if r["case"] == "K2 order 32 75x75 f32 (coarse solve)"][0]
     roofline_path = "roofline program (phase 13; launches captured in CUDA graphs)"
     print(json.dumps({"kernels": [
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
@@ -1420,7 +1554,16 @@ def main() -> int:
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"], "K2 order 3 2048x2048 f32",
-               launches_by_path={"mg (phase 4)": mg_k2, roofline_path: roof["K2"]}),
+               launches_by_path=mg_k2_paths,
+               launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"]},
+               path=[r["path"] for r in records["K2"]
+                     if r["case"] == "K2 order 3 2048x2048 f32"][0],
+               sweep_path_ms=[r["sweep_ms"] for r in records["K2"]
+                              if r["case"] == "K2 order 3 2048x2048 f32"][0],
+               coarse_timed_at=coarse["case"], coarse_path=coarse["path"],
+               coarse_ms=coarse["ms"], coarse_plain_ms=coarse["plain_ms"],
+               coarse_sweep_path_ms=coarse["sweep_ms"], coarse_bound_ms=coarse["bound_ms"],
+               coarse_bound_by=coarse["bound_by"]),
         report("K3", "gmres_tpu_torch/csrc/dia_spmv.cu",
                "gmres_tpu/ops/sparse.py:567", [], launches["K3"],
                f"K3 HYB {CG_GRIDS[-1]}x{CG_GRIDS[-1]} f64"),

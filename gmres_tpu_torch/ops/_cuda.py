@@ -110,8 +110,8 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 5 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_chebk_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32, real, vp, i32, vp, i32,
-                           i32, vp]
+            fn.argtypes = [vp, vp, vp, vp, i32, i32, real, vp, i32, vp,
+                           i32, i32, i32, i32, i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_cheb2_{suffix}")
             fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 7 + [i32, vp]
@@ -140,8 +140,10 @@ def load() -> ctypes.CDLL:
             fn.restype = i32
         lib.gt_cuda_error_string.argtypes = [i32]
         lib.gt_cuda_error_string.restype = ctypes.c_char_p
-        lib.gt_chebk_max_smem_steps.argtypes = []
-        lib.gt_chebk_max_smem_steps.restype = i32
+        lib.gt_chebk_max_fused_steps.argtypes = []
+        lib.gt_chebk_max_fused_steps.restype = i32
+        lib.gt_chebk_max_active_clusters.argtypes = [i32] * 7
+        lib.gt_chebk_max_active_clusters.restype = i32
         lib.gt_fused_reduce_blocks.argtypes = [i32]
         lib.gt_fused_reduce_blocks.restype = i32
         _LIB = lib

@@ -12,9 +12,26 @@ Counterpart of ``gmres_tpu/ops/fused.py``. Order-k smoothers:
   and data arguments of the Pallas entry points, routed by device: a CPU
   tensor takes the plain recurrence, a CUDA tensor of float32 or float64
   launches K2, any other CUDA dtype raises. The TPU's whole-grid and
-  row-blocked kernels exist for VMEM; K2 chooses between its own two paths
-  (whole grid in one block's shared memory, or one launch per sweep) from
-  the grid's size, so both names reach the same function.
+  row-blocked kernels exist for VMEM; K2 has three paths of its own, and
+  ``chebk_plan`` picks one from the grid's shape, the number of sweeps and
+  the dtype, so both names reach the same function:
+
+  - ``cluster`` (path A, for ``_chebk_kernel``, fused.py:187): the whole
+    grid in the shared memory of one thread-block cluster, a band of rows
+    per CTA, one launch. A deep polynomial on a small grid is bound by the
+    latency of its dependent sweeps, and a cluster barrier costs more than a
+    sweep, so each band also holds ``ghost`` rows of its neighbours and
+    swaps them through distributed shared memory only every ``ghost``
+    sweeps.
+  - ``tiled`` (path B, for ``_chebk_blocked_kernel``, fused.py:388): one
+    launch; each CTA runs all k − 1 sweeps on a tile with a (k − 1)-cell
+    halo, r and d in registers and z in shared memory, the points outside
+    the grid held at zero, and writes the tile's interior. The smoothers of
+    the large levels are bound by HBM bytes; this reads r once and writes z
+    once.
+  - ``sweep`` (path C): one launch per sweep, for what neither fused path
+    takes (more than ``CHEBK_MAX_FUSED_STEPS`` sweeps, order 1, shapes
+    where it measured faster). Paths A and B are bitwise equal to it.
 
 The recurrence (z ≈ A⁻¹r on the 5-point stencil A):
 
@@ -40,6 +57,8 @@ kernel, any other CUDA dtype raises):
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gmres_tpu_torch.ops import _cuda
@@ -51,9 +70,18 @@ from gmres_tpu_torch.ops.stencil import (
     stencil_5pt_halo,
 )
 
-# K2 holds r, z and d of the whole grid in one block's shared memory when
-# they fit this budget (of the 227 KB a block may use).
-SMEM_BUDGET_BYTES = 200 * 1024
+# K2's fused paths carry at most this many sweeps as kernel parameters
+# (csrc/chebk.cu, kMaxFusedSteps).
+CHEBK_MAX_FUSED_STEPS = 128
+# Shared memory one CTA may use on an H100 (the opt-in maximum, 227 KB).
+CTA_SMEM_BYTES = 232448
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# Window points one thread of the cluster path owns, at most
+# (csrc/chebk.cu, kMaxClusterPoints).
+CLUSTER_POINTS = 8
+# Row chunks one thread of the tiled path owns, at most
+# (csrc/chebk.cu, kMaxTileChunks).
+TILE_CHUNKS = 4
 
 
 def jacobi_k_scalars(omega: float, center: float, order: int):
@@ -114,36 +142,160 @@ def poly_stencil_smoother_plain(
     return z
 
 
+def chebk_bands(rows: int, csize: int) -> list[tuple[int, int]]:
+    """(first row, row count) of each CTA's band on K2's cluster path: the
+    first rows % csize bands are one row longer (csrc/chebk.cu, band_of)."""
+    base, extra = divmod(rows, csize)
+    return [(b * base + min(b, extra), base + (b < extra)) for b in range(csize)]
+
+
+def cluster_window(rows: int, cols: int, csize: int, ghost: int) -> int:
+    """Points of one CTA's window on the cluster path: the longest band and
+    ``ghost`` rows of each neighbour band."""
+    return (-(-rows // csize) + 2 * ghost) * cols
+
+
+def cluster_threads(rows: int, cols: int, csize: int, ghost: int) -> int:
+    """Threads of one CTA on the cluster path: one a window point, in whole
+    warps, at most 512 (a cluster barrier costs more with more threads, and
+    512 measured fastest), more only where a thread would otherwise own over
+    CLUSTER_POINTS points."""
+    window = cluster_window(rows, cols, csize, ghost)
+    return 32 * -(-max(min(512, window), -(-window // CLUSTER_POINTS)) // 32)
+
+
+def cluster_fits(rows: int, cols: int, csize: int, ghost: int, itemsize: int) -> bool:
+    """Whether the cluster path can take the grid with these CTAs and ghost
+    rows (csrc/chebk.cu, cluster_shape_ok). One CTA's shared memory holds r,
+    d and two z buffers of its window and the landing rows (2 parities · 2
+    sides · z and d)."""
+    window = cluster_window(rows, cols, csize, ghost)
+    return (csize in CLUSTER_SIZES and csize <= rows
+            and (ghost == 0 if csize == 1 else 1 <= ghost <= rows // csize)
+            and window <= CLUSTER_POINTS * 1024
+            and (4 * window + 8 * ghost * cols) * itemsize <= CTA_SMEM_BYTES)
+
+
+def tile_chunks(tile: tuple, nsteps: int, itemsize: int) -> int:
+    """16-byte row chunks of the tiled path's window: the tile grown by
+    nsteps cells a side, rows padded to whole chunks."""
+    per = 16 // itemsize
+    return (tile[0] + 2 * nsteps) * -(-(tile[1] + 2 * nsteps) // per)
+
+
+def tile_threads(tile: tuple, nsteps: int, itemsize: int) -> int:
+    """Threads of one CTA on the tiled path: up to TILE_CHUNKS chunks of the
+    window each, whole warps, 256 to 512 (the counts that measured best)."""
+    n = -(-tile_chunks(tile, nsteps, itemsize) // TILE_CHUNKS)
+    return min(512, max(256, 32 * -(-n // 32)))
+
+
+def tile_fits(tile: tuple, nsteps: int, itemsize: int) -> bool:
+    """Whether the tiled path can take this tile at this many sweeps
+    (csrc/chebk.cu): the window's chunks within TILE_CHUNKS · 512 threads,
+    its two z buffers (r and d stay in registers) within one CTA's shared
+    memory."""
+    chunks = tile_chunks(tile, nsteps, itemsize)
+    return (1 <= nsteps <= CHEBK_MAX_FUSED_STEPS and chunks <= TILE_CHUNKS * 512
+            and 2 * 16 * chunks <= CTA_SMEM_BYTES)
+
+
+def chebk_plan(rows: int, cols: int, nsteps: int, dtype: torch.dtype):
+    """K2's path for a (rows, cols) grid and ``nsteps`` sweeps (order − 1):
+    ``("cluster", (csize, ghost))``, ``("tiled", (tile_rows, tile_cols))``
+    or ``("sweep", None)``. Plain Python, no card.
+
+    The rules are the H100's path table (PERF.md, from ``chip_smoke.py
+    --k2-paths``): a fused path is routed only where it measured faster than
+    the per-sweep path. Up to 8 sweeps the tiled path won at every grid
+    (smaller tiles up to 300² and 512²). From 9 sweeps on, grids up to 150² take the
+    cluster path: 16 CTAs with 4 ghost rows from 64 rows, 4 CTAs with 8 at 32
+    rows, one CTA at 16 (where a cluster barrier costs more than it saves);
+    float32 grids up to 256² the tiled path; larger grids, and float64 past
+    150², the per-sweep path, which measured faster there."""
+    item = torch.empty((), dtype=dtype).element_size()
+    npts = rows * cols
+    if not 1 <= nsteps <= CHEBK_MAX_FUSED_STEPS:
+        return ("sweep", None)
+    if nsteps <= 8:
+        tile = ((8, 32) if npts <= 300 * 300 else (16, 32) if npts <= 512 * 512
+                else (32, 128) if item == 4 else (32, 64))
+        return ("tiled", tile) if tile_fits(tile, nsteps, item) else ("sweep", None)
+    if npts <= 150 * 150:
+        for min_rows, csize, ghost in ((64, 16, 4), (32, 4, 8), (1, 1, 0)):
+            if rows >= min_rows and cluster_fits(rows, cols, csize, ghost, item):
+                return ("cluster", (csize, ghost))
+    if item == 4 and npts <= 256 * 256 and tile_fits((16, 32), nsteps, item):
+        return ("tiled", (16, 32))
+    return ("sweep", None)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_schedulable(f64: bool, rows: int, cols: int, csize: int,
+                         threads: int, ghost: int, device: int) -> int:
+    """How many such clusters the card can hold at once (queried once per
+    shape: cudaOccupancyMaxActiveClusters costs host time)."""
+    return _cuda.load().gt_chebk_max_active_clusters(int(f64), rows, cols, csize,
+                                                     threads, ghost, device)
+
+
 def chebk_cuda(r: torch.Tensor, theta: float, steps,
-               coefs=POISSON_COEFS) -> torch.Tensor:
-    """Launch K2 on a CUDA (rows, N) grid. ``chebk_cuda.launches`` counts
-    kernel launches: 1 on the shared-memory path, one per sweep (at least
-    one) otherwise."""
+               coefs=POISSON_COEFS, *, _path=None) -> torch.Tensor:
+    """Launch K2 on a CUDA (rows, N) grid on the path ``chebk_plan`` picks
+    (``_path`` forces one, for the tests and chip_smoke.py). Counts:
+    ``chebk_cuda.launches`` (1 on a fused path, one per sweep, at least one,
+    on the sweep path) and ``chebk_cuda.launches_by_path``."""
     _cuda.check_grid(r, "chebk_cuda")
     if len(steps) % 2:
         raise ValueError("steps must hold (a, b) pairs")
     nsteps = len(steps) // 2
-    lib = _cuda.load()
-    whole = (nsteps <= lib.gt_chebk_max_smem_steps()
-             and 3 * r.numel() * r.element_size() <= SMEM_BUDGET_BYTES)
+    rows, cols = r.shape
+    path, param = _path or chebk_plan(rows, cols, nsteps, r.dtype)
+    item = r.element_size()
+    if path != "sweep" and not 1 <= nsteps <= CHEBK_MAX_FUSED_STEPS:
+        raise ValueError(f"chebk_cuda: the {path} path takes 1 to "
+                         f"{CHEBK_MAX_FUSED_STEPS} sweeps, not {nsteps}")
+    if path == "cluster":
+        csize, ghost = param[:2]
+        threads = (param[2] if len(param) > 2
+                   else cluster_threads(rows, cols, csize, ghost))
+        if (not cluster_fits(rows, cols, csize, ghost, item)
+                or _cluster_schedulable(item == 8, rows, cols, csize, threads, ghost,
+                                        r.device.index) <= 0):
+            raise ValueError(f"chebk_cuda: a cluster of {csize} CTAs with {ghost} "
+                             f"ghost rows cannot hold a {tuple(r.shape)} {r.dtype} grid")
+        args = (1, csize, threads, ghost)
+    elif path == "tiled":
+        tile = tuple(param[:2])
+        threads = param[2] if len(param) > 2 else tile_threads(tile, nsteps, item)
+        if not tile_fits(tile, nsteps, item):
+            raise ValueError(f"chebk_cuda: tile {tile} with a {nsteps}-cell halo "
+                             f"does not fit one CTA's shared memory and threads")
+        args = (2, tile[0], tile[1], threads)
+    elif path == "sweep":
+        args = (0, 0, 0, 0)
+    else:
+        raise ValueError(f"chebk_cuda: unknown path {path!r}")
     out = torch.empty_like(r)
     scratch = d = None
-    if not whole and nsteps >= 2:
+    if path == "sweep" and nsteps >= 2:
         scratch = torch.empty_like(r)
         d = torch.empty_like(r)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = getattr(lib, f"gt_chebk_{_cuda.suffix(r.dtype)}")
-    rc = fn(r.data_ptr(), out.data_ptr(), ptr(scratch), ptr(d),
-            r.shape[0], r.shape[1], theta,
+    fn = getattr(_cuda.load(), f"gt_chebk_{_cuda.suffix(r.dtype)}")
+    rc = fn(r.data_ptr(), out.data_ptr(), ptr(scratch), ptr(d), rows, cols, theta,
             _cuda.scalar_array(list(steps), r.dtype), nsteps,
-            _cuda.scalar_array(_coef_list(coefs), r.dtype), int(whole),
+            _cuda.scalar_array(_coef_list(coefs), r.dtype), *args,
             r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "chebk_cuda")
-    chebk_cuda.launches += 1 if whole else max(nsteps, 1)
+    n = max(nsteps, 1) if path == "sweep" else 1
+    chebk_cuda.launches += n
+    chebk_cuda.launches_by_path[path] += n
     return out
 
 
 chebk_cuda.launches = 0
+chebk_cuda.launches_by_path = {"cluster": 0, "tiled": 0, "sweep": 0}
 
 
 def poly_stencil_smoother_pallas(

@@ -57,8 +57,8 @@ def test_k1_refuses_what_it_does_not_take(cuda_device):
 @pytest.mark.parametrize("n,order", [(16, 32), (75, 32), (75, 3), (150, 3),
                                      (300, 3), (300, 1), (300, 2), (64, 200)])
 def test_k2_matches_plain(cuda_device, dtype, rtol, n, order):
-    """Both K2 paths (whole grid in shared memory; one launch per sweep,
-    also for a grid that fits but has more sweeps than the kernel carries)
+    """K2 on the path chebk_plan routes (a fused path, or one launch per
+    sweep, also for a grid with more sweeps than the fused paths carry)
     against the plain recurrence. The plain version divides by θ as a
     multiplication by 1/θ (PyTorch's rule for a scalar divisor on CUDA), a
     last-bit difference that the deep polynomials amplify."""
@@ -82,27 +82,130 @@ def test_k2_jacobi_general_coefficients(cuda_device, n):
     assert rel_err(z, tfu.poly_stencil_smoother_plain(r, theta, steps, COEFS)) < 1e-5
 
 
+def _k2_case(device, dtype, shape, order, seed=56):
+    lam_min = 8.0 * np.sin(np.pi / (2 * (max(shape) + 1))) ** 2
+    theta, _, steps = tfu.chebyshev_k_scalars(lam_min if order > 3 else 2.0, 8.0, order)
+    return to_torch(seeded(seed, shape), device).to(dtype), theta, steps
+
+
+# Largest first: the tiles the fused-path tests force, where they fit.
+K2_TILES = ((32, 128), (16, 64), (16, 32), (8, 16))
+
+
+def _k2_forced_paths(r, nsteps):
+    """Every cluster size that can hold r (one and four ghost rows), and the
+    largest tile that fits."""
+    rows, cols = r.shape
+    item = r.element_size()
+    paths = [("cluster", (c, g)) for c in tfu.CLUSTER_SIZES
+             for g in ((0,) if c == 1 else (1, 4))
+             if tfu.cluster_fits(rows, cols, c, g, item)
+             and tfu._cluster_schedulable(item == 8, rows, cols, c,
+                                          tfu.cluster_threads(rows, cols, c, g), g,
+                                          r.device.index) > 0]
+    tiles = [t for t in K2_TILES if tfu.tile_fits(t, nsteps, item)]
+    return paths + [("tiled", tiles[0])] if tiles else paths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,order", [
+    ((16, 16), 3), ((16, 16), 32), ((75, 75), 3), ((75, 75), 32), ((128, 128), 3),
+    ((128, 128), 32), ((150, 150), 3), ((150, 150), 32), ((300, 300), 3),
+    ((300, 300), 32), ((1024, 1024), 3), ((1024, 1024), 8), ((2048, 2048), 3),
+    ((2048, 2048), 8), ((75, 300), 3), ((75, 300), 32), ((301, 97), 3), ((301, 97), 32)])
+def test_k2_fused_paths_bitwise_to_sweep_path(cuda_device, dtype, shape, order):
+    """Paths A (cluster, every size that holds the grid) and B (tiled)
+    forced, against path C (one launch per sweep): the same expression per
+    point in the same order, built with -fmad=false, so the same bits."""
+    r, theta, steps = _k2_case(cuda_device, dtype, shape, order)
+    ref = tfu.chebk_cuda(r, theta, steps, _path=("sweep", None))
+    paths = _k2_forced_paths(r, order - 1)
+    if max(shape) <= 150 or dtype == torch.float32 and max(shape) <= 300:
+        assert any(p == "cluster" for p, _ in paths), paths
+    # No tile holds a 31-cell halo in float64 within four chunks a thread.
+    if order <= 8 or dtype == torch.float32:
+        assert any(p == "tiled" for p, _ in paths), paths
+    for path in paths:
+        before = dict(tfu.chebk_cuda.launches_by_path)
+        z = tfu.chebk_cuda(r, theta, steps, _path=path)
+        torch.cuda.synchronize()
+        assert tfu.chebk_cuda.launches_by_path[path[0]] == before[path[0]] + 1
+        torch.testing.assert_close(z, ref, rtol=0, atol=0, msg=f"{path}")
+
+
+@pytest.mark.parametrize("n", [75, 300])
+def test_k2_fused_paths_on_general_coefficients(cuda_device, n):
+    """Damped Jacobi on the non-symmetric COEFS, every path bitwise to C."""
+    theta, steps = tfu.jacobi_k_scalars(0.7, COEFS[0], 8)
+    r = to_torch(seeded(57, (n, n)), cuda_device).to(torch.float32)
+    ref = tfu.chebk_cuda(r, theta, steps, COEFS, _path=("sweep", None))
+    for path in _k2_forced_paths(r, 7):
+        torch.testing.assert_close(tfu.chebk_cuda(r, theta, steps, COEFS, _path=path),
+                                   ref, rtol=0, atol=0, msg=f"{path}")
+
+
+def test_k2_refuses_what_no_path_takes(cuda_device):
+    from gmres_tpu_torch.ops import _cuda
+
+    assert _cuda.load().gt_chebk_max_fused_steps() == tfu.CHEBK_MAX_FUSED_STEPS
+    theta, _, steps = tfu.chebyshev_k_scalars(2.0, 8.0, 3)
+    big = torch.zeros((2048, 2048), device=cuda_device)
+    with pytest.raises(ValueError, match="cluster"):
+        tfu.chebk_cuda(big, theta, steps, _path=("cluster", (16, 4)))
+    with pytest.raises(ValueError, match="shared memory"):
+        tfu.chebk_cuda(big, theta, steps, _path=("tiled", (256, 256)))
+    with pytest.raises(ValueError, match="sweeps"):
+        tfu.chebk_cuda(big[:16].contiguous(), 1.0, [0.0, 1.0] * 200,
+                       _path=("tiled", (16, 16)))
+    with pytest.raises(ValueError, match="too large"):
+        tfu.chebk_cuda(torch.zeros((65535 * 8 + 1, 1), device=cuda_device), theta, steps)
+    with pytest.raises(TypeError):
+        tfu.chebk_cuda(big.half(), theta, steps)
+
+
 def test_mg_solve_runs_on_the_kernels_and_matches_cpu(cuda_device):
     """The mg configuration at 64² on the card launches K1 and K2, converges
-    on the float64 true residual, and agrees with the port's CPU solve."""
+    on the float64 true residual, and agrees with the port's CPU solve. K2
+    launches by path are chebk_plan's choices for each smoother and the
+    coarse solve, times the V-cycles run."""
     n = 64
     b = np_poisson(np.ones((n, n)))
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
         k1, k2 = tst.stencil5_cuda.launches, tfu.chebk_cuda.launches
+        by_path = dict(tfu.chebk_cuda.launches_by_path)
+        m_inv = tt.poisson_multigrid_preconditioner(n)
+        cycles = {}
+
+        def counted_m(v, m_inv=m_inv, cycles=cycles):
+            cycles[v.dtype] = cycles.get(v.dtype, 0) + 1
+            return m_inv(v)
+
         res = tt.gmres(tt.poisson_operator(n), tt.as_tensor(b, dev), restart=10,
-                       tol=1e-8, M=tt.poisson_multigrid_preconditioner(n),
-                       compute_v_err=False, inner_dtype=torch.float32,
-                       certify="true")
+                       tol=1e-8, M=counted_m, compute_v_err=False,
+                       inner_dtype=torch.float32, certify="true")
         x = res.x.cpu().numpy()
         rel = np.linalg.norm(b - np_poisson(x)) / np.linalg.norm(b)
         out[dev.type] = (res, rel, tst.stencil5_cuda.launches - k1,
-                         tfu.chebk_cuda.launches - k2)
-    (rg, relg, k1g, k2g), (rc, relc, k1c, k2c) = out["cuda"], out["cpu"]
+                         tfu.chebk_cuda.launches - k2,
+                         {p: tfu.chebk_cuda.launches_by_path[p] - by_path[p] for p in by_path},
+                         m_inv.plan, cycles)
+    (rg, relg, k1g, k2g, pg, plan, cyc), (rc, relc, k1c, k2c, pc, _, _) = (
+        out["cuda"], out["cpu"])
     assert rg.status == rc.status == 0 and relg <= 1e-8 and relc <= 1e-8
     assert k1g > 0 and k2g > 0 and k1c == 0 and k2c == 0
     assert abs((rg.restarts - 1) * 10 + rg.iterations
                - (rc.restarts - 1) * 10 - rc.iterations) <= 2
+    expected = {"cluster": 0, "tiled": 0, "sweep": 0}
+    calls = [(s, len(plan.pre_smooth[1]) // 2, 1) for s in plan.sizes[:-1]]
+    calls += [(s, len(plan.post_smooth[1]) // 2, 1) for s in plan.sizes[:-1]]
+    calls += [(plan.sizes[-1], len(plan.coarse[1]) // 2, 1)]
+    for dtype, n_cycles in cyc.items():
+        for size, nsteps, per_cycle in calls:
+            path, _ = tfu.chebk_plan(size, size, nsteps, dtype)
+            expected[path] += n_cycles * per_cycle * (max(nsteps, 1) if path == "sweep" else 1)
+    assert pg == expected and sum(pg.values()) == k2g
+    assert pc == {"cluster": 0, "tiled": 0, "sweep": 0}
 
 
 # ---------------------------------------------------------------------------
