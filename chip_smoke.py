@@ -25,14 +25,28 @@ Phases of the smoke run:
    kernel (the one PyTorch call that computes the same stencil). Each K2
    case also runs on K2's per-sweep path: the routed path (printed with its
    cluster or tile) must give the same bits and take no longer (3% for
-   noise).
+   noise). Then the launch floor (an empty kernel's chained slope between
+   CUDA graphs of 20 and 40 launches, without and with programmatic
+   dependent launch, PDL) and the redesigned kernels, each bitwise against
+   its plain version with its device time by CUDA-graph replay, bound, the
+   floor and the host µs to enqueue one call: K1's residual-restrict and
+   correct-residual forms at 300², 150², 2048² float32 and 304² float64
+   (residual-restrict beside one F.conv2d computing it), K1 and K5 at the
+   halo path's 304² float64 with null halo rows, with 16-byte row chunks
+   and one point a thread; then the V-cycle at 300² and 2048² and the halo
+   path's K5 → K1 chain with PDL off and on (off, on, on, off), the same
+   bits.
 4. Solve the multigrid ``mg`` configuration (Householder GMRES, m=10,
    float32 Arnoldi cycles certified on the float64 true residual) at 300²
-   and 2048²; check convergence with a float64 true residual computed
-   independently in numpy, and that K1 and K2 were launched during the
-   solves, K2 on its cluster path at both sizes (the coarse solves) and on
-   its tiled path at 2048² (printed by path); profile one more solve of each
-   (device time by kernel, and the device's busy share of the wall time).
+   and 2048², with the package's V-cycle (K1's fused forms) and, in turn,
+   with the unfused V-cycle built here from public pieces; require the
+   same iteration counts; check convergence with a float64 true residual
+   computed independently in numpy, and that K1 (the operator and the two
+   V-cycle forms) and K2 were launched during the fused solves, K2 on its
+   cluster path at both sizes (the coarse solves) and on its tiled path at
+   2048² (printed by path); profile one more solve of each V-cycle (device
+   time by kernel, kernels per solve, and the device's busy share of the
+   wall time) and count the kernels of one V-cycle of each.
 5. Solve the reference configuration at 300² (float64, cbpr2, m=50).
 6. At 64², check that the GPU solve and the port's CPU solve agree.
 7. Compare kernel K3 (DIA SpMV) and kernel K4 (BSR SpMV) with their plain
@@ -64,8 +78,10 @@ Phases of the smoke run:
     fused halo cbpr2 (the program itself applies the reference cbpr2 over
     the GSPMD operator; the mathematics is the same): a one-rank NCCL
     process group, the port's mesh, the 304² right-hand side
-    sharded over it, the halo operator (K1) and the fused halo cbpr2 (K5)
-    under MGSR GMRES (cgs2,
+    sharded over it; one application of the halo operator (K1) and of the
+    fused halo cbpr2 (K5) must run one kernel each (torch.profiler), and
+    equal the same application on halo_exchange's two zero rows (built
+    here: three kernels); then the two under MGSR GMRES (cgs2,
     m=50, float64) at tol 1e-8 and 1e-15, the median wall of 3 solves, the
     counts against the JAX package's, the launches of K1 and K5 against the
     operator and preconditioner applications, a profiled solve; then the
@@ -156,6 +172,11 @@ GENERAL_COEFS = (4.3, -1.2, -0.7, -1.9, -0.1)
 # end the solve in BREAKDOWN; so CG is held to 1e-4 relative to ‖b‖ (rtol).
 RDMA_GMRES_TOL = 1e-5
 RDMA_CG_TOL = 1e-4
+# K1's V-cycle forms at the fine shapes the paths give them: mg 300²'s two
+# levels, mg 2048²'s finest, and the strong-scaling grid in float64.
+FORM_SHAPES = ((300, "float32"), (150, "float32"), (2048, "float32"), (304, "float64"))
+# Applications profiled per operator in phase 12's launch count.
+HALO_APPLICATIONS = 20
 
 
 def require(cond: bool, msg: str) -> None:
@@ -228,6 +249,64 @@ def device_ms(fn, reps: int, per_graph: int = 10) -> float:
             graph.replay()
 
     return _events_ms(run, reps * per_graph)
+
+
+def chained_slope(fn, short: int = 20, long: int = 40, reps: int = 20) -> float:
+    """Device ms a call of fn adds to a chain: CUDA graphs of `short` and
+    `long` calls, each replayed `reps` times; the slope between them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    times = {}
+    for k in (short, long):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(k):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times[k] = _events_ms(lambda g=graph: [g.replay() for _ in range(reps)], reps)
+    return (times[long] - times[short]) / (long - short)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs to enqueue one call of fn (the host clock around `calls`
+    calls with no synchronisation between them)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def launch_floor(dev) -> dict:
+    """The card's launch floor: an empty kernel (one CTA of one warp) as a
+    chained slope, without and with programmatic dependent launch, and the
+    host µs to enqueue it through ctypes."""
+    import torch
+
+    from gmres_tpu_torch.ops import _cuda
+
+    lib = _cuda.load()
+
+    def empty(pdl):
+        def run():
+            rc = lib.gt_empty(pdl, dev.index, torch.cuda.current_stream().cuda_stream)
+            require(rc == 0, f"empty kernel: CUDA error {rc}")
+        return run
+
+    return {"slope_ms": chained_slope(empty(0)), "slope_pdl_ms": chained_slope(empty(1)),
+            "graph_ms": device_ms(empty(0), 50), "host_us": host_us(empty(0))}
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -398,6 +477,160 @@ def phase_kernels(gt_torch, rng, dev):
         "K2 Jacobi order 8 300x300 f32 general coefs", r, theta, steps, gcoefs,
         1e-5, 200, 7))
     return records
+
+
+def form_record(name, kernel, plain, work, reps, floor, library=None) -> dict:
+    """A redesigned kernel (one or several outputs) against its plain
+    version: bitwise, then device ms by CUDA-graph replay beside the bound
+    and the launch floor, host µs to enqueue, and the library call's time."""
+    import torch
+
+    outs_k, outs_p = kernel(), plain()
+    torch.cuda.synchronize()
+    if isinstance(outs_k, torch.Tensor):
+        outs_k, outs_p = (outs_k,), (outs_p,)
+    for i, (a, b) in enumerate(zip(outs_k, outs_p)):
+        require(bool(torch.isfinite(a).all()), f"{name}: output {i} not finite")
+        require(torch.equal(a, b), f"{name}: output {i} is not bitwise equal to "
+                f"the plain version (max abs err {float((a - b).abs().max()):.3e})")
+    rec = {"case": name, "max_abs_err": 0.0, "max_rel_err": 0.0, "rtol": 0.0,
+           "ms": device_ms(kernel, reps), "plain_ms": device_ms(plain, reps),
+           "host_us": host_us(kernel), "plain_host_us": host_us(plain),
+           "floor_ms": floor["slope_ms"], "library_ms": None}
+    rec["bound_ms"], rec["bound_by"] = bound(*work[:3])
+    extra = ""
+    if library is not None:
+        rec.update(library_record(library, outs_p[0], reps))
+        extra = (f" library {rec['library_ms']:.4f} ms" if rec["library_ms"] is not None
+                 else f" library: {rec['library_note']}")
+    print(f"  {name:46s} bitwise  device: kernel {rec['ms']:.4f} ms plain "
+          f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}) "
+          f"floor {rec['floor_ms']:.5f} ms  host: kernel {rec['host_us']:.2f} us plain "
+          f"{rec['plain_host_us']:.2f} us{extra}", flush=True)
+    return rec
+
+
+def restrict_conv(r, e, coefs):
+    """residual-restrict's yardstick, one F.conv2d: restrict_sum(r − A e) is
+    a 4×4, stride-2 correlation of the pair (r, e) with padding 1; r's
+    weights are the quad's ones, e's minus the sum of the quad's stencils."""
+    import torch
+    import torch.nn.functional as F
+
+    c0, cw, ce, cs, cn = coefs
+    w = torch.zeros((1, 2, 4, 4), dtype=torch.float64)
+    for qi in (1, 2):
+        for qj in (1, 2):
+            w[0, 0, qi, qj] = 1.0
+            for (di, dj), cv in (((0, 0), c0), ((0, -1), cw), ((0, 1), ce),
+                                 ((-1, 0), cs), ((1, 0), cn)):
+                w[0, 1, qi + di, qj + dj] -= cv
+    w = w.to(r.device, r.dtype)
+    pair = torch.stack([r, e])[None]
+    return lambda: F.conv2d(pair, w, stride=2, padding=1)[0, 0]
+
+
+def phase_redesigned(gt_torch, rng, dev):
+    """Phase 3, second part: the launch floor, K1's two V-cycle forms and the
+    halo path's K1 and K5 (row chunks, null halo rows) against their plain
+    versions at the shapes the paths run; then each chain with programmatic
+    dependent launch off and on (off, on, on, off), same bits. Returns the
+    records, the floor and the chains."""
+    import torch
+    import torch.nn.functional as F
+
+    from gmres_tpu_torch.ops import fused, stencil
+
+    print("phase 3: the launch floor and the redesigned K1 and K5", flush=True)
+    floor = launch_floor(dev)
+    print(f"  empty kernel: chained slope {floor['slope_ms'] * 1e3:.3f} us, with PDL "
+          f"{floor['slope_pdl_ms'] * 1e3:.3f} us; graph replay of 10 "
+          f"{floor['graph_ms'] * 1e3:.3f} us a launch; host {floor['host_us']:.2f} us "
+          f"to enqueue", flush=True)
+    coefs = stencil.POISSON_COEFS
+    records = {"K1rr": [], "K1cr": [], "K1": [], "K5": []}
+    for n, dtname in FORM_SHAPES:
+        dt = getattr(torch, dtname)
+        tag = "f32" if dt == torch.float32 else "f64"
+        item = torch.empty((), dtype=dt).element_size()
+        r, e = (torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt) for _ in range(2))
+        ec = torch.as_tensor(rng.standard_normal((n // 2, n // 2))).to(dev, dt)
+        reps = 200 if n <= 304 else 50
+        records["K1rr"].append(form_record(
+            f"K1 residual-restrict {n}x{n} -> {n // 2} {tag}",
+            lambda: stencil.residual_restrict_cuda(r, e, coefs),
+            lambda: stencil.residual_restrict_plain(r, e, coefs),
+            # r and e read, rc written; 10 flops a fine point and 3 a quad.
+            ((2 * n * n + n * n // 4) * item, 10.75 * n * n, dt), reps, floor,
+            library=restrict_conv(r, e, coefs)))
+        records["K1cr"].append(form_record(
+            f"K1 correct-residual {n}x{n} <- {n // 2} {tag}",
+            lambda: stencil.correct_residual_cuda(r, e, ec, coefs),
+            lambda: stencil.correct_residual_plain(r, e, ec, coefs),
+            # r, e and ec read, e' and r3 written; 11 flops a fine point.
+            ((4 * n * n + n * n // 4) * item, 11 * n * n, dt), reps, floor))
+    cross = [[0.0, -1.0, 0.0], [-1.0, 4.0, -1.0], [0.0, -1.0, 0.0]]
+    d, alpha = fused.chebyshev_ref_scalars(*REF_EIG)
+    for n, dt in ((STRONG_N, torch.float64), (300, torch.float32), (150, torch.float32),
+                  (2048, torch.float32)):
+        tag = "f32" if dt == torch.float32 else "f64"
+        x = torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
+        w = torch.tensor(cross, dtype=dt, device=dev).reshape(1, 1, 3, 3)
+        # One point a thread first (the earlier design), then the chunks.
+        for vec in (False, True):
+            design = "16-byte row chunks" if vec else "one point a thread"
+            records["K1"].append(form_record(
+                f"K1 {n}x{n} {tag} null halo rows, {design}",
+                lambda: stencil.stencil5_cuda(x, None, None, coefs, _vec=vec),
+                lambda: stencil.stencil_5pt_general(x, *coefs), stencil_work(n, dt),
+                200 if n <= 304 else 50, floor,
+                library=lambda: F.conv2d(x[None, None], w, padding=1)[0, 0]))
+        if n == STRONG_N:
+            for vec in (False, True):
+                design = "16-byte row chunks" if vec else "one point a thread"
+                records["K5"].append(form_record(
+                    f"K5 {n}x{n} {tag} null halo rows, {design}",
+                    lambda: fused.cheb2_cuda(x, None, None, d, alpha, coefs, _vec=vec),
+                    lambda: fused.chebyshev_poisson_fused_plain(x, None, None, d, alpha,
+                                                                coefs),
+                    (2 * n * n * x.element_size(), 14 * n * n, dt), 200, floor,
+                    library=cheb2_conv(x, None, None, d, alpha, coefs)))
+
+    # Programmatic dependent launch on the chains the paths run: the V-cycle
+    # (K2 → residual-restrict → … → correct-residual → K2) and the halo
+    # path's M then A (K5 → K1), off, on, on, off in turn.
+    chains = {}
+    for n in (300, 2048):
+        package = gt_torch.poisson_multigrid_preconditioner(n)
+        r = torch.as_tensor(rng.standard_normal((n, n))).to(dev, torch.float32)
+        cycles = {pdl: local_v_cycle(gt_torch, n, True, pdl) for pdl in (False, True)}
+        require(torch.equal(cycles[False](r), package(r)),
+                f"V-cycle {n}: the locally built cycle differs from the package's")
+        chains[f"V-cycle {n}x{n} f32 (K2 -> form -> K2)"] = (
+            lambda pdl, m=cycles, r=r: m[pdl](r), 20 if n <= 300 else 5)
+    x = torch.as_tensor(rng.standard_normal((STRONG_N, STRONG_N))).to(dev, torch.float64)
+    chains[f"halo M then A {STRONG_N}x{STRONG_N} f64 (K5 -> K1)"] = (
+        lambda pdl: stencil.stencil5_cuda(
+            fused.cheb2_cuda(x, None, None, d, alpha, _pdl=pdl), _pdl=pdl), 200)
+    out = {}
+    for name, (chain, reps) in chains.items():
+        res, bits = {False: [], True: []}, {}
+        for pdl in (False, True, True, False):
+            bits.setdefault(pdl, chain(pdl))
+            res[pdl].append((device_ms(lambda: chain(pdl), reps),
+                             host_us(lambda: chain(pdl), 20)))
+        torch.cuda.synchronize()
+        require(torch.equal(bits[False], bits[True]),
+                f"{name}: programmatic dependent launch changed the bits")
+        out[name] = {f"{k}_{m}": sum(v[i] for v in res[pdl]) / 2
+                     for pdl, k in ((False, "off"), (True, "on"))
+                     for i, m in ((0, "ms"), (1, "host_us"))}
+        o = out[name]
+        print(f"  chain {name:44s} PDL off {o['off_ms'] * 1e3:.3f} us, on "
+              f"{o['on_ms'] * 1e3:.3f} us (device, graph replay; "
+              f"{o['on_ms'] / o['off_ms']:.3f}x); host {o['off_host_us']:.1f} / "
+              f"{o['on_host_us']:.1f} us; same bits", flush=True)
+    return records, floor, out
 
 
 # ---------------------------------------------------------------------------
@@ -634,14 +867,46 @@ def phase_sparse_kernels(gt_torch, rng, a_small, dev):
     return records, hyb, bsr_small
 
 
-def mg_solve(gt_torch, n, dev):
+def local_v_cycle(gt_torch, n, fused: bool, pdl: bool = False):
+    """The V-cycle built here from public pieces: K2 through
+    poly_stencil_smoother_pallas with the plan's (θ, steps), and either K1's
+    fused forms (launched with programmatic dependent launch or without) or
+    the composition the V-cycle ran before them (K1 through
+    stencil_5pt_routed, restrict_sum, prolong_repeat, torch's subtractions
+    and adds). The same arithmetic as the package's cycle, so the same bits."""
+    from gmres_tpu_torch.ops import stencil
+    from gmres_tpu_torch.ops.fused import poly_stencil_smoother_pallas as smooth
+
+    plan = gt_torch.poisson_multigrid_preconditioner(n).plan
+    coarsest = len(plan.sizes) - 1
+
+    def v_cycle(r, level):
+        if level == coarsest:
+            return smooth(r, *plan.coarse)
+        e = smooth(r, *plan.pre_smooth)
+        if fused:
+            ec = v_cycle(stencil.residual_restrict_cuda(r, e, _pdl=pdl), level + 1)
+            e, r3 = stencil.correct_residual_cuda(r, e, ec, _pdl=pdl)
+        else:
+            ec = v_cycle(gt_torch.restrict_sum(r - stencil.stencil_5pt_routed(e)),
+                         level + 1)
+            e = e + gt_torch.prolong_repeat(ec)
+            r3 = r - stencil.stencil_5pt_routed(e)
+        return e + smooth(r3, *plan.post_smooth)
+
+    m_inv = lambda r: v_cycle(r, 0)  # noqa: E731
+    m_inv.levels, m_inv.plan = len(plan.sizes), plan
+    return m_inv
+
+
+def mg_solve(gt_torch, n, dev, m_inv=None):
     import numpy as np
     import torch
 
     b_np = np_stencil(np.ones((n, n)))
     b = gt_torch.as_tensor(b_np, dev)
     op = gt_torch.poisson_operator(n)
-    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    m_inv = m_inv or gt_torch.poisson_multigrid_preconditioner(n)
 
     def solve():
         return gt_torch.gmres(op, b, restart=10, tol=TOL, M=m_inv,
@@ -649,6 +914,101 @@ def mg_solve(gt_torch, n, dev):
                               certify="true")
 
     return b_np, m_inv, solve
+
+
+def mg_counters(reset: bool = False) -> dict:
+    """The launch counts of the kernels the mg solves run (set to 0 first
+    where `reset`)."""
+    from gmres_tpu_torch.ops import fused, stencil
+
+    wrappers = {"K1": stencil.stencil5_cuda, "K1rr": stencil.residual_restrict_cuda,
+                "K1cr": stencil.correct_residual_cuda, "K2": fused.chebk_cuda}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+        fused.chebk_cuda.launches_by_path = dict.fromkeys(
+            fused.chebk_cuda.launches_by_path, 0)
+    out = {name: w.launches for name, w in wrappers.items()}
+    out.update({f"K2 {p}": v for p, v in fused.chebk_cuda.launches_by_path.items()})
+    return out
+
+
+def phase_mg(gt_torch, dev):
+    """Phase 4: the mg solves at 300² and 2048², the fused V-cycle (the
+    package's) and the unfused one (built here) in turn, SOLVE_REPEATS each;
+    the same iteration counts; launches counted over the fused solves; one
+    profiled solve and one profiled V-cycle of each. Returns the launches
+    and the measurements."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.ops import fused
+
+    launches, out = {}, {}
+    for n in (300, 2048):
+        variants = {"fused": mg_solve(gt_torch, n, dev),
+                    "unfused": mg_solve(gt_torch, n, dev, local_v_cycle(gt_torch, n, False))}
+        b_np, m_inv, _ = variants["fused"]
+        results, times = {}, {"fused": [], "unfused": []}
+        for name, (_, _, solve) in variants.items():
+            timed(solve)  # warm-up
+        count = dict.fromkeys(mg_counters(), 0)
+        for i in range(SOLVE_REPEATS):
+            for name in (("fused", "unfused") if i % 2 == 0 else ("unfused", "fused")):
+                mg_counters(reset=True)
+                results[name], t_solve = timed(variants[name][2])
+                times[name].append(t_solve)
+                if name == "fused":
+                    for k, v in mg_counters().items():
+                        count[k] += v
+        launches[n] = count
+        res = results["fused"]
+        rel = true_rel(b_np, res.x)
+        counts = {k: ((r.restarts - 1) * 10 + r.iterations, r.restarts)
+                  for k, r in results.items()}
+        print(f"phase 4: mg {n}x{n} ({m_inv.levels} levels): status {res.status}, "
+              f"{counts['fused'][0]} inner iterations, {res.restarts} restarts, "
+              f"{res.host_syncs} host syncs, true rel residual {rel:.3e}; unfused "
+              f"V-cycle: {counts['unfused'][0]} inner iterations, "
+              f"{results['unfused'].restarts} restarts, status {results['unfused'].status}",
+              flush=True)
+        for name in ("fused", "unfused"):
+            print(f"phase 4: mg {n}x{n} {name} V-cycle, wall s over {SOLVE_REPEATS} "
+                  f"solves (in turn with the other): {quartiles(times[name])}", flush=True)
+        print(f"phase 4: launches over the {SOLVE_REPEATS} fused solves: {count}; K2 plans: "
+              f"{[fused.chebk_plan(m, m, 2, torch.float32) for m in m_inv.plan.sizes[:-1]]} "
+              f"and coarse {fused.chebk_plan(*(m_inv.plan.sizes[-1],) * 2, 31, torch.float32)}",
+              flush=True)
+        prof = {name: profile_solve(variants[name][2], f"mg {n}x{n} {name} V-cycle",
+                                    float(np.median(times[name])))
+                for name in ("fused", "unfused")}
+        r = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
+        per_cycle = {name: device_events(lambda m=variants[name][1]: m(r))
+                     for name in ("fused", "unfused")}
+        saved = (per_cycle["unfused"] - per_cycle["fused"]) / (m_inv.levels - 1)
+        print(f"phase 4: mg {n}x{n} kernels per V-cycle: fused {per_cycle['fused']}, "
+              f"unfused {per_cycle['unfused']} ({saved:.2f} fewer per non-coarsest "
+              f"level); per solve: fused {prof['fused']['kernels']}, unfused "
+              f"{prof['unfused']['kernels']}; device busy per solve: fused "
+              f"{prof['fused']['busy_ms']:.3f} ms, unfused {prof['unfused']['busy_ms']:.3f} ms",
+              flush=True)
+        out[n] = {"counts": counts, "times": times, "profile": prof,
+                  "kernels_per_cycle": per_cycle}
+        require(res.status == 0, f"mg {n}: not converged (status {res.status})")
+        require(rel <= TOL, f"mg {n}: true relative residual {rel:.3e} > {TOL}")
+        require(counts["fused"] == counts["unfused"]
+                and results["unfused"].status == 0,
+                f"mg {n}: the fused and unfused V-cycles' counts differ: {counts}")
+        require(count["K1"] > 0 and count["K2"] > 0 and count["K1rr"] > 0
+                and count["K1cr"] > 0, f"mg {n}: a kernel was not launched: {count}")
+        require(count["K1rr"] == count["K1cr"],
+                f"mg {n}: residual-restrict and correct-residual launches differ")
+        require(count["K2 cluster"] > 0 and (n < 2048 or count["K2 tiled"] > 0),
+                f"mg {n}: K2 launches by path {count}")
+        require(count["K2 cluster"] + count["K2 tiled"] + count["K2 sweep"] == count["K2"],
+                f"mg {n}: K2 launches by path do not add up")
+        require(tuple(res.x.shape) == (n, n), f"mg {n}: wrong x shape")
+    return launches, out
 
 
 def true_rel(b_np, x):
@@ -669,32 +1029,72 @@ def timed(solve):
     return res, time.perf_counter() - t0
 
 
-def profile_solve(solve, tag: str, wall_median: float) -> None:
-    """Profile one solve: device time by kernel, and the device's busy share
-    of the profiled wall time and of the unprofiled median."""
+def profiled(fn):
+    """fn() under torch.profiler. The first device events of a profile can
+    go missing (16 of 20 one-kernel applications were counted once), so the
+    profile opens with spin kernels (torch.cuda._sleep), which
+    device_kernels leaves out. Returns fn's result, the host seconds it
+    took, and the profile's key_averages."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return out, seconds, prof.key_averages()
+
+
+def device_kernels(events) -> list:
+    """A profile's device events (kernels, copies and sets) other than its
+    opening spin kernels."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation and "spin_kernel" not in e.key]
+
+
+def kernel_counts(events) -> tuple:
+    """(kernels, copies and sets) among a profile's device events."""
+    device = device_kernels(events)
+    copies = sum(e.count for e in device if e.key.startswith(("Memcpy", "Memset")))
+    return sum(e.count for e in device) - copies, copies
+
+
+def profile_solve(solve, tag: str, wall_median: float) -> dict:
+    """Profile one solve: device time by kernel, kernels per solve, and the
+    device's busy share of the profiled wall time and of the unprofiled
+    median."""
+    def run():
         res = solve()
         float(res.residual)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
+
+    _, wall, events = profiled(run)
     # Kernel and copy events only (an operator's own entry repeats the time
     # of the kernels it launched).
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA
-                  and not e.is_user_annotation) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in device_kernels(events)) / 1e3
+    kernels, copies = kernel_counts(events)
     print(f"profile {tag}: device busy {busy_ms:.3f} ms = "
           f"{100 * busy_ms / (wall * 1e3):.1f}% of the profiled wall "
           f"{wall * 1e3:.3f} ms, {100 * busy_ms / (wall_median * 1e3):.1f}% of "
-          f"the unprofiled median {wall_median * 1e3:.3f} ms", flush=True)
+          f"the unprofiled median {wall_median * 1e3:.3f} ms; {kernels} kernels and "
+          f"{copies} copies or sets on the device", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=12),
           flush=True)
+    return {"busy_ms": busy_ms, "wall_ms": wall * 1e3, "kernels": kernels,
+            "copies": copies}
+
+
+def device_events(fn) -> int:
+    """Kernels (copies and sets excluded) that one call of fn runs on the
+    device, by torch.profiler: the larger of two counts (an event can go
+    missing from a profile; none is invented)."""
+    return max(kernel_counts(profiled(fn)[2])[0] for _ in range(2))
 
 
 def cg_solve(gt_torch, mat, n, dev, variant="classic"):
@@ -1035,6 +1435,60 @@ def phases_on_one_rank(gt_torch, rng, dev, workdir):
         dist.destroy_process_group()
 
 
+def halo_applications(gt_torch, mesh, x) -> dict:
+    """Phase 12's applications on one rank: the halo operator (K1) and cbpr2
+    (K5) as the package builds them, with no halo row where there is no
+    neighbour, and as they ran before, on halo_exchange's two zero rows
+    (built here). Kernels per application (torch.profiler over
+    HALO_APPLICATIONS), host µs to enqueue one, eager device ms per
+    application (CUDA events around 200), the same bits."""
+    import torch
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from gmres_tpu_torch.ops import fused
+    from gmres_tpu_torch.ops.stencil import stencil_5pt_pallas_halo
+
+    group = mesh.get_group("grid")
+    d, alpha = fused.chebyshev_ref_scalars(*REF_EIG)
+
+    def sharded(fn):
+        return local_map(fn, out_placements=[Shard(0)], in_placements=([Shard(0)],),
+                         device_mesh=mesh)
+
+    forms = {
+        "A": gt_torch.halo_poisson_operator(mesh),
+        "M": gt_torch.halo_chebyshev_preconditioner(mesh, *REF_EIG),
+        "A on zero rows": sharded(lambda blk: stencil_5pt_pallas_halo(
+            blk, *gt_torch.halo_exchange(blk, group))),
+        "M on zero rows": sharded(lambda blk: gt_torch.chebyshev_poisson_fused(
+            blk, *gt_torch.halo_exchange(blk, group), d, alpha)),
+    }
+    out = {}
+    for name, f in forms.items():
+        y = f(x).to_local()
+        # The slope between profiles of N and 2N applications: a profile
+        # drops a fixed few of its first device events (3 of 20 on the H100).
+        counts = [device_events(lambda f=f, k=k: [f(x) for _ in range(k)])
+                  for k in (HALO_APPLICATIONS, 2 * HALO_APPLICATIONS)]
+        out[name] = {"kernels": (counts[1] - counts[0]) / HALO_APPLICATIONS,
+                     "profiled_events": counts,
+                     "host_us": host_us(lambda f=f: f(x)),
+                     "call_ms": call_ms(lambda f=f: f(x), 200), "y": y}
+        print(f"phase 12: one-rank halo application {name:15s}: "
+              f"{out[name]['kernels']:.2f} kernels (profiled {counts[0]} over "
+              f"{HALO_APPLICATIONS}, {counts[1]} over {2 * HALO_APPLICATIONS}), host {out[name]['host_us']:.2f} us "
+              f"to enqueue, {out[name]['call_ms']:.4f} ms an eager application", flush=True)
+    torch.cuda.synchronize()
+    for op in ("A", "M"):
+        require(torch.equal(out[op]["y"], out[f"{op} on zero rows"]["y"]),
+                f"phase 12: {op} without halo rows differs from {op} on zero rows")
+        require(out[op]["kernels"] == 1.0,
+                f"phase 12: {op} runs {out[op]['kernels']} kernels an application, not 1")
+        del out[op]["y"], out[f"{op} on zero rows"]["y"]
+    return out
+
+
 def strong_scaling_solves(gt_torch, dev):
     """The solves of phase 12 on a one-rank process group."""
     import numpy as np
@@ -1050,7 +1504,7 @@ def strong_scaling_solves(gt_torch, dev):
     m_inv = counted(gt_torch.halo_chebyshev_preconditioner(mesh, *REF_EIG),
                     calls, "M")
     p_min = cbpr2_min_eigenvalue(n)
-    launches = {"K1": 0, "K5": 0}
+    launches = {"K1": 0, "K5": 0, "applications": halo_applications(gt_torch, mesh, b)}
 
     def check(res, tol, tag):
         require(gt_torch.ops.blas.is_dtensor(res.x), f"{tag}: x is not sharded")
@@ -1218,26 +1672,27 @@ def phase_roofline(gt_torch, rng, dev, workdir):
     print(f"phase 13: python -m gmres_tpu_torch.benchmarks roofline (grids "
           f"{','.join(map(str, ROOFLINE_GRIDS))}, reps 20, order 8)", flush=True)
     jsonl = os.path.join(workdir, "roofline.jsonl")
-    counters = (stencil.stencil5_cuda, fused.chebk_cuda, stencil.stencil5_dd_cuda)
+    counters = (stencil.stencil5_cuda, fused.chebk_cuda, stencil.stencil5_dd_cuda,
+                stencil.residual_restrict_cuda, stencil.correct_residual_cuda)
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
     cli.main(["roofline", "--jsonl", jsonl])
     seconds = time.perf_counter() - t0
-    k1, k2, k6 = (c.launches for c in counters)
+    k1, k2, k6, k1rr, k1cr = (c.launches for c in counters)
     with open(jsonl) as f:
         rows = [json.loads(line) for line in f]
     print(f"phase 13: roofline program {seconds:.1f} s, {len(rows)} rows; launches "
-          f"(captured in the chains' CUDA graphs, each replayed): K1 {k1}, K2 {k2}, "
-          f"K6 {k6}", flush=True)
+          f"(captured in the chains' CUDA graphs, each replayed): K1 {k1} (its "
+          f"V-cycle forms {k1rr} and {k1cr}), K2 {k2}, K6 {k6}", flush=True)
     names = {r["name"] for r in rows}
     for n in ROOFLINE_GRIDS:
         for row in (f"stencil-plain-f32-{n}", f"stencil-plain-f64-{n}",
                     f"stencil-pallas-blocked-f32-{n}", f"stencil-pallas-dd-f64-{n}",
                     f"chebk8-blocked-f32-{n}", f"mg-vcycle-f32-{n}"):
             require(row in names, f"roofline: row {row} missing")
-    require(k1 > 0 and k2 > 0 and k6 > 0,
-            f"roofline: K1 {k1}, K2 {k2}, K6 {k6} launches")
+    require(k1 > 0 and k2 > 0 and k6 > 0 and k1rr > 0 and k1cr > 0,
+            f"roofline: K1 {k1} ({k1rr}, {k1cr}), K2 {k2}, K6 {k6} launches")
     kind = torch.cuda.get_device_name(0)
     for r in rows:
         require(r["device"] == kind and r["timing"].startswith("CUDA graph"),
@@ -1251,7 +1706,7 @@ def phase_roofline(gt_torch, rng, dev, workdir):
             single = r.get("fraction_of_single_pass")
             require(single is not None and np.isfinite(single) and 0 < single,
                     f"roofline {r['name']}: fraction_of_single_pass {single}")
-    return records, {"K1": k1, "K2": k2, "K6": k6}
+    return records, {"K1": k1, "K2": k2, "K6": k6, "K1rr": k1rr, "K1cr": k1cr}
 
 
 # ---------------------------------------------------------------------------
@@ -1418,45 +1873,12 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     rng = np.random.default_rng(SEED)
     records = phase_kernels(gt_torch, rng, dev)
+    redesigned, floor, chains = phase_redesigned(gt_torch, rng, dev)
+    for name, recs in redesigned.items():
+        records.setdefault(name, []).extend(recs)
 
-    # Phase 4: the mg configuration on the main path.
-    launches = {}
-    for n in (300, 2048):
-        b_np, m_inv, solve = mg_solve(gt_torch, n, dev)
-        res, t_warm = timed(solve)  # warm-up
-        stencil.stencil5_cuda.launches = 0
-        fused.chebk_cuda.launches = 0
-        fused.chebk_cuda.launches_by_path = dict.fromkeys(fused.chebk_cuda.launches_by_path, 0)
-        times = []
-        for _ in range(SOLVE_REPEATS):
-            res, t_solve = timed(solve)
-            times.append(t_solve)
-        k1, k2 = stencil.stencil5_cuda.launches, fused.chebk_cuda.launches
-        k2_paths_mg = dict(fused.chebk_cuda.launches_by_path)
-        launches[n] = (k1, k2, k2_paths_mg)
-        rel = true_rel(b_np, res.x)
-        total_inner = (res.restarts - 1) * 10 + res.iterations
-        print(f"phase 4: mg {n}x{n} ({m_inv.levels} levels): status "
-              f"{res.status}, {total_inner} inner iterations, {res.restarts} "
-              f"restarts, {res.host_syncs} host syncs, true rel residual "
-              f"{rel:.3e}; wall s over {SOLVE_REPEATS} solves: median "
-              f"{np.median(times):.4f} quartiles "
-              f"{np.percentile(times, 25):.4f}-{np.percentile(times, 75):.4f} "
-              f"min {min(times):.4f} max {max(times):.4f} (warm-up "
-              f"{t_warm:.4f}); "
-              f"launches over the {SOLVE_REPEATS} solves: K1 {k1}, K2 {k2} (by path: "
-              f"{k2_paths_mg}; levels {m_inv.plan.sizes}, K2 plans: "
-              f"{[fused.chebk_plan(m, m, 2, torch.float32) for m in m_inv.plan.sizes[:-1]]} "
-              f"and coarse {fused.chebk_plan(*(m_inv.plan.sizes[-1],) * 2, 31, torch.float32)})",
-              flush=True)
-        profile_solve(solve, f"mg {n}x{n}", float(np.median(times)))
-        require(res.status == 0, f"mg {n}: not converged (status {res.status})")
-        require(rel <= TOL, f"mg {n}: true relative residual {rel:.3e} > {TOL}")
-        require(k1 > 0 and k2 > 0, f"mg {n}: K1/K2 not launched ({k1}, {k2})")
-        require(k2_paths_mg["cluster"] > 0 and (n < 2048 or k2_paths_mg["tiled"] > 0),
-                f"mg {n}: K2 launches by path {k2_paths_mg}")
-        require(sum(k2_paths_mg.values()) == k2, f"mg {n}: K2 launches by path do not add up")
-        require(tuple(res.x.shape) == (n, n), f"mg {n}: wrong x shape")
+    # Phase 4: the mg configuration on the main path, fused and unfused.
+    launches, mg = phase_mg(gt_torch, dev)
 
     # Phase 5: the reference configuration (float64 cbpr2, m=50) at 300².
     n = 300
@@ -1517,7 +1939,8 @@ def main() -> int:
 
     # Phase 11: K5 and K7 against their plain versions; K7's per-shard calls.
     fused_records, k7_launches = phase_fused_kernels(gt_torch, rng, dev)
-    records.update(fused_records)
+    for name, recs in fused_records.items():
+        records.setdefault(name, []).extend(recs)
 
     # Phase 12: the strong-scaling path (halo operator, K1 and K5, MGSR);
     # phase 13: K6 and the roofline program; phase 14: K8 and the RDMA route.
@@ -1540,8 +1963,23 @@ def main() -> int:
             "library_ms": rec["library_ms"], "timed_at": timed_at, **extra,
         }
 
-    mg_k1, mg_k2 = launches[2048][0] + launches[300][0], launches[2048][1] + launches[300][1]
-    mg_k2_paths = {p: launches[2048][2][p] + launches[300][2][p] for p in launches[300][2]}
+    mg_count = {k: launches[300][k] + launches[2048][k] for k in launches[300]}
+    mg_k1, mg_k2 = mg_count["K1"], mg_count["K2"]
+    mg_k2_paths = {p: mg_count[f"K2 {p}"] for p in ("cluster", "tiled", "sweep")}
+    redesign = {"launch_floor_ms": floor["slope_ms"],
+                "launch_floor_pdl_ms": floor["slope_pdl_ms"],
+                "launch_floor_host_us": floor["host_us"], "pdl_chains": chains,
+                "pdl": "on for K1's plain stencil and K5, off for its V-cycle forms"}
+
+    def timing(name, timed_at):
+        rec = [r for r in records[name] if r["case"] == timed_at][0]
+        return {"host_us": rec["host_us"], "floor_ms": rec["floor_ms"]}
+
+    mg_report = {n: {"kernels_per_solve": {v: mg[n]["profile"][v]["kernels"]
+                                           for v in ("fused", "unfused")},
+                     "device_busy_ms": {v: mg[n]["profile"][v]["busy_ms"]
+                                        for v in ("fused", "unfused")},
+                     "kernels_per_cycle": mg[n]["kernels_per_cycle"]} for n in mg}
     coarse = [r for r in records["K2"] if r["case"] == "K2 order 32 75x75 f32 (coarse solve)"][0]
     roofline_path = "roofline program (phase 13; launches captured in CUDA graphs)"
     print(json.dumps({"kernels": [
@@ -1550,7 +1988,24 @@ def main() -> int:
                mg_k1 + strong["K1"] + roof["K1"], "K1 2048x2048 f32",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
-                                 roofline_path: roof["K1"]}),
+                                 roofline_path: roof["K1"]},
+               path_shape=f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, 16-byte row chunks",
+               **timing("K1", f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, "
+                              "16-byte row chunks"),
+               halo_applications=strong["applications"], **redesign),
+        report("K1rr", "gmres_tpu_torch/csrc/stencil5.cu",
+               "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
+               mg_count["K1rr"] + roof["K1rr"], "K1 residual-restrict 300x300 -> 150 f32",
+               form="residual-restrict: restrict_sum(r - A e) in one launch",
+               launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"]},
+               **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
+        report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
+               "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
+               mg_count["K1cr"] + roof["K1cr"], "K1 correct-residual 300x300 <- 150 f32",
+               form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
+               launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"]},
+               library_note="no single PyTorch call computes both outputs",
+               **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"], "K2 order 3 2048x2048 f32",
@@ -1572,7 +2027,9 @@ def main() -> int:
                f"K4 {BSR_CASES[-1][0]} f32"),
         report("K5", "gmres_tpu_torch/csrc/cheb2_fused.cu",
                "gmres_tpu/ops/fused.py:129", [], strong["K5"],
-               f"K5 {STRONG_N}x{STRONG_N} f64 zero halo rows"),
+               f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows, 16-byte row chunks",
+               **timing("K5", f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows, "
+                              "16-byte row chunks")),
         report("K7a", "gmres_tpu_torch/csrc/cg_fused.cu",
                "gmres_tpu/ops/fused.py:50", [], k7_launches[0],
                f"K7a {STRONG_N}x{STRONG_N} f64",

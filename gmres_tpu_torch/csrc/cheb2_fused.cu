@@ -6,23 +6,28 @@
 //
 // with zeros outside the block, except that row −1 is read from `top` and row
 // `rows` from `bot` when those pointers are not null (a null pointer is a zero
-// row — the Dirichlet boundary, or a shard with no neighbour there). By
-// linearity A(r/d) = A(r)/d, so this is the reference's three cbpr2 loops
-// (z = r/d; z += α(r − A z)) in one pass.
+// row — the Dirichlet boundary, or a shard with no neighbour there: the halo
+// route passes no row for a side without a neighbour, so an application on
+// one rank is this one launch). By linearity A(r/d) = A(r)/d, so this is the
+// reference's three cbpr2 loops (z = r/d; z += α(r − A z)) in one pass.
 //
 // Replaces the Pallas kernel `_cheb_kernel` (gmres_tpu/ops/fused.py, behind
 // chebyshev_poisson_fused), which the distributed halo_chebyshev_preconditioner
 // runs on each shard. The TPU kernel loads the whole shard into VMEM as one
-// block; here one launch covers any (rows, cols) with one thread per point.
+// block; here one launch covers any (rows, cols).
 //
-// What bounds it: memory. Each point reads r once and writes z once (the four
-// neighbour reads hit L1/L2: neighbouring threads own neighbouring points) and
-// does 14 flops: ~0.9 flop/byte in float64, ~1.75 in float32, far under the
-// card's balance point. At 304² float64 (the strong-scaling shard on one card)
-// the block is 1.5 MB and the launch itself dominates; at 2048² float32
-// (33.6 MB) the HBM bound is ~10 µs. The design only has to stream, as K1's:
-// 32 consecutive columns per warp so every load and store is coalesced, no
-// shared memory.
+// What bounds it: at 2048² float32 (33.6 MB) HBM bytes, ~10 µs. Each point
+// reads r once and writes z once (the neighbour reads hit L1/L2) and does 14
+// flops: ~0.9 flop/byte in float64, ~1.75 in float32, far under the card's
+// balance point. At 304² float64, the strong-scaling shard on one card, the
+// block is 1.5 MB and sits in L2: the bytes take 0.44 µs and the launch more,
+// so the design keeps the launch short. Each thread takes V = 16 / sizeof(T)
+// consecutive points of a row (two float64, four float32) with 16-byte loads
+// and stores where the row length and the pointers allow, one point a thread
+// otherwise; a flat grid of 256-thread CTAs (181 at 304² float64). With
+// `pdl` (the wrapper's default) the launch uses programmatic dependent launch
+// as K1's does (csrc/stencil5.cu): it waits at griddepcontrol.wait before its
+// first global access, so it may be scheduled while its predecessor drains.
 //
 // Rounding: the stencil sum in the order of the plain PyTorch version
 // (c0·r + cw·W + ce·E + cs·S + cn·N, left to right), then the epilogue in the
@@ -36,38 +41,83 @@
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
+constexpr int kThreads = 256;
 
 template <typename T>
-__global__ void cheb2_kernel(const T* __restrict__ r, const T* __restrict__ top,
-                             const T* __restrict__ bot, T* __restrict__ z,
-                             int rows, int cols, T inv_d, T alpha, T c0, T cw,
-                             T ce, T cs, T cn) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= rows || j >= cols) return;
+struct Cheb2 {
+  T inv_d, alpha, c0, cw, ce, cs, cn;
+};
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load(const T* __restrict__ p) {
+  return *reinterpret_cast<const Vec<T, V>*>(p);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+cheb2_kernel(const T* __restrict__ r, const T* __restrict__ top,
+             const T* __restrict__ bot, T* __restrict__ z, int rows, int cols,
+             Cheb2<T> p) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int nv = cols / V;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (long long)rows * nv) return;
+  const int i = (int)(t / nv);
+  const int j = (int)(t - (long long)i * nv) * V;
   const long long idx = (long long)i * cols + j;
-  const T zero = T(0);
-  const T rc = r[idx];
-  const T w = j > 0 ? r[idx - 1] : zero;
-  const T e = j + 1 < cols ? r[idx + 1] : zero;
-  const T s = i > 0 ? r[idx - cols] : (top != nullptr ? top[j] : zero);
-  const T n = i + 1 < rows ? r[idx + cols] : (bot != nullptr ? bot[j] : zero);
-  const T ar = c0 * rc + cw * w + ce * e + cs * s + cn * n;
-  z[idx] = rc * inv_d + alpha * (rc - ar * inv_d);
+  const Vec<T, V> zero{};
+  const Vec<T, V> rc = load<T, V>(r + idx);
+  const Vec<T, V> s = i > 0 ? load<T, V>(r + idx - cols)
+                            : (top != nullptr ? load<T, V>(top + j) : zero);
+  const Vec<T, V> n = i + 1 < rows ? load<T, V>(r + idx + cols)
+                                   : (bot != nullptr ? load<T, V>(bot + j) : zero);
+  const T w = j > 0 ? r[idx - 1] : T(0);
+  const T e = j + V < cols ? r[idx + V] : T(0);
+  Vec<T, V> out;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const T x = rc.v[k];
+    const T ar = p.c0 * x + p.cw * (k == 0 ? w : rc.v[k - 1]) +
+                 p.ce * (k == V - 1 ? e : rc.v[k + 1]) + p.cs * s.v[k] +
+                 p.cn * n.v[k];
+    out.v[k] = x * p.inv_d + p.alpha * (x - ar * p.inv_d);
+  }
+  *reinterpret_cast<Vec<T, V>*>(z + idx) = out;
+}
+
+bool aligned(const void* q) {
+  return q == nullptr || reinterpret_cast<unsigned long long>(q) % 16 == 0;
 }
 
 template <typename T>
 int launch(const T* r, const T* top, const T* bot, T* z, int rows, int cols,
-           T inv_d, T alpha, T c0, T cw, T ce, T cs, T cn, int device,
-           void* stream) {
+           Cheb2<T> p, int vec, int pdl, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((cols + kBlockX - 1) / kBlockX, (rows + kBlockY - 1) / kBlockY);
-  cheb2_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      r, top, bot, z, rows, cols, inv_d, alpha, c0, cw, ce, cs, cn);
+  constexpr int V = 16 / sizeof(T);
+  const bool wide = vec && cols % V == 0 && aligned(r) && aligned(top) &&
+                    aligned(bot) && aligned(z);
+  const long long work = (long long)rows * (wide ? cols / V : cols);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((work + kThreads - 1) / kThreads));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  if (wide)
+    cudaLaunchKernelEx(&cfg, cheb2_kernel<T, V>, r, top, bot, z, rows, cols, p);
+  else
+    cudaLaunchKernelEx(&cfg, cheb2_kernel<T, 1>, r, top, bot, z, rows, cols, p);
   return (int)cudaGetLastError();
 }
 
@@ -77,18 +127,20 @@ extern "C" {
 
 int gt_cheb2_f32(const float* r, const float* top, const float* bot, float* z,
                  int rows, int cols, float inv_d, float alpha, float c0,
-                 float cw, float ce, float cs, float cn, int device,
-                 void* stream) {
-  return launch<float>(r, top, bot, z, rows, cols, inv_d, alpha, c0, cw, ce, cs,
-                       cn, device, stream);
+                 float cw, float ce, float cs, float cn, int vec, int pdl,
+                 int device, void* stream) {
+  return launch<float>(r, top, bot, z, rows, cols,
+                       {inv_d, alpha, c0, cw, ce, cs, cn}, vec, pdl, device,
+                       stream);
 }
 
 int gt_cheb2_f64(const double* r, const double* top, const double* bot,
                  double* z, int rows, int cols, double inv_d, double alpha,
-                 double c0, double cw, double ce, double cs, double cn,
-                 int device, void* stream) {
-  return launch<double>(r, top, bot, z, rows, cols, inv_d, alpha, c0, cw, ce,
-                        cs, cn, device, stream);
+                 double c0, double cw, double ce, double cs, double cn, int vec,
+                 int pdl, int device, void* stream) {
+  return launch<double>(r, top, bot, z, rows, cols,
+                        {inv_d, alpha, c0, cw, ce, cs, cn}, vec, pdl, device,
+                        stream);
 }
 
 }  // extern "C"

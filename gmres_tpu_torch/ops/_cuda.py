@@ -14,6 +14,7 @@ check (the scheme of ``native/loader.py``). The build directory,
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -107,14 +108,20 @@ def load() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
             fn = getattr(lib, f"gt_stencil5_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 5 + [i32, vp]
+            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 5 + [i32] * 3 + [vp]
+            fn.restype = i32
+            fn = getattr(lib, f"gt_residual_restrict_{suffix}")
+            fn.argtypes = [vp, vp, vp, i32, i32] + [real] * 5 + [i32, i32, vp]
+            fn.restype = i32
+            fn = getattr(lib, f"gt_correct_residual_{suffix}")
+            fn.argtypes = [vp] * 5 + [i32, i32] + [real] * 5 + [i32, i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_chebk_{suffix}")
             fn.argtypes = [vp, vp, vp, vp, i32, i32, real, vp, i32, vp,
                            i32, i32, i32, i32, i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_cheb2_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 7 + [i32, vp]
+            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 7 + [i32] * 3 + [vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_rdma_interior_{suffix}")
             fn.argtypes = [vp, vp, i32, i32] + [real] * 7 + [i32, vp]
@@ -138,6 +145,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"gt_axpy_dot_{suffix}")
             fn.argtypes = [vp] * 7 + [i32, i32, i32, vp]
             fn.restype = i32
+        lib.gt_empty.argtypes = [i32, i32, vp]
+        lib.gt_empty.restype = i32
         lib.gt_cuda_error_string.argtypes = [i32]
         lib.gt_cuda_error_string.restype = ctypes.c_char_p
         lib.gt_chebk_max_fused_steps.argtypes = []
@@ -148,6 +157,14 @@ def load() -> ctypes.CDLL:
         lib.gt_fused_reduce_blocks.restype = i32
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point ``{name}_{f32|f64}`` for ``dtype``, resolved once
+    (raises TypeError on any other dtype, and builds the library at the
+    first call)."""
+    return getattr(load(), f"{name}_{suffix(dtype)}")
 
 
 def check(rc: int, what: str) -> None:

@@ -14,7 +14,8 @@ Counterpart of ``gmres_tpu/ops/fused.py``. Order-k smoothers:
   launches K2, any other CUDA dtype raises. The TPU's whole-grid and
   row-blocked kernels exist for VMEM; K2 has three paths of its own, and
   ``chebk_plan`` picks one from the grid's shape, the number of sweeps and
-  the dtype, so both names reach the same function:
+  the dtype (``chebk_route`` leaves the cluster path out on a card that
+  cannot schedule the cluster), so both names reach the same function:
 
   - ``cluster`` (path A, for ``_chebk_kernel``, fused.py:187): the whole
     grid in the shared memory of one thread-block cluster, a band of rows
@@ -45,8 +46,10 @@ tensor takes the plain version, a CUDA tensor of float32 or float64 its
 kernel, any other CUDA dtype raises):
 
 * ``chebyshev_poisson_fused`` — K5 (``csrc/cheb2_fused.cu``): cbpr2 as one
-  stencil pass over a (rows, N) block with explicit halo rows,
-  z = r·(1/d) + α(r − A(r)·(1/d)), using A(r/d) = A(r)/d.
+  stencil pass over a (rows, N) block with explicit halo rows (None for a
+  zero row), z = r·(1/d) + α(r − A(r)·(1/d)), using A(r/d) = A(r)/d.
+  ``cheb2_apply`` takes the scalars already rounded by ``cheb2_scalars``,
+  as the halo preconditioner holds them.
 * ``cg_fused_update`` and ``axpy_dot`` — K7 (``csrc/cg_fused.cu``):
   x+αp, r−α·ap and ‖r−α·ap‖², or y+αx and (y+αx)·z, in one pass. The
   elementwise work is in the input dtype; the products and the sum are
@@ -200,10 +203,12 @@ def tile_fits(tile: tuple, nsteps: int, itemsize: int) -> bool:
             and 2 * 16 * chunks <= CTA_SMEM_BYTES)
 
 
-def chebk_plan(rows: int, cols: int, nsteps: int, dtype: torch.dtype):
+def chebk_plan(rows: int, cols: int, nsteps: int, dtype: torch.dtype,
+               cluster: bool = True):
     """K2's path for a (rows, cols) grid and ``nsteps`` sweeps (order − 1):
     ``("cluster", (csize, ghost))``, ``("tiled", (tile_rows, tile_cols))``
-    or ``("sweep", None)``. Plain Python, no card.
+    or ``("sweep", None)``. Plain Python, no card. ``cluster=False`` leaves
+    the cluster path out (a card that cannot schedule the cluster).
 
     The rules are the H100's path table (PERF.md, from ``chip_smoke.py
     --k2-paths``): a fused path is routed only where it measured faster than
@@ -221,7 +226,7 @@ def chebk_plan(rows: int, cols: int, nsteps: int, dtype: torch.dtype):
         tile = ((8, 32) if npts <= 300 * 300 else (16, 32) if npts <= 512 * 512
                 else (32, 128) if item == 4 else (32, 64))
         return ("tiled", tile) if tile_fits(tile, nsteps, item) else ("sweep", None)
-    if npts <= 150 * 150:
+    if cluster and npts <= 150 * 150:
         for min_rows, csize, ghost in ((64, 16, 4), (32, 4, 8), (1, 1, 0)):
             if rows >= min_rows and cluster_fits(rows, cols, csize, ghost, item):
                 return ("cluster", (csize, ghost))
@@ -239,9 +244,58 @@ def _cluster_schedulable(f64: bool, rows: int, cols: int, csize: int,
                                                      threads, ghost, device)
 
 
+def _cluster_args(rows: int, cols: int, param, item: int, device: int):
+    """The cluster path's launch arguments, or None where the cluster cannot
+    hold the grid or the card cannot schedule it."""
+    csize, ghost = param[:2]
+    threads = param[2] if len(param) > 2 else cluster_threads(rows, cols, csize, ghost)
+    if (cluster_fits(rows, cols, csize, ghost, item)
+            and _cluster_schedulable(item == 8, rows, cols, csize, threads, ghost,
+                                     device) > 0):
+        return (1, csize, threads, ghost)
+    return None
+
+
+def chebk_route(rows: int, cols: int, nsteps: int, dtype: torch.dtype,
+                device: int, _path=None):
+    """K2's path for a (rows, cols) grid on card ``device``, as
+    ``(path, param, kernel arguments)``: ``_path`` where forced (ValueError
+    where it cannot take the grid), else ``chebk_plan``'s choice. Where that
+    is the cluster path and the card cannot schedule the cluster (a MIG
+    slice, a part with smaller GPCs: ``_cluster_schedulable`` gives 0), the
+    route is ``chebk_plan``'s choice without it: tiled where a tile fits,
+    else per-sweep. All three paths give the per-sweep path's bits, so this
+    is a choice between correct kernels, as the reference falls back from
+    its whole-grid kernel (gmres_tpu/precond/chebyshev.py:158-172)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    path, param = _path or chebk_plan(rows, cols, nsteps, dtype)
+    if path != "sweep" and not 1 <= nsteps <= CHEBK_MAX_FUSED_STEPS:
+        raise ValueError(f"chebk_cuda: the {path} path takes 1 to "
+                         f"{CHEBK_MAX_FUSED_STEPS} sweeps, not {nsteps}")
+    if path == "cluster":
+        args = _cluster_args(rows, cols, param, item, device)
+        if args is not None:
+            return path, param, args
+        if _path is not None:
+            raise ValueError(f"chebk_cuda: a cluster of {param[0]} CTAs with "
+                             f"{param[1]} ghost rows cannot hold a {(rows, cols)} "
+                             f"{dtype} grid")
+        path, param = chebk_plan(rows, cols, nsteps, dtype, cluster=False)
+    if path == "tiled":
+        tile = tuple(param[:2])
+        threads = param[2] if len(param) > 2 else tile_threads(tile, nsteps, item)
+        if not tile_fits(tile, nsteps, item):
+            raise ValueError(f"chebk_cuda: tile {tile} with a {nsteps}-cell halo "
+                             f"does not fit one CTA's shared memory and threads")
+        return path, param, (2, tile[0], tile[1], threads)
+    if path == "sweep":
+        return path, param, (0, 0, 0, 0)
+    raise ValueError(f"chebk_cuda: unknown path {path!r}")
+
+
 def chebk_cuda(r: torch.Tensor, theta: float, steps,
                coefs=POISSON_COEFS, *, _path=None) -> torch.Tensor:
-    """Launch K2 on a CUDA (rows, N) grid on the path ``chebk_plan`` picks
+    """Launch K2 on a CUDA (rows, N) grid on the path ``chebk_route`` picks
     (``_path`` forces one, for the tests and chip_smoke.py). Counts:
     ``chebk_cuda.launches`` (1 on a fused path, one per sweep, at least one,
     on the sweep path) and ``chebk_cuda.launches_by_path``."""
@@ -250,43 +304,18 @@ def chebk_cuda(r: torch.Tensor, theta: float, steps,
         raise ValueError("steps must hold (a, b) pairs")
     nsteps = len(steps) // 2
     rows, cols = r.shape
-    path, param = _path or chebk_plan(rows, cols, nsteps, r.dtype)
-    item = r.element_size()
-    if path != "sweep" and not 1 <= nsteps <= CHEBK_MAX_FUSED_STEPS:
-        raise ValueError(f"chebk_cuda: the {path} path takes 1 to "
-                         f"{CHEBK_MAX_FUSED_STEPS} sweeps, not {nsteps}")
-    if path == "cluster":
-        csize, ghost = param[:2]
-        threads = (param[2] if len(param) > 2
-                   else cluster_threads(rows, cols, csize, ghost))
-        if (not cluster_fits(rows, cols, csize, ghost, item)
-                or _cluster_schedulable(item == 8, rows, cols, csize, threads, ghost,
-                                        r.device.index) <= 0):
-            raise ValueError(f"chebk_cuda: a cluster of {csize} CTAs with {ghost} "
-                             f"ghost rows cannot hold a {tuple(r.shape)} {r.dtype} grid")
-        args = (1, csize, threads, ghost)
-    elif path == "tiled":
-        tile = tuple(param[:2])
-        threads = param[2] if len(param) > 2 else tile_threads(tile, nsteps, item)
-        if not tile_fits(tile, nsteps, item):
-            raise ValueError(f"chebk_cuda: tile {tile} with a {nsteps}-cell halo "
-                             f"does not fit one CTA's shared memory and threads")
-        args = (2, tile[0], tile[1], threads)
-    elif path == "sweep":
-        args = (0, 0, 0, 0)
-    else:
-        raise ValueError(f"chebk_cuda: unknown path {path!r}")
+    path, _, args = chebk_route(rows, cols, nsteps, r.dtype, r.device.index, _path)
     out = torch.empty_like(r)
     scratch = d = None
     if path == "sweep" and nsteps >= 2:
         scratch = torch.empty_like(r)
         d = torch.empty_like(r)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = getattr(_cuda.load(), f"gt_chebk_{_cuda.suffix(r.dtype)}")
-    rc = fn(r.data_ptr(), out.data_ptr(), ptr(scratch), ptr(d), rows, cols, theta,
-            _cuda.scalar_array(list(steps), r.dtype), nsteps,
-            _cuda.scalar_array(_coef_list(coefs), r.dtype), *args,
-            r.device.index, _cuda.stream_of(r))
+    rc = _cuda.entry("gt_chebk", r.dtype)(
+        r.data_ptr(), out.data_ptr(), ptr(scratch), ptr(d), rows, cols, theta,
+        _cuda.scalar_array(list(steps), r.dtype), nsteps,
+        _cuda.scalar_array(_coef_list(coefs), r.dtype), *args,
+        r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "chebk_cuda")
     n = max(nsteps, 1) if path == "sweep" else 1
     chebk_cuda.launches += n
@@ -340,52 +369,73 @@ def chebyshev_blocked_feasible(n: int, order: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _cheb2_scalars(d: float, alpha: float, coefs, dtype) -> list[float]:
+def cheb2_scalars(d: float, alpha: float, coefs, dtype) -> list[float]:
     """[1/d, α, c0, cw, ce, cs, cn] rounded to ``dtype`` as the JAX kernel
-    holds them: d, α and the coefficients in the dtype, 1/d divided there."""
+    holds them: d, α and the coefficients in the dtype, 1/d divided there.
+    The halo preconditioner rounds them once, when it is built."""
     d_r, alpha_r, *c = _rounded([d, alpha, *_coef_list(coefs)], dtype)
     return _rounded([1.0 / d_r], dtype) + [alpha_r] + c
 
 
-def chebyshev_poisson_fused_plain(r, top, bottom, d, alpha,
-                                  coefs=POISSON_COEFS) -> torch.Tensor:
-    """The plain PyTorch version of K5, in the JAX kernel's operation order
-    (``_cheb_kernel``): z = r·(1/d) + α(r − A(r)·(1/d))."""
-    inv_d, alpha_r, *c = _cheb2_scalars(d, alpha, coefs, r.dtype)
-    zero = torch.zeros((1, r.shape[1]), dtype=r.dtype, device=r.device)
-    top = zero if top is None else top.reshape(1, -1)
-    bottom = zero if bottom is None else bottom.reshape(1, -1)
+def cheb2_plain(r, top, bottom, scal) -> torch.Tensor:
+    """The plain PyTorch version of K5 on ``cheb2_scalars``, in the JAX
+    kernel's operation order (``_cheb_kernel``): z = r·(1/d) + α(r −
+    A(r)·(1/d)). A halo row of None is a zero row."""
+    inv_d, alpha_r, *c = scal
     ar = stencil_5pt_halo(r, top, bottom, c)
     return r * inv_d + alpha_r * (r - ar * inv_d)
 
 
-def cheb2_cuda(r, top, bottom, d, alpha, coefs=POISSON_COEFS) -> torch.Tensor:
-    """Launch K5 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
-    rows, None for a zero row. ``cheb2_cuda.launches`` counts launches."""
+def chebyshev_poisson_fused_plain(r, top, bottom, d, alpha,
+                                  coefs=POISSON_COEFS) -> torch.Tensor:
+    """The plain PyTorch version of K5 (``cheb2_plain`` with the scalars
+    rounded to r's dtype)."""
+    return cheb2_plain(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype))
+
+
+def _cheb2_launch(r, top, bottom, scal, vec: bool = True, pdl: bool = True) -> torch.Tensor:
     _cuda.check_grid(r, "cheb2_cuda")
     top_p = _halo_row(top, r, "cheb2_cuda")
     bot_p = _halo_row(bottom, r, "cheb2_cuda")
-    scal = _cheb2_scalars(d, alpha, coefs, r.dtype)
     z = torch.empty_like(r)
-    fn = getattr(_cuda.load(), f"gt_cheb2_{_cuda.suffix(r.dtype)}")
-    rc = fn(r.data_ptr(), top_p, bot_p, z.data_ptr(), r.shape[0], r.shape[1],
-            *scal, r.device.index, _cuda.stream_of(r))
+    rc = _cuda.entry("gt_cheb2", r.dtype)(
+        r.data_ptr(), top_p, bot_p, z.data_ptr(), r.shape[0], r.shape[1], *scal,
+        int(vec), int(pdl), r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "cheb2_cuda")
     cheb2_cuda.launches += 1
     return z
 
 
+def cheb2_cuda(r, top, bottom, d, alpha, coefs=POISSON_COEFS, *,
+               _vec: bool = True, _pdl: bool = True) -> torch.Tensor:
+    """Launch K5 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
+    rows, None for a zero row. ``cheb2_cuda.launches`` counts launches.
+    Private, for the tests and chip_smoke.py: ``_vec=False`` forces one
+    point a thread (the kernel takes 16-byte row chunks where the row
+    length and the pointers allow); ``_pdl=False`` launches without
+    programmatic dependent launch (csrc/cheb2_fused.cu)."""
+    return _cheb2_launch(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype),
+                         _vec, _pdl)
+
+
 cheb2_cuda.launches = 0
+
+
+def cheb2_apply(r, top, bottom, scal) -> torch.Tensor:
+    """cbpr2 on a (rows, N) block with scalars already rounded by
+    ``cheb2_scalars``, routed by device: ``cheb2_plain`` for a CPU tensor,
+    K5 for a CUDA tensor. The halo preconditioner's per-application entry."""
+    if r.device.type == "cpu":
+        return cheb2_plain(r, top, bottom, scal)
+    return _cheb2_launch(r, top, bottom, scal)
 
 
 def chebyshev_poisson_fused(r, top, bottom, d, alpha,
                             coefs=POISSON_COEFS) -> torch.Tensor:
     """Degree-2 Chebyshev (cbpr2) application on a (rows, N) block with
-    (N,) or (1, N) halo rows (zeros at the physical boundary): the plain
-    version for a CPU tensor, K5 for a CUDA tensor."""
-    if r.device.type == "cpu":
-        return chebyshev_poisson_fused_plain(r, top, bottom, d, alpha, coefs)
-    return cheb2_cuda(r, top, bottom, d, alpha, coefs)
+    (N,) or (1, N) halo rows (zeros at the physical boundary; None is a zero
+    row): the plain version for a CPU tensor, K5 for a CUDA tensor."""
+    return cheb2_apply(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype))
 
 
 # ---------------------------------------------------------------------------

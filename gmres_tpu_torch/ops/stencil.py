@@ -14,6 +14,13 @@ Counterpart of ``gmres_tpu/ops/stencil.py``:
   device: a CPU tensor takes the plain version, a CUDA tensor of float32 or
   float64 launches K1, and any other CUDA dtype raises. This replaces the
   TPU gate ``_pallas_routable`` (f32-only, VMEM-feasible tilings).
+* ``residual_restrict`` / ``correct_residual`` — K1's two fused forms for
+  one V-cycle level (``precond/multigrid.py``), routed the same way:
+  ``restrict_sum(r − A e)``, and ``e' = e + prolong_repeat(ec)`` with
+  ``r − A e'``, each one launch on a CUDA tensor, bitwise equal to the
+  composition (their plain versions) that a CPU tensor takes. XLA fused
+  these jnp operations around the TPU kernel; eager PyTorch would run each
+  as its own pass over the level.
 * ``stencil_5pt_dd_pallas_blocked`` / ``stencil_5pt_dd_general_pallas_blocked``
   — the float64-accurate stencil on (hi, lo) float32 pairs: kernel K6
   (``csrc/stencil5_dd.cu``) for a CUDA pair, the plain float64 route for a
@@ -71,15 +78,21 @@ def stencil_5pt_apply(x: torch.Tensor) -> torch.Tensor:
 
 def stencil_5pt_halo(
     x: torch.Tensor,
-    top: torch.Tensor,
-    bottom: torch.Tensor,
+    top: torch.Tensor | None,
+    bottom: torch.Tensor | None,
     coefs=POISSON_COEFS,
 ) -> torch.Tensor:
     """Stencil over a (rows, N) block with explicit halo rows: ``top`` is
     the row above the block, ``bottom`` the row below (zeros at the
-    physical boundary)."""
+    physical boundary; None is a zero row, as K1 reads a null pointer)."""
     c0, cw, ce, cs, cn = coefs
-    ext = torch.cat([top.reshape(1, -1), x, bottom.reshape(1, -1)], dim=0)
+
+    def row(h):
+        if h is None:
+            return torch.zeros((1, x.shape[1]), dtype=x.dtype, device=x.device)
+        return h.reshape(1, -1)
+
+    ext = torch.cat([row(top), x, row(bottom)], dim=0)
     mid = ext[1:-1, :]
     up = ext[:-2, :]
     down = ext[2:, :]
@@ -118,18 +131,21 @@ def _halo_row(h, x: torch.Tensor, what: str):
 
 
 def stencil5_cuda(x: torch.Tensor, top=None, bottom=None,
-                  coefs=None) -> torch.Tensor:
+                  coefs=None, *, _vec: bool = True, _pdl: bool = True) -> torch.Tensor:
     """Launch K1 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
-    rows, None for a zero row. ``stencil5_cuda.launches`` counts launches."""
+    rows, None for a zero row. ``stencil5_cuda.launches`` counts launches.
+    Private, for the tests and chip_smoke.py: ``_vec=False`` forces one
+    point a thread (the kernel takes 16-byte row chunks where the row
+    length and the pointers allow); ``_pdl=False`` launches without
+    programmatic dependent launch (csrc/stencil5.cu)."""
     _cuda.check_grid(x, "stencil5_cuda")
     c = _coef_list(coefs)
     top_p = _halo_row(top, x, "stencil5_cuda")
     bot_p = _halo_row(bottom, x, "stencil5_cuda")
     y = torch.empty_like(x)
-    lib = _cuda.load()
-    fn = getattr(lib, f"gt_stencil5_{_cuda.suffix(x.dtype)}")
-    rc = fn(x.data_ptr(), top_p, bot_p, y.data_ptr(), x.shape[0], x.shape[1],
-            *c, x.device.index, _cuda.stream_of(x))
+    rc = _cuda.entry("gt_stencil5", x.dtype)(
+        x.data_ptr(), top_p, bot_p, y.data_ptr(), x.shape[0], x.shape[1], *c,
+        int(_vec), int(_pdl), x.device.index, _cuda.stream_of(x))
     _cuda.check(rc, "stencil5_cuda")
     stencil5_cuda.launches += 1
     return y
@@ -138,14 +154,124 @@ def stencil5_cuda(x: torch.Tensor, top=None, bottom=None,
 stencil5_cuda.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K1's fused forms for one V-cycle level.
+# ---------------------------------------------------------------------------
+
+
+def restrict_sum(x: torch.Tensor) -> torch.Tensor:
+    """(2m, 2m) → (m, m) by 2×2 block sum (residual transfer for
+    h²-scaled operators), summed rows first as in the JAX version."""
+    y = x[0::2, :] + x[1::2, :]
+    return y[:, 0::2] + y[:, 1::2]
+
+
+def prolong_repeat(x: torch.Tensor) -> torch.Tensor:
+    """(m, m) → (2m, 2m) by replication."""
+    return x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+
+
+def _check_levels(what: str, r: torch.Tensor, e: torch.Tensor, ec=None) -> None:
+    """r and e one fine (2m, 2mc) grid of one dtype and device; ec, where
+    given, the coarse (m, mc) grid."""
+    if r.dim() != 2 or r.shape[0] % 2 or r.shape[1] % 2:
+        raise ValueError(f"{what}: the fine grid must have even sides, got "
+                         f"{tuple(r.shape)}")
+    for t, shape in ((e, r.shape), (ec, (r.shape[0] // 2, r.shape[1] // 2))):
+        if t is not None and (tuple(t.shape) != tuple(shape) or t.dtype != r.dtype
+                              or t.device != r.device):
+            raise ValueError(f"{what}: expected a {tuple(shape)} {r.dtype} grid on "
+                             f"{r.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def residual_restrict_plain(r: torch.Tensor, e: torch.Tensor,
+                            coefs=POISSON_COEFS) -> torch.Tensor:
+    """The plain version of K1's residual-restrict form, the composition
+    restrict_sum(r − A e) (runs on any device)."""
+    return restrict_sum(r - stencil_5pt_general(e, *_coef_list(coefs)))
+
+
+def correct_residual_plain(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
+                           coefs=POISSON_COEFS):
+    """The plain version of K1's correct-residual form, the composition
+    e' = e + prolong_repeat(ec), r − A e' (runs on any device)."""
+    e2 = e + prolong_repeat(ec)
+    return e2, r - stencil_5pt_general(e2, *_coef_list(coefs))
+
+
+def residual_restrict_cuda(r: torch.Tensor, e: torch.Tensor, coefs=None, *,
+                           _pdl: bool = False) -> torch.Tensor:
+    """Launch K1's residual-restrict form on CUDA (2m, 2mc) grids r and e;
+    returns the (m, mc) grid. ``residual_restrict_cuda.launches`` counts
+    launches. Private: ``_pdl=True`` launches it with programmatic dependent
+    launch (csrc/stencil5.cu), for chip_smoke.py's comparison."""
+    for t in (r, e):
+        _cuda.check_grid(t, "residual_restrict_cuda")
+    _check_levels("residual_restrict_cuda", r, e)
+    mr, mc = r.shape[0] // 2, r.shape[1] // 2
+    out = torch.empty((mr, mc), dtype=r.dtype, device=r.device)
+    rc = _cuda.entry("gt_residual_restrict", r.dtype)(
+        r.data_ptr(), e.data_ptr(), out.data_ptr(), mr, mc, *_coef_list(coefs),
+        int(_pdl), r.device.index, _cuda.stream_of(r))
+    _cuda.check(rc, "residual_restrict_cuda")
+    residual_restrict_cuda.launches += 1
+    return out
+
+
+residual_restrict_cuda.launches = 0
+
+
+def correct_residual_cuda(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
+                          coefs=None, *, _pdl: bool = False):
+    """Launch K1's correct-residual form on CUDA grids (fine r and e, coarse
+    ec); returns (e', r − A e'). ``correct_residual_cuda.launches`` counts
+    launches. Private: ``_pdl`` as for ``residual_restrict_cuda``."""
+    for t in (r, e, ec):
+        _cuda.check_grid(t, "correct_residual_cuda")
+    _check_levels("correct_residual_cuda", r, e, ec)
+    e_out, r_out = torch.empty_like(e), torch.empty_like(r)
+    rc = _cuda.entry("gt_correct_residual", r.dtype)(
+        r.data_ptr(), e.data_ptr(), ec.data_ptr(), e_out.data_ptr(),
+        r_out.data_ptr(), ec.shape[0], ec.shape[1], *_coef_list(coefs),
+        int(_pdl), r.device.index, _cuda.stream_of(r))
+    _cuda.check(rc, "correct_residual_cuda")
+    correct_residual_cuda.launches += 1
+    return e_out, r_out
+
+
+correct_residual_cuda.launches = 0
+
+
+def residual_restrict(r: torch.Tensor, e: torch.Tensor,
+                      coefs=POISSON_COEFS) -> torch.Tensor:
+    """restrict_sum(r − A e), routed by device: the plain composition for a
+    CPU tensor, K1's residual-restrict form for a CUDA tensor."""
+    if r.device.type == "cpu":
+        _check_levels("residual_restrict", r, e)
+        return residual_restrict_plain(r, e, coefs)
+    return residual_restrict_cuda(r, e, coefs)
+
+
+def correct_residual(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
+                     coefs=POISSON_COEFS):
+    """(e + prolong_repeat(ec), r − A(e + prolong_repeat(ec))), routed by
+    device: the plain composition for a CPU tensor, K1's correct-residual
+    form for a CUDA tensor."""
+    if r.device.type == "cpu":
+        _check_levels("correct_residual", r, e, ec)
+        return correct_residual_plain(r, e, ec, coefs)
+    return correct_residual_cuda(r, e, ec, coefs)
+
+
 def stencil_5pt_pallas_halo(
     x: torch.Tensor,
-    top: torch.Tensor,
-    bottom: torch.Tensor,
+    top: torch.Tensor | None,
+    bottom: torch.Tensor | None,
     coefs=None,
 ) -> torch.Tensor:
     """Stencil over a (rows, N) block with explicit (N,) or (1, N) halo
-    rows: the plain version for a CPU tensor, K1 for a CUDA tensor."""
+    rows, None for a zero row: the plain version for a CPU tensor, K1 for a
+    CUDA tensor."""
     if x.device.type == "cpu":
         c = _coef_list(coefs)
         return stencil_5pt_halo(x, top, bottom, c)

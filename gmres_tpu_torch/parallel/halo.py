@@ -10,14 +10,19 @@ plain tensor is taken as this rank's block as it is.
 
 The halo exchange is two one-row messages to each neighbouring rank
 (``isend``/``irecv``). Rank 0 receives no row from above and the last rank
-none from below: those halo rows stay zero, which IS the homogeneous
+none from below: those halo rows are zero, which IS the homogeneous
 Dirichlet truncation of the reference, so physical boundaries need no
-special case. A one-rank mesh sends nothing.
+special case. A one-rank mesh sends nothing. ``halo_exchange`` returns the
+two rows, as JAX's does; the operators take them from ``_halo_rows``,
+which gives None for a side without a neighbour, and the kernels read a
+null row as zero: an application on one rank is one launch, with no zero
+rows to allocate and fill.
 
 Each operator exchanges the halo rows, then runs the block through a
 function that routes by device: ``stencil_5pt_pallas_halo`` (K1 on a CUDA
-block) for the operator, ``chebyshev_poisson_fused`` (K5) for the order-2
-preconditioner, each the plain PyTorch version on a CPU block. JAX's
+block) for the operator, ``cheb2_apply`` (K5, with cbpr2's scalars rounded
+once when the preconditioner is built) for the order-2 preconditioner,
+each the plain PyTorch version on a CPU block. JAX's
 interior-first overlap of the exchange (``_local_stencil_overlapped``) is
 not ported: on the CPU it only orders the rounding of the boundary rows
 differently, and on the card it waits for multi-card runs that can measure
@@ -40,7 +45,8 @@ import torch
 import torch.distributed as dist
 
 from gmres_tpu_torch.ops.fused import (
-    chebyshev_poisson_fused,
+    cheb2_apply,
+    cheb2_scalars,
     chebyshev_ref_scalars,
 )
 from gmres_tpu_torch.ops.stencil import stencil_5pt_pallas_halo
@@ -48,6 +54,36 @@ from gmres_tpu_torch.ops.stencil_rdma import stencil_5pt_rdma
 from gmres_tpu_torch.parallel.mesh import GRID_AXIS
 
 LAPLACE_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
+
+
+def _neighbours(group) -> Tuple[int | None, int | None]:
+    """Global ranks of the ranks above and below this one in ``group``
+    (None where there is none)."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    up = dist.get_global_rank(group, rank - 1) if rank > 0 else None
+    down = dist.get_global_rank(group, rank + 1) if rank < size - 1 else None
+    return up, down
+
+
+def _halo_rows(blk: torch.Tensor, group, neighbours):
+    """(top, bottom) halo rows of ``blk`` from the ``neighbours`` of
+    ``_neighbours(group)``, each (1, ncols), None for a side with no
+    neighbour (no row is allocated for it)."""
+    up, down = neighbours
+    top = bottom = None
+    ops = []
+    if up is not None:
+        top = torch.empty((1, blk.shape[1]), dtype=blk.dtype, device=blk.device)
+        ops += [dist.P2POp(dist.isend, blk[:1].contiguous(), up, group),
+                dist.P2POp(dist.irecv, top, up, group)]
+    if down is not None:
+        bottom = torch.empty((1, blk.shape[1]), dtype=blk.dtype, device=blk.device)
+        ops += [dist.P2POp(dist.isend, blk[-1:].contiguous(), down, group),
+                dist.P2POp(dist.irecv, bottom, down, group)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return top, bottom
 
 
 def halo_exchange(blk: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,23 +94,13 @@ def halo_exchange(blk: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Te
     Returns (top, bottom), each (1, ncols): ``top`` is the neighbour row
     above this block (zeros on rank 0), ``bottom`` the row below (zeros on
     the last rank)."""
-    top = torch.zeros((1, blk.shape[1]), dtype=blk.dtype, device=blk.device)
-    bottom = torch.zeros_like(top)
-    rank, size = dist.get_rank(group), dist.get_world_size(group)
-    if size == 1:
-        return top, bottom
-    ops = []
-    if rank > 0:
-        up = dist.get_global_rank(group, rank - 1)
-        ops += [dist.P2POp(dist.isend, blk[:1].contiguous(), up, group),
-                dist.P2POp(dist.irecv, top, up, group)]
-    if rank < size - 1:
-        down = dist.get_global_rank(group, rank + 1)
-        ops += [dist.P2POp(dist.isend, blk[-1:].contiguous(), down, group),
-                dist.P2POp(dist.irecv, bottom, down, group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return top, bottom
+    top, bottom = _halo_rows(blk, group, _neighbours(group))
+
+    def row(h):
+        return torch.zeros((1, blk.shape[1]), dtype=blk.dtype,
+                           device=blk.device) if h is None else h
+
+    return row(top), row(bottom)
 
 
 def _sharded(mesh, fn: Callable) -> Callable:
@@ -99,10 +125,11 @@ def halo_stencil_operator(
     composes with the solvers, which never know the operator is
     distributed."""
     group = mesh.get_group(axis)
+    neighbours = _neighbours(group)
     coefs = tuple(float(c) for c in coefs)
 
     def apply_local(blk):
-        top, bottom = halo_exchange(blk, group)
+        top, bottom = _halo_rows(blk, group, neighbours)
         return stencil_5pt_pallas_halo(blk, top, bottom, coefs)
 
     return _sharded(mesh, apply_local)
@@ -167,7 +194,8 @@ def halo_chebyshev_preconditioner(
 
     order=2 (default) is cbpr2 fused: one halo exchange and one pass
     producing z = r·(1/d) + α(r − A(r)·(1/d)): K5 on a CUDA block, its
-    plain version on a CPU block. order>2 composes the general
+    plain version on a CPU block, with the scalars rounded to the block's
+    dtype when the preconditioner is built. order>2 composes the general
     semi-iteration over the halo stencil operator (one halo exchange per
     sweep)."""
     from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
@@ -180,10 +208,14 @@ def halo_chebyshev_preconditioner(
 
     d, alpha = chebyshev_ref_scalars(lam_min, lam_max)
     group = mesh.get_group(axis)
-    coefs = tuple(float(c) for c in coefs)
+    neighbours = _neighbours(group)
+    # [1/d, α, c0…cn] rounded once per dtype, not per application.
+    scal = {dt: cheb2_scalars(d, alpha, coefs, dt)
+            for dt in (torch.float32, torch.float64)}
 
     def m_inv_local(r_blk):
-        top, bottom = halo_exchange(r_blk, group)
-        return chebyshev_poisson_fused(r_blk, top, bottom, d, alpha, coefs)
+        top, bottom = _halo_rows(r_blk, group, neighbours)
+        s = scal.get(r_blk.dtype) or cheb2_scalars(d, alpha, coefs, r_blk.dtype)
+        return cheb2_apply(r_blk, top, bottom, s)
 
     return _sharded(mesh, m_inv_local)

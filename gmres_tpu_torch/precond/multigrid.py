@@ -6,9 +6,13 @@ restriction = 2×2 block sum, prolongation = 2×2 replication, Chebyshev
 smoothers on [λmax/band, λmax] and an order-``coarse_order`` Chebyshev
 coarse solve over the coarsest grid's full spectrum.
 
-On a CUDA tensor every residual stencil launches K1 and every smoother and
-the coarse solve launch K2; on a CPU tensor both take their plain
-versions. Transfers are plain PyTorch (strided adds and repeats).
+Each non-coarsest level runs the pre-smoother, K1's residual-restrict form
+(r − A e, restricted), the coarser level, K1's correct-residual form
+(e + P ec and r − A(e + P ec)), the post-smoother and one add. On a CUDA
+tensor the smoothers and the coarse solve launch K2 and the two forms K1;
+on a CPU tensor each takes its plain version, which is the composition of
+``stencil_5pt_general``, ``restrict_sum`` and ``prolong_repeat`` the JAX
+cycle computes, so both routes keep the JAX cycle's arithmetic.
 """
 
 from __future__ import annotations
@@ -19,20 +23,13 @@ from typing import Callable
 
 import torch
 
-from gmres_tpu_torch.ops.stencil import stencil_5pt_routed
+from gmres_tpu_torch.ops.stencil import (  # noqa: F401  (transfers re-exported)
+    correct_residual,
+    prolong_repeat,
+    residual_restrict,
+    restrict_sum,
+)
 from gmres_tpu_torch.precond.chebyshev import chebyshev_stencil_preconditioner
-
-
-def restrict_sum(x: torch.Tensor) -> torch.Tensor:
-    """(2m, 2m) → (m, m) by 2×2 block sum (residual transfer for
-    h²-scaled operators), summed rows first as in the JAX version."""
-    y = x[0::2, :] + x[1::2, :]
-    return y[:, 0::2] + y[:, 1::2]
-
-
-def prolong_repeat(x: torch.Tensor) -> torch.Tensor:
-    """(m, m) → (2m, 2m) by replication."""
-    return x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +109,8 @@ def poisson_multigrid_preconditioner(
         if level == levels - 1:
             return coarse_solve(r)
         e = smoother(r)
-        r2 = r - stencil_5pt_routed(e)
-        ec = v_cycle(restrict_sum(r2), level + 1)
-        e = e + prolong_repeat(ec)
-        r3 = r - stencil_5pt_routed(e)
+        ec = v_cycle(residual_restrict(r, e), level + 1)
+        e, r3 = correct_residual(r, e, ec)
         return e + post_smoother(r3)
 
     def m_inv(r: torch.Tensor) -> torch.Tensor:

@@ -254,6 +254,37 @@ def test_plan_of_the_mg_cycles(n):
     assert smooth == {"tiled"} and coarse[0] == "cluster"
 
 
+@pytest.mark.parametrize("n,nsteps,dtype,expected", [
+    (75, 31, torch.float32, ("tiled", (16, 32))),   # mg 300²'s coarse solve
+    (16, 31, torch.float32, ("tiled", (16, 32))),   # mg 2048²'s coarse solve
+    (150, 31, torch.float32, ("tiled", (16, 32))),
+    (75, 31, torch.float64, ("sweep", None)),
+    (300, 2, torch.float32, ("tiled", (8, 32))),    # not a cluster shape
+])
+def test_route_without_a_schedulable_cluster(monkeypatch, n, nsteps, dtype, expected):
+    """Where the card cannot schedule the cluster (its count stubbed to 0:
+    a MIG slice, smaller GPCs), an unforced call routes to chebk_plan's
+    choice without the cluster path, which gives the per-sweep path's bits
+    (the tile emulation against the plain recurrence); a forced cluster
+    path still raises. With the count above 0 the plan stands."""
+    monkeypatch.setattr(tfu, "_cluster_schedulable", lambda *args: 0)
+    path, param, args = tfu.chebk_route(n, n, nsteps, dtype, 0)
+    assert (path, param) == expected
+    assert args[0] == {"tiled": 2, "sweep": 0}[path]
+    with pytest.raises(ValueError, match="cluster"):
+        tfu.chebk_route(n, n, nsteps, dtype, 0, _path=("cluster", (4, 8)))
+    if path == "tiled" and n <= 75:
+        r, theta, steps, coefs = _case(94, (n, n), dtype, nsteps + 1, "poisson")
+        torch.testing.assert_close(emulate_tiles(r, theta, steps, coefs, param),
+                                   tfu.poly_stencil_smoother_plain(r, theta, steps, coefs),
+                                   rtol=0, atol=0)
+    monkeypatch.setattr(tfu, "_cluster_schedulable", lambda *args: 3)
+    planned = tfu.chebk_plan(n, n, nsteps, dtype)
+    assert tfu.chebk_route(n, n, nsteps, dtype, 0)[:2] == planned
+    if planned[0] == "cluster":
+        assert tfu.chebk_route(n, n, nsteps, dtype, 0)[2][:2] == (1, planned[1][0])
+
+
 def test_wrapper_refuses_a_cpu_tensor_and_routes_it_to_plain():
     r = to_torch(seeded(93, (16, 16)))
     theta, _, steps = tfu.chebyshev_k_scalars(2.0, 8.0, 3)

@@ -130,6 +130,26 @@ def test_halo_operators_match_jax(port, jax_ref, cases):
     np.testing.assert_array_equal(port["y_poisson_plain_block"], port["y_poisson"])
 
 
+def test_halo_rows_absent_at_the_edges(port, cases):
+    """halo_exchange keeps JAX's contract (two rows, zeros at the physical
+    boundary); the operators' rows are absent there (the kernels read a
+    null row as zero) and are the neighbours' rows elsewhere."""
+    world, x = port["world"], cases["x"]
+    rows = N_OP // world
+    for r in range(world):
+        top = x[r * rows - 1] if r > 0 else np.zeros(N_OP)
+        bottom = x[(r + 1) * rows] if r < world - 1 else np.zeros(N_OP)
+        np.testing.assert_array_equal(port["halo_exchange_rows"][r],
+                                      np.concatenate([top, bottom]))
+        got_top, got_bottom = np.split(port["halo_rows"][r], 2)
+        for got, want, absent in ((got_top, top, r == 0),
+                                  (got_bottom, bottom, r == world - 1)):
+            if absent:
+                assert np.isnan(got).all()
+            else:
+                np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("order", [2, 4])
 def test_halo_chebyshev_preconditioner_matches_jax(port, jax_ref, order):
     key = f"z_order{order}"

@@ -42,6 +42,105 @@ def test_k1_matches_plain(cuda_device, dtype, n):
                                rtol=0, atol=0)
 
 
+def _offset(t):
+    """t's values in a contiguous tensor one element past an aligned start,
+    so that no vector or pair access is aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("pdl", [False, True])
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("shape,dtype", [((304, 304), torch.float64), ((300, 300), torch.float32),
+                                         ((75, 301), torch.float32), ((2048, 2048), torch.float32)])
+def test_k1_row_chunks_bitwise(cuda_device, shape, dtype, layout, pdl):
+    """K1 with 16-byte row chunks (where the row length and the pointers
+    allow), one point a thread (forced, and wherever they do not), with and
+    without programmatic dependent launch, null and given halo rows: the
+    plain version's bits."""
+    x = to_torch(seeded(22, shape), cuda_device).to(dtype)
+    top = to_torch(seeded(23, shape[1]), cuda_device).to(dtype)
+    if layout == "offset":
+        x, top = _offset(x), _offset(top)
+    for vec in (True, False):
+        for halo in ((None, None), (top, None)):
+            before = tst.stencil5_cuda.launches
+            y = tst.stencil5_cuda(x, *halo, COEFS, _vec=vec, _pdl=pdl)
+            torch.cuda.synchronize()
+            assert tst.stencil5_cuda.launches == before + 1
+            torch.testing.assert_close(y, tst.stencil_5pt_halo(x, *halo, COEFS),
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("pdl", [False, True])
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("shape,dtype", [((300, 300), torch.float32), ((150, 150), torch.float32),
+                                         ((2048, 2048), torch.float32), ((304, 304), torch.float64),
+                                         ((16, 40), torch.float64)])
+def test_k1_fused_forms_bitwise(cuda_device, shape, dtype, layout, pdl):
+    """K1's residual-restrict and correct-residual forms against their plain
+    versions (the compositions the V-cycle ran before): the same bits, with
+    pair accesses aligned or not, with and without programmatic dependent
+    launch, on the Poisson and on general coefficients."""
+    r = to_torch(seeded(24, shape), cuda_device).to(dtype)
+    e = to_torch(seeded(25, shape), cuda_device).to(dtype)
+    ec = to_torch(seeded(26, (shape[0] // 2, shape[1] // 2)), cuda_device).to(dtype)
+    if layout == "offset":
+        r, e = _offset(r), _offset(e)
+    for coefs in (tst.POISSON_COEFS, COEFS):
+        before = (tst.residual_restrict_cuda.launches, tst.correct_residual_cuda.launches)
+        rc = tst.residual_restrict_cuda(r, e, coefs, _pdl=pdl)
+        e2, r3 = tst.correct_residual_cuda(r, e, ec, coefs, _pdl=pdl)
+        torch.cuda.synchronize()
+        assert (tst.residual_restrict_cuda.launches,
+                tst.correct_residual_cuda.launches) == (before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(rc, tst.residual_restrict_plain(r, e, coefs),
+                                   rtol=0, atol=0)
+        e2p, r3p = tst.correct_residual_plain(r, e, ec, coefs)
+        torch.testing.assert_close(e2, e2p, rtol=0, atol=0)
+        torch.testing.assert_close(r3, r3p, rtol=0, atol=0)
+
+
+def test_k1_fused_forms_refuse_what_they_do_not_take(cuda_device):
+    r = torch.zeros((8, 12), device=cuda_device)
+    with pytest.raises(ValueError, match="even sides"):
+        tst.residual_restrict(r[:7].contiguous(), r[:7].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        tst.correct_residual(r, r, torch.zeros((4, 6), dtype=torch.float64,
+                                               device=cuda_device))
+    with pytest.raises(TypeError):
+        tst.residual_restrict(r.half(), r.half())
+
+
+@pytest.mark.parametrize("n", [64, 300])
+def test_v_cycle_on_fused_forms_bitwise_to_the_composition(cuda_device, n):
+    """The V-cycle on the card (K2 and the fused K1 forms) against the same
+    cycle built from the composition on the card (K2, K1, torch's
+    transfers): the same bits, and one launch of each form a level."""
+    m_inv = tt.poisson_multigrid_preconditioner(n)
+    plan = m_inv.plan
+
+    def composed(r, level=0):
+        if level == len(plan.sizes) - 1:
+            return tfu.chebk_cuda(r, *plan.coarse)
+        e = tfu.chebk_cuda(r, *plan.pre_smooth)
+        ec = composed(tt.restrict_sum(r - tst.stencil5_cuda(e)), level + 1)
+        e = e + tt.prolong_repeat(ec)
+        return e + tfu.chebk_cuda(r - tst.stencil5_cuda(e), *plan.post_smooth)
+
+    r = to_torch(seeded(27, (n, n)), cuda_device).to(torch.float32)
+    before = (tst.residual_restrict_cuda.launches, tst.correct_residual_cuda.launches,
+              tst.stencil5_cuda.launches)
+    z = m_inv(r)
+    torch.cuda.synchronize()
+    assert (tst.residual_restrict_cuda.launches - before[0],
+            tst.correct_residual_cuda.launches - before[1],
+            tst.stencil5_cuda.launches - before[2]) == (m_inv.levels - 1,) * 2 + (0,)
+    torch.testing.assert_close(z, composed(r), rtol=0, atol=0)
+
+
 def test_k1_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         tst.stencil_5pt_routed(torch.zeros((8, 8), dtype=torch.float16,
@@ -142,6 +241,23 @@ def test_k2_fused_paths_on_general_coefficients(cuda_device, n):
     for path in _k2_forced_paths(r, 7):
         torch.testing.assert_close(tfu.chebk_cuda(r, theta, steps, COEFS, _path=path),
                                    ref, rtol=0, atol=0, msg=f"{path}")
+
+
+def test_k2_routes_around_an_unschedulable_cluster(cuda_device, monkeypatch):
+    """With the schedulable-cluster count at 0, the unforced mg coarse solve
+    at 75² takes the tiled path (counted there) with the per-sweep path's
+    bits; a forced cluster path raises."""
+    r, theta, steps = _k2_case(cuda_device, torch.float32, (75, 75), 32)
+    ref = tfu.chebk_cuda(r, theta, steps, _path=("sweep", None))
+    monkeypatch.setattr(tfu, "_cluster_schedulable", lambda *args: 0)
+    before = dict(tfu.chebk_cuda.launches_by_path)
+    z = tfu.chebk_cuda(r, theta, steps)
+    torch.cuda.synchronize()
+    assert tfu.chebk_cuda.launches_by_path["tiled"] == before["tiled"] + 1
+    assert tfu.chebk_cuda.launches_by_path["cluster"] == before["cluster"]
+    torch.testing.assert_close(z, ref, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="cluster"):
+        tfu.chebk_cuda(r, theta, steps, _path=("cluster", (16, 4)))
 
 
 def test_k2_refuses_what_no_path_takes(cuda_device):
@@ -328,23 +444,33 @@ def test_sparse_cg_runs_on_the_kernels(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(304, 304), (76, 304), (1, 40), (2048, 2048)])
-@pytest.mark.parametrize("halos", ["none", "random"])
+@pytest.mark.parametrize("shape", [(304, 304), (76, 304), (1, 40), (2048, 2048), (75, 301)])
+@pytest.mark.parametrize("halos", ["none", "random", "random offset"])
 def test_k5_matches_plain_bitwise(cuda_device, dtype, shape, halos):
-    """Built with -fmad=false, K5 repeats the plain version's roundings."""
+    """Built with -fmad=false, K5 repeats the plain version's roundings: with
+    16-byte row chunks where the row length and pointers allow, one point a
+    thread (forced, and where they do not), with and without programmatic
+    dependent launch, with null and with given halo rows."""
     r = to_torch(seeded(70, shape), cuda_device).to(dtype)
     top = bot = None
-    if halos == "random":
+    if halos != "none":
         top = to_torch(seeded(71, (1, shape[1])), cuda_device).to(dtype)
         bot = to_torch(seeded(72, shape[1]), cuda_device).to(dtype)
+    if halos == "random offset":
+        r, top = _offset(r), _offset(top)
     d, alpha = tfu.chebyshev_ref_scalars(0.2, 8.2)
+    plain = tfu.chebyshev_poisson_fused_plain(r, top, bot, d, alpha, COEFS)
     before = tfu.cheb2_cuda.launches
     z = tt.chebyshev_poisson_fused(r, top, bot, d, alpha, COEFS)
     torch.cuda.synchronize()
     assert tfu.cheb2_cuda.launches == before + 1
-    torch.testing.assert_close(
-        z, tfu.chebyshev_poisson_fused_plain(r, top, bot, d, alpha, COEFS),
-        rtol=0, atol=0)
+    torch.testing.assert_close(z, plain, rtol=0, atol=0)
+    for vec in (True, False):
+        for pdl in (False, True):
+            z = tfu.cheb2_cuda(r, top, bot, d, alpha, COEFS, _vec=vec, _pdl=pdl)
+            torch.testing.assert_close(z, plain, rtol=0, atol=0)
+    scal = tfu.cheb2_scalars(d, alpha, COEFS, dtype)
+    torch.testing.assert_close(tfu.cheb2_apply(r, top, bot, scal), plain, rtol=0, atol=0)
 
 
 def test_k5_k7_refuse_what_they_do_not_take(cuda_device):
@@ -417,6 +543,13 @@ def _halo_path_on_one_rank(cuda_device):
     torch.cuda.synchronize()
     assert (tst.stencil5_cuda.launches, tfu.cheb2_cuda.launches) == (k1 + 1, k5 + 1)
     assert rel_err(y.to_local(), np_poisson(seeded(74, (n, n)))) < 1e-14
+    # No halo rows on one rank: the plain versions with none give the bits.
+    d, alpha = tfu.chebyshev_ref_scalars(0.2, 8.2)
+    torch.testing.assert_close(y.to_local(), tst.stencil_5pt_halo(x.to_local(), None, None),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        z.to_local(), tfu.chebyshev_poisson_fused_plain(x.to_local(), None, None, d, alpha),
+        rtol=0, atol=0)
     res = tt.gmres(op, b, restart=20, tol=1e-10, M=m_inv, variant="mgsr",
                    compute_v_err=False)
     xs = res.x.full_tensor().cpu().numpy()

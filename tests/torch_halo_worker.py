@@ -45,6 +45,7 @@ def _drive(rank: int, mesh, out_dir: str, cases: dict) -> None:
         return tt.shard_grid_vector(torch.as_tensor(a), mesh)
 
     x = shard(cases["x"])
+    _halo_rows_out(mesh, x.to_local(), out)
     out["y_poisson"] = _local(tt.halo_poisson_operator(mesh)(x))
     # A plain tensor is taken as this rank's block.
     out["y_poisson_plain_block"] = tt.halo_poisson_operator(mesh)(x.to_local()).numpy()
@@ -88,6 +89,22 @@ def _drive(rank: int, mesh, out_dir: str, cases: dict) -> None:
         lambda: tt.shard_grid_vector(torch.zeros((31, 31)), mesh)))
 
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def _halo_rows_out(mesh, blk, out: dict) -> None:
+    """This rank's halo rows two ways: ``halo_exchange`` (two rows, zeros
+    where there is no neighbour) and the operators' ``_halo_rows`` (None
+    there, written as NaN), each as a (1, 2N) row."""
+    import gmres_tpu_torch as tt
+    from gmres_tpu_torch.parallel.halo import _halo_rows, _neighbours
+
+    group = mesh.get_group("grid")
+    top, bottom = tt.halo_exchange(blk, group)
+    out["halo_exchange_rows"] = torch.cat([top, bottom], dim=1).numpy()
+    rows = _halo_rows(blk, group, _neighbours(group))
+    out["halo_rows"] = np.concatenate(
+        [np.full((1, blk.shape[1]), np.nan) if h is None else h.numpy() for h in rows],
+        axis=1)
 
 
 def _drive_rdma(mesh, shard, cases: dict, out: dict) -> None:
