@@ -26,16 +26,17 @@ Phases of the smoke run:
    case also runs on K2's per-sweep path: the routed path (printed with its
    cluster or tile) must give the same bits and take no longer (3% for
    noise). Then the launch floor (an empty kernel's chained slope between
-   CUDA graphs of 20 and 40 launches, without and with programmatic
-   dependent launch, PDL) and the redesigned kernels, each bitwise against
-   its plain version with its device time by CUDA-graph replay, bound, the
-   floor and the host µs to enqueue one call: K1's residual-restrict and
-   correct-residual forms at 300², 150², 2048² float32 and 304² float64
-   (residual-restrict beside one F.conv2d computing it), K1 and K5 at the
-   halo path's 304² float64 with null halo rows, with 16-byte row chunks
-   and one point a thread; then the V-cycle at 300² and 2048² and the halo
-   path's K5 → K1 chain with PDL off and on (off, on, on, off), the same
-   bits.
+   CUDA graphs of 20 and 40 launches) and the redesigned kernels, each
+   bitwise against its plain version with its device time by CUDA-graph
+   replay, bound, the floor and the host µs to enqueue one call: K1's
+   residual-restrict and correct-residual forms at 300², 150², 2048² float32
+   and 304² float64 (residual-restrict beside one F.conv2d computing it),
+   and K1 and K5 at the halo path's 304² float64 with null halo rows, K1
+   also at the mg operator's 300² and 150² and at 2048² float32, there with
+   16-byte row chunks and, on inputs one element off alignment, one point a
+   thread. Rows at 2048² cycle through 4 input sets (more than the 50 MB L2
+   in all), so their inputs come from HBM; every other row whose working
+   set fits the L2 is flagged ``l2_resident``.
 4. Solve the multigrid ``mg`` configuration (Householder GMRES, m=10,
    float32 Arnoldi cycles certified on the float64 true residual) at 300²
    and 2048², with the package's V-cycle (K1's fused forms) and, in turn,
@@ -79,9 +80,10 @@ Phases of the smoke run:
     the GSPMD operator; the mathematics is the same): a one-rank NCCL
     process group, the port's mesh, the 304² right-hand side
     sharded over it; one application of the halo operator (K1) and of the
-    fused halo cbpr2 (K5) must run one kernel each (torch.profiler), and
-    equal the same application on halo_exchange's two zero rows (built
-    here: three kernels); then the two under MGSR GMRES (cgs2,
+    fused halo cbpr2 (K5) must launch its one kernel once (the wrappers'
+    counts) and run one kernel in all (torch.profiler's count, within half
+    a kernel: a profile can lose events), and equal the same application on
+    halo_exchange's two zero rows (built here: three kernels); then the two under MGSR GMRES (cgs2,
     m=50, float64) at tol 1e-8 and 1e-15, the median wall of 3 solves, the
     counts against the JAX package's, the launches of K1 and K5 against the
     operator and preconditioner applications, a profiled solve; then the
@@ -113,6 +115,7 @@ kernel report (JSON); the last line is the result (JSON).
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -142,6 +145,9 @@ SMALL_GRID = 64
 # and non-tensor-core FLOP/s by dtype.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# Its L2 (50 MB): a record whose working set fits is flagged l2_resident,
+# since CUDA-graph replay then reads it from L2, not HBM.
+L2_BYTES = 50 * 2**20
 # Inner iterations of the reference configuration at 300² recorded by the
 # JAX package (BENCH_r05.json, decomposition, CPU run).
 JAX_REFERENCE_INNER = 1200
@@ -175,6 +181,9 @@ RDMA_CG_TOL = 1e-4
 # K1's V-cycle forms at the fine shapes the paths give them: mg 300²'s two
 # levels, mg 2048²'s finest, and the strong-scaling grid in float64.
 FORM_SHAPES = ((300, "float32"), (150, "float32"), (2048, "float32"), (304, "float64"))
+# Input sets that phase 3's redesigned rows at 2048² cycle through: 4 sets of
+# 34–71 MB exceed the L2 twice over, so each call reads its inputs from HBM.
+HBM_SETS = 4
 # Applications profiled per operator in phase 12's launch count.
 HALO_APPLICATIONS = 20
 
@@ -291,22 +300,20 @@ def host_us(fn, calls: int = 200) -> float:
 
 def launch_floor(dev) -> dict:
     """The card's launch floor: an empty kernel (one CTA of one warp) as a
-    chained slope, without and with programmatic dependent launch, and the
-    host µs to enqueue it through ctypes."""
+    chained slope, launched as the kernels are, and the host µs to enqueue
+    it through ctypes."""
     import torch
 
     from gmres_tpu_torch.ops import _cuda
 
     lib = _cuda.load()
 
-    def empty(pdl):
-        def run():
-            rc = lib.gt_empty(pdl, dev.index, torch.cuda.current_stream().cuda_stream)
-            require(rc == 0, f"empty kernel: CUDA error {rc}")
-        return run
+    def empty():
+        rc = lib.gt_empty(dev.index, torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"empty kernel: CUDA error {rc}")
 
-    return {"slope_ms": chained_slope(empty(0)), "slope_pdl_ms": chained_slope(empty(1)),
-            "graph_ms": device_ms(empty(0), 50), "host_us": host_us(empty(0))}
+    return {"slope_ms": chained_slope(empty), "graph_ms": device_ms(empty, 50),
+            "host_us": host_us(empty)}
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -359,8 +366,10 @@ def compare(name, kernel, plain, rtol, reps, work=None, library=None):
     if work is not None:
         nbytes, flops, dtype, nnz = work
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dtype)
+        rec["l2_resident"] = nbytes <= L2_BYTES
         extra += (f" bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
-                  f"{100 * rec['bound_ms'] / rec['ms']:.0f}% of it)")
+                  f"{100 * rec['bound_ms'] / rec['ms']:.0f}% of it"
+                  f"{'; L2-resident' if rec['l2_resident'] else ''})")
         if nnz:
             rec["gnnz_per_s"] = nnz / (rec["ms"] * 1e-3) / 1e9
             extra += f" {rec['gnnz_per_s']:.2f} Gnnz/s"
@@ -479,10 +488,13 @@ def phase_kernels(gt_torch, rng, dev):
     return records
 
 
-def form_record(name, kernel, plain, work, reps, floor, library=None) -> dict:
+def form_record(name, kernel, plain, work, reps, floor, library=None, sets=1) -> dict:
     """A redesigned kernel (one or several outputs) against its plain
     version: bitwise, then device ms by CUDA-graph replay beside the bound
-    and the launch floor, host µs to enqueue, and the library call's time."""
+    and the launch floor, host µs to enqueue, and the library call's time.
+    Callables made by `cycling` over `sets` input sets start at the first,
+    so the first calls compare one set; the working set of all of them is
+    flagged l2_resident where it fits the L2."""
     import torch
 
     outs_k, outs_p = kernel(), plain()
@@ -496,18 +508,38 @@ def form_record(name, kernel, plain, work, reps, floor, library=None) -> dict:
     rec = {"case": name, "max_abs_err": 0.0, "max_rel_err": 0.0, "rtol": 0.0,
            "ms": device_ms(kernel, reps), "plain_ms": device_ms(plain, reps),
            "host_us": host_us(kernel), "plain_host_us": host_us(plain),
-           "floor_ms": floor["slope_ms"], "library_ms": None}
+           "floor_ms": floor["slope_ms"], "library_ms": None, "input_sets": sets,
+           "l2_resident": work[0] * sets <= L2_BYTES}
     rec["bound_ms"], rec["bound_by"] = bound(*work[:3])
     extra = ""
     if library is not None:
         rec.update(library_record(library, outs_p[0], reps))
         extra = (f" library {rec['library_ms']:.4f} ms" if rec["library_ms"] is not None
                  else f" library: {rec['library_note']}")
+    where = "L2-resident" if rec["l2_resident"] else f"HBM, {sets} input sets"
     print(f"  {name:46s} bitwise  device: kernel {rec['ms']:.4f} ms plain "
-          f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}) "
-          f"floor {rec['floor_ms']:.5f} ms  host: kernel {rec['host_us']:.2f} us plain "
-          f"{rec['plain_host_us']:.2f} us{extra}", flush=True)
+          f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}; "
+          f"{where}) = {rec['ms'] / rec['bound_ms']:.2f}x; floor {rec['floor_ms']:.5f} ms "
+          f"= {rec['ms'] / rec['floor_ms']:.2f}x  host: kernel {rec['host_us']:.2f} us "
+          f"plain {rec['plain_host_us']:.2f} us{extra}", flush=True)
     return rec
+
+
+def cycling(calls):
+    """One callable that runs `calls` in turn, the first at its first call."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def offset_copy(t):
+    """t's values in a contiguous tensor one element past an aligned start:
+    no 16-byte access of it is aligned, so K1 takes one point a thread."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def restrict_conv(r, e, coefs):
@@ -531,11 +563,10 @@ def restrict_conv(r, e, coefs):
 
 
 def phase_redesigned(gt_torch, rng, dev):
-    """Phase 3, second part: the launch floor, K1's two V-cycle forms and the
-    halo path's K1 and K5 (row chunks, null halo rows) against their plain
-    versions at the shapes the paths run; then each chain with programmatic
-    dependent launch off and on (off, on, on, off), same bits. Returns the
-    records, the floor and the chains."""
+    """Phase 3, second part: the launch floor, K1's two V-cycle forms, and
+    K1 and K5 with null halo rows, against their plain versions at the
+    shapes the paths run. At 2048² each row cycles through HBM_SETS input
+    sets. Returns the records and the floor."""
     import torch
     import torch.nn.functional as F
 
@@ -543,94 +574,73 @@ def phase_redesigned(gt_torch, rng, dev):
 
     print("phase 3: the launch floor and the redesigned K1 and K5", flush=True)
     floor = launch_floor(dev)
-    print(f"  empty kernel: chained slope {floor['slope_ms'] * 1e3:.3f} us, with PDL "
-          f"{floor['slope_pdl_ms'] * 1e3:.3f} us; graph replay of 10 "
-          f"{floor['graph_ms'] * 1e3:.3f} us a launch; host {floor['host_us']:.2f} us "
-          f"to enqueue", flush=True)
+    print(f"  empty kernel: chained slope {floor['slope_ms'] * 1e3:.3f} us; graph "
+          f"replay of 10 {floor['graph_ms'] * 1e3:.3f} us a launch; host "
+          f"{floor['host_us']:.2f} us to enqueue", flush=True)
     coefs = stencil.POISSON_COEFS
     records = {"K1rr": [], "K1cr": [], "K1": [], "K5": []}
+
+    def grids(n, dt, shapes):
+        """Input sets of the given shapes: HBM_SETS at 2048², else one."""
+        return [[torch.as_tensor(rng.standard_normal(sh)).to(dev, dt) for sh in shapes]
+                for _ in range(HBM_SETS if n >= 2048 else 1)]
+
     for n, dtname in FORM_SHAPES:
         dt = getattr(torch, dtname)
         tag = "f32" if dt == torch.float32 else "f64"
         item = torch.empty((), dtype=dt).element_size()
-        r, e = (torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt) for _ in range(2))
-        ec = torch.as_tensor(rng.standard_normal((n // 2, n // 2))).to(dev, dt)
+        sets = grids(n, dt, ((n, n), (n, n), (n // 2, n // 2)))
         reps = 200 if n <= 304 else 50
         records["K1rr"].append(form_record(
             f"K1 residual-restrict {n}x{n} -> {n // 2} {tag}",
-            lambda: stencil.residual_restrict_cuda(r, e, coefs),
-            lambda: stencil.residual_restrict_plain(r, e, coefs),
+            cycling([lambda r=r, e=e: stencil.residual_restrict_cuda(r, e, coefs)
+                     for r, e, _ in sets]),
+            cycling([lambda r=r, e=e: stencil.residual_restrict_plain(r, e, coefs)
+                     for r, e, _ in sets]),
             # r and e read, rc written; 10 flops a fine point and 3 a quad.
             ((2 * n * n + n * n // 4) * item, 10.75 * n * n, dt), reps, floor,
-            library=restrict_conv(r, e, coefs)))
+            library=cycling([restrict_conv(r, e, coefs) for r, e, _ in sets]),
+            sets=len(sets)))
         records["K1cr"].append(form_record(
             f"K1 correct-residual {n}x{n} <- {n // 2} {tag}",
-            lambda: stencil.correct_residual_cuda(r, e, ec, coefs),
-            lambda: stencil.correct_residual_plain(r, e, ec, coefs),
+            cycling([lambda r=r, e=e, ec=ec: stencil.correct_residual_cuda(r, e, ec, coefs)
+                     for r, e, ec in sets]),
+            cycling([lambda r=r, e=e, ec=ec: stencil.correct_residual_plain(r, e, ec, coefs)
+                     for r, e, ec in sets]),
             # r, e and ec read, e' and r3 written; 11 flops a fine point.
-            ((4 * n * n + n * n // 4) * item, 11 * n * n, dt), reps, floor))
+            ((4 * n * n + n * n // 4) * item, 11 * n * n, dt), reps, floor,
+            sets=len(sets)))
     cross = [[0.0, -1.0, 0.0], [-1.0, 4.0, -1.0], [0.0, -1.0, 0.0]]
     d, alpha = fused.chebyshev_ref_scalars(*REF_EIG)
     for n, dt in ((STRONG_N, torch.float64), (300, torch.float32), (150, torch.float32),
                   (2048, torch.float32)):
         tag = "f32" if dt == torch.float32 else "f64"
-        x = torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
+        xs = [x for (x,) in grids(n, dt, ((n, n),))]
         w = torch.tensor(cross, dtype=dt, device=dev).reshape(1, 1, 3, 3)
-        # One point a thread first (the earlier design), then the chunks.
-        for vec in (False, True):
-            design = "16-byte row chunks" if vec else "one point a thread"
+        # At 2048² the stencil takes 16-byte row chunks; inputs one element
+        # off alignment take it back to one point a thread, the design the
+        # smaller grids use.
+        designs = ({"16-byte row chunks": xs, "one point a thread": [offset_copy(x) for x in xs]}
+                   if n >= 2048 else {"one point a thread": xs})
+        for design, inputs in designs.items():
             records["K1"].append(form_record(
                 f"K1 {n}x{n} {tag} null halo rows, {design}",
-                lambda: stencil.stencil5_cuda(x, None, None, coefs, _vec=vec),
-                lambda: stencil.stencil_5pt_general(x, *coefs), stencil_work(n, dt),
-                200 if n <= 304 else 50, floor,
-                library=lambda: F.conv2d(x[None, None], w, padding=1)[0, 0]))
+                cycling([lambda x=x: stencil.stencil5_cuda(x, None, None, coefs)
+                         for x in inputs]),
+                cycling([lambda x=x: stencil.stencil_5pt_general(x, *coefs) for x in inputs]),
+                stencil_work(n, dt), 200 if n <= 304 else 50, floor,
+                library=cycling([lambda x=x: F.conv2d(x[None, None], w, padding=1)[0, 0]
+                                 for x in inputs]),
+                sets=len(inputs)))
         if n == STRONG_N:
-            for vec in (False, True):
-                design = "16-byte row chunks" if vec else "one point a thread"
-                records["K5"].append(form_record(
-                    f"K5 {n}x{n} {tag} null halo rows, {design}",
-                    lambda: fused.cheb2_cuda(x, None, None, d, alpha, coefs, _vec=vec),
-                    lambda: fused.chebyshev_poisson_fused_plain(x, None, None, d, alpha,
-                                                                coefs),
-                    (2 * n * n * x.element_size(), 14 * n * n, dt), 200, floor,
-                    library=cheb2_conv(x, None, None, d, alpha, coefs)))
-
-    # Programmatic dependent launch on the chains the paths run: the V-cycle
-    # (K2 → residual-restrict → … → correct-residual → K2) and the halo
-    # path's M then A (K5 → K1), off, on, on, off in turn.
-    chains = {}
-    for n in (300, 2048):
-        package = gt_torch.poisson_multigrid_preconditioner(n)
-        r = torch.as_tensor(rng.standard_normal((n, n))).to(dev, torch.float32)
-        cycles = {pdl: local_v_cycle(gt_torch, n, True, pdl) for pdl in (False, True)}
-        require(torch.equal(cycles[False](r), package(r)),
-                f"V-cycle {n}: the locally built cycle differs from the package's")
-        chains[f"V-cycle {n}x{n} f32 (K2 -> form -> K2)"] = (
-            lambda pdl, m=cycles, r=r: m[pdl](r), 20 if n <= 300 else 5)
-    x = torch.as_tensor(rng.standard_normal((STRONG_N, STRONG_N))).to(dev, torch.float64)
-    chains[f"halo M then A {STRONG_N}x{STRONG_N} f64 (K5 -> K1)"] = (
-        lambda pdl: stencil.stencil5_cuda(
-            fused.cheb2_cuda(x, None, None, d, alpha, _pdl=pdl), _pdl=pdl), 200)
-    out = {}
-    for name, (chain, reps) in chains.items():
-        res, bits = {False: [], True: []}, {}
-        for pdl in (False, True, True, False):
-            bits.setdefault(pdl, chain(pdl))
-            res[pdl].append((device_ms(lambda: chain(pdl), reps),
-                             host_us(lambda: chain(pdl), 20)))
-        torch.cuda.synchronize()
-        require(torch.equal(bits[False], bits[True]),
-                f"{name}: programmatic dependent launch changed the bits")
-        out[name] = {f"{k}_{m}": sum(v[i] for v in res[pdl]) / 2
-                     for pdl, k in ((False, "off"), (True, "on"))
-                     for i, m in ((0, "ms"), (1, "host_us"))}
-        o = out[name]
-        print(f"  chain {name:44s} PDL off {o['off_ms'] * 1e3:.3f} us, on "
-              f"{o['on_ms'] * 1e3:.3f} us (device, graph replay; "
-              f"{o['on_ms'] / o['off_ms']:.3f}x); host {o['off_host_us']:.1f} / "
-              f"{o['on_host_us']:.1f} us; same bits", flush=True)
-    return records, floor, out
+            x = xs[0]
+            records["K5"].append(form_record(
+                f"K5 {n}x{n} {tag} null halo rows",
+                lambda: fused.cheb2_cuda(x, None, None, d, alpha, coefs),
+                lambda: fused.chebyshev_poisson_fused_plain(x, None, None, d, alpha, coefs),
+                (2 * n * n * x.element_size(), 14 * n * n, dt), 200, floor,
+                library=cheb2_conv(x, None, None, d, alpha, coefs)))
+    return records, floor
 
 
 # ---------------------------------------------------------------------------
@@ -867,11 +877,10 @@ def phase_sparse_kernels(gt_torch, rng, a_small, dev):
     return records, hyb, bsr_small
 
 
-def local_v_cycle(gt_torch, n, fused: bool, pdl: bool = False):
-    """The V-cycle built here from public pieces: K2 through
-    poly_stencil_smoother_pallas with the plan's (θ, steps), and either K1's
-    fused forms (launched with programmatic dependent launch or without) or
-    the composition the V-cycle ran before them (K1 through
+def local_v_cycle(gt_torch, n):
+    """The unfused V-cycle, built here from public pieces: K2 through
+    poly_stencil_smoother_pallas with the plan's (θ, steps), and the
+    composition the V-cycle ran before K1's fused forms (K1 through
     stencil_5pt_routed, restrict_sum, prolong_repeat, torch's subtractions
     and adds). The same arithmetic as the package's cycle, so the same bits."""
     from gmres_tpu_torch.ops import stencil
@@ -884,14 +893,9 @@ def local_v_cycle(gt_torch, n, fused: bool, pdl: bool = False):
         if level == coarsest:
             return smooth(r, *plan.coarse)
         e = smooth(r, *plan.pre_smooth)
-        if fused:
-            ec = v_cycle(stencil.residual_restrict_cuda(r, e, _pdl=pdl), level + 1)
-            e, r3 = stencil.correct_residual_cuda(r, e, ec, _pdl=pdl)
-        else:
-            ec = v_cycle(gt_torch.restrict_sum(r - stencil.stencil_5pt_routed(e)),
-                         level + 1)
-            e = e + gt_torch.prolong_repeat(ec)
-            r3 = r - stencil.stencil_5pt_routed(e)
+        ec = v_cycle(gt_torch.restrict_sum(r - stencil.stencil_5pt_routed(e)), level + 1)
+        e = e + gt_torch.prolong_repeat(ec)
+        r3 = r - stencil.stencil_5pt_routed(e)
         return e + smooth(r3, *plan.post_smooth)
 
     m_inv = lambda r: v_cycle(r, 0)  # noqa: E731
@@ -947,7 +951,7 @@ def phase_mg(gt_torch, dev):
     launches, out = {}, {}
     for n in (300, 2048):
         variants = {"fused": mg_solve(gt_torch, n, dev),
-                    "unfused": mg_solve(gt_torch, n, dev, local_v_cycle(gt_torch, n, False))}
+                    "unfused": mg_solve(gt_torch, n, dev, local_v_cycle(gt_torch, n))}
         b_np, m_inv, _ = variants["fused"]
         results, times = {}, {"fused": [], "unfused": []}
         for name, (_, _, solve) in variants.items():
@@ -983,6 +987,8 @@ def phase_mg(gt_torch, dev):
                                     float(np.median(times[name])))
                 for name in ("fused", "unfused")}
         r = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
+        require(torch.equal(variants["fused"][1](r), variants["unfused"][1](r)),
+                f"mg {n}: the fused and unfused V-cycles differ in their bits")
         per_cycle = {name: device_events(lambda m=variants[name][1]: m(r))
                      for name in ("fused", "unfused")}
         saved = (per_cycle["unfused"] - per_cycle["fused"]) / (m_inv.levels - 1)
@@ -1439,14 +1445,15 @@ def halo_applications(gt_torch, mesh, x) -> dict:
     """Phase 12's applications on one rank: the halo operator (K1) and cbpr2
     (K5) as the package builds them, with no halo row where there is no
     neighbour, and as they ran before, on halo_exchange's two zero rows
-    (built here). Kernels per application (torch.profiler over
-    HALO_APPLICATIONS), host µs to enqueue one, eager device ms per
-    application (CUDA events around 200), the same bits."""
+    (built here). Per application: K1's and K5's launches (the wrappers'
+    counts), kernels in all (torch.profiler, the slope between
+    HALO_APPLICATIONS and twice as many), host µs to enqueue one, eager
+    device ms (CUDA events around 200); and the same bits."""
     import torch
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from gmres_tpu_torch.ops import fused
+    from gmres_tpu_torch.ops import fused, stencil
     from gmres_tpu_torch.ops.stencil import stencil_5pt_pallas_halo
 
     group = mesh.get_group("grid")
@@ -1467,23 +1474,35 @@ def halo_applications(gt_torch, mesh, x) -> dict:
     out = {}
     for name, f in forms.items():
         y = f(x).to_local()
+        before = (stencil.stencil5_cuda.launches, fused.cheb2_cuda.launches)
+        for _ in range(HALO_APPLICATIONS):
+            f(x)
+        launched = {"K1": (stencil.stencil5_cuda.launches - before[0]) / HALO_APPLICATIONS,
+                    "K5": (fused.cheb2_cuda.launches - before[1]) / HALO_APPLICATIONS}
         # The slope between profiles of N and 2N applications: a profile
         # drops a fixed few of its first device events (3 of 20 on the H100).
         counts = [device_events(lambda f=f, k=k: [f(x) for _ in range(k)])
                   for k in (HALO_APPLICATIONS, 2 * HALO_APPLICATIONS)]
         out[name] = {"kernels": (counts[1] - counts[0]) / HALO_APPLICATIONS,
-                     "profiled_events": counts,
+                     "profiled_events": counts, "launches": launched,
                      "host_us": host_us(lambda f=f: f(x)),
                      "call_ms": call_ms(lambda f=f: f(x), 200), "y": y}
-        print(f"phase 12: one-rank halo application {name:15s}: "
-              f"{out[name]['kernels']:.2f} kernels (profiled {counts[0]} over "
-              f"{HALO_APPLICATIONS}, {counts[1]} over {2 * HALO_APPLICATIONS}), host {out[name]['host_us']:.2f} us "
-              f"to enqueue, {out[name]['call_ms']:.4f} ms an eager application", flush=True)
+        print(f"phase 12: one-rank halo application {name:15s}: launches {launched}, "
+              f"{out[name]['kernels']:.2f} kernels in all (profiled {counts[0]} over "
+              f"{HALO_APPLICATIONS}, {counts[1]} over {2 * HALO_APPLICATIONS}), host "
+              f"{out[name]['host_us']:.2f} us to enqueue, {out[name]['call_ms']:.4f} ms an "
+              "eager application", flush=True)
     torch.cuda.synchronize()
-    for op in ("A", "M"):
+    for op, kernel in (("A", "K1"), ("M", "K5")):
         require(torch.equal(out[op]["y"], out[f"{op} on zero rows"]["y"]),
                 f"phase 12: {op} without halo rows differs from {op} on zero rows")
-        require(out[op]["kernels"] == 1.0,
+        other = "K5" if kernel == "K1" else "K1"
+        require(out[op]["launches"] == {kernel: 1.0, other: 0.0},
+                f"phase 12: {op} launches {out[op]['launches']} an application, not "
+                f"{kernel} once")
+        # One kernel in all, within half a kernel of the profiler's count (the
+        # zero-row forms run three).
+        require(abs(out[op]["kernels"] - 1.0) <= 0.5,
                 f"phase 12: {op} runs {out[op]['kernels']} kernels an application, not 1")
         del out[op]["y"], out[f"{op} on zero rows"]["y"]
     return out
@@ -1873,7 +1892,7 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     rng = np.random.default_rng(SEED)
     records = phase_kernels(gt_torch, rng, dev)
-    redesigned, floor, chains = phase_redesigned(gt_torch, rng, dev)
+    redesigned, floor = phase_redesigned(gt_torch, rng, dev)
     for name, recs in redesigned.items():
         records.setdefault(name, []).extend(recs)
 
@@ -1960,16 +1979,15 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "timed_at": timed_at, **extra,
+            "library_ms": rec["library_ms"], "timed_at": timed_at,
+            "l2_resident": rec.get("l2_resident"), **extra,
         }
 
     mg_count = {k: launches[300][k] + launches[2048][k] for k in launches[300]}
     mg_k1, mg_k2 = mg_count["K1"], mg_count["K2"]
     mg_k2_paths = {p: mg_count[f"K2 {p}"] for p in ("cluster", "tiled", "sweep")}
     redesign = {"launch_floor_ms": floor["slope_ms"],
-                "launch_floor_pdl_ms": floor["slope_pdl_ms"],
-                "launch_floor_host_us": floor["host_us"], "pdl_chains": chains,
-                "pdl": "on for K1's plain stencil and K5, off for its V-cycle forms"}
+                "launch_floor_host_us": floor["host_us"]}
 
     def timing(name, timed_at):
         rec = [r for r in records[name] if r["case"] == timed_at][0]
@@ -1985,13 +2003,14 @@ def main() -> int:
     print(json.dumps({"kernels": [
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
-               mg_k1 + strong["K1"] + roof["K1"], "K1 2048x2048 f32",
+               mg_k1 + strong["K1"] + roof["K1"],
+               "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
                                  roofline_path: roof["K1"]},
-               path_shape=f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, 16-byte row chunks",
+               path_shape=f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, one point a thread",
                **timing("K1", f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, "
-                              "16-byte row chunks"),
+                              "one point a thread"),
                halo_applications=strong["applications"], **redesign),
         report("K1rr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
@@ -2027,9 +2046,8 @@ def main() -> int:
                f"K4 {BSR_CASES[-1][0]} f32"),
         report("K5", "gmres_tpu_torch/csrc/cheb2_fused.cu",
                "gmres_tpu/ops/fused.py:129", [], strong["K5"],
-               f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows, 16-byte row chunks",
-               **timing("K5", f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows, "
-                              "16-byte row chunks")),
+               f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows",
+               **timing("K5", f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows")),
         report("K7a", "gmres_tpu_torch/csrc/cg_fused.cu",
                "gmres_tpu/ops/fused.py:50", [], k7_launches[0],
                f"K7a {STRONG_N}x{STRONG_N} f64",

@@ -21,13 +21,13 @@
 // flops: ~0.9 flop/byte in float64, ~1.75 in float32, far under the card's
 // balance point. At 304² float64, the strong-scaling shard on one card, the
 // block is 1.5 MB and sits in L2: the bytes take 0.44 µs and the launch more,
-// so the design keeps the launch short. Each thread takes V = 16 / sizeof(T)
-// consecutive points of a row (two float64, four float32) with 16-byte loads
-// and stores where the row length and the pointers allow, one point a thread
-// otherwise; a flat grid of 256-thread CTAs (181 at 304² float64). With
-// `pdl` (the wrapper's default) the launch uses programmatic dependent launch
-// as K1's does (csrc/stencil5.cu): it waits at griddepcontrol.wait before its
-// first global access, so it may be scheduled while its predecessor drains.
+// so the design keeps the launch short: one thread a point in a flat grid
+// of 256-thread CTAs (361 at 304² float64), warps along rows so every load
+// and store is coalesced, no shared memory. Two float64 (four float32)
+// points a thread with 16-byte accesses were measured at that shape and
+// were no faster; programmatic dependent launch was measured on the halo
+// path's K5 → K1 chain in CUDA-graph replay, which no path runs (PERF.md).
+// Neither is used.
 //
 // Rounding: the stencil sum in the order of the plain PyTorch version
 // (c0·r + cw·W + ce·E + cs·S + cn·N, left to right), then the epilogue in the
@@ -48,76 +48,33 @@ struct Cheb2 {
   T inv_d, alpha, c0, cw, ce, cs, cn;
 };
 
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Vec {
-  T v[V];
-};
-
-template <typename T, int V>
-__device__ __forceinline__ Vec<T, V> load(const T* __restrict__ p) {
-  return *reinterpret_cast<const Vec<T, V>*>(p);
-}
-
-template <typename T, int V>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cheb2_kernel(const T* __restrict__ r, const T* __restrict__ top,
              const T* __restrict__ bot, T* __restrict__ z, int rows, int cols,
              Cheb2<T> p) {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int nv = cols / V;
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)rows * nv) return;
-  const int i = (int)(t / nv);
-  const int j = (int)(t - (long long)i * nv) * V;
-  const long long idx = (long long)i * cols + j;
-  const Vec<T, V> zero{};
-  const Vec<T, V> rc = load<T, V>(r + idx);
-  const Vec<T, V> s = i > 0 ? load<T, V>(r + idx - cols)
-                            : (top != nullptr ? load<T, V>(top + j) : zero);
-  const Vec<T, V> n = i + 1 < rows ? load<T, V>(r + idx + cols)
-                                   : (bot != nullptr ? load<T, V>(bot + j) : zero);
-  const T w = j > 0 ? r[idx - 1] : T(0);
-  const T e = j + V < cols ? r[idx + V] : T(0);
-  Vec<T, V> out;
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const T x = rc.v[k];
-    const T ar = p.c0 * x + p.cw * (k == 0 ? w : rc.v[k - 1]) +
-                 p.ce * (k == V - 1 ? e : rc.v[k + 1]) + p.cs * s.v[k] +
-                 p.cn * n.v[k];
-    out.v[k] = x * p.inv_d + p.alpha * (x - ar * p.inv_d);
-  }
-  *reinterpret_cast<Vec<T, V>*>(z + idx) = out;
-}
-
-bool aligned(const void* q) {
-  return q == nullptr || reinterpret_cast<unsigned long long>(q) % 16 == 0;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)rows * cols) return;
+  const int i = (int)(idx / cols);
+  const int j = (int)(idx - (long long)i * cols);
+  const T zero = T(0);
+  const T x = r[idx];
+  const T w = j > 0 ? r[idx - 1] : zero;
+  const T e = j + 1 < cols ? r[idx + 1] : zero;
+  const T s = i > 0 ? r[idx - cols] : (top != nullptr ? top[j] : zero);
+  const T n = i + 1 < rows ? r[idx + cols] : (bot != nullptr ? bot[j] : zero);
+  const T ar = p.c0 * x + p.cw * w + p.ce * e + p.cs * s + p.cn * n;
+  z[idx] = x * p.inv_d + p.alpha * (x - ar * p.inv_d);
 }
 
 template <typename T>
 int launch(const T* r, const T* top, const T* bot, T* z, int rows, int cols,
-           Cheb2<T> p, int vec, int pdl, int device, void* stream) {
+           Cheb2<T> p, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  constexpr int V = 16 / sizeof(T);
-  const bool wide = vec && cols % V == 0 && aligned(r) && aligned(top) &&
-                    aligned(bot) && aligned(z);
-  const long long work = (long long)rows * (wide ? cols / V : cols);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((work + kThreads - 1) / kThreads));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  if (wide)
-    cudaLaunchKernelEx(&cfg, cheb2_kernel<T, V>, r, top, bot, z, rows, cols, p);
-  else
-    cudaLaunchKernelEx(&cfg, cheb2_kernel<T, 1>, r, top, bot, z, rows, cols, p);
+  const long long work = (long long)rows * cols;
+  cheb2_kernel<T><<<(unsigned)((work + kThreads - 1) / kThreads), kThreads, 0,
+                    (cudaStream_t)stream>>>(r, top, bot, z, rows, cols, p);
   return (int)cudaGetLastError();
 }
 
@@ -127,20 +84,18 @@ extern "C" {
 
 int gt_cheb2_f32(const float* r, const float* top, const float* bot, float* z,
                  int rows, int cols, float inv_d, float alpha, float c0,
-                 float cw, float ce, float cs, float cn, int vec, int pdl,
-                 int device, void* stream) {
+                 float cw, float ce, float cs, float cn, int device,
+                 void* stream) {
   return launch<float>(r, top, bot, z, rows, cols,
-                       {inv_d, alpha, c0, cw, ce, cs, cn}, vec, pdl, device,
-                       stream);
+                       {inv_d, alpha, c0, cw, ce, cs, cn}, device, stream);
 }
 
 int gt_cheb2_f64(const double* r, const double* top, const double* bot,
                  double* z, int rows, int cols, double inv_d, double alpha,
-                 double c0, double cw, double ce, double cs, double cn, int vec,
-                 int pdl, int device, void* stream) {
+                 double c0, double cw, double ce, double cs, double cn,
+                 int device, void* stream) {
   return launch<double>(r, top, bot, z, rows, cols,
-                        {inv_d, alpha, c0, cw, ce, cs, cn}, vec, pdl, device,
-                        stream);
+                        {inv_d, alpha, c0, cw, ce, cs, cn}, device, stream);
 }
 
 }  // extern "C"

@@ -43,24 +43,22 @@
 // neighbours are scalar loads that hit L1. Warps run along coarse rows: 32
 // threads cover 64 consecutive fine columns, so every load is coalesced. A
 // flat grid of 256-thread CTAs gives 4096 CTAs at 2048² (31 a SM) and 22 at
-// 150². The plain stencil takes V = 16 / sizeof(T) consecutive points a thread
-// with 16-byte loads and stores where the row length and the pointers allow
-// (one point a thread otherwise): at 2048² float32 that is what brings it to
-// its byte bound; at 304² float64 both designs sit at about twice the
-// launch floor (PERF.md).
+// 150².
 //
-// Programmatic dependent launch. With `pdl`, a kernel is launched with
-// cudaLaunchAttributeProgrammaticStreamSerialization: it may be scheduled
-// while its predecessor in the stream (K2's smoother on the V-cycle, K5 on
-// the halo path) drains, and waits at griddepcontrol.wait, before any global
-// memory access, until that grid has completed and its writes are visible.
-// It then signals griddepcontrol.launch_dependents, so that a successor
-// launched the same way may in turn be scheduled early. Without the
-// attribute both instructions do nothing. The wrappers launch the plain
-// stencil with it, and the two V-cycle forms without it: chip_smoke.py
-// measures both settings in one run, and the halo path's K5 → K1 chain ran
-// faster with it in CUDA-graph replay while the V-cycle's K2 → form → K2
-// chain did not (PERF.md).
+// The plain stencil takes V = 16 / sizeof(T) consecutive points a thread
+// with 16-byte loads and stores on grids of kChunkPoints points or more,
+// where the row length and the pointers allow, and one point a thread
+// otherwise. The chunks are chosen by size because that is where they were
+// measured faster: at 2048² float32, reading HBM, they take the kernel from
+// 1.9× its byte bound to 1.24×, while at the halo path's 304² float64 one
+// point a thread was as fast or faster (both near the launch floor;
+// PERF.md).
+//
+// Programmatic dependent launch (letting a kernel start while its
+// predecessor drains) was measured on the V-cycle's K2 → form → K2 chain and
+// the halo path's K5 → K1 chain in CUDA-graph replay and is not used: no
+// path runs these kernels back to back in a graph, and the V-cycle's chain
+// was no faster with it (PERF.md).
 //
 // Rounding: the stencil sum is evaluated in the order of the plain PyTorch
 // version (c0·x + cw·W + ce·E + cs·S + cn·N, left to right), a residual is one
@@ -78,6 +76,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The smallest grid (in points) on which the plain stencil takes row chunks.
+constexpr long long kChunkPoints = 1 << 20;
 
 template <typename T>
 struct Coefs5 {
@@ -119,18 +119,12 @@ __device__ __forceinline__ void store(T* __restrict__ p, const Vec<T, V>& x) {
   }
 }
 
-__device__ __forceinline__ void pdl_wait_then_release() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
 // The plain stencil, V points a thread (V = 1: one point, any alignment).
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 stencil5_kernel(const T* __restrict__ x, const T* __restrict__ top,
                 const T* __restrict__ bot, T* __restrict__ y, int rows,
                 int cols, Coefs5<T> c) {
-  pdl_wait_then_release();
   const int nv = cols / V;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)rows * nv) return;
@@ -176,7 +170,6 @@ template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
 residual_restrict_kernel(const T* __restrict__ r, const T* __restrict__ e,
                          T* __restrict__ rc, int mr, int mc, Coefs5<T> c) {
-  pdl_wait_then_release();
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)mr * mc) return;
   const Quad q(t, mr, mc);
@@ -204,7 +197,6 @@ __global__ void __launch_bounds__(kThreads)
 correct_residual_kernel(const T* __restrict__ r, const T* __restrict__ e,
                         const T* __restrict__ ec, T* __restrict__ e_out,
                         T* __restrict__ r_out, int mr, int mc, Coefs5<T> c) {
-  pdl_wait_then_release();
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)mr * mc) return;
   const Quad q(t, mr, mc);
@@ -253,27 +245,20 @@ correct_residual_kernel(const T* __restrict__ r, const T* __restrict__ e,
   store<T, 2, kAligned>(r_out + q.b, ob);
 }
 
-// The launch floor: a kernel that does nothing, one CTA of one warp (the
-// parameter keeps cudaLaunchKernelEx's argument array non-empty).
-__global__ void empty_kernel(int) { pdl_wait_then_release(); }
+// The launch floor: a kernel that does nothing, one CTA of one warp.
+__global__ void empty_kernel() {}
 
+// One thread per unit of `work`, in 256-thread CTAs (one CTA of whole warps
+// for less work).
 template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), long long work, int pdl, int device,
-           void* stream, Args... args) {
+int launch(void (*kernel)(Params...), long long work, int device, void* stream,
+           Args... args) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((work + kThreads - 1) / kThreads));
-  cfg.blockDim = dim3(work > 0 && work < kThreads ? 32 * (unsigned)((work + 31) / 32)
-                                                  : kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  cudaLaunchKernelEx(&cfg, kernel, args...);
+  const dim3 grid((unsigned)((work + kThreads - 1) / kThreads));
+  const dim3 block(work > 0 && work < kThreads ? 32 * (unsigned)((work + 31) / 32)
+                                               : kThreads);
+  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -283,38 +268,37 @@ bool aligned(const void* p, int bytes) {
 
 template <typename T>
 int stencil5(const T* x, const T* top, const T* bot, T* y, int rows, int cols,
-             Coefs5<T> c, int vec, int pdl, int device, void* stream) {
+             Coefs5<T> c, int device, void* stream) {
   constexpr int V = 16 / sizeof(T);
-  if (vec && cols % V == 0 && aligned(x, 16) && aligned(top, 16) &&
-      aligned(bot, 16) && aligned(y, 16))
-    return launch(stencil5_kernel<T, V>, (long long)rows * (cols / V), pdl,
-                  device, stream, x, top, bot, y, rows, cols, c);
-  return launch(stencil5_kernel<T, 1>, (long long)rows * cols, pdl, device,
-                stream, x, top, bot, y, rows, cols, c);
+  if ((long long)rows * cols >= kChunkPoints && cols % V == 0 && aligned(x, 16) &&
+      aligned(top, 16) && aligned(bot, 16) && aligned(y, 16))
+    return launch(stencil5_kernel<T, V>, (long long)rows * (cols / V), device,
+                  stream, x, top, bot, y, rows, cols, c);
+  return launch(stencil5_kernel<T, 1>, (long long)rows * cols, device, stream,
+                x, top, bot, y, rows, cols, c);
 }
 
 template <typename T>
 int residual_restrict(const T* r, const T* e, T* rc, int mr, int mc,
-                      Coefs5<T> c, int pdl, int device, void* stream) {
+                      Coefs5<T> c, int device, void* stream) {
   const int pair = 2 * sizeof(T);
   if (aligned(r, pair) && aligned(e, pair))
-    return launch(residual_restrict_kernel<T, true>, (long long)mr * mc, pdl,
-                  device, stream, r, e, rc, mr, mc, c);
-  return launch(residual_restrict_kernel<T, false>, (long long)mr * mc, pdl,
-                device, stream, r, e, rc, mr, mc, c);
+    return launch(residual_restrict_kernel<T, true>, (long long)mr * mc, device,
+                  stream, r, e, rc, mr, mc, c);
+  return launch(residual_restrict_kernel<T, false>, (long long)mr * mc, device,
+                stream, r, e, rc, mr, mc, c);
 }
 
 template <typename T>
 int correct_residual(const T* r, const T* e, const T* ec, T* e_out, T* r_out,
-                     int mr, int mc, Coefs5<T> c, int pdl, int device,
-                     void* stream) {
+                     int mr, int mc, Coefs5<T> c, int device, void* stream) {
   const int pair = 2 * sizeof(T);
   if (aligned(r, pair) && aligned(e, pair) && aligned(e_out, pair) &&
       aligned(r_out, pair))
-    return launch(correct_residual_kernel<T, true>, (long long)mr * mc, pdl,
-                  device, stream, r, e, ec, e_out, r_out, mr, mc, c);
-  return launch(correct_residual_kernel<T, false>, (long long)mr * mc, pdl,
-                device, stream, r, e, ec, e_out, r_out, mr, mc, c);
+    return launch(correct_residual_kernel<T, true>, (long long)mr * mc, device,
+                  stream, r, e, ec, e_out, r_out, mr, mc, c);
+  return launch(correct_residual_kernel<T, false>, (long long)mr * mc, device,
+                stream, r, e, ec, e_out, r_out, mr, mc, c);
 }
 
 }  // namespace
@@ -323,52 +307,50 @@ extern "C" {
 
 int gt_stencil5_f32(const float* x, const float* top, const float* bot, float* y,
                     int rows, int cols, float c0, float cw, float ce, float cs,
-                    float cn, int vec, int pdl, int device, void* stream) {
-  return stencil5<float>(x, top, bot, y, rows, cols, {c0, cw, ce, cs, cn}, vec,
-                         pdl, device, stream);
+                    float cn, int device, void* stream) {
+  return stencil5<float>(x, top, bot, y, rows, cols, {c0, cw, ce, cs, cn}, device,
+                         stream);
 }
 
 int gt_stencil5_f64(const double* x, const double* top, const double* bot,
                     double* y, int rows, int cols, double c0, double cw,
-                    double ce, double cs, double cn, int vec, int pdl, int device,
-                    void* stream) {
-  return stencil5<double>(x, top, bot, y, rows, cols, {c0, cw, ce, cs, cn}, vec,
-                          pdl, device, stream);
+                    double ce, double cs, double cn, int device, void* stream) {
+  return stencil5<double>(x, top, bot, y, rows, cols, {c0, cw, ce, cs, cn},
+                          device, stream);
 }
 
 int gt_residual_restrict_f32(const float* r, const float* e, float* rc, int mr,
                              int mc, float c0, float cw, float ce, float cs,
-                             float cn, int pdl, int device, void* stream) {
-  return residual_restrict<float>(r, e, rc, mr, mc, {c0, cw, ce, cs, cn}, pdl,
-                                  device, stream);
+                             float cn, int device, void* stream) {
+  return residual_restrict<float>(r, e, rc, mr, mc, {c0, cw, ce, cs, cn}, device,
+                                  stream);
 }
 
 int gt_residual_restrict_f64(const double* r, const double* e, double* rc,
                              int mr, int mc, double c0, double cw, double ce,
-                             double cs, double cn, int pdl, int device,
-                             void* stream) {
-  return residual_restrict<double>(r, e, rc, mr, mc, {c0, cw, ce, cs, cn}, pdl,
-                                   device, stream);
+                             double cs, double cn, int device, void* stream) {
+  return residual_restrict<double>(r, e, rc, mr, mc, {c0, cw, ce, cs, cn}, device,
+                                   stream);
 }
 
 int gt_correct_residual_f32(const float* r, const float* e, const float* ec,
                             float* e_out, float* r_out, int mr, int mc, float c0,
-                            float cw, float ce, float cs, float cn, int pdl,
-                            int device, void* stream) {
+                            float cw, float ce, float cs, float cn, int device,
+                            void* stream) {
   return correct_residual<float>(r, e, ec, e_out, r_out, mr, mc,
-                                 {c0, cw, ce, cs, cn}, pdl, device, stream);
+                                 {c0, cw, ce, cs, cn}, device, stream);
 }
 
 int gt_correct_residual_f64(const double* r, const double* e, const double* ec,
                             double* e_out, double* r_out, int mr, int mc,
                             double c0, double cw, double ce, double cs,
-                            double cn, int pdl, int device, void* stream) {
+                            double cn, int device, void* stream) {
   return correct_residual<double>(r, e, ec, e_out, r_out, mr, mc,
-                                  {c0, cw, ce, cs, cn}, pdl, device, stream);
+                                  {c0, cw, ce, cs, cn}, device, stream);
 }
 
-int gt_empty(int pdl, int device, void* stream) {
-  return launch(empty_kernel, 32, pdl, device, stream, 0);
+int gt_empty(int device, void* stream) {
+  return launch(empty_kernel, 32, device, stream);
 }
 
 const char* gt_cuda_error_string(int code) {

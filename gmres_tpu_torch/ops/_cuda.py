@@ -108,20 +108,20 @@ def load() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
             fn = getattr(lib, f"gt_stencil5_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 5 + [i32] * 3 + [vp]
+            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 5 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_residual_restrict_{suffix}")
-            fn.argtypes = [vp, vp, vp, i32, i32] + [real] * 5 + [i32, i32, vp]
+            fn.argtypes = [vp, vp, vp, i32, i32] + [real] * 5 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_correct_residual_{suffix}")
-            fn.argtypes = [vp] * 5 + [i32, i32] + [real] * 5 + [i32, i32, vp]
+            fn.argtypes = [vp] * 5 + [i32, i32] + [real] * 5 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_chebk_{suffix}")
             fn.argtypes = [vp, vp, vp, vp, i32, i32, real, vp, i32, vp,
                            i32, i32, i32, i32, i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_cheb2_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 7 + [i32] * 3 + [vp]
+            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 7 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_rdma_interior_{suffix}")
             fn.argtypes = [vp, vp, i32, i32] + [real] * 7 + [i32, vp]
@@ -145,7 +145,7 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"gt_axpy_dot_{suffix}")
             fn.argtypes = [vp] * 7 + [i32, i32, i32, vp]
             fn.restype = i32
-        lib.gt_empty.argtypes = [i32, i32, vp]
+        lib.gt_empty.argtypes = [i32, vp]
         lib.gt_empty.restype = i32
         lib.gt_cuda_error_string.argtypes = [i32]
         lib.gt_cuda_error_string.restype = ctypes.c_char_p

@@ -393,29 +393,23 @@ def chebyshev_poisson_fused_plain(r, top, bottom, d, alpha,
     return cheb2_plain(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype))
 
 
-def _cheb2_launch(r, top, bottom, scal, vec: bool = True, pdl: bool = True) -> torch.Tensor:
+def _cheb2_launch(r, top, bottom, scal) -> torch.Tensor:
     _cuda.check_grid(r, "cheb2_cuda")
     top_p = _halo_row(top, r, "cheb2_cuda")
     bot_p = _halo_row(bottom, r, "cheb2_cuda")
     z = torch.empty_like(r)
     rc = _cuda.entry("gt_cheb2", r.dtype)(
         r.data_ptr(), top_p, bot_p, z.data_ptr(), r.shape[0], r.shape[1], *scal,
-        int(vec), int(pdl), r.device.index, _cuda.stream_of(r))
+        r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "cheb2_cuda")
     cheb2_cuda.launches += 1
     return z
 
 
-def cheb2_cuda(r, top, bottom, d, alpha, coefs=POISSON_COEFS, *,
-               _vec: bool = True, _pdl: bool = True) -> torch.Tensor:
+def cheb2_cuda(r, top, bottom, d, alpha, coefs=POISSON_COEFS) -> torch.Tensor:
     """Launch K5 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
-    rows, None for a zero row. ``cheb2_cuda.launches`` counts launches.
-    Private, for the tests and chip_smoke.py: ``_vec=False`` forces one
-    point a thread (the kernel takes 16-byte row chunks where the row
-    length and the pointers allow); ``_pdl=False`` launches without
-    programmatic dependent launch (csrc/cheb2_fused.cu)."""
-    return _cheb2_launch(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype),
-                         _vec, _pdl)
+    rows, None for a zero row. ``cheb2_cuda.launches`` counts launches."""
+    return _cheb2_launch(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype))
 
 
 cheb2_cuda.launches = 0

@@ -131,13 +131,9 @@ def _halo_row(h, x: torch.Tensor, what: str):
 
 
 def stencil5_cuda(x: torch.Tensor, top=None, bottom=None,
-                  coefs=None, *, _vec: bool = True, _pdl: bool = True) -> torch.Tensor:
+                  coefs=None) -> torch.Tensor:
     """Launch K1 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
-    rows, None for a zero row. ``stencil5_cuda.launches`` counts launches.
-    Private, for the tests and chip_smoke.py: ``_vec=False`` forces one
-    point a thread (the kernel takes 16-byte row chunks where the row
-    length and the pointers allow); ``_pdl=False`` launches without
-    programmatic dependent launch (csrc/stencil5.cu)."""
+    rows, None for a zero row. ``stencil5_cuda.launches`` counts launches."""
     _cuda.check_grid(x, "stencil5_cuda")
     c = _coef_list(coefs)
     top_p = _halo_row(top, x, "stencil5_cuda")
@@ -145,7 +141,7 @@ def stencil5_cuda(x: torch.Tensor, top=None, bottom=None,
     y = torch.empty_like(x)
     rc = _cuda.entry("gt_stencil5", x.dtype)(
         x.data_ptr(), top_p, bot_p, y.data_ptr(), x.shape[0], x.shape[1], *c,
-        int(_vec), int(_pdl), x.device.index, _cuda.stream_of(x))
+        x.device.index, _cuda.stream_of(x))
     _cuda.check(rc, "stencil5_cuda")
     stencil5_cuda.launches += 1
     return y
@@ -199,12 +195,11 @@ def correct_residual_plain(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
     return e2, r - stencil_5pt_general(e2, *_coef_list(coefs))
 
 
-def residual_restrict_cuda(r: torch.Tensor, e: torch.Tensor, coefs=None, *,
-                           _pdl: bool = False) -> torch.Tensor:
+def residual_restrict_cuda(r: torch.Tensor, e: torch.Tensor,
+                           coefs=None) -> torch.Tensor:
     """Launch K1's residual-restrict form on CUDA (2m, 2mc) grids r and e;
     returns the (m, mc) grid. ``residual_restrict_cuda.launches`` counts
-    launches. Private: ``_pdl=True`` launches it with programmatic dependent
-    launch (csrc/stencil5.cu), for chip_smoke.py's comparison."""
+    launches."""
     for t in (r, e):
         _cuda.check_grid(t, "residual_restrict_cuda")
     _check_levels("residual_restrict_cuda", r, e)
@@ -212,7 +207,7 @@ def residual_restrict_cuda(r: torch.Tensor, e: torch.Tensor, coefs=None, *,
     out = torch.empty((mr, mc), dtype=r.dtype, device=r.device)
     rc = _cuda.entry("gt_residual_restrict", r.dtype)(
         r.data_ptr(), e.data_ptr(), out.data_ptr(), mr, mc, *_coef_list(coefs),
-        int(_pdl), r.device.index, _cuda.stream_of(r))
+        r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "residual_restrict_cuda")
     residual_restrict_cuda.launches += 1
     return out
@@ -222,10 +217,10 @@ residual_restrict_cuda.launches = 0
 
 
 def correct_residual_cuda(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
-                          coefs=None, *, _pdl: bool = False):
+                          coefs=None):
     """Launch K1's correct-residual form on CUDA grids (fine r and e, coarse
     ec); returns (e', r − A e'). ``correct_residual_cuda.launches`` counts
-    launches. Private: ``_pdl`` as for ``residual_restrict_cuda``."""
+    launches."""
     for t in (r, e, ec):
         _cuda.check_grid(t, "correct_residual_cuda")
     _check_levels("correct_residual_cuda", r, e, ec)
@@ -233,7 +228,7 @@ def correct_residual_cuda(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
     rc = _cuda.entry("gt_correct_residual", r.dtype)(
         r.data_ptr(), e.data_ptr(), ec.data_ptr(), e_out.data_ptr(),
         r_out.data_ptr(), ec.shape[0], ec.shape[1], *_coef_list(coefs),
-        int(_pdl), r.device.index, _cuda.stream_of(r))
+        r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "correct_residual_cuda")
     correct_residual_cuda.launches += 1
     return e_out, r_out

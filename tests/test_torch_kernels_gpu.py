@@ -51,39 +51,37 @@ def _offset(t):
     return out
 
 
-@pytest.mark.parametrize("pdl", [False, True])
 @pytest.mark.parametrize("layout", ["aligned", "offset"])
 @pytest.mark.parametrize("shape,dtype", [((304, 304), torch.float64), ((300, 300), torch.float32),
-                                         ((75, 301), torch.float32), ((2048, 2048), torch.float32)])
-def test_k1_row_chunks_bitwise(cuda_device, shape, dtype, layout, pdl):
-    """K1 with 16-byte row chunks (where the row length and the pointers
-    allow), one point a thread (forced, and wherever they do not), with and
-    without programmatic dependent launch, null and given halo rows: the
-    plain version's bits."""
+                                         ((75, 301), torch.float32), ((2048, 2048), torch.float32),
+                                         ((1024, 1024), torch.float64), ((1024, 1026), torch.float32)])
+def test_k1_row_chunks_bitwise(cuda_device, shape, dtype, layout):
+    """K1 with 16-byte row chunks (aligned grids of 1024² points or more
+    whose row length allows) and one point a thread (smaller grids, odd row
+    lengths, offset pointers), with null and given halo rows: the plain
+    version's bits."""
     x = to_torch(seeded(22, shape), cuda_device).to(dtype)
     top = to_torch(seeded(23, shape[1]), cuda_device).to(dtype)
     if layout == "offset":
         x, top = _offset(x), _offset(top)
-    for vec in (True, False):
-        for halo in ((None, None), (top, None)):
-            before = tst.stencil5_cuda.launches
-            y = tst.stencil5_cuda(x, *halo, COEFS, _vec=vec, _pdl=pdl)
-            torch.cuda.synchronize()
-            assert tst.stencil5_cuda.launches == before + 1
-            torch.testing.assert_close(y, tst.stencil_5pt_halo(x, *halo, COEFS),
-                                       rtol=0, atol=0)
+    for halo in ((None, None), (top, None)):
+        before = tst.stencil5_cuda.launches
+        y = tst.stencil5_cuda(x, *halo, COEFS)
+        torch.cuda.synchronize()
+        assert tst.stencil5_cuda.launches == before + 1
+        torch.testing.assert_close(y, tst.stencil_5pt_halo(x, *halo, COEFS),
+                                   rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("pdl", [False, True])
 @pytest.mark.parametrize("layout", ["aligned", "offset"])
 @pytest.mark.parametrize("shape,dtype", [((300, 300), torch.float32), ((150, 150), torch.float32),
                                          ((2048, 2048), torch.float32), ((304, 304), torch.float64),
                                          ((16, 40), torch.float64)])
-def test_k1_fused_forms_bitwise(cuda_device, shape, dtype, layout, pdl):
+def test_k1_fused_forms_bitwise(cuda_device, shape, dtype, layout):
     """K1's residual-restrict and correct-residual forms against their plain
     versions (the compositions the V-cycle ran before): the same bits, with
-    pair accesses aligned or not, with and without programmatic dependent
-    launch, on the Poisson and on general coefficients."""
+    pair accesses aligned or not, on the Poisson and on general
+    coefficients."""
     r = to_torch(seeded(24, shape), cuda_device).to(dtype)
     e = to_torch(seeded(25, shape), cuda_device).to(dtype)
     ec = to_torch(seeded(26, (shape[0] // 2, shape[1] // 2)), cuda_device).to(dtype)
@@ -91,8 +89,8 @@ def test_k1_fused_forms_bitwise(cuda_device, shape, dtype, layout, pdl):
         r, e = _offset(r), _offset(e)
     for coefs in (tst.POISSON_COEFS, COEFS):
         before = (tst.residual_restrict_cuda.launches, tst.correct_residual_cuda.launches)
-        rc = tst.residual_restrict_cuda(r, e, coefs, _pdl=pdl)
-        e2, r3 = tst.correct_residual_cuda(r, e, ec, coefs, _pdl=pdl)
+        rc = tst.residual_restrict_cuda(r, e, coefs)
+        e2, r3 = tst.correct_residual_cuda(r, e, ec, coefs)
         torch.cuda.synchronize()
         assert (tst.residual_restrict_cuda.launches,
                 tst.correct_residual_cuda.launches) == (before[0] + 1, before[1] + 1)
@@ -447,10 +445,9 @@ def test_sparse_cg_runs_on_the_kernels(cuda_device):
 @pytest.mark.parametrize("shape", [(304, 304), (76, 304), (1, 40), (2048, 2048), (75, 301)])
 @pytest.mark.parametrize("halos", ["none", "random", "random offset"])
 def test_k5_matches_plain_bitwise(cuda_device, dtype, shape, halos):
-    """Built with -fmad=false, K5 repeats the plain version's roundings: with
-    16-byte row chunks where the row length and pointers allow, one point a
-    thread (forced, and where they do not), with and without programmatic
-    dependent launch, with null and with given halo rows."""
+    """Built with -fmad=false, K5 repeats the plain version's roundings, with
+    null and with given halo rows, aligned or offset, through the routed
+    entry, the launch wrapper and the per-application entry."""
     r = to_torch(seeded(70, shape), cuda_device).to(dtype)
     top = bot = None
     if halos != "none":
@@ -465,10 +462,8 @@ def test_k5_matches_plain_bitwise(cuda_device, dtype, shape, halos):
     torch.cuda.synchronize()
     assert tfu.cheb2_cuda.launches == before + 1
     torch.testing.assert_close(z, plain, rtol=0, atol=0)
-    for vec in (True, False):
-        for pdl in (False, True):
-            z = tfu.cheb2_cuda(r, top, bot, d, alpha, COEFS, _vec=vec, _pdl=pdl)
-            torch.testing.assert_close(z, plain, rtol=0, atol=0)
+    torch.testing.assert_close(tfu.cheb2_cuda(r, top, bot, d, alpha, COEFS), plain,
+                               rtol=0, atol=0)
     scal = tfu.cheb2_scalars(d, alpha, COEFS, dtype)
     torch.testing.assert_close(tfu.cheb2_apply(r, top, bot, scal), plain, rtol=0, atol=0)
 
