@@ -70,11 +70,15 @@ Phases of the smoke run:
     at 304² float64 (the strong-scaling shard) with zero and with random
     halo rows and at 2048² float32; K7 on a 2048² float32 and a 304² float64
     block (elementwise outputs bitwise, the float32 sums to a stated
-    tolerance). Print times, bounds, the time of F.conv2d with K5's
-    function as a 3×3 cross kernel (cuDNN, TF32 off), and the time of the
-    eager torch calls that K7 fuses (add, sub, dot; add, dot). Then call K7 through the
-    public entry points as a per-shard caller would (no solver calls K7, as
-    in gmres_tpu).
+    tolerance, the same bits on a second call and with α given by value as
+    with α a tensor on the card), one kernel a call by torch.profiler (the
+    slope between 20 and 40 calls, within half a kernel). Print times
+    (CUDA-graph replay), bounds, the launch floor, the host µs to enqueue a
+    call with α by value and with α a tensor, the time of F.conv2d with
+    K5's function as a 3×3 cross kernel (cuDNN, TF32 off), and the time of
+    the eager torch calls that K7 fuses (add, sub, dot; add, dot). Then
+    call K7 through the public entry points as a per-shard caller would (no
+    solver calls K7, as in gmres_tpu).
 12. The strong-scaling configuration on the explicit-halo route with the
     fused halo cbpr2 (the program itself applies the reference cbpr2 over
     the GSPMD operator; the mathematics is the same): a one-rank NCCL
@@ -100,13 +104,21 @@ Phases of the smoke run:
     traffic model, and that K2's rows carry their fraction of the single
     pass (r read once, z written once).
 14. On the same one-rank NCCL group: compare kernel K8 (the RDMA route's
-    affine stencil, interior then edges) with its plain version, bitwise,
-    at 304² and 2048² float32, with F.conv2d of the affine weights as the
-    yardstick; then float32 MGSR GMRES at 304² with the RDMA operator and
-    the RDMA cbpr2 (m=50, tol 1e-5) and CG on the RDMA operator (1e-4
-    relative), 3 timed solves each, checked in numpy, with K8's launches
-    against the operator and preconditioner applications and a profiled
-    solve.
+    affine stencil, interior then edges) with its plain version on zero
+    rows, bitwise, at 304² and 2048² float32, with no halo rows (no edge
+    launch), zero, random and bottom-only rows, timed by CUDA-graph replay
+    beside the bound, the launch floor and F.conv2d of the affine weights
+    (the 2048² rows cycle through 4 input sets; rows that fit the L2 are
+    flagged ``l2_resident``), and at 304² the application as the route ran
+    it before (two zero rows filled, interior, edges). Then one application
+    of the RDMA operator and of the RDMA cbpr2 must launch K8's interior
+    once and its edges never (the wrappers' counts), run one kernel in all
+    (torch.profiler, within half a kernel) and equal the application on
+    zero rows (built here: four kernels). Then float32 MGSR GMRES at 304²
+    with the RDMA operator and the RDMA cbpr2 (m=50, tol 1e-5) and CG on
+    the RDMA operator (1e-4 relative), 3 timed solves each, checked in
+    numpy, with K8's interior launches equal to the operator and
+    preconditioner applications, no edge launch, and a profiled solve.
 
 Phases 12–14 share one NCCL process group made by the script. Any failure
 raises and exits non-zero. The line before the last is the
@@ -1302,7 +1314,7 @@ def cheb2_conv(r, top, bot, d, alpha, coefs):
     return affine_conv(r, top, bot, (*coefs, 1.0 / d + alpha, -alpha / d))
 
 
-def phase_fused_kernels(gt_torch, rng, dev):
+def phase_fused_kernels(gt_torch, rng, dev, floor):
     """K5 and K7 against their plain versions; returns the records and the
     K7 launches of the per-shard calls."""
     import torch
@@ -1337,13 +1349,15 @@ def phase_fused_kernels(gt_torch, rng, dev):
                        for _ in range(4))
         a = torch.tensor(0.37, dtype=dt, device=dev)
         reps = 200 if n <= 304 else 50
-        for name, kernel, plain, work, calls, pair in (
+        for name, kernel, kernel_by_value, plain, work, calls, pair in (
             ("K7a", lambda: fused.cg_fused_update_cuda(x, r, p, ap, a),
+             lambda: fused.cg_fused_update_cuda(x, r, p, ap, 0.37),
              lambda: fused.cg_fused_update_plain(x, r, p, ap, a),
              fused_work(n * n, dt, 6, 6), "add, sub, dot",
              lambda: torch.dot(torch.sub(r, ap, alpha=0.37).view(-1),
                                torch.add(x, p, alpha=0.37).view(-1))),
             ("K7b", lambda: fused.axpy_dot_cuda(a, x, r, p),
+             lambda: fused.axpy_dot_cuda(0.37, x, r, p),
              lambda: fused.axpy_dot_plain(a, x, r, p),
              fused_work(n * n, dt, 4, 4), "add, dot",
              lambda: torch.dot(torch.add(r, x, alpha=0.37).view(-1), p.view(-1))),
@@ -1359,18 +1373,39 @@ def phase_fused_kernels(gt_torch, rng, dev):
             torch.cuda.synchronize()
             require(float(again) == float(outs_k[-1]),
                     f"{case}: the sum changed between two calls")
+            # α as a Python number goes by value, bitwise as by pointer.
+            by_value = kernel_by_value()
+            torch.cuda.synchronize()
+            require(all(torch.equal(u, v) for u, v in zip(by_value, outs_k)),
+                    f"{case}: α by value and by pointer give different bits")
+            # One kernel a call, by torch.profiler (the slope between 20 and
+            # 40 calls; a profile can lose events).
+            counts = [device_events(lambda k=k: [kernel_by_value() for _ in range(k)])
+                      for k in (20, 40)]
+            per_call = (counts[1] - counts[0]) / 20
+            require(abs(per_call - 1.0) <= 0.5,
+                    f"{case}: {per_call} kernels a call by the profiler, not 1")
             rec = {"case": case, "max_abs_err": max(e[0] for e in errs),
                    "max_rel_err": max(e[1] for e in errs),
                    "sum_rel_err": errs[-1][1],
                    "ms": device_ms(kernel, reps), "plain_ms": device_ms(plain, reps),
-                   "library_ms": None, "torch_pair_ms": device_ms(pair, reps)}
+                   "library_ms": None, "torch_pair_ms": device_ms(pair, reps),
+                   "floor_ms": floor["slope_ms"], "kernels_per_call": per_call,
+                   "profiled_events": counts, "host_us": host_us(kernel_by_value),
+                   "tensor_alpha_host_us": host_us(kernel),
+                   "l2_resident": work[0] <= L2_BYTES}
             rec["bound_ms"], rec["bound_by"] = bound(*work[:3])
             records[name].append(rec)
             print(f"  {case:42s} elementwise bitwise, sum rel_err "
-                  f"{errs[-1][1]:.3e} (tol 1e-05), deterministic  device: kernel "
+                  f"{errs[-1][1]:.3e} (tol 1e-05), deterministic, {per_call:.2f} "
+                  f"kernels a call (profiled {counts})  device: kernel "
                   f"{rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
-                  f"{100 * rec['bound_ms'] / rec['ms']:.0f}% of it)", flush=True)
+                  f"{100 * rec['bound_ms'] / rec['ms']:.0f}% of it"
+                  f"{'; L2-resident' if rec['l2_resident'] else ''}); floor "
+                  f"{rec['floor_ms']:.5f} ms = {rec['ms'] / rec['floor_ms']:.2f}x  host: "
+                  f"{rec['host_us']:.2f} us (α by value), "
+                  f"{rec['tensor_alpha_host_us']:.2f} us (α a tensor)", flush=True)
             print(f"  {case:42s} yardstick, not one call: the eager torch "
                   f"calls ({calls}) {rec['torch_pair_ms']:.4f} ms", flush=True)
     # The per-shard use of K7 (no solver calls it): a CG step's x/r update
@@ -1424,7 +1459,7 @@ def counted(fn, calls, key):
     return wrapped
 
 
-def phases_on_one_rank(gt_torch, rng, dev, workdir):
+def phases_on_one_rank(gt_torch, rng, dev, workdir, floor):
     """Phases 12–14 on a one-rank NCCL group made here (a file rendezvous in
     `workdir`); returns phase 12's launches of K1 and K5, and phase 13's and
     14's records and launches."""
@@ -1435,7 +1470,7 @@ def phases_on_one_rank(gt_torch, rng, dev, workdir):
     try:
         strong = strong_scaling_solves(gt_torch, dev)
         roofline = phase_roofline(gt_torch, rng, dev, workdir)
-        rdma = phase_rdma(gt_torch, rng, dev)
+        rdma = phase_rdma(gt_torch, rng, dev, floor)
         return strong, roofline, rdma
     finally:
         dist.destroy_process_group()
@@ -1733,7 +1768,21 @@ def phase_roofline(gt_torch, rng, dev, workdir):
 # ---------------------------------------------------------------------------
 
 
-def phase_rdma(gt_torch, rng, dev):
+def k8_four_launches(rd, x, c):
+    """An application as the RDMA route ran it before it dropped absent
+    rows: two zero rows allocated and filled, the interior, the edges on
+    them (four launches)."""
+    import torch
+
+    def run():
+        top = torch.zeros((1, x.shape[1]), dtype=x.dtype, device=x.device)
+        bot = torch.zeros_like(top)
+        return rd.rdma_edges_cuda(rd.rdma_interior_cuda(x, c), top, bot, c)
+
+    return run
+
+
+def phase_rdma(gt_torch, rng, dev, floor):
     """K8 against its plain version, then f32 MGSR GMRES with A and M on the
     RDMA route and CG on the RDMA operator at the strong-scaling grid;
     returns K8's records and launches."""
@@ -1751,27 +1800,50 @@ def phase_rdma(gt_torch, rng, dev):
     d, alpha = fused.chebyshev_ref_scalars(*REF_EIG)
     coefs = (4.0, -1.0, -1.0, -1.0, -1.0)
     forms = {"operator": (0.0, 1.0), "cbpr2": (1.0 / d + alpha, -alpha / d)}
-    for n, form, halos in ((STRONG_N, "operator", "zero"), (STRONG_N, "cbpr2", "zero"),
-                           (STRONG_N, "cbpr2", "random"), (2048, "operator", "zero"),
+    # Halo rows: none (one rank, the path's case), zeros (as the route ran it
+    # before), random on both sides, or on the bottom only (an end rank).
+    for n, form, halos in ((STRONG_N, "operator", "no"), (STRONG_N, "cbpr2", "no"),
+                           (STRONG_N, "operator", "zero"), (STRONG_N, "cbpr2", "random"),
+                           (STRONG_N, "cbpr2", "bottom-only"), (2048, "operator", "no"),
                            (2048, "cbpr2", "random")):
         dt = torch.float32
-        x = torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
-        top = torch.zeros((1, n), dtype=dt, device=dev)
-        bot = torch.zeros_like(top)
-        if halos == "random":
-            top = torch.as_tensor(rng.standard_normal((1, n))).to(dev, dt)
-            bot = torch.as_tensor(rng.standard_normal((1, n))).to(dev, dt)
         c7 = (*coefs, *forms[form])
         c = rd._coefs7(c7, dt)
-        records["K8"].append(compare(
-            f"K8 {n}x{n} f32 {form} {halos} halo rows",
-            lambda: rd.rdma_edges_cuda(rd.rdma_interior_cuda(x, c), top, bot, c),
-            lambda: rd.rdma_edges_plain(rd.rdma_interior_plain(x, c), top, bot, c),
-            0.0, 200 if n <= STRONG_N else 50,
-            # x and the two halo rows read, y written; 12 flops a point, and
-            # 3 more at each point of the two boundary rows.
-            work=((2 * n * n + 2 * n) * 4, 12 * n * n + 6 * n, dt, None),
-            library=affine_conv(x, top if halos == "random" else None, bot, c7)))
+        sets = []
+        for _ in range(HBM_SETS if n >= 2048 else 1):
+            x = torch.as_tensor(rng.standard_normal((n, n))).to(dev, dt)
+            rand = [torch.as_tensor(rng.standard_normal((1, n))).to(dev, dt)
+                    for _ in range(2)]
+            zero = torch.zeros((1, n), dtype=dt, device=dev)
+            top, bot = {"no": (None, None), "zero": (zero, torch.zeros_like(zero)),
+                        "random": tuple(rand), "bottom-only": (None, rand[1])}[halos]
+            sets.append((x, top, bot))
+        rows = (top is not None) + (bot is not None)
+        records["K8"].append(form_record(
+            f"K8 {n}x{n} f32 {form}, {halos} halo rows",
+            cycling([lambda x=x, t=t, b=b: rd.rdma_edges_cuda(rd.rdma_interior_cuda(x, c),
+                                                               t, b, c)
+                     for x, t, b in sets]),
+            # The plain composition on zero rows where a row is absent: the
+            # TPU kernel's form (they differ at most in the sign of a zero).
+            cycling([lambda x=x, t=t, b=b: rd.rdma_edges_plain(
+                rd.rdma_interior_plain(x, c), zero if t is None else t,
+                zero if b is None else b, c) for x, t, b in sets]),
+            # x and the given halo rows read, y written; 12 flops a point, and
+            # 3 more at each point of a corrected row.
+            ((2 * n * n + rows * n) * 4, 12 * n * n + 3 * rows * n, dt),
+            200 if n <= STRONG_N else 50, floor,
+            library=cycling([affine_conv(x, None if t is None and b is None else
+                                         (zero if t is None else t), b, c7)
+                             for x, t, b in sets]),
+            sets=len(sets)))
+        if n == STRONG_N and halos == "no":
+            x = sets[0][0]
+            rec = records["K8"][-1]
+            rec["four_launch_ms"] = device_ms(k8_four_launches(rd, x, c), 200)
+            print(f"  {rec['case']:46s} as the route ran it before (zero rows "
+                  f"filled, interior, edges: four launches) {rec['four_launch_ms']:.4f} ms",
+                  flush=True)
 
     n = STRONG_N
     mesh = gt_torch.solver_mesh(1)
@@ -1790,6 +1862,7 @@ def phase_rdma(gt_torch, rng, dev):
                                          compute_v_err=False)),
         ("cg", lambda: gt_torch.cg(op, b, tol=RDMA_CG_TOL, rtol=RDMA_CG_TOL)),
     )
+    applications = rdma_applications(gt_torch, mesh, b, rd, forms, coefs)
     for name, solve in solves:
         res, t_warm = timed(solve)  # warm-up
         rd.rdma_interior_cuda.launches = rd.rdma_edges_cuda.launches = 0
@@ -1834,11 +1907,73 @@ def phase_rdma(gt_torch, rng, dev):
               f"(applications: A {calls['A']}, M {calls['M']})", flush=True)
         require(res.status == 0, f"rdma {name}: status {res.status}")
         require(ok, f"rdma {name}: the numpy residual misses the tolerance ({check})")
-        require(interior == edges == applied > 0,
+        # One rank: no halo row, so one interior launch an application and
+        # no edge launch.
+        require(interior == applied > 0 and edges == 0,
                 f"rdma {name}: K8 launches {interior}/{edges} against {applied} "
                 f"applications")
-        profile_solve(solve, f"rdma {name} {n}x{n}", float(np.median(times)))
+        launches[f"{name} profile"] = profile_solve(
+            solve, f"rdma {name} {n}x{n}", float(np.median(times)))
+    launches["applications"] = applications
     return records, launches
+
+
+def rdma_applications(gt_torch, mesh, x, rd, forms, coefs) -> dict:
+    """Phase 14's applications on one rank: the RDMA operator and cbpr2 as
+    the package builds them (no halo row, no edge launch) and as the route
+    ran them before, on two zero rows filled per application (built here:
+    four kernels). Per application: K8's launches (the wrappers' counts),
+    kernels in all (torch.profiler, the slope between HALO_APPLICATIONS and
+    twice as many), host µs to enqueue one, eager device ms; and the same
+    bits."""
+    import torch
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from gmres_tpu_torch.parallel.halo import (
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+
+    def zero_rows(form):
+        c = rd._coefs7((*coefs, *forms[form]), torch.float32)
+        return local_map(lambda blk: k8_four_launches(rd, blk, c)(),
+                         out_placements=[Shard(0)], in_placements=([Shard(0)],),
+                         device_mesh=mesh)
+
+    fns = {"A": rdma_stencil_operator(mesh),
+           "M": rdma_chebyshev_preconditioner(mesh, *REF_EIG),
+           "A on zero rows": zero_rows("operator"), "M on zero rows": zero_rows("cbpr2")}
+    out = {}
+    for name, f in fns.items():
+        y = f(x).to_local()
+        before = (rd.rdma_interior_cuda.launches, rd.rdma_edges_cuda.launches)
+        for _ in range(HALO_APPLICATIONS):
+            f(x)
+        launched = {"interior": (rd.rdma_interior_cuda.launches - before[0]) / HALO_APPLICATIONS,
+                    "edges": (rd.rdma_edges_cuda.launches - before[1]) / HALO_APPLICATIONS}
+        counts = [device_events(lambda f=f, k=k: [f(x) for _ in range(k)])
+                  for k in (HALO_APPLICATIONS, 2 * HALO_APPLICATIONS)]
+        out[name] = {"kernels": (counts[1] - counts[0]) / HALO_APPLICATIONS,
+                     "profiled_events": counts, "launches": launched,
+                     "host_us": host_us(lambda f=f: f(x)),
+                     "call_ms": call_ms(lambda f=f: f(x), 200), "y": y}
+        print(f"phase 14: one-rank RDMA application {name:15s}: launches {launched}, "
+              f"{out[name]['kernels']:.2f} kernels in all (profiled {counts[0]} over "
+              f"{HALO_APPLICATIONS}, {counts[1]} over {2 * HALO_APPLICATIONS}), host "
+              f"{out[name]['host_us']:.2f} us to enqueue, {out[name]['call_ms']:.4f} ms an "
+              "eager application", flush=True)
+    torch.cuda.synchronize()
+    for op in ("A", "M"):
+        require(torch.equal(out[op]["y"], out[f"{op} on zero rows"]["y"]),
+                f"phase 14: {op} without halo rows differs from {op} on zero rows")
+        require(out[op]["launches"] == {"interior": 1.0, "edges": 0.0},
+                f"phase 14: {op} launches {out[op]['launches']} an application, not "
+                "one interior and no edges")
+        require(abs(out[op]["kernels"] - 1.0) <= 0.5,
+                f"phase 14: {op} runs {out[op]['kernels']} kernels an application, not 1")
+        del out[op]["y"], out[f"{op} on zero rows"]["y"]
+    return out
 
 
 def main() -> int:
@@ -1957,7 +2092,7 @@ def main() -> int:
                                           ref_inner)
 
     # Phase 11: K5 and K7 against their plain versions; K7's per-shard calls.
-    fused_records, k7_launches = phase_fused_kernels(gt_torch, rng, dev)
+    fused_records, k7_launches = phase_fused_kernels(gt_torch, rng, dev, floor)
     for name, recs in fused_records.items():
         records.setdefault(name, []).extend(recs)
 
@@ -1965,7 +2100,7 @@ def main() -> int:
     # phase 13: K6 and the roofline program; phase 14: K8 and the RDMA route.
     with tempfile.TemporaryDirectory() as workdir:
         strong, (dd_records, roof), (rdma_records, k8) = phases_on_one_rank(
-            gt_torch, rng, dev, workdir)
+            gt_torch, rng, dev, workdir, floor)
     records.update(dd_records)
     records.update(rdma_records)
 
@@ -1993,6 +2128,13 @@ def main() -> int:
         rec = [r for r in records[name] if r["case"] == timed_at][0]
         return {"host_us": rec["host_us"], "floor_ms": rec["floor_ms"]}
 
+    def k7_fields(name):
+        rec = [r for r in records[name] if r["case"] == f"{name} {STRONG_N}x{STRONG_N} f64"][0]
+        return {"kernels_per_call": rec["kernels_per_call"], "floor_ms": rec["floor_ms"],
+                "host_us": rec["host_us"], "tensor_alpha_host_us": rec["tensor_alpha_host_us"],
+                "torch_pair_ms": rec["torch_pair_ms"]}
+
+    k8_path = f"K8 {STRONG_N}x{STRONG_N} f32 operator, no halo rows"
     mg_report = {n: {"kernels_per_solve": {v: mg[n]["profile"][v]["kernels"]
                                            for v in ("fused", "unfused")},
                      "device_busy_ms": {v: mg[n]["profile"][v]["busy_ms"]
@@ -2051,11 +2193,13 @@ def main() -> int:
         report("K7a", "gmres_tpu_torch/csrc/cg_fused.cu",
                "gmres_tpu/ops/fused.py:50", [], k7_launches[0],
                f"K7a {STRONG_N}x{STRONG_N} f64",
-               launched_by="phase 11 per-shard call; no solver calls it, as in gmres_tpu"),
+               launched_by="phase 11 per-shard call; no solver calls it, as in gmres_tpu",
+               **k7_fields("K7a")),
         report("K7b", "gmres_tpu_torch/csrc/cg_fused.cu",
                "gmres_tpu/ops/fused.py:94", [], k7_launches[1],
                f"K7b {STRONG_N}x{STRONG_N} f64",
-               launched_by="phase 11 per-shard call; no solver calls it, as in gmres_tpu"),
+               launched_by="phase 11 per-shard call; no solver calls it, as in gmres_tpu",
+               **k7_fields("K7b")),
         report("K6", "gmres_tpu_torch/csrc/stencil5_dd.cu",
                "gmres_tpu/ops/stencil.py:388", ["gmres_tpu/ops/stencil.py:519"],
                roof["K6"], f"K6 {ROOFLINE_GRIDS[-1]}x{ROOFLINE_GRIDS[-1]} poisson",
@@ -2065,10 +2209,17 @@ def main() -> int:
                nearest_library_ms=[r["nearest_library_ms"] for r in records["K6"]
                                    if "nearest_library_ms" in r][-1]),
         report("K8", "gmres_tpu_torch/csrc/stencil5_rdma.cu",
-               "gmres_tpu/ops/stencil_rdma.py:41", [], k8["interior"],
-               f"K8 {STRONG_N}x{STRONG_N} f32 operator zero halo rows",
+               "gmres_tpu/ops/stencil_rdma.py:41", [], k8["interior"], k8_path,
                launches_by_path={"rdma gmres and cg (phase 14), interior": k8["interior"]},
-               edge_launches=k8["edges"]),
+               edge_launches=k8["edges"],
+               kernels_per_application={op: k8["applications"][op]["kernels"]
+                                        for op in k8["applications"]},
+               four_launch_ms=[r["four_launch_ms"] for r in records["K8"]
+                               if r["case"] == k8_path][0],
+               hbm_timed_at="K8 2048x2048 f32 operator, no halo rows",
+               hbm_ms=[r["ms"] for r in records["K8"]
+                       if r["case"] == "K8 2048x2048 f32 operator, no halo rows"][0],
+               **timing("K8", k8_path)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

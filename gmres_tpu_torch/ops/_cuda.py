@@ -139,11 +139,15 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"gt_bsr_spmv_{suffix}")
             fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
             fn.restype = i32
+            # α (pointer, kind, value), the vectors, partials, counter, sum,
+            # n, vector width, blocks, device, stream.
             fn = getattr(lib, f"gt_cg_update_{suffix}")
-            fn.argtypes = [vp] * 9 + [i32, i32, i32, vp]
+            fn.argtypes = ([vp, i32, ctypes.c_double] + [vp] * 9
+                           + [ctypes.c_longlong, i32, i32, i32, vp])
             fn.restype = i32
             fn = getattr(lib, f"gt_axpy_dot_{suffix}")
-            fn.argtypes = [vp] * 7 + [i32, i32, i32, vp]
+            fn.argtypes = ([vp, i32, ctypes.c_double] + [vp] * 7
+                           + [ctypes.c_longlong, i32, i32, i32, vp])
             fn.restype = i32
         lib.gt_empty.argtypes = [i32, vp]
         lib.gt_empty.restype = i32
@@ -153,8 +157,6 @@ def load() -> ctypes.CDLL:
         lib.gt_chebk_max_fused_steps.restype = i32
         lib.gt_chebk_max_active_clusters.argtypes = [i32] * 7
         lib.gt_chebk_max_active_clusters.restype = i32
-        lib.gt_fused_reduce_blocks.argtypes = [i32]
-        lib.gt_fused_reduce_blocks.restype = i32
         _LIB = lib
     return _LIB
 

@@ -467,31 +467,99 @@ def _check_vectors(what: str, *ts: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{what}: expected contiguous tensors")
     _cuda.suffix(ts[0].dtype)
-    if ts[0].numel() >= 2**31:
-        raise ValueError(f"{what}: {ts[0].numel()} elements too many for one launch")
 
 
-def _reduce_out(lib, n: int, device):
-    """The float32 per-block partials and the 0-d float32 sum of a K7 call."""
-    partial = torch.empty(lib.gt_fused_reduce_blocks(n), dtype=torch.float32,
-                          device=device)
-    return partial, torch.empty((), dtype=torch.float32, device=device)
+# K7's grid: 256-thread blocks, at most K7_BLOCKS_PER_SM an SM.
+K7_THREADS = 256
+K7_BLOCKS_PER_SM = 4
+# Counters a device holds for K7, one per stream that has called it.
+K7_COUNTER_SLOTS = 1024
+
+
+def k7_plan(n: int, itemsize: int, aligned: bool, sms: int) -> tuple[int, int]:
+    """(vector width, blocks) of a K7 launch over ``n`` elements of
+    ``itemsize`` bytes on a card of ``sms`` SMs: 16-byte chunks where every
+    operand is aligned to 16 bytes, one element a step otherwise; a block
+    per K7_THREADS chunks, at most K7_BLOCKS_PER_SM an SM, and at least one
+    a SM while each still gets a warp's worth of chunks."""
+    vec = 16 // itemsize if aligned else 1
+    chunks = n // vec
+    blocks = min(-(-chunks // K7_THREADS), K7_BLOCKS_PER_SM * sms)
+    return vec, max(blocks, min(sms, -(-chunks // 32)), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_k7_counters: dict = {}
+
+
+def _k7_counter(device: torch.device, stream: int) -> int:
+    """Address of K7's ticket counter for ``stream`` on ``device``. A
+    device's counters are one int32 tensor, zeroed when K7 first runs there
+    (outside graph capture: a zeroing captured into a graph would run only
+    at its replay); a stream takes the next free one, and K7's last block
+    leaves it at 0."""
+    slab, slots = _k7_counters.get(device.index, (None, None))
+    if slab is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K7's first call on a device must come before "
+                               "any CUDA-graph capture of it: its counters are "
+                               "zeroed then")
+        slab = torch.zeros(K7_COUNTER_SLOTS, dtype=torch.int32, device=device)
+        slots = {}
+        _k7_counters[device.index] = (slab, slots)
+    slot = slots.get(stream)
+    if slot is None:
+        if len(slots) == K7_COUNTER_SLOTS:
+            raise RuntimeError(f"K7: more than {K7_COUNTER_SLOTS} streams on "
+                               f"{device}")
+        slot = slots[stream] = len(slots)
+    return slab.data_ptr() + 4 * slot
+
+
+def _alpha_arg(alpha, like: torch.Tensor) -> tuple:
+    """α as K7 takes it: (pointer, kind, value). A 0-d float32 or float64
+    tensor on ``like``'s card is read by pointer (kind 1 or 2); anything else
+    by value (kind 0), read on the host (a Python number, or a tensor on the
+    CPU) and rounded to the dtype in C."""
+    if isinstance(alpha, torch.Tensor) and alpha.is_cuda:
+        if alpha.numel() != 1 or alpha.device != like.device:
+            raise ValueError(f"alpha must be one value on {like.device}, got "
+                             f"shape {tuple(alpha.shape)} on {alpha.device}")
+        if alpha.dtype not in (torch.float32, torch.float64):
+            alpha = alpha.to(like.dtype)
+        return alpha.data_ptr(), 1 if alpha.dtype == torch.float32 else 2, 0.0
+    return None, 0, float(alpha)
+
+
+def _k7_launch(name: str, alpha, tensors) -> torch.Tensor:
+    """Launch K7's ``name`` entry on ``tensors`` (its inputs, then its
+    outputs, in the entry's order); returns the 0-d float32 sum."""
+    like = tensors[0]
+    dev = like.device
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    vec, blocks = k7_plan(like.numel(), like.element_size(), aligned,
+                          _sm_count(dev.index))
+    partial = torch.empty(blocks, dtype=torch.float32, device=dev)
+    total = torch.empty((), dtype=torch.float32, device=dev)
+    stream = _cuda.stream_of(like)
+    rc = _cuda.entry(name, like.dtype)(
+        *_alpha_arg(alpha, like), *(t.data_ptr() for t in tensors),
+        partial.data_ptr(), _k7_counter(dev, stream), total.data_ptr(),
+        like.numel(), vec, blocks, dev.index, stream)
+    _cuda.check(rc, name)
+    return total
 
 
 def cg_fused_update_cuda(x, r, p, ap, alpha):
-    """Launch K7a (the pass and its one-block sum of the partials) on CUDA
-    tensors; ``cg_fused_update_cuda.launches`` counts calls."""
+    """Launch K7a on CUDA tensors: one launch, whose last block sums the
+    blocks' partials; ``cg_fused_update_cuda.launches`` counts launches."""
     _check_vectors("cg_fused_update_cuda", x, r, p, ap)
-    lib = _cuda.load()
-    a = _scalar(alpha, x)
     xo, ro = torch.empty_like(x), torch.empty_like(r)
-    partial, rsq = _reduce_out(lib, x.numel(), x.device)
-    fn = getattr(lib, f"gt_cg_update_{_cuda.suffix(x.dtype)}")
-    rc = fn(x.data_ptr(), r.data_ptr(), p.data_ptr(), ap.data_ptr(),
-            a.data_ptr(), xo.data_ptr(), ro.data_ptr(), partial.data_ptr(),
-            rsq.data_ptr(), x.numel(), partial.numel(), x.device.index,
-            _cuda.stream_of(x))
-    _cuda.check(rc, "cg_fused_update_cuda")
+    rsq = _k7_launch("gt_cg_update", alpha, (x, r, p, ap, xo, ro))
     cg_fused_update_cuda.launches += 1
     return xo, ro, rsq
 
@@ -500,18 +568,11 @@ cg_fused_update_cuda.launches = 0
 
 
 def axpy_dot_cuda(alpha, x, y, z):
-    """Launch K7b (the pass and its one-block sum of the partials) on CUDA
-    tensors; ``axpy_dot_cuda.launches`` counts calls."""
+    """Launch K7b on CUDA tensors: one launch, whose last block sums the
+    blocks' partials; ``axpy_dot_cuda.launches`` counts launches."""
     _check_vectors("axpy_dot_cuda", x, y, z)
-    lib = _cuda.load()
-    a = _scalar(alpha, x)
     yn = torch.empty_like(y)
-    partial, dot = _reduce_out(lib, x.numel(), x.device)
-    fn = getattr(lib, f"gt_axpy_dot_{_cuda.suffix(x.dtype)}")
-    rc = fn(a.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            yn.data_ptr(), partial.data_ptr(), dot.data_ptr(), x.numel(),
-            partial.numel(), x.device.index, _cuda.stream_of(x))
-    _cuda.check(rc, "axpy_dot_cuda")
+    dot = _k7_launch("gt_axpy_dot", alpha, (x, y, z, yn))
     axpy_dot_cuda.launches += 1
     return yn, dot
 

@@ -7,19 +7,23 @@ only the two boundary-row corrections wait on the receives. Here the remote
 copies are NCCL (on the card) or gloo (on the CPU) point-to-point messages
 posted outside the kernel, in the same order:
 
-1. post the two one-row sends and receives (``batch_isend_irecv``);
+1. post the one-row sends and receives toward each neighbour that exists
+   (``batch_isend_irecv``);
 2. compute the interior with zero halo rows,
    ``a·x + b·(c0·x + cw·W + ce·E + cs·S + cn·N)`` (K8's ``interior``);
 3. wait on the receives;
-4. add ``(b·cs)·top`` to row 0 and ``(b·cn)·bottom`` to the last row
-   (K8's ``edges``).
+4. add ``(b·cs)·top`` to row 0 and ``(b·cn)·bottom`` to the last row, for
+   the rows that were received (K8's ``edges``).
 
 On a CUDA block NCCL's point-to-point runs on its own stream, so the
 interior launched before the wait overlaps the transfer, and the wait is a
 stream dependency, not a host synchronisation: the structural overlap of the
-TPU kernel's instruction order. Rank 0's top row and the last rank's bottom
-row stay zero, which is the Dirichlet truncation. A CPU block takes the
-plain versions of both steps. JAX's ``num_devices``, ``collective_id``,
+TPU kernel's instruction order. A side with no neighbour (rank 0's top, the
+last rank's bottom: the Dirichlet truncation) gets no row at all, where the
+TPU kernel adds a zero row; that changes at most the sign of an exact zero
+(``csrc/stencil5_rdma.cu``). On one rank no message is posted and no
+``edges`` runs: an application is one launch. A CPU block takes the plain
+versions of both steps. JAX's ``num_devices``, ``collective_id``,
 ``interpret`` and ``detect_races`` have no counterpart: the process group
 carries the first two, and the device decides the rest.
 """
@@ -31,6 +35,42 @@ import torch.distributed as dist
 
 from gmres_tpu_torch.ops import _cuda
 from gmres_tpu_torch.ops.stencil import _halo_row, stencil_5pt_general
+
+
+def _neighbours(group) -> tuple[int | None, int | None]:
+    """Global ranks of the ranks above and below this one in ``group``
+    (None where there is none)."""
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    up = dist.get_global_rank(group, rank - 1) if rank > 0 else None
+    down = dist.get_global_rank(group, rank + 1) if rank < size - 1 else None
+    return up, down
+
+
+def post_halo_rows(blk: torch.Tensor, group, neighbours):
+    """Post the one-row messages to the ``neighbours`` of
+    ``_neighbours(group)``: this block's first row up and last row down, a
+    receive row from each neighbour that exists. Returns (top, bottom,
+    wait): each row (1, ncols), None for a side with no neighbour (no row is
+    allocated for it), and a function that waits for the receives."""
+    up, down = neighbours
+    top = bottom = None
+    ops = []
+    if up is not None:
+        top = torch.empty((1, blk.shape[1]), dtype=blk.dtype, device=blk.device)
+        ops += [dist.P2POp(dist.isend, blk[:1].contiguous(), up, group),
+                dist.P2POp(dist.irecv, top, up, group)]
+    if down is not None:
+        bottom = torch.empty((1, blk.shape[1]), dtype=blk.dtype, device=blk.device)
+        ops += [dist.P2POp(dist.isend, blk[-1:].contiguous(), down, group),
+                dist.P2POp(dist.irecv, bottom, down, group)]
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+
+    def wait():
+        for req in reqs:
+            req.wait()
+        ops.clear()  # the send buffers lived in `ops` until now
+
+    return top, bottom, wait
 
 
 def _coefs7(coefs7, dtype: torch.dtype) -> list[float]:
@@ -57,13 +97,15 @@ def rdma_interior_plain(x: torch.Tensor, c: list[float]) -> torch.Tensor:
     return a * x + b * stencil_5pt_general(x, c0, cw, ce, cs, cn)
 
 
-def rdma_edges_plain(y: torch.Tensor, top: torch.Tensor, bottom: torch.Tensor,
-                     c: list[float]) -> torch.Tensor:
+def rdma_edges_plain(y: torch.Tensor, top, bottom, c: list[float]) -> torch.Tensor:
     """The plain version of K8's edge step, in place on ``y``: row 0, then
-    the last row (a one-row block takes both, in that order)."""
+    the last row (a one-row block takes both, in that order). A None row is
+    no correction."""
     bcs, bcn = _edge_scales(c, y.dtype)
-    y[0] = y[0] + bcs * top.reshape(-1)
-    y[-1] = y[-1] + bcn * bottom.reshape(-1)
+    if top is not None:
+        y[0] = y[0] + bcs * top.reshape(-1)
+    if bottom is not None:
+        y[-1] = y[-1] + bcn * bottom.reshape(-1)
     return y
 
 
@@ -73,9 +115,9 @@ def rdma_interior_cuda(x: torch.Tensor, c: list[float]) -> torch.Tensor:
     launches: one per application of the operator."""
     _cuda.check_grid(x, "rdma_interior_cuda")
     y = torch.empty_like(x)
-    fn = getattr(_cuda.load(), f"gt_rdma_interior_{_cuda.suffix(x.dtype)}")
-    rc = fn(x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], *c,
-            x.device.index, _cuda.stream_of(x))
+    rc = _cuda.entry("gt_rdma_interior", x.dtype)(
+        x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], *c,
+        x.device.index, _cuda.stream_of(x))
     _cuda.check(rc, "rdma_interior_cuda")
     rdma_interior_cuda.launches += 1
     return y
@@ -84,19 +126,19 @@ def rdma_interior_cuda(x: torch.Tensor, c: list[float]) -> torch.Tensor:
 rdma_interior_cuda.launches = 0
 
 
-def rdma_edges_cuda(y: torch.Tensor, top: torch.Tensor, bottom: torch.Tensor,
-                    c: list[float]) -> torch.Tensor:
-    """Launch K8's edge step on a CUDA block, in place on ``y``.
+def rdma_edges_cuda(y: torch.Tensor, top, bottom, c: list[float]) -> torch.Tensor:
+    """Launch K8's edge step on a CUDA block, in place on ``y``, for the
+    halo rows given (None: no correction on that side). With neither row
+    there is nothing to correct and nothing launches.
     ``rdma_edges_cuda.launches`` counts launches."""
     _cuda.check_grid(y, "rdma_edges_cuda")
-    if top is None or bottom is None:
-        raise ValueError("rdma_edges_cuda: both halo rows are needed (zeros "
-                         "where there is no neighbour)")
     top_p = _halo_row(top, y, "rdma_edges_cuda")
     bot_p = _halo_row(bottom, y, "rdma_edges_cuda")
-    fn = getattr(_cuda.load(), f"gt_rdma_edges_{_cuda.suffix(y.dtype)}")
-    rc = fn(y.data_ptr(), top_p, bot_p, y.shape[0], y.shape[1], c[6], c[3],
-            c[4], y.device.index, _cuda.stream_of(y))
+    if top_p is None and bot_p is None:
+        return y
+    rc = _cuda.entry("gt_rdma_edges", y.dtype)(
+        y.data_ptr(), top_p, bot_p, y.shape[0], y.shape[1], c[6], c[3], c[4],
+        y.device.index, _cuda.stream_of(y))
     _cuda.check(rc, "rdma_edges_cuda")
     rdma_edges_cuda.launches += 1
     return y
@@ -105,35 +147,29 @@ def rdma_edges_cuda(y: torch.Tensor, top: torch.Tensor, bottom: torch.Tensor,
 rdma_edges_cuda.launches = 0
 
 
+def rdma_apply(blk: torch.Tensor, c: list[float], group, neighbours) -> torch.Tensor:
+    """One application on this rank's block, with ``c`` the coefficients
+    rounded to the block's dtype by ``_coefs7`` and ``neighbours`` from
+    ``_neighbours(group)``: the RDMA operators' per-application entry."""
+    cuda = blk.device.type != "cpu"
+    if cuda:  # refuse before any message is posted, or the peers would hang
+        _cuda.check_grid(blk, "stencil_5pt_rdma")
+    top, bottom, wait = post_halo_rows(blk, group, neighbours)
+    y = rdma_interior_cuda(blk, c) if cuda else rdma_interior_plain(blk, c)
+    if top is None and bottom is None:
+        return y
+    wait()
+    if cuda:
+        return rdma_edges_cuda(y, top, bottom, c)
+    return rdma_edges_plain(y, top, bottom, c)
+
+
 def stencil_5pt_rdma(blk: torch.Tensor, coefs7, group=None) -> torch.Tensor:
     """Per-shard affine stencil a·x + b·A(x) on this rank's (rows, N) block
     of a row-partitioned grid. ``coefs7`` is (c0, cw, ce, cs, cn, a, b);
     ``group`` the process group of the grid axis (None: the default group).
     (a, b) = (0, 1) is the plain stencil, (1/d + α, −α/d) the degree-2
     Chebyshev application. K8 on a CUDA block, the plain versions on a CPU
-    block."""
-    c = _coefs7(coefs7, blk.dtype)
-    cuda = blk.device.type != "cpu"
-    if cuda:  # refuse before any message is posted, or the peers would hang
-        _cuda.check_grid(blk, "stencil_5pt_rdma")
-    ncols = blk.shape[1]
-    top = torch.zeros((1, ncols), dtype=blk.dtype, device=blk.device)
-    bottom = torch.zeros_like(top)
-    rank, size = dist.get_rank(group), dist.get_world_size(group)
-    ops = []
-    if rank > 0:
-        up = dist.get_global_rank(group, rank - 1)
-        ops += [dist.P2POp(dist.isend, blk[:1].contiguous(), up, group),
-                dist.P2POp(dist.irecv, top, up, group)]
-    if rank < size - 1:
-        down = dist.get_global_rank(group, rank + 1)
-        ops += [dist.P2POp(dist.isend, blk[-1:].contiguous(), down, group),
-                dist.P2POp(dist.irecv, bottom, down, group)]
-    # The send buffers live in `ops` until the waits below.
-    reqs = dist.batch_isend_irecv(ops) if ops else []
-    y = rdma_interior_cuda(blk, c) if cuda else rdma_interior_plain(blk, c)
-    for req in reqs:
-        req.wait()
-    if cuda:
-        return rdma_edges_cuda(y, top, bottom, c)
-    return rdma_edges_plain(y, top, bottom, c)
+    block. The operators of ``parallel/halo.py`` round the coefficients and
+    find the neighbours once; this entry does both on every call."""
+    return rdma_apply(blk, _coefs7(coefs7, blk.dtype), group, _neighbours(group))

@@ -32,9 +32,10 @@ device decides, as everywhere in the port.
 The RDMA operators (``rdma_stencil_operator``,
 ``rdma_chebyshev_preconditioner``) take the same blocks through
 ``ops/stencil_rdma.py`` (kernel K8): the halo messages are posted first, the
-interior is computed while they travel, and the two boundary rows are
-corrected after the wait, in the order of the TPU kernel's in-kernel remote
-copies.
+interior is computed while they travel, and the boundary rows that have a
+neighbour are corrected after the wait, in the order of the TPU kernel's
+in-kernel remote copies. They find the neighbours once and round their
+coefficients once per dtype; on one rank an application is one launch.
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
-import torch.distributed as dist
 
 from gmres_tpu_torch.ops.fused import (
     cheb2_apply,
@@ -50,39 +50,23 @@ from gmres_tpu_torch.ops.fused import (
     chebyshev_ref_scalars,
 )
 from gmres_tpu_torch.ops.stencil import stencil_5pt_pallas_halo
-from gmres_tpu_torch.ops.stencil_rdma import stencil_5pt_rdma
+from gmres_tpu_torch.ops.stencil_rdma import (
+    _coefs7,
+    _neighbours,
+    post_halo_rows,
+    rdma_apply,
+)
 from gmres_tpu_torch.parallel.mesh import GRID_AXIS
 
 LAPLACE_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
-
-
-def _neighbours(group) -> Tuple[int | None, int | None]:
-    """Global ranks of the ranks above and below this one in ``group``
-    (None where there is none)."""
-    rank, size = dist.get_rank(group), dist.get_world_size(group)
-    up = dist.get_global_rank(group, rank - 1) if rank > 0 else None
-    down = dist.get_global_rank(group, rank + 1) if rank < size - 1 else None
-    return up, down
 
 
 def _halo_rows(blk: torch.Tensor, group, neighbours):
     """(top, bottom) halo rows of ``blk`` from the ``neighbours`` of
     ``_neighbours(group)``, each (1, ncols), None for a side with no
     neighbour (no row is allocated for it)."""
-    up, down = neighbours
-    top = bottom = None
-    ops = []
-    if up is not None:
-        top = torch.empty((1, blk.shape[1]), dtype=blk.dtype, device=blk.device)
-        ops += [dist.P2POp(dist.isend, blk[:1].contiguous(), up, group),
-                dist.P2POp(dist.irecv, top, up, group)]
-    if down is not None:
-        bottom = torch.empty((1, blk.shape[1]), dtype=blk.dtype, device=blk.device)
-        ops += [dist.P2POp(dist.isend, blk[-1:].contiguous(), down, group),
-                dist.P2POp(dist.irecv, bottom, down, group)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    top, bottom, wait = post_halo_rows(blk, group, neighbours)
+    wait()
     return top, bottom
 
 
@@ -135,6 +119,22 @@ def halo_stencil_operator(
     return _sharded(mesh, apply_local)
 
 
+def _rdma_local(coefs7, group) -> Callable:
+    """The RDMA route's per-block application of ``coefs7`` over ``group``:
+    the neighbours found once, the coefficients rounded once per dtype when
+    first applied."""
+    neighbours = _neighbours(group)
+    rounded = {}
+
+    def apply_local(blk):
+        c = rounded.get(blk.dtype)
+        if c is None:
+            c = rounded[blk.dtype] = _coefs7(coefs7, blk.dtype)
+        return rdma_apply(blk, c, group, neighbours)
+
+    return apply_local
+
+
 def rdma_stencil_operator(
     mesh,
     coefs=LAPLACE_COEFS,
@@ -146,13 +146,8 @@ def rdma_stencil_operator(
     same LinearOperator contract and boundary semantics as
     :func:`halo_stencil_operator`; K8 on a CUDA block, its plain version on
     a CPU block, in float32 or float64."""
-    group = mesh.get_group(axis)
-    coefs7 = (*(float(c) for c in coefs), 0.0, 1.0)
-
-    def apply_local(blk):
-        return stencil_5pt_rdma(blk, coefs7, group)
-
-    return _sharded(mesh, apply_local)
+    return _sharded(mesh, _rdma_local((*(float(c) for c in coefs), 0.0, 1.0),
+                                      mesh.get_group(axis)))
 
 
 def rdma_chebyshev_preconditioner(
@@ -169,12 +164,7 @@ def rdma_chebyshev_preconditioner(
     block's dtype as gmres_tpu rounds them (not K5's host-rounded 1/d)."""
     d, alpha = chebyshev_ref_scalars(lam_min, lam_max)
     coefs7 = (*(float(c) for c in coefs), 1.0 / d + alpha, -alpha / d)
-    group = mesh.get_group(axis)
-
-    def m_inv_local(r_blk):
-        return stencil_5pt_rdma(r_blk, coefs7, group)
-
-    return _sharded(mesh, m_inv_local)
+    return _sharded(mesh, _rdma_local(coefs7, mesh.get_group(axis)))
 
 
 def halo_poisson_operator(mesh) -> Callable:

@@ -88,6 +88,52 @@ def test_k7_float64_operands_sum_in_float32():
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,rtol", [(np.float32, 1e-6), (np.float64, 1e-15)])
+def test_k7_plain_alpha_as_number_or_tensor(dtype, rtol):
+    """α as a Python number and as a 0-d tensor (of float64, or of the
+    vectors' dtype) is rounded to the dtype alike: the same bits, as K7
+    gives for α by value and by pointer; and gmres_tpu's interpret-mode
+    kernels, which round α with jnp.asarray(alpha, dtype=x.dtype)."""
+    x, r, p, ap = (seeded(960 + s, (16, 128), dtype) for s in range(4))
+    alpha = 0.37
+    xj, rj, sj = jfu.cg_fused_update(*(jnp.asarray(a) for a in (x, r, p, ap)),
+                                     alpha, interpret=True)
+    yj, dj = jfu.axpy_dot(alpha, *(jnp.asarray(a) for a in (x, r, p)), interpret=True)
+    xt, rt, pt, apt = (to_torch(a) for a in (x, r, p, ap))
+    forms = (alpha, torch.tensor(alpha, dtype=torch.float64),
+             torch.tensor(alpha, dtype=xt.dtype))
+    upd = [tfu.cg_fused_update_plain(xt, rt, pt, apt, a) for a in forms]
+    axd = [tfu.axpy_dot_plain(a, xt, rt, pt) for a in forms]
+    for got in upd[1:]:
+        for a, b in zip(got, upd[0]):
+            assert torch.equal(a, b)
+    for got in axd[1:]:
+        for a, b in zip(got, axd[0]):
+            assert torch.equal(a, b)
+    assert rel_err(upd[0][0], xj) < rtol and rel_err(upd[0][1], rj) < rtol
+    assert rel_err(axd[0][0], yj) < rtol
+    np.testing.assert_allclose(upd[0][2].numpy(), np.asarray(sj), rtol=1e-5)
+    np.testing.assert_allclose(axd[0][1].numpy(), np.asarray(dj), rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,itemsize,aligned,want", [
+    (304 * 304, 8, True, (2, 181)),     # the strong-scaling shard, f64
+    (304 * 304, 4, True, (4, 132)),     # f32: 91 blocks' worth, one a SM
+    (2048 * 2048, 4, True, (4, 528)),   # capped at 4 blocks an SM
+    (304 * 304, 8, False, (1, 361)),    # unaligned: one element a step
+    (7, 4, True, (4, 1)),               # one chunk and a tail of 3
+    (1000, 8, True, (2, 16)),           # 500 chunks: a warp's worth a block
+])
+def test_k7_plan(n, itemsize, aligned, want):
+    """K7's grid on a 132-SM card: a block per 256 chunks, at most 4 an SM,
+    and at least one a SM while each gets a warp's worth of chunks; every
+    element is covered by the grid-stride loop or the tail."""
+    vec, blocks = tfu.k7_plan(n, itemsize, aligned, 132)
+    assert (vec, blocks) == want
+    # The last n mod vec elements go one a thread to block 0's first threads.
+    assert n % vec < vec <= tfu.K7_THREADS
+
+
 def test_wrappers_route_cpu_tensors_to_plain_versions():
     """A CPU tensor never reaches a kernel: the launch counters stay put."""
     before = (tfu.cheb2_cuda.launches, tfu.cg_fused_update_cuda.launches,

@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import torch.multiprocessing as mp
 
 import gmres_tpu as gt
@@ -221,6 +222,74 @@ def test_rdma_operators_match_jax(port, jax_rdma, cases, key):
     assert rel_err(port[key], jax_rdma[key]) < 1e-6
     if key == "rdma_poisson":
         assert rel_err(port["rdma_poisson_f64"], np_poisson(cases["x"])) < 1e-14
+
+
+def test_rdma_rows_absent_at_the_edges(port, cases):
+    """The RDMA route receives a row only from a neighbour that exists: none
+    on one rank, one on each end rank of 2 or 4, two in between; each is
+    the neighbour's boundary row."""
+    world, x = port["world"], cases["x"].astype(np.float32)
+    rows = N_OP // world
+    for r in range(world):
+        got_top, got_bottom = np.split(port["rdma_rows"][r], 2)
+        if r == 0:
+            assert np.isnan(got_top).all()
+        else:
+            np.testing.assert_array_equal(got_top, x[r * rows - 1])
+        if r == world - 1:
+            assert np.isnan(got_bottom).all()
+        else:
+            np.testing.assert_array_equal(got_bottom, x[(r + 1) * rows])
+
+
+def test_rdma_public_entry_and_float64(port, cases):
+    """stencil_5pt_rdma, which rounds its coefficients and finds its
+    neighbours on every call, gives the operator's bits; the RDMA cbpr2 on
+    a float64 block (its coefficients rounded for float64 when first met)
+    is numpy's cbpr2 to float64 rounding."""
+    np.testing.assert_array_equal(port["rdma_public_asym"], port["rdma_asym"])
+    x = cases["x"]
+    lo, hi = 0.2, 8.2
+    c, d = (hi - lo) / 2.0, (hi + lo) / 2.0
+    alpha = 1.0 / (d - (c / d / 2.0) ** 2)
+    want = x / d + alpha * (x - np_poisson(x) / d)
+    assert port["rdma_cbpr2_f64"].dtype == np.float64
+    assert rel_err(port["rdma_cbpr2_f64"], want) < 1e-14
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("missing", ["both", "top", "bottom"])
+def test_rdma_edges_plain_without_rows_equals_zero_rows(dtype, missing):
+    """A side with no neighbour gets no halo row (None) where the TPU kernel
+    adds a zero row: the same values. The one difference is the sign of an
+    exact zero, pinned here: where y is −0.0 and b·cs > 0 (cbpr2's
+    (1/d + α, −α/d) with cs = −1), −0.0 + (b·cs)·0 is +0.0, and without the
+    row y stays −0.0; the two compare equal (torch.equal, and
+    assert_close with rtol=0, atol=0)."""
+    from gmres_tpu_torch.ops import fused as tfu
+    from gmres_tpu_torch.ops import stencil_rdma as trd
+
+    d, alpha = tfu.chebyshev_ref_scalars(0.2, 8.2)
+    c = trd._coefs7((4.0, -1.0, -1.0, -1.0, -1.0, 1.0 / d + alpha, -alpha / d), dtype)
+    x = torch.as_tensor(seeded(901, (6, 9))).to(dtype)
+    rand = torch.as_tensor(seeded(902, (2, 9))).to(dtype)
+    zero = torch.zeros((1, 9), dtype=dtype)
+    top = None if missing in ("both", "top") else rand[:1]
+    bottom = None if missing in ("both", "bottom") else rand[1:]
+    y = trd.rdma_interior_plain(x, c)
+    y[0, 3] = y[-1, 4] = -0.0
+    with_zero = trd.rdma_edges_plain(
+        y.clone(), zero if top is None else top, zero if bottom is None else bottom, c)
+    without = trd.rdma_edges_plain(y.clone(), top, bottom, c)
+    torch.testing.assert_close(without, with_zero, rtol=0, atol=0)
+    assert torch.equal(without, with_zero)
+    assert all(v > 0 for v in trd._edge_scales(c, dtype))
+    if top is None:
+        assert torch.signbit(without[0, 3]) and not torch.signbit(with_zero[0, 3])
+    if bottom is None:
+        assert torch.signbit(without[-1, 4]) and not torch.signbit(with_zero[-1, 4])
+    # The given rows are added as before, and the interior rows untouched.
+    torch.testing.assert_close(without[1:-1], y[1:-1], rtol=0, atol=0)
 
 
 def test_rdma_gmres_matches_jax(port, jax_rdma):

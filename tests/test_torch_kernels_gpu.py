@@ -484,11 +484,13 @@ def test_k5_k7_refuse_what_they_do_not_take(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(304, 304), (2048, 2048), (1000,), (7,)])
+@pytest.mark.parametrize("shape", [(304, 304), (2048, 2048), (1000,), (7,), (301, 3)])
 def test_k7_matches_plain(cuda_device, dtype, shape):
     """The elementwise outputs bitwise; the float32 sums, taken in another
-    order than torch.sum's, to 1e-5 relative; the same bits on a second
-    call (no atomics). α may be a 0-d tensor on the card."""
+    order than torch.sum's, to 1e-5 relative; one launch a call; the same
+    bits on a second call and after another stream has run K7 (the atomic
+    orders tickets, not the sum); α as a Python float and as a 0-d tensor
+    on the card (of float64 or the vectors' dtype) give the same bits."""
     x, r, p, ap = (to_torch(seeded(73 + s, shape), cuda_device).to(dtype)
                    for s in range(4))
     alpha = torch.tensor(0.37, dtype=torch.float64, device=cuda_device)
@@ -506,7 +508,57 @@ def test_k7_matches_plain(cuda_device, dtype, shape):
     assert rsq.dtype == dot.dtype == torch.float32 and rsq.shape == dot.shape == ()
     assert abs(float(rsq) - float(rsqp)) <= 1e-5 * abs(float(rsqp))
     assert abs(float(dot) - float(dotp)) <= 1e-5 * float((yp.float() * p.float()).abs().sum())
-    assert float(tt.cg_fused_update(x, r, p, ap, alpha)[2]) == float(rsq)
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    first = (xo, ro, rsq)
+    assert same(tt.cg_fused_update(x, r, p, ap, alpha), first)
+    for a in (0.37, torch.tensor(0.37, dtype=dtype, device=cuda_device)):
+        assert same(tt.cg_fused_update(x, r, p, ap, a), first)
+    assert same(tt.axpy_dot(torch.tensor(-1.25, device=cuda_device, dtype=torch.float64),
+                            x, r, p), (yo, dot))
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        on_side = tt.cg_fused_update(x, r, p, ap, 0.37), tt.axpy_dot(-1.25, x, r, p)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    again = tt.cg_fused_update(x, r, p, ap, 0.37), tt.axpy_dot(-1.25, x, r, p)
+    torch.cuda.synchronize()
+    assert same(on_side[0], first) and same(on_side[1], (yo, dot))
+    assert same(again[0], first) and same(again[1], (yo, dot))
+
+
+def test_k7_in_a_cuda_graph(cuda_device):
+    """K7 captured in a CUDA graph and replayed gives the eager call's bits
+    at every replay: its counter is back at 0 after each launch."""
+    x, r, p, ap = (to_torch(seeded(76 + s, (304, 304)), cuda_device) for s in range(4))
+    eager = tt.cg_fused_update(x, r, p, ap, 0.37), tt.axpy_dot(0.5, x, r, p)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tt.cg_fused_update(x, r, p, ap, 0.37), tt.axpy_dot(0.5, x, r, p)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+def test_k7_with_a_python_alpha_does_not_synchronise(cuda_device):
+    """A Python α goes to K7 by value: a call, under
+    torch.cuda.set_sync_debug_mode("error"), makes no synchronising call."""
+    x, r, p, ap = (to_torch(seeded(77 + s, (304, 304)), cuda_device) for s in range(4))
+    tt.cg_fused_update(x, r, p, ap, 0.37)
+    tt.axpy_dot(0.5, x, r, p)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tt.cg_fused_update(x, r, p, ap, 0.37)
+        tt.axpy_dot(0.5, x, r, p)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def test_halo_path_runs_on_the_kernels(cuda_device, tmp_path):
@@ -570,8 +622,9 @@ def _rdma_path_on_one_rank(cuda_device):
     before = (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches)
     y, z = op(x).to_local(), m_inv(x).to_local()
     torch.cuda.synchronize()
+    # One rank: no neighbour, no halo row, no edge launch.
     assert (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches) == (
-        before[0] + 2, before[1] + 2)
+        before[0] + 2, before[1])
     # The plain route on a CPU block of the same one-rank group.
     x_cpu = to_torch(x_np)
     torch.testing.assert_close(
@@ -623,27 +676,78 @@ def test_k6_refuses_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(304, 304), (2048, 2048), (1, 40)])
-@pytest.mark.parametrize("halos", ["zero", "random"])
+@pytest.mark.parametrize("shape", [(304, 304), (2048, 2048), (1, 40), (1024, 1026)])
+@pytest.mark.parametrize("halos", ["zero", "random", "none", "one-sided", "random offset"])
 def test_k8_matches_plain_bitwise(cuda_device, dtype, shape, halos):
     """Interior then edges, as the operator runs them, for the stencil
-    (a, b) = (0, 1) and cbpr2's affine form: the plain version's bits."""
+    (a, b) = (0, 1) and cbpr2's affine form: the plain version's bits with
+    zero, random and absent (None) halo rows, and with none on top only. An
+    absent row is no correction, and with neither row no edge kernel
+    launches: the result equals the zero-row composition (rtol=0, atol=0
+    treats −0.0 and +0.0 as equal, the one difference). At 2048² the
+    interior takes 16-byte row chunks; inputs one element off alignment,
+    and 1026-column rows in float32, take one point a thread."""
     d, alpha = tfu.chebyshev_ref_scalars(0.2, 8.2)
     x = to_torch(seeded(81, shape), cuda_device).to(dtype)
-    top = torch.zeros((1, shape[1]), dtype=dtype, device=cuda_device)
-    bot = torch.zeros_like(top)
-    if halos == "random":
-        top = to_torch(seeded(82, (1, shape[1])), cuda_device).to(dtype)
-        bot = to_torch(seeded(83, (1, shape[1])), cuda_device).to(dtype)
+    zero = torch.zeros((1, shape[1]), dtype=dtype, device=cuda_device)
+    rand_top, rand_bot = (to_torch(seeded(s, (1, shape[1])), cuda_device).to(dtype)
+                          for s in (82, 83))
+    top, bot = {"zero": (zero, torch.zeros_like(zero)), "random": (rand_top, rand_bot),
+                "none": (None, None), "one-sided": (None, rand_bot),
+                "random offset": (_offset(rand_top), _offset(rand_bot))}[halos]
+    if halos == "random offset":
+        x = _offset(x)
+    edge_launches = 0 if top is None and bot is None else 1
     for ab in ((0.0, 1.0), (1.0 / d + alpha, -alpha / d)):
         c = trd._coefs7((*COEFS, *ab), dtype)
         before = (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches)
         yk = trd.rdma_edges_cuda(trd.rdma_interior_cuda(x, c), top, bot, c)
         torch.cuda.synchronize()
         assert (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches) == (
-            before[0] + 1, before[1] + 1)
-        yp = trd.rdma_edges_plain(trd.rdma_interior_plain(x, c), top, bot, c)
+            before[0] + 1, before[1] + edge_launches)
+        yp = trd.rdma_edges_plain(trd.rdma_interior_plain(x, c),
+                                  zero if top is None else top,
+                                  zero if bot is None else bot, c)
         torch.testing.assert_close(yk, yp, rtol=0, atol=0)
+        torch.testing.assert_close(trd.rdma_edges_plain(trd.rdma_interior_plain(x, c),
+                                                        top, bot, c), yp, rtol=0, atol=0)
+
+
+def test_rdma_operators_are_one_kernel_on_one_rank(cuda_device, tmp_path):
+    """On a one-rank NCCL mesh an application of the RDMA operator and of
+    the RDMA cbpr2 is one K8 launch and no edge launch (the wrappers'
+    counts), and the profiler sees no other kernel: no fills of zero rows,
+    no edge kernel."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from gmres_tpu_torch.parallel.halo import (
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        n = 304
+        mesh = tt.solver_mesh(1)
+        x = tt.shard_grid_vector(to_torch(seeded(84, (n, n)), cuda_device).float(), mesh)
+        for f in (rdma_stencil_operator(mesh), rdma_chebyshev_preconditioner(mesh, 0.2, 8.2)):
+            f(x)
+            torch.cuda.synchronize()
+            before = (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    f(x)
+                torch.cuda.synchronize()
+            assert (trd.rdma_interior_cuda.launches, trd.rdma_edges_cuda.launches) == (
+                before[0] + 10, before[1])
+            kernels = [e.key for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.is_user_annotation]
+            assert kernels and all("rdma_interior_kernel" in k for k in kernels), kernels
+    finally:
+        dist.destroy_process_group()
 
 
 def test_k8_refuses_what_it_does_not_take(cuda_device):

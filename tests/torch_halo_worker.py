@@ -112,11 +112,13 @@ def _drive_rdma(mesh, shard, cases: dict, out: dict) -> None:
     the JAX kernel runs) and the Laplacian in float64, then MGSR GMRES with
     A and M on the route and CG on the operator, in float32."""
     import gmres_tpu_torch as tt
+    from gmres_tpu_torch.ops import stencil_rdma
     from gmres_tpu_torch.parallel.halo import (
         rdma_chebyshev_preconditioner,
         rdma_stencil_operator,
     )
 
+    group = mesh.get_group("grid")
     x32 = shard(cases["x"].astype(np.float32))
     op = rdma_stencil_operator(mesh)
     m_inv = rdma_chebyshev_preconditioner(mesh, 0.2, 8.2)
@@ -124,6 +126,20 @@ def _drive_rdma(mesh, shard, cases: dict, out: dict) -> None:
     out["rdma_poisson_f64"] = _local(op(shard(cases["x"])))
     out["rdma_asym"] = _local(rdma_stencil_operator(mesh, cases["coefs_asym"])(x32))
     out["rdma_cbpr2"] = _local(m_inv(x32))
+    # The same preconditioner on a float64 block: its coefficients rounded
+    # anew for that dtype, once.
+    out["rdma_cbpr2_f64"] = _local(m_inv(shard(cases["x"])))
+    # The public per-call entry, which rounds and finds the neighbours itself.
+    out["rdma_public_asym"] = stencil_rdma.stencil_5pt_rdma(
+        x32.to_local(), (*cases["coefs_asym"], 0.0, 1.0), group).numpy()
+    # The rows the route receives: None (NaN here) where there is no
+    # neighbour, so an end rank corrects one row and a lone rank none.
+    top, bottom, wait = stencil_rdma.post_halo_rows(
+        x32.to_local(), group, stencil_rdma._neighbours(group))
+    wait()
+    out["rdma_rows"] = np.concatenate(
+        [np.full((1, x32.shape[1]), np.nan) if h is None else h.numpy()
+         for h in (top, bottom)], axis=1)
     # Householder refuses a sharded b (ROADMAP), so GMRES runs MGSR here and
     # in the JAX reference alike.
     res = tt.gmres(op, shard(cases["b_rdma_gmres"]), restart=30, tol=1e-5,
