@@ -120,6 +120,24 @@ Phases of the smoke run:
     numpy, with K8's interior launches equal to the operator and
     preconditioner applications, no edge launch, and a profiled solve.
 
+15. BiCGSTAB, the Lanczos bounds and the reference's programs:
+    cbpr2 BiCGSTAB (float64, tol 1e-9 absolute, b = A·1) at 300² and 1000²,
+    the median and quartiles of 5 solves after a warm-up, one profiled
+    solve (device busy, kernels per iteration), status 0, a numpy float64
+    ‖b − A x‖ under 1e-9, the iterations against gmres_tpu's (within 15%:
+    the count moves with the reductions' order, BICGSTAB_SPREAD) and K1's
+    launches equal to the operator applications (4 an iteration, the ‖A‖
+    probe, each residual replacement, the certification); the ``hilbert``
+    program at n = 12 (Householder's max |I − VᵀV| at least 1e6 below
+    MGSR's); ``lanczos_bounds`` on the 300² operator containing the exact
+    λ_max and equal to the CPU's within 1e-10; then the programs in this
+    process at reduced depth: ``dense-poisson``, ``poisson-mf`` (300², m=50,
+    tol 1e-8), ``cg`` and ``bicgstab`` (300² and 1000²), ``restart-sweep``
+    (2 restart lengths, tol 1e-8), ``strong-scaling`` (304², tol 1e-8, one
+    rank) with and without ``--explicit-halo`` and ``weak-scaling`` (one
+    rank), each making its own one-rank NCCL group; every row has status 0.
+    The phase's wall time and the run's are printed.
+
 Phases 12–14 share one NCCL process group made by the script. Any failure
 raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
@@ -198,6 +216,27 @@ FORM_SHAPES = ((300, "float32"), (150, "float32"), (2048, "float32"), (304, "flo
 HBM_SETS = 4
 # Applications profiled per operator in phase 12's launch count.
 HALO_APPLICATIONS = 20
+# Phase 15: the bicgstab program's grids (test_bicgstab.f90's range ends) and
+# gmres_tpu's iteration counts there (cbpr2 on REF_EIG, float64, tol 1e-9
+# absolute, b = A·1), from the JAX package on the CPU:
+#   JAX_PLATFORMS=cpu python -m benchmarks.cli bicgstab --grids 300:1000:700
+BICGSTAB_GRIDS = (300, 1000)
+JAX_BICGSTAB_ITERATIONS = {300: 230, 1000: 744}
+# BiCGSTAB's count moves with the order in which its inner products sum: the
+# JAX package itself takes 232 and 813 when its reductions are jnp.vdot
+# instead of jnp.sum(x·y), and the port's CPU solves take 228–242 and 747–835
+# across thread counts and reduction forms (tests/test_torch_bicgstab.py pins
+# the mechanism: with shared reductions the port is JAX's bit for bit). So
+# the card's count is held to this share of gmres_tpu's (at least 2), and the
+# gap is printed.
+BICGSTAB_SPREAD = 0.15
+BICGSTAB_REPEATS = 5
+# The Lanczos phase: 20 steps from a ones probe on the 300² operator; its
+# exact λ_max (poisson_spectral_bounds) must lie inside the bounds.
+LANCZOS_N = 300
+# The hilbert program's A/B: Householder's orthogonality audit at least this
+# factor below MGSR's (gmres_tpu on the CPU: 9.05e-31 against 6.40e-16).
+HILBERT_AB = 1e6
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1976,9 +2015,175 @@ def rdma_applications(gt_torch, mesh, x, rd, forms, coefs) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: BiCGSTAB, the Lanczos bounds and the reference's programs.
+# ---------------------------------------------------------------------------
+
+
+def within_spread(iterations, jax_iterations) -> bool:
+    """A BiCGSTAB count against gmres_tpu's (BICGSTAB_SPREAD); prints the
+    gap and whether it is within 2."""
+    gap = iterations - jax_iterations
+    print(f"phase 15: bicgstab iterations {iterations} against gmres_tpu's "
+          f"{jax_iterations}: {gap:+d} ({100 * gap / jax_iterations:+.1f}%), "
+          f"{'within' if abs(gap) <= 2 else 'not within'} 2", flush=True)
+    return abs(gap) <= max(2, BICGSTAB_SPREAD * jax_iterations)
+
+
+def bicgstab_solves(gt_torch, dev):
+    """cbpr2 BiCGSTAB at BICGSTAB_GRIDS: timed solves, a profiled one, and
+    the checks (status, numpy residual, JAX's iterations, K1 per
+    application); returns K1's launches over the timed solves."""
+    import numpy as np
+
+    from gmres_tpu_torch.ops import stencil
+
+    k1_total = 0
+    for n in BICGSTAB_GRIDS:
+        b_np = np_stencil(np.ones((n, n)))
+        b = gt_torch.as_tensor(b_np, dev)
+        op = gt_torch.poisson_operator(n)
+        applications = [0]
+
+        def counted(v, op=op):
+            applications[0] += 1
+            return op(v)
+
+        m_inv = gt_torch.chebyshev_preconditioner(counted, *REF_EIG)
+
+        def solve(b=b, m_inv=m_inv, counted=counted):
+            return gt_torch.bicgstab(counted, b, tol=CG_TOL, M=m_inv)
+
+        res, t_warm = timed(solve)
+        times = []
+        applications[0] = stencil.stencil5_cuda.launches = 0
+        for _ in range(BICGSTAB_REPEATS):
+            res, t_solve = timed(solve)
+            times.append(t_solve)
+        k1, applied = stencil.stencil5_cuda.launches, applications[0]
+        k1_total += k1
+        err = abs_residual(b_np, res.x, n)
+        jax_its = JAX_BICGSTAB_ITERATIONS[n]
+        per_solve = applied / BICGSTAB_REPEATS
+        print(f"phase 15: cbpr2 BiCGSTAB {n}x{n} f64: status {res.status}, "
+              f"{res.iterations} iterations (gmres_tpu on the CPU: {jax_its}), "
+              f"{res.host_syncs} host syncs, residual {float(res.residual):.4e}, numpy "
+              f"‖b − A x‖ {err:.4e}; wall s over {BICGSTAB_REPEATS} solves: "
+              f"{quartiles(times)} (warm-up {t_warm:.4f}); "
+              f"{1e3 * float(np.median(times)) / res.iterations:.4f} ms per iteration; "
+              f"K1 launches {k1} for {applied} operator applications "
+              f"({per_solve:.1f} a solve = 4 x {res.iterations} + "
+              f"{per_solve - 4 * res.iterations:.1f}: the ‖A‖ probe, the "
+              "certification, the residual replacements)", flush=True)
+        prof = profile_solve(solve, f"bicgstab {n}x{n}", float(np.median(times)))
+        print(f"phase 15: bicgstab {n}x{n}: {prof['kernels'] / res.iterations:.2f} kernels "
+              f"and {prof['copies'] / res.iterations:.2f} copies or sets per iteration "
+              "on the device", flush=True)
+        require(res.status == 0, f"bicgstab {n}: status {res.status}")
+        require(err < CG_TOL, f"bicgstab {n}: numpy residual {err:.3e} >= {CG_TOL}")
+        require(within_spread(res.iterations, jax_its),
+                f"bicgstab {n}: {res.iterations} iterations, gmres_tpu {jax_its}")
+        require(k1 == applied >= BICGSTAB_REPEATS * (4 * res.iterations + 2),
+                f"bicgstab {n}: K1 launches {k1}, operator applications {applied}")
+        require(res.host_syncs == res.iterations + 2,
+                f"bicgstab {n}: {res.host_syncs} host syncs")
+    return k1_total
+
+
+def program_rows(cli, argv, workdir):
+    """Run one program in this process; its JSONL rows, each of status 0."""
+    jsonl = os.path.join(workdir, "programs.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    t0 = time.perf_counter()
+    cli.main(argv + ["--jsonl", jsonl])
+    seconds = time.perf_counter() - t0
+    with open(jsonl) as f:
+        rows = [json.loads(line) for line in f]
+    require(rows, f"{' '.join(argv)}: no rows")
+    for r in rows:
+        require(r["status"] == 0, f"{' '.join(argv)}: row {r['name']} status {r['status']}")
+    print(f"phase 15: python -m gmres_tpu_torch.benchmarks {' '.join(argv)}: "
+          f"{seconds:.1f} s, rows " + "; ".join(
+              f"{r['name']} {r['iterations']} it"
+              + (f" {r['restarts']} rst" if "restarts" in r else "")
+              + f" residual {r['residual']:.3e} wall {r['wall_s']:.4f} s" for r in rows),
+          flush=True)
+    return rows
+
+
+def phase_programs(gt_torch, dev, workdir):
+    """Phase 15; returns the launches of K1, K1rr, K1cr and K2 over it."""
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.ops import fused, stencil
+
+    t_phase = time.perf_counter()
+    # K1 (A, and the A inside cbpr2), its V-cycle forms and K2 (weak-scaling's mg).
+    counters = {"K1": stencil.stencil5_cuda, "K1rr": stencil.residual_restrict_cuda,
+                "K1cr": stencil.correct_residual_cuda, "K2": fused.chebk_cuda}
+    for c in counters.values():
+        c.launches = 0
+    bicgstab_solves(gt_torch, dev)
+
+    rows = {r["name"]: r for r in program_rows(cli, ["hilbert"], workdir)}
+    mgsr, hh = rows["gmres-mgsr-hilbert"], rows["gmres-householder-hilbert"]
+    print(f"phase 15: hilbert n=12 max|I - V^T V|: MGSR {mgsr['v_err']:.3e}, "
+          f"Householder {hh['v_err']:.3e} (gmres_tpu on the CPU: 6.40e-16, 9.05e-31)",
+          flush=True)
+    require(hh["v_err"] <= mgsr["v_err"] / HILBERT_AB,
+            f"hilbert: Householder {hh['v_err']:.3e} not {HILBERT_AB:g} below "
+            f"MGSR {mgsr['v_err']:.3e}")
+
+    n = LANCZOS_N
+    lam_min, lam_max = gt_torch.poisson_spectral_bounds(n)
+    before = counters["K1"].launches
+    lo, hi = gt_torch.lanczos_bounds(gt_torch.poisson_operator(n),
+                                     torch.ones((n, n), dtype=torch.float64, device=dev), 20)
+    k1 = counters["K1"].launches - before
+    lo_c, hi_c = gt_torch.lanczos_bounds(gt_torch.poisson_operator(n),
+                                         torch.ones((n, n), dtype=torch.float64), 20)
+    print(f"phase 15: lanczos_bounds(poisson_operator({n}), ones, 20) on the card "
+          f"({float(lo):.6g}, {float(hi):.6g}), on the CPU ({float(lo_c):.6g}, "
+          f"{float(hi_c):.6g}); exact ({lam_min:.6g}, {lam_max:.6g}); K1 launches {k1}",
+          flush=True)
+    require(float(lo) <= lam_max <= float(hi), "lanczos: λ_max outside the bounds")
+    require(k1 == 20, f"lanczos: {k1} K1 launches for 20 steps")
+    for g, c in ((lo, lo_c), (hi, hi_c)):
+        require(abs(float(g) - float(c)) <= 1e-10 * max(abs(float(c)), 1e-300),
+                "lanczos: the card's bounds differ from the CPU's")
+
+    kind = torch.cuda.get_device_name(0)
+    for argv in (["dense-poisson"],
+                 ["poisson-mf", "--nsize", "300", "--restart", "50", "--tol", "1e-8"],
+                 ["cg", "--grids", "300:1000:700"],
+                 ["bicgstab", "--grids", "300:1000:700"],
+                 ["restart-sweep", "--ntests", "2", "--tol", "1e-8"],
+                 ["strong-scaling", "--max-devices", "1", "--tol", "1e-8"],
+                 ["strong-scaling", "--max-devices", "1", "--tol", "1e-8",
+                  "--explicit-halo"],
+                 ["weak-scaling", "--max-devices", "1"]):
+        rows = program_rows(cli, argv, workdir)
+        if argv[0].endswith("-scaling"):
+            require([r["devices"] for r in rows] == [1] and rows[0]["device"] == kind,
+                    f"{argv[0]}: rows {rows}")
+        if argv[0] == "bicgstab":
+            for r in rows:
+                n = int(r["name"].split("x")[-1])
+                require(within_spread(r["iterations"], JAX_BICGSTAB_ITERATIONS[n]),
+                        f"bicgstab program {n}: {r['iterations']} iterations")
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; launches over the phase: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    require(all(v > 0 for v in launches.values()), f"phase 15: launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs a GPU",
               file=sys.stderr)
@@ -2098,9 +2303,12 @@ def main() -> int:
 
     # Phase 12: the strong-scaling path (halo operator, K1 and K5, MGSR);
     # phase 13: K6 and the roofline program; phase 14: K8 and the RDMA route.
+    # Phase 15: BiCGSTAB, the Lanczos bounds and the reference's programs.
     with tempfile.TemporaryDirectory() as workdir:
         strong, (dd_records, roof), (rdma_records, k8) = phases_on_one_rank(
             gt_torch, rng, dev, workdir, floor)
+        programs = phase_programs(gt_torch, dev, workdir)
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(rdma_records)
 
@@ -2119,6 +2327,7 @@ def main() -> int:
         }
 
     mg_count = {k: launches[300][k] + launches[2048][k] for k in launches[300]}
+    programs_path = "bicgstab, lanczos and the reference's programs (phase 15)"
     mg_k1, mg_k2 = mg_count["K1"], mg_count["K2"]
     mg_k2_paths = {p: mg_count[f"K2 {p}"] for p in ("cluster", "tiled", "sweep")}
     redesign = {"launch_floor_ms": floor["slope_ms"],
@@ -2145,33 +2354,39 @@ def main() -> int:
     print(json.dumps({"kernels": [
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
-               mg_k1 + strong["K1"] + roof["K1"],
+               mg_k1 + strong["K1"] + roof["K1"] + programs["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
-                                 roofline_path: roof["K1"]},
+                                 roofline_path: roof["K1"],
+                                 programs_path: programs["K1"]},
                path_shape=f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, one point a thread",
                **timing("K1", f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, "
                               "one point a thread"),
                halo_applications=strong["applications"], **redesign),
         report("K1rr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
-               mg_count["K1rr"] + roof["K1rr"], "K1 residual-restrict 300x300 -> 150 f32",
+               mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"],
+               "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
-               launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"]},
+               launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
+                                 programs_path: programs["K1rr"]},
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
-               mg_count["K1cr"] + roof["K1cr"], "K1 correct-residual 300x300 <- 150 f32",
+               mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"],
+               "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
-               launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"]},
+               launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
+                                 programs_path: programs["K1cr"]},
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
-               mg_k2 + roof["K2"], "K2 order 3 2048x2048 f32",
+               mg_k2 + roof["K2"] + programs["K2"], "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
-               launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"]},
+               launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
+                                    programs_path: programs["K2"]},
                path=[r["path"] for r in records["K2"]
                      if r["case"] == "K2 order 3 2048x2048 f32"][0],
                sweep_path_ms=[r["sweep_ms"] for r in records["K2"]

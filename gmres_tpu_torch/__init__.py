@@ -1,27 +1,36 @@
 """gmres_tpu_torch — the PyTorch/CUDA port of ``gmres_tpu``.
 
-The first slice of the port is the flagship solve of ``gmres_tpu``:
-restarted Householder GMRES on the matrix-free 5-point Poisson operator,
-preconditioned by the reference's cbpr2 Chebyshev polynomial or by the
-geometric multigrid V-cycle, in full float64 or with float32 Arnoldi
-cycles certified on the float64 true residual. The second is the sparse
-path: the CSR/COO/ELL/DIA/HYB/BSR formats (``ops/sparse.py``) under
-classic and pipelined conjugate gradients (``solvers/cg.py``). The third
-is the distributed explicit-halo path (``parallel/``): a 1-D device mesh,
-row-sharded DTensor grid vectors, the halo stencil operator and the fused
-cbpr2 preconditioner, under MGSR GMRES and CG. The fourth is the
-``roofline`` program (``benchmarks/``, ``utils/``) with the float64-accurate
-stencil on (hi, lo) float32 pairs (``ops/dd.py``, ``ops/stencil.py``), and
-the RDMA-route operators (``ops/stencil_rdma.py``,
-``parallel/halo.py:rdma_*``, not exported here, as in ``gmres_tpu``).
+The port covers, slice by slice (ROADMAP.md, queue 1):
+
+* the flagship solve: restarted Householder and MGSR GMRES on the
+  matrix-free 5-point Poisson operator, preconditioned by the reference's
+  cbpr2 Chebyshev polynomial or by the geometric multigrid V-cycle, in
+  full float64 or with float32 Arnoldi cycles certified on the float64
+  true residual;
+* the sparse path: the CSR/COO/ELL/DIA/HYB/BSR formats (``ops/sparse.py``)
+  under classic and pipelined conjugate gradients (``solvers/cg.py``);
+* the distributed explicit-halo path (``parallel/``): a 1-D device mesh,
+  row-sharded DTensor grid vectors, the halo stencil operator and the
+  fused cbpr2 preconditioner, under MGSR GMRES and CG; and the RDMA-route
+  operators (``ops/stencil_rdma.py``, ``parallel/halo.py:rdma_*``, not
+  exported here, as in ``gmres_tpu``);
+* the float64-accurate stencil on (hi, lo) float32 pairs (``ops/dd.py``,
+  ``ops/stencil.py``);
+* the rest of the reference's own surface: BiCGSTAB with residual
+  replacement (``solvers/bicgstab.py``), the Lanczos bounds and Arnoldi
+  helpers (``solvers/lanczos.py``, ``precond/chebyshev.py:
+  chebyshev_from_lanczos``), the Hilbert model (``models/hilbert.py``),
+  the 3-D 7-point stencil, and the reference's eight programs with
+  the ``roofline`` program, as ``python -m gmres_tpu_torch.benchmarks
+  <program>`` (``benchmarks/cli.py``, ``utils/reporting.py``).
 
 Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
 ``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
 and never ``jax``. On a CUDA tensor the stencil runs in kernel K1
-(``csrc/stencil5.cu``) and the order-k Chebyshev smoothers in kernel K2
-(``csrc/chebk.cu``), the DIA SpMV (DIA and HYB operators) in kernel K3
-(``csrc/dia_spmv.cu``) and the BSR SpMV in kernel K4
-(``csrc/bsr_spmv.cu``), the fused cbpr2 application in kernel K5
+(``csrc/stencil5.cu``, with its two fused V-cycle forms) and the order-k
+Chebyshev smoothers in kernel K2 (``csrc/chebk.cu``), the DIA SpMV (DIA
+and HYB operators) in kernel K3 (``csrc/dia_spmv.cu``) and the BSR SpMV in
+kernel K4 (``csrc/bsr_spmv.cu``), the fused cbpr2 application in kernel K5
 (``csrc/cheb2_fused.cu``), the stencil on pairs in kernel K6
 (``csrc/stencil5_dd.cu``), the fused CG update and axpy-dot in kernel K7
 (``csrc/cg_fused.cu``) and the RDMA route's affine stencil in kernel K8
@@ -37,8 +46,10 @@ from gmres_tpu_torch.types import (
     SolverStatus,
     as_tensor,
 )
+from gmres_tpu_torch.solvers.bicgstab import bicgstab
 from gmres_tpu_torch.solvers.cg import cg
 from gmres_tpu_torch.solvers.gmres import gmres
+from gmres_tpu_torch.solvers.lanczos import lanczos_bounds, power_iteration_bound
 from gmres_tpu_torch.precond.chebyshev import (
     chebyshev_preconditioner,
     chebyshev_stencil_preconditioner,
@@ -49,6 +60,7 @@ from gmres_tpu_torch.precond.multigrid import (
     prolong_repeat,
     restrict_sum,
 )
+from gmres_tpu_torch.models.hilbert import hilbert_matrix
 from gmres_tpu_torch.models.poisson import (
     poisson_apply,
     poisson_matrix,
@@ -109,14 +121,18 @@ __all__ = [
     "SolveResult",
     "SolverStatus",
     "as_tensor",
+    "bicgstab",
     "cg",
     "gmres",
+    "lanczos_bounds",
+    "power_iteration_bound",
     "chebyshev_preconditioner",
     "chebyshev_stencil_preconditioner",
     "MultigridPlan",
     "poisson_multigrid_preconditioner",
     "prolong_repeat",
     "restrict_sum",
+    "hilbert_matrix",
     "poisson_apply",
     "poisson_matrix",
     "poisson_operator",

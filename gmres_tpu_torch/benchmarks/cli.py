@@ -1,29 +1,67 @@
 """Driver programs of the PyTorch/CUDA port, as one CLI.
 
 Counterpart of ``benchmarks/cli.py``, which has a subcommand for each
-reference program. Ported so far:
+reference program (SURVEY.md §4). Ported so far, with the JAX defaults and
+flags:
 
-  roofline   achieved bandwidth of the stencil routes (plain float32 and
-             float64, kernel K1, kernel K6 on (hi, lo) pairs), of the
-             order-k Chebyshev smoother (kernel K2) and of the multigrid
-             V-cycle, against the card's HBM peak
+  dense-poisson   ← tests/test_poisson.f90: dense MGSR vs Householder
+  hilbert         ← tests/test_hilbert.f90: orthogonality A/B at n, m
+  poisson-mf      ← tests/test_poisson_mf.f90: cbpr2-preconditioned
+                    Householder vs MGSR, matrix-free (flagship)
+  cg              ← tests/test_cg.f90: PCG grid sweep 300²..1000², 1e-9
+  bicgstab        ← tests/test_bicgstab.f90: the same sweep
+  strong-scaling  ← tests/strong_scaling.f90: fixed grid, rank count 1..D
+  weak-scaling    ← the true weak scaling the reference commented out
+                    (weak_scaling.f90:60): the grid grows with the ranks
+  restart-sweep   ← tests/weak_scaling.f90 (misnamed there: it sweeps the
+                    restart parameter m)
+  roofline        achieved bandwidth of the stencil routes (plain float32
+                  and float64, kernel K1, kernel K6 on (hi, lo) pairs), of
+                  the order-k Chebyshev smoother (kernel K2) and of the
+                  multigrid V-cycle, against the card's HBM peak
 
 Usage: python -m gmres_tpu_torch.benchmarks <subcommand> [options]
 
 Every subcommand runs on the card unless ``--device cpu`` is given, and
 raises where there is no card and no such flag. It prints the
 reference-style table and can append its rows to JSONL (``--jsonl PATH``).
+A solve is timed as in JAX's ``_timed``: one warm-up solve, then one timed
+solve that ends in a device synchronisation.
+
+One process drives one card. ``strong-scaling`` and ``weak-scaling`` run
+under ``torchrun --nproc-per-node W`` (or in a process group the caller
+made) and sweep the device count d over the first d ranks, up to
+``min(--max-devices, W)``; ranks outside a mesh sit that run out and only
+rank 0 prints. Run alone, such a program makes a one-rank group of its
+own (NCCL on the card, gloo with ``--device cpu``). Both apply the
+explicit-halo operator (kernel K1 on each rank's rows) at every d, with
+or without ``--explicit-halo``: JAX lets GSPMD partition the plain
+operator over a sharded b, and PyTorch has no such partitioner (on the
+card K1 needs a plain tensor's storage, which a DTensor lacks). The
+preconditioner is the program's own cbpr2 over that operator. JAX's
+``hlo_static_collectives`` reads XLA's HLO and has no counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+import contextlib
+import os
+import tempfile
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from gmres_tpu_torch.utils.reporting import RunRecord, is_host0, print_table, write_jsonl
+from gmres_tpu_torch.utils.reporting import (
+    RunRecord,
+    is_host0,
+    print_table,
+    record_from_result,
+    write_jsonl,
+)
 
 # The card's L2 (H100: 50 MB). A chained row whose working set fits there
 # re-reads its data from L2, not from HBM.
@@ -31,6 +69,14 @@ L2_BYTES = 50 * 2**20
 # A row may exceed the HBM peak by measurement noise; beyond this it must
 # carry a stated traffic model.
 PEAK_SLACK = 1.05
+
+
+# Chebyshev eigenvalue bounds every reference program hardcodes
+# (test_poisson_mf.f90:38 params=(8.2, 0.2)).
+REF_EIG = (0.2, 8.2)
+# The restart-sweep solvers of the JAX program; the ones without a port
+# exit with a message (see cmd_restart_sweep).
+RESTART_SOLVERS = ("gmres", "lgmres", "gmres-dr")
 
 
 def _emit(records, args):
@@ -46,6 +92,357 @@ def _device(args) -> torch.device:
                            "card; pass --device cpu for the plain versions "
                            "on the CPU")
     return torch.device(args.device)
+
+
+def _synchronize(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(solve: Callable, dev: torch.device):
+    """One warm-up solve, then one timed solve that ends in a device
+    synchronisation (the reference's omp_get_wtime wraps only the solve,
+    test_poisson_mf.f90:44-46)."""
+    solve()
+    _synchronize(dev)
+    t0 = time.perf_counter()
+    out = solve()
+    _synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def _grid_range(spec: str):
+    """'300:1000:50' → [300, 350, ..., 1000]."""
+    lo, hi, step = (int(v) for v in spec.split(":"))
+    return list(range(lo, hi + 1, step))
+
+
+def _ones(shape, dev) -> torch.Tensor:
+    return torch.ones(shape, dtype=torch.float64, device=dev)
+
+
+def _total_inner(res, m: int) -> int:
+    return max(int(res.restarts) - 1, 0) * m + int(res.iterations)
+
+
+def _record(name, res, extra=None, **kw):
+    """``record_from_result`` with the solve's status among the row's
+    extra fields (JAX's rows carry none; a row of the port says whether
+    its solve converged)."""
+    return record_from_result(name, res, extra={"status": int(res.status),
+                                                **(extra or {})}, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The reference's programs.
+# ---------------------------------------------------------------------------
+
+
+def cmd_dense_poisson(args):
+    """Dense 5-point Poisson matrix: MGSR against Householder GMRES."""
+    from gmres_tpu_torch.models.poisson import poisson_matrix
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    dev = _device(args)
+    n, m = args.nsize, args.restart
+    a = poisson_matrix(n, device=dev)
+    x_true = _ones(n * n, dev)
+    b = a @ x_true
+    records = []
+    for variant in ("mgsr", "householder"):
+        res, dt = _timed(lambda v=variant: gmres(
+            a, b, restart=m, tol=args.tol, variant=v,
+            max_restarts=args.max_restarts), dev)
+        records.append(_record(
+            f"gmres-{variant}-dense", res, x_true=x_true, wall_s=dt,
+            tol=args.tol, nnz=(n * n) ** 2))
+    _emit(records, args)
+    return records
+
+
+def cmd_hilbert(args):
+    """The Hilbert matrix's orthogonality A/B: one cycle of MGSR and of
+    Householder GMRES, with the |I − VᵀV| audit."""
+    from gmres_tpu_torch.models.hilbert import hilbert_matrix
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    dev = _device(args)
+    n, m = args.n, args.restart
+    a = hilbert_matrix(n, device=dev)
+    x_true = _ones(n, dev)
+    b = a @ x_true
+    records = []
+    for variant in ("mgsr", "householder"):
+        res, dt = _timed(lambda v=variant: gmres(
+            a, b, restart=m, tol=args.tol, variant=v, max_restarts=1), dev)
+        records.append(_record(
+            f"gmres-{variant}-hilbert", res, x_true=x_true, wall_s=dt,
+            tol=args.tol))
+    _emit(records, args)
+    return records
+
+
+def cmd_poisson_mf(args):
+    """The flagship: matrix-free Poisson, cbpr2 on REF_EIG, Householder
+    against MGSR (``--mixed``: float32 Arnoldi cycles)."""
+    from gmres_tpu_torch.models.poisson import poisson_operator
+    from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    dev = _device(args)
+    n, m = args.nsize, args.restart
+    op = poisson_operator(n)
+    m_inv = chebyshev_preconditioner(op, *REF_EIG)
+    x_true = _ones((n, n), dev)
+    b = op(x_true)
+    inner = torch.float32 if args.mixed else None
+    records = []
+    for variant in ("householder", "mgsr"):
+        res, dt = _timed(lambda v=variant: gmres(
+            op, b, restart=m, tol=args.tol, M=m_inv, variant=v,
+            max_restarts=args.max_restarts, inner_dtype=inner,
+            compute_v_err=not args.no_v_err), dev)
+        iters = _total_inner(res, m)
+        records.append(_record(
+            f"gmres-{variant}-mf{'-f32' if args.mixed else ''}", res,
+            x_true=x_true, wall_s=dt, tol=args.tol, nnz=5 * n * n - 4 * n,
+            extra={"matvecs": 2 * iters, "total_iters": iters}))
+    _emit(records, args)
+    return records
+
+
+def _sweep(args, solver_name: str):
+    """cbpr2 CG or BiCGSTAB over the grids of ``--grids``, b = A·1."""
+    from gmres_tpu_torch.models.poisson import poisson_operator
+    from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
+    from gmres_tpu_torch.solvers.bicgstab import bicgstab
+    from gmres_tpu_torch.solvers.cg import cg
+
+    dev = _device(args)
+    solver = cg if solver_name == "cg" else bicgstab
+    records = []
+    for n in _grid_range(args.grids):
+        op = poisson_operator(n)
+        m_inv = chebyshev_preconditioner(op, *REF_EIG)
+        x_true = _ones((n, n), dev)
+        b = op(x_true)
+        res, dt = _timed(lambda: solver(
+            op, b, tol=args.tol, max_iterations=args.max_iterations,
+            M=m_inv), dev)
+        # A and the A inside M: 2 per CG iteration, 4 per BiCGSTAB one.
+        matvecs_per_iter = 2 if solver_name == "cg" else 4
+        records.append(_record(
+            f"p{solver_name}-{n}x{n}", res, x_true=x_true, wall_s=dt,
+            tol=args.tol, nnz=5 * n * n - 4 * n,
+            extra={"matvecs": matvecs_per_iter * int(res.iterations),
+                   "host_syncs": res.host_syncs}))
+    _emit(records, args)
+    return records
+
+
+def cmd_cg(args):
+    return _sweep(args, "cg")
+
+
+def cmd_bicgstab(args):
+    return _sweep(args, "bicgstab")
+
+
+@contextlib.contextmanager
+def _process_group(dev: torch.device):
+    """The default process group: the caller's (``torchrun``'s, or one made
+    before the call), or a one-rank group made here and destroyed on exit
+    (NCCL for the card, gloo for the CPU)."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+            if dev.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
+                                    rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _scaling_meshes(max_devices: int, dev: torch.device, sizes):
+    """(d, n, mesh) for each device count d of the sweep whose grid n
+    (``sizes(d)``, None to skip d) is to run, the mesh over the first d
+    ranks; every rank builds every mesh (a collective), and only the ranks
+    inside it get the entry."""
+    from gmres_tpu_torch.parallel.mesh import solver_mesh
+
+    world = dist.get_world_size()
+    for d in range(1, min(max_devices or world, world) + 1):
+        n = sizes(d)
+        if n is None:
+            continue
+        mesh = solver_mesh(d, device_type=dev.type)
+        if mesh.get_coordinate() is not None:
+            yield d, n, mesh
+
+
+def _scaling_solve(args, n, mesh, dev, m_inv=None, shard=True):
+    """MGSR GMRES on the halo operator over ``mesh`` with cbpr2 over it (or
+    ``m_inv``); b = A·1 row-sharded over the mesh (``shard``) or plain."""
+    from gmres_tpu_torch.models.poisson import poisson_apply
+    from gmres_tpu_torch.parallel.halo import halo_poisson_operator
+    from gmres_tpu_torch.parallel.mesh import shard_grid_vector
+    from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    op = halo_poisson_operator(mesh)
+    if m_inv is None:
+        m_inv = chebyshev_preconditioner(op, *REF_EIG)
+    b = poisson_apply(_ones((n, n), dev))
+    if shard:
+        b = shard_grid_vector(b, mesh)
+    return _timed(lambda: gmres(
+        op, b, restart=args.restart, tol=args.tol, M=m_inv, variant="mgsr",
+        max_restarts=args.max_restarts, compute_v_err=False), dev)
+
+
+def _caveat(dev: torch.device) -> dict:
+    if dev.type == "cpu":
+        return {"caveat": "cpu: gloo processes on shared host cores; the time "
+                "columns measure no card and no NCCL communication"}
+    return {"device": torch.cuda.get_device_name(dev)}
+
+
+def cmd_strong_scaling(args):
+    """Fixed grid, growing device count (the reference sweeps OpenMP
+    threads 1..6, strong_scaling.f90:44-45)."""
+    dev = _device(args)
+    n, m = args.nsize, args.restart
+    records = []
+    with _process_group(dev):
+        base_t = None
+        for d, _, mesh in _scaling_meshes(
+                args.max_devices, dev, lambda d: n if n % d == 0 else None):
+            res, dt = _scaling_solve(args, n, mesh, dev)
+            if base_t is None:
+                base_t = dt
+            extra = {"devices": d, "speedup": base_t / dt,
+                     "efficiency": base_t / dt / d,
+                     "total_iters": _total_inner(res, m), **_caveat(dev)}
+            records.append(_record(
+                f"gmres-mgsr-{d}dev", res, wall_s=dt, tol=args.tol,
+                nnz=5 * n * n - 4 * n, extra=extra))
+        _emit(records, args)
+    return records
+
+
+def cmd_weak_scaling(args):
+    """True weak scaling: the rows grow with the device count (the line the
+    reference commented out, weak_scaling.f90:60), d = 1, 2, 4, …
+
+    ``--precond mg`` (the default) keeps the iteration count flat across
+    rows; at d > 1 it needs the distributed V-cycle, which is not ported
+    (``poisson_multigrid_preconditioner(mesh=…)`` raises
+    NotImplementedError, ROADMAP queue 1, item 8.3). At d = 1 the V-cycle
+    takes b as a plain tensor (its kernels need a plain tensor's storage);
+    the halo operator takes it as the one rank's block."""
+    from gmres_tpu_torch.precond.multigrid import poisson_multigrid_preconditioner
+
+    dev = _device(args)
+    m = args.restart
+    records = []
+    with _process_group(dev):
+        base = base_work = None
+
+        def grid(d):
+            return args.nsize_per_device * d if d & (d - 1) == 0 else None
+
+        for d, n, mesh in _scaling_meshes(args.max_devices, dev, grid):
+            m_inv = None
+            if args.precond == "mg":
+                m_inv = poisson_multigrid_preconditioner(
+                    n, mesh=mesh if d > 1 else None)
+            res, dt = _scaling_solve(args, n, mesh, dev, m_inv=m_inv,
+                                     shard=args.precond != "mg")
+            iters = _total_inner(res, m)
+            per_iter = dt / max(iters, 1)
+            if base is None:
+                base, base_work = per_iter, n * n / d
+            # Constant rows per device on a 2-D grid means the work per
+            # device grows ∝ d: normalise by it.
+            expected = base * (n * n / d) / base_work
+            extra = {"devices": d, "precond": args.precond,
+                     "total_iters": iters, "time_per_iter": per_iter,
+                     "work_per_device": n * n // d,
+                     "weak_efficiency": expected / per_iter, **_caveat(dev)}
+            records.append(_record(
+                f"gmres-mgsr-{args.precond}-{d}dev-{n}x{n}", res, wall_s=dt,
+                tol=args.tol, nnz=5 * n * n - 4 * n, extra=extra))
+        _emit(records, args)
+    return records
+
+
+def cmd_restart_sweep(args):
+    """The reference's 'weak_scaling' program: fixed grid, m = start,
+    start+step, … (weak_scaling.f90:24,61), Householder GMRES with cbpr2.
+
+    --cycle-reps K > 0 adds a per-cycle time per m: a run of exactly K
+    cycles (tol 1e-30 never converges) timed --repeats times, the minimum
+    over K; derived_wall_s is that times the cycles of the solve.
+    --solver lgmres and gmres-dr need solvers that are not ported yet
+    (ROADMAP queue 1, item 9.1): the program exits with a message."""
+    from gmres_tpu_torch.models.poisson import poisson_operator
+    from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    if args.solver != "gmres":
+        raise SystemExit(
+            f"restart-sweep --solver {args.solver}: that solver is not ported "
+            "to gmres_tpu_torch yet (ROADMAP queue 1, item 9.1); use --solver gmres")
+    dev = _device(args)
+    n = args.nsize
+    op = poisson_operator(n)
+    m_inv = chebyshev_preconditioner(op, *REF_EIG)
+    x_true = _ones((n, n), dev)
+    b = op(x_true)
+
+    def solve_fn(mm, tol, max_restarts):
+        return lambda: gmres(op, b, restart=mm, tol=tol, M=m_inv,
+                             variant="householder", max_restarts=max_restarts,
+                             compute_v_err=False)
+
+    records = []
+    for i in range(args.ntests):
+        m = args.start + i * args.step
+        res, dt = _timed(solve_fn(m, args.tol, args.max_restarts), dev)
+        extra = {"restart_m": m, "total_iters": _total_inner(res, m)}
+        if args.cycle_reps:
+            fnc = solve_fn(m, 1e-30, args.cycle_reps)
+            fnc()  # warm once
+            ts = []
+            for _ in range(max(args.repeats, 1)):
+                _synchronize(dev)
+                t0 = time.perf_counter()
+                fnc()
+                _synchronize(dev)
+                ts.append(time.perf_counter() - t0)
+            per_cycle = min(ts) / args.cycle_reps
+            # the final cycle exits after `iterations` of m inner steps
+            cycles = max(int(res.restarts) - 1, 0) + int(res.iterations) / m
+            extra.update({
+                "time_per_cycle": per_cycle,
+                "time_per_cycle_spread": (max(ts) - min(ts)) / max(min(ts), 1e-30),
+                "cycle_reps": args.cycle_reps,
+                "timing_repeats": max(args.repeats, 1),
+                "derived_wall_s": per_cycle * cycles,
+            })
+        records.append(_record(
+            f"gmres-hh-m{m}", res, x_true=x_true, wall_s=dt, tol=args.tol,
+            nnz=5 * n * n - 4 * n, extra=extra))
+    _emit(records, args)
+    return records
 
 
 def cmd_roofline(args):
@@ -173,8 +570,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--jsonl", help="append rows to this JSONL file")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def add(name, fn, **defaults):
-        sp_ = sub.add_parser(name)
+    def add(name, fn, choices=None, help=None, **defaults):
+        sp_ = sub.add_parser(name, help=help, description=help)
         sp_.set_defaults(func=fn)
         # SUPPRESS: without it the subparser's default would clobber a
         # top-level --jsonl given before the subcommand.
@@ -186,10 +583,44 @@ def build_parser() -> argparse.ArgumentParser:
             if isinstance(v, bool):
                 sp_.add_argument(flag, action="store_true")
             else:
-                sp_.add_argument(flag, type=type(v), default=v)
+                sp_.add_argument(flag, type=type(v), default=v,
+                                 choices=(choices or {}).get(k))
         return sp_
 
-    add("roofline", cmd_roofline, grids="1024,2048,4096", reps=20, cheb_order=8)
+    add("dense-poisson", cmd_dense_poisson, nsize=16, restart=30,
+        tol=1e-15, max_restarts=1000,
+        help="dense Poisson matrix, MGSR vs Householder GMRES")
+    add("hilbert", cmd_hilbert, n=12, restart=90, tol=1e-15,
+        help="Hilbert matrix orthogonality A/B (one GMRES cycle each)")
+    add("poisson-mf", cmd_poisson_mf, nsize=300, restart=50, tol=1e-15,
+        max_restarts=1000, mixed=False, no_v_err=False,
+        help="matrix-free Poisson, cbpr2, Householder vs MGSR GMRES")
+    add("cg", cmd_cg, grids="300:1000:50", tol=1e-9, max_iterations=10_000,
+        help="cbpr2 CG over a grid sweep (absolute tol)")
+    add("bicgstab", cmd_bicgstab, grids="300:1000:50", tol=1e-9,
+        max_iterations=10_000,
+        help="cbpr2 BiCGSTAB over a grid sweep (absolute tol)")
+    scaling_note = (" The halo operator runs at every d, with or without "
+                    "--explicit-halo (no GSPMD partitioner in PyTorch).")
+    add("strong-scaling", cmd_strong_scaling, nsize=304, restart=50,
+        tol=1e-15, max_restarts=1000, max_devices=0, explicit_halo=False,
+        help="fixed grid over 1..min(--max-devices, ranks) ranks (torchrun "
+             "for several; alone, one rank), MGSR GMRES with cbpr2."
+             + scaling_note)
+    add("weak-scaling", cmd_weak_scaling, nsize_per_device=128, restart=50,
+        tol=1e-12, max_restarts=1000, max_devices=0, explicit_halo=False,
+        precond="mg", choices={"precond": ("mg", "chebyshev")},
+        help="grid rows grow with the ranks d = 1, 2, 4, …; --precond mg "
+             "at d > 1 raises NotImplementedError (distributed V-cycle not "
+             "ported)." + scaling_note)
+    add("restart-sweep", cmd_restart_sweep, nsize=280, start=20, step=5,
+        ntests=10, tol=1e-15, max_restarts=1000, cycle_reps=0, repeats=5,
+        solver="gmres", aug=3, deflate=10,
+        choices={"solver": RESTART_SOLVERS},
+        help="Householder GMRES over restart lengths m; lgmres and gmres-dr "
+             "are not ported (ROADMAP item 9.1) and exit with a message")
+    add("roofline", cmd_roofline, grids="1024,2048,4096", reps=20, cheb_order=8,
+        help="achieved bandwidth of the stencil, smoother and V-cycle routes")
     return p
 
 

@@ -26,6 +26,8 @@ Counterpart of ``gmres_tpu/ops/stencil.py``:
   (``csrc/stencil5_dd.cu``) for a CUDA pair, the plain float64 route for a
   CPU pair; ``stencil_5pt_f64_via_dd``, ``stencil_5pt_f64_dd_chain`` and
   ``stencil_5pt_general_f64_via_dd`` split, apply and recombine.
+* ``stencil_7pt_general`` / ``stencil_7pt_apply`` — the 3-D 7-point
+  stencil, plain PyTorch on any device (plain jnp in JAX too).
 """
 
 from __future__ import annotations
@@ -74,6 +76,36 @@ def stencil_5pt_general(
 def stencil_5pt_apply(x: torch.Tensor) -> torch.Tensor:
     """Laplacian special case: y = 4x − (W+E+S+N)."""
     return stencil_5pt_general(x, *POISSON_COEFS)
+
+
+def _shift3(x: torch.Tensor, d0: int, axis: int) -> torch.Tensor:
+    """Single-axis shift of a 3-D grid by ``d0`` with zero fill."""
+    y = torch.zeros_like(x)
+    n = x.shape[axis]
+    if d0 > 0:
+        y.narrow(axis, d0, n - d0).copy_(x.narrow(axis, 0, n - d0))
+    else:
+        y.narrow(axis, 0, n + d0).copy_(x.narrow(axis, -d0, n + d0))
+    return y
+
+
+def stencil_7pt_general(x: torch.Tensor, center: float,
+                        off: float = -1.0) -> torch.Tensor:
+    """3-D 7-point stencil y = center·x + off·(sum of the 6 face
+    neighbours), zero outside the grid; the neighbours are summed in the
+    JAX order, so the bits are JAX's. Plain PyTorch, as the JAX version is
+    plain jnp."""
+    s = (
+        _shift3(x, 1, 0) + _shift3(x, -1, 0)
+        + _shift3(x, 1, 1) + _shift3(x, -1, 1)
+        + _shift3(x, 1, 2) + _shift3(x, -1, 2)
+    )
+    return center * x + off * s
+
+
+def stencil_7pt_apply(x: torch.Tensor) -> torch.Tensor:
+    """3-D Laplacian special case: y = 6x − Σ face neighbours."""
+    return stencil_7pt_general(x, 6.0)
 
 
 def stencil_5pt_halo(

@@ -11,9 +11,13 @@ Counterpart of ``gmres_tpu/precond/chebyshev.py``:
   plain version (a CPU tensor). It replaces the TPU routing on
   ``_whole_grid_vmem_ok``; the JAX ``use_pallas`` switch has no
   counterpart, because the device decides.
+* ``chebyshev_from_lanczos`` — ``chebyshev_preconditioner`` on an interval
+  estimated by ``solvers/lanczos.py:lanczos_bounds``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 from gmres_tpu_torch.ops.fused import (
     chebyshev_k_scalars,
@@ -84,3 +88,26 @@ def chebyshev_stencil_preconditioner(
     m_inv.steps = tuple(steps)
     m_inv.order = order
     return m_inv
+
+
+def chebyshev_from_lanczos(
+    A: LinearOperator,
+    probe,
+    order: int = 2,
+    lanczos_steps: int = 20,
+    safety: float = 1.05,
+    floor: Optional[float] = None,
+) -> Preconditioner:
+    """``chebyshev_preconditioner`` on bounds estimated by Lanczos: the
+    upper end widened by ``safety``, the lower the Ritz estimate
+    (``rigorous=False``: the rigorous bound is typically 0 after few
+    steps) divided by ``safety`` and held above ``floor`` (default
+    hi·1e-8)."""
+    from gmres_tpu_torch.solvers.lanczos import lanczos_bounds
+
+    lo, hi = lanczos_bounds(A, probe, steps=lanczos_steps, rigorous=False)
+    hi = float(hi) * safety
+    if floor is None:
+        floor = hi * 1e-8
+    lo = max(float(lo) / safety, floor)
+    return chebyshev_preconditioner(A, lo, hi, order=order)

@@ -2,7 +2,8 @@
 
 Counterpart of ``gmres_tpu/utils/reporting.py``: the same record fields, the
 same table columns and the same JSON keys, so that rows of the two packages
-compare directly. Printing is gated to rank 0 of the process group when one
+compare directly; ``record_from_result`` reads a result's tensors back
+through ``.cpu().numpy()`` (a DTensor assembled first). Printing is gated to rank 0 of the process group when one
 exists (a multi-process program prints once); without a group this process
 is rank 0.
 """
@@ -13,8 +14,10 @@ import dataclasses
 import json
 import math
 import sys
-from typing import Iterable, Optional, Sequence
+from typing import Any, Iterable, Optional, Sequence
 
+import numpy as np
+import torch
 import torch.distributed as dist
 
 
@@ -70,6 +73,55 @@ class RunRecord:
         if self.extra:
             d.update(self.extra)
         return d
+
+
+def _numpy(t) -> np.ndarray:
+    """A result field as numpy: a DTensor assembled, a tensor through
+    ``.cpu().numpy()``."""
+    if isinstance(t, torch.Tensor):
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def record_from_result(
+    name: str,
+    result: Any,
+    *,
+    x_true=None,
+    wall_s: Optional[float] = None,
+    tol: Optional[float] = None,
+    nnz: Optional[int] = None,
+    extra: Optional[dict] = None,
+) -> RunRecord:
+    """A RunRecord from a SolveResult or GmresResult, with the
+    manufactured-solution errors L2 = ‖x − x*‖₂ and L∞ = max|x − x*| of
+    the reference programs, computed in numpy as gmres_tpu computes them."""
+    x = _numpy(result.x)
+    l2 = linf = None
+    if x_true is not None:
+        diff = x - _numpy(x_true)
+        l2 = float(np.linalg.norm(diff.ravel()))
+        linf = float(np.max(np.abs(diff)))
+    v_err = None
+    if hasattr(result, "v_err"):
+        v = _numpy(result.v_err)
+        v_err = float(np.max(v)) if v.size else None
+    return RunRecord(
+        name=name,
+        nvars=int(x.size),
+        iterations=int(result.iterations),
+        restarts=int(result.restarts) if hasattr(result, "restarts") else None,
+        tol=tol,
+        l2_error=l2,
+        linf_error=linf,
+        residual=float(result.residual),
+        v_err=v_err,
+        wall_s=wall_s,
+        nnz=nnz,
+        extra=extra,
+    )
 
 
 _COLUMNS = (

@@ -1,0 +1,207 @@
+"""The port's reference programs (``python -m gmres_tpu_torch.benchmarks``)
+against ``benchmarks/cli.py``, on the CPU.
+
+Each program runs with ``--device cpu`` at the smoke sizes of
+tests/test_benchmarks_cli.py and the JAX program with the same arguments;
+the port must print the reference table and write JSONL rows whose names
+are JAX's and whose iterations, restarts and status are JAX's within 2.
+In one process the scaling programs make a one-rank gloo group, so they run
+at d = 1 only (and JAX is given ``--max-devices 1``); two gloo processes
+(tests/torch_halo_worker.py) run ``strong-scaling --explicit-halo`` and
+``weak-scaling --precond chebyshev`` at d = 1, 2 against JAX's two-device
+rows, and ``weak-scaling --precond mg``, whose distributed V-cycle is not
+ported, must raise NotImplementedError there. Times are host times and are
+not compared.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch.multiprocessing as mp
+
+from benchmarks.cli import main as jax_main
+from gmres_tpu_torch.benchmarks.cli import main as port_main
+from tests import torch_halo_worker
+
+RUNS = {
+    "dense-poisson": ["dense-poisson", "--nsize", "8", "--restart", "20",
+                      "--tol", "1e-12"],
+    "hilbert": ["hilbert", "--n", "8", "--restart", "8", "--tol", "1e-14"],
+    "poisson-mf": ["poisson-mf", "--nsize", "24", "--restart", "20",
+                   "--tol", "1e-10", "--no-v-err"],
+    "poisson-mf-mixed": ["poisson-mf", "--nsize", "24", "--restart", "20",
+                         "--tol", "1e-9", "--no-v-err", "--mixed"],
+    "cg": ["cg", "--grids", "16:24:8", "--tol", "1e-8"],
+    "bicgstab": ["bicgstab", "--grids", "16:16:8", "--tol", "1e-8"],
+    "strong-scaling": ["strong-scaling", "--nsize", "16", "--restart", "10",
+                       "--tol", "1e-8", "--max-devices", "1",
+                       "--max-restarts", "200"],
+    "strong-scaling-halo": ["strong-scaling", "--nsize", "16", "--restart",
+                            "10", "--tol", "1e-8", "--max-devices", "1",
+                            "--explicit-halo", "--max-restarts", "200"],
+    "weak-scaling": ["weak-scaling", "--nsize-per-device", "8", "--restart",
+                     "10", "--tol", "1e-8", "--max-devices", "1",
+                     "--max-restarts", "200"],
+    "weak-scaling-chebyshev": ["weak-scaling", "--nsize-per-device", "8",
+                               "--restart", "10", "--tol", "1e-8",
+                               "--max-devices", "1", "--max-restarts", "200",
+                               "--precond", "chebyshev"],
+    "restart-sweep": ["restart-sweep", "--nsize", "16", "--start", "5",
+                      "--step", "5", "--ntests", "2", "--tol", "1e-8"],
+    "restart-sweep-cycles": ["restart-sweep", "--nsize", "16", "--start", "5",
+                             "--step", "5", "--ntests", "2", "--tol", "1e-8",
+                             "--cycle-reps", "2", "--repeats", "2"],
+}
+# Two gloo ranks, and JAX's rows on two devices.
+RUNS_2 = {
+    "strong-scaling-halo": ["strong-scaling", "--nsize", "16", "--restart",
+                            "10", "--tol", "1e-8", "--max-devices", "2",
+                            "--explicit-halo", "--max-restarts", "200"],
+    "weak-scaling-chebyshev": ["weak-scaling", "--nsize-per-device", "8",
+                               "--restart", "10", "--tol", "1e-8",
+                               "--max-devices", "2", "--max-restarts", "200",
+                               "--precond", "chebyshev"],
+}
+RUN_2_MG = ["weak-scaling", "--nsize-per-device", "8", "--restart", "10",
+            "--tol", "1e-8", "--max-devices", "2", "--max-restarts", "200"]
+HEADER = "solver"
+
+
+def _rows(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_rows(port, ref):
+    """The port's rows are JAX's by name, with iterations and restarts
+    within 2 and the same status."""
+    ref = {r["name"]: r for r in ref}
+    assert port and {r["name"] for r in port} <= set(ref)
+    for p in port:
+        j = ref[p["name"]]
+        # XLA's HLO has no PyTorch counterpart: the key is left out.
+        assert "hlo_static_collectives" not in p
+        for key in ("iterations", "restarts"):
+            if key in j:
+                assert abs(p[key] - j[key]) <= 2, (p["name"], key, p[key], j[key])
+        assert p["nvars"] == j["nvars"]
+        # JAX's rows carry no status: every smoke solve of JAX's converges
+        # (its residual under tol), and so must the port's (status 0).
+        assert j["residual"] < j["tol"] and p["status"] == 0, (p, j)
+
+
+@pytest.mark.parametrize("label", sorted(RUNS))
+def test_program_matches_jax(label, tmp_path, capsys):
+    argv = RUNS[label]
+    port_jsonl, jax_jsonl = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
+    port_main(argv + ["--device", "cpu", "--jsonl", port_jsonl])
+    printed = capsys.readouterr().out
+    assert HEADER in printed and "time[s]" in printed
+    jax_main(argv + ["--jsonl", jax_jsonl])
+    port, ref = _rows(port_jsonl), _rows(jax_jsonl)
+    _check_rows(port, ref)
+    names = [r["name"] for r in port]
+    for r in port:
+        assert names.count(r["name"]) == 1 and r["name"] in printed
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("cli_world2")
+    runs = {k: v + ["--device", "cpu"] for k, v in RUNS_2.items()}
+    runs["weak-scaling-mg"] = RUN_2_MG + ["--device", "cpu"]
+    mp.spawn(torch_halo_worker.run_cli,
+             args=(2, os.path.join(out_dir, "rendezvous"), str(out_dir), runs),
+             nprocs=2)
+    return out_dir
+
+
+@pytest.mark.parametrize("label", sorted(RUNS_2))
+def test_two_rank_program_matches_jax(label, two_ranks, tmp_path):
+    """Rows at d = 1 and d = 2 from two gloo ranks, against JAX's."""
+    for rank in (0, 1):
+        assert not os.path.exists(os.path.join(two_ranks, f"{label}.rank{rank}.err"))
+    port = _rows(os.path.join(two_ranks, f"{label}.jsonl"))
+    assert [r["devices"] for r in port] == [1, 2]
+    jax_jsonl = str(tmp_path / "jax.jsonl")
+    jax_main(RUNS_2[label] + ["--jsonl", jax_jsonl])
+    _check_rows(port, _rows(jax_jsonl))
+
+
+def test_weak_scaling_mg_on_two_ranks_raises(two_ranks):
+    """d = 1 runs (rank 0 alone); d = 2 needs the distributed V-cycle, and
+    both ranks raise its NotImplementedError, with no Chebyshev fallback."""
+    port = _rows(os.path.join(two_ranks, "weak-scaling-mg.jsonl")) if os.path.exists(
+        os.path.join(two_ranks, "weak-scaling-mg.jsonl")) else []
+    assert port == []  # the program emits its table only after the sweep
+    for rank in (0, 1):
+        with open(os.path.join(two_ranks, f"weak-scaling-mg.rank{rank}.err")) as f:
+            msg = f.read()
+        assert msg.startswith("NotImplementedError:") and "item 8" in msg
+
+
+@pytest.mark.parametrize("solver", ["lgmres", "gmres-dr"])
+def test_unported_restart_solver_exits(solver, capsys):
+    with pytest.raises(SystemExit) as exc:
+        port_main(["restart-sweep", "--nsize", "16", "--ntests", "1",
+                   "--solver", solver, "--device", "cpu"])
+    assert "item 9.1" in str(exc.value.code)
+    assert "solver" not in capsys.readouterr().out  # no table: nothing ran
+
+
+def test_solver_choices_are_validated():
+    with pytest.raises(SystemExit):
+        port_main(["restart-sweep", "--solver", "gmress", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("program", sorted({v[0] for v in RUNS.values()} | {"roofline"}))
+def test_program_raises_without_a_card(program, monkeypatch):
+    """No CUDA device and no --device cpu: the program raises, it does not
+    fall back to the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main([program])
+
+
+def test_help_lists_the_programs():
+    out = subprocess.run([sys.executable, "-m", "gmres_tpu_torch.benchmarks", "--help"],
+                         capture_output=True, text=True, check=True,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).stdout
+    for program in ("dense-poisson", "hilbert", "poisson-mf", "cg", "bicgstab",
+                    "strong-scaling", "weak-scaling", "restart-sweep", "roofline"):
+        assert program in out
+
+
+BLOCKED = """
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "gmres_tpu.")) or name == "gmres_tpu":
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, _Block())
+sys.modules["jax"] = None
+import gmres_tpu_torch
+import gmres_tpu_torch.benchmarks.cli
+import gmres_tpu_torch.solvers.bicgstab, gmres_tpu_torch.solvers.lanczos
+import gmres_tpu_torch.models.hilbert, gmres_tpu_torch.utils.reporting
+import gmres_tpu_torch.precond.chebyshev, gmres_tpu_torch.ops.stencil
+gmres_tpu_torch.benchmarks.cli.main(["bicgstab", "--grids", "8:8:8", "--device", "cpu"])
+assert not any(m == "jax" or m.startswith(("jax.", "gmres_tpu.")) or m == "gmres_tpu"
+               for m in sys.modules if sys.modules[m] is not None)
+print("no jax")
+"""
+
+
+def test_port_imports_no_jax():
+    """The new modules import and a program runs with jax and gmres_tpu
+    blocked, in a fresh process."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", BLOCKED], capture_output=True,
+                         text=True, cwd=root, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "no jax" in out.stdout

@@ -1,5 +1,6 @@
 """Kernels K1–K8 of the PyTorch port on the card, against their plain
-PyTorch versions, and the main paths' use of them.
+PyTorch versions, and the main paths' use of them (BiCGSTAB, the Lanczos
+bounds and the reference's programs among them).
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither jax nor gmres_tpu, so it also runs on a machine without
@@ -759,3 +760,80 @@ def test_k8_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="halo row"):
         trd.rdma_edges_cuda(y, torch.zeros(8, device=cuda_device),
                             torch.zeros(16, device=cuda_device), c)
+
+
+def _bicgstab_64(device, calls=None):
+    n = 64
+    op = tt.poisson_operator(n)
+
+    def counted(v):
+        if calls is not None:
+            calls[0] += 1
+        return op(v)
+
+    b = tt.as_tensor(np_poisson(np.ones((n, n))), device)
+    return tt.bicgstab(counted, b, tol=1e-9,
+                       M=tt.chebyshev_preconditioner(counted, 0.2, 8.2))
+
+
+def test_bicgstab_on_the_card_matches_cpu_and_launches_k1_per_application(cuda_device):
+    """cbpr2 BiCGSTAB at 64²: the card's solve against the port's CPU solve
+    (the same status, iterations within 2, x to 1e-6), one K1 launch per
+    operator application: 4 an iteration (A z1, A z2, the A in each
+    cbpr2), the ‖A‖ probe, each residual replacement and the certification
+    (the applications are counted by a wrapper around A)."""
+    cpu = _bicgstab_64("cpu")
+    calls = [0]
+    before = tst.stencil5_cuda.launches
+    gpu = _bicgstab_64(cuda_device, calls)
+    torch.cuda.synchronize()
+    launched = tst.stencil5_cuda.launches - before
+    assert gpu.status == cpu.status == tt.SolverStatus.CONVERGED
+    assert abs(gpu.iterations - cpu.iterations) <= 2
+    assert rel_err(gpu.x, cpu.x) <= 1e-6
+    assert launched == calls[0] >= 4 * gpu.iterations + 2
+    assert gpu.host_syncs == gpu.iterations + 2
+    true = np.linalg.norm(np_poisson(np.ones((64, 64)))
+                          - np_poisson(gpu.x.cpu().numpy()))
+    assert true < 1e-9
+
+
+def test_lanczos_bounds_on_the_card_match_cpu(cuda_device):
+    n = 64
+    for rigorous in (True, False):
+        cpu = tt.lanczos_bounds(tt.poisson_operator(n), torch.ones((n, n), dtype=torch.float64),
+                                20, rigorous)
+        before = tst.stencil5_cuda.launches
+        gpu = tt.lanczos_bounds(tt.poisson_operator(n),
+                                torch.ones((n, n), dtype=torch.float64, device=cuda_device),
+                                20, rigorous)
+        assert tst.stencil5_cuda.launches - before == 20
+        assert gpu[0].device.type == "cuda"
+        for g, c in zip(gpu, cpu):
+            assert abs(float(g) - float(c)) <= 1e-10 * max(abs(float(c)), 1e-300)
+
+
+def test_programs_run_on_the_card(cuda_device, tmp_path):
+    """The eight programs at smoke sizes on the card (their default
+    device): every row converged."""
+    import json
+
+    from gmres_tpu_torch.benchmarks.cli import main
+
+    out = str(tmp_path / "rows.jsonl")
+    for argv in (["dense-poisson", "--nsize", "8", "--restart", "20", "--tol", "1e-12"],
+                 ["hilbert"],
+                 ["poisson-mf", "--nsize", "24", "--restart", "20", "--tol", "1e-10"],
+                 ["cg", "--grids", "16:24:8", "--tol", "1e-8"],
+                 ["bicgstab", "--grids", "16:24:8", "--tol", "1e-8"],
+                 ["strong-scaling", "--nsize", "16", "--restart", "10", "--tol", "1e-8"],
+                 ["weak-scaling", "--nsize-per-device", "16", "--restart", "10",
+                  "--tol", "1e-8"],
+                 ["restart-sweep", "--nsize", "16", "--start", "5", "--ntests", "2",
+                  "--tol", "1e-8"]):
+        main(argv + ["--jsonl", out])
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
+    assert len(rows) == 2 + 2 + 2 + 2 + 2 + 1 + 1 + 2
+    for r in rows:
+        assert r["status"] == 0, r

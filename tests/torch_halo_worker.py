@@ -1,5 +1,6 @@
 """One rank of the port's distributed explicit-halo path, for
-tests/test_torch_halo.py.
+tests/test_torch_halo.py, and of its scaling programs, for
+tests/test_torch_cli.py (``run_cli``).
 
 ``run(rank, world, init_file, out_dir, cases)`` joins a gloo process group
 of ``world`` CPU processes through ``init_multihost`` (rendezvous on
@@ -158,3 +159,25 @@ def _error(fn) -> str:
     except ValueError as exc:
         return str(exc)
     return ""
+
+
+def run_cli(rank: int, world: int, init_file: str, out_dir: str, runs: dict) -> None:
+    """Drive the port's CLI programs on one rank of a gloo group of
+    ``world`` processes, for tests/test_torch_cli.py. ``runs`` maps a label
+    to an argv; each program's JSONL goes to ``out_dir/<label>.jsonl``
+    (rank 0 writes it), and an exception it raised to
+    ``out_dir/<label>.rank<rank>.err`` as "<type>: <message>"."""
+    from gmres_tpu_torch.benchmarks.cli import main
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        for label, argv in runs.items():
+            try:
+                main(argv + ["--jsonl", os.path.join(out_dir, f"{label}.jsonl")])
+            except Exception as exc:  # recorded for the test to inspect
+                with open(os.path.join(out_dir, f"{label}.rank{rank}.err"), "w") as f:
+                    f.write(f"{type(exc).__name__}: {exc}")
+    finally:
+        dist.destroy_process_group()
