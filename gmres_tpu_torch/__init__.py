@@ -22,7 +22,12 @@ The port covers, slice by slice (ROADMAP.md, queue 1):
   chebyshev_from_lanczos``), the Hilbert model (``models/hilbert.py``),
   the 3-D 7-point stencil, and the reference's eight programs with
   the ``roofline`` program, as ``python -m gmres_tpu_torch.benchmarks
-  <program>`` (``benchmarks/cli.py``, ``utils/reporting.py``).
+  <program>`` (``benchmarks/cli.py``, ``utils/reporting.py``);
+* BASELINE config 3, convection-diffusion: the nonsymmetric model
+  (``models/convection_diffusion.py``), its multigrid cycle
+  (``precond/multigrid.py``), CGS, TFQMR and BiCGStab(ℓ) (``solvers/``),
+  the GMRES polynomial preconditioner (``precond/polynomial.py``) and the
+  ``convdiff`` program.
 
 Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
 ``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
@@ -47,7 +52,10 @@ from gmres_tpu_torch.types import (
     as_tensor,
 )
 from gmres_tpu_torch.solvers.bicgstab import bicgstab
+from gmres_tpu_torch.solvers.bicgstabl import bicgstabl
 from gmres_tpu_torch.solvers.cg import cg
+from gmres_tpu_torch.solvers.cgs import cgs
+from gmres_tpu_torch.solvers.tfqmr import tfqmr
 from gmres_tpu_torch.solvers.gmres import gmres
 from gmres_tpu_torch.solvers.lanczos import lanczos_bounds, power_iteration_bound
 from gmres_tpu_torch.precond.chebyshev import (
@@ -56,9 +64,15 @@ from gmres_tpu_torch.precond.chebyshev import (
 )
 from gmres_tpu_torch.precond.multigrid import (
     MultigridPlan,
+    convection_diffusion_multigrid_preconditioner,
     poisson_multigrid_preconditioner,
     prolong_repeat,
     restrict_sum,
+)
+from gmres_tpu_torch.precond.polynomial import gmres_polynomial_preconditioner
+from gmres_tpu_torch.models.convection_diffusion import (
+    convection_diffusion_apply,
+    convection_diffusion_operator,
 )
 from gmres_tpu_torch.models.hilbert import hilbert_matrix
 from gmres_tpu_torch.models.poisson import (
@@ -122,14 +136,21 @@ __all__ = [
     "SolverStatus",
     "as_tensor",
     "bicgstab",
+    "bicgstabl",
     "cg",
+    "cgs",
+    "tfqmr",
     "gmres",
     "lanczos_bounds",
     "power_iteration_bound",
     "chebyshev_preconditioner",
     "chebyshev_stencil_preconditioner",
     "MultigridPlan",
+    "convection_diffusion_multigrid_preconditioner",
     "poisson_multigrid_preconditioner",
+    "gmres_polynomial_preconditioner",
+    "convection_diffusion_apply",
+    "convection_diffusion_operator",
     "prolong_repeat",
     "restrict_sum",
     "hilbert_matrix",

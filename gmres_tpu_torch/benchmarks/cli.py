@@ -10,6 +10,9 @@ flags:
                     Householder vs MGSR, matrix-free (flagship)
   cg              ← tests/test_cg.f90: PCG grid sweep 300²..1000², 1e-9
   bicgstab        ← tests/test_bicgstab.f90: the same sweep
+  convdiff        BASELINE config 3: BiCGSTAB (or GMRES, BiCGStab(ℓ), CGS,
+                  TFQMR) on the nonsymmetric convection-diffusion stencil,
+                  with its multigrid cycle or the GMRES polynomial
   strong-scaling  ← tests/strong_scaling.f90: fixed grid, rank count 1..D
   weak-scaling    ← the true weak scaling the reference commented out
                     (weak_scaling.f90:60): the grid grows with the ranks
@@ -77,6 +80,16 @@ REF_EIG = (0.2, 8.2)
 # The restart-sweep solvers of the JAX program; the ones without a port
 # exit with a message (see cmd_restart_sweep).
 RESTART_SOLVERS = ("gmres", "lgmres", "gmres-dr")
+# The convdiff solvers of the JAX program; idrs and qmr exit with a message
+# naming the ROADMAP item that ports them (see cmd_convdiff).
+CONVDIFF_SOLVERS = ("bicgstab", "gmres", "bicgstabl", "cgs", "tfqmr", "idrs", "qmr")
+CONVDIFF_UNPORTED = {
+    "idrs": "ROADMAP queue 1, item 9.1: its shadow block comes from "
+            "block_gmres's orthonormalisation",
+    "qmr": "ROADMAP queue 1, item 9.4: it needs the operator's transpose",
+}
+# GMRES's restart length in the convdiff program.
+CONVDIFF_RESTART = 30
 
 
 def _emit(records, args):
@@ -246,6 +259,95 @@ def cmd_cg(args):
 
 def cmd_bicgstab(args):
     return _sweep(args, "bicgstab")
+
+
+def convdiff_problem(n: int, dev: torch.device, *, gamma_x=0.4, gamma_y=0.2,
+                     solver="bicgstab", precond="none", precision="f64",
+                     smoother="jacobi", tol=1e-9, max_iterations=10_000, ell=2,
+                     poly_degree=24):
+    """The ``convdiff`` program's problem on ``dev``: the operator, b = A·1,
+    the preconditioner (None, the multigrid cycle or the GMRES polynomial)
+    and a closure that solves once, as the program configures them (its
+    flags as keyword arguments). Mixed BiCGSTAB runs a float32 cycle
+    (internal_dtype); mixed GMRES casts M's input to its float32 Arnoldi
+    dtype itself. BiCGStab(ℓ) maps its solution through M, so M's precision
+    caps its accuracy: it keeps a float64 cycle, as in JAX."""
+    from gmres_tpu_torch.models.convection_diffusion import (
+        convection_diffusion_operator,
+    )
+    from gmres_tpu_torch.precond.multigrid import (
+        convection_diffusion_multigrid_preconditioner,
+    )
+    from gmres_tpu_torch.precond.polynomial import gmres_polynomial_preconditioner
+    from gmres_tpu_torch.solvers.bicgstab import bicgstab
+    from gmres_tpu_torch.solvers.bicgstabl import bicgstabl
+    from gmres_tpu_torch.solvers.cgs import cgs
+    from gmres_tpu_torch.solvers.gmres import gmres
+    from gmres_tpu_torch.solvers.tfqmr import tfqmr
+
+    if solver in CONVDIFF_UNPORTED:
+        raise SystemExit(
+            f"convdiff --solver {solver}: that solver is not ported to "
+            f"gmres_tpu_torch yet ({CONVDIFF_UNPORTED[solver]})")
+    op = convection_diffusion_operator(n, gamma_x, gamma_y)
+    b = op(_ones((n, n), dev))
+    mixed = precision == "mixed"
+    m_inv = None
+    if precond == "mg":
+        m_inv = convection_diffusion_multigrid_preconditioner(
+            n, gamma_x, gamma_y, smoother=smoother,
+            internal_dtype=torch.float32 if mixed and solver == "bicgstab" else None)
+    elif precond == "poly":
+        m_inv = gmres_polynomial_preconditioner(op, b, degree=poly_degree)
+    if solver == "gmres":
+        def solve():
+            return gmres(op, b, restart=CONVDIFF_RESTART, tol=tol, M=m_inv,
+                         certify="true", compute_v_err=False,
+                         inner_dtype=torch.float32 if mixed else None,
+                         max_restarts=max(max_iterations // CONVDIFF_RESTART, 1))
+    else:
+        fn = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "cgs": cgs,
+              "tfqmr": tfqmr}[solver]
+        kw = {"ell": ell} if solver == "bicgstabl" else {}
+
+        def solve():
+            return fn(op, b, tol=tol, max_iterations=max_iterations, M=m_inv, **kw)
+    return op, b, m_inv, solve
+
+
+def cmd_convdiff(args):
+    """BASELINE config 3: the nonsymmetric convection-diffusion stencil at
+    ``--nsize``, b = A·1, solved to an absolute ``--tol`` (GMRES: relative,
+    certified on the true residual) with no preconditioner, the multigrid
+    cycle (``--precond mg``, ``--smoother``) or the degree-``--poly-degree``
+    GMRES polynomial (``--precond poly``); ``--precision mixed`` runs the
+    cycle in float32 under BiCGSTAB and the Arnoldi cycles in float32 under
+    GMRES (see ``convdiff_problem``). ``--solver idrs`` and ``qmr`` are not
+    ported and exit with a message (with ``--device cpu`` where there is no
+    card)."""
+    dev = _device(args)
+    n = args.nsize
+    _, _, _, solve = convdiff_problem(
+        n, dev, gamma_x=args.gamma_x, gamma_y=args.gamma_y, solver=args.solver,
+        precond=args.precond, precision=args.precision, smoother=args.smoother,
+        tol=args.tol, max_iterations=args.max_iterations, ell=args.ell,
+        poly_degree=args.poly_degree)
+    res, dt = _timed(solve, dev)
+    # Operator applications, counted as the JAX program counts them: GMRES
+    # one an inner iteration and one a restart cycle (its certified
+    # residual), BiCGStab(ℓ) 2ℓ a cycle, the others 2 an iteration.
+    if args.solver == "gmres":
+        matvecs = _total_inner(res, CONVDIFF_RESTART) + int(res.restarts)
+    else:
+        matvecs = (2 * args.ell if args.solver == "bicgstabl" else 2) * int(res.iterations)
+    records = [_record(
+        f"{args.solver}-convdiff-{n}x{n}", res, x_true=_ones((n, n), dev), wall_s=dt,
+        tol=args.tol, nnz=5 * n * n - 4 * n,
+        extra={"matvecs": matvecs,
+               "precision": args.precision, "smoother": args.smoother,
+               "host_syncs": res.host_syncs})]
+    _emit(records, args)
+    return records
 
 
 @contextlib.contextmanager
@@ -600,6 +702,15 @@ def build_parser() -> argparse.ArgumentParser:
     add("bicgstab", cmd_bicgstab, grids="300:1000:50", tol=1e-9,
         max_iterations=10_000,
         help="cbpr2 BiCGSTAB over a grid sweep (absolute tol)")
+    add("convdiff", cmd_convdiff, nsize=256, gamma_x=0.4, gamma_y=0.2,
+        tol=1e-9, max_iterations=10_000, precond="none", solver="bicgstab",
+        precision="f64", smoother="jacobi", ell=2, poly_degree=24, idrs_s=8,
+        choices={"precond": ("none", "mg", "poly"), "solver": CONVDIFF_SOLVERS,
+                 "precision": ("f64", "mixed"),
+                 "smoother": ("jacobi", "chebyshev", "auto", "rbgs")},
+        help="BASELINE config 3: nonsymmetric convection-diffusion, b = A·1, "
+             "with the multigrid cycle or the GMRES polynomial; idrs and qmr "
+             "are not ported (ROADMAP items 9.1, 9.4) and exit with a message")
     scaling_note = (" The halo operator runs at every d, with or without "
                     "--explicit-halo (no GSPMD partitioner in PyTorch).")
     add("strong-scaling", cmd_strong_scaling, nsize=304, restart=50,

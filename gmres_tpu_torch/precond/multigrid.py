@@ -1,4 +1,4 @@
-"""Geometric multigrid V-cycle preconditioner for the 5-point stencil.
+"""Geometric multigrid V-cycle preconditioners for the 5-point stencil.
 
 Counterpart of ``gmres_tpu/precond/multigrid.py:poisson_multigrid_preconditioner``
 and its intergrid transfers: the unit 5-point stencil at every level,
@@ -13,6 +13,16 @@ tensor the smoothers and the coarse solve launch K2 and the two forms K1;
 on a CPU tensor each takes its plain version, which is the composition of
 ``stencil_5pt_general``, ``restrict_sum`` and ``prolong_repeat`` the JAX
 cycle computes, so both routes keep the JAX cycle's arithmetic.
+
+``convection_diffusion_multigrid_preconditioner`` is the counterpart of the
+JAX cycle of the same name for the nonsymmetric convection-diffusion
+stencil (``models/convection_diffusion.py``): per-level operators with the
+cell-Péclet numbers doubled at each coarsening, upwind rediscretisation on
+convection-dominated levels, and damped-Jacobi, ellipse-Chebyshev or
+red-black Gauss-Seidel smoothing. Its kernels are the Poisson cycle's: K1
+(the level operators and the two V-cycle forms, with the level's
+coefficients) and K2 (the Jacobi and Chebyshev smoothers and the coarse
+solve) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -23,13 +33,25 @@ from typing import Callable
 
 import torch
 
+from gmres_tpu_torch.models.convection_diffusion import (
+    convection_diffusion_coefs,
+    convection_diffusion_coefs_upwind,
+)
+from gmres_tpu_torch.ops.fused import jacobi_k_scalars, poly_stencil_smoother_pallas
 from gmres_tpu_torch.ops.stencil import (  # noqa: F401  (transfers re-exported)
     correct_residual,
     prolong_repeat,
     residual_restrict,
     restrict_sum,
+    stencil_5pt_general,
+    stencil_5pt_routed_general,
 )
 from gmres_tpu_torch.precond.chebyshev import chebyshev_stencil_preconditioner
+from gmres_tpu_torch.solvers.lanczos import (
+    arnoldi_ritz_values,
+    chebyshev_ellipse_interval,
+    jacobi_omega_from_ritz,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,4 +153,227 @@ def poisson_multigrid_preconditioner(
         coarse=(coarse_solve.theta, coarse_solve.steps),
         lam_min_coarse=lam_min_coarse,
     )
+    return m_inv
+
+
+def _ritz_probe(m: int) -> torch.Tensor:
+    """The (m, m) float64 CPU probe that seeds each level's Arnoldi spectrum
+    estimate: standard normal from a torch.Generator seeded 0. (JAX draws
+    its probe from PRNGKey(0), a stream torch cannot reproduce; the tests
+    patch this function to hand the port JAX's probe.)"""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    return torch.randn((m, m), generator=gen, dtype=torch.float64)
+
+
+def _level_ritz(levels, coefs) -> list:
+    """Arnoldi Ritz values (16 steps) of each level's stencil on a ≤64²
+    surrogate grid, on the host at setup: the stencil symbol's spectrum is
+    nearly independent of the grid size above ~32 rows."""
+    out = []
+    for (sz, _, _, _), cf in zip(levels, coefs):
+        out.append(arnoldi_ritz_values(
+            lambda x, cf=cf: stencil_5pt_general(x, *cf),
+            _ritz_probe(min(sz, 64)), steps=16))
+    return out
+
+
+def convection_diffusion_multigrid_preconditioner(
+    nsize: int,
+    gamma_x: float = 0.4,
+    gamma_y: float = 0.2,
+    pre_smooth: int = 3,
+    post_smooth: int = 3,
+    omega: float = 0.7,
+    coarse_iters: int = 64,
+    mesh=None,
+    replicate_below: int | None = None,
+    central_gamma_max: float = 0.9,
+    internal_dtype=None,
+    max_levels: int | None = None,
+    smoother: str = "jacobi",
+    shift: float = 0.0,
+    transpose: bool = False,
+) -> Callable:
+    """V-cycle preconditioner for the nonsymmetric convection-diffusion
+    stencil (the arguments of the JAX function but ``use_pallas``, which
+    has no counterpart: the tensor's device decides).
+
+    Levels coarsen while the grid is even and above 16 rows (at most
+    ``max_levels``); level l carries (γx·2ˡ, γy·2ˡ) and switches for good to
+    the upwind stencil once max|γ| reaches ``central_gamma_max``. ``shift``
+    adds σ·4ˡ to level l's centre coefficient (the cycle approximates
+    (A + σI)⁻¹). ``transpose`` builds the exact transpose of the cycle: W↔E
+    and S↔N swapped, the pre- and post-smoother counts swapped, the
+    red-black parity flipped.
+
+    smoother: "jacobi" (damped, ω/c₀ a step), "chebyshev" (the Manteuffel
+      ellipse interval of each level's Arnoldi spectrum; ValueError where
+      no level has one), "auto" (Chebyshev where a level has an interval,
+      else Jacobi) or "rbgs" (red-black Gauss-Seidel on the levels where it
+      contracts, else Jacobi). The coarse solve is ``coarse_iters`` steps
+      of the level's smoother (Chebyshev on the full-spectrum interval).
+    omega: the Jacobi damping, or "auto" for each level's from its spectrum.
+    internal_dtype: run the whole cycle in this dtype (r cast on entry, z
+      cast back on exit).
+    mesh, replicate_below: the distributed cycle, not ported yet (ROADMAP
+      queue 1, item 8.3); passing either raises NotImplementedError.
+
+    Routing: on a CUDA tensor the level operators and the two V-cycle
+    compositions launch K1 with the level's coefficients, the Jacobi and
+    Chebyshev smoothers and the coarse solve launch K2 (Jacobi as the
+    order-k d-recurrence with (a, b) = (0, ω/c₀), JAX's TPU route), and the
+    red-black sweeps are plain torch around K1. On a CPU tensor each piece
+    takes JAX's CPU route: the plain compositions, and the Jacobi loop
+    e = step·r, e ← e + step·(r − A e) (JAX's jnp form, which rounds
+    differently from K2's r/θ start).
+
+    The returned callable carries the JAX attributes ``levels``,
+    ``level_schemes``, ``omegas``, ``smoothers``, ``cheb_intervals`` and
+    ``coarse_interval``.
+    """
+    if mesh is not None or replicate_below is not None:
+        raise NotImplementedError(
+            "the distributed convection-diffusion cycle (mesh=, "
+            "replicate_below=) is not ported yet: ROADMAP queue 1, item 8.3"
+        )
+    if smoother not in ("jacobi", "chebyshev", "auto", "rbgs"):
+        raise ValueError(f"unknown smoother {smoother!r}")
+
+    levels = []
+    n, gx, gy = nsize, float(gamma_x), float(gamma_y)
+    central = True
+    while n % 2 == 0 and n > 16 and (
+        max_levels is None or len(levels) < max_levels - 1
+    ):
+        levels.append((n, gx, gy, central))
+        n, gx, gy = n // 2, 2 * gx, 2 * gy
+        if max(abs(gx), abs(gy)) >= central_gamma_max:
+            central = False
+    levels.append((n, gx, gy, central))
+    n_levels = len(levels)
+    coefs = [
+        convection_diffusion_coefs(g_x, g_y) if cen
+        else convection_diffusion_coefs_upwind(g_x, g_y)
+        for (_, g_x, g_y, cen) in levels
+    ]
+    if shift:
+        # h²-scaled zeroth-order term: quadruples per coarsening.
+        coefs = [(c0 + float(shift) * 4.0 ** l, cw, ce, cs, cn)
+                 for l, (c0, cw, ce, cs, cn) in enumerate(coefs)]
+    rb_parity = 0
+    if transpose:
+        coefs = [(c0, ce, cw, cn, cs) for (c0, cw, ce, cs, cn) in coefs]
+        pre_smooth, post_smooth = post_smooth, pre_smooth
+        rb_parity = 1
+
+    ritz_list = None
+    if omega == "auto" or smoother in ("chebyshev", "auto"):
+        ritz_list = _level_ritz(levels, coefs)
+    if omega == "auto":
+        omegas = [jacobi_omega_from_ritz(ritz, cf[0]) for ritz, cf in zip(ritz_list, coefs)]
+    else:
+        omegas = [float(omega)] * n_levels
+
+    # Ellipse-Chebyshev intervals: each level's high-frequency band, the
+    # coarse solve's whole spectrum; None → damped Jacobi on that level.
+    cheb_ivals = [None] * n_levels
+    coarse_ival = None
+    if smoother in ("chebyshev", "auto"):
+        cheb_ivals = [chebyshev_ellipse_interval(r, band=4.0) for r in ritz_list]
+        coarse_ival = chebyshev_ellipse_interval(ritz_list[-1], band=None)
+        if smoother == "chebyshev" and all(iv is None for iv in cheb_ivals):
+            raise ValueError(
+                "smoother='chebyshev' infeasible: every level's "
+                "high-frequency spectrum is taller than wide — use "
+                "'auto' (per-level fallback to damped Jacobi)"
+            )
+    # Red-black Gauss-Seidel contracts only where the level's stencil is an
+    # M-matrix: upwind levels, and central ones below the Péclet threshold.
+    rbgs_ok = [(not cen) or max(abs(g_x), abs(g_y)) < central_gamma_max
+               for (_, g_x, g_y, cen) in levels]
+
+    def interval(l):
+        return coarse_ival if l == n_levels - 1 else cheb_ivals[l]
+
+    smoothers = [("rbgs" if rbgs_ok[l] else "jacobi") if smoother == "rbgs"
+                 else ("chebyshev" if interval(l) is not None else "jacobi")
+                 for l in range(n_levels)]
+
+    # Each level's smoother applications, built once: (level, iterations).
+    plans = {}
+    for l in range(n_levels):
+        for iters in ((coarse_iters,) if l == n_levels - 1
+                      else (pre_smooth, post_smooth)):
+            if smoothers[l] == "chebyshev":
+                lo, hi = interval(l)
+                plans[l, iters] = chebyshev_stencil_preconditioner(
+                    lo, hi, order=iters, coefs=coefs[l])
+            elif smoothers[l] == "jacobi":
+                plans[l, iters] = jacobi_k_scalars(omegas[l], coefs[l][0], iters)
+    masks = {}
+
+    def apply_l(x, l):
+        return stencil_5pt_routed_general(x, coefs[l])
+
+    def jacobi(r, l, iters):
+        if r.device.type == "cpu":
+            step = omegas[l] / coefs[l][0]
+            e = step * r
+            for _ in range(iters - 1):
+                e = e + step * (r - apply_l(e, l))
+            return e
+        theta, steps = plans[l, iters]
+        return poly_stencil_smoother_pallas(r, theta, steps, coefs[l])
+
+    def rbgs(r, l, iters):
+        # A sweep is the red update then the black one, each a masked Jacobi
+        # step whose stencil reads only the other colour: exactly a
+        # Gauss-Seidel iteration in checkerboard order.
+        key = (l, r.device)
+        if key not in masks:
+            ii = torch.arange(r.shape[0], device=r.device)[:, None]
+            jj = torch.arange(r.shape[1], device=r.device)[None, :]
+            red = ((ii + jj) % 2) == rb_parity
+            masks[key] = (red, ~red)
+        red, black = masks[key]
+        c0 = coefs[l][0]
+
+        def half(e, mask):
+            resid = r - apply_l(e, l)
+            return e + torch.where(mask, resid / c0, 0.0)
+
+        # The first red half-step from e = 0 is the masked scaled r.
+        e = half(torch.where(red, r / c0, 0.0), black)
+        for _ in range(iters - 1):
+            e = half(half(e, red), black)
+        return e
+
+    def smooth(r, l, iters):
+        if smoothers[l] == "rbgs":
+            return rbgs(r, l, iters)
+        if smoothers[l] == "chebyshev":
+            return plans[l, iters](r)
+        return jacobi(r, l, iters)
+
+    def v_cycle(r, l):
+        if l == n_levels - 1:
+            return smooth(r, l, coarse_iters)
+        e = smooth(r, l, pre_smooth)
+        ec = v_cycle(residual_restrict(r, e, coefs[l]), l + 1)
+        e, r3 = correct_residual(r, e, ec, coefs[l])
+        return e + smooth(r3, l, post_smooth)
+
+    def m_inv(r: torch.Tensor) -> torch.Tensor:
+        if internal_dtype is not None and r.dtype != internal_dtype:
+            return v_cycle(r.to(internal_dtype), 0).to(r.dtype)
+        return v_cycle(r, 0)
+
+    m_inv.levels = n_levels
+    m_inv.level_schemes = [("central" if cen else "upwind")
+                           for (_, _, _, cen) in levels]
+    m_inv.omegas = omegas
+    m_inv.smoothers = smoothers
+    m_inv.cheb_intervals = cheb_ivals
+    m_inv.coarse_interval = coarse_ival
     return m_inv

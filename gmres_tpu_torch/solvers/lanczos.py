@@ -182,13 +182,20 @@ def estimate_jacobi_omega(
     (the high-frequency band the smoother must contract). Returns (omega,
     ritz); 0.7 when no Ritz value is in the band."""
     ritz = arnoldi_ritz_values(A, probe, steps)
+    return jacobi_omega_from_ritz(ritz, diag, band), ritz
+
+
+def jacobi_omega_from_ritz(ritz, diag: float, band: float = 4.0) -> float:
+    """``estimate_jacobi_omega``'s choice from given Ritz values: the ω of a
+    146-point grid on [0.05, 1.5] minimising max |1 − (ω/diag)·λ| over those
+    with Re λ ≥ max Re λ / band; 0.7 when none is in the band."""
     re_max = float(np.max(ritz.real))
     upper = ritz[ritz.real >= re_max / band]
     if upper.size == 0:  # degenerate probe; fall back to the default
-        return 0.7, ritz
+        return 0.7
     grid = np.linspace(0.05, 1.5, 146)
     rho = np.abs(1.0 - np.outer(grid, upper / diag)).max(axis=1)
-    return float(grid[int(np.argmin(rho))]), ritz
+    return float(grid[int(np.argmin(rho))])
 
 
 def chebyshev_ellipse_interval(

@@ -54,6 +54,25 @@ RUNS = {
     "restart-sweep-cycles": ["restart-sweep", "--nsize", "16", "--start", "5",
                              "--step", "5", "--ntests", "2", "--tol", "1e-8",
                              "--cycle-reps", "2", "--repeats", "2"],
+    # convdiff at 32² with each solver and preconditioner it offers (16²
+    # unpreconditioned); the auto smoother's Arnoldi probe is the port's own.
+    # (At γ = (2, 1) the counts move with the reductions' order by more than
+    # 2: tests/test_torch_nonsym.py holds them to a band.)
+    "convdiff-plain": ["convdiff", "--nsize", "16"],
+    "convdiff-mg": ["convdiff", "--nsize", "32", "--precond", "mg"],
+    "convdiff-mg-mixed-auto": ["convdiff", "--nsize", "32", "--precond", "mg",
+                               "--precision", "mixed", "--smoother", "auto"],
+    "convdiff-mg-rbgs": ["convdiff", "--nsize", "32", "--precond", "mg",
+                         "--smoother", "rbgs"],
+    "convdiff-gmres-mixed-auto": ["convdiff", "--nsize", "32", "--precond", "mg",
+                                  "--solver", "gmres", "--precision", "mixed",
+                                  "--smoother", "auto"],
+    "convdiff-bicgstabl": ["convdiff", "--nsize", "32", "--precond", "mg",
+                           "--solver", "bicgstabl"],
+    "convdiff-cgs": ["convdiff", "--nsize", "32", "--precond", "mg", "--solver", "cgs"],
+    "convdiff-tfqmr": ["convdiff", "--nsize", "32", "--precond", "mg",
+                       "--solver", "tfqmr"],
+    "convdiff-poly": ["convdiff", "--nsize", "32", "--precond", "poly"],
 }
 # Two gloo ranks, and JAX's rows on two devices.
 RUNS_2 = {
@@ -152,6 +171,14 @@ def test_unported_restart_solver_exits(solver, capsys):
     assert "solver" not in capsys.readouterr().out  # no table: nothing ran
 
 
+@pytest.mark.parametrize("solver,item", [("idrs", "item 9.1"), ("qmr", "item 9.4")])
+def test_unported_convdiff_solver_exits(solver, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        port_main(["convdiff", "--nsize", "16", "--solver", solver, "--device", "cpu"])
+    assert item in str(exc.value.code)
+    assert "solver" not in capsys.readouterr().out  # no table: nothing ran
+
+
 def test_solver_choices_are_validated():
     with pytest.raises(SystemExit):
         port_main(["restart-sweep", "--solver", "gmress", "--device", "cpu"])
@@ -172,7 +199,7 @@ def test_help_lists_the_programs():
     out = subprocess.run([sys.executable, "-m", "gmres_tpu_torch.benchmarks", "--help"],
                          capture_output=True, text=True, check=True,
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).stdout
-    for program in ("dense-poisson", "hilbert", "poisson-mf", "cg", "bicgstab",
+    for program in ("dense-poisson", "hilbert", "poisson-mf", "cg", "bicgstab", "convdiff",
                     "strong-scaling", "weak-scaling", "restart-sweep", "roofline"):
         assert program in out
 
@@ -190,7 +217,12 @@ import gmres_tpu_torch.benchmarks.cli
 import gmres_tpu_torch.solvers.bicgstab, gmres_tpu_torch.solvers.lanczos
 import gmres_tpu_torch.models.hilbert, gmres_tpu_torch.utils.reporting
 import gmres_tpu_torch.precond.chebyshev, gmres_tpu_torch.ops.stencil
+import gmres_tpu_torch.models.convection_diffusion, gmres_tpu_torch.precond.multigrid
+import gmres_tpu_torch.precond.polynomial, gmres_tpu_torch.solvers.cgs
+import gmres_tpu_torch.solvers.tfqmr, gmres_tpu_torch.solvers.bicgstabl
 gmres_tpu_torch.benchmarks.cli.main(["bicgstab", "--grids", "8:8:8", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["convdiff", "--nsize", "32", "--precond", "mg",
+                                     "--smoother", "auto", "--device", "cpu"])
 assert not any(m == "jax" or m.startswith(("jax.", "gmres_tpu.")) or m == "gmres_tpu"
                for m in sys.modules if sys.modules[m] is not None)
 print("no jax")

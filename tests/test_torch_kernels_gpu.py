@@ -1,6 +1,7 @@
 """Kernels K1–K8 of the PyTorch port on the card, against their plain
 PyTorch versions, and the main paths' use of them (BiCGSTAB, the Lanczos
-bounds and the reference's programs among them).
+bounds, the reference's programs and the convection-diffusion cycle and
+program among them).
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither jax nor gmres_tpu, so it also runs on a machine without
@@ -837,3 +838,129 @@ def test_programs_run_on_the_card(cuda_device, tmp_path):
     assert len(rows) == 2 + 2 + 2 + 2 + 2 + 1 + 1 + 2
     for r in rows:
         assert r["status"] == 0, r
+
+
+# ---------------------------------------------------------------------------
+# Convection-diffusion (BASELINE config 3): K1 and K2 at the cycle's
+# coefficients, the cycle and the convdiff program on the card.
+# ---------------------------------------------------------------------------
+
+
+def _upwind_coarse_coefs(n_fine=1024, n=16):
+    """The upwind coefficients of the convdiff cycle's level of size n under
+    a fine grid of n_fine at γ = (0.4, 0.2): γ doubles per coarsening."""
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs_upwind
+
+    scale = n_fine // n
+    return convection_diffusion_coefs_upwind(0.4 * scale, 0.2 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,order", [(16, 3), (16, 64), (64, 3), (64, 64)])
+def test_k2_jacobi_upwind_coefficients_bitwise_to_sweep_path(cuda_device, dtype, n, order):
+    """Damped Jacobi (jacobi_k_scalars) on the upwind coarse-level stencil,
+    where c₀ = 4 + 2|γx| + 2|γy| reaches 80.8: every path that can take the
+    grid, and the routed call, give the per-sweep path's bits."""
+    coefs = _upwind_coarse_coefs(n=n)
+    theta, steps = tfu.jacobi_k_scalars(0.7, coefs[0], order)
+    r = to_torch(seeded(58, (n, n)), cuda_device).to(dtype)
+    ref = tfu.chebk_cuda(r, theta, steps, coefs, _path=("sweep", None))
+    paths = _k2_forced_paths(r, order - 1)
+    assert paths
+    for path in paths:
+        torch.testing.assert_close(tfu.chebk_cuda(r, theta, steps, coefs, _path=path),
+                                   ref, rtol=0, atol=0, msg=f"{path}")
+    before = tfu.chebk_cuda.launches
+    z = tfu.poly_stencil_smoother_pallas(r, theta, steps, coefs)
+    torch.cuda.synchronize()
+    assert tfu.chebk_cuda.launches > before
+    torch.testing.assert_close(z, ref, rtol=0, atol=0)
+    assert rel_err(z, tfu.poly_stencil_smoother_plain(r, theta, steps, coefs)) < (
+        1e-5 if dtype == torch.float32 else 1e-12)
+
+
+def _no_plain_versions(monkeypatch):
+    """Make every plain version the convdiff cycle could reach on the card
+    raise: a CUDA tensor must take a kernel, never quietly a plain route."""
+    from gmres_tpu_torch.precond import multigrid as tmg
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, name in ((tst, "stencil_5pt_general"), (tst, "residual_restrict_plain"),
+                      (tst, "correct_residual_plain"), (tfu, "poly_stencil_smoother_plain"),
+                      (tmg, "stencil_5pt_general")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("smoother,gamma", [("jacobi", (0.4, 0.2)), ("chebyshev", (0.4, 0.2)),
+                                            ("auto", (0.4, 0.2)), ("rbgs", (0.4, 0.2)),
+                                            ("rbgs", (2.0, 1.0)), ("auto", (2.0, 1.0))])
+def test_convdiff_cycle_on_the_card_matches_cpu(cuda_device, monkeypatch, dtype, rtol,
+                                                smoother, gamma):
+    """The convdiff cycle at 64² on the card against its CPU route (JAX's
+    CPU arithmetic): K1 for the level operators and both V-cycle forms, K2
+    for the Jacobi and Chebyshev smoothers and the coarse solve (K2's r/θ
+    start rounds differently from the CPU loop's step·r, so the stated
+    tolerance), no plain version on the card."""
+    n = 64
+    m = tt.convection_diffusion_multigrid_preconditioner(n, *gamma, smoother=smoother)
+    r = to_torch(seeded(59, (n, n))).to(dtype)
+    z_cpu = m(r)
+    _no_plain_versions(monkeypatch)
+    counters = (tst.stencil5_cuda, tst.residual_restrict_cuda, tst.correct_residual_cuda,
+                tfu.chebk_cuda)
+    before = [c.launches for c in counters]
+    z = m(r.to(cuda_device))
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert z.dtype == dtype and z.device.type == "cuda"
+    assert rel_err(z, z_cpu) <= rtol
+    assert launched[1] == launched[2] == m.levels - 1
+    if "rbgs" in m.smoothers:
+        assert launched[0] > 0
+    if set(m.smoothers) != {"rbgs"}:
+        assert launched[3] > 0
+
+
+def test_convdiff_operator_launches_k1(cuda_device, monkeypatch):
+    n = 64
+    x = to_torch(seeded(60, (n, n)), cuda_device)
+    y_cpu = tt.convection_diffusion_apply(x.cpu())
+    _no_plain_versions(monkeypatch)
+    before = tst.stencil5_cuda.launches
+    y = tt.convection_diffusion_operator(n)(x)
+    yf = tt.convection_diffusion_apply(x.reshape(-1))
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches == before + 2
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=0, atol=0)
+    torch.testing.assert_close(yf.cpu(), y_cpu.reshape(-1), rtol=0, atol=0)
+
+
+def test_convdiff_program_on_the_card_matches_cpu(cuda_device, tmp_path):
+    """``convdiff --solver bicgstab --precond mg`` at 64² on the card (its
+    default device) against ``--device cpu``: both converge, iterations
+    within 2; the card's run launches K1, its two forms and K2."""
+    import json
+
+    from gmres_tpu_torch.benchmarks.cli import main
+
+    rows = {}
+    for where in ("cuda", "cpu"):
+        out = str(tmp_path / f"{where}.jsonl")
+        before = [c.launches for c in (tst.stencil5_cuda, tst.residual_restrict_cuda,
+                                       tst.correct_residual_cuda, tfu.chebk_cuda)]
+        main(["convdiff", "--nsize", "64", "--precond", "mg", "--device", where,
+              "--jsonl", out])
+        after = [c.launches for c in (tst.stencil5_cuda, tst.residual_restrict_cuda,
+                                      tst.correct_residual_cuda, tfu.chebk_cuda)]
+        if where == "cuda":
+            assert all(a > b for a, b in zip(after, before))
+        else:
+            assert after == before
+        with open(out) as f:
+            rows[where] = json.loads(f.readline())
+    assert rows["cuda"]["status"] == rows["cpu"]["status"] == 0
+    assert abs(rows["cuda"]["iterations"] - rows["cpu"]["iterations"]) <= 2
+    assert rows["cuda"]["residual"] < 1e-9
