@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # the smoke run below
     python3 chip_smoke.py --k2-paths [OUT]     # K2's path table (JSONL to OUT)
+    python3 chip_smoke.py --phase17            # the build and phase 17 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -10,7 +11,8 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-Phases of the smoke run:
+The ``--phase17`` mode builds the kernels and runs phase 17 alone, with
+its checks. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
    power limit as nvidia-smi reports them.
@@ -164,6 +166,33 @@ Phases of the smoke run:
     mg --precision mixed --smoother auto``). The phase's wall time is
     printed.
 
+17. The GMRES family on the card, each row through the port's public
+    functions or the program's own setup, with the launch counts set to 0
+    just before its warm-up (3 cycles for the long s-step and FGMRES rows)
+    and 3 timed solves and read just after; the
+    operator and the preconditioner are wrapped to count their
+    applications, their launches per application are measured once each,
+    and the launches over the solves must equal the applications times
+    those, kernel by kernel (K1, its two V-cycle forms, K2). Rows: the
+    ``restart-sweep`` program with ``--solver lgmres`` (280², m 20 and 25,
+    tol 1e-15) and ``--solver gmres-dr --deflate 10`` (tol 1e-10: at 1e-15
+    gmres_tpu's own certification fails), and each at m = 20 through its
+    function; ``gmres_dr`` at 300² (m 30, k 10, tol 1e-10) with deflation
+    "eig" and "subspace" (one route, as in gmres_tpu); IDR(8) with the
+    float64 Jacobi cycle on convdiff 1024² (tol 1e-9), profiled, then the
+    ``convdiff --solver idrs`` program; GCRO-DR(40, k 10) sequences b₁ = A·1,
+    b₂ = A·x₂ fresh and warm on convdiff 1024² with its cycle and on
+    Poisson 300² with cbpr2; the ``multirhs --solver block-gmres --s-list
+    1,4`` program at 512² and block GMRES at s = 4 with its row
+    applications counted (a block application is s single-vector ones);
+    s-step GMRES (s 8, tol 1e-6) with the order-16 Chebyshev
+    preconditioner at 1024², float64 and with a float32 block (15 K1
+    launches an M); FGMRES(10) at 300² (tol 1e-6) with four CG steps as M.
+    Each row: status 0, a numpy float64 residual under its tolerance in the
+    norm the solver certifies, its counts against gmres_tpu's CPU counts
+    (within 2, or the band its constant states), host syncs, the median
+    and quartiles of the 3 timed solves.
+
 Phases 12–14 share one NCCL process group made by the script. Any failure
 raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
@@ -309,6 +338,72 @@ CONVDIFF_REPEATS = 5
 # tests/test_torch_convdiff.py pins at 512²). So GMRES is held to gmres_tpu's
 # total within one restart cycle and 2 iterations.
 CONVDIFF_GMRES_BAND = 30 + 2
+# Phase 17: the GMRES family. gmres_tpu's counts for each row, from the JAX
+# package on the CPU (jax.jit of each solver, float64, b = A·1 unless said):
+#   restart-sweep: JAX_PLATFORMS=cpu python -m benchmarks.cli restart-sweep
+#       --solver lgmres --ntests 2 (and --solver gmres-dr --deflate 10
+#       --tol 1e-10): (restarts, iterations of the last cycle) for m = 20, 25;
+#   the rest: the same calls as the rows below, through gmres_tpu's
+#   functions (gcrodr's x₂: numpy default_rng(GCRODR_SEED).standard_normal).
+# gmres-dr at the program's tol 1e-15 ends in BREAKDOWN in gmres_tpu too
+# (its Givens estimate reaches 1e-15, its certification 4.5e-14 misses
+# 10·tol at m = 20 and 25): its rows run at 1e-10.
+FAMILY_REPEATS = 3
+# The long rows (s-step, FGMRES: 2–4 s a solve on the card) warm up on a
+# run of this many cycles of the same solver, not on a whole solve.
+WARM_RESTARTS = 3
+RESTART_SWEEP_N = 280
+# LGMRES certifies on its Givens estimate (right preconditioning: an
+# estimate of ‖b − A x‖/‖b‖). At 1e-15 that estimate runs below the float64
+# floor of the true residual: the card's solve at m = 20 certified 9.81e-16
+# and its numpy recomputation is 2.82e-15, so that row's numpy residual is
+# held to this multiple of tol (gmres-dr's rows to its certification, 10·tol).
+LGMRES_ROUNDING = 5.0
+JAX_RESTART_SWEEP = {
+    ("lgmres", 1e-15): {20: (38, 6), 25: (31, 27)},
+    ("gmres-dr", 1e-10): {20: (33, 20), 25: (21, 15)},
+}
+# gmres_dr(restart=30, deflate=10, tol=1e-10) with cbpr2 on the right at
+# 300²: gmres_tpu's "subspace" runs its "eig" route (the nested function
+# `deflation` rebinds the argument's name, gmres_tpu/solvers/gmres_dr.py:217
+# and :225), and so does the port's: the same counts for both.
+GMRES_DR_N = 300
+JAX_GMRES_DR_300 = (16, 22)
+# IDR(8) + the float64 Jacobi cycle on convdiff 1024², γ = (0.4, 0.2),
+# tol 1e-9 absolute; held to BICGSTAB_SPREAD (its count moves with the
+# reductions' order, like BiCGSTAB's).
+IDRS_N = 1024
+JAX_IDRS_1024 = 5
+# GCRO-DR(40, k=10), tol 1e-9, b₁ = A·1, then b₂ = A·x₂ fresh and warm
+# (recycle= from the first): (cycles, iterations of the last) each. On
+# convdiff 1024² with the multigrid cycle (left) gmres_tpu takes one cycle
+# after the first in all three, so warm cannot beat fresh there; on Poisson
+# 300² with cbpr2 it does (14 fresh, 11 warm): both sequences run.
+GCRODR_SEED = 20261017
+JAX_GCRODR = {"convdiff 1024 mg": ((2, 2), (2, 1), (2, 1)),
+              "poisson 300 cbpr2": ((10, 24), (14, 7), (11, 28))}
+# multirhs --solver block-gmres --s-list 1,4 at 512² with the V-cycle: one
+# restart cycle of 30 block steps at s = 1 and s = 4.
+MULTIRHS_N = 512
+JAX_MULTIRHS_RESTARTS = {1: 1, 4: 1}
+# sstep_gmres(s=8, tol=1e-6) with the order-16 Chebyshev preconditioner on
+# (0.005, 8.0) at 1024²: restarts in float64 and with a float32 block. The
+# float32 block's Gram: gmres_tpu sums it in float32 (2.4e-7 relative error
+# at 1024² on the CPU), the port in float64 (torch's float32 GEMM, 9e-6
+# there, breaks the Cholesky), and the port's CPU takes 135 restarts
+# against 143: the float32 row is held to 10% of gmres_tpu's count.
+SSTEP_N = 1024
+JAX_SSTEP_RESTARTS = {"f64": 134, "f32": 143}
+SSTEP_F32_SPREAD = 0.10
+# fgmres(restart=10, tol=1e-6) at 300² with M four steps of CG (tol 0): the
+# nonlinear M amplifies last-bit differences from cycle to cycle (a one-ulp
+# perturbation of M moves x by > 1e-10 in 20 cycles at 128², a linear M's
+# by < 1e-12: tests/test_torch_family_counts.py), so the count follows the
+# reductions' rounding (the port's CPU: 116 restarts against 111) and is
+# held to 15% of gmres_tpu's.
+FGMRES_N = 300
+JAX_FGMRES_300 = (111, 8)
+FGMRES_SPREAD = 0.15
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2476,6 +2571,427 @@ def phase_convdiff(gt_torch, rng, dev, floor, workdir):
     return records, launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the GMRES family.
+# ---------------------------------------------------------------------------
+
+
+KERNELS = ("K1", "K1rr", "K1cr", "K2")
+
+
+def per_application(fn, v) -> dict:
+    """Kernel launches of one application of fn to v, by the wrappers'
+    counts."""
+    import torch
+
+    before = mg_counters()
+    fn(v)
+    torch.cuda.synchronize()
+    after = mg_counters()
+    return {k: after[k] - before[k] for k in KERNELS}
+
+
+def family_run(label, solve, ops, repeats=FAMILY_REPEATS, warm=None):
+    """Run one phase-17 solve: a warm-up (`warm`, a shorter run of the same
+    solver where given, else the solve) and `repeats` timed solves with the
+    launch counts set to 0 just before and read just after. `ops` maps a
+    name to (the callable, a probe vector); each is wrapped to count its
+    applications, and its launches per application are measured on the
+    probe first. The launches over the solves must be the applications
+    times the launches per application, kernel by kernel. Returns the last
+    result, the times, the counts, the applications and the launches per
+    application."""
+    import numpy as np
+
+    calls = dict.fromkeys(ops, 0)
+    per = {name: per_application(fn, probe) for name, (fn, probe) in ops.items()}
+    wrapped = {name: counted(fn, calls, name) for name, (fn, _) in ops.items()}
+    mg_counters(reset=True)
+    _, t_warm = timed(lambda: (warm or solve)(**wrapped))
+    times = []
+    for _ in range(repeats):
+        res, t = timed(lambda: solve(**wrapped))
+        times.append(t)
+    count = mg_counters()
+    expected = {k: sum(calls[name] * per[name][k] for name in ops) for k in KERNELS}
+    print(f"phase 17: {label}: wall s over {repeats}: {quartiles(times)} (warm-up "
+          f"{t_warm:.4f}); applications over the warm-up and {repeats} solves "
+          + ", ".join(f"{name} {calls[name]}" for name in ops)
+          + "; launches per application "
+          + ", ".join(f"{name} {per[name]}" for name in ops)
+          + f"; launches {count}", flush=True)
+    require(all(count[k] == expected[k] for k in KERNELS),
+            f"{label}: launches {count} are not the applications times the launches "
+            f"per application {expected}")
+    require(count["K1"] > 0, f"{label}: K1 was not launched")
+    require(count["K2"] == sum(count[f"K2 {p}"] for p in ("cluster", "tiled", "sweep")),
+            f"{label}: K2 launches by path {count}")
+    return res, times, count, calls, per, float(np.median(times))
+
+
+def eig_share(module, solve, label):
+    """One more solve with ``module.eig_select`` (the host eigensolve of the
+    deflated solvers, on its float64 CPU copy) timed: its host ms and share
+    of the solve's wall."""
+    import torch
+
+    spent = [0.0, 0]
+    inner = module.eig_select
+
+    def timed_eig(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    module.eig_select = timed_eig
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        module.eig_select = inner
+    print(f"phase 17: {label}: {spent[1]} host eigensolves, {1e3 * spent[0]:.3f} ms = "
+          f"{100 * spent[0] / wall:.1f}% of the solve's {1e3 * wall:.3f} ms", flush=True)
+    return {"eig_calls": spent[1], "eig_ms": 1e3 * spent[0], "wall_ms": 1e3 * wall}
+
+
+def family_counts(label, got, jax, band):
+    """Print a count against gmres_tpu's and require it within `band`."""
+    gap = got - jax
+    print(f"phase 17: {label}: {got} against gmres_tpu's {jax} on the CPU, gap {gap:+d} "
+          f"({'within' if abs(gap) <= 2 else 'not within'} 2, held to {band})", flush=True)
+    require(abs(gap) <= band, f"{label}: {got}, gmres_tpu {jax}")
+
+
+def np_rel(b_np, x, coefs=None):
+    """numpy float64 ‖b − A x‖/‖b‖ on the Poisson (or general) stencil."""
+    import numpy as np
+
+    x_np = x.detach().cpu().numpy().astype(np.float64)
+    ax = np_stencil(x_np) if coefs is None else np_stencil_general(x_np, coefs)
+    return float(np.linalg.norm(b_np - ax) / np.linalg.norm(b_np))
+
+
+def family_record(label, res, times, count, calls, per, err, **extra):
+    out = {"label": label, "status": res.status, "residual": float(res.residual),
+           "numpy_residual": err, "times": times, "launches": count,
+           "applications": calls, "per_application": per,
+           "host_syncs": res.host_syncs, **extra}
+    for key in ("restarts", "iterations"):
+        if hasattr(res, key):
+            out[key] = getattr(res, key)
+    return out
+
+
+def restart_sweep_rows(gt_torch, dev, workdir):
+    """The restart-sweep program with --solver lgmres and gmres-dr (m = 20,
+    25; its rows), and each solve at m = 20 timed through the public
+    function with its applications counted."""
+    import numpy as np
+
+    from gmres_tpu_torch.benchmarks import cli
+
+    n = RESTART_SWEEP_N
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.chebyshev_preconditioner(op, *REF_EIG)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    out = []
+    for (solver, tol), jax_counts in JAX_RESTART_SWEEP.items():
+        argv = ["restart-sweep", "--nsize", str(n), "--solver", solver, "--ntests", "2",
+                "--tol", f"{tol:g}"]
+        if solver == "gmres-dr":
+            argv += ["--deflate", "10"]
+        rows = program_rows(cli, argv, workdir, phase="phase 17")
+        for r in rows:
+            m = r["restart_m"]
+            jr, ji = jax_counts[m]
+            family_counts(f"{r['name']} total inner", r["total_iters"], (jr - 1) * m + ji, 2)
+            if solver == "gmres-dr":
+                family_counts(f"{r['name']} restarts", r["restarts"], jr, 2)
+            require(r["residual"] < tol * (10 if solver == "gmres-dr" else 1),
+                    f"{r['name']}: residual {r['residual']}")
+        m = 20
+
+        def solve(A, M, solver=solver, tol=tol):
+            if solver == "lgmres":
+                return gt_torch.lgmres(A, b, restart=m, aug=3, tol=tol, M=M)
+            return gt_torch.gmres_dr(A, b, restart=m, deflate=10, tol=tol, M=M)
+
+        label = f"restart-sweep {solver} m={m} {n}x{n} tol {tol:g}"
+        res, times, count, calls, per, med = family_run(
+            label, solve, {"A": (op, b), "M": (m_inv, b)})
+        err = np_rel(b_np, res.x)
+        total = (res.restarts - 1) * m + res.iterations
+        print(f"phase 17: {label}: status {res.status}, {res.restarts} restarts, {total} "
+              f"total inner, {res.host_syncs} host syncs, residual {float(res.residual):.4e}, "
+              f"numpy ‖b − A x‖/‖b‖ {err:.4e}; {1e3 * med / max(total, 1):.4f} ms an inner "
+              f"iteration", flush=True)
+        require(res.status == 0, f"{label}: status {res.status}")
+        require(err < tol * (10 if solver == "gmres-dr" else LGMRES_ROUNDING),
+                f"{label}: numpy residual {err:.3e}")
+        out.append(family_record(label, res, times, count, calls, per, err,
+                                 total_inner=total))
+    return out
+
+
+def gmres_dr_routes(gt_torch, dev):
+    """gmres_dr at 300² with deflation "eig" and "subspace" (the same route,
+    as in gmres_tpu), each against gmres_tpu's counts."""
+    import numpy as np
+
+    from gmres_tpu_torch.solvers import gmres_dr as gmres_dr_module
+
+    n = GMRES_DR_N
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.chebyshev_preconditioner(op, *REF_EIG)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    out = []
+    for route in ("eig", "subspace"):
+        label = f"gmres_dr {n}x{n} m=30 k=10 deflation={route}"
+        res, times, count, calls, per, med = family_run(
+            label, lambda A, M, route=route: gt_torch.gmres_dr(
+                A, b, restart=30, deflate=10, tol=1e-10, M=M, deflation=route),
+            {"A": (op, b), "M": (m_inv, b)})
+        err = np_rel(b_np, res.x)
+        print(f"phase 17: {label}: status {res.status}, {res.restarts} restarts, "
+              f"{res.iterations} in the last, {res.host_syncs} host syncs, residual "
+              f"{float(res.residual):.4e}, numpy {err:.4e}", flush=True)
+        family_counts(f"{label} restarts", res.restarts, JAX_GMRES_DR_300[0], 2)
+        family_counts(f"{label} total inner", (res.restarts - 1) * 30 + res.iterations,
+                      (JAX_GMRES_DR_300[0] - 1) * 30 + JAX_GMRES_DR_300[1], 2)
+        require(res.status == 0 and err < 1e-9, f"{label}: status {res.status}, {err:.3e}")
+        share = eig_share(gmres_dr_module, lambda route=route: gt_torch.gmres_dr(
+            op, b, restart=30, deflate=10, tol=1e-10, M=m_inv, deflation=route), label)
+        out.append(family_record(label, res, times, count, calls, per, err, eig=share))
+    return out
+
+
+def convdiff_idrs_row(gt_torch, dev, workdir):
+    """IDR(8) with the float64 Jacobi cycle at 1024² through the convdiff
+    program's own setup, timed, then the program itself."""
+    import numpy as np
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs
+
+    n = IDRS_N
+    op, b, m_inv, _ = cli.convdiff_problem(n, dev, solver="idrs", precond="mg",
+                                           tol=CONVDIFF_TOL)
+    label = f"convdiff idrs s=8 mg f64 {n}x{n}"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.idrs(A, b, s=8, tol=CONVDIFF_TOL, M=M),
+        {"A": (op, b), "M": (m_inv, b)})
+    coefs = convection_diffusion_coefs(0.4, 0.2)
+    b_np = np_stencil_general(np.ones((n, n)), coefs)
+    err = np_rel(b_np, res.x, coefs) * float(np.linalg.norm(b_np))  # absolute
+    print(f"phase 17: {label}: status {res.status}, {res.iterations} iterations "
+          f"({9 * res.iterations} operator applications), {res.host_syncs} host syncs, "
+          f"residual {float(res.residual):.4e}, numpy ‖b − A x‖ {err:.4e}; "
+          f"{1e3 * med / max(res.iterations, 1):.4f} ms an iteration", flush=True)
+    family_counts(f"{label} iterations", res.iterations, JAX_IDRS_1024,
+                  max(2, BICGSTAB_SPREAD * JAX_IDRS_1024))
+    require(res.status == 0 and err < CONVDIFF_TOL, f"{label}: {res.status}, {err:.3e}")
+    require(count["K1rr"] > 0 and count["K2"] > 0, f"{label}: the cycle's kernels {count}")
+    prof = profile_solve(lambda: gt_torch.idrs(op, b, s=8, tol=CONVDIFF_TOL, M=m_inv),
+                         label, med)
+    rows = program_rows(cli, ["convdiff", "--nsize", str(n), "--precond", "mg",
+                              "--solver", "idrs"], workdir, phase="phase 17")
+    require(rows[0]["residual"] < CONVDIFF_TOL, f"convdiff idrs program: {rows}")
+    return family_record(label, res, times, count, calls, per, err, profile=prof)
+
+
+def gcrodr_sequences(gt_torch, dev):
+    """GCRO-DR(40, k=10) on b₁ = A·1, then b₂ = A·x₂ fresh and warm, on
+    convdiff 1024² with the multigrid cycle and on Poisson 300² with cbpr2;
+    held to gmres_tpu's cycles, warm never more than fresh (fewer where
+    gmres_tpu's is). The residual in the certified norm ‖M(b − A x)‖/‖M b‖:
+    b − A x in numpy, M the port's."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs
+    from gmres_tpu_torch.solvers import gcrodr as gcrodr_module
+
+    out = []
+    for key, jax_counts in JAX_GCRODR.items():
+        model, n = key.split()[0], int(key.split()[1])
+        if model == "convdiff":
+            coefs = convection_diffusion_coefs(0.4, 0.2)
+            op = gt_torch.convection_diffusion_operator(n, 0.4, 0.2)
+            m_inv = gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2)
+        else:
+            coefs = (4.0, -1.0, -1.0, -1.0, -1.0)
+            op = gt_torch.poisson_operator(n)
+            m_inv = gt_torch.chebyshev_preconditioner(op, *REF_EIG)
+        x2 = np.random.default_rng(GCRODR_SEED).standard_normal((n, n))
+        bs_np = [np_stencil_general(np.ones((n, n)), coefs), np_stencil_general(x2, coefs)]
+        bs = [gt_torch.as_tensor(v, dev) for v in bs_np]
+        first = gt_torch.gcrodr(op, bs[0], k=10, restart=40, tol=1e-9, M=m_inv)
+        runs = {"first": (bs[0], None), "fresh": (bs[1], None), "warm": (bs[1], first.recycle)}
+        results = {}
+        for (name, (b, rec)), (jc, ji) in zip(runs.items(), jax_counts):
+            label = f"gcrodr {key} {name}"
+            res, times, count, calls, per, med = family_run(
+                label, lambda A, M, b=b, rec=rec: gt_torch.gcrodr(
+                    A, b, k=10, restart=40, tol=1e-9, M=M, recycle=rec),
+                {"A": (op, b), "M": (m_inv, b)})
+            b_np = bs_np[0] if name == "first" else bs_np[1]
+            r_np = b_np - np_stencil_general(res.x.detach().cpu().numpy(), coefs)
+            mr = m_inv(torch.as_tensor(r_np, device=dev)).cpu().numpy()
+            mb = m_inv(torch.as_tensor(b_np, device=dev)).cpu().numpy()
+            err = float(np.linalg.norm(mr) / np.linalg.norm(mb))
+            print(f"phase 17: {label}: status {res.status}, {res.restarts} cycles, "
+                  f"{res.iterations} in the last, {res.host_syncs} host syncs, residual "
+                  f"{float(res.residual):.4e}, numpy ‖M(b − A x)‖/‖M b‖ {err:.4e}", flush=True)
+            family_counts(f"{label} cycles", res.restarts, jc, 2)
+            require(res.status == 0 and err < 1e-9, f"{label}: {res.status}, {err:.3e}")
+            require(res.recycle.shape == (10, n, n) and res.recycle.dtype == torch.float64,
+                    f"{label}: recycle block {tuple(res.recycle.shape)}")
+            results[name] = res
+            share = eig_share(gcrodr_module, lambda b=b, rec=rec: gt_torch.gcrodr(
+                op, b, k=10, restart=40, tol=1e-9, M=m_inv, recycle=rec), label)
+            out.append(family_record(label, res, times, count, calls, per, err, eig=share))
+        fresh, warm = results["fresh"].restarts, results["warm"].restarts
+        jax_fresh, jax_warm = jax_counts[1][0], jax_counts[2][0]
+        print(f"phase 17: gcrodr {key}: warm {warm} cycles, fresh {fresh} (gmres_tpu "
+              f"{jax_warm}, {jax_fresh})", flush=True)
+        require(warm <= fresh and (warm < fresh or jax_warm == jax_fresh),
+                f"gcrodr {key}: warm {warm} against fresh {fresh}")
+    return out
+
+
+def multirhs_rows(gt_torch, dev, workdir):
+    """The multirhs program (block-gmres, s = 1, 4, 512², mg), then block
+    GMRES at s = 4 through the public function with its row applications
+    counted: a block application is s single-vector ones."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+
+    rows = program_rows(cli, ["multirhs", "--nsize", str(MULTIRHS_N), "--solver",
+                              "block-gmres", "--s-list", "1,4"], workdir, phase="phase 17")
+    for r in rows:
+        family_counts(f"{r['name']} restarts", r["restarts"],
+                      JAX_MULTIRHS_RESTARTS[r["s"]], 2)
+        require(r["max_rhs_residual"] < 1e-8, f"{r['name']}: {r['max_rhs_residual']}")
+    n, s = MULTIRHS_N, 4
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    xs = np.random.default_rng(0).standard_normal((s, n, n))
+    b_np = np.stack([np_stencil(x) for x in xs])
+    b = torch.as_tensor(b_np, device=dev)
+    label = f"block_gmres s={s} mg {n}x{n}"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.block_gmres(A, b, restart=30, tol=1e-8, M=M,
+                                                 max_restarts=200),
+        {"A": (op, b[0]), "M": (m_inv, b[0])})
+    errs = [np_rel(b_np[i], res.x[i]) for i in range(s)]
+    block_apps = {name: calls[name] / ((FAMILY_REPEATS + 1) * s) for name in calls}
+    print(f"phase 17: {label}: status {res.status}, {res.restarts} restarts, "
+          f"{res.host_syncs} host syncs, residuals {[f'{e:.3e}' for e in errs]} (numpy); "
+          f"block applications a solve {block_apps}, each {s} single-vector ones: "
+          f"launches per block application A {dict((k, s * v) for k, v in per['A'].items())}, "
+          f"M {dict((k, s * v) for k, v in per['M'].items())}", flush=True)
+    require(res.status == 0 and max(errs) < 1e-8, f"{label}: {res.status}, {errs}")
+    require(all(c % s == 0 for c in calls.values()),
+            f"{label}: applications {calls} are not whole blocks of {s}")
+    family_counts(f"{label} restarts", res.restarts, JAX_MULTIRHS_RESTARTS[s], 2)
+    return family_record(label, res, times, count, calls, per, max(errs), rows=rows)
+
+
+def sstep_rows(gt_torch, dev):
+    """s-step GMRES (s = 8, tol 1e-6) with the order-16 Chebyshev
+    preconditioner at 1024², float64 and with a float32 block. The
+    certified norm ‖M(b − A x)‖/‖b‖: b − A x in numpy, M the port's."""
+    import numpy as np
+    import torch
+
+    n = SSTEP_N
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.chebyshev_preconditioner(op, 0.005, 8.0, order=16)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    out = []
+    for tag, inner in (("f64", None), ("f32", torch.float32)):
+        label = f"sstep_gmres s=8 cheb16 {n}x{n} {tag}"
+        res, times, count, calls, per, med = family_run(
+            label, lambda A, M, inner=inner: gt_torch.sstep_gmres(
+                A, b, s=8, tol=1e-6, M=M, inner_dtype=inner),
+            {"A": (op, b), "M": (m_inv, b)},
+            warm=lambda A, M, inner=inner: gt_torch.sstep_gmres(
+                A, b, s=8, tol=1e-6, M=M, inner_dtype=inner, max_restarts=WARM_RESTARTS))
+        r_np = b_np - np_stencil(res.x.detach().cpu().numpy())
+        err = float(np.linalg.norm(m_inv(torch.as_tensor(r_np, device=dev)).cpu().numpy())
+                    / np.linalg.norm(b_np))
+        print(f"phase 17: {label}: status {res.status}, {res.restarts} restarts, "
+              f"{res.host_syncs} host syncs, residual {float(res.residual):.4e}, numpy "
+              f"‖M(b − A x)‖/‖b‖ {err:.4e}; {1e3 * med / max(res.restarts, 1):.4f} ms a "
+              f"cycle", flush=True)
+        band = 2 if tag == "f64" else max(2, SSTEP_F32_SPREAD * JAX_SSTEP_RESTARTS[tag])
+        family_counts(f"{label} restarts", res.restarts, JAX_SSTEP_RESTARTS[tag], band)
+        require(per["M"]["K1"] == 15, f"{label}: {per['M']['K1']} K1 launches an M")
+        require(res.status == 0 and err < 1e-6, f"{label}: {res.status}, {err:.3e}")
+        out.append(family_record(label, res, times, count, calls, per, err))
+    return out
+
+
+def fgmres_row(gt_torch, dev):
+    """FGMRES(10) at 300², tol 1e-6, M four steps of CG (a nonlinear M)."""
+    import numpy as np
+
+    n = FGMRES_N
+    op = gt_torch.poisson_operator(n)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+
+    def inner_cg(r):
+        return gt_torch.cg(op, r, tol=0.0, max_iterations=4).x
+
+    label = f"fgmres m=10 inner cg4 {n}x{n}"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.fgmres(A, b, restart=10, tol=1e-6, M=M),
+        {"A": (op, b), "M": (inner_cg, b)},
+        warm=lambda A, M: gt_torch.fgmres(A, b, restart=10, tol=1e-6, M=M,
+                                          max_restarts=WARM_RESTARTS))
+    err = np_rel(b_np, res.x)
+    total = (res.restarts - 1) * 10 + res.iterations
+    print(f"phase 17: {label}: status {res.status}, {res.restarts} restarts, {total} total "
+          f"inner, {res.host_syncs} host syncs, residual {float(res.residual):.4e}, numpy "
+          f"{err:.4e}; {1e3 * med / max(total, 1):.4f} ms an inner iteration", flush=True)
+    family_counts(f"{label} restarts", res.restarts, JAX_FGMRES_300[0],
+                  max(2, FGMRES_SPREAD * JAX_FGMRES_300[0]))
+    require(res.status == 0 and err < 1e-6, f"{label}: {res.status}, {err:.3e}")
+    return family_record(label, res, times, count, calls, per, err, total_inner=total)
+
+
+def phase_family(gt_torch, dev, workdir):
+    """Phase 17: every row of the GMRES family; returns the launches over
+    the phase (each row's counts summed) and the rows."""
+    t_phase = time.perf_counter()
+    rows = []
+    rows += restart_sweep_rows(gt_torch, dev, workdir)
+    rows += gmres_dr_routes(gt_torch, dev)
+    rows.append(convdiff_idrs_row(gt_torch, dev, workdir))
+    rows += gcrodr_sequences(gt_torch, dev)
+    rows.append(multirhs_rows(gt_torch, dev, workdir))
+    rows += sstep_rows(gt_torch, dev)
+    rows.append(fgmres_row(gt_torch, dev))
+    launches = dict.fromkeys(mg_counters(), 0)
+    for r in rows:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -2523,6 +3039,10 @@ def main() -> int:
         section = _cuda.build_log.split("== chebk.cu")[-1].split("\n== ")[0]
         print(f"  ptxas, chebk.cu:{section}", flush=True)
         k2_paths(dev, sys.argv[2] if len(sys.argv) > 2 else None)
+        return 0
+    if sys.argv[1:2] == ["--phase17"]:
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_family(gt_torch, dev, workdir)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -2606,7 +3126,9 @@ def main() -> int:
         programs = phase_programs(gt_torch, dev, workdir)
         # Phase 16: convection-diffusion (BASELINE config 3).
         cd_records, cd, _ = phase_convdiff(gt_torch, rng, dev, floor, workdir)
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_run:.1f} s", flush=True)
+        # Phase 17: the GMRES family.
+        family, _ = phase_family(gt_torch, dev, workdir)
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(rdma_records)
     records.update(cd_records)
@@ -2651,6 +3173,7 @@ def main() -> int:
     coarse = [r for r in records["K2"] if r["case"] == "K2 order 32 75x75 f32 (coarse solve)"][0]
     roofline_path = "roofline program (phase 13; launches captured in CUDA graphs)"
     convdiff_path = "convdiff rows (phase 16)"
+    family_path = "GMRES family (phase 17)"
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -2661,39 +3184,45 @@ def main() -> int:
     print(json.dumps({"kernels": [
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
-               mg_k1 + strong["K1"] + roof["K1"] + programs["K1"],
+               mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
                                  roofline_path: roof["K1"],
-                                 programs_path: programs["K1"]},
+                                 programs_path: programs["K1"],
+                                 family_path: family["K1"]},
                path_shape=f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, one point a thread",
                **timing("K1", f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, "
                               "one point a thread"),
                halo_applications=strong["applications"], **redesign),
         report("K1rr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
-               mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"],
+               mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
-                                 programs_path: programs["K1rr"]},
+                                 programs_path: programs["K1rr"],
+                                 family_path: family["K1rr"]},
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
-               mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"],
+               mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
-                                 programs_path: programs["K1cr"]},
+                                 programs_path: programs["K1cr"],
+                                 family_path: family["K1cr"]},
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
-               mg_k2 + roof["K2"] + programs["K2"], "K2 order 3 2048x2048 f32",
+               mg_k2 + roof["K2"] + programs["K2"] + family["K2"], "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
-                                    programs_path: programs["K2"]},
+                                    programs_path: programs["K2"],
+                                    family_path: family["K2"]},
+               family_launches_by_path={p: family[f"K2 {p}"]
+                                        for p in ("cluster", "tiled", "sweep")},
                path=[r["path"] for r in records["K2"]
                      if r["case"] == "K2 order 3 2048x2048 f32"][0],
                sweep_path_ms=[r["sweep_ms"] for r in records["K2"]

@@ -44,6 +44,7 @@ first use; on a CPU tensor each takes its plain PyTorch version.
 """
 
 from gmres_tpu_torch.types import (
+    BlockSolveResult,
     GmresResult,
     LinearOperator,
     Preconditioner,
@@ -52,11 +53,18 @@ from gmres_tpu_torch.types import (
     as_tensor,
 )
 from gmres_tpu_torch.solvers.bicgstab import bicgstab
+from gmres_tpu_torch.solvers.block_gmres import block_gmres
 from gmres_tpu_torch.solvers.bicgstabl import bicgstabl
 from gmres_tpu_torch.solvers.cg import cg
 from gmres_tpu_torch.solvers.cgs import cgs
 from gmres_tpu_torch.solvers.tfqmr import tfqmr
+from gmres_tpu_torch.solvers.fgmres import fgmres
+from gmres_tpu_torch.solvers.gcrodr import gcrodr
 from gmres_tpu_torch.solvers.gmres import gmres
+from gmres_tpu_torch.solvers.gmres_dr import gmres_dr
+from gmres_tpu_torch.solvers.idrs import idrs
+from gmres_tpu_torch.solvers.lgmres import lgmres
+from gmres_tpu_torch.solvers.sstep import sstep_gmres
 from gmres_tpu_torch.solvers.lanczos import lanczos_bounds, power_iteration_bound
 from gmres_tpu_torch.precond.chebyshev import (
     chebyshev_preconditioner,
@@ -129,6 +137,7 @@ from gmres_tpu_torch.parallel.halo import (
 )
 
 __all__ = [
+    "BlockSolveResult",
     "GmresResult",
     "LinearOperator",
     "Preconditioner",
@@ -141,6 +150,13 @@ __all__ = [
     "cgs",
     "tfqmr",
     "gmres",
+    "sstep_gmres",
+    "fgmres",
+    "lgmres",
+    "block_gmres",
+    "idrs",
+    "gmres_dr",
+    "gcrodr",
     "lanczos_bounds",
     "power_iteration_bound",
     "chebyshev_preconditioner",

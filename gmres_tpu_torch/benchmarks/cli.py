@@ -11,13 +11,16 @@ flags:
   cg              ← tests/test_cg.f90: PCG grid sweep 300²..1000², 1e-9
   bicgstab        ← tests/test_bicgstab.f90: the same sweep
   convdiff        BASELINE config 3: BiCGSTAB (or GMRES, BiCGStab(ℓ), CGS,
-                  TFQMR) on the nonsymmetric convection-diffusion stencil,
+                  TFQMR, IDR(s)) on the nonsymmetric convection-diffusion stencil,
                   with its multigrid cycle or the GMRES polynomial
   strong-scaling  ← tests/strong_scaling.f90: fixed grid, rank count 1..D
   weak-scaling    ← the true weak scaling the reference commented out
                     (weak_scaling.f90:60): the grid grows with the ranks
   restart-sweep   ← tests/weak_scaling.f90 (misnamed there: it sweeps the
-                    restart parameter m)
+                    restart parameter m); Householder GMRES, LGMRES or
+                    GMRES-DR
+  multirhs        block GMRES over s stacked right-hand sides, time per
+                  right-hand side against s = 1
   roofline        achieved bandwidth of the stencil routes (plain float32
                   and float64, kernel K1, kernel K6 on (hi, lo) pairs), of
                   the order-k Chebyshev smoother (kernel K2) and of the
@@ -77,16 +80,19 @@ PEAK_SLACK = 1.05
 # Chebyshev eigenvalue bounds every reference program hardcodes
 # (test_poisson_mf.f90:38 params=(8.2, 0.2)).
 REF_EIG = (0.2, 8.2)
-# The restart-sweep solvers of the JAX program; the ones without a port
-# exit with a message (see cmd_restart_sweep).
+# The restart-sweep solvers of the JAX program.
 RESTART_SOLVERS = ("gmres", "lgmres", "gmres-dr")
-# The convdiff solvers of the JAX program; idrs and qmr exit with a message
-# naming the ROADMAP item that ports them (see cmd_convdiff).
+# The convdiff solvers of the JAX program; qmr exits with a message naming
+# the ROADMAP item that ports it (see cmd_convdiff).
 CONVDIFF_SOLVERS = ("bicgstab", "gmres", "bicgstabl", "cgs", "tfqmr", "idrs", "qmr")
 CONVDIFF_UNPORTED = {
-    "idrs": "ROADMAP queue 1, item 9.1: its shadow block comes from "
-            "block_gmres's orthonormalisation",
     "qmr": "ROADMAP queue 1, item 9.4: it needs the operator's transpose",
+}
+# The multirhs solvers of the JAX program; block-cg exits with a message
+# naming the ROADMAP item that ports it (see cmd_multirhs).
+MULTIRHS_SOLVERS = ("block-cg", "block-gmres")
+MULTIRHS_UNPORTED = {
+    "block-cg": "ROADMAP queue 1, item 9.2: the short-recurrence family",
 }
 # GMRES's restart length in the convdiff program.
 CONVDIFF_RESTART = 30
@@ -264,7 +270,7 @@ def cmd_bicgstab(args):
 def convdiff_problem(n: int, dev: torch.device, *, gamma_x=0.4, gamma_y=0.2,
                      solver="bicgstab", precond="none", precision="f64",
                      smoother="jacobi", tol=1e-9, max_iterations=10_000, ell=2,
-                     poly_degree=24):
+                     poly_degree=24, idrs_s=8):
     """The ``convdiff`` program's problem on ``dev``: the operator, b = A·1,
     the preconditioner (None, the multigrid cycle or the GMRES polynomial)
     and a closure that solves once, as the program configures them (its
@@ -283,6 +289,7 @@ def convdiff_problem(n: int, dev: torch.device, *, gamma_x=0.4, gamma_y=0.2,
     from gmres_tpu_torch.solvers.bicgstabl import bicgstabl
     from gmres_tpu_torch.solvers.cgs import cgs
     from gmres_tpu_torch.solvers.gmres import gmres
+    from gmres_tpu_torch.solvers.idrs import idrs
     from gmres_tpu_torch.solvers.tfqmr import tfqmr
 
     if solver in CONVDIFF_UNPORTED:
@@ -307,8 +314,10 @@ def convdiff_problem(n: int, dev: torch.device, *, gamma_x=0.4, gamma_y=0.2,
                          max_restarts=max(max_iterations // CONVDIFF_RESTART, 1))
     else:
         fn = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "cgs": cgs,
-              "tfqmr": tfqmr}[solver]
+              "tfqmr": tfqmr, "idrs": idrs}[solver]
         kw = {"ell": ell} if solver == "bicgstabl" else {}
+        if solver == "idrs":
+            kw = {"s": idrs_s}
 
         def solve():
             return fn(op, b, tol=tol, max_iterations=max_iterations, M=m_inv, **kw)
@@ -322,22 +331,25 @@ def cmd_convdiff(args):
     cycle (``--precond mg``, ``--smoother``) or the degree-``--poly-degree``
     GMRES polynomial (``--precond poly``); ``--precision mixed`` runs the
     cycle in float32 under BiCGSTAB and the Arnoldi cycles in float32 under
-    GMRES (see ``convdiff_problem``). ``--solver idrs`` and ``qmr`` are not
-    ported and exit with a message (with ``--device cpu`` where there is no
-    card)."""
+    GMRES (see ``convdiff_problem``); ``--solver idrs`` runs IDR(``--idrs-s``).
+    ``--solver qmr`` is not ported and exits with a message (with
+    ``--device cpu`` where there is no card)."""
     dev = _device(args)
     n = args.nsize
     _, _, _, solve = convdiff_problem(
         n, dev, gamma_x=args.gamma_x, gamma_y=args.gamma_y, solver=args.solver,
         precond=args.precond, precision=args.precision, smoother=args.smoother,
         tol=args.tol, max_iterations=args.max_iterations, ell=args.ell,
-        poly_degree=args.poly_degree)
+        poly_degree=args.poly_degree, idrs_s=args.idrs_s)
     res, dt = _timed(solve, dev)
     # Operator applications, counted as the JAX program counts them: GMRES
     # one an inner iteration and one a restart cycle (its certified
-    # residual), BiCGStab(ℓ) 2ℓ a cycle, the others 2 an iteration.
+    # residual), BiCGStab(ℓ) 2ℓ a cycle, IDR(s) s+1 an outer iteration, the
+    # others 2 an iteration.
     if args.solver == "gmres":
         matvecs = _total_inner(res, CONVDIFF_RESTART) + int(res.restarts)
+    elif args.solver == "idrs":
+        matvecs = (args.idrs_s + 1) * int(res.iterations)
     else:
         matvecs = (2 * args.ell if args.solver == "bicgstabl" else 2) * int(res.iterations)
     records = [_record(
@@ -488,21 +500,19 @@ def cmd_weak_scaling(args):
 
 def cmd_restart_sweep(args):
     """The reference's 'weak_scaling' program: fixed grid, m = start,
-    start+step, … (weak_scaling.f90:24,61), Householder GMRES with cbpr2.
+    start+step, … (weak_scaling.f90:24,61), Householder GMRES with cbpr2,
+    or with ``--solver lgmres`` (``--aug``) or ``gmres-dr`` (``--deflate``)
+    the same cbpr2 applied on the right.
 
     --cycle-reps K > 0 adds a per-cycle time per m: a run of exactly K
     cycles (tol 1e-30 never converges) timed --repeats times, the minimum
-    over K; derived_wall_s is that times the cycles of the solve.
-    --solver lgmres and gmres-dr need solvers that are not ported yet
-    (ROADMAP queue 1, item 9.1): the program exits with a message."""
+    over K; derived_wall_s is that times the cycles of the solve."""
     from gmres_tpu_torch.models.poisson import poisson_operator
     from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
     from gmres_tpu_torch.solvers.gmres import gmres
+    from gmres_tpu_torch.solvers.gmres_dr import gmres_dr
+    from gmres_tpu_torch.solvers.lgmres import lgmres
 
-    if args.solver != "gmres":
-        raise SystemExit(
-            f"restart-sweep --solver {args.solver}: that solver is not ported "
-            "to gmres_tpu_torch yet (ROADMAP queue 1, item 9.1); use --solver gmres")
     dev = _device(args)
     n = args.nsize
     op = poisson_operator(n)
@@ -511,10 +521,18 @@ def cmd_restart_sweep(args):
     b = op(x_true)
 
     def solve_fn(mm, tol, max_restarts):
+        if args.solver == "lgmres":
+            return lambda: lgmres(op, b, restart=mm, aug=args.aug, tol=tol, M=m_inv,
+                                  max_restarts=max_restarts)
+        if args.solver == "gmres-dr":
+            return lambda: gmres_dr(op, b, restart=mm, deflate=args.deflate, tol=tol,
+                                    M=m_inv, max_restarts=max_restarts)
         return lambda: gmres(op, b, restart=mm, tol=tol, M=m_inv,
                              variant="householder", max_restarts=max_restarts,
                              compute_v_err=False)
 
+    label_base = {"lgmres": f"lgmres{args.aug}",
+                  "gmres-dr": f"gmres-dr{args.deflate}"}.get(args.solver, "gmres-hh")
     records = []
     for i in range(args.ntests):
         m = args.start + i * args.step
@@ -541,8 +559,62 @@ def cmd_restart_sweep(args):
                 "derived_wall_s": per_cycle * cycles,
             })
         records.append(_record(
-            f"gmres-hh-m{m}", res, x_true=x_true, wall_s=dt, tol=args.tol,
+            f"{label_base}-m{m}", res, x_true=x_true, wall_s=dt, tol=args.tol,
             nnz=5 * n * n - 4 * n, extra=extra))
+    _emit(records, args)
+    return records
+
+
+def cmd_multirhs(args):
+    """Multi-RHS amortisation sweep: s stacked Poisson right-hand sides
+    b_i = A x_i (x_i standard normal, numpy seed 0, drawn in turn for each
+    s of ``--s-list``) solved together by block GMRES with the multigrid
+    V-cycle on the right (``--precond mg``), the time per RHS and the
+    amortisation against the s = 1 row. On the card each block application
+    of A and of M runs s single-vector applications (one launch of their
+    kernels per row), where JAX's ``vmap`` batches them. ``--precond`` other
+    than mg runs without a preconditioner, as in JAX. ``--solver
+    block-cg`` (JAX's default) is not ported and exits with a message."""
+    import types
+
+    from gmres_tpu_torch.models.poisson import poisson_operator
+    from gmres_tpu_torch.precond.multigrid import poisson_multigrid_preconditioner
+    from gmres_tpu_torch.solvers.block_gmres import block_gmres
+
+    dev = _device(args)
+    if args.solver in MULTIRHS_UNPORTED:
+        raise SystemExit(
+            f"multirhs --solver {args.solver}: that solver is not ported to "
+            f"gmres_tpu_torch yet ({MULTIRHS_UNPORTED[args.solver]}); use "
+            "--solver block-gmres")
+    n = args.nsize
+    op = poisson_operator(n)
+    m_inv = poisson_multigrid_preconditioner(n) if args.precond == "mg" else None
+    rng = np.random.default_rng(0)
+    records = []
+    base_per_rhs = None
+    for s in (int(v) for v in args.s_list.split(",")):
+        xs = torch.as_tensor(rng.standard_normal((s, n, n))).to(dev)
+        B = torch.stack([op(xs[i]) for i in range(s)])
+        res, dt = _timed(lambda: block_gmres(
+            op, B, restart=args.restart, tol=args.tol, M=m_inv,
+            max_restarts=args.max_restarts), dev)
+        per_rhs = dt / s
+        if base_per_rhs is None:
+            base_per_rhs = per_rhs
+        # Block GMRES counts restart cycles: its row's iterations are
+        # restarts·m, as in JAX's program.
+        row = types.SimpleNamespace(x=res.x, restarts=res.restarts,
+                                    iterations=res.restarts * args.restart,
+                                    residual=res.residual, status=res.status)
+        records.append(_record(
+            f"{args.solver}-poisson-{n}x{n}-s{s}", row, wall_s=dt, tol=args.tol,
+            nnz=5 * n * n - 4 * n,
+            extra={"s": s, "time_per_rhs": per_rhs,
+                   "amortization_vs_s1": base_per_rhs / per_rhs,
+                   "precond": args.precond,
+                   "max_rhs_residual": float(res.residual),
+                   "host_syncs": res.host_syncs}))
     _emit(records, args)
     return records
 
@@ -709,8 +781,8 @@ def build_parser() -> argparse.ArgumentParser:
                  "precision": ("f64", "mixed"),
                  "smoother": ("jacobi", "chebyshev", "auto", "rbgs")},
         help="BASELINE config 3: nonsymmetric convection-diffusion, b = A·1, "
-             "with the multigrid cycle or the GMRES polynomial; idrs and qmr "
-             "are not ported (ROADMAP items 9.1, 9.4) and exit with a message")
+             "with the multigrid cycle or the GMRES polynomial; qmr is not "
+             "ported (ROADMAP item 9.4) and exits with a message")
     scaling_note = (" The halo operator runs at every d, with or without "
                     "--explicit-halo (no GSPMD partitioner in PyTorch).")
     add("strong-scaling", cmd_strong_scaling, nsize=304, restart=50,
@@ -728,8 +800,15 @@ def build_parser() -> argparse.ArgumentParser:
         ntests=10, tol=1e-15, max_restarts=1000, cycle_reps=0, repeats=5,
         solver="gmres", aug=3, deflate=10,
         choices={"solver": RESTART_SOLVERS},
-        help="Householder GMRES over restart lengths m; lgmres and gmres-dr "
-             "are not ported (ROADMAP item 9.1) and exit with a message")
+        help="Householder GMRES (or LGMRES, GMRES-DR with M on the right) "
+             "over restart lengths m")
+    add("multirhs", cmd_multirhs, nsize=512, s_list="1,2,4,8",
+        solver="block-cg", precond="mg", tol=1e-8, restart=30,
+        max_restarts=200, max_iterations=2000,
+        choices={"solver": MULTIRHS_SOLVERS},
+        help="block GMRES on s stacked Poisson right-hand sides, time per "
+             "RHS against s = 1; block-cg is not ported (ROADMAP item 9.2) "
+             "and exits with a message")
     add("roofline", cmd_roofline, grids="1024,2048,4096", reps=20, cheb_order=8,
         help="achieved bandwidth of the stencil, smoother and V-cycle routes")
     return p

@@ -1,0 +1,168 @@
+"""Block GMRES: restarted GMRES for s right-hand sides at once, in eager
+PyTorch.
+
+Counterpart of ``gmres_tpu/solvers/block_gmres.py``, with its options and
+arithmetic: one cycle is exactly m block-Arnoldi steps; block CGS2 between
+blocks (two contractions with the rows written so far), SVQB twice within
+a block (an s×s Gram, ``eigh`` and a scaled combination, with the
+eigenvalue clamp that absorbs rank-deficient blocks); the block least
+squares by a dense QR of the ((m+1)s, ms) matrix; M linear and on the
+right, applied once to the combined correction.
+
+JAX batches the single-vector operator and preconditioner with
+``jax.vmap``, which adds a grid axis to a Pallas kernel. Here each is a
+loop over the block's s rows: on the card a block application of A (or
+of M) launches its kernels s times, once for each row.
+
+Host reads: the initial residuals and one per restart cycle
+(``BlockSolveResult.host_syncs``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
+from gmres_tpu_torch.solvers.gmres import _as_operator
+from gmres_tpu_torch.types import BlockSolveResult, Preconditioner, SolverStatus
+
+
+def _svqb(w: torch.Tensor, eps: float):
+    """One SVQB pass over the s long rows of w: (q, r) with orthonormal rows
+    q and w[b] = Σ_a r[a, b]·q[a] (r = S⁻¹, dense). Directions below
+    eps·λ_max are clamped and come out as orthonormalised noise with ~zero
+    weight."""
+    s = w.shape[0]
+    flat = w.reshape(s, -1)
+    g = flat.conj() @ flat.T
+    d = torch.sqrt(torch.clamp(torch.diagonal(g).real, min=0.0))
+    dinv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
+                       torch.zeros_like(d))
+    gs = g * dinv[:, None] * dinv[None, :]
+    # LAPACK refuses a non-finite input, where JAX's eigh returns NaN: the
+    # NaN is put back after, without reading the device.
+    finite = torch.isfinite(gs).all()
+    lam, u = torch.linalg.eigh(torch.where(finite, gs, torch.zeros_like(gs)))
+    lam = torch.where(finite, lam, torch.full_like(lam, float("nan")))
+    lmax = torch.clamp(lam[-1], min=eps)
+    lam_c = torch.maximum(lam, eps * lmax)
+    smat = (dinv[:, None] * u) / torch.sqrt(lam_c)[None, :]
+    q = torch.tensordot(smat, w, dims=([0], [0]))
+    r = (torch.sqrt(lam_c)[:, None] * u.T) * d[None, :]
+    return q, r
+
+
+def _orthonormalize_block(w: torch.Tensor, eps: float):
+    """SVQB twice: (q, H) with w[b] = Σ_a H[a, b]·q[a]."""
+    q1, r1 = _svqb(w, eps)
+    q2, r2 = _svqb(q1, eps)
+    return q2, r2 @ r1
+
+
+def _rows(fn, v: torch.Tensor) -> torch.Tensor:
+    """fn on each row of the block (JAX's ``jax.vmap(fn)``): one call, and on
+    the card one launch of fn's kernels, per row."""
+    return torch.stack([fn(v[i]) for i in range(v.shape[0])])
+
+
+def block_gmres(
+    A,
+    B: torch.Tensor,
+    *,
+    restart: int = 30,
+    tol: float = 1e-8,
+    max_restarts: int = 100,
+    M: Optional[Preconditioner] = None,
+    x0: Optional[torch.Tensor] = None,
+) -> BlockSolveResult:
+    """Solve A x_i = b_i for the s stacked right-hand sides B[i] (the
+    arguments of ``gmres_tpu.block_gmres``).
+
+      A: single-vector operator (applied row by row) or dense (n, n) matrix.
+      B: (s, *shape) stacked right-hand sides.
+      restart: block-Krylov cycle length m (subspace dimension m·s).
+      tol: per-RHS relative true-residual tolerance; the solve stops when
+        every RHS meets it (checked at restart boundaries).
+      M: linear right preconditioner (single-vector callable).
+      x0: optional (s, *shape) initial guesses.
+    """
+    _refuse_dtensor(B, "block_gmres")
+    op1 = _as_operator(A, B.device)
+    s = B.shape[0]
+    dtype = B.dtype
+    dev = B.device
+    m = max(int(restart), 1)
+    eps = float(torch.finfo(dtype).eps)
+    tiny = torch.finfo(dtype).tiny
+
+    def vop(v):
+        return _rows(op1, v)
+
+    def vprec(v):
+        return _rows(M, v) if M is not None else v
+
+    if x0 is None:
+        x0 = torch.zeros_like(B)
+    bnorms = torch.sqrt(torch.sum(B.reshape(s, -1) ** 2, dim=1))
+    bsafe = torch.clamp(bnorms, min=tiny)
+
+    def residual_block(x):
+        r = B - vop(x)
+        return r, torch.sqrt(torch.sum(r.reshape(s, -1) ** 2, dim=1)) / bsafe
+
+    def cycle(r):
+        """m block-Arnoldi steps; returns the block correction."""
+        v0, b0 = _orthonormalize_block(r, eps)
+        basis = torch.zeros((m + 1,) + tuple(B.shape), dtype=dtype, device=dev)
+        basis[0] = v0
+        hmat = torch.zeros(((m + 1) * s, m * s), dtype=dtype, device=dev)
+        for t in range(m):
+            w = vop(vprec(basis[t]))
+            v2 = basis[: t + 1].reshape(t + 1, s, -1)
+            w2 = w.reshape(s, -1)
+            h1 = torch.tensordot(v2, w2, dims=([2], [1]))  # (t+1, s, s)
+            w2 = w2 - torch.tensordot(h1, v2, dims=([0, 1], [0, 1]))
+            h2 = torch.tensordot(v2, w2, dims=([2], [1]))
+            w2 = w2 - torch.tensordot(h2, v2, dims=([0, 1], [0, 1]))
+            q, hsub = _orthonormalize_block(w2.reshape(B.shape), eps)
+            basis[t + 1] = q
+            col = torch.zeros((m + 1, s, s), dtype=dtype, device=dev)
+            col[: t + 1] = h1 + h2
+            col[t + 1] = hsub
+            hmat[:, t * s:(t + 1) * s] = col.reshape((m + 1) * s, s)
+        # Block least squares min‖E₁B₀ − H̄Y‖_F by a dense QR.
+        c = torch.zeros(((m + 1) * s, s), dtype=dtype, device=dev)
+        c[:s] = b0
+        qh, rh = torch.linalg.qr(hmat)
+        rhs = qh.T @ c
+        diag = torch.diagonal(rh)
+        dfloor = eps * torch.clamp(diag.abs().max(), min=1.0)
+        dsafe = torch.where(diag.abs() > dfloor, diag, torch.ones_like(diag))
+        rh = rh - torch.diag(diag) + torch.diag(dsafe)
+        y = torch.linalg.solve_triangular(rh, rhs, upper=True)
+        combo = torch.tensordot(y.reshape(m, s, s), basis[:m].reshape(m, s, -1),
+                                dims=([0, 1], [0, 1])).reshape(B.shape)
+        return vprec(combo)
+
+    r, rel = residual_block(x0)
+    converged = bool(torch.all(rel < tol) | torch.all(bnorms == 0))
+    syncs = 1
+    breakdown = False
+    x, k = x0, 0
+    while k < max_restarts and not converged and not breakdown:
+        x = x + cycle(r)
+        r, rel = residual_block(x)
+        converged, breakdown = torch.stack(
+            [torch.all(rel < tol), ~torch.all(torch.isfinite(rel))]).tolist()
+        syncs += 1
+        k += 1
+    if converged:
+        status = SolverStatus.CONVERGED
+    elif breakdown:
+        status = SolverStatus.BREAKDOWN
+    else:
+        status = SolverStatus.MAX_ITERATIONS
+    return BlockSolveResult(x=x, restarts=k, residuals=rel, residual=torch.max(rel),
+                            status=int(status), host_syncs=syncs)

@@ -1,7 +1,7 @@
 """Core result/status types of the PyTorch port.
 
 Counterpart of ``gmres_tpu/types.py``: the same status codes and the same
-GMRES and CG result fields, as plain dataclasses over tensors (no pytree
+GMRES, CG and block result fields, as plain dataclasses over tensors (no pytree
 registration is needed in eager PyTorch).
 """
 
@@ -120,6 +120,39 @@ class GmresResult:
         comparison with ``gmres_tpu``."""
         return _fields_numpy(self, ("x", "iterations", "restarts", "residual",
                                     "status", "residual_history", "v_err"))
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSolveResult:
+    """Result of a block (multi-RHS) solve.
+
+    Attributes (the fields of ``gmres_tpu.BlockSolveResult``):
+      x: (s, *shape) stacked solutions.
+      restarts: restart cycles performed.
+      residuals: (s,) final relative residual per right-hand side.
+      residual: max over ``residuals`` (the convergence gate), a 0-d tensor.
+      status: SolverStatus code (CONVERGED iff every RHS converged).
+
+    Beyond the JAX fields:
+      host_syncs: device→host reads the solve made to decide its loop: the
+        initial residuals and one per restart cycle.
+    """
+
+    x: torch.Tensor
+    restarts: int
+    residuals: torch.Tensor
+    residual: torch.Tensor
+    status: int
+    host_syncs: int = 0
+
+    @property
+    def converged(self) -> bool:
+        return self.status == SolverStatus.CONVERGED
+
+    def to_numpy(self) -> dict:
+        """The JAX result fields as numpy values."""
+        return _fields_numpy(self, ("x", "restarts", "residuals", "residual",
+                                    "status"))
 
 
 def as_tensor(a, device, dtype=None) -> torch.Tensor:

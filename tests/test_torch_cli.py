@@ -73,6 +73,14 @@ RUNS = {
     "convdiff-tfqmr": ["convdiff", "--nsize", "32", "--precond", "mg",
                        "--solver", "tfqmr"],
     "convdiff-poly": ["convdiff", "--nsize", "32", "--precond", "poly"],
+    "convdiff-idrs": ["convdiff", "--nsize", "32", "--precond", "mg", "--solver", "idrs"],
+    "restart-sweep-lgmres": ["restart-sweep", "--nsize", "16", "--start", "5", "--step",
+                             "5", "--ntests", "2", "--tol", "1e-8", "--solver", "lgmres"],
+    "restart-sweep-gmres-dr": ["restart-sweep", "--nsize", "16", "--start", "5", "--step",
+                               "5", "--ntests", "2", "--tol", "1e-8", "--solver",
+                               "gmres-dr", "--deflate", "2"],
+    "multirhs-block-gmres": ["multirhs", "--nsize", "16", "--s-list", "1,3", "--solver",
+                             "block-gmres", "--restart", "10"],
 }
 # Two gloo ranks, and JAX's rows on two devices.
 RUNS_2 = {
@@ -162,20 +170,23 @@ def test_weak_scaling_mg_on_two_ranks_raises(two_ranks):
         assert msg.startswith("NotImplementedError:") and "item 8" in msg
 
 
-@pytest.mark.parametrize("solver", ["lgmres", "gmres-dr"])
-def test_unported_restart_solver_exits(solver, capsys):
-    with pytest.raises(SystemExit) as exc:
-        port_main(["restart-sweep", "--nsize", "16", "--ntests", "1",
-                   "--solver", solver, "--device", "cpu"])
-    assert "item 9.1" in str(exc.value.code)
-    assert "solver" not in capsys.readouterr().out  # no table: nothing ran
-
-
-@pytest.mark.parametrize("solver,item", [("idrs", "item 9.1"), ("qmr", "item 9.4")])
+@pytest.mark.parametrize("solver,item", [("qmr", "item 9.4")])
 def test_unported_convdiff_solver_exits(solver, item, capsys):
     with pytest.raises(SystemExit) as exc:
         port_main(["convdiff", "--nsize", "16", "--solver", solver, "--device", "cpu"])
     assert item in str(exc.value.code)
+    assert "solver" not in capsys.readouterr().out  # no table: nothing ran
+
+
+def test_multirhs_block_cg_exits(capsys):
+    """JAX's default --solver block-cg is not ported: the program exits
+    naming item 9.2, and the parser keeps JAX's default."""
+    from gmres_tpu_torch.benchmarks.cli import build_parser
+
+    assert build_parser().parse_args(["multirhs"]).solver == "block-cg"
+    with pytest.raises(SystemExit) as exc:
+        port_main(["multirhs", "--nsize", "16", "--device", "cpu"])
+    assert "item 9.2" in str(exc.value.code)
     assert "solver" not in capsys.readouterr().out  # no table: nothing ran
 
 
@@ -200,7 +211,8 @@ def test_help_lists_the_programs():
                          capture_output=True, text=True, check=True,
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).stdout
     for program in ("dense-poisson", "hilbert", "poisson-mf", "cg", "bicgstab", "convdiff",
-                    "strong-scaling", "weak-scaling", "restart-sweep", "roofline"):
+                    "strong-scaling", "weak-scaling", "restart-sweep", "multirhs",
+                    "roofline"):
         assert program in out
 
 
@@ -220,9 +232,22 @@ import gmres_tpu_torch.precond.chebyshev, gmres_tpu_torch.ops.stencil
 import gmres_tpu_torch.models.convection_diffusion, gmres_tpu_torch.precond.multigrid
 import gmres_tpu_torch.precond.polynomial, gmres_tpu_torch.solvers.cgs
 import gmres_tpu_torch.solvers.tfqmr, gmres_tpu_torch.solvers.bicgstabl
+import gmres_tpu_torch.solvers.sstep, gmres_tpu_torch.solvers.fgmres
+import gmres_tpu_torch.solvers.lgmres, gmres_tpu_torch.solvers.block_gmres
+import gmres_tpu_torch.solvers.idrs, gmres_tpu_torch.solvers.gmres_dr
+import gmres_tpu_torch.solvers.gcrodr, gmres_tpu_torch.ops.hessenberg_eig
 gmres_tpu_torch.benchmarks.cli.main(["bicgstab", "--grids", "8:8:8", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["restart-sweep", "--nsize", "12", "--ntests", "1",
+                                     "--start", "5", "--tol", "1e-8", "--solver", "gmres-dr",
+                                     "--deflate", "2", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["multirhs", "--nsize", "8", "--s-list", "2",
+                                     "--solver", "block-gmres", "--device", "cpu"])
+gmres_tpu_torch.gcrodr(gmres_tpu_torch.poisson_operator(8),
+                       gmres_tpu_torch.poisson_operator(8)(__import__("torch").ones(8, 8,
+                           dtype=__import__("torch").float64)), k=2, restart=6)
 gmres_tpu_torch.benchmarks.cli.main(["convdiff", "--nsize", "32", "--precond", "mg",
-                                     "--smoother", "auto", "--device", "cpu"])
+                                     "--smoother", "auto", "--solver", "idrs", "--device",
+                                     "cpu"])
 assert not any(m == "jax" or m.startswith(("jax.", "gmres_tpu.")) or m == "gmres_tpu"
                for m in sys.modules if sys.modules[m] is not None)
 print("no jax")

@@ -964,3 +964,65 @@ def test_convdiff_program_on_the_card_matches_cpu(cuda_device, tmp_path):
     assert rows["cuda"]["status"] == rows["cpu"]["status"] == 0
     assert abs(rows["cuda"]["iterations"] - rows["cpu"]["iterations"]) <= 2
     assert rows["cuda"]["residual"] < 1e-9
+
+
+def _family_solve(name, where):
+    """One solve of the GMRES family at 64² (lgmres and gmres_dr on Poisson
+    with cbpr2 on the right, idrs on convection-diffusion with its cycle)."""
+    n = 64
+    if name == "idrs":
+        op = tt.convection_diffusion_operator(n, 0.4, 0.2)
+        m = tt.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2)
+    else:
+        op = tt.poisson_operator(n)
+        m = tt.chebyshev_preconditioner(op, 0.2, 8.2)
+    b = op(torch.ones((n, n), dtype=torch.float64, device=where))
+    if name == "lgmres":
+        return tt.lgmres(op, b, restart=10, aug=3, tol=1e-10, M=m)
+    if name == "gmres_dr":
+        return tt.gmres_dr(op, b, restart=16, deflate=4, tol=1e-10, M=m)
+    return tt.idrs(op, b, s=4, tol=1e-9, M=m)
+
+
+@pytest.mark.parametrize("name", ["lgmres", "gmres_dr", "idrs"])
+def test_gmres_family_on_the_card_matches_cpu(cuda_device, monkeypatch, name):
+    """The solve on the card, with every plain version made to raise, against
+    the same solve on the CPU (the plain versions): both converge, the
+    counts within 2, x within 1e-8; K1 (and for idrs' cycle K2) launched."""
+    cpu = _family_solve(name, "cpu")
+    _no_plain_versions(monkeypatch)
+    before = (tst.stencil5_cuda.launches, tfu.chebk_cuda.launches)
+    card = _family_solve(name, cuda_device)
+    torch.cuda.synchronize()
+    k1, k2 = (tst.stencil5_cuda.launches - before[0], tfu.chebk_cuda.launches - before[1])
+    assert card.status == cpu.status == 0
+    assert abs(card.iterations - cpu.iterations) <= 2
+    assert abs(getattr(card, "restarts", 0) - getattr(cpu, "restarts", 0)) <= 2
+    assert card.x.device.type == "cuda" and rel_err(card.x.cpu(), cpu.x) < 1e-8
+    assert k1 > 0 and (k2 > 0) == (name == "idrs")
+
+
+def test_block_gmres_launches_k1_once_per_row(cuda_device):
+    """A block application of A (and of the V-cycle) runs one launch of its
+    kernels per row of the block: the launches per block application are s
+    times those per vector (JAX batches the rows with vmap)."""
+    n, s = 128, 4
+    op = tt.poisson_operator(n)
+    m = tt.poisson_multigrid_preconditioner(n)
+    v = to_torch(seeded(61, (n, n)), cuda_device)
+    counters = (tst.stencil5_cuda, tfu.chebk_cuda)
+    before = [c.launches for c in counters]
+    m(v)
+    op(v)
+    torch.cuda.synchronize()
+    per_vector = [c.launches - b for c, b in zip(counters, before)]
+    b = torch.stack([op(to_torch(seeded(62 + i, (n, n)), cuda_device)) for i in range(s)])
+    before = [c.launches for c in counters]
+    res = tt.block_gmres(op, b, restart=5, tol=1e-30, max_restarts=1, M=m)
+    torch.cuda.synchronize()
+    launched = [c.launches - b_ for c, b_ in zip(counters, before)]
+    assert res.restarts == 1 and res.x.device.type == "cuda"
+    # Two residual blocks, 5 steps of M then A, the update's M: all by rows.
+    m_apps, a_apps = s * (5 + 1), s * (2 + 5)
+    assert launched[1] == m_apps * per_vector[1]
+    assert launched[0] == m_apps * (per_vector[0] - 1) + a_apps
