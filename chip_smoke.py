@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # the smoke run below
     python3 chip_smoke.py --k2-paths [OUT]     # K2's path table (JSONL to OUT)
     python3 chip_smoke.py --phase17            # the build and phase 17 alone
+    python3 chip_smoke.py --phase18            # the build and phase 18 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -11,8 +12,8 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase17`` mode builds the kernels and runs phase 17 alone, with
-its checks. Phases of the smoke run:
+The ``--phase17`` and ``--phase18`` modes build the kernels and run that
+phase alone, with its checks. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
    power limit as nvidia-smi reports them.
@@ -192,6 +193,28 @@ its checks. Phases of the smoke run:
     norm the solver certifies, its counts against gmres_tpu's CPU counts
     (within 2, or the band its constant states), host syncs, the median
     and quartiles of the 3 timed solves.
+18. The short-recurrence family and the real models, each row with the
+    launch counts set to 0 just before its warm-up and 3 timed solves and
+    read just after, its operator and preconditioner applications counted
+    and its launches required to equal the applications times the launches
+    per application: the ``multirhs --solver block-cg`` program (512², s 1,
+    2, 4, 8, the V-cycle, tol 1e-8) and ``block_cg`` at s = 4 through its
+    function (whole blocks of s row applications); MINRES and s-step CG
+    (s = 4) on Poisson 1024² float64 with the V-cycle (tol 1e-9·‖b‖);
+    ``chebyshev_solve`` with ``coefs`` (K2 once a cycle, K1 once a cycle)
+    at 1024² order 512 and 64² order 16 (one K2 launch a cycle there); CG
+    with the 3-D V-cycle at 128³ (the 3-D arm of gmres_tpu's scale
+    program; plain PyTorch, no kernel); CG with the line-smoothed
+    anisotropic cycle at 1024², ε = 0.01 (K1 for every operator
+    application); the ``varcoef`` program at 256² and CG with mg+defl on
+    the varcoef model at 1024² (plain PyTorch, no kernel) with its L2 error.
+    Each row: status 0, a numpy float64 residual under its tolerance in the
+    norm the solver certifies, its count within 2 of gmres_tpu's CPU count
+    (scripts/jax_phase18_counts.py), host syncs, the median and quartiles
+    of the timed solves and the launches per solve; one more solve of the
+    block CG, MINRES, s-step CG, 1024² Chebyshev and 3-D rows profiled
+    (device busy, kernels; the anisotropic and varcoef rows' 57k and 24k
+    kernels a solve would cost the profiler ~40 s).
 
 Phases 12–14 share one NCCL process group made by the script. Any failure
 raises and exits non-zero. The line before the last is the
@@ -200,6 +223,7 @@ kernel report (JSON); the last line is the result (JSON).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -404,6 +428,48 @@ SSTEP_F32_SPREAD = 0.10
 FGMRES_N = 300
 JAX_FGMRES_300 = (111, 8)
 FGMRES_SPREAD = 0.15
+# Phase 18: the short-recurrence family and the real models. gmres_tpu's
+# counts for each row, from the JAX package on the CPU (float64):
+#   JAX_PLATFORMS=cpu python3 scripts/jax_phase18_counts.py
+# which drives the same programs (multirhs --solver block-cg, varcoef) and
+# public functions with the configurations below. The Poisson rows take
+# b = A·1 and tol 1e-9·‖b‖ (absolute, as each solver takes tol) with the
+# Poisson V-cycle; the multirhs and block rows tol 1e-8 per right-hand side.
+SHORT_REPEATS = 3
+BLOCK_CG_S = 4
+POISSON_1024 = 1024
+SSTEP_CG_S = 4
+# chebyshev_solve on Poisson 1024² with the exact bounds: an order-k cycle
+# contracts the error by 1/T_k((λmax+λmin)/(λmax−λmin)), 0.9988 at order 16
+# there (about 17,000 cycles to 1e-9, past the 1000-cycle default in
+# gmres_tpu too), 0.40 at order 512. So the 1024² row runs order 512 (K2's
+# per-sweep path: 511 launches a call), and order 16 runs at 64², where
+# it contracts by 0.76 a cycle and K2 takes one launch (its cluster path).
+CHEB_ORDER_1024 = 512
+CHEB_SMALL = (64, 16)
+POISSON3D_N = 128
+ANISO_N, ANISO_EPS = 1024, 0.01
+VARCOEF_DEFAULT_N = 256
+VARCOEF_N = 1024
+VARCOEF_CONTRAST = 1e5
+# Each entry: (iterations or cycles, status), the multirhs program's
+# iterations by s, the varcoef program's (iterations, L2 error) by row, and
+# the 1024² mg+defl row's (iterations, status, L2 error).
+JAX_PHASE18 = {
+    "multirhs": {1: 15, 2: 14, 4: 14, 8: 13},
+    "block_cg": (14, 0),
+    "minres": (13, 0),
+    "sstep_cg": (16, 0),
+    "chebyshev": (22, 0),
+    "chebyshev64": (69, 0),
+    "poisson3d": (13, 0),
+    "anisotropic": (12, 0),
+    "varcoef": {"varcoef-jacobi-256x256": (413, 2.244026490945668),
+                "varcoef-jacobi+defl-256x256": (414, 0.028112200238658142),
+                "varcoef-mg-256x256": (20, 0.45603032816166217),
+                "varcoef-mg+defl-256x256": (21, 0.0007861187588659232)},
+    "varcoef1024": (12, 0, 0.7982120608812189),
+}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2591,16 +2657,19 @@ def per_application(fn, v) -> dict:
     return {k: after[k] - before[k] for k in KERNELS}
 
 
-def family_run(label, solve, ops, repeats=FAMILY_REPEATS, warm=None):
-    """Run one phase-17 solve: a warm-up (`warm`, a shorter run of the same
-    solver where given, else the solve) and `repeats` timed solves with the
-    launch counts set to 0 just before and read just after. `ops` maps a
-    name to (the callable, a probe vector); each is wrapped to count its
-    applications, and its launches per application are measured on the
-    probe first. The launches over the solves must be the applications
-    times the launches per application, kernel by kernel. Returns the last
-    result, the times, the counts, the applications and the launches per
-    application."""
+def family_run(label, solve, ops, repeats=FAMILY_REPEATS, warm=None, phase="phase 17",
+               needs_k1=True):
+    """Run one phase-17 (or phase-18) solve: a warm-up (`warm`, a shorter
+    run of the same solver where given, else the solve) and `repeats` timed
+    solves with the launch counts set to 0 just before and read just after.
+    `ops` maps a name to (the callable, a probe vector); each is wrapped to
+    count its applications, and its launches per application are measured
+    on the probe first. The launches over the solves must be the
+    applications times the launches per application, kernel by kernel, and
+    K1 must have been launched unless `needs_k1` is False (a path that
+    gmres_tpu writes in plain jnp, where the port launches no kernel).
+    Returns the last result, the times, the counts, the applications, the
+    launches per application and the median time."""
     import numpy as np
 
     calls = dict.fromkeys(ops, 0)
@@ -2614,7 +2683,7 @@ def family_run(label, solve, ops, repeats=FAMILY_REPEATS, warm=None):
         times.append(t)
     count = mg_counters()
     expected = {k: sum(calls[name] * per[name][k] for name in ops) for k in KERNELS}
-    print(f"phase 17: {label}: wall s over {repeats}: {quartiles(times)} (warm-up "
+    print(f"{phase}: {label}: wall s over {repeats}: {quartiles(times)} (warm-up "
           f"{t_warm:.4f}); applications over the warm-up and {repeats} solves "
           + ", ".join(f"{name} {calls[name]}" for name in ops)
           + "; launches per application "
@@ -2623,7 +2692,7 @@ def family_run(label, solve, ops, repeats=FAMILY_REPEATS, warm=None):
     require(all(count[k] == expected[k] for k in KERNELS),
             f"{label}: launches {count} are not the applications times the launches "
             f"per application {expected}")
-    require(count["K1"] > 0, f"{label}: K1 was not launched")
+    require(count["K1"] > 0 or not needs_k1, f"{label}: K1 was not launched")
     require(count["K2"] == sum(count[f"K2 {p}"] for p in ("cluster", "tiled", "sweep")),
             f"{label}: K2 launches by path {count}")
     return res, times, count, calls, per, float(np.median(times))
@@ -2659,10 +2728,10 @@ def eig_share(module, solve, label):
     return {"eig_calls": spent[1], "eig_ms": 1e3 * spent[0], "wall_ms": 1e3 * wall}
 
 
-def family_counts(label, got, jax, band):
+def family_counts(label, got, jax, band, phase="phase 17"):
     """Print a count against gmres_tpu's and require it within `band`."""
     gap = got - jax
-    print(f"phase 17: {label}: {got} against gmres_tpu's {jax} on the CPU, gap {gap:+d} "
+    print(f"{phase}: {label}: {got} against gmres_tpu's {jax} on the CPU, gap {gap:+d} "
           f"({'within' if abs(gap) <= 2 else 'not within'} 2, held to {band})", flush=True)
     require(abs(gap) <= band, f"{label}: {got}, gmres_tpu {jax}")
 
@@ -2992,6 +3061,392 @@ def phase_family(gt_torch, dev, workdir):
     return launches, rows
 
 
+def np_stencil7(x):
+    """Independent float64 3-D 7-point Laplacian in numpy (zero
+    boundaries)."""
+    y = 6.0 * x
+    for ax in range(3):
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[ax], hi[ax] = slice(1, None), slice(None, -1)
+        y[tuple(lo)] -= x[tuple(hi)]
+        y[tuple(hi)] -= x[tuple(lo)]
+    return y
+
+
+def np_varcoef(c, x):
+    """Independent float64 variable-coefficient operator in numpy: the
+    harmonic mean of the two cells' c on each face, the cell's own c on a
+    boundary face, (A x)ᵢⱼ = Σ_faces c_face (xᵢⱼ − x_nbr) with x = 0 outside."""
+    import numpy as np
+
+    y = np.zeros_like(x)
+    for ax in range(2):
+        for side in (1, -1):
+            nb_c = np.roll(c, side, axis=ax)
+            nb_x = np.roll(x, side, axis=ax)
+            edge = [slice(None)] * 2
+            edge[ax] = 0 if side == 1 else -1
+            nb_c[tuple(edge)] = c[tuple(edge)]
+            nb_x[tuple(edge)] = 0.0
+            y += 2.0 * c * nb_c / (c + nb_c) * (x - nb_x)
+    return y
+
+
+@contextlib.contextmanager
+def solutions_of(module, name):
+    """Within the block ``module.name`` (a solver that a program imports
+    when it runs) also keeps each call's solution x, in call order, so that
+    the program's rows are checked on x itself and not on the residual the
+    solver certified. The program's ``_timed`` calls it twice a row (a
+    warm-up, then the timed solve): the row's x is every second one."""
+    solver = getattr(module, name)
+    xs = []
+
+    def tapped(*args, **kw):
+        res = solver(*args, **kw)
+        xs.append(res.x)
+        return res
+
+    setattr(module, name, tapped)
+    try:
+        yield xs
+    finally:
+        setattr(module, name, solver)
+
+
+def row_solutions(xs, rows, label):
+    """The timed solve's x of each program row, as float64 numpy arrays."""
+    require(len(xs) == 2 * len(rows), f"{label}: {len(xs)} solves for {len(rows)} rows")
+    return [x.detach().cpu().numpy() for x in xs[1::2]]
+
+
+def short_record(label, res, times, count, calls, per, err, **extra):
+    """A phase-18 row: the phase-17 record and the launches per solve and
+    per application."""
+    solves = SHORT_REPEATS + 1
+    return family_record(label, res, times, count, calls, per, err,
+                         launches_per_solve={k: v / solves for k, v in count.items()},
+                         **extra)
+
+
+def short_print(label, res, err, norm, med, unit="iteration", count=None):
+    iters = res.iterations
+    print(f"phase 18: {label}: status {res.status}, {iters} {unit}s, {res.host_syncs} "
+          f"host syncs, residual {float(res.residual):.4e}, numpy {norm} {err:.4e}; median "
+          f"{1e3 * med:.3f} ms a solve, {1e3 * med / max(iters, 1):.4f} ms "
+          f"{'an' if unit[0] in 'aeiou' else 'a'} {unit}"
+          + ("" if count is None else f"; launches a solve {{"
+             + ", ".join(f"{k}: {v / (SHORT_REPEATS + 1):g}" for k, v in count.items() if v)
+             + "}"), flush=True)
+
+
+def short_multirhs(gt_torch, dev, workdir):
+    """The multirhs program with block CG (JAX's defaults: 512², s 1, 2, 4,
+    8, the V-cycle, tol 1e-8), its launches counted over the program; then
+    block_cg at s = 4 through the public function, its row applications
+    counted: whole blocks of s, each block application s single-vector
+    ones."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.solvers import block_cg as block_cg_module
+
+    mg_counters(reset=True)
+    with solutions_of(block_cg_module, "block_cg") as xs:
+        rows = program_rows(cli, ["multirhs", "--nsize", str(MULTIRHS_N), "--solver",
+                                  "block-cg", "--s-list", "1,2,4,8"], workdir,
+                            phase="phase 18")
+    prog_count = mg_counters()
+    # The program's right-hand sides, drawn anew in numpy as it draws them:
+    # b_i = A x_i, x_i standard normal from seed 0, in turn for each s.
+    rng = np.random.default_rng(0)
+    for r, x_np in zip(rows, row_solutions(xs, rows, "multirhs block-cg")):
+        b_np = np.stack([np_stencil(x) for x in rng.standard_normal((r["s"], MULTIRHS_N,
+                                                                     MULTIRHS_N))])
+        err = max(float(np.linalg.norm(b_np[i] - np_stencil(x_np[i])))
+                  for i in range(r["s"]))
+        print(f"phase 18: {r['name']}: numpy max ‖bᵢ − A xᵢ‖ {err:.4e} (certified "
+              f"{r['max_rhs_residual']:.4e})", flush=True)
+        family_counts(f"{r['name']} iterations", r["iterations"],
+                      JAX_PHASE18["multirhs"][r["s"]], 2, phase="phase 18")
+        require(err < 1e-8 and r["max_rhs_residual"] < 1e-8,
+                f"{r['name']}: numpy {err:.3e}, certified {r['max_rhs_residual']:.3e}")
+    print(f"phase 18: multirhs block-cg program: launches {prog_count}; time per RHS "
+          + ", ".join(f"s={r['s']} {1e3 * r['time_per_rhs']:.3f} ms "
+                      f"(amortisation {r['amortization_vs_s1']:.3f})" for r in rows),
+          flush=True)
+    require(prog_count["K1"] > 0 and prog_count["K1rr"] > 0 and prog_count["K2"] > 0,
+            f"multirhs block-cg: the V-cycle's kernels {prog_count}")
+    n, s = MULTIRHS_N, BLOCK_CG_S
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    xs = np.random.default_rng(0).standard_normal((s, n, n))
+    b_np = np.stack([np_stencil(x) for x in xs])
+    b = torch.as_tensor(b_np, device=dev)
+    label = f"block_cg s={s} mg {n}x{n}"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.block_cg(A, b, tol=1e-8, M=M, max_iterations=2000),
+        {"A": (op, b[0]), "M": (m_inv, b[0])}, repeats=SHORT_REPEATS, phase="phase 18")
+    x_np = res.x.detach().cpu().numpy()
+    errs = [float(np.linalg.norm(b_np[i] - np_stencil(x_np[i]))) for i in range(s)]
+    blocks = {name: calls[name] / s for name in calls}
+    short_print(label, res, max(errs), "max ‖bᵢ − A xᵢ‖", med, count=count)
+    print(f"phase 18: {label}: block applications over the warm-up and {SHORT_REPEATS} "
+          f"solves {blocks}; launches per block application A "
+          f"{dict((k, s * v) for k, v in per['A'].items())}, M "
+          f"{dict((k, s * v) for k, v in per['M'].items())}", flush=True)
+    require(res.status == 0 and max(errs) < 1e-8, f"{label}: {res.status}, {errs}")
+    require(all(c % s == 0 for c in calls.values()),
+            f"{label}: applications {calls} are not whole blocks of {s}")
+    family_counts(f"{label} iterations", res.iterations, JAX_PHASE18["block_cg"][0], 2,
+                  phase="phase 18")
+    prof = profile_solve(lambda: gt_torch.block_cg(op, b, tol=1e-8, M=m_inv,
+                                                   max_iterations=2000), label, med)
+    return [short_record(label, res, times, count, calls, per, max(errs), rows=rows,
+                         program_launches=prog_count, profile=prof)]
+
+
+def short_poisson(gt_torch, dev):
+    """MINRES and s-step CG (s = 4) on Poisson 1024², float64, with the
+    V-cycle, tol 1e-9·‖b‖: MINRES certified in the M-norm √(r, M r), s-step
+    CG in ‖r‖₂ (b − A x in numpy, M the port's)."""
+    import numpy as np
+    import torch
+
+    n = POISSON_1024
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    tol = 1e-9 * float(np.linalg.norm(b_np))
+    out = []
+    for name in ("minres", "sstep_cg"):
+        label = f"{name} mg {n}x{n} f64" + (f" s={SSTEP_CG_S}" if name == "sstep_cg" else "")
+        if name == "minres":
+            def solve(A, M):
+                return gt_torch.minres(A, b, tol=tol, M=M)
+        else:
+            def solve(A, M):
+                return gt_torch.sstep_cg(A, b, s=SSTEP_CG_S, tol=tol, M=M)
+        res, times, count, calls, per, med = family_run(
+            label, solve, {"A": (op, b), "M": (m_inv, b)}, repeats=SHORT_REPEATS,
+            phase="phase 18")
+        r_np = b_np - np_stencil(res.x.detach().cpu().numpy())
+        if name == "minres":
+            mr = m_inv(torch.as_tensor(r_np, device=dev)).cpu().numpy()
+            err, norm = float(np.sqrt(np.vdot(r_np, mr))), "√(r, M r)"
+        else:
+            err, norm = float(np.linalg.norm(r_np)), "‖b − A x‖"
+        short_print(label, res, err, norm, med, count=count)
+        require(res.status == 0 and err < tol, f"{label}: {res.status}, {err:.3e} (tol {tol:.3e})")
+        family_counts(f"{label} iterations", res.iterations, JAX_PHASE18[name][0], 2,
+                      phase="phase 18")
+        prof = profile_solve(lambda: solve(op, m_inv), label, med)
+        out.append(short_record(label, res, times, count, calls, per, err, tol=tol,
+                                profile=prof))
+    return out
+
+
+def short_chebyshev(gt_torch, dev):
+    """chebyshev_solve with coefs (the polynomial on K2) on Poisson, float64,
+    bounds from poisson_spectral_bounds, tol 1e-9·‖b‖: at 1024² order 512,
+    and at 64² order 16 (see CHEB_ORDER_1024). Each cycle is one K2 call and
+    one A (one K1 launch); the 64² row must launch exactly one K2 and one
+    K1 a cycle."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.ops import fused
+
+    out = []
+    for key, (n, order) in (("chebyshev", (POISSON_1024, CHEB_ORDER_1024)),
+                            ("chebyshev64", CHEB_SMALL)):
+        op = gt_torch.poisson_operator(n)
+        lo, hi = gt_torch.poisson_spectral_bounds(n)
+        b_np = np_stencil(np.ones((n, n)))
+        b = gt_torch.as_tensor(b_np, dev)
+        tol = 1e-9 * float(np.linalg.norm(b_np))
+        poly = gt_torch.chebyshev_stencil_preconditioner(lo, hi, order=order,
+                                                         coefs=(4.0, -1.0, -1.0, -1.0, -1.0))
+        before = mg_counters()
+        poly(b)
+        torch.cuda.synchronize()
+        per_call = {k: v - before[k] for k, v in mg_counters().items()}
+        label = f"chebyshev_solve order {order} coefs {n}x{n} f64"
+        calls = {"A": 0}
+        wrapped = counted(op, calls, "A")
+
+        def solve():
+            return gt_torch.chebyshev_solve(wrapped, b, lo, hi, order=order, tol=tol,
+                                            coefs=(4.0, -1.0, -1.0, -1.0, -1.0))
+
+        mg_counters(reset=True)
+        _, t_warm = timed(solve)
+        times = []
+        for _ in range(SHORT_REPEATS):
+            res, t = timed(solve)
+            times.append(t)
+        count = mg_counters()
+        cycles = res.iterations * (SHORT_REPEATS + 1)
+        print(f"phase 18: {label}: wall s over {SHORT_REPEATS}: {quartiles(times)} (warm-up "
+              f"{t_warm:.4f}); {cycles} cycles and {calls['A']} applications of A over the "
+              f"warm-up and {SHORT_REPEATS} solves; launches of one K2 call {per_call}; "
+              f"launches {count}", flush=True)
+        require(calls["A"] == cycles and count["K1"] == cycles,
+                f"{label}: {calls['A']} A, {count['K1']} K1 for {cycles} cycles")
+        require(all(count[k] == cycles * per_call[k] for k in ("K2", "K2 cluster", "K2 tiled",
+                                                               "K2 sweep")),
+                f"{label}: K2 launches {count} are not one call a cycle {per_call}")
+        if key == "chebyshev64":
+            require(per_call["K2"] == 1 and count["K2"] == cycles,
+                    f"{label}: {count['K2']} K2 launches for {cycles} cycles")
+        err = float(np.linalg.norm(b_np - np_stencil(res.x.detach().cpu().numpy())))
+        med = float(np.median(times))
+        short_print(label, res, err, "‖b − A x‖", med, unit="cycle", count=count)
+        require(res.status == 0 and err < tol, f"{label}: {res.status}, {err:.3e}")
+        family_counts(f"{label} cycles", res.iterations, JAX_PHASE18[key][0], 2,
+                      phase="phase 18")
+        prof = profile_solve(solve, label, med) if key == "chebyshev" else None
+        out.append(short_record(label, res, times, count, calls,
+                                {"A": {"K1": 1}, "K2 call": per_call}, err, tol=tol,
+                                k2_path=fused.chebk_plan(n, n, order - 1, b.dtype)[0],
+                                profile=prof))
+    return out
+
+
+def short_poisson3d(gt_torch, dev):
+    """CG with the 3-D V-cycle at 128³, float64, b = A·1, tol 1e-8, at most
+    400 iterations: the 3-D arm of gmres_tpu's scale program. The 7-point
+    stencil and the 3-D cycle are plain PyTorch (plain jnp in gmres_tpu):
+    no kernel launches, and none is required."""
+    import numpy as np
+
+    n = POISSON3D_N
+    op = gt_torch.poisson3d_operator(n)
+    m_inv = gt_torch.poisson3d_multigrid_preconditioner(n)
+    b_np = np_stencil7(np.ones((n, n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    label = f"cg mg3d {n}^3 f64"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.cg(A, b, tol=1e-8, max_iterations=400, M=M),
+        {"A": (op, b), "M": (m_inv, b)}, repeats=SHORT_REPEATS, phase="phase 18",
+        needs_k1=False)
+    err = float(np.linalg.norm(b_np - np_stencil7(res.x.detach().cpu().numpy())))
+    short_print(label, res, err, "‖b − A x‖", med, count=count)
+    require(res.status == 0 and err < 1e-8, f"{label}: {res.status}, {err:.3e}")
+    family_counts(f"{label} iterations", res.iterations, JAX_PHASE18["poisson3d"][0], 2,
+                  phase="phase 18")
+    prof = profile_solve(lambda: gt_torch.cg(op, b, tol=1e-8, max_iterations=400, M=m_inv),
+                         label, med)
+    return [short_record(label, res, times, count, calls, per, err, profile=prof,
+                         levels=m_inv.levels, fine_equiv_sweeps=m_inv.fine_equiv_sweeps)]
+
+
+def short_anisotropic(gt_torch, dev):
+    """CG with the line-smoothed anisotropic cycle at 1024², ε = 0.01,
+    float64, b = A·1, tol 1e-8; the operator (also inside the cycle) on K1
+    with the anisotropic coefficients."""
+    import numpy as np
+
+    from gmres_tpu_torch.models.anisotropic import anisotropic_coefs
+
+    n, eps = ANISO_N, ANISO_EPS
+    coefs = anisotropic_coefs(eps)
+    op = gt_torch.anisotropic_operator(n, eps)
+    m_inv = gt_torch.anisotropic_multigrid_preconditioner(n, eps)
+    b_np = np_stencil_general(np.ones((n, n)), coefs)
+    b = gt_torch.as_tensor(b_np, dev)
+    label = f"cg anisotropic line mg {n}x{n} eps {eps:g} f64"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.cg(A, b, tol=1e-8, M=M),
+        {"A": (op, b), "M": (m_inv, b)}, repeats=SHORT_REPEATS, phase="phase 18")
+    err = float(np.linalg.norm(
+        b_np - np_stencil_general(res.x.detach().cpu().numpy(), coefs)))
+    short_print(label, res, err, "‖b − A x‖", med, count=count)
+    require(per["A"]["K1"] == 1, f"{label}: {per['A']} launches an A")
+    require(res.status == 0 and err < 1e-8, f"{label}: {res.status}, {err:.3e}")
+    family_counts(f"{label} iterations", res.iterations, JAX_PHASE18["anisotropic"][0], 2,
+                  phase="phase 18")
+    return [short_record(label, res, times, count, calls, per, err)]
+
+
+def short_varcoef(gt_torch, dev, workdir):
+    """The varcoef program at its default 256² (four rows), then CG with
+    mg+defl on the varcoef model at 1024² through the program's own setup,
+    its L2 error against x_true as the program reports it. The
+    variable-coefficient operator, its cycle and the deflation are plain
+    PyTorch (plain jnp in gmres_tpu): no kernel launches, and none is
+    required."""
+    import numpy as np
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.solvers import cg as cg_module
+
+    mg_counters(reset=True)
+    with solutions_of(cg_module, "cg") as xs:
+        rows = program_rows(cli, ["varcoef", "--nsize", str(VARCOEF_DEFAULT_N)], workdir,
+                            phase="phase 18")
+    prog_count = mg_counters()
+    # The program's c and b (made in numpy by varcoef_problem); A in numpy.
+    c, _, _, b, _, _ = cli.varcoef_problem(VARCOEF_DEFAULT_N, rows[0]["contrast"], dev)
+    c_np, b_np = c.cpu().numpy(), b.cpu().numpy()
+    for r, x_np in zip(rows, row_solutions(xs, rows, "varcoef")):
+        err = float(np.linalg.norm(b_np - np_varcoef(c_np, x_np)))
+        jax_it, jax_l2 = JAX_PHASE18["varcoef"][r["name"]]
+        family_counts(f"{r['name']} iterations", r["iterations"], jax_it, 2, phase="phase 18")
+        print(f"phase 18: {r['name']}: numpy ‖b − A x‖ {err:.4e} (tol {r['tol']:.4e}), "
+              f"L2 error {r['l2_error']:.4e} (gmres_tpu {jax_l2:.4e}), "
+              f"host syncs {r['host_syncs']}", flush=True)
+        require(err < r["tol"] and r["residual"] < r["tol"],
+                f"{r['name']}: numpy {err:.3e}, certified {r['residual']:.3e}, "
+                f"tol {r['tol']:.3e}")
+    n = VARCOEF_N
+    c, op, x_true, b, diag, w = cli.varcoef_problem(n, VARCOEF_CONTRAST, dev)
+    m_inv = cli.varcoef_preconditioners(c, op, diag, w)["mg+defl"]
+    b_np = b.detach().cpu().numpy()
+    tol = 1e-9 * float(np.linalg.norm(b_np))
+    label = f"cg varcoef mg+defl {n}x{n} contrast {VARCOEF_CONTRAST:g}"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.cg(A, b, tol=tol, max_iterations=20_000, M=M),
+        {"A": (op, b), "M": (m_inv, b)}, repeats=SHORT_REPEATS, phase="phase 18",
+        needs_k1=False)
+    x_np = res.x.detach().cpu().numpy()
+    err = float(np.linalg.norm(b_np - np_varcoef(c.cpu().numpy(), x_np)))
+    l2 = float(np.linalg.norm((x_np - x_true.cpu().numpy()).ravel()))
+    short_print(label, res, err, "‖b − A x‖", med, count=count)
+    jax_it, _, jax_l2 = JAX_PHASE18["varcoef1024"]
+    print(f"phase 18: {label}: L2 error against x_true {l2:.4e} (gmres_tpu {jax_l2:.4e})",
+          flush=True)
+    require(res.status == 0 and err < tol, f"{label}: {res.status}, {err:.3e}")
+    family_counts(f"{label} iterations", res.iterations, jax_it, 2, phase="phase 18")
+    return [short_record(label, res, times, count, calls, per, err, tol=tol, l2_error=l2,
+                         rows=rows, program_launches=prog_count)]
+
+
+def phase_short(gt_torch, dev, workdir):
+    """Phase 18: the short-recurrence family and the real models; returns
+    the launches over the phase (each row's counts summed) and the rows."""
+    t_phase = time.perf_counter()
+    rows = []
+    rows += short_multirhs(gt_torch, dev, workdir)
+    rows += short_poisson(gt_torch, dev)
+    rows += short_chebyshev(gt_torch, dev)
+    rows += short_poisson3d(gt_torch, dev)
+    rows += short_anisotropic(gt_torch, dev)
+    rows += short_varcoef(gt_torch, dev, workdir)
+    launches = dict.fromkeys(mg_counters(), 0)
+    for r in rows:
+        for src in (r["launches"], r.get("program_launches", {})):
+            for k, v in src.items():
+                launches[k] += v
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18: {seconds:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -3043,6 +3498,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase17"]:
         with tempfile.TemporaryDirectory() as workdir:
             phase_family(gt_torch, dev, workdir)
+        return 0
+    if sys.argv[1:2] == ["--phase18"]:
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_short(gt_torch, dev, workdir)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -3128,7 +3587,9 @@ def main() -> int:
         cd_records, cd, _ = phase_convdiff(gt_torch, rng, dev, floor, workdir)
         # Phase 17: the GMRES family.
         family, _ = phase_family(gt_torch, dev, workdir)
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_run:.1f} s", flush=True)
+        # Phase 18: the short-recurrence family and the real models.
+        short, _ = phase_short(gt_torch, dev, workdir)
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(rdma_records)
     records.update(cd_records)
@@ -3174,6 +3635,7 @@ def main() -> int:
     roofline_path = "roofline program (phase 13; launches captured in CUDA graphs)"
     convdiff_path = "convdiff rows (phase 16)"
     family_path = "GMRES family (phase 17)"
+    short_path = "short-recurrence family and real models (phase 18)"
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -3184,45 +3646,55 @@ def main() -> int:
     print(json.dumps({"kernels": [
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
-               mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"],
+               mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
+               + short["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
                                  roofline_path: roof["K1"],
                                  programs_path: programs["K1"],
-                                 family_path: family["K1"]},
+                                 family_path: family["K1"],
+                                 short_path: short["K1"]},
                path_shape=f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, one point a thread",
                **timing("K1", f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, "
                               "one point a thread"),
                halo_applications=strong["applications"], **redesign),
         report("K1rr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
-               mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"],
+               mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
+               + short["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
                                  programs_path: programs["K1rr"],
-                                 family_path: family["K1rr"]},
+                                 family_path: family["K1rr"],
+                                 short_path: short["K1rr"]},
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
-               mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"],
+               mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
+               + short["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
                                  programs_path: programs["K1cr"],
-                                 family_path: family["K1cr"]},
+                                 family_path: family["K1cr"],
+                                 short_path: short["K1cr"]},
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
-               mg_k2 + roof["K2"] + programs["K2"] + family["K2"], "K2 order 3 2048x2048 f32",
+               mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"],
+               "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
                                     programs_path: programs["K2"],
-                                    family_path: family["K2"]},
+                                    family_path: family["K2"],
+                                    short_path: short["K2"]},
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
+               short_launches_by_path={p: short[f"K2 {p}"]
+                                       for p in ("cluster", "tiled", "sweep")},
                path=[r["path"] for r in records["K2"]
                      if r["case"] == "K2 order 3 2048x2048 f32"][0],
                sweep_path_ms=[r["sweep_ms"] for r in records["K2"]

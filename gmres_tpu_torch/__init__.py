@@ -27,7 +27,21 @@ The port covers, slice by slice (ROADMAP.md, queue 1):
   (``models/convection_diffusion.py``), its multigrid cycle
   (``precond/multigrid.py``), CGS, TFQMR and BiCGStab(ℓ) (``solvers/``),
   the GMRES polynomial preconditioner (``precond/polynomial.py``) and the
-  ``convdiff`` program.
+  ``convdiff`` program;
+* the GMRES family: s-step GMRES, FGMRES, LGMRES, block GMRES, IDR(s),
+  GMRES-DR and GCRO-DR (``solvers/``), with the small dense solve and the
+  host eigensolves they share (``ops/tri.py``, ``ops/hessenberg_eig.py``),
+  the ``restart-sweep`` solvers and the ``multirhs`` program;
+* the short-recurrence family: block CG, MINRES, s-step CG and the
+  Chebyshev iteration (``solvers/block_cg.py``, ``minres.py``,
+  ``sstep_cg.py``, ``chebyshev.py``); the 3-D Poisson, anisotropic and
+  variable-coefficient models (``models/``) with their multigrid cycles
+  (``precond/multigrid.py``, ``models/varcoef.py``), the batched PCR line
+  solve (``ops/tridiag.py``), the coarse-space (deflation) preconditioner
+  (``precond/deflation.py``) and the ``varcoef`` program. The 3-D and
+  variable-coefficient operators, PCR and deflation are plain PyTorch, as
+  they are plain jnp in ``gmres_tpu``: no kernel of either package serves
+  them.
 
 Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
 ``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
@@ -53,6 +67,10 @@ from gmres_tpu_torch.types import (
     as_tensor,
 )
 from gmres_tpu_torch.solvers.bicgstab import bicgstab
+from gmres_tpu_torch.solvers.block_cg import BlockCGResult, block_cg
+from gmres_tpu_torch.solvers.chebyshev import chebyshev_solve
+from gmres_tpu_torch.solvers.minres import minres
+from gmres_tpu_torch.solvers.sstep_cg import sstep_cg
 from gmres_tpu_torch.solvers.block_gmres import block_gmres
 from gmres_tpu_torch.solvers.bicgstabl import bicgstabl
 from gmres_tpu_torch.solvers.cg import cg
@@ -72,12 +90,36 @@ from gmres_tpu_torch.precond.chebyshev import (
 )
 from gmres_tpu_torch.precond.multigrid import (
     MultigridPlan,
+    anisotropic_multigrid_preconditioner,
     convection_diffusion_multigrid_preconditioner,
+    poisson3d_multigrid_preconditioner,
     poisson_multigrid_preconditioner,
     prolong_repeat,
     restrict_sum,
 )
 from gmres_tpu_torch.precond.polynomial import gmres_polynomial_preconditioner
+from gmres_tpu_torch.precond.deflation import (
+    coarse_space_preconditioner,
+    dirichlet_poisson_modes,
+)
+from gmres_tpu_torch.models.anisotropic import (
+    anisotropic_apply,
+    anisotropic_matrix,
+    anisotropic_operator,
+)
+from gmres_tpu_torch.models.poisson3d import (
+    poisson3d_apply,
+    poisson3d_matrix,
+    poisson3d_operator,
+    poisson3d_spectral_bounds,
+)
+from gmres_tpu_torch.models.varcoef import (
+    varcoef_apply,
+    varcoef_diagonal,
+    varcoef_matrix,
+    varcoef_multigrid_preconditioner,
+    varcoef_operator,
+)
 from gmres_tpu_torch.models.convection_diffusion import (
     convection_diffusion_apply,
     convection_diffusion_operator,
@@ -146,7 +188,12 @@ __all__ = [
     "as_tensor",
     "bicgstab",
     "bicgstabl",
+    "block_cg",
+    "BlockCGResult",
     "cg",
+    "chebyshev_solve",
+    "minres",
+    "sstep_cg",
     "cgs",
     "tfqmr",
     "gmres",
@@ -162,9 +209,25 @@ __all__ = [
     "chebyshev_preconditioner",
     "chebyshev_stencil_preconditioner",
     "MultigridPlan",
+    "anisotropic_multigrid_preconditioner",
     "convection_diffusion_multigrid_preconditioner",
+    "poisson3d_multigrid_preconditioner",
     "poisson_multigrid_preconditioner",
     "gmres_polynomial_preconditioner",
+    "coarse_space_preconditioner",
+    "dirichlet_poisson_modes",
+    "anisotropic_apply",
+    "anisotropic_matrix",
+    "anisotropic_operator",
+    "poisson3d_apply",
+    "poisson3d_matrix",
+    "poisson3d_operator",
+    "poisson3d_spectral_bounds",
+    "varcoef_apply",
+    "varcoef_diagonal",
+    "varcoef_matrix",
+    "varcoef_multigrid_preconditioner",
+    "varcoef_operator",
     "convection_diffusion_apply",
     "convection_diffusion_operator",
     "prolong_repeat",

@@ -19,8 +19,11 @@ flags:
   restart-sweep   ← tests/weak_scaling.f90 (misnamed there: it sweeps the
                     restart parameter m); Householder GMRES, LGMRES or
                     GMRES-DR
-  multirhs        block GMRES over s stacked right-hand sides, time per
-                  right-hand side against s = 1
+  multirhs        block CG (or block GMRES) over s stacked right-hand
+                  sides, time per right-hand side against s = 1
+  varcoef         CG on −∇·(c∇u) with two high-contrast inclusions: Jacobi,
+                  the rediscretised multigrid cycle, each with and without
+                  the inclusion-indicator coarse space (deflation)
   roofline        achieved bandwidth of the stencil routes (plain float32
                   and float64, kernel K1, kernel K6 on (hi, lo) pairs), of
                   the order-k Chebyshev smoother (kernel K2) and of the
@@ -88,12 +91,8 @@ CONVDIFF_SOLVERS = ("bicgstab", "gmres", "bicgstabl", "cgs", "tfqmr", "idrs", "q
 CONVDIFF_UNPORTED = {
     "qmr": "ROADMAP queue 1, item 9.4: it needs the operator's transpose",
 }
-# The multirhs solvers of the JAX program; block-cg exits with a message
-# naming the ROADMAP item that ports it (see cmd_multirhs).
+# The multirhs solvers of the JAX program.
 MULTIRHS_SOLVERS = ("block-cg", "block-gmres")
-MULTIRHS_UNPORTED = {
-    "block-cg": "ROADMAP queue 1, item 9.2: the short-recurrence family",
-}
 # GMRES's restart length in the convdiff program.
 CONVDIFF_RESTART = 30
 
@@ -568,25 +567,22 @@ def cmd_restart_sweep(args):
 def cmd_multirhs(args):
     """Multi-RHS amortisation sweep: s stacked Poisson right-hand sides
     b_i = A x_i (x_i standard normal, numpy seed 0, drawn in turn for each
-    s of ``--s-list``) solved together by block GMRES with the multigrid
-    V-cycle on the right (``--precond mg``), the time per RHS and the
-    amortisation against the s = 1 row. On the card each block application
-    of A and of M runs s single-vector applications (one launch of their
-    kernels per row), where JAX's ``vmap`` batches them. ``--precond`` other
-    than mg runs without a preconditioner, as in JAX. ``--solver
-    block-cg`` (JAX's default) is not ported and exits with a message."""
+    s of ``--s-list``) solved together by block CG (``--solver block-cg``,
+    JAX's default: absolute ``--tol`` per right-hand side, at most
+    ``--max-iterations`` block iterations) or block GMRES (relative
+    ``--tol``, restart ``--restart``), with the multigrid V-cycle as M
+    (``--precond mg``; anything else runs without one, as in JAX); the time
+    per RHS and the amortisation against the s = 1 row. On the card each
+    block application of A and of M runs s single-vector applications (one
+    launch of their kernels per row), where JAX's ``vmap`` batches them."""
     import types
 
     from gmres_tpu_torch.models.poisson import poisson_operator
     from gmres_tpu_torch.precond.multigrid import poisson_multigrid_preconditioner
+    from gmres_tpu_torch.solvers.block_cg import block_cg
     from gmres_tpu_torch.solvers.block_gmres import block_gmres
 
     dev = _device(args)
-    if args.solver in MULTIRHS_UNPORTED:
-        raise SystemExit(
-            f"multirhs --solver {args.solver}: that solver is not ported to "
-            f"gmres_tpu_torch yet ({MULTIRHS_UNPORTED[args.solver]}); use "
-            "--solver block-gmres")
     n = args.nsize
     op = poisson_operator(n)
     m_inv = poisson_multigrid_preconditioner(n) if args.precond == "mg" else None
@@ -596,17 +592,23 @@ def cmd_multirhs(args):
     for s in (int(v) for v in args.s_list.split(",")):
         xs = torch.as_tensor(rng.standard_normal((s, n, n))).to(dev)
         B = torch.stack([op(xs[i]) for i in range(s)])
-        res, dt = _timed(lambda: block_gmres(
-            op, B, restart=args.restart, tol=args.tol, M=m_inv,
-            max_restarts=args.max_restarts), dev)
+        if args.solver == "block-gmres":
+            res, dt = _timed(lambda: block_gmres(
+                op, B, restart=args.restart, tol=args.tol, M=m_inv,
+                max_restarts=args.max_restarts), dev)
+            # Block GMRES counts restart cycles: its row's iterations are
+            # restarts·m, as in JAX's program.
+            row = types.SimpleNamespace(x=res.x, restarts=res.restarts,
+                                        iterations=res.restarts * args.restart,
+                                        residual=res.residual, status=res.status)
+        else:
+            res, dt = _timed(lambda: block_cg(
+                op, B, tol=args.tol, M=m_inv,
+                max_iterations=args.max_iterations), dev)
+            row = res
         per_rhs = dt / s
         if base_per_rhs is None:
             base_per_rhs = per_rhs
-        # Block GMRES counts restart cycles: its row's iterations are
-        # restarts·m, as in JAX's program.
-        row = types.SimpleNamespace(x=res.x, restarts=res.restarts,
-                                    iterations=res.restarts * args.restart,
-                                    residual=res.residual, status=res.status)
         records.append(_record(
             f"{args.solver}-poisson-{n}x{n}-s{s}", row, wall_s=dt, tol=args.tol,
             nnz=5 * n * n - 4 * n,
@@ -614,6 +616,73 @@ def cmd_multirhs(args):
                    "amortization_vs_s1": base_per_rhs / per_rhs,
                    "precond": args.precond,
                    "max_rhs_residual": float(res.residual),
+                   "host_syncs": res.host_syncs}))
+    _emit(records, args)
+    return records
+
+
+def varcoef_problem(n: int, contrast: float, dev: torch.device):
+    """The ``varcoef`` program's problem on ``dev``: the coefficient field
+    c (1 with two square inclusions of ``contrast``, the
+    Vuik–Segal–Meijerink bubbly-flow shape), the operator, x_true (numpy
+    ``default_rng(0)``), b = A·x_true, the Jacobi diagonal and the coarse
+    block W of the two normalised inclusion indicators. The arrays are made
+    in numpy and carried over with ``as_tensor``."""
+    from gmres_tpu_torch.models.varcoef import varcoef_diagonal, varcoef_operator
+    from gmres_tpu_torch.types import as_tensor
+
+    c = np.ones((n, n))
+    a1 = (slice(n // 6, 5 * n // 12), slice(n // 6, 5 * n // 12))
+    a2 = (slice(7 * n // 12, 7 * n // 8), slice(13 * n // 24, 5 * n // 6))
+    c[a1] = contrast
+    c[a2] = contrast
+    w = np.zeros((2, n, n))
+    w[0][a1] = 1.0
+    w[1][a2] = 1.0
+    w /= np.linalg.norm(w.reshape(2, -1), axis=1)[:, None, None]
+    c_t = as_tensor(c, dev)
+    op = varcoef_operator(c_t)
+    x_true = as_tensor(np.random.default_rng(0).standard_normal((n, n)), dev)
+    return c_t, op, x_true, op(x_true), varcoef_diagonal(c_t), as_tensor(w, dev)
+
+
+def varcoef_preconditioners(c, op, diag, w) -> dict:
+    """The program's four preconditioners by row name: Jacobi, Jacobi with
+    the coarse space, the varcoef cycle, the cycle with the coarse space."""
+    from gmres_tpu_torch.models.varcoef import varcoef_multigrid_preconditioner
+    from gmres_tpu_torch.precond.deflation import coarse_space_preconditioner
+
+    def jacobi(r):
+        return r / diag
+
+    mg = varcoef_multigrid_preconditioner(c)
+    return {"jacobi": jacobi,
+            "jacobi+defl": coarse_space_preconditioner(op, w, M=jacobi),
+            "mg": mg,
+            "mg+defl": coarse_space_preconditioner(op, w, M=mg)}
+
+
+def cmd_varcoef(args):
+    """Heterogeneous media (models/varcoef.py): CG on −∇·(c∇u) with two
+    square inclusions of ``--contrast``, tol ``--tol``·‖b‖ absolute, one row
+    per preconditioner (jacobi, jacobi+defl, mg, mg+defl; +defl stacks the
+    inclusion-indicator coarse space of precond/deflation.py on it). Read
+    the rows by their L2/L∞ errors against x_true as well as by
+    iterations: deflation pins the near-null inclusion modes."""
+    from gmres_tpu_torch.solvers.cg import cg
+
+    dev = _device(args)
+    n = args.nsize
+    c, op, x_true, b, diag, w = varcoef_problem(n, args.contrast, dev)
+    tol = args.tol * float(torch.linalg.norm(b))
+    records = []
+    for name, m_inv in varcoef_preconditioners(c, op, diag, w).items():
+        res, dt = _timed(lambda m_inv=m_inv: cg(
+            op, b, tol=tol, max_iterations=args.max_iterations, M=m_inv), dev)
+        records.append(_record(
+            f"varcoef-{name}-{n}x{n}", res, x_true=x_true, wall_s=dt, tol=tol,
+            nnz=5 * n * n - 4 * n,
+            extra={"contrast": args.contrast, "precond": name,
                    "host_syncs": res.host_syncs}))
     _emit(records, args)
     return records
@@ -806,9 +875,12 @@ def build_parser() -> argparse.ArgumentParser:
         solver="block-cg", precond="mg", tol=1e-8, restart=30,
         max_restarts=200, max_iterations=2000,
         choices={"solver": MULTIRHS_SOLVERS},
-        help="block GMRES on s stacked Poisson right-hand sides, time per "
-             "RHS against s = 1; block-cg is not ported (ROADMAP item 9.2) "
-             "and exits with a message")
+        help="block CG (or block GMRES) on s stacked Poisson right-hand "
+             "sides, time per RHS against s = 1")
+    add("varcoef", cmd_varcoef, nsize=256, contrast=1e5, tol=1e-9,
+        max_iterations=20_000,
+        help="CG on the variable-coefficient model with two high-contrast "
+             "inclusions: jacobi, mg, each with and without deflation")
     add("roofline", cmd_roofline, grids="1024,2048,4096", reps=20, cheb_order=8,
         help="achieved bandwidth of the stencil, smoother and V-cycle routes")
     return p

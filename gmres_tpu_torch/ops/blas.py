@@ -57,6 +57,12 @@ def row_combine(coefs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return torch.tensordot(coefs, rows, dims=([0], [0]))
 
 
+def row_apply(fn, rows: torch.Tensor) -> torch.Tensor:
+    """fn on each row of the block (JAX's ``jax.vmap(fn)``): one call, and on
+    the card one launch of fn's kernels, per row."""
+    return torch.stack([fn(rows[i]) for i in range(rows.shape[0])])
+
+
 def tree_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Scalar inner product Σ conj(aᵢ)·bᵢ (0-d tensor)."""
     return as_plain(torch.sum(a.conj() * b))

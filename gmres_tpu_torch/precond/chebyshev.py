@@ -9,8 +9,9 @@ Counterpart of ``gmres_tpu/precond/chebyshev.py``:
 * ``chebyshev_stencil_preconditioner`` — the semi-iteration specialised to
   a 5-point stencil, routed by device to kernel K2 (a CUDA tensor) or its
   plain version (a CPU tensor). It replaces the TPU routing on
-  ``_whole_grid_vmem_ok``; the JAX ``use_pallas`` switch has no
-  counterpart, because the device decides.
+  ``_whole_grid_vmem_ok``. Its ``use_pallas`` takes JAX's values:
+  ``"auto"`` and ``"always"`` route by device, and only an explicit
+  ``"never"`` takes K2's plain version on any device.
 * ``chebyshev_from_lanczos`` — ``chebyshev_preconditioner`` on an interval
   estimated by ``solvers/lanczos.py:lanczos_bounds``.
 """
@@ -23,6 +24,7 @@ from gmres_tpu_torch.ops.fused import (
     chebyshev_k_scalars,
     chebyshev_ref_scalars,
     poly_stencil_smoother_pallas,
+    poly_stencil_smoother_plain,
 )
 from gmres_tpu_torch.ops.stencil import POISSON_COEFS
 from gmres_tpu_torch.types import LinearOperator, Preconditioner
@@ -69,20 +71,30 @@ def chebyshev_stencil_preconditioner(
     lam_max: float,
     order: int = 2,
     coefs=POISSON_COEFS,
+    use_pallas: str = "auto",
 ) -> Preconditioner:
     """The order-k semi-iteration on a 5-point stencil operator: K2 on a
     CUDA tensor, the plain recurrence on a CPU tensor. Both apply the
     semi-iteration polynomial at every order, including order 2 (use
     ``chebyshev_preconditioner`` for cbpr2).
 
+    use_pallas: JAX's switch. "auto" (the default) and "always" route by
+    the tensor's device as above; "never" applies K2's plain version
+    (``poly_stencil_smoother_plain``) on any device, a CUDA tensor
+    included. Any other value raises ValueError.
+
     The returned callable carries its plan as plain data: ``theta`` and
     ``steps`` (the flat [a₀, b₀, a₁, b₁, …] list of ``chebyshev_k_scalars``)
     and ``order``."""
+    if use_pallas not in ("auto", "always", "never"):
+        raise ValueError(f"unknown use_pallas {use_pallas!r}")
     theta, _, steps = chebyshev_k_scalars(lam_min, lam_max, order)
     coefs = tuple(float(c) for c in coefs)
+    smoother = (poly_stencil_smoother_plain if use_pallas == "never"
+                else poly_stencil_smoother_pallas)
 
     def m_inv(r):
-        return poly_stencil_smoother_pallas(r, theta, steps, coefs)
+        return smoother(r, theta, steps, coefs)
 
     m_inv.theta = theta
     m_inv.steps = tuple(steps)

@@ -23,11 +23,20 @@ red-black Gauss-Seidel smoothing. Its kernels are the Poisson cycle's: K1
 (the level operators and the two V-cycle forms, with the level's
 coefficients) and K2 (the Jacobi and Chebyshev smoothers and the coarse
 solve) on a CUDA tensor.
+
+``poisson3d_multigrid_preconditioner`` (with ``restrict_sum3d`` and
+``prolong_repeat3d``) is the JAX 3-D cycle for the 7-point stencil, plain
+PyTorch on any device as the JAX cycle is plain jnp (neither package has a
+3-D kernel). ``anisotropic_multigrid_preconditioner`` is the JAX cycle for
+ε·u_xx + u_yy with line relaxation by PCR (``ops/tridiag.py``, plain
+PyTorch) or point relaxation; its operator applications launch K1 on a
+CUDA tensor (``models/anisotropic.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -376,4 +385,161 @@ def convection_diffusion_multigrid_preconditioner(
     m_inv.smoothers = smoothers
     m_inv.cheb_intervals = cheb_ivals
     m_inv.coarse_interval = coarse_ival
+    return m_inv
+
+
+def restrict_sum3d(x: torch.Tensor) -> torch.Tensor:
+    """(2m,)³ → (m,)³ by 2×2×2 block sum × 1/2 (the 3-D consistency
+    factor: the h²-scaled operator gains 4 per coarsening while a block
+    holds 8 cells), summed axis by axis in the JAX order."""
+    y = x[0::2] + x[1::2]
+    y = y[:, 0::2] + y[:, 1::2]
+    return 0.5 * (y[:, :, 0::2] + y[:, :, 1::2])
+
+
+def prolong_repeat3d(x: torch.Tensor) -> torch.Tensor:
+    """(m,)³ → (2m,)³ by replication (adjoint of ``restrict_sum3d`` up to
+    its factor)."""
+    return (x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+            .repeat_interleave(2, dim=2))
+
+
+def poisson3d_multigrid_preconditioner(
+    nsize: int,
+    levels: int | None = None,
+    pre_smooth: int = 3,
+    post_smooth: int = 3,
+    coarse_order: int = 32,
+    smooth_band: float = 4.0,
+    mesh=None,
+    replicate_below: int | None = None,
+) -> Callable:
+    """V-cycle preconditioner for the 3-D 7-point Poisson stencil
+    (``models/poisson3d.py``; the arguments of the JAX function): Chebyshev
+    smoothing on [λmax/band, λmax] with λmax = 12, the closed-form coarse
+    λmin, ``restrict_sum3d``/``prolong_repeat3d``. Levels coarsen while the
+    grid is even and above 8 (nsize must be divisible by 2^(levels−1)).
+
+    mesh, replicate_below: the distributed cycle, not ported yet (ROADMAP
+      queue 1, item 8.3); passing either raises NotImplementedError.
+
+    Plain PyTorch on the tensor's device: the smoothers are
+    ``chebyshev_preconditioner``'s semi-iteration around
+    ``stencil_7pt_apply``. The returned callable carries ``levels`` and
+    ``fine_equiv_sweeps``."""
+    from gmres_tpu_torch.ops.stencil import stencil_7pt_apply
+    from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
+
+    if mesh is not None or replicate_below is not None:
+        raise NotImplementedError(
+            "the distributed 3-D multigrid cycle (mesh=, replicate_below=) is "
+            "not ported yet: ROADMAP queue 1, item 8.3"
+        )
+    if levels is None:
+        levels = 1
+        n = nsize
+        while n % 2 == 0 and n > 8:
+            n //= 2
+            levels += 1
+    sizes = [nsize // (2 ** l) for l in range(levels)]
+    for l, n in enumerate(sizes):
+        if l > 0 and sizes[l - 1] != 2 * n:
+            raise ValueError(
+                f"nsize={nsize} not divisible by 2**{levels - 1}"
+            )
+    lam_max = 12.0
+    lam_min_coarse = 6.0 * (1.0 - math.cos(math.pi / (sizes[-1] + 1)))
+    pre = chebyshev_preconditioner(stencil_7pt_apply, lam_max / smooth_band, lam_max,
+                                   order=max(pre_smooth, 1), reference_form=False)
+    post = chebyshev_preconditioner(stencil_7pt_apply, lam_max / smooth_band, lam_max,
+                                    order=max(post_smooth, 1), reference_form=False)
+    coarse = chebyshev_preconditioner(stencil_7pt_apply, lam_min_coarse, lam_max,
+                                      order=coarse_order, reference_form=False)
+
+    def v_cycle(r, l):
+        if l == levels - 1:
+            return coarse(r)
+        e = pre(r)
+        rc = restrict_sum3d(r - stencil_7pt_apply(e))
+        e = e + prolong_repeat3d(v_cycle(rc, l + 1))
+        return e + post(r - stencil_7pt_apply(e))
+
+    def m_inv(r: torch.Tensor) -> torch.Tensor:
+        return v_cycle(r, 0)
+
+    per_level = (max(pre_smooth, 1) - 1) + (max(post_smooth, 1) - 1) + 2
+    m_inv.fine_equiv_sweeps = sum(
+        per_level * 0.125 ** l for l in range(levels - 1)
+    ) + (coarse_order - 1) * 0.125 ** (levels - 1)
+    m_inv.levels = levels
+    return m_inv
+
+
+def anisotropic_multigrid_preconditioner(
+    nsize: int,
+    eps: float,
+    pre_smooth: int = 2,
+    post_smooth: int = 2,
+    omega: float = 0.8,
+    coarse_iters: int = 32,
+    min_size: int = 16,
+    smoother: str = "line",
+) -> Callable:
+    """V-cycle for ε·u_xx + u_yy (``models/anisotropic.py``; the arguments
+    of the JAX function). smoother="line" relaxes whole strong-axis lines,
+    e ← e + ω T⁻¹(r − A e) with T = tridiag(−1, 2ε + 2, −1) solved by PCR
+    along the last axis; smoother="point" is damped Jacobi,
+    e ← e + ω/(2ε + 2)·(r − A e); anything else raises ValueError. The
+    Poisson transfers carry over unchanged (the h²-scaled coefficients are
+    level-independent); levels coarsen while the grid is even and above
+    ``min_size``, and the coarsest runs ``coarse_iters`` sweeps.
+
+    The line solves' elimination (``ops/tridiag.py:pcr_plan``) does not
+    depend on the residual: it runs once per level size, dtype and device,
+    on one row of coefficients that every line shares, and each sweep
+    replays it (``pcr_apply``), the same arithmetic as JAX's
+    ``tridiag_solve_pcr`` on full coefficient arrays."""
+    from gmres_tpu_torch.models.anisotropic import anisotropic_apply
+    from gmres_tpu_torch.ops.tridiag import pcr_apply, pcr_plan
+
+    if smoother not in ("line", "point"):
+        raise ValueError(f"unknown smoother {smoother!r}")
+
+    sizes = [nsize]
+    while sizes[-1] % 2 == 0 and sizes[-1] > min_size:
+        sizes.append(sizes[-1] // 2)
+    n_levels = len(sizes)
+    diag = 2.0 * eps + 2.0
+    plans = {}
+
+    def line_solve(r):
+        key = (r.shape[-1], r.dtype, r.device)
+        if key not in plans:
+            full = functools.partial(torch.full, (r.shape[-1],), dtype=r.dtype,
+                                     device=r.device)
+            plans[key] = pcr_plan(full(-1.0), full(diag), full(-1.0))
+        return pcr_apply(plans[key], r)
+
+    def smooth(r, iters):
+        e = torch.zeros_like(r)
+        for _ in range(iters):
+            resid = r - anisotropic_apply(e, eps)
+            if smoother == "line":
+                e = e + omega * line_solve(resid)
+            else:
+                e = e + (omega / diag) * resid
+        return e
+
+    def v_cycle(r, l):
+        if l == n_levels - 1:
+            return smooth(r, coarse_iters)
+        e = smooth(r, pre_smooth)
+        resid = r - anisotropic_apply(e, eps)
+        e = e + prolong_repeat(v_cycle(restrict_sum(resid), l + 1))
+        resid = r - anisotropic_apply(e, eps)
+        return e + smooth(resid, post_smooth)
+
+    def m_inv(r: torch.Tensor) -> torch.Tensor:
+        return v_cycle(r, 0)
+
     return m_inv

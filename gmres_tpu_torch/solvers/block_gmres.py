@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from gmres_tpu_torch.ops.blas import row_apply
 from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
 from gmres_tpu_torch.solvers.gmres import _as_operator
 from gmres_tpu_torch.types import BlockSolveResult, Preconditioner, SolverStatus
@@ -61,12 +62,6 @@ def _orthonormalize_block(w: torch.Tensor, eps: float):
     return q2, r2 @ r1
 
 
-def _rows(fn, v: torch.Tensor) -> torch.Tensor:
-    """fn on each row of the block (JAX's ``jax.vmap(fn)``): one call, and on
-    the card one launch of fn's kernels, per row."""
-    return torch.stack([fn(v[i]) for i in range(v.shape[0])])
-
-
 def block_gmres(
     A,
     B: torch.Tensor,
@@ -98,10 +93,10 @@ def block_gmres(
     tiny = torch.finfo(dtype).tiny
 
     def vop(v):
-        return _rows(op1, v)
+        return row_apply(op1, v)
 
     def vprec(v):
-        return _rows(M, v) if M is not None else v
+        return row_apply(M, v) if M is not None else v
 
     if x0 is None:
         x0 = torch.zeros_like(B)

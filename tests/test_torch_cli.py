@@ -81,6 +81,9 @@ RUNS = {
                                "gmres-dr", "--deflate", "2"],
     "multirhs-block-gmres": ["multirhs", "--nsize", "16", "--s-list", "1,3", "--solver",
                              "block-gmres", "--restart", "10"],
+    # JAX's default solver, block CG.
+    "multirhs-block-cg": ["multirhs", "--nsize", "16", "--s-list", "1,3"],
+    "varcoef": ["varcoef", "--nsize", "24"],
 }
 # Two gloo ranks, and JAX's rows on two devices.
 RUNS_2 = {
@@ -178,18 +181,6 @@ def test_unported_convdiff_solver_exits(solver, item, capsys):
     assert "solver" not in capsys.readouterr().out  # no table: nothing ran
 
 
-def test_multirhs_block_cg_exits(capsys):
-    """JAX's default --solver block-cg is not ported: the program exits
-    naming item 9.2, and the parser keeps JAX's default."""
-    from gmres_tpu_torch.benchmarks.cli import build_parser
-
-    assert build_parser().parse_args(["multirhs"]).solver == "block-cg"
-    with pytest.raises(SystemExit) as exc:
-        port_main(["multirhs", "--nsize", "16", "--device", "cpu"])
-    assert "item 9.2" in str(exc.value.code)
-    assert "solver" not in capsys.readouterr().out  # no table: nothing ran
-
-
 def test_solver_choices_are_validated():
     with pytest.raises(SystemExit):
         port_main(["restart-sweep", "--solver", "gmress", "--device", "cpu"])
@@ -212,7 +203,7 @@ def test_help_lists_the_programs():
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).stdout
     for program in ("dense-poisson", "hilbert", "poisson-mf", "cg", "bicgstab", "convdiff",
                     "strong-scaling", "weak-scaling", "restart-sweep", "multirhs",
-                    "roofline"):
+                    "varcoef", "roofline"):
         assert program in out
 
 
@@ -236,12 +227,20 @@ import gmres_tpu_torch.solvers.sstep, gmres_tpu_torch.solvers.fgmres
 import gmres_tpu_torch.solvers.lgmres, gmres_tpu_torch.solvers.block_gmres
 import gmres_tpu_torch.solvers.idrs, gmres_tpu_torch.solvers.gmres_dr
 import gmres_tpu_torch.solvers.gcrodr, gmres_tpu_torch.ops.hessenberg_eig
+import gmres_tpu_torch.solvers.block_cg, gmres_tpu_torch.solvers.minres
+import gmres_tpu_torch.solvers.sstep_cg, gmres_tpu_torch.solvers.chebyshev
+import gmres_tpu_torch.models.poisson3d, gmres_tpu_torch.models.anisotropic
+import gmres_tpu_torch.models.varcoef, gmres_tpu_torch.ops.tridiag
+import gmres_tpu_torch.precond.deflation
 gmres_tpu_torch.benchmarks.cli.main(["bicgstab", "--grids", "8:8:8", "--device", "cpu"])
 gmres_tpu_torch.benchmarks.cli.main(["restart-sweep", "--nsize", "12", "--ntests", "1",
                                      "--start", "5", "--tol", "1e-8", "--solver", "gmres-dr",
                                      "--deflate", "2", "--device", "cpu"])
 gmres_tpu_torch.benchmarks.cli.main(["multirhs", "--nsize", "8", "--s-list", "2",
                                      "--solver", "block-gmres", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["multirhs", "--nsize", "8", "--s-list", "2",
+                                     "--solver", "block-cg", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["varcoef", "--nsize", "24", "--device", "cpu"])
 gmres_tpu_torch.gcrodr(gmres_tpu_torch.poisson_operator(8),
                        gmres_tpu_torch.poisson_operator(8)(__import__("torch").ones(8, 8,
                            dtype=__import__("torch").float64)), k=2, restart=6)

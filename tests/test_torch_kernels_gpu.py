@@ -1026,3 +1026,114 @@ def test_block_gmres_launches_k1_once_per_row(cuda_device):
     m_apps, a_apps = s * (5 + 1), s * (2 + 5)
     assert launched[1] == m_apps * per_vector[1]
     assert launched[0] == m_apps * (per_vector[0] - 1) + a_apps
+
+
+def _short_solve(name, dev):
+    """One solve of the short-recurrence family or the real models at a small
+    size, float64, on ``dev``."""
+    n = 64
+    ones = torch.ones((n, n), dtype=torch.float64, device=dev)
+    if name in ("block_cg", "minres", "sstep_cg", "chebyshev_solve"):
+        op = tt.poisson_operator(n)
+        m = tt.poisson_multigrid_preconditioner(n)
+        b = op(ones)
+    if name == "block_cg":
+        bs = torch.stack([op(to_torch(seeded(64 + i, (n, n)), dev)) for i in range(3)])
+        return tt.block_cg(op, bs, tol=1e-9, M=m)
+    if name == "minres":
+        return tt.minres(op, b, tol=1e-9, M=m)
+    if name == "sstep_cg":
+        return tt.sstep_cg(op, b, s=4, tol=1e-9, M=m)
+    if name == "chebyshev_solve":
+        lo, hi = tt.poisson_spectral_bounds(n)
+        return tt.chebyshev_solve(op, b, lo, hi, order=16, tol=1e-9, coefs=tst.POISSON_COEFS)
+    if name == "anisotropic":
+        op = tt.anisotropic_operator(n, 0.01)
+        return tt.cg(op, op(ones), tol=1e-9, M=tt.anisotropic_multigrid_preconditioner(n, 0.01))
+    if name == "poisson3d":
+        op = tt.poisson3d_operator(16)
+        b = op(torch.ones((16, 16, 16), dtype=torch.float64, device=dev))
+        return tt.cg(op, b, tol=1e-9, M=tt.poisson3d_multigrid_preconditioner(16))
+    c = np.ones((n, n))
+    c[10:26, 10:26] = 1e5
+    w = np.zeros((1, n, n))
+    w[0, 10:26, 10:26] = 1.0 / 16.0
+    c_t = to_torch(c, dev)
+    op = tt.varcoef_operator(c_t)
+    m = tt.coarse_space_preconditioner(op, to_torch(w, dev),
+                                       M=tt.varcoef_multigrid_preconditioner(c_t))
+    b = op(to_torch(seeded(65, (n, n)), dev))
+    return tt.cg(op, b, tol=1e-9 * float(torch.linalg.norm(b)), M=m)
+
+
+@pytest.mark.parametrize("name", ["block_cg", "minres", "sstep_cg", "chebyshev_solve",
+                                  "anisotropic", "poisson3d", "varcoef"])
+def test_short_family_on_the_card_matches_cpu(cuda_device, monkeypatch, name):
+    """The solve on the card, with every 5-point plain version made to raise,
+    against the same solve on the CPU: both converge, the counts within 2, x
+    within 1e-8; K1 launched where the path has a 5-point stencil (the 3-D
+    and variable-coefficient paths are plain PyTorch, as in gmres_tpu)."""
+    cpu = _short_solve(name, "cpu")
+    _no_plain_versions(monkeypatch)
+    before = (tst.stencil5_cuda.launches, tfu.chebk_cuda.launches)
+    card = _short_solve(name, cuda_device)
+    torch.cuda.synchronize()
+    k1, k2 = (tst.stencil5_cuda.launches - before[0], tfu.chebk_cuda.launches - before[1])
+    assert card.status == cpu.status == 0
+    assert abs(card.iterations - cpu.iterations) <= 2
+    assert card.x.device.type == "cuda" and rel_err(card.x.cpu(), cpu.x) < 1e-8
+    assert (k1 > 0) == (name not in ("poisson3d", "varcoef"))
+    assert (k2 > 0) == (name in ("block_cg", "minres", "sstep_cg", "chebyshev_solve"))
+
+
+def test_block_cg_launches_k1_once_per_row(cuda_device):
+    """A block application of A (and of the V-cycle) runs one launch of its
+    kernels per row: 2 iterations of block CG at s = 4 launch s times the
+    single-vector kernels of each A and M application."""
+    n, s, its = 128, 4, 2
+    op = tt.poisson_operator(n)
+    m = tt.poisson_multigrid_preconditioner(n)
+    v = to_torch(seeded(66, (n, n)), cuda_device)
+    counters = (tst.stencil5_cuda, tfu.chebk_cuda)
+    before = [c.launches for c in counters]
+    m(v)
+    torch.cuda.synchronize()
+    per_m = [c.launches - b for c, b in zip(counters, before)]
+    b = torch.stack([op(to_torch(seeded(67 + i, (n, n)), cuda_device)) for i in range(s)])
+    before = [c.launches for c in counters]
+    res = tt.block_cg(op, b, tol=1e-30, max_iterations=its, M=m)
+    torch.cuda.synchronize()
+    launched = [c.launches - b_ for c, b_ in zip(counters, before)]
+    assert res.iterations == its and res.x.device.type == "cuda"
+    # The first M and one a step; one A a step and the certification's.
+    m_apps, a_apps = s * (its + 1), s * (its + 1)
+    assert launched[1] == m_apps * per_m[1]
+    assert launched[0] == m_apps * per_m[0] + a_apps
+
+
+def test_chebyshev_solve_launches_k2_once_a_cycle(cuda_device):
+    """With coefs, a cycle is one K2 launch (the order-16 polynomial, on
+    K2's cluster path at 64²) and one K1 launch (the residual)."""
+    n = 64
+    op = tt.poisson_operator(n)
+    b = op(torch.ones((n, n), dtype=torch.float64, device=cuda_device))
+    lo, hi = tt.poisson_spectral_bounds(n)
+    before = (tst.stencil5_cuda.launches, tfu.chebk_cuda.launches)
+    res = tt.chebyshev_solve(op, b, lo, hi, order=16, tol=1e-9, coefs=tst.POISSON_COEFS)
+    torch.cuda.synchronize()
+    assert res.converged
+    assert tst.stencil5_cuda.launches - before[0] == res.iterations
+    assert tfu.chebk_cuda.launches - before[1] == res.iterations
+
+
+def test_anisotropic_operator_is_k1(cuda_device):
+    """The anisotropic operator on the card is one K1 launch with the
+    coefficients (2ε + 2, −1, −1, −ε, −ε), equal to the CPU's pad-and-sum
+    form within 1e-14 (a different summation order)."""
+    x = to_torch(seeded(68, (256, 256)), cuda_device)
+    before = tst.stencil5_cuda.launches
+    y = tt.anisotropic_apply(x, 0.01)
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches == before + 1
+    torch.testing.assert_close(y.cpu(), tt.anisotropic_apply(x.cpu(), 0.01), rtol=0,
+                               atol=1e-14)
