@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k2-paths [OUT]     # K2's path table (JSONL to OUT)
     python3 chip_smoke.py --phase17            # the build and phase 17 alone
     python3 chip_smoke.py --phase18            # the build and phase 18 alone
+    python3 chip_smoke.py --phase19            # the build and phase 19 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -12,7 +13,7 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase17`` and ``--phase18`` modes build the kernels and run that
+The ``--phase17``, ``--phase18`` and ``--phase19`` modes build the kernels and run that
 phase alone, with its checks. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
@@ -215,6 +216,35 @@ phase alone, with its checks. Phases of the smoke run:
     block CG, MINRES, s-step CG, 1024² Chebyshev and 3-D rows profiled
     (device busy, kernels; the anisotropic and varcoef rows' 57k and 24k
     kernels a solve would cost the profiler ~40 s).
+
+19. Helmholtz and the solvers that need Aᵀ or J·v. First K1's rules on the
+    card at 1024² float64 and float32, Poisson and convdiff coefficients:
+    the adjoint identity ⟨A x, y⟩ = ⟨x, Aᵀ y⟩ with Aᵀ the pullback of
+    torch.func.vjp through K1 (1e-13 relative in float64), the vjp, the jvp
+    and a tensor coefficient's gradient against the plain stencil's autograd
+    on the card, each rule's launches (a pullback one K1 with mirrored
+    coefficients, a tangent one K1), K2, K1's halo form, K1rr and K3
+    refusing a transform with a named error, and K1's host µs a call with
+    and without the autograd Function. Then MINRES with the SPD
+    shifted-Laplacian cycle at 1024² (kh2 factor 10), float64 and with the
+    float32 cycle, and the ``helmholtz`` program at 256²; the split CSL
+    GMRES(120) and GCRO-DR at 512² (float32 cycles, float64 certified; one
+    timed solve each) and the complex128 CSL GMRES at 256² (plain torch; its
+    kernels per cycle); the ``sequence`` program at its defaults (128², three
+    frequencies); the ``bratu`` program at 256² and
+    newton_krylov with the V-cycle at 1024², float64 and mixed (Newton
+    steps, inner iterations, J·v products, K1 launches per J·v: 2); QMR with
+    the convdiff cycle and its transpose as MT at 1024² (K1 per iteration)
+    and the ``convdiff --solver qmr`` program at 32² and at its 256² default
+    capped at 2000 iterations (gmres_tpu's stalls there: held to its count
+    and residual); LSQR and LSMR at 128² with the derived adjoint (one timed
+    solve each after a short warm-up); implicit_solve's γ-gradient at 256² against central
+    differences. Each row: status 0, a numpy float64 residual in the norm
+    the solver certifies, its count against gmres_tpu's CPU count
+    (scripts/jax_phase19_counts.py; within 2 or the band its constant
+    states), host syncs, the median and quartiles of 3 timed solves, the
+    launches (K1 split into forward, transpose and tangent) checked against
+    the applications; one profiled solve per solver family.
 
 Phases 12–14 share one NCCL process group made by the script. Any failure
 raises and exits non-zero. The line before the last is the
@@ -469,6 +499,80 @@ JAX_PHASE18 = {
                 "varcoef-mg-256x256": (20, 0.45603032816166217),
                 "varcoef-mg+defl-256x256": (21, 0.0007861187588659232)},
     "varcoef1024": (12, 0, 0.7982120608812189),
+}
+# Phase 19: Helmholtz and the solvers that need Aᵀ or J·v. gmres_tpu's counts
+# for each row, from the JAX package on the CPU (float64):
+#   JAX_PLATFORMS=cpu python3 scripts/jax_phase19_counts.py
+# which drives the same programs (helmholtz, sequence, bratu, convdiff
+# --solver qmr) and functions (qmr with the cycle and its transpose, lsqr,
+# lsmr). Program rows: [name, iterations, restarts, extras]; function rows:
+# (iterations, status).
+PHASE19_REPEATS = 3
+RULE_N = 1024
+HELM_N, HELM_FACTOR = 1024, 10.0
+# The programs' defaults: helmholtz, sequence, bratu. The sequence program
+# runs at all of its defaults (128², k 10, restart 40, kh2 factors 10, 10.5,
+# 11); 10·λ_min takes 116 GCRO-DR cycles fresh and warm (6–7 s a solve on an
+# H100), and the program solves each row twice (a warm-up, then the timed
+# solve), ~50 s in all.
+HELM_PROGRAM_N, SEQUENCE_N, BRATU_PROGRAM_N = 256, 128, 256
+# The split-CSL rows take 5–10 s a solve on an H100 (~1000 eager kernels an
+# iteration): one timed solve each after a one-cycle warm-up.
+CSL_SPLIT_REPEATS = 1
+CSL_SPLIT_N, CSL_COMPLEX_N = 512, 256
+CSL_SPLIT_RESTART, CSL_COMPLEX_RESTART, CSL_DEFLATE = 120, 60, 20
+HELM_TOL = 1e-9
+BRATU_N, BRATU_TOL = 1024, 1e-10
+QMR_N = 1024
+# gmres_tpu's convdiff --solver qmr at its 256² default (no preconditioner,
+# absolute tol 1e-9) stalls at ‖r‖ 4.93 and ends at its cap (status 1): after
+# 2000 iterations as after 10000 (~1.6 ms an iteration on an H100, so the
+# default's 10000 twice would take ~32 s). The program runs at 256² with
+# --max-iterations QMR_PROGRAM_CAP, held to gmres_tpu's count, status and
+# residual there, and at 32², where it converges in 111.
+QMR_PROGRAM_N, QMR_PROGRAM_DEFAULT_N, QMR_PROGRAM_CAP = 32, 256, 2000
+# LSQR and LSMR on convdiff (0.4, 0.2), b = A·1, tol 1e-9 at 128²: gmres_tpu
+# takes 4361 and 4183 bidiagonalisation steps (host-bound at ~2 ms a step on
+# an H100): a warm-up of LSQ_WARMUP steps, then one timed solve each; the
+# profile (LSQR) covers the first LSQ_WARMUP steps.
+LSQ_N, LSQ_REPEATS, LSQ_WARMUP = 128, 1, 200
+IMPLICIT_N = 256
+# MINRES's count follows the last bits of M: gmres_tpu's CPU cycle rounds
+# with XLA's fused multiply-adds (3e-16 relative from the port's at 32²), and
+# at 32² the port takes 23 steps against gmres_tpu's 25, or 25 with
+# gmres_tpu's M (tests/test_torch_helmholtz.py); its 1024² CPU solve takes 35
+# against 34. The float32 split-CSL GMRES takes one restart cycle less or
+# more with the float32 sums. GCRO-DR's host eigensolves split close
+# harmonic Ritz values otherwise than JAX. The bands below hold
+# these rows (tests/test_torch_helmholtz.py and test_torch_cli.py pin them);
+# every other count is held within 2.
+HELM_MINRES_BAND = 0.15
+CSL_SPLIT_BAND = 120 + 2
+SEQUENCE_BAND = 0.15
+# Newton-Krylov's inner count with float32 inner bases follows the float32
+# sums (tests/test_torch_newton_implicit.py: 265 against 250 at 32²).
+NEWTON_F32_BAND = 0.10
+JAX_PHASE19 = {
+    "helmholtz256": [["minres-helmholtz-256x256", 29, None]],
+    "helmholtz1024": [["minres-helmholtz-1024x1024", 34, None]],
+    "helmholtz1024_mixed": [["minres-helmholtz-1024x1024", 50, None]],
+    "csl_split512": [["gmres-csl-helmholtz-512x512", 108, 3, 348]],
+    "csl_split512_gcrodr": [["gcrodr-csl-helmholtz-512x512", 23, 3, 263]],
+    "csl_complex256": [["gmres-csl-helmholtz-256x256", 25, 2, 85]],
+    "sequence": [["gcrodr-fresh-helmholtz-128x128", 23, 116, 10.0],
+                 ["gcrodr-warm-helmholtz-128x128", 23, 116, 10.0],
+                 ["gcrodr-fresh-helmholtz-128x128", 15, 39, 10.5],
+                 ["gcrodr-warm-helmholtz-128x128", 4, 65, 10.5],
+                 ["gcrodr-fresh-helmholtz-128x128", 22, 64, 11.0],
+                 ["gcrodr-warm-helmholtz-128x128", 26, 71, 11.0]],
+    "bratu256": [["jfnk-bratu-256x256", 5, None, 5, 22]],
+    "bratu1024": [["jfnk-bratu-1024x1024", 6, None, 6, 30]],
+    "bratu1024_mixed": [["jfnk-bratu-1024x1024", 5, None, 5, 77]],
+    "qmr_mg1024": (45, 0),
+    "convdiff_qmr32": [["qmr-convdiff-32x32", 111, None]],
+    "convdiff_qmr256_cap": [["qmr-convdiff-256x256", 2000, None, 4.92643881229037]],
+    "lsqr128": (4361, 0),
+    "lsmr128": (4183, 0),
 }
 
 
@@ -2329,8 +2433,9 @@ def bicgstab_solves(gt_torch, dev):
     return k1_total
 
 
-def program_rows(cli, argv, workdir, phase="phase 15"):
-    """Run one program in this process; its JSONL rows, each of status 0."""
+def program_rows(cli, argv, workdir, phase="phase 15", status=0):
+    """Run one program in this process; its JSONL rows, each of status
+    `status` (0, converged, unless the caller expects another)."""
     jsonl = os.path.join(workdir, "programs.jsonl")
     if os.path.exists(jsonl):
         os.remove(jsonl)
@@ -2341,7 +2446,8 @@ def program_rows(cli, argv, workdir, phase="phase 15"):
         rows = [json.loads(line) for line in f]
     require(rows, f"{' '.join(argv)}: no rows")
     for r in rows:
-        require(r["status"] == 0, f"{' '.join(argv)}: row {r['name']} status {r['status']}")
+        require(r["status"] == status,
+                f"{' '.join(argv)}: row {r['name']} status {r['status']}")
     print(f"{phase}: python -m gmres_tpu_torch.benchmarks {' '.join(argv)}: "
           f"{seconds:.1f} s, rows " + "; ".join(
               f"{r['name']} {r['iterations']} it"
@@ -3130,9 +3236,9 @@ def short_record(label, res, times, count, calls, per, err, **extra):
                          **extra)
 
 
-def short_print(label, res, err, norm, med, unit="iteration", count=None):
+def short_print(label, res, err, norm, med, unit="iteration", count=None, phase="phase 18"):
     iters = res.iterations
-    print(f"phase 18: {label}: status {res.status}, {iters} {unit}s, {res.host_syncs} "
+    print(f"{phase}: {label}: status {res.status}, {iters} {unit}s, {res.host_syncs} "
           f"host syncs, residual {float(res.residual):.4e}, numpy {norm} {err:.4e}; median "
           f"{1e3 * med:.3f} ms a solve, {1e3 * med / max(iters, 1):.4f} ms "
           f"{'an' if unit[0] in 'aeiou' else 'a'} {unit}"
@@ -3447,6 +3553,708 @@ def phase_short(gt_torch, dev, workdir):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: Helmholtz and the solvers that need Aᵀ or J·v.
+# ---------------------------------------------------------------------------
+
+
+def rule_counters(reset: bool = False) -> dict:
+    """mg_counters plus how many of K1's launches were transposes and
+    tangents (ops/stencil.py:Stencil5Grid.rule_applications)."""
+    from gmres_tpu_torch.ops.stencil import Stencil5Grid
+
+    if reset:
+        for k in Stencil5Grid.rule_applications:
+            Stencil5Grid.rule_applications[k] = 0
+    out = mg_counters(reset)
+    out.update({f"K1 {k}": v for k, v in Stencil5Grid.rule_applications.items()})
+    return out
+
+
+def np_transpose_coefs(coefs):
+    """The transpose's coefficients: west↔east and south↔north."""
+    c, w, e, s, n = coefs
+    return (c, e, w, n, s)
+
+
+def k1_rules(gt_torch, rng, dev):
+    """Phase 19 (a): K1's autograd and torch.func rules on the card at
+    RULE_N² in float64 and float32, Poisson and convdiff (0.4, 0.2)
+    coefficients: the adjoint identity ⟨A x, y⟩ = ⟨x, Aᵀ y⟩ with Aᵀ the
+    pullback of torch.func.vjp through K1; the vjp, the jvp and a tensor
+    coefficient's gradient against the plain stencil's autograd on the
+    card; each rule's K1 launches; the rules' device times against the
+    plain autograd's; and the refusal of K2, K1's halo form, K1rr and K3
+    under a transform."""
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs
+    from gmres_tpu_torch.ops import fused, stencil
+
+    n = RULE_N
+    out = []
+    launches = dict.fromkeys(rule_counters(), 0)
+    tols = {torch.float64: (1e-13, 1e-13), torch.float32: (1e-5, 2e-5)}
+    for label, coefs in (("poisson", stencil.POISSON_COEFS),
+                         ("convdiff", convection_diffusion_coefs(0.4, 0.2))):
+        for dt in (torch.float64, torch.float32):
+            x = torch.as_tensor(rng.standard_normal((n, n)), device=dev).to(dt)
+            y = torch.as_tensor(rng.standard_normal((n, n)), device=dev).to(dt)
+            tol_adj, tol_cmp = tols[dt]
+
+            def plain(v, cf=coefs):
+                return stencil.stencil_5pt_general(v, *cf)
+
+            def k1(v, cf=coefs):
+                return stencil.stencil_5pt_pallas(v, cf)
+
+            before = rule_counters()
+            ax, pull = torch.func.vjp(k1, x)
+            (aty,) = pull(y)
+            _, jv = torch.func.jvp(k1, (x,), (y,))
+            torch.cuda.synchronize()
+            after = rule_counters()
+            used = {k: after[k] - before[k] for k in after}
+            for k in launches:
+                launches[k] += used[k]
+            lhs = float(torch.sum(ax.double() * y.double()))
+            rhs = float(torch.sum(x.double() * aty.double()))
+            adj = abs(lhs - rhs) / (float(torch.linalg.norm(ax.double()))
+                                    * float(torch.linalg.norm(y.double())))
+            _, pull_p = torch.func.vjp(plain, x)
+            (aty_p,) = pull_p(y)
+            _, jv_p = torch.func.jvp(plain, (x,), (y,))
+
+            def rel(a, b):
+                return float((a - b).abs().max()) / float(b.abs().max())
+
+            vjp_err, jvp_err = rel(aty, aty_p), rel(jv, jv_p)
+            # A tensor coefficient's gradient (west), K1 against plain.
+            cw_k = torch.tensor(coefs[1], dtype=dt, device=dev, requires_grad=True)
+            cw_p = torch.tensor(coefs[1], dtype=dt, device=dev, requires_grad=True)
+            before = rule_counters()
+            (g_k,) = torch.autograd.grad(torch.sum(stencil.stencil_5pt_pallas(
+                x, (coefs[0], cw_k, *coefs[2:])) * y), cw_k)
+            torch.cuda.synchronize()
+            coef_used = {k: v - before[k] for k, v in rule_counters().items()}
+            for k in launches:
+                launches[k] += coef_used[k]
+            (g_p,) = torch.autograd.grad(torch.sum(stencil.stencil_5pt_general(
+                x, coefs[0], cw_p, *coefs[2:]) * y), cw_p)
+            coef_err = abs(float(g_k) - float(g_p)) / abs(float(g_p))
+            # Eager call times (CUDA events around 20 calls, host overhead
+            # in): a pullback, K1's one mirrored launch, against the plain
+            # stencil's autograd backward; the forward against the plain
+            # stencil. (A pullback runs in autograd's engine, which a CUDA
+            # graph capture would not see on its stream.)
+            ms = {"transpose": call_ms(lambda: pull(y)[0], 20),
+                  "transpose_plain": call_ms(lambda: pull_p(y)[0], 20),
+                  "forward": call_ms(lambda: k1(x), 20),
+                  "forward_plain": call_ms(lambda: plain(x), 20)}
+            rec = {"case": f"K1 rules {label} {n}x{n} {str(dt)[6:]}", "adjoint_rel": adj,
+                   "vjp_rel": vjp_err, "jvp_rel": jvp_err, "coef_grad_rel": coef_err,
+                   "launches": used, "coef_launches": coef_used, **ms}
+            print(f"phase 19: {rec['case']}: adjoint |⟨Ax,y⟩ − ⟨x,Aᵀy⟩|/(‖Ax‖‖y‖) "
+                  f"{adj:.3e} (tol {tol_adj:.0e}); vjp {vjp_err:.3e}, jvp {jvp_err:.3e}, "
+                  f"west-coefficient gradient {coef_err:.3e} against the plain stencil's "
+                  f"autograd (tol {tol_cmp:.0e}); launches vjp+pullback+jvp "
+                  f"{ {k: v for k, v in used.items() if v} }, coefficient gradient "
+                  f"{ {k: v for k, v in coef_used.items() if v} }; eager call ms: pullback "
+                  f"{ms['transpose']:.4f} (plain autograd {ms['transpose_plain']:.4f}), "
+                  f"forward {ms['forward']:.4f} (plain {ms['forward_plain']:.4f})",
+                  flush=True)
+            require(adj <= tol_adj, f"{rec['case']}: adjoint identity {adj:.3e}")
+            require(max(vjp_err, jvp_err, coef_err) <= tol_cmp,
+                    f"{rec['case']}: rules against plain {vjp_err}, {jvp_err}, {coef_err}")
+            # vjp: the primal and one transpose; jvp: the primal and one
+            # tangent; the coefficient gradient: the primal only (its
+            # gradient is a torch reduction).
+            require(used["K1"] == 4 and used["K1 transpose"] == 1 and used["K1 tangent"] == 1,
+                    f"{rec['case']}: launches {used}")
+            require(coef_used["K1"] == 1 and coef_used["K1 transpose"] == 0,
+                    f"{rec['case']}: coefficient-gradient launches {coef_used}")
+            out.append(rec)
+    # Everything else refuses a transform, loudly.
+    r = torch.as_tensor(rng.standard_normal((n, n)), device=dev)
+    theta, _, steps = fused.chebyshev_k_scalars(0.5, 8.0, 3)
+    dia = gt_torch.sparse_operator(gt_torch.poisson_dia(64, device=dev))
+    v64 = torch.as_tensor(rng.standard_normal(64 * 64), device=dev)
+    refusals = {
+        "K2 under torch.func.vjp": lambda: torch.func.vjp(
+            lambda v: fused.chebk_cuda(v, theta, steps), r),
+        "K1 halo form under autograd": lambda: stencil.stencil5_cuda(
+            r.clone().requires_grad_(), r[0], None),
+        "K1rr under autograd": lambda: stencil.residual_restrict_cuda(
+            r.clone().requires_grad_(), r),
+        "K3 under torch.func.jvp": lambda: torch.func.jvp(dia, (v64,), (v64,)),
+    }
+    before = rule_counters()
+    for what, call in refusals.items():
+        try:
+            call()
+        except RuntimeError as exc:
+            msg = str(exc)
+            require("ROADMAP: transposes of K2–K8" in msg and "route cuda" in msg,
+                    f"{what}: {msg}")
+            print(f"phase 19: {what} raises: {msg[:110]}…", flush=True)
+        else:
+            require(False, f"{what}: no error")
+    torch.cuda.synchronize()
+    require(rule_counters() == before, "a refused call launched a kernel")
+    out.append(k1_host_cost(stencil, rng, dev))
+    return out, launches
+
+
+def k1_host_cost(stencil, rng, dev, n: int = 256, rounds: int = 5) -> dict:
+    """Host µs to enqueue one full-grid K1 application (float64, n², a grid
+    whose device time is below the host's), the median of `rounds` rounds
+    of host_us: the wrapper called directly; the routed stencil_5pt_pallas
+    with nothing tracked (it calls the wrapper); the autograd.Function
+    Stencil5Grid on the same untracked input (the route every call took
+    before the routed entry learned to skip it); and the routed entry with
+    x requiring grad (the Function and its graph node)."""
+    import statistics
+
+    import torch
+
+    coefs = (4.0, -1.4, -0.6, -1.2, -0.8)
+    x = torch.as_tensor(rng.standard_normal((n, n)), device=dev)
+    xt = x.clone().requires_grad_()
+    calls = {"wrapper": lambda: stencil.stencil5_cuda(x, None, None, coefs),
+             "routed": lambda: stencil.stencil_5pt_pallas(x, coefs),
+             "function": lambda: stencil.Stencil5Grid.apply(x, *coefs),
+             "routed_tracked": lambda: stencil.stencil_5pt_pallas(xt, coefs)}
+    us = {k: statistics.median(host_us(f, 500) for _ in range(rounds))
+          for k, f in calls.items()}
+    print(f"phase 19: K1 host µs an application at {n}x{n} float64 (median of {rounds} "
+          f"rounds of 500): wrapper {us['wrapper']:.2f}, routed (nothing tracked) "
+          f"{us['routed']:.2f}, through Stencil5Grid untracked {us['function']:.2f}, "
+          f"routed with x requiring grad {us['routed_tracked']:.2f}", flush=True)
+    return {"case": f"K1 host cost {n}x{n} float64", "host_us": us}
+
+
+def phase19_run(label, solve, repeats=PHASE19_REPEATS, warmup=None):
+    """A warm-up (`warmup`, else a solve) and `repeats` timed solves with the
+    launch counts set to 0 just before and read just after; returns the last
+    result, the times, the counts and the median."""
+    import numpy as np
+
+    rule_counters(reset=True)
+    _, t_warm = timed(warmup or solve)
+    times = []
+    for _ in range(repeats):
+        res, t = timed(solve)
+        times.append(t)
+    count = rule_counters()
+    print(f"phase 19: {label}: wall s over {repeats}: {quartiles(times)} (warm-up "
+          f"{t_warm:.4f}); launches {count}", flush=True)
+    return res, times, count, float(np.median(times))
+
+
+def p19_counts(label, got, jax, band):
+    """family_counts for phase 19 (a band below 1 is a share of gmres_tpu's
+    count, at least 2)."""
+    if band < 1:
+        band = max(2, int(band * jax))
+    family_counts(label, got, jax, band, phase="phase 19")
+
+
+def np_helmholtz(x, kh2):
+    return np_stencil_general(x, (4.0 - kh2, -1.0, -1.0, -1.0, -1.0))
+
+
+def helmholtz_rows(gt_torch, dev, workdir):
+    """MINRES with the SPD shifted-Laplacian cycle at HELM_N², kh2 factor 10,
+    float64 and with the float32 cycle (the program's --precision mixed),
+    certified in the M-norm √(r, M r) (r = b − A x in numpy); then the
+    helmholtz program at its 256² default."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.solvers import minres as minres_module
+
+    n = HELM_N
+    kh2 = HELM_FACTOR * gt_torch.helmholtz_lambda_min(n, 0.0)
+    op = gt_torch.helmholtz_operator(n, kh2)
+    b_np = np_helmholtz(np.ones((n, n)), kh2)
+    b = gt_torch.as_tensor(b_np, dev)
+    out = []
+    for key, inner in (("helmholtz1024", None), ("helmholtz1024_mixed", torch.float32)):
+        m_inv = gt_torch.helmholtz_shifted_laplacian_preconditioner(
+            n, kh2, internal_dtype=inner)
+        label = f"minres spd-mg helmholtz {n}x{n} {'mixed' if inner else 'f64'}"
+        res, times, count, calls, per, med = family_run(
+            label, lambda A, M: gt_torch.minres(A, b, tol=HELM_TOL, max_iterations=50_000,
+                                                M=M),
+            {"A": (op, b), "M": (m_inv, b)}, repeats=PHASE19_REPEATS, phase="phase 19")
+        r_np = b_np - np_helmholtz(res.x.detach().cpu().numpy(), kh2)
+        mr = m_inv(torch.as_tensor(r_np, device=dev)).cpu().numpy()
+        err = float(np.sqrt(np.vdot(r_np, mr)))
+        short_print(label, res, err, "√(r, M r)", med, count=count, phase="phase 19")
+        require(res.status == 0 and err < HELM_TOL, f"{label}: {res.status}, {err:.3e}")
+        p19_counts(f"{label} iterations", res.iterations, JAX_PHASE19[key][0][1],
+                   HELM_MINRES_BAND)
+        prof = profile_solve(lambda: gt_torch.minres(op, b, tol=HELM_TOL, M=m_inv),
+                             label, med) if inner is None else None
+        out.append(family_record(label, res, times, count, calls, per, err, profile=prof,
+                                 levels=m_inv.levels, level_shifts=m_inv.level_shifts))
+    rule_counters(reset=True)
+    with solutions_of(minres_module, "minres") as xs:
+        rows = program_rows(cli, ["helmholtz", "--nsize", str(HELM_PROGRAM_N)], workdir,
+                            phase="phase 19")
+    prog_count = rule_counters()
+    (x_np,) = row_solutions(xs, rows, "helmholtz")
+    kh2 = rows[0]["kh2"]
+    n = HELM_PROGRAM_N
+    err = float(np.linalg.norm(np_helmholtz(np.ones((n, n)), kh2) - np_helmholtz(x_np, kh2)))
+    print(f"phase 19: {rows[0]['name']}: numpy ‖b − A x‖ {err:.4e}; launches {prog_count}",
+          flush=True)
+    p19_counts(f"{rows[0]['name']} program iterations", rows[0]["iterations"],
+               JAX_PHASE19["helmholtz256"][0][1], HELM_MINRES_BAND)
+    require(prog_count["K1"] > 0 and prog_count["K2"] > 0 and prog_count["K1rr"] > 0,
+            f"helmholtz program: {prog_count}")
+    out.append({"label": "helmholtz program 256", "rows": rows, "launches": prog_count})
+    return out
+
+
+def np_split(u, kh2, alpha=0.0):
+    """The split-complex Helmholtz operator on a (2, N, N) stack, numpy."""
+    import numpy as np
+
+    ur, ui = u[0], u[1]
+    return np.stack([np_stencil(ur) - kh2 * (ur - alpha * ui),
+                     np_stencil(ui) - kh2 * (alpha * ur + ui)])
+
+
+def csl_rows(gt_torch, dev):
+    """The helmholtz program's CSL route through the public functions, as
+    the program configures it: GMRES(120) (MGSR, certified on the true
+    residual) and GCRO-DR(k 20, 120) on the split (2, N, N) system at
+    CSL_SPLIT_N² with float32 cycles and float64 certification; then
+    complex128 MGSR GMRES(60) with the complex cycle at CSL_COMPLEX_N²
+    (plain torch: no kernel). Residuals ‖b − A x‖/‖b‖ in numpy."""
+    import numpy as np
+    import torch
+
+    out = []
+    n = CSL_SPLIT_N
+    kh2 = HELM_FACTOR * gt_torch.helmholtz_lambda_min(n, 0.0)
+    op = gt_torch.helmholtz_split_operator(n, kh2)
+    m_inv = gt_torch.csl_multigrid_preconditioner(n, kh2, layout="split")
+    x_star = np.stack([np.ones((n, n)), np.zeros((n, n))])
+    b_np = np_split(x_star, kh2)
+    b = gt_torch.as_tensor(b_np, dev)
+    m, k = CSL_SPLIT_RESTART, CSL_DEFLATE
+    max_restarts = 50_000 // m
+    for key, name in (("csl_split512", "gmres"), ("csl_split512_gcrodr", "gcrodr")):
+        label = f"{name} csl split {n}x{n} (f32 cycles, f64 certified)"
+        if name == "gmres":
+            def solve(A, M, max_restarts=max_restarts):
+                return gt_torch.gmres(A, b, x0=torch.zeros_like(b), restart=m,
+                                      tol=HELM_TOL, M=M, variant="mgsr", certify="true",
+                                      compute_v_err=False, inner_dtype=torch.float32,
+                                      max_restarts=max_restarts)
+        else:
+            def solve(A, M, max_restarts=max_restarts):
+                return gt_torch.gcrodr(A, b, x0=torch.zeros_like(b),
+                                       recycle=torch.zeros((k,) + tuple(b.shape),
+                                                           dtype=b.dtype, device=dev),
+                                       k=k, restart=m, tol=HELM_TOL, M=M,
+                                       inner_dtype=torch.float32,
+                                       max_restarts=max_restarts)
+        # A whole solve takes seconds (~1000 eager kernels an iteration, 102
+        # of them K1 in an M): the warm-up is one restart cycle.
+        res, times, count, calls, per, med = family_run(
+            label, solve, {"A": (op, b), "M": (m_inv, b.float())},
+            repeats=CSL_SPLIT_REPEATS, phase="phase 19",
+            warm=lambda A, M, solve=solve: solve(A, M, max_restarts=1))
+        x_np = res.x.detach().cpu().numpy()
+        r_np = b_np - np_split(x_np, kh2)
+        if name == "gmres":  # certified on the true residual
+            err, norm = float(np.linalg.norm(r_np) / np.linalg.norm(b_np)), "‖b − A x‖/‖b‖"
+        else:  # GCRO-DR applies M on the left and certifies ‖M r‖/‖M b‖
+            mr, mb = (m_inv(torch.as_tensor(v, device=dev)) for v in (r_np, b_np))
+            err = float(torch.linalg.norm(mr) / torch.linalg.norm(mb))
+            norm = "‖M(b − A x)‖/‖M b‖"
+        total_inner = (res.restarts - 1) * m + res.iterations
+        short_print(label, res, err, norm, med, count=count, phase="phase 19")
+        jax_row = JAX_PHASE19[key][0]
+        print(f"phase 19: {label}: {res.restarts} cycles, total inner (gmres_tpu's "
+              f"count) {total_inner} against {jax_row[3]}; K1 per M {per['M']['K1']}, "
+              f"per A {per['A']['K1']}", flush=True)
+        require(res.status == 0 and err < HELM_TOL, f"{label}: {res.status}, {err:.3e}")
+        p19_counts(f"{label} total inner", total_inner, jax_row[3], CSL_SPLIT_BAND)
+        out.append(family_record(label, res, times, count, calls, per, err,
+                                 total_inner=total_inner))
+    n = CSL_COMPLEX_N
+    kh2 = HELM_FACTOR * gt_torch.helmholtz_lambda_min(n, 0.0)
+    op = gt_torch.helmholtz_operator(n, kh2)
+    m_inv = gt_torch.csl_multigrid_preconditioner(n, kh2)
+    b_np = np_helmholtz(np.ones((n, n), dtype=np.complex128), kh2)
+    b = torch.as_tensor(b_np, device=dev)
+    m = CSL_COMPLEX_RESTART
+    label = f"gmres csl complex128 {n}x{n}"
+
+    def solve(A, M):
+        return gt_torch.gmres(A, b, x0=torch.zeros_like(b), restart=m, tol=HELM_TOL, M=M,
+                              variant="mgsr", certify="true", compute_v_err=False,
+                              max_restarts=50_000 // m)
+
+    res, times, count, calls, per, med = family_run(
+        label, solve, {"A": (op, b), "M": (m_inv, b)}, repeats=PHASE19_REPEATS,
+        phase="phase 19", needs_k1=False)
+    x_np = res.x.detach().cpu().numpy()
+    err = float(np.linalg.norm(b_np - np_helmholtz(x_np, kh2)) / np.linalg.norm(b_np))
+    total_inner = (res.restarts - 1) * m + res.iterations
+    cycle_kernels = device_events(lambda: m_inv(b))
+    short_print(label, res, err, "‖b − A x‖/‖b‖", med, count=count, phase="phase 19")
+    print(f"phase 19: {label}: total inner {total_inner} against gmres_tpu's "
+          f"{JAX_PHASE19['csl_complex256'][0][3]}; one complex CSL cycle runs "
+          f"{cycle_kernels} kernels on the device (plain torch)", flush=True)
+    require(res.status == 0 and err < HELM_TOL, f"{label}: {res.status}, {err:.3e}")
+    require(all(v == 0 for v in count.values()), f"{label}: launched {count}")
+    p19_counts(f"{label} total inner", total_inner, JAX_PHASE19["csl_complex256"][0][3], 2)
+    # The CSL family's profiled solve: this row's (a split solve takes 5–10 s).
+    prof = profile_solve(lambda: solve(op, m_inv), label, med)
+    out.append(family_record(label, res, times, count, calls, per, err,
+                             total_inner=total_inner, cycle_kernels=cycle_kernels,
+                             profile=prof))
+    return out
+
+
+def sequence_rows(gt_torch, dev, workdir):
+    """The sequence program at its defaults (128², GCRO-DR fresh and warm
+    over kh2 factors 10, 10.5, 11), b from numpy seed 0; each row's x
+    checked in numpy against its operator."""
+    import numpy as np
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.solvers import gcrodr as gcrodr_module
+
+    rule_counters(reset=True)
+    with solutions_of(gcrodr_module, "gcrodr") as xs:
+        rows = program_rows(cli, ["sequence"], workdir, phase="phase 19")
+    count = rule_counters()
+    n = SEQUENCE_N
+    b_np = np.random.default_rng(0).standard_normal((n, n))
+    lam_min = gt_torch.helmholtz_lambda_min(n)
+    refs = JAX_PHASE19["sequence"]
+    require(len(rows) == len(refs), f"sequence: {len(rows)} rows, gmres_tpu {len(refs)}")
+    for r, x_np, ref in zip(rows, row_solutions(xs, rows, "sequence"), refs):
+        kh2 = r["kh2_factor"] * lam_min
+        err = float(np.linalg.norm(b_np - np_helmholtz(x_np, kh2)) / np.linalg.norm(b_np))
+        total = (r["restarts"], r["iterations"])
+        print(f"phase 19: {r['name']} factor {r['kh2_factor']}: (cycles, last) {total} "
+              f"against gmres_tpu's ({ref[2]}, {ref[1]}); numpy ‖b − A x‖/‖b‖ {err:.4e}; "
+              f"host syncs {r['host_syncs']}", flush=True)
+        require(r["name"] == ref[0] and r["kh2_factor"] == ref[3] and err < r["tol"],
+                f"{r['name']}: {err:.3e}")
+        p19_counts(f"{r['name']} {r['kh2_factor']} cycles", r["restarts"], ref[2],
+                   SEQUENCE_BAND)
+    require(count["K1"] > 0, f"sequence: {count}")
+    return [{"label": "sequence program 128", "rows": rows, "launches": count}]
+
+
+def np_bratu(u, lam):
+    import numpy as np
+
+    n = u.shape[0]
+    h = 1.0 / (n + 1)
+    return np_stencil(u) - lam * h * h * np.exp(u)
+
+
+def bratu_rows(gt_torch, dev, workdir):
+    """The bratu program at its 256² default, then newton_krylov with the
+    Poisson V-cycle at BRATU_N², float64 and with float32 inner bases: Newton
+    steps, inner iterations, J·v products, and K1 launches per J·v (two: the
+    primal and the tangent, torch.func.jvp re-evaluating F). ‖F(x)‖ in
+    numpy."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+
+    out = []
+    rule_counters(reset=True)
+    rows = program_rows(cli, ["bratu", "--nsize", str(BRATU_PROGRAM_N)], workdir,
+                        phase="phase 19")
+    count = rule_counters()
+    ref = JAX_PHASE19["bratu256"][0]
+    p19_counts("bratu program newton steps", rows[0]["newton_steps"], ref[3], 2)
+    p19_counts("bratu program inner iterations", rows[0]["inner_iterations"], ref[4], 2)
+    require(rows[0]["residual"] < rows[0]["tol"], f"bratu program: {rows}")
+    out.append({"label": "bratu program 256", "rows": rows, "launches": count})
+    n = BRATU_N
+    F = gt_torch.bratu_residual(n, 5.0)
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    x0 = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    v = torch.ones_like(x0)
+    before = rule_counters()
+    torch.func.jvp(F, (x0,), (v,))
+    torch.cuda.synchronize()
+    per_jv = {k: vv - before[k] for k, vv in rule_counters().items()}
+    require(per_jv["K1"] == 2 and per_jv["K1 tangent"] == 1, f"K1 per J·v {per_jv}")
+    for key, inner in (("bratu1024", None), ("bratu1024_mixed", torch.float32)):
+        label = f"newton_krylov bratu mg {n}x{n} {'mixed' if inner else 'f64'}"
+        calls = {"F": 0, "M": 0}
+        Fc, Mc = counted(F, calls, "F"), counted(m_inv, calls, "M")
+
+        def solve():
+            return gt_torch.newton_krylov(Fc, x0, tol=BRATU_TOL, M=Mc, inner_dtype=inner,
+                                          max_newton=30)
+
+        res, times, count, med = phase19_run(label, solve)
+        solves = PHASE19_REPEATS + 1
+        jv = res.jv_products * solves
+        err = float(np.linalg.norm(np_bratu(res.x.detach().cpu().numpy(), 5.0)))
+        print(f"phase 19: {label}: status {res.status}, {res.iterations} Newton steps, "
+              f"{res.inner_iterations} inner iterations, {res.jv_products} J·v, "
+              f"{res.host_syncs} host syncs, ‖F(x)‖ {float(res.residual):.4e} (numpy "
+              f"{err:.4e}); median {1e3 * med:.3f} ms a solve; K1 launches per J·v "
+              f"{per_jv['K1']} (primal + tangent); F calls {calls['F'] // solves} a solve "
+              f"(each J·v calls F once), M {calls['M'] // solves}", flush=True)
+        require(res.status == 0 and err < BRATU_TOL, f"{label}: {res.status}, {err:.3e}")
+        # Every F call is one K1 launch; every J·v adds its tangent launch.
+        require(count["K1"] == calls["F"] + jv and count["K1 tangent"] == jv,
+                f"{label}: K1 {count['K1']}, F {calls['F']}, J·v {jv}")
+        ref = JAX_PHASE19[key][0]
+        p19_counts(f"{label} newton steps", res.iterations, ref[3], 2)
+        p19_counts(f"{label} inner iterations", res.inner_iterations, ref[4],
+                   2 if inner is None else NEWTON_F32_BAND)
+        prof = profile_solve(solve, label, med) if inner is None else None
+        out.append(family_record(label, res, times, count, calls, {"J·v": per_jv}, err,
+                                 jv_products=res.jv_products,
+                                 inner_iterations=res.inner_iterations, profile=prof))
+    return out
+
+
+def tapped_transposes():
+    """Within the block, every transpose the solvers derive
+    (solvers/qmr.py:derived_transpose) counts its calls: [setups, pullbacks]."""
+    from gmres_tpu_torch.solvers import lsmr, lsqr, qmr
+
+    calls = [0, 0]
+    inner = qmr.derived_transpose
+
+    def tapped(op, like):
+        calls[0] += 1
+        apply_t = inner(op, like)
+
+        def counted_t(u):
+            calls[1] += 1
+            return apply_t(u)
+        return counted_t
+
+    @contextlib.contextmanager
+    def block():
+        mods = (qmr, lsqr, lsmr)
+        for m in mods:
+            m.derived_transpose = tapped
+        try:
+            yield calls
+        finally:
+            for m in mods:
+                m.derived_transpose = inner
+    return block()
+
+
+def transpose_rows(gt_torch, dev, workdir):
+    """QMR on convdiff QMR_N² with the multigrid cycle as M and its
+    transpose=True cycle as MT (Aᵀ derived through K1), the convdiff
+    program's qmr rows at QMR_PROGRAM_N² and at its default grid capped, and
+    LSQR and LSMR on the convdiff operator at LSQ_N² with the derived
+    adjoint. K1 launches: one per
+    application of A (the vjp's primal included) and one per pullback."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs
+
+    out = []
+    gamma = (0.4, 0.2)
+    coefs = convection_diffusion_coefs(*gamma)
+    n = QMR_N
+    op = gt_torch.convection_diffusion_operator(n, *gamma)
+    m_inv = gt_torch.convection_diffusion_multigrid_preconditioner(n, *gamma)
+    mt = gt_torch.convection_diffusion_multigrid_preconditioner(n, *gamma, transpose=True)
+    b_np = np_stencil_general(np.ones((n, n)), coefs)
+    b = gt_torch.as_tensor(b_np, dev)
+    per_m = per_application(m_inv, b)
+    per_mt = per_application(mt, b)
+    label = f"qmr mg+MT convdiff {n}x{n}"
+    calls = {"A": 0, "M": 0, "MT": 0}
+    Ac, Mc, MTc = (counted(f, calls, key) for f, key in ((op, "A"), (m_inv, "M"),
+                                                         (mt, "MT")))
+    with tapped_transposes() as tcalls:
+        res, times, count, med = phase19_run(
+            label, lambda: gt_torch.qmr(Ac, b, tol=1e-9, M=Mc, MT=MTc))
+    solves = PHASE19_REPEATS + 1
+    r_np = b_np - np_stencil_general(res.x.detach().cpu().numpy(), coefs)
+    err = float(torch.linalg.norm(m_inv(torch.as_tensor(r_np, device=dev))))
+    it = res.iterations
+    print(f"phase 19: {label}: status {res.status}, {it} iterations, {res.host_syncs} "
+          f"host syncs, certified ‖M(b − A x)‖ {float(res.residual):.4e}, numpy r through "
+          f"M {err:.4e} (plain ‖b − A x‖ {np.linalg.norm(r_np):.4e}); median "
+          f"{1e3 * med:.3f} ms; a solve: A {calls['A'] // solves}, Aᵀ pullbacks "
+          f"{tcalls[1] // solves} (derived {tcalls[0] // solves}), M {calls['M'] // solves}, "
+          f"MT {calls['MT'] // solves}; K1 launches a solve {count['K1'] // solves} = "
+          f"{count['K1'] / solves / max(it, 1):.3f} an iteration", flush=True)
+    require(res.status == 0 and err < 1e-9, f"{label}: {res.status}, {err:.3e}")
+    require(count["K1"] == calls["A"] + tcalls[1]
+            and count["K1 transpose"] == tcalls[1],
+            f"{label}: K1 {count}, A {calls['A']}, pullbacks {tcalls[1]}")
+    require(all(count[k] == calls["M"] * per_m[k] + calls["MT"] * per_mt[k]
+                for k in ("K1rr", "K1cr", "K2")), f"{label}: cycle launches {count}")
+    p19_counts(f"{label} iterations", it, JAX_PHASE19["qmr_mg1024"][0], 2)
+    prof = profile_solve(lambda: gt_torch.qmr(op, b, tol=1e-9, M=m_inv, MT=mt), label, med)
+    out.append(family_record(label, res, times, count, dict(calls, AT=tcalls[1]),
+                             {"M": per_m, "MT": per_mt}, err, profile=prof))
+    rule_counters(reset=True)
+    rows = program_rows(cli, ["convdiff", "--nsize", str(QMR_PROGRAM_N), "--solver", "qmr"],
+                        workdir, phase="phase 19")
+    count = rule_counters()
+    ref = JAX_PHASE19["convdiff_qmr32"][0]
+    p19_counts(f"{rows[0]['name']} program iterations", rows[0]["iterations"], ref[1], 2)
+    per_it = count["K1"] / 2 / max(rows[0]["iterations"], 1)
+    print(f"phase 19: {rows[0]['name']}: K1 launches {count['K1']} over the warm-up and "
+          f"timed solve ({count['K1 transpose']} transposes) = {per_it:.3f} an iteration",
+          flush=True)
+    out.append({"label": "convdiff qmr program 32", "rows": rows, "launches": count})
+    rule_counters(reset=True)
+    rows = program_rows(cli, ["convdiff", "--solver", "qmr", "--max-iterations",
+                              str(QMR_PROGRAM_CAP)], workdir, phase="phase 19", status=1)
+    count = rule_counters()
+    ref = JAX_PHASE19["convdiff_qmr256_cap"][0]
+    row = rows[0]
+    rel = abs(row["residual"] - ref[3]) / ref[3]
+    print(f"phase 19: {row['name']} (default grid, --max-iterations {QMR_PROGRAM_CAP}): "
+          f"{row['iterations']} iterations, residual {row['residual']:.6e} against gmres_tpu's "
+          f"{ref[1]} at {ref[3]:.6e} (rel {rel:.2e}, tol 1e-6); wall {row['wall_s']:.4f} s; "
+          f"K1 launches {count['K1']} over the warm-up and timed solve "
+          f"({count['K1 transpose']} transposes) = "
+          f"{count['K1'] / 2 / max(row['iterations'], 1):.3f} an iteration", flush=True)
+    require(row["name"] == ref[0] and row["iterations"] == ref[1] and rel < 1e-6,
+            f"{row['name']}: {row['iterations']} iterations, residual {row['residual']}")
+    require(count["K1 transpose"] > 0, f"{row['name']}: {count}")
+    out.append({"label": f"convdiff qmr program {QMR_PROGRAM_DEFAULT_N} capped", "rows": rows,
+                "launches": count})
+    n = LSQ_N
+    op = gt_torch.convection_diffusion_operator(n, *gamma)
+    b_np = np_stencil_general(np.ones((n, n)), coefs)
+    b = gt_torch.as_tensor(b_np, dev)
+    for name in ("lsqr", "lsmr"):
+        label = f"{name} convdiff {n}x{n}"
+        calls = {"A": 0}
+        Ac = counted(op, calls, "A")
+        fn = getattr(gt_torch, name)
+        with tapped_transposes() as tcalls:
+            res, times, count, med = phase19_run(
+                label, lambda: fn(Ac, b, tol=1e-9), repeats=LSQ_REPEATS,
+                warmup=lambda: fn(Ac, b, tol=1e-9, max_iterations=LSQ_WARMUP))
+        x_np = res.x.detach().cpu().numpy()
+        r_np = b_np - np_stencil_general(x_np, coefs)
+        err = float(np.linalg.norm(r_np))
+        grad = float(np.linalg.norm(np_stencil_general(r_np, np_transpose_coefs(coefs))))
+        short_print(label, res, err, "‖b − A x‖", med, phase="phase 19")
+        steps = LSQ_WARMUP + LSQ_REPEATS * res.iterations
+        print(f"phase 19: {label}: numpy ‖Aᵀ(b − A x)‖ {grad:.4e}; over a {LSQ_WARMUP}-step "
+              f"warm-up and {LSQ_REPEATS} solve: A {calls['A']}, pullbacks {tcalls[1]}, "
+              f"K1 {count['K1']} ({count['K1 transpose']} transposes) = "
+              f"{count['K1'] / steps:.3f} a step", flush=True)
+        require(res.status == 0 and (err < 1e-9 or grad < 1e-9), f"{label}: {err}, {grad}")
+        require(count["K1"] == calls["A"] + tcalls[1], f"{label}: {count}, {calls}, {tcalls}")
+        p19_counts(f"{label} iterations", res.iterations, JAX_PHASE19[f"{name}{LSQ_N}"][0], 2)
+        prof = profile_solve(
+            lambda: fn(op, b, tol=1e-9, max_iterations=LSQ_WARMUP),
+            f"{label} (its first {LSQ_WARMUP} steps)",
+            med * LSQ_WARMUP / res.iterations) if name == "lsqr" else None
+        out.append(family_record(label, res, times, count, dict(calls, AT=tcalls[1]), {},
+                                 err, gradient_norm=grad, profile=prof))
+    return out
+
+
+def implicit_row(gt_torch, dev):
+    """implicit_solve's γ-gradient on the card at IMPLICIT_N²: the loss
+    Σ(x(γ) − target)² with A(γ) the convdiff operator (γ a tensor, so K1's
+    coefficient rule carries the θ pullback), GMRES(30) to 1e-12 with the
+    cycle at γ₀ (forward) and its transpose (adjoint) as M; the gradient
+    against central differences (ε = 1e-6) of the same loss on the card."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_apply
+
+    n = IMPLICIT_N
+    rng = np.random.default_rng(2)
+    b = torch.as_tensor(rng.standard_normal((n, n)), device=dev)
+    target = torch.as_tensor(rng.standard_normal((n, n)), device=dev)
+    g0 = 0.35
+    m_f = gt_torch.convection_diffusion_multigrid_preconditioner(n, g0, 0.2)
+    m_t = gt_torch.convection_diffusion_multigrid_preconditioner(n, g0, 0.2, transpose=True)
+    fwd = functools.partial(gt_torch.gmres, restart=30, tol=1e-12, max_restarts=200,
+                            compute_v_err=False, M=m_f)
+    adj = functools.partial(gt_torch.gmres, restart=30, tol=1e-12, max_restarts=200,
+                            compute_v_err=False, M=m_t)
+
+    def a_fn(gm):
+        return lambda v: convection_diffusion_apply(v, gm, 0.2)
+
+    def loss(gm):
+        x = gt_torch.implicit_solve(a_fn, gm, b, solver=fwd, adjoint_solver=adj)
+        return torch.sum((x - target) ** 2)
+
+    def grad():
+        gm = torch.tensor(g0, dtype=torch.float64, device=dev, requires_grad=True)
+        (g,) = torch.autograd.grad(loss(gm), gm)
+        return float(g)
+
+    rule_counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = grad()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count = rule_counters()
+    eps = 1e-6
+    with torch.no_grad():
+        fd = (float(loss(torch.tensor(g0 + eps, dtype=torch.float64, device=dev)))
+              - float(loss(torch.tensor(g0 - eps, dtype=torch.float64, device=dev)))) / (2 * eps)
+    rel = abs(g - fd) / abs(fd)
+    print(f"phase 19: implicit_solve γ-gradient {n}x{n}: {g:.10e}, central differences "
+          f"{fd:.10e}, rel {rel:.3e} (tol 1e-5); one forward + adjoint {wall:.4f} s; "
+          f"launches {count}", flush=True)
+    require(rel < 1e-5, f"implicit_solve gradient {g} against {fd}")
+    require(count["K1 transpose"] > 0 and count["K2"] > 0, f"implicit: {count}")
+    return [{"label": f"implicit_solve gamma gradient {n}x{n}", "gradient": g, "fd": fd,
+             "rel": rel, "wall_s": wall, "launches": count}]
+
+
+def phase_transpose(gt_torch, rng, dev, workdir):
+    """Phase 19: K1's rules on the card, then Helmholtz, the CSL routes, the
+    sequence program, Newton-Krylov on Bratu, QMR, LSQR and LSMR, and
+    implicit_solve. Returns the launches over the phase and the rows."""
+    t_phase = time.perf_counter()
+    rules, launches = k1_rules(gt_torch, rng, dev)
+    rows = []
+    rows += helmholtz_rows(gt_torch, dev, workdir)
+    rows += csl_rows(gt_torch, dev)
+    rows += sequence_rows(gt_torch, dev, workdir)
+    rows += bratu_rows(gt_torch, dev, workdir)
+    rows += transpose_rows(gt_torch, dev, workdir)
+    rows += implicit_row(gt_torch, dev)
+    for r in rows:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 19: {seconds:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches, rules + rows
+
+
 def main() -> int:
     import torch
 
@@ -3502,6 +4310,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase18"]:
         with tempfile.TemporaryDirectory() as workdir:
             phase_short(gt_torch, dev, workdir)
+        return 0
+    if sys.argv[1:2] == ["--phase19"]:
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_transpose(gt_torch, np.random.default_rng(SEED), dev, workdir)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -3589,7 +4401,9 @@ def main() -> int:
         family, _ = phase_family(gt_torch, dev, workdir)
         # Phase 18: the short-recurrence family and the real models.
         short, _ = phase_short(gt_torch, dev, workdir)
-    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_run:.1f} s", flush=True)
+        # Phase 19: Helmholtz and the solvers that need Aᵀ or J·v.
+        p19, _ = phase_transpose(gt_torch, rng, dev, workdir)
+    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(rdma_records)
     records.update(cd_records)
@@ -3636,6 +4450,7 @@ def main() -> int:
     convdiff_path = "convdiff rows (phase 16)"
     family_path = "GMRES family (phase 17)"
     short_path = "short-recurrence family and real models (phase 18)"
+    p19_path = "Helmholtz, Aᵀ and J·v solvers (phase 19)"
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -3647,14 +4462,19 @@ def main() -> int:
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
-               + short["K1"],
+               + short["K1"] + p19["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
                                  roofline_path: roof["K1"],
                                  programs_path: programs["K1"],
                                  family_path: family["K1"],
-                                 short_path: short["K1"]},
+                                 short_path: short["K1"],
+                                 p19_path: p19["K1"]},
+               phase19_k1_by_role={
+                   "forward": p19["K1"] - p19["K1 transpose"] - p19["K1 tangent"],
+                   "transpose (backward rule, mirrored coefficients)": p19["K1 transpose"],
+                   "tangent (jvp rule)": p19["K1 tangent"]},
                path_shape=f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, one point a thread",
                **timing("K1", f"K1 {STRONG_N}x{STRONG_N} f64 null halo rows, "
                               "one point a thread"),
@@ -3662,39 +4482,44 @@ def main() -> int:
         report("K1rr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
-               + short["K1rr"],
+               + short["K1rr"] + p19["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
                                  programs_path: programs["K1rr"],
                                  family_path: family["K1rr"],
-                                 short_path: short["K1rr"]},
+                                 short_path: short["K1rr"],
+                                 p19_path: p19["K1rr"]},
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
-               + short["K1cr"],
+               + short["K1cr"] + p19["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
                                  programs_path: programs["K1cr"],
                                  family_path: family["K1cr"],
-                                 short_path: short["K1cr"]},
+                                 short_path: short["K1cr"],
+                                 p19_path: p19["K1cr"]},
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
-               mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"],
+               mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
                                     programs_path: programs["K2"],
                                     family_path: family["K2"],
-                                    short_path: short["K2"]},
+                                    short_path: short["K2"],
+                                    p19_path: p19["K2"]},
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
                short_launches_by_path={p: short[f"K2 {p}"]
                                        for p in ("cluster", "tiled", "sweep")},
+               phase19_launches_by_path={p: p19[f"K2 {p}"]
+                                         for p in ("cluster", "tiled", "sweep")},
                path=[r["path"] for r in records["K2"]
                      if r["case"] == "K2 order 3 2048x2048 f32"][0],
                sweep_path_ms=[r["sweep_ms"] for r in records["K2"]

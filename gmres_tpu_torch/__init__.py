@@ -41,7 +41,19 @@ The port covers, slice by slice (ROADMAP.md, queue 1):
   (``precond/deflation.py``) and the ``varcoef`` program. The 3-D and
   variable-coefficient operators, PCR and deflation are plain PyTorch, as
   they are plain jnp in ``gmres_tpu``: no kernel of either package serves
-  them.
+  them;
+* Helmholtz (``models/helmholtz.py``) with its SPD shifted-Laplacian and
+  complex-shifted (CSL) cycles (``precond/multigrid.py``), and the solvers
+  that need Aᵀ or J·v: QMR, LSQR, LSMR (``solvers/qmr.py``, ``lsqr.py``,
+  ``lsmr.py``; the transpose is the pullback of ``torch.func.vjp``),
+  ``implicit_solve`` (``solvers/implicit.py``, a
+  ``torch.autograd.Function``) and Newton-Krylov on the Bratu residual
+  (``solvers/newton_krylov.py``, J·v by ``torch.func.jvp``;
+  ``models/bratu.py``), with the ``helmholtz``, ``sequence`` and ``bratu``
+  programs. On the card these differentiate through K1's full-grid route
+  (``ops/stencil.py:Stencil5Grid``: backward one K1 launch with mirrored
+  coefficients, jvp one K1 launch, tensor coefficients' gradients in
+  torch); every other kernel raises under autograd or ``torch.func``.
 
 Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
 ``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
@@ -61,10 +73,26 @@ from gmres_tpu_torch.types import (
     BlockSolveResult,
     GmresResult,
     LinearOperator,
+    NewtonResult,
     Preconditioner,
     SolveResult,
     SolverStatus,
     as_tensor,
+)
+from gmres_tpu_torch.solvers.qmr import qmr
+from gmres_tpu_torch.solvers.lsmr import lsmr
+from gmres_tpu_torch.solvers.lsqr import lsqr
+from gmres_tpu_torch.solvers.newton_krylov import newton_krylov
+from gmres_tpu_torch.solvers.implicit import implicit_solve
+from gmres_tpu_torch.models.bratu import bratu_residual
+from gmres_tpu_torch.models.helmholtz import (
+    complex_to_split,
+    helmholtz_apply,
+    helmholtz_lambda_min,
+    helmholtz_matrix,
+    helmholtz_operator,
+    helmholtz_split_operator,
+    split_to_complex,
 )
 from gmres_tpu_torch.solvers.bicgstab import bicgstab
 from gmres_tpu_torch.solvers.block_cg import BlockCGResult, block_cg
@@ -92,6 +120,8 @@ from gmres_tpu_torch.precond.multigrid import (
     MultigridPlan,
     anisotropic_multigrid_preconditioner,
     convection_diffusion_multigrid_preconditioner,
+    csl_multigrid_preconditioner,
+    helmholtz_shifted_laplacian_preconditioner,
     poisson3d_multigrid_preconditioner,
     poisson_multigrid_preconditioner,
     prolong_repeat,
@@ -181,6 +211,7 @@ from gmres_tpu_torch.parallel.halo import (
 __all__ = [
     "BlockSolveResult",
     "GmresResult",
+    "NewtonResult",
     "LinearOperator",
     "Preconditioner",
     "SolveResult",
@@ -192,10 +223,16 @@ __all__ = [
     "BlockCGResult",
     "cg",
     "chebyshev_solve",
+    "lsmr",
+    "lsqr",
+    "newton_krylov",
+    "bratu_residual",
+    "implicit_solve",
     "minres",
     "sstep_cg",
     "cgs",
     "tfqmr",
+    "qmr",
     "gmres",
     "sstep_gmres",
     "fgmres",
@@ -211,6 +248,8 @@ __all__ = [
     "MultigridPlan",
     "anisotropic_multigrid_preconditioner",
     "convection_diffusion_multigrid_preconditioner",
+    "helmholtz_shifted_laplacian_preconditioner",
+    "csl_multigrid_preconditioner",
     "poisson3d_multigrid_preconditioner",
     "poisson_multigrid_preconditioner",
     "gmres_polynomial_preconditioner",
@@ -230,6 +269,13 @@ __all__ = [
     "varcoef_operator",
     "convection_diffusion_apply",
     "convection_diffusion_operator",
+    "helmholtz_apply",
+    "helmholtz_split_operator",
+    "complex_to_split",
+    "split_to_complex",
+    "helmholtz_lambda_min",
+    "helmholtz_matrix",
+    "helmholtz_operator",
     "prolong_repeat",
     "restrict_sum",
     "hilbert_matrix",

@@ -11,8 +11,15 @@ flags:
   cg              ← tests/test_cg.f90: PCG grid sweep 300²..1000², 1e-9
   bicgstab        ← tests/test_bicgstab.f90: the same sweep
   convdiff        BASELINE config 3: BiCGSTAB (or GMRES, BiCGStab(ℓ), CGS,
-                  TFQMR, IDR(s)) on the nonsymmetric convection-diffusion stencil,
-                  with its multigrid cycle or the GMRES polynomial
+                  TFQMR, IDR(s), QMR) on the nonsymmetric convection-diffusion
+                  stencil, with its multigrid cycle or the GMRES polynomial
+  bratu           Jacobian-free Newton-Krylov on the 2-D Bratu problem, with
+                  the frozen Poisson multigrid cycle as M
+  helmholtz       the indefinite Helmholtz stencil: MINRES (or GMRES) with the
+                  SPD shifted-Laplacian cycle, or GMRES / GCRO-DR with the
+                  complex-shifted (CSL) cycle, complex or split real
+  sequence        GCRO-DR fresh and warm-started over a Helmholtz frequency
+                  sweep (Krylov recycling)
   strong-scaling  ← tests/strong_scaling.f90: fixed grid, rank count 1..D
   weak-scaling    ← the true weak scaling the reference commented out
                     (weak_scaling.f90:60): the grid grows with the ranks
@@ -85,12 +92,20 @@ PEAK_SLACK = 1.05
 REF_EIG = (0.2, 8.2)
 # The restart-sweep solvers of the JAX program.
 RESTART_SOLVERS = ("gmres", "lgmres", "gmres-dr")
-# The convdiff solvers of the JAX program; qmr exits with a message naming
-# the ROADMAP item that ports it (see cmd_convdiff).
+# The convdiff solvers of the JAX program.
 CONVDIFF_SOLVERS = ("bicgstab", "gmres", "bicgstabl", "cgs", "tfqmr", "idrs", "qmr")
-CONVDIFF_UNPORTED = {
-    "qmr": "ROADMAP queue 1, item 9.4: it needs the operator's transpose",
-}
+# JAX's exit for qmr with the multigrid cycle (benchmarks/cli.py:328-334): it
+# derives (M A)ᵀ, and the cycle has no transpose rule (in JAX its fori_loop,
+# on the card its K2 and K1 V-cycle forms).
+QMR_MG_EXIT = ("qmr derives (M A)^T by jax.linear_transpose; the MG cycle's "
+               "fori_loop has no transpose rule — use --precond none with qmr "
+               "(poly is transposable but measured to stall QMR's two-sided "
+               "recurrence here)")
+# The helmholtz program's solvers. gmres_tpu's takes any string and runs
+# MINRES for any but gmres outside the CSL route, labelling the row with
+# the string it was given (ROADMAP queue 3); the port takes these and exits
+# where it would not run the solver named.
+HELMHOLTZ_SOLVERS = ("minres", "gmres", "gcrodr")
 # The multirhs solvers of the JAX program.
 MULTIRHS_SOLVERS = ("block-cg", "block-gmres")
 # GMRES's restart length in the convdiff program.
@@ -291,10 +306,10 @@ def convdiff_problem(n: int, dev: torch.device, *, gamma_x=0.4, gamma_y=0.2,
     from gmres_tpu_torch.solvers.idrs import idrs
     from gmres_tpu_torch.solvers.tfqmr import tfqmr
 
-    if solver in CONVDIFF_UNPORTED:
-        raise SystemExit(
-            f"convdiff --solver {solver}: that solver is not ported to "
-            f"gmres_tpu_torch yet ({CONVDIFF_UNPORTED[solver]})")
+    from gmres_tpu_torch.solvers.qmr import qmr
+
+    if solver == "qmr" and precond == "mg":
+        raise SystemExit(QMR_MG_EXIT)
     op = convection_diffusion_operator(n, gamma_x, gamma_y)
     b = op(_ones((n, n), dev))
     mixed = precision == "mixed"
@@ -313,7 +328,7 @@ def convdiff_problem(n: int, dev: torch.device, *, gamma_x=0.4, gamma_y=0.2,
                          max_restarts=max(max_iterations // CONVDIFF_RESTART, 1))
     else:
         fn = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "cgs": cgs,
-              "tfqmr": tfqmr, "idrs": idrs}[solver]
+              "tfqmr": tfqmr, "idrs": idrs, "qmr": qmr}[solver]
         kw = {"ell": ell} if solver == "bicgstabl" else {}
         if solver == "idrs":
             kw = {"s": idrs_s}
@@ -331,8 +346,9 @@ def cmd_convdiff(args):
     GMRES polynomial (``--precond poly``); ``--precision mixed`` runs the
     cycle in float32 under BiCGSTAB and the Arnoldi cycles in float32 under
     GMRES (see ``convdiff_problem``); ``--solver idrs`` runs IDR(``--idrs-s``).
-    ``--solver qmr`` is not ported and exits with a message (with
-    ``--device cpu`` where there is no card)."""
+    ``--solver qmr`` takes Aᵀ from ``torch.func.vjp`` of the operator (K1's
+    backward rule on the card); with ``--precond mg`` it exits with JAX's
+    message, as the cycle has no transpose rule."""
     dev = _device(args)
     n = args.nsize
     _, _, _, solve = convdiff_problem(
@@ -344,7 +360,7 @@ def cmd_convdiff(args):
     # Operator applications, counted as the JAX program counts them: GMRES
     # one an inner iteration and one a restart cycle (its certified
     # residual), BiCGStab(ℓ) 2ℓ a cycle, IDR(s) s+1 an outer iteration, the
-    # others 2 an iteration.
+    # others 2 an iteration (QMR: A and Aᵀ).
     if args.solver == "gmres":
         matvecs = _total_inner(res, CONVDIFF_RESTART) + int(res.restarts)
     elif args.solver == "idrs":
@@ -357,6 +373,219 @@ def cmd_convdiff(args):
         extra={"matvecs": matvecs,
                "precision": args.precision, "smoother": args.smoother,
                "host_syncs": res.host_syncs})]
+    _emit(records, args)
+    return records
+
+
+def cmd_bratu(args):
+    """Jacobian-free Newton-Krylov (solvers/newton_krylov.py) on the 2-D
+    Bratu problem (models/bratu.py) from u₀ = 0, with the frozen Poisson
+    multigrid cycle as M (``--precond mg``), the gmres (FGMRES with M) or
+    gcrodr inner solver, float32 inner bases with ``--precision mixed``."""
+    from gmres_tpu_torch.models.bratu import bratu_residual
+    from gmres_tpu_torch.precond.multigrid import poisson_multigrid_preconditioner
+    from gmres_tpu_torch.solvers.newton_krylov import newton_krylov
+
+    dev = _device(args)
+    n = args.nsize
+    F = bratu_residual(n, args.lam)
+    m_inv = poisson_multigrid_preconditioner(n) if args.precond == "mg" else None
+    mixed = args.precision == "mixed"
+    u0 = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    res, dt = _timed(lambda: newton_krylov(
+        F, u0, tol=args.tol, M=m_inv, inner=args.inner,
+        inner_dtype=torch.float32 if mixed else None,
+        max_newton=args.max_newton), dev)
+    records = [_record(
+        f"jfnk-bratu-{n}x{n}", res, wall_s=dt, tol=args.tol, nnz=5 * n * n - 4 * n,
+        extra={"lam": args.lam, "newton_steps": int(res.iterations),
+               "inner_iterations": int(res.inner_iterations), "inner": args.inner,
+               "precision": args.precision, "precond": args.precond,
+               "jv_products": res.jv_products, "host_syncs": res.host_syncs})]
+    _emit(records, args)
+    return records
+
+
+def _helmholtz_csl(args, dev, n, kh2):
+    """The helmholtz program's complex route (``--precond csl`` or
+    ``--damping`` > 0): GMRES (MGSR, certified on the true residual) or
+    GCRO-DR with the CSL cycle, on the complex operator (complex128, or
+    complex64 with ``--precision f32|c64|mixed``) or, with ``--precision
+    split``, on the real (2, N, N) stack with float32 cycles and float64
+    certification (JAX's TPU route). ``--chunks`` > 1 continues an
+    unconverged solve from its x (and GCRO-DR's recycle block)."""
+    from gmres_tpu_torch.models.helmholtz import (
+        helmholtz_operator,
+        helmholtz_split_operator,
+    )
+    from gmres_tpu_torch.precond.multigrid import csl_multigrid_preconditioner
+    from gmres_tpu_torch.solvers.gcrodr import gcrodr
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    split = args.precision == "split"
+    if split:
+        op = helmholtz_split_operator(n, kh2, args.damping)
+        x_true = torch.stack([_ones((n, n), dev), torch.zeros((n, n), dtype=torch.float64,
+                                                               device=dev)])
+        m_inv = csl_multigrid_preconditioner(n, kh2, layout="split")
+        restart = args.restart if args.restart > 0 else 120
+        inner_dtype = torch.float32
+        precision = "split-f64"
+    else:
+        cdtype = (torch.complex64 if args.precision in ("f32", "c64", "mixed")
+                  else torch.complex128)
+        op = helmholtz_operator(n, kh2, args.damping)
+        x_true = torch.ones((n, n), dtype=cdtype, device=dev)
+        m_inv = csl_multigrid_preconditioner(n, kh2)
+        restart = args.restart if args.restart > 0 else 60
+        inner_dtype = None
+        precision = str(cdtype).replace("torch.", "")
+    b = op(x_true)
+    use_gcrodr = args.solver == "gcrodr"
+    max_restarts = max(args.max_iterations // restart, 1)
+    k_rec = max(args.deflate, 1)
+    x0 = torch.zeros_like(b)
+    recycle = torch.zeros((k_rec,) + tuple(b.shape), dtype=b.dtype, device=dev)
+
+    def solve(x0, recycle):
+        if use_gcrodr:
+            return gcrodr(op, b, x0=x0, recycle=recycle, k=k_rec, restart=restart,
+                          tol=args.tol, M=m_inv, inner_dtype=inner_dtype,
+                          max_restarts=max_restarts)
+        return gmres(op, b, x0=x0, restart=restart, tol=args.tol, M=m_inv,
+                     variant="mgsr", certify="true", compute_v_err=False,
+                     inner_dtype=inner_dtype, max_restarts=max_restarts)
+
+    total_inner = total_restarts = chunks_used = 0
+    dt = 0.0
+    for chunk in range(max(args.chunks, 1)):
+        if chunk == 0:
+            res, dt_c = _timed(lambda: solve(x0, recycle), dev)
+        else:
+            t0 = time.perf_counter()
+            res = solve(x0, recycle)
+            _synchronize(dev)
+            dt_c = time.perf_counter() - t0
+        dt += dt_c
+        chunks_used += 1
+        # gmres_tpu's count for both arms: restart steps a cycle. GCRO-DR
+        # runs restart − k steps a recycled cycle, so its rows overstate
+        # the steps (ROADMAP queue 3; mirrored so that rows compare).
+        total_inner += _total_inner(res, restart)
+        total_restarts += int(res.restarts)
+        x0 = res.x
+        if use_gcrodr:
+            recycle = res.recycle
+        if int(res.status) == 0:
+            break
+    name = "gcrodr" if use_gcrodr else "gmres"
+    extra = {"matvecs": total_inner + total_restarts, "total_inner": total_inner,
+             "dispatch_chunks": chunks_used, "kh2": kh2, "damping": args.damping,
+             "precond": "csl", "precision": precision, "host_syncs": res.host_syncs}
+    if use_gcrodr:
+        extra["deflate_k"] = k_rec
+    return [_record(f"{name}-csl-helmholtz-{n}x{n}", res, x_true=x_true, wall_s=dt,
+                    tol=args.tol, nnz=5 * n * n - 4 * n, extra=extra)]
+
+
+def cmd_helmholtz(args):
+    """The symmetric-indefinite Helmholtz stencil (models/helmholtz.py),
+    b = A·1: MINRES (or GMRES(30), ``--solver gmres``) with the SPD
+    shifted-Laplacian cycle (``--precond mg``; a float32 cycle with
+    ``--precision mixed``) or none; with ``--precond csl`` or ``--damping`` >
+    0, the complex route (``_helmholtz_csl``). (kh)² is ``--kh2`` where
+    positive, else ``--kh2-factor`` times the grid's smallest Laplacian
+    eigenvalue. ``--solver gcrodr`` runs only on the complex route; on the
+    real one the program exits, where gmres_tpu's runs MINRES and names the
+    row gcrodr (ROADMAP queue 3)."""
+    from gmres_tpu_torch.models.helmholtz import helmholtz_lambda_min, helmholtz_operator
+    from gmres_tpu_torch.precond.multigrid import (
+        helmholtz_shifted_laplacian_preconditioner,
+    )
+    from gmres_tpu_torch.solvers.gmres import gmres
+    from gmres_tpu_torch.solvers.minres import minres
+
+    dev = _device(args)
+    n = args.nsize
+    kh2 = args.kh2 if args.kh2 > 0 else args.kh2_factor * helmholtz_lambda_min(n, 0.0)
+    if args.precond == "csl" or args.damping > 0:
+        records = _helmholtz_csl(args, dev, n, kh2)
+        _emit(records, args)
+        return records
+    if args.solver == "gcrodr":
+        raise SystemExit(
+            "helmholtz --solver gcrodr runs on the CSL route only (--precond csl "
+            "or --damping > 0); the real route runs minres or gmres (gmres_tpu's "
+            "program runs MINRES here and names the row gcrodr)")
+    op = helmholtz_operator(n, kh2)
+    x_true = _ones((n, n), dev)
+    b = op(x_true)
+    mixed = args.precision == "mixed"
+    m_inv = None
+    if args.precond == "mg":
+        # The float32 cast lives inside the cycle (MINRES's Lanczos runs on
+        # whatever M returns).
+        m_inv = helmholtz_shifted_laplacian_preconditioner(
+            n, kh2, smooth_order=args.smooth_order,
+            internal_dtype=torch.float32 if mixed else None)
+    if args.solver == "gmres":
+        res, dt = _timed(lambda: gmres(
+            op, b, restart=30, tol=args.tol, M=m_inv, certify="true",
+            compute_v_err=False, inner_dtype=torch.float32 if mixed else None,
+            max_restarts=max(args.max_iterations // 30, 1)), dev)
+        matvecs = _total_inner(res, 30) + int(res.restarts)
+    else:
+        res, dt = _timed(lambda: minres(op, b, tol=args.tol,
+                                        max_iterations=args.max_iterations, M=m_inv), dev)
+        matvecs = int(res.iterations) + 1  # one an iteration, one certification
+    records = [_record(
+        f"{args.solver}-helmholtz-{n}x{n}", res, x_true=x_true, wall_s=dt, tol=args.tol,
+        nnz=5 * n * n - 4 * n,
+        extra={"matvecs": matvecs, "kh2": kh2, "precision": args.precision,
+               "precond": args.precond, "host_syncs": res.host_syncs})]
+    _emit(records, args)
+    return records
+
+
+def cmd_sequence(args):
+    """Krylov recycling over a frequency sweep of indefinite Helmholtz
+    systems (kh2 = factor·λ_min for each factor of ``--kh2-factors``), one
+    right-hand side b (numpy seed 0): GCRO-DR fresh, and warm-started from
+    the previous frequency's recycle block; plain GMRES too with
+    ``--with-gmres``."""
+    from gmres_tpu_torch.models.helmholtz import helmholtz_lambda_min, helmholtz_operator
+    from gmres_tpu_torch.solvers.gcrodr import gcrodr
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    dev = _device(args)
+    n = args.nsize
+    lam_min = helmholtz_lambda_min(n)
+    b = torch.as_tensor(np.random.default_rng(0).standard_normal((n, n))).to(dev)
+    records = []
+    recycle = None
+    for fac in (float(v) for v in args.kh2_factors.split(",")):
+        op = helmholtz_operator(n, fac * lam_min)
+
+        def run(name, solve):
+            res, dt = _timed(solve, dev)
+            records.append(_record(
+                f"{name}-helmholtz-{n}x{n}", res, wall_s=dt, tol=args.tol,
+                nnz=5 * n * n - 4 * n,
+                extra={"kh2_factor": fac, "k": args.k, "restart": args.restart,
+                       "host_syncs": res.host_syncs}))
+            return res
+
+        if args.with_gmres:
+            run("gmres", lambda op=op: gmres(op, b, restart=args.restart, tol=args.tol,
+                                             max_restarts=args.max_restarts,
+                                             compute_v_err=False))
+        run("gcrodr-fresh", lambda op=op: gcrodr(op, b, k=args.k, restart=args.restart,
+                                                 tol=args.tol,
+                                                 max_restarts=args.max_restarts))
+        warm = run("gcrodr-warm", lambda op=op, rec=recycle: gcrodr(
+            op, b, k=args.k, restart=args.restart, tol=args.tol,
+            max_restarts=args.max_restarts, recycle=rec))
+        recycle = warm.recycle
     _emit(records, args)
     return records
 
@@ -850,8 +1079,24 @@ def build_parser() -> argparse.ArgumentParser:
                  "precision": ("f64", "mixed"),
                  "smoother": ("jacobi", "chebyshev", "auto", "rbgs")},
         help="BASELINE config 3: nonsymmetric convection-diffusion, b = A·1, "
-             "with the multigrid cycle or the GMRES polynomial; qmr is not "
-             "ported (ROADMAP item 9.4) and exits with a message")
+             "with the multigrid cycle or the GMRES polynomial; qmr with the "
+             "cycle exits with gmres_tpu's message (no transpose rule)")
+    add("bratu", cmd_bratu, nsize=256, lam=5.0, tol=1e-10, max_newton=30,
+        precond="mg", precision="f64", inner="gmres",
+        choices={"precond": ("mg", "none"), "precision": ("f64", "mixed"),
+                 "inner": ("gmres", "gcrodr")},
+        help="Jacobian-free Newton-Krylov on the Bratu problem, frozen Poisson "
+             "multigrid M")
+    add("helmholtz", cmd_helmholtz, nsize=256, kh2=0.0, kh2_factor=10.0, tol=1e-9,
+        max_iterations=50_000, precond="mg", solver="minres", precision="f64",
+        smooth_order=3, damping=0.0, chunks=1, restart=0, deflate=20,
+        choices={"precond": ("mg", "csl", "none"), "solver": HELMHOLTZ_SOLVERS,
+                 "precision": ("f64", "mixed", "split", "f32", "c64")},
+        help="indefinite Helmholtz: MINRES/GMRES with the SPD shifted-Laplacian "
+             "cycle, or GMRES/GCRO-DR with the CSL cycle (complex or split)")
+    add("sequence", cmd_sequence, nsize=128, k=10, restart=40, tol=1e-8,
+        max_restarts=400, kh2_factors="10.0,10.5,11.0", with_gmres=False,
+        help="GCRO-DR fresh and warm over a Helmholtz frequency sweep")
     scaling_note = (" The halo operator runs at every d, with or without "
                     "--explicit-halo (no GSPMD partitioner in PyTorch).")
     add("strong-scaling", cmd_strong_scaling, nsize=304, restart=50,

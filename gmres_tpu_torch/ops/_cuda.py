@@ -23,6 +23,7 @@ import subprocess
 import time
 
 import torch
+import torch.autograd.forward_ad as fwad
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -195,14 +196,57 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_grid(x: torch.Tensor, what: str) -> None:
-    """Device, dtype, rank and contiguity checks shared by the wrappers."""
-    if not x.is_cuda:
-        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
-    suffix(x.dtype)
-    if x.dim() != 2:
-        raise ValueError(f"{what}: expected a 2-D grid, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{what}: expected a contiguous tensor")
-    if x.numel() >= 2**31 or x.shape[0] > 65535 * 8:
-        raise ValueError(f"{what}: grid {tuple(x.shape)} too large for one launch")
+_functorch_wrapped = getattr(getattr(torch._C, "_functorch", None),
+                             "is_functorch_wrapped_tensor", None)
+
+
+def tracked_by(t) -> str | None:
+    """What would see ``t`` pass through a kernel: "autograd" where it
+    requires grad and grad mode is on, "forward-mode AD" where it carries a
+    tangent, "a torch.func transform" where one wraps it; None otherwise
+    (and for anything that is not a tensor)."""
+    if not isinstance(t, torch.Tensor):
+        return None
+    if _functorch_wrapped is not None and _functorch_wrapped(t):
+        return "a torch.func transform"
+    if t.requires_grad and torch.is_grad_enabled():
+        return "autograd (it requires grad)"
+    if (getattr(fwad, "_current_level", -1) >= 0
+            and fwad.unpack_dual(t).tangent is not None):
+        return "forward-mode AD (it carries a tangent)"
+    return None
+
+
+def refuse_transforms(what: str, kernel: str, *tensors) -> None:
+    """Raise where the ctypes wrapper ``what`` of ``kernel`` is handed a
+    tensor (an operand, a halo row, a coefficient, a scalar) that
+    ``tracked_by`` names. A kernel reads raw pointers and values: a tracked
+    tensor would lose its gradient or tangent silently, and a wrapped one
+    has no storage to read. Only K1's full-grid route
+    (``ops/stencil.py:Stencil5Grid``) has rules; it calls the wrapper with
+    plain tensors from inside its autograd.Function."""
+    for t in tensors:
+        why = tracked_by(t)
+        if why is not None:
+            raise RuntimeError(
+                f"{what}: kernel {kernel} (route cuda) has no autograd or torch.func "
+                f"rule, and a tensor it was handed is tracked by {why}. Only K1's "
+                "full-grid route (stencil_5pt_pallas) is differentiable on the card; "
+                "ROADMAP: transposes of K2–K8. Differentiate on CPU tensors (the "
+                "plain versions), or run under torch.no_grad().")
+
+
+def check_grid(what: str, kernel: str, *grids: torch.Tensor) -> None:
+    """``refuse_transforms`` on every grid, then the device, dtype, rank and
+    contiguity checks shared by the wrappers."""
+    refuse_transforms(what, kernel, *grids)
+    for x in grids:
+        if not x.is_cuda:
+            raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+        suffix(x.dtype)
+        if x.dim() != 2:
+            raise ValueError(f"{what}: expected a 2-D grid, got shape {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: expected a contiguous tensor")
+        if x.numel() >= 2**31 or x.shape[0] > 65535 * 8:
+            raise ValueError(f"{what}: grid {tuple(x.shape)} too large for one launch")

@@ -68,6 +68,7 @@ from gmres_tpu_torch.ops import _cuda
 from gmres_tpu_torch.ops.stencil import (
     POISSON_COEFS,
     _coef_list,
+    _coef_terms,
     _halo_row,
     stencil_5pt_general,
     stencil_5pt_halo,
@@ -135,7 +136,7 @@ def poly_stencil_smoother_plain(
     """The plain PyTorch version of K2 (runs on any device)."""
     theta_r = _rounded([theta], r.dtype)[0]
     ab = _rounded(steps, r.dtype)
-    c = _coef_list(coefs)
+    c = _coef_terms(coefs)
     d = r / theta_r
     z = d
     for s in range(len(ab) // 2):
@@ -299,7 +300,8 @@ def chebk_cuda(r: torch.Tensor, theta: float, steps,
     (``_path`` forces one, for the tests and chip_smoke.py). Counts:
     ``chebk_cuda.launches`` (1 on a fused path, one per sweep, at least one,
     on the sweep path) and ``chebk_cuda.launches_by_path``."""
-    _cuda.check_grid(r, "chebk_cuda")
+    c = _coef_list(coefs, "chebk_cuda", "K2")
+    _cuda.check_grid("chebk_cuda", "K2", r)
     if len(steps) % 2:
         raise ValueError("steps must hold (a, b) pairs")
     nsteps = len(steps) // 2
@@ -314,7 +316,7 @@ def chebk_cuda(r: torch.Tensor, theta: float, steps,
     rc = _cuda.entry("gt_chebk", r.dtype)(
         r.data_ptr(), out.data_ptr(), ptr(scratch), ptr(d), rows, cols, theta,
         _cuda.scalar_array(list(steps), r.dtype), nsteps,
-        _cuda.scalar_array(_coef_list(coefs), r.dtype), *args,
+        _cuda.scalar_array(c, r.dtype), *args,
         r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "chebk_cuda")
     n = max(nsteps, 1) if path == "sweep" else 1
@@ -394,9 +396,9 @@ def chebyshev_poisson_fused_plain(r, top, bottom, d, alpha,
 
 
 def _cheb2_launch(r, top, bottom, scal) -> torch.Tensor:
-    _cuda.check_grid(r, "cheb2_cuda")
-    top_p = _halo_row(top, r, "cheb2_cuda")
-    bot_p = _halo_row(bottom, r, "cheb2_cuda")
+    _cuda.check_grid("cheb2_cuda", "K5", r)
+    top_p = _halo_row(top, r, "cheb2_cuda", "K5")
+    bot_p = _halo_row(bottom, r, "cheb2_cuda", "K5")
     z = torch.empty_like(r)
     rc = _cuda.entry("gt_cheb2", r.dtype)(
         r.data_ptr(), top_p, bot_p, z.data_ptr(), r.shape[0], r.shape[1], *scal,
@@ -409,6 +411,7 @@ def _cheb2_launch(r, top, bottom, scal) -> torch.Tensor:
 def cheb2_cuda(r, top, bottom, d, alpha, coefs=POISSON_COEFS) -> torch.Tensor:
     """Launch K5 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
     rows, None for a zero row. ``cheb2_cuda.launches`` counts launches."""
+    _coef_list(coefs, "cheb2_cuda", "K5")  # refuses a tracked coefficient
     return _cheb2_launch(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype))
 
 
@@ -429,7 +432,9 @@ def chebyshev_poisson_fused(r, top, bottom, d, alpha,
     """Degree-2 Chebyshev (cbpr2) application on a (rows, N) block with
     (N,) or (1, N) halo rows (zeros at the physical boundary; None is a zero
     row): the plain version for a CPU tensor, K5 for a CUDA tensor."""
-    return cheb2_apply(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype))
+    if r.device.type == "cpu":
+        return chebyshev_poisson_fused_plain(r, top, bottom, d, alpha, coefs)
+    return cheb2_cuda(r, top, bottom, d, alpha, coefs)
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +462,8 @@ def axpy_dot_plain(alpha, x, y, z):
     return yn, torch.sum(yn.to(torch.float32) * z.to(torch.float32))
 
 
-def _check_vectors(what: str, *ts: torch.Tensor) -> None:
+def _check_vectors(what: str, kernel: str, *ts: torch.Tensor) -> None:
+    _cuda.refuse_transforms(what, kernel, *ts)
     for t in ts:
         if not t.is_cuda:
             raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
@@ -557,7 +563,8 @@ def _k7_launch(name: str, alpha, tensors) -> torch.Tensor:
 def cg_fused_update_cuda(x, r, p, ap, alpha):
     """Launch K7a on CUDA tensors: one launch, whose last block sums the
     blocks' partials; ``cg_fused_update_cuda.launches`` counts launches."""
-    _check_vectors("cg_fused_update_cuda", x, r, p, ap)
+    _cuda.refuse_transforms("cg_fused_update_cuda", "K7a", alpha)
+    _check_vectors("cg_fused_update_cuda", "K7a", x, r, p, ap)
     xo, ro = torch.empty_like(x), torch.empty_like(r)
     rsq = _k7_launch("gt_cg_update", alpha, (x, r, p, ap, xo, ro))
     cg_fused_update_cuda.launches += 1
@@ -570,7 +577,8 @@ cg_fused_update_cuda.launches = 0
 def axpy_dot_cuda(alpha, x, y, z):
     """Launch K7b on CUDA tensors: one launch, whose last block sums the
     blocks' partials; ``axpy_dot_cuda.launches`` counts launches."""
-    _check_vectors("axpy_dot_cuda", x, y, z)
+    _cuda.refuse_transforms("axpy_dot_cuda", "K7b", alpha)
+    _check_vectors("axpy_dot_cuda", "K7b", x, y, z)
     yn = torch.empty_like(y)
     dot = _k7_launch("gt_axpy_dot", alpha, (x, y, z, yn))
     axpy_dot_cuda.launches += 1

@@ -522,9 +522,11 @@ def _check_same_device(what: str, x: torch.Tensor, *tensors) -> None:
                              f"{t.device}")
 
 
-def _check_kernel_operands(what: str, x: torch.Tensor, values: torch.Tensor,
-                           *index) -> None:
-    """Device, dtype and contiguity checks before pointers reach a kernel."""
+def _check_kernel_operands(what: str, kernel: str, x: torch.Tensor,
+                           values: torch.Tensor, *index) -> None:
+    """Device, dtype and contiguity checks before pointers reach a kernel,
+    and ``_cuda.refuse_transforms``."""
+    _cuda.refuse_transforms(what, kernel, x, values, *index)
     if not x.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
     _cuda.suffix(x.dtype)
@@ -545,7 +547,7 @@ def dia_spmv_cuda(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     entries (any shape, read flat). ``dia_spmv_cuda.launches`` counts
     launches."""
     xf = x.reshape(-1)
-    _check_kernel_operands("dia_spmv_cuda", xf, a.data)
+    _check_kernel_operands("dia_spmv_cuda", "K3", xf, a.data)
     n_rows, n_cols = a.shape
     nd = len(a.offsets)
     if xf.numel() != n_cols or tuple(a.data.shape) != (nd, n_rows):
@@ -575,7 +577,7 @@ def bsr_spmv_cuda(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch K4 on a CUDA operand: y (nbr·bs,) = A·x for x of nbc·bs
     entries. ``bsr_spmv_cuda.launches`` counts launches."""
     xf = x.reshape(-1)
-    _check_kernel_operands("bsr_spmv_cuda", xf, a.data, a.block_cols)
+    _check_kernel_operands("bsr_spmv_cuda", "K4", xf, a.data, a.block_cols)
     nbr, k, bs, bs2 = a.data.shape
     if (bs != bs2 or k < 1 or tuple(a.block_cols.shape) != (nbr, k)
             or a.shape[0] != nbr * bs or xf.numel() != a.shape[1]

@@ -138,21 +138,39 @@ def stencil_5pt_halo(
 # ---------------------------------------------------------------------------
 
 
-def _coef_list(coefs) -> list[float]:
+def _coef_terms(coefs) -> list:
+    """The five coefficients as given: Python floats, or 0-d tensors where
+    a coefficient is a tensor (a (5,) tensor gives five), never detached, so
+    that a coefficient that requires grad stays in the graph."""
     if coefs is None:
         return list(POISSON_COEFS)
     if isinstance(coefs, torch.Tensor):
-        coefs = coefs.detach().cpu().tolist()
-    vals = [float(c) for c in coefs]
+        coefs = coefs.reshape(-1).unbind()
+    vals = [c if isinstance(c, torch.Tensor) else float(c) for c in coefs]
     if len(vals) != 5:
         raise ValueError(f"expected 5 stencil coefficients, got {len(vals)}")
     return vals
 
 
-def _halo_row(h, x: torch.Tensor, what: str):
+def _coef_list(coefs, what: str | None = None, kernel: str | None = None) -> list[float]:
+    """The five coefficients' values as Python floats, for a launch (a
+    tensor coefficient's value is read, a host read on the card). Given the
+    launching wrapper and its kernel, a coefficient tensor that autograd or
+    torch.func tracks raises first (``_cuda.refuse_transforms``): the launch
+    would drop its gradient."""
+    if what is not None:
+        terms = coefs if isinstance(coefs, (list, tuple)) else (coefs,)
+        _cuda.refuse_transforms(what, kernel, *terms)
+    if isinstance(coefs, torch.Tensor):
+        coefs = coefs.detach().cpu().tolist()  # one read for all five
+    return [float(c) for c in _coef_terms(coefs)]
+
+
+def _halo_row(h, x: torch.Tensor, what: str, kernel: str):
     """Pointer of a (N,) or (1, N) halo row matching x, or None."""
     if h is None:
         return None
+    _cuda.refuse_transforms(what, kernel, h)
     if (h.device != x.device or h.dtype != x.dtype
             or h.numel() != x.shape[1] or not h.is_contiguous()):
         raise ValueError(
@@ -165,11 +183,14 @@ def _halo_row(h, x: torch.Tensor, what: str):
 def stencil5_cuda(x: torch.Tensor, top=None, bottom=None,
                   coefs=None) -> torch.Tensor:
     """Launch K1 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
-    rows, None for a zero row. ``stencil5_cuda.launches`` counts launches."""
-    _cuda.check_grid(x, "stencil5_cuda")
-    c = _coef_list(coefs)
-    top_p = _halo_row(top, x, "stencil5_cuda")
-    bot_p = _halo_row(bottom, x, "stencil5_cuda")
+    rows, None for a zero row. ``stencil5_cuda.launches`` counts launches.
+    No autograd rule: a tracked operand, halo row or coefficient raises
+    (``_cuda.refuse_transforms``); the differentiable full-grid route is
+    ``stencil5_grid``."""
+    c = _coef_list(coefs, "stencil5_cuda", "K1")
+    _cuda.check_grid("stencil5_cuda", "K1", x)
+    top_p = _halo_row(top, x, "stencil5_cuda", "K1")
+    bot_p = _halo_row(bottom, x, "stencil5_cuda", "K1")
     y = torch.empty_like(x)
     rc = _cuda.entry("gt_stencil5", x.dtype)(
         x.data_ptr(), top_p, bot_p, y.data_ptr(), x.shape[0], x.shape[1], *c,
@@ -215,16 +236,18 @@ def _check_levels(what: str, r: torch.Tensor, e: torch.Tensor, ec=None) -> None:
 def residual_restrict_plain(r: torch.Tensor, e: torch.Tensor,
                             coefs=POISSON_COEFS) -> torch.Tensor:
     """The plain version of K1's residual-restrict form, the composition
-    restrict_sum(r − A e) (runs on any device)."""
-    return restrict_sum(r - stencil_5pt_general(e, *_coef_list(coefs)))
+    restrict_sum(r − A e) (runs on any device; a tensor coefficient stays in
+    the graph)."""
+    return restrict_sum(r - stencil_5pt_general(e, *_coef_terms(coefs)))
 
 
 def correct_residual_plain(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
                            coefs=POISSON_COEFS):
     """The plain version of K1's correct-residual form, the composition
-    e' = e + prolong_repeat(ec), r − A e' (runs on any device)."""
+    e' = e + prolong_repeat(ec), r − A e' (runs on any device; a tensor
+    coefficient stays in the graph)."""
     e2 = e + prolong_repeat(ec)
-    return e2, r - stencil_5pt_general(e2, *_coef_list(coefs))
+    return e2, r - stencil_5pt_general(e2, *_coef_terms(coefs))
 
 
 def residual_restrict_cuda(r: torch.Tensor, e: torch.Tensor,
@@ -232,13 +255,13 @@ def residual_restrict_cuda(r: torch.Tensor, e: torch.Tensor,
     """Launch K1's residual-restrict form on CUDA (2m, 2mc) grids r and e;
     returns the (m, mc) grid. ``residual_restrict_cuda.launches`` counts
     launches."""
-    for t in (r, e):
-        _cuda.check_grid(t, "residual_restrict_cuda")
+    c = _coef_list(coefs, "residual_restrict_cuda", "K1rr")
+    _cuda.check_grid("residual_restrict_cuda", "K1rr", r, e)
     _check_levels("residual_restrict_cuda", r, e)
     mr, mc = r.shape[0] // 2, r.shape[1] // 2
     out = torch.empty((mr, mc), dtype=r.dtype, device=r.device)
     rc = _cuda.entry("gt_residual_restrict", r.dtype)(
-        r.data_ptr(), e.data_ptr(), out.data_ptr(), mr, mc, *_coef_list(coefs),
+        r.data_ptr(), e.data_ptr(), out.data_ptr(), mr, mc, *c,
         r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "residual_restrict_cuda")
     residual_restrict_cuda.launches += 1
@@ -253,13 +276,13 @@ def correct_residual_cuda(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
     """Launch K1's correct-residual form on CUDA grids (fine r and e, coarse
     ec); returns (e', r − A e'). ``correct_residual_cuda.launches`` counts
     launches."""
-    for t in (r, e, ec):
-        _cuda.check_grid(t, "correct_residual_cuda")
+    c = _coef_list(coefs, "correct_residual_cuda", "K1cr")
+    _cuda.check_grid("correct_residual_cuda", "K1cr", r, e, ec)
     _check_levels("correct_residual_cuda", r, e, ec)
     e_out, r_out = torch.empty_like(e), torch.empty_like(r)
     rc = _cuda.entry("gt_correct_residual", r.dtype)(
         r.data_ptr(), e.data_ptr(), ec.data_ptr(), e_out.data_ptr(),
-        r_out.data_ptr(), ec.shape[0], ec.shape[1], *_coef_list(coefs),
+        r_out.data_ptr(), ec.shape[0], ec.shape[1], *c,
         r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "correct_residual_cuda")
     correct_residual_cuda.launches += 1
@@ -300,16 +323,120 @@ def stencil_5pt_pallas_halo(
     rows, None for a zero row: the plain version for a CPU tensor, K1 for a
     CUDA tensor."""
     if x.device.type == "cpu":
-        c = _coef_list(coefs)
-        return stencil_5pt_halo(x, top, bottom, c)
+        return stencil_5pt_halo(x, top, bottom, _coef_terms(coefs))
     return stencil5_cuda(x, top, bottom, coefs)
 
 
-def stencil_5pt_pallas(x: torch.Tensor, coefs=None) -> torch.Tensor:
-    """Stencil on a full (N, N) grid with zero (Dirichlet) halos."""
+# The coefficients' neighbour shifts, in (center, west, east, south, north)
+# order: y = Σₖ cₖ·shiftₖ(x), so ∂y/∂cₖ = shiftₖ(x).
+_COEF_SHIFTS = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0))
+
+
+def _k1_grid(x: torch.Tensor, vals) -> torch.Tensor:
+    """One full-grid application with float coefficients: the plain
+    version for a CPU tensor, one K1 launch for a CUDA tensor."""
     if x.device.type == "cpu":
-        return stencil_5pt_general(x, *_coef_list(coefs))
-    return stencil5_cuda(x, None, None, coefs)
+        return stencil_5pt_general(x, *vals)
+    return stencil5_cuda(x, None, None, vals)
+
+
+class Stencil5Grid(torch.autograd.Function):
+    """K1 on a full grid with zero (Dirichlet) halos, differentiable.
+
+    ``Stencil5Grid.apply(x, c, w, e, s, n)``: each coefficient a float or a
+    0-d tensor. The forward is one launch (``_k1_grid``). The rules:
+
+    * backward: Aᵀ of a 5-point stencil with zero halos is the same stencil
+      with west↔east and south↔north swapped, so x's cotangent is one more
+      application with (c, e, w, n, s);
+    * jvp: the stencil is linear in x, so x's tangent maps through one
+      application with the same coefficients;
+    * a coefficient that is a tensor: ∂y/∂cₖ = shiftₖ(x), so its gradient
+      is Σ ȳ·shiftₖ(x) and its tangent adds ċₖ·shiftₖ(x), plain torch
+      reductions and products on any device (gmres_tpu gets the same terms
+      from autodiff of its jnp stencil).
+
+    The backward and the jvp apply this Function again rather than the
+    wrapper, so they launch one K1 each and stay differentiable; inside a
+    ``torch.func`` transform the forward receives unwrapped tensors, which
+    a ctypes launch needs. On a CPU tensor the same rules run on the plain
+    version (the tests' oracle for the card). ``rule_applications`` counts
+    the backward's and the jvp's applications by rule."""
+
+    @staticmethod
+    def forward(x, *coefs):
+        return _k1_grid(x, [float(c) for c in coefs])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, *coefs = inputs
+        ctx.vals = [float(c) for c in coefs]
+        ctx.coef_meta = [(c.shape, c.dtype) if isinstance(c, torch.Tensor) else None
+                         for c in coefs]
+        if any(m is not None for m in ctx.coef_meta):
+            ctx.save_for_backward(x)
+            ctx.save_for_forward(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        c, w, e, s, n = ctx.vals
+        gx = None
+        if ctx.needs_input_grad[0]:
+            Stencil5Grid.rule_applications["transpose"] += 1
+            gx = Stencil5Grid.apply(gy, c, e, w, n, s)
+        gcoefs = []
+        for k, needs in enumerate(ctx.needs_input_grad[1:]):
+            if not needs:
+                gcoefs.append(None)
+                continue
+            (x,) = ctx.saved_tensors
+            shape, dtype = ctx.coef_meta[k]
+            g = torch.sum(gy * _shift(x, *_COEF_SHIFTS[k]))
+            gcoefs.append(g.reshape(shape).to(dtype))
+        return (gx, *gcoefs)
+
+    @staticmethod
+    def jvp(ctx, gx, *gcoefs):
+        out = None
+        if gx is not None:
+            Stencil5Grid.rule_applications["tangent"] += 1
+            out = Stencil5Grid.apply(gx, *ctx.vals)
+        for k, gc in enumerate(gcoefs):
+            if gc is None:
+                continue
+            (x,) = ctx.saved_tensors
+            term = gc * _shift(x, *_COEF_SHIFTS[k])
+            out = term if out is None else out + term
+        return out
+
+
+# Applications of each rule (one launch each on the card, counted by the
+# wrapper too): how many of stencil5_cuda's launches were transposes and
+# tangents.
+Stencil5Grid.rule_applications = {"transpose": 0, "tangent": 0}
+
+
+def stencil5_grid(x: torch.Tensor, coefs=None) -> torch.Tensor:
+    """``Stencil5Grid`` on a full (N, N) grid, any device: the K1 route of
+    the card with its autograd and ``torch.func`` rules (the plain version
+    under the same rules on a CPU tensor)."""
+    return Stencil5Grid.apply(x, *_coef_terms(coefs))
+
+
+def stencil_5pt_pallas(x: torch.Tensor, coefs=None) -> torch.Tensor:
+    """Stencil on a full (N, N) grid with zero (Dirichlet) halos: the plain
+    version for a CPU tensor (differentiable as plain torch, as gmres_tpu's
+    jnp stencil is), K1 for a CUDA tensor. There, where autograd,
+    forward-mode AD or a torch.func transform tracks x or a coefficient,
+    the launch goes through ``stencil5_grid`` (differentiable by its rules);
+    otherwise straight to the wrapper, without the autograd.Function's host
+    cost. A tensor coefficient stays in the graph on both devices."""
+    terms = _coef_terms(coefs)
+    if x.device.type == "cpu":
+        return stencil_5pt_general(x, *terms)
+    if _cuda.tracked_by(x) is None and all(_cuda.tracked_by(c) is None for c in terms):
+        return stencil5_cuda(x, None, None, terms)
+    return Stencil5Grid.apply(x, *terms)
 
 
 # The TPU's row-blocked variant exists for VMEM; K1 takes any grid in one
@@ -345,12 +472,12 @@ def stencil_5pt_dd_plain(x_hi: torch.Tensor, x_lo: torch.Tensor,
     widened to float64 (hi + lo), ``stencil_5pt_general`` in float64 with
     the float64 coefficients, split back by ``dd_from_f64``."""
     x = x_hi.to(torch.float64) + x_lo.to(torch.float64)
-    return dd_from_f64(stencil_5pt_general(x, *_coef_list(coefs)))
+    return dd_from_f64(stencil_5pt_general(x, *_coef_terms(coefs)))
 
 
 def _check_pair(x_hi: torch.Tensor, x_lo: torch.Tensor, what: str) -> None:
+    _cuda.check_grid(what, "K6", x_hi, x_lo)
     for t in (x_hi, x_lo):
-        _cuda.check_grid(t, what)
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: a pair is two float32 tensors, not {t.dtype}")
     if x_hi.shape != x_lo.shape or x_hi.device != x_lo.device:
@@ -360,8 +487,8 @@ def _check_pair(x_hi: torch.Tensor, x_lo: torch.Tensor, what: str) -> None:
 def stencil5_dd_cuda(x_hi: torch.Tensor, x_lo: torch.Tensor, coefs=None):
     """Launch K6 on a CUDA (hi, lo) float32 pair; returns the result pair.
     ``stencil5_dd_cuda.launches`` counts launches."""
+    c = _coef_list(coefs, "stencil5_dd_cuda", "K6")
     _check_pair(x_hi, x_lo, "stencil5_dd_cuda")
-    c = _coef_list(coefs)
     y_hi, y_lo = torch.empty_like(x_hi), torch.empty_like(x_lo)
     rc = _cuda.load().gt_stencil5_dd(
         x_hi.data_ptr(), x_lo.data_ptr(), y_hi.data_ptr(), y_lo.data_ptr(),

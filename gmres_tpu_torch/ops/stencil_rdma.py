@@ -113,7 +113,7 @@ def rdma_interior_cuda(x: torch.Tensor, c: list[float]) -> torch.Tensor:
     """Launch K8's interior step on a CUDA block; ``c`` is the rounded
     (c0, cw, ce, cs, cn, a, b). ``rdma_interior_cuda.launches`` counts
     launches: one per application of the operator."""
-    _cuda.check_grid(x, "rdma_interior_cuda")
+    _cuda.check_grid("rdma_interior_cuda", "K8", x)
     y = torch.empty_like(x)
     rc = _cuda.entry("gt_rdma_interior", x.dtype)(
         x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], *c,
@@ -131,9 +131,9 @@ def rdma_edges_cuda(y: torch.Tensor, top, bottom, c: list[float]) -> torch.Tenso
     halo rows given (None: no correction on that side). With neither row
     there is nothing to correct and nothing launches.
     ``rdma_edges_cuda.launches`` counts launches."""
-    _cuda.check_grid(y, "rdma_edges_cuda")
-    top_p = _halo_row(top, y, "rdma_edges_cuda")
-    bot_p = _halo_row(bottom, y, "rdma_edges_cuda")
+    _cuda.check_grid("rdma_edges_cuda", "K8", y)
+    top_p = _halo_row(top, y, "rdma_edges_cuda", "K8")
+    bot_p = _halo_row(bottom, y, "rdma_edges_cuda", "K8")
     if top_p is None and bot_p is None:
         return y
     rc = _cuda.entry("gt_rdma_edges", y.dtype)(
@@ -153,7 +153,7 @@ def rdma_apply(blk: torch.Tensor, c: list[float], group, neighbours) -> torch.Te
     ``_neighbours(group)``: the RDMA operators' per-application entry."""
     cuda = blk.device.type != "cpu"
     if cuda:  # refuse before any message is posted, or the peers would hang
-        _cuda.check_grid(blk, "stencil_5pt_rdma")
+        _cuda.check_grid("stencil_5pt_rdma", "K8", blk)
     top, bottom, wait = post_halo_rows(blk, group, neighbours)
     y = rdma_interior_cuda(blk, c) if cuda else rdma_interior_plain(blk, c)
     if top is None and bottom is None:

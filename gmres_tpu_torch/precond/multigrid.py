@@ -25,6 +25,14 @@ coefficients) and K2 (the Jacobi and Chebyshev smoothers and the coarse
 solve) on a CUDA tensor.
 
 ``poisson3d_multigrid_preconditioner`` (with ``restrict_sum3d`` and
+``helmholtz_shifted_laplacian_preconditioner`` is the JAX SPD cycle for the
+indefinite Helmholtz stencil (level shifts shift·kh2·4ˡ): K2 for its
+smoothers and coarse solve, K1's two forms for its level residuals, as in
+the Poisson cycle. ``csl_multigrid_preconditioner`` is the complex-shifted
+cycle: plain torch complex arithmetic (``layout="complex"``), or the real
+(2, N, N) stack whose neighbour stencils launch K1 (``layout="split"``).
+
+``poisson3d_multigrid_preconditioner`` (with ``restrict_sum3d`` and
 ``prolong_repeat3d``) is the JAX 3-D cycle for the 7-point stencil, plain
 PyTorch on any device as the JAX cycle is plain jnp (neither package has a
 3-D kernel). ``anisotropic_multigrid_preconditioner`` is the JAX cycle for
@@ -82,6 +90,23 @@ class MultigridPlan:
     lam_min_coarse: float
 
 
+def _default_levels(nsize: int, levels, floor: int = 16):
+    """The level count (coarsen while even and above ``floor``, unless
+    given) and each level's grid size; ValueError where nsize is not
+    divisible by 2^(levels−1)."""
+    if levels is None:
+        levels = 1
+        n = nsize
+        while n % 2 == 0 and n > floor:
+            n //= 2
+            levels += 1
+    sizes = [nsize // (2 ** l) for l in range(levels)]
+    for l, n in enumerate(sizes):
+        if l > 0 and sizes[l - 1] != 2 * n:
+            raise ValueError(f"nsize={nsize} not divisible by 2**{levels - 1}")
+    return levels, sizes
+
+
 def poisson_multigrid_preconditioner(
     nsize: int,
     levels: int | None = None,
@@ -111,18 +136,7 @@ def poisson_multigrid_preconditioner(
             "the distributed multigrid cycle (mesh=, replicate_below=) is "
             "not ported yet: ROADMAP queue 1, item 8"
         )
-    if levels is None:
-        levels = 1
-        n = nsize
-        while n % 2 == 0 and n > 16:
-            n //= 2
-            levels += 1
-    sizes = [nsize // (2 ** l) for l in range(levels)]
-    for l, n in enumerate(sizes):
-        if l > 0 and sizes[l - 1] != 2 * n:
-            raise ValueError(
-                f"nsize={nsize} not divisible by 2**{levels - 1}"
-            )
+    levels, sizes = _default_levels(nsize, levels)
 
     smoother = chebyshev_stencil_preconditioner(
         lam_max / smooth_band, lam_max, order=max(pre_smooth, 1),
@@ -388,6 +402,196 @@ def convection_diffusion_multigrid_preconditioner(
     return m_inv
 
 
+def helmholtz_shifted_laplacian_preconditioner(
+    nsize: int,
+    kh2: float,
+    shift: float = 1.0,
+    levels: int | None = None,
+    smooth_order: int = 3,
+    coarse_order: int = 32,
+    smooth_band: float = 4.0,
+    mesh=None,
+    replicate_below: int | None = None,
+    use_pallas: str = "auto",
+    internal_dtype=None,
+) -> Callable:
+    """SPD shifted-Laplacian V-cycle for the indefinite Helmholtz stencil
+    (``models/helmholtz.py``): M ≈ (−Δ + shift·k²)⁻¹ (the arguments of the
+    JAX function).
+
+    Level l's stencil is (4 + shift·kh2·4ˡ, −1, −1, −1, −1) — the shift is
+    an h²-scaled zeroth-order term, so it quadruples per coarsening — and
+    its spectral interval is closed-form: the smoothers are order
+    ``smooth_order`` Chebyshev on [λmax/band, λmax] with λmax = 8 + shift_l,
+    the coarse solve order ``coarse_order`` over the coarsest level's whole
+    spectrum. Pre- and post-smoother are the same fixed polynomial in the
+    symmetric level operator and the transfers are adjoint, so the cycle
+    is symmetric positive definite, as MINRES requires of M.
+
+    Routing: the smoothers and the coarse solve are
+    ``chebyshev_stencil_preconditioner`` with the level's coefficients (K2
+    on a CUDA tensor; ``use_pallas="never"`` takes K2's plain version on any
+    device), the level residuals K1's residual-restrict and correct-residual
+    forms with the level's coefficients (their plain compositions on a CPU
+    tensor, the JAX cycle's arithmetic). ``internal_dtype`` runs the cycle
+    in that dtype (r cast on entry, z cast back). ``mesh`` and
+    ``replicate_below`` raise NotImplementedError (ROADMAP queue 1, item
+    8.3).
+
+    The returned callable carries ``levels``, ``level_shifts`` and
+    ``fine_equiv_sweeps``."""
+    if mesh is not None or replicate_below is not None:
+        raise NotImplementedError(
+            "the distributed Helmholtz cycle (mesh=, replicate_below=) is not "
+            "ported yet: ROADMAP queue 1, item 8.3"
+        )
+    if shift < 0:
+        raise ValueError("shift must be >= 0 (SPD requires +k² shift)")
+    levels, sizes = _default_levels(nsize, levels)
+    shifts = [float(shift) * float(kh2) * 4.0 ** l for l in range(levels)]
+    coefs = [(4.0 + s, -1.0, -1.0, -1.0, -1.0) for s in shifts]
+    lam_maxs = [8.0 + s for s in shifts]
+    lam_min_coarse = shifts[-1] + 8.0 * math.sin(math.pi / (2 * (sizes[-1] + 1))) ** 2
+    smoother_at = [
+        chebyshev_stencil_preconditioner(
+            lam_maxs[l] / smooth_band, lam_maxs[l], order=max(smooth_order, 1),
+            coefs=coefs[l], use_pallas=use_pallas)
+        for l in range(levels)
+    ]
+    coarse = chebyshev_stencil_preconditioner(
+        lam_min_coarse, lam_maxs[-1], order=coarse_order, coefs=coefs[-1],
+        use_pallas=use_pallas)
+
+    def v_cycle(r: torch.Tensor, level: int) -> torch.Tensor:
+        if level == levels - 1:
+            return coarse(r)
+        s_l = smoother_at[level]
+        e = s_l(r)
+        ec = v_cycle(residual_restrict(r, e, coefs[level]), level + 1)
+        e, r3 = correct_residual(r, e, ec, coefs[level])
+        return e + s_l(r3)
+
+    def m_inv(r: torch.Tensor) -> torch.Tensor:
+        if internal_dtype is not None and r.dtype != internal_dtype:
+            return v_cycle(r.to(internal_dtype), 0).to(r.dtype)
+        return v_cycle(r, 0)
+
+    # Order-k Chebyshev = k−1 operator applications; 2 residual stencils a
+    # non-coarsest level; level l carries 4^-l of the fine grid's points.
+    per_level = 2 * (max(smooth_order, 1) - 1) + 2
+    m_inv.fine_equiv_sweeps = sum(
+        per_level * 0.25 ** l for l in range(levels - 1)
+    ) + (coarse_order - 1) * 0.25 ** (levels - 1)
+    m_inv.levels = levels
+    m_inv.level_shifts = shifts
+    return m_inv
+
+
+def csl_multigrid_preconditioner(
+    nsize: int,
+    kh2: float,
+    shift: tuple = (1.0, 0.5),
+    levels: int | None = None,
+    pre_smooth: int = 2,
+    post_smooth: int = 2,
+    omega: float = 0.5,
+    coarse_iters: int = 32,
+    mesh=None,
+    replicate_below: int | None = None,
+    layout: str = "complex",
+) -> Callable:
+    """Complex shifted-Laplacian V-cycle for the Helmholtz stencil:
+    M ≈ (−Δ − (β₁ + iβ₂)k²)⁻¹ with shift = (β₁, β₂), the
+    Erlangga–Oosterlee–Vuik preconditioner (the arguments of the JAX
+    function).
+
+    Level l's stencil is (4 − (β₁+iβ₂)·kh2·4ˡ, −1, −1, −1, −1); smoothing
+    is damped Jacobi e ← e + ω/c₀·(r − A e) with the complex c₀
+    (``coarse_iters`` sweeps on the coarsest level), and the transfers are
+    ``restrict_sum``/``prolong_repeat``.
+
+    layout="complex": a complex-to-complex callable, plain torch complex
+    arithmetic on any device (K1 and K2 are real-only; gmres_tpu's cycle
+    is plain jnp). Use it with ``gmres(..., variant="mgsr")`` on
+    ``helmholtz_operator(n, kh2, damping=...)``.
+
+    layout="split": the same cycle on the real (2, N, N) stack of
+    ``helmholtz_split_operator``, every complex scalar multiply expanded to
+    its 2×2 rotation; the neighbour stencils (0, −1, −1, −1, −1) of the two
+    real planes run through K1 on a CUDA tensor (the plain stencil on a CPU
+    one), the rotations and the Jacobi updates in torch.
+
+    ``mesh`` and ``replicate_below`` raise NotImplementedError (ROADMAP
+    queue 1, item 8.3); any other layout raises ValueError. The returned
+    callable carries ``levels``, ``level_coefs`` and ``fine_equiv_sweeps``."""
+    if layout not in ("complex", "split"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if mesh is not None or replicate_below is not None:
+        raise NotImplementedError(
+            "the distributed CSL cycle (mesh=, replicate_below=) is not "
+            "ported yet: ROADMAP queue 1, item 8.3"
+        )
+    beta = complex(float(shift[0]), float(shift[1]))
+    levels, _ = _default_levels(nsize, levels)
+    coefs = [(4.0 - beta * float(kh2) * 4.0 ** l, -1.0, -1.0, -1.0, -1.0)
+             for l in range(levels)]
+
+    if layout == "split":
+        nb_coefs = (0.0, -1.0, -1.0, -1.0, -1.0)
+
+        def cmul(c, z):
+            zr, zi = z[0], z[1]
+            return torch.stack([c.real * zr - c.imag * zi, c.imag * zr + c.real * zi])
+
+        def apply_l(x, l):
+            nb = torch.stack([stencil_5pt_routed_general(x[0], nb_coefs),
+                              stencil_5pt_routed_general(x[1], nb_coefs)])
+            return cmul(coefs[l][0], x) + nb
+
+        def scale_step(l, v):
+            return cmul(omega / coefs[l][0], v)
+
+        def restrict_(x):
+            return torch.stack([restrict_sum(x[0]), restrict_sum(x[1])])
+
+        def prolong_(x):
+            return torch.stack([prolong_repeat(x[0]), prolong_repeat(x[1])])
+    else:
+        def apply_l(x, l):
+            return stencil_5pt_general(x, *coefs[l])
+
+        def scale_step(l, v):
+            return (omega / coefs[l][0]) * v
+
+        restrict_ = restrict_sum
+        prolong_ = prolong_repeat
+
+    def smooth(r, l, iters):
+        e = scale_step(l, r)
+        for _ in range(iters - 1):
+            e = e + scale_step(l, r - apply_l(e, l))
+        return e
+
+    def v_cycle(r, l):
+        if l == levels - 1:
+            return smooth(r, l, coarse_iters)
+        e = smooth(r, l, pre_smooth)
+        rc = restrict_(r - apply_l(e, l))
+        e = e + prolong_(v_cycle(rc, l + 1))
+        return e + smooth(r - apply_l(e, l), l, post_smooth)
+
+    def m_inv(r: torch.Tensor) -> torch.Tensor:
+        return v_cycle(r, 0)
+
+    per_level = (pre_smooth - 1) + (post_smooth - 1) + 4
+    m_inv.fine_equiv_sweeps = sum(
+        per_level * 0.25 ** l for l in range(levels - 1)
+    ) + (coarse_iters - 1) * 0.25 ** (levels - 1)
+    m_inv.levels = levels
+    m_inv.level_coefs = coefs
+    return m_inv
+
+
 def restrict_sum3d(x: torch.Tensor) -> torch.Tensor:
     """(2m,)³ → (m,)³ by 2×2×2 block sum × 1/2 (the 3-D consistency
     factor: the h²-scaled operator gains 4 per coarsening while a block
@@ -435,18 +639,7 @@ def poisson3d_multigrid_preconditioner(
             "the distributed 3-D multigrid cycle (mesh=, replicate_below=) is "
             "not ported yet: ROADMAP queue 1, item 8.3"
         )
-    if levels is None:
-        levels = 1
-        n = nsize
-        while n % 2 == 0 and n > 8:
-            n //= 2
-            levels += 1
-    sizes = [nsize // (2 ** l) for l in range(levels)]
-    for l, n in enumerate(sizes):
-        if l > 0 and sizes[l - 1] != 2 * n:
-            raise ValueError(
-                f"nsize={nsize} not divisible by 2**{levels - 1}"
-            )
+    levels, sizes = _default_levels(nsize, levels, floor=8)
     lam_max = 12.0
     lam_min_coarse = 6.0 * (1.0 - math.cos(math.pi / (sizes[-1] + 1)))
     pre = chebyshev_preconditioner(stencil_7pt_apply, lam_max / smooth_band, lam_max,

@@ -1,0 +1,189 @@
+"""Jacobian-free Newton-Krylov (JFNK) for nonlinear systems F(x) = 0, in
+eager PyTorch.
+
+Counterpart of ``gmres_tpu/solvers/newton_krylov.py``: inexact Newton with
+Eisenstat–Walker choice-2 forcing terms, inner GMRES (right-preconditioned
+FGMRES when M is given) or GCRO-DR with its recycle space carried across
+Newton steps, and Armijo backtracking on ‖F‖. The same forcing, line
+search, statuses and ``inner_iterations`` count.
+
+The Jacobian action. gmres_tpu linearises F once a Newton step
+(``jax.linearize``) and applies the linear tangent map per inner matvec.
+``torch.func.linearize`` traces with fake tensors, which a ctypes kernel
+launch cannot take, so here J·v is ``torch.func.jvp(F, (x,), (v,))``: F is
+evaluated again with every J·v. For a stencil residual (the Bratu residual,
+``models/bratu.py``) on a CUDA tensor that is two K1 launches a J·v — the
+primal, and the tangent through K1's jvp rule — and one more ``exp``, where
+gmres_tpu's tangent map is one fused stencil. F is a user callable, so no
+tangent map is cached. ``NewtonResult.jv_products`` counts the J·v.
+
+Host reads: the Newton loop reads ‖F‖ once a trial point (and once at the
+start); the inner solves read what their own ``host_syncs`` count.
+``NewtonResult.host_syncs`` is the sum.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+from gmres_tpu_torch.ops.blas import tree_norm
+from gmres_tpu_torch.solvers.cg import _in_dtype
+from gmres_tpu_torch.types import NewtonResult, Preconditioner, SolverStatus
+
+_ALPHA_EW = (1.0 + 5.0 ** 0.5) / 2.0  # Eisenstat–Walker choice-2 power
+
+
+def newton_krylov(
+    F: Callable,
+    x0: torch.Tensor,
+    *,
+    tol: float = 1e-9,
+    max_newton: int = 50,
+    M: Optional[Preconditioner] = None,
+    inner: str = "gmres",
+    recycle_k: int = 10,
+    restart: int = 30,
+    max_restarts: int = 40,
+    variant: str = "householder",
+    inner_dtype=None,
+    forcing: str = "ew",
+    eta0: float = 0.5,
+    eta_fixed: float = 1e-4,
+    eta_min: float = 1e-10,
+    eta_max: float = 0.9,
+    gamma: float = 0.9,
+    line_search: bool = True,
+    max_backtracks: int = 25,
+    armijo: float = 1e-4,
+) -> NewtonResult:
+    """Solve F(x) = 0 by inexact Newton with Krylov inner solves.
+
+    The arguments are those of ``gmres_tpu.newton_krylov``. F must be
+    differentiable by ``torch.func.jvp`` (plain torch, or K1's full-grid
+    route on the card); M is applied on the right through FGMRES with the
+    gmres inner (on the left with gcrodr); ``inner_dtype`` (gmres inner
+    only) runs the inner basis in that dtype, J·v itself at x's dtype.
+    ``iterations`` counts Newton steps; ``residual`` is ‖F(x)‖₂ at the
+    returned x."""
+    from gmres_tpu_torch.solvers.fgmres import fgmres
+    from gmres_tpu_torch.solvers.gcrodr import gcrodr
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    if forcing not in ("ew", "fixed"):
+        raise ValueError(f"unknown forcing {forcing!r}")
+    if inner not in ("gmres", "gcrodr"):
+        raise ValueError(f"unknown inner {inner!r}")
+    use_recycling = inner == "gcrodr"
+    if use_recycling and inner_dtype is not None:
+        raise ValueError("inner_dtype (mixed precision) applies to the gmres inner only")
+
+    dtype = x0.dtype
+    rdtype = x0.real.dtype if x0.is_complex() else dtype
+    tiny = torch.finfo(rdtype).tiny
+    tol_r = _in_dtype(tol, rdtype)
+    f0 = F(x0)
+    if f0.shape != x0.shape:
+        raise ValueError(f"F must map x to a residual of the same shape; got "
+                         f"{tuple(x0.shape)} -> {tuple(f0.shape)}")
+    fnorm = tree_norm(f0)
+    fnorm_f = float(fnorm)
+    syncs = 1
+    status = int(SolverStatus.CONVERGED if fnorm_f < tol_r
+                 else SolverStatus.MAX_ITERATIONS)
+
+    def forcing_term(i, fnorm_f, fnorm_prev_f, eta_prev):
+        if forcing == "fixed":
+            return _in_dtype(eta_fixed, rdtype)
+        if i == 0:
+            eta = _in_dtype(eta0, rdtype)
+        else:
+            ratio = fnorm_f / max(fnorm_prev_f, tiny)
+            eta_raw = gamma * ratio ** _ALPHA_EW
+            safeguard = gamma * eta_prev ** _ALPHA_EW
+            eta = max(eta_raw, safeguard) if safeguard > 0.1 else eta_raw
+        # Oversolve guard (Eisenstat–Walker §6): never tighter than what
+        # reaching tol requires.
+        eta = max(eta, 0.5 * tol / max(fnorm_f, tol))
+        return _in_dtype(min(max(eta, eta_min), eta_max), rdtype)
+
+    x, fx = x0, f0
+    fnorm_prev_f = fnorm_f
+    eta_prev = _in_dtype(eta0, rdtype)
+    inner_tot = 0
+    jv = [0]
+    u_rec = (torch.zeros((recycle_k,) + tuple(x0.shape), dtype=dtype, device=x0.device)
+             if use_recycling else None)
+    history = []
+    i = 0
+    while i < max_newton and status == SolverStatus.MAX_ITERATIONS:
+        x_lin = x
+
+        def j_apply(v, x_lin=x_lin):
+            jv[0] += 1
+            _, t = torch.func.jvp(F, (x_lin,), (v.to(dtype),))
+            return t.to(v.dtype)
+
+        eta = forcing_term(i, fnorm_f, fnorm_prev_f, eta_prev)
+        if use_recycling:
+            res = gcrodr(j_apply, -fx, k=recycle_k, restart=restart, tol=eta,
+                         max_restarts=max_restarts, M=M, recycle=u_rec)
+            u_rec = res.recycle
+            # + recycle_k: the per-step import (op·U to rebuild C).
+            inner_tot += recycle_k + (max(res.restarts - 1, 0) * (restart - recycle_k)
+                                      + res.iterations)
+        else:
+            if M is not None:
+                res = fgmres(j_apply, -fx, restart=restart, tol=eta,
+                             max_restarts=max_restarts, M=M, inner_dtype=inner_dtype,
+                             breakdown_check=False)
+            else:
+                res = gmres(j_apply, -fx, restart=restart, tol=eta,
+                            max_restarts=max_restarts, variant=variant,
+                            inner_dtype=inner_dtype, compute_v_err=False,
+                            breakdown_check=False)
+            inner_tot += max(res.restarts - 1, 0) * restart + res.iterations
+        syncs += res.host_syncs
+        d = res.x
+
+        def trial(t):
+            xt = x + _in_dtype(t, dtype) * d
+            ft = F(xt)
+            return xt, ft, tree_norm(ft)
+
+        def accepted_at(t, nt_f):
+            return nt_f <= (1.0 - armijo * t) * fnorm_f and math.isfinite(nt_f)
+
+        t = 1.0
+        xt, ft, nt = trial(t)
+        nt_f = float(nt)
+        syncs += 1
+        if line_search:
+            k = 0
+            while not accepted_at(t, nt_f) and k < max_backtracks:
+                t *= 0.5
+                k += 1
+                xt, ft, nt = trial(t)
+                nt_f = float(nt)
+                syncs += 1
+            accepted = accepted_at(t, nt_f)
+        else:
+            accepted = math.isfinite(nt_f)
+
+        fnorm_prev_f, eta_prev = fnorm_f, eta
+        if accepted:
+            x, fx, fnorm, fnorm_f = xt, ft, nt, nt_f
+        history.append(fnorm_f)
+        if fnorm_f < tol_r:
+            status = int(SolverStatus.CONVERGED)
+        if status == SolverStatus.MAX_ITERATIONS and not accepted:
+            status = int(SolverStatus.BREAKDOWN)
+        i += 1
+
+    hist = torch.tensor(history + [fnorm_f] * (max_newton - i), dtype=rdtype,
+                        device=x0.device)
+    return NewtonResult(x=x, iterations=i, residual=fnorm, status=status,
+                        residual_history=hist, inner_iterations=inner_tot,
+                        host_syncs=syncs, jv_products=jv[0])

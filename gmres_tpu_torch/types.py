@@ -1,7 +1,7 @@
 """Core result/status types of the PyTorch port.
 
 Counterpart of ``gmres_tpu/types.py``: the same status codes and the same
-GMRES, CG and block result fields, as plain dataclasses over tensors (no pytree
+GMRES, CG, Newton and block result fields, as plain dataclasses over tensors (no pytree
 registration is needed in eager PyTorch).
 """
 
@@ -120,6 +120,48 @@ class GmresResult:
         comparison with ``gmres_tpu``."""
         return _fields_numpy(self, ("x", "iterations", "restarts", "residual",
                                     "status", "residual_history", "v_err"))
+
+
+@dataclasses.dataclass(frozen=True)
+class NewtonResult:
+    """Result of a Jacobian-free Newton-Krylov solve
+    (``solvers/newton_krylov.py``).
+
+    Attributes (the fields of ``gmres_tpu.NewtonResult``):
+      x: solution with ‖F(x)‖₂ ≤ tol (on CONVERGED).
+      iterations: Newton steps performed.
+      residual: final ‖F(x)‖₂, a 0-d tensor, always freshly evaluated at
+        the returned x.
+      status: SolverStatus code; BREAKDOWN = the Armijo line search found
+        no decreasing step (stagnation or NaN).
+      residual_history: (max_newton,) per-step ‖F‖₂, padded with the final
+        value.
+      inner_iterations: linear inner iterations summed over the Newton
+        steps, counted as gmres_tpu counts them.
+
+    Beyond the JAX fields:
+      host_syncs: device→host reads of the Newton loop itself (‖F‖ once a
+        trial point) plus the inner solves' own.
+      jv_products: J·v applications the inner solves made.
+    """
+
+    x: torch.Tensor
+    iterations: int
+    residual: torch.Tensor
+    status: int
+    residual_history: torch.Tensor
+    inner_iterations: int
+    host_syncs: int = 0
+    jv_products: int = 0
+
+    @property
+    def converged(self) -> bool:
+        return self.status == SolverStatus.CONVERGED
+
+    def to_numpy(self) -> dict:
+        """The JAX result fields as numpy values."""
+        return _fields_numpy(self, ("x", "iterations", "residual", "status",
+                                    "residual_history", "inner_iterations"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -84,6 +84,19 @@ RUNS = {
     # JAX's default solver, block CG.
     "multirhs-block-cg": ["multirhs", "--nsize", "16", "--s-list", "1,3"],
     "varcoef": ["varcoef", "--nsize", "24"],
+    # Helmholtz: MINRES with the SPD cycle (23 against 24 steps: M's last
+    # bits, tests/test_torch_helmholtz.py), the complex CSL route and the
+    # split route's GCRO-DR; Bratu with the FGMRES and GCRO-DR inner
+    # solvers; QMR with the derived transpose (16²: unpreconditioned QMR
+    # stalls above the absolute 1e-9 from 64² on, in gmres_tpu too).
+    "helmholtz-mg": ["helmholtz", "--nsize", "32"],
+    "helmholtz-csl": ["helmholtz", "--nsize", "32", "--precond", "csl"],
+    "helmholtz-split-gcrodr": ["helmholtz", "--nsize", "32", "--precond", "csl",
+                               "--precision", "split", "--solver", "gcrodr", "--restart",
+                               "40", "--deflate", "5"],
+    "bratu": ["bratu", "--nsize", "32"],
+    "bratu-gcrodr": ["bratu", "--nsize", "32", "--inner", "gcrodr", "--precond", "none"],
+    "convdiff-qmr": ["convdiff", "--nsize", "16", "--solver", "qmr"],
 }
 # Two gloo ranks, and JAX's rows on two devices.
 RUNS_2 = {
@@ -173,12 +186,92 @@ def test_weak_scaling_mg_on_two_ranks_raises(two_ranks):
         assert msg.startswith("NotImplementedError:") and "item 8" in msg
 
 
-@pytest.mark.parametrize("solver,item", [("qmr", "item 9.4")])
-def test_unported_convdiff_solver_exits(solver, item, capsys):
+@pytest.mark.parametrize("solver,precond", [("qmr", "mg")])
+def test_unported_convdiff_solver_exits(solver, precond, capsys):
+    """qmr with the multigrid cycle exits with gmres_tpu's message (the
+    cycle has no transpose rule); qmr itself is ported (RUNS)."""
+    argv = ["convdiff", "--nsize", "16", "--solver", solver, "--precond", precond]
     with pytest.raises(SystemExit) as exc:
-        port_main(["convdiff", "--nsize", "16", "--solver", solver, "--device", "cpu"])
-    assert item in str(exc.value.code)
+        port_main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit) as jax_exc:
+        jax_main(argv)
+    assert str(exc.value.code) == str(jax_exc.value.code)
+    assert "no transpose rule" in str(exc.value.code)
     assert "solver" not in capsys.readouterr().out  # no table: nothing ran
+
+
+def test_helmholtz_solver_label_fault_is_pinned(tmp_path):
+    """gmres_tpu's helmholtz program runs MINRES for --solver gcrodr with
+    the SPD cycle and names the row gcrodr (ROADMAP queue 3); the port's
+    takes choices and exits on a solver it would not run."""
+    argv = ["helmholtz", "--nsize", "16", "--solver", "gcrodr"]
+    jax_jsonl = str(tmp_path / "jax.jsonl")
+    jax_main(argv + ["--jsonl", jax_jsonl])
+    (row,) = _rows(jax_jsonl)
+    minres = str(tmp_path / "minres.jsonl")
+    jax_main(["helmholtz", "--nsize", "16", "--jsonl", minres])
+    assert row["name"] == "gcrodr-helmholtz-16x16"
+    assert row["iterations"] == _rows(minres)[0]["iterations"]  # MINRES's count
+    with pytest.raises(SystemExit) as exc:
+        port_main(argv + ["--device", "cpu"])
+    assert "CSL route only" in str(exc.value.code)
+    with pytest.raises(SystemExit):
+        port_main(["helmholtz", "--solver", "bicg", "--device", "cpu"])
+
+
+def test_helmholtz_gcrodr_count_mirrors_jax(tmp_path, monkeypatch):
+    """The gcrodr arm's total_inner is gmres_tpu's (restarts − 1)·restart +
+    iterations (mirrored, so that rows compare; ROADMAP queue 3), which
+    overstates the steps GCRO-DR ran: a recycled cycle runs restart − k."""
+    from gmres_tpu_torch.solvers import gcrodr as gcrodr_module
+
+    argv = RUNS["helmholtz-split-gcrodr"]
+    applications = []
+    inner = gcrodr_module.gcrodr
+
+    def counted(A, b, **kw):
+        calls = [0]
+
+        def op(v):
+            calls[0] += 1
+            return A(v)
+
+        res = inner(op, b, **kw)
+        applications.append(calls[0])
+        return res
+
+    monkeypatch.setattr(gcrodr_module, "gcrodr", counted)
+    port_jsonl, jax_jsonl = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
+    port_main(argv + ["--device", "cpu", "--jsonl", port_jsonl])
+    jax_main(argv + ["--jsonl", jax_jsonl])
+    (p,), (j,) = _rows(port_jsonl), _rows(jax_jsonl)
+    restart = 40
+    assert p["total_inner"] == (p["restarts"] - 1) * restart + p["iterations"]
+    assert abs(p["total_inner"] - j["total_inner"]) <= 2
+    # The timed solve's operator applications are the k-row import (of the
+    # zero block) and one a step: the steps are fewer than total_inner.
+    k = 5
+    assert p["restarts"] >= 3 and applications[-1] - k < p["total_inner"]
+
+
+def test_sequence_program_matches_jax(tmp_path):
+    """GCRO-DR fresh and warm over two frequencies: the rows in order, by
+    name and frequency; the fresh rows' counts JAX's, the warm rows' cycles
+    within 15% (the host eigensolves split close harmonic Ritz values
+    otherwise than JAX: 132 cycles against 141 at a third, 11·λ_min)."""
+    argv = ["sequence", "--nsize", "24", "--k", "4", "--restart", "16", "--kh2-factors",
+            "10.0,10.5"]
+    port_jsonl, jax_jsonl = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
+    port_main(argv + ["--device", "cpu", "--jsonl", port_jsonl])
+    jax_main(argv + ["--jsonl", jax_jsonl])
+    port, ref = _rows(port_jsonl), _rows(jax_jsonl)
+    assert [(r["name"], r["kh2_factor"]) for r in port] == \
+        [(r["name"], r["kh2_factor"]) for r in ref]
+    for p, j in zip(port, ref):
+        assert p["status"] == (0 if j["residual"] < j["tol"] else 1)
+        assert abs(p["restarts"] - j["restarts"]) <= max(2, 0.15 * j["restarts"]), (p, j)
+        if p["name"].startswith("gcrodr-fresh"):
+            assert (p["restarts"], p["iterations"]) == (j["restarts"], j["iterations"])
 
 
 def test_solver_choices_are_validated():
@@ -203,7 +296,7 @@ def test_help_lists_the_programs():
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).stdout
     for program in ("dense-poisson", "hilbert", "poisson-mf", "cg", "bicgstab", "convdiff",
                     "strong-scaling", "weak-scaling", "restart-sweep", "multirhs",
-                    "varcoef", "roofline"):
+                    "varcoef", "roofline", "bratu", "helmholtz", "sequence"):
         assert program in out
 
 
@@ -232,6 +325,14 @@ import gmres_tpu_torch.solvers.sstep_cg, gmres_tpu_torch.solvers.chebyshev
 import gmres_tpu_torch.models.poisson3d, gmres_tpu_torch.models.anisotropic
 import gmres_tpu_torch.models.varcoef, gmres_tpu_torch.ops.tridiag
 import gmres_tpu_torch.precond.deflation
+import gmres_tpu_torch.models.helmholtz, gmres_tpu_torch.models.bratu
+import gmres_tpu_torch.solvers.qmr, gmres_tpu_torch.solvers.lsqr
+import gmres_tpu_torch.solvers.lsmr, gmres_tpu_torch.solvers.implicit
+import gmres_tpu_torch.solvers.newton_krylov
+gmres_tpu_torch.benchmarks.cli.main(["helmholtz", "--nsize", "16", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["bratu", "--nsize", "16", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["convdiff", "--nsize", "16", "--solver", "qmr",
+                                     "--device", "cpu"])
 gmres_tpu_torch.benchmarks.cli.main(["bicgstab", "--grids", "8:8:8", "--device", "cpu"])
 gmres_tpu_torch.benchmarks.cli.main(["restart-sweep", "--nsize", "12", "--ntests", "1",
                                      "--start", "5", "--tol", "1e-8", "--solver", "gmres-dr",

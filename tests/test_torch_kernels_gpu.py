@@ -1137,3 +1137,260 @@ def test_anisotropic_operator_is_k1(cuda_device):
     assert tst.stencil5_cuda.launches == before + 1
     torch.testing.assert_close(y.cpu(), tt.anisotropic_apply(x.cpu(), 0.01), rtol=0,
                                atol=1e-14)
+
+
+# ---------------------------------------------------------------------------
+# K1's autograd and torch.func rules (ops/stencil.py:Stencil5Grid), and the
+# solvers that reach them: Helmholtz, QMR/LSQR/LSMR, Newton-Krylov,
+# implicit_solve.
+# ---------------------------------------------------------------------------
+
+CONVDIFF = (4.0, -1.4, -0.6, -1.2, -0.8)  # convection_diffusion_coefs(0.4, 0.2)
+RULE_TOL = {torch.float64: 1e-13, torch.float32: 2e-5}
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("coefs", [tst.POISSON_COEFS, CONVDIFF], ids=["poisson", "convdiff"])
+def test_k1_backward_is_one_mirrored_launch(cuda_device, dtype, coefs):
+    """torch.func.vjp through K1: the primal is one launch, each pullback
+    one more (the stencil with west↔east, south↔north), equal to the plain
+    stencil's autograd on the card; the adjoint identity holds."""
+    n = 1024
+    x = to_torch(seeded(70, (n, n)), cuda_device).to(dtype)
+    y = to_torch(seeded(71, (n, n)), cuda_device).to(dtype)
+    before = tst.stencil5_cuda.launches
+    ax, pull = torch.func.vjp(lambda v: tst.stencil_5pt_pallas(v, coefs), x)
+    (aty,) = pull(y)
+    (aty2,) = pull(y)
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches == before + 3
+    _, pull_p = torch.func.vjp(lambda v: tst.stencil_5pt_general(v, *coefs), x)
+    assert _rel(aty, pull_p(y)[0]) <= RULE_TOL[dtype]
+    assert torch.equal(aty, aty2)
+    # ⟨A x, y⟩ = ⟨x, Aᵀ y⟩, relative to ‖A x‖‖y‖.
+    lhs = torch.sum(ax.double() * y.double())
+    rhs = torch.sum(x.double() * aty.double())
+    scale = torch.linalg.norm(ax.double()) * torch.linalg.norm(y.double())
+    assert float((lhs - rhs).abs() / scale) <= RULE_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k1_jvp_is_one_launch(cuda_device, dtype):
+    n = 1024
+    x = to_torch(seeded(72, (n, n)), cuda_device).to(dtype)
+    t = to_torch(seeded(73, (n, n)), cuda_device).to(dtype)
+    before = (tst.stencil5_cuda.launches, dict(tst.Stencil5Grid.rule_applications))
+    _, jv = torch.func.jvp(lambda v: tst.stencil_5pt_pallas(v, CONVDIFF), (x,), (t,))
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches == before[0] + 2  # primal and tangent
+    assert tst.Stencil5Grid.rule_applications["tangent"] == before[1]["tangent"] + 1
+    _, jv_p = torch.func.jvp(lambda v: tst.stencil_5pt_general(v, *CONVDIFF), (x,), (t,))
+    assert _rel(jv, jv_p) <= RULE_TOL[dtype]
+
+
+def test_k1_coefficient_gradient_matches_plain(cuda_device):
+    """A tensor coefficient keeps its gradient on the card: Σ ȳ·shiftₖ(x),
+    against the plain stencil's autograd; the launch is the primal only."""
+    n = 512
+    x = to_torch(seeded(74, (n, n)), cuda_device)
+    g = to_torch(seeded(75, (n, n)), cuda_device)
+    c_k = torch.tensor(CONVDIFF, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    c_p = torch.tensor(CONVDIFF, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    before = tst.stencil5_cuda.launches
+    (gk,) = torch.autograd.grad(torch.sum(tst.stencil_5pt_pallas(x, c_k) * g), c_k)
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches == before + 1
+    (gp,) = torch.autograd.grad(torch.sum(tst.stencil_5pt_general(x, *c_p.unbind()) * g), c_p)
+    torch.testing.assert_close(gk, gp, rtol=1e-12, atol=0)
+
+
+def test_kernels_without_rules_refuse_transforms(cuda_device):
+    """K2, K1's halo form, K1rr, K1cr, K3, K5, K6 and K7 raise a named error
+    under autograd or torch.func, before any launch, for a tracked operand
+    and for a tracked stencil coefficient alike (the launch reads its value
+    and would drop its gradient)."""
+    n = 64
+    r = to_torch(seeded(76, (n, n)), cuda_device)
+    tracked = r.clone().requires_grad_()
+    c = torch.tensor(CONVDIFF, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    theta, _, steps = tfu.chebyshev_k_scalars(0.5, 8.0, 3)
+    dia = tt.sparse_operator(tt.poisson_dia(n, device=cuda_device))
+    counters = (tst.stencil5_cuda, tst.residual_restrict_cuda, tst.correct_residual_cuda,
+                tfu.chebk_cuda, tsp.dia_spmv_cuda, tfu.cheb2_cuda, tst.stencil5_dd_cuda,
+                tfu.axpy_dot_cuda)
+    before = [k.launches for k in counters]
+    calls = {
+        "K2": lambda: torch.func.vjp(lambda v: tfu.chebk_cuda(v, theta, steps), r),
+        "K1": lambda: tst.stencil5_cuda(tracked, r[0], None),
+        "K1rr": lambda: tst.residual_restrict_cuda(tracked, r),
+        "K1cr": lambda: torch.func.jvp(lambda e: tst.correct_residual_cuda(r, e, r[:32, :32])[1],
+                                       (r,), (r,)),
+        "K3": lambda: torch.func.vjp(dia, r.reshape(-1)),
+        "K5": lambda: tfu.cheb2_cuda(tracked, None, None, 4.2, 0.2),
+        "K7b": lambda: tfu.axpy_dot_cuda(0.5, tracked, r, r),
+    }
+    coef_calls = {
+        "K1": lambda: tst.stencil_5pt_pallas_halo(r, r[0], None, c),
+        "K1rr": lambda: tst.residual_restrict(r, r, c),
+        "K1cr": lambda: tst.correct_residual(r, r, r[:32, :32].contiguous(), c),
+        "K2": lambda: tfu.poly_stencil_smoother_pallas(r, theta, steps, c),
+        "K5": lambda: tfu.chebyshev_poisson_fused(r, None, None, 4.2, 0.2, c),
+        "K6": lambda: tst.stencil_5pt_dd_general_pallas_blocked(r.float(), r.float(), c),
+    }
+    for kernel, call in [*calls.items(), *coef_calls.items()]:
+        with pytest.raises(RuntimeError, match=f"kernel {kernel} .*ROADMAP: transposes of K2–K8"):
+            call()
+    with pytest.raises(RuntimeError, match="kernel K1 .*torch.func transform"):
+        torch.func.grad(lambda cv: tst.stencil_5pt_pallas_halo(r, r[0], None, cv).sum())(
+            c.detach())
+    torch.cuda.synchronize()
+    assert [k.launches for k in counters] == before
+
+
+def test_k1_full_grid_takes_the_function_only_when_tracked(cuda_device):
+    """stencil_5pt_pallas launches the wrapper directly where nothing
+    tracks x or a coefficient (no grad_fn, no rule applied), and through
+    Stencil5Grid where autograd does; the bits are the same."""
+    x = to_torch(seeded(77, (256, 256)), cuda_device)
+    before = (tst.stencil5_cuda.launches, dict(tst.Stencil5Grid.rule_applications))
+    y = tst.stencil_5pt_pallas(x, CONVDIFF)
+    xt = x.clone().requires_grad_()
+    yt = tst.stencil_5pt_pallas(xt, CONVDIFF)
+    torch.cuda.synchronize()
+    assert y.grad_fn is None and yt.grad_fn is not None
+    assert torch.equal(y, yt.detach())
+    assert tst.stencil5_cuda.launches == before[0] + 2
+    assert tst.Stencil5Grid.rule_applications == before[1]
+
+
+def test_qmr_on_the_card_launches_k1_twice_an_iteration(cuda_device):
+    """QMR on convdiff: Aᵀ is the pullback of torch.func.vjp through K1. K1
+    launches once for the vjp's primal, twice an iteration (A p, Aᵀ q) and
+    once for the certification; the count and x are the CPU's."""
+    n = 32
+    op = tt.convection_diffusion_operator(n, 0.4, 0.2)
+    b = op(torch.ones((n, n), dtype=torch.float64, device=cuda_device))
+    before = (tst.stencil5_cuda.launches, dict(tst.Stencil5Grid.rule_applications))
+    res = tt.qmr(op, b, tol=1e-9, max_iterations=3000)
+    torch.cuda.synchronize()
+    assert res.converged
+    launched = tst.stencil5_cuda.launches - before[0]
+    assert launched == 1 + 2 * res.iterations + 1
+    assert tst.Stencil5Grid.rule_applications["transpose"] - before[1]["transpose"] == \
+        res.iterations
+    cpu = tt.qmr(op, b.cpu(), tol=1e-9, max_iterations=3000)
+    assert abs(cpu.iterations - res.iterations) <= max(2, 0.05 * cpu.iterations)
+    torch.testing.assert_close(res.x.cpu(), cpu.x, rtol=0, atol=1e-6)
+
+
+def test_qmr_with_a_cycle_and_no_mt_raises_on_the_card(cuda_device):
+    """Deriving (M∘A)ᵀ through the multigrid cycle reaches K2 under
+    torch.func.vjp: a named error on the card (the CPU derives it from the
+    plain cycle; tests/test_torch_transpose_solvers.py)."""
+    n = 64
+    op = tt.convection_diffusion_operator(n, 0.4, 0.2)
+    b = op(torch.ones((n, n), dtype=torch.float64, device=cuda_device))
+    m = tt.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2)
+    with pytest.raises(RuntimeError, match="ROADMAP: transposes of K2–K8"):
+        tt.qmr(op, b, tol=1e-8, M=m)
+    mt = tt.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2, transpose=True)
+    assert tt.qmr(op, b, tol=1e-8, M=m, MT=mt).converged
+
+
+@pytest.mark.parametrize("name", ["lsqr", "lsmr"])
+def test_least_squares_on_the_card_match_cpu(cuda_device, name):
+    n = 24
+    op = tt.convection_diffusion_operator(n, 0.4, 0.2)
+    b = op(torch.ones((n, n), dtype=torch.float64, device=cuda_device))
+    before = tst.stencil5_cuda.launches
+    res = getattr(tt, name)(op, b, tol=1e-9)
+    torch.cuda.synchronize()
+    # The vjp's primal and the first Aᵀ u, A and Aᵀ an iteration, A and Aᵀ at
+    # the certification.
+    assert tst.stencil5_cuda.launches - before == 2 + 2 * res.iterations + 2
+    cpu = getattr(tt, name)(op, b.cpu(), tol=1e-9)
+    assert res.converged and abs(cpu.iterations - res.iterations) <= 2
+
+
+def test_newton_krylov_on_the_card_two_k1_a_jv(cuda_device):
+    """J·v = torch.func.jvp of the Bratu residual: one K1 for the primal,
+    one for the tangent; Newton and inner counts are the CPU's."""
+    n = 64
+    F = tt.bratu_residual(n, 6.0)
+    x0 = torch.zeros((n, n), dtype=torch.float64, device=cuda_device)
+    calls = [0]
+
+    def Fc(u):
+        calls[0] += 1
+        return F(u)
+
+    before = (tst.stencil5_cuda.launches, dict(tst.Stencil5Grid.rule_applications))
+    res = tt.newton_krylov(Fc, x0, tol=1e-10, M=tt.poisson_multigrid_preconditioner(n))
+    torch.cuda.synchronize()
+    assert res.converged
+    tangents = tst.Stencil5Grid.rule_applications["tangent"] - before[1]["tangent"]
+    assert tangents == res.jv_products
+    assert tst.stencil5_cuda.launches - before[0] == calls[0] + res.jv_products
+    cpu = tt.newton_krylov(F, x0.cpu(), tol=1e-10, M=tt.poisson_multigrid_preconditioner(n))
+    assert (cpu.iterations, cpu.inner_iterations) == (res.iterations, res.inner_iterations)
+    torch.testing.assert_close(res.x.cpu(), cpu.x, rtol=0, atol=1e-10)
+
+
+def test_implicit_gradient_on_the_card_matches_central_differences(cuda_device):
+    """A(γ) the convdiff operator with γ a tensor: the θ pullback reaches
+    K1's coefficient rule, the adjoint solve K1's backward rule."""
+    import functools
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_apply
+
+    n = 32
+    b = to_torch(seeded(77, (n, n)), cuda_device)
+    target = to_torch(seeded(78, (n, n)), cuda_device)
+    solve = functools.partial(tt.gmres, restart=30, tol=1e-12, max_restarts=200,
+                              compute_v_err=False)
+
+    def loss(gm):
+        x = tt.implicit_solve(lambda g: (lambda v: convection_diffusion_apply(v, g, 0.2)),
+                              gm, b, solver=solve)
+        return torch.sum((x - target) ** 2)
+
+    g0 = torch.tensor(0.35, dtype=torch.float64, device=cuda_device, requires_grad=True)
+    before = tst.Stencil5Grid.rule_applications["transpose"]
+    (g,) = torch.autograd.grad(loss(g0), g0)
+    assert tst.Stencil5Grid.rule_applications["transpose"] > before
+    eps = 1e-6
+    with torch.no_grad():
+        fd = (loss(g0.detach() + eps) - loss(g0.detach() - eps)) / (2 * eps)
+    assert abs(float(g) - float(fd)) <= 1e-5 * abs(float(fd))
+
+
+def test_helmholtz_on_the_card_matches_cpu(cuda_device):
+    """The SPD cycle (K2 smoothers, K1's V-cycle forms) and the split CSL
+    cycle (K1 neighbour stencils) on the card against their CPU versions;
+    MINRES's count within 2 of the CPU's."""
+    n = 64
+    kh2 = 10.0 * tt.helmholtz_lambda_min(n)
+    r = to_torch(seeded(79, (n, n)), cuda_device)
+    m = tt.helmholtz_shifted_laplacian_preconditioner(n, kh2)
+    before = (tst.stencil5_cuda.launches, tfu.chebk_cuda.launches,
+              tst.residual_restrict_cuda.launches)
+    z = m(r)
+    torch.cuda.synchronize()
+    assert tfu.chebk_cuda.launches > before[1] and tst.residual_restrict_cuda.launches > before[2]
+    assert _rel(z.cpu(), m(r.cpu())) <= 1e-12
+    csl = tt.csl_multigrid_preconditioner(n, kh2, layout="split")
+    u = torch.stack([r, 2 * r])
+    before = tst.stencil5_cuda.launches
+    zc = csl(u)
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches > before
+    assert _rel(zc.cpu(), csl(u.cpu())) <= 1e-12
+    op = tt.helmholtz_operator(n, kh2)
+    b = op(torch.ones((n, n), dtype=torch.float64, device=cuda_device))
+    res = tt.minres(op, b, tol=1e-9, M=m)
+    cpu = tt.minres(op, b.cpu(), tol=1e-9, M=m)
+    assert res.converged and abs(res.iterations - cpu.iterations) <= 2
