@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase17            # the build and phase 17 alone
     python3 chip_smoke.py --phase18            # the build and phase 18 alone
     python3 chip_smoke.py --phase19            # the build and phase 19 alone
+    python3 chip_smoke.py --phase20            # the build and phase 20 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -13,7 +14,7 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase17``, ``--phase18`` and ``--phase19`` modes build the kernels and run that
+The ``--phase17`` to ``--phase20`` modes build the kernels and run that
 phase alone, with its checks. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
@@ -245,6 +246,37 @@ phase alone, with its checks. Phases of the smoke run:
     states), host syncs, the median and quartiles of 3 timed solves, the
     launches (K1 split into forward, transpose and tangent) checked against
     the applications; one profiled solve per solver family.
+
+20. The eigensolvers, matrix functions, time steppers and the Nyström and
+    SPAI preconditioners, each row with the launch counts set to 0 after its
+    warm-up solve and read after its 3 timed solves (the median wall
+    printed, the launches of K1, K1rr, K1cr and K2 per solve, the host
+    syncs): the eig program's LOBPCG (Poisson, the V-cycle as M, k = 4) at
+    256² (tol 1e-8) and 1024² (tol 0, the rtol of
+    scripts/jax_phase20_counts.py), eigenvalues against the closed form and
+    each pair's residual recomputed in numpy; its Krylov–Schur on a complex
+    basis (2 K1 launches a complex matvec, counted), Krylov–Schur on a real
+    Schur basis and subspace iteration on convection-diffusion 256², k = 4,
+    steps 40, at most 200 cycles, at the program's γ = (2, 0.5) (timed;
+    eigenvalues not computable in float64 there, both packages end at the
+    cap: status and count against gmres_tpu's) and at the mild
+    EIG_MILD_GAMMA (Krylov–Schur converged, eigenvalues against the closed
+    form, cycles against gmres_tpu's; subspace iteration against the CPU
+    port on the same start and the closed form within its band), residuals
+    recomputed in numpy against the reported ones; one profiled solve of
+    each LOBPCG row and of each Krylov–Schur row at γ = (2, 0.5) (at most
+    PROFILE_CYCLES cycles); stochastic Lanczos quadrature of log det on
+    Poisson 512² with 8, 16 and 32 probes, 40 steps, against the closed-form
+    sum within 3 standard errors; the evolve program's trajectories at 256²,
+    50 steps (GCRO-DR on convection-diffusion, with and without the
+    σ-shifted cycle; each step's residual recomputed in numpy from a saved
+    trajectory) and exponential Euler on the heat equation against the
+    sine-transform solution; CG with the rank-64 Nyström preconditioner on
+    Poisson 512² (its λ̂ against gmres_tpu's, its M r − r against the CPU
+    port's on the same sketch) and BiCGSTAB with SPAI (from the
+    convection-diffusion CSR matrix) at 128², residuals in numpy; then the
+    eig (lobpcg, arnoldi, ks_real) and evolve programs at 64². Counts against gmres_tpu's CPU counts within the bands the
+    constants state.
 
 Phases 12–14 share one NCCL process group made by the script. Any failure
 raises and exits non-zero. The line before the last is the
@@ -573,6 +605,90 @@ JAX_PHASE19 = {
     "convdiff_qmr256_cap": [["qmr-convdiff-256x256", 2000, None, 4.92643881229037]],
     "lsqr128": (4361, 0),
     "lsmr128": (4183, 0),
+}
+
+# Phase 20: the eigensolvers, matrix functions, time steppers and the
+# Nyström and SPAI preconditioners. gmres_tpu's numbers for each row, from the
+# JAX package on the CPU (float64):
+#   JAX_PLATFORMS=cpu python3 scripts/jax_phase20_counts.py
+# which drives the same programs (eig with each method, slq, evolve) and
+# functions (nystrom_preconditioner under CG, spai_preconditioner under
+# BiCGSTAB). The eig program's start blocks, the slq probes and the Nyström
+# sketch are the port's own draws (torch Generators; gmres_tpu draws from
+# PRNGKeys no torch Generator reproduces), so the counts are held to bands:
+# LOBPCG's within 15% (at least 2); a Krylov–Schur count that ends at the
+# 200-cycle cap is held to the cap, one that converges within 15%; subspace
+# iteration runs its fixed 200 iterations; the evolve trajectories' inner
+# totals within 15% (GCRO-DR's host eigensolves split close harmonic Ritz
+# values otherwise than JAX's, as in phase 19); CG and BiCGSTAB with the
+# preconditioners within 15% (BICGSTAB_SPREAD: the count moves with the
+# reductions' order).
+PHASE20_REPEATS = 3
+EIG_K = 4
+LOBPCG_BIG_N = 1024
+EIG_CD_N, EIG_GAMMA, EIG_STEPS = 256, (2.0, 0.5), 40
+# γ at which the 256² eigenvalues are computable: the operator is D T D⁻¹
+# with T symmetric and κ(D) ≈ 2·10³ here (≈ 10^122 at EIG_GAMMA).
+EIG_MILD_GAMMA = (0.02, 0.01)
+SLQ_N, SLQ_PROBES, SLQ_STEPS = 512, (8, 16, 32), 40
+EVOLVE_N, EVOLVE_STEPS = 256, 50
+NYSTROM_N, NYSTROM_RANK = 512, 64
+SPAI_N = 128
+LOBPCG_BAND = 0.15
+EIG_BANDS = {"arnoldi": 0.15, "ks_real": 0.15, "subspace": 0}
+EVOLVE_BAND = 0.15
+PRECOND_BAND = 0.15
+# The Nyström sketch's λ̂ ends against gmres_tpu's (another Gaussian sketch
+# of the same operator: 0.07% and 0.08% apart on the H100).
+NYSTROM_LAM_BAND = 0.01
+# Subspace iteration's 200 iterations at EIG_MILD_GAMMA leave its Ritz
+# values short of the clustered top (gmres_tpu 0.0176 from its start block,
+# the port 0.0174 on the CPU from its own): held to this distance.
+SUBSPACE_MILD_ERROR = 0.025
+# Krylov–Schur profiles cover at most this many restart cycles (a profile of
+# tens of thousands of kernels costs the profiler tens of seconds).
+PROFILE_CYCLES = 10
+# Exponential Euler at 256², 50 steps of e^{−Δt L} by 30 Lanczos steps each,
+# against the sine-transform solution.
+EXPM_ERROR = 1e-10
+# With the σ-shifted cycle as M, GCRO-DR's tol is on the preconditioned
+# residual; the numpy check of the unpreconditioned ‖rhs − S u‖/‖rhs‖ of
+# each step is held to this.
+EVOLVE_MG_NUMPY = 1e-6
+JAX_PHASE20 = {
+    # (rtol, iterations)
+    "lobpcg256": (0.0, 23),
+    "lobpcg1024": (1e-4, 20),
+    # At the program's defaults neither Krylov–Schur converges in 200 cycles
+    # in gmres_tpu (worst residual 0.0257 and 0.169): with κ(D) ≈ 10^122 the
+    # Ritz values wander on the pseudospectrum, and where a run ends at the
+    # cap is set by its rounding (the port's residuals there differ).
+    "arnoldi256": [{"iterations": 200, "converged": False, "linf_error": 2.1589917780913783,
+                    "residual": 0.02571018426771497}],
+    "ksreal256": [{"iterations": 200, "converged": False, "linf_error": 1.1764726840207234,
+                   "residual": 0.16934078648278386}],
+    "subspace256": [{"iterations": 200, "converged": False, "linf_error": 3.8412167500474066}],
+    # At EIG_MILD_GAMMA both Krylov–Schur bases converge; subspace iteration
+    # runs its 200 iterations (its row carries no converged flag).
+    "arnoldi256_mild": [{"iterations": 69, "converged": True, "linf_error": 2.723973867370504e-09,
+                         "residual": 3.244488103942884e-09}],
+    "ksreal256_mild": [{"iterations": 67, "converged": True, "linf_error": 1.0197210187357086e-08,
+                        "residual": 9.413963754428227e-09}],
+    "subspace256_mild": [{"iterations": 200, "converged": False,
+                          "linf_error": 0.017606006879864466}],
+    "slq512": [{"value": 306299.2263552081, "stderr": 110.12916621178493},
+               {"value": 305853.5488507596, "stderr": 153.63959394978698},
+               {"value": 306062.38715083024, "stderr": 114.45467657494768}],
+    "evolve256": [{"iterations": 3763, "iters_step0": 74, "iters_last": 71,
+                   "residual": 9.944165143759097e-10}],
+    "evolve256_mg": [{"iterations": 1020, "iters_step0": 22, "iters_last": 18,
+                      "residual": 9.684941925359981e-10}],
+    "evolve256_expm": [{"iterations": 1500, "residual": 3.4865863234666942e-15}],
+    # Nyström on a mesh Laplacian: the sketch holds the top of the spectrum,
+    # CG's trouble is the bottom (gmres_tpu/precond/nystrom.py): no gain.
+    "nystrom512": {"iterations": 1038, "plain_iterations": 1038,
+                   "lam_max": 6.093317635049643, "lam_min": 5.974865390838207},
+    "spai128": {"iterations": 139, "plain_iterations": 258},
 }
 
 
@@ -4255,6 +4371,501 @@ def phase_transpose(gt_torch, rng, dev, workdir):
     return launches, rules + rows
 
 
+def p20_run(label, solve, repeats=PHASE20_REPEATS, warmup=None):
+    """A warm-up (`warmup`, a shorter run of the same solver where given,
+    else the solve), then `repeats` timed solves with the launch counts set
+    to 0 just before them and read just after; returns the last result, the
+    times, the counts over the timed solves and the median."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (warmup or solve)()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    mg_counters(reset=True)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    count = mg_counters()
+    print(f"phase 20: {label}: wall s over {repeats}: {quartiles(times)} (warm-up "
+          f"{t_warm:.4f}); launches per solve "
+          + ", ".join(f"{k} {count[k] / repeats:g}" for k in KERNELS) + "; K2 by path "
+          + ", ".join(f"{p} {count[f'K2 {p}'] / repeats:g}" for p in ("cluster", "tiled", "sweep")),
+          flush=True)
+    return res, times, count, float(np.median(times))
+
+
+def p20_profile(solve, label, med):
+    """profile_solve for a result without a residual field."""
+    import types
+
+    return profile_solve(lambda: (solve(), types.SimpleNamespace(residual=0.0))[1], label, med)
+
+
+def p20_record(label, res, times, count, **extra):
+    return {"label": label, "status": int(getattr(res, "status", 0)), "times": times,
+            "launches": count,
+            "launches_per_solve": {k: count[k] / PHASE20_REPEATS for k in KERNELS},
+            "host_syncs": getattr(res, "host_syncs", None), **extra}
+
+
+def p20_counts(label, got, jax, band):
+    """family_counts for phase 20 (a band below 1 is a share of gmres_tpu's
+    count, at least 2)."""
+    if band < 1:
+        band = max(2, int(band * jax))
+    family_counts(label, got, jax, band, phase="phase 20")
+
+
+def poisson_smallest(n, k):
+    """The k smallest eigenvalues of the n² Dirichlet Poisson stencil."""
+    import numpy as np
+
+    c = 2.0 - 2.0 * np.cos(np.arange(1, k + 2) * np.pi / (n + 1))
+    return np.sort((c[:, None] + c[None, :]).ravel())[:k]
+
+
+def lobpcg_rows(gt_torch, dev):
+    """The eig program's LOBPCG (Poisson, the V-cycle as M, float64, k = 4,
+    its start block) at 256² (tol 1e-8) and at 1024² (tol 0 and the rtol of
+    scripts/jax_phase20_counts.py): eigenvalues within 1e-6 relative of the
+    closed form, each pair's residual recomputed in numpy under its
+    threshold, one profiled solve."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+
+    out = []
+    for key, n, tol, rtol in (("lobpcg256", 256, 1e-8, 0.0),
+                              ("lobpcg1024", LOBPCG_BIG_N, 0.0, JAX_PHASE20["lobpcg1024"][0])):
+        op = gt_torch.poisson_operator(n)
+        m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+        x0 = cli._program_normal((EIG_K, n, n), torch.float64, dev)
+        label = f"eig lobpcg poisson {n}x{n} mg k {EIG_K} tol {tol:g} rtol {rtol:g}"
+
+        def solve(op=op, m_inv=m_inv, x0=x0, tol=tol, rtol=rtol):
+            return gt_torch.lobpcg(op, x0, tol=tol, rtol=rtol, max_iterations=200, M=m_inv)
+
+        res, times, count, med = p20_run(label, solve)
+        lam = res.eigenvalues.cpu().numpy()
+        x = res.x.detach().cpu().numpy()
+        np_res = np.array([np.linalg.norm(np_stencil(x[i]) - lam[i] * x[i])
+                           for i in range(EIG_K)])
+        thresh = np.maximum(tol, rtol * np.abs(lam))
+        err = float(np.max(np.abs(np.sort(lam) - poisson_smallest(n, EIG_K))))
+        jax_it = JAX_PHASE20[key][1]
+        print(f"phase 20: {label}: status {res.status}, {res.iterations} iterations "
+              f"(gmres_tpu {jax_it}), host syncs {res.host_syncs}, numpy residuals "
+              f"{np.array2string(np_res, precision=3)} under "
+              f"{np.array2string(thresh, precision=3)}, max |λ − closed form| {err:.3e}",
+              flush=True)
+        require(res.status == 0 and np.all(np_res < thresh)
+                and err < 1e-6 * float(np.max(np.abs(lam))),
+                f"{label}: status {res.status}, {np_res}, {err}")
+        p20_counts(f"{label} iterations", res.iterations, jax_it, LOBPCG_BAND)
+        require(all(count[k] > 0 for k in KERNELS), f"{label}: launches {count}")
+        prof = p20_profile(solve, label, med)
+        out.append(p20_record(label, res, times, count, iterations=res.iterations,
+                              numpy_residuals=np_res.tolist(), eig_error=err, profile=prof))
+    return out
+
+
+def np_complex_apply(x, coefs):
+    """A real stencil on a complex grid, part by part, in numpy."""
+    import numpy as np
+
+    return (np_stencil_general(np.ascontiguousarray(x.real), coefs)
+            + 1j * np_stencil_general(np.ascontiguousarray(x.imag), coefs))
+
+
+def krylov_schur_rows(gt_torch, dev):
+    """The eig program's Krylov–Schur (complex basis), Krylov–Schur on a real
+    Schur basis and subspace iteration on convection-diffusion 256², k = 4,
+    steps 40, tol 1e-8, at most 200 cycles (the program's defaults and
+    start), at two γ:
+
+    * (2, 0.5), the program's default: the timed, host-bound rows. The
+      operator is D T D⁻¹ with T symmetric and κ(D) ≈ 10^122, so its
+      eigenvalues are not computable in float64: Ritz pairs with small
+      residuals sit on the pseudospectrum, neither package converges in 200
+      cycles, and where each ends is set by rounding (held to the cap and
+      to gmres_tpu's status only).
+    * EIG_MILD_GAMMA, κ(D) ≈ 2·10³: eigenvalues within κ(D)·tol ≈ 2e-5 of
+      the closed form once converged. Both Krylov–Schur bases converge:
+      status 0, each numpy residual under tol, eigenvalues within 1e-6
+      relative (8e-6) of the closed form, cycles within EIG_BANDS of
+      gmres_tpu's. Subspace iteration's fixed 200 iterations cannot converge
+      on this top spectrum (|λ₁₁/λ₄| ≈ 1 − 1.9e-4): its eigenvalues are held
+      to the CPU port's on the same start block within 1e-10 relative, and
+      to the closed form within SUBSPACE_MILD_ERROR.
+
+    Each pair's residual is recomputed in numpy against the reported one.
+    The operator's real applications are counted: on the complex basis 2 a
+    complex matvec, one K1 launch each."""
+    return (eig_cd_rows(gt_torch, dev, EIG_GAMMA, "", profile=True)
+            + eig_cd_rows(gt_torch, dev, EIG_MILD_GAMMA, "_mild", profile=False))
+
+
+def eig_cd_rows(gt_torch, dev, g, suffix, profile):
+    """krylov_schur_rows at one γ (JAX_PHASE20 keys with ``suffix``)."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.models.convection_diffusion import (
+        convection_diffusion_coefs,
+        convection_diffusion_eigenvalues,
+    )
+
+    n, steps, tol = EIG_CD_N, EIG_STEPS, 1e-8
+    coefs = convection_diffusion_coefs(*g)
+    op = gt_torch.convection_diffusion_operator(n, *g)
+    exact = convection_diffusion_eigenvalues(n, *g)
+    exact = cli._keyed(exact[np.argsort(-np.abs(exact))][:EIG_K])
+    out = []
+    for key, method in (("arnoldi256", "arnoldi"), ("ksreal256", "ks_real"),
+                        ("subspace256", "subspace")):
+        key += suffix
+        calls = {"A": 0}
+        a_counted = counted(op, calls, "A")
+        if method == "subspace":
+            probe = torch.ones((n, n), dtype=torch.float64, device=dev)
+
+            def solve(a=a_counted, probe=probe, max_restarts=None):
+                return gt_torch.subspace_eigs(a, probe, nev=EIG_K, guard=6, iters=200, tol=tol)
+        else:
+            fn = gt_torch.arnoldi_eigs if method == "arnoldi" else gt_torch.arnoldi_eigs_real
+            probe = cli._program_normal((n, n), torch.float64, dev)
+
+            def solve(a=a_counted, probe=probe, fn=fn, max_restarts=200):
+                return fn(a, probe, nev=EIG_K, steps=steps, which="LM", tol=tol,
+                          max_restarts=max_restarts)
+
+        label = f"eig {method} convdiff {n}x{n} gamma {g} k {EIG_K} steps {steps}"
+        # The warm-up applies the uncounted operator; for Krylov–Schur it is
+        # 2 cycles (nothing is compiled, and a full solve takes seconds).
+        res, times, count, med = p20_run(
+            label, solve, warmup=lambda: solve(a=op, max_restarts=2))
+        applications = calls["A"] // PHASE20_REPEATS
+        lam = res.eigenvalues.cpu().numpy()
+        x = res.x.detach().cpu().numpy()
+        np_res = np.array([np.linalg.norm(np_complex_apply(x[i], coefs) - lam[i] * x[i])
+                           for i in range(EIG_K)])
+        reported = res.residuals.cpu().numpy()
+        err = float(np.max(np.abs(cli._keyed(lam) - exact)))
+        jrow = JAX_PHASE20[key][0]
+        print(f"phase 20: {label}: status {res.status}, {res.iterations} iterations "
+              f"(gmres_tpu {jrow['iterations']}, converged {jrow['converged']}), host syncs "
+              f"{res.host_syncs}, real applications of A a solve {applications}, numpy "
+              f"residuals {np.array2string(np_res, precision=3)} (reported "
+              f"{np.array2string(reported, precision=3)}), max |λ − closed form| {err:.3e} "
+              f"(gmres_tpu {jrow['linf_error']:.3e})", flush=True)
+        require(np.all(np.abs(np_res - reported) <= 1e-10 + 1e-8 * reported),
+                f"{label}: numpy residuals {np_res} against {reported}")
+        if jrow["converged"]:
+            require(res.status == 0 and np.all(np_res < tol)
+                    and err < 1e-6 * np.max(np.abs(exact)),
+                    f"{label}: status {res.status}, {np_res}, {err}")
+        else:  # gmres_tpu ends at its cap too: held to its status
+            require(res.status == 1, f"{label}: status {res.status}")
+        p20_counts(f"{label} iterations", res.iterations, jrow["iterations"], EIG_BANDS[method])
+        require(count["K1"] == PHASE20_REPEATS * applications and count["K2"] == 0,
+                f"{label}: launches {count}, applications {calls}")
+        extra = {}
+        if method == "subspace" and suffix:
+            cpu = gt_torch.subspace_eigs(gt_torch.convection_diffusion_operator(n, *g),
+                                         probe.cpu(), nev=EIG_K, guard=6, iters=200, tol=tol)
+            lam_cpu = cpu.eigenvalues.numpy()
+            gap = float(np.max(np.abs(cli._keyed(lam) - cli._keyed(lam_cpu))))
+            print(f"phase 20: {label}: max |λ − the CPU port's| {gap:.3e}; max |λ − closed "
+                  f"form| {err:.3e} held to {SUBSPACE_MILD_ERROR:g}", flush=True)
+            require(gap < 1e-10 * float(np.max(np.abs(lam_cpu))) and err < SUBSPACE_MILD_ERROR,
+                    f"{label}: {gap} from the CPU port, {err} from the closed form")
+            extra["cpu_port_gap"] = gap
+        if method == "arnoldi":
+            k = min(max(EIG_K + 1, 2 * EIG_K), steps - 2)
+            matvecs = steps + (res.iterations - 1) * (steps - k) + EIG_K
+            print(f"phase 20: {label}: {matvecs} complex matvecs a solve, {applications} "
+                  f"real applications, {count['K1'] / PHASE20_REPEATS:g} K1 launches",
+                  flush=True)
+            require(applications == 2 * matvecs, f"{label}: not 2 K1 per complex matvec")
+            extra["complex_matvecs"] = matvecs
+        if method != "subspace" and profile:
+            capped = min(res.iterations, PROFILE_CYCLES)
+            extra["profile_cycles"] = capped
+            extra["profile"] = p20_profile(lambda: solve(max_restarts=capped),
+                                           f"{label}, {capped} cycles", med)
+        out.append(p20_record(label, res, times, count, iterations=res.iterations,
+                              numpy_residuals=np_res.tolist(), eig_error=err,
+                              applications=applications, **extra))
+    return out
+
+
+def slq_rows(gt_torch, dev):
+    """trace_funm(log) on Poisson 512² with 8, 16 and 32 probes, 40 steps
+    (the slq program's defaults; probes from a torch Generator seeded 0):
+    the log-det against the closed-form sum within 3 standard errors."""
+    import numpy as np
+    import torch
+
+    n = SLQ_N
+    c = 2.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+    exact = float(np.sum(np.log(c[:, None] + c[None, :])))
+    op = gt_torch.poisson_operator(n)
+    x_like = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    out = []
+    for p, jrow in zip(SLQ_PROBES, JAX_PHASE20["slq512"]):
+        label = f"slq logdet poisson {n}x{n} probes {p} steps {SLQ_STEPS}"
+        res, times, count, med = p20_run(label, lambda p=p: gt_torch.trace_funm(
+            op, torch.log, x_like, n_probes=p, steps=SLQ_STEPS, key=0))
+        value, stderr = float(res.value), float(res.stderr)
+        print(f"phase 20: {label}: {value:.6f} ± {stderr:.6f} against the closed form "
+              f"{exact:.6f} (gap {(value - exact) / stderr:+.2f} stderr; gmres_tpu's probes "
+              f"{jrow['value']:.6f} ± {jrow['stderr']:.6f}), host syncs {res.host_syncs}",
+              flush=True)
+        require(abs(value - exact) < 3 * stderr, f"{label}: {value} ± {stderr}, {exact}")
+        require(count["K1"] == PHASE20_REPEATS * p * SLQ_STEPS, f"{label}: launches {count}")
+        out.append(p20_record(label, res, times, count, value=value, stderr=stderr,
+                              closed_form=exact))
+    return out
+
+
+def evolve_rows(gt_torch, dev):
+    """The evolve program's trajectories at 256², 50 steps, through its own
+    setup (cli.evolve_problem): convection-diffusion with GCRO-DR steps
+    (recycling across steps), the same with the σ-shifted cycle, and the heat
+    equation by exponential Euler. The θ-method's last timed run keeps its
+    trajectory, and each step's ‖rhs − S u⁺‖/‖rhs‖ (GCRO-DR's relative
+    residual without M) is recomputed in numpy; exponential Euler is held to
+    the exact solution by the sine transform."""
+    import argparse
+
+    import numpy as np
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs
+
+    n = EVOLVE_N
+    defaults = dict(nsize=n, dt=1.0, steps=EVOLVE_STEPS, theta=0.5, model="convdiff",
+                    gamma_x=2.0, gamma_y=1.0, solver="gcrodr", tol=1e-9, restart=40, k=10,
+                    max_restarts=100, max_iterations=2000, expm_steps=30, precond="none")
+    out = []
+    for key, over in (("evolve256", {}), ("evolve256_mg", {"precond": "mg"}),
+                      ("evolve256_expm", {"model": "heat", "solver": "expm"})):
+        args = argparse.Namespace(**{**defaults, **over})
+        _, u0, solve = cli.evolve_problem(args, dev)
+        # The warm-up is a 2-step trajectory; the timed ones keep their states
+        # (50 references, stacked once at the end) for the numpy check.
+        _, _, warm = cli.evolve_problem(argparse.Namespace(**{**vars(args), "steps": 2}), dev)
+        label = (f"evolve {args.model} {args.solver} {n}x{n} {args.steps} steps precond "
+                 f"{args.precond}")
+        res, times, count, med = p20_run(label, lambda: solve(save_trajectory=True),
+                                         warmup=warm)
+        jrow = JAX_PHASE20[key][0]
+        u0_np = u0.cpu().numpy()
+        if args.solver == "expm":
+            s = np.sqrt(2.0 / (n + 1)) * np.sin(
+                np.outer(np.arange(1, n + 1), np.arange(1, n + 1)) * np.pi / (n + 1))
+            c = 2.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+            exact = s @ ((s @ u0_np @ s)
+                         * np.exp(-args.dt * args.steps * (c[:, None] + c[None, :]))) @ s
+            err = float(np.linalg.norm(res.u.cpu().numpy() - exact) / np.linalg.norm(exact))
+            est = float(res.error_estimates.max())
+            print(f"phase 20: {label}: relative error against the sine-transform solution "
+                  f"{err:.3e}; max Saad estimate {est:.3e} (gmres_tpu {jrow['residual']:.3e}); "
+                  f"host syncs {res.host_syncs}", flush=True)
+            require(err < EXPM_ERROR, f"{label}: error {err}")
+            require(count["K1"] == PHASE20_REPEATS * args.steps * args.expm_steps,
+                    f"{label}: launches {count}")
+            out.append(p20_record(label, res, times, count, error=err, estimate=est))
+            continue
+        coefs = convection_diffusion_coefs(args.gamma_x, args.gamma_y)
+        traj = res.trajectory.cpu().numpy()
+        step_c = args.theta * args.dt
+        ratios = []
+        prev = u0_np
+        for u in traj:
+            rhs = prev - (1.0 - args.theta) * args.dt * np_stencil_general(prev.copy(), coefs)
+            s_of = lambda v: v + step_c * np_stencil_general(v.copy(), coefs)  # noqa: E731
+            ratios.append(np.linalg.norm(rhs - s_of(u)) / np.linalg.norm(rhs))
+            prev = u
+        worst_np = float(max(ratios))
+        worst = float(res.residuals.max())
+        print(f"phase 20: {label}: status {res.status}, inner iterations {res.inner_total} "
+              f"(gmres_tpu {jrow['iterations']}), step 0 {int(res.iterations[0])} (gmres_tpu "
+              f"{jrow['iters_step0']}), last {int(res.iterations[-1])} (gmres_tpu "
+              f"{jrow['iters_last']}), worst step residual {worst:.3e} (numpy, unpreconditioned, "
+              f"‖rhs − S u‖/‖rhs‖: {worst_np:.3e}), host syncs "
+              f"{res.host_syncs}", flush=True)
+        limit = args.tol * 1.01 if args.precond == "none" else EVOLVE_MG_NUMPY
+        require(res.status == 0 and worst < args.tol and worst_np < limit,
+                f"{label}: {res.status}, {worst}, {worst_np}")
+        p20_counts(f"{label} inner iterations", res.inner_total, jrow["iterations"],
+                   EVOLVE_BAND)
+        require(count["K1"] > 0 and (count["K2"] > 0) == (args.precond == "mg"),
+                f"{label}: launches {count}")
+        out.append(p20_record(label, res, times, count, inner_total=res.inner_total,
+                              worst_step_residual=worst, worst_numpy_ratio=worst_np))
+    return out
+
+
+def np_csr_convdiff(n, coefs):
+    """(data, indices, indptr) of the 5-point matrix with these coefficients
+    (C-order flattening: west/east along a row, south/north across rows)."""
+    import numpy as np
+
+    c0, cw, ce, cs, cn = coefs
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    cols, vals = [], []
+    for di, dj, c in ((-1, 0, cs), (0, -1, cw), (0, 0, c0), (0, 1, ce), (1, 0, cn)):
+        ok = (i + di >= 0) & (i + di < n) & (j + dj >= 0) & (j + dj < n)
+        cols.append(np.where(ok, (i + di) * n + (j + dj), -1).ravel())
+        vals.append(np.full(n * n, c))
+    cols, vals = np.stack(cols, 1), np.stack(vals, 1)
+    keep = cols >= 0
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(1))]).astype(np.int32)
+    return vals[keep], cols[keep].astype(np.int32), indptr
+
+
+def preconditioner_rows(gt_torch, dev):
+    """The Nyström preconditioner (rank 64, its own sketch) under CG on
+    Poisson 512², b = A·1, tol 1e-9 absolute; SPAI from the convection-
+    diffusion CSR matrix at 128² under BiCGSTAB on the stencil, b = A·1, tol
+    1e-9: counts against gmres_tpu's, residuals recomputed in numpy, the
+    setup timed apart."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs
+
+    out = []
+    n = NYSTROM_N
+    op = gt_torch.poisson_operator(n)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    mg_counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_nys, lam = gt_torch.nystrom_preconditioner(op, torch.zeros_like(b), rank=NYSTROM_RANK)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    setup_count = mg_counters()
+    label = f"cg nystrom rank {NYSTROM_RANK} poisson {n}x{n}"
+    res, times, count, med = p20_run(label, lambda: gt_torch.cg(op, b, tol=1e-9, M=m_nys))
+    err = float(np.linalg.norm(b_np - np_stencil(res.x.cpu().numpy())))
+    jrow = JAX_PHASE20["nystrom512"]
+    print(f"phase 20: {label}: setup {setup:.4f} s ({setup_count['K1']} K1 launches: the "
+          f"sketch's matvecs), λ̂ [{float(lam[-1]):.4e}, {float(lam[0]):.4e}] (gmres_tpu "
+          f"[{jrow['lam_min']:.4e}, {jrow['lam_max']:.4e}]); status {res.status}, "
+          f"{res.iterations} iterations (gmres_tpu {jrow['iterations']}, unpreconditioned "
+          f"{jrow['plain_iterations']}), numpy ‖b − A x‖ {err:.3e}, host syncs "
+          f"{res.host_syncs}", flush=True)
+    require(res.status == 0 and err < 1e-9 * 1.01, f"{label}: {res.status}, {err}")
+    require(setup_count["K1"] == NYSTROM_RANK * 2, f"{label}: setup launches {setup_count}")
+    # CG's count cannot tell this M from the identity (its λ̂ all lie near 6:
+    # P⁻¹ moves a vector by ~1%), so the sketch and the application are held
+    # apart: λ̂'s ends to gmres_tpu's within NYSTROM_LAM_BAND (other sketches
+    # of the same operator), and M(r) − r for a fixed r to the CPU port's,
+    # built on the same sketch, within 1e-10 relative.
+    lam_np = lam.cpu().numpy()
+    ends = np.array([lam_np[-1], lam_np[0]])
+    jends = np.array([jrow["lam_min"], jrow["lam_max"]])
+    m_cpu, lam_cpu = gt_torch.nystrom_preconditioner(
+        gt_torch.poisson_operator(n), torch.zeros((n, n), dtype=torch.float64),
+        rank=NYSTROM_RANK)
+    r_np = np.random.default_rng(20).standard_normal((n, n))
+    dm = (m_nys(gt_torch.as_tensor(r_np, dev)).cpu().numpy() - r_np)
+    dm_cpu = m_cpu(torch.as_tensor(r_np)).numpy() - r_np
+    lam_gap = float(np.max(np.abs(lam_np - lam_cpu.numpy())) / lam_np[0])
+    apply_gap = float(np.linalg.norm(dm - dm_cpu) / np.linalg.norm(dm_cpu))
+    print(f"phase 20: {label}: λ̂ ends {np.array2string(ends, precision=6)} against "
+          f"gmres_tpu's {np.array2string(jends, precision=6)} (held to "
+          f"{NYSTROM_LAM_BAND:g} relative); ‖M r − r‖/‖r‖ {np.linalg.norm(dm) / np.linalg.norm(r_np):.3e}; "
+          f"card against the CPU port on the same sketch: λ̂ {lam_gap:.3e}, M r − r "
+          f"{apply_gap:.3e} relative", flush=True)
+    require(np.all(np.abs(ends - jends) <= NYSTROM_LAM_BAND * jends),
+            f"{label}: λ̂ ends {ends}, gmres_tpu {jends}")
+    require(lam_gap < 1e-10 and apply_gap < 1e-10,
+            f"{label}: card against CPU: λ̂ {lam_gap}, M r − r {apply_gap}")
+    p20_counts(f"{label} iterations", res.iterations, jrow["iterations"], PRECOND_BAND)
+    out.append(p20_record(label, res, times, count, iterations=res.iterations,
+                          numpy_residual=err, setup_s=setup, lam_ends=ends.tolist(),
+                          cpu_lam_gap=lam_gap, cpu_apply_gap=apply_gap))
+
+    n, g = SPAI_N, (0.4, 0.2)
+    coefs = convection_diffusion_coefs(*g)
+    data, indices, indptr = np_csr_convdiff(n, coefs)
+    csr = gt_torch.sparse_from_numpy("csr", {"data": data, "indices": indices,
+                                             "indptr": indptr}, (n * n, n * n), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_spai = gt_torch.spai_preconditioner(csr)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    op = gt_torch.convection_diffusion_operator(n, *g)
+    b_np = np_stencil_general(np.ones((n, n)), coefs)
+    b = gt_torch.as_tensor(b_np, dev)
+    label = f"bicgstab spai convdiff {n}x{n}"
+    res, times, count, med = p20_run(label, lambda: gt_torch.bicgstab(op, b, tol=1e-9, M=m_spai))
+    err = float(np.linalg.norm(b_np - np_stencil_general(res.x.cpu().numpy(), coefs)))
+    jrow = JAX_PHASE20["spai128"]
+    print(f"phase 20: {label}: setup {setup:.4f} s; status {res.status}, {res.iterations} "
+          f"iterations (gmres_tpu {jrow['iterations']}, unpreconditioned "
+          f"{jrow['plain_iterations']}), numpy ‖b − A x‖ {err:.3e}, host syncs "
+          f"{res.host_syncs}", flush=True)
+    require(res.status == 0 and err < 1e-9 * 1.01, f"{label}: {res.status}, {err}")
+    require(count["K1"] > 0, f"{label}: launches {count}")
+    p20_counts(f"{label} iterations", res.iterations, jrow["iterations"], PRECOND_BAND)
+    out.append(p20_record(label, res, times, count, iterations=res.iterations,
+                          numpy_residual=err, setup_s=setup))
+    return out
+
+
+def spectral_programs(gt_torch, dev, workdir):
+    """The eig program (LOBPCG and both Krylov–Schur bases) and the evolve
+    program at 64² on the card (each row converged)."""
+    from gmres_tpu_torch.benchmarks import cli
+
+    mg_counters(reset=True)
+    rows = []
+    for argv in (["eig", "--nsize", "64"], ["eig", "--nsize", "64", "--method", "arnoldi"],
+                 ["eig", "--nsize", "64", "--method", "ks_real"],
+                 ["evolve", "--nsize", "64", "--steps", "5"]):
+        rows += program_rows(cli, argv, workdir, phase="phase 20")
+    count = mg_counters()
+    require(count["K1"] > 0 and count["K2"] > 0, f"phase 20 programs: launches {count}")
+    return [{"label": "eig and evolve programs 64", "rows": rows, "launches": count}]
+
+
+def phase_spectral(gt_torch, dev, workdir):
+    """Phase 20: the eigensolvers, matrix functions, time steppers and the
+    Nyström and SPAI preconditioners. Returns the launches over the rows and
+    the rows."""
+    t_phase = time.perf_counter()
+    rows = []
+    rows += lobpcg_rows(gt_torch, dev)
+    rows += krylov_schur_rows(gt_torch, dev)
+    rows += slq_rows(gt_torch, dev)
+    rows += evolve_rows(gt_torch, dev)
+    rows += preconditioner_rows(gt_torch, dev)
+    rows += spectral_programs(gt_torch, dev, workdir)
+    launches = dict.fromkeys(mg_counters(), 0)
+    for r in rows:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 20: {seconds:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -4314,6 +4925,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase19"]:
         with tempfile.TemporaryDirectory() as workdir:
             phase_transpose(gt_torch, np.random.default_rng(SEED), dev, workdir)
+        return 0
+    if sys.argv[1:2] == ["--phase20"]:
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_spectral(gt_torch, dev, workdir)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -4403,7 +5018,9 @@ def main() -> int:
         short, _ = phase_short(gt_torch, dev, workdir)
         # Phase 19: Helmholtz and the solvers that need Aᵀ or J·v.
         p19, _ = phase_transpose(gt_torch, rng, dev, workdir)
-    print(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_run:.1f} s", flush=True)
+        # Phase 20: the eigensolvers, matrix functions and time steppers.
+        p20, _ = phase_spectral(gt_torch, dev, workdir)
+    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(rdma_records)
     records.update(cd_records)
@@ -4451,6 +5068,7 @@ def main() -> int:
     family_path = "GMRES family (phase 17)"
     short_path = "short-recurrence family and real models (phase 18)"
     p19_path = "Helmholtz, Aᵀ and J·v solvers (phase 19)"
+    p20_path = "eigensolvers, matrix functions, time steppers (phase 20)"
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -4462,7 +5080,7 @@ def main() -> int:
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
-               + short["K1"] + p19["K1"],
+               + short["K1"] + p19["K1"] + p20["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -4470,7 +5088,7 @@ def main() -> int:
                                  programs_path: programs["K1"],
                                  family_path: family["K1"],
                                  short_path: short["K1"],
-                                 p19_path: p19["K1"]},
+                                 p19_path: p19["K1"], p20_path: p20["K1"]},
                phase19_k1_by_role={
                    "forward": p19["K1"] - p19["K1 transpose"] - p19["K1 tangent"],
                    "transpose (backward rule, mirrored coefficients)": p19["K1 transpose"],
@@ -4482,43 +5100,46 @@ def main() -> int:
         report("K1rr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
-               + short["K1rr"] + p19["K1rr"],
+               + short["K1rr"] + p19["K1rr"] + p20["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
                                  programs_path: programs["K1rr"],
                                  family_path: family["K1rr"],
                                  short_path: short["K1rr"],
-                                 p19_path: p19["K1rr"]},
+                                 p19_path: p19["K1rr"], p20_path: p20["K1rr"]},
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
-               + short["K1cr"] + p19["K1cr"],
+               + short["K1cr"] + p19["K1cr"] + p20["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
                                  programs_path: programs["K1cr"],
                                  family_path: family["K1cr"],
                                  short_path: short["K1cr"],
-                                 p19_path: p19["K1cr"]},
+                                 p19_path: p19["K1cr"], p20_path: p20["K1cr"]},
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
-               mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"],
+               mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
+               + p20["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
                                     programs_path: programs["K2"],
                                     family_path: family["K2"],
                                     short_path: short["K2"],
-                                    p19_path: p19["K2"]},
+                                    p19_path: p19["K2"], p20_path: p20["K2"]},
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
                short_launches_by_path={p: short[f"K2 {p}"]
                                        for p in ("cluster", "tiled", "sweep")},
                phase19_launches_by_path={p: p19[f"K2 {p}"]
+                                         for p in ("cluster", "tiled", "sweep")},
+               phase20_launches_by_path={p: p20[f"K2 {p}"]
                                          for p in ("cluster", "tiled", "sweep")},
                path=[r["path"] for r in records["K2"]
                      if r["case"] == "K2 order 3 2048x2048 f32"][0],

@@ -53,7 +53,18 @@ The port covers, slice by slice (ROADMAP.md, queue 1):
   programs. On the card these differentiate through K1's full-grid route
   (``ops/stencil.py:Stencil5Grid``: backward one K1 launch with mirrored
   coefficients, jvp one K1 launch, tensor coefficients' gradients in
-  torch); every other kernel raises under autograd or ``torch.func``.
+  torch); every other kernel raises under autograd or ``torch.func``;
+* the eigensolvers and matrix functions: LOBPCG (``solvers/lobpcg.py``),
+  Krylov–Schur on a complex and on a real Schur basis (``arnoldi.py``,
+  ``krylov_schur_real.py``; the ordered Schur form from LAPACK on the host,
+  reordered by JAX's swap network, ``ops/hessenberg_eig.py``), subspace
+  iteration (``subspace_eigs.py``), f(A)·b, e^{−tA}·b and stochastic Lanczos
+  quadrature (``funm.py``), θ-method and exponential stepping
+  (``evolve.py``); the Nyström and SPAI preconditioners
+  (``precond/nystrom.py``, ``spai.py``); checkpointing and the debug checks
+  (``utils/checkpoint.py``, ``utils/debug.py``, not exported here, as in
+  ``gmres_tpu``); and the ``eig``, ``slq`` and ``evolve`` programs. They run
+  the kernels above through their operators and cycles and add none.
 
 Layout and public names mirror ``gmres_tpu`` (``ops/``, ``models/``,
 ``precond/``, ``solvers/``, ``types.py``). The package imports ``torch``
@@ -71,6 +82,7 @@ first use; on a CPU tensor each takes its plain PyTorch version.
 
 from gmres_tpu_torch.types import (
     BlockSolveResult,
+    EigResult,
     GmresResult,
     LinearOperator,
     NewtonResult,
@@ -80,6 +92,25 @@ from gmres_tpu_torch.types import (
     as_tensor,
 )
 from gmres_tpu_torch.solvers.qmr import qmr
+from gmres_tpu_torch.solvers.arnoldi import arnoldi_eigs
+from gmres_tpu_torch.solvers.krylov_schur_real import arnoldi_eigs_real
+from gmres_tpu_torch.solvers.lobpcg import lobpcg
+from gmres_tpu_torch.solvers.subspace_eigs import subspace_eigs
+from gmres_tpu_torch.solvers.funm import (
+    FunmResult,
+    TraceResult,
+    expm_multiply,
+    funm_lanczos,
+    trace_funm,
+)
+from gmres_tpu_torch.solvers.evolve import (
+    EvolveResult,
+    ExpEvolveResult,
+    exponential_evolve,
+    theta_evolve,
+)
+from gmres_tpu_torch.precond.nystrom import nystrom_preconditioner
+from gmres_tpu_torch.precond.spai import spai_matrix, spai_preconditioner
 from gmres_tpu_torch.solvers.lsmr import lsmr
 from gmres_tpu_torch.solvers.lsqr import lsqr
 from gmres_tpu_torch.solvers.newton_krylov import newton_krylov
@@ -210,6 +241,23 @@ from gmres_tpu_torch.parallel.halo import (
 
 __all__ = [
     "BlockSolveResult",
+    "EigResult",
+    "lobpcg",
+    "arnoldi_eigs",
+    "arnoldi_eigs_real",
+    "subspace_eigs",
+    "funm_lanczos",
+    "expm_multiply",
+    "trace_funm",
+    "FunmResult",
+    "TraceResult",
+    "theta_evolve",
+    "EvolveResult",
+    "exponential_evolve",
+    "ExpEvolveResult",
+    "nystrom_preconditioner",
+    "spai_matrix",
+    "spai_preconditioner",
     "GmresResult",
     "NewtonResult",
     "LinearOperator",

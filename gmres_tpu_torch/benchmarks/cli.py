@@ -31,6 +31,14 @@ flags:
   varcoef         CG on −∇·(c∇u) with two high-contrast inclusions: Jacobi,
                   the rediscretised multigrid cycle, each with and without
                   the inclusion-indicator coarse space (deflation)
+  eig             LOBPCG (Poisson, multigrid M), Krylov–Schur on a complex or
+                  real Schur basis, or subspace iteration (convection-
+                  diffusion), against the closed-form spectra
+  slq             log det of the Poisson operator by stochastic Lanczos
+                  quadrature, per probe count
+  evolve          θ-method trajectories (cg, bicgstab, gmres, gcrodr steps,
+                  optionally the σ-shifted multigrid cycle) or exponential
+                  Euler
   roofline        achieved bandwidth of the stencil routes (plain float32
                   and float64, kernel K1, kernel K6 on (hi, lo) pairs), of
                   the order-k Chebyshev smoother (kernel K2) and of the
@@ -850,6 +858,221 @@ def cmd_multirhs(args):
     return records
 
 
+def _program_normal(shape, dtype, dev) -> torch.Tensor:
+    """The eig program's standard-normal start (the Krylov–Schur probe, the
+    LOBPCG block): a CPU torch.Generator seeded 0, drawn in float64, where
+    JAX draws from PRNGKey(0) (no torch counterpart)."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float64).to(dev, dtype)
+
+
+def _keyed(v: np.ndarray) -> np.ndarray:
+    """Eigenvalues as a multiset free of the conjugate pair's sign: sorted by
+    (real, |imag|)."""
+    return np.sort_complex(v.real + 1j * np.abs(v.imag))
+
+
+def eig_row(args, dev):
+    """The eig program's solve and its row (the closed-form spectrum as the
+    reference): (row, result)."""
+    import math
+
+    from gmres_tpu_torch.models.convection_diffusion import (
+        convection_diffusion_eigenvalues,
+        convection_diffusion_operator,
+    )
+
+    n, k = args.nsize, args.k
+    nnz = 5 * n * n - 4 * n
+    if args.method == "lobpcg":
+        from gmres_tpu_torch.models.poisson import poisson_operator
+        from gmres_tpu_torch.precond.multigrid import poisson_multigrid_preconditioner
+        from gmres_tpu_torch.solvers.lobpcg import lobpcg
+
+        op = poisson_operator(n)
+        m_inv = poisson_multigrid_preconditioner(n) if args.precond == "mg" else None
+        x0 = _program_normal((k, n, n), torch.float64, dev)
+        res, dt = _timed(lambda: lobpcg(op, x0, tol=args.tol, rtol=args.rtol,
+                                        max_iterations=args.max_iterations, M=m_inv), dev)
+        lam = np.sort(res.eigenvalues.cpu().numpy())
+        # Candidates with i, j ≤ k+1 contain the k smallest.
+        m_idx = min(n, k + 1)
+        exact = np.sort([4.0 - 2 * math.cos(i * math.pi / (n + 1))
+                         - 2 * math.cos(j * math.pi / (n + 1))
+                         for i in range(1, m_idx + 1) for j in range(1, m_idx + 1)])[:k]
+        row = RunRecord(
+            name=f"lobpcg-poisson-{n}x{n}", nvars=n * n, iterations=int(res.iterations),
+            tol=args.tol, residual=float(torch.max(res.residuals)),
+            l2_error=float(np.linalg.norm(lam - exact)),
+            linf_error=float(np.max(np.abs(lam - exact))), wall_s=dt, nnz=nnz,
+            extra={"k": k, "eigenvalues": [float(v) for v in lam], "precond": args.precond,
+                   "converged": bool(res.converged), "status": int(res.status),
+                   "host_syncs": res.host_syncs})
+        return row, res
+    op = convection_diffusion_operator(n, args.gamma_x, args.gamma_y)
+    single = args.precision in (("f32", "c64", "mixed") if args.method == "arnoldi"
+                                else ("f32", "mixed"))
+    pdtype = torch.float32 if single else torch.float64
+    if args.method == "subspace":
+        from gmres_tpu_torch.solvers.subspace_eigs import subspace_eigs
+
+        probe = torch.ones((n, n), dtype=pdtype, device=dev)
+        res, dt = _timed(lambda: subspace_eigs(op, probe, nev=k, guard=6,
+                                               iters=args.max_iterations, tol=args.tol), dev)
+        name = f"subspace-eigs-convdiff-{n}x{n}"
+        extra = {"k": k, "which": "LM"}
+    else:
+        if args.method == "ks_real":
+            from gmres_tpu_torch.solvers.krylov_schur_real import arnoldi_eigs_real as fn
+
+            name = f"ksreal-convdiff-{n}x{n}"
+        else:
+            from gmres_tpu_torch.solvers.arnoldi import arnoldi_eigs as fn
+
+            name = f"krylovschur-convdiff-{n}x{n}"
+        probe = _program_normal((n, n), pdtype, dev)
+        res, dt = _timed(lambda: fn(op, probe, nev=k, steps=args.steps, which="LM",
+                                    tol=args.tol, max_restarts=args.max_iterations), dev)
+        extra = {"k": k, "which": "LM", "steps": args.steps}
+    got = res.eigenvalues.cpu().numpy()
+    exact = convection_diffusion_eigenvalues(n, args.gamma_x, args.gamma_y)
+    exact = exact[np.argsort(-np.abs(exact))][:k]
+    err = np.abs(_keyed(got) - _keyed(exact))
+    row = RunRecord(
+        name=name, nvars=n * n, iterations=int(res.iterations), tol=args.tol,
+        residual=float(torch.max(res.residuals)), l2_error=float(np.linalg.norm(err)),
+        linf_error=float(np.max(err)), wall_s=dt, nnz=nnz,
+        extra={**extra, "gamma": [args.gamma_x, args.gamma_y],
+               "eigenvalues": [[float(v.real), float(v.imag)] for v in got],
+               "precision": str(pdtype).replace("torch.", ""),
+               "converged": bool(res.converged), "status": int(res.status),
+               "host_syncs": res.host_syncs})
+    return row, res
+
+
+def cmd_eig(args):
+    """Eigenpairs against closed-form spectra: ``--method lobpcg`` (the k
+    smallest Poisson pairs by LOBPCG with the multigrid cycle as M),
+    ``arnoldi`` (the k largest-modulus pairs of the nonsymmetric
+    convection-diffusion operator by Krylov–Schur on a complex basis: on the
+    card, 2 K1 launches a complex matvec), ``ks_real`` (the same pairs by
+    Krylov–Schur on a real Schur basis) or ``subspace`` (real subspace
+    iteration, estimation grade on clustered moduli). The start block is a
+    torch Generator's (seed 0), where JAX's is PRNGKey(0)'s."""
+    dev = _device(args)
+    row, _ = eig_row(args, dev)
+    _emit([row], args)
+    return [row]
+
+
+def cmd_slq(args):
+    """Stochastic Lanczos quadrature of log det A = tr log A on the Poisson
+    operator at ``--nsize``: one row per probe count of ``--probes-list``
+    with the value, its Monte-Carlo standard error and the time per probe
+    (probes: a torch Generator seeded 0, where JAX's are PRNGKey(0)'s)."""
+    from gmres_tpu_torch.models.poisson import poisson_operator
+    from gmres_tpu_torch.solvers.funm import trace_funm
+
+    dev = _device(args)
+    n = args.nsize
+    op = poisson_operator(n)
+    x_like = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    records = []
+    for p in (int(v) for v in args.probes_list.split(",")):
+        out, dt = _timed(lambda p=p: trace_funm(op, torch.log, x_like, n_probes=p,
+                                               steps=args.steps, key=0), dev)
+        value, stderr = float(out.value), float(out.stderr)
+        records.append(RunRecord(
+            name=f"slq-logdet-poisson-{n}x{n}-p{p}", nvars=n * n, iterations=args.steps,
+            wall_s=dt, nnz=5 * n * n - 4 * n,
+            extra={"n_probes": p, "value": value, "stderr": stderr,
+                   "time_per_probe": dt / p,
+                   "rel_stderr": stderr / max(abs(value), 1e-30),
+                   "host_syncs": out.host_syncs}))
+    _emit(records, args)
+    return records
+
+
+def evolve_problem(args, dev):
+    """The evolve program's operator, u0 (numpy seed 0) and solve closure, as
+    the program configures them; the closure passes its keyword arguments
+    (``save_trajectory``) on to the integrator."""
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_operator
+    from gmres_tpu_torch.models.poisson import poisson_operator
+    from gmres_tpu_torch.precond.multigrid import (
+        convection_diffusion_multigrid_preconditioner,
+        helmholtz_shifted_laplacian_preconditioner,
+    )
+    from gmres_tpu_torch.solvers.evolve import exponential_evolve, theta_evolve
+
+    n = args.nsize
+    if args.model == "heat":
+        L = poisson_operator(n)
+    else:
+        L = convection_diffusion_operator(n, args.gamma_x, args.gamma_y)
+    u0 = torch.as_tensor(np.random.default_rng(0).standard_normal((n, n))).to(dev)
+    if args.solver == "expm":
+        if args.model != "heat":
+            raise SystemExit("--solver expm needs the SPD heat model")
+        return L, u0, lambda **kw: exponential_evolve(L, u0, dt=args.dt, n_steps=args.steps,
+                                                      steps=args.expm_steps, **kw)
+    M = None
+    if args.precond == "mg":
+        # S = I + θΔt·L = θΔt·(L + σI) with σ = 1/(θΔt): M_S(r) = cycle(r)/(θΔt)
+        # with the σ-shifted cycle (JAX's program passes kh2 = −σ to the
+        # Helmholtz cycle for the heat model; kept as it is).
+        sigma = 1.0 / (args.theta * args.dt)
+        if args.model == "convdiff":
+            cyc = convection_diffusion_multigrid_preconditioner(
+                n, args.gamma_x, args.gamma_y, shift=sigma)
+        else:
+            cyc = helmholtz_shifted_laplacian_preconditioner(n, -sigma)
+        scale = args.theta * args.dt
+        M = lambda r: cyc(r) / scale  # noqa: E731
+    return L, u0, lambda **kw: theta_evolve(
+        L, u0, dt=args.dt, n_steps=args.steps, theta=args.theta, solver=args.solver,
+        tol=args.tol, restart=args.restart, recycle_k=args.k,
+        max_restarts=args.max_restarts, max_iterations=args.max_iterations, M=M, **kw)
+
+
+def cmd_evolve(args):
+    """A trajectory of the heat equation (``--model heat``) or of
+    convection-diffusion (``--model convdiff``, the default) by the θ-method
+    with cg, bicgstab, gmres or gcrodr steps (GCRO-DR recycling across
+    steps; ``--precond mg`` the σ-shifted cycle, σ = 1/(θΔt)), or by
+    exponential Euler (``--solver expm``, heat only). u0 standard normal
+    (numpy seed 0)."""
+    import types
+
+    dev = _device(args)
+    n = args.nsize
+    _, _, solve = evolve_problem(args, dev)
+    res, dt_wall = _timed(solve, dev)
+    if args.solver == "expm":
+        iters = np.full((args.steps,), args.expm_steps)
+        row = types.SimpleNamespace(
+            x=res.u, iterations=args.expm_steps * args.steps,
+            residual=float(torch.max(res.error_estimates)), status=0)
+        converged = True
+    else:
+        iters = res.iterations.numpy()
+        row = types.SimpleNamespace(x=res.u, iterations=res.inner_total,
+                                    residual=float(torch.max(res.residuals)),
+                                    status=res.status)
+        converged = res.converged
+    record = _record(
+        f"evolve-{args.model}-{args.solver}-{n}x{n}", row, wall_s=dt_wall, tol=args.tol,
+        nnz=5 * n * n - 4 * n,
+        extra={"model": args.model, "solver": args.solver, "precond": args.precond,
+               "theta": args.theta, "dt": args.dt, "n_steps": args.steps,
+               "converged": bool(converged), "iters_step0": int(iters[0]),
+               "iters_last": int(iters[-1]), "iters_mean": float(iters.mean()),
+               "ms_per_step": dt_wall * 1e3 / args.steps,
+               "host_syncs": res.host_syncs})
+    _emit([record], args)
+    return [record]
+
+
 def varcoef_problem(n: int, contrast: float, dev: torch.device):
     """The ``varcoef`` program's problem on ``dev``: the coefficient field
     c (1 with two square inclusions of ``contrast``, the
@@ -1126,6 +1349,24 @@ def build_parser() -> argparse.ArgumentParser:
         max_iterations=20_000,
         help="CG on the variable-coefficient model with two high-contrast "
              "inclusions: jacobi, mg, each with and without deflation")
+    add("eig", cmd_eig, nsize=256, k=4, tol=1e-8, rtol=0.0, max_iterations=200,
+        precond="mg", method="lobpcg", gamma_x=2.0, gamma_y=0.5, steps=40,
+        precision="f64",
+        choices={"method": ("lobpcg", "arnoldi", "ks_real", "subspace"),
+                 "precision": ("f64", "f32", "mixed", "c64")},
+        help="eigenpairs against closed-form spectra: LOBPCG on Poisson with the "
+             "multigrid M, or Krylov-Schur (complex or real Schur basis) or "
+             "subspace iteration on convection-diffusion")
+    add("slq", cmd_slq, nsize=512, probes_list="8,16,32", steps=40,
+        help="stochastic Lanczos quadrature of log det A (Poisson) per probe count")
+    add("evolve", cmd_evolve, nsize=256, dt=1.0, steps=50, theta=0.5, model="convdiff",
+        gamma_x=2.0, gamma_y=1.0, solver="gcrodr", tol=1e-9, restart=40, k=10,
+        max_restarts=100, max_iterations=2000, expm_steps=30, precond="none",
+        choices={"model": ("heat", "convdiff"),
+                 "solver": ("cg", "bicgstab", "gmres", "gcrodr", "expm"),
+                 "precond": ("none", "mg")},
+        help="a θ-method (or exponential Euler) trajectory of the heat equation "
+             "or convection-diffusion, GCRO-DR recycling across steps")
     add("roofline", cmd_roofline, grids="1024,2048,4096", reps=20, cheb_order=8,
         help="achieved bandwidth of the stencil, smoother and V-cycle routes")
     return p

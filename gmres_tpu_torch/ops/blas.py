@@ -41,9 +41,14 @@ def as_plain(t: torch.Tensor) -> torch.Tensor:
 
 def row_contract(rows: torch.Tensor, v: torch.Tensor,
                  conj: bool = False) -> torch.Tensor:
-    """Basis contraction (R, *shape) × (*shape) → (R,): rowsᵢ·v."""
-    r = rows.conj() if conj else rows
-    return as_plain(r.reshape(r.shape[0], -1) @ v.reshape(-1))
+    """Basis contraction (R, *shape) × (*shape) → (R,): rowsᵢ·v, or
+    conj(rowsᵢ)·v with ``conj``. For a complex basis that is taken as
+    conj(rows·conj(v)): the same products and sums, without materialising
+    the conjugate of the whole basis."""
+    flat = rows.reshape(rows.shape[0], -1)
+    if conj and rows.is_complex():
+        return as_plain((flat @ v.reshape(-1).conj()).conj())
+    return as_plain(flat @ v.reshape(-1))
 
 
 def row_combine(coefs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -61,6 +66,38 @@ def row_apply(fn, rows: torch.Tensor) -> torch.Tensor:
     """fn on each row of the block (JAX's ``jax.vmap(fn)``): one call, and on
     the card one launch of fn's kernels, per row."""
     return torch.stack([fn(rows[i]) for i in range(rows.shape[0])])
+
+
+def _svqb(w: torch.Tensor, eps: float):
+    """One SVQB pass over the s long rows of w: (q, r) with orthonormal rows
+    q and w[b] = Σ_a r[a, b]·q[a] (r = S⁻¹, dense). Directions below
+    eps·λ_max are clamped and come out as orthonormalised noise with ~zero
+    weight."""
+    s = w.shape[0]
+    flat = w.reshape(s, -1)
+    g = flat.conj() @ flat.T
+    d = torch.sqrt(torch.clamp(torch.diagonal(g).real, min=0.0))
+    dinv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
+                       torch.zeros_like(d))
+    gs = g * dinv[:, None] * dinv[None, :]
+    # LAPACK refuses a non-finite input, where JAX's eigh returns NaN: the
+    # NaN is put back after, without reading the device.
+    finite = torch.isfinite(gs).all()
+    lam, u = torch.linalg.eigh(torch.where(finite, gs, torch.zeros_like(gs)))
+    lam = torch.where(finite, lam, torch.full_like(lam, float("nan")))
+    lmax = torch.clamp(lam[-1], min=eps)
+    lam_c = torch.maximum(lam, eps * lmax)
+    smat = (dinv[:, None] * u) / torch.sqrt(lam_c)[None, :]
+    q = torch.tensordot(smat, w, dims=([0], [0]))
+    r = (torch.sqrt(lam_c)[:, None] * u.T) * d[None, :]
+    return q, r
+
+
+def _orthonormalize_block(w: torch.Tensor, eps: float):
+    """SVQB twice: (q, H) with w[b] = Σ_a H[a, b]·q[a]."""
+    q1, r1 = _svqb(w, eps)
+    q2, r2 = _svqb(q1, eps)
+    return q2, r2 @ r1
 
 
 def tree_vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,20 @@ iteration is ported (the capability, not the workaround):
 * ``smallest_invariant_subspace`` is JAX's real subspace iteration on A⁻¹
   in plain torch. Its start block cannot be JAX's (``PRNGKey(7)`` has no
   torch counterpart): it comes from one seam, ``_subspace_start``.
+
+Krylov–Schur (``solvers/arnoldi.py``) needs the ordered complex Schur form
+of its (m, m) Rayleigh block. JAX computes it in-jit (Hessenberg reduction,
+shifted QR, then ``schur_sort``); here ``sorted_schur`` takes LAPACK's
+complex Schur form (``scipy.linalg.schur``, imported when first called) of
+a complex128 CPU copy and reorders it with JAX's own swap network,
+``schur_sort``, so the wanted order and its ties are JAX's. ``schur_eigvec``
+is JAX's masked back-substitution. All three are plain CPU functions on
+complex128 tensors: the matrices are at most a few dozen wide.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gmres_tpu_torch.ops.tri import solve_small
@@ -90,3 +100,76 @@ def smallest_invariant_subspace(a: torch.Tensor, k: int, *, iters: int = 40):
         z, _ = torch.linalg.qr(ai @ z)
     ok = torch.isfinite(z).all()
     return torch.where(ok, z, torch.zeros_like(z)), ok
+
+
+def schur_sort(t: torch.Tensor, q: torch.Tensor, key: torch.Tensor):
+    """Reorder a complex Schur form so that the diagonal appears in ascending
+    ``key`` order (key: (m,) real, computed by the caller from diag(t)).
+
+    JAX's network of adjacent swaps (``gmres_tpu/ops/hessenberg_eig.py:
+    schur_sort``, LAPACK ztrexc-style): pass s visits j = 0 … m−2−s; where
+    key[j] > key[j+1] the block [[a, c], [0, d]] is rotated by the unitary G
+    whose first column is the unit eigenvector (c, d − a) of d, which swaps
+    a and d; the keys ride along. Returns (t, q) as new complex128 CPU
+    tensors with T' = Gᴴ T G and Q' = Q G over all swaps.
+    """
+    t = t.detach().to("cpu", torch.complex128).numpy().copy()
+    q = q.detach().to("cpu", torch.complex128).numpy().copy()
+    key = key.detach().to("cpu", torch.float64).numpy().copy()
+    m = t.shape[0]
+    for s in range(m - 1):
+        for j in range(m - 1 - s):
+            if key[j] > key[j + 1]:
+                y1, y2 = t[j, j + 1], t[j + 1, j + 1] - t[j, j]
+                nrm = np.sqrt(abs(y1) ** 2 + abs(y2) ** 2)
+                if nrm > 0:
+                    g11, g21 = y1 / nrm, y2 / nrm
+                    g = np.array([[g11, -np.conj(g21)], [g21, np.conj(g11)]])
+                    # Rows j, j+1 of T ← Gᴴ T (zero left of column j); columns
+                    # j, j+1 of T (zero below row j+1) and of Q ← · G.
+                    t[j:j + 2, j:] = g.conj().T @ t[j:j + 2, j:]
+                    t[:j + 2, j:j + 2] = t[:j + 2, j:j + 2] @ g
+                    q[:, j:j + 2] = q[:, j:j + 2] @ g
+                key[j], key[j + 1] = key[j + 1], key[j]
+            t[j + 1, j] = 0.0
+    return torch.from_numpy(t), torch.from_numpy(q)
+
+
+def schur_eigvec(t: torch.Tensor, i: int) -> torch.Tensor:
+    """Unit eigenvector of the upper-triangular T for its i-th diagonal
+    eigenvalue: (T − t_ii I) y = 0 with y_i = 1 and y_j = 0 for j > i, by
+    back-substitution; a pivot below ε·(‖T‖_F + 1) is replaced by that value
+    (LAPACK ztrevc's perturbation; JAX's rule). Complex128, CPU."""
+    t = t.detach().to("cpu", torch.complex128).numpy()
+    m = t.shape[0]
+    lam = t[i, i]
+    floor = np.finfo(np.float64).eps * (np.sqrt(np.sum(np.abs(t) ** 2)) + 1.0)
+    y = np.zeros((m,), np.complex128)
+    y[i] = 1.0
+    for j in range(i - 1, -1, -1):
+        den = t[j, j] - lam
+        if abs(den) < floor:
+            den = floor
+        y[j] = -np.sum(t[j, j + 1:] * y[j + 1:]) / den
+    return torch.from_numpy(y / np.linalg.norm(y))
+
+
+def sorted_schur(s: torch.Tensor, key_fn):
+    """The ordered complex Schur form S = Z T Zᴴ of a small square matrix:
+    LAPACK's (``scipy.linalg.schur(…, output="complex")``) of a complex128
+    CPU copy, reordered by ``schur_sort`` so that ``key_fn(diag(T))`` (a real
+    numpy array) ascends. Returns (t, z, ok): complex128 CPU tensors, and ok
+    False when LAPACK failed or S is not finite (t and z are then NaN)."""
+    import scipy.linalg as sla
+
+    host = s.detach().to("cpu", torch.complex128).numpy()
+    nan = torch.full(host.shape, complex("nan"), dtype=torch.complex128)
+    if not np.all(np.isfinite(host)):
+        return nan, nan, False
+    try:
+        t, z = sla.schur(host, output="complex")
+    except (np.linalg.LinAlgError, ValueError):
+        return nan, nan, False
+    key = torch.from_numpy(np.array(key_fn(np.diagonal(t)), np.float64))
+    t, z = schur_sort(torch.from_numpy(t), torch.from_numpy(z), key)
+    return t, z, True

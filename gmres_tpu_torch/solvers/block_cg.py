@@ -3,9 +3,9 @@ in eager PyTorch.
 
 Counterpart of ``gmres_tpu/solvers/block_cg.py``, with its arithmetic: the
 search block P is re-whitened by clamped SVQB every iteration (block
-GMRES's ``_orthonormalize_block``), so a rank-deficient block (duplicate or
-zero right-hand sides) does not break down; each iteration takes the two
-(s, s) Grams PᵀAP and PᵀR and two jittered Cholesky solves
+GMRES's, ``ops/blas.py:_orthonormalize_block``), so a rank-deficient
+block (duplicate or zero right-hand sides) does not break down; each
+iteration takes the two (s, s) Grams PᵀAP and PᵀR and two jittered Cholesky solves
 (``torch.linalg.cholesky_ex``/``torch.cholesky_solve``, which do not read
 the factorisation's status back from the device; a failed factor is NaN,
 as JAX's ``cho_factor`` gives). Convergence needs every right-hand side
@@ -32,8 +32,7 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply
-from gmres_tpu_torch.solvers.block_gmres import _orthonormalize_block
+from gmres_tpu_torch.ops.blas import _orthonormalize_block, row_apply
 from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
 from gmres_tpu_torch.solvers.gmres import _as_operator
 from gmres_tpu_torch.types import Preconditioner, SolverStatus, _fields_numpy

@@ -24,42 +24,10 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply
+from gmres_tpu_torch.ops.blas import _orthonormalize_block, row_apply
 from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
 from gmres_tpu_torch.solvers.gmres import _as_operator
 from gmres_tpu_torch.types import BlockSolveResult, Preconditioner, SolverStatus
-
-
-def _svqb(w: torch.Tensor, eps: float):
-    """One SVQB pass over the s long rows of w: (q, r) with orthonormal rows
-    q and w[b] = Σ_a r[a, b]·q[a] (r = S⁻¹, dense). Directions below
-    eps·λ_max are clamped and come out as orthonormalised noise with ~zero
-    weight."""
-    s = w.shape[0]
-    flat = w.reshape(s, -1)
-    g = flat.conj() @ flat.T
-    d = torch.sqrt(torch.clamp(torch.diagonal(g).real, min=0.0))
-    dinv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
-                       torch.zeros_like(d))
-    gs = g * dinv[:, None] * dinv[None, :]
-    # LAPACK refuses a non-finite input, where JAX's eigh returns NaN: the
-    # NaN is put back after, without reading the device.
-    finite = torch.isfinite(gs).all()
-    lam, u = torch.linalg.eigh(torch.where(finite, gs, torch.zeros_like(gs)))
-    lam = torch.where(finite, lam, torch.full_like(lam, float("nan")))
-    lmax = torch.clamp(lam[-1], min=eps)
-    lam_c = torch.maximum(lam, eps * lmax)
-    smat = (dinv[:, None] * u) / torch.sqrt(lam_c)[None, :]
-    q = torch.tensordot(smat, w, dims=([0], [0]))
-    r = (torch.sqrt(lam_c)[:, None] * u.T) * d[None, :]
-    return q, r
-
-
-def _orthonormalize_block(w: torch.Tensor, eps: float):
-    """SVQB twice: (q, H) with w[b] = Σ_a H[a, b]·q[a]."""
-    q1, r1 = _svqb(w, eps)
-    q2, r2 = _svqb(q1, eps)
-    return q2, r2 @ r1
 
 
 def block_gmres(

@@ -1,0 +1,165 @@
+"""Krylov matrix functions: f(A)·b without forming f(A), and stochastic
+Lanczos quadrature for tr f(A).
+
+Counterpart of ``gmres_tpu/solvers/funm.py``:
+
+    f(A)·b ≈ ‖b‖ · V_m · f(H_m) · e₁,     A V_m = V_{m+1} H̄_m
+
+(Saad 1992), with the basis from the port's ``arnoldi_factorization`` (CGS2,
+full reorthogonalisation) on b's device and f applied to the (m, m)
+projected matrix by a dense ``eigh`` of its symmetric part. That ``eigh``
+runs on a float64 CPU copy of H̄ (one read of the device per
+factorization), where JAX solves it in-jit; f therefore receives a float64
+CPU tensor of Ritz values (``torch.log``, ``lambda s: 1 / torch.sqrt(s)``).
+
+``trace_funm`` runs one factorization per probe, a loop where JAX
+``jax.vmap``s the probes. Its Rademacher probes cannot be JAX's
+(``PRNGKey`` draws have no torch counterpart): they come from one seam,
+``_rademacher``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from gmres_tpu_torch.ops.blas import row_combine, tree_vdot
+from gmres_tpu_torch.solvers.lanczos import arnoldi_factorization
+from gmres_tpu_torch.types import LinearOperator
+
+
+@dataclasses.dataclass(frozen=True)
+class FunmResult:
+    """Result of ``funm_lanczos`` / ``expm_multiply`` (the fields of
+    ``gmres_tpu.FunmResult``).
+
+    Attributes:
+      y: f(A)·b: b's shape, or (nt, *shape) for a vector of times.
+      error_estimate: Saad's indicator ‖b‖·β_m·|eₘᵀ f(H) e₁|, 0-d or (nt,).
+      asymmetry: max|H − Hᵀ| of the Krylov pencil (~ε‖A‖ for a symmetric A;
+        O(‖A‖) means f was taken of the Hermitian part only).
+
+    Beyond the JAX fields:
+      host_syncs: reads of the device (one per factorization).
+    """
+
+    y: Any
+    error_estimate: torch.Tensor
+    asymmetry: torch.Tensor
+    host_syncs: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceResult:
+    """Result of ``trace_funm`` (the fields of ``gmres_tpu.TraceResult``).
+
+    Attributes:
+      value: the tr f(A) estimate, the mean over the probes.
+      stderr: standard error of that mean (population std / √probes).
+      samples: (n_probes,) per-probe estimates zᵀ f(A) z.
+
+    Beyond the JAX fields:
+      host_syncs: reads of the device (one per probe).
+    """
+
+    value: torch.Tensor
+    stderr: torch.Tensor
+    samples: torch.Tensor
+    host_syncs: int = 0
+
+
+def _projected_eigh(hmat: torch.Tensor, steps: int):
+    """(theta, q, beta_m, asym) of the (steps+1, steps) Hessenberg: the
+    eigh of its symmetric (steps, steps) part, the last subdiagonal entry
+    and the asymmetry, all on a float64 CPU copy (one read)."""
+    host = hmat.detach().to("cpu", torch.float64)
+    h = host[:steps, :steps]
+    theta, q = torch.linalg.eigh(0.5 * (h + h.T))
+    return theta, q, host[steps, steps - 1], torch.max(torch.abs(h - h.T))
+
+
+def _funm_core(A, b, steps):
+    basis, hmat = arnoldi_factorization(A, b, steps)
+    theta, q, beta_m, asym = _projected_eigh(hmat, steps)
+    beta0 = torch.sqrt(tree_vdot(b, b))
+    return basis, theta, q, beta0, beta_m, asym
+
+
+def funm_lanczos(
+    A: LinearOperator,
+    b: torch.Tensor,
+    f: Callable,
+    *,
+    steps: int = 30,
+) -> FunmResult:
+    """f(A)·b for symmetric A by ``steps``-step Lanczos (the arguments of
+    ``gmres_tpu.funm_lanczos``). f maps a float64 CPU tensor of Ritz values
+    elementwise (it is evaluated only there, inside A's spectral
+    interval)."""
+    basis, theta, q, beta0, beta_m, asym = _funm_core(A, b, steps)
+    w = q @ (f(theta) * q[0, :])  # f(H) e₁
+    y = beta0 * row_combine(w.to(b.device, b.dtype), basis[:steps])
+    err = beta0 * float(abs(beta_m) * abs(w[steps - 1]))
+    return FunmResult(y=y, error_estimate=err, asymmetry=asym.to(b.device, b.dtype),
+                      host_syncs=1)
+
+
+def expm_multiply(
+    A: LinearOperator,
+    b: torch.Tensor,
+    t=1.0,
+    *,
+    steps: int = 30,
+) -> FunmResult:
+    """The heat-semigroup action exp(−t·A)·b (A positive definite, so
+    states decay; the arguments of ``gmres_tpu.expm_multiply``). t: a
+    number, or a 1-D sequence of times, all from one factorization; y then
+    gains a leading (nt,) axis."""
+    scalar = torch.as_tensor(t).dim() == 0
+    t_arr = torch.atleast_1d(torch.as_tensor(t, dtype=torch.float64))
+    basis, theta, q, beta0, beta_m, asym = _funm_core(A, b, steps)
+    # (nt, m): f(H) e₁ for every time.
+    w = torch.einsum("ij,tj,j->ti", q, torch.exp(-t_arr[:, None] * theta), q[0, :])
+    y = beta0 * row_combine(w.T.to(b.device, b.dtype), basis[:steps])
+    err = beta0 * (abs(beta_m) * torch.abs(w[:, steps - 1])).to(b.device, b.dtype)
+    if scalar:
+        y, err = y[0], err[0]
+    return FunmResult(y=y, error_estimate=err, asymmetry=asym.to(b.device, b.dtype),
+                      host_syncs=1)
+
+
+def _rademacher(n_probes: int, shape, dtype, device, key) -> torch.Tensor:
+    """(n_probes, *shape) ±1 probes from a CPU torch.Generator seeded
+    ``key`` (an int; JAX takes a PRNG key, default PRNGKey(0))."""
+    gen = torch.Generator(device="cpu").manual_seed(int(key))
+    bits = torch.randint(0, 2, (n_probes,) + tuple(shape), generator=gen)
+    return (2.0 * bits - 1.0).to(device, dtype)
+
+
+def trace_funm(
+    A: LinearOperator,
+    f: Callable,
+    x_like: torch.Tensor,
+    *,
+    n_probes: int = 16,
+    steps: int = 30,
+    key=None,
+) -> TraceResult:
+    """tr f(A) for symmetric A by stochastic Lanczos quadrature (Ubaru,
+    Chen, Saad 2017): the mean of ‖z‖²·e₁ᵀ f(T_m) e₁ over Rademacher probes
+    z (the arguments of ``gmres_tpu.trace_funm``; ``key`` is an int seed,
+    default 0). x_like gives the probes' shape, dtype and device."""
+    z = _rademacher(n_probes, tuple(x_like.shape), x_like.dtype, x_like.device,
+                    0 if key is None else key)
+    samples = []
+    for zi in z:
+        _, hmat = arnoldi_factorization(A, zi, steps)
+        theta, q, _, _ = _projected_eigh(hmat, steps)
+        quad = torch.sum(f(theta) * q[0, :] ** 2).to(x_like.device, x_like.dtype)
+        samples.append(tree_vdot(zi, zi) * quad)  # ‖z‖² = N for Rademacher
+    samples = torch.stack(samples)
+    value = torch.mean(samples)
+    stderr = torch.std(samples, correction=0) / (1.0 * n_probes) ** 0.5
+    return TraceResult(value=value, stderr=stderr, samples=samples, host_syncs=n_probes)

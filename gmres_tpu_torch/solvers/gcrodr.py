@@ -33,11 +33,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply, row_combine, row_contract
+from gmres_tpu_torch.ops.blas import (
+    _orthonormalize_block,
+    row_apply,
+    row_combine,
+    row_contract,
+)
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.hessenberg_eig import eig_select, smallest_invariant_subspace
 from gmres_tpu_torch.ops.tri import masked_back_substitution, solve_small
-from gmres_tpu_torch.solvers.block_gmres import _orthonormalize_block
 from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
 from gmres_tpu_torch.solvers.gmres_dr import (
     F64,

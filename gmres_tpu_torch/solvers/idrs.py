@@ -25,9 +25,8 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import tree_norm, tree_vdot
+from gmres_tpu_torch.ops.blas import _orthonormalize_block, tree_norm, tree_vdot
 from gmres_tpu_torch.ops.tri import solve_small
-from gmres_tpu_torch.solvers.block_gmres import _orthonormalize_block
 from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
 from gmres_tpu_torch.types import (
     LinearOperator,

@@ -123,9 +123,12 @@ def arnoldi_expand(
 
         h1, w = cgs_pass(w)
         h2, w = cgs_pass(w)
-        beta = torch.sqrt(tree_vdot(w, w))
+        # ⟨w, w⟩ is real; for a complex basis torch keeps it complex and
+        # refuses the comparison below, so β is taken from the real part and
+        # cast back to the basis dtype where it is stored.
+        beta = torch.sqrt(tree_vdot(w, w).real)
         hcol = h1 + h2
-        hcol[j + 1] += beta
+        hcol[j + 1] += beta.to(basis.dtype)
         basis[j + 1] = w / torch.where(beta > 0, beta, torch.ones_like(beta))
         hmat[:, j] = hcol
     return basis, hmat

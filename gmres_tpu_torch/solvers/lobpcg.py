@@ -1,0 +1,191 @@
+"""LOBPCG: the preconditioned block eigensolver for SPD (or Hermitian
+positive definite) operators and pencils (Knyazev 2001).
+
+Counterpart of ``gmres_tpu/solvers/lobpcg.py``, with its algorithm: the
+[X | W | P] basis orthonormalised jointly by SVQB twice in the B-inner
+product (B·q kept by recombination), degenerate rows (W rows of converged
+pairs, the zero first P) replaced by fallback directions before the
+orthonormalisation, P the implicit difference X⁺ − X(X·X⁺), and the
+Rayleigh–Ritz on the 3k×3k projected matrix.
+
+JAX's ``while_loop`` is a Python loop and its ``jax.vmap`` over the block a
+loop over rows: an iteration applies A to 3k rows, M to k and B (when
+given) to 3k. The small eigenproblems (each SVQB pass's Gram and the
+Rayleigh–Ritz matrix) are solved by ``eigh`` on float64 (complex128) CPU
+copies, each one read of the device (``EigResult.host_syncs``); the loop's
+decision is one more read an iteration.
+
+Random rows cannot be JAX's (``PRNGKey`` draws have no torch counterpart):
+the guard rows and the fallback directions come from two seams,
+``_guard_rows`` and ``_fallback_rows``, seeded torch Generators on the
+block's device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from gmres_tpu_torch.ops.blas import row_apply
+from gmres_tpu_torch.types import EigResult, SolverStatus
+
+
+def _guard_rows(guard: int, shape, dtype, device) -> torch.Tensor:
+    """The (guard, *shape) standard-normal guard rows appended to X0 (JAX:
+    ``fold_in(PRNGKey(1), guard)``)."""
+    gen = torch.Generator(device=device).manual_seed(1_000 + guard)
+    return torch.randn((guard,) + tuple(shape), generator=gen, dtype=dtype, device=device)
+
+
+def _fallback_rows(i: int, salt: int, shape, dtype, device) -> torch.Tensor:
+    """The standard-normal block that replaces degenerate rows at iteration
+    i (−1 for the setup), salt 0 for X0, 1 for W, 2 for P (JAX:
+    ``fold_in(fold_in(PRNGKey(0), i), salt)``): fresh each iteration, drawn
+    on the device so no row is read back."""
+    gen = torch.Generator(device=device).manual_seed(3 * (i + 1) + salt)
+    return torch.randn(tuple(shape), generator=gen, dtype=dtype, device=device)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A float64 (complex128) CPU copy: one read of the device."""
+    return t.detach().to("cpu", torch.complex128 if t.is_complex() else torch.float64)
+
+
+def _rows_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(p, *shape) × (q, *shape) → (p, q) Gram block conj(a)·bᵀ."""
+    return a.reshape(a.shape[0], -1).conj() @ b.reshape(b.shape[0], -1).T
+
+
+def _combine(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """rows_out[j] = Σ_a c[a, j]·s[a]."""
+    return torch.tensordot(c, s, dims=([0], [0]))
+
+
+def _svqb_b(w, bw, eps, same):
+    """One SVQB pass in the B-inner product: the whitening of the Gram
+    conj(w)·(B w), formed on the host, applied to w and to B w (B·q by
+    recombination). ``same``: B is the identity, so B q is q."""
+    g = _host(_rows_dot(w, bw))
+    d = torch.sqrt(torch.clamp(torch.diagonal(g).real, min=0.0))
+    dinv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
+                       torch.zeros_like(d))
+    gs = g * dinv[:, None] * dinv[None, :]
+    lam, u = torch.linalg.eigh(0.5 * (gs + gs.conj().T))
+    lmax = torch.clamp(lam[-1], min=eps)
+    lam_c = torch.clamp(lam, min=float(eps * lmax))
+    smat = ((dinv[:, None] * u) / torch.sqrt(lam_c)[None, :]).to(w.device, w.dtype)
+    q = _combine(smat, w)
+    return q, (q if same else _combine(smat, bw))
+
+
+def lobpcg(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    X0: torch.Tensor,
+    *,
+    tol: float = 1e-6,
+    rtol: float = 0.0,
+    max_iterations: int = 200,
+    M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    B: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    guard: int = 0,
+) -> EigResult:
+    """The k smallest eigenpairs of the SPD (real) or HPD (complex) operator
+    A, or of the pencil A x = λ B x with B SPD (the arguments of
+    ``gmres_tpu.lobpcg``).
+
+      A: single-vector operator, applied row by row.
+      X0: (k, *shape) start block; degenerate rows (zeros, duplicates) are
+        replaced by fallback directions.
+      tol, rtol: every returned pair must reach
+        ‖A xᵢ − λᵢ B xᵢ‖₂ < max(tol, rtol·|λᵢ|) with B-unit xᵢ.
+      max_iterations: iteration cap.
+      M: SPD preconditioner ≈ A⁻¹ (e.g. a multigrid cycle).
+      B: SPD mass operator (None: the standard problem).
+      guard: extra trailing pairs computed but not returned.
+
+    Returns an EigResult: eigenvalues (k,) ascending, x (k, *shape)
+    B-orthonormal rows, iterations, residuals (k,), status (BREAKDOWN on a
+    non-finite residual), host_syncs.
+    """
+    k_out = X0.shape[0]
+    dtype, dev = X0.dtype, X0.device
+    shape = tuple(X0.shape[1:])
+    if guard:
+        X0 = torch.cat([X0, _guard_rows(guard, shape, dtype, dev)], dim=0)
+    k = X0.shape[0]
+    eps = float(torch.finfo(dtype).eps)
+    rdtype = dtype.to_real() if dtype.is_complex else dtype
+    bc = (-1,) + (1,) * len(shape)
+    syncs = 0
+
+    def a_block(s):
+        return row_apply(A, s)
+
+    def m_block(r):
+        return row_apply(M, r) if M is not None else r
+
+    def b_block(s):
+        return row_apply(B, s) if B is not None else s
+
+    def fill_degenerate(v, i, salt):
+        """Rows with norm at most √eps times the block's largest are replaced
+        by the fallback block's rows (all of them when the block is zero)."""
+        norms = torch.sqrt(torch.sum(v.reshape(v.shape[0], -1).abs() ** 2, dim=1))
+        keep = norms > (eps ** 0.5) * torch.max(norms)
+        noise = _fallback_rows(i, salt, v.shape, dtype, dev)
+        return torch.where(keep.reshape(bc), v, noise)
+
+    def rayleigh_ritz(s):
+        """Jointly B-orthonormalise the rows, then Ritz-extract the k
+        smallest pairs: (lam, x, r, resnorm)."""
+        nonlocal syncs
+        q, bq = _svqb_b(s, b_block(s), eps, B is None)
+        q, bq = _svqb_b(q, bq, eps, B is None)
+        aq = a_block(q)
+        h = _host(_rows_dot(q, aq))
+        syncs += 3
+        lam_all, c = torch.linalg.eigh(0.5 * (h + h.conj().T))
+        ck = c[:, :k].to(dev, dtype)
+        x, ax = _combine(ck, q), _combine(ck, aq)
+        bx = x if B is None else _combine(ck, bq)
+        lam = lam_all[:k].to(dev, rdtype)
+        r = ax - lam.reshape(bc) * bx
+        resnorm = torch.sqrt(torch.sum(r.reshape(k, -1).abs() ** 2, dim=1))
+        # A Ritz vector that lost its unit B-norm must not pass on its small
+        # residual: a large finite sentinel (a transient rank deficiency is
+        # repaired by the next iteration; a NaN is a breakdown).
+        big = torch.finfo(rdtype).max ** 0.5
+        xnorm = torch.sqrt(torch.abs(torch.sum(
+            x.reshape(k, -1).conj() * bx.reshape(k, -1), dim=1)))
+        resnorm = torch.where(torch.abs(xnorm - 1.0) < 0.5, resnorm,
+                              torch.full_like(resnorm, big))
+        return lam, x, r, resnorm
+
+    def decide(lam, res, status, breakdown=True):
+        """One read: the convergence gate on the returned pairs, then (in the
+        loop, as in JAX) the breakdown test on all."""
+        nonlocal syncs
+        lam_h, res_h = _host(torch.stack([lam, res])).unbind(0)
+        syncs += 1
+        thresh = torch.clamp(rtol * lam_h[:k_out].abs(), min=tol)
+        if bool((res_h[:k_out] < thresh).all()):
+            status = SolverStatus.CONVERGED
+        if breakdown and not bool(torch.isfinite(res_h).all()):
+            status = SolverStatus.BREAKDOWN
+        return status
+
+    lam, x, r, resnorm = rayleigh_ritz(fill_degenerate(X0, -1, 0))
+    status = decide(lam, resnorm, SolverStatus.MAX_ITERATIONS, breakdown=False)
+    p = torch.zeros_like(x)
+    i = 0
+    while i < max_iterations and status == SolverStatus.MAX_ITERATIONS:
+        w = fill_degenerate(m_block(r), i, 1)
+        p_f = fill_degenerate(p, i, 2)
+        lam_n, x_n, r, resnorm = rayleigh_ritz(torch.cat([x, w, p_f], dim=0))
+        p = x_n - _combine(_rows_dot(x, x_n), x)
+        x, lam = x_n, lam_n
+        status = decide(lam, resnorm, status)
+        i += 1
+    return EigResult(eigenvalues=lam[:k_out], x=x[:k_out], iterations=i,
+                     residuals=resnorm[:k_out], status=int(status), host_syncs=syncs)

@@ -1,7 +1,7 @@
 """Core result/status types of the PyTorch port.
 
 Counterpart of ``gmres_tpu/types.py``: the same status codes and the same
-GMRES, CG, Newton and block result fields, as plain dataclasses over tensors (no pytree
+GMRES, CG, eigen, Newton and block result fields, as plain dataclasses over tensors (no pytree
 registration is needed in eager PyTorch).
 """
 
@@ -120,6 +120,42 @@ class GmresResult:
         comparison with ``gmres_tpu``."""
         return _fields_numpy(self, ("x", "iterations", "restarts", "residual",
                                     "status", "residual_history", "v_err"))
+
+
+@dataclasses.dataclass(frozen=True)
+class EigResult:
+    """Result of an eigensolve (``solvers/lobpcg.py``, ``arnoldi.py``,
+    ``krylov_schur_real.py``, ``subspace_eigs.py``).
+
+    Attributes (the fields of ``gmres_tpu.EigResult``):
+      eigenvalues: (k,) eigenvalues: real and ascending for LOBPCG; complex
+        and most-wanted first for the nonsymmetric solvers.
+      x: (k, *shape) unit (B-orthonormal for a pencil) eigenvectors, rows.
+      iterations: LOBPCG iterations, or restart cycles, or subspace
+        iterations.
+      residuals: (k,) certified ‖A xᵢ − λᵢ (B) xᵢ‖₂ per pair.
+      status: SolverStatus code (CONVERGED iff every pair converged).
+
+    The counters are Python ints. Beyond the JAX fields:
+      host_syncs: device→host reads the solve made: each host eigensolve
+        of a small projected matrix and each loop decision.
+    """
+
+    eigenvalues: torch.Tensor
+    x: torch.Tensor
+    iterations: int
+    residuals: torch.Tensor
+    status: int
+    host_syncs: int = 0
+
+    @property
+    def converged(self) -> bool:
+        return self.status == SolverStatus.CONVERGED
+
+    def to_numpy(self) -> dict:
+        """The JAX result fields as numpy values."""
+        return _fields_numpy(self, ("eigenvalues", "x", "iterations", "residuals",
+                                    "status"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Reporting and profiling utilities (mirrors gmres_tpu/utils)."""
+"""Reporting, checkpointing, debugging and profiling utilities (mirrors
+gmres_tpu/utils)."""

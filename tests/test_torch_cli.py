@@ -274,12 +274,116 @@ def test_sequence_program_matches_jax(tmp_path):
             assert (p["restarts"], p["iterations"]) == (j["restarts"], j["iterations"])
 
 
+# The spectral and time-stepping programs at 24² (evolve at 5 steps). The
+# eig program's start (the Krylov–Schur probe, the LOBPCG block), subspace
+# iteration's start block and the slq probes are JAX's draws, patched into
+# the port's seams.
+SPECTRAL_RUNS = {
+    "eig-lobpcg": ["eig", "--nsize", "24"],
+    "eig-arnoldi": ["eig", "--nsize", "24", "--method", "arnoldi"],
+    "eig-ks-real": ["eig", "--nsize", "24", "--method", "ks_real"],
+    "eig-subspace": ["eig", "--nsize", "24", "--method", "subspace", "--max-iterations",
+                     "100", "--tol", "0.1"],
+    "slq": ["slq", "--nsize", "24", "--probes-list", "4,8", "--steps", "20"],
+    "evolve": ["evolve", "--nsize", "24", "--steps", "5"],
+    "evolve-mg": ["evolve", "--nsize", "24", "--steps", "5", "--precond", "mg"],
+    "evolve-heat-cg": ["evolve", "--nsize", "24", "--steps", "5", "--model", "heat",
+                       "--solver", "cg"],
+    "evolve-expm": ["evolve", "--nsize", "24", "--steps", "5", "--model", "heat",
+                    "--solver", "expm"],
+}
+
+
+def _patch_jax_draws(monkeypatch):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli as port_cli
+    from gmres_tpu_torch.solvers import funm as port_funm
+    from gmres_tpu_torch.solvers import subspace_eigs as port_subspace
+
+    def normal(shape, dtype, dev):
+        a = np.asarray(jax.random.normal(jax.random.PRNGKey(0), tuple(shape),
+                                         dtype=jnp.dtype(str(dtype).replace("torch.", ""))))
+        return torch.as_tensor(a.copy()).to(dev)
+
+    def rademacher(n_probes, shape, dtype, device, key):
+        a = np.asarray(jax.random.rademacher(jax.random.PRNGKey(key), (n_probes,) + tuple(shape),
+                                             dtype=jnp.float64))
+        return torch.as_tensor(a.copy()).to(device, dtype)
+
+    def start_block(n, p, dtype, device):
+        a = np.asarray(jax.random.normal(jax.random.PRNGKey(11), (n, p), jnp.float64))
+        return torch.as_tensor(a.copy()).to(device, dtype)
+
+    monkeypatch.setattr(port_cli, "_program_normal", normal)
+    monkeypatch.setattr(port_funm, "_rademacher", rademacher)
+    monkeypatch.setattr(port_subspace, "_start_block", start_block)
+
+
+@pytest.mark.parametrize("label", sorted(SPECTRAL_RUNS))
+def test_spectral_program_matches_jax(label, tmp_path, monkeypatch):
+    """The eig, slq and evolve rows against JAX's: the same names, the
+    iterations (restart cycles, LOBPCG iterations, inner iterations over the
+    trajectory) within 2, the same convergence; eigenvalues within 1e-8
+    relative of JAX's (the convection-diffusion spectrum is ill-conditioned:
+    a 1e-8 residual), the log-det within 1e-10 relative, and the
+    trajectory's worst residual under tol in both."""
+    import numpy as np
+
+    _patch_jax_draws(monkeypatch)
+    argv = SPECTRAL_RUNS[label]
+    port_jsonl, jax_jsonl = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
+    port_main(argv + ["--device", "cpu", "--jsonl", port_jsonl])
+    jax_main(argv + ["--jsonl", jax_jsonl])
+    port, ref = _rows(port_jsonl), _rows(jax_jsonl)
+    assert [r["name"] for r in port] == [r["name"] for r in ref]
+    for p, j in zip(port, ref):
+        assert abs(p["iterations"] - j["iterations"]) <= 2, (p["name"], p["iterations"],
+                                                              j["iterations"])
+        assert p["nvars"] == j["nvars"]
+        if "converged" in j:
+            assert p["converged"] == j["converged"]
+        if "eigenvalues" in j:
+            pe = np.array(p["eigenvalues"], dtype=float)
+            je = np.array(j["eigenvalues"], dtype=float)
+            assert np.max(np.abs(np.sort(pe, axis=0) - np.sort(je, axis=0))) \
+                < 1e-8 * np.max(np.abs(je)), p["name"]
+            assert abs(p["linf_error"] - j["linf_error"]) < 1e-8 * np.max(np.abs(je))
+        if "value" in j:
+            assert abs(p["value"] - j["value"]) < 1e-10 * abs(j["value"])
+            assert abs(p["stderr"] - j["stderr"]) < 1e-10 * abs(j["value"])
+        if p["name"].startswith("evolve") and "expm" not in p["name"]:
+            assert p["residual"] < p["tol"] and j["residual"] < j["tol"]
+            assert p["status"] == 0
+        for key in ("iters_step0", "iters_last"):
+            if key in j:
+                assert abs(p[key] - j[key]) <= 2, (key, p[key], j[key])
+
+
+def test_evolve_heat_mg_fault_is_pinned(capsys):
+    """gmres_tpu's evolve program builds the heat model's M from the
+    Helmholtz SPD cycle with kh2 = −σ (benchmarks/cli.py:1040-1042), so a
+    level's shifted λmax 8 − σ·4ˡ reaches 0 and the setup divides by zero;
+    the port keeps the program as it is and fails the same way."""
+    argv = ["evolve", "--nsize", "24", "--steps", "3", "--model", "heat", "--precond", "mg"]
+    with pytest.raises(ZeroDivisionError):
+        jax_main(argv)
+    with pytest.raises(ZeroDivisionError):
+        port_main(argv + ["--device", "cpu"])
+    assert "evolve-heat" not in capsys.readouterr().out
+
+
 def test_solver_choices_are_validated():
     with pytest.raises(SystemExit):
         port_main(["restart-sweep", "--solver", "gmress", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("program", sorted({v[0] for v in RUNS.values()} | {"roofline"}))
+@pytest.mark.parametrize("program", sorted({v[0] for v in RUNS.values()}
+                                            | {v[0] for v in SPECTRAL_RUNS.values()}
+                                            | {"roofline"}))
 def test_program_raises_without_a_card(program, monkeypatch):
     """No CUDA device and no --device cpu: the program raises, it does not
     fall back to the CPU."""
@@ -296,7 +400,8 @@ def test_help_lists_the_programs():
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).stdout
     for program in ("dense-poisson", "hilbert", "poisson-mf", "cg", "bicgstab", "convdiff",
                     "strong-scaling", "weak-scaling", "restart-sweep", "multirhs",
-                    "varcoef", "roofline", "bratu", "helmholtz", "sequence"):
+                    "varcoef", "roofline", "bratu", "helmholtz", "sequence", "eig", "slq",
+                    "evolve"):
         assert program in out
 
 
@@ -329,6 +434,17 @@ import gmres_tpu_torch.models.helmholtz, gmres_tpu_torch.models.bratu
 import gmres_tpu_torch.solvers.qmr, gmres_tpu_torch.solvers.lsqr
 import gmres_tpu_torch.solvers.lsmr, gmres_tpu_torch.solvers.implicit
 import gmres_tpu_torch.solvers.newton_krylov
+import gmres_tpu_torch.solvers.arnoldi, gmres_tpu_torch.solvers.krylov_schur_real
+import gmres_tpu_torch.solvers.subspace_eigs, gmres_tpu_torch.solvers.lobpcg
+import gmres_tpu_torch.solvers.funm, gmres_tpu_torch.solvers.evolve
+import gmres_tpu_torch.precond.nystrom, gmres_tpu_torch.precond.spai
+import gmres_tpu_torch.utils.checkpoint, gmres_tpu_torch.utils.debug
+gmres_tpu_torch.benchmarks.cli.main(["eig", "--nsize", "12", "--method", "arnoldi",
+                                     "--steps", "20", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["eig", "--nsize", "12", "--method", "ks_real",
+                                     "--steps", "20", "--device", "cpu"])
+gmres_tpu_torch.benchmarks.cli.main(["slq", "--nsize", "12", "--probes-list", "2",
+                                     "--steps", "10", "--device", "cpu"])
 gmres_tpu_torch.benchmarks.cli.main(["helmholtz", "--nsize", "16", "--device", "cpu"])
 gmres_tpu_torch.benchmarks.cli.main(["bratu", "--nsize", "16", "--device", "cpu"])
 gmres_tpu_torch.benchmarks.cli.main(["convdiff", "--nsize", "16", "--solver", "qmr",

@@ -1394,3 +1394,148 @@ def test_helmholtz_on_the_card_matches_cpu(cuda_device):
     res = tt.minres(op, b, tol=1e-9, M=m)
     cpu = tt.minres(op, b.cpu(), tol=1e-9, M=m)
     assert res.converged and abs(res.iterations - cpu.iterations) <= 2
+
+
+def _kernel_counts():
+    return {"K1": tst.stencil5_cuda.launches, "K1rr": tst.residual_restrict_cuda.launches,
+            "K1cr": tst.correct_residual_cuda.launches, "K2": tfu.chebk_cuda.launches}
+
+
+def _spectral_solve(name, dev):
+    """One solve of the eigensolvers and matrix functions at a small size,
+    float64, on ``dev``."""
+    n = 32
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    probe = torch.randn((n, n), generator=gen, dtype=torch.float64).to(dev)
+    # Moderate convection: well-conditioned eigenvalues (at γ = (2, 0.5) a
+    # 1e-9 residual leaves ~1e-7 of eigenvalue error on either device).
+    cd = tt.convection_diffusion_operator(n, 0.4, 0.2)
+    if name == "lobpcg":
+        x0 = torch.randn((3, n, n), generator=gen, dtype=torch.float64).to(dev)
+        return tt.lobpcg(tt.poisson_operator(n), x0, tol=1e-9,
+                         M=tt.poisson_multigrid_preconditioner(n))
+    if name == "arnoldi_eigs":
+        return tt.arnoldi_eigs(cd, probe, nev=4, steps=30, tol=1e-10)
+    if name == "arnoldi_eigs_real":
+        return tt.arnoldi_eigs_real(cd, probe, nev=4, steps=30, tol=1e-10)
+    if name == "theta_evolve":
+        m = tt.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2, shift=2.0)
+        return tt.theta_evolve(cd, probe, dt=1.0, n_steps=3, solver="gcrodr", tol=1e-9,
+                               M=lambda r: m(r) / 0.5)
+    return tt.trace_funm(tt.poisson_operator(n), torch.log, probe, n_probes=4, steps=20)
+
+
+@pytest.mark.parametrize("name", ["lobpcg", "arnoldi_eigs", "arnoldi_eigs_real",
+                                  "theta_evolve", "trace_funm"])
+def test_spectral_on_the_card_matches_cpu(cuda_device, monkeypatch, name):
+    """The card's eigenvalues (or trajectory, or log-det) equal the CPU
+    port's within 1e-10 relative, with every 5-point plain version made to
+    raise; K1 launched always, and LOBPCG with the V-cycle and the shifted
+    convdiff cycle of theta_evolve also launch K1's forms and K2."""
+    cpu = _spectral_solve(name, "cpu")
+    _no_plain_versions(monkeypatch)
+    before = _kernel_counts()
+    card = _spectral_solve(name, cuda_device)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _kernel_counts().items()}
+    if name == "trace_funm":
+        assert rel_err(card.samples.cpu(), cpu.samples) < 1e-10
+    elif name == "theta_evolve":
+        assert card.status == cpu.status == 0
+        assert rel_err(card.u.cpu(), cpu.u) < 1e-10
+    else:
+        assert card.status == cpu.status == 0
+        lam, lam_cpu = card.eigenvalues.cpu().numpy(), cpu.eigenvalues.numpy()
+        keyed = [np.sort_complex(v.real + 1j * np.abs(v.imag)) for v in (lam, lam_cpu)]
+        assert np.max(np.abs(keyed[0] - keyed[1])) < 1e-10 * np.max(np.abs(lam_cpu))
+    assert launched["K1"] > 0
+    forms = launched["K1rr"] > 0 and launched["K1cr"] > 0 and launched["K2"] > 0
+    assert forms == (name in ("lobpcg", "theta_evolve"))
+
+
+def test_arnoldi_eigs_two_k1_a_complex_matvec(cuda_device, monkeypatch):
+    """A real operator under the complex basis: each complex matvec is two
+    K1 launches on contiguous parts, and no plain stencil runs."""
+    n, steps = 64, 20
+    _no_plain_versions(monkeypatch)
+    op = tt.convection_diffusion_operator(n, 2.0, 0.5)
+    calls = []
+
+    def counted(v):
+        calls.append(v.is_contiguous() and not v.is_complex())
+        return op(v)
+
+    probe = to_torch(seeded(70, (n, n)), cuda_device)
+    before = tst.stencil5_cuda.launches
+    res = tt.arnoldi_eigs(counted, probe, nev=2, steps=steps, tol=1e-30, max_restarts=1)
+    torch.cuda.synchronize()
+    # steps matvecs of the one cycle and nev in the certification.
+    assert res.iterations == 1 and len(calls) == 2 * (steps + 2) and all(calls)
+    assert tst.stencil5_cuda.launches - before == 2 * (steps + 2)
+
+
+def test_lobpcg_with_mg_launches_each_row(cuda_device):
+    """An LOBPCG iteration applies A to 3k rows and M to k rows: the launches
+    of two iterations are those counts times one application's."""
+    n, k, its = 128, 2, 2
+    op = tt.poisson_operator(n)
+    m = tt.poisson_multigrid_preconditioner(n)
+    v = to_torch(seeded(71, (n, n)), cuda_device)
+    before = _kernel_counts()
+    m(v)
+    torch.cuda.synchronize()
+    per_m = {key: c - before[key] for key, c in _kernel_counts().items()}
+    x0 = to_torch(seeded(72, (k, n, n)), cuda_device)
+    before = _kernel_counts()
+    res = tt.lobpcg(op, x0, tol=0.0, max_iterations=its, M=m)
+    torch.cuda.synchronize()
+    launched = {key: c - before[key] for key, c in _kernel_counts().items()}
+    assert res.iterations == its
+    m_apps, a_apps = k * its, k + 3 * k * its
+    assert launched["K2"] == m_apps * per_m["K2"]
+    assert launched["K1rr"] == m_apps * per_m["K1rr"]
+    assert launched["K1"] == m_apps * per_m["K1"] + a_apps
+
+
+def test_nystrom_on_the_card_matches_cpu(cuda_device, monkeypatch):
+    """The Nyström preconditioner built on the card from the same sketch as
+    on the CPU: λ̂ and M r − r (what the preconditioner changes, ~1% of r on
+    Poisson) equal the CPU port's within 1e-10 relative; the sketch's 2·rank
+    matvecs launch K1 and no plain stencil runs."""
+    n, rank = 64, 16
+    cpu_m, cpu_lam = tt.nystrom_preconditioner(
+        tt.poisson_operator(n), torch.zeros((n, n), dtype=torch.float64), rank=rank)
+    _no_plain_versions(monkeypatch)
+    before = tst.stencil5_cuda.launches
+    m, lam = tt.nystrom_preconditioner(
+        tt.poisson_operator(n), torch.zeros((n, n), dtype=torch.float64, device=cuda_device),
+        rank=rank)
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches - before == 2 * rank
+    assert rel_err(lam.cpu(), cpu_lam) < 1e-10
+    r = seeded(73, (n, n))
+    dm = m(to_torch(r, cuda_device)).cpu() - to_torch(r)
+    dm_cpu = cpu_m(to_torch(r)) - to_torch(r)
+    assert float(torch.linalg.norm(dm_cpu)) > 1e-4 * float(np.linalg.norm(r))
+    assert rel_err(dm, dm_cpu) < 1e-10
+
+
+def test_spai_on_the_card_matches_cpu(cuda_device):
+    """SPAI from a CSR matrix on the card: M is built and kept on the CSR's
+    device, its ELL arrays equal the CPU port's (the columns exactly, the
+    values within 1e-12 relative), and its application on a CUDA vector
+    agrees within 1e-12."""
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_matrix
+
+    a = convection_diffusion_matrix(16, 0.4, 0.2, device="cpu").numpy()
+    rows, cols = np.nonzero(a)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=a.shape[0]))])
+    arrays = {"data": a[rows, cols], "indices": cols.astype(np.int32), "indptr": indptr}
+    cpu = tt.spai_matrix(tt.sparse_from_numpy("csr", arrays, a.shape, device="cpu"))
+    card = tt.spai_matrix(tt.sparse_from_numpy("csr", arrays, a.shape, device=cuda_device))
+    assert card.data.device.type == "cuda"
+    assert torch.equal(card.cols.cpu(), cpu.cols)
+    assert rel_err(card.data.cpu(), cpu.data) < 1e-12
+    v = seeded(74, (a.shape[0],))
+    y = tsp.ell_spmv(card, to_torch(v, cuda_device))
+    assert rel_err(y.cpu(), tsp.ell_spmv(cpu, to_torch(v))) < 1e-12
