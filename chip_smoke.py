@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase18            # the build and phase 18 alone
     python3 chip_smoke.py --phase19            # the build and phase 19 alone
     python3 chip_smoke.py --phase20            # the build and phase 20 alone
+    python3 chip_smoke.py --phase21            # the build and phase 21 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -14,7 +15,7 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase17`` to ``--phase20`` modes build the kernels and run that
+The ``--phase17`` to ``--phase21`` modes build the kernels and run that
 phase alone, with its checks. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
@@ -278,7 +279,32 @@ phase alone, with its checks. Phases of the smoke run:
     eig (lobpcg, arnoldi, ks_real) and evolve programs at 64². Counts against gmres_tpu's CPU counts within the bands the
     constants state.
 
-Phases 12–14 share one NCCL process group made by the script. Any failure
+21. The distributed solve on a one-rank NCCL group made by the script:
+    row-sharded b (DTensor), the halo operators and the ``mesh=`` cycles,
+    whose sharded levels run K1's halo form (one exchange and one launch
+    a stencil) and whose replicated levels, gathered once a cycle, run the
+    ``mesh=None`` cycle (K1's forms, K2). Rows: (a) the mg configuration
+    (Householder GMRES(10), float32 cycles, certified on the float64 true
+    residual) at 300² with ``replicate_below`` 160 and (b) at 2048² with
+    300; (c) Householder GMRES(50) with the fused halo cbpr2 (K5) at 304²,
+    tol 1e-4; (d) BiCGSTAB with the float32 ``auto`` convection–diffusion
+    cycle at 1024² (BASELINE config 3); (e) MINRES on Helmholtz 1024² with
+    the SPD cycle; (f) LSQR on the 512² halo operator, Aᵀ by the halo
+    operator's transpose rule, capped at P21_LSQR_CAP steps and held to
+    LSQR on the plain operator; (g) the ``weak-scaling --precond mg``
+    program at d = 1 and the same solve with the ``mesh=`` cycle; (h)
+    GCRO-DR(40, k 10) on convection–diffusion 512² with its cycle; (d),
+    (e) and (h) replicate from P21_REPLICATE_BELOW rows. Each row: the
+    median wall of 3 solves after a warm-up, the counts against the same
+    solve with ``mesh=None`` on plain tensors (equal), host syncs, K1 (halo
+    and full grid), K1rr, K1cr, K2 and K5 launches a solve, all-gathers a
+    cycle application and all-reduces by CommDebugMode over one more solve
+    (one all-gather a cycle where a level is replicated, nothing but
+    all-gathers and all-reduces), the float64 true residual in numpy, and
+    the device's busy share of one profiled solve.
+
+Phases 12–14 share one NCCL process group made by the script; phase 21
+makes another. Any failure
 raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
 """
@@ -690,6 +716,19 @@ JAX_PHASE20 = {
                    "lam_max": 6.093317635049643, "lam_min": 5.974865390838207},
     "spai128": {"iterations": 139, "plain_iterations": 258},
 }
+
+# Phase 21: the distributed solve on a one-rank mesh (timed solves a row;
+# row (c)'s tolerance, ~260 inner iterations; the level at and below which
+# rows (d), (e) and (h) replicate their cycles; row (f)'s step cap, LSQR
+# needing ~κ(A) ≈ 10⁵ steps to 1e-8 at 512²).
+PHASE21_REPEATS = 3
+P21_MG_ROWS = (("(a) mg 300", 300, 160), ("(b) mg 2048", 2048, 300))
+P21_CBPR2_TOL = 1e-4
+P21_MODEL_N = {"(d)": 1024, "(e)": 1024, "(h)": 512}
+P21_REPLICATE_BELOW = 256
+P21_LSQR_N, P21_LSQR_CAP = 512, 300
+P21_WEAK_N = 128
+P21_WEAK_SCALING = ["weak-scaling", "--max-devices", "1"]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1957,21 +1996,29 @@ def counted(fn, calls, key):
     return wrapped
 
 
+@contextlib.contextmanager
+def one_rank_group(workdir, name="rendezvous"):
+    """A one-rank NCCL process group on a file rendezvous `workdir/name`,
+    destroyed on exit."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/{name}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def phases_on_one_rank(gt_torch, rng, dev, workdir, floor):
     """Phases 12–14 on a one-rank NCCL group made here (a file rendezvous in
     `workdir`); returns phase 12's launches of K1 and K5, and phase 13's and
     14's records and launches."""
-    import torch.distributed as dist
-
-    dist.init_process_group("nccl", init_method=f"file://{workdir}/rendezvous",
-                            rank=0, world_size=1)
-    try:
+    with one_rank_group(workdir):
         strong = strong_scaling_solves(gt_torch, dev)
         roofline = phase_roofline(gt_torch, rng, dev, workdir)
         rdma = phase_rdma(gt_torch, rng, dev, floor)
         return strong, roofline, rdma
-    finally:
-        dist.destroy_process_group()
 
 
 def halo_applications(gt_torch, mesh, x) -> dict:
@@ -4866,6 +4913,362 @@ def phase_spectral(gt_torch, dev, workdir):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the distributed solve on a one-rank mesh.
+# ---------------------------------------------------------------------------
+
+
+def p21_counters(reset: bool = False) -> dict:
+    """mg_counters plus K5's launches, K1's launches through its halo form
+    (counted where they launch, and also in "K1") and the halo route's
+    exchanges (set to 0 first where `reset`). Each exchange is followed by
+    one K1 halo launch or one K5 launch."""
+    from gmres_tpu_torch.ops import fused, stencil
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    if reset:
+        fused.cheb2_cuda.launches = 0
+        stencil.stencil_5pt_pallas_halo.launches = 0
+        halo_exchange.exchanges = 0
+    out = mg_counters(reset)
+    out["K5"] = fused.cheb2_cuda.launches
+    out["K1 halo"] = stencil.stencil_5pt_pallas_halo.launches
+    out["exchanges"] = halo_exchange.exchanges
+    return out
+
+
+def whole(x):
+    """The whole grid of a row-sharded DTensor (a plain tensor as it is)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def counts_of(res) -> tuple:
+    """(iterations, restarts or None, status) of a result."""
+    return (res.iterations, getattr(res, "restarts", None), res.status)
+
+
+def comm_counts(comm) -> dict:
+    """A CommDebugMode's collectives by kind: all-gathers, all-reduces and
+    any other."""
+    out = {"all_gather": 0, "all_reduce": 0, "other": 0}
+    for op, n in comm.get_comm_counts().items():
+        name = str(op)
+        kind = ("all_gather" if "allgather" in name or "all_gather" in name
+                else "all_reduce" if "all_reduce" in name or "allreduce" in name
+                else "other")
+        out[kind] += n
+    return out
+
+
+def p21_row(label, make, m_inv, plain, residual, needs, status=0, short=None,
+            bound=None):
+    """One phase-21 row. `make(M)` returns the solve on the sharded b with
+    preconditioner M (`m_inv`, the mesh= cycle, or None); a warm-up, then
+    PHASE21_REPEATS timed solves with the launch counts set to 0 just before
+    and read just after. `plain()` runs the same solve with mesh=None on
+    plain tensors (the K1 full-grid route) and returns its result or its
+    counts, which must be equal; its launches are read around it and kept
+    apart from the row's own ("plain_count"). Every exchange of the timed
+    solves must be followed by a K1 halo-form launch or a K5 launch, each
+    counted where it launches. `m_inv`'s applications and the
+    all-gathers are counted over one more solve under CommDebugMode: one
+    all-gather an application where a level is replicated, none where none
+    is, and no collective but all-gathers and all-reduces. `residual(res)`
+    is the numpy float64 true relative residual. Every kernel in `needs`
+    must have launched. One solve is profiled for the device's busy share.
+    A long row gives `short()`, which returns a capped solve, for the
+    CommDebugMode solve and the profile (CommDebugMode slows a solve ~3×).
+    The row's true residual must be under `bound`, the norm its solver
+    certifies carried to the true residual where they differ; without one,
+    no worse than twice the mesh=None run's (f64 rows, whose two runs differ
+    in rounding only)."""
+    import numpy as np
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    p21_counters(reset=True)
+    plain_res = plain()
+    plain_counts = plain_res if isinstance(plain_res, tuple) else counts_of(plain_res)
+    plain_launches = p21_counters()
+    solve = make(m_inv)
+    _, t_warm = timed(solve)
+    p21_counters(reset=True)
+    times = []
+    for _ in range(PHASE21_REPEATS):
+        res, t = timed(solve)
+        times.append(t)
+    count = p21_counters()
+    require(count["K1 halo"] == count["exchanges"] - count["K5"]
+            and count["K1 halo"] <= count["K1"],
+            f"phase 21 {label}: {count['K1 halo']} K1 halo-form launches of "
+            f"{count['K1']} K1 launches, {count['exchanges']} exchanges, "
+            f"{count['K5']} K5 launches: an exchange not followed by a kernel")
+    per = {k: v / PHASE21_REPEATS for k, v in count.items()}
+    launches = {"K1 halo": per["K1 halo"], "K1 full grid": per["K1"] - per["K1 halo"],
+                "K1rr": per["K1rr"], "K1cr": per["K1cr"], "K2": per["K2"],
+                "K5": per["K5"]}
+    got = counts_of(res)
+    require(got == plain_counts, f"phase 21 {label}: counts {got}, mesh=None "
+            f"on plain tensors {plain_counts}")
+    require(got[2] == status, f"phase 21 {label}: status {got[2]}")
+    calls = {"M": 0}
+    with CommDebugMode() as comm:
+        timed(short() if short else make(counted(m_inv, calls, "M")
+                                         if m_inv is not None else None))
+    comms = comm_counts(comm)
+    gathers_per_cycle = comms["all_gather"] / calls["M"] if calls["M"] else 0.0
+    replicated = m_inv is not None and m_inv.replicate_from < m_inv.levels
+    require(comms["other"] == 0 and comms["all_gather"] == (calls["M"] if replicated else 0),
+            f"phase 21 {label}: collectives {comms} over {calls['M']} cycle applications")
+    rel = residual(res)
+    rel_plain = None if isinstance(plain_res, tuple) else residual(plain_res)
+    require(rel <= (bound if bound is not None else 2 * rel_plain + 1e-15),
+            f"phase 21 {label}: numpy true residual {rel:.4e}, mesh=None's {rel_plain}, "
+            f"bound {bound}")
+    med = float(np.median(times))
+    prof = profile_solve(short() if short else solve, f"phase 21 {label}", med)
+    print(f"phase 21: {label}: counts (iterations, restarts, status) {got}, mesh=None on "
+          f"plain tensors {plain_counts} (its launches {plain_launches}); {res.host_syncs} "
+          f"host syncs; wall s over "
+          f"{PHASE21_REPEATS}: {quartiles(times)} (warm-up {t_warm:.4f}); launches a "
+          f"solve {launches}; {comms['all_gather']} all-gathers over {calls['M']} cycle "
+          f"applications ({gathers_per_cycle:g} a cycle), {comms['all_reduce']} "
+          f"all-reduces a solve; numpy float64 true residual {rel:.4e} (mesh=None "
+          f"{'-' if rel_plain is None else f'{rel_plain:.4e}'}); "
+          f"device busy {100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of the profiled "
+          f"wall", flush=True)
+    for k in needs:
+        require(launches[k] > 0, f"phase 21 {label}: {k} was not launched")
+    require(plain_launches["K1"] > 0, f"phase 21 {label}: the mesh=None run launched no K1")
+    return {"label": label, "counts": got, "plain_counts": plain_counts,
+            "plain_count": plain_launches,
+            "median_s": med, "host_syncs": res.host_syncs, "launches": launches,
+            "gathers_per_cycle": gathers_per_cycle, "all_reduces": comms["all_reduce"],
+            "true_rel": rel, "busy": prof["busy_ms"] / prof["wall_ms"],
+            "count": count}
+
+
+def p21_mg_rows(gt_torch, dev):
+    """Rows (a) and (b): the mg configuration (Householder GMRES(10), float32
+    cycles certified on the float64 true residual) with the halo operator
+    and the mesh= Poisson cycle, at 300² (replicate_below 160: the 150² and
+    75² levels whole on the rank) and 2048² (replicate_below 300)."""
+    import numpy as np
+    import torch
+
+    mesh = gt_torch.solver_mesh(1)
+    rows = []
+    for label, n, below in P21_MG_ROWS:
+        b_np = np_stencil(np.ones((n, n)))
+        b = gt_torch.as_tensor(b_np, dev)
+        b_sh = gt_torch.shard_grid_vector(b, mesh)
+        op = gt_torch.halo_poisson_operator(mesh)
+
+        def make(m, op=op, b_sh=b_sh):
+            return lambda: gt_torch.gmres(op, b_sh, restart=10, tol=TOL, M=m,
+                                          compute_v_err=False, inner_dtype=torch.float32,
+                                          certify="true")
+
+        def plain(n=n, b=b):
+            return gt_torch.gmres(gt_torch.poisson_operator(n), b, restart=10, tol=TOL,
+                                  M=gt_torch.poisson_multigrid_preconditioner(n),
+                                  compute_v_err=False, inner_dtype=torch.float32,
+                                  certify="true")
+
+        m_inv = gt_torch.poisson_multigrid_preconditioner(n, mesh=mesh, replicate_below=below)
+        rows.append(p21_row(
+            label, make, m_inv, plain,
+            lambda res, b_np=b_np: true_rel(b_np, whole(res.x)),
+            ("K1 halo", "K1rr", "K1cr", "K2"), bound=TOL))
+    return rows
+
+
+def p21_cbpr2_row(gt_torch, dev):
+    """Row (c): Householder GMRES(50) with the fused halo cbpr2 (K5) at
+    304², float64, tol P21_CBPR2_TOL; mesh=None on plain tensors is the same K5 on
+    the whole grid. The profile and the CommDebugMode solve cover two restart
+    cycles."""
+    import numpy as np
+
+    mesh = gt_torch.solver_mesh(1)
+    n = STRONG_N
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    b_sh = gt_torch.shard_grid_vector(b, mesh)
+    op = gt_torch.halo_poisson_operator(mesh)
+    cbpr2 = gt_torch.halo_chebyshev_preconditioner(mesh, *REF_EIG)
+
+    def make(_, restarts=1000):
+        return lambda: gt_torch.gmres(op, b_sh, restart=STRONG_M, tol=P21_CBPR2_TOL,
+                                      M=cbpr2, max_restarts=restarts, compute_v_err=False)
+
+    def plain():
+        return gt_torch.gmres(gt_torch.poisson_operator(n), b, restart=STRONG_M,
+                              tol=P21_CBPR2_TOL, M=cbpr2, compute_v_err=False)
+
+    return [p21_row(f"(c) householder cbpr2 {n}", make, None, plain,
+                    lambda res: true_rel(b_np, whole(res.x)), ("K1 halo", "K5"),
+                    short=lambda: make(None, restarts=2),
+                    bound=P21_CBPR2_TOL / cbpr2_min_eigenvalue(n))]
+
+
+def p21_model_rows(gt_torch, dev):
+    """Rows (d), (e) and (h): BiCGSTAB with the mesh= convection–diffusion
+    cycle (float32, smoother "auto") at 1024² (BASELINE config 3; its true
+    residual certified under CG_TOL), MINRES on Helmholtz 1024² (kh2 = 10
+    λ_min) with the mesh= SPD cycle, and GCRO-DR(40, k 10) on
+    convection–diffusion 512² with its mesh= cycle (these two certify a
+    preconditioned norm: held to their mesh=None runs), each cycle
+    replicating from P21_REPLICATE_BELOW rows."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs
+    from gmres_tpu_torch.models.helmholtz import helmholtz_coefs
+
+    mesh = gt_torch.solver_mesh(1)
+    below = P21_REPLICATE_BELOW
+    cd = convection_diffusion_coefs(0.4, 0.2)
+    kh2 = 10 * gt_torch.helmholtz_lambda_min(P21_MODEL_N["(e)"])
+    rows = []
+    cases = (
+        ("(d) bicgstab convdiff mixed auto", P21_MODEL_N["(d)"], cd,
+         lambda n: gt_torch.convection_diffusion_operator(n, 0.4, 0.2),
+         lambda n, **kw: gt_torch.convection_diffusion_multigrid_preconditioner(
+             n, 0.4, 0.2, smoother="auto", internal_dtype=torch.float32, **kw),
+         lambda op, b, m: gt_torch.bicgstab(op, b, tol=CG_TOL, M=m), "abs", CG_TOL),
+        ("(e) minres helmholtz", P21_MODEL_N["(e)"], helmholtz_coefs(kh2),
+         lambda n: gt_torch.helmholtz_operator(n, kh2),
+         lambda n, **kw: gt_torch.helmholtz_shifted_laplacian_preconditioner(n, kh2, **kw),
+         lambda op, b, m: gt_torch.minres(op, b, tol=CG_TOL, M=m), "abs", None),
+        ("(h) gcrodr convdiff", P21_MODEL_N["(h)"], cd,
+         lambda n: gt_torch.convection_diffusion_operator(n, 0.4, 0.2),
+         lambda n, **kw: gt_torch.convection_diffusion_multigrid_preconditioner(
+             n, 0.4, 0.2, **kw),
+         lambda op, b, m: gt_torch.gcrodr(op, b, k=10, restart=40, tol=CG_TOL, M=m), "rel",
+         None),
+    )
+    for label, n, coefs, plain_op, cycle, solver, norm, bound in cases:
+        label = f"{label} {n}"
+        b_np = np_stencil_general(np.ones((n, n)), coefs)
+        b = gt_torch.as_tensor(b_np, dev)
+        b_sh = gt_torch.shard_grid_vector(b, mesh)
+        op = gt_torch.halo_stencil_operator(mesh, coefs)
+        def plain(n=n, b=b, plain_op=plain_op, cycle=cycle, solver=solver):
+            return solver(plain_op(n), b, cycle(n))
+
+        def residual(res, b_np=b_np, coefs=coefs, norm=norm):
+            x = whole(res.x).cpu().numpy().astype(np.float64)
+            r = float(np.linalg.norm(b_np - np_stencil_general(x, coefs)))
+            return r / float(np.linalg.norm(b_np)) if norm == "rel" else r
+
+        rows.append(p21_row(
+            label, lambda m, op=op, b_sh=b_sh, solver=solver: (lambda: solver(op, b_sh, m)),
+            cycle(n, mesh=mesh, replicate_below=below), plain, residual,
+            ("K1 halo", "K1rr", "K1cr", "K2"), bound=bound))
+    return rows
+
+
+def p21_lsqr_row(gt_torch, dev):
+    """Row (f): LSQR on the 512² halo operator, Aᵀ through the halo
+    operator's transpose rule (the repair), against LSQR on the plain
+    operator (K1's full-grid rules): both stop at P21_LSQR_CAP steps (tol
+    1e-8 needs ~κ(A) ≈ 10⁵), their residuals within 1e-10 relative."""
+    import numpy as np
+
+    from gmres_tpu_torch.parallel.halo import HaloStencil
+
+    mesh = gt_torch.solver_mesh(1)
+    n = P21_LSQR_N
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    b_sh = gt_torch.shard_grid_vector(b, mesh)
+    op = gt_torch.halo_poisson_operator(mesh)
+
+    def make(_):
+        return lambda: gt_torch.lsqr(op, b_sh, tol=TOL, max_iterations=P21_LSQR_CAP)
+
+    plains = []
+
+    def plain():
+        plains.append(gt_torch.lsqr(gt_torch.poisson_operator(n), b, tol=TOL,
+                                    max_iterations=P21_LSQR_CAP))
+        return plains[-1]
+
+    row = p21_row(f"(f) lsqr halo {n}", make, None, plain,
+                  lambda res: true_rel(b_np, whole(res.x)), ("K1 halo",), status=1,
+                  short=lambda: lambda: gt_torch.lsqr(op, b_sh, tol=TOL, max_iterations=50))
+    before = HaloStencil.rule_applications["transpose"]
+    res, (plain,) = make(None)(), plains
+    transposes = HaloStencil.rule_applications["transpose"] - before
+    gap = abs(float(res.residual) - float(plain.residual)) / float(plain.residual)
+    print(f"phase 21: (f) lsqr: residual {float(res.residual):.6e} (plain operator "
+          f"{float(plain.residual):.6e}, {gap:.2e} apart); {transposes} transpose-rule "
+          f"applications in one solve of {res.iterations} steps", flush=True)
+    require(gap <= 1e-10, f"phase 21 (f): residuals {gap:.2e} apart")
+    require(transposes >= res.iterations,
+            f"phase 21 (f): {transposes} transposes in {res.iterations} steps")
+    return [row]
+
+
+def p21_weak_scaling_row(gt_torch, dev, workdir):
+    """Row (g): the ``weak-scaling --precond mg`` program at d = 1 (128², its
+    default; MGSR GMRES(50), tol 1e-12; the mesh=None cycle at d = 1, as in
+    gmres_tpu), then the same solve with the mesh= cycle (replicating
+    the levels below n/2 rows: 32² and 16² at 128²) on the sharded b, whose
+    counts must be the program's."""
+    import numpy as np
+
+    from gmres_tpu_torch.benchmarks import cli
+
+    n = P21_WEAK_N
+    rows = []
+
+    def program():
+        rows.extend(program_rows(cli, P21_WEAK_SCALING + ["--nsize-per-device", str(n)],
+                                 workdir, phase="phase 21"))
+        return (rows[0]["iterations"], rows[0]["restarts"], rows[0]["status"])
+
+    mesh = gt_torch.solver_mesh(1)
+    b_np = np_stencil(np.ones((n, n)))
+    b_sh = gt_torch.shard_grid_vector(gt_torch.as_tensor(b_np, dev), mesh)
+    op = gt_torch.halo_poisson_operator(mesh)
+
+    def make(m):
+        return lambda: gt_torch.gmres(op, b_sh, restart=50, tol=1e-12, M=m,
+                                      variant="mgsr", max_restarts=1000,
+                                      compute_v_err=False)
+
+    out = p21_row(f"(g) weak-scaling mg {n} mesh=", make,
+                  gt_torch.poisson_multigrid_preconditioner(n, mesh=mesh,
+                                                            replicate_below=n // 2),
+                  program, lambda res: true_rel(b_np, whole(res.x)),
+                  ("K1 halo", "K1rr", "K1cr", "K2"), bound=1e-10)
+    out["program"] = {k: rows[0][k] for k in ("name", "iterations", "restarts", "wall_s")}
+    return [out]
+
+
+def phase_distributed(gt_torch, dev, workdir):
+    """Phase 21: the distributed solve on the one-rank NCCL group (made by
+    the caller): rows (a)-(h). Returns the launches over the rows' timed
+    solves, those over their mesh=None twins, and the rows."""
+    t_phase = time.perf_counter()
+    rows = []
+    rows += p21_mg_rows(gt_torch, dev)
+    rows += p21_cbpr2_row(gt_torch, dev)
+    rows += p21_model_rows(gt_torch, dev)
+    rows += p21_lsqr_row(gt_torch, dev)
+    rows += p21_weak_scaling_row(gt_torch, dev, workdir)
+    rows.sort(key=lambda r: r["label"])
+    launches, twins = ({k: sum(r[key][k] for r in rows) for k in rows[0][key]}
+                       for key in ("count", "plain_count"))
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 21: {seconds:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + "; over their mesh=None twins: "
+          + ", ".join(f"{k} {v}" for k, v in twins.items()), flush=True)
+    return launches, twins, rows
+
+
 def main() -> int:
     import torch
 
@@ -4929,6 +5332,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase20"]:
         with tempfile.TemporaryDirectory() as workdir:
             phase_spectral(gt_torch, dev, workdir)
+        return 0
+    if sys.argv[1:2] == ["--phase21"]:
+        with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
+            phase_distributed(gt_torch, dev, workdir)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -5020,7 +5427,10 @@ def main() -> int:
         p19, _ = phase_transpose(gt_torch, rng, dev, workdir)
         # Phase 20: the eigensolvers, matrix functions and time steppers.
         p20, _ = phase_spectral(gt_torch, dev, workdir)
-    print(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_run:.1f} s", flush=True)
+        # Phase 21: the distributed solve, on a one-rank NCCL group again.
+        with one_rank_group(workdir, "rendezvous21"):
+            p21, p21_twins, _ = phase_distributed(gt_torch, dev, workdir)
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(rdma_records)
     records.update(cd_records)
@@ -5069,6 +5479,8 @@ def main() -> int:
     short_path = "short-recurrence family and real models (phase 18)"
     p19_path = "Helmholtz, Aᵀ and J·v solvers (phase 19)"
     p20_path = "eigensolvers, matrix functions, time steppers (phase 20)"
+    p21_path = "distributed solve, one-rank mesh (phase 21)"
+    p21_twins_path = "mesh=None twins of phase 21's rows, plain tensors"
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -5080,7 +5492,7 @@ def main() -> int:
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
-               + short["K1"] + p19["K1"] + p20["K1"],
+               + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -5088,7 +5500,9 @@ def main() -> int:
                                  programs_path: programs["K1"],
                                  family_path: family["K1"],
                                  short_path: short["K1"],
-                                 p19_path: p19["K1"], p20_path: p20["K1"]},
+                                 p19_path: p19["K1"], p20_path: p20["K1"],
+                                 p21_path: p21["K1"], p21_twins_path: p21_twins["K1"]},
+               phase21_k1_halo=p21["K1 halo"],
                phase19_k1_by_role={
                    "forward": p19["K1"] - p19["K1 transpose"] - p19["K1 tangent"],
                    "transpose (backward rule, mirrored coefficients)": p19["K1 transpose"],
@@ -5100,39 +5514,47 @@ def main() -> int:
         report("K1rr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
-               + short["K1rr"] + p19["K1rr"] + p20["K1rr"],
+               + short["K1rr"] + p19["K1rr"] + p20["K1rr"] + p21["K1rr"]
+               + p21_twins["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
                                  programs_path: programs["K1rr"],
                                  family_path: family["K1rr"],
                                  short_path: short["K1rr"],
-                                 p19_path: p19["K1rr"], p20_path: p20["K1rr"]},
+                                 p19_path: p19["K1rr"], p20_path: p20["K1rr"],
+                                 p21_path: p21["K1rr"],
+                                 p21_twins_path: p21_twins["K1rr"]},
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
-               + short["K1cr"] + p19["K1cr"] + p20["K1cr"],
+               + short["K1cr"] + p19["K1cr"] + p20["K1cr"] + p21["K1cr"]
+               + p21_twins["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
                                  programs_path: programs["K1cr"],
                                  family_path: family["K1cr"],
                                  short_path: short["K1cr"],
-                                 p19_path: p19["K1cr"], p20_path: p20["K1cr"]},
+                                 p19_path: p19["K1cr"], p20_path: p20["K1cr"],
+                                 p21_path: p21["K1cr"],
+                                 p21_twins_path: p21_twins["K1cr"]},
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
-               + p20["K2"],
+               + p20["K2"] + p21["K2"] + p21_twins["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
                                     programs_path: programs["K2"],
                                     family_path: family["K2"],
                                     short_path: short["K2"],
-                                    p19_path: p19["K2"], p20_path: p20["K2"]},
+                                    p19_path: p19["K2"], p20_path: p20["K2"],
+                                    p21_path: p21["K2"],
+                                    p21_twins_path: p21_twins["K2"]},
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
                short_launches_by_path={p: short[f"K2 {p}"]
@@ -5140,6 +5562,8 @@ def main() -> int:
                phase19_launches_by_path={p: p19[f"K2 {p}"]
                                          for p in ("cluster", "tiled", "sweep")},
                phase20_launches_by_path={p: p20[f"K2 {p}"]
+                                         for p in ("cluster", "tiled", "sweep")},
+               phase21_launches_by_path={p: p21[f"K2 {p}"]
                                          for p in ("cluster", "tiled", "sweep")},
                path=[r["path"] for r in records["K2"]
                      if r["case"] == "K2 order 3 2048x2048 f32"][0],
@@ -5178,8 +5602,11 @@ def main() -> int:
                "gmres_tpu/ops/sparse.py:488", [], launches["K4"],
                f"K4 {BSR_CASES[-1][0]} f32"),
         report("K5", "gmres_tpu_torch/csrc/cheb2_fused.cu",
-               "gmres_tpu/ops/fused.py:129", [], strong["K5"],
+               "gmres_tpu/ops/fused.py:129", [],
+               strong["K5"] + p21["K5"] + p21_twins["K5"],
                f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows",
+               launches_by_path={"strong-scaling (phase 12)": strong["K5"],
+                                 p21_path: p21["K5"], p21_twins_path: p21_twins["K5"]},
                **timing("K5", f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows")),
         report("K7a", "gmres_tpu_torch/csrc/cg_fused.cu",
                "gmres_tpu/ops/fused.py:50", [], k7_launches[0],

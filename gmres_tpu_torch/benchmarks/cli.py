@@ -693,11 +693,11 @@ def cmd_weak_scaling(args):
     reference commented out, weak_scaling.f90:60), d = 1, 2, 4, …
 
     ``--precond mg`` (the default) keeps the iteration count flat across
-    rows; at d > 1 it needs the distributed V-cycle, which is not ported
-    (``poisson_multigrid_preconditioner(mesh=…)`` raises
-    NotImplementedError, ROADMAP queue 1, item 8.3). At d = 1 the V-cycle
-    takes b as a plain tensor (its kernels need a plain tensor's storage);
-    the halo operator takes it as the one rank's block."""
+    rows. At d > 1 it is the distributed V-cycle
+    (``poisson_multigrid_preconditioner(mesh=…)``, as in JAX) on a
+    row-sharded b. At d = 1 it is the plain cycle, as in JAX, and takes b
+    as a plain tensor (its whole-grid kernels need a plain tensor's
+    storage); the halo operator takes it as the one rank's block."""
     from gmres_tpu_torch.precond.multigrid import poisson_multigrid_preconditioner
 
     dev = _device(args)
@@ -715,7 +715,7 @@ def cmd_weak_scaling(args):
                 m_inv = poisson_multigrid_preconditioner(
                     n, mesh=mesh if d > 1 else None)
             res, dt = _scaling_solve(args, n, mesh, dev, m_inv=m_inv,
-                                     shard=args.precond != "mg")
+                                     shard=args.precond != "mg" or d > 1)
             iters = _total_inner(res, m)
             per_iter = dt / max(iters, 1)
             if base is None:
@@ -1331,8 +1331,7 @@ def build_parser() -> argparse.ArgumentParser:
         tol=1e-12, max_restarts=1000, max_devices=0, explicit_halo=False,
         precond="mg", choices={"precond": ("mg", "chebyshev")},
         help="grid rows grow with the ranks d = 1, 2, 4, …; --precond mg "
-             "at d > 1 raises NotImplementedError (distributed V-cycle not "
-             "ported)." + scaling_note)
+             "at d > 1 is the distributed V-cycle." + scaling_note)
     add("restart-sweep", cmd_restart_sweep, nsize=280, start=20, step=5,
         ntests=10, tol=1e-15, max_restarts=1000, cycle_reps=0, repeats=5,
         solver="gmres", aug=3, deflate=10,

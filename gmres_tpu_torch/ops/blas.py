@@ -15,6 +15,12 @@ plain tensor with a DTensor in a product, and dispatching the solver's
 dozens of tiny per-iteration operations through DTensor would cost host
 time for nothing. Everything else a solver does is elementwise on the
 vectors and stays sharded. On plain tensors nothing changes.
+
+A basis or a block of vectors (k, *shape) is sharded along the grid rows
+too, ``[Shard(1)]`` (JAX's ``P(None, "grid", None)``): ``rows_like`` makes
+one, ``gram`` reduces two of them to their (k, l) products with one
+all-reduce, and ``_svqb`` takes its Gram so. ``replicate_like`` lifts a
+small plain matrix onto a sharded operand's mesh for a local product.
 """
 
 from __future__ import annotations
@@ -22,9 +28,9 @@ from __future__ import annotations
 import torch
 
 if torch.distributed.is_available():
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 else:  # a torch built without distributed: no tensor is a DTensor
-    DTensor, Replicate = (), None
+    DTensor, Replicate, Shard = (), None, None
 
 
 def is_dtensor(x) -> bool:
@@ -37,6 +43,68 @@ def as_plain(t: torch.Tensor) -> torch.Tensor:
     partial sums are all-reduced over its mesh (one collective), a
     replicated DTensor is unwrapped; a plain tensor is returned as is."""
     return t.full_tensor() if is_dtensor(t) else t
+
+
+def rows_like(k: int, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """A zero buffer of k rows shaped like ``like``, (k, *like.shape), in
+    ``dtype`` (default like's). For a sharded ``like`` it is a DTensor on the
+    same mesh with every sharded dimension moved one along (a
+    ``[Shard(0)]`` vector gives a ``[Shard(1)]`` basis), each rank
+    allocating its own block only (the grid divides evenly over the mesh,
+    as ``shard_grid_vector`` requires)."""
+    dtype = like.dtype if dtype is None else dtype
+    if not is_dtensor(like):
+        return torch.zeros((k,) + tuple(like.shape), dtype=dtype, device=like.device)
+    loc = like.to_local()
+    blk = torch.zeros((k,) + tuple(loc.shape), dtype=dtype, device=loc.device)
+    places = [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in like.placements]
+    return DTensor.from_local(blk, like.device_mesh, places, run_check=False)
+
+
+def _sharded_dim(x) -> int:
+    """The dimension a DTensor of this package is sharded along (its one
+    ``Shard`` placement on the 1-D grid mesh)."""
+    (place,) = x.placements
+    return place.dim
+
+
+def shard_offset(x) -> int:
+    """Index, along the sharded dimension, of this rank's first element of a
+    row-sharded DTensor (shards are equal, as ``shard_grid_vector``
+    requires); 0 for a plain tensor."""
+    if not is_dtensor(x):
+        return 0
+    dim = _sharded_dim(x)
+    return x.device_mesh.get_coordinate()[0] * x.to_local().shape[dim]
+
+
+def shard_rows_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A block (k, *like.shape) that every rank holds whole, placed as
+    ``rows_like`` places a buffer: each rank keeps its own slice, with no
+    communication. ``t`` as it is where ``like`` is plain."""
+    if not is_dtensor(like):
+        return t
+    dim = _sharded_dim(like) + 1
+    rows = like.to_local().shape[dim - 1]
+    blk = t.narrow(dim, shard_offset(like), rows).contiguous()
+    return DTensor.from_local(blk, like.device_mesh, [Shard(dim)], run_check=False)
+
+
+def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A plain tensor ``t`` as a replicated DTensor on ``like``'s mesh, so a
+    product with the sharded ``like`` stays local; ``t`` as it is where
+    ``like`` is plain or ``t`` already a DTensor."""
+    if is_dtensor(like) and not is_dtensor(t):
+        return DTensor.from_local(t, like.device_mesh,
+                                  [Replicate()] * like.device_mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(R, *shape) × (S, *shape) → (R, S): a_flat @ b_flatᵀ, a plain tensor
+    (one all-reduce of the (R, S) partial products on a mesh)."""
+    return as_plain(a.reshape(a.shape[0], -1) @ b.reshape(b.shape[0], -1).T)
 
 
 def row_contract(rows: torch.Tensor, v: torch.Tensor,
@@ -55,11 +123,7 @@ def row_combine(coefs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Linear combination (R, *extra) × (R, *shape) → (*extra, *shape):
     out[e] = Σᵢ coefs[i, e]·rowsᵢ (``tensordot(coefs, rows, dims=([0], [0]))``).
     Communication-free on sharded rows: the coefficients are replicated."""
-    if is_dtensor(rows) and not is_dtensor(coefs):
-        coefs = DTensor.from_local(
-            coefs, rows.device_mesh, [Replicate()] * rows.device_mesh.ndim,
-            run_check=False)
-    return torch.tensordot(coefs, rows, dims=([0], [0]))
+    return torch.tensordot(replicate_like(coefs, rows), rows, dims=([0], [0]))
 
 
 def row_apply(fn, rows: torch.Tensor) -> torch.Tensor:
@@ -75,7 +139,7 @@ def _svqb(w: torch.Tensor, eps: float):
     weight."""
     s = w.shape[0]
     flat = w.reshape(s, -1)
-    g = flat.conj() @ flat.T
+    g = as_plain(flat.conj() @ flat.T)
     d = torch.sqrt(torch.clamp(torch.diagonal(g).real, min=0.0))
     dinv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
                        torch.zeros_like(d))
@@ -88,7 +152,7 @@ def _svqb(w: torch.Tensor, eps: float):
     lmax = torch.clamp(lam[-1], min=eps)
     lam_c = torch.maximum(lam, eps * lmax)
     smat = (dinv[:, None] * u) / torch.sqrt(lam_c)[None, :]
-    q = torch.tensordot(smat, w, dims=([0], [0]))
+    q = row_combine(smat, w)
     r = (torch.sqrt(lam_c)[:, None] * u.T) * d[None, :]
     return q, r
 

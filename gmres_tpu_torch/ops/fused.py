@@ -130,20 +130,28 @@ def _rounded(vals, dtype: torch.dtype) -> list[float]:
     return torch.tensor(list(vals), dtype=dtype).tolist()
 
 
+def poly_recurrence(r: torch.Tensor, theta: float, steps, apply) -> torch.Tensor:
+    """K2's recurrence with the operator ``apply``: the scalars rounded to
+    r's dtype, d = r/θ, z = d, then d ← a·d + b·(r − A z), z ← z + d a
+    step. The distributed cycle's sharded levels run it over their halo
+    operator."""
+    theta_r = _rounded([theta], r.dtype)[0]
+    ab = _rounded(steps, r.dtype)
+    d = r / theta_r
+    z = d
+    for s in range(len(ab) // 2):
+        az = apply(z)
+        d = ab[2 * s] * d + ab[2 * s + 1] * (r - az)
+        z = z + d
+    return z
+
+
 def poly_stencil_smoother_plain(
     r: torch.Tensor, theta: float, steps, coefs=POISSON_COEFS
 ) -> torch.Tensor:
     """The plain PyTorch version of K2 (runs on any device)."""
-    theta_r = _rounded([theta], r.dtype)[0]
-    ab = _rounded(steps, r.dtype)
     c = _coef_terms(coefs)
-    d = r / theta_r
-    z = d
-    for s in range(len(ab) // 2):
-        az = stencil_5pt_general(z, *c)
-        d = ab[2 * s] * d + ab[2 * s + 1] * (r - az)
-        z = z + d
-    return z
+    return poly_recurrence(r, theta, steps, lambda z: stencil_5pt_general(z, *c))
 
 
 def chebk_bands(rows: int, csize: int) -> list[tuple[int, int]]:

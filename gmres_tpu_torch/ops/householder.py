@@ -14,13 +14,21 @@ the caller's buffers. Row k of P is a zero row before the call, and the
 entries of column k below the diagonal come out as −2·(zero rows of T)·c
 = 0, so every row and column that was zero beyond k stays zero — the
 invariant the unmasked matmuls rely on.
+
+On a row-sharded vector P is a ``[Shard(1)]`` block and T stays plain:
+the contractions all-reduce (``ops/blas.py``), the unit vectors are
+written on the rank that owns their flat index, and the columns of P are
+read with one all-reduce of a vector that is zero off the owning rank
+(``ops/flat.py``). The Arnoldi indices 0…m lie in rank 0's block whenever
+m + 1 ≤ N²/d; nothing here relies on it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_combine, row_contract
+from gmres_tpu_torch.ops.blas import replicate_like, row_combine, row_contract
+from gmres_tpu_torch.ops.flat import flat_columns, flat_eye, flat_set
 
 
 def wy_apply(p: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -41,9 +49,8 @@ def wy_basis_vector(p: torch.Tensor, t: torch.Tensor, idx: int) -> torch.Tensor:
     P e_idx is column idx of P; the JAX version computes it as a masked
     contraction (a TPU layout constraint), which gives the same values,
     since every other product in it is an exact zero."""
-    e = torch.zeros_like(p[0])
-    e.reshape(-1)[idx] = 1
-    pe = p.reshape(p.shape[0], -1)[:, idx]
+    e = flat_set(torch.zeros_like(p[0]), idx, 1)
+    pe = flat_columns(p, idx + 1)[:, idx]
     return e - row_combine(t @ pe, p)
 
 
@@ -64,6 +71,6 @@ def wy_append(
 def wy_basis(p: torch.Tensor, t: torch.Tensor, m: int) -> torch.Tensor:
     """Explicit orthonormal basis V (m, n_flat): V[i] = Q e_i."""
     pf = p.reshape(p.shape[0], -1)  # (m+1, n)
-    pe = pf[:, :m]  # P e_i for i < m, (m+1, m)
-    eye = torch.eye(m, pf.shape[1], dtype=p.dtype, device=p.device)
-    return eye - (t @ pe).T @ pf
+    pe = flat_columns(p, m)  # P e_i for i < m, (m+1, m)
+    eye = flat_eye(m, p[0]).reshape(m, -1)
+    return eye - replicate_like((t @ pe).T, pf) @ pf

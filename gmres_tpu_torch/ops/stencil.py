@@ -321,10 +321,17 @@ def stencil_5pt_pallas_halo(
 ) -> torch.Tensor:
     """Stencil over a (rows, N) block with explicit (N,) or (1, N) halo
     rows, None for a zero row: the plain version for a CPU tensor, K1 for a
-    CUDA tensor."""
+    CUDA tensor. ``stencil_5pt_pallas_halo.launches`` counts the K1 launches
+    taken through this halo form (each one also counted by
+    ``stencil5_cuda.launches``)."""
     if x.device.type == "cpu":
         return stencil_5pt_halo(x, top, bottom, _coef_terms(coefs))
-    return stencil5_cuda(x, top, bottom, coefs)
+    y = stencil5_cuda(x, top, bottom, coefs)
+    stencil_5pt_pallas_halo.launches += 1
+    return y
+
+
+stencil_5pt_pallas_halo.launches = 0
 
 
 # The coefficients' neighbour shifts, in (center, west, east, south, north)

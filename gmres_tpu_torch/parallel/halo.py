@@ -36,6 +36,25 @@ interior is computed while they travel, and the boundary rows that have a
 neighbour are corrected after the wait, in the order of the TPU kernel's
 in-kernel remote copies. They find the neighbours once and round their
 coefficients once per dtype; on one rank an application is one launch.
+
+Transposes and tangents. ``torch.func.vjp`` (which QMR, LSQR and LSMR
+use for Aᵀ) and ``torch.func.jvp`` cannot trace a halo exchange: its
+sends are collectives, and DTensor has no rule for them. The halo
+operator therefore routes a tracked input through ``HaloStencil``, an
+autograd.Function whose forward is the untracked application. The
+cotangent of a stencil with halo exchange is a halo exchange of the
+cotangent followed by the stencil with west↔east and south↔north swapped
+(the transpose of a zero-halo 5-point stencil over the whole grid, cut
+into the same row blocks); the tangent is the operator itself. Each rule
+is one exchange and one K1 launch on the card, and the exchange runs
+inside the Function, outside any traced graph. Forward-mode AD makes no
+dual of a DTensor (``aten._has_same_storage_numel`` has no sharding rule),
+so ``torch.func.jvp`` takes each rank's block, a plain tensor, where the
+tangent rule applies; ``torch.func.vjp`` takes the DTensor.
+
+``halo_exchange.exchanges`` counts the exchanges of the halo route (the
+operators, cbpr2 and the sharded levels of the distributed multigrid
+cycles; not the RDMA route), one per application on every rank.
 """
 
 from __future__ import annotations
@@ -44,6 +63,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from gmres_tpu_torch.ops._cuda import tracked_by
 from gmres_tpu_torch.ops.fused import (
     cheb2_apply,
     cheb2_scalars,
@@ -67,6 +87,7 @@ def _halo_rows(blk: torch.Tensor, group, neighbours):
     neighbour (no row is allocated for it)."""
     top, bottom, wait = post_halo_rows(blk, group, neighbours)
     wait()
+    halo_exchange.exchanges += 1
     return top, bottom
 
 
@@ -87,6 +108,19 @@ def halo_exchange(blk: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Te
     return row(top), row(bottom)
 
 
+# Halo exchanges of the halo route since the count was last set to 0.
+halo_exchange.exchanges = 0
+
+
+def halo_apply_local(blk: torch.Tensor, coefs, group, neighbours) -> torch.Tensor:
+    """One application of the 5-point stencil ``coefs`` to this rank's
+    block: one halo exchange over ``group`` with the ``neighbours`` of
+    ``_neighbours(group)``, then K1's halo form on a CUDA block (its plain
+    version on a CPU block)."""
+    top, bottom = _halo_rows(blk, group, neighbours)
+    return stencil_5pt_pallas_halo(blk, top, bottom, coefs)
+
+
 def _sharded(mesh, fn: Callable) -> Callable:
     """``fn`` on each rank's block of a row-sharded DTensor (local_map)."""
     from torch.distributed.tensor import Shard
@@ -96,27 +130,89 @@ def _sharded(mesh, fn: Callable) -> Callable:
                      device_mesh=mesh)
 
 
+class HaloStencil(torch.autograd.Function):
+    """The halo operator ``op`` (a ``HaloOperator``) applied to x, with a
+    transpose and a tangent rule: ``HaloStencil.apply(x, op)``.
+
+    * backward: Aᵀ is the mirrored operator (west↔east, south↔north): x's
+      cotangent is ``op.mirror`` applied to the cotangent, one exchange of
+      the cotangent's boundary rows and one stencil;
+    * jvp: the operator is linear, so x's tangent maps through ``op``.
+
+    Both rules apply this Function again, so they stay differentiable. The
+    forward runs on untracked tensors (torch.func hands it unwrapped ones),
+    so the exchange and the launch never enter a traced graph.
+    ``rule_applications`` counts the rules' applications."""
+
+    @staticmethod
+    def forward(x, op):
+        return op.untracked(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.op = inputs[1]
+
+    @staticmethod
+    def backward(ctx, gy):
+        HaloStencil.rule_applications["transpose"] += 1
+        return HaloStencil.apply(gy, ctx.op.mirror), None
+
+    @staticmethod
+    def jvp(ctx, gx, _):
+        HaloStencil.rule_applications["tangent"] += 1
+        return HaloStencil.apply(gx, ctx.op)
+
+
+HaloStencil.rule_applications = {"transpose": 0, "tangent": 0}
+
+
+class HaloOperator:
+    """Matrix-free 5-point stencil ``coefs`` over a row-partitioned grid with
+    explicit halo exchange (see :func:`halo_stencil_operator`). Called on a
+    row-sharded DTensor it returns one; on a plain tensor, this rank's
+    block. ``mirror`` is its transpose (the stencil with west↔east and
+    south↔north swapped)."""
+
+    def __init__(self, mesh, coefs, axis: str = GRID_AXIS):
+        self.mesh, self.axis = mesh, axis
+        self.coefs = tuple(float(c) for c in coefs)
+        self.group = mesh.get_group(axis)
+        self.neighbours = _neighbours(self.group)
+        self.untracked = _sharded(mesh, self.apply_local)
+        self._mirror = None
+
+    def apply_local(self, blk: torch.Tensor) -> torch.Tensor:
+        """The operator on this rank's block (one exchange, one stencil)."""
+        return halo_apply_local(blk, self.coefs, self.group, self.neighbours)
+
+    @property
+    def mirror(self) -> "HaloOperator":
+        if self._mirror is None:
+            c, w, e, s, n = self.coefs
+            self._mirror = HaloOperator(self.mesh, (c, e, w, n, s), self.axis)
+            self._mirror._mirror = self
+        return self._mirror
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if tracked_by(x) is None:
+            return self.untracked(x)
+        return HaloStencil.apply(x, self)
+
+
 def halo_stencil_operator(
     mesh,
     coefs=LAPLACE_COEFS,
     axis: str = GRID_AXIS,
-) -> Callable:
+) -> HaloOperator:
     """Matrix-free 5-point stencil over a row-partitioned (N, N) grid with
     explicit halo exchange: K1 on a CUDA block, its plain version on a CPU
     block.
 
     The returned callable has the standard LinearOperator contract and
     composes with the solvers, which never know the operator is
-    distributed."""
-    group = mesh.get_group(axis)
-    neighbours = _neighbours(group)
-    coefs = tuple(float(c) for c in coefs)
-
-    def apply_local(blk):
-        top, bottom = _halo_rows(blk, group, neighbours)
-        return stencil_5pt_pallas_halo(blk, top, bottom, coefs)
-
-    return _sharded(mesh, apply_local)
+    distributed. Autograd and ``torch.func`` differentiate it through
+    ``HaloStencil``'s rules (QMR, LSQR and LSMR derive Aᵀ so)."""
+    return HaloOperator(mesh, coefs, axis)
 
 
 def _rdma_local(coefs7, group) -> Callable:

@@ -32,6 +32,13 @@ the Poisson cycle. ``csl_multigrid_preconditioner`` is the complex-shifted
 cycle: plain torch complex arithmetic (``layout="complex"``), or the real
 (2, N, N) stack whose neighbour stencils launch K1 (``layout="split"``).
 
+With ``mesh=`` the Poisson, convection–diffusion and Helmholtz SPD cycles
+run on row-sharded grids (``_distributed_cycle``): the levels at or above
+``replicate_below`` rows stay sharded, on halo stencils (K1's halo form)
+and K2's recurrence over them; one all-gather a cycle gives every rank the
+first level below, which the ``mesh=None`` cycle solves whole (K1's forms,
+K2). JAX's GSPMD makes the same split with sharding constraints.
+
 ``poisson3d_multigrid_preconditioner`` (with ``restrict_sum3d`` and
 ``prolong_repeat3d``) is the JAX 3-D cycle for the 7-point stencil, plain
 PyTorch on any device as the JAX cycle is plain jnp (neither package has a
@@ -49,13 +56,19 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from gmres_tpu_torch.models.convection_diffusion import (
     convection_diffusion_coefs,
     convection_diffusion_coefs_upwind,
 )
-from gmres_tpu_torch.ops.fused import jacobi_k_scalars, poly_stencil_smoother_pallas
+from gmres_tpu_torch.ops.fused import (
+    jacobi_k_scalars,
+    poly_recurrence,
+    poly_stencil_smoother_pallas,
+)
 from gmres_tpu_torch.ops.stencil import (  # noqa: F401  (transfers re-exported)
+    POISSON_COEFS,
     correct_residual,
     prolong_repeat,
     residual_restrict,
@@ -88,6 +101,82 @@ class MultigridPlan:
     post_smooth: tuple
     coarse: tuple
     lam_min_coarse: float
+
+
+def _replicate_from(sizes, mesh, replicate_below) -> int:
+    """The first level of a distributed cycle that every rank holds whole:
+    the first grid below ``replicate_below`` (default 8 rows a rank, as in
+    JAX), or earlier where a rank's block of the level above has an odd row
+    count. JAX's GSPMD reshards a transfer that straddles ranks; here a
+    level stays sharded only while restricting the blocks above it is local
+    (even rows a rank), and the first level where it would not be is
+    agglomerated instead. Agglomeration moves data, not arithmetic, so the
+    cycle is the same operator either way. ``len(sizes)`` where no level
+    is replicated."""
+    d = mesh.size()
+    if replicate_below is None:
+        replicate_below = 8 * d
+    for l, sz in enumerate(sizes):
+        if sz < replicate_below or (l > 0 and sizes[l - 1] % (2 * d)):
+            return l
+    return len(sizes)
+
+
+def _distributed_cycle(mesh, sizes, replicate_from, level_coefs, smooth_local,
+                       plain_v_cycle, internal_dtype=None) -> Callable:
+    """The V-cycle on row-sharded grids: one ``local_map`` over each rank's
+    block, so no DTensor operation can gather behind the cycle's back.
+
+    Levels above ``replicate_from`` stay sharded: their residuals are halo
+    stencils (``parallel/halo.py:halo_apply_local``, K1's halo form on the
+    card), their smoothers ``smooth_local(r, l, kind, apply)`` (kind "pre",
+    "post" or "coarse") run over the same operator, and restriction and
+    prolongation are local (the blocks hold even rows). At
+    ``replicate_from`` one ``all_gather_into_tensor`` of the residual gives
+    every rank the whole grid, which ``plain_v_cycle(r, level)`` (the
+    ``mesh=None`` cycle from that level down, routed by device) solves with
+    no communication; the hand-back up is this rank's rows of it.
+    ``internal_dtype`` runs the cycle in that dtype, as the plain cycles
+    do."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from gmres_tpu_torch.parallel.halo import _neighbours, halo_apply_local
+    from gmres_tpu_torch.parallel.mesh import GRID_AXIS
+
+    group = mesh.get_group(GRID_AXIS)
+    neighbours = _neighbours(group)
+    n_ranks, me = dist.get_world_size(group), dist.get_rank(group)
+    n_levels = len(sizes)
+
+    def apply_at(l):
+        return lambda x: halo_apply_local(x, level_coefs[l], group, neighbours)
+
+    def cycle(r, l):
+        if l == replicate_from:
+            whole = torch.empty((r.shape[0] * n_ranks, r.shape[1]), dtype=r.dtype,
+                                device=r.device)
+            # Not all_gather_single, its newer name: torch 2.11 lacks it.
+            dist.all_gather_into_tensor(whole, r.contiguous(), group=group)
+            rows = r.shape[0]
+            return plain_v_cycle(whole, l)[me * rows:(me + 1) * rows]
+        apply = apply_at(l)
+        if l == n_levels - 1:
+            return smooth_local(r, l, "coarse", apply)
+        e = smooth_local(r, l, "pre", apply)
+        ec = cycle(restrict_sum(r - apply(e)), l + 1)
+        e = e + prolong_repeat(ec)
+        return e + smooth_local(r - apply(e), l, "post", apply)
+
+    def m_inv_local(blk):
+        if internal_dtype is not None and blk.dtype != internal_dtype:
+            return cycle(blk.to(internal_dtype), 0).to(blk.dtype)
+        return cycle(blk, 0)
+
+    m_inv = local_map(m_inv_local, out_placements=[Shard(0)],
+                      in_placements=([Shard(0)],), device_mesh=mesh)
+    m_inv.replicate_from = replicate_from
+    return m_inv
 
 
 def _default_levels(nsize: int, levels, floor: int = 16):
@@ -124,18 +213,18 @@ def poisson_multigrid_preconditioner(
       > 16. nsize must be divisible by 2^(levels-1).
     pre/post_smooth: Chebyshev smoothing order on [λmax/band, λmax].
     coarse_order: Chebyshev order of the coarsest-level solve.
-    mesh, replicate_below: the distributed cycle, not ported yet (ROADMAP
-      queue 1, item 8); passing either raises NotImplementedError.
+    mesh, replicate_below: the distributed cycle on row-sharded grids
+      (``_distributed_cycle``): levels at or above ``replicate_below`` rows
+      (default 8 a rank) stay sharded, the first below it is gathered once
+      and solved whole on every rank. ``replicate_below`` without a mesh is
+      ignored, as in JAX. The result is the ``mesh=None`` cycle's to
+      rounding.
 
     The returned callable carries ``levels``, ``fine_equiv_sweeps`` (the
     fine-grid-equivalent stencil sweeps of one cycle) and ``plan``
-    (a ``MultigridPlan``).
+    (a ``MultigridPlan``); with a mesh also ``replicate_from``, the first
+    replicated level.
     """
-    if mesh is not None or replicate_below is not None:
-        raise NotImplementedError(
-            "the distributed multigrid cycle (mesh=, replicate_below=) is "
-            "not ported yet: ROADMAP queue 1, item 8"
-        )
     levels, sizes = _default_levels(nsize, levels)
 
     smoother = chebyshev_stencil_preconditioner(
@@ -160,6 +249,16 @@ def poisson_multigrid_preconditioner(
 
     def m_inv(r: torch.Tensor) -> torch.Tensor:
         return v_cycle(r, 0)
+
+    if mesh is not None:
+        polys = {"pre": smoother, "post": post_smoother, "coarse": coarse_solve}
+
+        def smooth_local(r, l, kind, apply):
+            return poly_recurrence(r, polys[kind].theta, polys[kind].steps, apply)
+
+        m_inv = _distributed_cycle(
+            mesh, sizes, _replicate_from(sizes, mesh, replicate_below),
+            [POISSON_COEFS] * levels, smooth_local, v_cycle)
 
     # An order-k semi-iteration applies the stencil k−1 times; each
     # non-coarsest level adds 2 residual stencils; level l carries 4^-l of
@@ -239,8 +338,15 @@ def convection_diffusion_multigrid_preconditioner(
     omega: the Jacobi damping, or "auto" for each level's from its spectrum.
     internal_dtype: run the whole cycle in this dtype (r cast on entry, z
       cast back on exit).
-    mesh, replicate_below: the distributed cycle, not ported yet (ROADMAP
-      queue 1, item 8.3); passing either raises NotImplementedError.
+    mesh, replicate_below: the distributed cycle on row-sharded grids, as
+      for ``poisson_multigrid_preconditioner``. A sharded level smooths with
+      its own smoother over its halo operator: the Chebyshev polynomial,
+      damped Jacobi in JAX's jnp form, or red-black sweeps whose colours
+      come from the global row index (this rank's row offset added, where
+      JAX's ``broadcasted_iota`` sees the global grid). The Ritz setup of
+      "auto", "chebyshev" and ``omega="auto"`` runs at construction on
+      plain host tensors, independent of r, so every rank has the same
+      intervals.
 
     Routing: on a CUDA tensor the level operators and the two V-cycle
     compositions launch K1 with the level's coefficients, the Jacobi and
@@ -255,11 +361,6 @@ def convection_diffusion_multigrid_preconditioner(
     ``level_schemes``, ``omegas``, ``smoothers``, ``cheb_intervals`` and
     ``coarse_interval``.
     """
-    if mesh is not None or replicate_below is not None:
-        raise NotImplementedError(
-            "the distributed convection-diffusion cycle (mesh=, "
-            "replicate_below=) is not ported yet: ROADMAP queue 1, item 8.3"
-        )
     if smoother not in ("jacobi", "chebyshev", "auto", "rbgs"):
         raise ValueError(f"unknown smoother {smoother!r}")
 
@@ -339,23 +440,26 @@ def convection_diffusion_multigrid_preconditioner(
     def apply_l(x, l):
         return stencil_5pt_routed_general(x, coefs[l])
 
-    def jacobi(r, l, iters):
-        if r.device.type == "cpu":
+    def jacobi(r, l, iters, apply=None):
+        if r.device.type == "cpu" or apply is not None:
+            apply = apply or (lambda x: apply_l(x, l))
             step = omegas[l] / coefs[l][0]
             e = step * r
             for _ in range(iters - 1):
-                e = e + step * (r - apply_l(e, l))
+                e = e + step * (r - apply(e))
             return e
         theta, steps = plans[l, iters]
         return poly_stencil_smoother_pallas(r, theta, steps, coefs[l])
 
-    def rbgs(r, l, iters):
+    def rbgs(r, l, iters, apply=None, row0=0):
         # A sweep is the red update then the black one, each a masked Jacobi
         # step whose stencil reads only the other colour: exactly a
-        # Gauss-Seidel iteration in checkerboard order.
-        key = (l, r.device)
+        # Gauss-Seidel iteration in checkerboard order. ``row0`` is the
+        # global index of r's first row (a sharded level's block).
+        apply = apply or (lambda x: apply_l(x, l))
+        key = (tuple(r.shape), row0, r.device)
         if key not in masks:
-            ii = torch.arange(r.shape[0], device=r.device)[:, None]
+            ii = row0 + torch.arange(r.shape[0], device=r.device)[:, None]
             jj = torch.arange(r.shape[1], device=r.device)[None, :]
             red = ((ii + jj) % 2) == rb_parity
             masks[key] = (red, ~red)
@@ -363,7 +467,7 @@ def convection_diffusion_multigrid_preconditioner(
         c0 = coefs[l][0]
 
         def half(e, mask):
-            resid = r - apply_l(e, l)
+            resid = r - apply(e)
             return e + torch.where(mask, resid / c0, 0.0)
 
         # The first red half-step from e = 0 is the masked scaled r.
@@ -391,6 +495,23 @@ def convection_diffusion_multigrid_preconditioner(
         if internal_dtype is not None and r.dtype != internal_dtype:
             return v_cycle(r.to(internal_dtype), 0).to(r.dtype)
         return v_cycle(r, 0)
+
+    if mesh is not None:
+        rank = dist.get_rank(mesh.get_group())
+
+        def smooth_local(r, l, kind, apply):
+            iters = {"pre": pre_smooth, "post": post_smooth, "coarse": coarse_iters}[kind]
+            if smoothers[l] == "rbgs":
+                return rbgs(r, l, iters, apply, row0=rank * r.shape[0])
+            if smoothers[l] == "chebyshev":
+                poly = plans[l, iters]
+                return poly_recurrence(r, poly.theta, poly.steps, apply)
+            return jacobi(r, l, iters, apply)
+
+        sizes = [sz for (sz, _, _, _) in levels]
+        m_inv = _distributed_cycle(
+            mesh, sizes, _replicate_from(sizes, mesh, replicate_below), coefs,
+            smooth_local, v_cycle, internal_dtype)
 
     m_inv.levels = n_levels
     m_inv.level_schemes = [("central" if cen else "upwind")
@@ -435,16 +556,12 @@ def helmholtz_shifted_laplacian_preconditioner(
     forms with the level's coefficients (their plain compositions on a CPU
     tensor, the JAX cycle's arithmetic). ``internal_dtype`` runs the cycle
     in that dtype (r cast on entry, z cast back). ``mesh`` and
-    ``replicate_below`` raise NotImplementedError (ROADMAP queue 1, item
-    8.3).
+    ``replicate_below`` give the distributed cycle on row-sharded grids, as
+    for ``poisson_multigrid_preconditioner`` (its sharded levels smooth with
+    the same polynomials over the level's halo operator).
 
     The returned callable carries ``levels``, ``level_shifts`` and
-    ``fine_equiv_sweeps``."""
-    if mesh is not None or replicate_below is not None:
-        raise NotImplementedError(
-            "the distributed Helmholtz cycle (mesh=, replicate_below=) is not "
-            "ported yet: ROADMAP queue 1, item 8.3"
-        )
+    ``fine_equiv_sweeps`` (and ``replicate_from`` with a mesh)."""
     if shift < 0:
         raise ValueError("shift must be >= 0 (SPD requires +k² shift)")
     levels, sizes = _default_levels(nsize, levels)
@@ -475,6 +592,15 @@ def helmholtz_shifted_laplacian_preconditioner(
         if internal_dtype is not None and r.dtype != internal_dtype:
             return v_cycle(r.to(internal_dtype), 0).to(r.dtype)
         return v_cycle(r, 0)
+
+    if mesh is not None:
+        def smooth_local(r, l, kind, apply):
+            poly = coarse if kind == "coarse" else smoother_at[l]
+            return poly_recurrence(r, poly.theta, poly.steps, apply)
+
+        m_inv = _distributed_cycle(
+            mesh, sizes, _replicate_from(sizes, mesh, replicate_below), coefs,
+            smooth_local, v_cycle, internal_dtype)
 
     # Order-k Chebyshev = k−1 operator applications; 2 residual stencils a
     # non-coarsest level; level l carries 4^-l of the fine grid's points.
@@ -522,14 +648,14 @@ def csl_multigrid_preconditioner(
     one), the rotations and the Jacobi updates in torch.
 
     ``mesh`` and ``replicate_below`` raise NotImplementedError (ROADMAP
-    queue 1, item 8.3); any other layout raises ValueError. The returned
+    queue 1, item 8.3b); any other layout raises ValueError. The returned
     callable carries ``levels``, ``level_coefs`` and ``fine_equiv_sweeps``."""
     if layout not in ("complex", "split"):
         raise ValueError(f"unknown layout {layout!r}")
     if mesh is not None or replicate_below is not None:
         raise NotImplementedError(
             "the distributed CSL cycle (mesh=, replicate_below=) is not "
-            "ported yet: ROADMAP queue 1, item 8.3"
+            "ported yet: ROADMAP queue 1, item 8.3b"
         )
     beta = complex(float(shift[0]), float(shift[1]))
     levels, _ = _default_levels(nsize, levels)
@@ -625,7 +751,8 @@ def poisson3d_multigrid_preconditioner(
     grid is even and above 8 (nsize must be divisible by 2^(levels−1)).
 
     mesh, replicate_below: the distributed cycle, not ported yet (ROADMAP
-      queue 1, item 8.3); passing either raises NotImplementedError.
+      queue 1, item 8.3b: a 3-D level exchanges whole planes); passing
+      either raises NotImplementedError.
 
     Plain PyTorch on the tensor's device: the smoothers are
     ``chebyshev_preconditioner``'s semi-iteration around
@@ -637,7 +764,7 @@ def poisson3d_multigrid_preconditioner(
     if mesh is not None or replicate_below is not None:
         raise NotImplementedError(
             "the distributed 3-D multigrid cycle (mesh=, replicate_below=) is "
-            "not ported yet: ROADMAP queue 1, item 8.3"
+            "not ported yet: ROADMAP queue 1, item 8.3b"
         )
     levels, sizes = _default_levels(nsize, levels, floor=8)
     lam_max = 12.0

@@ -32,8 +32,12 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import _orthonormalize_block, row_apply
-from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
+from gmres_tpu_torch.ops.blas import (
+    _orthonormalize_block,
+    as_plain,
+    replicate_like,
+    row_apply,
+)
 from gmres_tpu_torch.solvers.gmres import _as_operator
 from gmres_tpu_torch.types import Preconditioner, SolverStatus, _fields_numpy
 
@@ -92,7 +96,6 @@ def block_cg(
       M: optional SPD preconditioner (single-vector callable).
       X0: optional (s, *shape) initial guesses.
     """
-    _refuse_dtensor(B, "block_cg")
     op1 = _as_operator(A, B.device)
     s = B.shape[0]
     dtype = B.dtype
@@ -107,13 +110,13 @@ def block_cg(
         return row_apply(M, v) if M is not None else v
 
     def bdot(u, v):
-        return u.reshape(s, -1) @ v.reshape(s, -1).T        # (s, s)
+        return as_plain(u.reshape(s, -1) @ v.reshape(s, -1).T)        # (s, s)
 
     def comb(c, blk):
-        return torch.tensordot(c, blk, dims=([0], [0]))
+        return torch.tensordot(replicate_like(c, blk), blk, dims=([0], [0]))
 
     def rownorms(blk):
-        return torch.sqrt(torch.sum(blk.reshape(s, -1) ** 2, dim=1))
+        return torch.sqrt(as_plain(torch.sum(blk.reshape(s, -1) ** 2, dim=1)))
 
     def solve_spd(g, rhs):
         # Clamped SVQB keeps g ≈ I; the jitter guards the residue of a

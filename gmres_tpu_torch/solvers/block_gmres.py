@@ -24,8 +24,13 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import _orthonormalize_block, row_apply
-from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
+from gmres_tpu_torch.ops.blas import (
+    _orthonormalize_block,
+    as_plain,
+    replicate_like,
+    row_apply,
+    rows_like,
+)
 from gmres_tpu_torch.solvers.gmres import _as_operator
 from gmres_tpu_torch.types import BlockSolveResult, Preconditioner, SolverStatus
 
@@ -51,7 +56,6 @@ def block_gmres(
       M: linear right preconditioner (single-vector callable).
       x0: optional (s, *shape) initial guesses.
     """
-    _refuse_dtensor(B, "block_gmres")
     op1 = _as_operator(A, B.device)
     s = B.shape[0]
     dtype = B.dtype
@@ -68,27 +72,27 @@ def block_gmres(
 
     if x0 is None:
         x0 = torch.zeros_like(B)
-    bnorms = torch.sqrt(torch.sum(B.reshape(s, -1) ** 2, dim=1))
+    bnorms = torch.sqrt(as_plain(torch.sum(B.reshape(s, -1) ** 2, dim=1)))
     bsafe = torch.clamp(bnorms, min=tiny)
 
     def residual_block(x):
         r = B - vop(x)
-        return r, torch.sqrt(torch.sum(r.reshape(s, -1) ** 2, dim=1)) / bsafe
+        return r, torch.sqrt(as_plain(torch.sum(r.reshape(s, -1) ** 2, dim=1))) / bsafe
 
     def cycle(r):
         """m block-Arnoldi steps; returns the block correction."""
         v0, b0 = _orthonormalize_block(r, eps)
-        basis = torch.zeros((m + 1,) + tuple(B.shape), dtype=dtype, device=dev)
+        basis = rows_like(m + 1, B)
         basis[0] = v0
         hmat = torch.zeros(((m + 1) * s, m * s), dtype=dtype, device=dev)
         for t in range(m):
             w = vop(vprec(basis[t]))
             v2 = basis[: t + 1].reshape(t + 1, s, -1)
             w2 = w.reshape(s, -1)
-            h1 = torch.tensordot(v2, w2, dims=([2], [1]))  # (t+1, s, s)
-            w2 = w2 - torch.tensordot(h1, v2, dims=([0, 1], [0, 1]))
-            h2 = torch.tensordot(v2, w2, dims=([2], [1]))
-            w2 = w2 - torch.tensordot(h2, v2, dims=([0, 1], [0, 1]))
+            h1 = as_plain(torch.tensordot(v2, w2, dims=([2], [1])))  # (t+1, s, s)
+            w2 = w2 - torch.tensordot(replicate_like(h1, v2), v2, dims=([0, 1], [0, 1]))
+            h2 = as_plain(torch.tensordot(v2, w2, dims=([2], [1])))
+            w2 = w2 - torch.tensordot(replicate_like(h2, v2), v2, dims=([0, 1], [0, 1]))
             q, hsub = _orthonormalize_block(w2.reshape(B.shape), eps)
             basis[t + 1] = q
             col = torch.zeros((m + 1, s, s), dtype=dtype, device=dev)
@@ -105,7 +109,8 @@ def block_gmres(
         dsafe = torch.where(diag.abs() > dfloor, diag, torch.ones_like(diag))
         rh = rh - torch.diag(diag) + torch.diag(dsafe)
         y = torch.linalg.solve_triangular(rh, rhs, upper=True)
-        combo = torch.tensordot(y.reshape(m, s, s), basis[:m].reshape(m, s, -1),
+        v_m = basis[:m].reshape(m, s, -1)
+        combo = torch.tensordot(replicate_like(y.reshape(m, s, s), v_m), v_m,
                                 dims=([0, 1], [0, 1])).reshape(B.shape)
         return vprec(combo)
 

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import is_dtensor, row_combine, tree_vdot
+from gmres_tpu_torch.ops.blas import gram, row_combine, rows_like, tree_vdot
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.tri import masked_back_substitution
 from gmres_tpu_torch.solvers.gmres import (
@@ -35,13 +35,6 @@ from gmres_tpu_torch.solvers.gmres import (
     _v_err_mgsr,
 )
 from gmres_tpu_torch.types import GmresResult, Preconditioner
-
-
-def _refuse_dtensor(b, name: str) -> None:
-    if is_dtensor(b):
-        raise NotImplementedError(
-            f"{name} on a row-sharded DTensor b is not ported "
-            "(ROADMAP queue 1, item 8)")
 
 
 def _solve_1x1(op, b, x0, tol) -> GmresResult:
@@ -88,7 +81,6 @@ def fgmres(
       compute_v_err: orthogonality audit of V (the MGSR variant's metric).
       breakdown_check: exit a cycle on lucky breakdown h_val < tol.
     """
-    _refuse_dtensor(b, "fgmres")
     op = _as_operator(A, b.device)
     if b.numel() == 1:
         return _solve_1x1(op, b, x0, tol)
@@ -108,9 +100,9 @@ def fgmres(
         # estimate in the true residual's norm.
         del rel_prev
         bsafe = _nonzero_or_one(beta)
-        v_basis = torch.zeros((m + 1,) + tuple(shape), dtype=work_dtype, device=dev)
+        v_basis = rows_like(m + 1, b, work_dtype)
         v_basis[0] = (r / bsafe).to(work_dtype)
-        z_basis = torch.zeros((m,) + tuple(shape), dtype=work_dtype, device=dev)
+        z_basis = rows_like(m, b, work_dtype)
         g0 = torch.zeros((m + 1,), dtype=dtype, device=dev)
         g0[0] = beta
         giv = givens_init(m, g0)._replace(beta0=torch.clamp(beta0, min=tiny).to(dtype))
@@ -162,8 +154,7 @@ def fgmres(
         work_dtype=work_dtype,
     )
     if compute_v_err and v_basis is not None:
-        vf = v_basis.reshape(m + 1, -1)
-        v_err = _v_err_mgsr((vf @ vf.T).to(dtype), n_out, dtype)
+        v_err = _v_err_mgsr(gram(v_basis, v_basis).to(dtype), n_out, dtype)
     else:
         v_err = torch.zeros((m + 1,), dtype=dtype, device=dev)
     return GmresResult(

@@ -35,14 +35,15 @@ import torch
 
 from gmres_tpu_torch.ops.blas import (
     _orthonormalize_block,
+    as_plain,
     row_apply,
     row_combine,
     row_contract,
+    rows_like,
 )
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.hessenberg_eig import eig_select, smallest_invariant_subspace
 from gmres_tpu_torch.ops.tri import masked_back_substitution, solve_small
-from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
 from gmres_tpu_torch.solvers.gmres_dr import (
     F64,
     HOST,
@@ -120,7 +121,6 @@ def gcrodr(
     """
     if b.is_complex():
         raise ValueError("gcrodr supports real dtypes only")
-    _refuse_dtensor(b, "gcrodr")
     m = restart - k
     if k < 1 or m < 2:
         raise ValueError(
@@ -137,10 +137,10 @@ def gcrodr(
 
     def bmatdot(block_a, block_b):
         """(s, t) cross-Gram of two long blocks."""
-        return torch.tensordot(block_a, block_b, dims=(baxes, baxes))
+        return as_plain(torch.tensordot(block_a, block_b, dims=(baxes, baxes)))
 
     def vnorm(v):
-        return torch.sqrt(torch.sum(v * v))
+        return torch.sqrt(as_plain(torch.sum(v * v)))
 
     rhs = M(b) if M is not None else b
     beta0 = vnorm(rhs)
@@ -162,7 +162,7 @@ def gcrodr(
         c, rmat = _orthonormalize_block(au_block, eps)
         t = solve_small(rmat, torch.eye(rmat.shape[0], dtype=rmat.dtype, device=dev))
         u_new = row_combine(t, u_block)
-        good = torch.isfinite(u_new).all() & torch.isfinite(c).all()
+        good = as_plain(torch.isfinite(u_new).all()) & as_plain(torch.isfinite(c).all())
         return (torch.where(good, u_new, torch.zeros_like(u_new)),
                 torch.where(good, c, torch.zeros_like(c)))
 
@@ -170,7 +170,7 @@ def gcrodr(
         """m steps of Arnoldi on (I − C·Cᵀ)·op, tracking B = Cᵀ·op·V."""
         r = r.to(wdtype)
         beta = vnorm(r)
-        basis = torch.zeros((m + 1,) + shape, dtype=wdtype, device=dev)
+        basis = rows_like(m + 1, b, wdtype)
         basis[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))
         hraw = torch.zeros((m + 1, m), dtype=wdtype, device=dev)
         hrot = torch.zeros((m + 1, m), dtype=wdtype, device=dev)
@@ -215,7 +215,7 @@ def gcrodr(
     def host_state(rel, u_blk, c_blk, basis, hraw, bmat):
         """One read: the residual, whether C is live, and the small
         matrices of both recycle updates, in a float64 CPU copy."""
-        parts = [rel.reshape(1), torch.any(c_blk.abs() > 0).reshape(1),
+        parts = [rel.reshape(1), as_plain(torch.any(c_blk.abs() > 0)).reshape(1),
                  bmatdot(c_blk, u_blk), bmatdot(basis, u_blk), hraw, bmat]
         host = torch.cat([p.to(F64).reshape(-1) for p in parts]).to(HOST)
         rel_h, live, cu, vu, hraw_h, bmat_h = torch.split(
@@ -240,7 +240,7 @@ def gcrodr(
         u_new = row_combine(zd, torch.cat([u_blk, basis[:m]], dim=0))
         au_new = row_combine((gmat @ z).to(dev, wdtype), torch.cat([c_blk, basis], dim=0))
         u_new, c_new = renormalize(u_new, au_new)
-        good = (okc and bool(torch.isfinite(z).all())) & torch.any(u_new.abs() > 0)
+        good = (okc and bool(torch.isfinite(z).all())) & as_plain(torch.any(u_new.abs() > 0))
         return torch.where(good, u_new, u_blk), torch.where(good, c_new, c_blk)
 
     def seed_from_hessenberg(basis, hraw_h):
@@ -269,7 +269,7 @@ def gcrodr(
     else:
         # Bootstrap: one plain cycle with zero recycle blocks, whose
         # harmonic Ritz vectors seed U.
-        u0 = torch.zeros((k,) + shape, dtype=wdtype, device=dev)
+        u0 = rows_like(k, b, wdtype)
         basis, hraw, _, y, resid_coefs, t, rel0, inner = arnoldi_cycle(r, u0, u0)
         syncs += inner
         x = x + row_combine(y, basis[:m])

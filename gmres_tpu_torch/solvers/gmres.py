@@ -28,13 +28,16 @@ convergence reads one boolean from the device, and each restart reads one
 status code (``GmresResult.host_syncs`` counts them). The loop indices are
 Python ints, so indexing the buffers reads nothing back.
 
-Row-sharded vectors: MGSR runs unchanged on a ``[Shard(0)]`` DTensor b
-(``parallel/mesh.py``). Its basis is then sharded along the grid rows, the
-reductions of ``ops/blas.py`` all-reduce over the mesh and return plain
-tensors, so the small state stays plain and identical on every rank. The
-Householder variant indexes single flat components of the vectors, which
-JAX reaches only through GSPMD; it raises NotImplementedError on a
-DTensor.
+Row-sharded vectors: both variants run on a ``[Shard(0)]`` DTensor b
+(``parallel/mesh.py``). The bases are then sharded along the grid rows
+(``ops/blas.py:rows_like``), the reductions of ``ops/blas.py`` all-reduce
+over the mesh and return plain tensors, so the small state stays plain and
+identical on every rank. The Householder variant reads and writes single
+flat components of the vectors (the Hessenberg column is the head of the
+reflected vector, the reflector's leading entry is shifted), which JAX
+reaches through GSPMD; here ``ops/flat.py`` writes them on the rank that
+owns the index and reads them with one all-reduce of a vector that is
+zero elsewhere.
 """
 
 from __future__ import annotations
@@ -47,12 +50,20 @@ import torch
 from gmres_tpu_torch.ops import householder as wy
 from gmres_tpu_torch.ops.blas import (
     as_plain,
-    is_dtensor,
+    gram,
     row_combine,
     row_contract,
+    rows_like,
     tree_vdot,
 )
-from gmres_tpu_torch.ops.flat import flat_add, flat_get, mask_ge
+from gmres_tpu_torch.ops.flat import (
+    flat_add,
+    flat_embed,
+    flat_get,
+    flat_head,
+    flat_tail_sq,
+    mask_ge,
+)
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.tri import masked_back_substitution
 from gmres_tpu_torch.types import (
@@ -268,7 +279,6 @@ def _gmres_householder(
 ) -> GmresResult:
     dtype = b.dtype
     shape = b.shape
-    n = b.numel()
     dev = b.device
     mixed = work_dtype != dtype
     inner_gain = float(torch.finfo(work_dtype).eps) * 10.0
@@ -283,8 +293,7 @@ def _gmres_householder(
         g0[0] = -s
         bsafe = _nonzero_or_one(beta)
         u = (flat_add(w, 0, s) / bsafe).to(work_dtype)
-        p_basis = torch.zeros((m + 1,) + tuple(shape), dtype=work_dtype,
-                              device=dev)
+        p_basis = rows_like(m + 1, b, work_dtype)
         p_basis[0] = u / _nonzero_or_one(_norm(u))
         t_mat = torch.zeros((m + 1, m + 1), dtype=work_dtype, device=dev)
         t_mat[0, 0] = 2.0
@@ -304,10 +313,8 @@ def _gmres_householder(
 
             # Hessenberg column: H[0:t+1, t] = w[0:t+1]; H[t+1, t] from the
             # tail norm with Walker's sign choice.
-            wf = w_t.reshape(-1)
-            whead = wf[: m + 1]
-            tail = wf[t + 1:]
-            tmp = torch.sqrt(torch.sum(tail * tail))
+            whead = flat_head(w_t, m + 1)
+            tmp = torch.sqrt(flat_tail_sq(w_t, t + 1))
             h_sub = torch.where(whead[t + 1] > 0, -tmp, tmp)
             h_val = tmp.to(dtype)
             hcol = whead.clone()
@@ -318,8 +325,7 @@ def _gmres_householder(
             # New reflector: zero prefix, subtract H(t+1,t) at t+1,
             # normalise; a zero vector on lucky breakdown contributes
             # nothing in compact-WY algebra.
-            u = mask_ge(w_t, t + 1)
-            u.reshape(-1)[t + 1] -= h_sub
+            u = flat_add(mask_ge(w_t, t + 1), t + 1, -h_sub)
             p_new = u / _nonzero_or_one(_norm(u))
             wy.wy_append(p_basis, t_mat, p_new, t + 1)
 
@@ -342,9 +348,7 @@ def _gmres_householder(
         y = masked_back_substitution(hmat, giv.g, n_out)
         # Update direction Q [y; 0], y normalised by β before the
         # work-dtype cast and rescaled in the outer dtype.
-        yvec = torch.zeros((n,), dtype=dtype, device=dev)
-        yvec[:m] = y / bsafe
-        dx = wy.wy_apply(p_basis, t_mat, yvec.reshape(shape).to(work_dtype))
+        dx = wy.wy_apply(p_basis, t_mat, flat_embed(y / bsafe, b).to(work_dtype))
         x = x + bsafe * dx.to(dtype)
         return x, n_out, ferr, h_val, (p_basis, t_mat), syncs
 
@@ -356,7 +360,7 @@ def _gmres_householder(
 
     if compute_v_err and basis is not None:
         v = wy.wy_basis(*basis, m)  # (m, n)
-        v_err = _v_err_householder((v @ v.T).to(dtype), n_out, dtype)
+        v_err = _v_err_householder(gram(v, v).to(dtype), n_out, dtype)
     else:
         # No cycle ran (or no audit asked): every entry is inactive.
         v_err = torch.zeros((m + 1,), dtype=dtype, device=dev)
@@ -452,8 +456,8 @@ def _gmres_mgsr(
 
     if compute_v_err and v_basis is not None:
         vf = v_basis.reshape(m + 1, -1)
-        gram = as_plain(vf.conj() @ vf.T).to(dtype)  # Hermitian Gram
-        v_err = _v_err_mgsr(gram, n_out, rdtype)
+        gram_v = as_plain(vf.conj() @ vf.T).to(dtype)  # Hermitian Gram
+        v_err = _v_err_mgsr(gram_v, n_out, rdtype)
     else:
         v_err = torch.zeros((m + 1,), dtype=rdtype, device=dev)
 
@@ -491,7 +495,7 @@ def gmres(
       A: callable operator y = A(x) on tensors shaped like b, or a dense
         (n, n) matrix (tensor or numpy array) for a flat b.
       b: right-hand side tensor; its device is the device of the solve. A
-        row-sharded DTensor (``shard_grid_vector``) runs the mgsr variant
+        row-sharded DTensor (``shard_grid_vector``) runs either variant
         over the mesh.
       restart: Krylov dimension m per cycle (clamped to b.numel() − 1).
       tol: relative-residual tolerance.
@@ -517,11 +521,6 @@ def gmres(
         raise ValueError(
             "variant='householder' is real-only (the Walker sign "
             "convention and reflector algebra assume real arithmetic)"
-        )
-    if is_dtensor(b) and variant == "householder":
-        raise NotImplementedError(
-            "variant='householder' on a row-sharded DTensor b is not ported: "
-            "use variant='mgsr' (ROADMAP queue 1, item 8)"
         )
     op = _as_operator(A, b.device)
     if b.numel() == 1:

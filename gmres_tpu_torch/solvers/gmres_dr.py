@@ -39,11 +39,11 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_combine, tree_vdot
+from gmres_tpu_torch.ops.blas import gram, row_combine, rows_like, tree_vdot
 from gmres_tpu_torch.ops.givens import GivensState, givens_step
 from gmres_tpu_torch.ops.hessenberg_eig import eig_select
 from gmres_tpu_torch.ops.tri import masked_back_substitution, solve_small
-from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor, _solve_1x1
+from gmres_tpu_torch.solvers.fgmres import _solve_1x1
 from gmres_tpu_torch.solvers.gmres import (
     _as_operator,
     _cgs_pass,
@@ -119,7 +119,6 @@ def gmres_dr(
       deflation: "eig", "subspace" or "auto", validated; each runs the
         exact eigensolver extraction, as in gmres_tpu (module docstring).
     """
-    _refuse_dtensor(b, "gmres_dr")
     op = _as_operator(A, b.device)
     if b.numel() == 1:
         return _solve_1x1(op, b, x0, tol)
@@ -236,7 +235,7 @@ def gmres_dr(
         [((beta0 == 0) | (rel_init < tol)).to(dtype), beta_init]).tolist()
     converged = bool(converged)
     syncs = 1
-    v_init = torch.zeros((m + 1,) + shape, dtype=dtype, device=dev)
+    v_init = rows_like(m + 1, b)
     v_init[0] = r_init / _nonzero_or_one(beta_init)
     c_ext = torch.zeros((m + 1,), dtype=F64)
     c_ext[0] = beta_host
@@ -280,8 +279,7 @@ def gmres_dr(
         status = SolverStatus.MAX_ITERATIONS
     residual = rel_true if kcount > 0 else rel_init
     if compute_v_err:
-        vf = v_basis.reshape(m + 1, -1)
-        v_err = _v_err_mgsr((vf @ vf.T).to(dtype), n_out, dtype)
+        v_err = _v_err_mgsr(gram(v_basis, v_basis).to(dtype), n_out, dtype)
     else:
         v_err = torch.zeros((m + 1,), dtype=dtype, device=dev)
     return GmresResult(

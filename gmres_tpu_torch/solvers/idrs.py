@@ -25,9 +25,16 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import _orthonormalize_block, tree_norm, tree_vdot
+from gmres_tpu_torch.ops.blas import (
+    _orthonormalize_block,
+    as_plain,
+    row_combine,
+    rows_like,
+    shard_rows_like,
+    tree_norm,
+    tree_vdot,
+)
 from gmres_tpu_torch.ops.tri import solve_small
-from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -66,7 +73,6 @@ def idrs(
     """
     if s < 1:
         raise ValueError(f"s must be >= 1, got {s}")
-    _refuse_dtensor(b, "idrs")
     if x0 is None:
         x = torch.zeros_like(b)
         r = b
@@ -83,11 +89,12 @@ def idrs(
     def m_apply(v):
         return M(v) if M is not None else v
 
-    p_flat = _shadow_block(s, shape, dtype, dev).reshape(s, -1).conj()
+    # Drawn whole on every rank; a sharded b keeps its rows of it.
+    p_flat = shard_rows_like(_shadow_block(s, shape, dtype, dev), b).reshape(s, -1).conj()
 
     def pdot(v):
         """(P, v): the s inner products as one product."""
-        return p_flat @ v.reshape(-1)
+        return as_plain(p_flat @ v.reshape(-1))
 
     def safe_div(num, den):
         return num / torch.where(den.abs() > 0, den, torch.ones_like(den))
@@ -98,8 +105,8 @@ def idrs(
     status = (SolverStatus.CONVERGED if bool(res0 < tol)
               else SolverStatus.MAX_ITERATIONS)
     syncs = 1
-    g_blk = torch.zeros((s,) + tuple(shape), dtype=dtype, device=dev)
-    u_blk = torch.zeros((s,) + tuple(shape), dtype=dtype, device=dev)
+    g_blk = rows_like(s, b)
+    u_blk = rows_like(s, b)
     m_mat = eye.clone()
     om = torch.ones((), dtype=dtype, device=dev)
     i = 0
@@ -112,8 +119,8 @@ def idrs(
             act = (idx[:, None] >= k) & (idx[None, :] >= k)
             c = solve_small(torch.where(act, m_mat, eye),
                             torch.where(idx >= k, f, torch.zeros_like(f)))
-            v = m_apply(r - torch.tensordot(c, g_blk, dims=([0], [0])))
-            u_k = torch.tensordot(c, u_blk, dims=([0], [0])) + om * v
+            v = m_apply(r - row_combine(c, g_blk))
+            u_k = row_combine(c, u_blk) + om * v
             g_k = A(u_k)
             # Biorthogonalise g_k against the leading shadow directions,
             # the projections updated from one block reduction.

@@ -22,10 +22,10 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_combine, tree_vdot
+from gmres_tpu_torch.ops.blas import gram, row_combine, rows_like, tree_vdot
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.tri import masked_back_substitution
-from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor, _solve_1x1
+from gmres_tpu_torch.solvers.fgmres import _solve_1x1
 from gmres_tpu_torch.solvers.gmres import (
     _as_operator,
     _cgs_pass,
@@ -59,7 +59,6 @@ def lgmres(
         on the true residual in b's dtype.
       compute_v_err: orthogonality audit of the last cycle's V basis.
     """
-    _refuse_dtensor(b, "lgmres")
     op = _as_operator(A, b.device)
     if b.numel() == 1:
         return _solve_1x1(op, b, x0, tol)
@@ -80,9 +79,9 @@ def lgmres(
 
     def cycle(r, beta, aug_z, aug_w, n_aug):
         bsafe = _nonzero_or_one(beta)
-        v_basis = torch.zeros((s + 1,) + shape, dtype=work_dtype, device=dev)
+        v_basis = rows_like(s + 1, b, work_dtype)
         v_basis[0] = (r / bsafe).to(work_dtype)
-        z_basis = torch.zeros((s,) + shape, dtype=work_dtype, device=dev)
+        z_basis = rows_like(s, b, work_dtype)
         g0 = torch.zeros((s + 1,), dtype=dtype, device=dev)
         g0[0] = beta
         giv = givens_init(s, g0)._replace(beta0=torch.clamp(beta0, min=tiny))
@@ -151,8 +150,8 @@ def lgmres(
     syncs = 1
     breakdown = False
     buf = max(k_aug, 1)
-    aug_z = torch.zeros((buf,) + shape, dtype=dtype, device=dev)
-    aug_w = torch.zeros((buf,) + shape, dtype=dtype, device=dev)
+    aug_z = rows_like(buf, b)
+    aug_w = rows_like(buf, b)
     x, k, n_out, n_aug = x0, 0, 0, 0
     ferr = torch.zeros((s,), dtype=dtype, device=dev)
     v_basis = None
@@ -198,8 +197,7 @@ def lgmres(
     else:
         residual = beta / torch.clamp(beta0, min=tiny)
     if compute_v_err and v_basis is not None:
-        vf = v_basis.reshape(s + 1, -1)
-        v_err = _v_err_mgsr((vf @ vf.T).to(dtype), n_out, dtype)
+        v_err = _v_err_mgsr(gram(v_basis, v_basis).to(dtype), n_out, dtype)
     else:
         v_err = torch.zeros((s + 1,), dtype=dtype, device=dev)
     return GmresResult(

@@ -21,8 +21,7 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_combine, tree_vdot
-from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
+from gmres_tpu_torch.ops.blas import gram as block_gram, row_combine, tree_vdot
 from gmres_tpu_torch.solvers.gmres import _as_operator, _nonzero_or_one
 from gmres_tpu_torch.types import GmresResult, Preconditioner, SolverStatus
 
@@ -51,7 +50,6 @@ def sstep_gmres(
       rel_ridge: Tikhonov ridge on the equilibrated Gram's unit diagonal;
         0 selects 100·eps of the work dtype.
     """
-    _refuse_dtensor(b, "sstep_gmres")
     op = _as_operator(A, b.device)
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -84,8 +82,8 @@ def sstep_gmres(
         # float32 GEMM sums this (s+1) × n × (s+1) product less accurately
         # than XLA's (1.4e-6 against 3.2e-7 relative at 512², on the CPU),
         # enough to make the equilibrated Gram indefinite past its ridge.
-        zf = z_full.reshape(s + 1, -1).to(dtype)
-        gram = zf @ zf.T
+        zf = z_full.to(dtype)
+        gram = block_gram(zf, zf)
         g_mat = gram[1:, 1:]
         c_vec = gram[1:, 0]
         d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(g_mat), min=tiny))

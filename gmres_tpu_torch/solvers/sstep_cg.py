@@ -35,9 +35,8 @@ from typing import Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import tree_vdot
+from gmres_tpu_torch.ops.blas import as_plain, replicate_like, tree_vdot
 from gmres_tpu_torch.solvers.cg import _in_dtype
-from gmres_tpu_torch.solvers.fgmres import _refuse_dtensor
 from gmres_tpu_torch.solvers.gmres import _as_operator
 from gmres_tpu_torch.types import Preconditioner, SolveResult, SolverStatus
 
@@ -107,7 +106,6 @@ def sstep_cg(
       x0: initial guess (zeros by default).
 
     ``iterations`` is cycles·s."""
-    _refuse_dtensor(b, "sstep_cg")
     op = _as_operator(A, b.device)
 
     def prec(v):
@@ -147,9 +145,9 @@ def sstep_cg(
                              torch.stack(imgs).reshape(nb, -1)])
         # One read: the (2nb+1)² Gram. g_vu is deliberately not
         # symmetrised (U's zero Bˢp slot makes VᵀU's mirror row nonzero).
-        g = (stacked @ stacked.T).cpu()
+        g = as_plain(stacked @ stacked.T).cpu()
         xh, ph, ok = _recurrences(g, s, t_mat)
-        coef = torch.stack([xh, ph]).to(dev)
+        coef = replicate_like(torch.stack([xh, ph]).to(dev), v_cols)
         x_new = x + torch.tensordot(coef[0], v_cols, dims=([0], [0])).reshape(shape)
         p_new = torch.tensordot(coef[1], v_cols, dims=([0], [0])).reshape(shape)
         return x_new, p_new, ok

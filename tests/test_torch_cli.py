@@ -9,9 +9,9 @@ In one process the scaling programs make a one-rank gloo group, so they run
 at d = 1 only (and JAX is given ``--max-devices 1``); two gloo processes
 (tests/torch_halo_worker.py) run ``strong-scaling --explicit-halo`` and
 ``weak-scaling --precond chebyshev`` at d = 1, 2 against JAX's two-device
-rows, and ``weak-scaling --precond mg``, whose distributed V-cycle is not
-ported, must raise NotImplementedError there. Times are host times and are
-not compared.
+rows, and ``weak-scaling --precond mg`` (the distributed V-cycle at d = 2)
+against JAX's rows at 32 rows a device. Times are host times and are not
+compared.
 """
 
 import json
@@ -108,7 +108,7 @@ RUNS_2 = {
                                "--max-devices", "2", "--max-restarts", "200",
                                "--precond", "chebyshev"],
 }
-RUN_2_MG = ["weak-scaling", "--nsize-per-device", "8", "--restart", "10",
+RUN_2_MG = ["weak-scaling", "--nsize-per-device", "32", "--restart", "10",
             "--tol", "1e-8", "--max-devices", "2", "--max-restarts", "200"]
 HEADER = "solver"
 
@@ -174,16 +174,22 @@ def test_two_rank_program_matches_jax(label, two_ranks, tmp_path):
     _check_rows(port, _rows(jax_jsonl))
 
 
-def test_weak_scaling_mg_on_two_ranks_raises(two_ranks):
-    """d = 1 runs (rank 0 alone); d = 2 needs the distributed V-cycle, and
-    both ranks raise its NotImplementedError, with no Chebyshev fallback."""
-    port = _rows(os.path.join(two_ranks, "weak-scaling-mg.jsonl")) if os.path.exists(
-        os.path.join(two_ranks, "weak-scaling-mg.jsonl")) else []
-    assert port == []  # the program emits its table only after the sweep
+def test_weak_scaling_mg_on_two_ranks_raises(two_ranks, tmp_path):
+    """d = 2 needs the distributed V-cycle, which the port refused until the
+    distributed slice; now the rows at d = 1 (the plain cycle) and d = 2
+    (the mesh= cycle on a row-sharded b) take the iterations and restarts
+    of JAX's program on two devices, exactly."""
     for rank in (0, 1):
-        with open(os.path.join(two_ranks, f"weak-scaling-mg.rank{rank}.err")) as f:
-            msg = f.read()
-        assert msg.startswith("NotImplementedError:") and "item 8" in msg
+        assert not os.path.exists(os.path.join(two_ranks, f"weak-scaling-mg.rank{rank}.err"))
+    port = _rows(os.path.join(two_ranks, "weak-scaling-mg.jsonl"))
+    assert [r["devices"] for r in port] == [1, 2]
+    jax_jsonl = str(tmp_path / "jax.jsonl")
+    jax_main(RUN_2_MG + ["--jsonl", jax_jsonl])
+    ref = {r["name"]: r for r in _rows(jax_jsonl)}
+    _check_rows(port, list(ref.values()))
+    for p in port:
+        assert (p["iterations"], p["restarts"]) == (ref[p["name"]]["iterations"],
+                                                    ref[p["name"]]["restarts"])
 
 
 @pytest.mark.parametrize("solver,precond", [("qmr", "mg")])

@@ -27,7 +27,7 @@ from gmres_tpu.precond import multigrid as jmg
 import gmres_tpu_torch as tt
 from gmres_tpu_torch.models import convection_diffusion as tcd
 from gmres_tpu_torch.precond import multigrid as tmg
-from tests.torch_parity import rel_err, seeded, to_np, to_torch
+from tests.torch_parity import one_rank_mesh, rel_err, seeded, to_np, to_torch
 
 GAMMAS = [(0.4, 0.2), (2.0, 1.0)]
 SMOOTHERS = ["jacobi", "chebyshev", "auto", "rbgs"]
@@ -205,10 +205,22 @@ def test_transposed_cycle_is_the_dense_transpose(n, smoother):
     assert np.abs(md - md.T).max() > 1e-6  # genuinely nonsymmetric
 
 
-def test_refusals():
-    for kw in ({"mesh": object()}, {"replicate_below": 8}):
-        with pytest.raises(NotImplementedError, match="item 8.3"):
-            tt.convection_diffusion_multigrid_preconditioner(64, **kw)
+def test_refusals(tmp_path):
+    """The refusals that stay; the distributed options, refused until the
+    distributed slice: ``replicate_below`` without a mesh is ignored (JAX's
+    rule), and the mesh= cycle on a one-rank mesh is the plain cycle within
+    1e-13 for each smoother (tests/test_torch_dist.py runs 2 and 4 ranks)."""
+    r = to_torch(seeded(705, (64, 64)))
+    for smoother in SMOOTHERS[1:]:
+        plain = tt.convection_diffusion_multigrid_preconditioner(64, smoother=smoother)
+        torch.testing.assert_close(tt.convection_diffusion_multigrid_preconditioner(
+            64, smoother=smoother, replicate_below=8)(r), plain(r), rtol=0, atol=0)
+        with one_rank_mesh(tmp_path / smoother) as mesh:
+            dm = tt.convection_diffusion_multigrid_preconditioner(
+                64, smoother=smoother, mesh=mesh, replicate_below=32)
+            assert dm.replicate_from == 2
+            z = dm(tt.shard_grid_vector(r, mesh))
+            assert rel_err(z.full_tensor(), plain(r)) <= 1e-13
     with pytest.raises(ValueError, match="unknown smoother"):
         tt.convection_diffusion_multigrid_preconditioner(64, smoother="sor")
     # Every central level's band is taller than wide at γ = (2, 1): JAX's

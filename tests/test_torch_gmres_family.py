@@ -25,7 +25,7 @@ import torch
 
 import gmres_tpu as gt
 import gmres_tpu_torch as tt
-from tests.torch_parity import rel_err, seeded, to_np, to_torch
+from tests.torch_parity import one_rank_mesh, rel_err, seeded, to_np, to_torch
 
 # label: (solver, problem, keyword arguments). Problems: ("poisson", n,
 # preconditioner), ("convdiff", n, preconditioner) at γ = (0.4, 0.2),
@@ -206,23 +206,34 @@ def test_fgmres_nonlinear_preconditioner_beats_its_own_cycles():
     assert float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(to_torch(b))) < 1e-8
 
 
-def test_dtensor_b_raises():
-    """A row-sharded DTensor b is not ported for the family (item 8)."""
-    from gmres_tpu_torch.solvers import fgmres as fg
-
-    class Fake(torch.Tensor):
-        pass
-
-    fake = torch.zeros(4, 4).as_subclass(Fake)
-    original = fg.is_dtensor
-    try:
-        fg.is_dtensor = lambda x: isinstance(x, Fake)
-        for fn in (tt.sstep_gmres, tt.fgmres, tt.lgmres, tt.gmres_dr, tt.block_gmres,
-                   tt.idrs, tt.gcrodr):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                fn(tt.poisson_operator(4), fake)
-    finally:
-        fg.is_dtensor = original
+def test_dtensor_b_raises(tmp_path):
+    """A row-sharded DTensor b, which the family refused until the
+    distributed slice, now solves: on a one-rank mesh with the halo
+    operator, each solver takes its plain-tensor run's counts and x to
+    1e-12 (tests/test_torch_dist.py holds 2 and 4 ranks to gmres_tpu)."""
+    n = 16
+    b = tt.poisson_operator(n)(torch.ones((n, n), dtype=torch.float64))
+    calls = {
+        "sstep_gmres": lambda op, v: tt.sstep_gmres(op, v, s=4, tol=1e-8),
+        "fgmres": lambda op, v: tt.fgmres(op, v, restart=10, tol=1e-9),
+        "lgmres": lambda op, v: tt.lgmres(op, v, restart=8, aug=2, tol=1e-9),
+        "gmres_dr": lambda op, v: tt.gmres_dr(op, v, restart=12, deflate=3, tol=1e-9),
+        "idrs": lambda op, v: tt.idrs(op, v, s=2, tol=1e-9),
+        "gcrodr": lambda op, v: tt.gcrodr(op, v, k=3, restart=12, tol=1e-9),
+        "block_gmres": lambda op, v: tt.block_gmres(op, v, restart=8, tol=1e-9),
+    }
+    with one_rank_mesh(tmp_path) as mesh:
+        halo = tt.halo_poisson_operator(mesh)
+        for name, call in calls.items():
+            v = b[None] if name == "block_gmres" else b
+            plain = call(tt.poisson_operator(n), v)
+            sharded = call(halo, tt.shard_grid_vector(b, mesh)[None]
+                           if name == "block_gmres" else tt.shard_grid_vector(b, mesh))
+            assert tt.ops.blas.is_dtensor(sharded.x), name
+            assert sharded.status == plain.status == 0, name
+            for key in ("iterations", "restarts"):
+                assert getattr(sharded, key, 0) == getattr(plain, key, 0), (name, key)
+            assert rel_err(sharded.x.full_tensor(), plain.x) < 1e-12, name
 
 
 def test_sstep_history_moves_with_ulp_rounding():

@@ -18,7 +18,7 @@ import torch
 import gmres_tpu as gt
 import gmres_tpu_torch as tt
 from gmres_tpu_torch.models import helmholtz as th
-from tests.torch_parity import rel_err, seeded, to_np, to_torch
+from tests.torch_parity import one_rank_mesh, rel_err, seeded, to_np, to_torch
 
 N = 16
 KH2 = 10.0 * gt.helmholtz_lambda_min(N)
@@ -132,9 +132,19 @@ def test_split_csl_cycle_is_the_complex_cycle():
     assert rel_err(split(tt.complex_to_split(z)), tt.complex_to_split(cplx(z))) <= 1e-13
 
 
-def test_cycles_refuse_what_they_do_not_take():
-    with pytest.raises(NotImplementedError, match="item 8.3"):
-        tt.helmholtz_shifted_laplacian_preconditioner(32, 0.1, mesh=object())
+def test_cycles_refuse_what_they_do_not_take(tmp_path):
+    """The CSL cycle still refuses the distributed options (ROADMAP item
+    8.3b); the SPD cycle, which refused them until the distributed slice,
+    takes them: on a one-rank mesh its mesh= cycle is the plain cycle within
+    1e-13 (tests/test_torch_dist.py runs 2 and 4 ranks)."""
+    kh2 = 10.0 * gt.helmholtz_lambda_min(32)
+    r = to_torch(seeded(10, (32, 32)))
+    plain = tt.helmholtz_shifted_laplacian_preconditioner(32, kh2)
+    with one_rank_mesh(tmp_path) as mesh:
+        dm = tt.helmholtz_shifted_laplacian_preconditioner(32, kh2, mesh=mesh)
+        assert rel_err(dm(tt.shard_grid_vector(r, mesh)).full_tensor(), plain(r)) <= 1e-13
+        with pytest.raises(NotImplementedError, match="item 8.3"):
+            tt.csl_multigrid_preconditioner(32, 0.1, mesh=mesh)
     with pytest.raises(NotImplementedError, match="item 8.3"):
         tt.csl_multigrid_preconditioner(32, 0.1, replicate_below=8)
     with pytest.raises(ValueError, match="shift"):

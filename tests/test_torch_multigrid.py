@@ -14,7 +14,7 @@ from gmres_tpu.ops.fused import chebyshev_k_scalars
 from gmres_tpu.precond import multigrid as jmg
 import gmres_tpu_torch as tt
 from gmres_tpu_torch.ops.fused import poly_stencil_smoother_plain
-from tests.torch_parity import rel_err, seeded, to_np, to_torch
+from tests.torch_parity import one_rank_mesh, rel_err, seeded, to_np, to_torch
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -75,7 +75,12 @@ def test_coarse_plan_applies_jax_recurrence():
     assert rel_err(z, ref) < 1e-12
 
 
-def test_options_match_and_distributed_raises():
+def test_options_match_and_distributed_raises(tmp_path):
+    """The options against JAX; the distributed options, which the port
+    refused until the distributed slice: ``replicate_below`` without a mesh
+    is ignored (JAX's rule), and the mesh= cycle on a one-rank mesh is the
+    plain cycle within 1e-13 (its 8-row level replicated, one all-gather;
+    tests/test_torch_dist.py runs 2 and 4 ranks)."""
     for kw in ({"pre_smooth": 2, "post_smooth": 4, "coarse_order": 16},
                {"pre_smooth": 0, "post_smooth": 1, "levels": 2}):
         mj = gt.poisson_multigrid_preconditioner(32, **kw)
@@ -85,10 +90,17 @@ def test_options_match_and_distributed_raises():
         assert rel_err(mt(to_torch(r)), mj(jnp.asarray(r))) < 1e-12
     with pytest.raises(ValueError):
         tt.poisson_multigrid_preconditioner(30, levels=3)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tt.poisson_multigrid_preconditioner(32, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tt.poisson_multigrid_preconditioner(32, replicate_below=8)
+    r = to_torch(seeded(704, (64, 64)))
+    plain = tt.poisson_multigrid_preconditioner(64, levels=4)
+    torch.testing.assert_close(
+        tt.poisson_multigrid_preconditioner(64, levels=4, replicate_below=8)(r),
+        plain(r), rtol=0, atol=0)
+    with one_rank_mesh(tmp_path) as mesh:
+        dm = tt.poisson_multigrid_preconditioner(64, levels=4, mesh=mesh,
+                                                 replicate_below=16)
+        assert dm.replicate_from == 3 and dm.levels == 4
+        z = dm(tt.shard_grid_vector(r, mesh))
+        assert rel_err(z.full_tensor(), plain(r)) <= 1e-13
 
 
 def test_poisson_model_matches():

@@ -11,6 +11,9 @@ same tests.
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -67,3 +70,20 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the port's CUDA kernels run only on the card)")
     return torch.device("cuda", 0)
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_dir):
+    """A one-rank gloo process group in this process (file rendezvous under
+    ``tmp_dir``) and the port's CPU mesh over it, destroyed on exit: the
+    distributed path with the local block the whole grid."""
+    import torch.distributed as dist
+
+    import gmres_tpu_torch as tt
+
+    os.makedirs(tmp_dir, exist_ok=True)
+    mesh = tt.init_multihost(f"file://{tmp_dir}/rendezvous", 1, 0, device_type="cpu")
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
