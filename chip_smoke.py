@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase19            # the build and phase 19 alone
     python3 chip_smoke.py --phase20            # the build and phase 20 alone
     python3 chip_smoke.py --phase21            # the build and phase 21 alone
+    python3 chip_smoke.py --phase22            # the build and phase 22 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -15,7 +16,7 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase17`` to ``--phase21`` modes build the kernels and run that
+The ``--phase17`` to ``--phase22`` modes build the kernels and run that
 phase alone, with its checks. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
@@ -302,9 +303,29 @@ phase alone, with its checks. Phases of the smoke run:
     (one all-gather a cycle where a level is replicated, nothing but
     all-gathers and all-reduces), the float64 true residual in numpy, and
     the device's busy share of one profiled solve.
+22. The plain model operators, the CSL and 3-D ``mesh=`` cycles and the
+    preconditioners and AD solvers on a sharded b, on a third one-rank NCCL
+    group: a plain operator on a DTensor takes the halo route (one exchange,
+    K1's halo form on a real 5-point stencil). Rows: (a) MGSR GMRES(60)
+    with the complex CSL ``mesh=`` cycle at 256², complex128; (b)
+    GMRES(120) on the split stack ([Shard(1)]) with the split ``mesh=``
+    cycle, float32 basis, certified in float64; (c) CG with the 3-D
+    ``mesh=`` cycle at 128³; (d) CG with the line anisotropic cycle at
+    1024², ε 0.01; (e) CG with mg+defl on varcoef 1024², contrast 1e5;
+    (f) Newton–Krylov on Bratu 1024², λ 5, with the Poisson ``mesh=`` cycle
+    (J·v on the rank's block); (g) CG with Nyström rank 64 at 512², built
+    on the sharded x_like; (h) the implicit_solve gradients at 512² and
+    BiCGSTAB with SPAI on convection–diffusion 128². Each row against its
+    twin on plain tensors: counts equal (BiCGSTAB within 2), the numpy
+    float64 true residual under the row's bound, K1 halo-form launches a
+    fixed multiple of the exchanges (1 on the real 5-point rows, 2 on the
+    split stack, 0 where the halo form is plain torch), one all-gather an
+    M application of a ``mesh=`` cycle or of SPAI and none of Nyström,
+    nothing but all-gathers and all-reduces (CommDebugMode over the
+    warm-up), and the wall of one timed solve.
 
-Phases 12–14 share one NCCL process group made by the script; phase 21
-makes another. Any failure
+Phases 12–14 share one NCCL process group made by the script; phases 21
+and 22 make one each. Any failure
 raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
 """
@@ -4960,91 +4981,120 @@ def comm_counts(comm) -> dict:
     return out
 
 
-def p21_row(label, make, m_inv, plain, residual, needs, status=0, short=None,
-            bound=None):
-    """One phase-21 row. `make(M)` returns the solve on the sharded b with
-    preconditioner M (`m_inv`, the mesh= cycle, or None); a warm-up, then
-    PHASE21_REPEATS timed solves with the launch counts set to 0 just before
-    and read just after. `plain()` runs the same solve with mesh=None on
-    plain tensors (the K1 full-grid route) and returns its result or its
-    counts, which must be equal; its launches are read around it and kept
-    apart from the row's own ("plain_count"). Every exchange of the timed
-    solves must be followed by a K1 halo-form launch or a K5 launch, each
-    counted where it launches. `m_inv`'s applications and the
-    all-gathers are counted over one more solve under CommDebugMode: one
-    all-gather an application where a level is replicated, none where none
-    is, and no collective but all-gathers and all-reduces. `residual(res)`
-    is the numpy float64 true relative residual. Every kernel in `needs`
-    must have launched. One solve is profiled for the device's busy share.
-    A long row gives `short()`, which returns a capped solve, for the
-    CommDebugMode solve and the profile (CommDebugMode slows a solve ~3×).
-    The row's true residual must be under `bound`, the norm its solver
-    certifies carried to the true residual where they differ; without one,
-    no worse than twice the mesh=None run's (f64 rows, whose two runs differ
-    in rounding only)."""
+def cycle_gathers(m_inv) -> int:
+    """All-gathers an application of a mesh= cycle: one where a level is
+    replicated, none otherwise."""
+    return int(m_inv.replicate_from < m_inv.levels)
+
+
+def sharded_row(label, make, m_inv, plain, residual, *, needs=(), phase=21, status=0,
+                bound=None, k1_per_exchange=1, band=0, gathers_per_m=0,
+                twin_timed=False, profile=True):
+    """One row of phase 21 or 22. `make(M, short)` returns the solve on the
+    sharded b with preconditioner M (`m_inv`, or None), capped where `short`
+    (a few iterations, one restart cycle or one Newton step; a row whose
+    solve is short enough ignores it). `plain()` runs the twin on plain
+    tensors (mesh=None, K1's full-grid route) and returns its result or its
+    counts; its launches are read around it and kept apart from the row's
+    ("plain_count"); with `twin_timed` it is warmed up first and its wall
+    kept. Then a warm-up and the phase's repeats of the solve, with the
+    launch counts set to 0 just before and read just after, and the capped
+    solve under CommDebugMode (which slows a solve 3-8x) with M's
+    applications counted. Held:
+
+    * the counts equal the twin's (iterations within `band`, the band
+      PERF.md §2 names for the solver), status `status`;
+    * each exchange not followed by K5 followed by `k1_per_exchange` launches
+      of K1's halo form (1 on the real 5-point forms, 2 on the split stack, 0
+      where the form is plain torch), each counted where it launches, and at
+      least one exchange;
+    * `gathers_per_m` all-gathers an M application (`cycle_gathers` for a
+      mesh= cycle; None: not held), and no collective but all-gathers and
+      all-reduces;
+    * `residual(res)`, the numpy float64 true residual, under `bound`, or
+      without one no worse than twice the twin's (float64 rows, whose two
+      runs differ in rounding only);
+    * every kernel in `needs` launched, and K1 launched in the twin where
+      the row needs K1's halo form.
+
+    Where `profile`, the capped solve is profiled for the device's busy
+    share (its trace of a DTensor solve costs ~10 s a row)."""
     import numpy as np
     from torch.distributed.tensor.debug import CommDebugMode
 
+    tag = f"phase {phase} {label}"
+    repeats = PHASE22_REPEATS if phase == 22 else PHASE21_REPEATS
+    t_plain = None
+    if twin_timed:
+        plain()
     p21_counters(reset=True)
-    plain_res = plain()
+    if twin_timed:
+        plain_res, t_plain = timed(plain)
+    else:
+        plain_res = plain()
     plain_counts = plain_res if isinstance(plain_res, tuple) else counts_of(plain_res)
     plain_launches = p21_counters()
-    solve = make(m_inv)
+    solve = make(m_inv, False)
     _, t_warm = timed(solve)
     p21_counters(reset=True)
     times = []
-    for _ in range(PHASE21_REPEATS):
+    for _ in range(repeats):
         res, t = timed(solve)
         times.append(t)
     count = p21_counters()
-    require(count["K1 halo"] == count["exchanges"] - count["K5"]
-            and count["K1 halo"] <= count["K1"],
-            f"phase 21 {label}: {count['K1 halo']} K1 halo-form launches of "
-            f"{count['K1']} K1 launches, {count['exchanges']} exchanges, "
-            f"{count['K5']} K5 launches: an exchange not followed by a kernel")
-    per = {k: v / PHASE21_REPEATS for k, v in count.items()}
+    require(count["K1 halo"] == k1_per_exchange * (count["exchanges"] - count["K5"])
+            and count["K1 halo"] <= count["K1"] and count["exchanges"] > 0,
+            f"{tag}: {count['K1 halo']} K1 halo-form launches of {count['K1']} K1 "
+            f"launches, {count['exchanges']} exchanges, {count['K5']} K5 launches "
+            f"({k1_per_exchange} K1 halo launches an exchange not followed by K5 expected)")
+    per = {k: v / repeats for k, v in count.items()}
     launches = {"K1 halo": per["K1 halo"], "K1 full grid": per["K1"] - per["K1 halo"],
                 "K1rr": per["K1rr"], "K1cr": per["K1cr"], "K2": per["K2"],
                 "K5": per["K5"]}
     got = counts_of(res)
-    require(got == plain_counts, f"phase 21 {label}: counts {got}, mesh=None "
-            f"on plain tensors {plain_counts}")
-    require(got[2] == status, f"phase 21 {label}: status {got[2]}")
+    require(got[1:] == plain_counts[1:] and abs(got[0] - plain_counts[0]) <= band,
+            f"{tag}: counts {got}, twin on plain tensors {plain_counts} (band {band})")
+    require(got[2] == status, f"{tag}: status {got[2]}")
     calls = {"M": 0}
     with CommDebugMode() as comm:
-        timed(short() if short else make(counted(m_inv, calls, "M")
-                                         if m_inv is not None else None))
+        timed(make(counted(m_inv, calls, "M") if m_inv is not None else None, True))
     comms = comm_counts(comm)
     gathers_per_cycle = comms["all_gather"] / calls["M"] if calls["M"] else 0.0
-    replicated = m_inv is not None and m_inv.replicate_from < m_inv.levels
-    require(comms["other"] == 0 and comms["all_gather"] == (calls["M"] if replicated else 0),
-            f"phase 21 {label}: collectives {comms} over {calls['M']} cycle applications")
+    require(comms["other"] == 0 and (gathers_per_m is None
+                                     or comms["all_gather"] == gathers_per_m * calls["M"]),
+            f"{tag}: collectives {comms} over {calls['M']} M applications "
+            f"({gathers_per_m} all-gathers an application expected)")
     rel = residual(res)
     rel_plain = None if isinstance(plain_res, tuple) else residual(plain_res)
     require(rel <= (bound if bound is not None else 2 * rel_plain + 1e-15),
-            f"phase 21 {label}: numpy true residual {rel:.4e}, mesh=None's {rel_plain}, "
-            f"bound {bound}")
+            f"{tag}: numpy true residual {rel:.4e}, twin's {rel_plain}, bound {bound}")
     med = float(np.median(times))
-    prof = profile_solve(short() if short else solve, f"phase 21 {label}", med)
-    print(f"phase 21: {label}: counts (iterations, restarts, status) {got}, mesh=None on "
-          f"plain tensors {plain_counts} (its launches {plain_launches}); {res.host_syncs} "
-          f"host syncs; wall s over "
-          f"{PHASE21_REPEATS}: {quartiles(times)} (warm-up {t_warm:.4f}); launches a "
-          f"solve {launches}; {comms['all_gather']} all-gathers over {calls['M']} cycle "
-          f"applications ({gathers_per_cycle:g} a cycle), {comms['all_reduce']} "
-          f"all-reduces a solve; numpy float64 true residual {rel:.4e} (mesh=None "
-          f"{'-' if rel_plain is None else f'{rel_plain:.4e}'}); "
-          f"device busy {100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of the profiled "
-          f"wall", flush=True)
+    busy = None
+    if profile:
+        prof = profile_solve(make(m_inv, True), tag, med)
+        busy = prof["busy_ms"] / prof["wall_ms"]
+    twin_wall = "" if t_plain is None else f", its wall {t_plain:.4f} s"
+    print(f"phase {phase}: {label}: counts (iterations, restarts, status) {got}, twin on "
+          f"plain tensors {plain_counts} (its launches {plain_launches}{twin_wall}); "
+          f"{res.host_syncs} host syncs; wall s over {repeats}: {quartiles(times)} "
+          f"(warm-up {t_warm:.4f}); launches a solve {launches}, {per['exchanges']:g} "
+          f"exchanges; {comms['all_gather']} all-gathers over {calls['M']} M "
+          f"applications ({gathers_per_cycle:g} an application), {comms['all_reduce']} "
+          f"all-reduces in the capped solve; numpy float64 true residual {rel:.4e} (twin "
+          f"{'-' if rel_plain is None else f'{rel_plain:.4e}'}); device busy "
+          f"{'not profiled' if busy is None else f'{100 * busy:.1f}%'} (the capped "
+          f"solve's profiled wall)", flush=True)
     for k in needs:
-        require(launches[k] > 0, f"phase 21 {label}: {k} was not launched")
-    require(plain_launches["K1"] > 0, f"phase 21 {label}: the mesh=None run launched no K1")
+        require(launches[k] > 0, f"{tag}: {k} was not launched")
+    if "K1 halo" in needs:
+        require(plain_launches["K1"] > 0, f"{tag}: the twin launched no K1")
     return {"label": label, "counts": got, "plain_counts": plain_counts,
-            "plain_count": plain_launches,
-            "median_s": med, "host_syncs": res.host_syncs, "launches": launches,
-            "gathers_per_cycle": gathers_per_cycle, "all_reduces": comms["all_reduce"],
-            "true_rel": rel, "busy": prof["busy_ms"] / prof["wall_ms"],
-            "count": count}
+            "plain_count": plain_launches, "median_s": med, "warm_s": t_warm,
+            "plain_s": t_plain, "host_syncs": res.host_syncs, "launches": launches,
+            "exchanges": per["exchanges"], "gathers_per_cycle": gathers_per_cycle,
+            "m_applications": calls["M"], "all_reduces": comms["all_reduce"],
+            "true_rel": rel, "twin_true_rel": rel_plain,
+            "busy": busy, "count": count}
 
 
 def p21_mg_rows(gt_torch, dev):
@@ -5063,7 +5113,7 @@ def p21_mg_rows(gt_torch, dev):
         b_sh = gt_torch.shard_grid_vector(b, mesh)
         op = gt_torch.halo_poisson_operator(mesh)
 
-        def make(m, op=op, b_sh=b_sh):
+        def make(m, short, op=op, b_sh=b_sh):
             return lambda: gt_torch.gmres(op, b_sh, restart=10, tol=TOL, M=m,
                                           compute_v_err=False, inner_dtype=torch.float32,
                                           certify="true")
@@ -5075,10 +5125,11 @@ def p21_mg_rows(gt_torch, dev):
                                   certify="true")
 
         m_inv = gt_torch.poisson_multigrid_preconditioner(n, mesh=mesh, replicate_below=below)
-        rows.append(p21_row(
+        rows.append(sharded_row(
             label, make, m_inv, plain,
             lambda res, b_np=b_np: true_rel(b_np, whole(res.x)),
-            ("K1 halo", "K1rr", "K1cr", "K2"), bound=TOL))
+            needs=("K1 halo", "K1rr", "K1cr", "K2"), bound=TOL,
+            gathers_per_m=cycle_gathers(m_inv)))
     return rows
 
 
@@ -5097,18 +5148,18 @@ def p21_cbpr2_row(gt_torch, dev):
     op = gt_torch.halo_poisson_operator(mesh)
     cbpr2 = gt_torch.halo_chebyshev_preconditioner(mesh, *REF_EIG)
 
-    def make(_, restarts=1000):
+    def make(_, short):
         return lambda: gt_torch.gmres(op, b_sh, restart=STRONG_M, tol=P21_CBPR2_TOL,
-                                      M=cbpr2, max_restarts=restarts, compute_v_err=False)
+                                      M=cbpr2, max_restarts=2 if short else 1000,
+                                      compute_v_err=False)
 
     def plain():
         return gt_torch.gmres(gt_torch.poisson_operator(n), b, restart=STRONG_M,
                               tol=P21_CBPR2_TOL, M=cbpr2, compute_v_err=False)
 
-    return [p21_row(f"(c) householder cbpr2 {n}", make, None, plain,
-                    lambda res: true_rel(b_np, whole(res.x)), ("K1 halo", "K5"),
-                    short=lambda: make(None, restarts=2),
-                    bound=P21_CBPR2_TOL / cbpr2_min_eigenvalue(n))]
+    return [sharded_row(f"(c) householder cbpr2 {n}", make, None, plain,
+                        lambda res: true_rel(b_np, whole(res.x)), needs=("K1 halo", "K5"),
+                        bound=P21_CBPR2_TOL / cbpr2_min_eigenvalue(n))]
 
 
 def p21_model_rows(gt_torch, dev):
@@ -5161,10 +5212,12 @@ def p21_model_rows(gt_torch, dev):
             r = float(np.linalg.norm(b_np - np_stencil_general(x, coefs)))
             return r / float(np.linalg.norm(b_np)) if norm == "rel" else r
 
-        rows.append(p21_row(
-            label, lambda m, op=op, b_sh=b_sh, solver=solver: (lambda: solver(op, b_sh, m)),
-            cycle(n, mesh=mesh, replicate_below=below), plain, residual,
-            ("K1 halo", "K1rr", "K1cr", "K2"), bound=bound))
+        m_inv = cycle(n, mesh=mesh, replicate_below=below)
+        rows.append(sharded_row(
+            label,
+            lambda m, short, op=op, b_sh=b_sh, solver=solver: (lambda: solver(op, b_sh, m)),
+            m_inv, plain, residual, needs=("K1 halo", "K1rr", "K1cr", "K2"), bound=bound,
+            gathers_per_m=cycle_gathers(m_inv)))
     return rows
 
 
@@ -5184,8 +5237,9 @@ def p21_lsqr_row(gt_torch, dev):
     b_sh = gt_torch.shard_grid_vector(b, mesh)
     op = gt_torch.halo_poisson_operator(mesh)
 
-    def make(_):
-        return lambda: gt_torch.lsqr(op, b_sh, tol=TOL, max_iterations=P21_LSQR_CAP)
+    def make(_, short):
+        return lambda: gt_torch.lsqr(op, b_sh, tol=TOL,
+                                     max_iterations=50 if short else P21_LSQR_CAP)
 
     plains = []
 
@@ -5194,11 +5248,10 @@ def p21_lsqr_row(gt_torch, dev):
                                     max_iterations=P21_LSQR_CAP))
         return plains[-1]
 
-    row = p21_row(f"(f) lsqr halo {n}", make, None, plain,
-                  lambda res: true_rel(b_np, whole(res.x)), ("K1 halo",), status=1,
-                  short=lambda: lambda: gt_torch.lsqr(op, b_sh, tol=TOL, max_iterations=50))
+    row = sharded_row(f"(f) lsqr halo {n}", make, None, plain,
+                      lambda res: true_rel(b_np, whole(res.x)), needs=("K1 halo",), status=1)
     before = HaloStencil.rule_applications["transpose"]
-    res, (plain,) = make(None)(), plains
+    res, (plain,) = make(None, False)(), plains
     transposes = HaloStencil.rule_applications["transpose"] - before
     gap = abs(float(res.residual) - float(plain.residual)) / float(plain.residual)
     print(f"phase 21: (f) lsqr: residual {float(res.residual):.6e} (plain operator "
@@ -5233,16 +5286,16 @@ def p21_weak_scaling_row(gt_torch, dev, workdir):
     b_sh = gt_torch.shard_grid_vector(gt_torch.as_tensor(b_np, dev), mesh)
     op = gt_torch.halo_poisson_operator(mesh)
 
-    def make(m):
+    def make(m, short):
         return lambda: gt_torch.gmres(op, b_sh, restart=50, tol=1e-12, M=m,
                                       variant="mgsr", max_restarts=1000,
                                       compute_v_err=False)
 
-    out = p21_row(f"(g) weak-scaling mg {n} mesh=", make,
-                  gt_torch.poisson_multigrid_preconditioner(n, mesh=mesh,
-                                                            replicate_below=n // 2),
-                  program, lambda res: true_rel(b_np, whole(res.x)),
-                  ("K1 halo", "K1rr", "K1cr", "K2"), bound=1e-10)
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n, mesh=mesh, replicate_below=n // 2)
+    out = sharded_row(f"(g) weak-scaling mg {n} mesh=", make, m_inv, program,
+                      lambda res: true_rel(b_np, whole(res.x)),
+                      needs=("K1 halo", "K1rr", "K1cr", "K2"), bound=1e-10,
+                      gathers_per_m=cycle_gathers(m_inv))
     out["program"] = {k: rows[0][k] for k in ("name", "iterations", "restarts", "wall_s")}
     return [out]
 
@@ -5266,6 +5319,310 @@ def phase_distributed(gt_torch, dev, workdir):
           + ", ".join(f"{k} {v}" for k, v in launches.items())
           + "; over their mesh=None twins: "
           + ", ".join(f"{k} {v}" for k, v in twins.items()), flush=True)
+    return launches, twins, rows
+
+
+PHASE22_REPEATS = 1
+P22_CSL_N = 256               # rows (a), (b): the complex and split CSL
+P22_CSL_BELOW = 128           # their mesh= cycles: 256² sharded, 128² and below whole
+P22_3D_BELOW = 64             # row (c): 128³ and 64³ sharded, 32³ and below whole
+P22_NEWTON_BELOW = P21_REPLICATE_BELOW
+P22_IMPLICIT_N = 512
+P22_SHORT = 4                 # iterations of a row's capped solve under CommDebugMode
+# sharded_row's arguments for a phase-22 row (its profiles would double the phase).
+P22 = {"phase": 22, "twin_timed": True, "profile": False}
+
+
+def p22_cap(short, default=None) -> dict:
+    """The capped solve's ``max_iterations`` (P22_SHORT), or the row's own
+    (the solver's default where None)."""
+    if short:
+        return {"max_iterations": P22_SHORT}
+    return {} if default is None else {"max_iterations": default}
+
+
+def p22_rel(b_np, apply_np):
+    """The numpy float64 relative true residual of a result on the card."""
+    import numpy as np
+
+    def residual(res):
+        x = whole(res.x).detach().cpu().numpy().astype(b_np.dtype)
+        return float(np.linalg.norm(b_np - apply_np(x)) / np.linalg.norm(b_np))
+
+    return residual
+
+
+def p22_csl_rows(gt_torch, dev, mesh):
+    """Rows (a) and (b): MGSR GMRES(60) on the complex Helmholtz operator
+    with the complex CSL mesh= cycle at P22_CSL_N² (complex128; the complex
+    halo forms are plain torch), and GMRES(120) on the split (2, N, N) stack,
+    sharded [Shard(1)], with the split mesh= cycle in float32 (the Arnoldi
+    basis float32, certified on the float64 true residual): each exchange of
+    the split stack is followed by two K1 halo-form launches."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    n = P22_CSL_N
+    kh2 = HELM_FACTOR * gt_torch.helmholtz_lambda_min(n, 0.0)
+    rows = []
+    b_np = np_helmholtz(np.ones((n, n), dtype=np.complex128), kh2)
+    b = torch.as_tensor(b_np, device=dev)
+    b_sh = gt_torch.shard_grid_vector(b, mesh)
+    op = gt_torch.helmholtz_operator(n, kh2)
+    m = CSL_COMPLEX_RESTART
+
+    def solve(rhs, M, short=False):
+        return gt_torch.gmres(op, rhs, restart=m, tol=HELM_TOL, M=M, variant="mgsr",
+                              certify="true", compute_v_err=False,
+                              max_restarts=1 if short else 50_000 // m)
+
+    m_inv = gt_torch.csl_multigrid_preconditioner(n, kh2, mesh=mesh,
+                                                  replicate_below=P22_CSL_BELOW)
+    rows.append(sharded_row(
+        f"(a) gmres csl complex128 {n}x{n} mesh=",
+        lambda M, short: lambda: solve(b_sh, M, short), m_inv,
+        lambda: solve(b, gt_torch.csl_multigrid_preconditioner(n, kh2)),
+        p22_rel(b_np, lambda x: np_helmholtz(x, kh2)), bound=HELM_TOL, k1_per_exchange=0,
+        gathers_per_m=cycle_gathers(m_inv), **P22))
+
+    x_star = np.stack([np.ones((n, n)), np.zeros((n, n))])
+    b_np = np_split(x_star, kh2)
+    b = gt_torch.as_tensor(b_np, dev)
+    b_sh = distribute_tensor(b, mesh, [Shard(1)])
+    op = gt_torch.helmholtz_split_operator(n, kh2)
+    m = CSL_SPLIT_RESTART
+
+    def solve_split(rhs, M, short=False):
+        return gt_torch.gmres(op, rhs, restart=m, tol=HELM_TOL, M=M, variant="mgsr",
+                              certify="true", compute_v_err=False, inner_dtype=torch.float32,
+                              max_restarts=1 if short else 50_000 // m)
+
+    m_inv = gt_torch.csl_multigrid_preconditioner(n, kh2, layout="split", mesh=mesh,
+                                                  replicate_below=P22_CSL_BELOW)
+    rows.append(sharded_row(
+        f"(b) gmres csl split {n}x{n} f32 cycles f64 certified mesh=",
+        lambda M, short: lambda: solve_split(b_sh, M, short), m_inv,
+        lambda: solve_split(b, gt_torch.csl_multigrid_preconditioner(n, kh2, layout="split")),
+        p22_rel(b_np, lambda x: np_split(x, kh2)), bound=HELM_TOL, k1_per_exchange=2,
+        needs=("K1 halo",), gathers_per_m=cycle_gathers(m_inv), **P22))
+    return rows
+
+
+def p22_model_rows(gt_torch, dev, mesh):
+    """Rows (c), (d) and (e): CG with the 3-D mesh= cycle at POISSON3D_N³
+    (float64, tol 1e-8 absolute; b sharded along its first axis, the 7-point
+    halo form plain torch), CG with the line anisotropic cycle at ANISO_N²,
+    ε ANISO_EPS (its mesh=None cycle on the sharded b: the operator K1's halo
+    form, the line solves on the rank's rows, DTensor's own all-gathers at
+    the restrictions), and CG with mg+defl on the varcoef model at
+    VARCOEF_N², contrast VARCOEF_CONTRAST (the varcoef program's setup; its
+    faces plain torch)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.models.anisotropic import anisotropic_coefs
+
+    rows = []
+    n = POISSON3D_N
+    b_np = np_stencil7(np.ones((n, n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    b_sh = distribute_tensor(b, mesh, [Shard(0)])
+    op = gt_torch.poisson3d_operator(n)
+    tol = 1e-8
+    m_inv = gt_torch.poisson3d_multigrid_preconditioner(n, mesh=mesh,
+                                                        replicate_below=P22_3D_BELOW)
+    rows.append(sharded_row(
+        f"(c) cg poisson3d mg {n}^3 mesh=",
+        lambda M, short: lambda: gt_torch.cg(op, b_sh, tol=tol, M=M, **p22_cap(short)),
+        m_inv,
+        lambda: gt_torch.cg(op, b, tol=tol, M=gt_torch.poisson3d_multigrid_preconditioner(n)),
+        p22_rel(b_np, np_stencil7), bound=tol / float(np.linalg.norm(b_np)),
+        k1_per_exchange=0, gathers_per_m=cycle_gathers(m_inv), **P22))
+
+    n, eps = ANISO_N, ANISO_EPS
+    coefs = anisotropic_coefs(eps)
+    b_np = np_stencil_general(np.ones((n, n)), coefs)
+    b = gt_torch.as_tensor(b_np, dev)
+    b_sh = gt_torch.shard_grid_vector(b, mesh)
+    op = gt_torch.anisotropic_operator(n, eps)
+    m_inv = gt_torch.anisotropic_multigrid_preconditioner(n, eps)
+    rows.append(sharded_row(
+        f"(d) cg anisotropic line mg {n}x{n} eps {eps:g}",
+        lambda M, short: lambda: gt_torch.cg(op, b_sh, tol=1e-8, M=M, **p22_cap(short)),
+        m_inv,
+        lambda: gt_torch.cg(op, b, tol=1e-8, M=m_inv),
+        p22_rel(b_np, lambda x: np_stencil_general(x, coefs)),
+        bound=1e-8 / float(np.linalg.norm(b_np)), needs=("K1 halo",), gathers_per_m=None,
+        **P22))
+
+    n = VARCOEF_N
+    c, op, _, b, diag, w = cli.varcoef_problem(n, VARCOEF_CONTRAST, dev)
+    m_inv = cli.varcoef_preconditioners(c, op, diag, w)["mg+defl"]
+    b_np = b.detach().cpu().numpy()
+    c_np = c.cpu().numpy()
+    b_sh = gt_torch.shard_grid_vector(b, mesh)
+    tol = 1e-9 * float(np.linalg.norm(b_np))
+    rows.append(sharded_row(
+        f"(e) cg varcoef mg+defl {n}x{n} contrast {VARCOEF_CONTRAST:g}",
+        lambda M, short: lambda: gt_torch.cg(
+            op, b_sh, tol=tol, M=M, **p22_cap(short, default=20_000)), m_inv,
+        lambda: gt_torch.cg(op, b, tol=tol, max_iterations=20_000, M=m_inv),
+        p22_rel(b_np, lambda x: np_varcoef(c_np, x)), bound=1e-9, k1_per_exchange=0,
+        gathers_per_m=None, **P22))
+    return rows
+
+
+def p22_newton_row(gt_torch, dev, mesh):
+    """Row (f): Newton–Krylov on the Bratu residual at BRATU_N², λ 5, with
+    the Poisson mesh= cycle (FGMRES inner): F on the sharded u takes the
+    plain operator's halo form, J·v runs on each rank's block
+    (parallel/halo.py:blockwise_jvp), two K1 halo-form launches a J·v; the
+    twin is the mesh=None run on plain tensors (K1's full-grid route)."""
+    import numpy as np
+    import torch
+
+    n = BRATU_N
+    F = gt_torch.bratu_residual(n, 5.0)
+    x0 = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    x0_sh = gt_torch.shard_grid_vector(x0, mesh)
+
+    def residual(res):
+        u = whole(res.x).detach().cpu().numpy()
+        return float(np.linalg.norm(np_bratu(u, 5.0)))
+
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n, mesh=mesh,
+                                                      replicate_below=P22_NEWTON_BELOW)
+    return [sharded_row(
+        f"(f) newton_krylov bratu {n}x{n} mg mesh=",
+        lambda M, short: lambda: gt_torch.newton_krylov(F, x0_sh, tol=BRATU_TOL, M=M,
+                                                        max_newton=1 if short else 30),
+        m_inv,
+        lambda: gt_torch.newton_krylov(F, x0, tol=BRATU_TOL, max_newton=30,
+                                       M=gt_torch.poisson_multigrid_preconditioner(n)),
+        residual, bound=BRATU_TOL, needs=("K1 halo", "K1rr", "K1cr", "K2"),
+        gathers_per_m=cycle_gathers(m_inv), **P22)]
+
+
+def p22_preconditioner_rows(gt_torch, dev, mesh):
+    """Rows (g) and (h): CG with Nyström rank NYSTROM_RANK on Poisson
+    NYSTROM_N², built on the sharded x_like (the sketch's rows sharded),
+    beside the twin built and solved on plain tensors; the implicit_solve
+    gradients at P22_IMPLICIT_N² (x(θ) = (A + θ)⁻¹ b, CG to 1e-12, L = ½‖x‖²)
+    on a sharded b against the plain b's (θ's gradient within 1e-10
+    relative, b's within 1e-10 absolute); BiCGSTAB with SPAI on the
+    convection–diffusion operator at SPAI_N² (one all-gather of v an SPAI
+    application)."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_coefs
+
+    rows = []
+    n = NYSTROM_N
+    op = gt_torch.poisson_operator(n)
+    b_np = np_stencil(np.ones((n, n)))
+    b = gt_torch.as_tensor(b_np, dev)
+    b_sh = gt_torch.shard_grid_vector(b, mesh)
+    m_sh, lam_sh = gt_torch.nystrom_preconditioner(op, torch.zeros_like(b_sh),
+                                                   rank=NYSTROM_RANK)
+    m_plain, lam = gt_torch.nystrom_preconditioner(op, torch.zeros_like(b), rank=NYSTROM_RANK)
+    lam_gap = float(torch.max(torch.abs(lam_sh - lam)) / lam[0])
+    require(lam_gap < 1e-10, f"phase 22 (g): sharded λ̂ {lam_gap:.3e} from the plain build's")
+    row = sharded_row(
+        f"(g) cg nystrom rank {NYSTROM_RANK} poisson {n}x{n}",
+        lambda M, short: lambda: gt_torch.cg(op, b_sh, tol=1e-9, M=M, **p22_cap(short)),
+        m_sh,
+        lambda: gt_torch.cg(op, b, tol=1e-9, M=m_plain),
+        p22_rel(b_np, np_stencil), bound=1e-9 * 1.01 / float(np.linalg.norm(b_np)),
+        needs=("K1 halo",), **P22)
+    row["lam_gap"] = lam_gap
+    rows.append(row)
+
+    n = P22_IMPLICIT_N
+    base = gt_torch.poisson_operator(n)
+    rng = np.random.default_rng(3)
+    b_imp = gt_torch.as_tensor(rng.standard_normal((n, n)), dev)
+
+    def a_fn(theta):
+        return lambda v: base(v) + theta * v
+
+    def solver(op_, rhs):
+        return gt_torch.cg(op_, rhs, tol=1e-12, max_iterations=5000)
+
+    def grads(rhs):
+        theta = torch.tensor(0.7, dtype=torch.float64, device=dev, requires_grad=True)
+        rhs = rhs.detach().requires_grad_()
+        x = gt_torch.implicit_solve(a_fn, theta, rhs, solver=solver, symmetric=True)
+        g_theta, g_b = torch.autograd.grad(0.5 * torch.sum(x * x), (theta, rhs))
+        return float(g_theta), whole(g_b)
+
+    p21_counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_sh = grads(gt_torch.shard_grid_vector(b_imp, mesh))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count = p21_counters()
+    p21_counters(reset=True)
+    g = grads(b_imp)
+    plain_count = p21_counters()
+    theta_gap = abs(g_sh[0] - g[0]) / abs(g[0])
+    b_gap = float(torch.max(torch.abs(g_sh[1] - g[1])))
+    print(f"phase 22: (h) implicit_solve gradients {n}x{n} on a sharded b: dL/dθ "
+          f"{g_sh[0]:.12e} (plain b {g[0]:.12e}, {theta_gap:.2e} apart), dL/db max "
+          f"{b_gap:.2e} apart; {wall:.4f} s for the forward and adjoint solves; launches "
+          f"{count}", flush=True)
+    require(theta_gap < 1e-10 and b_gap < 1e-10,
+            f"phase 22 (h): gradients {theta_gap:.3e}, {b_gap:.3e} apart")
+    require(count["K1 halo"] == count["exchanges"] > 0, f"phase 22 (h) implicit: {count}")
+    rows.append({"label": f"(h) implicit_solve gradients {n}x{n}", "theta_gap": theta_gap,
+                 "b_gap": b_gap, "wall_s": wall, "count": count,
+                 "plain_count": plain_count})
+
+    n, gam = SPAI_N, (0.4, 0.2)
+    coefs = convection_diffusion_coefs(*gam)
+    data, indices, indptr = np_csr_convdiff(n, coefs)
+    csr = gt_torch.sparse_from_numpy("csr", {"data": data, "indices": indices,
+                                             "indptr": indptr}, (n * n, n * n), device=dev)
+    m_spai = gt_torch.spai_preconditioner(csr)
+    op = gt_torch.convection_diffusion_operator(n, *gam)
+    b_np = np_stencil_general(np.ones((n, n)), coefs)
+    b = gt_torch.as_tensor(b_np, dev)
+    b_sh = gt_torch.shard_grid_vector(b, mesh)
+    rows.append(sharded_row(
+        f"(h) bicgstab spai convdiff {n}x{n}",
+        lambda M, short: lambda: gt_torch.bicgstab(op, b_sh, tol=1e-9, M=M,
+                                                   **p22_cap(short)), m_spai,
+        lambda: gt_torch.bicgstab(op, b, tol=1e-9, M=m_spai),
+        p22_rel(b_np, lambda x: np_stencil_general(x, coefs)),
+        bound=1e-9 * 1.01 / float(np.linalg.norm(b_np)), needs=("K1 halo",),
+        gathers_per_m=1, band=2, **P22))
+    return rows
+
+
+def phase_models_sharded(gt_torch, dev, workdir):
+    """Phase 22: the plain model operators, the CSL and 3-D mesh= cycles and
+    the preconditioners and AD solvers on a row-sharded b, on the one-rank
+    NCCL group (made by the caller): rows (a)-(h), each beside its twin on
+    plain tensors. Returns the launches over the rows' timed solves, those
+    over their twins, and the rows."""
+    t_phase = time.perf_counter()
+    mesh = gt_torch.solver_mesh(1)
+    rows = []
+    rows += p22_csl_rows(gt_torch, dev, mesh)
+    rows += p22_model_rows(gt_torch, dev, mesh)
+    rows += p22_newton_row(gt_torch, dev, mesh)
+    rows += p22_preconditioner_rows(gt_torch, dev, mesh)
+    launches, twins = ({k: sum(r[key][k] for r in rows) for k in rows[0][key]}
+                       for key in ("count", "plain_count"))
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 22: {seconds:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + "; over their twins: " + ", ".join(f"{k} {v}" for k, v in twins.items()),
+          flush=True)
     return launches, twins, rows
 
 
@@ -5336,6 +5693,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase21"]:
         with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
             phase_distributed(gt_torch, dev, workdir)
+        return 0
+    if sys.argv[1:2] == ["--phase22"]:
+        with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
+            phase_models_sharded(gt_torch, dev, workdir)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -5430,7 +5791,10 @@ def main() -> int:
         # Phase 21: the distributed solve, on a one-rank NCCL group again.
         with one_rank_group(workdir, "rendezvous21"):
             p21, p21_twins, _ = phase_distributed(gt_torch, dev, workdir)
-    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_run:.1f} s", flush=True)
+        # Phase 22: the models, cycles and preconditioners on a sharded b.
+        with one_rank_group(workdir, "rendezvous22"):
+            p22, p22_twins, _ = phase_models_sharded(gt_torch, dev, workdir)
+    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(rdma_records)
     records.update(cd_records)
@@ -5481,6 +5845,8 @@ def main() -> int:
     p20_path = "eigensolvers, matrix functions, time steppers (phase 20)"
     p21_path = "distributed solve, one-rank mesh (phase 21)"
     p21_twins_path = "mesh=None twins of phase 21's rows, plain tensors"
+    p22_path = "models, cycles, preconditioners on a sharded b, one-rank mesh (phase 22)"
+    p22_twins_path = "twins of phase 22's rows, plain tensors"
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -5492,7 +5858,8 @@ def main() -> int:
         report("K1", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
-               + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"],
+               + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"]
+               + p22["K1"] + p22_twins["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -5501,7 +5868,9 @@ def main() -> int:
                                  family_path: family["K1"],
                                  short_path: short["K1"],
                                  p19_path: p19["K1"], p20_path: p20["K1"],
-                                 p21_path: p21["K1"], p21_twins_path: p21_twins["K1"]},
+                                 p21_path: p21["K1"], p21_twins_path: p21_twins["K1"],
+                                 p22_path: p22["K1"], p22_twins_path: p22_twins["K1"]},
+               phase22_k1_halo=p22["K1 halo"], phase22_exchanges=p22["exchanges"],
                phase21_k1_halo=p21["K1 halo"],
                phase19_k1_by_role={
                    "forward": p19["K1"] - p19["K1 transpose"] - p19["K1 tangent"],
@@ -5515,7 +5884,7 @@ def main() -> int:
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
                + short["K1rr"] + p19["K1rr"] + p20["K1rr"] + p21["K1rr"]
-               + p21_twins["K1rr"],
+               + p21_twins["K1rr"] + p22["K1rr"] + p22_twins["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
@@ -5524,13 +5893,14 @@ def main() -> int:
                                  short_path: short["K1rr"],
                                  p19_path: p19["K1rr"], p20_path: p20["K1rr"],
                                  p21_path: p21["K1rr"],
-                                 p21_twins_path: p21_twins["K1rr"]},
+                                 p21_twins_path: p21_twins["K1rr"],
+                                 p22_path: p22["K1rr"], p22_twins_path: p22_twins["K1rr"]},
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
                + short["K1cr"] + p19["K1cr"] + p20["K1cr"] + p21["K1cr"]
-               + p21_twins["K1cr"],
+               + p21_twins["K1cr"] + p22["K1cr"] + p22_twins["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
@@ -5539,13 +5909,14 @@ def main() -> int:
                                  short_path: short["K1cr"],
                                  p19_path: p19["K1cr"], p20_path: p20["K1cr"],
                                  p21_path: p21["K1cr"],
-                                 p21_twins_path: p21_twins["K1cr"]},
+                                 p21_twins_path: p21_twins["K1cr"],
+                                 p22_path: p22["K1cr"], p22_twins_path: p22_twins["K1cr"]},
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
-               + p20["K2"] + p21["K2"] + p21_twins["K2"],
+               + p20["K2"] + p21["K2"] + p21_twins["K2"] + p22["K2"] + p22_twins["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
@@ -5554,7 +5925,8 @@ def main() -> int:
                                     short_path: short["K2"],
                                     p19_path: p19["K2"], p20_path: p20["K2"],
                                     p21_path: p21["K2"],
-                                    p21_twins_path: p21_twins["K2"]},
+                                    p21_twins_path: p21_twins["K2"],
+                                    p22_path: p22["K2"], p22_twins_path: p22_twins["K2"]},
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
                short_launches_by_path={p: short[f"K2 {p}"]

@@ -10,7 +10,9 @@ the strong coupling along axis 1 (the last). ε = 1 is the Poisson stencil.
 Routing, as every constant-coefficient 5-point stencil of the port: a CUDA
 tensor launches kernel K1 with the coefficients ``anisotropic_coefs(ε)``
 (``ops/stencil.py:stencil_5pt_routed_general``); a CPU tensor takes the
-JAX module's pad-and-sum form, so that the CPU runs round as JAX's do.
+JAX module's pad-and-sum form, so that the CPU runs round as JAX's do. A
+DTensor on either device takes the stencil's DTensor route (one halo
+exchange, K1's halo form on a CUDA block, its plain version on a CPU one).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from gmres_tpu_torch.ops.stencil import stencil_5pt_routed_general
+from gmres_tpu_torch.ops.stencil import on_sharded_grid, stencil_5pt_routed_general
 
 
 def anisotropic_coefs(eps: float) -> tuple:
@@ -32,7 +34,7 @@ def anisotropic_coefs(eps: float) -> tuple:
 
 def anisotropic_apply(x: torch.Tensor, eps: float) -> torch.Tensor:
     """One application; eps scales the axis-0 (weak) coupling."""
-    if x.device.type != "cpu":
+    if x.device.type != "cpu" or on_sharded_grid(x):
         return stencil_5pt_routed_general(x, anisotropic_coefs(eps))
     xp = F.pad(x, (1, 1, 1, 1))
     return (eps * (2.0 * x - xp[:-2, 1:-1] - xp[2:, 1:-1])

@@ -15,6 +15,12 @@ operator. K1 is real-only, so the damped (complex) operator is the plain
 stencil on any device, as the CSL cycle is. ``helmholtz_split_operator``
 carries the complex field as a real (2, N, N) stack: two real Laplacians
 (K1 on the card) and the 2×2 rotation of the centre term in torch.
+
+On a row-sharded DTensor each operator takes the DTensor route
+(``parallel/halo.py``): the real one K1's halo form, the complex one the
+plain complex halo form, and the split operator on a ``[Shard(1)]`` stack
+(``P(None, "grid", None)`` in gmres_tpu) one exchange of both planes' rows
+and two K1 halo-form launches.
 """
 
 from __future__ import annotations
@@ -26,9 +32,12 @@ import torch
 
 from gmres_tpu_torch.ops.stencil import (
     POISSON_COEFS,
+    on_sharded_grid,
     stencil_5pt_general,
+    stencil_5pt_pallas_halo,
     stencil_5pt_routed_general,
 )
+from gmres_tpu_torch.parallel.halo import HaloForm, sharded_apply
 
 
 def helmholtz_coefs(kh2: float, damping: float = 0.0):
@@ -102,20 +111,43 @@ def helmholtz_split_operator(nsize: int, kh2: float = 0.5,
     (A + iB)(uʳ + i·uⁱ) = b ⇔ [A −B; B A][uʳ; uⁱ] = [bʳ; bⁱ], two real
     Laplacians (K1 on the card) plus the rotation of the centre term. The
     stack is an ordinary real vector to every solver (its 2-norm is the
-    complex field's)."""
+    complex field's). A ``[Shard(1)]`` DTensor stack takes one exchange of
+    both planes' rows and K1's halo form on each plane."""
     kh2 = float(kh2)
     alpha = float(damping)
 
-    def apply_pair(u: torch.Tensor) -> torch.Tensor:
+    def rotate(u, lap_r, lap_i):
         ur, ui = u[0], u[1]
-        lap_r = stencil_5pt_routed_general(ur, POISSON_COEFS)
-        lap_i = stencil_5pt_routed_general(ui, POISSON_COEFS)
         # −(1 + iα)·kh2·u: re −kh2·(ur − α·ui), im −kh2·(α·ur + ui)
         out_r = lap_r - kh2 * (ur - alpha * ui)
         out_i = lap_i - kh2 * (alpha * ur + ui)
         return torch.stack([out_r, out_i])
 
+    def local(u, top, bottom):
+        return rotate(u, *split_laplacians(u, top, bottom, POISSON_COEFS))
+
+    forms = {}
+
+    def apply_pair(u: torch.Tensor) -> torch.Tensor:
+        if on_sharded_grid(u):
+            return sharded_apply(u, forms, lambda mesh: HaloForm(mesh, local, 1, 0),
+                                 apply_pair, dim=1)
+        return rotate(u, stencil_5pt_routed_general(u[0], POISSON_COEFS),
+                      stencil_5pt_routed_general(u[1], POISSON_COEFS))
+
     return apply_pair
+
+
+def split_laplacians(u: torch.Tensor, top, bottom, coefs):
+    """The 5-point stencil ``coefs`` on both planes of a (2, rows, N) block
+    of a split stack, ``top``/``bottom`` its (2, 1, N) halo rows (None: zero
+    rows): two launches of K1's halo form on a CUDA block, its plain version
+    on a CPU one."""
+    def plane(h, k):
+        return None if h is None else h[k]
+
+    return tuple(stencil_5pt_pallas_halo(u[k], plane(top, k), plane(bottom, k), coefs)
+                 for k in (0, 1))
 
 
 def complex_to_split(x: torch.Tensor) -> torch.Tensor:

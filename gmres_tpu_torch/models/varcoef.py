@@ -13,6 +13,19 @@ in its order.
 
 The coefficient field c is a tensor (``as_tensor(c, device)`` carries a
 numpy field over); its device is the device of everything built from it.
+
+On a row-sharded DTensor x the operator (and the cycle's level operators)
+take the DTensor route of ``parallel/halo.py:sharded_apply``: the four face
+fields, computed on the whole c that every rank holds, are cut to the
+rank's rows once per mesh (no message) and kept in the operator's closure
+beside the fields they come from, and an application is one exchange of
+x's boundary rows and ``_faces_halo`` on the block with them. A face of a rank's first or last row couples to the neighbour's
+cell, so it is the whole grid's face (the harmonic mean with the
+neighbour's c), never the Dirichlet edge copy. The cycle's Jacobi weights
+are placed as r is (``ops/blas.py:place_like``); its restrictions on a
+sharded level are DTensor's own (two all-gathers, the level after them
+replicated), as the ``mesh=None`` cycles on a DTensor are (ROADMAP queue 1,
+item 8.6b).
 """
 
 from __future__ import annotations
@@ -23,7 +36,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gmres_tpu_torch.ops.stencil import prolong_repeat, restrict_sum
+from gmres_tpu_torch.ops.blas import place_like
+from gmres_tpu_torch.ops.stencil import on_sharded_grid, prolong_repeat, restrict_sum
+from gmres_tpu_torch.parallel.halo import HaloForm, sharded_apply
 
 
 def _field(c) -> torch.Tensor:
@@ -59,27 +74,52 @@ def varcoef_faces(
     return cn, cs, cw, ce
 
 
-def _apply_faces(faces, x: torch.Tensor) -> torch.Tensor:
+def _faces_operator(faces) -> Callable:
+    """The operator with face fields ``faces``: the whole-grid form on a
+    plain grid; on a DTensor x the DTensor route (module docstring), the
+    fields cut to the rank's rows once per mesh and kept in this closure."""
+    forms = {}
+
+    def make(mesh):
+        rows = faces[0].shape[0] // mesh.size()
+        own = [f.narrow(0, mesh.get_coordinate()[0] * rows, rows).contiguous()
+               for f in faces]
+        return HaloForm(mesh, lambda blk, top, bottom: _faces_halo(own, blk, top, bottom),
+                        0, 0)
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        if on_sharded_grid(x):
+            return sharded_apply(x, forms, make, apply)
+        return _faces_halo(faces, x)
+
+    return apply
+
+
+def _faces_halo(faces, x: torch.Tensor, top=None, bottom=None) -> torch.Tensor:
+    """The operator's form on a block of rows x, ``top``/``bottom`` the rows
+    above and below it (None: the zero Dirichlet row; both None: the whole
+    grid)."""
     cn, cs, cw, ce = faces
-    xp = F.pad(x, (1, 1, 1, 1))
+    if top is None and bottom is None:
+        xp = F.pad(x, (1, 1, 1, 1))
+    else:
+        def row(h):
+            return torch.zeros_like(x[:1]) if h is None else h.reshape(1, -1)
+
+        xp = F.pad(torch.cat([row(top), x, row(bottom)]), (1, 1))
     return (cn * (x - xp[:-2, 1:-1]) + cs * (x - xp[2:, 1:-1])
             + cw * (x - xp[1:-1, :-2]) + ce * (x - xp[1:-1, 2:]))
 
 
 def varcoef_apply(c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """One application of the variable-coefficient 5-point operator."""
-    return _apply_faces(varcoef_faces(c), x)
+    return _faces_operator(varcoef_faces(c))(x)
 
 
 def varcoef_operator(c: torch.Tensor) -> Callable:
     """Matrix-free operator closure; the face coefficients are computed
     once."""
-    faces = varcoef_faces(c)
-
-    def apply(x: torch.Tensor) -> torch.Tensor:
-        return _apply_faces(faces, x)
-
-    return apply
+    return _faces_operator(varcoef_faces(c))
 
 
 def varcoef_diagonal(c: torch.Tensor) -> torch.Tensor:
@@ -130,22 +170,24 @@ def varcoef_multigrid_preconditioner(
         levels_c.append(restrict_sum(levels_c[-1]) / 4.0)
         n //= 2
     faces = [varcoef_faces(cl) for cl in levels_c]
+    ops = [_faces_operator(f) for f in faces]
     winv = [omega / (f[0] + f[1] + f[2] + f[3]) for f in faces]
     n_levels = len(levels_c)
 
     def smooth(r, l, iters):
+        w = place_like(winv[l], r)
         e = torch.zeros_like(r)
         for _ in range(iters):
-            e = e + winv[l] * (r - _apply_faces(faces[l], e))
+            e = e + w * (r - ops[l](e))
         return e
 
     def v_cycle(r, l):
         if l == n_levels - 1:
             return smooth(r, l, coarse_iters)
         e = smooth(r, l, pre_smooth)
-        resid = r - _apply_faces(faces[l], e)
+        resid = r - ops[l](e)
         e = e + prolong_repeat(v_cycle(restrict_sum(resid), l + 1))
-        resid = r - _apply_faces(faces[l], e)
+        resid = r - ops[l](e)
         return e + smooth(resid, l, post_smooth)
 
     def m_inv(r: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,8 @@ import time
 import torch
 import torch.autograd.forward_ad as fwad
 
+from gmres_tpu_torch.ops.blas import is_dtensor
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -236,9 +238,45 @@ def refuse_transforms(what: str, kernel: str, *tensors) -> None:
                 "plain versions), or run under torch.no_grad().")
 
 
+# Where a DTensor goes instead of a kernel wrapper, by kernel.
+_DTENSOR_ROUTES = {
+    "K1": "a plain operator takes a DTensor through the halo route "
+          "(ops/stencil.py:stencil_5pt_pallas -> parallel/halo.py: one halo "
+          "exchange and K1's halo form on each rank's block)",
+    "K1rr": "a cycle on a row-sharded DTensor is the mesh= cycle (each rank's "
+            "block); the mesh=None cycle on a DTensor is ROADMAP queue 1, item 8.6b",
+    "K2": "a cycle on a row-sharded DTensor is the mesh= cycle (each rank's "
+          "block); K2 and the mesh=None cycle on a DTensor are ROADMAP queue 1, "
+          "item 8.6b",
+    "K5": "cbpr2 on a row-sharded DTensor is halo_chebyshev_preconditioner(mesh, ...)",
+    "K6": "the pair stencils take each rank's block, never a DTensor",
+    "K7a": "the CG updates take each rank's block, never a DTensor",
+    "K8": "the RDMA route on a row-sharded DTensor is rdma_stencil_operator(mesh)",
+    "K3": "the sparse formats on a sharded b are ROADMAP queue 1, item 8.7",
+}
+_DTENSOR_ROUTES["K1cr"] = _DTENSOR_ROUTES["K1rr"]
+_DTENSOR_ROUTES["K4"] = _DTENSOR_ROUTES["K3"]
+_DTENSOR_ROUTES["K7b"] = _DTENSOR_ROUTES["K7a"]
+
+
+def refuse_dtensor(what: str, kernel: str, *tensors) -> None:
+    """Raise TypeError where the wrapper ``what`` of ``kernel`` is handed a
+    ``DTensor``: a DTensor's ``data_ptr()`` is 0 and its shape is the whole
+    grid's, so a launch would read and write through a null pointer. The
+    message names the route a DTensor takes instead. Nothing is gathered
+    and nothing falls back to the CPU."""
+    for t in tensors:
+        if is_dtensor(t):
+            route = _DTENSOR_ROUTES[kernel]
+            raise TypeError(
+                f"{what}: kernel {kernel} takes a plain tensor, and was handed a "
+                f"DTensor (placements {tuple(t.placements)}): {route}.")
+
+
 def check_grid(what: str, kernel: str, *grids: torch.Tensor) -> None:
-    """``refuse_transforms`` on every grid, then the device, dtype, rank and
-    contiguity checks shared by the wrappers."""
+    """``refuse_dtensor`` and ``refuse_transforms`` on every grid, then the
+    device, dtype, rank and contiguity checks shared by the wrappers."""
+    refuse_dtensor(what, kernel, *grids)
     refuse_transforms(what, kernel, *grids)
     for x in grids:
         if not x.is_cuda:

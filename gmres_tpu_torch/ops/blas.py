@@ -21,6 +21,16 @@ too, ``[Shard(1)]`` (JAX's ``P(None, "grid", None)``): ``rows_like`` makes
 one, ``gram`` reduces two of them to their (k, l) products with one
 all-reduce, and ``_svqb`` takes its Gram so. ``replicate_like`` lifts a
 small plain matrix onto a sharded operand's mesh for a local product.
+``per_mesh`` places an operator's fixed operand (a halo form, a block of
+rows) on a mesh once, in a dict that the operator's closure owns.
+
+The contractions (``gram``, ``row_contract``, ``batched_vdot``) and
+``row_combine`` flatten their operands' grid dimensions. Where the grid is
+sharded on a dimension that is not the first of those (a (2, N, N) split
+stack on ``[Shard(1)]``), DTensor (torch 2.11) refuses to flatten without
+a redistribution; so on operands sharded alike they work on each rank's
+block, a contraction summing the ranks' parts in one all-reduce
+(``mesh_sum``), which is what DTensor does where it can flatten.
 """
 
 from __future__ import annotations
@@ -28,9 +38,9 @@ from __future__ import annotations
 import torch
 
 if torch.distributed.is_available():
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 else:  # a torch built without distributed: no tensor is a DTensor
-    DTensor, Replicate, Shard = (), None, None
+    DTensor, Partial, Replicate, Shard = (), None, None, None
 
 
 def is_dtensor(x) -> bool:
@@ -38,11 +48,48 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+_functorch = getattr(torch._C, "_functorch", None)
+
+
+def dtensor_of(x):
+    """The DTensor that x is, or that the wrappers of ``torch.func``
+    transforms around x hold (a DTensor seen inside ``torch.func.vjp``);
+    None where there is none."""
+    while (_functorch is not None and isinstance(x, torch.Tensor)
+           and _functorch.is_functorch_wrapped_tensor(x)):
+        x = _functorch.get_unwrapped(x)
+    return x if is_dtensor(x) else None
+
+
 def as_plain(t: torch.Tensor) -> torch.Tensor:
     """A plain tensor holding the whole value of ``t``: a DTensor's
     partial sums are all-reduced over its mesh (one collective), a
     replicated DTensor is unwrapped; a plain tensor is returned as is."""
     return t.full_tensor() if is_dtensor(t) else t
+
+
+def mesh_sum(part: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The sum over like's mesh of every rank's plain ``part`` (one
+    all-reduce), a plain tensor."""
+    mesh = like.device_mesh
+    return as_plain(DTensor.from_local(part, mesh, [Partial()] * mesh.ndim,
+                                      run_check=False))
+
+
+def _local_parts(*ts):
+    """The ranks' blocks of ``ts`` where every one is a DTensor sharded on
+    one 1-D mesh along the same grid dimension (counted from the end, so a
+    (k, *shape) block on ``[Shard(d + 1)]`` matches a vector on
+    ``[Shard(d)]``); None otherwise."""
+    if not all(is_dtensor(t) for t in ts):
+        return None
+    mesh, grid_dims = ts[0].device_mesh, set()
+    for t in ts:
+        (place,) = t.placements if len(t.placements) == 1 else (None,)
+        if t.device_mesh != mesh or not isinstance(place, Shard):
+            return None
+        grid_dims.add(t.ndim - place.dim)
+    return [t.to_local() for t in ts] if len(grid_dims) == 1 else None
 
 
 def rows_like(k: int, like: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -90,6 +137,43 @@ def shard_rows_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(blk, like.device_mesh, [Shard(dim)], run_check=False)
 
 
+def place_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A tensor ``t`` of ``like``'s shape that every rank holds whole, placed
+    as the DTensor ``like`` is on its 1-D mesh: this rank's slice for
+    ``[Shard(d)]`` (equal shards), the whole for ``[Replicate()]``, with no
+    communication; ``t`` as it is where ``like`` is plain."""
+    if not is_dtensor(like):
+        return t
+    blk = t
+    for place in like.placements:
+        if isinstance(place, Shard):
+            rows = like.to_local().shape[place.dim]
+            blk = t.narrow(place.dim, like.device_mesh.get_coordinate()[0] * rows, rows)
+    return DTensor.from_local(blk.contiguous(), like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def per_mesh(cache: dict, mesh, make):
+    """``make(mesh)``, built once per mesh in ``cache``, a dict that the
+    caller's closure owns. The entry is keyed on the mesh's id and holds
+    the mesh, so that id is not reused while the entry lives."""
+    hit = cache.get(id(mesh))
+    if hit is None:
+        hit = cache[id(mesh)] = (mesh, make(mesh))
+    return hit[1]
+
+
+def on_local(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn on this rank's part of the DTensor x, wrapped back with x's
+    placements, for an fn that does not mix entries across x's sharded
+    dimension (a solve along another axis, a product from the left of
+    column-sharded rows): no communication. fn(x) where x is plain."""
+    if not is_dtensor(x):
+        return fn(x)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False)
+
+
 def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A plain tensor ``t`` as a replicated DTensor on ``like``'s mesh, so a
     product with the sharded ``like`` stays local; ``t`` as it is where
@@ -104,6 +188,10 @@ def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(R, *shape) × (S, *shape) → (R, S): a_flat @ b_flatᵀ, a plain tensor
     (one all-reduce of the (R, S) partial products on a mesh)."""
+    parts = _local_parts(a, b)
+    if parts is not None:
+        la, lb = parts
+        return mesh_sum(la.reshape(la.shape[0], -1) @ lb.reshape(lb.shape[0], -1).T, a)
     return as_plain(a.reshape(a.shape[0], -1) @ b.reshape(b.shape[0], -1).T)
 
 
@@ -113,16 +201,30 @@ def row_contract(rows: torch.Tensor, v: torch.Tensor,
     conj(rowsᵢ)·v with ``conj``. For a complex basis that is taken as
     conj(rows·conj(v)): the same products and sums, without materialising
     the conjugate of the whole basis."""
+    parts = _local_parts(rows, v)
+    if parts is not None:
+        return mesh_sum(_contract(*parts, conj), rows)
+    return as_plain(_contract(rows, v, conj))
+
+
+def _contract(rows: torch.Tensor, v: torch.Tensor, conj: bool) -> torch.Tensor:
     flat = rows.reshape(rows.shape[0], -1)
     if conj and rows.is_complex():
-        return as_plain((flat @ v.reshape(-1).conj()).conj())
-    return as_plain(flat @ v.reshape(-1))
+        return (flat @ v.reshape(-1).conj()).conj()
+    return flat @ v.reshape(-1)
 
 
 def row_combine(coefs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Linear combination (R, *extra) × (R, *shape) → (*extra, *shape):
     out[e] = Σᵢ coefs[i, e]·rowsᵢ (``tensordot(coefs, rows, dims=([0], [0]))``).
-    Communication-free on sharded rows: the coefficients are replicated."""
+    Communication-free on sharded rows: the coefficients are replicated,
+    and each rank combines its own block."""
+    parts = _local_parts(rows)
+    if parts is not None and not is_dtensor(coefs):
+        out = torch.tensordot(coefs, parts[0], dims=([0], [0]))
+        (place,) = rows.placements
+        return DTensor.from_local(out, rows.device_mesh,
+                                  [Shard(place.dim - 1 + coefs.ndim - 1)], run_check=False)
     return torch.tensordot(replicate_like(coefs, rows), rows, dims=([0], [0]))
 
 
@@ -137,9 +239,7 @@ def _svqb(w: torch.Tensor, eps: float):
     q and w[b] = Σ_a r[a, b]·q[a] (r = S⁻¹, dense). Directions below
     eps·λ_max are clamped and come out as orthonormalised noise with ~zero
     weight."""
-    s = w.shape[0]
-    flat = w.reshape(s, -1)
-    g = as_plain(flat.conj() @ flat.T)
+    g = gram(w.conj(), w)
     d = torch.sqrt(torch.clamp(torch.diagonal(g).real, min=0.0))
     dinv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
                        torch.zeros_like(d))
@@ -193,5 +293,11 @@ def batched_vdot(pairs) -> torch.Tensor:
     solver reads all k back from the device at once (and a mesh reduces all
     k in one all-reduce). Each is one ``vdot`` (one read of each operand;
     stacking the operands first would copy them)."""
+    pairs = list(pairs)
+    parts = _local_parts(*(t for pair in pairs for t in pair))
+    if parts is not None:
+        local = torch.stack([torch.vdot(a.reshape(-1), b.reshape(-1))
+                             for a, b in zip(parts[0::2], parts[1::2])])
+        return mesh_sum(local, pairs[0][0])
     return as_plain(torch.stack([torch.vdot(a.reshape(-1), b.reshape(-1))
                                  for a, b in pairs]))

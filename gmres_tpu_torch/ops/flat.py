@@ -20,12 +20,12 @@ from __future__ import annotations
 
 import torch
 
-from gmres_tpu_torch.ops.blas import as_plain, is_dtensor, rows_like, shard_offset
+from gmres_tpu_torch.ops.blas import as_plain, is_dtensor, mesh_sum, rows_like, shard_offset
 
 if torch.distributed.is_available():
-    from torch.distributed.tensor import DTensor, Partial
+    from torch.distributed.tensor import DTensor
 else:  # a torch built without distributed: no tensor is a DTensor
-    DTensor, Partial = (), None
+    DTensor = ()
 
 
 def _flat_block(x: torch.Tensor, lead: int = 0):
@@ -43,14 +43,6 @@ def _wrap(blk: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """This rank's block ``blk`` (shaped like like's local block) as a
     DTensor placed as ``like``."""
     return DTensor.from_local(blk, like.device_mesh, like.placements, run_check=False)
-
-
-def _mesh_sum(part: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """The sum over like's mesh of every rank's ``part`` (one all-reduce),
-    a plain tensor."""
-    mesh = like.device_mesh
-    return as_plain(DTensor.from_local(part, mesh, [Partial()] * mesh.ndim,
-                                      run_check=False))
 
 
 def _window(off: int, numel: int, lo: int, hi: int):
@@ -78,7 +70,7 @@ def flat_head(x: torch.Tensor, k: int) -> torch.Tensor:
     a, e = _window(off, flat.numel(), 0, k)
     if a < e:
         part[a:e] = flat[a - off:e - off]
-    return _mesh_sum(part, x)
+    return mesh_sum(part, x)
 
 
 def flat_columns(rows: torch.Tensor, k: int) -> torch.Tensor:
@@ -91,7 +83,7 @@ def flat_columns(rows: torch.Tensor, k: int) -> torch.Tensor:
     a, e = _window(off, flat.shape[1], 0, k)
     if a < e:
         part[:, a:e] = flat[:, a - off:e - off]
-    return _mesh_sum(part, rows)
+    return mesh_sum(part, rows)
 
 
 def flat_tail_sq(x: torch.Tensor, i: int) -> torch.Tensor:

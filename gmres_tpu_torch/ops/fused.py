@@ -471,6 +471,7 @@ def axpy_dot_plain(alpha, x, y, z):
 
 
 def _check_vectors(what: str, kernel: str, *ts: torch.Tensor) -> None:
+    _cuda.refuse_dtensor(what, kernel, *ts)
     _cuda.refuse_transforms(what, kernel, *ts)
     for t in ts:
         if not t.is_cuda:
@@ -571,6 +572,7 @@ def _k7_launch(name: str, alpha, tensors) -> torch.Tensor:
 def cg_fused_update_cuda(x, r, p, ap, alpha):
     """Launch K7a on CUDA tensors: one launch, whose last block sums the
     blocks' partials; ``cg_fused_update_cuda.launches`` counts launches."""
+    _cuda.refuse_dtensor("cg_fused_update_cuda", "K7a", alpha)
     _cuda.refuse_transforms("cg_fused_update_cuda", "K7a", alpha)
     _check_vectors("cg_fused_update_cuda", "K7a", x, r, p, ap)
     xo, ro = torch.empty_like(x), torch.empty_like(r)
@@ -585,6 +587,7 @@ cg_fused_update_cuda.launches = 0
 def axpy_dot_cuda(alpha, x, y, z):
     """Launch K7b on CUDA tensors: one launch, whose last block sums the
     blocks' partials; ``axpy_dot_cuda.launches`` counts launches."""
+    _cuda.refuse_dtensor("axpy_dot_cuda", "K7b", alpha)
     _cuda.refuse_transforms("axpy_dot_cuda", "K7b", alpha)
     _check_vectors("axpy_dot_cuda", "K7b", x, y, z)
     yn = torch.empty_like(y)

@@ -525,7 +525,8 @@ def _check_same_device(what: str, x: torch.Tensor, *tensors) -> None:
 def _check_kernel_operands(what: str, kernel: str, x: torch.Tensor,
                            values: torch.Tensor, *index) -> None:
     """Device, dtype and contiguity checks before pointers reach a kernel,
-    and ``_cuda.refuse_transforms``."""
+    and ``_cuda.refuse_dtensor`` and ``_cuda.refuse_transforms``."""
+    _cuda.refuse_dtensor(what, kernel, x, values, *index)
     _cuda.refuse_transforms(what, kernel, x, values, *index)
     if not x.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
@@ -546,6 +547,7 @@ def dia_spmv_cuda(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch K3 on a CUDA operand: y (shape[0],) = A·x for x of shape[1]
     entries (any shape, read flat). ``dia_spmv_cuda.launches`` counts
     launches."""
+    _cuda.refuse_dtensor("dia_spmv_cuda", "K3", x)
     xf = x.reshape(-1)
     _check_kernel_operands("dia_spmv_cuda", "K3", xf, a.data)
     n_rows, n_cols = a.shape
@@ -576,6 +578,7 @@ dia_spmv_cuda.launches = 0
 def bsr_spmv_cuda(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch K4 on a CUDA operand: y (nbr·bs,) = A·x for x of nbc·bs
     entries. ``bsr_spmv_cuda.launches`` counts launches."""
+    _cuda.refuse_dtensor("bsr_spmv_cuda", "K4", x)
     xf = x.reshape(-1)
     _check_kernel_operands("bsr_spmv_cuda", "K4", xf, a.data, a.block_cols)
     nbr, k, bs, bs2 = a.data.shape

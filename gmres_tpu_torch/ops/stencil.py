@@ -27,7 +27,22 @@ Counterpart of ``gmres_tpu/ops/stencil.py``:
   CPU pair; ``stencil_5pt_f64_via_dd``, ``stencil_5pt_f64_dd_chain`` and
   ``stencil_5pt_general_f64_via_dd`` split, apply and recombine.
 * ``stencil_7pt_general`` / ``stencil_7pt_apply`` — the 3-D 7-point
-  stencil, plain PyTorch on any device (plain jnp in JAX too).
+  stencil, plain PyTorch on any device (plain jnp in JAX too);
+  ``stencil_7pt_halo`` its form on a block of planes with halo planes.
+
+The DTensor route. gmres_tpu's GSPMD lowers the jnp shifts of a stencil
+on a sharded grid to halo permutes; here ``stencil_5pt_pallas`` (and so
+``stencil_5pt_routed``/``_routed_general``), ``stencil_5pt_general`` and
+``stencil_7pt_general`` hand a DTensor to ``parallel/halo.py:
+sharded_stencil``, which dispatches on its placement: ``[Shard(0)]`` on a
+1-D mesh, evenly, is one halo exchange and one halo form on each rank's
+block (K1's halo form for a real 5-point stencil); ``[Replicate()]`` is the
+plain computation on the local tensor; any other placement raises
+NotImplementedError. While ``parallel/halo.py:blockwise_jvp`` runs on
+this thread, a plain tensor is taken as this rank's block of a row-sharded
+grid and takes the same forms (how Newton–Krylov applies J·v to each
+rank's block); that mode and its state belong to ``parallel/halo.py``,
+which ``on_sharded_grid`` asks. No route gathers the grid.
 """
 
 from __future__ import annotations
@@ -36,9 +51,26 @@ import torch
 import torch.nn.functional as F
 
 from gmres_tpu_torch.ops import _cuda
+from gmres_tpu_torch.ops.blas import dtensor_of
 from gmres_tpu_torch.ops.dd import dd_from_f64, dd_to_f64
 
 POISSON_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
+
+def on_sharded_grid(x) -> bool:
+    """True where x goes by the DTensor route: a DTensor (also inside a
+    ``torch.func`` transform), or a rank's block while
+    ``parallel/halo.py:blockwise_jvp`` runs on this thread."""
+    if dtensor_of(x) is not None:
+        return True
+    from gmres_tpu_torch.parallel.halo import blockwise_active
+
+    return blockwise_active()
+
+
+def _halo_route(x, kind: str, coefs):
+    from gmres_tpu_torch.parallel.halo import sharded_stencil
+
+    return sharded_stencil(x, kind, coefs)
 
 
 def _shift(x: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
@@ -63,7 +95,10 @@ def stencil_5pt_general(
     north: float,
 ) -> torch.Tensor:
     """y(i,j) = center·x(i,j) + west·x(i,j−1) + east·x(i,j+1)
-    + south·x(i−1,j) + north·x(i+1,j), zero outside the grid."""
+    + south·x(i−1,j) + north·x(i+1,j), zero outside the grid. A DTensor
+    goes by the DTensor route (module docstring)."""
+    if on_sharded_grid(x):
+        return _halo_route(x, "5pt", (center, west, east, south, north))
     return (
         center * x
         + west * _shift(x, 0, 1)
@@ -94,7 +129,9 @@ def stencil_7pt_general(x: torch.Tensor, center: float,
     """3-D 7-point stencil y = center·x + off·(sum of the 6 face
     neighbours), zero outside the grid; the neighbours are summed in the
     JAX order, so the bits are JAX's. Plain PyTorch, as the JAX version is
-    plain jnp."""
+    plain jnp. A DTensor goes by the DTensor route (module docstring)."""
+    if on_sharded_grid(x):
+        return _halo_route(x, "7pt", (center, off))
     s = (
         _shift3(x, 1, 0) + _shift3(x, -1, 0)
         + _shift3(x, 1, 1) + _shift3(x, -1, 1)
@@ -106,6 +143,27 @@ def stencil_7pt_general(x: torch.Tensor, center: float,
 def stencil_7pt_apply(x: torch.Tensor) -> torch.Tensor:
     """3-D Laplacian special case: y = 6x − Σ face neighbours."""
     return stencil_7pt_general(x, 6.0)
+
+
+def stencil_7pt_halo(x: torch.Tensor, top, bottom, center: float,
+                     off: float = -1.0) -> torch.Tensor:
+    """``stencil_7pt_general`` on a (planes, N, N) block with explicit halo
+    planes along axis 0: ``top`` the plane before the block, ``bottom`` the
+    one after (None is a zero plane, the physical boundary). The neighbours
+    are summed in ``stencil_7pt_general``'s order, so a block with its true
+    halo planes gives the bits of the whole grid's rows."""
+    def plane(h):
+        if h is None:
+            return torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        return h.reshape((1,) + tuple(x.shape[1:]))
+
+    ext = torch.cat([plane(top), x, plane(bottom)], dim=0)
+    s = (
+        ext[:-2] + ext[2:]
+        + _shift3(x, 1, 1) + _shift3(x, -1, 1)
+        + _shift3(x, 1, 2) + _shift3(x, -1, 2)
+    )
+    return center * x + off * s
 
 
 def stencil_5pt_halo(
@@ -160,6 +218,7 @@ def _coef_list(coefs, what: str | None = None, kernel: str | None = None) -> lis
     would drop its gradient."""
     if what is not None:
         terms = coefs if isinstance(coefs, (list, tuple)) else (coefs,)
+        _cuda.refuse_dtensor(what, kernel, *terms)
         _cuda.refuse_transforms(what, kernel, *terms)
     if isinstance(coefs, torch.Tensor):
         coefs = coefs.detach().cpu().tolist()  # one read for all five
@@ -170,6 +229,7 @@ def _halo_row(h, x: torch.Tensor, what: str, kernel: str):
     """Pointer of a (N,) or (1, N) halo row matching x, or None."""
     if h is None:
         return None
+    _cuda.refuse_dtensor(what, kernel, h)
     _cuda.refuse_transforms(what, kernel, h)
     if (h.device != x.device or h.dtype != x.dtype
             or h.numel() != x.shape[1] or not h.is_contiguous()):
@@ -323,7 +383,9 @@ def stencil_5pt_pallas_halo(
     rows, None for a zero row: the plain version for a CPU tensor, K1 for a
     CUDA tensor. ``stencil_5pt_pallas_halo.launches`` counts the K1 launches
     taken through this halo form (each one also counted by
-    ``stencil5_cuda.launches``)."""
+    ``stencil5_cuda.launches``). The block is a rank's own: a DTensor raises
+    TypeError on either device (``_cuda.refuse_dtensor``)."""
+    _cuda.refuse_dtensor("stencil_5pt_pallas_halo", "K1", x, top, bottom)
     if x.device.type == "cpu":
         return stencil_5pt_halo(x, top, bottom, _coef_terms(coefs))
     y = stencil5_cuda(x, top, bottom, coefs)
@@ -437,8 +499,12 @@ def stencil_5pt_pallas(x: torch.Tensor, coefs=None) -> torch.Tensor:
     forward-mode AD or a torch.func transform tracks x or a coefficient,
     the launch goes through ``stencil5_grid`` (differentiable by its rules);
     otherwise straight to the wrapper, without the autograd.Function's host
-    cost. A tensor coefficient stays in the graph on both devices."""
+    cost. A tensor coefficient stays in the graph on both devices. A DTensor
+    goes by the DTensor route (module docstring): K1's halo form on each
+    rank's block on the card."""
     terms = _coef_terms(coefs)
+    if on_sharded_grid(x):
+        return _halo_route(x, "5pt", terms)
     if x.device.type == "cpu":
         return stencil_5pt_general(x, *terms)
     if _cuda.tracked_by(x) is None and all(_cuda.tracked_by(c) is None for c in terms):

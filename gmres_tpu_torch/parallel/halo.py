@@ -52,24 +52,62 @@ dual of a DTensor (``aten._has_same_storage_numel`` has no sharding rule),
 so ``torch.func.jvp`` takes each rank's block, a plain tensor, where the
 tangent rule applies; ``torch.func.vjp`` takes the DTensor.
 
+The halo forms. ``HaloForm`` runs a local form ``local(blk, top,
+bottom)`` on each rank's block of a grid sharded along one dimension of a
+1-D mesh, after one exchange of the block's first and last slices along it
+(``_halo_rows``): rows of a 2-D grid, planes of a 3-D grid, or the rows of
+both planes of a (2, rows, N) split-complex stack in one message each way;
+any dtype, complex included. ``HaloOperator`` is the real 5-point form
+(K1's halo form on the card) with its transpose and tangent rules; the
+other forms are plain torch on any device, as gmres_tpu's are plain jnp:
+the complex 5-point stencil (``ops/stencil.py:stencil_5pt_halo``), the
+7-point stencil (``stencil_7pt_halo``), the split stack and the
+variable-coefficient faces (``models/``). They have no rules, and a
+tracked input raises.
+
+The DTensor route (ROADMAP queue 1, item 8.5). gmres_tpu's GSPMD lowers
+the jnp shifts of its plain operators on a sharded grid to halo permutes.
+Here the plain stencils of ``ops/stencil.py`` and the models hand a DTensor
+to ``sharded_stencil``/``sharded_apply``, which dispatch on its placement:
+``[Shard(d)]`` on a 1-D mesh, on the grid dimension d and evenly, is one
+``local_map`` over the matching halo form (one exchange, one local
+application; the form is built once per mesh and stencil); ``[Replicate()]``
+is the plain computation on the local tensor; anything else raises
+NotImplementedError naming the item. No route gathers the grid. Each
+operator keeps its forms in its own closure (``ops/blas.py:per_mesh``); the
+plain stencils, which are functions of their coefficients, keep theirs in
+``_STENCIL_FORMS`` under the coefficients' values. While ``blockwise_jvp``
+runs (on this thread) a plain tensor is taken as this rank's block of a
+grid row-sharded over its mesh and takes the same forms: Newton–Krylov's
+J·v runs ``torch.func.jvp`` on each rank's block so. Inside that mode only
+tensors shaped like the rank's block may be stenciled; ``sharded_apply``
+raises on any other.
+
 ``halo_exchange.exchanges`` counts the exchanges of the halo route (the
-operators, cbpr2 and the sharded levels of the distributed multigrid
-cycles; not the RDMA route), one per application on every rank.
+operators, every halo form, cbpr2 and the sharded levels of the
+distributed multigrid cycles; not the RDMA route), one per application on
+every rank.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Tuple
 
 import torch
 
 from gmres_tpu_torch.ops._cuda import tracked_by
+from gmres_tpu_torch.ops.blas import dtensor_of, per_mesh
 from gmres_tpu_torch.ops.fused import (
     cheb2_apply,
     cheb2_scalars,
     chebyshev_ref_scalars,
 )
-from gmres_tpu_torch.ops.stencil import stencil_5pt_pallas_halo
+from gmres_tpu_torch.ops.stencil import (
+    stencil_5pt_halo,
+    stencil_5pt_pallas_halo,
+    stencil_7pt_halo,
+)
 from gmres_tpu_torch.ops.stencil_rdma import (
     _coefs7,
     _neighbours,
@@ -81,11 +119,12 @@ from gmres_tpu_torch.parallel.mesh import GRID_AXIS
 LAPLACE_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
 
 
-def _halo_rows(blk: torch.Tensor, group, neighbours):
-    """(top, bottom) halo rows of ``blk`` from the ``neighbours`` of
-    ``_neighbours(group)``, each (1, ncols), None for a side with no
-    neighbour (no row is allocated for it)."""
-    top, bottom, wait = post_halo_rows(blk, group, neighbours)
+def _halo_rows(blk: torch.Tensor, group, neighbours, dim: int = 0):
+    """(top, bottom) halo slices of ``blk`` along ``dim`` from the
+    ``neighbours`` of ``_neighbours(group)``, each 1 along ``dim`` (a row,
+    a plane, or both planes' rows of a split stack), None for a side with no
+    neighbour (nothing is allocated for it)."""
+    top, bottom, wait = post_halo_rows(blk, group, neighbours, dim)
     wait()
     halo_exchange.exchanges += 1
     return top, bottom
@@ -121,12 +160,13 @@ def halo_apply_local(blk: torch.Tensor, coefs, group, neighbours) -> torch.Tenso
     return stencil_5pt_pallas_halo(blk, top, bottom, coefs)
 
 
-def _sharded(mesh, fn: Callable) -> Callable:
-    """``fn`` on each rank's block of a row-sharded DTensor (local_map)."""
+def _sharded(mesh, fn: Callable, dim: int = 0) -> Callable:
+    """``fn`` on each rank's block of a DTensor sharded along ``dim``
+    (local_map); a plain tensor is taken as this rank's block as it is."""
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
 
-    return local_map(fn, out_placements=[Shard(0)], in_placements=([Shard(0)],),
+    return local_map(fn, out_placements=[Shard(dim)], in_placements=([Shard(dim)],),
                      device_mesh=mesh)
 
 
@@ -166,19 +206,46 @@ class HaloStencil(torch.autograd.Function):
 HaloStencil.rule_applications = {"transpose": 0, "tangent": 0}
 
 
-class HaloOperator:
+class HaloForm:
+    """The local form ``local(blk, top, bottom)`` on each rank's block of a
+    grid sharded along ``dim`` of a 1-D mesh, after one exchange of the
+    block's first and last slices along ``dim`` (``_halo_rows``). Called on
+    a DTensor sharded so it returns one; on a plain tensor, this rank's
+    block. No transpose or tangent rule: a tracked input raises
+    NotImplementedError."""
+
+    def __init__(self, mesh, local: Callable, dim: int = 0, axis=GRID_AXIS):
+        self.mesh, self.axis, self.dim, self.local = mesh, axis, dim, local
+        self.group = mesh.get_group(axis)
+        self.neighbours = _neighbours(self.group)
+        self.untracked = _sharded(mesh, self.apply_local, dim)
+
+    def apply_local(self, blk: torch.Tensor) -> torch.Tensor:
+        """The form on this rank's block (one exchange, one application)."""
+        top, bottom = _halo_rows(blk, self.group, self.neighbours, self.dim)
+        return self.local(blk, top, bottom)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        why = tracked_by(x)
+        if why is not None:
+            raise NotImplementedError(
+                f"this halo form has no transpose or tangent rule, and its input "
+                f"is tracked by {why}: only the real 5-point stencil "
+                "(HaloOperator) differentiates on a sharded grid (ROADMAP queue 1, "
+                "item 8.5)")
+        return self.untracked(x)
+
+
+class HaloOperator(HaloForm):
     """Matrix-free 5-point stencil ``coefs`` over a row-partitioned grid with
     explicit halo exchange (see :func:`halo_stencil_operator`). Called on a
     row-sharded DTensor it returns one; on a plain tensor, this rank's
     block. ``mirror`` is its transpose (the stencil with west↔east and
     south↔north swapped)."""
 
-    def __init__(self, mesh, coefs, axis: str = GRID_AXIS):
-        self.mesh, self.axis = mesh, axis
+    def __init__(self, mesh, coefs, axis=GRID_AXIS):
         self.coefs = tuple(float(c) for c in coefs)
-        self.group = mesh.get_group(axis)
-        self.neighbours = _neighbours(self.group)
-        self.untracked = _sharded(mesh, self.apply_local)
+        super().__init__(mesh, None, 0, axis)
         self._mirror = None
 
     def apply_local(self, blk: torch.Tensor) -> torch.Tensor:
@@ -213,6 +280,146 @@ def halo_stencil_operator(
     distributed. Autograd and ``torch.func`` differentiate it through
     ``HaloStencil``'s rules (QMR, LSQR and LSMR derive Aᵀ so)."""
     return HaloOperator(mesh, coefs, axis)
+
+
+# The mesh and block shape of the active ``blockwise_jvp`` on this thread
+# (``block`` None outside it).
+_blockwise = threading.local()
+
+
+def blockwise_active() -> bool:
+    """True while ``blockwise_jvp`` runs on this thread: the plain stencils
+    of ``ops/stencil.py`` and the models then take a plain tensor as this
+    rank's block of the grid and apply its halo form."""
+    return getattr(_blockwise, "block", None) is not None
+
+
+def sharded_apply(x: torch.Tensor, forms: dict, make: Callable,
+                  plain: Callable, dim: int = 0) -> torch.Tensor:
+    """The plain operator ``plain`` (a whole-grid function) on a DTensor x
+    through its halo form, by x's placement:
+
+    * ``[Shard(dim)]`` on a 1-D mesh, with the dimension divisible by the
+      mesh size: the halo form ``make(mesh)`` (a ``HaloForm`` sharded along
+      ``dim``), built once per mesh in ``forms``, a dict that the operator
+      owns (``ops/blas.py:per_mesh``); one exchange and one local
+      application;
+    * ``[Replicate()]``: ``plain`` on the local tensor;
+    * anything else: NotImplementedError (ROADMAP queue 1, item 8.5). No
+      placement is gathered.
+
+    A plain x, inside ``blockwise_jvp``, is this rank's block and takes the
+    form of its mesh; it must have the block's shape (ValueError otherwise).
+    A DTensor that a ``torch.func`` transform wraps is dispatched by the
+    DTensor it holds."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    inner = dtensor_of(x)
+    if inner is None:
+        mesh, shape = _blockwise.block
+        if tuple(x.shape) != shape:
+            raise ValueError(
+                f"inside blockwise_jvp a plain tensor is a rank's block of shape "
+                f"{shape}; a stencil got one of shape {tuple(x.shape)}")
+    else:
+        mesh, places = inner.device_mesh, tuple(inner.placements)
+        if mesh.ndim == 1 and places == (Replicate(),):
+            return DTensor.from_local(plain(x.to_local()), mesh, places,
+                                      run_check=False)
+        if (mesh.ndim != 1 or places != (Shard(dim),)
+                or x.shape[dim] % mesh.size()):
+            raise NotImplementedError(
+                f"a plain operator on a DTensor of shape {tuple(x.shape)} with "
+                f"placements {places} on a {mesh.ndim}-D mesh: the halo route "
+                f"takes [Shard({dim})] on a 1-D mesh, evenly, or [Replicate()]; "
+                "no other placement is gathered (ROADMAP queue 1, item 8.5)")
+    return per_mesh(forms, mesh, make)(x)
+
+
+def blockwise_jvp(f: Callable, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """J·v of ``f`` at the DTensor x, as a DTensor placed as x. Forward-mode
+    AD makes no dual of a DTensor (``aten._has_same_storage_numel`` has no
+    sharding rule), so ``torch.func.jvp`` runs on each rank's block inside a
+    ``local_map``, in the blockwise mode: f's plain stencils take their halo
+    forms there, and their tangents ``HaloStencil``'s rule (one exchange and
+    one K1 launch each on the card). Only tensors shaped like the rank's
+    block may be stenciled there. A ``[Replicate()]`` x is differentiated
+    whole on every rank."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, places = x.device_mesh, tuple(x.placements)
+    whole = places == (Replicate(),)
+
+    def local(xb, vb):
+        if whole:
+            return torch.func.jvp(f, (xb,), (vb,))[1]
+        outer = getattr(_blockwise, "block", None)
+        _blockwise.block = (mesh, tuple(xb.shape))
+        try:
+            return torch.func.jvp(f, (xb,), (vb,))[1]
+        finally:
+            _blockwise.block = outer
+
+    return local_map(local, out_placements=list(places), in_placements=(places, places),
+                     device_mesh=mesh)(x, v)
+
+
+def _float_coefs(coefs) -> tuple:
+    """The coefficients as Python numbers (a 0-d tensor read once); a
+    tracked coefficient raises (no rule carries its gradient through the
+    halo route)."""
+    out = []
+    for c in coefs:
+        if isinstance(c, torch.Tensor):
+            if tracked_by(c) is not None:
+                raise NotImplementedError(
+                    "a tracked stencil coefficient on a sharded grid: the halo "
+                    "route differentiates in x only (ROADMAP queue 1, item 8.5)")
+            c = c.item()
+        out.append(c)
+    return tuple(out)
+
+
+# The plain stencils' halo forms: a per-mesh dict (``ops/blas.py:per_mesh``)
+# for each stencil kind and coefficient values (numbers, not objects).
+_STENCIL_FORMS: dict = {}
+
+
+def _stencil_forms(key: tuple) -> dict:
+    return _STENCIL_FORMS.setdefault(key, {})
+
+
+def sharded_stencil(x: torch.Tensor, kind: str, coefs) -> torch.Tensor:
+    """The plain stencil ``kind`` on a DTensor x (or a rank's block inside
+    ``blockwise_jvp``), through ``sharded_apply``: "5pt" with (c, w, e, s,
+    n) — the ``HaloOperator`` (K1's halo form on the card, its transpose
+    and tangent rules) for real coefficients and a real x, the complex halo
+    form otherwise — or "7pt" with (center, off)."""
+    from gmres_tpu_torch.ops.stencil import (
+        stencil_5pt_general,
+        stencil_5pt_pallas,
+        stencil_7pt_general,
+    )
+
+    coefs = _float_coefs(coefs)
+    if kind == "7pt":
+        def local(blk, top, bottom):
+            return stencil_7pt_halo(blk, top, bottom, *coefs)
+
+        return sharded_apply(x, _stencil_forms(("7pt",) + coefs),
+                             lambda mesh: HaloForm(mesh, local, 0, 0),
+                             lambda t: stencil_7pt_general(t, *coefs))
+    if x.is_complex() or any(isinstance(c, complex) for c in coefs):
+        def local(blk, top, bottom):
+            return stencil_5pt_halo(blk, top, bottom, coefs)
+
+        return sharded_apply(x, _stencil_forms(("5pt complex",) + coefs),
+                             lambda mesh: HaloForm(mesh, local, 0, 0),
+                             lambda t: stencil_5pt_general(t, *coefs))
+    return sharded_apply(x, _stencil_forms(("5pt",) + coefs),
+                         lambda mesh: HaloOperator(mesh, coefs, 0),
+                         lambda t: stencil_5pt_pallas(t, coefs))
 
 
 def _rdma_local(coefs7, group) -> Callable:

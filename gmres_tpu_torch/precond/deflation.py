@@ -14,6 +14,11 @@ on the card each row launches A's kernels once) and G is factored once by
 JAX's ``cho_factor`` gives NaN). An application makes two k-row
 contractions, two k-row combinations and two (k, k) Cholesky solves, and
 applies M once; it reads nothing back from the device.
+
+On a row-sharded r (a DTensor) W and A·W are placed as a block of rows is,
+``[Shard(1)]`` (``ops/blas.py:shard_rows_like``: each rank keeps its own
+rows, no message), once per mesh: each contraction Wᵀr and (AW)ᵀz is one
+all-reduce of k values, the combinations are local.
 """
 
 from __future__ import annotations
@@ -24,7 +29,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply, row_combine, row_contract
+from gmres_tpu_torch.ops.blas import (
+    is_dtensor,
+    per_mesh,
+    row_apply,
+    row_combine,
+    row_contract,
+    shard_rows_like,
+)
 from gmres_tpu_torch.types import LinearOperator, Preconditioner
 
 
@@ -62,7 +74,17 @@ def coarse_space_preconditioner(
     def solve_g(rhs):
         return torch.cholesky_solve(rhs[:, None], chol)[:, 0]
 
+    placed = {}
+
+    def blocks(r):
+        """(W, AW), placed as a block of r's rows is, once per mesh."""
+        if not is_dtensor(r):
+            return W, aw
+        return per_mesh(placed, r.device_mesh,
+                        lambda _: (shard_rows_like(W, r), shard_rows_like(aw, r)))
+
     def apply(r):
+        W, aw = blocks(r)
         y = solve_g(row_contract(W, r))                # G⁻¹ Wᵀ r
         # (I − A Q) r, with A·(W c) = (AW)·c: no operator call.
         t = r - row_combine(y, aw)

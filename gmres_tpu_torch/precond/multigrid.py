@@ -32,12 +32,17 @@ the Poisson cycle. ``csl_multigrid_preconditioner`` is the complex-shifted
 cycle: plain torch complex arithmetic (``layout="complex"``), or the real
 (2, N, N) stack whose neighbour stencils launch K1 (``layout="split"``).
 
-With ``mesh=`` the Poisson, convection–diffusion and Helmholtz SPD cycles
-run on row-sharded grids (``_distributed_cycle``): the levels at or above
-``replicate_below`` rows stay sharded, on halo stencils (K1's halo form)
-and K2's recurrence over them; one all-gather a cycle gives every rank the
-first level below, which the ``mesh=None`` cycle solves whole (K1's forms,
-K2). JAX's GSPMD makes the same split with sharding constraints.
+With ``mesh=`` every cycle but the anisotropic and varcoef ones (which
+gmres_tpu gives none) runs on sharded grids (``_distributed_cycle``): the
+levels at or above ``replicate_below`` rows stay sharded, on halo forms —
+K1's halo form for the Poisson, convection–diffusion and Helmholtz SPD
+levels and their smoothers' recurrences, the plain complex form for the
+complex CSL cycle, two K1 halo-form launches per level stencil of the
+split CSL stack (sharded along its rows, dimension 1), the plain 7-point
+form with whole halo planes for the 3-D cycle — and one all-gather a
+cycle gives every rank the first level below, which the ``mesh=None``
+cycle solves whole (K1's forms and K2 where it has them). JAX's GSPMD
+makes the same split with sharding constraints.
 
 ``poisson3d_multigrid_preconditioner`` (with ``restrict_sum3d`` and
 ``prolong_repeat3d``) is the JAX 3-D cycle for the 7-point stencil, plain
@@ -74,8 +79,12 @@ from gmres_tpu_torch.ops.stencil import (  # noqa: F401  (transfers re-exported)
     residual_restrict,
     restrict_sum,
     stencil_5pt_general,
+    stencil_5pt_halo,
+    stencil_5pt_pallas_halo,
     stencil_5pt_routed_general,
 )
+from gmres_tpu_torch.models.helmholtz import split_laplacians
+from gmres_tpu_torch.ops.blas import on_local
 from gmres_tpu_torch.precond.chebyshev import chebyshev_stencil_preconditioner
 from gmres_tpu_torch.solvers.lanczos import (
     arnoldi_ritz_values,
@@ -122,50 +131,62 @@ def _replicate_from(sizes, mesh, replicate_below) -> int:
     return len(sizes)
 
 
-def _distributed_cycle(mesh, sizes, replicate_from, level_coefs, smooth_local,
-                       plain_v_cycle, internal_dtype=None) -> Callable:
-    """The V-cycle on row-sharded grids: one ``local_map`` over each rank's
-    block, so no DTensor operation can gather behind the cycle's back.
+def _distributed_cycle(mesh, sizes, replicate_from, local_apply, smooth_local,
+                       plain_v_cycle, internal_dtype=None,
+                       transfers=(restrict_sum, prolong_repeat), dim=0) -> Callable:
+    """The V-cycle on grids sharded along ``dim`` (0: the rows of a 2-D
+    grid or the planes of a 3-D one; 1: the rows of a (2, N, N) split
+    stack): one ``local_map`` over each rank's block, so no DTensor
+    operation can gather behind the cycle's back.
 
-    Levels above ``replicate_from`` stay sharded: their residuals are halo
-    stencils (``parallel/halo.py:halo_apply_local``, K1's halo form on the
-    card), their smoothers ``smooth_local(r, l, kind, apply)`` (kind "pre",
-    "post" or "coarse") run over the same operator, and restriction and
-    prolongation are local (the blocks hold even rows). At
-    ``replicate_from`` one ``all_gather_into_tensor`` of the residual gives
-    every rank the whole grid, which ``plain_v_cycle(r, level)`` (the
-    ``mesh=None`` cycle from that level down, routed by device) solves with
-    no communication; the hand-back up is this rank's rows of it.
-    ``internal_dtype`` runs the cycle in that dtype, as the plain cycles
-    do."""
+    Levels above ``replicate_from`` stay sharded: their operator is
+    ``local_apply(x, l, halo)``, a halo form on the block whose ``halo(x)``
+    exchanges the block's first and last slices along ``dim`` with the
+    neighbouring ranks (``parallel/halo.py:_halo_rows``; K1's halo form on
+    the card for a real 5-point level), their smoothers
+    ``smooth_local(r, l, kind, apply)`` (kind "pre", "post" or "coarse")
+    run over the same operator, and the ``transfers`` (restriction,
+    prolongation) are local (the blocks hold even rows). At
+    ``replicate_from`` one ``all_gather_into_tensor`` of the residual along
+    ``dim`` gives every rank the whole grid, which ``plain_v_cycle(r,
+    level)`` (the ``mesh=None`` cycle from that level down, routed by
+    device) solves with no communication; the hand-back up is this rank's
+    slice of it. ``internal_dtype`` runs the cycle in that dtype, as the
+    plain cycles do."""
     from torch.distributed.tensor import Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from gmres_tpu_torch.parallel.halo import _neighbours, halo_apply_local
+    from gmres_tpu_torch.parallel.halo import _halo_rows, _neighbours
     from gmres_tpu_torch.parallel.mesh import GRID_AXIS
 
     group = mesh.get_group(GRID_AXIS)
     neighbours = _neighbours(group)
     n_ranks, me = dist.get_world_size(group), dist.get_rank(group)
     n_levels = len(sizes)
+    restrict, prolong = transfers
 
-    def apply_at(l):
-        return lambda x: halo_apply_local(x, level_coefs[l], group, neighbours)
+    def halo(x):
+        return _halo_rows(x, group, neighbours, dim)
 
     def cycle(r, l):
         if l == replicate_from:
-            whole = torch.empty((r.shape[0] * n_ranks, r.shape[1]), dtype=r.dtype,
+            rows = r.shape[dim]
+            part = r.movedim(dim, 0).contiguous()
+            whole = torch.empty((rows * n_ranks,) + tuple(part.shape[1:]), dtype=r.dtype,
                                 device=r.device)
             # Not all_gather_single, its newer name: torch 2.11 lacks it.
-            dist.all_gather_into_tensor(whole, r.contiguous(), group=group)
-            rows = r.shape[0]
-            return plain_v_cycle(whole, l)[me * rows:(me + 1) * rows]
-        apply = apply_at(l)
+            dist.all_gather_into_tensor(whole, part, group=group)
+            z = plain_v_cycle(whole.movedim(0, dim).contiguous(), l)
+            return z.narrow(dim, me * rows, rows).contiguous()
+
+        def apply(x):
+            return local_apply(x, l, halo)
+
         if l == n_levels - 1:
             return smooth_local(r, l, "coarse", apply)
         e = smooth_local(r, l, "pre", apply)
-        ec = cycle(restrict_sum(r - apply(e)), l + 1)
-        e = e + prolong_repeat(ec)
+        ec = cycle(restrict(r - apply(e)), l + 1)
+        e = e + prolong(ec)
         return e + smooth_local(r - apply(e), l, "post", apply)
 
     def m_inv_local(blk):
@@ -173,10 +194,19 @@ def _distributed_cycle(mesh, sizes, replicate_from, level_coefs, smooth_local,
             return cycle(blk.to(internal_dtype), 0).to(blk.dtype)
         return cycle(blk, 0)
 
-    m_inv = local_map(m_inv_local, out_placements=[Shard(0)],
-                      in_placements=([Shard(0)],), device_mesh=mesh)
+    m_inv = local_map(m_inv_local, out_placements=[Shard(dim)],
+                      in_placements=([Shard(dim)],), device_mesh=mesh)
     m_inv.replicate_from = replicate_from
     return m_inv
+
+
+def _stencil_levels(level_coefs) -> Callable:
+    """``_distributed_cycle``'s ``local_apply`` for real 5-point levels with
+    coefficients ``level_coefs[l]``: K1's halo form on a CUDA block."""
+    def local_apply(x, l, halo):
+        return stencil_5pt_pallas_halo(x, *halo(x), level_coefs[l])
+
+    return local_apply
 
 
 def _default_levels(nsize: int, levels, floor: int = 16):
@@ -258,7 +288,7 @@ def poisson_multigrid_preconditioner(
 
         m_inv = _distributed_cycle(
             mesh, sizes, _replicate_from(sizes, mesh, replicate_below),
-            [POISSON_COEFS] * levels, smooth_local, v_cycle)
+            _stencil_levels([POISSON_COEFS] * levels), smooth_local, v_cycle)
 
     # An order-k semi-iteration applies the stencil k−1 times; each
     # non-coarsest level adds 2 residual stencils; level l carries 4^-l of
@@ -510,8 +540,8 @@ def convection_diffusion_multigrid_preconditioner(
 
         sizes = [sz for (sz, _, _, _) in levels]
         m_inv = _distributed_cycle(
-            mesh, sizes, _replicate_from(sizes, mesh, replicate_below), coefs,
-            smooth_local, v_cycle, internal_dtype)
+            mesh, sizes, _replicate_from(sizes, mesh, replicate_below),
+            _stencil_levels(coefs), smooth_local, v_cycle, internal_dtype)
 
     m_inv.levels = n_levels
     m_inv.level_schemes = [("central" if cen else "upwind")
@@ -599,8 +629,8 @@ def helmholtz_shifted_laplacian_preconditioner(
             return poly_recurrence(r, poly.theta, poly.steps, apply)
 
         m_inv = _distributed_cycle(
-            mesh, sizes, _replicate_from(sizes, mesh, replicate_below), coefs,
-            smooth_local, v_cycle, internal_dtype)
+            mesh, sizes, _replicate_from(sizes, mesh, replicate_below),
+            _stencil_levels(coefs), smooth_local, v_cycle, internal_dtype)
 
     # Order-k Chebyshev = k−1 operator applications; 2 residual stencils a
     # non-coarsest level; level l carries 4^-l of the fine grid's points.
@@ -647,18 +677,20 @@ def csl_multigrid_preconditioner(
     real planes run through K1 on a CUDA tensor (the plain stencil on a CPU
     one), the rotations and the Jacobi updates in torch.
 
-    ``mesh`` and ``replicate_below`` raise NotImplementedError (ROADMAP
-    queue 1, item 8.3b); any other layout raises ValueError. The returned
-    callable carries ``levels``, ``level_coefs`` and ``fine_equiv_sweeps``."""
+    ``mesh`` and ``replicate_below`` give the distributed cycle
+    (``_distributed_cycle``), as for ``poisson_multigrid_preconditioner``:
+    a complex r row-sharded (``[Shard(0)]``), a split stack sharded along its
+    rows (``[Shard(1)]``, gmres_tpu's ``P(None, "grid", None)``). A sharded
+    level's stencil is one exchange and the complex halo form (plain torch)
+    or, split, one exchange of both planes' rows and two K1 halo-form
+    launches; the damped Jacobi steps run on the rank's block. Any other
+    layout raises ValueError. The returned callable carries ``levels``,
+    ``level_coefs`` and ``fine_equiv_sweeps`` (and ``replicate_from`` with a
+    mesh)."""
     if layout not in ("complex", "split"):
         raise ValueError(f"unknown layout {layout!r}")
-    if mesh is not None or replicate_below is not None:
-        raise NotImplementedError(
-            "the distributed CSL cycle (mesh=, replicate_below=) is not "
-            "ported yet: ROADMAP queue 1, item 8.3b"
-        )
     beta = complex(float(shift[0]), float(shift[1]))
-    levels, _ = _default_levels(nsize, levels)
+    levels, sizes = _default_levels(nsize, levels)
     coefs = [(4.0 - beta * float(kh2) * 4.0 ** l, -1.0, -1.0, -1.0, -1.0)
              for l in range(levels)]
 
@@ -674,6 +706,9 @@ def csl_multigrid_preconditioner(
                               stencil_5pt_routed_general(x[1], nb_coefs)])
             return cmul(coefs[l][0], x) + nb
 
+        def local_apply(x, l, halo):
+            return cmul(coefs[l][0], x) + torch.stack(split_laplacians(x, *halo(x), nb_coefs))
+
         def scale_step(l, v):
             return cmul(omega / coefs[l][0], v)
 
@@ -686,16 +721,20 @@ def csl_multigrid_preconditioner(
         def apply_l(x, l):
             return stencil_5pt_general(x, *coefs[l])
 
+        def local_apply(x, l, halo):
+            return stencil_5pt_halo(x, *halo(x), coefs[l])
+
         def scale_step(l, v):
             return (omega / coefs[l][0]) * v
 
         restrict_ = restrict_sum
         prolong_ = prolong_repeat
 
-    def smooth(r, l, iters):
+    def smooth(r, l, iters, apply=None):
+        apply = apply or (lambda x: apply_l(x, l))
         e = scale_step(l, r)
         for _ in range(iters - 1):
-            e = e + scale_step(l, r - apply_l(e, l))
+            e = e + scale_step(l, r - apply(e))
         return e
 
     def v_cycle(r, l):
@@ -708,6 +747,17 @@ def csl_multigrid_preconditioner(
 
     def m_inv(r: torch.Tensor) -> torch.Tensor:
         return v_cycle(r, 0)
+
+    if mesh is not None:
+        iters = {"pre": pre_smooth, "post": post_smooth, "coarse": coarse_iters}
+
+        def smooth_local(r, l, kind, apply):
+            return smooth(r, l, iters[kind], apply)
+
+        m_inv = _distributed_cycle(
+            mesh, sizes, _replicate_from(sizes, mesh, replicate_below), local_apply,
+            smooth_local, v_cycle, transfers=(restrict_, prolong_),
+            dim=1 if layout == "split" else 0)
 
     per_level = (pre_smooth - 1) + (post_smooth - 1) + 4
     m_inv.fine_equiv_sweeps = sum(
@@ -750,22 +800,21 @@ def poisson3d_multigrid_preconditioner(
     λmin, ``restrict_sum3d``/``prolong_repeat3d``. Levels coarsen while the
     grid is even and above 8 (nsize must be divisible by 2^(levels−1)).
 
-    mesh, replicate_below: the distributed cycle, not ported yet (ROADMAP
-      queue 1, item 8.3b: a 3-D level exchanges whole planes); passing
-      either raises NotImplementedError.
+    mesh, replicate_below: the distributed cycle on grids sharded along
+      their first axis (``_distributed_cycle``, gmres_tpu's
+      ``P("grid", None, None)``): a sharded level exchanges whole planes
+      with its neighbours and applies ``stencil_7pt_halo``, its smoothers
+      the same semi-iteration around it; the first level below
+      ``replicate_below`` (default 8 a rank) is gathered once a cycle and
+      solved whole.
 
     Plain PyTorch on the tensor's device: the smoothers are
     ``chebyshev_preconditioner``'s semi-iteration around
     ``stencil_7pt_apply``. The returned callable carries ``levels`` and
-    ``fine_equiv_sweeps``."""
-    from gmres_tpu_torch.ops.stencil import stencil_7pt_apply
+    ``fine_equiv_sweeps`` (and ``replicate_from`` with a mesh)."""
+    from gmres_tpu_torch.ops.stencil import stencil_7pt_apply, stencil_7pt_halo
     from gmres_tpu_torch.precond.chebyshev import chebyshev_preconditioner
 
-    if mesh is not None or replicate_below is not None:
-        raise NotImplementedError(
-            "the distributed 3-D multigrid cycle (mesh=, replicate_below=) is "
-            "not ported yet: ROADMAP queue 1, item 8.3b"
-        )
     levels, sizes = _default_levels(nsize, levels, floor=8)
     lam_max = 12.0
     lam_min_coarse = 6.0 * (1.0 - math.cos(math.pi / (sizes[-1] + 1)))
@@ -786,6 +835,21 @@ def poisson3d_multigrid_preconditioner(
 
     def m_inv(r: torch.Tensor) -> torch.Tensor:
         return v_cycle(r, 0)
+
+    if mesh is not None:
+        polys = {"pre": (lam_max / smooth_band, lam_max, max(pre_smooth, 1)),
+                 "post": (lam_max / smooth_band, lam_max, max(post_smooth, 1)),
+                 "coarse": (lam_min_coarse, lam_max, coarse_order)}
+
+        def smooth_local(r, l, kind, apply):
+            lo, hi, order = polys[kind]
+            return chebyshev_preconditioner(apply, lo, hi, order=order,
+                                            reference_form=False)(r)
+
+        m_inv = _distributed_cycle(
+            mesh, sizes, _replicate_from(sizes, mesh, replicate_below),
+            lambda x, l, halo: stencil_7pt_halo(x, *halo(x), 6.0), smooth_local, v_cycle,
+            transfers=(restrict_sum3d, prolong_repeat3d))
 
     per_level = (max(pre_smooth, 1) - 1) + (max(post_smooth, 1) - 1) + 2
     m_inv.fine_equiv_sweeps = sum(
@@ -818,7 +882,14 @@ def anisotropic_multigrid_preconditioner(
     depend on the residual: it runs once per level size, dtype and device,
     on one row of coefficients that every line shares, and each sweep
     replays it (``pcr_apply``), the same arithmetic as JAX's
-    ``tridiag_solve_pcr`` on full coefficient arrays."""
+    ``tridiag_solve_pcr`` on full coefficient arrays.
+
+    On a row-sharded r (a DTensor) the lines run along the unsharded last
+    axis, so each rank solves its own rows with no message
+    (``ops/blas.py:on_local``); the operator takes its DTensor route (one
+    halo exchange an application); the restrictions are DTensor's own (two
+    all-gathers at the first, the levels below replicated), as in every
+    ``mesh=None`` cycle on a DTensor (ROADMAP queue 1, item 8.6b)."""
     from gmres_tpu_torch.models.anisotropic import anisotropic_apply
     from gmres_tpu_torch.ops.tridiag import pcr_apply, pcr_plan
 
@@ -838,7 +909,7 @@ def anisotropic_multigrid_preconditioner(
             full = functools.partial(torch.full, (r.shape[-1],), dtype=r.dtype,
                                      device=r.device)
             plans[key] = pcr_plan(full(-1.0), full(diag), full(-1.0))
-        return pcr_apply(plans[key], r)
+        return on_local(lambda t: pcr_apply(plans[key], t), r)
 
     def smooth(r, iters):
         e = torch.zeros_like(r)

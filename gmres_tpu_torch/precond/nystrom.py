@@ -14,13 +14,33 @@ Cholesky factor and the eigh of the (r, r) Gram run on float64 CPU copies
 (two reads of the device). The Gaussian sketch cannot be JAX's (``PRNGKey``
 draws have no torch counterpart): it comes from one seam, ``_sketch``.
 Applying P⁻¹ is two (r, n) contractions and elementwise work.
+
+On a row-sharded operand the sketch's rows are sharded as a block of rows
+is (``[Shard(1)]``, each rank drawing the whole sketch and keeping its own
+rows: ``ops/blas.py:shard_rows_like``), A is applied to each row on the
+mesh, the (r, r) core and Gram are one all-reduce each before their host
+factorisations, and B = Y C⁻ᵀ is solved on each rank's columns. U is kept
+so; a preconditioner built on a plain x_like places its U on a sharded
+r's mesh when first applied there. An application on a sharded r is one
+all-reduce (the (r,) contraction Uᵀr) and local work.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gmres_tpu_torch.ops.blas import _orthonormalize_block, row_apply
+from gmres_tpu_torch.ops.blas import (
+    _orthonormalize_block,
+    as_plain,
+    gram,
+    is_dtensor,
+    on_local,
+    per_mesh,
+    row_apply,
+    row_combine,
+    row_contract,
+    shard_rows_like,
+)
 from gmres_tpu_torch.types import LinearOperator
 
 
@@ -52,21 +72,24 @@ def nystrom_preconditioner(
     dtype, dev = x_like.dtype, x_like.device
     eps = float(torch.finfo(dtype).eps)
     omega = _sketch(rank, shape, dtype, dev, 0 if key is None else key)
+    omega = shard_rows_like(omega, x_like)
     omega, _ = _orthonormalize_block(omega, eps)
     for _ in range(power_iters):
         omega, _ = _orthonormalize_block(row_apply(A, omega), eps)
     y = row_apply(A, omega)  # the r matvecs
     # Shifted core (FTU Alg. 2.1): ν absorbs the roundoff of A·Ω so the
     # Cholesky stays positive.
-    nu = (rank ** 0.5) * eps * torch.sqrt(torch.sum(y * y))
+    nu = (rank ** 0.5) * eps * torch.sqrt(as_plain(torch.sum(y * y)))
     y_nu = y + nu * omega
     yflat = y_nu.reshape(rank, -1)
-    core = omega.reshape(rank, -1) @ yflat.T
+    core = gram(omega, y_nu)
     core = (0.5 * (core + core.T)).detach().to("cpu", torch.float64)
     c = torch.linalg.cholesky(core)
-    # B = Y C⁻ᵀ: the rows of C Bᵀ = Yᵀ, solved on the device.
-    bflat = torch.linalg.solve_triangular(c.to(dev, dtype), yflat, upper=False)
-    g = (bflat @ bflat.T).detach().to("cpu", torch.float64)
+    # B = Y C⁻ᵀ: the rows of C Bᵀ = Yᵀ, solved on the device (on each
+    # rank's columns of a sharded Y: the solve mixes rows only).
+    bflat = on_local(lambda t: torch.linalg.solve_triangular(
+        c.to(dev, dtype), t, upper=False), yflat)
+    g = gram(bflat, bflat).detach().to("cpu", torch.float64)
     sig2, v = torch.linalg.eigh(0.5 * (g + g.T))  # ascending
     sig2 = torch.clamp(torch.flip(sig2, (0,)), min=0.0)  # descending
     v = torch.flip(v, (1,))
@@ -75,15 +98,22 @@ def nystrom_preconditioner(
     sig_inv = torch.where(sig2 > 0, 1.0 / torch.sqrt(torch.where(sig2 > 0, sig2,
                                                                  torch.ones_like(sig2))),
                           torch.zeros_like(sig2))
-    u = ((v * sig_inv[None, :]).T.to(dev, dtype) @ bflat).reshape((rank,) + shape)
+    u = on_local(lambda t: (v * sig_inv[None, :]).T.to(dev, dtype) @ t,
+                 bflat).reshape((rank,) + shape)
     # The floor keeps P SPD at mu = 0 with a rank-deficient sketch.
     mu_v = max(float(mu), eps * max(float(lam_hat[0]), 1.0))
     scale = float(lam_hat[-1]) + mu_v
     ratio = (scale / (lam_hat + mu_v)).to(dev, dtype)
     lam_hat = lam_hat.to(dev, dtype)
     uflat = u.reshape(rank, -1)
+    placed = {}
 
     def apply(rvec: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(rvec):
+            u_r = per_mesh(placed, rvec.device_mesh,
+                           lambda _: u if is_dtensor(u) else shard_rows_like(u, rvec))
+            cu = row_contract(u_r, rvec)
+            return rvec + row_combine(ratio * cu - cu, u_r)
         cu = uflat @ rvec.reshape(-1)
         return rvec + ((ratio * cu - cu) @ uflat).reshape(rvec.shape)
 

@@ -10,6 +10,12 @@ equations, as JAX's ``jax.vmap`` does, here as batched torch operations on
 the target device (``torch.linalg.solve_ex``: no device read to check the
 factorisation). M comes back as the port's ``ELLMatrix``; applying it is one
 ``ell_spmv``.
+
+On a row-sharded v (a ``[Shard(0)]`` DTensor) an application is one
+all-gather of v and the rank's own rows of M (cut once per mesh): M's
+pattern is arbitrary, so a row of M v may read any entry of v, and
+gmres_tpu's GSPMD gathers v for the same reason. That all-gather is the
+only collective of an application.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from gmres_tpu_torch.ops.blas import is_dtensor, per_mesh
 from gmres_tpu_torch.ops.sparse import CSRMatrix, ELLMatrix, ell_spmv
 
 
@@ -153,8 +161,36 @@ def spai_preconditioner(
     """SPAI as a preconditioner: v ↦ M v, one ELL SpMV over v's flat length
     (the arguments of ``gmres_tpu.spai_preconditioner``)."""
     m = spai_matrix(a, reg=reg, chunk=chunk)
+    own_rows = {}
 
     def apply(v: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(v):
+            return sharded(v)
         return ell_spmv(m, v.reshape(-1)).reshape(v.shape)
+
+    def sharded(v):
+        from torch.distributed.tensor import DTensor, Shard
+
+        mesh, places = v.device_mesh, tuple(v.placements)
+        if mesh.ndim != 1 or places != (Shard(0),):
+            raise NotImplementedError(
+                f"spai_preconditioner on a DTensor with placements {places}: "
+                "it takes a row-sharded v ([Shard(0)] on a 1-D mesh; ROADMAP "
+                "queue 1, item 8.7)")
+        local = v.to_local().contiguous()
+
+        def rows(mesh):
+            lo = mesh.get_coordinate()[0] * local.numel()
+            hi = lo + local.numel()
+            return ELLMatrix(data=m.data[lo:hi], cols=m.cols[lo:hi],
+                             shape=(hi - lo, m.shape[1]))
+
+        # The application's one all-gather (explicit, so a one-rank mesh
+        # issues it too).
+        whole = torch.empty(local.numel() * mesh.size(), dtype=local.dtype,
+                            device=local.device)
+        dist.all_gather_into_tensor(whole, local.reshape(-1), group=mesh.get_group())
+        y = ell_spmv(per_mesh(own_rows, mesh, rows), whole).reshape(local.shape)
+        return DTensor.from_local(y, mesh, places, run_check=False)
 
     return apply

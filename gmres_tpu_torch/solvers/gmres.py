@@ -49,7 +49,6 @@ import torch
 
 from gmres_tpu_torch.ops import householder as wy
 from gmres_tpu_torch.ops.blas import (
-    as_plain,
     gram,
     row_combine,
     row_contract,
@@ -455,8 +454,7 @@ def _gmres_mgsr(
     )
 
     if compute_v_err and v_basis is not None:
-        vf = v_basis.reshape(m + 1, -1)
-        gram_v = as_plain(vf.conj() @ vf.T).to(dtype)  # Hermitian Gram
+        gram_v = gram(v_basis.conj(), v_basis).to(dtype)  # Hermitian Gram
         v_err = _v_err_mgsr(gram_v, n_out, rdtype)
     else:
         v_err = torch.zeros((m + 1,), dtype=rdtype, device=dev)

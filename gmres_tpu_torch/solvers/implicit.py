@@ -16,7 +16,9 @@ the θ pullback is ``torch.autograd.grad`` of A(θ)(x) against −y. On a CUDA
 stencil both reach K1's rules (``ops/stencil.py:Stencil5Grid``): Aᵀ is one
 K1 launch with mirrored coefficients, and a coefficient built from θ gets
 its gradient Σ ȳ·shiftₖ(x). Any other kernel under A raises there, for a
-tracked operand or a tracked coefficient alike.
+tracked operand or a tracked coefficient alike. On a sharded b (a DTensor)
+the adjoint solve runs on the mesh, and a plain θ's gradient, which the
+pullback leaves as per-rank partial sums, is all-reduced once.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Callable, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from gmres_tpu_torch.ops.blas import is_dtensor
 from gmres_tpu_torch.solvers.qmr import derived_transpose
 
 
@@ -61,7 +64,13 @@ class _ImplicitSolve(torch.autograd.Function):
                 got = torch.autograd.grad(ax, [tracked[i] for i in want],
                                           grad_outputs=-y, allow_unused=True)
             for i, g in zip(want, got):
-                grads[i] = torch.zeros_like(leaves[i]) if g is None else g
+                if g is None:
+                    g = torch.zeros_like(leaves[i])
+                elif is_dtensor(g) and not is_dtensor(leaves[i]):
+                    # A plain θ used against sharded vectors: its gradient
+                    # comes back as per-rank partial sums; one all-reduce.
+                    g = g.full_tensor()
+                grads[i] = g
         b_grad = y if ctx.needs_input_grad[5] else None
         return (None, None, None, None, None, b_grad, *grads)
 

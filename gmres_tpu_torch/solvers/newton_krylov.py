@@ -15,7 +15,10 @@ evaluated again with every J·v. For a stencil residual (the Bratu residual,
 ``models/bratu.py``) on a CUDA tensor that is two K1 launches a J·v — the
 primal, and the tangent through K1's jvp rule — and one more ``exp``, where
 gmres_tpu's tangent map is one fused stencil. F is a user callable, so no
-tangent map is cached. ``NewtonResult.jv_products`` counts the J·v.
+tangent map is cached. ``NewtonResult.jv_products`` counts the J·v. On a
+sharded x (a DTensor) J·v is ``parallel/halo.py:blockwise_jvp``: the jvp
+runs on each rank's block, its stencils on their halo forms (two exchanges
+and, on the card, two K1 halo-form launches a J·v for the Bratu residual).
 
 Host reads: the Newton loop reads ‖F‖ once a trial point (and once at the
 start); the inner solves read what their own ``host_syncs`` count.
@@ -29,7 +32,7 @@ from typing import Callable, Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import tree_norm
+from gmres_tpu_torch.ops.blas import is_dtensor, tree_norm
 from gmres_tpu_torch.solvers.cg import _in_dtype
 from gmres_tpu_torch.types import NewtonResult, Preconditioner, SolverStatus
 
@@ -123,6 +126,10 @@ def newton_krylov(
 
         def j_apply(v, x_lin=x_lin):
             jv[0] += 1
+            if is_dtensor(x_lin):
+                from gmres_tpu_torch.parallel.halo import blockwise_jvp
+
+                return blockwise_jvp(F, x_lin, v.to(dtype)).to(v.dtype)
             _, t = torch.func.jvp(F, (x_lin,), (v.to(dtype),))
             return t.to(v.dtype)
 

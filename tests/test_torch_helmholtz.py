@@ -133,20 +133,32 @@ def test_split_csl_cycle_is_the_complex_cycle():
 
 
 def test_cycles_refuse_what_they_do_not_take(tmp_path):
-    """The CSL cycle still refuses the distributed options (ROADMAP item
-    8.3b); the SPD cycle, which refused them until the distributed slice,
-    takes them: on a one-rank mesh its mesh= cycle is the plain cycle within
-    1e-13 (tests/test_torch_dist.py runs 2 and 4 ranks)."""
+    """Every Helmholtz cycle takes the distributed options now: the SPD
+    cycle since the distributed slice, the CSL cycle (both layouts) since
+    ROADMAP item 8.3b. On a one-rank mesh each mesh= cycle is the plain
+    cycle within 1e-13 (tests/test_torch_dist.py and
+    tests/test_torch_dist_models.py run 2 and 4 ranks); replicate_below
+    without a mesh is ignored, as in gmres_tpu. What they still refuse: a
+    negative SPD shift, an unknown layout, a size the levels do not
+    divide."""
     kh2 = 10.0 * gt.helmholtz_lambda_min(32)
     r = to_torch(seeded(10, (32, 32)))
+    z = r + 1j * to_torch(seeded(11, (32, 32)))
     plain = tt.helmholtz_shifted_laplacian_preconditioner(32, kh2)
     with one_rank_mesh(tmp_path) as mesh:
         dm = tt.helmholtz_shifted_laplacian_preconditioner(32, kh2, mesh=mesh)
         assert rel_err(dm(tt.shard_grid_vector(r, mesh)).full_tensor(), plain(r)) <= 1e-13
-        with pytest.raises(NotImplementedError, match="item 8.3"):
-            tt.csl_multigrid_preconditioner(32, 0.1, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 8.3"):
-        tt.csl_multigrid_preconditioner(32, 0.1, replicate_below=8)
+        for layout, v, dim in (("complex", z, 0), ("split", tt.complex_to_split(z), 1)):
+            from torch.distributed.tensor import Shard, distribute_tensor
+
+            csl = tt.csl_multigrid_preconditioner(32, 0.1, mesh=mesh, replicate_below=32,
+                                                  layout=layout)
+            assert csl.replicate_from == 1
+            got = csl(distribute_tensor(v, mesh, [Shard(dim)])).full_tensor()
+            want = tt.csl_multigrid_preconditioner(32, 0.1, layout=layout)(v)
+            assert rel_err(got, want) <= 1e-13
+    ignored = tt.csl_multigrid_preconditioner(32, 0.1, replicate_below=8)
+    assert rel_err(ignored(z), tt.csl_multigrid_preconditioner(32, 0.1)(z)) == 0
     with pytest.raises(ValueError, match="shift"):
         tt.helmholtz_shifted_laplacian_preconditioner(32, 0.1, shift=-1.0)
     with pytest.raises(ValueError, match="layout"):

@@ -1590,3 +1590,47 @@ def test_mesh_cycle_runs_on_the_kernels(cuda_device, tmp_path, cycle):
             assert np.linalg.norm(b_np - np_poisson(xs)) / np.linalg.norm(b_np) < 1e-9
     finally:
         dist.destroy_process_group()
+
+
+def test_plain_operator_on_a_cuda_dtensor(cuda_device, tmp_path):
+    """poisson_operator(n) on a one-rank CUDA DTensor (an NCCL group made
+    here) takes the DTensor route: one halo exchange and one launch of K1's
+    halo form, equal to the plain tensor's K1 full-grid result; the split
+    operator on a [Shard(1)] stack is one exchange and two halo-form
+    launches. stencil5_cuda and chebk_cuda handed the DTensor raise
+    TypeError before any launch (its data_ptr() is 0)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    n = 256
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = tt.solver_mesh(1)
+        x = to_torch(seeded(76, (n, n)), cuda_device)
+        cases = (
+            (tt.poisson_operator(n), x, 0, 1),
+            (tt.helmholtz_split_operator(n, 0.3, damping=0.2),
+             to_torch(seeded(77, (2, n, n)), cuda_device), 1, 2),
+        )
+        for op, v, dim, launches in cases:
+            halo_exchange.exchanges = 0
+            tst.stencil_5pt_pallas_halo.launches = 0
+            before = tst.stencil5_cuda.launches
+            y = op(distribute_tensor(v, mesh, [Shard(dim)]))
+            torch.cuda.synchronize()
+            assert halo_exchange.exchanges == 1
+            assert tst.stencil_5pt_pallas_halo.launches == launches
+            assert tst.stencil5_cuda.launches == before + launches
+            assert torch.equal(y.full_tensor(), op(v))
+        xs = tt.shard_grid_vector(x, mesh)
+        before = tst.stencil5_cuda.launches, tfu.chebk_cuda.launches
+        with pytest.raises(TypeError, match="halo route"):
+            tst.stencil5_cuda(xs)
+        with pytest.raises(TypeError, match="8.6b"):
+            tfu.chebk_cuda(xs, 1.0, [0.0, 1.0])
+        assert (tst.stencil5_cuda.launches, tfu.chebk_cuda.launches) == before
+    finally:
+        dist.destroy_process_group()

@@ -7,8 +7,9 @@ operations in the same order); the spectral bounds are the same floats.
 One V-cycle application within 1e-13 of JAX's relative to max|z|; CG with
 the cycle at 16³ (the grid of tests/test_poisson3d.py:73-83 that a CI box
 runs in seconds): iterations and status equal, x within 1e-10 relative;
-``levels`` and ``fine_equiv_sweeps`` equal. ``mesh=`` raises
-NotImplementedError (the distributed cycle is ROADMAP item 8.3).
+``levels`` and ``fine_equiv_sweeps`` equal. The ``mesh=`` cycle on a
+one-rank mesh is the plain cycle (2 and 4 ranks:
+tests/test_torch_dist_models.py).
 """
 
 import jax.numpy as jnp
@@ -68,10 +69,22 @@ def test_cg_with_the_cycle_matches_jax():
     np.testing.assert_allclose(to_np(rt.x), 1.0, atol=1e-8)
 
 
-def test_distributed_cycle_and_bad_sizes_raise():
-    with pytest.raises(NotImplementedError, match="item 8.3"):
-        tt.poisson3d_multigrid_preconditioner(16, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8.3"):
-        tt.poisson3d_multigrid_preconditioner(16, replicate_below=8)
+def test_distributed_cycle_and_bad_sizes_raise(tmp_path):
+    """The distributed cycle (ROADMAP item 8.3b, once NotImplementedError):
+    on a one-rank mesh, with the 8³ level replicated, one application is
+    the plain cycle within 1e-13 relative; replicate_below without a mesh is
+    ignored, as in gmres_tpu. A size the levels do not divide raises."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from tests.torch_parity import one_rank_mesh
+
+    r = to_torch(np.random.default_rng(6).standard_normal((16, 16, 16)))
+    plain = tt.poisson3d_multigrid_preconditioner(16)(r)
+    with one_rank_mesh(str(tmp_path)) as mesh:
+        dm = tt.poisson3d_multigrid_preconditioner(16, mesh=mesh, replicate_below=16)
+        assert (dm.replicate_from, dm.levels) == (1, 2)
+        assert rel_err(dm(distribute_tensor(r, mesh, [Shard(0)])).full_tensor(), plain) <= 1e-13
+    ignored = tt.poisson3d_multigrid_preconditioner(16, replicate_below=8)
+    assert rel_err(ignored(r), plain) == 0
     with pytest.raises(ValueError, match="not divisible"):
         tt.poisson3d_multigrid_preconditioner(12, levels=4)
