@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase20            # the build and phase 20 alone
     python3 chip_smoke.py --phase21            # the build and phase 21 alone
     python3 chip_smoke.py --phase22            # the build and phase 22 alone
+    python3 chip_smoke.py --phase23            # the build and phase 23 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -16,7 +17,7 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase17`` to ``--phase22`` modes build the kernels and run that
+The ``--phase17`` to ``--phase23`` modes build the kernels and run that
 phase alone, with its checks. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
@@ -324,8 +325,30 @@ phase alone, with its checks. Phases of the smoke run:
     nothing but all-gathers and all-reduces (CommDebugMode over the
     warm-up), and the wall of one timed solve.
 
-Phases 12–14 share one NCCL process group made by the script; phases 21
-and 22 make one each. Any failure
+23. The eigensolvers, matrix functions, time steppers and ``mesh=None``
+    cycles, and the sparse formats, on a sharded b, on a fourth one-rank
+    NCCL group: LOBPCG with the plain Poisson cycle at 1024², k 4 (block
+    [Shard(1)]); Krylov–Schur on a complex and on a real basis and subspace
+    iteration at convection–diffusion 256², γ (0.02, 0.01); SLQ at 512²;
+    expm_multiply, exponential Euler and θ-steps (GCRO-DR with the
+    σ-shifted ``mesh=None`` convdiff cycle) at 256², 5 steps; one
+    application of the Poisson, convection–diffusion and Helmholtz SPD
+    ``mesh=None`` cycles on a sharded r (the distributed cycle on its mesh);
+    CG with cbpr2 on a sharded HYB at 1000² (K3 on the rank's rows), CSR, COO and ELL
+    SpMV at 512² (one all-gather of x), DIA at 2048² f32 and f64 (K3, one
+    exchange) and a BSR of 128² blocks (K4 on the rank's block rows). Each
+    row beside its twin on plain tensors: counts equal, the largest
+    difference from the twin under the row's bound, the launches of K1 (and
+    its halo form), K1rr, K1cr, K2, K3 and K4, the explicit all-gathers and
+    exchanges an application, the walls. Then K3 and K4 as the sharded
+    route launches them for an interior rank of four (shifted offsets, a
+    window of block columns), against their plain versions and the whole
+    matrix's rows; then the ``spmv`` program at its defaults (K1, K3 and K4
+    rows beside the plain ones) and ``scale`` at its 2-D defaults (300² to
+    4096²) and its ``--dim 3`` arm at 128³.
+
+Phases 12–14 share one NCCL process group made by the script; phases 21,
+22 and 23 make one each. Any failure
 raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
 """
@@ -5626,6 +5649,407 @@ def phase_models_sharded(gt_torch, dev, workdir):
     return launches, twins, rows
 
 
+# Phase 23: the eigensolvers, matrix functions, time steppers and mesh=None
+# cycles (ROADMAP item 8.6b) and the sparse formats (item 8.7) on a sharded b,
+# and the scale and spmv programs. Depth cuts: 5 time steps (phase 20: 50).
+P23_EVOLVE_STEPS = 5
+P23_HYB_N = 1000              # CG on a row-sharded HYB (phase 8's cg 1000²)
+P23_SPMV_N = 512              # CSR, COO, ELL (the spmv program's default)
+P23_DIA_N = 2048              # DIA f32 and f64 (phase 7's SpMV 2048²)
+P23_BSR = (16, 128)           # block rows, block size (phase 7's BSR)
+P23_SCALE_3D = ["scale", "--dim", "3", "--grids", "128"]
+P23_SUBSPACE_GAP = 1e-8       # CholQR2 against LAPACK's QR, unconverged Ritz values
+
+
+@contextlib.contextmanager
+def counted_all_gathers(calls):
+    """Count the explicit all-gathers (torch.distributed.all_gather_into_tensor:
+    the cycles' gather at their first replicated level, the sparse formats'
+    gather of x) into calls["all-gathers"] while the block runs. On a one-rank
+    mesh DTensor elides its own collectives, so these are all there are."""
+    import torch.distributed as dist
+
+    original = dist.all_gather_into_tensor
+
+    def gather(*args, **kwargs):
+        calls["all-gathers"] += 1
+        return original(*args, **kwargs)
+
+    dist.all_gather_into_tensor = gather
+    try:
+        yield
+    finally:
+        dist.all_gather_into_tensor = original
+
+
+P23_KERNELS = ("K1", "K1 halo", "K1rr", "K1cr", "K2", "K3", "K4")
+
+
+def p23_counters(reset: bool = False) -> dict:
+    """p21_counters plus K3's and K4's launches."""
+    from gmres_tpu_torch.ops import sparse
+
+    if reset:
+        sparse.dia_spmv_cuda.launches = 0
+        sparse.bsr_spmv_cuda.launches = 0
+    out = p21_counters(reset)
+    out["K3"] = sparse.dia_spmv_cuda.launches
+    out["K4"] = sparse.bsr_spmv_cuda.launches
+    return out
+
+
+def p23_row(label, sharded, plain, counts, diff, bound, *, needs=(), gathers=None,
+            exchanges=None, ops=None):
+    """One row of phase 23: the twin `plain()` on plain tensors, then
+    `sharded()` on the sharded b, each once and timed to a synchronisation,
+    the launch counts set to 0 just before each and read just after (the
+    twin's kept apart). `ops` names the row's counted applications
+    ({name: calls dict}); the explicit all-gathers and the halo exchanges are
+    read per application of the first. Held: `counts(res)` equal to the
+    twin's, `diff(res, twin)` (the largest difference from the twin) under
+    `bound`, every kernel in `needs` launched, and where given `gathers` and
+    `exchanges` an application. Returns the row's record."""
+    import torch
+
+    tag = f"phase 23 {label}"
+    for calls in (ops or {}).values():
+        calls["n"] = 0
+    p23_counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin = plain()
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    twin_count = p23_counters()
+    for calls in (ops or {}).values():
+        calls["n"] = 0
+    calls = {"all-gathers": 0}
+    p23_counters(reset=True)
+    with counted_all_gathers(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded()
+        torch.cuda.synchronize()
+        t_row = time.perf_counter() - t0
+    count = p23_counters()
+    applied = {k: c["n"] for k, c in (ops or {}).items()}
+    first = next(iter(applied.values()), 0) or 1
+    per = {"all-gathers": calls["all-gathers"] / first, "exchanges": count["exchanges"] / first}
+    got, want = counts(res), counts(twin)
+    gap = float(diff(res, twin))
+    print(f"phase 23: {label}: counts {got} (twin on plain tensors {want}); wall {t_row:.4f} s "
+          f"(twin {t_plain:.4f} s); launches " + ", ".join(f"{k} {count[k]}" for k in P23_KERNELS)
+          + " (twin " + ", ".join(f"{k} {twin_count[k]}" for k in P23_KERNELS) + f"); "
+          f"applications {applied}; an application {per['all-gathers']:g} all-gathers, "
+          f"{per['exchanges']:g} exchanges; largest difference from the twin {gap:.3e} "
+          f"(held to {bound:g})", flush=True)
+    require(got == want, f"{tag}: counts {got}, twin {want}")
+    require(gap <= bound, f"{tag}: {gap} from the twin")
+    for k in needs:
+        require(count[k] > 0, f"{tag}: {k} was not launched ({count})")
+    require(count["K1 halo"] <= count["K1"], f"{tag}: launches {count}")
+    if gathers is not None:
+        require(per["all-gathers"] == gathers, f"{tag}: {per['all-gathers']} all-gathers "
+                f"an application, {gathers} expected")
+    if exchanges is not None:
+        require(per["exchanges"] == exchanges, f"{tag}: {per['exchanges']} exchanges an "
+                f"application, {exchanges} expected")
+    return {"label": label, "counts": got, "twin_counts": want, "wall_s": t_row,
+            "twin_wall_s": t_plain, "count": count, "twin_count": twin_count,
+            "applications": applied, "per_application": per, "max_diff": gap}
+
+
+def p23_spectral_rows(gt_torch, dev, mesh):
+    """The 8.6b rows at the defaults phase 20 runs (LOBPCG + the plain Poisson
+    cycle 1024², k 4; Krylov–Schur complex and real and subspace iteration at
+    convdiff 256², γ EIG_MILD_GAMMA; SLQ 512²), expm_multiply, exponential
+    Euler and θ-steps (GCRO-DR with the σ-shifted convdiff cycle) at 256²,
+    and one application of each mesh=None cycle on a sharded r."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+
+    def shard(t, dim=0):
+        from torch.distributed.tensor import Shard, distribute_tensor
+
+        return distribute_tensor(t, mesh, [Shard(dim)])
+
+    def rel(a, b):
+        a, b = whole(a).detach().cpu().numpy(), whole(b).detach().cpu().numpy()
+        return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
+
+    def eig_gap(res, twin):
+        lam, ref = (cli._keyed(r.eigenvalues.cpu().numpy()) for r in (res, twin))
+        return np.max(np.abs(lam - ref)) / np.max(np.abs(ref))
+
+    def iters(res):
+        return (res.iterations, res.status)
+
+    rows = []
+    n = LOBPCG_BIG_N
+    a_calls, m_calls = {"n": 0}, {"n": 0}
+    op = counted(gt_torch.poisson_operator(n), a_calls, "n")
+    m_inv = counted(gt_torch.poisson_multigrid_preconditioner(n), m_calls, "n")
+    x0 = cli._program_normal((EIG_K, n, n), torch.float64, dev)
+    rtol = JAX_PHASE20["lobpcg1024"][0]
+
+    def lobpcg(x):
+        return lambda: gt_torch.lobpcg(op, x, tol=0.0, rtol=rtol, max_iterations=200, M=m_inv)
+
+    rows.append(p23_row(f"lobpcg poisson {n}x{n} k {EIG_K} + the mesh=None cycle, block "
+                        "[Shard(1)]", lobpcg(shard(x0, 1)), lobpcg(x0), iters, eig_gap, 1e-10,
+                        needs=("K1", "K1 halo"), gathers=0, ops={"M": m_calls, "A": a_calls}))
+    n, g = EIG_CD_N, EIG_MILD_GAMMA
+    a_calls = {"n": 0}
+    cd = counted(gt_torch.convection_diffusion_operator(n, *g), a_calls, "n")
+    probe = cli._program_normal((n, n), torch.float64, dev)
+    for name, fn in (("arnoldi", gt_torch.arnoldi_eigs), ("ks_real", gt_torch.arnoldi_eigs_real)):
+        def ks(p, fn=fn):
+            return lambda: fn(cd, p, nev=EIG_K, steps=EIG_STEPS, which="LM", tol=1e-8,
+                              max_restarts=200)
+
+        rows.append(p23_row(f"{name} convdiff {n}x{n} gamma {g} k {EIG_K}, probe [Shard(0)]",
+                            ks(shard(probe)), ks(probe), iters, eig_gap, 1e-10,
+                            needs=("K1", "K1 halo"), gathers=0, exchanges=1,
+                            ops={"A": a_calls}))
+    ones = torch.ones((n, n), dtype=torch.float64, device=dev)
+
+    def subspace(p):
+        return lambda: gt_torch.subspace_eigs(cd, p, nev=EIG_K, guard=6, iters=200, tol=1e-8)
+
+    rows.append(p23_row(f"subspace convdiff {n}x{n} gamma {g} k {EIG_K}, probe [Shard(0)] "
+                        "(CholQR2; the twin LAPACK's QR)", subspace(shard(ones)),
+                        subspace(ones), iters, eig_gap, P23_SUBSPACE_GAP,
+                        needs=("K1", "K1 halo"), gathers=0, exchanges=1, ops={"A": a_calls}))
+    n = SLQ_N
+    a_calls = {"n": 0}
+    op = counted(gt_torch.poisson_operator(n), a_calls, "n")
+    x_like = torch.zeros((n, n), dtype=torch.float64, device=dev)
+
+    def slq(x):
+        return lambda: gt_torch.trace_funm(op, torch.log, x, n_probes=SLQ_PROBES[0],
+                                           steps=SLQ_STEPS, key=0)
+
+    rows.append(p23_row(f"slq poisson {n}x{n} probes {SLQ_PROBES[0]}, x_like [Shard(0)]",
+                        slq(shard(x_like)), slq(x_like), lambda r: (r.host_syncs,),
+                        lambda r, t: abs(float(r.value) - float(t.value)) / abs(float(t.value)),
+                        1e-12, needs=("K1", "K1 halo"), gathers=0, exchanges=1,
+                        ops={"A": a_calls}))
+    n = EVOLVE_N
+    a_calls = {"n": 0}
+    heat = counted(gt_torch.poisson_operator(n), a_calls, "n")
+    u0 = torch.as_tensor(np.random.default_rng(0).standard_normal((n, n))).to(dev)
+
+    def expm(u):
+        return lambda: gt_torch.expm_multiply(heat, u, 1.0, steps=30)
+
+    rows.append(p23_row(f"expm_multiply poisson {n}x{n} t 1, b [Shard(0)]", expm(shard(u0)),
+                        expm(u0), lambda r: (r.host_syncs,), lambda r, t: rel(r.y, t.y), 1e-12,
+                        needs=("K1", "K1 halo"), gathers=0, exchanges=1, ops={"A": a_calls}))
+
+    def exp_euler(u):
+        return lambda: gt_torch.exponential_evolve(heat, u, dt=1.0, n_steps=P23_EVOLVE_STEPS,
+                                                   steps=30)
+
+    rows.append(p23_row(f"exponential_evolve heat {n}x{n} {P23_EVOLVE_STEPS} steps, u0 "
+                        "[Shard(0)]", exp_euler(shard(u0)), exp_euler(u0),
+                        lambda r: (r.host_syncs,), lambda r, t: rel(r.u, t.u), 1e-12,
+                        needs=("K1", "K1 halo"), gathers=0, exchanges=1, ops={"A": a_calls}))
+    a_calls, m_calls = {"n": 0}, {"n": 0}
+    cd = counted(gt_torch.convection_diffusion_operator(n, 2.0, 1.0), a_calls, "n")
+    cyc = gt_torch.convection_diffusion_multigrid_preconditioner(n, 2.0, 1.0, shift=2.0)
+    m_inv = counted(lambda r: cyc(r) / 0.5, m_calls, "n")
+
+    def theta(u):
+        return lambda: gt_torch.theta_evolve(cd, u, dt=1.0, n_steps=P23_EVOLVE_STEPS, theta=0.5,
+                                             solver="gcrodr", tol=1e-9, restart=40, recycle_k=10,
+                                             max_restarts=100, M=m_inv)
+
+    rows.append(p23_row(f"theta_evolve convdiff {n}x{n} gcrodr + the mesh=None shifted cycle, "
+                        f"{P23_EVOLVE_STEPS} steps, u0 [Shard(0)]", theta(shard(u0)), theta(u0),
+                        lambda r: (tuple(r.iterations.tolist()), r.status),
+                        lambda r, t: rel(r.u, t.u), 1e-9, needs=("K1", "K1 halo"), gathers=0,
+                        ops={"M": m_calls, "A": a_calls}))
+    # Each mesh=None cycle on a sharded r: the distributed cycle on r's mesh
+    # (every level sharded on one rank, 8 rows a rank being the default).
+    n = 1024
+    r = torch.as_tensor(np.random.default_rng(1).standard_normal((n, n))).to(dev)
+    kh2 = 10 * gt_torch.helmholtz_lambda_min(n)
+    for name, m in (("poisson", gt_torch.poisson_multigrid_preconditioner(n)),
+                    ("convdiff auto f32", gt_torch.convection_diffusion_multigrid_preconditioner(
+                        n, 0.4, 0.2, smoother="auto", internal_dtype=torch.float32)),
+                    ("helmholtz spd", gt_torch.helmholtz_shifted_laplacian_preconditioner(
+                        n, kh2))):
+        m_calls = {"n": 0}
+        mc = counted(m, m_calls, "n")
+        rows.append(p23_row(f"mesh=None {name} cycle {n}x{n}, r [Shard(0)]",
+                            lambda mc=mc: mc(shard(r)), lambda m=m: m(r), lambda z: tuple(z.shape),
+                            lambda z, t: rel(z, t), 1e-6 if "f32" in name else 1e-13,
+                            needs=("K1 halo",), gathers=0, ops={"M": m_calls}))
+    return rows
+
+
+def p23_sparse_rows(gt_torch, dev, mesh):
+    """The 8.7 rows: CG with cbpr2 on a row-sharded HYB at 1000² (phase 8's
+    cg 1000²: A and the A inside M each one K3 launch); CSR, COO and ELL SpMV
+    at 512² (one all-gather of x); DIA at 2048² f32 and f64 (K3 on the rank's
+    rows, one exchange); BSR of 128² blocks (K4 on the rank's block rows, one
+    exchange)."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.ops.sparse import csr_row_ids
+
+    def shard(t):
+        from torch.distributed.tensor import Shard, distribute_tensor
+
+        return distribute_tensor(t, mesh, [Shard(0)])
+
+    def rel(a, b):
+        a, b = whole(a).detach().cpu().numpy(), whole(b).detach().cpu().numpy()
+        return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
+
+    rows = []
+    n = P23_HYB_N
+    hyb = gt_torch.csr_to_hyb(gt_torch.poisson_csr(n, device=dev))
+    a_calls = {"n": 0}
+    op = counted(gt_torch.sparse_operator(hyb), a_calls, "n")
+    m_inv = gt_torch.chebyshev_preconditioner(op, *REF_EIG)
+    b = gt_torch.sparse_operator(hyb)(torch.ones(n * n, dtype=torch.float64, device=dev))
+
+    def cg(rhs):
+        return lambda: gt_torch.cg(op, rhs, tol=CG_TOL, M=m_inv)
+
+    rows.append(p23_row(f"cg HYB {n}x{n} + cbpr2 (phase 8's), b [Shard(0)] (K3 on the "
+                        "rank's rows)", cg(shard(b)),
+                        cg(b), lambda r: (r.iterations, r.status), lambda r, t: rel(r.x, t.x),
+                        1e-10, needs=("K3",), gathers=0, exchanges=1, ops={"A": a_calls}))
+    n = P23_SPMV_N
+    csr = gt_torch.poisson_csr(n, device=dev)
+    mats = {"csr": csr, "coo": gt_torch.COOMatrix(
+        data=csr.data, row=csr_row_ids(csr), col=csr.indices, shape=csr.shape),
+        "ell": gt_torch.csr_to_ell(csr)}
+    dia = gt_torch.poisson_dia(P23_DIA_N, device=dev)
+    mats["dia f64"] = dia
+    mats["dia f32"] = cast_dia(gt_torch, dia, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nbr, bs = P23_BSR
+    mats["bsr f32"] = block_tridiagonal(gt_torch, nbr, bs, torch.float32, dev, gen)
+    for name, a in mats.items():
+        a_calls = {"n": 0}
+        op = counted(gt_torch.sparse_operator(a), a_calls, "n")
+        dt = a.data.dtype
+        x = torch.randn(a.shape[1], generator=gen, device=dev, dtype=torch.float64).to(dt)
+        band = not name.startswith(("csr", "coo", "ell"))
+        kernel = {"dia": "K3", "bsr": "K4"}.get(name[:3])
+        rows.append(p23_row(
+            f"spmv {name} {a.shape[0]} rows, x [Shard(0)]", lambda op=op, x=x: op(shard(x)),
+            lambda op=op, x=x: op(x), lambda y: tuple(y.shape), rel,
+            0.0 if name.startswith("dia") else (1e-5 if dt == torch.float32 else 1e-12),
+            needs=(kernel,) if kernel else (), gathers=0 if band else 1,
+            exchanges=1 if band else 0, ops={"A": a_calls}))
+    return rows
+
+
+def p23_rank_blocks(gt_torch, dev):
+    """K3 and K4 as the sharded route launches them for an interior rank
+    (rank 1 of 4, made without a group): K3 on the 2048² DIA's rows with its
+    x widened by h = 2048 entries each side and the offsets shifted by h,
+    against the plain rows version (bitwise) and the whole matrix's K3 rows;
+    K4 on block rows 4–7 of the BSR with the window of block columns 3–8,
+    against the einsum twin on the same block within §6 row 11's 1e-5."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.ops import sparse
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    for dt in (torch.float32, torch.float64):
+        a = cast_dia(gt_torch, gt_torch.poisson_dia(P23_DIA_N, device=dev), dt)
+        n, h = a.shape[0], P23_DIA_N
+        m = lo = n // 4
+        local = sparse.DIAMatrix(data=a.data[:, lo:lo + m].contiguous(),
+                                 offsets=tuple(o + h for o in a.offsets), shape=(m, m + 2 * h))
+        x = torch.randn(n, generator=gen, device=dev, dtype=torch.float64).to(dt)
+        xw = x[lo - h:lo + m + h].contiguous()
+        y = sparse.dia_spmv_pallas(local, xw)
+        errs = [float((y - sparse.dia_spmv(local, xw)).abs().max()),
+                float((y - sparse.dia_spmv_pallas(a, x)[lo:lo + m]).abs().max())]
+        print(f"phase 23: K3 on a rank block {local.shape} {dt}, offsets {local.offsets}: "
+              f"max |K3 − plain rows| {errs[0]:.3e}, max |K3 − whole matrix's rows| "
+              f"{errs[1]:.3e}", flush=True)
+        require(errs == [0.0, 0.0], f"phase 23: K3 on a rank block {dt}: {errs}")
+        out[f"K3 {dt}"] = max(errs)
+    nbr, bs = P23_BSR
+    a = block_tridiagonal(gt_torch, nbr, bs, torch.float32, dev, gen)
+    local = sparse.BSRMatrix(data=a.data[4:8].contiguous(),
+                             block_cols=(a.block_cols[4:8] - 3).contiguous(),
+                             shape=(4 * bs, 6 * bs))
+    x = torch.randn(nbr * bs, generator=gen, device=dev, dtype=torch.float32)
+    xw = x[3 * bs:9 * bs].contiguous()
+    y = sparse.bsr_spmv_pallas(local, xw)
+    ref = sparse.bsr_spmv(local, xw)
+    err = float((y - ref).abs().max())
+    rel_k4 = err / float(ref.abs().max())
+    whole_err = float((y - sparse.bsr_spmv_pallas(a, x)[4 * bs:8 * bs]).abs().max())
+    print(f"phase 23: K4 on block rows 4-7 of {nbr}x{bs}² f32: max |K4 − einsum| {err:.3e} "
+          f"({rel_k4:.2e} of max|y|), max |K4 − whole matrix's rows| {whole_err:.3e}",
+          flush=True)
+    require(rel_k4 < 1e-5 and whole_err == 0.0, f"phase 23: K4 on a rank block: {rel_k4}, "
+            f"{whole_err}")
+    out["K4 float32"] = err
+    return out
+
+
+def p23_programs(dev, workdir):
+    """The spmv program at its defaults, and scale at its 2-D defaults and its
+    --dim 3 arm at 128³."""
+    from gmres_tpu_torch.benchmarks import cli
+
+    rows = {}
+    jsonl = os.path.join(workdir, "spmv.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    t0 = time.perf_counter()
+    cli.main(["spmv", "--jsonl", jsonl])
+    with open(jsonl) as f:
+        spmv = [json.loads(line) for line in f]
+    names = [r["name"] for r in spmv]
+    print(f"phase 23: python -m gmres_tpu_torch.benchmarks spmv: "
+          f"{time.perf_counter() - t0:.1f} s, rows " + "; ".join(
+              f"{r['name']} {r['wall_s'] * 1e6:.2f} us {r['gnnz_per_s']:.2f} Gnnz/s"
+              for r in spmv), flush=True)
+    for k in ("stencil-k1-f32", "dia-k3-f32", "csr2hyb-k3-f32", "bsr-k4-f32", "bsr-einsum-f32"):
+        require(k in names, f"phase 23: spmv has no row {k}")
+    rows["spmv"] = spmv
+    rows["scale"] = program_rows(cli, ["scale"], workdir, phase="phase 23")
+    rows["scale 3d"] = program_rows(cli, P23_SCALE_3D, workdir, phase="phase 23")
+    return rows
+
+
+def phase_sharded_spectral_sparse(gt_torch, dev, workdir):
+    """Phase 23: the 8.6b and 8.7 rows on the one-rank NCCL group (made by the
+    caller), each beside its twin on plain tensors; K3 and K4 on rank blocks;
+    the spmv and scale programs. Returns the launches over the rows, those
+    over their twins, the rank-block errors, the rows and the programs'
+    rows."""
+    t_phase = time.perf_counter()
+    mesh = gt_torch.solver_mesh(1)
+    rows = p23_spectral_rows(gt_torch, dev, mesh) + p23_sparse_rows(gt_torch, dev, mesh)
+    launches, twins = ({k: sum(r[key][k] for r in rows) for k in rows[0][key]}
+                       for key in ("count", "twin_count"))
+    blocks = p23_rank_blocks(gt_torch, dev)
+    programs = p23_programs(dev, workdir)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 23: {seconds:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {launches[k]}" for k in P23_KERNELS)
+          + "; over their twins: " + ", ".join(f"{k} {twins[k]}" for k in P23_KERNELS),
+          flush=True)
+    return launches, twins, blocks, rows, programs
+
+
 def main() -> int:
     import torch
 
@@ -5697,6 +6121,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase22"]:
         with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
             phase_models_sharded(gt_torch, dev, workdir)
+        return 0
+    if sys.argv[1:2] == ["--phase23"]:
+        with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
+            phase_sharded_spectral_sparse(gt_torch, dev, workdir)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -5794,7 +6222,12 @@ def main() -> int:
         # Phase 22: the models, cycles and preconditioners on a sharded b.
         with one_rank_group(workdir, "rendezvous22"):
             p22, p22_twins, _ = phase_models_sharded(gt_torch, dev, workdir)
-    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_run:.1f} s", flush=True)
+        # Phase 23: the eigensolvers, matrix functions, time steppers and the
+        # sparse formats on a sharded b; the spmv and scale programs.
+        with one_rank_group(workdir, "rendezvous23"):
+            p23, p23_twins, rank_blocks, _, _ = phase_sharded_spectral_sparse(
+                gt_torch, dev, workdir)
+    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(rdma_records)
     records.update(cd_records)
@@ -5847,6 +6280,9 @@ def main() -> int:
     p21_twins_path = "mesh=None twins of phase 21's rows, plain tensors"
     p22_path = "models, cycles, preconditioners on a sharded b, one-rank mesh (phase 22)"
     p22_twins_path = "twins of phase 22's rows, plain tensors"
+    p23_path = ("eigensolvers, matrix functions, time steppers, mesh=None cycles and "
+                "sparse formats on a sharded b, one-rank mesh (phase 23)")
+    p23_twins_path = "twins of phase 23's rows, plain tensors"
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -5859,7 +6295,7 @@ def main() -> int:
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
                + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"]
-               + p22["K1"] + p22_twins["K1"],
+               + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -5869,8 +6305,10 @@ def main() -> int:
                                  short_path: short["K1"],
                                  p19_path: p19["K1"], p20_path: p20["K1"],
                                  p21_path: p21["K1"], p21_twins_path: p21_twins["K1"],
-                                 p22_path: p22["K1"], p22_twins_path: p22_twins["K1"]},
+                                 p22_path: p22["K1"], p22_twins_path: p22_twins["K1"],
+                                 p23_path: p23["K1"], p23_twins_path: p23_twins["K1"]},
                phase22_k1_halo=p22["K1 halo"], phase22_exchanges=p22["exchanges"],
+               phase23_k1_halo=p23["K1 halo"], phase23_exchanges=p23["exchanges"],
                phase21_k1_halo=p21["K1 halo"],
                phase19_k1_by_role={
                    "forward": p19["K1"] - p19["K1 transpose"] - p19["K1 tangent"],
@@ -5884,7 +6322,8 @@ def main() -> int:
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:206"],
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
                + short["K1rr"] + p19["K1rr"] + p20["K1rr"] + p21["K1rr"]
-               + p21_twins["K1rr"] + p22["K1rr"] + p22_twins["K1rr"],
+               + p21_twins["K1rr"] + p22["K1rr"] + p22_twins["K1rr"] + p23["K1rr"]
+               + p23_twins["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
@@ -5894,13 +6333,15 @@ def main() -> int:
                                  p19_path: p19["K1rr"], p20_path: p20["K1rr"],
                                  p21_path: p21["K1rr"],
                                  p21_twins_path: p21_twins["K1rr"],
-                                 p22_path: p22["K1rr"], p22_twins_path: p22_twins["K1rr"]},
+                                 p22_path: p22["K1rr"], p22_twins_path: p22_twins["K1rr"],
+                                 p23_path: p23["K1rr"], p23_twins_path: p23_twins["K1rr"]},
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
                + short["K1cr"] + p19["K1cr"] + p20["K1cr"] + p21["K1cr"]
-               + p21_twins["K1cr"] + p22["K1cr"] + p22_twins["K1cr"],
+               + p21_twins["K1cr"] + p22["K1cr"] + p22_twins["K1cr"] + p23["K1cr"]
+               + p23_twins["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
@@ -5910,13 +6351,15 @@ def main() -> int:
                                  p19_path: p19["K1cr"], p20_path: p20["K1cr"],
                                  p21_path: p21["K1cr"],
                                  p21_twins_path: p21_twins["K1cr"],
-                                 p22_path: p22["K1cr"], p22_twins_path: p22_twins["K1cr"]},
+                                 p22_path: p22["K1cr"], p22_twins_path: p22_twins["K1cr"],
+                                 p23_path: p23["K1cr"], p23_twins_path: p23_twins["K1cr"]},
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
-               + p20["K2"] + p21["K2"] + p21_twins["K2"] + p22["K2"] + p22_twins["K2"],
+               + p20["K2"] + p21["K2"] + p21_twins["K2"] + p22["K2"] + p22_twins["K2"]
+               + p23["K2"] + p23_twins["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
@@ -5926,7 +6369,8 @@ def main() -> int:
                                     p19_path: p19["K2"], p20_path: p20["K2"],
                                     p21_path: p21["K2"],
                                     p21_twins_path: p21_twins["K2"],
-                                    p22_path: p22["K2"], p22_twins_path: p22_twins["K2"]},
+                                    p22_path: p22["K2"], p22_twins_path: p22_twins["K2"],
+                                    p23_path: p23["K2"], p23_twins_path: p23_twins["K2"]},
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
                short_launches_by_path={p: short[f"K2 {p}"]
@@ -5968,11 +6412,20 @@ def main() -> int:
                library_note="none: no single PyTorch call computes the polynomial",
                **k2_paths_fields("K2 convdiff")),
         report("K3", "gmres_tpu_torch/csrc/dia_spmv.cu",
-               "gmres_tpu/ops/sparse.py:567", [], launches["K3"],
-               f"K3 HYB {CG_GRIDS[-1]}x{CG_GRIDS[-1]} f64"),
+               "gmres_tpu/ops/sparse.py:567", [],
+               launches["K3"] + p23["K3"] + p23_twins["K3"],
+               f"K3 HYB {CG_GRIDS[-1]}x{CG_GRIDS[-1]} f64",
+               launches_by_path={"cg and the sparse solvers (phases 8-10)": launches["K3"],
+                                 p23_path: p23["K3"], p23_twins_path: p23_twins["K3"]},
+               rank_block_max_abs_err=max(rank_blocks["K3 torch.float32"],
+                                          rank_blocks["K3 torch.float64"])),
         report("K4", "gmres_tpu_torch/csrc/bsr_spmv.cu",
-               "gmres_tpu/ops/sparse.py:488", [], launches["K4"],
-               f"K4 {BSR_CASES[-1][0]} f32"),
+               "gmres_tpu/ops/sparse.py:488", [],
+               launches["K4"] + p23["K4"] + p23_twins["K4"],
+               f"K4 {BSR_CASES[-1][0]} f32",
+               launches_by_path={"the sparse solvers (phases 9-10)": launches["K4"],
+                                 p23_path: p23["K4"], p23_twins_path: p23_twins["K4"]},
+               rank_block_max_abs_err=rank_blocks["K4 float32"]),
         report("K5", "gmres_tpu_torch/csrc/cheb2_fused.cu",
                "gmres_tpu/ops/fused.py:129", [],
                strong["K5"] + p21["K5"] + p21_twins["K5"],

@@ -39,6 +39,12 @@ flags:
   evolve          θ-method trajectories (cg, bicgstab, gmres, gcrodr steps,
                   optionally the σ-shifted multigrid cycle) or exponential
                   Euler
+  scale           the production configuration (Householder GMRES, the
+                  Poisson V-cycle, float32 cycles certified on the true
+                  residual) across grids 300²..4096²; --dim 3: CG with the
+                  3-D cycle
+  spmv            SpMV throughput on the Poisson matrix: the plain stencil
+                  and sparse formats, and the kernels K1, K3 and K4
   roofline        achieved bandwidth of the stencil routes (plain float32
                   and float64, kernel K1, kernel K6 on (hi, lo) pairs), of
                   the order-k Chebyshev smoother (kernel K2) and of the
@@ -70,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import tempfile
 import time
@@ -1257,6 +1264,148 @@ def cmd_roofline(args):
     return records
 
 
+def cmd_scale(args):
+    """The production configuration across growing grids: Householder
+    GMRES with the Poisson V-cycle, float32 Arnoldi cycles certified on the
+    float64 true residual, b = A·1 (``--dim 3``: CG with the 3-D cycle at
+    n³, absolute tol)."""
+    from gmres_tpu_torch.models.poisson import poisson_operator
+    from gmres_tpu_torch.models.poisson3d import poisson3d_operator
+    from gmres_tpu_torch.precond.multigrid import (
+        poisson3d_multigrid_preconditioner,
+        poisson_multigrid_preconditioner,
+    )
+    from gmres_tpu_torch.solvers.cg import cg
+    from gmres_tpu_torch.solvers.gmres import gmres
+
+    dev = _device(args)
+    grids = [int(s) for s in args.grids.split(",")]
+    records = []
+    for n in grids:
+        if args.dim == 3:
+            op = poisson3d_operator(n)
+            m_inv = poisson3d_multigrid_preconditioner(n)
+            b = op(_ones((n, n, n), dev))
+            res, dt = _timed(lambda: cg(op, b, tol=args.tol, max_iterations=400,
+                                        M=m_inv), dev)
+            records.append(_record(
+                f"cg-mg3d-{n}^3", res, wall_s=dt, tol=args.tol,
+                nnz=7 * n ** 3 - 6 * n * n,
+                extra={"dim": 3, "true_certified": True}))
+            continue
+        op = poisson_operator(n)
+        m_inv = poisson_multigrid_preconditioner(n)
+        b = op(_ones((n, n), dev))
+        m = args.restart
+        res, dt = _timed(lambda: gmres(
+            op, b, restart=m, tol=args.tol, M=m_inv, variant="householder",
+            compute_v_err=False, inner_dtype=torch.float32, certify="true"), dev)
+        records.append(_record(
+            f"gmres-hh-mg-ir-{n}x{n}", res, wall_s=dt, tol=args.tol,
+            nnz=5 * n * n - 4 * n,
+            extra={"total_iters": _total_inner(res, m), "true_certified": True}))
+    _emit(records, args)
+    return records
+
+
+def cmd_spmv(args):
+    """SpMV throughput (nnz/s) on the Poisson matrix: the plain stencil in
+    float64 and float32 and the sparse formats' plain products, and on the
+    card K1 (the stencil), K3 (DIA and HYB's DIA part) and, from 512² rows
+    (n ≥ 256), K4 on a block-tridiagonal BSR of 128² blocks beside its
+    einsum twin. Rows keep gmres_tpu's names, with the kernel's id where
+    JAX's say ``pallas``. Each product is timed by
+    ``utils/profiling.py:measure_bandwidth`` (the slope between chains of
+    ``--reps`` and twice as many; on the card CUDA graphs between events,
+    synchronised). JAX runs its Pallas rows on the TPU only and its stencil
+    row only to 1024², a limit of the TPU's VMEM that the card does not
+    share."""
+    from gmres_tpu_torch.ops import sparse as sp
+    from gmres_tpu_torch.ops.stencil import stencil_5pt_apply, stencil_5pt_pallas
+    from gmres_tpu_torch.utils.profiling import measure_bandwidth
+
+    dev = _device(args)
+    on_card = dev.type == "cuda"
+    n = args.nsize
+    nnz = 5 * n * n - 4 * n  # interior 5, boundary truncated
+    rng = np.random.default_rng(0)
+    records = []
+
+    def bench(name, fn, x, kernel_nnz=None):
+        out = measure_bandwidth(fn, x, bytes_moved=2 * x.numel() * x.element_size(),
+                                reps=args.reps)
+        dt = out["seconds"]
+        knnz = kernel_nnz if kernel_nnz is not None else nnz
+        records.append(RunRecord(name=name, nvars=x.numel(), iterations=1, wall_s=dt,
+                                 nnz=knnz, extra={"matvecs": 1,
+                                                  "gnnz_per_s": knnz / dt / 1e9,
+                                                  "timing": out["timing"]}))
+
+    def f32(a):
+        """The matrix with its values in float32 (indices shared)."""
+        if isinstance(a, sp.HYBMatrix):
+            return sp.HYBMatrix(dia=f32(a.dia), ell=None if a.ell is None else f32(a.ell),
+                                shape=a.shape)
+        return dataclasses.replace(a, data=a.data.to(torch.float32))
+
+    def hyb_plain(a, x):
+        """HYB with its DIA part in the plain roll version (JAX's shift row)."""
+        y = sp.dia_spmv(a.dia, x)
+        return y if a.ell is None else y + sp.ell_spmv(a.ell, x)
+
+    xg64 = torch.as_tensor(rng.standard_normal((n, n))).to(dev)
+    xg32 = xg64.to(torch.float32)
+    bench("stencil-jnp-f64", stencil_5pt_apply, xg64)
+    bench("stencil-jnp-f32", stencil_5pt_apply, xg32)
+    if on_card:
+        bench("stencil-k1-f32", stencil_5pt_pallas, xg32)
+    if not args.skip_sparse:
+        csr = sp.poisson_csr(n, device=dev)
+        ell = sp.csr_to_ell(csr)
+        xf = xg64.reshape(-1)
+        bench("csr-segsum-f64", lambda x, a=csr: sp.csr_spmv(a, x), xf)
+        bench("ell-gather-f64", lambda x, a=ell: sp.ell_spmv(a, x), xf)
+        bench("ell-gather-f32", lambda x, a=f32(ell): sp.ell_spmv(a, x), xg32.reshape(-1))
+        dia = sp.poisson_dia(n, device=dev)
+        bench("dia-shift-f64", lambda x, a=dia: sp.dia_spmv(a, x), xf)
+        dia32 = f32(dia)
+        bench("dia-shift-f32", lambda x, a=dia32: sp.dia_spmv(a, x), xg32.reshape(-1))
+        # CSR split into HYB: for the Poisson CSR the residue is empty, so
+        # this is the CSR matrix at DIA speed.
+        hyb32 = f32(sp.csr_to_hyb(csr))
+        bench("csr2hyb-shift-f32", lambda x, a=hyb32: hyb_plain(a, x), xg32.reshape(-1))
+        if on_card:
+            bench("csr2hyb-k3-f32", lambda x, a=hyb32: sp.hyb_spmv(a, x),
+                  xg32.reshape(-1))
+            bench("dia-k3-f32", lambda x, a=dia32: sp.dia_spmv_pallas(a, x),
+                  xg32.reshape(-1))
+        if on_card and n >= 256:
+            # Block-tridiagonal BSR of 128² blocks (JAX's MXU-tile size).
+            bs = 128
+            nb = n // bs * bs
+            dense_b = np.zeros((nb, nb), np.float32)
+            for i in range(nb // bs):
+                for jj in (i - 1, i, i + 1):
+                    if 0 <= jj < nb // bs:
+                        dense_b[i * bs:(i + 1) * bs, jj * bs:(jj + 1) * bs] = (
+                            rng.standard_normal((bs, bs)))
+            bmat = sp.bsr_from_dense(dense_b, block_size=bs, device=dev)
+            xb = torch.as_tensor(rng.standard_normal(nb).astype(np.float32)).to(dev)
+            bsr_nnz = int(np.count_nonzero(dense_b))
+            bench("bsr-k4-f32", lambda x, a=bmat: sp.bsr_spmv_pallas(a, x), xb,
+                  kernel_nnz=bsr_nnz)
+            bench("bsr-einsum-f32", lambda x, a=bmat: sp.bsr_spmv(a, x), xb,
+                  kernel_nnz=bsr_nnz)
+    # The standard table's ms resolution hides microsecond kernels.
+    if is_host0():
+        print(f"{'kernel':<22} {'us/apply':>10} {'Gnnz/s':>9}")
+        for r in records:
+            print(f"{r.name:<22} {r.wall_s * 1e6:>10.2f} {r.extra['gnnz_per_s']:>9.2f}")
+    if getattr(args, "jsonl", None):
+        write_jsonl(records, args.jsonl, append=True)
+    return records
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gmres-tpu-torch-bench", description=__doc__,
@@ -1366,6 +1515,14 @@ def build_parser() -> argparse.ArgumentParser:
                  "precond": ("none", "mg")},
         help="a θ-method (or exponential Euler) trajectory of the heat equation "
              "or convection-diffusion, GCRO-DR recycling across steps")
+    add("scale", cmd_scale, grids="300,600,1200,2048,4096", restart=10, tol=1e-8,
+        dim=2, choices={"dim": (2, 3)},
+        help="the production configuration across grids: Householder GMRES "
+             "with the Poisson V-cycle, float32 Arnoldi cycles certified on "
+             "the true residual (--dim 3: CG with the 3-D cycle)")
+    add("spmv", cmd_spmv, nsize=512, reps=20, skip_sparse=False,
+        help="SpMV throughput on the Poisson matrix: the plain stencil and "
+             "formats, and on the card K1, K3 (DIA, HYB) and K4 (BSR)")
     add("roofline", cmd_roofline, grids="1024,2048,4096", reps=20, cheb_order=8,
         help="achieved bandwidth of the stencil, smoother and V-cycle routes")
     return p

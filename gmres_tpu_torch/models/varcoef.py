@@ -24,8 +24,11 @@ cell, so it is the whole grid's face (the harmonic mean with the
 neighbour's c), never the Dirichlet edge copy. The cycle's Jacobi weights
 are placed as r is (``ops/blas.py:place_like``); its restrictions on a
 sharded level are DTensor's own (two all-gathers, the level after them
-replicated), as the ``mesh=None`` cycles on a DTensor are (ROADMAP queue 1,
-item 8.6b).
+replicated, where the level operators take the plain route on the local
+tensor). gmres_tpu gives this cycle no ``mesh=`` form, and the port keeps
+it so on either device: no kernel wrapper sees a DTensor, since the
+sharded level's stencil is the halo route and the replicated levels' is
+the local tensor's.
 """
 
 from __future__ import annotations

@@ -243,19 +243,25 @@ _DTENSOR_ROUTES = {
     "K1": "a plain operator takes a DTensor through the halo route "
           "(ops/stencil.py:stencil_5pt_pallas -> parallel/halo.py: one halo "
           "exchange and K1's halo form on each rank's block)",
-    "K1rr": "a cycle on a row-sharded DTensor is the mesh= cycle (each rank's "
-            "block); the mesh=None cycle on a DTensor is ROADMAP queue 1, item 8.6b",
-    "K2": "a cycle on a row-sharded DTensor is the mesh= cycle (each rank's "
-          "block); K2 and the mesh=None cycle on a DTensor are ROADMAP queue 1, "
-          "item 8.6b",
+    "K1rr": "a cycle on a row-sharded DTensor runs on each rank's block: the mesh= "
+            "cycle, or a mesh=None cycle's distributed cycle on the DTensor's mesh "
+            "(precond/multigrid.py:_on_the_operands_mesh, ROADMAP item 8.6b)",
+    "K2": "a cycle on a row-sharded DTensor runs on each rank's block: the mesh= "
+          "cycle, or a mesh=None cycle's distributed cycle on the DTensor's mesh "
+          "(precond/multigrid.py:_on_the_operands_mesh, ROADMAP item 8.6b); K2 sees "
+          "the plain levels below its replicated level only",
     "K5": "cbpr2 on a row-sharded DTensor is halo_chebyshev_preconditioner(mesh, ...)",
     "K6": "the pair stencils take each rank's block, never a DTensor",
     "K7a": "the CG updates take each rank's block, never a DTensor",
     "K8": "the RDMA route on a row-sharded DTensor is rdma_stencil_operator(mesh)",
-    "K3": "the sparse formats on a sharded b are ROADMAP queue 1, item 8.7",
+    "K3": "a sparse operator on a row-sharded DTensor applies each rank's rows: K3 on "
+          "the rank's DIA rows, x widened by a halo exchange "
+          "(ops/sparse.py:_RankRows, ROADMAP item 8.7)",
+    "K4": "a sparse operator on a row-sharded DTensor applies each rank's rows: K4 on "
+          "the rank's block rows, x widened by a halo exchange "
+          "(ops/sparse.py:_RankRows, ROADMAP item 8.7)",
 }
 _DTENSOR_ROUTES["K1cr"] = _DTENSOR_ROUTES["K1rr"]
-_DTENSOR_ROUTES["K4"] = _DTENSOR_ROUTES["K3"]
 _DTENSOR_ROUTES["K7b"] = _DTENSOR_ROUTES["K7a"]
 
 

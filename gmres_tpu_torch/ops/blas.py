@@ -163,14 +163,16 @@ def per_mesh(cache: dict, mesh, make):
     return hit[1]
 
 
-def on_local(fn, x: torch.Tensor) -> torch.Tensor:
-    """fn on this rank's part of the DTensor x, wrapped back with x's
-    placements, for an fn that does not mix entries across x's sharded
-    dimension (a solve along another axis, a product from the left of
-    column-sharded rows): no communication. fn(x) where x is plain."""
+def on_local(fn, x: torch.Tensor, *others) -> torch.Tensor:
+    """fn on this rank's part of the DTensor x (and of the DTensors among
+    ``others``, placed as x is), wrapped back with x's placements, for an fn
+    that does not mix entries across x's sharded dimension (a solve along
+    another axis, a product from the left of column-sharded rows, an
+    elementwise map): no communication. fn(x, *others) where x is plain."""
     if not is_dtensor(x):
-        return fn(x)
-    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+        return fn(x, *others)
+    local = (o.to_local() if is_dtensor(o) else o for o in others)
+    return DTensor.from_local(fn(x.to_local(), *local), x.device_mesh, x.placements,
                               run_check=False)
 
 
@@ -226,6 +228,29 @@ def row_combine(coefs: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         return DTensor.from_local(out, rows.device_mesh,
                                   [Shard(place.dim - 1 + coefs.ndim - 1)], run_check=False)
     return torch.tensordot(replicate_like(coefs, rows), rows, dims=([0], [0]))
+
+
+def row_op(fn, rows: torch.Tensor, *cs: torch.Tensor) -> torch.Tensor:
+    """fn(rows, *cs) with each plain (R,) c shaped (R, 1, …) to meet the
+    (R, *shape) block ``rows`` row by row (``c[i]`` against ``rows[i]``):
+    elementwise, so on a sharded block it runs on each rank's block. (Left
+    to DTensor, torch 2.11's sharding propagation follows a replicated
+    first operand and replicates the result.)"""
+    bc = (-1,) + (1,) * (rows.dim() - 1)
+    return on_local(lambda t: fn(t, *(c.reshape(bc) for c in cs)), rows)
+
+
+def complex_from(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """torch.complex(re, im); on DTensors placed alike, on each rank's block
+    (DTensor in torch 2.11 has no sharding rule for it)."""
+    return on_local(torch.complex, re, im)
+
+
+def complex_parts(v: torch.Tensor):
+    """(re, im) of a complex tensor, each made contiguous (a kernel takes no
+    strided view); on a DTensor, each rank's block's."""
+    return (on_local(lambda t: t.real.contiguous(), v),
+            on_local(lambda t: t.imag.contiguous(), v))
 
 
 def row_apply(fn, rows: torch.Tensor) -> torch.Tensor:

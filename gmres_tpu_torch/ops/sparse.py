@@ -27,6 +27,12 @@ Counterpart of ``gmres_tpu/ops/sparse.py``, with the same names:
 * ``hyb_spmv`` and ``sparse_operator`` route by device in the same way: on
   a CUDA tensor, DIA and the DIA part of HYB always run in K3, and BSR in
   K4; HYB's ELL residue is the plain gather, as in JAX.
+* The sharded route: ``sparse_operator`` on a row-sharded DTensor x applies
+  each rank's rows of the matrix (``_RankRows``), where gmres_tpu's GSPMD
+  partitions the gathers and rolls: a band (DIA, HYB's DIA part, BSR)
+  after one halo exchange of its width, with K3 or K4 on the rank's rows,
+  the other formats after one all-gather of x. The kernels see the rank's
+  plain tensors only.
 
 JAX's ``use_pallas``, ``interpret`` and ``block_rows`` have no
 counterpart: the tensor's device decides, and one launch covers any size.
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.ops import _cuda
+from gmres_tpu_torch.ops.blas import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -448,11 +455,24 @@ def dia_spmv(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     diagonal in offset order, from zeros. Out-of-range positions carry zero
     coefficients by construction, so the roll's wrap-around adds 0·x there
     (a NaN or Inf of x at a wrapped position would still poison y; K3 never
-    reads those positions)."""
+    reads those positions).
+
+    A block of rows (n_rows ≠ n_cols: a rank's rows with its halo-widened
+    x, ``sparse_operator``'s sharded route) reads x through a zero-padded
+    window instead of a roll, the same sums in the same order."""
     xf = x.reshape(-1)
-    y = torch.zeros_like(xf)
+    n_rows, n_cols = a.shape
+    if n_rows == n_cols:
+        y = torch.zeros_like(xf)
+        for k, off in enumerate(a.offsets):
+            y = y + a.data[k] * torch.roll(xf, -off)
+        return y
+    lo = max(0, -min(a.offsets))
+    hi = max(0, n_rows + max(a.offsets) - n_cols)
+    xp = torch.nn.functional.pad(xf, (lo, hi))
+    y = torch.zeros(n_rows, dtype=xf.dtype, device=xf.device)
     for k, off in enumerate(a.offsets):
-        y = y + a.data[k] * torch.roll(xf, -off)
+        y = y + a.data[k] * xp[lo + off:lo + off + n_rows]
     return y
 
 
@@ -635,7 +655,13 @@ def hyb_spmv(a: HYBMatrix, x: torch.Tensor) -> torch.Tensor:
 
 def sparse_operator(a) -> Callable:
     """Wrap any sparse container as a LinearOperator closure over flat
-    vectors; an operand on another device than the matrix raises."""
+    vectors; an operand on another device than the matrix raises.
+
+    A DTensor x takes the sharded route (``_RankRows``): row-sharded
+    (``[Shard(0)]`` on a 1-D mesh, evenly, a square matrix) it gives a flat
+    ``[Shard(0)]`` y, each rank applying its rows of the matrix, which every
+    rank holds whole; ``[Replicate()]`` is the plain product on the local
+    tensor; any other placement raises NotImplementedError."""
     if isinstance(a, CSRMatrix):
         rows = csr_row_ids(a)
         spmv, ref = (lambda x: csr_spmv(a, x, rows=rows)), a.data
@@ -652,8 +678,172 @@ def sparse_operator(a) -> Callable:
     else:
         raise TypeError(f"not a sparse matrix: {type(a)}")
 
+    rank_rows: dict = {}
+
     def apply(x: torch.Tensor) -> torch.Tensor:
         _check_same_device("sparse_operator", x, ref)
+        if is_dtensor(x):
+            from gmres_tpu_torch.parallel.halo import sharded_apply
+
+            return sharded_apply(x, rank_rows, lambda mesh: _RankRows(a, mesh), spmv)
         return spmv(x)
 
     return apply
+
+
+# ---------------------------------------------------------------------------
+# The sharded route: each rank's rows of a row-sharded x.
+# ---------------------------------------------------------------------------
+
+
+def all_gather_flat(blk: torch.Tensor, group) -> torch.Tensor:
+    """The whole flat vector from every rank's flat block over ``group``:
+    one explicit all-gather (so a one-rank group issues it too)."""
+    part = blk.reshape(-1).contiguous()
+    whole = torch.empty(part.numel() * torch.distributed.get_world_size(group),
+                        dtype=part.dtype, device=part.device)
+    # Not all_gather_single, its newer name: torch 2.11 lacks it.
+    torch.distributed.all_gather_into_tensor(whole, part, group=group)
+    return whole
+
+
+def row_block(a, lo: int, hi: int):
+    """Rows [lo, hi) of a CSR, COO or ELL matrix, with their global column
+    indices (they apply to the whole x)."""
+    n_cols = a.shape[1]
+    if isinstance(a, CSRMatrix):
+        ptr = _host(a.indptr).astype(np.int64)
+        s0, s1 = int(ptr[lo]), int(ptr[hi])
+        return CSRMatrix(data=a.data[s0:s1], indices=a.indices[s0:s1],
+                         indptr=(a.indptr[lo:hi + 1] - int(ptr[lo])).contiguous(),
+                         shape=(hi - lo, n_cols))
+    if isinstance(a, COOMatrix):
+        s0, s1 = np.searchsorted(_host(a.row), (lo, hi))
+        return COOMatrix(data=a.data[s0:s1], row=(a.row[s0:s1] - lo).contiguous(),
+                         col=a.col[s0:s1], shape=(hi - lo, n_cols))
+    return ELLMatrix(data=a.data[lo:hi], cols=a.cols[lo:hi], shape=(hi - lo, n_cols))
+
+
+class _RankRows:
+    """``sparse_operator``'s application to a DTensor x row-sharded on
+    ``mesh``, for this rank: y's block is the matrix's rows [lo, hi) (x's
+    own range) applied to
+
+    * CSR, COO, ELL and HYB's ELL residue: the whole x, after one all-gather
+      of its blocks (``all_gather_flat``; SPAI's application takes the same
+      route);
+    * DIA and HYB's DIA part: x's block widened by the h = max|offset|
+      entries on either side, one halo exchange with the neighbouring ranks
+      (``parallel/halo.py:_halo_rows``), then K3 on the rank's rows with its
+      offsets shifted by the top halo's width (the plain rows version on a
+      CPU block); where h exceeds the block (a band wider than a rank's
+      rows) the whole x is gathered instead;
+    * BSR: likewise with the block band, h = bs·max|block column − block
+      row| over the nonzero blocks, then K4 on the rank's block rows (x's
+      block must hold whole block rows).
+
+    So a DIA, a HYB without residue and a BSR whose band fits are one
+    exchange and no all-gather an application; the others one all-gather.
+    Every rank slices its rows once (``sparse_operator`` keeps this object
+    per mesh); the kernels see the rank's plain tensors only."""
+
+    def __init__(self, a, mesh):
+        from gmres_tpu_torch.ops.stencil_rdma import _neighbours
+
+        n_rows, n_cols = a.shape
+        d = mesh.size()
+        if n_rows != n_cols or n_rows % d:
+            raise NotImplementedError(
+                f"a sparse operator of shape {a.shape} on x row-sharded over {d} "
+                "ranks: the sharded route takes a square matrix whose rows divide "
+                "evenly over the mesh")
+        self.mesh, self.group = mesh, mesh.get_group()
+        self.neighbours = _neighbours(self.group)
+        m = n_rows // d
+        lo = mesh.get_coordinate()[0] * m
+        self.m, self.lo = m, lo
+        self.halo = 0  # the band's width where it is exchanged
+        self.gathers = False
+        self.rows = self.band = None
+        if isinstance(a, (CSRMatrix, COOMatrix, ELLMatrix)):
+            self.rows, self.gathers = row_block(a, lo, lo + m), True
+            self.row_ids = csr_row_ids(self.rows) if isinstance(a, CSRMatrix) else None
+        elif isinstance(a, HYBMatrix):
+            if a.ell is not None:
+                self.rows, self.gathers = row_block(a.ell, lo, lo + m), True
+            self.band = self._dia_rows(a.dia)
+        elif isinstance(a, DIAMatrix):
+            self.band = self._dia_rows(a)
+        else:
+            self.band = self._bsr_rows(a)
+
+    def _window(self, h: int):
+        """(halo width exchanged, shift of x's block in the widened x, widened
+        length) for a band of h entries on either side: the exchange where
+        the band fits the block, else the whole x (gathered), as where the
+        whole x is gathered anyway (a HYB's residue)."""
+        if h <= self.m and not self.gathers:
+            up, down = self.neighbours
+            top = h if up is not None else 0
+            return h, top, top + self.m + (h if down is not None else 0)
+        self.gathers = True
+        return 0, self.lo, self.m * self.mesh.size()
+
+    def _dia_rows(self, a: DIAMatrix) -> DIAMatrix:
+        self.halo, shift, width = self._window(max(abs(o) for o in a.offsets))
+        return DIAMatrix(data=a.data[:, self.lo:self.lo + self.m].contiguous(),
+                         offsets=tuple(o + shift for o in a.offsets),
+                         shape=(self.m, width))
+
+    def _bsr_rows(self, a: BSRMatrix) -> BSRMatrix:
+        bs = a.block_size
+        if self.m % bs:
+            raise NotImplementedError(
+                f"a BSR operator with {bs}-row blocks on x row-sharded into blocks "
+                f"of {self.m}: a rank's block must hold whole block rows")
+        cols = _host(a.block_cols).astype(np.int64)
+        real = _host(a.data.abs().amax(dim=(2, 3)) > 0)
+        rows = np.broadcast_to(np.arange(cols.shape[0])[:, None], cols.shape)
+        band = int(np.abs(cols - rows)[real].max()) if real.any() else 0
+        self.halo, shift, width = self._window(band * bs)
+        b0, b1 = self.lo // bs, (self.lo + self.m) // bs
+        local = cols[b0:b1] - (b0 - shift // bs)
+        # Padding blocks (all zero) may point anywhere: column 0 of the window.
+        local[~real[b0:b1]] = 0
+        return BSRMatrix(data=a.data[b0:b1].contiguous(),
+                         block_cols=_index(local, a.block_cols.device),
+                         shape=(self.m, width))
+
+    def local(self, xb: torch.Tensor) -> torch.Tensor:
+        """This rank's y block from its flat x block (the collectives of one
+        application included)."""
+        from gmres_tpu_torch.parallel.halo import _halo_rows
+
+        whole = all_gather_flat(xb, self.group) if self.gathers else None
+        y = None
+        if self.band is not None:
+            if whole is not None:
+                xw = whole
+            elif self.halo:
+                top, bottom = _halo_rows(xb, self.group, self.neighbours, 0, self.halo)
+                parts = [t for t in (top, xb, bottom) if t is not None]
+                xw = torch.cat(parts) if len(parts) > 1 else xb
+            else:
+                xw = xb
+            y = (bsr_spmv_pallas if isinstance(self.band, BSRMatrix)
+                 else dia_spmv_pallas)(self.band, xw)
+        if self.rows is not None:
+            if isinstance(self.rows, CSRMatrix):
+                yr = csr_spmv(self.rows, whole, self.row_ids)
+            elif isinstance(self.rows, COOMatrix):
+                yr = coo_spmv(self.rows, whole)
+            else:
+                yr = ell_spmv(self.rows, whole)
+            y = yr if y is None else y + yr
+        return y
+
+    def __call__(self, x):
+        from torch.distributed.tensor import DTensor, Shard
+
+        y = self.local(x.to_local().reshape(-1).contiguous())
+        return DTensor.from_local(y, self.mesh, [Shard(0)], run_check=False)

@@ -46,28 +46,31 @@ def _neighbours(group) -> tuple[int | None, int | None]:
     return up, down
 
 
-def post_halo_rows(blk: torch.Tensor, group, neighbours, dim: int = 0):
+def post_halo_rows(blk: torch.Tensor, group, neighbours, dim: int = 0, width: int = 1):
     """Post the halo messages to the ``neighbours`` of ``_neighbours(group)``:
-    this block's first slice along ``dim`` up and its last slice down, a
-    receive slice from each neighbour that exists. ``dim`` is the sharded
-    dimension: 0 for a 2-D grid's rows or a 3-D grid's planes, 1 for the rows
-    of both planes of a (2, rows, N) stack (one message each way). Any dtype:
-    a complex block travels as its real view. Returns (top, bottom, wait):
-    each slice (1 along ``dim``), None for a side with no neighbour (nothing
-    is allocated for it), and a function that waits for the receives."""
+    this block's first ``width`` slices along ``dim`` up and its last
+    ``width`` down, a receive of as many from each neighbour that exists.
+    ``dim`` is the sharded dimension: 0 for a 2-D grid's rows or a 3-D grid's
+    planes (or a flat vector's entries, ``width`` of them: a sparse band), 1
+    for the rows of both planes of a (2, rows, N) stack (one message each
+    way). Any dtype: a complex block travels as its real view. Returns (top,
+    bottom, wait): each ``width`` along ``dim``, None for a side with no
+    neighbour (nothing is allocated for it), and a function that waits for
+    the receives."""
     up, down = neighbours
     shape = list(blk.shape)
-    shape[dim] = 1
+    shape[dim] = width
     wire = torch.view_as_real if blk.is_complex() else (lambda t: t)
     top = bottom = None
     ops = []
     if up is not None:
         top = torch.empty(shape, dtype=blk.dtype, device=blk.device)
-        ops += [dist.P2POp(dist.isend, wire(blk.narrow(dim, 0, 1).contiguous()), up, group),
+        ops += [dist.P2POp(dist.isend, wire(blk.narrow(dim, 0, width).contiguous()), up,
+                           group),
                 dist.P2POp(dist.irecv, wire(top), up, group)]
     if down is not None:
         bottom = torch.empty(shape, dtype=blk.dtype, device=blk.device)
-        last = blk.narrow(dim, blk.shape[dim] - 1, 1).contiguous()
+        last = blk.narrow(dim, blk.shape[dim] - width, width).contiguous()
         ops += [dist.P2POp(dist.isend, wire(last), down, group),
                 dist.P2POp(dist.irecv, wire(bottom), down, group)]
     reqs = dist.batch_isend_irecv(ops) if ops else []

@@ -75,13 +75,13 @@ application; the form is built once per mesh and stencil); ``[Replicate()]``
 is the plain computation on the local tensor; anything else raises
 NotImplementedError naming the item. No route gathers the grid. Each
 operator keeps its forms in its own closure (``ops/blas.py:per_mesh``); the
-plain stencils, which are functions of their coefficients, keep theirs in
-``_STENCIL_FORMS`` under the coefficients' values. While ``blockwise_jvp``
-runs (on this thread) a plain tensor is taken as this rank's block of a
-grid row-sharded over its mesh and takes the same forms: Newton–Krylov's
-J·v runs ``torch.func.jvp`` on each rank's block so. Inside that mode only
-tensors shaped like the rank's block may be stenciled; ``sharded_apply``
-raises on any other.
+plain stencils, which are functions of their coefficients, keep theirs on
+the mesh under the coefficients' values (``_stencil_forms``). While
+``blockwise_jvp`` runs (on this thread) a plain tensor is taken as this
+rank's block of a grid row-sharded over its mesh and takes the same forms:
+Newton–Krylov's J·v runs ``torch.func.jvp`` on each rank's block so.
+Inside that mode only tensors shaped like the rank's block may be
+stenciled; ``sharded_apply`` raises on any other.
 
 ``halo_exchange.exchanges`` counts the exchanges of the halo route (the
 operators, every halo form, cbpr2 and the sharded levels of the
@@ -119,12 +119,13 @@ from gmres_tpu_torch.parallel.mesh import GRID_AXIS
 LAPLACE_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
 
 
-def _halo_rows(blk: torch.Tensor, group, neighbours, dim: int = 0):
+def _halo_rows(blk: torch.Tensor, group, neighbours, dim: int = 0, width: int = 1):
     """(top, bottom) halo slices of ``blk`` along ``dim`` from the
-    ``neighbours`` of ``_neighbours(group)``, each 1 along ``dim`` (a row,
-    a plane, or both planes' rows of a split stack), None for a side with no
-    neighbour (nothing is allocated for it)."""
-    top, bottom, wait = post_halo_rows(blk, group, neighbours, dim)
+    ``neighbours`` of ``_neighbours(group)``, each ``width`` along ``dim`` (a
+    row, a plane, both planes' rows of a split stack, or a sparse band's
+    entries of a flat vector), None for a side with no neighbour (nothing is
+    allocated for it)."""
+    top, bottom, wait = post_halo_rows(blk, group, neighbours, dim, width)
     wait()
     halo_exchange.exchanges += 1
     return top, bottom
@@ -381,13 +382,16 @@ def _float_coefs(coefs) -> tuple:
     return tuple(out)
 
 
-# The plain stencils' halo forms: a per-mesh dict (``ops/blas.py:per_mesh``)
-# for each stencil kind and coefficient values (numbers, not objects).
-_STENCIL_FORMS: dict = {}
-
-
-def _stencil_forms(key: tuple) -> dict:
-    return _STENCIL_FORMS.setdefault(key, {})
+def _stencil_forms(x: torch.Tensor, key: tuple) -> dict:
+    """The per-mesh dict (``ops/blas.py:per_mesh``) of the plain stencils'
+    halo forms for the stencil kind and coefficient values ``key`` (numbers,
+    not objects), on the mesh of x (a DTensor, or a rank's block inside
+    ``blockwise_jvp``). The plain stencils are functions with no closure to
+    keep them in, so the mesh keeps them: they live and die with it, where a
+    module dict would keep every mesh, and its destroyed group, alive."""
+    inner = dtensor_of(x)
+    mesh = inner.device_mesh if inner is not None else _blockwise.block[0]
+    return mesh.__dict__.setdefault("_gmres_tpu_torch_stencil_forms", {}).setdefault(key, {})
 
 
 def sharded_stencil(x: torch.Tensor, kind: str, coefs) -> torch.Tensor:
@@ -407,17 +411,17 @@ def sharded_stencil(x: torch.Tensor, kind: str, coefs) -> torch.Tensor:
         def local(blk, top, bottom):
             return stencil_7pt_halo(blk, top, bottom, *coefs)
 
-        return sharded_apply(x, _stencil_forms(("7pt",) + coefs),
+        return sharded_apply(x, _stencil_forms(x, ("7pt",) + coefs),
                              lambda mesh: HaloForm(mesh, local, 0, 0),
                              lambda t: stencil_7pt_general(t, *coefs))
     if x.is_complex() or any(isinstance(c, complex) for c in coefs):
         def local(blk, top, bottom):
             return stencil_5pt_halo(blk, top, bottom, coefs)
 
-        return sharded_apply(x, _stencil_forms(("5pt complex",) + coefs),
+        return sharded_apply(x, _stencil_forms(x, ("5pt complex",) + coefs),
                              lambda mesh: HaloForm(mesh, local, 0, 0),
                              lambda t: stencil_5pt_general(t, *coefs))
-    return sharded_apply(x, _stencil_forms(("5pt",) + coefs),
+    return sharded_apply(x, _stencil_forms(x, ("5pt",) + coefs),
                          lambda mesh: HaloOperator(mesh, coefs, 0),
                          lambda t: stencil_5pt_pallas(t, coefs))
 

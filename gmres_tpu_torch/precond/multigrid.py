@@ -33,7 +33,9 @@ cycle: plain torch complex arithmetic (``layout="complex"``), or the real
 (2, N, N) stack whose neighbour stencils launch K1 (``layout="split"``).
 
 With ``mesh=`` every cycle but the anisotropic and varcoef ones (which
-gmres_tpu gives none) runs on sharded grids (``_distributed_cycle``): the
+gmres_tpu gives none) runs on sharded grids (``_distributed_cycle``; the
+``mesh=None`` Poisson, convection–diffusion and Helmholtz SPD cycles run it
+on the mesh of a DTensor they are handed, ``_on_the_operands_mesh``): the
 levels at or above ``replicate_below`` rows stay sharded, on halo forms —
 K1's halo form for the Poisson, convection–diffusion and Helmholtz SPD
 levels and their smoothers' recurrences, the plain complex form for the
@@ -84,7 +86,7 @@ from gmres_tpu_torch.ops.stencil import (  # noqa: F401  (transfers re-exported)
     stencil_5pt_routed_general,
 )
 from gmres_tpu_torch.models.helmholtz import split_laplacians
-from gmres_tpu_torch.ops.blas import on_local
+from gmres_tpu_torch.ops.blas import dtensor_of, on_local
 from gmres_tpu_torch.precond.chebyshev import chebyshev_stencil_preconditioner
 from gmres_tpu_torch.solvers.lanczos import (
     arnoldi_ritz_values,
@@ -200,6 +202,25 @@ def _distributed_cycle(mesh, sizes, replicate_from, local_apply, smooth_local,
     return m_inv
 
 
+def _on_the_operands_mesh(m_inv: Callable, distributed: Callable) -> Callable:
+    """A ``mesh=None`` cycle: ``m_inv`` on a plain r; on a DTensor r, the
+    distributed cycle ``distributed(mesh)`` of the mesh r carries, built once
+    per mesh (``parallel/halo.py:sharded_apply``: ``[Shard(0)]`` on a 1-D
+    mesh, evenly; ``[Replicate()]`` takes ``m_inv`` on the local tensor).
+    So a DTensor never reaches a kernel wrapper, and the one all-gather an
+    application is the cycle's own, at its first replicated level."""
+    from gmres_tpu_torch.parallel.halo import sharded_apply
+
+    cycles: dict = {}
+
+    def apply(r: torch.Tensor) -> torch.Tensor:
+        if dtensor_of(r) is None:
+            return m_inv(r)
+        return sharded_apply(r, cycles, distributed, m_inv)
+
+    return apply
+
+
 def _stencil_levels(level_coefs) -> Callable:
     """``_distributed_cycle``'s ``local_apply`` for real 5-point levels with
     coefficients ``level_coefs[l]``: K1's halo form on a CUDA block."""
@@ -248,7 +269,10 @@ def poisson_multigrid_preconditioner(
       (default 8 a rank) stay sharded, the first below it is gathered once
       and solved whole on every rank. ``replicate_below`` without a mesh is
       ignored, as in JAX. The result is the ``mesh=None`` cycle's to
-      rounding.
+      rounding. The ``mesh=None`` cycle handed a row-sharded DTensor runs
+      this distributed cycle on the DTensor's mesh (built once per mesh,
+      ``replicate_below`` at its default; ``_on_the_operands_mesh``), as do
+      the convection–diffusion and Helmholtz SPD cycles.
 
     The returned callable carries ``levels``, ``fine_equiv_sweeps`` (the
     fine-grid-equivalent stencil sweeps of one cycle) and ``plan``
@@ -280,15 +304,18 @@ def poisson_multigrid_preconditioner(
     def m_inv(r: torch.Tensor) -> torch.Tensor:
         return v_cycle(r, 0)
 
-    if mesh is not None:
-        polys = {"pre": smoother, "post": post_smoother, "coarse": coarse_solve}
+    polys = {"pre": smoother, "post": post_smoother, "coarse": coarse_solve}
 
-        def smooth_local(r, l, kind, apply):
-            return poly_recurrence(r, polys[kind].theta, polys[kind].steps, apply)
+    def smooth_local(r, l, kind, apply):
+        return poly_recurrence(r, polys[kind].theta, polys[kind].steps, apply)
 
-        m_inv = _distributed_cycle(
-            mesh, sizes, _replicate_from(sizes, mesh, replicate_below),
+    def distributed(mesh, below=None):
+        return _distributed_cycle(
+            mesh, sizes, _replicate_from(sizes, mesh, below),
             _stencil_levels([POISSON_COEFS] * levels), smooth_local, v_cycle)
+
+    m_inv = (distributed(mesh, replicate_below) if mesh is not None
+             else _on_the_operands_mesh(m_inv, distributed))
 
     # An order-k semi-iteration applies the stencil k−1 times; each
     # non-coarsest level adds 2 residual stencils; level l carries 4^-l of
@@ -526,7 +553,7 @@ def convection_diffusion_multigrid_preconditioner(
             return v_cycle(r.to(internal_dtype), 0).to(r.dtype)
         return v_cycle(r, 0)
 
-    if mesh is not None:
+    def distributed(mesh, below=None):
         rank = dist.get_rank(mesh.get_group())
 
         def smooth_local(r, l, kind, apply):
@@ -539,9 +566,12 @@ def convection_diffusion_multigrid_preconditioner(
             return jacobi(r, l, iters, apply)
 
         sizes = [sz for (sz, _, _, _) in levels]
-        m_inv = _distributed_cycle(
-            mesh, sizes, _replicate_from(sizes, mesh, replicate_below),
+        return _distributed_cycle(
+            mesh, sizes, _replicate_from(sizes, mesh, below),
             _stencil_levels(coefs), smooth_local, v_cycle, internal_dtype)
+
+    m_inv = (distributed(mesh, replicate_below) if mesh is not None
+             else _on_the_operands_mesh(m_inv, distributed))
 
     m_inv.levels = n_levels
     m_inv.level_schemes = [("central" if cen else "upwind")
@@ -623,14 +653,17 @@ def helmholtz_shifted_laplacian_preconditioner(
             return v_cycle(r.to(internal_dtype), 0).to(r.dtype)
         return v_cycle(r, 0)
 
-    if mesh is not None:
-        def smooth_local(r, l, kind, apply):
-            poly = coarse if kind == "coarse" else smoother_at[l]
-            return poly_recurrence(r, poly.theta, poly.steps, apply)
+    def smooth_local(r, l, kind, apply):
+        poly = coarse if kind == "coarse" else smoother_at[l]
+        return poly_recurrence(r, poly.theta, poly.steps, apply)
 
-        m_inv = _distributed_cycle(
-            mesh, sizes, _replicate_from(sizes, mesh, replicate_below),
+    def distributed(mesh, below=None):
+        return _distributed_cycle(
+            mesh, sizes, _replicate_from(sizes, mesh, below),
             _stencil_levels(coefs), smooth_local, v_cycle, internal_dtype)
+
+    m_inv = (distributed(mesh, replicate_below) if mesh is not None
+             else _on_the_operands_mesh(m_inv, distributed))
 
     # Order-k Chebyshev = k−1 operator applications; 2 residual stencils a
     # non-coarsest level; level l carries 4^-l of the fine grid's points.
@@ -888,8 +921,10 @@ def anisotropic_multigrid_preconditioner(
     axis, so each rank solves its own rows with no message
     (``ops/blas.py:on_local``); the operator takes its DTensor route (one
     halo exchange an application); the restrictions are DTensor's own (two
-    all-gathers at the first, the levels below replicated), as in every
-    ``mesh=None`` cycle on a DTensor (ROADMAP queue 1, item 8.6b)."""
+    all-gathers at the first, the levels below replicated, where the
+    operator takes the local tensor: K1 on the card). gmres_tpu gives this
+    cycle no ``mesh=`` form, and the port keeps it so on either device; no
+    kernel wrapper sees a DTensor."""
     from gmres_tpu_torch.models.anisotropic import anisotropic_apply
     from gmres_tpu_torch.ops.tridiag import pcr_apply, pcr_plan
 

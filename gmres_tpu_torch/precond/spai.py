@@ -24,10 +24,15 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from gmres_tpu_torch.ops.blas import is_dtensor, per_mesh
-from gmres_tpu_torch.ops.sparse import CSRMatrix, ELLMatrix, ell_spmv
+from gmres_tpu_torch.ops.sparse import (
+    CSRMatrix,
+    ELLMatrix,
+    all_gather_flat,
+    ell_spmv,
+    row_block,
+)
 
 
 def _to_host_csr(a):
@@ -175,21 +180,17 @@ def spai_preconditioner(
         if mesh.ndim != 1 or places != (Shard(0),):
             raise NotImplementedError(
                 f"spai_preconditioner on a DTensor with placements {places}: "
-                "it takes a row-sharded v ([Shard(0)] on a 1-D mesh; ROADMAP "
-                "queue 1, item 8.7)")
+                "it takes a row-sharded v ([Shard(0)] on a 1-D mesh), as the "
+                "sparse operators do")
         local = v.to_local().contiguous()
 
         def rows(mesh):
             lo = mesh.get_coordinate()[0] * local.numel()
-            hi = lo + local.numel()
-            return ELLMatrix(data=m.data[lo:hi], cols=m.cols[lo:hi],
-                             shape=(hi - lo, m.shape[1]))
+            return row_block(m, lo, lo + local.numel())
 
-        # The application's one all-gather (explicit, so a one-rank mesh
-        # issues it too).
-        whole = torch.empty(local.numel() * mesh.size(), dtype=local.dtype,
-                            device=local.device)
-        dist.all_gather_into_tensor(whole, local.reshape(-1), group=mesh.get_group())
+        # The rank's rows of M after the application's one all-gather of v
+        # (sparse_operator's route for an ELL matrix).
+        whole = all_gather_flat(local, mesh.get_group())
         y = ell_spmv(per_mesh(own_rows, mesh, rows), whole).reshape(local.shape)
         return DTensor.from_local(y, mesh, places, run_check=False)
 

@@ -25,7 +25,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply, row_combine
+from gmres_tpu_torch.ops.blas import (
+    as_plain,
+    complex_from,
+    complex_parts,
+    row_apply,
+    row_combine,
+    row_op,
+    rows_like,
+)
 from gmres_tpu_torch.ops.hessenberg_eig import schur_eigvec, sorted_schur
 from gmres_tpu_torch.solvers.lanczos import arnoldi_expand
 from gmres_tpu_torch.types import EigResult, LinearOperator, SolverStatus
@@ -49,7 +57,12 @@ def complex_apply(A: LinearOperator, is_complex: bool):
     view)."""
     if is_complex:
         return A
-    return lambda v: torch.complex(A(v.real.contiguous()), A(v.imag.contiguous()))
+
+    def apply(v):
+        re, im = complex_parts(v)
+        return complex_from(A(re), A(im))
+
+    return apply
 
 
 def arnoldi_eigs(
@@ -123,9 +136,13 @@ def arnoldi_eigs(
         new_smat[k, :k] = s_row[:k]
         return new_basis, new_smat.to(dev, cdtype)
 
-    basis = torch.zeros((m + 1,) + shape, dtype=cdtype, device=dev)
+    # A row-sharded probe gives a [Shard(1)] basis whose partial sums are
+    # complex. They are all-reduced as they are: gloo's allreduce and NCCL's
+    # both take a complex sum through its real view (gloo run on 2 and 4
+    # ranks; NCCL between cards not yet).
+    basis = rows_like(m + 1, probe, cdtype)
     v0 = probe.to(cdtype)
-    nrm = torch.sqrt(torch.sum(v0.abs() ** 2))
+    nrm = torch.sqrt(as_plain(torch.sum(v0.abs() ** 2)))
     basis[0] = v0 / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
     smat = torch.zeros((m + 1, m), dtype=cdtype, device=dev)
     start, cycles = 0, 0
@@ -146,13 +163,13 @@ def arnoldi_eigs(
         zy = torch.full((m, nev), complex("nan"), dtype=cdtype, device=dev)
     x = row_combine(zy, basis[:m])
     axes = tuple(range(1, x.dim()))
-    xn = torch.sqrt(torch.sum(x.abs() ** 2, dim=axes))
-    x = x / torch.where(xn > 0, xn, torch.ones_like(xn)).reshape((-1,) + (1,) * len(shape))
+    xn = torch.sqrt(as_plain(torch.sum(x.abs() ** 2, dim=axes)))
+    x = row_op(torch.div, x, torch.where(xn > 0, xn, torch.ones_like(xn)))
     wanted = torch.diagonal(t)[:nev].to(dev, cdtype)
 
     ax = row_apply(a_c, x)
-    lam_x = wanted.reshape((-1,) + (1,) * len(shape)) * x
-    resid = torch.sqrt(torch.sum((ax - lam_x).abs() ** 2, dim=axes)).to(rdtype)
+    lam_x = row_op(torch.mul, x, wanted)
+    resid = torch.sqrt(as_plain(torch.sum((ax - lam_x).abs() ** 2, dim=axes))).to(rdtype)
     syncs += 1
     if bool((resid < tol).all()):
         status = SolverStatus.CONVERGED

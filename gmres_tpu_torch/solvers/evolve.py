@@ -26,6 +26,7 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
+from gmres_tpu_torch.ops.blas import rows_like
 from gmres_tpu_torch.types import Preconditioner, SolverStatus
 
 
@@ -127,8 +128,8 @@ def theta_evolve(
         return forcing
 
     u = u0
-    rec = (torch.zeros((recycle_k,) + tuple(u0.shape), dtype=dtype, device=dev)
-           if solver == "gcrodr" else None)
+    # The zero recycle block of the first step ([Shard(1)] on a sharded u0).
+    rec = rows_like(recycle_k, u0) if solver == "gcrodr" else None
     c_prev = None
     iters, resids, statuses, snaps = [], [], [], []
     syncs = 0

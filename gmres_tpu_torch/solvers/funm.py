@@ -25,7 +25,7 @@ from typing import Any, Callable
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_combine, tree_vdot
+from gmres_tpu_torch.ops.blas import row_combine, shard_rows_like, tree_vdot
 from gmres_tpu_torch.solvers.lanczos import arnoldi_factorization
 from gmres_tpu_torch.types import LinearOperator
 
@@ -150,11 +150,14 @@ def trace_funm(
     """tr f(A) for symmetric A by stochastic Lanczos quadrature (Ubaru,
     Chen, Saad 2017): the mean of ‖z‖²·e₁ᵀ f(T_m) e₁ over Rademacher probes
     z (the arguments of ``gmres_tpu.trace_funm``; ``key`` is an int seed,
-    default 0). x_like gives the probes' shape, dtype and device."""
+    default 0). x_like gives the probes' shape, dtype and device; on a
+    row-sharded x_like the probes are the same draws placed like it, so
+    each rank runs the quadrature on its own rows."""
     z = _rademacher(n_probes, tuple(x_like.shape), x_like.dtype, x_like.device,
                     0 if key is None else key)
+    z = shard_rows_like(z, x_like)
     samples = []
-    for zi in z:
+    for zi in (z[i] for i in range(n_probes)):
         _, hmat = arnoldi_factorization(A, zi, steps)
         theta, q, _, _ = _projected_eigh(hmat, steps)
         quad = torch.sum(f(theta) * q[0, :] ** 2).to(x_like.device, x_like.dtype)

@@ -25,7 +25,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply, row_combine
+from gmres_tpu_torch.ops.blas import (
+    as_plain,
+    complex_from,
+    row_apply,
+    row_combine,
+    row_op,
+    rows_like,
+)
 from gmres_tpu_torch.solvers.lanczos import arnoldi_expand
 from gmres_tpu_torch.types import EigResult, SolverStatus
 
@@ -107,9 +114,9 @@ def arnoldi_eigs_real(
     ndim = len(shape)
     syncs = 0
 
-    nrm = float(torch.sqrt(torch.sum(probe * probe)))
+    nrm = float(torch.sqrt(as_plain(torch.sum(probe * probe))))
     syncs += 1
-    basis = torch.zeros((m + 1,) + shape, dtype=rdtype, device=dev)
+    basis = rows_like(m + 1, probe)  # [Shard(1)] for a row-sharded probe
     basis[0] = probe / (nrm if nrm > 0 else 1.0)
     hmat_np = np.zeros((m + 1, m), dtype=np.float64)
     start = 0
@@ -171,17 +178,16 @@ def arnoldi_eigs_real(
     xr = row_combine(wr, basis[:m])
     xi = row_combine(wi, basis[:m])
     axr, axi = row_apply(A, xr), row_apply(A, xi)
-    bc = (-1,) + (1,) * ndim
-    rr = axr - (lr.reshape(bc) * xr - li.reshape(bc) * xi)
-    ri = axi - (lr.reshape(bc) * xi + li.reshape(bc) * xr)
+    rr = axr - (row_op(torch.mul, xr, lr) - row_op(torch.mul, xi, li))
+    ri = axi - (row_op(torch.mul, xi, lr) + row_op(torch.mul, xr, li))
     axes = tuple(range(1, ndim + 1))
-    res = torch.sqrt(torch.sum(rr * rr + ri * ri, dim=axes))
+    res = torch.sqrt(as_plain(torch.sum(rr * rr + ri * ri, dim=axes)))
     # Normalise exactly (the zy columns are unit only up to the basis's
     # orthonormality).
-    x = torch.complex(xr, xi)
-    xn = torch.sqrt(torch.sum(x.abs() ** 2, dim=axes))
+    x = complex_from(xr, xi)
+    xn = torch.sqrt(as_plain(torch.sum(x.abs() ** 2, dim=axes)))
     safe = torch.where(xn > 0, xn, torch.ones_like(xn))
-    x = x / safe.reshape(bc)
+    x = row_op(torch.div, x, safe)
     res = res / safe
     syncs += 1
     if status == SolverStatus.CONVERGED and not bool((res < tol).all()):

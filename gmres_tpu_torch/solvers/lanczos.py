@@ -24,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.blas import row_combine, row_contract, tree_vdot
+from gmres_tpu_torch.ops.blas import row_combine, row_contract, rows_like, tree_vdot
 from gmres_tpu_torch.types import LinearOperator
 
 
@@ -144,8 +144,7 @@ def arnoldi_factorization(
     Hessenberg."""
     nrm = torch.sqrt(tree_vdot(probe, probe))
     v0 = probe / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
-    basis = torch.zeros((steps + 1,) + tuple(probe.shape), dtype=probe.dtype,
-                        device=probe.device)
+    basis = rows_like(steps + 1, probe)  # [Shard(1)] for a row-sharded probe
     basis[0] = v0
     hmat = torch.zeros((steps + 1, steps), dtype=probe.dtype, device=probe.device)
     return arnoldi_expand(A, basis, hmat, 0)

@@ -27,7 +27,16 @@ from typing import Callable, Optional
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply
+from gmres_tpu_torch.ops.blas import (
+    as_plain,
+    gram,
+    on_local,
+    place_like,
+    row_apply,
+    row_combine,
+    row_op,
+    shard_rows_like,
+)
 from gmres_tpu_torch.types import EigResult, SolverStatus
 
 
@@ -53,13 +62,14 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 
 def _rows_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(p, *shape) × (q, *shape) → (p, q) Gram block conj(a)·bᵀ."""
-    return a.reshape(a.shape[0], -1).conj() @ b.reshape(b.shape[0], -1).T
+    """(p, *shape) × (q, *shape) → (p, q) Gram block conj(a)·bᵀ, a plain
+    tensor (one all-reduce on a sharded block)."""
+    return gram(a.conj(), b)
 
 
-def _combine(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """rows_out[j] = Σ_a c[a, j]·s[a]."""
-    return torch.tensordot(c, s, dims=([0], [0]))
+def _row_norms(v: torch.Tensor) -> torch.Tensor:
+    """The (k,) Euclidean norms of the rows of a (k, *shape) block, plain."""
+    return torch.sqrt(as_plain(torch.sum(v.reshape(v.shape[0], -1).abs() ** 2, dim=1)))
 
 
 def _svqb_b(w, bw, eps, same):
@@ -75,8 +85,8 @@ def _svqb_b(w, bw, eps, same):
     lmax = torch.clamp(lam[-1], min=eps)
     lam_c = torch.clamp(lam, min=float(eps * lmax))
     smat = ((dinv[:, None] * u) / torch.sqrt(lam_c)[None, :]).to(w.device, w.dtype)
-    q = _combine(smat, w)
-    return q, (q if same else _combine(smat, bw))
+    q = row_combine(smat, w)
+    return q, (q if same else row_combine(smat, bw))
 
 
 def lobpcg(
@@ -112,7 +122,8 @@ def lobpcg(
     dtype, dev = X0.dtype, X0.device
     shape = tuple(X0.shape[1:])
     if guard:
-        X0 = torch.cat([X0, _guard_rows(guard, shape, dtype, dev)], dim=0)
+        X0 = torch.cat([X0, shard_rows_like(_guard_rows(guard, shape, dtype, dev), X0[0])],
+                       dim=0)
     k = X0.shape[0]
     eps = float(torch.finfo(dtype).eps)
     rdtype = dtype.to_real() if dtype.is_complex else dtype
@@ -131,10 +142,11 @@ def lobpcg(
     def fill_degenerate(v, i, salt):
         """Rows with norm at most √eps times the block's largest are replaced
         by the fallback block's rows (all of them when the block is zero)."""
-        norms = torch.sqrt(torch.sum(v.reshape(v.shape[0], -1).abs() ** 2, dim=1))
+        norms = _row_norms(v)
         keep = norms > (eps ** 0.5) * torch.max(norms)
-        noise = _fallback_rows(i, salt, v.shape, dtype, dev)
-        return torch.where(keep.reshape(bc), v, noise)
+        # The same draws on a sharded block, each rank keeping its rows.
+        noise = place_like(_fallback_rows(i, salt, v.shape, dtype, dev), v)
+        return on_local(lambda t, z: torch.where(keep.reshape(bc), t, z), v, noise)
 
     def rayleigh_ritz(s):
         """Jointly B-orthonormalise the rows, then Ritz-extract the k
@@ -147,17 +159,17 @@ def lobpcg(
         syncs += 3
         lam_all, c = torch.linalg.eigh(0.5 * (h + h.conj().T))
         ck = c[:, :k].to(dev, dtype)
-        x, ax = _combine(ck, q), _combine(ck, aq)
-        bx = x if B is None else _combine(ck, bq)
+        x, ax = row_combine(ck, q), row_combine(ck, aq)
+        bx = x if B is None else row_combine(ck, bq)
         lam = lam_all[:k].to(dev, rdtype)
-        r = ax - lam.reshape(bc) * bx
-        resnorm = torch.sqrt(torch.sum(r.reshape(k, -1).abs() ** 2, dim=1))
+        r = ax - row_op(torch.mul, bx, lam)
+        resnorm = _row_norms(r)
         # A Ritz vector that lost its unit B-norm must not pass on its small
         # residual: a large finite sentinel (a transient rank deficiency is
         # repaired by the next iteration; a NaN is a breakdown).
         big = torch.finfo(rdtype).max ** 0.5
-        xnorm = torch.sqrt(torch.abs(torch.sum(
-            x.reshape(k, -1).conj() * bx.reshape(k, -1), dim=1)))
+        xnorm = torch.sqrt(torch.abs(as_plain(torch.sum(
+            x.reshape(k, -1).conj() * bx.reshape(k, -1), dim=1))))
         resnorm = torch.where(torch.abs(xnorm - 1.0) < 0.5, resnorm,
                               torch.full_like(resnorm, big))
         return lam, x, r, resnorm
@@ -183,7 +195,7 @@ def lobpcg(
         w = fill_degenerate(m_block(r), i, 1)
         p_f = fill_degenerate(p, i, 2)
         lam_n, x_n, r, resnorm = rayleigh_ritz(torch.cat([x, w, p_f], dim=0))
-        p = x_n - _combine(_rows_dot(x, x_n), x)
+        p = x_n - row_combine(_rows_dot(x, x_n), x)
         x, lam = x_n, lam_n
         status = decide(lam, resnorm, status)
         i += 1

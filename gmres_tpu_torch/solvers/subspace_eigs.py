@@ -23,7 +23,16 @@ from typing import Callable
 import numpy as np
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply
+from gmres_tpu_torch.ops.blas import (
+    as_plain,
+    complex_from,
+    gram,
+    is_dtensor,
+    row_apply,
+    row_combine,
+    row_op,
+    shard_rows_like,
+)
 from gmres_tpu_torch.types import EigResult, SolverStatus
 
 
@@ -33,6 +42,24 @@ def _start_block(n: int, p: int, dtype: torch.dtype, device) -> torch.Tensor:
     float64 so every device and dtype starts from the same numbers."""
     gen = torch.Generator(device="cpu").manual_seed(11)
     return torch.randn((n, p), generator=gen, dtype=torch.float64).to(device, dtype)
+
+
+def _orthonormal_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Orthonormal rows spanning those of the (p, *shape) block: the Q of
+    LAPACK's QR of the (n, p) column block on a plain block; on a sharded
+    one, CholQR2 (two passes of R = chol(Gram), Q = rows·R⁻¹, each Gram one
+    all-reduce of ``gram``), which keeps every rank on its own rows where a
+    QR would gather the tall block. The two differ by column signs and
+    rounding, which do not move the Ritz values."""
+    p = rows.shape[0]
+    if not is_dtensor(rows):
+        q, _ = torch.linalg.qr(rows.reshape(p, -1).T)
+        return q.T.reshape(rows.shape)
+    for _ in range(2):
+        r = torch.linalg.cholesky(gram(rows, rows), upper=True)
+        eye = torch.eye(p, dtype=r.dtype, device=r.device)
+        rows = row_combine(torch.linalg.solve_triangular(r, eye, upper=True), rows)
+    return rows
 
 
 def subspace_eigs(
@@ -67,18 +94,20 @@ def subspace_eigs(
     rdtype, dev = probe.dtype, probe.device
 
     def a_block(rows):
-        """A on each of the rows (p, n) → (p, n); the rows are made
-        contiguous first (a row of Qᵀ is a strided view, which a kernel
-        does not take)."""
-        return row_apply(lambda v: A(v.reshape(shape)).reshape(-1), rows.contiguous())
+        """A on each of the rows (p, *shape) → (p, *shape), made contiguous
+        first (a kernel takes no strided view)."""
+        return row_apply(A, rows.contiguous())
 
-    q0 = _start_block(n, p, rdtype, dev)
-    q0[:, 0] += probe.reshape(-1)
-    q, _ = torch.linalg.qr(q0)
+    # The block is kept as p rows shaped like the probe ([Shard(1)] for a
+    # row-sharded probe, each rank holding its rows of the same draws).
+    rows = shard_rows_like(_start_block(n, p, rdtype, dev).T.reshape((p,) + shape),
+                           probe)
+    rows[0] += probe
+    q = _orthonormal_rows(rows)
     for _ in range(iters):
-        q, _ = torch.linalg.qr(a_block(q.T).T)
-    aq = a_block(q.T).T
-    h_np = (q.T @ aq).detach().to("cpu", torch.float64).numpy()
+        q = _orthonormal_rows(a_block(q))
+    aq = a_block(q)
+    h_np = gram(q, aq).detach().to("cpu", torch.float64).numpy()
     lam, w = np.linalg.eig(h_np)
     order = np.argsort(-np.abs(lam))[:nev]
     lam = lam[order]
@@ -89,12 +118,13 @@ def subspace_eigs(
         return torch.as_tensor(np.ascontiguousarray(a), dtype=rdtype, device=dev)
 
     wr, wi, lr, li = on_dev(w.real), on_dev(w.imag), on_dev(lam.real), on_dev(lam.imag)
-    xr = (q @ wr).T
-    xi = (q @ wi).T
+    xr = row_combine(wr, q)
+    xi = row_combine(wi, q)
     axr, axi = a_block(xr), a_block(xi)
-    rr = axr - (lr[:, None] * xr - li[:, None] * xi)
-    ri = axi - (lr[:, None] * xi + li[:, None] * xr)
-    res = torch.sqrt(torch.sum(rr * rr + ri * ri, dim=1))
+    rr = axr - (row_op(torch.mul, xr, lr) - row_op(torch.mul, xi, li))
+    ri = axi - (row_op(torch.mul, xi, lr) + row_op(torch.mul, xr, li))
+    axes = tuple(range(1, len(shape) + 1))
+    res = torch.sqrt(as_plain(torch.sum(rr * rr + ri * ri, dim=axes)))
     res_np = res.detach().cpu().numpy()
     if not np.all(np.isfinite(res_np)):
         status = SolverStatus.BREAKDOWN
@@ -104,5 +134,5 @@ def subspace_eigs(
         status = SolverStatus.MAX_ITERATIONS
     return EigResult(
         eigenvalues=torch.as_tensor(lam, dtype=rdtype.to_complex(), device=dev),
-        x=torch.complex(xr, xi).reshape((nev,) + shape),
+        x=complex_from(xr, xi),
         iterations=iters, residuals=res, status=int(status), host_syncs=2)

@@ -382,6 +382,38 @@ def test_evolve_heat_mg_fault_is_pinned(capsys):
     assert "evolve-heat" not in capsys.readouterr().out
 
 
+# tests/test_benchmarks_cli.py:72-75: the scale program's two arms and spmv.
+SCALE_SPMV_RUNS = {
+    "scale": ["scale", "--grids", "16,32", "--restart", "8", "--tol", "1e-8"],
+    "scale-3d": ["scale", "--grids", "16,32", "--tol", "1e-8", "--dim", "3"],
+    "spmv": ["spmv", "--nsize", "32", "--reps", "2"],
+}
+
+
+@pytest.mark.parametrize("label", sorted(SCALE_SPMV_RUNS))
+def test_scale_and_spmv_match_jax(label, tmp_path, capsys):
+    """The scale and spmv programs with --device cpu against gmres_tpu's: the
+    same rows in the same order, each with JAX's nvars, nnz, iterations,
+    restarts and total_iters, and (scale) status 0 where JAX's residual is
+    under its tol. Times are not compared. On the CPU spmv has no kernel
+    rows, as JAX's has none off the TPU."""
+    argv = SCALE_SPMV_RUNS[label]
+    port_jsonl, jax_jsonl = str(tmp_path / "port.jsonl"), str(tmp_path / "jax.jsonl")
+    port_main(argv + ["--device", "cpu", "--jsonl", port_jsonl])
+    printed = capsys.readouterr().out
+    jax_main(argv + ["--jsonl", jax_jsonl])
+    port, ref = _rows(port_jsonl), _rows(jax_jsonl)
+    assert [r["name"] for r in port] == [r["name"] for r in ref]
+    for p, j in zip(port, ref):
+        assert p["name"] in printed
+        for key in ("nvars", "nnz", "iterations", "restarts", "total_iters"):
+            assert p.get(key) == j.get(key), (p["name"], key, p.get(key), j.get(key))
+        if "residual" in j:
+            assert j["residual"] < j["tol"] and p["status"] == 0 and p["residual"] < p["tol"]
+        else:
+            assert "status" not in p and p["gnnz_per_s"] > 0
+
+
 def test_solver_choices_are_validated():
     with pytest.raises(SystemExit):
         port_main(["restart-sweep", "--solver", "gmress", "--device", "cpu"])
@@ -389,7 +421,7 @@ def test_solver_choices_are_validated():
 
 @pytest.mark.parametrize("program", sorted({v[0] for v in RUNS.values()}
                                             | {v[0] for v in SPECTRAL_RUNS.values()}
-                                            | {"roofline"}))
+                                            | {"roofline", "scale", "spmv"}))
 def test_program_raises_without_a_card(program, monkeypatch):
     """No CUDA device and no --device cpu: the program raises, it does not
     fall back to the CPU."""
@@ -407,7 +439,7 @@ def test_help_lists_the_programs():
     for program in ("dense-poisson", "hilbert", "poisson-mf", "cg", "bicgstab", "convdiff",
                     "strong-scaling", "weak-scaling", "restart-sweep", "multirhs",
                     "varcoef", "roofline", "bratu", "helmholtz", "sequence", "eig", "slq",
-                    "evolve"):
+                    "evolve", "scale", "spmv"):
         assert program in out
 
 

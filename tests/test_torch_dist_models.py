@@ -35,7 +35,7 @@ import gmres_tpu as gt
 from gmres_tpu.parallel.mesh import solver_mesh
 from gmres_tpu.precond.multigrid import csl_multigrid_preconditioner
 from tests import torch_dist_models_worker as worker
-from tests.torch_parity import one_rank_mesh, rel_err
+from tests.torch_parity import assembled as _assembled, one_rank_mesh, rel_err
 
 N, N_ANISO, N_3D, N_IMPL = worker.N, worker.N_ANISO, worker.N_3D, worker.N_IMPL
 KH2, CSL_BELOW = worker.KH2, worker.CSL_BELOW
@@ -209,24 +209,6 @@ def worlds(tmp_path_factory):
 def dist_run(request, worlds):
     """(port, jax, world) at one world size."""
     return worlds[request.param]
-
-
-def _assembled(out_dir, world) -> dict:
-    """The ranks' outputs: blocks concatenated, the rest equal on every
-    rank."""
-    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
-    port = {}
-    for key in ranks[0].files:
-        vals = [z[key] for z in ranks]
-        if key.endswith("_rows"):
-            port[key[:-5]] = np.concatenate(vals, axis=0)
-        elif key.endswith("_blk"):
-            port[key[:-4]] = np.concatenate(vals, axis=1)
-        else:
-            for v in vals[1:]:
-                np.testing.assert_array_equal(v, vals[0], err_msg=key)
-            port[key] = vals[0]
-    return port
 
 
 def _counts(port, name):

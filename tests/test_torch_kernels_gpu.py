@@ -1634,3 +1634,203 @@ def test_plain_operator_on_a_cuda_dtensor(cuda_device, tmp_path):
         assert (tst.stencil5_cuda.launches, tfu.chebk_cuda.launches) == before
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_on_a_rank_block_with_shifted_offsets(cuda_device, dtype):
+    """K3 as the sharded route launches it for an interior rank (rank 1 of 4
+    of the Poisson 256² DIA: its 16384 rows, x widened by h = 256 entries on
+    either side, the offsets shifted by h; built here without a group):
+    the whole matrix's K3 rows to the bit, and the plain rows version's."""
+    n = 256
+    a = tt.poisson_dia(n, dtype=dtype, device=cuda_device)
+    x = to_torch(seeded(80, n * n), cuda_device).to(dtype)
+    m, h = n * n // 4, n
+    lo = m
+    local = tsp.DIAMatrix(data=a.data[:, lo:lo + m].contiguous(),
+                          offsets=tuple(o + h for o in a.offsets), shape=(m, m + 2 * h))
+    xw = x[lo - h:lo + m + h].contiguous()
+    before = tsp.dia_spmv_cuda.launches
+    y = tsp.dia_spmv_pallas(local, xw)
+    torch.cuda.synchronize()
+    assert tsp.dia_spmv_cuda.launches == before + 1
+    torch.testing.assert_close(y, tsp.dia_spmv_pallas(a, x)[lo:lo + m], rtol=0, atol=0)
+    torch.testing.assert_close(y, tsp.dia_spmv(local, xw), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
+def test_k4_on_a_rank_block_rows(cuda_device, dtype, rtol):
+    """K4 as the sharded route launches it for an interior rank (block rows
+    4–7 of a 16 × 128² block-tridiagonal BSR, x the window of block columns
+    3–8, the block columns shifted by 3): the whole matrix's K4 rows to the
+    bit, and the einsum twin on the same block within rtol."""
+    bs = 128
+    a = _block_tridiagonal(cuda_device, dtype, 16, bs)
+    x = to_torch(seeded(81, 16 * bs), cuda_device).to(dtype)
+    local = tsp.BSRMatrix(data=a.data[4:8].contiguous(),
+                          block_cols=(a.block_cols[4:8] - 3).contiguous(),
+                          shape=(4 * bs, 6 * bs))
+    xw = x[3 * bs:9 * bs].contiguous()
+    before = tsp.bsr_spmv_cuda.launches
+    y = tsp.bsr_spmv_pallas(local, xw)
+    torch.cuda.synchronize()
+    assert tsp.bsr_spmv_cuda.launches == before + 1
+    torch.testing.assert_close(y, tsp.bsr_spmv_pallas(a, x)[4 * bs:8 * bs], rtol=0, atol=0)
+    assert rel_err(y, tsp.bsr_spmv(local, xw)) < rtol
+
+
+def _one_rank_nccl(tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    return tt.solver_mesh(1)
+
+
+def _sparse_launches():
+    return tsp.dia_spmv_cuda.launches, tsp.bsr_spmv_cuda.launches
+
+
+def _spectral_sharded(name, dev, place):
+    """One run of an 8.6b function at a small size on ``dev``, its b (probe,
+    block, u0, x_like) passed through ``place``: (result, a value to
+    compare)."""
+    n = 64
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    probe = torch.randn((n, n), generator=gen, dtype=torch.float64).to(dev)
+    cd = tt.convection_diffusion_operator(n, 0.4, 0.2)
+    poisson = tt.poisson_operator(n)
+    if name == "lobpcg":
+        x0 = torch.randn((3, n, n), generator=gen, dtype=torch.float64).to(dev)
+        res = tt.lobpcg(poisson, place(x0, 1), tol=1e-9,
+                        M=tt.poisson_multigrid_preconditioner(n))
+        return res, res.eigenvalues
+    if name == "arnoldi_eigs":
+        res = tt.arnoldi_eigs(cd, place(probe), nev=4, steps=30, tol=1e-10)
+        return res, res.eigenvalues
+    if name == "arnoldi_eigs_real":
+        res = tt.arnoldi_eigs_real(cd, place(probe), nev=4, steps=30, tol=1e-10)
+        return res, res.eigenvalues
+    if name == "subspace_eigs":
+        res = tt.subspace_eigs(cd, place(torch.ones_like(probe)), nev=3, guard=5, iters=100)
+        return res, res.eigenvalues
+    if name == "expm_multiply":
+        res = tt.expm_multiply(poisson, place(probe), 0.4, steps=30)
+        return res, res.y
+    if name == "exponential_evolve":
+        res = tt.exponential_evolve(poisson, place(probe), dt=0.1, n_steps=3, steps=20)
+        return res, res.u
+    if name == "theta_evolve":
+        res = tt.theta_evolve(poisson, place(probe), dt=0.5, n_steps=3, solver="cg", tol=1e-12,
+                              M=tt.poisson_multigrid_preconditioner(n))
+        return res, res.u
+    res = tt.trace_funm(poisson, torch.log, place(probe), n_probes=4, steps=20)
+    return res, res.value
+
+
+SPECTRAL_86B = ["lobpcg", "arnoldi_eigs", "arnoldi_eigs_real", "subspace_eigs",
+                "expm_multiply", "exponential_evolve", "theta_evolve", "trace_funm"]
+
+
+def test_spectral_and_cycles_on_a_cuda_dtensor(cuda_device, tmp_path):
+    """Each eigensolver, matrix function and time stepper on a one-rank CUDA
+    DTensor (an NCCL group made here; LOBPCG's block [Shard(1)], the others
+    [Shard(0)]) runs without handing a kernel wrapper a DTensor, launches
+    K1, and equals its run on the plain CUDA tensor within 1e-10 relative
+    (subspace iteration's sharded block is CholQR2's, the plain one LAPACK's
+    QR: 1e-8); each mesh=None cycle on a CUDA DTensor is the distributed
+    cycle (every 256² level sharded on one rank: K1's halo form, one launch
+    an exchange), the plain cycle within 1e-13 relative."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    mesh = _one_rank_nccl(tmp_path)
+    try:
+        def place(t, dim=0):
+            return distribute_tensor(t, mesh, [Shard(dim)])
+
+        def full(v):
+            return v.full_tensor() if hasattr(v, "full_tensor") else v
+
+        for name in SPECTRAL_86B:
+            _, plain = _spectral_sharded(name, cuda_device, lambda t, dim=0: t)
+            before = _kernel_counts()
+            halo_exchange.exchanges = 0
+            tst.stencil_5pt_pallas_halo.launches = 0
+            res, got = _spectral_sharded(name, cuda_device, place)
+            torch.cuda.synchronize()
+            assert _kernel_counts()["K1"] > before["K1"], name
+            # The operator saw the rows sharded (not replicated by DTensor).
+            assert halo_exchange.exchanges == tst.stencil_5pt_pallas_halo.launches > 0, name
+            state = next((getattr(res, f) for f in ("x", "y", "u") if hasattr(res, f)), None)
+            if state is not None:
+                assert all(isinstance(p, Shard) for p in state.placements), name
+            if name in ("lobpcg", "arnoldi_eigs", "arnoldi_eigs_real", "subspace_eigs"):
+                got, plain = np.sort_complex(full(got).cpu().numpy()), \
+                    np.sort_complex(plain.cpu().numpy())
+            bound = 1e-8 if name == "subspace_eigs" else 1e-10
+            assert rel_err(full(got), plain) < bound, name
+        n = 256
+        r = to_torch(seeded(82, (n, n)), cuda_device)
+        for m in (tt.poisson_multigrid_preconditioner(n),
+                  tt.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2, smoother="auto"),
+                  tt.helmholtz_shifted_laplacian_preconditioner(n, 0.5)):
+            plain = m(r)
+            halo_exchange.exchanges = 0
+            tst.stencil_5pt_pallas_halo.launches = 0
+            z = m(place(r))
+            torch.cuda.synchronize()
+            assert halo_exchange.exchanges == tst.stencil_5pt_pallas_halo.launches > 0
+            assert rel_err(z.full_tensor(), plain) <= 1e-13
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sparse_formats_on_a_cuda_dtensor(cuda_device, tmp_path):
+    """Every format on a one-rank CUDA DTensor x ([Shard(0)]): the plain CUDA
+    product within 1e-12 relative (DIA and HYB to the bit), K3 launched on
+    the DIA rows and K4 on the BSR block rows (the rank's plain tensors),
+    one exchange for DIA, HYB and the BSR band and one all-gather for CSR,
+    COO and ELL; CG on the sharded HYB takes the plain run's iterations."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    mesh = _one_rank_nccl(tmp_path)
+    try:
+        n = 64
+        csr = tt.poisson_csr(n, device=cuda_device)
+        mats = {"csr": csr, "coo": tt.coo_from_dense(tt.poisson_matrix(n, device="cpu").numpy(),
+                                                     device=cuda_device),
+                "ell": tt.csr_to_ell(csr), "dia": tt.poisson_dia(n, device=cuda_device),
+                "hyb": tt.csr_to_hyb(csr),
+                "bsr": _block_tridiagonal(cuda_device, torch.float64, 32, 128)}
+        for name, a in mats.items():
+            op = tt.sparse_operator(a)
+            x = to_torch(seeded(83, a.shape[1]), cuda_device)
+            plain = op(x)
+            k = _sparse_launches()
+            halo_exchange.exchanges = 0
+            with CommDebugMode() as comm:
+                y = op(distribute_tensor(x, mesh, [Shard(0)]))
+            torch.cuda.synchronize()
+            launched = tuple(b - a_ for a_, b in zip(k, _sparse_launches()))
+            gathers = sum(v for op_, v in comm.get_comm_counts().items()
+                          if "gather" in str(op_))
+            band = name in ("dia", "hyb", "bsr")
+            assert (halo_exchange.exchanges, gathers) == ((1, 0) if band else (0, 1)), name
+            assert launched == {"dia": (1, 0), "hyb": (1, 0), "bsr": (0, 1)}.get(name, (0, 0))
+            if name in ("dia", "hyb"):
+                torch.testing.assert_close(y.full_tensor(), plain, rtol=0, atol=0)
+            assert rel_err(y.full_tensor(), plain) < 1e-12, name
+        op = tt.sparse_operator(mats["hyb"])
+        b = op(torch.ones(n * n, dtype=torch.float64, device=cuda_device))
+        plain = tt.cg(op, b, tol=1e-9)
+        res = tt.cg(op, distribute_tensor(b, mesh, [Shard(0)]), tol=1e-9)
+        assert (res.iterations, res.status) == (plain.iterations, plain.status)
+    finally:
+        dist.destroy_process_group()

@@ -87,3 +87,22 @@ def one_rank_mesh(tmp_dir):
         yield mesh
     finally:
         dist.destroy_process_group()
+
+
+def assembled(out_dir, world) -> dict:
+    """The outputs of a spawned worker's ranks (``out_dir/rank{r}.npz``):
+    keys ending ``_rows`` concatenated along axis 0 and ``_blk`` along axis
+    1 (the suffix dropped), every other key equal on every rank."""
+    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
+    port = {}
+    for key in ranks[0].files:
+        vals = [z[key] for z in ranks]
+        if key.endswith("_rows"):
+            port[key[:-5]] = np.concatenate(vals, axis=0)
+        elif key.endswith("_blk"):
+            port[key[:-4]] = np.concatenate(vals, axis=1)
+        else:
+            for v in vals[1:]:
+                np.testing.assert_array_equal(v, vals[0], err_msg=key)
+            port[key] = vals[0]
+    return port
