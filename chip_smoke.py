@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase21            # the build and phase 21 alone
     python3 chip_smoke.py --phase22            # the build and phase 22 alone
     python3 chip_smoke.py --phase23            # the build and phase 23 alone
+    python3 chip_smoke.py --phase24            # the build and phase 24 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -17,7 +18,7 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase17`` to ``--phase23`` modes build the kernels and run that
+The ``--phase17`` to ``--phase24`` modes build the kernels and run that
 phase alone, with its checks. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
@@ -66,7 +67,7 @@ phase alone, with its checks. Phases of the smoke run:
    the time of the PyTorch sparse CSR/BSR product on the same matrix.
 8. The sparse solve of the ``cg`` program: cbpr2 CG on the HYB operator of
    the Poisson CSR matrix, float64, tol 1e-9 absolute, at 300² and 1000²
-   (the median of 5 solves after a warm-up; one profiled 1000² solve), and
+   (the median of CG_REPEATS solves after a warm-up; one profiled 1000² solve), and
    the pipelined variant at 300²; each checked by an independent numpy
    residual and by K3's launch count.
 9. GMRES (the reference configuration) on the 300² HYB operator, against
@@ -96,7 +97,7 @@ phase alone, with its checks. Phases of the smoke run:
     counts) and run one kernel in all (torch.profiler's count, within half
     a kernel: a profile can lose events), and equal the same application on
     halo_exchange's two zero rows (built here: three kernels); then the two under MGSR GMRES (cgs2,
-    m=50, float64) at tol 1e-8 and 1e-15, the median wall of 3 solves, the
+    m=50, float64) at tol 1e-8 and 1e-15, the wall of STRONG_REPEATS solves, the
     counts against the JAX package's, the launches of K1 and K5 against the
     operator and preconditioner applications, a profiled solve; then the
     same solve on plain tensors (the DTensor layer's cost), one mgs2 solve
@@ -124,13 +125,13 @@ phase alone, with its checks. Phases of the smoke run:
     (torch.profiler, within half a kernel) and equal the application on
     zero rows (built here: four kernels). Then float32 MGSR GMRES at 304²
     with the RDMA operator and the RDMA cbpr2 (m=50, tol 1e-5) and CG on
-    the RDMA operator (1e-4 relative), 3 timed solves each, checked in
+    the RDMA operator (1e-4 relative), STRONG_REPEATS timed solves each, checked in
     numpy, with K8's interior launches equal to the operator and
     preconditioner applications, no edge launch, and a profiled solve.
 
 15. BiCGSTAB, the Lanczos bounds and the reference's programs:
     cbpr2 BiCGSTAB (float64, tol 1e-9 absolute, b = A·1) at 300² and 1000²,
-    the median and quartiles of 5 solves after a warm-up, one profiled
+    BICGSTAB_REPEATS timed solves after a warm-up, one profiled
     solve (device busy, kernels per iteration), status 0, a numpy float64
     ‖b − A x‖ under 1e-9, the iterations against gmres_tpu's (within 15%:
     the count moves with the reductions' order, BICGSTAB_SPREAD) and K1's
@@ -167,7 +168,7 @@ phase alone, with its checks. Phases of the smoke run:
     less accurate float32 sums cost it a cycle), K1, its forms and K2
     launched (the
     polynomial only K1), K2's launches by path; at 1024² the median and
-    quartiles of 5 solves after a warm-up and one profiled solve. Then the
+    quartiles of CONVDIFF_REPEATS solves after a warm-up and one profiled solve. Then the
     program itself at BASELINE config 3 (``convdiff --nsize 1024 --precond
     mg --precision mixed --smoother auto``). The phase's wall time is
     printed.
@@ -175,7 +176,7 @@ phase alone, with its checks. Phases of the smoke run:
 17. The GMRES family on the card, each row through the port's public
     functions or the program's own setup, with the launch counts set to 0
     just before its warm-up (3 cycles for the long s-step and FGMRES rows)
-    and 3 timed solves and read just after; the
+    and FAMILY_REPEATS timed solves and read just after; the
     operator and the preconditioner are wrapped to count their
     applications, their launches per application are measured once each,
     and the launches over the solves must equal the applications times
@@ -196,10 +197,10 @@ phase alone, with its checks. Phases of the smoke run:
     launches an M); FGMRES(10) at 300² (tol 1e-6) with four CG steps as M.
     Each row: status 0, a numpy float64 residual under its tolerance in the
     norm the solver certifies, its counts against gmres_tpu's CPU counts
-    (within 2, or the band its constant states), host syncs, the median
-    and quartiles of the 3 timed solves.
+    (within 2, or the band its constant states), host syncs, the wall
+    of the FAMILY_REPEATS timed solves.
 18. The short-recurrence family and the real models, each row with the
-    launch counts set to 0 just before its warm-up and 3 timed solves and
+    launch counts set to 0 just before its warm-up and SHORT_REPEATS timed solves and
     read just after, its operator and preconditioner applications counted
     and its launches required to equal the applications times the launches
     per application: the ``multirhs --solver block-cg`` program (512², s 1,
@@ -246,13 +247,13 @@ phase alone, with its checks. Phases of the smoke run:
     differences. Each row: status 0, a numpy float64 residual in the norm
     the solver certifies, its count against gmres_tpu's CPU count
     (scripts/jax_phase19_counts.py; within 2 or the band its constant
-    states), host syncs, the median and quartiles of 3 timed solves, the
+    states), host syncs, the wall of PHASE19_REPEATS timed solves, the
     launches (K1 split into forward, transpose and tangent) checked against
     the applications; one profiled solve per solver family.
 
 20. The eigensolvers, matrix functions, time steppers and the Nyström and
     SPAI preconditioners, each row with the launch counts set to 0 after its
-    warm-up solve and read after its 3 timed solves (the median wall
+    warm-up solve and read after its PHASE20_REPEATS timed solves (the wall
     printed, the launches of K1, K1rr, K1cr and K2 per solve, the host
     syncs): the eig program's LOBPCG (Poisson, the V-cycle as M, k = 4) at
     256² (tol 1e-8) and 1024² (tol 0, the rtol of
@@ -297,7 +298,7 @@ phase alone, with its checks. Phases of the smoke run:
     program at d = 1 and the same solve with the ``mesh=`` cycle; (h)
     GCRO-DR(40, k 10) on convection–diffusion 512² with its cycle; (d),
     (e) and (h) replicate from P21_REPLICATE_BELOW rows. Each row: the
-    median wall of 3 solves after a warm-up, the counts against the same
+    wall of PHASE21_REPEATS solves after a warm-up, the counts against the same
     solve with ``mesh=None`` on plain tensors (equal), host syncs, K1 (halo
     and full grid), K1rr, K1cr, K2 and K5 launches a solve, all-gathers a
     cycle application and all-reduces by CommDebugMode over one more solve
@@ -347,6 +348,36 @@ phase alone, with its checks. Phases of the smoke run:
     rows beside the plain ones) and ``scale`` at its 2-D defaults (300² to
     4096²) and its ``--dim 3`` arm at 128³.
 
+24. Batched solves and the batched launches (a (lanes, rows, cols) block in
+    one launch, the lane a grid dimension: what jax.vmap makes of a Pallas
+    kernel). (a) Each batched kernel at B = 2, 4, 8 bitwise against B
+    single launches and against its plain version: K1 at 300² and 2048²,
+    float32 and float64, with one coefficient set and with one a lane; K1rr
+    and K1cr at 300² → 150² and 2048² → 1024²; K2 on its cluster (75²,
+    order 32), tiled (2048², order 3) and per-sweep (300², order 8,
+    float64) paths; device ms by CUDA-graph replay of the batched launch
+    and of the B single launches, the bound (the lanes' bytes and
+    operations), host µs, and for K1 and K1rr the batched ``F.conv2d``. (b)
+    One block application of the mg 512² cycle at s = 4 through
+    ``row_apply`` (vmap) and through a loop of single-vector applications
+    written here: the same bits, launches (the loop's s times row_apply's),
+    device ms and host µs of each. (c) Block CG at s = 4 + MG 512², LOBPCG
+    at k = 4 1024² and block GMRES(30) + MG at s = 4 512², with the launch
+    counts set to 0 just before and read just after: the counts of one
+    launch a row, no single-grid launch, block CG's launches a solve 1/s
+    of one launch a row's. (d)
+    ``batched_solve`` at full width, each with the launch counts set to 0
+    just before and read just after, then each lane's sequential solve on
+    the card: the mg configuration (Householder GMRES(10), float32 cycles
+    certified in float64) at 300² on 8 right-hand sides, CG + MG at 1024²
+    on 8, BiCGSTAB with the convection–diffusion cycle at γ (0.4, 0.2) on
+    convection–diffusion 256² over 4 lanes of γ around it (K1's per-lane
+    coefficients); each lane's counts and x its sequential run's to the
+    bit, a numpy float64 residual, the host reads (one an iteration for the
+    batch) the longest lane's, and the launches the longest lane's where
+    the lanes run in lockstep (CG), else between the longest lane's and all
+    lanes'; the batched wall against the B sequential walls.
+
 Phases 12–14 share one NCCL process group made by the script; phases 21,
 22 and 23 make one each. Any failure
 raises and exits non-zero. The line before the last is the
@@ -368,9 +399,14 @@ import warnings
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 TOL = 1e-8
+# Timed solves after each row's warm-up. The whole run must stay well
+# inside its 1200 s limit on a loaded host (with 2-5 timed solves a row,
+# phases 1-24 took 1040.8 s in one run on an H100 and 1264.0 s in another):
+# phases 8 and 12-21 time one or two solves a row; no correctness row is
+# dropped.
 SOLVE_REPEATS = 11
 CG_TOL = 1e-9  # the cg program's absolute tolerance
-CG_REPEATS = 5
+CG_REPEATS = 2
 REF_EIG = (0.2, 8.2)  # cbpr2's interval, the reference's eigenvalue bounds
 # Shapes of the sparse phases: the spmv program's default grid and the 2048²
 # secondary; the ends of the cg program's grids (300:1000); the BSR cases
@@ -402,7 +438,7 @@ STRONG_M = 50
 # the last cycle takes 20 iterations on 1 device and 21 on 8 (the order of
 # rounding): the check allows 2 inner iterations.
 JAX_STRONG_COUNTS = {1e-8: (24, 15), 1e-15: (56, 21)}
-STRONG_REPEATS = 3
+STRONG_REPEATS = 1
 # The program certifies the preconditioned norm ‖M(b − A x)‖/‖b‖. Its
 # independent numpy recomputation must meet tol, times this factor: at 1e-15
 # the float64 rounding of b − A x over 304² points is a tenth of the target
@@ -441,7 +477,7 @@ JAX_BICGSTAB_ITERATIONS = {300: 230, 1000: 744}
 # the card's count is held to this share of gmres_tpu's (at least 2), and the
 # gap is printed.
 BICGSTAB_SPREAD = 0.15
-BICGSTAB_REPEATS = 5
+BICGSTAB_REPEATS = 2
 # The Lanczos phase: 20 steps from a ones probe on the 300² operator; its
 # exact λ_max (poisson_spectral_bounds) must lie inside the bounds.
 LANCZOS_N = 300
@@ -485,7 +521,7 @@ JAX_CONVDIFF_ITERATIONS = {
     "bicgstab mg rbgs 256": 10, "bicgstabl mg rbgs strong 32": 25,
     "bicgstab poly24 64": 12,
 }
-CONVDIFF_REPEATS = 5
+CONVDIFF_REPEATS = 2
 # Mixed GMRES's restart cycles follow the float32 accuracy of each cycle's
 # update: gmres_tpu's float32 sums over the grid (XLA:CPU's) are less
 # accurate than PyTorch's or cuBLAS's, and it needs 3 cycles where the port
@@ -504,7 +540,7 @@ CONVDIFF_GMRES_BAND = 30 + 2
 # gmres-dr at the program's tol 1e-15 ends in BREAKDOWN in gmres_tpu too
 # (its Givens estimate reaches 1e-15, its certification 4.5e-14 misses
 # 10·tol at m = 20 and 25): its rows run at 1e-10.
-FAMILY_REPEATS = 3
+FAMILY_REPEATS = 1
 # The long rows (s-step, FGMRES: 2–4 s a solve on the card) warm up on a
 # run of this many cycles of the same solver, not on a whole solve.
 WARM_RESTARTS = 3
@@ -567,7 +603,7 @@ FGMRES_SPREAD = 0.15
 # public functions with the configurations below. The Poisson rows take
 # b = A·1 and tol 1e-9·‖b‖ (absolute, as each solver takes tol) with the
 # Poisson V-cycle; the multirhs and block rows tol 1e-8 per right-hand side.
-SHORT_REPEATS = 3
+SHORT_REPEATS = 1
 BLOCK_CG_S = 4
 POISSON_1024 = 1024
 SSTEP_CG_S = 4
@@ -609,7 +645,7 @@ JAX_PHASE18 = {
 # --solver qmr) and functions (qmr with the cycle and its transpose, lsqr,
 # lsmr). Program rows: [name, iterations, restarts, extras]; function rows:
 # (iterations, status).
-PHASE19_REPEATS = 3
+PHASE19_REPEATS = 1
 RULE_N = 1024
 HELM_N, HELM_FACTOR = 1024, 10.0
 # The programs' defaults: helmholtz, sequence, bratu. The sequence program
@@ -693,7 +729,7 @@ JAX_PHASE19 = {
 # values otherwise than JAX's, as in phase 19); CG and BiCGSTAB with the
 # preconditioners within 15% (BICGSTAB_SPREAD: the count moves with the
 # reductions' order).
-PHASE20_REPEATS = 3
+PHASE20_REPEATS = 1
 EIG_K = 4
 LOBPCG_BIG_N = 1024
 EIG_CD_N, EIG_GAMMA, EIG_STEPS = 256, (2.0, 0.5), 40
@@ -765,7 +801,7 @@ JAX_PHASE20 = {
 # row (c)'s tolerance, ~260 inner iterations; the level at and below which
 # rows (d), (e) and (h) replicate their cycles; row (f)'s step cap, LSQR
 # needing ~κ(A) ≈ 10⁵ steps to 1e-8 at 512²).
-PHASE21_REPEATS = 3
+PHASE21_REPEATS = 1
 P21_MG_ROWS = (("(a) mg 300", 300, 160), ("(b) mg 2048", 2048, 300))
 P21_CBPR2_TOL = 1e-4
 P21_MODEL_N = {"(d)": 1024, "(e)": 1024, "(h)": 512}
@@ -1515,18 +1551,21 @@ def mg_solve(gt_torch, n, dev, m_inv=None):
 
 def mg_counters(reset: bool = False) -> dict:
     """The launch counts of the kernels the mg solves run (set to 0 first
-    where `reset`)."""
+    where `reset`): each kernel's single-grid and batched launches together
+    ("K1", …; a block application through row_apply's vmap is one batched
+    launch), the batched ones also apart ("K1 batched", …), and K2's by
+    path."""
     from gmres_tpu_torch.ops import fused, stencil
 
     wrappers = {"K1": stencil.stencil5_cuda, "K1rr": stencil.residual_restrict_cuda,
                 "K1cr": stencil.correct_residual_cuda, "K2": fused.chebk_cuda}
     if reset:
         for w in wrappers.values():
-            w.launches = 0
-        fused.chebk_cuda.launches_by_path = dict.fromkeys(
-            fused.chebk_cuda.launches_by_path, 0)
+            w.launches = w.batched_launches = 0
+        fused.chebk_cuda.launches_by_path = dict.fromkeys(fused.chebk_cuda.launches_by_path, 0)
     out = {name: w.launches for name, w in wrappers.items()}
     out.update({f"K2 {p}": v for p, v in fused.chebk_cuda.launches_by_path.items()})
+    out.update({f"{name} batched": w.batched_launches for name, w in wrappers.items()})
     return out
 
 
@@ -3250,8 +3289,9 @@ def gcrodr_sequences(gt_torch, dev):
 
 def multirhs_rows(gt_torch, dev, workdir):
     """The multirhs program (block-gmres, s = 1, 4, 512², mg), then block
-    GMRES at s = 4 through the public function with its row applications
-    counted: a block application is s single-vector ones."""
+    GMRES at s = 4 through the public function with its block applications
+    counted: each is one call under row_apply's vmap, one batched launch of
+    each kernel."""
     import numpy as np
     import torch
 
@@ -3275,15 +3315,14 @@ def multirhs_rows(gt_torch, dev, workdir):
                                                  max_restarts=200),
         {"A": (op, b[0]), "M": (m_inv, b[0])})
     errs = [np_rel(b_np[i], res.x[i]) for i in range(s)]
-    block_apps = {name: calls[name] / ((FAMILY_REPEATS + 1) * s) for name in calls}
+    block_apps = {name: calls[name] / (FAMILY_REPEATS + 1) for name in calls}
     print(f"phase 17: {label}: status {res.status}, {res.restarts} restarts, "
           f"{res.host_syncs} host syncs, residuals {[f'{e:.3e}' for e in errs]} (numpy); "
-          f"block applications a solve {block_apps}, each {s} single-vector ones: "
-          f"launches per block application A {dict((k, s * v) for k, v in per['A'].items())}, "
-          f"M {dict((k, s * v) for k, v in per['M'].items())}", flush=True)
+          f"block applications a solve {block_apps}, each one batched launch of the "
+          f"kernels of one vector's: A {per['A']}, M {per['M']}", flush=True)
     require(res.status == 0 and max(errs) < 1e-8, f"{label}: {res.status}, {errs}")
-    require(all(c % s == 0 for c in calls.values()),
-            f"{label}: applications {calls} are not whole blocks of {s}")
+    require(all(count[f"{k} batched"] == count[k] for k in KERNELS),
+            f"{label}: single-grid launches in a block solve {count}")
     family_counts(f"{label} restarts", res.restarts, JAX_MULTIRHS_RESTARTS[s], 2)
     return family_record(label, res, times, count, calls, per, max(errs), rows=rows)
 
@@ -3457,9 +3496,9 @@ def short_print(label, res, err, norm, med, unit="iteration", count=None, phase=
 def short_multirhs(gt_torch, dev, workdir):
     """The multirhs program with block CG (JAX's defaults: 512², s 1, 2, 4,
     8, the V-cycle, tol 1e-8), its launches counted over the program; then
-    block_cg at s = 4 through the public function, its row applications
-    counted: whole blocks of s, each block application s single-vector
-    ones."""
+    block_cg at s = 4 through the public function, its block applications
+    counted: each one call under row_apply's vmap, one batched launch of
+    each kernel."""
     import numpy as np
     import torch
 
@@ -3504,15 +3543,13 @@ def short_multirhs(gt_torch, dev, workdir):
         {"A": (op, b[0]), "M": (m_inv, b[0])}, repeats=SHORT_REPEATS, phase="phase 18")
     x_np = res.x.detach().cpu().numpy()
     errs = [float(np.linalg.norm(b_np[i] - np_stencil(x_np[i]))) for i in range(s)]
-    blocks = {name: calls[name] / s for name in calls}
     short_print(label, res, max(errs), "max ‖bᵢ − A xᵢ‖", med, count=count)
     print(f"phase 18: {label}: block applications over the warm-up and {SHORT_REPEATS} "
-          f"solves {blocks}; launches per block application A "
-          f"{dict((k, s * v) for k, v in per['A'].items())}, M "
-          f"{dict((k, s * v) for k, v in per['M'].items())}", flush=True)
+          f"solves {calls}; launches per block application (batched) A {per['A']}, M "
+          f"{per['M']}", flush=True)
     require(res.status == 0 and max(errs) < 1e-8, f"{label}: {res.status}, {errs}")
-    require(all(c % s == 0 for c in calls.values()),
-            f"{label}: applications {calls} are not whole blocks of {s}")
+    require(all(count[f"{k} batched"] == count[k] for k in KERNELS),
+            f"{label}: single-grid launches in a block solve {count}")
     family_counts(f"{label} iterations", res.iterations, JAX_PHASE18["block_cg"][0], 2,
                   phase="phase 18")
     prof = profile_solve(lambda: gt_torch.block_cg(op, b, tol=1e-8, M=m_inv,
@@ -4681,12 +4718,15 @@ def eig_cd_rows(gt_torch, dev, g, suffix, profile):
                     f"{label}: {gap} from the CPU port, {err} from the closed form")
             extra["cpu_port_gap"] = gap
         if method == "arnoldi":
+            # The cycles' matvecs one vector each; the certification's EIG_K
+            # in one block application (row_apply's vmap).
             k = min(max(EIG_K + 1, 2 * EIG_K), steps - 2)
             matvecs = steps + (res.iterations - 1) * (steps - k) + EIG_K
-            print(f"phase 20: {label}: {matvecs} complex matvecs a solve, {applications} "
-                  f"real applications, {count['K1'] / PHASE20_REPEATS:g} K1 launches",
-                  flush=True)
-            require(applications == 2 * matvecs, f"{label}: not 2 K1 per complex matvec")
+            print(f"phase 20: {label}: {matvecs} complex matvecs a solve ({EIG_K} of them "
+                  f"one block application), {applications} real applications, "
+                  f"{count['K1'] / PHASE20_REPEATS:g} K1 launches", flush=True)
+            require(applications == 2 * (matvecs - EIG_K + 1),
+                    f"{label}: not 2 K1 per complex matvec or block application")
             extra["complex_matvecs"] = matvecs
         if method != "subspace" and profile:
             capped = min(res.iterations, PROFILE_CYCLES)
@@ -4853,13 +4893,14 @@ def preconditioner_rows(gt_torch, dev):
     err = float(np.linalg.norm(b_np - np_stencil(res.x.cpu().numpy())))
     jrow = JAX_PHASE20["nystrom512"]
     print(f"phase 20: {label}: setup {setup:.4f} s ({setup_count['K1']} K1 launches: the "
-          f"sketch's matvecs), λ̂ [{float(lam[-1]):.4e}, {float(lam[0]):.4e}] (gmres_tpu "
+          f"sketch's {2 * NYSTROM_RANK} matvecs, two block applications), λ̂ [{float(lam[-1]):.4e}, {float(lam[0]):.4e}] (gmres_tpu "
           f"[{jrow['lam_min']:.4e}, {jrow['lam_max']:.4e}]); status {res.status}, "
           f"{res.iterations} iterations (gmres_tpu {jrow['iterations']}, unpreconditioned "
           f"{jrow['plain_iterations']}), numpy ‖b − A x‖ {err:.3e}, host syncs "
           f"{res.host_syncs}", flush=True)
     require(res.status == 0 and err < 1e-9 * 1.01, f"{label}: {res.status}, {err}")
-    require(setup_count["K1"] == NYSTROM_RANK * 2, f"{label}: setup launches {setup_count}")
+    require(setup_count["K1"] == setup_count["K1 batched"] == 2,
+            f"{label}: setup launches {setup_count}")
     # CG's count cannot tell this M from the identity (its λ̂ all lie near 6:
     # P⁻¹ moves a vector by ~1%), so the sketch and the application are held
     # apart: λ̂'s ends to gmres_tpu's within NYSTROM_LAM_BAND (other sketches
@@ -6050,6 +6091,495 @@ def phase_sharded_spectral_sparse(gt_torch, dev, workdir):
     return launches, twins, blocks, rows, programs
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: batched solves and the batched launches of K1, K1rr, K1cr, K2.
+# ---------------------------------------------------------------------------
+
+P24_LANES = (2, 4, 8)
+P24_K1 = ((300, "float32"), (300, "float64"), (2048, "float32"), (2048, "float64"))
+P24_FORMS = (300, 2048)       # fine sides, float32
+# K2's three paths at the shapes that take them: the 75² coarse solve
+# (cluster), the 2048² order-3 smoother (tiled), and the per-sweep path
+# forced at 300² order 8 float64.
+P24_K2 = (("cluster", 75, 32, "float32", None), ("tiled", 2048, 3, "float32", None),
+          ("sweep", 300, 8, "float64", ("sweep", None)))
+P24_REPEATS = 2
+# Phase 18's block CG at s = 4 + MG 512² when a block application launched
+# each kernel once a row (PERF.md §5): 14 iterations, launches a solve.
+ROWWISE_BLOCK_CG = {"iterations": 14, "K1": 60, "K1rr": 300, "K1cr": 300, "K2": 660}
+LOBPCG_1024_ITERATIONS = 21   # phase 20's LOBPCG at 1024² (PERF.md §5)
+P24_BATCHED_N = {"mg": 300, "cg": 1024, "bicgstab": 256}
+# (γx, γx/2) a lane, around the shared cycle's (0.4, 0.2): 13-15
+# iterations each (CPU), so the lanes run batched nearly to the end (with
+# γ 0, 0.2, 0.4, 0.8 the γ 0 lane ran alone 177 of its 199 iterations).
+P24_GAMMAS = (0.2, 0.3, 0.4, 0.5)
+P24_SOLVE_LANES = 8
+
+
+def p24_kernel_row(name, batched, singles, plain, rtol, work, reps, library=None):
+    """One batched kernel against its B single launches (bitwise) and its
+    plain version (rtol), with device ms by CUDA-graph replay of each (the
+    singles without stacking their outputs), the bound (the lanes' bytes
+    and operations), and the library call. `singles` returns the lanes'
+    outputs, one tensor (or tuple) a lane."""
+    import torch
+
+    outs_b, lanes, outs_p = batched(), singles(), plain()
+    torch.cuda.synchronize()
+    if isinstance(outs_b, torch.Tensor):
+        outs_b, outs_p, lanes = (outs_b,), (outs_p,), [(o,) for o in lanes]
+    outs_s = [torch.stack([lane[i] for lane in lanes]) for i in range(len(outs_b))]
+    err = 0.0
+    for i, (a, s, p) in enumerate(zip(outs_b, outs_s, outs_p)):
+        require(bool(torch.isfinite(a).all()), f"{name}: output {i} not finite")
+        require(torch.equal(a, s), f"{name}: output {i} differs from the single launches "
+                f"(max abs {float((a - s).abs().max()):.3e})")
+        scale = float(p.abs().max())
+        e = float((a - p).abs().max())
+        err = max(err, e)
+        require(e <= rtol * scale, f"{name}: output {i} against its plain version "
+                f"{e:.3e} > {rtol:.0e} of {scale:.3e}")
+    # Ten calls a graph, two for blocks over 100 MB (a graph keeps every
+    # call's outputs and temporaries).
+    pg = 2 if work[0] > 100e6 else 10
+    rec = {"case": name, "max_abs_err": err, "rtol": rtol,
+           "ms": device_ms(batched, reps, pg), "singles_ms": device_ms(singles, reps, pg),
+           "plain_ms": device_ms(plain, reps, pg), "library_ms": None,
+           "host_us": host_us(batched, 50), "singles_host_us": host_us(singles, 50)}
+    rec["bound_ms"], rec["bound_by"] = bound(*work[:3])
+    rec["l2_resident"] = work[0] <= L2_BYTES
+    extra = ""
+    if library is not None:
+        rec.update(library_record(library, outs_p[0], reps))
+        extra = (f" library {rec['library_ms']:.4f} ms" if rec["library_ms"] is not None
+                 else f" library: {rec['library_note']}")
+    print(f"  {name:46s} bitwise to singles, err {err:.2e} (tol {rtol:.0e})  device: "
+          f"batched {rec['ms']:.4f} ms, singles {rec['singles_ms']:.4f} ms "
+          f"({rec['singles_ms'] / rec['ms']:.2f}x), plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}"
+          f"{'; L2-resident' if rec['l2_resident'] else ''}) = "
+          f"{rec['ms'] / rec['bound_ms']:.2f}x; host {rec['host_us']:.1f} us "
+          f"(singles {rec['singles_host_us']:.1f}){extra}", flush=True)
+    return rec
+
+
+def p24_kernels(dev):
+    """(a) Each batched kernel at B ∈ P24_LANES against B single launches
+    and its plain version."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gmres_tpu_torch.ops import fused, stencil
+
+    gen = np.random.default_rng(SEED + 24)
+    coefs = GENERAL_COEFS
+    records = {"K1 batched": [], "K1rr batched": [], "K1cr batched": [], "K2 batched": []}
+    print("phase 24 (a): the batched kernels against B single launches and their "
+          "plain versions", flush=True)
+    for n, dts in P24_K1:
+        dt = getattr(torch, dts)
+        item = torch.empty((), dtype=dt).element_size()
+        for lanes in P24_LANES:
+            xb = torch.as_tensor(gen.standard_normal((lanes, n, n))).to(dev, dt)
+            per = torch.as_tensor(gen.standard_normal((lanes, 5)) * 0.3
+                                  + np.array(coefs)).to(dev)
+            w = torch.tensor([[0.0, coefs[3], 0.0], [coefs[1], coefs[0], coefs[2]],
+                              [0.0, coefs[4], 0.0]], dtype=dt, device=dev).reshape(1, 1, 3, 3)
+            # One cross a lane (a grouped convolution: one call for all).
+            wl = torch.zeros((lanes, 1, 3, 3), dtype=torch.float64, device=dev)
+            for (i, j), k in (((1, 1), 0), ((1, 0), 1), ((1, 2), 2), ((0, 1), 3),
+                              ((2, 1), 4)):
+                wl[:, 0, i, j] = per[:, k]
+            wl = wl.to(dt)
+            pl = [per[k].tolist() for k in range(lanes)]
+            # The plain version's per-lane coefficients: (lanes, 1, 1), each
+            # rounded to the block's dtype as the launch rounds it.
+            per_terms = [per.to(dt)[:, k, None, None] for k in range(5)]
+            work = (2 * lanes * n * n * item, 9 * lanes * n * n, dt)
+            reps = 20 if n >= 2048 else 100
+            tag = f"{lanes}x{n}x{n} {'f32' if dt == torch.float32 else 'f64'}"
+            records["K1 batched"].append(p24_kernel_row(
+                f"K1 batched {tag}",
+                lambda: stencil.stencil5_cuda(xb, None, None, coefs),
+                lambda: [stencil.stencil5_cuda(xb[k], None, None, coefs)
+                         for k in range(lanes)],
+                lambda: stencil.stencil_5pt_general(xb, *coefs), 0.0, work, reps,
+                library=lambda: F.conv2d(xb[:, None], w, padding=1)[:, 0]))
+            records["K1 batched"].append(p24_kernel_row(
+                f"K1 batched {tag} per-lane coefficients",
+                lambda: stencil.stencil5_cuda(xb, None, None, per),
+                lambda: [stencil.stencil5_cuda(xb[k], None, None, pl[k])
+                         for k in range(lanes)],
+                lambda: stencil.stencil_5pt_general(xb, *per_terms), 0.0, work, reps,
+                library=lambda: F.conv2d(xb[None], wl, padding=1, groups=lanes)[0]))
+    for n in P24_FORMS:
+        dt, item = torch.float32, 4
+        for lanes in P24_LANES:
+            rb = torch.as_tensor(gen.standard_normal((lanes, n, n))).to(dev, dt)
+            eb = torch.as_tensor(gen.standard_normal((lanes, n, n))).to(dev, dt)
+            ecb = torch.as_tensor(gen.standard_normal((lanes, n // 2, n // 2))).to(dev, dt)
+            reps = 20 if n >= 2048 else 100
+            tag = f"{lanes}x{n}x{n} -> {n // 2} f32"
+            pair = torch.stack([rb, eb], dim=1)
+            w4 = restrict_weights(coefs, dev, dt)
+            records["K1rr batched"].append(p24_kernel_row(
+                f"K1rr batched {tag}",
+                lambda: stencil.residual_restrict_cuda(rb, eb, coefs),
+                lambda: [stencil.residual_restrict_cuda(rb[k], eb[k], coefs)
+                         for k in range(lanes)],
+                lambda: stencil.residual_restrict_plain(rb, eb, coefs), 0.0,
+                (lanes * (2 * n * n + n * n // 4) * item, 11 * lanes * n * n, dt), reps,
+                library=lambda: F.conv2d(pair, w4, stride=2, padding=1)[:, 0]))
+
+            records["K1cr batched"].append(p24_kernel_row(
+                f"K1cr batched {tag}",
+                lambda: stencil.correct_residual_cuda(rb, eb, ecb, coefs),
+                lambda: [stencil.correct_residual_cuda(rb[k], eb[k], ecb[k], coefs)
+                         for k in range(lanes)],
+                lambda: stencil.correct_residual_plain(rb, eb, ecb, coefs), 0.0,
+                (lanes * (4 * n * n + n * n // 4) * item, 12 * lanes * n * n, dt), reps))
+    for path, n, order, dts, forced in P24_K2:
+        dt = getattr(torch, dts)
+        item = torch.empty((), dtype=dt).element_size()
+        lam_min = 8.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 if order > 8 else 2.0
+        theta, _, steps = fused.chebyshev_k_scalars(lam_min, 8.0, order)
+        rtol = (1e-4 if order > 8 else 1e-5) if dt == torch.float32 else 1e-11
+        for lanes in P24_LANES:
+            rb = torch.as_tensor(gen.standard_normal((lanes, n, n))).to(dev, dt)
+            reps = 20 if n >= 2048 else 100
+            got = fused.chebk_route(n, n, order - 1, dt, dev.index, forced)[0]
+            require(got == path, f"K2 batched {n}² order {order}: path {got}, not {path}")
+            records["K2 batched"].append(p24_kernel_row(
+                f"K2 batched {path} order {order} {lanes}x{n}x{n} {dts}",
+                lambda: fused.chebk_cuda(rb, theta, steps, _path=forced),
+                lambda: [fused.chebk_cuda(rb[k], theta, steps, _path=forced)
+                         for k in range(lanes)],
+                lambda: fused.poly_stencil_smoother_plain(rb, theta, steps), rtol,
+                (2 * lanes * n * n * item, lanes * n * n * (1 + 14 * (order - 1)), dt), reps))
+            records["K2 batched"][-1]["path"] = path
+    return records
+
+
+def restrict_weights(coefs, dev, dt):
+    """restrict_conv's 4×4 stride-2 weights on (r, e), for a batch."""
+    import torch
+
+    c0, cw, ce, cs, cn = coefs
+    w = torch.zeros((1, 2, 4, 4), dtype=torch.float64)
+    for qi in (1, 2):
+        for qj in (1, 2):
+            w[0, 0, qi, qj] = 1.0
+            for (di, dj), cv in (((0, 0), c0), ((0, -1), cw), ((0, 1), ce),
+                                 ((-1, 0), cs), ((1, 0), cn)):
+                w[0, 1, qi + di, qj + dj] -= cv
+    return w.to(dev, dt)
+
+
+def p24_block_calls() -> dict:
+    """Calls of the routed entries of K1's forms and K2 on a (lanes, rows,
+    cols) block (their vmap rules make one a block application; the CPU
+    tests count the same)."""
+    from gmres_tpu_torch.ops import fused, stencil
+
+    return {"K1": stencil.stencil_5pt_pallas.block_calls,
+            "K1rr": stencil.residual_restrict.block_calls,
+            "K1cr": stencil.correct_residual.block_calls,
+            "K2": fused.poly_stencil_smoother_pallas.block_calls}
+
+
+def p24_block_application(gt_torch, dev):
+    """(b) One block application of the mg 512² cycle at s = 4: through
+    row_apply (one batched launch a kernel use, one routed-entry call on
+    the block each) and through a loop of single-vector applications
+    written here; the same bits, the launches, device ms by CUDA-graph
+    replay and host µs of each."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.ops.blas import row_apply
+
+    n, s = MULTIRHS_N, BLOCK_CG_S
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    rows = torch.as_tensor(np.random.default_rng(SEED).standard_normal((s, n, n)),
+                           device=dev)
+    ways = {"row_apply (vmap)": lambda: row_apply(m_inv, rows),
+            "loop of single vectors": lambda: torch.stack([m_inv(rows[i]) for i in range(s)])}
+    out = {}
+    outs = {name: fn() for name, fn in ways.items()}
+    torch.cuda.synchronize()
+    require(torch.equal(*outs.values()), "phase 24 (b): row_apply differs from the loop")
+    for name, fn in ways.items():
+        mg_counters(reset=True)
+        calls = p24_block_calls()
+        fn()
+        torch.cuda.synchronize()
+        count = mg_counters()
+        out[name] = {"launches": {k: count[k] for k in KERNELS},
+                     "batched": {k: count[f"{k} batched"] for k in KERNELS},
+                     "block_calls": {k: v - calls[k] for k, v in p24_block_calls().items()},
+                     "ms": device_ms(fn, 20), "host_us": host_us(fn, 20)}
+        print(f"phase 24 (b): one block application of the mg {n}x{n} cycle, s = {s}, "
+              f"{name}: launches {out[name]['launches']} (batched "
+              f"{out[name]['batched']}; routed-entry calls on the block "
+              f"{out[name]['block_calls']}), device {out[name]['ms']:.4f} ms, host "
+              f"{out[name]['host_us']:.1f} us", flush=True)
+    via, loop = out["row_apply (vmap)"], out["loop of single vectors"]
+    require(all(via["batched"][k] == via["launches"][k] == via["block_calls"][k]
+                and s * via["launches"][k] == loop["launches"][k] for k in KERNELS),
+            f"phase 24 (b): launches {via} against the loop's {loop}")
+    return out
+
+
+def p24_block_rows(gt_torch, dev, workdir):
+    """(c) The block rows of phases 17, 18 and 20 again: block CG at s = 4
+    + MG 512², LOBPCG at k = 4 1024², block GMRES(30) + MG at s = 4 512²;
+    their counts those of one launch a row (and gmres_tpu's), each block
+    application one batched launch of each kernel (no single-grid launch),
+    and block CG's launches a solve 1/s of one launch a row's."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+
+    rows = []
+    n, s = MULTIRHS_N, BLOCK_CG_S
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    xs = np.random.default_rng(0).standard_normal((s, n, n))
+    b_np = np.stack([np_stencil(x) for x in xs])
+    b = torch.as_tensor(b_np, device=dev)
+    label = f"block_cg s={s} mg {n}x{n}"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.block_cg(A, b, tol=1e-8, M=M, max_iterations=2000),
+        {"A": (op, b[0]), "M": (m_inv, b[0])}, repeats=P24_REPEATS, phase="phase 24 (c)")
+    solves = P24_REPEATS + 1
+    per_solve = {k: count[k] / solves for k in KERNELS}
+    errs = [float(np.linalg.norm(b_np[i] - np_stencil(res.x[i].cpu().numpy())))
+            for i in range(s)]
+    print(f"phase 24 (c): {label}: {res.iterations} iterations (one launch a row: "
+          f"{ROWWISE_BLOCK_CG['iterations']}), launches a solve {per_solve} (one launch a "
+          f"row: {ROWWISE_BLOCK_CG}), max numpy ‖bᵢ − A xᵢ‖ {max(errs):.3e}", flush=True)
+    require(res.status == 0 and max(errs) < 1e-8 and
+            res.iterations == ROWWISE_BLOCK_CG["iterations"], f"{label}: {res.iterations}")
+    require(all(count[f"{k} batched"] == count[k] for k in KERNELS),
+            f"{label}: single-grid launches in a block solve {count}")
+    require(all(per_solve[k] * s == ROWWISE_BLOCK_CG[k] for k in KERNELS),
+            f"{label}: launches a solve {per_solve} are not {ROWWISE_BLOCK_CG} / {s}")
+    rows.append(family_record(label, res, times, count, calls, per, max(errs),
+                              launches_per_solve=per_solve))
+
+    n = LOBPCG_BIG_N
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    x0 = cli._program_normal((EIG_K, n, n), torch.float64, dev)
+    label = f"lobpcg k {EIG_K} mg {n}x{n}"
+    rtol = JAX_PHASE20["lobpcg1024"][0]
+    def lobpcg(A, M):
+        # family_run times a result with a residual: the largest pair's.
+        out = gt_torch.lobpcg(A, x0, tol=0.0, rtol=rtol, max_iterations=200, M=M)
+        return types.SimpleNamespace(eig=out, residual=out.residuals.max(),
+                                     status=out.status, iterations=out.iterations,
+                                     host_syncs=out.host_syncs)
+
+    res, times, count, calls, per, med = family_run(
+        label, lobpcg, {"A": (op, x0[0]), "M": (m_inv, x0[0])}, repeats=P24_REPEATS,
+        phase="phase 24 (c)")
+    lam = res.eig.eigenvalues.cpu().numpy()
+    err = float(np.max(np.abs(np.sort(lam) - poisson_smallest(n, EIG_K))))
+    per_it = {k: count[k] / (solves * res.iterations) for k in KERNELS}
+    print(f"phase 24 (c): {label}: {res.iterations} iterations (phase 20's "
+          f"{LOBPCG_1024_ITERATIONS}), launches an iteration {per_it} (one launch a row: "
+          f"12 K1, 16–24 K1rr, 36–52 K2), "
+          f"max |λ − closed form| {err:.3e}", flush=True)
+    require(res.status == 0 and res.iterations == LOBPCG_1024_ITERATIONS
+            and err < 1e-6 * float(np.max(np.abs(lam))), f"{label}: {res.iterations}, {err}")
+    require(all(count[f"{k} batched"] == count[k] for k in KERNELS),
+            f"{label}: single-grid launches in a block solve {count}")
+    rows.append(family_record(label, res, times, count, calls, per, err,
+                              launches_per_iteration=per_it))
+
+    n, s = MULTIRHS_N, 4
+    op = gt_torch.poisson_operator(n)
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    xs = np.random.default_rng(0).standard_normal((s, n, n))
+    b_np = np.stack([np_stencil(x) for x in xs])
+    b = torch.as_tensor(b_np, device=dev)
+    label = f"block_gmres(30) s={s} mg {n}x{n}"
+    res, times, count, calls, per, med = family_run(
+        label, lambda A, M: gt_torch.block_gmres(A, b, restart=30, tol=1e-8, M=M,
+                                                 max_restarts=200),
+        {"A": (op, b[0]), "M": (m_inv, b[0])}, repeats=P24_REPEATS, phase="phase 24 (c)")
+    errs = [np_rel(b_np[i], res.x[i]) for i in range(s)]
+    print(f"phase 24 (c): {label}: {res.restarts} restarts, "
+          f"launches a solve {dict((k, count[k] / solves) for k in KERNELS)}, numpy "
+          f"residuals {[f'{e:.3e}' for e in errs]}", flush=True)
+    require(res.status == 0 and max(errs) < 1e-8, f"{label}: {res.status}, {errs}")
+    family_counts(f"{label} restarts", res.restarts, JAX_MULTIRHS_RESTARTS[s], 2,
+                  phase="phase 24 (c)")
+    require(all(count[f"{k} batched"] == count[k] for k in KERNELS),
+            f"{label}: single-grid launches in a block solve {count}")
+    rows.append(family_record(label, res, times, count, calls, per, max(errs)))
+    return rows
+
+
+def p24_solve_row(gt_torch, label, solver, A, bs, kw, residual, *, lane_args=(),
+                  lane_op=None, lockstep=True, fields=("iterations", "status")):
+    """(d) One batched solve at full width after an untimed one, with the
+    launch counts set to 0 just before it and read just after, then each
+    lane's sequential solve on the card (after an untimed one of lane 0),
+    timed and counted the same way. Required: each lane's counts and x
+    those of its sequential solve, to the bit; one host read an iteration
+    for the batch (its host syncs the longest lane's); and each kernel's
+    launches those of the longest lane where the lanes run one sequence of
+    steps until each stops (`lockstep`: CG), else between the longest
+    lane's and all lanes' together (GMRES lanes split between restarts,
+    BiCGSTAB lanes at a residual replacement or a certification matvec
+    that another lane makes at another iteration; the runner then serves
+    the larger group first). A lone lane's application is single launches.
+    `residual(k, x)` (numpy float64) is returned for the caller's bound."""
+    import numpy as np
+    import torch
+
+    lanes = bs.shape[0]
+    lane_op = lane_op or (lambda k: A)
+    gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw)
+    mg_counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count = mg_counters()
+    require(all(count[f"{k} batched"] > 0 for k in KERNELS if count[k] > 0),
+            f"{label}: no batched launch in a batched solve {count}")
+    solver(lane_op(0), bs[0], **kw)
+    seq, seq_walls, seq_launches = [], [], []
+    for k in range(lanes):
+        mg_counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = solver(lane_op(k), bs[k], **kw)
+        torch.cuda.synchronize()
+        seq_walls.append(time.perf_counter() - t0)
+        seq_launches.append({key: v for key, v in mg_counters().items() if key in KERNELS})
+        seq.append(one)
+    diffs, errs = [], []
+    for k, one in enumerate(seq):
+        for name in fields:
+            got, want = int(getattr(res, name)[k]), int(getattr(one, name))
+            require(got == want, f"{label} lane {k}: {name} {got}, sequential {want}")
+        diffs.append(float((res.x[k] - one.x).abs().max()))
+        errs.append(residual(k, res.x[k].detach().cpu().numpy().astype(np.float64)))
+    longest = {key: max(sl[key] for sl in seq_launches) for key in KERNELS}
+    every = {key: sum(sl[key] for sl in seq_launches) for key in KERNELS}
+    syncs = max(one.host_syncs for one in seq)
+    lane_counts = {name: [int(v) for v in getattr(res, name).tolist()] for name in fields}
+    print(f"phase 24 (d): {label}, {lanes} lanes: {lane_counts}; host reads "
+          f"{res.host_syncs} (the longest lane's {syncs}); launches "
+          f"{ {k: count[k] for k in KERNELS} } (the longest lane's sequential {longest}, "
+          f"all lanes' {every}); batched wall {wall:.4f} s, {lanes} sequential walls "
+          f"{sum(seq_walls):.4f} s ({sum(seq_walls) / wall:.2f}x); max |x − sequential x| "
+          f"{max(diffs):.3e}; numpy residuals {[f'{e:.3e}' for e in errs]}", flush=True)
+    require(all(int(v) == 0 for v in res.status.tolist()), f"{label}: status {res.status}")
+    require(max(diffs) == 0.0, f"{label}: x differs from the sequential x by {max(diffs):.3e}")
+    require(res.host_syncs == syncs,
+            f"{label}: {res.host_syncs} host reads, the longest lane's {syncs}")
+    require(all(count[k] == longest[k] if lockstep else longest[k] <= count[k] <= every[k]
+                for k in KERNELS),
+            f"{label}: launches {count} against the longest lane's {longest} and all "
+            f"lanes' {every}")
+    require(all(np.isfinite(e) for e in errs), f"{label}: residuals {errs}")
+    return {"label": label, "lanes": lanes, "counts": lane_counts, "host_syncs": res.host_syncs,
+            "longest_lane_host_syncs": syncs, "launches": count,
+            "longest_lane_launches": longest, "wall_s": wall,
+            "sequential_walls_s": seq_walls, "max_x_diff": max(diffs),
+            "numpy_residuals": errs}
+
+
+def p24_batched_solves(gt_torch, dev):
+    """(d) The batched solves at full width: the mg configuration at 300²
+    (Householder GMRES(10), float32 cycles certified in float64) on 8 seeded
+    right-hand sides; CG + MG at 1024² on 8; BiCGSTAB on convection–diffusion
+    256² over 4 lanes of γ (K1 with per-lane coefficients), with the
+    BASELINE config 3 cycle (γ 0.4, 0.2) as the lanes' one M
+    (unpreconditioned, γ 0.4 and 0.8 break down at 256², sequentially as
+    batched) and γ around the cycle's (P24_GAMMAS)."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_apply
+
+    rows = []
+    gen = np.random.default_rng(SEED)
+    n = P24_BATCHED_N["mg"]
+    op, m_inv = gt_torch.poisson_operator(n), gt_torch.poisson_multigrid_preconditioner(n)
+    b_np = np.stack([np_stencil(x) for x in gen.standard_normal((P24_SOLVE_LANES, n, n))])
+    bs = torch.as_tensor(b_np, device=dev)
+    kw = dict(restart=10, tol=TOL, M=m_inv, inner_dtype=torch.float32, certify="true",
+              compute_v_err=False)
+    row = p24_solve_row(gt_torch, f"mg {n}x{n} gmres(10) f32 cycles", gt_torch.gmres, op, bs,
+                        kw, lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))
+                                               / np.linalg.norm(b_np[k])),
+                        lockstep=False, fields=("iterations", "restarts", "status"))
+    require(max(row["numpy_residuals"]) <= TOL, f"mg batched: {row['numpy_residuals']}")
+    rows.append(row)
+
+    n = P24_BATCHED_N["cg"]
+    op, m_inv = gt_torch.poisson_operator(n), gt_torch.poisson_multigrid_preconditioner(n)
+    b_np = np.stack([np_stencil(x) for x in gen.standard_normal((P24_SOLVE_LANES, n, n))])
+    bs = torch.as_tensor(b_np, device=dev)
+    kw = dict(tol=CG_TOL, rtol=1e-10, M=m_inv)
+    row = p24_solve_row(gt_torch, f"cg mg {n}x{n}", gt_torch.cg, op, bs, kw,
+                        lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))
+                                           / np.linalg.norm(b_np[k])))
+    require(max(row["numpy_residuals"]) <= 1e-9, f"cg batched: {row['numpy_residuals']}")
+    rows.append(row)
+
+    n = P24_BATCHED_N["bicgstab"]
+    g = torch.tensor(P24_GAMMAS, dtype=torch.float64, device=dev)
+    m_inv = gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2)
+
+    def cd(v, gx):
+        return convection_diffusion_apply(v, gx, 0.5 * gx)
+
+    ones = torch.ones((n, n), dtype=torch.float64, device=dev)
+    bs = torch.stack([cd(ones, gx) for gx in g])
+    b_np = bs.cpu().numpy()
+    coefs = [(4.0, -(1.0 + gx), -(1.0 - gx), -(1.0 + 0.5 * gx), -(1.0 - 0.5 * gx))
+             for gx in P24_GAMMAS]
+    row = p24_solve_row(
+        gt_torch, f"bicgstab convdiff {n}x{n} over γ {list(P24_GAMMAS)}", gt_torch.bicgstab,
+        cd, bs, dict(tol=CONVDIFF_TOL, M=m_inv),
+        lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil_general(x, coefs[k]))),
+        lane_args=(g,), lane_op=lambda k: (lambda v: cd(v, g[k])), lockstep=False)
+    require(max(row["numpy_residuals"]) <= CONVDIFF_TOL, f"bicgstab batched: {row}")
+    rows.append(row)
+    return rows
+
+
+def phase_batched(gt_torch, dev, workdir):
+    """Phase 24: (a) the batched kernels, (b) one block application of the
+    cycle both ways, (c) the block rows, (d) the batched solves. Returns the
+    kernel records, the launches over (c) and (d) (each row's counts
+    summed) and the rows."""
+    t_phase = time.perf_counter()
+    records = p24_kernels(dev)
+    block = p24_block_application(gt_torch, dev)
+    rows = p24_block_rows(gt_torch, dev, workdir) + p24_batched_solves(gt_torch, dev)
+    launches = dict.fromkeys(mg_counters(), 0)
+    for r in rows:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    require(all(launches[f"{k} batched"] > 0 for k in KERNELS),
+            f"phase 24: a batched kernel was not launched on the main path {launches}")
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return records, launches, {"block_application": block, "rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -6125,6 +6655,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase23"]:
         with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
             phase_sharded_spectral_sparse(gt_torch, dev, workdir)
+        return 0
+    if sys.argv[1:2] == ["--phase24"]:
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_batched(gt_torch, dev, workdir)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -6227,8 +6761,11 @@ def main() -> int:
         with one_rank_group(workdir, "rendezvous23"):
             p23, p23_twins, rank_blocks, _, _ = phase_sharded_spectral_sparse(
                 gt_torch, dev, workdir)
-    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_run:.1f} s", flush=True)
+        # Phase 24: batched solves and the batched launches.
+        p24_records, p24, _ = phase_batched(gt_torch, dev, workdir)
+    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
+    records.update(p24_records)
     records.update(rdma_records)
     records.update(cd_records)
 
@@ -6283,6 +6820,21 @@ def main() -> int:
     p23_path = ("eigensolvers, matrix functions, time steppers, mesh=None cycles and "
                 "sparse formats on a sharded b, one-rank mesh (phase 23)")
     p23_twins_path = "twins of phase 23's rows, plain tensors"
+    p24_path = "block rows and batched solves (phase 24)"
+    # Launches of the batched form (a block in one launch), by phase: the
+    # block rows of phases 15-23 on plain tensors run their block
+    # applications batched too (a DTensor block keeps one call a row).
+    batched_by_phase = {programs_path: programs, family_path: family, short_path: short,
+                        p19_path: p19, p20_path: p20, p21_path: p21,
+                        p21_twins_path: p21_twins, p22_path: p22,
+                        p22_twins_path: p22_twins, p23_path: p23,
+                        p23_twins_path: p23_twins, p24_path: p24}
+
+    def batched_fields(name):
+        by = {path: counts.get(f"{name} batched", 0)
+              for path, counts in batched_by_phase.items()}
+        return {"batched_launches": sum(by.values()),
+                "batched_launches_by_path": {k: v for k, v in by.items() if v}}
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -6295,7 +6847,7 @@ def main() -> int:
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
                + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"]
-               + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"],
+               + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"] + p24["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -6306,7 +6858,9 @@ def main() -> int:
                                  p19_path: p19["K1"], p20_path: p20["K1"],
                                  p21_path: p21["K1"], p21_twins_path: p21_twins["K1"],
                                  p22_path: p22["K1"], p22_twins_path: p22_twins["K1"],
-                                 p23_path: p23["K1"], p23_twins_path: p23_twins["K1"]},
+                                 p23_path: p23["K1"], p23_twins_path: p23_twins["K1"],
+                                 p24_path: p24["K1"]},
+               **batched_fields("K1"),
                phase22_k1_halo=p22["K1 halo"], phase22_exchanges=p22["exchanges"],
                phase23_k1_halo=p23["K1 halo"], phase23_exchanges=p23["exchanges"],
                phase21_k1_halo=p21["K1 halo"],
@@ -6323,7 +6877,7 @@ def main() -> int:
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
                + short["K1rr"] + p19["K1rr"] + p20["K1rr"] + p21["K1rr"]
                + p21_twins["K1rr"] + p22["K1rr"] + p22_twins["K1rr"] + p23["K1rr"]
-               + p23_twins["K1rr"],
+               + p23_twins["K1rr"] + p24["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
@@ -6334,14 +6888,16 @@ def main() -> int:
                                  p21_path: p21["K1rr"],
                                  p21_twins_path: p21_twins["K1rr"],
                                  p22_path: p22["K1rr"], p22_twins_path: p22_twins["K1rr"],
-                                 p23_path: p23["K1rr"], p23_twins_path: p23_twins["K1rr"]},
+                                 p23_path: p23["K1rr"], p23_twins_path: p23_twins["K1rr"],
+                                 p24_path: p24["K1rr"]},
+               **batched_fields("K1rr"),
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/precond/multigrid.py:207"],
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
                + short["K1cr"] + p19["K1cr"] + p20["K1cr"] + p21["K1cr"]
                + p21_twins["K1cr"] + p22["K1cr"] + p22_twins["K1cr"] + p23["K1cr"]
-               + p23_twins["K1cr"],
+               + p23_twins["K1cr"] + p24["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
@@ -6352,14 +6908,16 @@ def main() -> int:
                                  p21_path: p21["K1cr"],
                                  p21_twins_path: p21_twins["K1cr"],
                                  p22_path: p22["K1cr"], p22_twins_path: p22_twins["K1cr"],
-                                 p23_path: p23["K1cr"], p23_twins_path: p23_twins["K1cr"]},
+                                 p23_path: p23["K1cr"], p23_twins_path: p23_twins["K1cr"],
+                                 p24_path: p24["K1cr"]},
+               **batched_fields("K1cr"),
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
         report("K2", "gmres_tpu_torch/csrc/chebk.cu",
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
                + p20["K2"] + p21["K2"] + p21_twins["K2"] + p22["K2"] + p22_twins["K2"]
-               + p23["K2"] + p23_twins["K2"],
+               + p23["K2"] + p23_twins["K2"] + p24["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
@@ -6370,7 +6928,9 @@ def main() -> int:
                                     p21_path: p21["K2"],
                                     p21_twins_path: p21_twins["K2"],
                                     p22_path: p22["K2"], p22_twins_path: p22_twins["K2"],
-                                    p23_path: p23["K2"], p23_twins_path: p23_twins["K2"]},
+                                    p23_path: p23["K2"], p23_twins_path: p23_twins["K2"],
+                                    p24_path: p24["K2"]},
+               **batched_fields("K2"),
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
                short_launches_by_path={p: short[f"K2 {p}"]
@@ -6389,6 +6949,41 @@ def main() -> int:
                coarse_ms=coarse["ms"], coarse_plain_ms=coarse["plain_ms"],
                coarse_sweep_path_ms=coarse["sweep_ms"], coarse_bound_ms=coarse["bound_ms"],
                coarse_bound_by=coarse["bound_by"]),
+        report("K1 batched", "gmres_tpu_torch/csrc/stencil5.cu",
+               "gmres_tpu/ops/stencil.py:170", ["gmres_tpu/ops/stencil.py:340"],
+               batched_fields("K1")["batched_launches"], "K1 batched 8x2048x2048 f32",
+               form="a (lanes, rows, cols) block in one launch, the lane on gridDim.y "
+                    "(jax.vmap's leading grid axis); per-lane coefficients optional",
+               launches_by_path=batched_fields("K1")["batched_launches_by_path"],
+               singles_ms=[r["singles_ms"] for r in records["K1 batched"]
+                           if r["case"] == "K1 batched 8x2048x2048 f32"][0],
+               library_note="F.conv2d on the block (grouped, one cross a lane, for "
+                            "per-lane coefficients)"),
+        report("K1rr batched", "gmres_tpu_torch/csrc/stencil5.cu",
+               "gmres_tpu/precond/multigrid.py:206", ["gmres_tpu/ops/stencil.py:170"],
+               batched_fields("K1rr")["batched_launches"],
+               "K1rr batched 8x2048x2048 -> 1024 f32",
+               launches_by_path=batched_fields("K1rr")["batched_launches_by_path"],
+               singles_ms=[r["singles_ms"] for r in records["K1rr batched"]
+                           if r["case"] == "K1rr batched 8x2048x2048 -> 1024 f32"][0]),
+        report("K1cr batched", "gmres_tpu_torch/csrc/stencil5.cu",
+               "gmres_tpu/precond/multigrid.py:207", ["gmres_tpu/ops/stencil.py:170"],
+               batched_fields("K1cr")["batched_launches"],
+               "K1cr batched 8x2048x2048 -> 1024 f32",
+               launches_by_path=batched_fields("K1cr")["batched_launches_by_path"],
+               singles_ms=[r["singles_ms"] for r in records["K1cr batched"]
+                           if r["case"] == "K1cr batched 8x2048x2048 -> 1024 f32"][0],
+               library_note="no single PyTorch call computes both outputs"),
+        report("K2 batched", "gmres_tpu_torch/csrc/chebk.cu",
+               "gmres_tpu/ops/fused.py:360", ["gmres_tpu/ops/fused.py:242",
+                                              "gmres_tpu/ops/fused.py:300"],
+               batched_fields("K2")["batched_launches"],
+               "K2 batched tiled order 3 8x2048x2048 float32",
+               launches_by_path=batched_fields("K2")["batched_launches_by_path"],
+               paths=[{"case": r["case"], "path": r["path"], "ms": r["ms"],
+                       "singles_ms": r["singles_ms"], "bound_ms": r["bound_ms"]}
+                      for r in records["K2 batched"]],
+               library_note="none: no single PyTorch call computes the polynomial"),
         report("K1 convdiff", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:340", ["gmres_tpu/ops/stencil.py:170"], cd["K1"],
                "K1 convdiff operator 1024x1024 f64 central", launched_by=convdiff_path,

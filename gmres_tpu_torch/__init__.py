@@ -126,6 +126,7 @@ from gmres_tpu_torch.models.helmholtz import (
     split_to_complex,
 )
 from gmres_tpu_torch.solvers.bicgstab import bicgstab
+from gmres_tpu_torch.solvers.batched import batched_solve
 from gmres_tpu_torch.solvers.block_cg import BlockCGResult, block_cg
 from gmres_tpu_torch.solvers.chebyshev import chebyshev_solve
 from gmres_tpu_torch.solvers.minres import minres
@@ -265,6 +266,7 @@ __all__ = [
     "SolveResult",
     "SolverStatus",
     "as_tensor",
+    "batched_solve",
     "bicgstab",
     "bicgstabl",
     "block_cg",

@@ -59,6 +59,17 @@
 // on every path (the plain PyTorch version's order), and the library is built
 // with -fmad=false, so paths A and B give path C's bits.
 //
+// Lanes. Every path also takes a contiguous (lanes, rows, cols) block of
+// grids in one launch, with one (θ, steps, coefficients) for all: the batched
+// launch that jax.vmap makes of the Pallas kernel, which a block application
+// of a V-cycle (torch.func.vmap) reaches through the vmap rule of
+// ops/fused.py. The path is the one a single lane's shape takes; the lane is
+// gridDim.y on the cluster path (each cluster one lane, clusterDim
+// unchanged) and gridDim.z on the tiled and per-sweep paths, and a lane's
+// CTAs run the single grid's arithmetic on its slice, so each lane gives the
+// bits of its own launch. The plans are the single grid's; tuning them for
+// many lanes is later work.
+//
 // C interface (ctypes): returns cudaGetLastError() after the last launch.
 
 #include <cooperative_groups.h>
@@ -132,6 +143,12 @@ __global__ void chebk_sweep_kernel(const T* __restrict__ r,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= rows || j >= cols) return;
+  const long long lane = (long long)blockIdx.z * rows * cols;
+  r += lane;
+  z_out += lane;
+  if (z_in != nullptr) z_in += lane;
+  if (d_in != nullptr) d_in += lane;
+  if (d_out != nullptr) d_out += lane;
   const long long idx = (long long)i * cols + j;
   const T rc = r[idx];
   if (mode == 0) {
@@ -219,6 +236,9 @@ chebk_cluster_kernel(const T* __restrict__ r, T* __restrict__ z_out, int rows,
   const int npts = win_rows * cols;
   const int nt = blockDim.x;
   const T zero = T(0);
+  // This cluster's lane.
+  r += (long long)blockIdx.y * rows * cols;
+  z_out += (long long)blockIdx.y * rows * cols;
 
   const T* rg = r + (long long)(start - g_up) * cols;
   for (int p = threadIdx.x; p < npts; p += nt) cp_async(rs + p, rg + p);
@@ -373,6 +393,9 @@ chebk_tiled_kernel(const T* __restrict__ r, T* __restrict__ z_out, int rows,
   const int gi0 = blockIdx.y * tile_r - h, gj0 = blockIdx.x * tile_c - h;
   const bool inside = gi0 >= 0 && gj0 >= 0 && gi0 + lr <= rows && gj0 + lc <= cols;
   const int nt = blockDim.x;
+  // This CTA's lane.
+  r += (long long)blockIdx.z * rows * cols;
+  z_out += (long long)blockIdx.z * rows * cols;
 
   // r of this thread's chunks straight into registers (zero outside the
   // grid; all loads in flight at once), then z₀ = d₀ = r/θ.
@@ -491,9 +514,10 @@ cudaError_t configure_tiled(int device) {
 }
 
 void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                    int csize, int threads, size_t smem, cudaStream_t st) {
+                    int csize, int lanes, int threads, size_t smem,
+                    cudaStream_t st) {
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(csize, 1, 1);
+  cfg->gridDim = dim3(csize, lanes, 1);
   cfg->blockDim = dim3(threads, 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = st;
@@ -537,12 +561,15 @@ size_t tiled_smem(int tile_r, int tile_c, int nsteps) {
   return 2 * (size_t)tiled_chunks<T>(tile_r, tile_c, nsteps) * 16;
 }
 
+// `lanes` grids of (rows, cols) in one contiguous block (z_scratch and d
+// too, on the per-sweep path).
 template <typename T>
-int launch(const T* r, T* z_out, T* z_scratch, T* d, int rows, int cols,
-           T theta, const T* steps, int nsteps, const T* coefs, int path,
-           int p0, int p1, int p2, int device, void* stream) {
+int launch(const T* r, T* z_out, T* z_scratch, T* d, int lanes, int rows,
+           int cols, T theta, const T* steps, int nsteps, const T* coefs,
+           int path, int p0, int p1, int p2, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const Coefs<T> c{coefs[0], coefs[1], coefs[2], coefs[3], coefs[4]};
 
@@ -561,8 +588,8 @@ int launch(const T* r, T* z_out, T* z_scratch, T* d, int rows, int cols,
       if (err != cudaSuccess) return (int)err;
       cudaLaunchConfig_t cfg;
       cudaLaunchAttribute attr;
-      cluster_config(&cfg, &attr, csize, threads, cluster_smem<T>(rows, cols, csize, ghost),
-                     st);
+      cluster_config(&cfg, &attr, csize, lanes, threads,
+                     cluster_smem<T>(rows, cols, csize, ghost), st);
       err = cudaLaunchKernelEx(&cfg, chebk_cluster_kernel<T>, r, z_out, rows, cols,
                                theta, sv, nsteps, c, ghost,
                                cluster_window(rows, cols, csize, ghost));
@@ -579,7 +606,7 @@ int launch(const T* r, T* z_out, T* z_scratch, T* d, int rows, int cols,
     err = unit ? configure_tiled<T, true>(device) : configure_tiled<T, false>(device);
     if (err != cudaSuccess) return (int)err;
     const size_t smem = tiled_smem<T>(tile_r, tile_c, nsteps);
-    const dim3 grid((cols + tile_c - 1) / tile_c, (rows + tile_r - 1) / tile_r);
+    const dim3 grid((cols + tile_c - 1) / tile_c, (rows + tile_r - 1) / tile_r, lanes);
     if (unit) {
       chebk_tiled_kernel<T, true><<<grid, threads, smem, st>>>(
           r, z_out, rows, cols, theta, sv, nsteps, c, tile_r, tile_c);
@@ -592,7 +619,8 @@ int launch(const T* r, T* z_out, T* z_scratch, T* d, int rows, int cols,
   if (path != 0) return (int)cudaErrorInvalidValue;
 
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((cols + kBlockX - 1) / kBlockX, (rows + kBlockY - 1) / kBlockY);
+  const dim3 grid((cols + kBlockX - 1) / kBlockX, (rows + kBlockY - 1) / kBlockY,
+                  lanes);
   if (nsteps == 0) {
     chebk_sweep_kernel<T><<<grid, block, 0, st>>>(
         r, nullptr, nullptr, nullptr, z_out, rows, cols, theta, T(0), T(0), c, 0);
@@ -625,7 +653,8 @@ int max_active_clusters(int rows, int cols, int csize, int threads, int ghost,
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, csize, threads, cluster_smem<T>(rows, cols, csize, ghost), 0);
+  cluster_config(&cfg, &attr, csize, 1, threads, cluster_smem<T>(rows, cols, csize, ghost),
+                 0);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, chebk_cluster_kernel<T>, &cfg);
   if (err != cudaSuccess) {
@@ -641,19 +670,20 @@ extern "C" {
 
 // path 0: one launch per sweep; 1: cluster-resident (p0 CTAs of p1 threads,
 // p2 ghost rows); 2: temporally blocked tiles (p0 × p1 tiles, p2 threads).
+// `lanes` grids of (rows, cols) in one contiguous block.
 int gt_chebk_f32(const float* r, float* z_out, float* z_scratch, float* d,
-                 int rows, int cols, float theta, const float* steps,
+                 int lanes, int rows, int cols, float theta, const float* steps,
                  int nsteps, const float* coefs, int path, int p0, int p1,
                  int p2, int device, void* stream) {
-  return launch<float>(r, z_out, z_scratch, d, rows, cols, theta, steps, nsteps,
-                       coefs, path, p0, p1, p2, device, stream);
+  return launch<float>(r, z_out, z_scratch, d, lanes, rows, cols, theta, steps,
+                       nsteps, coefs, path, p0, p1, p2, device, stream);
 }
 
 int gt_chebk_f64(const double* r, double* z_out, double* z_scratch, double* d,
-                 int rows, int cols, double theta, const double* steps,
-                 int nsteps, const double* coefs, int path, int p0, int p1,
-                 int p2, int device, void* stream) {
-  return launch<double>(r, z_out, z_scratch, d, rows, cols, theta, steps,
+                 int lanes, int rows, int cols, double theta,
+                 const double* steps, int nsteps, const double* coefs, int path,
+                 int p0, int p1, int p2, int device, void* stream) {
+  return launch<double>(r, z_out, z_scratch, d, lanes, rows, cols, theta, steps,
                         nsteps, coefs, path, p0, p1, p2, device, stream);
 }
 

@@ -68,6 +68,19 @@
 // exactly as the separate PyTorch operations do: every form is bitwise equal
 // to its plain version.
 //
+// Lanes. Each form also takes a contiguous (lanes, rows, cols) block of grids
+// in one launch, the lane on gridDim.y: the batched launch that jax.vmap makes
+// of the Pallas kernel (a leading grid axis), which a block application
+// (torch.func.vmap over an operator or a V-cycle) reaches through the vmap
+// rules of ops/stencil.py. A lane's threads run the single grid's arithmetic
+// on the lane's slice, so every lane gives the bits of its own launch. The
+// plain stencil also takes a (lanes, 5) device array of coefficients, one set
+// per lane (an operator family swept over lanes; null: the five values
+// given to every lane); the halo rows are for one grid only. At 2048²
+// float32 a lane already fills the card (4096 CTAs), so the lanes save
+// launches, not bandwidth; below ~512² they also fill the card where one grid
+// does not (22 CTAs at 150²).
+//
 // C interface (ctypes): each entry point returns cudaGetLastError() after the
 // launch.
 
@@ -89,6 +102,16 @@ template <typename T>
 __device__ __forceinline__ T stencil_pt(const Coefs5<T>& c, T x, T w, T e, T s,
                                         T n) {
   return c.c0 * x + c.cw * w + c.ce * e + c.cs * s + c.cn * n;
+}
+
+// The coefficients of lane blockIdx.y: its row of the (lanes, 5) array, or
+// the shared set where there is no array.
+template <typename T>
+__device__ __forceinline__ Coefs5<T> lane_coefs(const Coefs5<T>& c,
+                                                const T* __restrict__ per_lane) {
+  if (per_lane == nullptr) return c;
+  const T* p = per_lane + 5 * blockIdx.y;
+  return Coefs5<T>{p[0], p[1], p[2], p[3], p[4]};
 }
 
 // V consecutive values of a row; one vector access when aligned to its size.
@@ -124,10 +147,14 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 stencil5_kernel(const T* __restrict__ x, const T* __restrict__ top,
                 const T* __restrict__ bot, T* __restrict__ y, int rows,
-                int cols, Coefs5<T> c) {
+                int cols, Coefs5<T> c0, const T* __restrict__ per_lane) {
   const int nv = cols / V;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)rows * nv) return;
+  const long long lane = (long long)blockIdx.y * rows * cols;
+  x += lane;
+  y += lane;
+  const Coefs5<T> c = lane_coefs(c0, per_lane);
   const int i = (int)(t / nv);
   const int j = (int)(t - (long long)i * nv) * V;
   const long long idx = (long long)i * cols + j;
@@ -172,6 +199,10 @@ residual_restrict_kernel(const T* __restrict__ r, const T* __restrict__ e,
                          T* __restrict__ rc, int mr, int mc, Coefs5<T> c) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)mr * mc) return;
+  const long long lane = (long long)blockIdx.y * mr * mc;
+  r += 4 * lane;
+  e += 4 * lane;
+  rc += lane;
   const Quad q(t, mr, mc);
   const Vec<T, 2> zero{};
   const Vec<T, 2> ea = load<T, 2, kAligned>(e + q.a);
@@ -199,6 +230,12 @@ correct_residual_kernel(const T* __restrict__ r, const T* __restrict__ e,
                         T* __restrict__ r_out, int mr, int mc, Coefs5<T> c) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)mr * mc) return;
+  const long long lane = (long long)blockIdx.y * mr * mc;
+  r += 4 * lane;
+  e += 4 * lane;
+  e_out += 4 * lane;
+  r_out += 4 * lane;
+  ec += lane;
   const Quad q(t, mr, mc);
   const T g = ec[t];
   Vec<T, 2> ea = load<T, 2, kAligned>(e + q.a);
@@ -248,14 +285,15 @@ correct_residual_kernel(const T* __restrict__ r, const T* __restrict__ e,
 // The launch floor: a kernel that does nothing, one CTA of one warp.
 __global__ void empty_kernel() {}
 
-// One thread per unit of `work`, in 256-thread CTAs (one CTA of whole warps
-// for less work).
+// One thread per unit of `work` of each of `lanes` grids, in 256-thread CTAs
+// (one CTA of whole warps for less work), the lane on gridDim.y.
 template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), long long work, int device, void* stream,
-           Args... args) {
+int launch(void (*kernel)(Params...), long long work, int lanes, int device,
+           void* stream, Args... args) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((work + kThreads - 1) / kThreads));
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((work + kThreads - 1) / kThreads), (unsigned)lanes);
   const dim3 block(work > 0 && work < kThreads ? 32 * (unsigned)((work + 31) / 32)
                                                : kThreads);
   kernel<<<grid, block, 0, (cudaStream_t)stream>>>(args...);
@@ -266,91 +304,103 @@ bool aligned(const void* p, int bytes) {
   return p == nullptr || reinterpret_cast<unsigned long long>(p) % bytes == 0;
 }
 
+// Halo rows belong to one grid: several lanes take none.
 template <typename T>
-int stencil5(const T* x, const T* top, const T* bot, T* y, int rows, int cols,
-             Coefs5<T> c, int device, void* stream) {
+int stencil5(const T* x, const T* top, const T* bot, T* y, int lanes, int rows,
+             int cols, Coefs5<T> c, const T* per_lane, int device, void* stream) {
   constexpr int V = 16 / sizeof(T);
-  if ((long long)rows * cols >= kChunkPoints && cols % V == 0 && aligned(x, 16) &&
-      aligned(top, 16) && aligned(bot, 16) && aligned(y, 16))
-    return launch(stencil5_kernel<T, V>, (long long)rows * (cols / V), device,
-                  stream, x, top, bot, y, rows, cols, c);
-  return launch(stencil5_kernel<T, 1>, (long long)rows * cols, device, stream,
-                x, top, bot, y, rows, cols, c);
+  if (lanes > 1 && (top != nullptr || bot != nullptr))
+    return (int)cudaErrorInvalidValue;
+  // Every lane's first row on a chunk boundary too.
+  const bool lanes_aligned = lanes == 1 || ((long long)rows * cols * sizeof(T)) % 16 == 0;
+  if ((long long)rows * cols >= kChunkPoints && cols % V == 0 && lanes_aligned &&
+      aligned(x, 16) && aligned(top, 16) && aligned(bot, 16) && aligned(y, 16))
+    return launch(stencil5_kernel<T, V>, (long long)rows * (cols / V), lanes,
+                  device, stream, x, top, bot, y, rows, cols, c, per_lane);
+  return launch(stencil5_kernel<T, 1>, (long long)rows * cols, lanes, device,
+                stream, x, top, bot, y, rows, cols, c, per_lane);
 }
 
+// A lane's fine grid holds 4·mr·mc points, so its pairs stay aligned.
 template <typename T>
-int residual_restrict(const T* r, const T* e, T* rc, int mr, int mc,
+int residual_restrict(const T* r, const T* e, T* rc, int lanes, int mr, int mc,
                       Coefs5<T> c, int device, void* stream) {
   const int pair = 2 * sizeof(T);
   if (aligned(r, pair) && aligned(e, pair))
-    return launch(residual_restrict_kernel<T, true>, (long long)mr * mc, device,
-                  stream, r, e, rc, mr, mc, c);
-  return launch(residual_restrict_kernel<T, false>, (long long)mr * mc, device,
-                stream, r, e, rc, mr, mc, c);
+    return launch(residual_restrict_kernel<T, true>, (long long)mr * mc, lanes,
+                  device, stream, r, e, rc, mr, mc, c);
+  return launch(residual_restrict_kernel<T, false>, (long long)mr * mc, lanes,
+                device, stream, r, e, rc, mr, mc, c);
 }
 
 template <typename T>
 int correct_residual(const T* r, const T* e, const T* ec, T* e_out, T* r_out,
-                     int mr, int mc, Coefs5<T> c, int device, void* stream) {
+                     int lanes, int mr, int mc, Coefs5<T> c, int device,
+                     void* stream) {
   const int pair = 2 * sizeof(T);
   if (aligned(r, pair) && aligned(e, pair) && aligned(e_out, pair) &&
       aligned(r_out, pair))
-    return launch(correct_residual_kernel<T, true>, (long long)mr * mc, device,
-                  stream, r, e, ec, e_out, r_out, mr, mc, c);
-  return launch(correct_residual_kernel<T, false>, (long long)mr * mc, device,
-                stream, r, e, ec, e_out, r_out, mr, mc, c);
+    return launch(correct_residual_kernel<T, true>, (long long)mr * mc, lanes,
+                  device, stream, r, e, ec, e_out, r_out, mr, mc, c);
+  return launch(correct_residual_kernel<T, false>, (long long)mr * mc, lanes,
+                device, stream, r, e, ec, e_out, r_out, mr, mc, c);
 }
 
 }  // namespace
 
 extern "C" {
 
+// `lanes` grids of (rows, cols) in one contiguous block; per_lane: a
+// (lanes, 5) device array of coefficients, or null for c0 … cn in every lane.
 int gt_stencil5_f32(const float* x, const float* top, const float* bot, float* y,
-                    int rows, int cols, float c0, float cw, float ce, float cs,
-                    float cn, int device, void* stream) {
-  return stencil5<float>(x, top, bot, y, rows, cols, {c0, cw, ce, cs, cn}, device,
-                         stream);
+                    int lanes, int rows, int cols, float c0, float cw, float ce,
+                    float cs, float cn, const float* per_lane, int device,
+                    void* stream) {
+  return stencil5<float>(x, top, bot, y, lanes, rows, cols, {c0, cw, ce, cs, cn},
+                         per_lane, device, stream);
 }
 
 int gt_stencil5_f64(const double* x, const double* top, const double* bot,
-                    double* y, int rows, int cols, double c0, double cw,
-                    double ce, double cs, double cn, int device, void* stream) {
-  return stencil5<double>(x, top, bot, y, rows, cols, {c0, cw, ce, cs, cn},
-                          device, stream);
+                    double* y, int lanes, int rows, int cols, double c0,
+                    double cw, double ce, double cs, double cn,
+                    const double* per_lane, int device, void* stream) {
+  return stencil5<double>(x, top, bot, y, lanes, rows, cols, {c0, cw, ce, cs, cn},
+                          per_lane, device, stream);
 }
 
-int gt_residual_restrict_f32(const float* r, const float* e, float* rc, int mr,
-                             int mc, float c0, float cw, float ce, float cs,
-                             float cn, int device, void* stream) {
-  return residual_restrict<float>(r, e, rc, mr, mc, {c0, cw, ce, cs, cn}, device,
-                                  stream);
+int gt_residual_restrict_f32(const float* r, const float* e, float* rc, int lanes,
+                             int mr, int mc, float c0, float cw, float ce,
+                             float cs, float cn, int device, void* stream) {
+  return residual_restrict<float>(r, e, rc, lanes, mr, mc, {c0, cw, ce, cs, cn},
+                                  device, stream);
 }
 
 int gt_residual_restrict_f64(const double* r, const double* e, double* rc,
-                             int mr, int mc, double c0, double cw, double ce,
-                             double cs, double cn, int device, void* stream) {
-  return residual_restrict<double>(r, e, rc, mr, mc, {c0, cw, ce, cs, cn}, device,
-                                   stream);
+                             int lanes, int mr, int mc, double c0, double cw,
+                             double ce, double cs, double cn, int device,
+                             void* stream) {
+  return residual_restrict<double>(r, e, rc, lanes, mr, mc, {c0, cw, ce, cs, cn},
+                                   device, stream);
 }
 
 int gt_correct_residual_f32(const float* r, const float* e, const float* ec,
-                            float* e_out, float* r_out, int mr, int mc, float c0,
-                            float cw, float ce, float cs, float cn, int device,
-                            void* stream) {
-  return correct_residual<float>(r, e, ec, e_out, r_out, mr, mc,
+                            float* e_out, float* r_out, int lanes, int mr,
+                            int mc, float c0, float cw, float ce, float cs,
+                            float cn, int device, void* stream) {
+  return correct_residual<float>(r, e, ec, e_out, r_out, lanes, mr, mc,
                                  {c0, cw, ce, cs, cn}, device, stream);
 }
 
 int gt_correct_residual_f64(const double* r, const double* e, const double* ec,
-                            double* e_out, double* r_out, int mr, int mc,
-                            double c0, double cw, double ce, double cs,
+                            double* e_out, double* r_out, int lanes, int mr,
+                            int mc, double c0, double cw, double ce, double cs,
                             double cn, int device, void* stream) {
-  return correct_residual<double>(r, e, ec, e_out, r_out, mr, mc,
+  return correct_residual<double>(r, e, ec, e_out, r_out, lanes, mr, mc,
                                   {c0, cw, ce, cs, cn}, device, stream);
 }
 
 int gt_empty(int device, void* stream) {
-  return launch(empty_kernel, 32, device, stream);
+  return launch(empty_kernel, 32, 1, device, stream);
 }
 
 const char* gt_cuda_error_string(int code) {

@@ -110,17 +110,22 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(_build())
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            # K1, K1rr, K1cr and K2 take a lane count: the grids are one
+            # contiguous (lanes, rows, cols) block (1 for one grid).
+            # K1 also takes a (lanes, 5) device array of per-lane
+            # coefficients (null: the five values given).
             fn = getattr(lib, f"gt_stencil5_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 5 + [i32, vp]
+            fn.argtypes = ([vp, vp, vp, vp, i32, i32, i32] + [real] * 5
+                           + [vp, i32, vp])
             fn.restype = i32
             fn = getattr(lib, f"gt_residual_restrict_{suffix}")
-            fn.argtypes = [vp, vp, vp, i32, i32] + [real] * 5 + [i32, vp]
+            fn.argtypes = [vp, vp, vp, i32, i32, i32] + [real] * 5 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_correct_residual_{suffix}")
-            fn.argtypes = [vp] * 5 + [i32, i32] + [real] * 5 + [i32, vp]
+            fn.argtypes = [vp] * 5 + [i32, i32, i32] + [real] * 5 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_chebk_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32, real, vp, i32, vp,
+            fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, real, vp, i32, vp,
                            i32, i32, i32, i32, i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_cheb2_{suffix}")
@@ -198,8 +203,68 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-_functorch_wrapped = getattr(getattr(torch._C, "_functorch", None),
-                             "is_functorch_wrapped_tensor", None)
+_fc = getattr(torch._C, "_functorch", None)
+_functorch_wrapped = getattr(_fc, "is_functorch_wrapped_tensor", None)
+_batched = getattr(_fc, "is_batchedtensor", None)
+
+
+def vmapped(*ts) -> bool:
+    """True where one of ``ts`` is a tensor that ``torch.func.vmap`` wraps
+    at its innermost level (a batched operand or coefficient): the routed
+    entries of K1–K4 then go through their vmap rules (``through_lanes``)."""
+    return _batched is not None and any(
+        isinstance(t, torch.Tensor) and _batched(t) for t in ts)
+
+
+def _lanes_of(args):
+    """(level, batch dims, plain args, lanes) where the innermost transform
+    is ``torch.func.vmap`` and wraps each tensor among ``args`` that any
+    transform wraps as a batched tensor of its level directly over a plain
+    tensor (the batch dims None for the other args, which stay as given),
+    and neither autograd nor forward-mode AD tracks a plain arg; None
+    otherwise (vmap composed with another transform, or a tracked
+    operand or coefficient)."""
+    top = _fc.peek_interpreter_stack()
+    if top is None or top.key() != _fc.TransformType.Vmap:
+        return None
+    level, dims, plain, lanes = top.level(), [], [], None
+    for a in args:
+        if isinstance(a, torch.Tensor) and _functorch_wrapped(a):
+            inner = _fc.get_unwrapped(a) if _batched(a) else None
+            if (inner is None or _fc.maybe_get_level(a) != level
+                    or _functorch_wrapped(inner)):
+                return None
+            dims.append(_fc.maybe_get_bdim(a))
+            plain.append(inner)
+            lanes = inner.shape[dims[-1]]
+        else:
+            dims.append(None)
+            plain.append(a)
+    if lanes is None or any(tracked_by(p) is not None for p in plain):
+        return None
+    return level, dims, plain, lanes
+
+
+def through_lanes(lanes_fn, function, *args):
+    """A routed kernel entry under ``torch.func.vmap``: ``lanes_fn(dims,
+    lanes, *plain args)`` (one batched call for all lanes; the same body as
+    ``function``'s vmap rule) on the tensors vmap wraps, its output (a
+    tensor or a tuple of them, lanes first) wrapped back at vmap's level.
+    Unwrapping the one level here costs ~10 µs a call, against ~270 µs
+    through an autograd.Function's vmap rule (functorch's Python
+    ``custom_function_call``; on the CPU, torch 2.13). Where vmap is
+    composed with another transform, or autograd or forward-mode AD tracks
+    an unwrapped operand or coefficient, ``function.apply(*args)``: functorch
+    calls its vmap rule at each level, and the rule keeps what tracks the
+    operands (K1's takes ``Stencil5Grid`` on the block)."""
+    found = _lanes_of(args)
+    if found is None:
+        return function.apply(*args)
+    level, dims, plain, lanes = found
+    out = lanes_fn(dims, lanes, *plain)
+    if isinstance(out, tuple):
+        return tuple(_fc._add_batch_dim(o, 0, level) for o in out)
+    return _fc._add_batch_dim(out, 0, level)
 
 
 def tracked_by(t) -> str | None:
@@ -225,8 +290,12 @@ def refuse_transforms(what: str, kernel: str, *tensors) -> None:
     ``tracked_by`` names. A kernel reads raw pointers and values: a tracked
     tensor would lose its gradient or tangent silently, and a wrapped one
     has no storage to read. Only K1's full-grid route
-    (``ops/stencil.py:Stencil5Grid``) has rules; it calls the wrapper with
-    plain tensors from inside its autograd.Function."""
+    (``ops/stencil.py:Stencil5Grid``) has autograd and forward-mode rules;
+    it calls the wrapper with plain tensors from inside its
+    autograd.Function. Under ``torch.func.vmap`` the routed entries of K1
+    (with its V-cycle forms), K2, K3 and K4 take their vmap rules, which
+    call the wrappers on the plain (lanes, …) block; a wrapper called
+    directly on a batched tensor refuses it here like any other."""
     for t in tensors:
         why = tracked_by(t)
         if why is not None:
@@ -235,7 +304,11 @@ def refuse_transforms(what: str, kernel: str, *tensors) -> None:
                 f"rule, and a tensor it was handed is tracked by {why}. Only K1's "
                 "full-grid route (stencil_5pt_pallas) is differentiable on the card; "
                 "ROADMAP: transposes of K2–K8. Differentiate on CPU tensors (the "
-                "plain versions), or run under torch.no_grad().")
+                "plain versions), or run under torch.no_grad(). Under torch.func.vmap, "
+                "call the routed entries of K1–K4 (stencil_5pt_pallas, "
+                "residual_restrict, correct_residual, poly_stencil_smoother_pallas, "
+                "the sparse operators), which batch; K5–K8 have no vmap rule "
+                "(ROADMAP: batched forms of K3–K8).")
 
 
 # Where a DTensor goes instead of a kernel wrapper, by kernel.
@@ -279,18 +352,35 @@ def refuse_dtensor(what: str, kernel: str, *tensors) -> None:
                 f"DTensor (placements {tuple(t.placements)}): {route}.")
 
 
-def check_grid(what: str, kernel: str, *grids: torch.Tensor) -> None:
+# Lanes of one batched launch, at most (the lane is a grid dimension of
+# its own: gridDim.y or gridDim.z, at most 65535).
+MAX_LANES = 65535
+
+
+def check_grid(what: str, kernel: str, *grids: torch.Tensor,
+               lanes: bool = False) -> None:
     """``refuse_dtensor`` and ``refuse_transforms`` on every grid, then the
-    device, dtype, rank and contiguity checks shared by the wrappers."""
+    device, dtype, rank and contiguity checks shared by the wrappers. With
+    ``lanes`` (K1's forms and K2), every tensor may instead be a
+    (lanes, rows, cols) block, all of one rank and with the same lanes: one
+    launch takes the block, each lane a grid one launch takes."""
     refuse_dtensor(what, kernel, *grids)
     refuse_transforms(what, kernel, *grids)
+    rank = grids[0].dim() if lanes and grids[0].dim() == 3 else 2
     for x in grids:
         if not x.is_cuda:
             raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
         suffix(x.dtype)
-        if x.dim() != 2:
-            raise ValueError(f"{what}: expected a 2-D grid, got shape {tuple(x.shape)}")
+        if x.dim() != rank:
+            raise ValueError(f"{what}: expected a 2-D grid"
+                             + (" or a (lanes, rows, cols) block" if lanes else "")
+                             + f", got shape {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: expected a contiguous tensor")
-        if x.numel() >= 2**31 or x.shape[0] > 65535 * 8:
-            raise ValueError(f"{what}: grid {tuple(x.shape)} too large for one launch")
+        if rank == 3 and not 1 <= x.shape[0] == grids[0].shape[0] <= MAX_LANES:
+            raise ValueError(f"{what}: {x.shape[0]} lanes (1 to {MAX_LANES}, the "
+                             "same in every block)")
+        grid = x.shape[-2:]
+        if grid.numel() >= 2**31 or grid[0] > 65535 * 8:
+            raise ValueError(f"{what}: grid {tuple(grid)} too large for one launch")
+

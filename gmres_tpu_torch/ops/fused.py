@@ -70,6 +70,8 @@ from gmres_tpu_torch.ops.stencil import (
     _coef_list,
     _coef_terms,
     _halo_row,
+    _lanes_first,
+    _shared_coefs,
     stencil_5pt_general,
     stencil_5pt_halo,
 )
@@ -302,18 +304,14 @@ def chebk_route(rows: int, cols: int, nsteps: int, dtype: torch.dtype,
     raise ValueError(f"chebk_cuda: unknown path {path!r}")
 
 
-def chebk_cuda(r: torch.Tensor, theta: float, steps,
-               coefs=POISSON_COEFS, *, _path=None) -> torch.Tensor:
-    """Launch K2 on a CUDA (rows, N) grid on the path ``chebk_route`` picks
-    (``_path`` forces one, for the tests and chip_smoke.py). Counts:
-    ``chebk_cuda.launches`` (1 on a fused path, one per sweep, at least one,
-    on the sweep path) and ``chebk_cuda.launches_by_path``."""
-    c = _coef_list(coefs, "chebk_cuda", "K2")
-    _cuda.check_grid("chebk_cuda", "K2", r)
+def _chebk_launch(what: str, r: torch.Tensor, theta: float, steps, c, _path):
+    """One K2 launch (one per sweep on the per-sweep path) on a CUDA grid or
+    (lanes, rows, cols) block, on the path a lane's shape takes; returns
+    (z, path, launches)."""
     if len(steps) % 2:
         raise ValueError("steps must hold (a, b) pairs")
     nsteps = len(steps) // 2
-    rows, cols = r.shape
+    lanes, rows, cols = (1, *r.shape) if r.dim() == 2 else r.shape
     path, _, args = chebk_route(rows, cols, nsteps, r.dtype, r.device.index, _path)
     out = torch.empty_like(r)
     scratch = d = None
@@ -322,19 +320,73 @@ def chebk_cuda(r: torch.Tensor, theta: float, steps,
         d = torch.empty_like(r)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = _cuda.entry("gt_chebk", r.dtype)(
-        r.data_ptr(), out.data_ptr(), ptr(scratch), ptr(d), rows, cols, theta,
+        r.data_ptr(), out.data_ptr(), ptr(scratch), ptr(d), lanes, rows, cols, theta,
         _cuda.scalar_array(list(steps), r.dtype), nsteps,
         _cuda.scalar_array(c, r.dtype), *args,
         r.device.index, _cuda.stream_of(r))
-    _cuda.check(rc, "chebk_cuda")
-    n = max(nsteps, 1) if path == "sweep" else 1
+    _cuda.check(rc, what)
+    return out, path, max(nsteps, 1) if path == "sweep" else 1
+
+
+def chebk_cuda(r: torch.Tensor, theta: float, steps,
+               coefs=POISSON_COEFS, *, _path=None) -> torch.Tensor:
+    """Launch K2 on a CUDA (rows, N) grid, or once for all lanes on a
+    (lanes, rows, N) block (one (θ, steps, coefficients) for every lane,
+    each lane the bits of its own launch), on the path ``chebk_route`` picks
+    for one grid's shape (``_path`` forces one, for the tests and
+    chip_smoke.py). Counts: ``chebk_cuda.launches`` (1 on a fused path, one
+    per sweep, at least one, on the sweep path), ``.launches_by_path`` and
+    ``.batched_launches`` (those on a block). Under ``torch.func.vmap``, one
+    launch on the lanes' block (``ChebK``'s vmap rule)."""
+    if _cuda.vmapped(r):
+        return _cuda.through_lanes(_k2_lanes, ChebK, r, theta, tuple(steps), ("cuda", _path),
+                                   *_coef_terms(coefs))
+    c = _coef_list(coefs, "chebk_cuda", "K2")
+    _cuda.check_grid("chebk_cuda", "K2", r, lanes=True)
+    out, path, n = _chebk_launch("chebk_cuda", r, theta, steps, c, _path)
     chebk_cuda.launches += n
     chebk_cuda.launches_by_path[path] += n
+    chebk_cuda.batched_launches += n if r.dim() == 3 else 0
     return out
 
 
 chebk_cuda.launches = 0
 chebk_cuda.launches_by_path = {"cluster": 0, "tiled": 0, "sweep": 0}
+chebk_cuda.batched_launches = 0
+
+
+def _k2_lanes(dims, n, r, theta, steps, route, *coefs):
+    """K2's vmap rule: one ``poly_stencil_smoother_pallas`` call on the
+    lanes' block (``route`` "routed"), or one ``chebk_cuda`` launch on it
+    (``route`` ("cuda", _path), from ``chebk_cuda``); one coefficient set
+    for every lane."""
+    _shared_coefs("K2", dims[4:])
+    rb = _lanes_first(r, dims[0], n)
+    if route == "routed":
+        return poly_stencil_smoother_pallas(rb, theta, steps, coefs)
+    return chebk_cuda(rb, theta, steps, coefs, _path=route[1])
+
+
+class ChebK(torch.autograd.Function):
+    """K2's routed entries under ``torch.func.vmap``:
+    ``ChebK.apply(r, theta, steps, route, *coefs)``, whose vmap rule is
+    ``_k2_lanes``; ``_cuda.through_lanes`` takes the same rule without the
+    Function where vmap is the only transform. No autograd rule, as K2 has
+    none."""
+
+    @staticmethod
+    def forward(r, theta, steps, route, *coefs):
+        if route == "routed":
+            return poly_stencil_smoother_pallas(r, theta, steps, coefs)
+        return chebk_cuda(r, theta, steps, coefs, _path=route[1])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _k2_lanes(in_dims, info.batch_size, *args), 0
 
 
 def poly_stencil_smoother_pallas(
@@ -344,10 +396,21 @@ def poly_stencil_smoother_pallas(
     coefs=POISSON_COEFS,
 ) -> torch.Tensor:
     """Order-k polynomial smoother z ≈ A⁻¹r with the caller's (θ, steps):
-    the plain version for a CPU tensor, K2 for a CUDA tensor."""
+    the plain version for a CPU tensor, K2 for a CUDA tensor; r a grid or
+    a (lanes, rows, cols) block. Under ``torch.func.vmap``, one call on the
+    lanes' block on either device (``ChebK``'s vmap rule; one launch on the
+    card); ``poly_stencil_smoother_pallas.block_calls`` counts calls on a
+    block."""
+    if _cuda.vmapped(r):
+        return _cuda.through_lanes(_k2_lanes, ChebK, r, theta, tuple(steps), "routed",
+                                   *_coef_terms(coefs))
+    poly_stencil_smoother_pallas.block_calls += int(r.dim() == 3)
     if r.device.type == "cpu":
         return poly_stencil_smoother_plain(r, theta, steps, coefs)
     return chebk_cuda(r, theta, steps, coefs)
+
+
+poly_stencil_smoother_pallas.block_calls = 0
 
 
 def chebyshev_k_poisson_pallas(

@@ -487,7 +487,9 @@ def csr_row_ids(a: CSRMatrix) -> torch.Tensor:
 
 
 def _segment_sum(prod: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros(n, dtype=prod.dtype, device=prod.device).index_add_(
+    # Out of place, so that under torch.func.vmap the zeros take the lanes
+    # of prod (an in-place add of a batched prod into them cannot).
+    return torch.zeros(n, dtype=prod.dtype, device=prod.device).index_add(
         0, rows, prod)
 
 
@@ -623,17 +625,50 @@ def bsr_spmv_cuda(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
 bsr_spmv_cuda.launches = 0
 
 
+def _each_lane(dims, n, x, fn):
+    """K3's and K4's vmap rule: fn on each lane in turn."""
+    xb = x.movedim(dims[0], 0)
+    return torch.stack([fn(xb[i]) for i in range(n)])
+
+
+class PerLane(torch.autograd.Function):
+    """K3's and K4's routed entries under ``torch.func.vmap``:
+    ``PerLane.apply(x, fn)`` is fn(x), and its vmap rule (``_each_lane``,
+    through ``_cuda.through_lanes`` where vmap is the only transform) calls
+    fn on each lane of the block in turn, so each lane launches its kernel
+    once (the batched launches of K3 and K4 are ROADMAP work) and gives its
+    own bits. No autograd rule, as K3 and K4 have none."""
+
+    @staticmethod
+    def forward(x, fn):
+        return fn(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _each_lane(in_dims, info.batch_size, *args), 0
+
+
 def dia_spmv_pallas(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
-    """DIA SpMV: the plain version for a CPU operand, K3 for a CUDA one."""
+    """DIA SpMV: the plain version for a CPU operand, K3 for a CUDA one;
+    under ``torch.func.vmap``, one call a lane (``PerLane``)."""
     _check_same_device("dia_spmv_pallas", x, a.data)
+    if _cuda.vmapped(x):
+        return _cuda.through_lanes(_each_lane, PerLane, x, lambda t: dia_spmv_pallas(a, t))
     if x.device.type == "cpu":
         return dia_spmv(a, x)
     return dia_spmv_cuda(a, x)
 
 
 def bsr_spmv_pallas(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
-    """BSR SpMV: the plain version for a CPU operand, K4 for a CUDA one."""
+    """BSR SpMV: the plain version for a CPU operand, K4 for a CUDA one;
+    under ``torch.func.vmap``, one call a lane (``PerLane``)."""
     _check_same_device("bsr_spmv_pallas", x, a.data, a.block_cols)
+    if _cuda.vmapped(x):
+        return _cuda.through_lanes(_each_lane, PerLane, x, lambda t: bsr_spmv_pallas(a, t))
     if x.device.type == "cpu":
         return bsr_spmv(a, x)
     return bsr_spmv_cuda(a, x)

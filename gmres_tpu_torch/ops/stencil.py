@@ -74,15 +74,16 @@ def _halo_route(x, kind: str, coefs):
 
 
 def _shift(x: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
-    """x shifted by (dr, dc) ∈ {−1, 0, 1}² with zero fill."""
+    """x shifted by (dr, dc) ∈ {−1, 0, 1}² along its last two dimensions,
+    with zero fill (a (lanes, rows, cols) block shifts each lane)."""
     if dc == 1:
-        x = F.pad(x[:, :-1], (1, 0))
+        x = F.pad(x[..., :-1], (1, 0))
     elif dc == -1:
-        x = F.pad(x[:, 1:], (0, 1))
+        x = F.pad(x[..., 1:], (0, 1))
     if dr == 1:
-        x = F.pad(x[:-1, :], (0, 0, 1, 0))
+        x = F.pad(x[..., :-1, :], (0, 0, 1, 0))
     elif dr == -1:
-        x = F.pad(x[1:, :], (0, 0, 0, 1))
+        x = F.pad(x[..., 1:, :], (0, 0, 0, 1))
     return x
 
 
@@ -95,8 +96,10 @@ def stencil_5pt_general(
     north: float,
 ) -> torch.Tensor:
     """y(i,j) = center·x(i,j) + west·x(i,j−1) + east·x(i,j+1)
-    + south·x(i−1,j) + north·x(i+1,j), zero outside the grid. A DTensor
-    goes by the DTensor route (module docstring)."""
+    + south·x(i−1,j) + north·x(i+1,j), zero outside the grid, on the last
+    two dimensions (a (lanes, rows, cols) block is one stencil a lane, with
+    (lanes, 1, 1) coefficients where they differ by lane). A DTensor goes by
+    the DTensor route (module docstring)."""
     if on_sharded_grid(x):
         return _halo_route(x, "5pt", (center, west, east, south, north))
     return (
@@ -240,27 +243,54 @@ def _halo_row(h, x: torch.Tensor, what: str, kernel: str):
     return h.data_ptr()
 
 
+def _per_lane(coefs) -> bool:
+    """Whether ``coefs`` is a (lanes, 5) tensor of per-lane coefficients."""
+    return isinstance(coefs, torch.Tensor) and coefs.dim() == 2
+
+
 def stencil5_cuda(x: torch.Tensor, top=None, bottom=None,
                   coefs=None) -> torch.Tensor:
     """Launch K1 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
-    rows, None for a zero row. ``stencil5_cuda.launches`` counts launches.
-    No autograd rule: a tracked operand, halo row or coefficient raises
+    rows, None for a zero row. On a (lanes, rows, N) block with zero halos
+    (what jax.vmap makes of the Pallas kernel: a leading grid axis), one
+    launch for all lanes, each lane the bits of its own launch; ``coefs``
+    may then be a (lanes, 5) tensor, one set a lane (copied to the card in
+    the block's dtype, no host read). ``stencil5_cuda.launches`` counts
+    launches, ``.batched_launches`` those on a block. No autograd rule: a
+    tracked operand, halo row or coefficient raises
     (``_cuda.refuse_transforms``); the differentiable full-grid route is
     ``stencil5_grid``."""
-    c = _coef_list(coefs, "stencil5_cuda", "K1")
-    _cuda.check_grid("stencil5_cuda", "K1", x)
+    per_lane = None
+    if _per_lane(coefs):
+        _cuda.refuse_dtensor("stencil5_cuda", "K1", coefs)
+        _cuda.refuse_transforms("stencil5_cuda", "K1", coefs)
+        c = [0.0] * 5
+    else:
+        c = _coef_list(coefs, "stencil5_cuda", "K1")
+    _cuda.check_grid("stencil5_cuda", "K1", x, lanes=True)
+    lanes = x.shape[0] if x.dim() == 3 else 1
+    if _per_lane(coefs):
+        if x.dim() != 3 or tuple(coefs.shape) != (lanes, 5):
+            raise ValueError(f"stencil5_cuda: per-lane coefficients must be ({lanes}, 5) "
+                             f"on a block, got {tuple(coefs.shape)}")
+        per_lane = coefs.to(device=x.device, dtype=x.dtype).contiguous()
+    if x.dim() == 3 and (top is not None or bottom is not None):
+        raise ValueError("stencil5_cuda: a (lanes, rows, cols) block takes zero halos")
     top_p = _halo_row(top, x, "stencil5_cuda", "K1")
     bot_p = _halo_row(bottom, x, "stencil5_cuda", "K1")
     y = torch.empty_like(x)
     rc = _cuda.entry("gt_stencil5", x.dtype)(
-        x.data_ptr(), top_p, bot_p, y.data_ptr(), x.shape[0], x.shape[1], *c,
-        x.device.index, _cuda.stream_of(x))
+        x.data_ptr(), top_p, bot_p, y.data_ptr(), lanes, x.shape[-2], x.shape[-1], *c,
+        None if per_lane is None else per_lane.data_ptr(), x.device.index,
+        _cuda.stream_of(x))
     _cuda.check(rc, "stencil5_cuda")
     stencil5_cuda.launches += 1
+    stencil5_cuda.batched_launches += int(x.dim() == 3)
     return y
 
 
 stencil5_cuda.launches = 0
+stencil5_cuda.batched_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -270,23 +300,26 @@ stencil5_cuda.launches = 0
 
 def restrict_sum(x: torch.Tensor) -> torch.Tensor:
     """(2m, 2m) → (m, m) by 2×2 block sum (residual transfer for
-    h²-scaled operators), summed rows first as in the JAX version."""
-    y = x[0::2, :] + x[1::2, :]
-    return y[:, 0::2] + y[:, 1::2]
+    h²-scaled operators), summed rows first as in the JAX version; on the
+    last two dimensions (a (lanes, 2m, 2m) block restricts each lane)."""
+    y = x[..., 0::2, :] + x[..., 1::2, :]
+    return y[..., 0::2] + y[..., 1::2]
 
 
 def prolong_repeat(x: torch.Tensor) -> torch.Tensor:
-    """(m, m) → (2m, 2m) by replication."""
-    return x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
+    """(m, m) → (2m, 2m) by replication, on the last two dimensions."""
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
 def _check_levels(what: str, r: torch.Tensor, e: torch.Tensor, ec=None) -> None:
     """r and e one fine (2m, 2mc) grid of one dtype and device; ec, where
-    given, the coarse (m, mc) grid."""
-    if r.dim() != 2 or r.shape[0] % 2 or r.shape[1] % 2:
+    given, the coarse (m, mc) grid. Or (lanes, …) blocks of such grids,
+    the same lanes in each."""
+    lead = tuple(r.shape[:1]) if r.dim() == 3 else ()
+    if r.dim() not in (2, 3) or r.shape[-2] % 2 or r.shape[-1] % 2:
         raise ValueError(f"{what}: the fine grid must have even sides, got "
                          f"{tuple(r.shape)}")
-    for t, shape in ((e, r.shape), (ec, (r.shape[0] // 2, r.shape[1] // 2))):
+    for t, shape in ((e, r.shape), (ec, lead + (r.shape[-2] // 2, r.shape[-1] // 2))):
         if t is not None and (tuple(t.shape) != tuple(shape) or t.dtype != r.dtype
                               or t.device != r.device):
             raise ValueError(f"{what}: expected a {tuple(shape)} {r.dtype} grid on "
@@ -312,50 +345,62 @@ def correct_residual_plain(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
 
 def residual_restrict_cuda(r: torch.Tensor, e: torch.Tensor,
                            coefs=None) -> torch.Tensor:
-    """Launch K1's residual-restrict form on CUDA (2m, 2mc) grids r and e;
-    returns the (m, mc) grid. ``residual_restrict_cuda.launches`` counts
-    launches."""
+    """Launch K1's residual-restrict form on CUDA (2m, 2mc) grids r and e,
+    or once on (lanes, 2m, 2mc) blocks; returns the (m, mc) grid (the
+    (lanes, m, mc) block). ``residual_restrict_cuda.launches`` counts
+    launches, ``.batched_launches`` those on blocks."""
     c = _coef_list(coefs, "residual_restrict_cuda", "K1rr")
-    _cuda.check_grid("residual_restrict_cuda", "K1rr", r, e)
+    _cuda.check_grid("residual_restrict_cuda", "K1rr", r, e, lanes=True)
     _check_levels("residual_restrict_cuda", r, e)
-    mr, mc = r.shape[0] // 2, r.shape[1] // 2
-    out = torch.empty((mr, mc), dtype=r.dtype, device=r.device)
+    lead, (mr, mc) = r.shape[:-2], (r.shape[-2] // 2, r.shape[-1] // 2)
+    out = torch.empty(lead + (mr, mc), dtype=r.dtype, device=r.device)
     rc = _cuda.entry("gt_residual_restrict", r.dtype)(
-        r.data_ptr(), e.data_ptr(), out.data_ptr(), mr, mc, *c,
+        r.data_ptr(), e.data_ptr(), out.data_ptr(), lead.numel(), mr, mc, *c,
         r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "residual_restrict_cuda")
     residual_restrict_cuda.launches += 1
+    residual_restrict_cuda.batched_launches += int(r.dim() == 3)
     return out
 
 
 residual_restrict_cuda.launches = 0
+residual_restrict_cuda.batched_launches = 0
 
 
 def correct_residual_cuda(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
                           coefs=None):
     """Launch K1's correct-residual form on CUDA grids (fine r and e, coarse
-    ec); returns (e', r − A e'). ``correct_residual_cuda.launches`` counts
-    launches."""
+    ec), or once on (lanes, …) blocks of them; returns (e', r − A e').
+    ``correct_residual_cuda.launches`` counts launches, ``.batched_launches``
+    those on blocks."""
     c = _coef_list(coefs, "correct_residual_cuda", "K1cr")
-    _cuda.check_grid("correct_residual_cuda", "K1cr", r, e, ec)
+    _cuda.check_grid("correct_residual_cuda", "K1cr", r, e, ec, lanes=True)
     _check_levels("correct_residual_cuda", r, e, ec)
     e_out, r_out = torch.empty_like(e), torch.empty_like(r)
     rc = _cuda.entry("gt_correct_residual", r.dtype)(
         r.data_ptr(), e.data_ptr(), ec.data_ptr(), e_out.data_ptr(),
-        r_out.data_ptr(), ec.shape[0], ec.shape[1], *c,
+        r_out.data_ptr(), r.shape[:-2].numel(), ec.shape[-2], ec.shape[-1], *c,
         r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "correct_residual_cuda")
     correct_residual_cuda.launches += 1
+    correct_residual_cuda.batched_launches += int(r.dim() == 3)
     return e_out, r_out
 
 
 correct_residual_cuda.launches = 0
+correct_residual_cuda.batched_launches = 0
 
 
 def residual_restrict(r: torch.Tensor, e: torch.Tensor,
                       coefs=POISSON_COEFS) -> torch.Tensor:
     """restrict_sum(r − A e), routed by device: the plain composition for a
-    CPU tensor, K1's residual-restrict form for a CUDA tensor."""
+    CPU tensor, K1's residual-restrict form for a CUDA tensor; r and e
+    grids or (lanes, …) blocks. Under ``torch.func.vmap``, one call on the
+    lanes' blocks (``ResidualRestrict``'s vmap rule; one launch on the
+    card); ``residual_restrict.block_calls`` counts calls on blocks."""
+    if _cuda.vmapped(r, e):
+        return _cuda.through_lanes(_rr_lanes, ResidualRestrict, r, e, *_coef_terms(coefs))
+    residual_restrict.block_calls += int(r.dim() == 3)
     if r.device.type == "cpu":
         _check_levels("residual_restrict", r, e)
         return residual_restrict_plain(r, e, coefs)
@@ -366,11 +411,111 @@ def correct_residual(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
                      coefs=POISSON_COEFS):
     """(e + prolong_repeat(ec), r − A(e + prolong_repeat(ec))), routed by
     device: the plain composition for a CPU tensor, K1's correct-residual
-    form for a CUDA tensor."""
+    form for a CUDA tensor; grids or (lanes, …) blocks. Under
+    ``torch.func.vmap``, one call on the lanes' blocks (``CorrectResidual``'s
+    vmap rule); ``correct_residual.block_calls`` counts calls on blocks."""
+    if _cuda.vmapped(r, e, ec):
+        return _cuda.through_lanes(_cr_lanes, CorrectResidual, r, e, ec,
+                                   *_coef_terms(coefs))
+    correct_residual.block_calls += int(r.dim() == 3)
     if r.device.type == "cpu":
         _check_levels("correct_residual", r, e, ec)
         return correct_residual_plain(r, e, ec, coefs)
     return correct_residual_cuda(r, e, ec, coefs)
+
+
+residual_restrict.block_calls = 0
+correct_residual.block_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# K1's vmap rules: a block application (``torch.func.vmap`` of an operator
+# or a V-cycle, ``ops/blas.py:row_apply``) reaches K1's launches on a
+# (lanes, rows, cols) block, what jax.vmap makes of the Pallas kernel (a
+# leading grid axis), through the rules below.
+# ---------------------------------------------------------------------------
+
+
+def _lanes_first(t: torch.Tensor, dim, lanes: int) -> torch.Tensor:
+    """A vmap rule's operand as a contiguous (lanes, …) block: its batch
+    dimension moved first, or the one tensor repeated where it is not
+    batched."""
+    if dim is None:
+        return t.expand((lanes,) + tuple(t.shape)).contiguous()
+    return t.movedim(dim, 0).contiguous()
+
+
+def _lane_coefs(coefs, dims, lanes: int, device):
+    """A vmap rule's five coefficients: as given where none is batched (one
+    set for every lane), else a (lanes, 5) float64 tensor on ``device``, one
+    set a lane (a float or an unbatched tensor repeated down its column)."""
+    if all(d is None for d in dims):
+        return list(coefs)
+    cols = [c.movedim(d, 0).reshape(lanes) if d is not None
+            else torch.as_tensor(c, dtype=torch.float64).reshape(()).expand(lanes)
+            for c, d in zip(coefs, dims)]
+    return torch.stack([c.to(device=device, dtype=torch.float64) for c in cols], dim=1)
+
+
+def _shared_coefs(what: str, dims) -> None:
+    """The V-cycle forms and K2 take one coefficient set for all lanes."""
+    if any(d is not None for d in dims):
+        raise NotImplementedError(
+            f"{what}: coefficients that differ by lane reach K1's full-grid "
+            "stencil only; the V-cycle forms and K2 take one set for every lane "
+            "(ROADMAP: batched forms)")
+
+
+def _rr_lanes(dims, n, r, e, *coefs):
+    """residual_restrict's vmap rule: one call on the lanes' blocks."""
+    _shared_coefs("residual_restrict", dims[2:])
+    return residual_restrict(_lanes_first(r, dims[0], n), _lanes_first(e, dims[1], n),
+                             coefs)
+
+
+def _cr_lanes(dims, n, r, e, ec, *coefs):
+    """correct_residual's vmap rule: one call on the lanes' blocks."""
+    _shared_coefs("correct_residual", dims[3:])
+    return correct_residual(_lanes_first(r, dims[0], n), _lanes_first(e, dims[1], n),
+                            _lanes_first(ec, dims[2], n), coefs)
+
+
+class ResidualRestrict(torch.autograd.Function):
+    """``residual_restrict`` under ``torch.func.vmap``: its vmap rule makes
+    one ``residual_restrict`` call on the lanes' blocks (one K1rr launch on
+    the card); ``_cuda.through_lanes`` takes the same rule without the
+    Function where vmap is the only transform. No autograd rule, as
+    ``residual_restrict_cuda`` has none."""
+
+    @staticmethod
+    def forward(r, e, *coefs):
+        return residual_restrict(r, e, coefs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _rr_lanes(in_dims, info.batch_size, *args), 0
+
+
+class CorrectResidual(torch.autograd.Function):
+    """``correct_residual`` under ``torch.func.vmap``: one
+    ``correct_residual`` call on the lanes' blocks (one K1cr launch on the
+    card), as ``ResidualRestrict``."""
+
+    @staticmethod
+    def forward(r, e, ec, *coefs):
+        return correct_residual(r, e, ec, coefs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _cr_lanes(in_dims, info.batch_size, *args), (0, 0)
 
 
 def stencil_5pt_pallas_halo(
@@ -402,11 +547,19 @@ _COEF_SHIFTS = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0))
 
 
 def _k1_grid(x: torch.Tensor, vals) -> torch.Tensor:
-    """One full-grid application with float coefficients: the plain
-    version for a CPU tensor, one K1 launch for a CUDA tensor."""
+    """One full-grid application with float coefficients on a grid or a
+    (lanes, rows, cols) block: the plain version for a CPU tensor, one K1
+    launch for a CUDA tensor."""
     if x.device.type == "cpu":
         return stencil_5pt_general(x, *vals)
     return stencil5_cuda(x, None, None, vals)
+
+
+def _k1_lanes(dims, n, x, *coefs):
+    """K1's vmap rule: one ``stencil_5pt_pallas`` call on the lanes' block,
+    with a (lanes, 5) coefficient array where a coefficient is batched."""
+    xb = _lanes_first(x, dims[0], n)
+    return stencil_5pt_pallas(xb, _lane_coefs(coefs, dims[1:], n, xb.device))
 
 
 class Stencil5Grid(torch.autograd.Function):
@@ -430,7 +583,17 @@ class Stencil5Grid(torch.autograd.Function):
     ``torch.func`` transform the forward receives unwrapped tensors, which
     a ctypes launch needs. On a CPU tensor the same rules run on the plain
     version (the tests' oracle for the card). ``rule_applications`` counts
-    the backward's and the jvp's applications by rule."""
+    the backward's and the jvp's applications by rule.
+
+    * vmap: the lanes of ``torch.func.vmap`` in one ``stencil_5pt_pallas``
+      call on their (lanes, rows, cols) block (one K1 launch on a CUDA
+      block, the plain version on a CPU block), with per-lane coefficients
+      where a coefficient is batched (an operator family swept over
+      lanes): ``_k1_lanes``, which ``stencil_5pt_pallas`` calls through
+      ``_cuda.through_lanes`` without the Function where vmap is the only
+      transform and nothing tracks the operands. Where autograd, forward-mode
+      AD or another transform tracks them, the rule's call takes this
+      Function on the block, whose rules then act on the whole block."""
 
     @staticmethod
     def forward(x, *coefs):
@@ -463,6 +626,10 @@ class Stencil5Grid(torch.autograd.Function):
             g = torch.sum(gy * _shift(x, *_COEF_SHIFTS[k]))
             gcoefs.append(g.reshape(shape).to(dtype))
         return (gx, *gcoefs)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _k1_lanes(in_dims, info.batch_size, *args), 0
 
     @staticmethod
     def jvp(ctx, gx, *gcoefs):
@@ -501,15 +668,45 @@ def stencil_5pt_pallas(x: torch.Tensor, coefs=None) -> torch.Tensor:
     otherwise straight to the wrapper, without the autograd.Function's host
     cost. A tensor coefficient stays in the graph on both devices. A DTensor
     goes by the DTensor route (module docstring): K1's halo form on each
-    rank's block on the card."""
+    rank's block on the card. Under ``torch.func.vmap`` (x or a coefficient
+    batched) the call goes through ``Stencil5Grid``'s vmap rule on either
+    device: one call of this function on the lanes' (lanes, rows, cols)
+    block, routed as a grid is (one K1 launch on the card), where
+    ``coefs`` may also be a (lanes, 5) tensor, one set a lane.
+    ``stencil_5pt_pallas.block_calls`` counts calls on a block."""
+    if _per_lane(coefs):
+        return _k1_per_lane(x, coefs)
     terms = _coef_terms(coefs)
     if on_sharded_grid(x):
         return _halo_route(x, "5pt", terms)
+    if _cuda.vmapped(x, *terms):
+        return _cuda.through_lanes(_k1_lanes, Stencil5Grid, x, *terms)
+    stencil_5pt_pallas.block_calls += int(x.dim() == 3)
     if x.device.type == "cpu":
         return stencil_5pt_general(x, *terms)
     if _cuda.tracked_by(x) is None and all(_cuda.tracked_by(c) is None for c in terms):
         return stencil5_cuda(x, None, None, terms)
     return Stencil5Grid.apply(x, *terms)
+
+
+stencil_5pt_pallas.block_calls = 0
+
+
+def _k1_per_lane(xb: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
+    """``stencil_5pt_pallas`` on a (lanes, rows, cols) block with a (lanes, 5)
+    tensor of coefficients, one set a lane (each rounded to the block's
+    dtype, as a launch rounds it): the plain version for a CPU block, one
+    K1 launch for a CUDA block."""
+    stencil_5pt_pallas.block_calls += 1
+    if xb.device.type == "cpu":
+        c = coefs.to(device=xb.device, dtype=xb.dtype)
+        return stencil_5pt_general(xb, *(c[:, k, None, None] for k in range(5)))
+    if _cuda.tracked_by(xb) is not None or _cuda.tracked_by(coefs) is not None:
+        raise NotImplementedError(
+            "stencil_5pt_pallas: coefficients that differ by lane reach K1 without "
+            "autograd or forward-mode rules on the card (ROADMAP: batched forms); "
+            "differentiate on CPU tensors, or run under torch.no_grad()")
+    return stencil5_cuda(xb, None, None, coefs)
 
 
 # The TPU's row-blocked variant exists for VMEM; K1 takes any grid in one

@@ -28,6 +28,11 @@ replace, …)`` is a Python branch on that read, so a replacement costs its
 matvec and no extra read. ``SolveResult.host_syncs`` counts the reads: the
 initial residual, one per iteration, the final certification, and the
 target when ``rtol`` is given.
+
+The loop is a generator of steps (``bicgstab_steps``): each application of
+A or M and each read is a request to its runner (``solvers/requests.py``).
+``bicgstab`` drives it on its own; ``solvers/batched.py`` drives one per
+lane of a batched solve.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from gmres_tpu_torch.ops.blas import (
     tree_zeros_like,
 )
 from gmres_tpu_torch.solvers.cg import _in_dtype
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -78,6 +84,15 @@ def bicgstab(
       is replaced by b − A x (one matvec) and the bound resets.
     replace_delta: the threshold δ (default √ε of the dtype).
     """
+    return run(bicgstab_steps(A, b, tol=tol, max_iterations=max_iterations, M=M,
+                              x0=x0, reliable=reliable,
+                              replace_delta=replace_delta, rtol=rtol))
+
+
+def bicgstab_steps(A, b, *, tol=1e-9, max_iterations=10_000, M=None, x0=None,
+                   reliable=True, replace_delta=None, rtol=None):
+    """``bicgstab``'s solve as steps (``solvers/requests.py``), returning
+    its SolveResult."""
     rdtype = b.real.dtype
     finfo = torch.finfo(rdtype)
     tiny, mach_eps = finfo.tiny, finfo.eps
@@ -86,8 +101,8 @@ def bicgstab(
     syncs = 0
     if rtol is not None:
         nb = torch.sqrt(tree_vdot(b, b).real)
-        tol = float(torch.maximum(torch.as_tensor(tol, dtype=nb.dtype,
-                                                  device=nb.device), rtol * nb))
+        tol = yield Read(torch.maximum(torch.as_tensor(tol, dtype=nb.dtype,
+                                                       device=nb.device), rtol * nb))
         syncs += 1
     tol = _in_dtype(tol, rdtype)
     # The thresholds as JAX compares them: tiny and δ·‖r‖ in the dtype.
@@ -97,20 +112,20 @@ def bicgstab(
         r = b
     else:
         x = x0
-        r = tree_sub(b, A(x0))
+        r = tree_sub(b, (yield Apply(A, x0)))
     r0 = r
     p = r
     zero = torch.zeros((), dtype=rdtype, device=b.device)
     if reliable:
         # ‖A‖ scale for the drift bound: one Rayleigh-style probe on r0.
-        ar0 = A(r0)
+        ar0 = yield Apply(A, r0)
         norm_A = torch.sqrt(tree_vdot(ar0, ar0).real
                             / torch.clamp(tree_vdot(r0, r0).real, min=tiny))
 
     rr0 = tree_vdot(r, r0)
     res = torch.sqrt(rr0.real)
     # Already converged at x0 (e.g. b = 0): skip the loop.
-    status = int(SolverStatus.CONVERGED if float(res) < tol
+    status = int(SolverStatus.CONVERGED if (yield Read(res)) < tol
                  else SolverStatus.MAX_ITERATIONS)
     syncs += 1
     drift = zero
@@ -118,12 +133,12 @@ def bicgstab(
     history = []
     i = 0
     while i < max_iterations and status == SolverStatus.MAX_ITERATIONS:
-        z1 = M(p) if M is not None else p
-        ap = A(z1)
+        z1 = (yield Apply(M, p)) if M is not None else p
+        ap = yield Apply(A, z1)
         alpha = rr0 / tree_vdot(ap, r0)
         s = tree_axpy(-alpha, ap, r)
-        z2 = M(s) if M is not None else s
-        as_ = A(z2)
+        z2 = (yield Apply(M, s)) if M is not None else s
+        as_ = yield Apply(A, z2)
         as_s, as_as = batched_vdot([(as_, s), (as_, as_)])
         # Half-step degeneracy guard (JAX's :123-140): s ≈ 0 makes ω 0/0.
         degenerate = as_as.real <= tiny
@@ -144,10 +159,10 @@ def bicgstab(
         if reliable:
             drift = drift + mach_eps * (norm_A * torch.sqrt(x_sq.real) + res)
             crossing = below & (drift >= delta_t * res)
-            read = torch.stack([res, r_r0_new.abs(), as_as.real,
-                                crossing.to(rdtype)]).tolist()
+            read = yield Read(torch.stack([res, r_r0_new.abs(), as_as.real,
+                                           crossing.to(rdtype)]))
         else:
-            read = torch.stack([res, r_r0_new.abs(), as_as.real]).tolist()
+            read = yield Read(torch.stack([res, r_r0_new.abs(), as_as.real]))
         syncs += 1
         res_f, rr0_abs, as_as_f = read[:3]
         history.append(res_f)
@@ -163,7 +178,7 @@ def bicgstab(
             # the iteration's updates (the p-update used the old (r, r0)).
             if (read[3] and res_f >= tol and math.isfinite(res_f)
                     and status == SolverStatus.MAX_ITERATIONS):
-                r = tree_sub(b, A(x))
+                r = tree_sub(b, (yield Apply(A, x)))
                 res_t_sq, rr0_next = batched_vdot([(r, r), (r, r0)])
                 drift = mach_eps * (norm_A * torch.sqrt(x_sq.real)
                                     + torch.sqrt(res_t_sq.real))
@@ -174,16 +189,16 @@ def bicgstab(
     # Certify on the true residual (one extra matvec): a CONVERGED claim
     # that fails re-verification downgrades to BREAKDOWN, and once an
     # iteration ran the true norm is reported.
-    r_true = tree_sub(b, A(x))
+    r_true = tree_sub(b, (yield Apply(A, x)))
     true_res = torch.sqrt(tree_vdot(r_true, r_true).real)
-    true_f = float(true_res)
+    true_f = yield Read(true_res)
     syncs += 1
     if status == SolverStatus.CONVERGED and true_f >= tol:
         status = int(SolverStatus.BREAKDOWN)
     if i > 0:
         res, res_f = true_res, true_f
     else:
-        res_f = float(res)
+        res_f = yield Read(res)
     hist = torch.tensor(history + [res_f] * (max_iterations - i),
                         dtype=rdtype, device=b.device)
     return SolveResult(x=x, iterations=i, residual=res, status=status,

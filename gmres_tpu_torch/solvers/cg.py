@@ -19,6 +19,11 @@ the residual's dtype as JAX makes it. The history is kept from those reads,
 so recording it costs no launch. ``SolveResult.host_syncs`` counts the
 reads: the initial residual, one per iteration, the final certification,
 and the target when ``rtol`` is given.
+
+The loop is a generator of steps (``cg_steps``): each application of A or
+M and each read is a request to its runner (``solvers/requests.py``).
+``cg`` drives it on its own; ``solvers/batched.py`` drives one per lane of
+a batched solve.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from gmres_tpu_torch.ops.blas import (
     tree_vdot,
     tree_zeros_like,
 )
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -61,16 +67,16 @@ def _finish(A, b, x, i, res, status, tol, history, max_iterations, syncs,
     """Certify on the true residual (one extra matvec): a CONVERGED claim
     that fails re-verification downgrades to BREAKDOWN, and once an
     iteration ran the true norm is reported. The history is padded with
-    the final residual."""
-    r_true = tree_sub(b, A(x))
+    the final residual. Steps (``solvers/requests.py``)."""
+    r_true = tree_sub(b, (yield Apply(A, x)))
     true_res = torch.sqrt(tree_vdot(r_true, r_true).real)
-    true_f = float(true_res)
+    true_f = yield Read(true_res)
     if status == SolverStatus.CONVERGED and true_f >= tol:
         status = int(SolverStatus.BREAKDOWN)
     if i > 0:
         res, res_f = true_res, true_f
     else:
-        res_f = float(res)
+        res_f = yield Read(res)
     hist = torch.tensor(history + [res_f] * (max_iterations - i),
                         dtype=rdtype, device=b.device)
     return SolveResult(x=x, iterations=i, residual=res, status=status,
@@ -99,17 +105,25 @@ def cg(
     """
     if variant not in ("classic", "pipelined"):
         raise ValueError(f"unknown cg variant {variant}")
+    return run(cg_steps(A, b, tol=tol, max_iterations=max_iterations, M=M,
+                        x0=x0, variant=variant, rtol=rtol))
+
+
+def cg_steps(A, b, *, tol=1e-9, max_iterations=10_000, M=None, x0=None,
+             variant="classic", rtol=None):
+    """``cg``'s solve as steps (``solvers/requests.py``), returning its
+    SolveResult."""
     rdtype = b.real.dtype
     syncs = 0
     if rtol is not None:
         nb = torch.sqrt(tree_vdot(b, b).real)
-        tol = float(torch.maximum(torch.as_tensor(tol, dtype=nb.dtype,
-                                                  device=nb.device), rtol * nb))
+        tol = yield Read(torch.maximum(torch.as_tensor(tol, dtype=nb.dtype,
+                                                       device=nb.device), rtol * nb))
         syncs += 1
     tol = _in_dtype(tol, rdtype)
-    run = _pipelined_cg if variant == "pipelined" else _classic_cg
-    return run(A, b, tol=tol, max_iterations=max_iterations, M=M, x0=x0,
-               rdtype=rdtype, syncs=syncs)
+    loop = _pipelined_cg if variant == "pipelined" else _classic_cg
+    return (yield from loop(A, b, tol=tol, max_iterations=max_iterations, M=M,
+                            x0=x0, rdtype=rdtype, syncs=syncs))
 
 
 def _classic_cg(A, b, *, tol, max_iterations, M, x0, rdtype, syncs):
@@ -118,37 +132,37 @@ def _classic_cg(A, b, *, tol, max_iterations, M, x0, rdtype, syncs):
         r = b
     else:
         x = x0
-        r = tree_sub(b, A(x0))
-    z = M(r) if M is not None else r
+        r = tree_sub(b, (yield Apply(A, x0)))
+    z = (yield Apply(M, r)) if M is not None else r
     p = z
 
     res = torch.sqrt(tree_vdot(r, r).real).to(rdtype)
     # Already converged at x0 (e.g. b = 0): skip the loop entirely.
-    status = int(SolverStatus.CONVERGED if float(res) < tol
+    status = int(SolverStatus.CONVERGED if (yield Read(res)) < tol
                  else SolverStatus.MAX_ITERATIONS)
     syncs += 1
     history = []
     i = 0
     while i < max_iterations and status == SolverStatus.MAX_ITERATIONS:
-        ap = A(p)
+        ap = yield Apply(A, p)
         # One stacked reduction for rr = (r, z) and pAp = (Ap, p).
         rr, pap = batched_vdot([(r, z), (ap, p)]).real
         alpha = rr / pap
         x = tree_axpy(alpha, p, x)
         r = tree_axpy(-alpha, ap, r)
-        z = M(r) if M is not None else r
+        z = (yield Apply(M, r)) if M is not None else r
         # ‖r‖² and the next (r, z) in one stacked reduction.
         res_sq, rz_new = batched_vdot([(r, r), (r, z)]).real
         res = torch.sqrt(res_sq)
         beta = rz_new / rr
         p = tree_axpy(beta, p, z)
-        res_f = float(res)
+        res_f = yield Read(res)
         syncs += 1
         history.append(res_f)
         status = _status(res_f, tol, status)
         i += 1
-    return _finish(A, b, x, i, res, status, tol, history, max_iterations,
-                   syncs, rdtype)
+    return (yield from _finish(A, b, x, i, res, status, tol, history,
+                               max_iterations, syncs, rdtype))
 
 
 def _pipelined_cg(A, b, *, tol, max_iterations, M, x0, rdtype, syncs):
@@ -161,23 +175,23 @@ def _pipelined_cg(A, b, *, tol, max_iterations, M, x0, rdtype, syncs):
         r = b
     else:
         x = x0
-        r = tree_sub(b, A(x0))
-    u = M(r) if M is not None else r
-    w = A(u)
+        r = tree_sub(b, (yield Apply(A, x0)))
+    u = (yield Apply(M, r)) if M is not None else r
+    w = yield Apply(A, u)
     zeros = tree_zeros_like(b)
     z = q = p = s = zeros
 
     gamma, delta, rr0 = batched_vdot([(r, u), (w, u), (r, r)]).real
     res0 = torch.sqrt(rr0)
-    status = int(SolverStatus.CONVERGED if float(res0) < tol
+    status = int(SolverStatus.CONVERGED if (yield Read(res0)) < tol
                  else SolverStatus.MAX_ITERATIONS)
     syncs += 1
     history = []
     i = 0
     res = res0
     while i < max_iterations and status == SolverStatus.MAX_ITERATIONS:
-        m = M(w) if M is not None else w
-        n = A(m)
+        m = (yield Apply(M, w)) if M is not None else w
+        n = yield Apply(A, m)
         if i == 0:
             beta = torch.zeros((), dtype=rdtype, device=b.device)
             alpha = gamma / delta
@@ -194,12 +208,12 @@ def _pipelined_cg(A, b, *, tol, max_iterations, M, x0, rdtype, syncs):
         w = tree_axpy(-alpha, z, w)
         gamma_new, delta_new, rr = batched_vdot([(r, u), (w, u), (r, r)]).real
         res = torch.sqrt(rr)
-        res_f = float(res)
+        res_f = yield Read(res)
         syncs += 1
         history.append(res_f)
         status = _status(res_f, tol, status)
         gamma_prev, alpha_prev = gamma, alpha
         gamma, delta = gamma_new, delta_new
         i += 1
-    return _finish(A, b, x, i, res, status, tol, history, max_iterations,
-                   syncs, rdtype)
+    return (yield from _finish(A, b, x, i, res, status, tol, history,
+                               max_iterations, syncs, rdtype))

@@ -26,7 +26,11 @@ options and arithmetic:
 ``lax.while_loop`` becomes a Python loop: each inner iteration that tests
 convergence reads one boolean from the device, and each restart reads one
 status code (``GmresResult.host_syncs`` counts them). The loop indices are
-Python ints, so indexing the buffers reads nothing back.
+Python ints, so indexing the buffers reads nothing back. The loops are
+generators of steps (``gmres_steps``): each application of A or M and each
+read is a request to its runner (``solvers/requests.py``). ``gmres`` runs
+them on its own; ``solvers/batched.py`` drives one per lane of a batched
+solve.
 
 Row-sharded vectors: both variants run on a ``[Shard(0)]`` DTensor b
 (``parallel/mesh.py``). The bases are then sharded along the grid rows
@@ -65,6 +69,7 @@ from gmres_tpu_torch.ops.flat import (
 )
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.tri import masked_back_substitution
+from gmres_tpu_torch.solvers.requests import Apply, Read, eager, run
 from gmres_tpu_torch.types import (
     GmresResult,
     LinearOperator,
@@ -172,7 +177,13 @@ def _inner_floor(beta, beta0, rel_prev, tol, inner_gain, certify_true,
 # ---------------------------------------------------------------------------
 
 
-def _restarted(
+def _restarted(cycle: Callable, *args, **kw):
+    """The restart loop around a ``cycle`` that applies its operators
+    itself (FGMRES's), run on its own."""
+    return run(_restarted_steps(eager(cycle), *args, **kw))
+
+
+def _restarted_steps(
     cycle: Callable,
     A: LinearOperator,
     b: torch.Tensor,
@@ -186,22 +197,24 @@ def _restarted(
     certify_true: bool,
     work_dtype,
 ):
+    """The restart loop as steps (``solvers/requests.py``); ``cycle``
+    is a generator function of steps too."""
     dtype = b.dtype
     rdtype = dtype.to_real()  # norms and the residual history
     beta0 = _norm(b)
     tiny = torch.finfo(dtype).tiny
 
     def true_residual(x):
-        r = b - A(x)
+        r = b - (yield Apply(A, x))
         if M is None:
             w = r
         elif mixed:
             # Apply M at work precision on the residual normalised in the
             # outer dtype (scale invariance: M is linear).
             scale = _nonzero_or_one(_norm(r))
-            w = M((r / scale).to(work_dtype)).to(dtype) * scale
+            w = (yield Apply(M, (r / scale).to(work_dtype))).to(dtype) * scale
         else:
-            w = M(r)
+            w = yield Apply(M, r)
         beta_w = _norm(w)
         if certify_true:
             rel = _norm(r) / torch.clamp(beta0, min=tiny)
@@ -209,19 +222,19 @@ def _restarted(
             rel = beta_w / torch.clamp(beta0, min=tiny)
         return w, beta_w, rel
 
-    w, beta, rel_init = true_residual(x0)
+    w, beta, rel_init = yield from true_residual(x0)
     syncs = 1
-    converged = bool((beta0 == 0) | (rel_init < tol))
+    converged = yield Read((beta0 == 0) | (rel_init < tol))
     breakdown = False
     x, k, n_out, rel_prev = x0, 0, 0, rel_init
     ferr = torch.zeros((m,), dtype=rdtype, device=b.device)
     basis = None
     while k < max_restarts and not converged and not breakdown:
-        x_new, n_out, ferr, h_val, basis, inner_syncs = cycle(
+        x_new, n_out, ferr, h_val, basis, inner_syncs = yield from cycle(
             x, w, beta, beta0, rel_prev
         )
         syncs += inner_syncs
-        w_new, beta_new, rel_new = true_residual(x_new)
+        w_new, beta_new, rel_new = yield from true_residual(x_new)
         last = max(n_out - 1, 0)
         if mixed or certify_true:
             conv = rel_new < tol
@@ -237,7 +250,7 @@ def _restarted(
             # Fold the certified residual into the last active history slot
             # (ferr belongs to this cycle, so in place is safe).
             ferr[last] = rel_new
-        code = int(torch.where(conv, 0, torch.where(bd, 2, 1)))
+        code = yield Read(torch.where(conv, 0, torch.where(bd, 2, 1)))
         syncs += 1
         converged, breakdown = code == 0, code == 2
         x, k, w, beta, rel_prev = x_new, k + 1, w_new, beta_new, rel_new
@@ -262,7 +275,7 @@ def _restarted(
 # ---------------------------------------------------------------------------
 
 
-def _gmres_householder(
+def _householder_steps(
     A: LinearOperator,
     b: torch.Tensor,
     x0: torch.Tensor,
@@ -306,8 +319,8 @@ def _gmres_householder(
         t = 0
         while True:
             v_t = wy.wy_basis_vector(p_basis, t_mat, t)
-            z = A(v_t)
-            w_t = M(z) if M is not None else z
+            z = yield Apply(A, v_t)
+            w_t = (yield Apply(M, z)) if M is not None else z
             w_t = wy.wy_apply_transpose(p_basis, t_mat, w_t)
 
             # Hessenberg column: H[0:t+1, t] = w[0:t+1]; H[t+1, t] from the
@@ -340,7 +353,7 @@ def _gmres_householder(
                 if breakdown_check:
                     converged = converged | (h_val < tol)
                 syncs += 1
-                if bool(converged):
+                if (yield Read(converged)):
                     break
         n_out = t
 
@@ -351,7 +364,7 @@ def _gmres_householder(
         x = x + bsafe * dx.to(dtype)
         return x, n_out, ferr, h_val, (p_basis, t_mat), syncs
 
-    x, k, n_out, ferr, basis, status, residual, syncs = _restarted(
+    x, k, n_out, ferr, basis, status, residual, syncs = yield from _restarted_steps(
         cycle, A, b, x0, m, tol, max_restarts, M, mixed,
         breakdown_check=breakdown_check, certify_true=certify_true,
         work_dtype=work_dtype,
@@ -375,7 +388,7 @@ def _gmres_householder(
 # ---------------------------------------------------------------------------
 
 
-def _gmres_mgsr(
+def _mgsr_steps(
     A: LinearOperator,
     b: torch.Tensor,
     x0: torch.Tensor,
@@ -414,8 +427,8 @@ def _gmres_mgsr(
         syncs = 0
         t = 0
         while True:
-            z = A(v_basis[t])
-            w_t = M(z) if M is not None else z
+            z = yield Apply(A, v_basis[t])
+            w_t = (yield Apply(M, z)) if M is not None else z
             # Two passes with H accumulated (the reference's `do k=1,2`),
             # over the t+1 rows written so far.
             h1, w_t = ortho(v_basis[: t + 1], w_t)
@@ -436,7 +449,7 @@ def _gmres_mgsr(
             if check_inner or mixed:
                 converged = (rel < inner_floor) | (h_val.to(rdtype) < tol)
                 syncs += 1
-                if bool(converged):
+                if (yield Read(converged)):
                     break
         n_out = t
 
@@ -447,7 +460,7 @@ def _gmres_mgsr(
         x = x + bsafe * dx.to(dtype)
         return x, n_out, ferr, h_val.to(rdtype), v_basis, syncs
 
-    x, k, n_out, ferr, v_basis, status, residual, syncs = _restarted(
+    x, k, n_out, ferr, v_basis, status, residual, syncs = yield from _restarted_steps(
         cycle, A, b, x0, m, tol, max_restarts, M, mixed,
         breakdown_check=True, certify_true=certify_true,
         work_dtype=work_dtype,
@@ -512,6 +525,20 @@ def gmres(
       certify: "preconditioned" (‖M(b−Ax)‖/β₀, the reference's semantics)
         or "true" (‖b−Ax‖/β₀).
     """
+    return run(gmres_steps(
+        A, b, restart=restart, tol=tol, max_restarts=max_restarts, M=M,
+        variant=variant, orthogonalization=orthogonalization,
+        check_inner=check_inner, compute_v_err=compute_v_err,
+        breakdown_check=breakdown_check, inner_dtype=inner_dtype, x0=x0,
+        certify=certify))
+
+
+def gmres_steps(A, b, *, restart=30, tol=1e-8, max_restarts=1000, M=None,
+                variant="householder", orthogonalization="cgs2", check_inner=True,
+                compute_v_err=True, breakdown_check=True, inner_dtype=None,
+                x0=None, certify="preconditioned"):
+    """``gmres``'s solve as steps (``solvers/requests.py``), returning its
+    GmresResult."""
     if certify not in ("preconditioned", "true"):
         raise ValueError(f"unknown certify {certify}")
     certify_true = certify == "true"
@@ -523,18 +550,18 @@ def gmres(
     op = _as_operator(A, b.device)
     if b.numel() == 1:
         # Degenerate 1×1 system: solve directly.
-        a_val = op(torch.ones_like(b))
+        a_val = yield Apply(op, torch.ones_like(b))
         singular = a_val == 0
         x = torch.where(~singular, b / torch.where(~singular, a_val,
                                                    torch.ones_like(a_val)),
                         torch.zeros_like(b))
         if x0 is not None:
             x = torch.where(~singular, x, x0)
-        r = b - op(x)
-        w = M(r) if (M is not None and not certify_true) else r
+        r = b - (yield Apply(op, x))
+        w = (yield Apply(M, r)) if (M is not None and not certify_true) else r
         residual = (_norm(w) / torch.clamp(_norm(b),
                                            min=torch.finfo(b.dtype).tiny))
-        status = int(torch.where(
+        status = yield Read(torch.where(
             residual < tol, 0, torch.where(singular.reshape(()), 2, 1)
         ))
         return GmresResult(
@@ -548,16 +575,16 @@ def gmres(
         x0 = torch.zeros_like(b)
     work_dtype = inner_dtype if inner_dtype is not None else b.dtype
     if variant == "householder":
-        return _gmres_householder(
+        return (yield from _householder_steps(
             op, b, x0, restart, tol, max_restarts, M,
             check_inner, compute_v_err, breakdown_check, work_dtype,
             certify_true,
-        )
+        ))
     if variant == "mgsr":
         if orthogonalization not in ("cgs2", "mgs2"):
             raise ValueError(f"unknown orthogonalization {orthogonalization}")
-        return _gmres_mgsr(
+        return (yield from _mgsr_steps(
             op, b, x0, restart, tol, max_restarts, M, orthogonalization,
             check_inner, compute_v_err, work_dtype, certify_true,
-        )
+        ))
     raise ValueError(f"unknown variant {variant}")

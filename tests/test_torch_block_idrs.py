@@ -95,9 +95,10 @@ def test_block_gmres_matches_jax(label):
 
 
 def test_block_gmres_launches_per_row(monkeypatch):
-    """A block application of A and of M is one single-vector call per row
-    of the block (JAX's vmap becomes a loop): on the card, s launches of
-    each kernel the single-vector operator launches."""
+    """A block application of A and of M maps the single-vector callable
+    over the rows with ``torch.func.vmap``, as JAX's vmap does: one call of
+    each per block application (on the card, one batched launch of each
+    kernel the single-vector operator launches)."""
     s, n = 3, 16
     calls = {"A": 0, "M": 0}
     op, m = tt.poisson_operator(n), tt.poisson_multigrid_preconditioner(n)
@@ -115,8 +116,8 @@ def test_block_gmres_launches_per_row(monkeypatch):
     res = tt.block_gmres(a_counted, b, restart=5, tol=1e-30, max_restarts=1, M=m_counted)
     assert res.restarts == 1
     # The initial and final residuals, the 5 steps and the update's M.
-    assert calls["A"] == s * (1 + 5 + 1)
-    assert calls["M"] == s * (5 + 1)
+    assert calls["A"] == 1 + 5 + 1
+    assert calls["M"] == 5 + 1
 
 
 def test_svqb_sign_flip_leaves_x_unchanged(monkeypatch):

@@ -1002,30 +1002,63 @@ def test_gmres_family_on_the_card_matches_cpu(cuda_device, monkeypatch, name):
     assert k1 > 0 and (k2 > 0) == (name == "idrs")
 
 
+def _batched_counts():
+    """Launches on a (lanes, rows, cols) block, by kernel (each also in
+    ``_kernel_counts``)."""
+    return {"K1": tst.stencil5_cuda.batched_launches,
+            "K1rr": tst.residual_restrict_cuda.batched_launches,
+            "K1cr": tst.correct_residual_cuda.batched_launches,
+            "K2": tfu.chebk_cuda.batched_launches}
+
+
+def _counted(fn, calls, key):
+    """fn, counting its calls in calls[key]: under row_apply's vmap, one a
+    block application."""
+    def apply(v):
+        calls[key] += 1
+        return fn(v)
+
+    apply.__wrapped__ = fn
+    return apply
+
+
+def _block_launches(solve, op, m, v):
+    """(per-vector launches of m, applications {"A", "M"}, single-grid and
+    batched launches of the block solve) for ``solve(A, M)``."""
+    before = _kernel_counts()
+    m(v)
+    torch.cuda.synchronize()
+    per_m = {key: c - before[key] for key, c in _kernel_counts().items()}
+    calls = {"A": 0, "M": 0}
+    every, batched = _kernel_counts(), _batched_counts()
+    res = solve(_counted(op, calls, "A"), _counted(m, calls, "M"))
+    torch.cuda.synchronize()
+    batched = {key: c - batched[key] for key, c in _batched_counts().items()}
+    single = {key: c - every[key] - batched[key] for key, c in _kernel_counts().items()}
+    return res, per_m, calls, single, batched
+
+
 def test_block_gmres_launches_k1_once_per_row(cuda_device):
-    """A block application of A (and of the V-cycle) runs one launch of its
-    kernels per row of the block: the launches per block application are s
-    times those per vector (JAX batches the rows with vmap)."""
+    """A block application of A (and of the V-cycle) is one batched launch
+    of each of its kernels for all rows of the block (row_apply's vmap
+    through the kernels' vmap rules, as JAX batches the rows with vmap): the
+    batched launches per block application are the launches per vector, and
+    no single-grid launch is made."""
     n, s = 128, 4
     op = tt.poisson_operator(n)
     m = tt.poisson_multigrid_preconditioner(n)
     v = to_torch(seeded(61, (n, n)), cuda_device)
-    counters = (tst.stencil5_cuda, tfu.chebk_cuda)
-    before = [c.launches for c in counters]
-    m(v)
-    op(v)
-    torch.cuda.synchronize()
-    per_vector = [c.launches - b for c, b in zip(counters, before)]
     b = torch.stack([op(to_torch(seeded(62 + i, (n, n)), cuda_device)) for i in range(s)])
-    before = [c.launches for c in counters]
-    res = tt.block_gmres(op, b, restart=5, tol=1e-30, max_restarts=1, M=m)
-    torch.cuda.synchronize()
-    launched = [c.launches - b_ for c, b_ in zip(counters, before)]
+    res, per_m, calls, single, batched = _block_launches(
+        lambda a, mm: tt.block_gmres(a, b, restart=5, tol=1e-30, max_restarts=1, M=mm),
+        op, m, v)
     assert res.restarts == 1 and res.x.device.type == "cuda"
-    # Two residual blocks, 5 steps of M then A, the update's M: all by rows.
-    m_apps, a_apps = s * (5 + 1), s * (2 + 5)
-    assert launched[1] == m_apps * per_vector[1]
-    assert launched[0] == m_apps * (per_vector[0] - 1) + a_apps
+    # Two residual blocks, 5 steps of M then A, the update's M.
+    assert calls == {"A": 2 + 5, "M": 5 + 1}
+    assert all(c == 0 for c in single.values())
+    for key in ("K2", "K1rr", "K1cr"):
+        assert batched[key] == calls["M"] * per_m[key]
+    assert batched["K1"] == calls["M"] * per_m["K1"] + calls["A"]
 
 
 def _short_solve(name, dev):
@@ -1075,10 +1108,10 @@ def test_short_family_on_the_card_matches_cpu(cuda_device, monkeypatch, name):
     and variable-coefficient paths are plain PyTorch, as in gmres_tpu)."""
     cpu = _short_solve(name, "cpu")
     _no_plain_versions(monkeypatch)
-    before = (tst.stencil5_cuda.launches, tfu.chebk_cuda.launches)
+    before = _kernel_counts()
     card = _short_solve(name, cuda_device)
     torch.cuda.synchronize()
-    k1, k2 = (tst.stencil5_cuda.launches - before[0], tfu.chebk_cuda.launches - before[1])
+    k1, k2 = (_kernel_counts()[k] - before[k] for k in ("K1", "K2"))
     assert card.status == cpu.status == 0
     assert abs(card.iterations - cpu.iterations) <= 2
     assert card.x.device.type == "cuda" and rel_err(card.x.cpu(), cpu.x) < 1e-8
@@ -1087,28 +1120,23 @@ def test_short_family_on_the_card_matches_cpu(cuda_device, monkeypatch, name):
 
 
 def test_block_cg_launches_k1_once_per_row(cuda_device):
-    """A block application of A (and of the V-cycle) runs one launch of its
-    kernels per row: 2 iterations of block CG at s = 4 launch s times the
-    single-vector kernels of each A and M application."""
+    """A block application of A (and of the V-cycle) is one batched launch
+    of each of its kernels for all s rows: 2 iterations of block CG at
+    s = 4 launch, per A and M application, the single-vector kernels once."""
     n, s, its = 128, 4, 2
     op = tt.poisson_operator(n)
     m = tt.poisson_multigrid_preconditioner(n)
     v = to_torch(seeded(66, (n, n)), cuda_device)
-    counters = (tst.stencil5_cuda, tfu.chebk_cuda)
-    before = [c.launches for c in counters]
-    m(v)
-    torch.cuda.synchronize()
-    per_m = [c.launches - b for c, b in zip(counters, before)]
     b = torch.stack([op(to_torch(seeded(67 + i, (n, n)), cuda_device)) for i in range(s)])
-    before = [c.launches for c in counters]
-    res = tt.block_cg(op, b, tol=1e-30, max_iterations=its, M=m)
-    torch.cuda.synchronize()
-    launched = [c.launches - b_ for c, b_ in zip(counters, before)]
+    res, per_m, calls, single, batched = _block_launches(
+        lambda a, mm: tt.block_cg(a, b, tol=1e-30, max_iterations=its, M=mm), op, m, v)
     assert res.iterations == its and res.x.device.type == "cuda"
     # The first M and one a step; one A a step and the certification's.
-    m_apps, a_apps = s * (its + 1), s * (its + 1)
-    assert launched[1] == m_apps * per_m[1]
-    assert launched[0] == m_apps * per_m[0] + a_apps
+    assert calls == {"A": its + 1, "M": its + 1}
+    assert all(c == 0 for c in single.values())
+    for key in ("K2", "K1rr", "K1cr"):
+        assert batched[key] == calls["M"] * per_m[key]
+    assert batched["K1"] == calls["M"] * per_m["K1"] + calls["A"]
 
 
 def test_chebyshev_solve_launches_k2_once_a_cycle(cuda_device):
@@ -1397,6 +1425,7 @@ def test_helmholtz_on_the_card_matches_cpu(cuda_device):
 
 
 def _kernel_counts():
+    """Every launch (on a grid or a block), by kernel."""
     return {"K1": tst.stencil5_cuda.launches, "K1rr": tst.residual_restrict_cuda.launches,
             "K1cr": tst.correct_residual_cuda.launches, "K2": tfu.chebk_cuda.launches}
 
@@ -1455,63 +1484,76 @@ def test_spectral_on_the_card_matches_cpu(cuda_device, monkeypatch, name):
 
 def test_arnoldi_eigs_two_k1_a_complex_matvec(cuda_device, monkeypatch):
     """A real operator under the complex basis: each complex matvec is two
-    K1 launches on contiguous parts, and no plain stencil runs."""
+    K1 launches on contiguous real parts, and no plain stencil runs; the
+    certification's block of nev vectors is one block application (two
+    batched launches)."""
     n, steps = 64, 20
     _no_plain_versions(monkeypatch)
     op = tt.convection_diffusion_operator(n, 2.0, 0.5)
     calls = []
 
     def counted(v):
-        calls.append(v.is_contiguous() and not v.is_complex())
+        calls.append(not v.is_complex() and (tt.ops._cuda.vmapped(v) or v.is_contiguous()))
         return op(v)
 
     probe = to_torch(seeded(70, (n, n)), cuda_device)
-    before = tst.stencil5_cuda.launches
+    before = (tst.stencil5_cuda.launches, tst.stencil5_cuda.batched_launches)
     res = tt.arnoldi_eigs(counted, probe, nev=2, steps=steps, tol=1e-30, max_restarts=1)
     torch.cuda.synchronize()
-    # steps matvecs of the one cycle and nev in the certification.
-    assert res.iterations == 1 and len(calls) == 2 * (steps + 2) and all(calls)
-    assert tst.stencil5_cuda.launches - before == 2 * (steps + 2)
+    # steps matvecs of the one cycle and one block application of nev rows.
+    assert res.iterations == 1 and len(calls) == 2 * (steps + 1) and all(calls)
+    assert tst.stencil5_cuda.launches - before[0] == 2 * steps + 2
+    assert tst.stencil5_cuda.batched_launches - before[1] == 2
 
 
-def test_lobpcg_with_mg_launches_each_row(cuda_device):
-    """An LOBPCG iteration applies A to 3k rows and M to k rows: the launches
-    of two iterations are those counts times one application's."""
+def test_lobpcg_with_mg_launches_each_row(cuda_device, monkeypatch):
+    """An LOBPCG iteration applies A to one block of 3k rows and M to one
+    block of k rows (the first Rayleigh–Ritz A to k rows): each block
+    application is one batched launch of each kernel for all its rows, so
+    the launches of two iterations are the block applications times one
+    vector's."""
+    from gmres_tpu_torch.solvers import lobpcg as lobpcg_mod
+
     n, k, its = 128, 2, 2
     op = tt.poisson_operator(n)
     m = tt.poisson_multigrid_preconditioner(n)
     v = to_torch(seeded(71, (n, n)), cuda_device)
-    before = _kernel_counts()
-    m(v)
-    torch.cuda.synchronize()
-    per_m = {key: c - before[key] for key, c in _kernel_counts().items()}
     x0 = to_torch(seeded(72, (k, n, n)), cuda_device)
-    before = _kernel_counts()
-    res = tt.lobpcg(op, x0, tol=0.0, max_iterations=its, M=m)
-    torch.cuda.synchronize()
-    launched = {key: c - before[key] for key, c in _kernel_counts().items()}
+    rows = {"A": [], "M": []}
+
+    def row_apply(fn, block):
+        rows["A" if fn.__wrapped__ is op else "M"].append(block.shape[0])
+        return tt.ops.blas.row_apply(fn, block)
+
+    monkeypatch.setattr(lobpcg_mod, "row_apply", row_apply)
+    res, per_m, calls, single, batched = _block_launches(
+        lambda a, mm: tt.lobpcg(a, x0, tol=0.0, max_iterations=its, M=mm), op, m, v)
     assert res.iterations == its
-    m_apps, a_apps = k * its, k + 3 * k * its
-    assert launched["K2"] == m_apps * per_m["K2"]
-    assert launched["K1rr"] == m_apps * per_m["K1rr"]
-    assert launched["K1"] == m_apps * per_m["K1"] + a_apps
+    assert calls == {"A": 1 + its, "M": its}
+    assert rows == {"A": [k] + [3 * k] * its, "M": [k] * its}
+    assert all(c == 0 for c in single.values())
+    for key in ("K2", "K1rr", "K1cr"):
+        assert batched[key] == calls["M"] * per_m[key]
+    assert batched["K1"] == calls["M"] * per_m["K1"] + calls["A"]
 
 
 def test_nystrom_on_the_card_matches_cpu(cuda_device, monkeypatch):
     """The Nyström preconditioner built on the card from the same sketch as
     on the CPU: λ̂ and M r − r (what the preconditioner changes, ~1% of r on
     Poisson) equal the CPU port's within 1e-10 relative; the sketch's 2·rank
-    matvecs launch K1 and no plain stencil runs."""
+    matvecs, two block applications of rank rows, are two batched K1
+    launches, and no plain stencil runs."""
     n, rank = 64, 16
     cpu_m, cpu_lam = tt.nystrom_preconditioner(
         tt.poisson_operator(n), torch.zeros((n, n), dtype=torch.float64), rank=rank)
     _no_plain_versions(monkeypatch)
-    before = tst.stencil5_cuda.launches
+    before = (tst.stencil5_cuda.launches, tst.stencil5_cuda.batched_launches)
     m, lam = tt.nystrom_preconditioner(
         tt.poisson_operator(n), torch.zeros((n, n), dtype=torch.float64, device=cuda_device),
         rank=rank)
     torch.cuda.synchronize()
-    assert tst.stencil5_cuda.launches - before == 2 * rank
+    assert tst.stencil5_cuda.launches - before[0] == 2
+    assert tst.stencil5_cuda.batched_launches - before[1] == 2
     assert rel_err(lam.cpu(), cpu_lam) < 1e-10
     r = seeded(73, (n, n))
     dm = m(to_torch(r, cuda_device)).cpu() - to_torch(r)
@@ -1834,3 +1876,195 @@ def test_sparse_formats_on_a_cuda_dtensor(cuda_device, tmp_path):
         assert (res.iterations, res.status) == (plain.iterations, plain.status)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The batched launches (a (lanes, rows, cols) block in one launch) and the
+# vmap rules that reach them.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("shape,dtype", [((300, 300), torch.float32), ((300, 300), torch.float64),
+                                         ((75, 301), torch.float32), ((1024, 1026), torch.float32),
+                                         ((1024, 1024), torch.float64),
+                                         ((2048, 2048), torch.float32)])
+def test_batched_k1_equals_single_launches(cuda_device, shape, dtype, lanes):
+    """K1 on a block: each lane bitwise one single launch, with one
+    coefficient set and with a (lanes, 5) set, one a lane."""
+    xb = to_torch(seeded(81, (lanes,) + shape), cuda_device).to(dtype)
+    per_lane = to_torch(seeded(82, (lanes, 5)), cuda_device)
+    before = tst.stencil5_cuda.batched_launches
+    y = tst.stencil5_cuda(xb, None, None, COEFS)
+    yp = tst.stencil5_cuda(xb, None, None, per_lane)
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.batched_launches == before + 2
+    for k in range(lanes):
+        assert torch.equal(y[k], tst.stencil5_cuda(xb[k].contiguous(), None, None, COEFS))
+        c = per_lane[k].tolist()
+        assert torch.equal(yp[k], tst.stencil5_cuda(xb[k].contiguous(), None, None, c))
+        assert torch.equal(yp[k], tst.stencil_5pt_general(xb[k], *c))
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("shape,dtype", [((300, 300), torch.float32), ((300, 300), torch.float64),
+                                         ((2048, 2048), torch.float32)])
+def test_batched_vcycle_forms_equal_single_launches(cuda_device, shape, dtype, lanes):
+    rb = to_torch(seeded(83, (lanes,) + shape), cuda_device).to(dtype)
+    eb = to_torch(seeded(84, (lanes,) + shape), cuda_device).to(dtype)
+    ecb = to_torch(seeded(85, (lanes, shape[0] // 2, shape[1] // 2)), cuda_device).to(dtype)
+    rc = tst.residual_restrict_cuda(rb, eb, COEFS)
+    e2, r3 = tst.correct_residual_cuda(rb, eb, ecb, COEFS)
+    torch.cuda.synchronize()
+    for k in range(lanes):
+        assert torch.equal(rc[k], tst.residual_restrict_cuda(rb[k], eb[k], COEFS))
+        e1, r1 = tst.correct_residual_cuda(rb[k], eb[k], ecb[k], COEFS)
+        assert torch.equal(e2[k], e1) and torch.equal(r3[k], r1)
+        assert torch.equal(rc[k], tst.residual_restrict_plain(rb[k], eb[k], COEFS))
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("shape,order,path,dtype", [
+    ((75, 75), 32, ("cluster", (16, 4)), torch.float32),
+    ((16, 16), 32, ("cluster", (1, 0)), torch.float64),
+    ((300, 300), 3, ("tiled", (8, 32)), torch.float32),
+    ((2048, 2048), 3, ("tiled", (32, 128)), torch.float32),
+    ((300, 300), 8, ("sweep", None), torch.float64),
+])
+def test_batched_k2_paths_equal_single_launches(cuda_device, shape, order, path, dtype, lanes):
+    """K2 on a block on each path: each lane bitwise its single launch on
+    the same path and the per-sweep path's, one launch for all lanes on a
+    fused path."""
+    rb = to_torch(seeded(86, (lanes,) + shape), cuda_device).to(dtype)
+    theta, _, steps = tfu.chebyshev_k_scalars(0.5, 8.0, order)
+    before = dict(tfu.chebk_cuda.launches_by_path)
+    z = tfu.chebk_cuda(rb, theta, steps, COEFS, _path=path)
+    torch.cuda.synchronize()
+    n = order - 1 if path[0] == "sweep" else 1
+    assert tfu.chebk_cuda.launches_by_path[path[0]] == before[path[0]] + n
+    for k in range(lanes):
+        assert torch.equal(z[k], tfu.chebk_cuda(rb[k], theta, steps, COEFS, _path=path))
+        assert torch.equal(z[k], tfu.chebk_cuda(rb[k], theta, steps, COEFS,
+                                                _path=("sweep", None)))
+
+
+def test_row_apply_on_the_card_is_one_batched_launch(cuda_device):
+    """The Poisson cycle and operator over a block through row_apply: no
+    single-grid launch, one batched launch a kernel use, each row the bits
+    of its own application."""
+    n, s = 256, 4
+    op, m = tt.poisson_operator(n), tt.poisson_multigrid_preconditioner(n)
+    rows = to_torch(seeded(87, (s, n, n)), cuda_device)
+    v = rows[0].contiguous()
+    before = _kernel_counts()
+    m(v)
+    op(v)
+    torch.cuda.synchronize()
+    per_vector = {key: c - before[key] for key, c in _kernel_counts().items()}
+    every, batched = _kernel_counts(), _batched_counts()
+    calls = (tst.stencil_5pt_pallas.block_calls, tfu.poly_stencil_smoother_pallas.block_calls)
+    zm = tt.ops.blas.row_apply(m, rows)
+    za = tt.ops.blas.row_apply(op, rows)
+    torch.cuda.synchronize()
+    assert {key: c - batched[key] for key, c in _batched_counts().items()} == per_vector
+    assert {key: c - every[key] for key, c in _kernel_counts().items()} == per_vector
+    assert (tst.stencil_5pt_pallas.block_calls - calls[0],
+            tfu.poly_stencil_smoother_pallas.block_calls - calls[1]) == (per_vector["K1"],
+                                                                       per_vector["K2"])
+    for k in range(s):
+        assert torch.equal(zm[k], m(rows[k].contiguous()))
+        assert torch.equal(za[k], op(rows[k].contiguous()))
+
+
+@pytest.mark.parametrize("name", ["poisson", "convdiff"])
+def test_autograd_through_row_apply_on_the_card(cuda_device, name):
+    """torch.autograd through a block application of an operator on a CUDA
+    block that requires grad: the forward and the transpose are one batched
+    K1 launch each (Stencil5Grid on the block), and x's gradient is the
+    loop's bitwise (one launch a row each way)."""
+    n, s = 128, 3
+    op = (tt.poisson_operator(n) if name == "poisson"
+          else tt.convection_diffusion_operator(n, 0.4, 0.2))
+    w = to_torch(seeded(91, (s, n, n)), cuda_device)
+    grads, launched = [], []
+    for apply in (tt.ops.blas.row_apply,
+                  lambda fn, b: torch.stack([fn(b[i]) for i in range(b.shape[0])])):
+        x = to_torch(seeded(92, (s, n, n)), cuda_device).requires_grad_()
+        before = (tst.stencil5_cuda.launches, tst.stencil5_cuda.batched_launches,
+                  tst.Stencil5Grid.rule_applications["transpose"])
+        (g,) = torch.autograd.grad((apply(op, x) * w).sum(), x)
+        torch.cuda.synchronize()
+        launched.append((tst.stencil5_cuda.launches - before[0],
+                         tst.stencil5_cuda.batched_launches - before[1],
+                         tst.Stencil5Grid.rule_applications["transpose"] - before[2]))
+        grads.append(g)
+    assert launched == [(2, 2, 1), (2 * s, 0, s)]
+    assert torch.equal(*grads)
+
+
+def test_k3_k4_under_vmap_launch_once_per_lane(cuda_device):
+    n, s = 32, 3
+    dia = tt.sparse_operator(tt.poisson_dia(n, device=cuda_device))
+    dense = np.stack([np_poisson(e.reshape(n, n)).reshape(-1) for e in np.eye(n * n)], axis=1)
+    bsr = tt.sparse_operator(tsp.bsr_from_dense(dense, 4, device=cuda_device))
+    rows = to_torch(seeded(88, (s, n * n)), cuda_device)
+    for op, counter in ((dia, tsp.dia_spmv_cuda), (bsr, tsp.bsr_spmv_cuda)):
+        before = counter.launches
+        out = tt.ops.blas.row_apply(op, rows)
+        torch.cuda.synchronize()
+        assert counter.launches == before + s
+        for k in range(s):
+            assert torch.equal(out[k], op(rows[k]))
+
+
+def test_kernels_without_vmap_rules_refuse_vmap(cuda_device):
+    """K5, K6, K7 and K1's halo form raise their named error under
+    torch.func.vmap, before any launch."""
+    rb = to_torch(seeded(89, (2, 64, 64)), cuda_device)
+    calls = {
+        "K5": lambda t: tfu.cheb2_cuda(t, None, None, 4.2, 0.2),
+        "K6": lambda t: tst.stencil5_dd_cuda(t.float(), t.float()),
+        "K7b": lambda t: tfu.axpy_dot_cuda(0.5, t, t, t)[0],
+        "K1": lambda t: tst.stencil5_cuda(t, t[0], None),
+    }
+    for kernel, fn in calls.items():
+        with pytest.raises(RuntimeError, match=f"kernel {kernel} .*torch.func transform"):
+            torch.func.vmap(fn)(rb)
+
+
+def test_batched_solves_on_the_card_equal_sequential(cuda_device):
+    """batched_solve on the card: CG with the V-cycle, mixed Householder
+    GMRES and BiCGSTAB over per-lane convection strengths (K1's per-lane
+    coefficients); each lane bitwise its sequential solve on the card."""
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_apply
+
+    n = 64
+    op, m = tt.poisson_operator(n), tt.poisson_multigrid_preconditioner(n)
+    bs = to_torch(seeded(90, (3, n, n)), cuda_device)
+    cases = [
+        (tt.cg, dict(tol=1e-9, M=m)),
+        (tt.gmres, dict(restart=10, tol=1e-10, M=m, inner_dtype=torch.float32,
+                        certify="true", compute_v_err=False)),
+    ]
+    for solver, kw in cases:
+        before = _batched_counts()
+        res = tt.batched_solve(solver, op, bs, **kw)
+        assert _batched_counts()["K2"] > before["K2"]
+        for k in range(bs.shape[0]):
+            single = solver(op, bs[k], **kw)
+            assert int(res.iterations[k]) == single.iterations
+            assert torch.equal(res.x[k], single.x)
+    g = torch.tensor([0.0, 0.2, 0.4, 0.8], dtype=torch.float64, device=cuda_device)
+
+    def cd(v, gx):
+        return convection_diffusion_apply(v, gx, 0.5 * gx)
+
+    ones = torch.ones((n, n), dtype=torch.float64, device=cuda_device)
+    bcd = torch.stack([cd(ones, gx) for gx in g])
+    before = tst.stencil5_cuda.batched_launches
+    res = tt.batched_solve(tt.bicgstab, cd, bcd, lane_args=(g,), tol=1e-9)
+    assert tst.stencil5_cuda.batched_launches > before
+    for k in range(4):
+        single = tt.bicgstab(lambda v: cd(v, g[k]), bcd[k], tol=1e-9)
+        assert int(res.iterations[k]) == single.iterations
+        assert torch.equal(res.x[k], single.x)
