@@ -4742,7 +4742,8 @@ def eig_cd_rows(gt_torch, dev, g, suffix, profile):
 def slq_rows(gt_torch, dev):
     """trace_funm(log) on Poisson 512² with 8, 16 and 32 probes, 40 steps
     (the slq program's defaults; probes from a torch Generator seeded 0):
-    the log-det against the closed-form sum within 3 standard errors."""
+    the log-det against the closed-form sum within 3 standard errors; the
+    probes batched (one K1 launch a step, one host read)."""
     import numpy as np
     import torch
 
@@ -4762,7 +4763,10 @@ def slq_rows(gt_torch, dev):
               f"{jrow['value']:.6f} ± {jrow['stderr']:.6f}), host syncs {res.host_syncs}",
               flush=True)
         require(abs(value - exact) < 3 * stderr, f"{label}: {value} ± {stderr}, {exact}")
-        require(count["K1"] == PHASE20_REPEATS * p * SLQ_STEPS, f"{label}: launches {count}")
+        # The probes batched (gmres_tpu's jax.vmap): one K1 launch an Arnoldi
+        # step for all probes, one host read of their Hessenbergs.
+        require(count["K1"] == count["K1 batched"] == PHASE20_REPEATS * SLQ_STEPS
+                and res.host_syncs == 1, f"{label}: launches {count}, {res.host_syncs} reads")
         out.append(p20_record(label, res, times, count, value=value, stderr=stderr,
                               closed_form=exact))
     return out
@@ -5873,7 +5877,7 @@ def p23_spectral_rows(gt_torch, dev, mesh):
                                            steps=SLQ_STEPS, key=0)
 
     rows.append(p23_row(f"slq poisson {n}x{n} probes {SLQ_PROBES[0]}, x_like [Shard(0)]",
-                        slq(shard(x_like)), slq(x_like), lambda r: (r.host_syncs,),
+                        slq(shard(x_like)), slq(x_like), lambda r: (r.samples.shape[0],),
                         lambda r, t: abs(float(r.value) - float(t.value)) / abs(float(t.value)),
                         1e-12, needs=("K1", "K1 halo"), gathers=0, exchanges=1,
                         ops={"A": a_calls}))
@@ -6426,7 +6430,8 @@ def p24_block_rows(gt_torch, dev, workdir):
 
 
 def p24_solve_row(gt_torch, label, solver, A, bs, kw, residual, *, lane_args=(),
-                  lane_op=None, lockstep=True, fields=("iterations", "status")):
+                  lane_op=None, lockstep=True, fields=("iterations", "status"),
+                  kernels=KERNELS, counters=None, phase="phase 24 (d)"):
     """(d) One batched solve at full width after an untimed one, with the
     launch counts set to 0 just before it and read just after, then each
     lane's sequential solve on the card (after an untimed one of lane 0),
@@ -6439,32 +6444,34 @@ def p24_solve_row(gt_torch, label, solver, A, bs, kw, residual, *, lane_args=(),
     BiCGSTAB lanes at a residual replacement or a certification matvec
     that another lane makes at another iteration; the runner then serves
     the larger group first). A lone lane's application is single launches.
-    `residual(k, x)` (numpy float64) is returned for the caller's bound."""
+    `residual(k, x)` (numpy float64) is returned for the caller's bound.
+    `kernels` and `counters` (mg_counters' form) name the kernels counted."""
     import numpy as np
     import torch
 
+    counters = counters or mg_counters
     lanes = bs.shape[0]
     lane_op = lane_op or (lambda k: A)
     gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw)
-    mg_counters(reset=True)
+    counters(reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    count = mg_counters()
-    require(all(count[f"{k} batched"] > 0 for k in KERNELS if count[k] > 0),
+    count = counters()
+    require(all(count[f"{k} batched"] > 0 for k in kernels if count[k] > 0),
             f"{label}: no batched launch in a batched solve {count}")
     solver(lane_op(0), bs[0], **kw)
     seq, seq_walls, seq_launches = [], [], []
     for k in range(lanes):
-        mg_counters(reset=True)
+        counters(reset=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         one = solver(lane_op(k), bs[k], **kw)
         torch.cuda.synchronize()
         seq_walls.append(time.perf_counter() - t0)
-        seq_launches.append({key: v for key, v in mg_counters().items() if key in KERNELS})
+        seq_launches.append({key: v for key, v in counters().items() if key in kernels})
         seq.append(one)
     diffs, errs = [], []
     for k, one in enumerate(seq):
@@ -6473,13 +6480,15 @@ def p24_solve_row(gt_torch, label, solver, A, bs, kw, residual, *, lane_args=(),
             require(got == want, f"{label} lane {k}: {name} {got}, sequential {want}")
         diffs.append(float((res.x[k] - one.x).abs().max()))
         errs.append(residual(k, res.x[k].detach().cpu().numpy().astype(np.float64)))
-    longest = {key: max(sl[key] for sl in seq_launches) for key in KERNELS}
-    every = {key: sum(sl[key] for sl in seq_launches) for key in KERNELS}
+    longest = {key: max(sl[key] for sl in seq_launches) for key in kernels}
+    every = {key: sum(sl[key] for sl in seq_launches) for key in kernels}
     syncs = max(one.host_syncs for one in seq)
     lane_counts = {name: [int(v) for v in getattr(res, name).tolist()] for name in fields}
-    print(f"phase 24 (d): {label}, {lanes} lanes: {lane_counts}; host reads "
+    print(f"{phase}: {label}, {lanes} lanes: {lane_counts}; host reads "
           f"{res.host_syncs} (the longest lane's {syncs}); launches "
-          f"{ {k: count[k] for k in KERNELS} } (the longest lane's sequential {longest}, "
+          f"{ {k: count[k] for k in kernels} } (batched "
+          f"{ {k: count[f'{k} batched'] for k in kernels} }; the longest lane's sequential "
+          f"{longest}, "
           f"all lanes' {every}); batched wall {wall:.4f} s, {lanes} sequential walls "
           f"{sum(seq_walls):.4f} s ({sum(seq_walls) / wall:.2f}x); max |x − sequential x| "
           f"{max(diffs):.3e}; numpy residuals {[f'{e:.3e}' for e in errs]}", flush=True)
@@ -6488,12 +6497,13 @@ def p24_solve_row(gt_torch, label, solver, A, bs, kw, residual, *, lane_args=(),
     require(res.host_syncs == syncs,
             f"{label}: {res.host_syncs} host reads, the longest lane's {syncs}")
     require(all(count[k] == longest[k] if lockstep else longest[k] <= count[k] <= every[k]
-                for k in KERNELS),
+                for k in kernels),
             f"{label}: launches {count} against the longest lane's {longest} and all "
             f"lanes' {every}")
     require(all(np.isfinite(e) for e in errs), f"{label}: residuals {errs}")
     return {"label": label, "lanes": lanes, "counts": lane_counts, "host_syncs": res.host_syncs,
             "longest_lane_host_syncs": syncs, "launches": count,
+            "x_max": res.x.reshape(lanes, -1).amax(dim=1).tolist(),
             "longest_lane_launches": longest, "wall_s": wall,
             "sequential_walls_s": seq_walls, "max_x_diff": max(diffs),
             "numpy_residuals": errs}
@@ -6580,6 +6590,276 @@ def phase_batched(gt_torch, dev, workdir):
     return records, launches, {"block_application": block, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: batched solves of the short recurrences, the GMRES family and
+# Newton–Krylov (the Bratu λ-sweep), SLQ's probes batched, and the batched
+# launches of K3 and K4.
+# ---------------------------------------------------------------------------
+
+P25_KERNELS = KERNELS + ("K3", "K4")
+P25_LANES = 4
+P25_K3_N = CG_GRIDS[-1]                      # the HYB 1000² f64 of the cg path
+P25_K4 = (BSR_CASES[-1][1], BSR_CASES[-1][2], 8)  # block rows, block size, lanes
+P25_BRATU_N, P25_LAMS = 512, (1.0, 3.0, 5.0, 6.5)
+P25_CHEB = (512, 64)                         # side, order (K2 with the coefficients)
+P25_FAMILY_N = P24_BATCHED_N["mg"]           # lgmres and sstep_gmres with the mg cycle
+P25_CD_SOLVERS = ("cgs", "tfqmr", "bicgstabl", "idrs")
+
+
+def p25_counters(reset: bool = False) -> dict:
+    """mg_counters plus K3's and K4's launches, all and on a block."""
+    from gmres_tpu_torch.ops import sparse
+
+    if reset:
+        for w in (sparse.dia_spmv_cuda, sparse.bsr_spmv_cuda):
+            w.launches = w.batched_launches = 0
+    out = mg_counters(reset)
+    for name, w in (("K3", sparse.dia_spmv_cuda), ("K4", sparse.bsr_spmv_cuda)):
+        out[name] = w.launches
+        out[f"{name} batched"] = w.batched_launches
+    return out
+
+
+def p25_kernels(gt_torch, dev):
+    """(a) K3 batched (the DIA of HYB 1000² f64, 4 lanes) and K4 batched (512
+    block rows of three 128² blocks, f32, 8 lanes), each against its B single
+    launches (bitwise) and its plain version, with device ms, the bound (the
+    matrix once, the lanes' x and y) and the library call on X = (n, lanes)."""
+    import torch
+
+    from gmres_tpu_torch.ops import sparse
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 25)
+    records = {}
+    print("phase 25 (a): K3 and K4 on lane blocks against B single launches and their "
+          "plain versions", flush=True)
+    n, lanes = P25_K3_N, P25_LANES
+    csr = gt_torch.poisson_csr(n, device=dev)
+    a = gt_torch.csr_to_hyb(csr).dia
+    xb = torch.randn((lanes, n * n), generator=gen, device=dev, dtype=torch.float64)
+    xt = xb.T.contiguous()
+    lib = csr_library(csr, torch.float64)
+    nnz = int((a.data != 0).sum())
+    records["K3 batched"] = [p24_kernel_row(
+        f"K3 batched HYB {n}x{n} f64 {lanes} lanes",
+        lambda: sparse.dia_spmv_cuda(a, xb),
+        lambda: [sparse.dia_spmv_cuda(a, xb[k]) for k in range(lanes)],
+        lambda: sparse.dia_spmv(a, xb), 0.0,
+        ((a.data.numel() + 2 * lanes * n * n) * 8, 2 * nnz * lanes, torch.float64), 100,
+        library=lambda: (lib @ xt).T)]
+    nbr, bs, lanes = P25_K4
+    a4 = block_tridiagonal(gt_torch, nbr, bs, torch.float32, dev, gen)
+    xb4 = torch.randn((lanes, nbr * bs), generator=gen, device=dev, dtype=torch.float32)
+    xt4 = xb4.T.contiguous()
+    lib4 = bsr_library(a4)
+    records["K4 batched"] = [p24_kernel_row(
+        f"K4 batched {nbr} block rows bs={bs} f32 {lanes} lanes",
+        lambda: sparse.bsr_spmv_cuda(a4, xb4),
+        lambda: [sparse.bsr_spmv_cuda(a4, xb4[k]) for k in range(lanes)],
+        lambda: sparse.bsr_spmv(a4, xb4), 1e-5,
+        ((a4.data.numel() + a4.block_cols.numel() + 2 * lanes * nbr * bs) * 4,
+         2 * a4.data.numel() * lanes, torch.float32), 50,
+        library=lambda: (lib4 @ xt4).T)]
+    return records
+
+
+def p25_unit_rhs(n, lanes, seed, dev):
+    """b = A·x for seeded standard-normal x on Poisson n², each scaled to
+    unit norm (one absolute tol serves every lane); numpy and the card's."""
+    import numpy as np
+    import torch
+
+    xs = np.random.default_rng(seed).standard_normal((lanes, n, n))
+    b_np = np.stack([np_stencil(x) for x in xs])
+    b_np /= np.linalg.norm(b_np.reshape(lanes, -1), axis=1)[:, None, None]
+    return b_np, torch.as_tensor(b_np, device=dev)
+
+
+def p25_row(gt_torch, label, solver, A, bs, kw, residual, bound, **extra):
+    """One phase 25 solve row (p24_solve_row with K3 and K4 counted) and its
+    numpy residual bound."""
+    row = p24_solve_row(gt_torch, label, solver, A, bs, kw, residual, lockstep=False,
+                        kernels=P25_KERNELS, counters=p25_counters, phase="phase 25 (b)",
+                        **extra)
+    require(max(row["numpy_residuals"]) <= bound,
+            f"phase 25 {label}: numpy residuals {row['numpy_residuals']} > {bound:g}")
+    return row
+
+
+def p25_batched_solves(gt_torch, dev):
+    """(b) The batched solves at full width, each lane held to its
+    sequential solve's counts, status and x to the bit, with the host reads
+    and launches against the longest lane's and the wall against the lanes
+    run in turn."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_apply
+    from gmres_tpu_torch.models.poisson import poisson_apply
+
+    rows = []
+    lanes = P25_LANES
+    # The Bratu λ-sweep (gmres_tpu's jax.vmap of a Newton solve): F(u, λ),
+    # the frozen Poisson V-cycle as M (the FGMRES inner).
+    n = P25_BRATU_N
+    h2 = (1.0 / (n + 1)) ** 2
+    lams = torch.tensor(P25_LAMS, dtype=torch.float64, device=dev)
+
+    def bratu(u, lam):
+        return poisson_apply(u) - (lam * h2) * torch.exp(u)
+
+    row = p25_row(
+        gt_torch, f"newton_krylov bratu {n}x{n} over λ {list(P25_LAMS)}, mg fgmres inner",
+        gt_torch.newton_krylov, bratu, torch.zeros((len(P25_LAMS), n, n), dtype=torch.float64,
+                                                   device=dev),
+        dict(tol=BRATU_TOL, restart=20, max_newton=30,
+             M=gt_torch.poisson_multigrid_preconditioner(n)),
+        lambda k, x: float(np.linalg.norm(np_bratu(x, P25_LAMS[k]))), BRATU_TOL,
+        lane_args=(lams,), lane_op=lambda k: (lambda u: bratu(u, lams[k])),
+        fields=("iterations", "status", "inner_iterations", "jv_products"))
+    require(all(np.diff(row["x_max"]) > 0), f"bratu sweep: max u {row['x_max']} not rising")
+    rows.append(row)
+
+    n = POISSON_1024
+    m_inv = gt_torch.poisson_multigrid_preconditioner(n)
+    b_np, bs = p25_unit_rhs(n, lanes, SEED + 251, dev)
+
+    def poisson_residual(k, x):
+        return float(np.linalg.norm(b_np[k] - np_stencil(x)))
+
+    op = gt_torch.poisson_operator(n)
+    rows.append(p25_row(gt_torch, f"minres mg {n}x{n}", gt_torch.minres, op, bs,
+                        dict(tol=1e-9, M=m_inv), poisson_residual, 1e-8))
+    rows.append(p25_row(gt_torch, f"sstep_cg s={SSTEP_CG_S} mg {n}x{n}", gt_torch.sstep_cg,
+                        op, bs, dict(tol=1e-9, s=SSTEP_CG_S, M=m_inv), poisson_residual, 1e-9))
+
+    n = P24_BATCHED_N["bicgstab"]
+    g = torch.tensor(P24_GAMMAS, dtype=torch.float64, device=dev)
+    m_cd = gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2)
+
+    def cd(v, gx):
+        return convection_diffusion_apply(v, gx, 0.5 * gx)
+
+    ones = torch.ones((n, n), dtype=torch.float64, device=dev)
+    bcd = torch.stack([cd(ones, gx) for gx in g])
+    bcd_np = bcd.cpu().numpy()
+    coefs = [(4.0, -(1.0 + gx), -(1.0 - gx), -(1.0 + 0.5 * gx), -(1.0 - 0.5 * gx))
+             for gx in P24_GAMMAS]
+    for name in P25_CD_SOLVERS:
+        rows.append(p25_row(
+            gt_torch, f"{name} convdiff {n}x{n} over γ {list(P24_GAMMAS)}",
+            getattr(gt_torch, name), cd, bcd, dict(tol=CONVDIFF_TOL, M=m_cd),
+            lambda k, x: float(np.linalg.norm(bcd_np[k] - np_stencil_general(x, coefs[k]))),
+            1.01 * CONVDIFF_TOL, lane_args=(g,), lane_op=lambda k: (lambda v: cd(v, g[k]))))
+
+    n, order = P25_CHEB
+    lo, hi = gt_torch.poisson_spectral_bounds(n)
+    b_np, bs = p25_unit_rhs(n, lanes, SEED + 252, dev)
+    rows.append(p25_row(
+        gt_torch, f"chebyshev_solve order {order} {n}x{n} (K2)", gt_torch.chebyshev_solve,
+        gt_torch.poisson_operator(n), bs,
+        dict(lam_min=lo, lam_max=hi, order=order, tol=1e-8, coefs=(4.0, -1.0, -1.0, -1.0, -1.0)),
+        lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))), 1.01e-8))
+
+    n = P25_FAMILY_N
+    op, m_inv = gt_torch.poisson_operator(n), gt_torch.poisson_multigrid_preconditioner(n)
+    b_np, bs = p25_unit_rhs(n, lanes, SEED + 253, dev)
+    for label, solver, kw, bound in (
+            (f"lgmres(10, 3) mg {n}x{n}", gt_torch.lgmres,
+             dict(restart=10, aug=3, tol=TOL, M=m_inv), 2 * TOL),
+            (f"sstep_gmres s=4 mg {n}x{n}", gt_torch.sstep_gmres,
+             dict(s=4, tol=TOL, M=m_inv), 1e-6)):
+        rows.append(p25_row(gt_torch, label, solver, op, bs, kw,
+                            lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))), bound,
+                            fields=("iterations", "restarts", "status")))
+
+    # CG on the sparse operators: HYB 1000² (K3) and the BSR Poisson 64² in
+    # 64² blocks of the CG path (K4), cbpr2 around the operator.
+    for label, mat, n in (
+            (f"cg cbpr2 HYB {P25_K3_N}x{P25_K3_N} (K3)",
+             gt_torch.csr_to_hyb(gt_torch.poisson_csr(P25_K3_N, device=dev)), P25_K3_N),
+            (f"cg cbpr2 BSR {SMALL_GRID}x{SMALL_GRID} in {SMALL_GRID}² blocks (K4)",
+             gt_torch.bsr_from_dense(gt_torch.poisson_matrix(SMALL_GRID, device="cpu").numpy(),
+                                     SMALL_GRID, device=dev), SMALL_GRID)):
+        op = gt_torch.sparse_operator(mat)
+        b_np, bs = p25_unit_rhs(n, lanes, SEED + n, dev)
+        rows.append(p25_row(
+            gt_torch, label, gt_torch.cg, op, bs.reshape(lanes, -1),
+            dict(tol=CG_TOL, M=gt_torch.chebyshev_preconditioner(op, *REF_EIG)),
+            lambda k, x, b_np=b_np, n=n: float(np.linalg.norm(
+                b_np[k] - np_stencil(x.reshape(n, n)))), 1.01 * CG_TOL))
+    return rows
+
+
+def p25_slq(gt_torch, dev):
+    """(b) trace_funm at phase 20's SLQ shape (Poisson 512², 40 steps, the
+    smallest probe count): the probes batched, one K1 launch a step and one
+    host read, the samples those of one factorization a probe to the bit."""
+    import torch
+
+    from gmres_tpu_torch.ops.blas import tree_vdot
+    from gmres_tpu_torch.solvers import funm
+    from gmres_tpu_torch.solvers.lanczos import arnoldi_factorization
+
+    n, probes, steps = SLQ_N, SLQ_PROBES[0], SLQ_STEPS
+    op = gt_torch.poisson_operator(n)
+    x_like = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    gt_torch.trace_funm(op, torch.log, x_like, n_probes=probes, steps=steps, key=0)
+    p25_counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gt_torch.trace_funm(op, torch.log, x_like, n_probes=probes, steps=steps, key=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count = p25_counters()
+    z = funm._rademacher(probes, (n, n), torch.float64, dev, 0)
+    p25_counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = []
+    for i in range(probes):
+        _, hmat = arnoldi_factorization(op, z[i], steps)
+        theta, q, _, _ = funm._projected_eigh(hmat, steps)
+        quad = torch.sum(torch.log(theta) * q[0, :] ** 2).to(dev, torch.float64)
+        loop.append(tree_vdot(z[i], z[i]) * quad)
+    loop = torch.stack(loop)
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
+    loop_count = p25_counters()
+    label = f"slq poisson {n}x{n} probes {probes} steps {steps}"
+    print(f"phase 25 (b): {label}: {float(res.value):.6f} ± {float(res.stderr):.6f}; host "
+          f"reads {res.host_syncs} (one factorization a probe: {probes}); K1 launches "
+          f"{count['K1']} ({count['K1 batched']} batched; the loop's {loop_count['K1']}); "
+          f"batched wall {wall:.4f} s, the loop {loop_wall:.4f} s "
+          f"({loop_wall / wall:.2f}x); samples equal to the loop's: "
+          f"{torch.equal(res.samples, loop)}", flush=True)
+    require(torch.equal(res.samples, loop), f"{label}: samples differ from the loop's")
+    require(res.host_syncs == 1 and count["K1"] == count["K1 batched"] == steps
+            and loop_count["K1"] == probes * steps, f"{label}: {res.host_syncs} reads, {count}")
+    return {"label": label, "host_syncs": res.host_syncs, "launches": count, "wall_s": wall,
+            "loop_wall_s": loop_wall, "loop_launches": loop_count}
+
+
+def phase_batched_family(gt_torch, dev):
+    """Phase 25: (a) K3 and K4 on lane blocks, (b) the batched solves of the
+    short recurrences, the GMRES family and Newton–Krylov, and SLQ's batched
+    probes. Returns the kernel records, the launches over (b) (each row's
+    counts summed) and the rows."""
+    t_phase = time.perf_counter()
+    records = p25_kernels(gt_torch, dev)
+    rows = p25_batched_solves(gt_torch, dev) + [p25_slq(gt_torch, dev)]
+    launches = dict.fromkeys(p25_counters(), 0)
+    for r in rows:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    require(all(launches[f"{k} batched"] > 0 for k in P25_KERNELS),
+            f"phase 25: a batched kernel was not launched on the main path {launches}")
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return records, launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -6659,6 +6939,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--phase24"]:
         with tempfile.TemporaryDirectory() as workdir:
             phase_batched(gt_torch, dev, workdir)
+        return 0
+    if sys.argv[1:2] == ["--phase25"]:
+        phase_batched_family(gt_torch, dev)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -6763,9 +7046,13 @@ def main() -> int:
                 gt_torch, dev, workdir)
         # Phase 24: batched solves and the batched launches.
         p24_records, p24, _ = phase_batched(gt_torch, dev, workdir)
-    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t_run:.1f} s", flush=True)
+    # Phase 25: batched solves of the other solvers, SLQ's probes batched,
+    # the batched launches of K3 and K4.
+    p25_records, p25, _ = phase_batched_family(gt_torch, dev)
+    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(p24_records)
+    records.update(p25_records)
     records.update(rdma_records)
     records.update(cd_records)
 
@@ -6821,6 +7108,8 @@ def main() -> int:
                 "sparse formats on a sharded b, one-rank mesh (phase 23)")
     p23_twins_path = "twins of phase 23's rows, plain tensors"
     p24_path = "block rows and batched solves (phase 24)"
+    p25_path = ("batched short recurrences, GMRES family, Newton-Krylov, sparse CG and "
+                "SLQ (phase 25)")
     # Launches of the batched form (a block in one launch), by phase: the
     # block rows of phases 15-23 on plain tensors run their block
     # applications batched too (a DTensor block keeps one call a row).
@@ -6828,7 +7117,7 @@ def main() -> int:
                         p19_path: p19, p20_path: p20, p21_path: p21,
                         p21_twins_path: p21_twins, p22_path: p22,
                         p22_twins_path: p22_twins, p23_path: p23,
-                        p23_twins_path: p23_twins, p24_path: p24}
+                        p23_twins_path: p23_twins, p24_path: p24, p25_path: p25}
 
     def batched_fields(name):
         by = {path: counts.get(f"{name} batched", 0)
@@ -6847,7 +7136,8 @@ def main() -> int:
                "gmres_tpu/ops/stencil.py:139", ["gmres_tpu/ops/stencil.py:206"],
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
                + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"]
-               + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"] + p24["K1"],
+               + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"] + p24["K1"]
+               + p25["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -6859,7 +7149,7 @@ def main() -> int:
                                  p21_path: p21["K1"], p21_twins_path: p21_twins["K1"],
                                  p22_path: p22["K1"], p22_twins_path: p22_twins["K1"],
                                  p23_path: p23["K1"], p23_twins_path: p23_twins["K1"],
-                                 p24_path: p24["K1"]},
+                                 p24_path: p24["K1"], p25_path: p25["K1"]},
                **batched_fields("K1"),
                phase22_k1_halo=p22["K1 halo"], phase22_exchanges=p22["exchanges"],
                phase23_k1_halo=p23["K1 halo"], phase23_exchanges=p23["exchanges"],
@@ -6877,7 +7167,7 @@ def main() -> int:
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
                + short["K1rr"] + p19["K1rr"] + p20["K1rr"] + p21["K1rr"]
                + p21_twins["K1rr"] + p22["K1rr"] + p22_twins["K1rr"] + p23["K1rr"]
-               + p23_twins["K1rr"] + p24["K1rr"],
+               + p23_twins["K1rr"] + p24["K1rr"] + p25["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
@@ -6889,7 +7179,7 @@ def main() -> int:
                                  p21_twins_path: p21_twins["K1rr"],
                                  p22_path: p22["K1rr"], p22_twins_path: p22_twins["K1rr"],
                                  p23_path: p23["K1rr"], p23_twins_path: p23_twins["K1rr"],
-                                 p24_path: p24["K1rr"]},
+                                 p24_path: p24["K1rr"], p25_path: p25["K1rr"]},
                **batched_fields("K1rr"),
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
@@ -6897,7 +7187,7 @@ def main() -> int:
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
                + short["K1cr"] + p19["K1cr"] + p20["K1cr"] + p21["K1cr"]
                + p21_twins["K1cr"] + p22["K1cr"] + p22_twins["K1cr"] + p23["K1cr"]
-               + p23_twins["K1cr"] + p24["K1cr"],
+               + p23_twins["K1cr"] + p24["K1cr"] + p25["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
@@ -6909,7 +7199,7 @@ def main() -> int:
                                  p21_twins_path: p21_twins["K1cr"],
                                  p22_path: p22["K1cr"], p22_twins_path: p22_twins["K1cr"],
                                  p23_path: p23["K1cr"], p23_twins_path: p23_twins["K1cr"],
-                                 p24_path: p24["K1cr"]},
+                                 p24_path: p24["K1cr"], p25_path: p25["K1cr"]},
                **batched_fields("K1cr"),
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
@@ -6917,7 +7207,7 @@ def main() -> int:
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
                + p20["K2"] + p21["K2"] + p21_twins["K2"] + p22["K2"] + p22_twins["K2"]
-               + p23["K2"] + p23_twins["K2"] + p24["K2"],
+               + p23["K2"] + p23_twins["K2"] + p24["K2"] + p25["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
@@ -6929,7 +7219,7 @@ def main() -> int:
                                     p21_twins_path: p21_twins["K2"],
                                     p22_path: p22["K2"], p22_twins_path: p22_twins["K2"],
                                     p23_path: p23["K2"], p23_twins_path: p23_twins["K2"],
-                                    p24_path: p24["K2"]},
+                                    p24_path: p24["K2"], p25_path: p25["K2"]},
                **batched_fields("K2"),
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
@@ -7008,19 +7298,38 @@ def main() -> int:
                **k2_paths_fields("K2 convdiff")),
         report("K3", "gmres_tpu_torch/csrc/dia_spmv.cu",
                "gmres_tpu/ops/sparse.py:567", [],
-               launches["K3"] + p23["K3"] + p23_twins["K3"],
+               launches["K3"] + p23["K3"] + p23_twins["K3"] + p25["K3"],
                f"K3 HYB {CG_GRIDS[-1]}x{CG_GRIDS[-1]} f64",
                launches_by_path={"cg and the sparse solvers (phases 8-10)": launches["K3"],
-                                 p23_path: p23["K3"], p23_twins_path: p23_twins["K3"]},
+                                 p23_path: p23["K3"], p23_twins_path: p23_twins["K3"],
+                                 p25_path: p25["K3"]},
                rank_block_max_abs_err=max(rank_blocks["K3 torch.float32"],
                                           rank_blocks["K3 torch.float64"])),
         report("K4", "gmres_tpu_torch/csrc/bsr_spmv.cu",
                "gmres_tpu/ops/sparse.py:488", [],
-               launches["K4"] + p23["K4"] + p23_twins["K4"],
+               launches["K4"] + p23["K4"] + p23_twins["K4"] + p25["K4"],
                f"K4 {BSR_CASES[-1][0]} f32",
                launches_by_path={"the sparse solvers (phases 9-10)": launches["K4"],
-                                 p23_path: p23["K4"], p23_twins_path: p23_twins["K4"]},
+                                 p23_path: p23["K4"], p23_twins_path: p23_twins["K4"],
+                                 p25_path: p25["K4"]},
                rank_block_max_abs_err=rank_blocks["K4 float32"]),
+        report("K3 batched", "gmres_tpu_torch/csrc/dia_spmv.cu",
+               "gmres_tpu/ops/sparse.py:644", ["gmres_tpu/ops/sparse.py:567"],
+               p25["K3 batched"], f"K3 batched HYB {P25_K3_N}x{P25_K3_N} f64 {P25_LANES} lanes",
+               form="a (lanes, n) block in one launch, the lane on gridDim.y (jax.vmap's "
+                    "leading grid axis), one DIA matrix for every lane",
+               launches_by_path={p25_path: p25["K3 batched"]},
+               singles_ms=records["K3 batched"][0]["singles_ms"],
+               library_note="torch.sparse_csr_tensor @ X, X = (n, lanes) (cuSPARSE SpMM)"),
+        report("K4 batched", "gmres_tpu_torch/csrc/bsr_spmv.cu",
+               "gmres_tpu/ops/sparse.py:544", ["gmres_tpu/ops/sparse.py:488"],
+               p25["K4 batched"],
+               f"K4 batched {P25_K4[0]} block rows bs={P25_K4[1]} f32 {P25_K4[2]} lanes",
+               form="a (lanes, n) block in one launch, the lane on gridDim.z, one BSR matrix "
+                    "for every lane",
+               launches_by_path={p25_path: p25["K4 batched"]},
+               singles_ms=records["K4 batched"][0]["singles_ms"],
+               library_note="torch.sparse_bsr_tensor @ X, X = (n, lanes)"),
         report("K5", "gmres_tpu_torch/csrc/cheb2_fused.cu",
                "gmres_tpu/ops/fused.py:129", [],
                strong["K5"] + p21["K5"] + p21_twins["K5"],

@@ -26,6 +26,14 @@
 // cores: TF32 would break the full-float32 precision the TPU kernel asks for
 // (Precision.HIGHEST), and a 3×TF32 split is later work.
 //
+// Lanes (jax.vmap of bsr_spmv_pallas: a leading grid axis). One launch takes
+// a (lanes, nbc·bs) block of x with one matrix shared by the lanes and writes
+// the (lanes, nbr·bs) block of y, the lane on gridDim.z (x and y already
+// carry the block rows and the row tiles): each lane's CUDA blocks run the
+// single launch's body on that lane's x and y, so each lane gets the bits of
+// its own launch. The matrix is read once per lane; reading each block once
+// for all lanes is later work.
+//
 // Rounding: the library is built with -fmad=false, but this kernel uses
 // explicit fused multiply-adds (__fmaf_rn / __fma_rn), which that flag does
 // not touch. Its reference, the einsum of bsr_spmv, sums in cuBLAS's order,
@@ -53,10 +61,12 @@ template <typename T>
 __global__ void bsr_spmv_kernel(const T* __restrict__ data,
                                 const int* __restrict__ cols,
                                 const T* __restrict__ x, T* __restrict__ y,
-                                int k, int bs) {
+                                int k, int bs, long long x_len, long long y_len) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
   const long long br = blockIdx.x;
+  x += blockIdx.z * x_len;
+  y += blockIdx.z * y_len;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int row0 = blockIdx.y * kTileRows + warp * kRowsPerWarp;
@@ -91,14 +101,15 @@ __global__ void bsr_spmv_kernel(const T* __restrict__ data,
 }
 
 template <typename T>
-int launch(const T* data, const int* cols, const T* x, T* y, int nbr, int k,
-           int bs, int device, void* stream) {
+int launch(const T* data, const int* cols, const T* x, T* y, int lanes, int nbr,
+           int nbc, int k, int bs, int device, void* stream) {
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (nbr <= 0 || k <= 0 || bs <= 0) return (int)cudaGetLastError();
-  const dim3 grid(nbr, (bs + kTileRows - 1) / kTileRows);
+  const dim3 grid(nbr, (bs + kTileRows - 1) / kTileRows, lanes);
   bsr_spmv_kernel<T><<<grid, kWarps * 32, bs * sizeof(T), (cudaStream_t)stream>>>(
-      data, cols, x, y, k, bs);
+      data, cols, x, y, k, bs, (long long)nbc * bs, (long long)nbr * bs);
   return (int)cudaGetLastError();
 }
 
@@ -107,13 +118,15 @@ int launch(const T* data, const int* cols, const T* x, T* y, int nbr, int k,
 extern "C" {
 
 int gt_bsr_spmv_f32(const float* data, const int* cols, const float* x, float* y,
-                    int nbr, int k, int bs, int device, void* stream) {
-  return launch<float>(data, cols, x, y, nbr, k, bs, device, stream);
+                    int lanes, int nbr, int nbc, int k, int bs, int device,
+                    void* stream) {
+  return launch<float>(data, cols, x, y, lanes, nbr, nbc, k, bs, device, stream);
 }
 
 int gt_bsr_spmv_f64(const double* data, const int* cols, const double* x,
-                    double* y, int nbr, int k, int bs, int device, void* stream) {
-  return launch<double>(data, cols, x, y, nbr, k, bs, device, stream);
+                    double* y, int lanes, int nbr, int nbc, int k, int bs,
+                    int device, void* stream) {
+  return launch<double>(data, cols, x, y, lanes, nbr, nbc, k, bs, device, stream);
 }
 
 }  // extern "C"

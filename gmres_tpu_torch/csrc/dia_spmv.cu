@@ -29,6 +29,13 @@
 // coefficient there, so a NaN or Inf of x at such a position poisons only
 // the plain version; the two agree on finite inputs.
 //
+// Lanes (jax.vmap of dia_spmv_pallas: a leading grid axis). One launch takes
+// a (lanes, n_cols) block of x with one matrix shared by the lanes and writes
+// the (lanes, n_rows) block of y, the lane on gridDim.y: each lane's threads
+// run the single launch's loop on that lane's x and y, so each lane gets the
+// bits of its own launch. The matrix is read once per lane (its re-reads for
+// the other lanes may hit L2); reading it once for all lanes is later work.
+//
 // Rounding: every product and sum rounds separately in both versions (the
 // library is built with -fmad=false, so nvcc does not contract them into
 // FMAs), and the sum runs in the same order from zero, so K3 agrees with
@@ -54,6 +61,8 @@ __global__ void dia_spmv_kernel(const T* __restrict__ data,
                                 DiaOffsets offs, int accumulate) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rows) return;
+  x += (long long)blockIdx.y * n_cols;
+  y += (long long)blockIdx.y * n_rows;
   T acc = accumulate ? y[i] : T(0);
   for (int k = 0; k < ndiags; ++k) {
     const long long j = (long long)i + offs.off[k];
@@ -65,17 +74,19 @@ __global__ void dia_spmv_kernel(const T* __restrict__ data,
 }
 
 template <typename T>
-int launch(const T* data, const T* x, T* y, int n_rows, int n_cols,
+int launch(const T* data, const T* x, T* y, int lanes, int n_rows, int n_cols,
            const int* offsets, int ndiags, int accumulate, int device,
            void* stream) {
-  if (ndiags < 1 || ndiags > kMaxDiags) return (int)cudaErrorInvalidValue;
+  if (ndiags < 1 || ndiags > kMaxDiags || lanes < 1 || lanes > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   DiaOffsets offs = {};
   for (int k = 0; k < ndiags; ++k) offs.off[k] = offsets[k];
-  const int blocks = (n_rows + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    dia_spmv_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((n_rows + kThreads - 1) / kThreads, lanes);
+  if (grid.x > 0) {
+    dia_spmv_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         data, x, y, n_rows, n_cols, ndiags, offs, accumulate);
   }
   return (int)cudaGetLastError();
@@ -85,18 +96,18 @@ int launch(const T* data, const T* x, T* y, int n_rows, int n_cols,
 
 extern "C" {
 
-int gt_dia_spmv_f32(const float* data, const float* x, float* y, int n_rows,
-                    int n_cols, const int* offsets, int ndiags, int accumulate,
-                    int device, void* stream) {
-  return launch<float>(data, x, y, n_rows, n_cols, offsets, ndiags, accumulate,
-                       device, stream);
+int gt_dia_spmv_f32(const float* data, const float* x, float* y, int lanes,
+                    int n_rows, int n_cols, const int* offsets, int ndiags,
+                    int accumulate, int device, void* stream) {
+  return launch<float>(data, x, y, lanes, n_rows, n_cols, offsets, ndiags,
+                       accumulate, device, stream);
 }
 
-int gt_dia_spmv_f64(const double* data, const double* x, double* y, int n_rows,
-                    int n_cols, const int* offsets, int ndiags, int accumulate,
-                    int device, void* stream) {
-  return launch<double>(data, x, y, n_rows, n_cols, offsets, ndiags, accumulate,
-                        device, stream);
+int gt_dia_spmv_f64(const double* data, const double* x, double* y, int lanes,
+                    int n_rows, int n_cols, const int* offsets, int ndiags,
+                    int accumulate, int device, void* stream) {
+  return launch<double>(data, x, y, lanes, n_rows, n_cols, offsets, ndiags,
+                        accumulate, device, stream);
 }
 
 }  // extern "C"

@@ -141,11 +141,13 @@ def load() -> ctypes.CDLL:
                                        + [ctypes.c_double] * 5 + [i32, vp])
         lib.gt_stencil5_dd.restype = i32
         for suffix in ("f32", "f64"):
+            # K3 and K4 take a lane count: x and y are contiguous (lanes, n)
+            # blocks (1 for one vector), one matrix for every lane.
             fn = getattr(lib, f"gt_dia_spmv_{suffix}")
-            fn.argtypes = [vp, vp, vp, i32, i32, vp, i32, i32, i32, vp]
+            fn.argtypes = [vp, vp, vp, i32, i32, i32, vp, i32, i32, i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_bsr_spmv_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+            fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
             fn.restype = i32
             # α (pointer, kind, value), the vectors, partials, counter, sum,
             # n, vector width, blocks, device, stream.
@@ -308,7 +310,7 @@ def refuse_transforms(what: str, kernel: str, *tensors) -> None:
                 "call the routed entries of K1–K4 (stencil_5pt_pallas, "
                 "residual_restrict, correct_residual, poly_stencil_smoother_pallas, "
                 "the sparse operators), which batch; K5–K8 have no vmap rule "
-                "(ROADMAP: batched forms of K3–K8).")
+                "(ROADMAP: batched forms of K5–K8).")
 
 
 # Where a DTensor goes instead of a kernel wrapper, by kernel.

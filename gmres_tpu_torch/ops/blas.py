@@ -256,9 +256,9 @@ def complex_parts(v: torch.Tensor):
 def row_apply(fn, rows: torch.Tensor) -> torch.Tensor:
     """fn on each row of the block (JAX's ``jax.vmap(fn)``): on a plain block
     ``torch.func.vmap(fn)``, so that each kernel on fn's path (K1 and its
-    V-cycle forms, K2) launches once for all rows through its vmap rule
-    (``ops/stencil.py``, ``ops/fused.py``; K3 and K4 once a row,
-    ``ops/sparse.py:PerLane``), each row with the bits of its own call. On
+    V-cycle forms, K2, K3, K4) launches once for all rows through its vmap
+    rule (``ops/stencil.py``, ``ops/fused.py``, ``ops/sparse.py``), each row
+    with the bits of its own call. On
     a DTensor block, one call of fn per row (the halo route's batched form
     is ROADMAP work)."""
     if is_dtensor(rows):

@@ -23,7 +23,11 @@ Counterpart of ``gmres_tpu/ops/sparse.py``, with the same names:
   ``bsr_spmv_pallas`` kernel K4 (``csrc/bsr_spmv.cu``), behind the names
   and data arguments of the Pallas entry points. A CPU tensor takes the
   plain version, a CUDA tensor of float32 or float64 launches the kernel,
-  and any other CUDA dtype raises.
+  and any other CUDA dtype raises. Each also takes a (lanes, n_cols) block
+  with one matrix for every lane, what ``jax.vmap`` makes of the Pallas
+  kernel (a leading grid axis): one launch, each lane its own launch's
+  bits; under ``torch.func.vmap`` their vmap rule (``SpmvLanes``) hands
+  the lanes' block to that form.
 * ``hyb_spmv`` and ``sparse_operator`` route by device in the same way: on
   a CUDA tensor, DIA and the DIA part of HYB always run in K3, and BSR in
   K4; HYB's ELL residue is the plain gather, as in JAX.
@@ -450,29 +454,39 @@ def sparse_from_numpy(kind: str, arrays: dict, shape, offsets=None,
 # ---------------------------------------------------------------------------
 
 
+def _operand(x: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """x read flat: (n_cols,) for one operand of n_cols entries (any shape),
+    or a (lanes, n_cols) block of lanes as it is (what a vmap rule hands a
+    sparse product: one operand a lane)."""
+    if x.numel() != n_cols and x.dim() == 2 and x.shape[1] == n_cols:
+        return x
+    return x.reshape(-1)
+
+
 def dia_spmv(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     """y_i = Σ_k data[k, i] · x[i + off_k]: one roll + multiply-add per
     diagonal in offset order, from zeros. Out-of-range positions carry zero
     coefficients by construction, so the roll's wrap-around adds 0·x there
     (a NaN or Inf of x at a wrapped position would still poison y; K3 never
-    reads those positions).
+    reads those positions). A (lanes, n_cols) block gives (lanes, n_rows),
+    each lane's sums those of its own product.
 
     A block of rows (n_rows ≠ n_cols: a rank's rows with its halo-widened
     x, ``sparse_operator``'s sharded route) reads x through a zero-padded
     window instead of a roll, the same sums in the same order."""
-    xf = x.reshape(-1)
     n_rows, n_cols = a.shape
+    xf = _operand(x, n_cols)
     if n_rows == n_cols:
         y = torch.zeros_like(xf)
         for k, off in enumerate(a.offsets):
-            y = y + a.data[k] * torch.roll(xf, -off)
+            y = y + a.data[k] * torch.roll(xf, -off, dims=-1)
         return y
     lo = max(0, -min(a.offsets))
     hi = max(0, n_rows + max(a.offsets) - n_cols)
     xp = torch.nn.functional.pad(xf, (lo, hi))
-    y = torch.zeros(n_rows, dtype=xf.dtype, device=xf.device)
+    y = torch.zeros(xf.shape[:-1] + (n_rows,), dtype=xf.dtype, device=xf.device)
     for k, off in enumerate(a.offsets):
-        y = y + a.data[k] * xp[lo + off:lo + off + n_rows]
+        y = y + a.data[k] * xp[..., lo + off:lo + off + n_rows]
     return y
 
 
@@ -517,13 +531,19 @@ def ell_spmv(a: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
 def bsr_spmv(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """Gather the x blocks, batched block matvec (einsum), in the promoted
     dtype of the blocks and x, returned in x's dtype (JAX's
-    ``preferred_element_type=x.dtype``)."""
+    ``preferred_element_type=x.dtype``). A (lanes, n_cols) block gives
+    (lanes, n_rows): the lanes join the block rows as the einsum's batch,
+    so each lane's sums are those of its own product."""
     bs = a.block_size
-    xb = x.reshape(-1, bs)  # (n_block_cols, bs)
-    gathered = xb[a.block_cols]  # (nbr, k, bs)
+    xf = _operand(x, a.shape[1])
+    lanes = xf.shape[0] if xf.dim() == 2 else 1
+    nbr, k = a.block_cols.shape
+    gathered = xf.reshape(lanes, -1, bs)[:, a.block_cols]  # (lanes, nbr, k, bs)
     dt = torch.promote_types(a.data.dtype, x.dtype)
-    return torch.einsum("rkab,rkb->ra", a.data.to(dt),
-                        gathered.to(dt)).reshape(-1).to(x.dtype)
+    data = a.data.to(dt).expand((lanes,) + tuple(a.data.shape))
+    y = torch.einsum("rkab,rkb->ra", data.reshape((lanes * nbr,) + tuple(a.data.shape[1:])),
+                     gathered.reshape(lanes * nbr, k, bs).to(dt)).to(x.dtype)
+    return y.reshape(xf.shape[:-1] + (nbr * bs,))
 
 
 # ---------------------------------------------------------------------------
@@ -565,83 +585,110 @@ def _check_kernel_operands(what: str, kernel: str, x: torch.Tensor,
             raise TypeError(f"{what}: indices must be int32, got {t.dtype}")
 
 
+def _lanes(what: str, xf: torch.Tensor) -> int:
+    """The lanes of a launch's operand: 1 for one vector, else the block's
+    first axis (1 to ``_cuda.MAX_LANES``)."""
+    lanes = xf.shape[0] if xf.dim() == 2 else 1
+    if not 1 <= lanes <= _cuda.MAX_LANES:
+        raise ValueError(f"{what}: {lanes} lanes (1 to {_cuda.MAX_LANES})")
+    return lanes
+
+
 def dia_spmv_cuda(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch K3 on a CUDA operand: y (shape[0],) = A·x for x of shape[1]
-    entries (any shape, read flat). ``dia_spmv_cuda.launches`` counts
-    launches."""
+    entries (any shape, read flat); or, on a (lanes, shape[1]) block, one
+    launch for all lanes (what jax.vmap makes of the Pallas kernel: a
+    leading grid axis), y (lanes, shape[0]), each lane the bits of its own
+    launch. ``dia_spmv_cuda.launches`` counts launches,
+    ``.batched_launches`` those on a block."""
     _cuda.refuse_dtensor("dia_spmv_cuda", "K3", x)
-    xf = x.reshape(-1)
-    _check_kernel_operands("dia_spmv_cuda", "K3", xf, a.data)
     n_rows, n_cols = a.shape
+    xf = _operand(x, n_cols)
+    _check_kernel_operands("dia_spmv_cuda", "K3", xf, a.data)
     nd = len(a.offsets)
-    if xf.numel() != n_cols or tuple(a.data.shape) != (nd, n_rows):
+    if xf.shape[-1] != n_cols or tuple(a.data.shape) != (nd, n_rows):
         raise ValueError(
             f"dia_spmv_cuda: data {tuple(a.data.shape)} with {nd} offsets "
             f"and x of {xf.numel()} entries do not fit shape {a.shape}")
     if a.data.numel() >= 2**31 or n_cols >= 2**31:
         raise ValueError("dia_spmv_cuda: matrix too large for one launch")
-    y = torch.empty(n_rows, dtype=xf.dtype, device=xf.device)
-    fn = getattr(_cuda.load(), f"gt_dia_spmv_{_cuda.suffix(xf.dtype)}")
+    lanes = _lanes("dia_spmv_cuda", xf)
+    y = torch.empty(xf.shape[:-1] + (n_rows,), dtype=xf.dtype, device=xf.device)
+    fn = _cuda.entry("gt_dia_spmv", xf.dtype)
     row_bytes = n_rows * a.data.element_size()
     for c0 in range(0, nd, DIA_MAX_DIAGS_PER_LAUNCH):
         offs = a.offsets[c0:c0 + DIA_MAX_DIAGS_PER_LAUNCH]
         rc = fn(a.data.data_ptr() + c0 * row_bytes, xf.data_ptr(),
-                y.data_ptr(), n_rows, n_cols,
+                y.data_ptr(), lanes, n_rows, n_cols,
                 (ctypes.c_int * len(offs))(*offs), len(offs), int(c0 > 0),
                 xf.device.index, _cuda.stream_of(xf))
         _cuda.check(rc, "dia_spmv_cuda")
         dia_spmv_cuda.launches += 1
+        dia_spmv_cuda.batched_launches += int(xf.dim() == 2)
     return y
 
 
 dia_spmv_cuda.launches = 0
+dia_spmv_cuda.batched_launches = 0
 
 
 def bsr_spmv_cuda(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch K4 on a CUDA operand: y (nbr·bs,) = A·x for x of nbc·bs
-    entries. ``bsr_spmv_cuda.launches`` counts launches."""
+    entries; or, on a (lanes, nbc·bs) block, one launch for all lanes, y
+    (lanes, nbr·bs), each lane the bits of its own launch.
+    ``bsr_spmv_cuda.launches`` counts launches, ``.batched_launches`` those
+    on a block."""
     _cuda.refuse_dtensor("bsr_spmv_cuda", "K4", x)
-    xf = x.reshape(-1)
+    xf = _operand(x, a.shape[1])
     _check_kernel_operands("bsr_spmv_cuda", "K4", xf, a.data, a.block_cols)
     nbr, k, bs, bs2 = a.data.shape
     if (bs != bs2 or k < 1 or tuple(a.block_cols.shape) != (nbr, k)
-            or a.shape[0] != nbr * bs or xf.numel() != a.shape[1]
+            or a.shape[0] != nbr * bs or xf.shape[-1] != a.shape[1]
             or a.shape[1] % bs):
         raise ValueError(
             f"bsr_spmv_cuda: data {tuple(a.data.shape)}, block_cols "
             f"{tuple(a.block_cols.shape)} and x of {xf.numel()} entries do "
             f"not fit shape {a.shape}")
-    if a.data.numel() >= 2**31 or bs * xf.element_size() > 48 * 1024:
+    if (a.data.numel() >= 2**31 or bs * xf.element_size() > 48 * 1024
+            or xf.numel() >= 2**31):
         raise ValueError("bsr_spmv_cuda: matrix too large for one launch")
-    y = torch.empty(nbr * bs, dtype=xf.dtype, device=xf.device)
-    fn = getattr(_cuda.load(), f"gt_bsr_spmv_{_cuda.suffix(xf.dtype)}")
+    lanes = _lanes("bsr_spmv_cuda", xf)
+    y = torch.empty(xf.shape[:-1] + (nbr * bs,), dtype=xf.dtype, device=xf.device)
+    fn = _cuda.entry("gt_bsr_spmv", xf.dtype)
     rc = fn(a.data.data_ptr(), a.block_cols.data_ptr(), xf.data_ptr(),
-            y.data_ptr(), nbr, k, bs, xf.device.index, _cuda.stream_of(xf))
+            y.data_ptr(), lanes, nbr, a.shape[1] // bs, k, bs, xf.device.index,
+            _cuda.stream_of(xf))
     _cuda.check(rc, "bsr_spmv_cuda")
     bsr_spmv_cuda.launches += 1
+    bsr_spmv_cuda.batched_launches += int(xf.dim() == 2)
     return y
 
 
 bsr_spmv_cuda.launches = 0
+bsr_spmv_cuda.batched_launches = 0
 
 
-def _each_lane(dims, n, x, fn):
-    """K3's and K4's vmap rule: fn on each lane in turn."""
-    xb = x.movedim(dims[0], 0)
-    return torch.stack([fn(xb[i]) for i in range(n)])
+def _spmv_lanes(dims, n, x, a):
+    """K3's and K4's vmap rule: one call of the routed entry on the lanes'
+    (lanes, n_cols) block (one batched launch on the card, the plain
+    version on a CPU block)."""
+    xb = x.movedim(dims[0], 0).reshape(n, -1).contiguous()
+    spmv = dia_spmv_pallas if isinstance(a, DIAMatrix) else bsr_spmv_pallas
+    return spmv(a, xb).reshape(n, -1)
 
 
-class PerLane(torch.autograd.Function):
+class SpmvLanes(torch.autograd.Function):
     """K3's and K4's routed entries under ``torch.func.vmap``:
-    ``PerLane.apply(x, fn)`` is fn(x), and its vmap rule (``_each_lane``,
-    through ``_cuda.through_lanes`` where vmap is the only transform) calls
-    fn on each lane of the block in turn, so each lane launches its kernel
-    once (the batched launches of K3 and K4 are ROADMAP work) and gives its
-    own bits. No autograd rule, as K3 and K4 have none."""
+    ``SpmvLanes.apply(x, a)`` is the product of a (a DIAMatrix or a
+    BSRMatrix) with x, and its vmap rule (``_spmv_lanes``, through
+    ``_cuda.through_lanes`` without the Function where vmap is the only
+    transform) makes one call on the lanes' block: one K3 or K4 launch for
+    all lanes on the card, each lane its own launch's bits. No autograd
+    rule, as K3 and K4 have none."""
 
     @staticmethod
-    def forward(x, fn):
-        return fn(x)
+    def forward(x, a):
+        return (dia_spmv_pallas if isinstance(a, DIAMatrix) else bsr_spmv_pallas)(a, x)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -649,29 +696,39 @@ class PerLane(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        return _each_lane(in_dims, info.batch_size, *args), 0
+        return _spmv_lanes(in_dims, info.batch_size, *args), 0
 
 
 def dia_spmv_pallas(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
-    """DIA SpMV: the plain version for a CPU operand, K3 for a CUDA one;
-    under ``torch.func.vmap``, one call a lane (``PerLane``)."""
+    """DIA SpMV: the plain version for a CPU operand, K3 for a CUDA one; x
+    one operand, or a (lanes, n_cols) block. Under ``torch.func.vmap``, one
+    call on the lanes' block (``SpmvLanes``); ``dia_spmv_pallas.block_calls``
+    counts calls on a block."""
     _check_same_device("dia_spmv_pallas", x, a.data)
     if _cuda.vmapped(x):
-        return _cuda.through_lanes(_each_lane, PerLane, x, lambda t: dia_spmv_pallas(a, t))
+        return _cuda.through_lanes(_spmv_lanes, SpmvLanes, x, a)
+    dia_spmv_pallas.block_calls += int(_operand(x, a.shape[1]).dim() == 2)
     if x.device.type == "cpu":
         return dia_spmv(a, x)
     return dia_spmv_cuda(a, x)
 
 
 def bsr_spmv_pallas(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
-    """BSR SpMV: the plain version for a CPU operand, K4 for a CUDA one;
-    under ``torch.func.vmap``, one call a lane (``PerLane``)."""
+    """BSR SpMV: the plain version for a CPU operand, K4 for a CUDA one; x
+    one operand, or a (lanes, n_cols) block. Under ``torch.func.vmap``, one
+    call on the lanes' block (``SpmvLanes``); ``bsr_spmv_pallas.block_calls``
+    counts calls on a block."""
     _check_same_device("bsr_spmv_pallas", x, a.data, a.block_cols)
     if _cuda.vmapped(x):
-        return _cuda.through_lanes(_each_lane, PerLane, x, lambda t: bsr_spmv_pallas(a, t))
+        return _cuda.through_lanes(_spmv_lanes, SpmvLanes, x, a)
+    bsr_spmv_pallas.block_calls += int(_operand(x, a.shape[1]).dim() == 2)
     if x.device.type == "cpu":
         return bsr_spmv(a, x)
     return bsr_spmv_cuda(a, x)
+
+
+dia_spmv_pallas.block_calls = 0
+bsr_spmv_pallas.block_calls = 0
 
 
 def hyb_spmv(a: HYBMatrix, x: torch.Tensor) -> torch.Tensor:

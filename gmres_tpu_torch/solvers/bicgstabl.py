@@ -23,6 +23,11 @@ replacement trigger (below the δ·‖r‖ threshold before, at or above it now)
 come back in one stacked tensor; ``lax.cond(trigger, replace, …)`` becomes
 a Python branch on that read. ``SolveResult.host_syncs`` counts the reads:
 the initial residual, one per cycle and the certification.
+
+The loop is a generator of steps (``bicgstabl_steps``): each application
+of A or M and each read is a request to its runner
+(``solvers/requests.py``). ``bicgstabl`` drives it on its own;
+``solvers/batched.py`` drives one per lane of a batched solve.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from gmres_tpu_torch.ops.blas import (
     tree_zeros_like,
 )
 from gmres_tpu_torch.solvers.cg import _in_dtype
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -68,10 +74,25 @@ def bicgstabl(
     δ (default √ε of the dtype)."""
     if ell < 1:
         raise ValueError(f"ell must be >= 1, got {ell}")
-    op = A if M is None else (lambda v: A(M(v)))
+    return run(bicgstabl_steps(A, b, ell=ell, tol=tol, max_iterations=max_iterations,
+                               M=M, x0=x0, reliable=reliable,
+                               replace_delta=replace_delta))
+
+
+def bicgstabl_steps(A, b, *, ell=2, tol=1e-9, max_iterations=10_000, M=None, x0=None,
+                    reliable=True, replace_delta=None):
+    """``bicgstabl``'s solve as steps (``solvers/requests.py``), returning
+    its SolveResult."""
+    if ell < 1:
+        raise ValueError(f"ell must be >= 1, got {ell}")
+
+    def op(v):
+        """A∘M: M's request, then A's."""
+        return (yield Apply(A, (yield Apply(M, v)) if M is not None else v))
+
     y = tree_zeros_like(b)
     # x0 is folded into the right-hand side's residual; y runs from 0.
-    r = b if x0 is None else tree_sub(b, A(x0))
+    r = b if x0 is None else tree_sub(b, (yield Apply(A, x0)))
     r_tilde = r_init = r
 
     dtype = b.dtype
@@ -82,7 +103,7 @@ def bicgstabl(
     delta_t = _in_dtype(delta, dtype)
     tol = _in_dtype(tol, dtype)
     if reliable:
-        ar0 = op(r)
+        ar0 = yield from op(r)
         norm_A = torch.sqrt(tree_vdot(ar0, ar0)
                             / torch.clamp(tree_vdot(r, r), min=eps))
 
@@ -90,7 +111,8 @@ def bicgstabl(
         return torch.where(t.abs() > eps, t, 1.0)
 
     res0 = torch.sqrt(tree_vdot(r, r))
-    status = int(SolverStatus.CONVERGED if float(res0) < tol
+    res0_f = yield Read(res0)
+    status = int(SolverStatus.CONVERGED if res0_f < tol
                  else SolverStatus.MAX_ITERATIONS)
     syncs = 1
     one = torch.ones((), dtype=dtype, device=b.device)
@@ -112,13 +134,13 @@ def bicgstabl(
             rho0 = rho1
             for i in range(j + 1):
                 us[i] = tree_axpy(-beta, us[i], rs[i])
-            us[j + 1] = op(us[j])
+            us[j + 1] = yield from op(us[j])
             gamma = tree_vdot(us[j + 1], r_tilde)
             ok = ok & (gamma.abs() > eps)
             alpha = rho0 / nonzero(gamma)
             for i in range(j + 1):
                 rs[i] = tree_axpy(-alpha, us[i + 1], rs[i])
-            rs[j + 1] = op(rs[j])
+            rs[j + 1] = yield from op(rs[j])
             y = tree_axpy(alpha, us[0], y)
         # MR part: MGS of r_1..r_ℓ, r_0 projected; for each j one stacked
         # reduction gives σ_j, (r_0, r_j) and the remaining r_i's on r_j.
@@ -162,9 +184,9 @@ def bicgstabl(
         if reliable:
             drift = drift + mach_eps * (norm_A * torch.sqrt(y_sq) + res)
             crossing = below & (drift >= delta_t * res)
-            read = torch.stack([res, ok.to(dtype), crossing.to(dtype)]).tolist()
+            read = yield Read(torch.stack([res, ok.to(dtype), crossing.to(dtype)]))
         else:
-            read = torch.stack([res, ok.to(dtype)]).tolist()
+            read = yield Read(torch.stack([res, ok.to(dtype)]))
         syncs += 1
         res_f, ok_f = read[:2]
         history.append(res_f)
@@ -177,23 +199,23 @@ def bicgstabl(
         if reliable:
             if (read[2] and res_f >= tol and math.isfinite(res_f)
                     and status == SolverStatus.MAX_ITERATIONS):
-                r = tree_sub(r_init, op(y))
+                r = tree_sub(r_init, (yield from op(y)))
                 drift = mach_eps * (norm_A * torch.sqrt(y_sq)
                                     + torch.sqrt(tree_vdot(r, r)))
             below = drift < delta_t * res
         k += 1
 
     # Map through the right preconditioner and certify the true residual.
-    x = M(y) if M is not None else y
+    x = (yield Apply(M, y)) if M is not None else y
     if x0 is not None:
         x = tree_axpy(1.0, x0, x)
-    r_true = tree_sub(b, A(x))
+    r_true = tree_sub(b, (yield Apply(A, x)))
     true_res = torch.sqrt(tree_vdot(r_true, r_true))
-    true_f = float(true_res)
+    true_f = yield Read(true_res)
     syncs += 1
     if status == SolverStatus.CONVERGED and true_f >= tol:
         status = int(SolverStatus.BREAKDOWN)
-    res, res_f = (true_res, true_f) if k > 0 else (res0, float(res0))
+    res, res_f = (true_res, true_f) if k > 0 else (res0, res0_f)
     hist = torch.tensor(history + [res_f] * (max_iterations - k),
                         dtype=dtype, device=b.device)
     return SolveResult(x=x, iterations=k, residual=res, status=status,

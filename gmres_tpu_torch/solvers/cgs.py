@@ -22,6 +22,11 @@ tensor and the host decides the status, comparing in the dtype of the
 values as JAX does on the device. ``SolveResult.host_syncs`` counts the
 reads: the initial residual, one per iteration, the certification, and the
 target when ``rtol`` is given.
+
+The loop is a generator of steps (``cgs_steps``): each application of A or
+M and each read is a request to its runner (``solvers/requests.py``).
+``cgs`` drives it on its own; ``solvers/batched.py`` drives one per lane
+of a batched solve.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from gmres_tpu_torch.ops.blas import (
     tree_zeros_like,
 )
 from gmres_tpu_torch.solvers.cg import _in_dtype
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -61,13 +67,20 @@ def cgs(
 
     The arguments are those of ``gmres_tpu.cgs`` (the call contract of
     ``bicgstab``); b's device is the solve's."""
+    return run(cgs_steps(A, b, tol=tol, max_iterations=max_iterations, M=M, x0=x0,
+                         rtol=rtol))
+
+
+def cgs_steps(A, b, *, tol=1e-9, max_iterations=10_000, M=None, x0=None, rtol=None):
+    """``cgs``'s solve as steps (``solvers/requests.py``), returning its
+    SolveResult."""
     rdtype = b.real.dtype
     tiny = torch.finfo(rdtype).tiny
     syncs = 0
     if rtol is not None:
         nb = torch.sqrt(tree_vdot(b, b).real)
-        tol = float(torch.maximum(torch.as_tensor(tol, dtype=nb.dtype,
-                                                  device=nb.device), rtol * nb))
+        tol = yield Read(torch.maximum(torch.as_tensor(tol, dtype=nb.dtype,
+                                                       device=nb.device), rtol * nb))
         syncs += 1
     tol = _in_dtype(tol, rdtype)
     if x0 is None:
@@ -75,7 +88,7 @@ def cgs(
         r = b
     else:
         x = x0
-        r = tree_sub(b, A(x0))
+        r = tree_sub(b, (yield Apply(A, x0)))
     r0 = r
     q = tree_zeros_like(b)
     p = tree_zeros_like(b)
@@ -85,7 +98,8 @@ def cgs(
     # ρ_prev = 1 and q = p = 0 make the first iteration's β-recurrences the
     # textbook u = p = r, whatever β is.
     rho_prev = torch.ones((), dtype=rho.dtype, device=b.device)
-    status = int(SolverStatus.CONVERGED if float(res0) < tol
+    res0_f = yield Read(res0)
+    status = int(SolverStatus.CONVERGED if res0_f < tol
                  else SolverStatus.MAX_ITERATIONS)
     syncs += 1
     history = []
@@ -96,20 +110,20 @@ def cgs(
         beta = rho / safe_rho_prev
         u = tree_axpy(beta, q, r)
         p = tree_axpy(beta, tree_axpy(beta, p, q), u)
-        v = A(M(p) if M is not None else p)
+        v = yield Apply(A, (yield Apply(M, p)) if M is not None else p)
         # σ = ⟨r0, v⟩, conjugate-linear in the shadow vector (JAX's choice).
         sigma = tree_vdot(r0, v)
         safe_sigma = torch.where(sigma.abs() > tiny, sigma, torch.ones_like(sigma))
         alpha = rho / safe_sigma
         q = tree_axpy(-alpha, v, u)
         uq = u + q
-        z = M(uq) if M is not None else uq
+        z = (yield Apply(M, uq)) if M is not None else uq
         x = tree_axpy(alpha, z, x)
-        r = tree_axpy(-alpha, A(z), r)
+        r = tree_axpy(-alpha, (yield Apply(A, z)), r)
         res_sq, rho_next = batched_vdot([(r, r), (r0, r)])
         res = torch.sqrt(res_sq.real)
-        res_f, sigma_abs, rho_abs = torch.stack(
-            [res, sigma.abs(), rho_next.abs()]).tolist()
+        res_f, sigma_abs, rho_abs = yield Read(torch.stack(
+            [res, sigma.abs(), rho_next.abs()]))
         syncs += 1
         history.append(res_f)
         if res_f < tol:
@@ -123,16 +137,16 @@ def cgs(
 
     # Certify on the true residual (one extra matvec): CGS's squared
     # polynomial makes its recursive r the least trustworthy of the family.
-    r_true = tree_sub(b, A(x))
+    r_true = tree_sub(b, (yield Apply(A, x)))
     true_res = torch.sqrt(tree_vdot(r_true, r_true).real)
-    true_f = float(true_res)
+    true_f = yield Read(true_res)
     syncs += 1
     if status == SolverStatus.CONVERGED and true_f >= tol:
         status = int(SolverStatus.BREAKDOWN)
     if i > 0:
         res, res_f = true_res, true_f
     else:
-        res, res_f = res0, float(res0)
+        res, res_f = res0, res0_f
     hist = torch.tensor(history + [res_f] * (max_iterations - i),
                         dtype=rdtype, device=b.device)
     return SolveResult(x=x, iterations=i, residual=res, status=status,

@@ -20,6 +20,13 @@ semi-iteration around A.
 ``lax.while_loop`` becomes a Python loop reading the cycle's residual norm,
 the cycle's one reduction, once a cycle (``SolveResult.host_syncs``: the
 initial residual and one a cycle).
+
+The loop is a generator of steps (``chebyshev_solve_steps``): each
+application of A, and of the polynomial with ``coefs``, and each read is a
+request to its runner (``solvers/requests.py``); without ``coefs`` the
+polynomial's applications of A are requests one by one. ``chebyshev_solve``
+drives it on its own; ``solvers/batched.py`` drives one per lane of a
+batched solve (the K2 polynomial one batched call for the lanes).
 """
 
 from __future__ import annotations
@@ -30,11 +37,10 @@ from typing import Any, Optional
 import torch
 
 from gmres_tpu_torch.ops.blas import tree_norm, tree_sub, tree_zeros_like
-from gmres_tpu_torch.precond.chebyshev import (
-    chebyshev_preconditioner,
-    chebyshev_stencil_preconditioner,
-)
+from gmres_tpu_torch.ops.fused import chebyshev_k_scalars
+from gmres_tpu_torch.precond.chebyshev import chebyshev_stencil_preconditioner
 from gmres_tpu_torch.solvers.cg import _in_dtype
+from gmres_tpu_torch.solvers.requests import Apply, Read, derived, run
 from gmres_tpu_torch.types import LinearOperator, SolveResult, SolverStatus
 
 
@@ -64,22 +70,52 @@ def chebyshev_solve(
 
     ``iterations`` counts cycles; ``residual`` is the absolute true
     ‖b − A x‖₂."""
+    return run(chebyshev_solve_steps(A, b, lam_min, lam_max, order=order, tol=tol,
+                                     max_cycles=max_cycles, x0=x0, coefs=coefs,
+                                     use_pallas=use_pallas))
+
+
+def _semi_iteration(A, r, theta, pairs):
+    """``chebyshev_preconditioner(A, ..., reference_form=False)`` applied to
+    r, as steps: each application of A a request."""
+    d0 = r / theta
+    z = d0
+    for a, b in pairs:
+        resid = r - (yield Apply(A, z))
+        d0 = a * d0 + b * resid
+        z = z + d0
+    return z
+
+
+def chebyshev_solve_steps(A, b, lam_min, lam_max, *, order=16, tol=1e-9,
+                          max_cycles=1000, x0=None, coefs=None, use_pallas="auto"):
+    """``chebyshev_solve``'s solve as steps (``solvers/requests.py``),
+    returning its SolveResult."""
     if coefs is not None:
-        p_k = chebyshev_stencil_preconditioner(
-            lam_min, lam_max, order=order, coefs=coefs, use_pallas=use_pallas)
+        key = ("chebyshev_solve", lam_min, lam_max, order, tuple(float(c) for c in coefs),
+               use_pallas)
+        p_k = derived(A, key, lambda _: chebyshev_stencil_preconditioner(
+            lam_min, lam_max, order=order, coefs=coefs, use_pallas=use_pallas),
+            lanes=False)
+
+        def poly(r):
+            return (yield Apply(p_k, r))
     else:
-        p_k = chebyshev_preconditioner(A, lam_min, lam_max, order=order,
-                                       reference_form=False)
+        theta, _, steps = chebyshev_k_scalars(lam_min, lam_max, order)
+        pairs = [(steps[2 * s], steps[2 * s + 1]) for s in range(order - 1)]
+
+        def poly(r):
+            return (yield from _semi_iteration(A, r, theta, pairs))
     if x0 is None:
         x = tree_zeros_like(b)
         r = b
     else:
         x = x0
-        r = tree_sub(b, A(x0))
+        r = tree_sub(b, (yield Apply(A, x0)))
     rdtype = b.real.dtype
     tol = _in_dtype(tol, rdtype)
     res0 = tree_norm(r)
-    res_prev = float(res0)
+    res_prev = yield Read(res0)
     syncs = 1
     status = int(SolverStatus.CONVERGED if res_prev < tol
                  else SolverStatus.MAX_ITERATIONS)
@@ -87,10 +123,10 @@ def chebyshev_solve(
     history = []
     i = 0
     while i < max_cycles and status == SolverStatus.MAX_ITERATIONS:
-        x = x + p_k(r)
-        r = tree_sub(b, A(x))
+        x = x + (yield from poly(r))
+        r = tree_sub(b, (yield Apply(A, x)))
         res = tree_norm(r)           # the cycle's one reduction
-        res_f = float(res)
+        res_f = yield Read(res)
         syncs += 1
         history.append(res_f)
         if res_f < tol:
@@ -99,7 +135,7 @@ def chebyshev_solve(
             status = int(SolverStatus.BREAKDOWN)
         res_prev = res_f
         i += 1
-    final = history[-1] if i > 0 else float(res0)
+    final = history[-1] if i > 0 else res_prev
     hist = torch.tensor(history + [final] * (max_cycles - i), dtype=rdtype,
                         device=b.device)
     return SolveResult(x=x, iterations=i, residual=res, status=status,

@@ -15,6 +15,11 @@ cycle in that dtype, with x, the residuals and the certification in b's.
 Host reads, as in the port's ``gmres``: one boolean per inner iteration
 that tests convergence, one status per restart and one for the initial
 residual (``GmresResult.host_syncs``).
+
+The loop is a generator of steps (``fgmres_steps``): each application of A
+or M and each read is a request to its runner (``solvers/requests.py``).
+``fgmres`` drives it on its own; ``solvers/batched.py`` drives one per
+lane of a batched solve.
 """
 
 from __future__ import annotations
@@ -31,25 +36,31 @@ from gmres_tpu_torch.solvers.gmres import (
     _cgs_pass,
     _nonzero_or_one,
     _norm,
-    _restarted,
+    _restarted_steps,
     _v_err_mgsr,
 )
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import GmresResult, Preconditioner
 
 
 def _solve_1x1(op, b, x0, tol) -> GmresResult:
     """The degenerate 1×1 system of the right-preconditioned solvers, solved
     directly; the residual is unpreconditioned, so M never enters it."""
-    a_val = op(torch.ones_like(b))
+    return run(_solve_1x1_steps(op, b, x0, tol))
+
+
+def _solve_1x1_steps(op, b, x0, tol):
+    """``_solve_1x1`` as steps (``solvers/requests.py``)."""
+    a_val = yield Apply(op, torch.ones_like(b))
     singular = a_val == 0
     x = torch.where(~singular, b / torch.where(~singular, a_val, torch.ones_like(a_val)),
                     torch.zeros_like(b))
     if x0 is not None:
         x = torch.where(~singular, x, x0)
-    r = b - op(x)
+    r = b - (yield Apply(op, x))
     residual = _norm(r) / torch.clamp(_norm(b), min=torch.finfo(b.dtype).tiny)
-    status = int(torch.where(residual < tol, 0,
-                             torch.where(singular.reshape(()), 2, 1)))
+    status = yield Read(torch.where(residual < tol, 0,
+                                    torch.where(singular.reshape(()), 2, 1)))
     return GmresResult(
         x=x, iterations=1, restarts=1, residual=residual, status=status,
         residual_history=residual.reshape(1).to(b.dtype).clone(),
@@ -81,9 +92,18 @@ def fgmres(
       compute_v_err: orthogonality audit of V (the MGSR variant's metric).
       breakdown_check: exit a cycle on lucky breakdown h_val < tol.
     """
+    return run(fgmres_steps(A, b, restart=restart, tol=tol, max_restarts=max_restarts,
+                            M=M, inner_dtype=inner_dtype, x0=x0,
+                            compute_v_err=compute_v_err, breakdown_check=breakdown_check))
+
+
+def fgmres_steps(A, b, *, restart=30, tol=1e-8, max_restarts=1000, M=None,
+                 inner_dtype=None, x0=None, compute_v_err=False, breakdown_check=True):
+    """``fgmres``'s solve as steps (``solvers/requests.py``), returning its
+    GmresResult."""
     op = _as_operator(A, b.device)
     if b.numel() == 1:
-        return _solve_1x1(op, b, x0, tol)
+        return (yield from _solve_1x1_steps(op, b, x0, tol))
     if x0 is None:
         x0 = torch.zeros_like(b)
     dtype = b.dtype
@@ -118,9 +138,10 @@ def fgmres(
         t = 0
         while True:
             # M's output cast once, the same value stored and given to A.
-            z_t = (M(v_basis[t]) if M is not None else v_basis[t]).to(work_dtype)
+            z_t = ((yield Apply(M, v_basis[t])) if M is not None
+                   else v_basis[t]).to(work_dtype)
             z_basis[t] = z_t
-            w = op(z_t).to(work_dtype)
+            w = (yield Apply(op, z_t)).to(work_dtype)
             h1, w = _cgs_pass(v_basis[: t + 1], w)
             h2, w = _cgs_pass(v_basis[: t + 1], w)
             h_val = torch.sqrt(tree_vdot(w, w))
@@ -139,7 +160,7 @@ def fgmres(
             if breakdown_check:
                 converged = converged | (h_val.to(dtype) < tol)
             syncs += 1
-            if bool(converged):
+            if (yield Read(converged)):
                 break
         n_out = t
         y = masked_back_substitution(hmat, giv.g, n_out)
@@ -148,7 +169,7 @@ def fgmres(
         x = x + bsafe * dx.to(dtype)
         return x, n_out, ferr, h_val.to(dtype), v_basis, syncs
 
-    x, k, n_out, ferr, v_basis, status, residual, syncs = _restarted(
+    x, k, n_out, ferr, v_basis, status, residual, syncs = yield from _restarted_steps(
         cycle, op, b, x0, m, tol, max_restarts, None, mixed,
         breakdown_check=breakdown_check, certify_true=False,
         work_dtype=work_dtype,

@@ -12,10 +12,17 @@ runs on a float64 CPU copy of H̄ (one read of the device per
 factorization), where JAX solves it in-jit; f therefore receives a float64
 CPU tensor of Ritz values (``torch.log``, ``lambda s: 1 / torch.sqrt(s)``).
 
-``trace_funm`` runs one factorization per probe, a loop where JAX
-``jax.vmap``s the probes. Its Rademacher probes cannot be JAX's
-(``PRNGKey`` draws have no torch counterpart): they come from one seam,
-``_rademacher``.
+``trace_funm`` batches its probes, as JAX ``jax.vmap``s them: each probe's
+factorization runs as steps (``arnoldi_factorization_steps``), one lane of
+``solvers/requests.py:run_lanes``, so each Arnoldi step applies A once to
+all probes (one ``torch.func.vmap``: one batched K1 launch for a stencil on
+the card) while each probe's reductions and updates run on its own
+tensors, its bits those of its factorization alone; the probes'
+Hessenbergs then come back in one read for the small eigenproblems. On a
+row-sharded x_like (a DTensor) the probes run one after another, one read
+each (a block application on a DTensor is one call a row, ROADMAP queue
+2). Its Rademacher probes cannot be JAX's (``PRNGKey`` draws have no torch
+counterpart): they come from one seam, ``_rademacher``.
 """
 
 from __future__ import annotations
@@ -25,8 +32,12 @@ from typing import Any, Callable
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_combine, shard_rows_like, tree_vdot
-from gmres_tpu_torch.solvers.lanczos import arnoldi_factorization
+from gmres_tpu_torch.ops.blas import is_dtensor, row_combine, shard_rows_like, tree_vdot
+from gmres_tpu_torch.solvers.lanczos import (
+    arnoldi_factorization,
+    arnoldi_factorization_steps,
+)
+from gmres_tpu_torch.solvers.requests import LaneOperator, run_lanes
 from gmres_tpu_torch.types import LinearOperator
 
 
@@ -61,7 +72,8 @@ class TraceResult:
       samples: (n_probes,) per-probe estimates zᵀ f(A) z.
 
     Beyond the JAX fields:
-      host_syncs: reads of the device (one per probe).
+      host_syncs: reads of the device (one for all probes; one per probe on
+        a row-sharded x_like).
     """
 
     value: torch.Tensor
@@ -74,7 +86,11 @@ def _projected_eigh(hmat: torch.Tensor, steps: int):
     """(theta, q, beta_m, asym) of the (steps+1, steps) Hessenberg: the
     eigh of its symmetric (steps, steps) part, the last subdiagonal entry
     and the asymmetry, all on a float64 CPU copy (one read)."""
-    host = hmat.detach().to("cpu", torch.float64)
+    return _host_eigh(hmat.detach().to("cpu", torch.float64), steps)
+
+
+def _host_eigh(host: torch.Tensor, steps: int):
+    """``_projected_eigh`` of a float64 CPU Hessenberg."""
     h = host[:steps, :steps]
     theta, q = torch.linalg.eigh(0.5 * (h + h.T))
     return theta, q, host[steps, steps - 1], torch.max(torch.abs(h - h.T))
@@ -156,13 +172,24 @@ def trace_funm(
     z = _rademacher(n_probes, tuple(x_like.shape), x_like.dtype, x_like.device,
                     0 if key is None else key)
     z = shard_rows_like(z, x_like)
+    if is_dtensor(x_like):
+        hosts = []
+        for i in range(n_probes):
+            _, hmat = arnoldi_factorization(A, z[i], steps)
+            hosts.append(hmat.detach().to("cpu", torch.float64))
+    else:
+        a_lanes = LaneOperator(A)
+        done, _ = run_lanes([arnoldi_factorization_steps(a_lanes, z[i], steps)
+                             for i in range(n_probes)])
+        # One read: every probe's Hessenberg.
+        hosts = torch.stack([hmat for _, hmat in done]).detach().to("cpu", torch.float64)
     samples = []
-    for zi in (z[i] for i in range(n_probes)):
-        _, hmat = arnoldi_factorization(A, zi, steps)
-        theta, q, _, _ = _projected_eigh(hmat, steps)
+    for i in range(n_probes):
+        theta, q, _, _ = _host_eigh(hosts[i], steps)
         quad = torch.sum(f(theta) * q[0, :] ** 2).to(x_like.device, x_like.dtype)
-        samples.append(tree_vdot(zi, zi) * quad)  # ‖z‖² = N for Rademacher
+        samples.append(tree_vdot(z[i], z[i]) * quad)  # ‖z‖² = N for Rademacher
     samples = torch.stack(samples)
     value = torch.mean(samples)
     stderr = torch.std(samples, correction=0) / (1.0 * n_probes) ** 0.5
-    return TraceResult(value=value, stderr=stderr, samples=samples, host_syncs=n_probes)
+    return TraceResult(value=value, stderr=stderr, samples=samples,
+                       host_syncs=n_probes if is_dtensor(x_like) else 1)

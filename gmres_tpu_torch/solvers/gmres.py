@@ -69,7 +69,7 @@ from gmres_tpu_torch.ops.flat import (
 )
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.tri import masked_back_substitution
-from gmres_tpu_torch.solvers.requests import Apply, Read, eager, run
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import (
     GmresResult,
     LinearOperator,
@@ -175,12 +175,6 @@ def _inner_floor(beta, beta0, rel_prev, tol, inner_gain, certify_true,
 # x in the outer dtype and decides convergence — from the inner Givens
 # estimate in pure mode, from the true residual in mixed/certified mode.
 # ---------------------------------------------------------------------------
-
-
-def _restarted(cycle: Callable, *args, **kw):
-    """The restart loop around a ``cycle`` that applies its operators
-    itself (FGMRES's), run on its own."""
-    return run(_restarted_steps(eager(cycle), *args, **kw))
 
 
 def _restarted_steps(

@@ -17,6 +17,12 @@ the card and the CPU get the same P).
 
 Host reads: one per outer iteration (the status), one for the initial
 residual and one for the certification (``SolveResult.host_syncs``).
+
+The loop is a generator of steps (``idrs_steps``): each application of A
+or M and each read is a request to its runner (``solvers/requests.py``).
+``idrs`` drives it on its own; ``solvers/batched.py`` drives one per lane
+of a batched solve, each lane drawing the same P (``jax.vmap`` shares the
+closed-over key).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from gmres_tpu_torch.ops.blas import (
     tree_vdot,
 )
 from gmres_tpu_torch.ops.tri import solve_small
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -73,12 +80,21 @@ def idrs(
     """
     if s < 1:
         raise ValueError(f"s must be >= 1, got {s}")
+    return run(idrs_steps(A, b, s=s, tol=tol, max_iterations=max_iterations, M=M,
+                          x0=x0))
+
+
+def idrs_steps(A, b, *, s=4, tol=1e-9, max_iterations=10_000, M=None, x0=None):
+    """``idrs``'s solve as steps (``solvers/requests.py``), returning its
+    SolveResult."""
+    if s < 1:
+        raise ValueError(f"s must be >= 1, got {s}")
     if x0 is None:
         x = torch.zeros_like(b)
         r = b
     else:
         x = x0
-        r = b - A(x0)
+        r = b - (yield Apply(A, x0))
     dtype = b.dtype
     dev = b.device
     rdtype = dtype.to_real()
@@ -87,7 +103,7 @@ def idrs(
     shape = b.shape
 
     def m_apply(v):
-        return M(v) if M is not None else v
+        return (yield Apply(M, v)) if M is not None else v
 
     # Drawn whole on every rank; a sharded b keeps its rows of it.
     p_flat = shard_rows_like(_shadow_block(s, shape, dtype, dev), b).reshape(s, -1).conj()
@@ -102,7 +118,7 @@ def idrs(
     idx = torch.arange(s, device=dev)
     eye = torch.eye(s, dtype=dtype, device=dev)
     res = res0 = tree_norm(r)
-    status = (SolverStatus.CONVERGED if bool(res0 < tol)
+    status = (SolverStatus.CONVERGED if (yield Read(res0 < tol))
               else SolverStatus.MAX_ITERATIONS)
     syncs = 1
     g_blk = rows_like(s, b)
@@ -119,9 +135,9 @@ def idrs(
             act = (idx[:, None] >= k) & (idx[None, :] >= k)
             c = solve_small(torch.where(act, m_mat, eye),
                             torch.where(idx >= k, f, torch.zeros_like(f)))
-            v = m_apply(r - row_combine(c, g_blk))
+            v = yield from m_apply(r - row_combine(c, g_blk))
             u_k = row_combine(c, u_blk) + om * v
-            g_k = A(u_k)
+            g_k = yield Apply(A, u_k)
             # Biorthogonalise g_k against the leading shadow directions,
             # the projections updated from one block reduction.
             proj = pdot(g_k)
@@ -140,8 +156,8 @@ def idrs(
             u_blk[k] = u_k
 
         # Sonneveld-space step with the κ-stabilised ω.
-        v = m_apply(r)
-        t = A(v)
+        v = yield from m_apply(r)
+        t = yield Apply(A, v)
         tt = tree_vdot(t, t).real
         tr = tree_vdot(t, r)
         om_raw = safe_div(tr, tt.to(dtype))
@@ -153,13 +169,13 @@ def idrs(
         res = tree_norm(r)
         history[i] = res
         code = torch.where(res < tol, 0, torch.where(torch.isfinite(res), 1, 2))
-        status = SolverStatus(int(code))
+        status = SolverStatus((yield Read(code)))
         syncs += 1
         i += 1
 
     # Exit certification on the recomputed residual.
-    true_res = tree_norm(b - A(x))
-    missed = bool(true_res >= tol)
+    true_res = tree_norm(b - (yield Apply(A, x)))
+    missed = yield Read(true_res >= tol)
     syncs += 1
     if status == SolverStatus.CONVERGED and missed:
         status = SolverStatus.BREAKDOWN

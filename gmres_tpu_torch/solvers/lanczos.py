@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.ops.blas import row_combine, row_contract, rows_like, tree_vdot
+from gmres_tpu_torch.solvers.requests import Apply, run
 from gmres_tpu_torch.types import LinearOperator
 
 
@@ -111,10 +112,16 @@ def arnoldi_expand(
     ``hmat`` filled; columns [start, steps) are computed by CGS2 over the
     full masked buffer. Returns new (basis, hmat); the inputs are not
     modified."""
+    return run(arnoldi_expand_steps(A, basis, hmat, start))
+
+
+def arnoldi_expand_steps(A, basis, hmat, start: int):
+    """``arnoldi_expand`` as steps (``solvers/requests.py``): each
+    application of A a request."""
     steps = hmat.shape[1]
     basis, hmat = basis.clone(), hmat.clone()
     for j in range(start, steps):
-        w = A(basis[j])
+        w = yield Apply(A, basis[j])
         mask = (torch.arange(steps + 1, device=basis.device) <= j).to(basis.dtype)
 
         def cgs_pass(w):
@@ -142,12 +149,17 @@ def arnoldi_factorization(
     """k-step Arnoldi factorization A·V_k = V_{k+1}·H̄: returns (basis,
     hmat), basis (steps+1, *shape) orthonormal, hmat the (steps+1, steps)
     Hessenberg."""
+    return run(arnoldi_factorization_steps(A, probe, steps))
+
+
+def arnoldi_factorization_steps(A, probe: torch.Tensor, steps: int = 20):
+    """``arnoldi_factorization`` as steps (``solvers/requests.py``)."""
     nrm = torch.sqrt(tree_vdot(probe, probe))
     v0 = probe / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
     basis = rows_like(steps + 1, probe)  # [Shard(1)] for a row-sharded probe
     basis[0] = v0
     hmat = torch.zeros((steps + 1, steps), dtype=probe.dtype, device=probe.device)
-    return arnoldi_expand(A, basis, hmat, 0)
+    return (yield from arnoldi_expand_steps(A, basis, hmat, 0))
 
 
 def arnoldi_hessenberg(

@@ -14,6 +14,11 @@ FGMRES.
 Host reads: one boolean per inner iteration that tests convergence, one
 per restart (the status and whether the new pair was kept, together) and
 one for the initial residual (``GmresResult.host_syncs``).
+
+The loop is a generator of steps (``lgmres_steps``): each application of A
+or M and each read is a request to its runner (``solvers/requests.py``).
+``lgmres`` drives it on its own; ``solvers/batched.py`` drives one per
+lane of a batched solve.
 """
 
 from __future__ import annotations
@@ -25,13 +30,14 @@ import torch
 from gmres_tpu_torch.ops.blas import gram, row_combine, rows_like, tree_vdot
 from gmres_tpu_torch.ops.givens import givens_init, givens_step
 from gmres_tpu_torch.ops.tri import masked_back_substitution
-from gmres_tpu_torch.solvers.fgmres import _solve_1x1
+from gmres_tpu_torch.solvers.fgmres import _solve_1x1_steps
 from gmres_tpu_torch.solvers.gmres import (
     _as_operator,
     _cgs_pass,
     _nonzero_or_one,
     _v_err_mgsr,
 )
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import GmresResult, Preconditioner, SolverStatus
 
 
@@ -59,9 +65,18 @@ def lgmres(
         on the true residual in b's dtype.
       compute_v_err: orthogonality audit of the last cycle's V basis.
     """
+    return run(lgmres_steps(A, b, restart=restart, aug=aug, tol=tol,
+                            max_restarts=max_restarts, M=M, inner_dtype=inner_dtype,
+                            x0=x0, compute_v_err=compute_v_err))
+
+
+def lgmres_steps(A, b, *, restart=30, aug=3, tol=1e-8, max_restarts=1000, M=None,
+                 inner_dtype=None, x0=None, compute_v_err=False):
+    """``lgmres``'s solve as steps (``solvers/requests.py``), returning its
+    GmresResult."""
     op = _as_operator(A, b.device)
     if b.numel() == 1:
-        return _solve_1x1(op, b, x0, tol)
+        return (yield from _solve_1x1_steps(op, b, x0, tol))
     if x0 is None:
         x0 = torch.zeros_like(b)
     dtype = b.dtype
@@ -99,8 +114,9 @@ def lgmres(
         while True:
             is_krylov = t < m
             if is_krylov:
-                z_t = (M(v_basis[t]) if M is not None else v_basis[t]).to(work_dtype)
-                w = op(z_t).to(work_dtype)
+                z_t = ((yield Apply(M, v_basis[t])) if M is not None
+                       else v_basis[t]).to(work_dtype)
+                w = (yield Apply(op, z_t)).to(work_dtype)
             else:
                 z_t = aug_z[t - m].to(work_dtype)
                 w = aug_w[t - m].to(work_dtype)
@@ -134,19 +150,19 @@ def lgmres(
             if t >= m + n_aug:
                 break
             syncs += 1
-            if bool(converged):
+            if (yield Read(converged)):
                 break
         y = masked_back_substitution(hmat, giv.g, t)
         dx = row_combine((y / bsafe).to(work_dtype), z_basis)
         return bsafe * dx.to(dtype), t, ferr, hb, v_basis, syncs
 
     def true_residual(x):
-        r = b - op(x)
+        r = b - (yield Apply(op, x))
         beta = torch.sqrt(tree_vdot(r, r))
         return r, beta, beta / torch.clamp(beta0, min=tiny)
 
-    r, beta, rel_init = true_residual(x0)
-    converged = bool((beta0 == 0) | (rel_init < tol))
+    r, beta, rel_init = yield from true_residual(x0)
+    converged = yield Read((beta0 == 0) | (rel_init < tol))
     syncs = 1
     breakdown = False
     buf = max(k_aug, 1)
@@ -156,10 +172,11 @@ def lgmres(
     ferr = torch.zeros((s,), dtype=dtype, device=dev)
     v_basis = None
     while k < max_restarts and not converged and not breakdown:
-        dx, n_out, ferr, hb, v_basis, inner_syncs = cycle(r, beta, aug_z, aug_w, n_aug)
+        dx, n_out, ferr, hb, v_basis, inner_syncs = yield from cycle(
+            r, beta, aug_z, aug_w, n_aug)
         syncs += inner_syncs
         x = x + dx
-        r_new, beta, rel_new = true_residual(x)
+        r_new, beta, rel_new = yield from true_residual(x)
         last = max(n_out - 1, 0)
         # Right preconditioning: the Givens estimate is the true relative
         # residual; mixed mode certifies on the recomputed one.
@@ -171,7 +188,7 @@ def lgmres(
             az_norm = torch.sqrt(tree_vdot(az, az))
             ok = (az_norm > 0) & torch.isfinite(az_norm)
             flags.append(ok)
-        flags = torch.stack(flags).tolist()
+        flags = yield Read(torch.stack(flags))
         syncs += 1
         converged, breakdown = flags[0], flags[1]
         if k_aug > 0 and flags[2]:

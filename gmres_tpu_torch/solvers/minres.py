@@ -21,6 +21,11 @@ first argument, and the scalars are kept in the real dtype of b.
 as 0-d tensors; the loop reads the estimate back once an iteration and
 decides on the host. ``SolveResult.host_syncs`` counts the reads: β₁, one
 an iteration and the certification.
+
+The loop is a generator of steps (``minres_steps``): each application of A
+or M and each read is a request to its runner (``solvers/requests.py``).
+``minres`` drives it on its own; ``solvers/batched.py`` drives one per
+lane of a batched solve.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from gmres_tpu_torch.ops.blas import tree_sub, tree_vdot, tree_zeros_like
 from gmres_tpu_torch.solvers.cg import _in_dtype
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -53,21 +59,29 @@ def minres(
     (preconditioned) MINRES (the arguments of ``gmres_tpu.minres``). M, if
     given, must be SPD (HPD): it defines the Lanczos inner product. x0
     defaults to zeros; tol is absolute."""
+    return run(minres_steps(A, b, tol=tol, max_iterations=max_iterations, M=M,
+                            x0=x0))
+
+
+def minres_steps(A, b, *, tol=1e-9, max_iterations=10_000, M=None, x0=None):
+    """``minres``'s solve as steps (``solvers/requests.py``), returning its
+    SolveResult."""
     if x0 is None:
         x = tree_zeros_like(b)
         r1 = b
     else:
         x = x0
-        r1 = tree_sub(b, A(x0))
+        r1 = tree_sub(b, (yield Apply(A, x0)))
     rdtype = b.real.dtype
     tol = _in_dtype(tol, rdtype)
 
     def prec(v):
-        return M(v) if M is not None else v
+        return (yield Apply(M, v)) if M is not None else v
 
-    z = prec(r1)
+    z = yield from prec(r1)
     beta1 = torch.sqrt(tree_vdot(r1, z).real)
-    status = int(SolverStatus.CONVERGED if float(beta1) < tol
+    beta1_f = yield Read(beta1)
+    status = int(SolverStatus.CONVERGED if beta1_f < tol
                  else SolverStatus.MAX_ITERATIONS)
     syncs = 1
     eps = torch.tensor(torch.finfo(rdtype).tiny, dtype=rdtype,
@@ -84,13 +98,13 @@ def minres(
         # Lanczos step in the M-inner product: v = z/β, y = A v
         # orthogonalised against the two previous directions.
         v = (1.0 / beta) * z
-        y = A(v)
+        y = yield Apply(A, v)
         if i > 0:
             y = y + (-beta / oldb) * r1
         alfa = tree_vdot(v, y).real
         y = y + (-alfa / beta) * r2
         r1, r2 = r2, y
-        z = prec(y)
+        z = yield from prec(y)
         oldb = beta
         beta_sq = tree_vdot(r2, z).real
         beta = torch.sqrt(beta_sq)
@@ -113,7 +127,7 @@ def minres(
         w1, w2 = w2, w
         x = x + phi * w
 
-        res_f = abs(float(phibar))
+        res_f = abs((yield Read(phibar)))
         syncs += 1
         history.append(res_f)
         if res_f < tol:
@@ -123,13 +137,13 @@ def minres(
         i += 1
 
     # Certify in the tested norm (the M-norm when preconditioned).
-    r_true = tree_sub(b, A(x))
-    true_res = torch.sqrt(tree_vdot(r_true, prec(r_true)).real)
-    true_f = float(true_res)
+    r_true = tree_sub(b, (yield Apply(A, x)))
+    true_res = torch.sqrt(tree_vdot(r_true, (yield from prec(r_true))).real)
+    true_f = yield Read(true_res)
     syncs += 1
     if status == SolverStatus.CONVERGED and true_f >= tol:
         status = int(SolverStatus.BREAKDOWN)
-    res, res_f = (true_res, true_f) if i > 0 else (beta1, float(beta1))
+    res, res_f = (true_res, true_f) if i > 0 else (beta1, beta1_f)
     hist = torch.tensor(history + [res_f] * (max_iterations - i), dtype=rdtype,
                         device=b.device)
     return SolveResult(x=x, iterations=i, residual=res, status=status,

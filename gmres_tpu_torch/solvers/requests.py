@@ -1,17 +1,22 @@
 """What a solver's loop asks of its runner: operator applications and host
 reads.
 
-cg, bicgstab and GMRES (``solvers/cg.py``, ``bicgstab.py``, ``gmres.py``)
+The solvers a batched solve takes (``solvers/batched.py:batched_solve``)
 are written as generators of steps. Each application of A or M is a
-request ``Apply(fn, v)`` that the runner answers with fn(v), and each read
-of a device value that decides the loop is a request ``Read(t)`` that it
-answers with ``t.tolist()``; everything else the solver computes itself.
+request ``Apply(fn, v, args)`` that the runner answers with fn(v, *args),
+and each read of a device value that decides the loop is a request
+``Read(t)`` that it answers with ``t.tolist()``; everything else the solver
+computes itself. ``args`` are a lane's own operands of a shared function
+(Newton–Krylov's J·v at the lane's linearisation point); ``At(fn, *args)``
+is such an operator as a one-argument callable, for the steps of a solver
+that applies its A as A(v).
+
 ``run`` is the runner of one solve: it answers each request at once, so a
 solve runs as the plain loop it replaces, with the same operations in the
-same order. ``solvers/batched.py`` drives one generator per lane of a
-batched solve and answers the lanes' requests together: one
-``torch.func.vmap`` application for the lanes that ask for the same
-operator, one host read for the lanes that wait on a read.
+same order. ``run_lanes`` drives one generator per lane and answers the
+lanes' requests together: one ``torch.func.vmap`` application for the
+lanes that ask for the same operator (``LaneOperator``), one host read for
+the lanes that wait on a read.
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ import torch
 
 
 class Apply(NamedTuple):
-    """The request fn(v): an application of the solve's A or M."""
+    """The request fn(v, *args): an application of the solve's A or M, or
+    of a function of them (``derived``) at the lane's operands ``args``."""
 
     fn: Callable
     v: torch.Tensor
+    args: tuple = ()
 
 
 class Read(NamedTuple):
@@ -34,23 +41,162 @@ class Read(NamedTuple):
     t: torch.Tensor
 
 
+class At:
+    """fn(·, *args) as a one-argument operator: fn shared by the lanes of a
+    batched solve, ``args`` this lane's operands. A runner answers
+    ``Apply(At(fn, *args), v)`` as ``Apply(fn, v, args)`` and counts it in
+    ``calls``."""
+
+    def __init__(self, fn: Callable, *args):
+        self.fn, self.args, self.calls = fn, args, 0
+
+    def __call__(self, v):
+        self.calls += 1
+        return self.fn(v, *self.args)
+
+
+def _unfold(req: Apply):
+    """(fn, v, args) of an application, an ``At`` operator unfolded."""
+    if isinstance(req.fn, At):
+        return req.fn.fn, req.v, req.fn.args + req.args
+    return req.fn, req.v, req.args
+
+
+def _resolved(req: Apply):
+    """``_unfold`` of a request being answered (counted in its ``At``)."""
+    if isinstance(req.fn, At):
+        req.fn.calls += 1
+    return _unfold(req)
+
+
+def _key(fn, v, args) -> tuple:
+    """What lanes share to take one application together."""
+    return (id(fn), v.dtype, tuple(v.shape), v.device,
+            tuple((a.dtype, tuple(a.shape)) for a in args))
+
+
 def run(steps: Generator):
     """Drive one solve's steps, answering each request as it comes; returns
     the solve's result."""
     try:
         req = next(steps)
         while True:
-            ans = req.fn(req.v) if isinstance(req, Apply) else req.t.tolist()
+            if isinstance(req, Apply):
+                fn, v, args = _resolved(req)
+                ans = fn(v, *args)
+            else:
+                ans = req.t.tolist()
             req = steps.send(ans)
     except StopIteration as done:
         return done.value
 
 
-def eager(fn: Callable) -> Callable:
-    """A plain function as steps that make no request (a cycle that applies
-    its operators itself, inside a runner of steps)."""
-    def steps(*args):
-        return fn(*args)
-        yield  # noqa: unreachable; makes steps a generator function
+def derived(fn: Callable, key, make: Callable, lanes: bool = True) -> Callable:
+    """``make(fn)``: an operator built from the solve's A (J·v of a residual
+    F, a polynomial in A). For a batched solve's ``LaneOperator`` it is one
+    LaneOperator per (fn, key), shared by the lanes so that their requests
+    group, which keeps fn's lane arguments where ``lanes`` (make(fn) is
+    then called as make(fn)(v, *args, *lane_args_i)); a plain fn gets
+    make(fn) itself."""
+    derive = getattr(fn, "derive", None)
+    return derive(key, make, lanes) if derive is not None else make(fn)
 
-    return steps
+
+class LaneOperator:
+    """A or M as each lane's steps see it: the runner answers its requests
+    with ``torch.func.vmap`` over the lanes that make them. Calling it
+    directly is an error (a path of the solver that makes no request).
+    fn is called as fn(v, *args, *lane_args_i): ``args`` the request's own
+    operands, ``lane_args`` tensors with the lanes on their first axis."""
+
+    def __init__(self, fn: Callable, lane_args: tuple = ()):
+        self.fn = fn
+        self.lane_args = lane_args
+        self._derived: dict = {}
+
+    def __call__(self, v):
+        raise RuntimeError("a batched solve's operator is applied by its runner "
+                           "(solvers/requests.py:run_lanes), not called directly")
+
+    def derive(self, key, make: Callable, lanes: bool = True) -> "LaneOperator":
+        op = self._derived.get(key)
+        if op is None:
+            op = self._derived[key] = LaneOperator(make(self.fn),
+                                                   self.lane_args if lanes else ())
+        return op
+
+    def apply(self, vs: list, argss: list, lanes: list) -> list:
+        """fn on each of the vectors ``vs`` (with each lane's operands
+        ``argss``) of ``lanes``: one ``torch.func.vmap`` application on
+        their stacks, or the plain call where one lane waits (the same
+        bits, without vmap's host cost)."""
+        if len(lanes) == 1:
+            # A lane's vector may be a view of a batched output.
+            return [self.fn(vs[0].contiguous(), *(a.contiguous() for a in argss[0]),
+                            *(a[lanes[0]] for a in self.lane_args))]
+        blocks = [torch.stack(vs)] + [torch.stack(col) for col in zip(*argss)]
+        if self.lane_args:
+            idx = torch.tensor(lanes, device=self.lane_args[0].device)
+            blocks += [a if len(lanes) == a.shape[0] else a.index_select(0, idx)
+                       for a in self.lane_args]
+        return torch.func.vmap(self.fn)(*blocks).unbind()
+
+
+def _read_together(ts: list) -> list:
+    """Each of ``ts`` (0-d or 1-d) as ``t.tolist()`` gives it, from one host
+    read of all of them (float64 holds each value exactly)."""
+    if len(ts) == 1:
+        return [ts[0].tolist()]
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in ts]).tolist()
+    out, k = [], 0
+    for t in ts:
+        vals = flat[k:k + t.numel()]
+        k += t.numel()
+        if t.dtype == torch.bool:
+            vals = [v != 0.0 for v in vals]
+        elif not t.dtype.is_floating_point:
+            vals = [int(v) for v in vals]
+        out.append(vals[0] if t.dim() == 0 else vals)
+    return out
+
+
+def run_lanes(gens: list):
+    """Drive one generator of steps a lane (their A and M ``LaneOperator``s)
+    and answer the lanes together; returns (the lanes' results, the host
+    reads made).
+
+    The lanes waiting on the same operator (the same LaneOperator on
+    vectors and operands of one shape and dtype) get one application; the
+    operator most lanes wait on goes first (the first lane's, on a tie), so
+    lanes that took another step catch up. When no lane waits on an
+    operator, every lane waiting on a read gets its value from one host
+    read. A lane that has stopped makes no more requests."""
+    n = len(gens)
+    pending, results = [None] * n, [None] * n
+
+    def advance(i, answer=None, first=False):
+        try:
+            pending[i] = next(gens[i]) if first else gens[i].send(answer)
+        except StopIteration as done:
+            pending[i], results[i] = None, done.value
+
+    for i in range(n):
+        advance(i, first=True)
+    reads = 0
+    while any(p is not None for p in pending):
+        groups: dict = {}
+        for i, req in enumerate(pending):
+            if isinstance(req, Apply):
+                groups.setdefault(_key(*_unfold(req)), []).append(i)
+        if groups:
+            lanes = max(groups.values(), key=len)
+            taken = [_resolved(pending[i]) for i in lanes]
+            outs = taken[0][0].apply([t[1] for t in taken], [t[2] for t in taken], lanes)
+            for i, out in zip(lanes, outs):
+                advance(i, out)
+            continue
+        waiting = [i for i, p in enumerate(pending) if p is not None]
+        reads += 1
+        for i, value in zip(waiting, _read_together([pending[i].t for i in waiting])):
+            advance(i, value)
+    return results, reads

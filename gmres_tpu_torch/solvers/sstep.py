@@ -13,6 +13,11 @@ the x update and the certification run in b's.
 ``lax.while_loop`` becomes a Python loop that reads the device once per
 cycle (the convergence and stagnation flags together) and once for the
 initial residual; ``GmresResult.host_syncs`` counts them.
+
+The loop is a generator of steps (``sstep_gmres_steps``): each application
+of A or M and each read is a request to its runner
+(``solvers/requests.py``). ``sstep_gmres`` drives it on its own;
+``solvers/batched.py`` drives one per lane of a batched solve.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from gmres_tpu_torch.ops.blas import gram as block_gram, row_combine, tree_vdot
 from gmres_tpu_torch.solvers.gmres import _as_operator, _nonzero_or_one
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import GmresResult, Preconditioner, SolverStatus
 
 
@@ -50,6 +56,14 @@ def sstep_gmres(
       rel_ridge: Tikhonov ridge on the equilibrated Gram's unit diagonal;
         0 selects 100·eps of the work dtype.
     """
+    return run(sstep_gmres_steps(A, b, s=s, tol=tol, max_restarts=max_restarts, M=M,
+                                 x0=x0, inner_dtype=inner_dtype, rel_ridge=rel_ridge))
+
+
+def sstep_gmres_steps(A, b, *, s=8, tol=1e-8, max_restarts=1000, M=None, x0=None,
+                      inner_dtype=None, rel_ridge=0.0):
+    """``sstep_gmres``'s solve as steps (``solvers/requests.py``), returning
+    its GmresResult."""
     op = _as_operator(A, b.device)
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -64,19 +78,19 @@ def sstep_gmres(
     beta0 = torch.sqrt(tree_vdot(b, b))
 
     def precond_residual(x):
-        r = b - op(x)
-        w = M(r) if M is not None else r
+        r = b - (yield Apply(op, x))
+        w = (yield Apply(M, r)) if M is not None else r
         return w, torch.sqrt(tree_vdot(w, w))
 
     def apply_b(v):
-        z = op(v)
-        return M(z) if M is not None else z
+        z = yield Apply(op, v)
+        return (yield Apply(M, z)) if M is not None else z
 
     def cycle(x, w, beta):
         z0 = (w / _nonzero_or_one(beta)).to(work_dtype)
         zs = [z0]
         for _ in range(s):
-            zs.append(apply_b(zs[-1]).to(work_dtype))
+            zs.append((yield from apply_b(zs[-1])).to(work_dtype))
         z_full = torch.stack(zs)  # (s+1, *shape)
         # The products of a float32 block accumulate in b's dtype: torch's
         # float32 GEMM sums this (s+1) × n × (s+1) product less accurately
@@ -102,22 +116,22 @@ def sstep_gmres(
         est = beta * torch.sqrt(torch.clamp(est_sq, min=0.0))
         return x, est, y_ok
 
-    w, beta = precond_residual(x0)
+    w, beta = yield from precond_residual(x0)
     rel = beta / torch.clamp(beta0, min=tiny)
-    converged = bool((beta0 == 0) | (rel < tol))
+    converged = yield Read((beta0 == 0) | (rel < tol))
     syncs = 1
     stalled = False
     hist = torch.zeros((max_restarts,), dtype=dtype, device=dev)
     x, k = x0, 0
     while k < max_restarts and not converged and not stalled:
-        x_new, est, y_ok = cycle(x, w, beta)
-        w_new, beta_new = precond_residual(x_new)
+        x_new, est, y_ok = yield from cycle(x, w, beta)
+        w_new, beta_new = yield from precond_residual(x_new)
         rel = beta_new / torch.clamp(beta0, min=tiny)
         conv = rel < tol
         hist[k] = rel
         stall = (~y_ok) | (~torch.isfinite(beta_new)) | (
             (beta_new >= beta) & (k > 0) & (est >= beta))
-        converged, stalled = torch.stack([conv, stall & ~conv]).tolist()
+        converged, stalled = yield Read(torch.stack([conv, stall & ~conv]))
         syncs += 1
         x, k, w, beta = x_new, k + 1, w_new, beta_new
     # Padded past the final cycle with the final residual.

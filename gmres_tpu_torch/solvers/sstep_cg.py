@@ -26,6 +26,11 @@ is held to JAX's counts on the CPU only where the monomial basis is mildly
 conditioned (s ≤ 4, no preconditioner): with the multigrid cycle B = M∘A
 is close to the identity, the chains are nearly dependent, and both
 packages' float32 counts follow their rounding (ROADMAP queue 3).
+
+The loop is a generator of steps (``sstep_cg_steps``): each application
+of A or M and each read is a request to its runner
+(``solvers/requests.py``). ``sstep_cg`` drives it on its own;
+``solvers/batched.py`` drives one per lane of a batched solve.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 from gmres_tpu_torch.ops.blas import as_plain, replicate_like, tree_vdot
 from gmres_tpu_torch.solvers.cg import _in_dtype
 from gmres_tpu_torch.solvers.gmres import _as_operator
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import Preconditioner, SolveResult, SolverStatus
 
 
@@ -106,10 +112,16 @@ def sstep_cg(
       x0: initial guess (zeros by default).
 
     ``iterations`` is cycles·s."""
+    return run(sstep_cg_steps(A, b, s=s, tol=tol, max_cycles=max_cycles, M=M, x0=x0))
+
+
+def sstep_cg_steps(A, b, *, s=4, tol=1e-9, max_cycles=2500, M=None, x0=None):
+    """``sstep_cg``'s solve as steps (``solvers/requests.py``), returning
+    its SolveResult."""
     op = _as_operator(A, b.device)
 
     def prec(v):
-        return M(v) if M is not None else v
+        return (yield Apply(M, v)) if M is not None else v
 
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -127,47 +139,49 @@ def sstep_cg(
         cols, imgs = [], []
         w = p
         for _ in range(s):
-            aw = op(w)
+            aw = yield Apply(op, w)
             cols.append(w)
             imgs.append(aw)
-            w = prec(aw)
+            w = yield from prec(aw)
         cols.append(w)
         imgs.append(torch.zeros_like(p))
         w = z
         for k in range(s):
-            aw = op(w)
+            aw = yield Apply(op, w)
             cols.append(w)
             imgs.append(aw)
             if k < s - 1:
-                w = prec(aw)
+                w = yield from prec(aw)
         v_cols = torch.stack(cols)
         stacked = torch.cat([r.reshape(1, -1), v_cols.reshape(nb, -1),
                              torch.stack(imgs).reshape(nb, -1)])
         # One read: the (2nb+1)² Gram. g_vu is deliberately not
         # symmetrised (U's zero Bˢp slot makes VᵀU's mirror row nonzero).
-        g = as_plain(stacked @ stacked.T).cpu()
+        g_dev = as_plain(stacked @ stacked.T)
+        g = torch.tensor((yield Read(g_dev.reshape(-1))), dtype=g_dev.dtype).reshape(
+            g_dev.shape)
         xh, ph, ok = _recurrences(g, s, t_mat)
         coef = replicate_like(torch.stack([xh, ph]).to(dev), v_cols)
         x_new = x + torch.tensordot(coef[0], v_cols, dims=([0], [0])).reshape(shape)
         p_new = torch.tensordot(coef[1], v_cols, dims=([0], [0])).reshape(shape)
         return x_new, p_new, ok
 
-    r = b - op(x0)
+    r = b - (yield Apply(op, x0))
     res = torch.sqrt(tree_vdot(r, r))
-    res_f = float(res)
+    res_f = yield Read(res)
     syncs = 1
-    z = prec(r)
+    z = yield from prec(r)
     p = z
     status = int(SolverStatus.CONVERGED if res_f < tol else SolverStatus.MAX_ITERATIONS)
     history = []
     x, k = x0, 0
     while k < max_cycles and status == SolverStatus.MAX_ITERATIONS:
-        x, p, ok = cycle(x, r, z, p)
+        x, p, ok = yield from cycle(x, r, z, p)
         # The certification pair: the cycle's one extra A and M.
-        r = b - op(x)
+        r = b - (yield Apply(op, x))
         res = torch.sqrt(tree_vdot(r, r))
-        z = prec(r)
-        res_f = float(res)
+        z = yield from prec(r)
+        res_f = yield Read(res)
         syncs += 2
         history.append(res_f)
         if res_f < tol:

@@ -19,6 +19,11 @@ padded with the final residual, as in JAX.
 One host read an iteration: the bound and |ρ| come back in one stacked
 tensor. ``SolveResult.host_syncs`` counts the reads: the initial residual,
 one per iteration and the certification.
+
+The loop is a generator of steps (``tfqmr_steps``): each application of A
+or M and each read is a request to its runner (``solvers/requests.py``).
+``tfqmr`` drives it on its own; ``solvers/batched.py`` drives one per
+lane of a batched solve.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from gmres_tpu_torch.ops.blas import (
     tree_zeros_like,
 )
 from gmres_tpu_torch.solvers.cg import _in_dtype
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -64,6 +70,13 @@ def tfqmr(
     The arguments are those of ``gmres_tpu.tfqmr``; b's device is the
     solve's. ``iterations`` counts full iterations (two half-steps, two
     matvecs); ``residual`` is the certified true ‖b − A x‖₂."""
+    return run(tfqmr_steps(A, b, tol=tol, max_iterations=max_iterations, M=M,
+                           x0=x0))
+
+
+def tfqmr_steps(A, b, *, tol=1e-9, max_iterations=10_000, M=None, x0=None):
+    """``tfqmr``'s solve as steps (``solvers/requests.py``), returning its
+    SolveResult."""
     rdtype = b.real.dtype
     tiny = torch.finfo(rdtype).tiny
     tol = _in_dtype(tol, rdtype)
@@ -72,20 +85,20 @@ def tfqmr(
         r = b
     else:
         x = x0
-        r = tree_sub(b, A(x0))
+        r = tree_sub(b, (yield Apply(A, x0)))
     r0 = r  # the shadow vector r̃₀ = r₀
 
     def m_apply(v):
-        return M(v) if M is not None else v
+        return (yield Apply(M, v)) if M is not None else v
 
-    mu1 = m_apply(r)
-    au1 = v = A(mu1)  # at startup u₀ = r₀, so A·u and v coincide
+    mu1 = yield from m_apply(r)
+    au1 = v = yield Apply(A, mu1)  # at startup u₀ = r₀, so A·u and v coincide
     tau = tau0 = tree_norm(r)
     rho = tree_vdot(r0, r)
     w, u1, d_m = r, r, tree_zeros_like(b)
     theta = torch.zeros((), dtype=rdtype, device=b.device)
     eta = torch.zeros((), dtype=rho.dtype, device=b.device)
-    tau0_f = float(tau0)
+    tau0_f = yield Read(tau0)
     syncs = 1
     status = int(SolverStatus.CONVERGED if tau0_f < tol
                  else SolverStatus.MAX_ITERATIONS)
@@ -112,22 +125,22 @@ def tfqmr(
         x, d_m, tau, theta, eta = half_update(
             tree_norm(w), tau, theta, eta, alpha, d_m, mu1, x)
         # Even half-step: one matvec on M(u); ‖w‖² and ρ in one reduction.
-        mu2 = m_apply(u2)
-        au2 = A(mu2)
+        mu2 = yield from m_apply(u2)
+        au2 = yield Apply(A, mu2)
         w = tree_axpy(-alpha, au2, w)
         wsq, rho_n = batched_vdot([(w, w), (r0, w)])
         x, d_m, tau, theta, eta = half_update(
             torch.sqrt(wsq.real), tau, theta, eta, alpha, d_m, mu2, x)
         beta = rho_n / _nonzero(rho)
         u1 = tree_axpy(beta, u2, w)
-        mu1 = m_apply(u1)
-        au1 = A(mu1)  # the second matvec, and the next odd half's A·u
+        mu1 = yield from m_apply(u1)
+        au1 = yield Apply(A, mu1)  # the second matvec, and the next odd half's A·u
         v = tree_axpy(beta, tree_axpy(beta, v, au2), au1)
         rho = rho_n
         # The quasi-residual bound after j = 2(i+1) half-steps: τ_j·√(j+1).
         j = 2.0 * (float(i) + 1.0)
         bound = tau * math.sqrt(_in_dtype(j + 1.0, rdtype))
-        bound_f, rho_abs = torch.stack([bound, rho_n.abs()]).tolist()
+        bound_f, rho_abs = yield Read(torch.stack([bound, rho_n.abs()]))
         syncs += 1
         history.append(bound_f)
         if bound_f < tol:
@@ -138,9 +151,9 @@ def tfqmr(
         i += 1
 
     # Certify the true residual (one extra matvec).
-    r_true = tree_sub(b, A(x))
+    r_true = tree_sub(b, (yield Apply(A, x)))
     true_res = tree_norm(r_true)
-    true_f = float(true_res)
+    true_f = yield Read(true_res)
     syncs += 1
     if status == SolverStatus.CONVERGED and true_f >= tol:
         status = int(SolverStatus.BREAKDOWN)

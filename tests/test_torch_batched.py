@@ -9,7 +9,8 @@ test_torch_cg.py; GMRES 1e-6, test_torch_gmres.py; BiCGSTAB 1e-6,
 test_torch_bicgstab.py). Against the port's sequential solve: iterations,
 restarts and status exact and x within 1e-12 (JAX's bound in
 test_vmap_per_lane_parity): each lane runs its sequential solve's steps.
-``test_vmap_newton_continuation`` is not mirrored (ROADMAP queue 1).
+``test_vmap_newton_continuation`` is mirrored in test_torch_batched_newton.py,
+the other solvers in test_torch_batched_family.py.
 """
 
 import jax
@@ -226,6 +227,6 @@ def test_unsupported_solver_and_arguments_raise():
     op = tt.poisson_operator(8)
     bs = torch.ones((2, 8, 8), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.batched_solve(tt.minres, op, bs)
+        tt.batched_solve(tt.qmr, op, bs)
     with pytest.raises(ValueError, match="lanes"):
         tt.batched_solve(tt.cg, lambda v, g: op(v), bs, lane_args=(torch.ones(3),))

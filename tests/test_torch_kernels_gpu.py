@@ -2003,18 +2003,69 @@ def test_autograd_through_row_apply_on_the_card(cuda_device, name):
 
 
 def test_k3_k4_under_vmap_launch_once_per_lane(cuda_device):
+    """K3 (DIA, and HYB's DIA part) and K4 under torch.func.vmap: their vmap
+    rule gives the lanes one batched launch (one a 64-diagonal chunk for
+    K3), each lane bitwise its own application. (The name is from when the
+    rule launched once per lane.)"""
     n, s = 32, 3
+    hyb = tt.csr_to_hyb(tt.poisson_csr(n, device=cuda_device))
     dia = tt.sparse_operator(tt.poisson_dia(n, device=cuda_device))
     dense = np.stack([np_poisson(e.reshape(n, n)).reshape(-1) for e in np.eye(n * n)], axis=1)
     bsr = tt.sparse_operator(tsp.bsr_from_dense(dense, 4, device=cuda_device))
     rows = to_torch(seeded(88, (s, n * n)), cuda_device)
-    for op, counter in ((dia, tsp.dia_spmv_cuda), (bsr, tsp.bsr_spmv_cuda)):
-        before = counter.launches
+    for op, counter in ((dia, tsp.dia_spmv_cuda), (tt.sparse_operator(hyb), tsp.dia_spmv_cuda),
+                        (bsr, tsp.bsr_spmv_cuda)):
+        before = (counter.launches, counter.batched_launches)
         out = tt.ops.blas.row_apply(op, rows)
         torch.cuda.synchronize()
-        assert counter.launches == before + s
+        assert (counter.launches, counter.batched_launches) == (before[0] + 1, before[1] + 1)
         for k in range(s):
             assert torch.equal(out[k], op(rows[k]))
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_k3_equals_single_launches(cuda_device, dtype, lanes):
+    """K3 on a (lanes, n) block, one launch a 64-diagonal chunk for all
+    lanes (the Poisson DIA, and a 70-diagonal DIA that takes two chunks):
+    each lane bitwise its single launch and the plain version."""
+    n = 300
+    wide = np.zeros((n, n))
+    for off in range(-35, 35):
+        wide += np.diag(seeded(93 + off + 35, n - abs(off)), off)
+    for a in (tt.poisson_dia(n, dtype=dtype, device=cuda_device),
+              tsp.dia_from_dense(wide, device=cuda_device, dtype=dtype)):
+        xb = to_torch(seeded(94, (lanes, a.shape[1])), cuda_device).to(dtype)
+        before = (tsp.dia_spmv_cuda.launches, tsp.dia_spmv_cuda.batched_launches)
+        y = tsp.dia_spmv_cuda(a, xb)
+        torch.cuda.synchronize()
+        chunks = -(-a.ndiags // tsp.DIA_MAX_DIAGS_PER_LAUNCH)
+        batched = chunks if lanes > 1 else 0
+        assert (tsp.dia_spmv_cuda.launches, tsp.dia_spmv_cuda.batched_launches) == (
+            before[0] + chunks, before[1] + batched)
+        assert y.shape == ((lanes, a.shape[0]) if lanes > 1 else (a.shape[0],))
+        y = y.reshape(lanes, -1)
+        for k in range(lanes):
+            assert torch.equal(y[k], tsp.dia_spmv_cuda(a, xb[k]))
+            assert torch.equal(y[k], tsp.dia_spmv(a, xb[k]))
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
+def test_batched_k4_equals_single_launches(cuda_device, dtype, rtol, lanes):
+    """K4 on a (lanes, n) block, one launch for all lanes: each lane bitwise
+    its single launch, and the einsum within rtol."""
+    bs = 128
+    a = _block_tridiagonal(cuda_device, dtype, 16, bs)
+    xb = to_torch(seeded(95, (lanes, a.shape[1])), cuda_device).to(dtype)
+    before = tsp.bsr_spmv_cuda.launches
+    y = tsp.bsr_spmv_cuda(a, xb)
+    torch.cuda.synchronize()
+    assert tsp.bsr_spmv_cuda.launches == before + 1
+    y = y.reshape(lanes, -1)
+    for k in range(lanes):
+        assert torch.equal(y[k], tsp.bsr_spmv_cuda(a, xb[k]))
+        assert rel_err(y[k], tsp.bsr_spmv(a, xb[k])) < rtol
 
 
 def test_kernels_without_vmap_rules_refuse_vmap(cuda_device):
