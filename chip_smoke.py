@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                      # the smoke run below
     python3 chip_smoke.py --k2-paths [OUT]     # K2's path table (JSONL to OUT)
+    python3 chip_smoke.py --phase15            # the build and phase 15 alone
     python3 chip_smoke.py --phase17            # the build and phase 17 alone
     python3 chip_smoke.py --phase18            # the build and phase 18 alone
     python3 chip_smoke.py --phase19            # the build and phase 19 alone
@@ -11,6 +12,7 @@
     python3 chip_smoke.py --phase22            # the build and phase 22 alone
     python3 chip_smoke.py --phase23            # the build and phase 23 alone
     python3 chip_smoke.py --phase24            # the build and phase 24 alone
+    python3 chip_smoke.py --phase25            # the build and phase 25 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -18,8 +20,12 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase17`` to ``--phase24`` modes build the kernels and run that
-phase alone, with its checks. Phases of the smoke run:
+The ``--phase15`` and ``--phase17`` to ``--phase25`` modes build the
+kernels and run that phase alone, with its checks. The smoke run runs
+phases 1-14, 16, 24 and 25 in turn, then phases 15 and 17-23, which time no
+kernel, in four worker processes at once (``--worker OUT PHASE...``, each
+pickling what the kernel report reads of its phases to OUT; WORKER_GROUPS),
+and prints each worker's output in turn. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
    power limit as nvidia-smi reports them.
@@ -378,6 +384,21 @@ phase alone, with its checks. Phases of the smoke run:
     the lanes run in lockstep (CG), else between the longest lane's and all
     lanes'; the batched wall against the B sequential walls.
 
+25. (a) K3 and K4 on lane blocks, the lanes in chunks that read each matrix
+    entry once (``sparse.spmv_lanes_plan``): K3 on the DIA of HYB 1000²
+    float64 at 4, 8 and 9 lanes, K4 on 512 block rows of three 128² blocks
+    at 8, 4, 9 and 16 lanes float32 and 8 lanes float64 (9: a partial
+    chunk), each bitwise against its B single launches and against its
+    plain version (K3 bitwise, K4 within 1e-5 or 1e-13 of max|y|), with
+    device ms by CUDA-graph replay, the bound (the matrix once, the lanes'
+    x and y), its share and the library call on X = (n, lanes); then single
+    K3 and K4 on the same matrices, retimed beside them. (b)
+    ``batched_solve`` of the short recurrences, the GMRES family and
+    Newton–Krylov (the Bratu λ-sweep), CG on HYB 1000² and on BSR 64², and
+    SLQ's probes as lanes, each with the launch counts set to 0 just before
+    and read just after; each lane's counts and x its sequential run's to
+    the bit.
+
 Phases 12–14 share one NCCL process group made by the script; phases 21,
 22 and 23 make one each. Any failure
 raises and exits non-zero. The line before the last is the
@@ -390,6 +411,7 @@ import contextlib
 import itertools
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -463,6 +485,10 @@ FORM_SHAPES = ((300, "float32"), (150, "float32"), (2048, "float32"), (304, "flo
 HBM_SETS = 4
 # Applications profiled per operator in phase 12's launch count.
 HALO_APPLICATIONS = 20
+# A profile's warm-up step (host seconds after its spin kernels; its events
+# are dropped) and the most profiles device_events takes for one count.
+PROFILE_WARMUP_S = 0.01
+PROFILE_TRIES = 5
 # Phase 15: the bicgstab program's grids (test_bicgstab.f90's range ends) and
 # gmres_tpu's iteration counts there (cbpr2 on REF_EIG, float64, tol 1e-9
 # absolute, b = A·1), from the JAX package on the CPU:
@@ -1669,22 +1695,32 @@ def timed(solve):
 
 def profiled(fn):
     """fn() under torch.profiler. The first device events of a profile can
-    go missing (16 of 20 one-kernel applications were counted once), so the
-    profile opens with spin kernels (torch.cuda._sleep), which
-    device_kernels leaves out. Returns fn's result, the host seconds it
-    took, and the profile's key_averages."""
+    go missing (16 of 20 one-kernel applications were counted once; on a
+    loaded host two profiles in turn gave 0.4 kernels an application for
+    1), so the profiler first runs a warm-up step, whose events it drops,
+    and the recorded step opens and closes with spin kernels
+    (torch.cuda._sleep), which device_kernels leaves out. Returns fn's
+    result, the host seconds it took, and the profile's key_averages."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def spin():
         for _ in range(20):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        spin()
+        time.sleep(PROFILE_WARMUP_S)
+        prof.step()
+        spin()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        spin()
     return out, seconds, prof.key_averages()
 
 
@@ -1730,9 +1766,18 @@ def profile_solve(solve, tag: str, wall_median: float) -> dict:
 
 def device_events(fn) -> int:
     """Kernels (copies and sets excluded) that one call of fn runs on the
-    device, by torch.profiler: the larger of two counts (an event can go
-    missing from a profile; none is invented)."""
-    return max(kernel_counts(profiled(fn)[2])[0] for _ in range(2))
+    device, by torch.profiler: the largest count, once two profiles have
+    given it, of at most PROFILE_TRIES (an event can go missing from a
+    profile; none is invented)."""
+    counts = []
+    while len(counts) < PROFILE_TRIES:
+        counts.append(kernel_counts(profiled(fn)[2])[0])
+        if counts.count(max(counts)) >= 2:
+            break
+    if len(set(counts)) > 1:
+        print(f"profiled kernel counts disagree: {counts}; taking {max(counts)}",
+              flush=True)
+    return max(counts)
 
 
 def cg_solve(gt_torch, mat, n, dev, variant="classic"):
@@ -2210,7 +2255,9 @@ def strong_scaling_solves(gt_torch, dev):
                                   variant="mgsr", orthogonalization="cgs2",
                                   max_restarts=1000, compute_v_err=False)
 
-        res, t_warm = timed(solve)  # warm-up
+        # A warm-up before the first tolerance only: the later solves reuse
+        # the operator and M it warmed.
+        t_warm = timed(solve)[1] if tol == next(iter(JAX_STRONG_COUNTS)) else None
         stencil.stencil5_cuda.launches = fused.cheb2_cuda.launches = 0
         calls["A"] = calls["M"] = 0
         times = []
@@ -2229,7 +2276,8 @@ def strong_scaling_solves(gt_torch, dev):
               f"(gmres_tpu: {j_restarts}, {j_iters}, {j_total}), {res.host_syncs} "
               f"host syncs, residual {float(res.residual):.4e}, numpy "
               f"‖M(b − A x)‖/‖b‖ {prec:.4e}, ‖b − A x‖/‖b‖ {true:.4e}; wall s over "
-              f"{STRONG_REPEATS} solves: {quartiles(times)} (warm-up {t_warm:.4f}); "
+              f"{STRONG_REPEATS} solves: {quartiles(times)} (warm-up "
+              f"{'none' if t_warm is None else f'{t_warm:.4f}'}); "
               f"{1e3 * float(np.median(times)) / total:.4f} ms per inner "
               f"iteration; launches over the {STRONG_REPEATS} solves: K1 {k1} "
               f"(operator applications {calls['A']}), K5 {k5} (preconditioner "
@@ -6599,7 +6647,12 @@ def phase_batched(gt_torch, dev, workdir):
 P25_KERNELS = KERNELS + ("K3", "K4")
 P25_LANES = 4
 P25_K3_N = CG_GRIDS[-1]                      # the HYB 1000² f64 of the cg path
-P25_K4 = (BSR_CASES[-1][1], BSR_CASES[-1][2], 8)  # block rows, block size, lanes
+P25_K3_LANES = (4, 8, 9)                     # 9: one partial chunk of 16
+P25_K4 = (BSR_CASES[-1][1], BSR_CASES[-1][2])  # block rows, block size
+# (dtype, lanes): the first is the headline (f32, 8 lanes: the matrix once);
+# 9 a full chunk of 8 and a partial one.
+P25_K4_LANES = (("float32", 8), ("float32", 4), ("float32", 9), ("float32", 16),
+                ("float64", 8))
 P25_BRATU_N, P25_LAMS = 512, (1.0, 3.0, 5.0, 6.5)
 P25_CHEB = (512, 64)                         # side, order (K2 with the coefficients)
 P25_FAMILY_N = P24_BATCHED_N["mg"]           # lgmres and sstep_gmres with the mg cycle
@@ -6621,46 +6674,77 @@ def p25_counters(reset: bool = False) -> dict:
 
 
 def p25_kernels(gt_torch, dev):
-    """(a) K3 batched (the DIA of HYB 1000² f64, 4 lanes) and K4 batched (512
-    block rows of three 128² blocks, f32, 8 lanes), each against its B single
-    launches (bitwise) and its plain version, with device ms, the bound (the
-    matrix once, the lanes' x and y) and the library call on X = (n, lanes)."""
+    """(a) K3 batched on the DIA of HYB 1000² f64 at P25_K3_LANES lanes and K4
+    batched on 512 block rows of three 128² blocks at P25_K4_LANES (lanes,
+    dtype), the partial chunks among them, each against its B single launches
+    (bitwise) and its plain version, with device ms, the bound (the matrix
+    once, the lanes' x and y) and the library call on X = (n, lanes); then
+    single K3 and K4 at the same matrices, retimed beside them."""
     import torch
 
     from gmres_tpu_torch.ops import sparse
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 25)
-    records = {}
-    print("phase 25 (a): K3 and K4 on lane blocks against B single launches and their "
-          "plain versions", flush=True)
-    n, lanes = P25_K3_N, P25_LANES
+    records = {"K3 batched": [], "K4 batched": [], "K3 single": [], "K4 single": []}
+    print("phase 25 (a): K3 and K4 on lane blocks, a chunk of lanes reading each matrix "
+          "entry once, against B single launches and their plain versions", flush=True)
+    n = P25_K3_N
     csr = gt_torch.poisson_csr(n, device=dev)
     a = gt_torch.csr_to_hyb(csr).dia
-    xb = torch.randn((lanes, n * n), generator=gen, device=dev, dtype=torch.float64)
-    xt = xb.T.contiguous()
     lib = csr_library(csr, torch.float64)
     nnz = int((a.data != 0).sum())
-    records["K3 batched"] = [p24_kernel_row(
-        f"K3 batched HYB {n}x{n} f64 {lanes} lanes",
-        lambda: sparse.dia_spmv_cuda(a, xb),
-        lambda: [sparse.dia_spmv_cuda(a, xb[k]) for k in range(lanes)],
-        lambda: sparse.dia_spmv(a, xb), 0.0,
-        ((a.data.numel() + 2 * lanes * n * n) * 8, 2 * nnz * lanes, torch.float64), 100,
-        library=lambda: (lib @ xt).T)]
-    nbr, bs, lanes = P25_K4
-    a4 = block_tridiagonal(gt_torch, nbr, bs, torch.float32, dev, gen)
-    xb4 = torch.randn((lanes, nbr * bs), generator=gen, device=dev, dtype=torch.float32)
-    xt4 = xb4.T.contiguous()
-    lib4 = bsr_library(a4)
-    records["K4 batched"] = [p24_kernel_row(
-        f"K4 batched {nbr} block rows bs={bs} f32 {lanes} lanes",
-        lambda: sparse.bsr_spmv_cuda(a4, xb4),
-        lambda: [sparse.bsr_spmv_cuda(a4, xb4[k]) for k in range(lanes)],
-        lambda: sparse.bsr_spmv(a4, xb4), 1e-5,
-        ((a4.data.numel() + a4.block_cols.numel() + 2 * lanes * nbr * bs) * 4,
-         2 * a4.data.numel() * lanes, torch.float32), 50,
-        library=lambda: (lib4 @ xt4).T)]
+    for lanes in P25_K3_LANES:
+        xb = torch.randn((lanes, n * n), generator=gen, device=dev, dtype=torch.float64)
+        xt = xb.T.contiguous()
+        plan = sparse.spmv_lanes_plan("K3", lanes, torch.float64, n * n)
+        rec = p24_kernel_row(
+            f"K3 batched HYB {n}x{n} f64 {lanes} lanes",
+            lambda: sparse.dia_spmv_cuda(a, xb),
+            lambda: [sparse.dia_spmv_cuda(a, xb[k]) for k in range(lanes)],
+            lambda: sparse.dia_spmv(a, xb), 0.0,
+            ((a.data.numel() + 2 * lanes * n * n) * 8, 2 * nnz * lanes, torch.float64),
+            100, library=lambda: (lib @ xt).T)
+        rec.update(lanes=lanes, chunk=plan.chunk, chunks=plan.chunks)
+        records["K3 batched"].append(rec)
+    x = torch.randn(n * n, generator=gen, device=dev, dtype=torch.float64)
+    records["K3 single"].append(compare(
+        f"K3 HYB {n}x{n} f64, retimed in phase 25", lambda: sparse.dia_spmv_cuda(a, x),
+        lambda: sparse.dia_spmv(a, x), 0.0, 200, work=dia_work(a), library=lambda: lib @ x))
+
+    nbr, bs = P25_K4
+    base = block_tridiagonal(gt_torch, nbr, bs, torch.float64, dev, gen)
+    for dts, lanes in P25_K4_LANES:
+        dt, rtol = (torch.float32, 1e-5) if dts == "float32" else (torch.float64, 1e-13)
+        item, tag = (4, "f32") if dts == "float32" else (8, "f64")
+        a4 = gt_torch.BSRMatrix(data=base.data.to(dt), block_cols=base.block_cols,
+                                shape=base.shape)
+        xb4 = torch.randn((lanes, nbr * bs), generator=gen, device=dev, dtype=dt)
+        xt4 = xb4.T.contiguous()
+        lib4 = bsr_library(a4)
+        plan = sparse.spmv_lanes_plan("K4", lanes, dt, nbr, bs)
+        rec = p24_kernel_row(
+            f"K4 batched {nbr} block rows bs={bs} {tag} {lanes} lanes",
+            lambda: sparse.bsr_spmv_cuda(a4, xb4),
+            lambda: [sparse.bsr_spmv_cuda(a4, xb4[k]) for k in range(lanes)],
+            lambda: sparse.bsr_spmv(a4, xb4), rtol,
+            (a4.data.numel() * item + a4.block_cols.numel() * 4
+             + 2 * lanes * nbr * bs * item, 2 * a4.data.numel() * lanes, dt), 50,
+            library=lambda: (lib4 @ xt4).T)
+        rec.update(lanes=lanes, chunk=plan.chunk, chunks=plan.chunks)
+        records["K4 batched"].append(rec)
+        if (dts, lanes) == P25_K4_LANES[0]:
+            x4 = torch.randn(nbr * bs, generator=gen, device=dev, dtype=dt)
+            records["K4 single"].append(compare(
+                f"K4 {nbr} block rows bs={bs} f32, retimed in phase 25",
+                lambda: sparse.bsr_spmv_cuda(a4, x4), lambda: sparse.bsr_spmv(a4, x4),
+                rtol, 50, work=bsr_work(a4), library=lambda: lib4 @ x4))
+    for name in ("K3 batched", "K4 batched"):
+        for r in records[name]:
+            if r["library_ms"] is not None:
+                print(f"  {r['case']}: {r['bound_ms'] / r['ms']:.0%} of the bound; the "
+                      f"library call takes {r['library_ms'] / r['ms']:.2f}x its time",
+                      flush=True)
     return records
 
 
@@ -6860,6 +6944,77 @@ def phase_batched_family(gt_torch, dev):
     return records, launches, rows
 
 
+def run_phase(name, gt_torch, dev, workdir):
+    """Run phase `name` (PHASE_RUNNERS; 21-23 on a one-rank NCCL group of
+    their own) and return what the kernel report reads of it."""
+    import numpy as np
+
+    rank_group = (one_rank_group(workdir, f"rendezvous{name}") if name in ("21", "22", "23")
+                  else contextlib.nullcontext())
+    with rank_group:
+        if name == "15":
+            return phase_programs(gt_torch, dev, workdir)
+        if name == "17":
+            return phase_family(gt_torch, dev, workdir)[0]
+        if name == "18":
+            return phase_short(gt_torch, dev, workdir)[0]
+        if name == "19":
+            return phase_transpose(gt_torch, np.random.default_rng(SEED), dev, workdir)[0]
+        if name == "20":
+            return phase_spectral(gt_torch, dev, workdir)[0]
+        if name == "21":
+            return phase_distributed(gt_torch, dev, workdir)[:2]
+        if name == "22":
+            return phase_models_sharded(gt_torch, dev, workdir)[:2]
+        if name == "23":
+            return phase_sharded_spectral_sparse(gt_torch, dev, workdir)[:3]
+        if name == "24":
+            return phase_batched(gt_torch, dev, workdir)[:2]
+        return phase_batched_family(gt_torch, dev)[:2]
+
+
+PHASE_RUNNERS = ("15", "17", "18", "19", "20", "21", "22", "23", "24", "25")
+# Phases 15 and 17-23 time no kernel: after the kernel phases they run in
+# these worker processes at once (each group one process, in order), which
+# the card time-slices; their walls share the card and the host. Grouped by
+# their walls run one after another on an H100 host: phase 19 ~224 s; 15
+# and 18 ~174; 20 and 21 ~168; 22, 17 and 23 ~189.
+WORKER_GROUPS = (("19",), ("15", "18"), ("20", "21"), ("22", "17", "23"))
+
+
+def run_workers(groups) -> dict:
+    """Run each group of phases in a `--worker` process of its own, all at
+    once; print each one's output in turn, fail if one failed, and return
+    the phases' results."""
+    with tempfile.TemporaryDirectory() as workdir:
+        procs = []
+        try:
+            for i, group in enumerate(groups):
+                log = open(os.path.join(workdir, f"worker{i}.log"), "w+")
+                out = os.path.join(workdir, f"worker{i}.pkl")
+                procs.append((group, log, out, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--worker", out, *group],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=HERE)))
+            for _, _, _, proc in procs:
+                proc.wait()
+        finally:
+            for _, log, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        done = {}
+        for group, log, out, proc in procs:
+            log.seek(0)
+            print(f"== worker: phases {', '.join(group)} (exit {proc.returncode})", flush=True)
+            print(log.read(), end="", flush=True)
+            log.close()
+            require(proc.returncode == 0,
+                    f"phases {', '.join(group)}: the worker exited {proc.returncode}")
+            with open(out, "rb") as f:
+                done.update(pickle.load(f))
+        return done
+
+
 def main() -> int:
     import torch
 
@@ -6908,40 +7063,18 @@ def main() -> int:
         print(f"  ptxas, chebk.cu:{section}", flush=True)
         k2_paths(dev, sys.argv[2] if len(sys.argv) > 2 else None)
         return 0
-    if sys.argv[1:2] == ["--phase17"]:
+    mode = sys.argv[1] if len(sys.argv) > 1 else ""
+    if mode.startswith("--phase") and mode[len("--phase"):] in PHASE_RUNNERS:
         with tempfile.TemporaryDirectory() as workdir:
-            phase_family(gt_torch, dev, workdir)
+            run_phase(mode[len("--phase"):], gt_torch, dev, workdir)
         return 0
-    if sys.argv[1:2] == ["--phase18"]:
+    if mode == "--worker":
+        out = {}
         with tempfile.TemporaryDirectory() as workdir:
-            phase_short(gt_torch, dev, workdir)
-        return 0
-    if sys.argv[1:2] == ["--phase19"]:
-        with tempfile.TemporaryDirectory() as workdir:
-            phase_transpose(gt_torch, np.random.default_rng(SEED), dev, workdir)
-        return 0
-    if sys.argv[1:2] == ["--phase20"]:
-        with tempfile.TemporaryDirectory() as workdir:
-            phase_spectral(gt_torch, dev, workdir)
-        return 0
-    if sys.argv[1:2] == ["--phase21"]:
-        with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
-            phase_distributed(gt_torch, dev, workdir)
-        return 0
-    if sys.argv[1:2] == ["--phase22"]:
-        with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
-            phase_models_sharded(gt_torch, dev, workdir)
-        return 0
-    if sys.argv[1:2] == ["--phase23"]:
-        with tempfile.TemporaryDirectory() as workdir, one_rank_group(workdir):
-            phase_sharded_spectral_sparse(gt_torch, dev, workdir)
-        return 0
-    if sys.argv[1:2] == ["--phase24"]:
-        with tempfile.TemporaryDirectory() as workdir:
-            phase_batched(gt_torch, dev, workdir)
-        return 0
-    if sys.argv[1:2] == ["--phase25"]:
-        phase_batched_family(gt_torch, dev)
+            for name in sys.argv[3:]:
+                out[name] = run_phase(name, gt_torch, dev, workdir)
+        with open(sys.argv[2], "wb") as f:
+            pickle.dump(out, f)
         return 0
 
     # Phase 3: kernels against their plain versions.
@@ -7018,37 +7151,21 @@ def main() -> int:
 
     # Phase 12: the strong-scaling path (halo operator, K1 and K5, MGSR);
     # phase 13: K6 and the roofline program; phase 14: K8 and the RDMA route.
-    # Phase 15: BiCGSTAB, the Lanczos bounds and the reference's programs.
     with tempfile.TemporaryDirectory() as workdir:
         strong, (dd_records, roof), (rdma_records, k8) = phases_on_one_rank(
             gt_torch, rng, dev, workdir, floor)
-        programs = phase_programs(gt_torch, dev, workdir)
         # Phase 16: convection-diffusion (BASELINE config 3).
         cd_records, cd, _ = phase_convdiff(gt_torch, rng, dev, floor, workdir)
-        # Phase 17: the GMRES family.
-        family, _ = phase_family(gt_torch, dev, workdir)
-        # Phase 18: the short-recurrence family and the real models.
-        short, _ = phase_short(gt_torch, dev, workdir)
-        # Phase 19: Helmholtz and the solvers that need Aᵀ or J·v.
-        p19, _ = phase_transpose(gt_torch, rng, dev, workdir)
-        # Phase 20: the eigensolvers, matrix functions and time steppers.
-        p20, _ = phase_spectral(gt_torch, dev, workdir)
-        # Phase 21: the distributed solve, on a one-rank NCCL group again.
-        with one_rank_group(workdir, "rendezvous21"):
-            p21, p21_twins, _ = phase_distributed(gt_torch, dev, workdir)
-        # Phase 22: the models, cycles and preconditioners on a sharded b.
-        with one_rank_group(workdir, "rendezvous22"):
-            p22, p22_twins, _ = phase_models_sharded(gt_torch, dev, workdir)
-        # Phase 23: the eigensolvers, matrix functions, time steppers and the
-        # sparse formats on a sharded b; the spmv and scale programs.
-        with one_rank_group(workdir, "rendezvous23"):
-            p23, p23_twins, rank_blocks, _, _ = phase_sharded_spectral_sparse(
-                gt_torch, dev, workdir)
         # Phase 24: batched solves and the batched launches.
-        p24_records, p24, _ = phase_batched(gt_torch, dev, workdir)
-    # Phase 25: batched solves of the other solvers, SLQ's probes batched,
-    # the batched launches of K3 and K4.
-    p25_records, p25, _ = phase_batched_family(gt_torch, dev)
+        p24_records, p24 = run_phase("24", gt_torch, dev, workdir)
+        # Phase 25: batched solves of the other solvers, SLQ's probes
+        # batched, the batched launches of K3 and K4.
+        p25_records, p25 = run_phase("25", gt_torch, dev, workdir)
+    # Phases 15 and 17-23, which time no kernel, in worker processes at once.
+    done = run_workers(WORKER_GROUPS)
+    programs, family, short, p19, p20 = (done[k] for k in ("15", "17", "18", "19", "20"))
+    (p21, p21_twins), (p22, p22_twins) = done["21"], done["22"]
+    p23, p23_twins, rank_blocks = done["23"]
     print(f"chip_smoke: phases 1-25 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(p24_records)
@@ -7124,6 +7241,13 @@ def main() -> int:
               for path, counts in batched_by_phase.items()}
         return {"batched_launches": sum(by.values()),
                 "batched_launches_by_path": {k: v for k, v in by.items() if v}}
+
+    def lanes_rows(name):
+        """Each lane count's row of a batched K3 or K4 (phase 25 (a))."""
+        return [{k: r.get(k) for k in ("case", "lanes", "chunk", "chunks", "ms",
+                                       "singles_ms", "plain_ms", "bound_ms",
+                                       "library_ms", "max_abs_err")}
+                for r in records[name]]
 
     def k2_paths_fields(name):
         """Each K2 record's routed path, its time and the per-sweep path's."""
@@ -7316,19 +7440,25 @@ def main() -> int:
         report("K3 batched", "gmres_tpu_torch/csrc/dia_spmv.cu",
                "gmres_tpu/ops/sparse.py:644", ["gmres_tpu/ops/sparse.py:567"],
                p25["K3 batched"], f"K3 batched HYB {P25_K3_N}x{P25_K3_N} f64 {P25_LANES} lanes",
-               form="a (lanes, n) block in one launch, the lane on gridDim.y (jax.vmap's "
-                    "leading grid axis), one DIA matrix for every lane",
+               form="a (lanes, n) block in one launch, one DIA matrix for every lane, the "
+                    "lanes in chunks (gridDim.y): each matrix entry read once a chunk of "
+                    "L lanes (sparse.spmv_lanes_plan)",
                launches_by_path={p25_path: p25["K3 batched"]},
                singles_ms=records["K3 batched"][0]["singles_ms"],
+               lanes_rows=lanes_rows("K3 batched"),
+               single_retimed_ms=records["K3 single"][0]["ms"],
                library_note="torch.sparse_csr_tensor @ X, X = (n, lanes) (cuSPARSE SpMM)"),
         report("K4 batched", "gmres_tpu_torch/csrc/bsr_spmv.cu",
                "gmres_tpu/ops/sparse.py:544", ["gmres_tpu/ops/sparse.py:488"],
                p25["K4 batched"],
-               f"K4 batched {P25_K4[0]} block rows bs={P25_K4[1]} f32 {P25_K4[2]} lanes",
-               form="a (lanes, n) block in one launch, the lane on gridDim.z, one BSR matrix "
-                    "for every lane",
+               f"K4 batched {P25_K4[0]} block rows bs={P25_K4[1]} f32 {P25_K4_LANES[0][1]} lanes",
+               form="a (lanes, n) block in one launch, one BSR matrix for every lane, the "
+                    "lanes in chunks (the grid's fastest index): each matrix entry read "
+                    "once a chunk of L lanes (sparse.spmv_lanes_plan)",
                launches_by_path={p25_path: p25["K4 batched"]},
                singles_ms=records["K4 batched"][0]["singles_ms"],
+               lanes_rows=lanes_rows("K4 batched"),
+               single_retimed_ms=records["K4 single"][0]["ms"],
                library_note="torch.sparse_bsr_tensor @ X, X = (n, lanes)"),
         report("K5", "gmres_tpu_torch/csrc/cheb2_fused.cu",
                "gmres_tpu/ops/fused.py:129", [],

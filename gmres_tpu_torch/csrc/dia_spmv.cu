@@ -15,7 +15,8 @@
 // entries of x and writes one y, for 2·ndiags flops: under 0.3 flop/byte in
 // float32. The least traffic is n·(ndiags + 2)·itemsize bytes (data once,
 // x once, y once); for the 2048² Poisson matrix in float32 that is 117 MB,
-// 35 µs at 3.35 TB/s. Design: one thread per row, so the reads of each
+// 35 µs at 3.35 TB/s; on L lanes the data once and each lane's x and y,
+// 104 MB (31 µs) for 4 lanes of the HYB 1000² float64. Design: one thread per row, so the reads of each
 // diagonal and of each shifted window of x are coalesced; x's re-reads for
 // the other diagonals hit L1/L2. The offsets are arbitrary (up to 2n − 1 of
 // them from dia_from_dense, up to max_diags from csr_to_hyb) and travel by
@@ -31,17 +32,27 @@
 //
 // Lanes (jax.vmap of dia_spmv_pallas: a leading grid axis). One launch takes
 // a (lanes, n_cols) block of x with one matrix shared by the lanes and writes
-// the (lanes, n_rows) block of y, the lane on gridDim.y: each lane's threads
-// run the single launch's loop on that lane's x and y, so each lane gets the
-// bits of its own launch. The matrix is read once per lane (its re-reads for
-// the other lanes may hit L2); reading it once for all lanes is later work.
+// the (lanes, n_rows) block of y. The lanes run in chunks of up to L
+// (ops/sparse.py:spmv_lanes_plan picks L), the chunk on gridDim.y: each thread
+// keeps one accumulator a lane of its chunk, loads each coefficient
+// data[k, i] once and adds its product with each lane's x[i + off_k], so one
+// launch reads the matrix once a chunk, not once a lane. Each lane's sum runs
+// in offset order from zero (or from its y), as in its single launch, so each
+// lane gets the bits of its own launch; one vector is the chunk of one lane.
+// The plan takes the smallest compiled chunk that holds the lanes: on the
+// H100 a chunk of 8 measured faster at 8 lanes than one of 16, and one of
+// 16 faster at 9 lanes than two of 8 (PERF.md §6, row 12b).
 //
 // Rounding: every product and sum rounds separately in both versions (the
 // library is built with -fmad=false, so nvcc does not contract them into
 // FMAs), and the sum runs in the same order from zero, so K3 agrees with
 // dia_spmv bitwise on finite inputs.
 //
-// C interface (ctypes): returns cudaGetLastError() after the launch.
+// C interface (ctypes): the launch's chunk, grid, threads and shared bytes
+// come from ops/sparse.py:spmv_lanes_plan. Returns cudaGetLastError() after
+// the launch, cudaErrorInvalidValue for a chunk size not compiled here, and
+// cudaErrorInvalidConfiguration for a grid that does not cover the rows and
+// chunks.
 
 #include <cuda_runtime.h>
 
@@ -54,42 +65,71 @@ struct DiaOffsets {
   int off[kMaxDiags];
 };
 
-template <typename T>
-__global__ void dia_spmv_kernel(const T* __restrict__ data,
-                                const T* __restrict__ x, T* __restrict__ y,
-                                int n_rows, int n_cols, int ndiags,
-                                DiaOffsets offs, int accumulate) {
+// The chunk sizes compiled; ops/sparse.py:K3_CHUNKS names the same.
+#define K3_CHUNKS(X) X(1) X(2) X(4) X(8) X(16)
+
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                T* __restrict__ y, int n_rows, int n_cols, int ndiags,
+                DiaOffsets offs, int accumulate, int lanes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rows) return;
-  x += (long long)blockIdx.y * n_cols;
-  y += (long long)blockIdx.y * n_rows;
-  T acc = accumulate ? y[i] : T(0);
+  const int l0 = blockIdx.y * L;
+  const int nl = min(L, lanes - l0);
+  x += (long long)l0 * n_cols;
+  y += (long long)l0 * n_rows;
+  T acc[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    acc[l] = (accumulate && l < nl) ? y[(long long)l * n_rows + i] : T(0);
+  }
   for (int k = 0; k < ndiags; ++k) {
     const long long j = (long long)i + offs.off[k];
     if (j >= 0 && j < n_cols) {
-      acc = acc + data[(long long)k * n_rows + i] * x[j];
+      const T c = data[(long long)k * n_rows + i];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        if (l < nl) acc[l] = acc[l] + c * x[(long long)l * n_cols + j];
+      }
     }
   }
-  y[i] = acc;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    if (l < nl) y[(long long)l * n_rows + i] = acc[l];
+  }
 }
 
 template <typename T>
 int launch(const T* data, const T* x, T* y, int lanes, int n_rows, int n_cols,
-           const int* offsets, int ndiags, int accumulate, int device,
+           const int* offsets, int ndiags, int accumulate, int chunk, int grid_x,
+           int grid_y, int grid_z, int threads, int shared_bytes, int device,
            void* stream) {
-  if (ndiags < 1 || ndiags > kMaxDiags || lanes < 1 || lanes > 65535) {
+  if (ndiags < 1 || ndiags > kMaxDiags || lanes < 1 || lanes > 65535 || chunk < 1) {
     return (int)cudaErrorInvalidValue;
+  }
+  // The launch is the plan's (ops/sparse.py:spmv_lanes_plan); one that does
+  // not cover this kernel's rows and chunks exactly is refused.
+  if (grid_x != (n_rows + kThreads - 1) / kThreads ||
+      grid_y != (lanes + chunk - 1) / chunk || grid_z != 1 || threads != kThreads ||
+      shared_bytes != 0) {
+    return (int)cudaErrorInvalidConfiguration;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   DiaOffsets offs = {};
   for (int k = 0; k < ndiags; ++k) offs.off[k] = offsets[k];
-  const dim3 grid((n_rows + kThreads - 1) / kThreads, lanes);
-  if (grid.x > 0) {
-    dia_spmv_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        data, x, y, n_rows, n_cols, ndiags, offs, accumulate);
+  const dim3 grid(grid_x, grid_y, grid_z);
+  if (grid_x == 0) return (int)cudaGetLastError();
+#define K3_CASE(L_)                                                             \
+  if (chunk == L_) {                                                            \
+    dia_spmv_kernel<T, L_><<<grid, threads, shared_bytes, (cudaStream_t)stream>>>( \
+        data, x, y, n_rows, n_cols, ndiags, offs, accumulate, lanes);           \
+    return (int)cudaGetLastError();                                             \
   }
-  return (int)cudaGetLastError();
+  K3_CHUNKS(K3_CASE)
+#undef K3_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -98,16 +138,20 @@ extern "C" {
 
 int gt_dia_spmv_f32(const float* data, const float* x, float* y, int lanes,
                     int n_rows, int n_cols, const int* offsets, int ndiags,
-                    int accumulate, int device, void* stream) {
+                    int accumulate, int chunk, int grid_x, int grid_y, int grid_z,
+                    int threads, int shared_bytes, int device, void* stream) {
   return launch<float>(data, x, y, lanes, n_rows, n_cols, offsets, ndiags,
-                       accumulate, device, stream);
+                       accumulate, chunk, grid_x, grid_y, grid_z, threads,
+                       shared_bytes, device, stream);
 }
 
 int gt_dia_spmv_f64(const double* data, const double* x, double* y, int lanes,
                     int n_rows, int n_cols, const int* offsets, int ndiags,
-                    int accumulate, int device, void* stream) {
+                    int accumulate, int chunk, int grid_x, int grid_y, int grid_z,
+                    int threads, int shared_bytes, int device, void* stream) {
   return launch<double>(data, x, y, lanes, n_rows, n_cols, offsets, ndiags,
-                        accumulate, device, stream);
+                        accumulate, chunk, grid_x, grid_y, grid_z, threads,
+                        shared_bytes, device, stream);
 }
 
 }  // extern "C"

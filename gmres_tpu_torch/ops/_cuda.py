@@ -142,12 +142,14 @@ def load() -> ctypes.CDLL:
         lib.gt_stencil5_dd.restype = i32
         for suffix in ("f32", "f64"):
             # K3 and K4 take a lane count: x and y are contiguous (lanes, n)
-            # blocks (1 for one vector), one matrix for every lane.
+            # blocks (1 for one vector), one matrix for every lane; then the
+            # launch of sparse.spmv_lanes_plan: chunk, grid (x, y, z),
+            # threads, shared bytes.
             fn = getattr(lib, f"gt_dia_spmv_{suffix}")
-            fn.argtypes = [vp, vp, vp, i32, i32, i32, vp, i32, i32, i32, vp]
+            fn.argtypes = [vp, vp, vp, i32, i32, i32, vp] + [i32] * 9 + [vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_bsr_spmv_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+            fn.argtypes = [vp, vp, vp, vp] + [i32] * 12 + [vp]
             fn.restype = i32
             # α (pointer, kind, value), the vectors, partials, counter, sum,
             # n, vector width, blocks, device, stream.

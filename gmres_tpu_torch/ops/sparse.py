@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -556,6 +556,75 @@ def bsr_spmv(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
 # as one launch). Must match kMaxDiags in csrc/dia_spmv.cu.
 DIA_MAX_DIAGS_PER_LAUNCH = 64
 
+# K3 and K4 run a block's lanes in chunks: a CUDA block carries up to L lanes
+# and reads each matrix entry once for all of them. The chunk sizes L that
+# csrc/dia_spmv.cu and csrc/bsr_spmv.cu compile (K3_CHUNKS, K4_CHUNKS_F32 and
+# K4_CHUNKS_F64 there), each routed by spmv_lanes_plan; a launch with any
+# other raises. K4 stops float64 at chunks of 4: a chunk of 8 holds too few
+# warps an SM (its registers), and two chunks of 4 measured faster on the
+# H100 (PERF.md §6, row 11b).
+K3_CHUNKS = (1, 2, 4, 8, 16)
+K4_CHUNKS = {torch.float32: (1, 2, 4, 8), torch.float64: (1, 2, 4)}
+K4_ROWS_PER_WARP = 4  # kRowsPerWarp in csrc/bsr_spmv.cu: a CUDA block 32 rows
+SPMV_THREADS = 256    # both kernels' CUDA block (K4: 8 warps)
+K4_MAX_BLOCK = 46340  # the largest bs with bs² < 2³¹ (one block's entries)
+_MAX_GRID_X = 2**31 - 1
+
+
+class SpmvLanesPlan(NamedTuple):
+    """K3's or K4's launch on a block of lanes: ``chunk`` lanes a CUDA block
+    (L; the last chunk holds the rest), ``chunks`` of them, and the
+    launch's ``grid``, ``threads`` and dynamic ``shared_bytes``, which the
+    wrappers pass to the kernel's C entry as they are."""
+
+    chunk: int
+    chunks: int
+    grid: tuple
+    threads: int
+    shared_bytes: int
+
+
+def spmv_lanes_plan(kernel: str, lanes: int, dtype: torch.dtype, rows: int,
+                    bs: int | None = None) -> SpmvLanesPlan:
+    """How ``kernel`` ("K3" or "K4") launches on ``lanes`` lanes of ``dtype``
+    (1: one vector): ``rows`` is K3's matrix rows or K4's block rows, ``bs``
+    K4's block size. Plain Python, no card.
+
+    The chunk is the smallest compiled one that holds the lanes, else the
+    largest (K3: 16; K4: 8 in float32, 4 in float64); a launch takes
+    ``ceil(lanes / L)`` consecutive chunks, in order. K3's grid is (row
+    blocks, chunks); K4's is one dimension, (block row, tile of 32 rows,
+    chunk) with the chunk fastest, so the chunks of one tile run side by
+    side. Neither kernel stages anything in shared memory (K4 keeps its
+    chunk's x entries in registers), so no block size is refused for want
+    of it. The C entries refuse a grid that does not cover their work.
+    Raises TypeError for a dtype other than float32 or float64 and
+    ValueError for what the kernel cannot take."""
+    _cuda.suffix(dtype)
+    if not 1 <= lanes <= _cuda.MAX_LANES:
+        raise ValueError(f"spmv_lanes_plan: {lanes} lanes (1 to {_cuda.MAX_LANES})")
+    if rows < 0:
+        raise ValueError(f"spmv_lanes_plan: {rows} rows")
+    if kernel not in ("K3", "K4"):
+        raise ValueError(f"spmv_lanes_plan: kernel {kernel!r} (K3 or K4)")
+    if kernel == "K3" and bs is not None:
+        raise ValueError("spmv_lanes_plan: K3 takes no block size")
+    if kernel == "K4" and (bs is None or not 1 <= bs <= K4_MAX_BLOCK):
+        raise ValueError(f"spmv_lanes_plan: K4 takes blocks of 1 to {K4_MAX_BLOCK} "
+                         f"rows, not {bs}")
+    compiled = K3_CHUNKS if kernel == "K3" else K4_CHUNKS[dtype]
+    chunk = next((c for c in compiled if c >= lanes), compiled[-1])
+    chunks = -(-lanes // chunk)
+    if kernel == "K3":
+        grid = (-(-rows // SPMV_THREADS), chunks, 1)
+    else:
+        grid = (rows * -(-bs // (SPMV_THREADS // 32 * K4_ROWS_PER_WARP)) * chunks, 1, 1)
+    if grid[0] > _MAX_GRID_X:
+        raise ValueError(f"spmv_lanes_plan: {kernel} on {rows} rows and {lanes} "
+                         f"lanes needs {grid[0]} CUDA blocks, more than one launch "
+                         "takes")
+    return SpmvLanesPlan(chunk, chunks, grid, SPMV_THREADS, 0)
+
 
 def _check_same_device(what: str, x: torch.Tensor, *tensors) -> None:
     for t in tensors:
@@ -599,7 +668,8 @@ def dia_spmv_cuda(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     entries (any shape, read flat); or, on a (lanes, shape[1]) block, one
     launch for all lanes (what jax.vmap makes of the Pallas kernel: a
     leading grid axis), y (lanes, shape[0]), each lane the bits of its own
-    launch. ``dia_spmv_cuda.launches`` counts launches,
+    launch: each matrix entry is read once a chunk of lanes, launched by
+    ``spmv_lanes_plan``. ``dia_spmv_cuda.launches`` counts launches,
     ``.batched_launches`` those on a block."""
     _cuda.refuse_dtensor("dia_spmv_cuda", "K3", x)
     n_rows, n_cols = a.shape
@@ -613,6 +683,7 @@ def dia_spmv_cuda(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
     if a.data.numel() >= 2**31 or n_cols >= 2**31:
         raise ValueError("dia_spmv_cuda: matrix too large for one launch")
     lanes = _lanes("dia_spmv_cuda", xf)
+    plan = spmv_lanes_plan("K3", lanes, xf.dtype, n_rows)
     y = torch.empty(xf.shape[:-1] + (n_rows,), dtype=xf.dtype, device=xf.device)
     fn = _cuda.entry("gt_dia_spmv", xf.dtype)
     row_bytes = n_rows * a.data.element_size()
@@ -621,6 +692,7 @@ def dia_spmv_cuda(a: DIAMatrix, x: torch.Tensor) -> torch.Tensor:
         rc = fn(a.data.data_ptr() + c0 * row_bytes, xf.data_ptr(),
                 y.data_ptr(), lanes, n_rows, n_cols,
                 (ctypes.c_int * len(offs))(*offs), len(offs), int(c0 > 0),
+                plan.chunk, *plan.grid, plan.threads, plan.shared_bytes,
                 xf.device.index, _cuda.stream_of(xf))
         _cuda.check(rc, "dia_spmv_cuda")
         dia_spmv_cuda.launches += 1
@@ -635,7 +707,8 @@ dia_spmv_cuda.batched_launches = 0
 def bsr_spmv_cuda(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
     """Launch K4 on a CUDA operand: y (nbr·bs,) = A·x for x of nbc·bs
     entries; or, on a (lanes, nbc·bs) block, one launch for all lanes, y
-    (lanes, nbr·bs), each lane the bits of its own launch.
+    (lanes, nbr·bs), each lane the bits of its own launch: each matrix entry
+    is read once a chunk of lanes, launched by ``spmv_lanes_plan``.
     ``bsr_spmv_cuda.launches`` counts launches, ``.batched_launches`` those
     on a block."""
     _cuda.refuse_dtensor("bsr_spmv_cuda", "K4", x)
@@ -649,14 +722,15 @@ def bsr_spmv_cuda(a: BSRMatrix, x: torch.Tensor) -> torch.Tensor:
             f"bsr_spmv_cuda: data {tuple(a.data.shape)}, block_cols "
             f"{tuple(a.block_cols.shape)} and x of {xf.numel()} entries do "
             f"not fit shape {a.shape}")
-    if (a.data.numel() >= 2**31 or bs * xf.element_size() > 48 * 1024
-            or xf.numel() >= 2**31):
+    if a.data.numel() >= 2**31 or xf.numel() >= 2**31:
         raise ValueError("bsr_spmv_cuda: matrix too large for one launch")
     lanes = _lanes("bsr_spmv_cuda", xf)
+    plan = spmv_lanes_plan("K4", lanes, xf.dtype, nbr, bs)
     y = torch.empty(xf.shape[:-1] + (nbr * bs,), dtype=xf.dtype, device=xf.device)
     fn = _cuda.entry("gt_bsr_spmv", xf.dtype)
     rc = fn(a.data.data_ptr(), a.block_cols.data_ptr(), xf.data_ptr(),
-            y.data_ptr(), lanes, nbr, a.shape[1] // bs, k, bs, xf.device.index,
+            y.data_ptr(), lanes, nbr, a.shape[1] // bs, k, bs, plan.chunk,
+            *plan.grid, plan.threads, plan.shared_bytes, xf.device.index,
             _cuda.stream_of(xf))
     _cuda.check(rc, "bsr_spmv_cuda")
     bsr_spmv_cuda.launches += 1

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import gmres_tpu as gt
+from gmres_tpu.ops import sparse as jsp
 import gmres_tpu_torch as tt
 from gmres_tpu_torch.ops import sparse as tsp
 from gmres_tpu_torch.ops.blas import tree_vdot
@@ -208,30 +209,48 @@ def test_trace_funm_batches_its_probes():
     assert torch.equal(res.samples, torch.stack(loop))
 
 
-def _bsr_poisson(n, bs):
-    dense = np.stack([np_poisson(e.reshape(n, n)).reshape(-1) for e in np.eye(n * n)], axis=1)
-    return tsp.bsr_from_dense(dense, bs, device="cpu")
+def _poisson_dense(n):
+    return np.stack([np_poisson(e.reshape(n, n)).reshape(-1) for e in np.eye(n * n)], axis=1)
 
 
+@pytest.mark.parametrize("lanes", [4, 9, 17])
 @pytest.mark.parametrize("fmt", ["dia", "hyb", "bsr"])
-def test_sparse_operators_under_vmap_bitwise(fmt):
+def test_sparse_operators_under_vmap_bitwise(fmt, lanes):
     """torch.func.vmap of the DIA, HYB and BSR operators: one call of the
     routed entry on the lanes' block (K3's or K4's batched launch on the
-    card), each lane bitwise its own application."""
+    card), each lane bitwise its own application, at lane counts on either
+    side of a chunk (9: past K3's 8 and K4's 8; 17: past K3's 16); and each
+    lane within 1e-14 of max|y| of gmres_tpu's jax.vmap of the same
+    operator through its Pallas kernel in interpret mode (BSR's kernel is
+    float32: within 1e-6)."""
     n = 12
+    dense = _poisson_dense(n)
     mats = {"dia": lambda: tt.poisson_dia(n, device="cpu"),
             "hyb": lambda: tt.csr_to_hyb(tt.poisson_csr(n, device="cpu")),
-            "bsr": lambda: _bsr_poisson(n, 4)}
+            "bsr": lambda: tsp.bsr_from_dense(dense, 4, device="cpu")}
     op = tt.sparse_operator(mats[fmt]())
-    rows = to_torch(seeded(96, (4, n * n)))
+    rows = to_torch(seeded(96, (lanes, n * n)))
     entry = tsp.bsr_spmv_pallas if fmt == "bsr" else tsp.dia_spmv_pallas
     before = entry.block_calls
     out = torch.func.vmap(op)(rows)
     assert entry.block_calls == before + 1
     for k in range(rows.shape[0]):
         assert torch.equal(out[k], op(rows[k]))
-    grids = rows.reshape(4, n, n)
+    grids = rows.reshape(lanes, n, n)
     assert torch.equal(torch.func.vmap(op)(grids), out)
+    if fmt == "dia":
+        mj = jsp.poisson_dia(n)
+        jfn = jax.vmap(lambda v: jsp.dia_spmv_pallas(mj, v, interpret=True))
+    elif fmt == "hyb":
+        mj = jsp.csr_to_hyb(jsp.poisson_csr(n))
+        jfn = jax.vmap(lambda v: jsp.hyb_spmv(mj, v, use_pallas=True, interpret=True))
+    else:
+        mj = jsp.bsr_from_dense(dense.astype(np.float32), 4)
+        jfn = jax.vmap(lambda v: jsp.bsr_spmv_pallas(mj, v, interpret=True))
+    jdt, tol = (jnp.float32, 1e-6) if fmt == "bsr" else (jnp.float64, 1e-14)
+    yj = np.asarray(jfn(jnp.asarray(rows.numpy(), dtype=jdt)))
+    for k in range(lanes):
+        assert rel_err(out[k], yj[k]) < tol, k
 
 
 def test_batched_cg_on_a_sparse_operator():

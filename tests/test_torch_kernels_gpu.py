@@ -2023,12 +2023,17 @@ def test_k3_k4_under_vmap_launch_once_per_lane(cuda_device):
             assert torch.equal(out[k], op(rows[k]))
 
 
-@pytest.mark.parametrize("lanes", [1, 4])
+LANE_COUNTS = [1, 2, 4, 7, 8, 9, 16, 17]
+
+
+@pytest.mark.parametrize("lanes", LANE_COUNTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_batched_k3_equals_single_launches(cuda_device, dtype, lanes):
     """K3 on a (lanes, n) block, one launch a 64-diagonal chunk for all
-    lanes (the Poisson DIA, and a 70-diagonal DIA that takes two chunks):
-    each lane bitwise its single launch and the plain version."""
+    lanes (the Poisson DIA, and a 70-diagonal DIA that takes two chunks, the
+    second accumulating), the lanes in chunks of up to 16 (9: one partial
+    chunk; 17: a full one and a partial one): each lane bitwise its single
+    launch and the plain version."""
     n = 300
     wide = np.zeros((n, n))
     for off in range(-35, 35):
@@ -2050,13 +2055,17 @@ def test_batched_k3_equals_single_launches(cuda_device, dtype, lanes):
             assert torch.equal(y[k], tsp.dia_spmv(a, xb[k]))
 
 
-@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("nbr,bs", [(16, 128), (7, 48), (33, 4), (5, 200), (6, 37)])
+@pytest.mark.parametrize("lanes", LANE_COUNTS)
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-13)])
-def test_batched_k4_equals_single_launches(cuda_device, dtype, rtol, lanes):
-    """K4 on a (lanes, n) block, one launch for all lanes: each lane bitwise
-    its single launch, and the einsum within rtol."""
-    bs = 128
-    a = _block_tridiagonal(cuda_device, dtype, 16, bs)
+def test_batched_k4_equals_single_launches(cuda_device, dtype, rtol, lanes, nbr, bs):
+    """K4 on a (lanes, n) block, one launch for all lanes, in chunks of up to
+    8 in float32 and 4 in float64 (partial last chunks among them), at block
+    sizes that fill the row tiles (128), leave the last tile partial (48,
+    4), take two column steps, the second partial (200), and leave lanes of
+    a warp without a column (37): each lane bitwise its single launch, and
+    the einsum within rtol."""
+    a = _block_tridiagonal(cuda_device, dtype, nbr, bs)
     xb = to_torch(seeded(95, (lanes, a.shape[1])), cuda_device).to(dtype)
     before = tsp.bsr_spmv_cuda.launches
     y = tsp.bsr_spmv_cuda(a, xb)
@@ -2066,6 +2075,76 @@ def test_batched_k4_equals_single_launches(cuda_device, dtype, rtol, lanes):
     for k in range(lanes):
         assert torch.equal(y[k], tsp.bsr_spmv_cuda(a, xb[k]))
         assert rel_err(y[k], tsp.bsr_spmv(a, xb[k])) < rtol
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_k3_k4_launch_by_the_plan_and_refuse_another_grid(cuda_device, kernel):
+    """The wrappers launch by spmv_lanes_plan: its grid, threads and shared
+    bytes go to the C entry as they are, and a grid one CUDA block short of
+    the kernel's work, or other threads, is refused
+    (cudaErrorInvalidConfiguration) before any launch."""
+    import ctypes
+
+    from gmres_tpu_torch.ops import _cuda
+
+    lanes, dtype = 9, torch.float32
+    if kernel == "K3":
+        a = tt.poisson_dia(40, dtype=dtype, device=cuda_device)
+        plan = tsp.spmv_lanes_plan("K3", lanes, dtype, a.shape[0])
+        fn = _cuda.entry("gt_dia_spmv", dtype)
+        offs = (ctypes.c_int * len(a.offsets))(*a.offsets)
+    else:
+        a = _block_tridiagonal(cuda_device, dtype, 6, 48)
+        plan = tsp.spmv_lanes_plan("K4", lanes, dtype, 6, 48)
+        fn = _cuda.entry("gt_bsr_spmv", dtype)
+    xb = to_torch(seeded(98, (lanes, a.shape[1])), cuda_device).to(dtype)
+    y = torch.zeros((lanes, a.shape[0]), dtype=dtype, device=cuda_device)
+
+    def call(grid, threads):
+        if kernel == "K3":
+            return fn(a.data.data_ptr(), xb.data_ptr(), y.data_ptr(), lanes, a.shape[0],
+                      a.shape[1], offs, len(a.offsets), 0, plan.chunk, *grid, threads,
+                      plan.shared_bytes, xb.device.index, _cuda.stream_of(xb))
+        nbr, k, bs, _ = a.data.shape
+        return fn(a.data.data_ptr(), a.block_cols.data_ptr(), xb.data_ptr(), y.data_ptr(),
+                  lanes, nbr, a.shape[1] // bs, k, bs, plan.chunk, *grid, threads,
+                  plan.shared_bytes, xb.device.index, _cuda.stream_of(xb))
+
+    short = (plan.grid[0] - 1,) + tuple(plan.grid[1:])
+    assert call(short, plan.threads) == 9   # cudaErrorInvalidConfiguration
+    assert call(plan.grid, plan.threads // 2) == 9
+    assert not torch.any(y)
+    assert call(plan.grid, plan.threads) == 0
+    torch.cuda.synchronize()
+    spmv = tsp.dia_spmv_cuda if kernel == "K3" else tsp.bsr_spmv_cuda
+    assert torch.equal(y, spmv(a, xb))
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_batched_k3_k4_keep_a_poisoned_lane_to_itself(cuda_device, kernel):
+    """A NaN and an Inf in one lane of a 9-lane float64 block (three chunks
+    of K4, one of K3) reach no other lane's y: every other lane stays
+    finite and bitwise its single launch; the poisoned lane is its single
+    launch's, NaNs included."""
+    if kernel == "K3":
+        a = tt.poisson_dia(64, dtype=torch.float64, device=cuda_device)
+        spmv = tsp.dia_spmv_cuda
+    else:
+        a = _block_tridiagonal(cuda_device, torch.float64, 8, 128)
+        spmv = tsp.bsr_spmv_cuda
+    xb = to_torch(seeded(96, (9, a.shape[1])), cuda_device)
+    xb[3, 5] = float("nan")
+    xb[3, 700] = float("inf")
+    y = spmv(a, xb)
+    torch.cuda.synchronize()
+    for k in range(9):
+        single = spmv(a, xb[k])
+        if k == 3:
+            assert not torch.isfinite(y[k]).all()
+            torch.testing.assert_close(y[k], single, rtol=0, atol=0, equal_nan=True)
+        else:
+            assert torch.isfinite(y[k]).all()
+            assert torch.equal(y[k], single)
 
 
 def test_kernels_without_vmap_rules_refuse_vmap(cuda_device):
