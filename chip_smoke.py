@@ -4323,11 +4323,12 @@ def bratu_rows(gt_torch, dev, workdir):
 
 def tapped_transposes():
     """Within the block, every transpose the solvers derive
-    (solvers/qmr.py:derived_transpose) counts its calls: [setups, pullbacks]."""
-    from gmres_tpu_torch.solvers import lsmr, lsqr, qmr
+    (solvers/requests.py:derived_transpose, which qmr, lsqr and lsmr reach
+    through requests.transposed) counts its calls: [setups, pullbacks]."""
+    from gmres_tpu_torch.solvers import requests
 
     calls = [0, 0]
-    inner = qmr.derived_transpose
+    inner = requests.derived_transpose
 
     def tapped(op, like):
         calls[0] += 1
@@ -4340,14 +4341,11 @@ def tapped_transposes():
 
     @contextlib.contextmanager
     def block():
-        mods = (qmr, lsqr, lsmr)
-        for m in mods:
-            m.derived_transpose = tapped
+        requests.derived_transpose = tapped
         try:
             yield calls
         finally:
-            for m in mods:
-                m.derived_transpose = inner
+            requests.derived_transpose = inner
     return block()
 
 
@@ -6944,6 +6942,462 @@ def phase_batched_family(gt_torch, dev):
     return records, launches, rows
 
 
+P26_LANES = 4
+P26_GAMMAS = (0.2, 0.3, 0.4, 0.5)            # γx of the convdiff lanes (γy 0.2)
+P26_QMR_N = QMR_N                            # (a): phase 19's QMR + cycle + MT row
+P26_LSQ_N, P26_LSQ_CAP = P21_LSQR_N, P21_LSQR_CAP  # (b): phase 21 row (f)'s size and cap
+P26_DR_N = 300                               # (c): GMRES-DR(30, 10) + cbpr2, tol 1e-10
+P26_GCRODR_N = 1024                          # (d): GCRO-DR(40, 10) + the cycle
+P26_BRATU_N, P26_LAMS = P25_BRATU_N, P25_LAMS  # (e): Newton, gcrodr inner
+P26_BLOCK_N, P26_BLOCK_S = MULTIRHS_N, 4     # (f): block CG and block GMRES(30)
+P26_IMPLICIT_N = 1024                        # (g): vmap(grad(loss)) through implicit_solve
+P26_IMPLICIT_GAMMAS = (0.1, 0.3, 0.5, 0.7)
+P26_K1_T = ((2048, "float32"), (2048, "float64"))  # (h): 8 lanes, transposed
+P26_K1_T_LANES = 8
+P26_KERNELS = ("K1", "K1rr", "K1cr", "K2")
+
+
+def p26_counts(count) -> dict:
+    """rule_counters' counts with K1's split by role."""
+    out = {k: count[k] for k in P26_KERNELS}
+    out["K1 transpose"] = count["K1 transpose"]
+    out["K1 tangent"] = count["K1 tangent"]
+    out["K1 forward"] = count["K1"] - count["K1 transpose"] - count["K1 tangent"]
+    return out
+
+
+def p26_timed(fn):
+    """fn() once untimed, then once with the counts set to 0 just before it
+    and read just after; (result, wall s, counts by role, launches on a
+    block by kernel)."""
+    import torch
+
+    fn()
+    rule_counters(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    count = rule_counters()
+    return (out, wall, p26_counts(count),
+            {f"{k} batched": count[f"{k} batched"] for k in P26_KERNELS})
+
+
+def p26_compare_launches(label, batched, seqs):
+    """Each kernel's (and K1 role's) launches in the batched run between the
+    longest lane's sequential count and all lanes' together (the lanes that
+    wait on one operator share a launch; a lane that stops earlier drops
+    out, and a transposed set of lanes that changes takes one more forward
+    for its pullback's primal). Returns (longest, every)."""
+    keys = list(batched)
+    longest = {k: max(s[k] for s in seqs) for k in keys}
+    every = {k: sum(s[k] for s in seqs) for k in keys}
+    require(all(longest[k] <= batched[k] <= every[k] for k in keys if every[k] > 0),
+            f"phase 26 {label}: launches {batched} against the longest lane's {longest} "
+            f"and all lanes' {every}")
+    require(all(batched[k] == 0 for k in keys if every[k] == 0),
+            f"phase 26 {label}: launches {batched} where the lanes made none {every}")
+    return longest, every
+
+
+def p26_row(gt_torch, label, solver, A, bs, kw, residual, bound, *, lane_args=(),
+            lane_op=None, fields=("iterations", "status"), statuses=(0,)):
+    """One phase 26 row: the batched solve after an untimed one, then each
+    lane's sequential solve (after an untimed one of lane 0), every run with
+    the counts set to 0 just before it and read just after. Required: each
+    lane's `fields` and x those of its sequential solve to the bit; the
+    batch's host reads the longest lane's; the launches by kernel and by K1
+    role between the longest lane's and all lanes' (p26_compare_launches);
+    each lane's numpy float64 residual `residual(k, x)` finite and ≤ bound."""
+    import numpy as np
+
+    lanes = bs.shape[0]
+    lane_op = lane_op or (lambda k: A)
+    res, wall, count, on_blocks = p26_timed(
+        lambda: gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw))
+    solver(lane_op(0), bs[0], **kw)
+    seqs, seq_counts, seq_walls = [], [], []
+    for k in range(lanes):
+        import torch
+
+        rule_counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = solver(lane_op(k), bs[k], **kw)
+        torch.cuda.synchronize()
+        seq_walls.append(time.perf_counter() - t0)
+        seq_counts.append(p26_counts(rule_counters()))
+        seqs.append(one)
+    diffs, errs = [], []
+    for k, one in enumerate(seqs):
+        for name in fields:
+            got, want = int(getattr(res, name)[k]), int(getattr(one, name))
+            require(got == want, f"phase 26 {label} lane {k}: {name} {got}, sequential {want}")
+        diffs.append(float((res.x[k] - one.x).abs().max()))
+        errs.append(residual(k, res.x[k].detach().cpu().numpy().astype(np.float64)))
+    longest, every = p26_compare_launches(label, count, seq_counts)
+    syncs = max(one.host_syncs for one in seqs)
+    lane_counts = {name: [int(v) for v in getattr(res, name).tolist()] for name in fields}
+    print(f"phase 26: {label}, {lanes} lanes: {lane_counts}; host reads {res.host_syncs} "
+          f"(the longest lane's {syncs}); launches {count} (the longest lane's sequential "
+          f"{longest}, all lanes' {every}); batched wall {wall:.4f} s, the lanes in turn "
+          f"{sum(seq_walls):.4f} s ({sum(seq_walls) / wall:.2f}x); max |x − sequential x| "
+          f"{max(diffs):.3e}; numpy residuals {[f'{e:.3e}' for e in errs]} (bound {bound:g})",
+          flush=True)
+    require(all(int(v) in statuses for v in res.status.tolist()),
+            f"phase 26 {label}: status {res.status}")
+    require(max(diffs) == 0.0, f"phase 26 {label}: x differs from the sequential x by "
+            f"{max(diffs):.3e}")
+    require(res.host_syncs == syncs,
+            f"phase 26 {label}: {res.host_syncs} host reads, the longest lane's {syncs}")
+    require(all(np.isfinite(e) and e <= bound for e in errs),
+            f"phase 26 {label}: numpy residuals {errs} against {bound:g}")
+    return {"label": label, "lanes": lanes, "counts": lane_counts,
+            "host_syncs": res.host_syncs, "longest_lane_host_syncs": syncs,
+            "launches": count, "block_launches": on_blocks,
+            "longest_lane_launches": longest, "all_lanes_launches": every,
+            "wall_s": wall, "sequential_walls_s": seq_walls, "max_x_diff": max(diffs),
+            "numpy_residuals": errs}
+
+
+def p26_convdiff(gt_torch, n, dev, gammas=P26_GAMMAS):
+    """The convdiff family A(v, γx) (γy 0.2), each lane's b = A(γx)·1 and its
+    coefficients; numpy and the card's."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import (
+        convection_diffusion_apply,
+        convection_diffusion_coefs,
+    )
+
+    g = torch.tensor(gammas, dtype=torch.float64, device=dev)
+
+    def cd(v, gx):
+        return convection_diffusion_apply(v, gx, 0.2)
+
+    coefs = [convection_diffusion_coefs(gx, 0.2) for gx in gammas]
+    b_np = np.stack([np_stencil_general(np.ones((n, n)), c) for c in coefs])
+    return cd, g, coefs, b_np, torch.as_tensor(b_np, device=dev)
+
+
+def p26_transpose_rows(gt_torch, dev):
+    """(a) QMR with the convdiff cycle and MT= over γ lanes; (b) LSQR and
+    LSMR over γ lanes to phase 21's cap: the lanes' transposes of the family
+    one pullback, one K1 launch with each lane's mirrored coefficients."""
+    import numpy as np
+
+    rows = []
+    n = P26_QMR_N
+    cd, g, coefs, b_np, bs = p26_convdiff(gt_torch, n, dev)
+    m_inv = gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2)
+    mt = gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2, transpose=True)
+    rows.append(p26_row(
+        gt_torch, f"(a) qmr mg+MT convdiff {n}x{n} over γ {list(P26_GAMMAS)}", gt_torch.qmr,
+        cd, bs, dict(tol=1e-9, M=m_inv, MT=mt),
+        lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil_general(x, coefs[k]))
+                           / np.linalg.norm(b_np[k])), 1e-6,
+        lane_args=(g,), lane_op=lambda k: (lambda v: cd(v, g[k]))))
+    require(rows[-1]["launches"]["K1 transpose"] > 0, f"(a): {rows[-1]['launches']}")
+    n = P26_LSQ_N
+    cd, g, coefs, b_np, bs = p26_convdiff(gt_torch, n, dev)
+    for name in ("lsqr", "lsmr"):
+        rows.append(p26_row(
+            gt_torch, f"(b) {name} convdiff {n}x{n} over γ {list(P26_GAMMAS)}, cap "
+                      f"{P26_LSQ_CAP}", getattr(gt_torch, name), cd, bs,
+            dict(tol=TOL, max_iterations=P26_LSQ_CAP),
+            lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil_general(x, coefs[k]))
+                               / np.linalg.norm(b_np[k])), 1.0,
+            lane_args=(g,), lane_op=lambda k: (lambda v: cd(v, g[k])), statuses=(0, 1)))
+    return rows
+
+
+def p26_deflated_rows(gt_torch, dev):
+    """(c) GMRES-DR(30, 10) with cbpr2 over seeded right-hand sides; (d)
+    GCRO-DR(40, 10) with the cycle over γ lanes; (e) Newton–Krylov with the
+    gcrodr inner over the Bratu λ-sweep: each cycle's small state read for
+    all waiting lanes at once, each lane's eigensolve on its own host copy,
+    each lane's recycle block its own."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.poisson import poisson_apply
+
+    rows = []
+    n = P26_DR_N
+    op = gt_torch.poisson_operator(n)
+    b_np, bs = p25_unit_rhs(n, P26_LANES, SEED + 261, dev)
+    rows.append(p26_row(
+        gt_torch, f"(c) gmres_dr(30, 10) cbpr2 {n}x{n}", gt_torch.gmres_dr, op, bs,
+        dict(restart=30, deflate=10, tol=1e-10, M=gt_torch.chebyshev_preconditioner(op,
+                                                                                    *REF_EIG)),
+        lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))), 1e-9,
+        fields=("restarts", "iterations", "status")))
+    n = P26_GCRODR_N
+    cd, g, coefs, b_np, bs = p26_convdiff(gt_torch, n, dev)
+    rows.append(p26_row(
+        gt_torch, f"(d) gcrodr(40, 10) mg convdiff {n}x{n} over γ {list(P26_GAMMAS)}",
+        gt_torch.gcrodr, cd, bs,
+        dict(k=10, restart=40, tol=1e-9,
+             M=gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2)),
+        lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil_general(x, coefs[k]))
+                           / np.linalg.norm(b_np[k])), 1e-6,
+        lane_args=(g,), lane_op=lambda k: (lambda v: cd(v, g[k])),
+        fields=("restarts", "iterations", "status")))
+    n = P26_BRATU_N
+    h2 = (1.0 / (n + 1)) ** 2
+    lams = torch.tensor(P26_LAMS, dtype=torch.float64, device=dev)
+
+    def bratu(u, lam):
+        return poisson_apply(u) - (lam * h2) * torch.exp(u)
+
+    # Without the Armijo line search: with it, the gcrodr inner with the
+    # left V-cycle stops every lane at its second Newton step with status 2
+    # (BREAKDOWN) at this size, in gmres_tpu as in the port (the recycled
+    # space's projection alone meets the forcing term, and its step fails
+    # the Armijo test; tests/test_torch_batched_deflated.py pins it at 64²).
+    row = p26_row(
+        gt_torch, f"(e) newton_krylov gcrodr inner, mg, no line search, bratu {n}x{n} over "
+                  f"λ {list(P26_LAMS)}", gt_torch.newton_krylov, bratu,
+        torch.zeros((len(P26_LAMS), n, n), dtype=torch.float64, device=dev),
+        dict(tol=BRATU_TOL, inner="gcrodr", recycle_k=10, restart=30, max_newton=30,
+             line_search=False, M=gt_torch.poisson_multigrid_preconditioner(n)),
+        lambda k, x: float(np.linalg.norm(np_bratu(x, P26_LAMS[k]))), BRATU_TOL,
+        lane_args=(lams,), lane_op=lambda k: (lambda u: bratu(u, lams[k])),
+        fields=("iterations", "status", "inner_iterations", "jv_products"))
+    require(row["launches"]["K1 tangent"] > 0, f"(e): no tangent launch {row['launches']}")
+    rows.append(row)
+    return rows
+
+
+def p26_block_rows(gt_torch, dev):
+    """(f) block CG and block GMRES(30) with the V-cycle, each lane a block of
+    s right-hand sides: a block application of every lane one nested vmap,
+    one launch a kernel on lanes·s grids."""
+    import numpy as np
+    import torch
+
+    rows = []
+    n, s = P26_BLOCK_N, P26_BLOCK_S
+    xs = np.random.default_rng(SEED + 266).standard_normal((P26_LANES, s, n, n))
+    b_np = np.stack([np.stack([np_stencil(x) for x in lane]) for lane in xs])
+    b_np /= np.linalg.norm(b_np.reshape(P26_LANES, s, -1), axis=2)[:, :, None, None]
+    bs = torch.as_tensor(b_np, device=dev)
+    op, m_inv = gt_torch.poisson_operator(n), gt_torch.poisson_multigrid_preconditioner(n)
+
+    def per_rhs(k, x):
+        return max(float(np.linalg.norm(b_np[k, j] - np_stencil(x[j]))) for j in range(s))
+
+    for label, solver, kw, count_field, bound in (
+            (f"(f) block_cg s={s} mg {n}x{n}", gt_torch.block_cg, dict(tol=1e-8, M=m_inv),
+             "iterations", 1.01e-8),
+            (f"(f) block_gmres(30) s={s} mg {n}x{n}", gt_torch.block_gmres,
+             dict(restart=30, tol=1e-8, M=m_inv), "restarts", 1.01e-8)):
+        row = p26_row(gt_torch, label, solver, op, bs, kw, per_rhs, bound,
+                      fields=(count_field, "status"))
+        # One launch a kernel for all lanes' rows (one a lane would be about
+        # P26_LANES times the longest lane's count, one a row s times more).
+        require(all(row["launches"][k] < 2 * row["longest_lane_launches"][k]
+                    for k in P26_KERNELS if row["longest_lane_launches"][k] > 0),
+                f"{label}: {row['launches']} against the longest lane's "
+                f"{row['longest_lane_launches']}")
+        rows.append(row)
+    return rows
+
+
+def p26_implicit_row(gt_torch, dev):
+    """(g) torch.func.vmap(torch.func.grad(loss)) through implicit_solve on
+    convdiff P26_IMPLICIT_N², loss Σx², GMRES(30) to 1e-10 with the cycle at
+    γ 0.4 (forward) and its transpose (adjoint) as M, over γ
+    P26_IMPLICIT_GAMMAS: the lanes' forward and adjoint solves each one
+    batched solve (the path counted by implicit_solve.lane_paths), against
+    torch.func.grad at each γ (rtol 1e-8: the batched θ pullback sums each
+    lane's coefficient cotangent over its grid in a (lanes, 5) reduction,
+    the single one over one grid) and central differences."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.models.convection_diffusion import convection_diffusion_apply
+
+    n = P26_IMPLICIT_N
+    b = torch.ones((n, n), dtype=torch.float64, device=dev)
+    m_f = gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2)
+    m_t = gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2, transpose=True)
+    syncs = {"forward": [], "adjoint": []}
+
+    def solver(m, op, rhs):
+        res = gt_torch.gmres(op, rhs, restart=30, tol=1e-10, max_restarts=200,
+                             compute_v_err=False, M=m)
+        syncs["forward" if m is m_f else "adjoint"].append(res.host_syncs)
+        return res
+
+    fwd, adj = functools.partial(solver, m_f), functools.partial(solver, m_t)
+
+    def loss(gm):
+        x = gt_torch.implicit_solve(lambda gx: (lambda v: convection_diffusion_apply(
+            v, gx, 0.2)), gm, b, solver=fwd, adjoint_solver=adj)
+        return torch.sum(x * x)
+
+    gammas = torch.tensor(P26_IMPLICIT_GAMMAS, dtype=torch.float64, device=dev)
+    paths = dict(gt_torch.implicit_solve.lane_paths)
+    reads = gt_torch.implicit_solve.lane_reads
+    grads, wall, count, on_blocks = p26_timed(
+        lambda: torch.func.vmap(torch.func.grad(loss))(gammas))
+    batched_reads = (gt_torch.implicit_solve.lane_reads - reads) // 2
+    ran = {k: v - paths[k] for k, v in gt_torch.implicit_solve.lane_paths.items()}
+    torch.func.grad(loss)(gammas[0])
+    singles, seq_counts, seq_walls = [], [], []
+    for v in syncs.values():
+        del v[:]
+    for g in gammas:
+        rule_counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles.append(float(torch.func.grad(loss)(g)))
+        torch.cuda.synchronize()
+        seq_walls.append(time.perf_counter() - t0)
+        seq_counts.append(p26_counts(rule_counters()))
+    # The batch reads once for all lanes at each read of its forward solve,
+    # then of its adjoint solve.
+    longest_reads = max(syncs["forward"]) + max(syncs["adjoint"])
+    got = grads.tolist()
+    rel = max(abs(a - s) / abs(s) for a, s in zip(got, singles))
+    eps = 1e-6
+    with torch.no_grad():
+        fd = [(float(loss(g + eps)) - float(loss(g - eps))) / (2 * eps) for g in gammas]
+    fd_rel = max(abs(a - f) / abs(f) for a, f in zip(got, fd))
+    longest, every = p26_compare_launches("(g)", count, seq_counts)
+    print(f"phase 26: (g) vmap(grad(loss)) through implicit_solve, convdiff {n}x{n} over γ "
+          f"{list(P26_IMPLICIT_GAMMAS)}: gradients {got}; torch.func.grad at each γ "
+          f"{singles} (max rel {rel:.3e}, rtol 1e-8); central differences max rel "
+          f"{fd_rel:.3e}; paths {ran}; host reads {batched_reads} a pass (forward and "
+          f"adjoint; the longest lanes' {longest_reads}); launches {count} (the longest "
+          f"lane's {longest}, all lanes' {every}); batched wall {wall:.4f} s, the lanes in "
+          f"turn {sum(seq_walls):.4f} s ({sum(seq_walls) / wall:.2f}x)", flush=True)
+    require(ran == {"batched": 4, "in turn": 0},
+            f"(g): the lanes' solves took {ran} (two batched forward, two adjoint)")
+    require(rel <= 1e-8, f"(g): gradients {got} against {singles}")
+    require(fd_rel <= 1e-5, f"(g): gradients {got} against central differences {fd}")
+    require(batched_reads == longest_reads,
+            f"(g): {batched_reads} host reads, the longest lanes' {longest_reads}")
+    require(count["K1 transpose"] > 0 and all(np.isfinite(got)), f"(g): {count}, {got}")
+    return {"label": f"(g) implicit vmap(grad) convdiff {n}", "gradients": got,
+            "singles": singles, "rel": rel, "fd_rel": fd_rel, "paths": ran,
+            "host_syncs": batched_reads, "longest_lane_host_syncs": longest_reads,
+            "launches": count, "block_launches": on_blocks, "longest_lane_launches": longest,
+            "all_lanes_launches": every, "wall_s": wall, "sequential_walls_s": seq_walls}
+
+
+def p26_kernel_rows(gt_torch, dev):
+    """(h) K1's per-lane transposed launch (the backward rule of
+    ops/stencil.py:Stencil5Lanes, each lane's coefficients mirrored) on 8
+    lanes of 2048² f32 and f64: the rule's output bitwise the launch timed
+    here and its 8 single transposed launches, against its plain version,
+    the bound and a grouped F.conv2d."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gmres_tpu_torch.ops import stencil
+
+    gen = np.random.default_rng(SEED + 26)
+    records = []
+    print("phase 26 (h): K1's per-lane transposed launch against its single launches, "
+          "its plain version and a grouped convolution", flush=True)
+    lanes = P26_K1_T_LANES
+    for n, dts in P26_K1_T:
+        dt = getattr(torch, dts)
+        item = torch.empty((), dtype=dt).element_size()
+        per = torch.as_tensor(gen.standard_normal((lanes, 5)) * 0.3
+                              + np.array(GENERAL_COEFS)).to(dev)
+        gy = torch.as_tensor(gen.standard_normal((lanes, n, n))).to(dev, dt)
+        x = torch.as_tensor(gen.standard_normal((lanes, n, n))).to(dev, dt)
+        mirrored = per[:, list(stencil._MIRROR)].contiguous()
+        # The rule's own output: one launch, the mirrored array.
+        xt = x.clone().requires_grad_()
+        y = stencil.Stencil5Lanes.apply(xt, per)
+        rule_counters(reset=True)
+        (rule_out,) = torch.autograd.grad(y, xt, gy)
+        torch.cuda.synchronize()
+        count = rule_counters()
+        require(count["K1"] == 1 and count["K1 transpose"] == 1,
+                f"(h): the transpose rule made {count}")
+        direct = stencil.stencil5_cuda(gy, None, None, mirrored)
+        require(torch.equal(rule_out, direct), "(h): the rule's transpose differs from the "
+                "launch with the mirrored array")
+        wl = torch.zeros((lanes, 1, 3, 3), dtype=torch.float64, device=dev)
+        for (i, j), k in (((1, 1), 0), ((1, 0), 1), ((1, 2), 2), ((0, 1), 3), ((2, 1), 4)):
+            wl[:, 0, i, j] = mirrored[:, k]
+        wl = wl.to(dt)
+        ml = [mirrored[k].tolist() for k in range(lanes)]
+        terms = [mirrored.to(dt)[:, k, None, None] for k in range(5)]
+        tag = f"{lanes}x{n}x{n} {'f32' if dt == torch.float32 else 'f64'}"
+        rec = p24_kernel_row(
+            f"K1 per-lane transposed {tag}",
+            lambda: stencil.stencil5_cuda(gy, None, None, mirrored),
+            lambda: [stencil.stencil5_cuda(gy[k], None, None, ml[k]) for k in range(lanes)],
+            lambda: stencil.stencil_5pt_general(gy, *terms), 0.0,
+            (2 * lanes * n * n * item, 9 * lanes * n * n, dt), 20,
+            library=lambda: F.conv2d(gy[None], wl, padding=1, groups=lanes)[0])
+        records.append(rec)
+    records.append(p26_nested_host(dev))
+    return records
+
+
+def p26_nested_host(dev):
+    """Host µs of one nested block application of K1 (vmap over 4 lanes of
+    vmap over 4 rows, 256² f64): through `_cuda.through_lanes`, which
+    unwraps both vmap levels in one rule, against the same application
+    through `Stencil5Grid.apply` (functorch's vmap rule at each level);
+    both one launch on 16 grids, the same bits."""
+    import torch
+
+    from gmres_tpu_torch.ops import stencil
+
+    x = torch.randn((4, 4, 256, 256), dtype=torch.float64, device=dev)
+    c = GENERAL_COEFS
+    nested = torch.func.vmap(torch.func.vmap(lambda v: stencil.stencil_5pt_pallas(v, c)))
+    by_rule = torch.func.vmap(torch.func.vmap(lambda v: stencil.Stencil5Grid.apply(v, *c)))
+    rule_counters(reset=True)
+    a, b = nested(x), by_rule(x)
+    torch.cuda.synchronize()
+    require(rule_counters()["K1"] == 2 and torch.equal(a, b),
+            f"nested K1: {rule_counters()} launches, equal {torch.equal(a, b)}")
+    rec = {"case": "K1 nested 4x4x256x256 f64 host",
+           "through_lanes_host_us": host_us(lambda: nested(x), 100),
+           "function_host_us": host_us(lambda: by_rule(x), 100)}
+    print(f"  nested vmap (4 lanes x 4 rows, 256² f64), one K1 launch: host "
+          f"{rec['through_lanes_host_us']:.1f} us through through_lanes, "
+          f"{rec['function_host_us']:.1f} us through Stencil5Grid's vmap rule at each "
+          f"level", flush=True)
+    return rec
+
+
+def phase_batched_rest(gt_torch, dev):
+    """Phase 26: (h) K1's per-lane transposed launch, then the batched solves
+    of QMR, LSQR, LSMR, GMRES-DR, GCRO-DR, Newton–Krylov's gcrodr inner, block
+    CG and block GMRES, and vmap(grad) through implicit_solve. Returns the
+    kernel records, the launches over the rows (each row's batched counts
+    summed) and the rows."""
+    t_phase = time.perf_counter()
+    records = {"K1 per-lane transposed": p26_kernel_rows(gt_torch, dev)}
+    rows = (p26_transpose_rows(gt_torch, dev) + p26_deflated_rows(gt_torch, dev)
+            + p26_block_rows(gt_torch, dev) + [p26_implicit_row(gt_torch, dev)])
+    launches = dict.fromkeys(list(rows[0]["launches"]) + list(rows[0]["block_launches"]), 0)
+    for r in rows:
+        for k, v in list(r["launches"].items()) + list(r["block_launches"].items()):
+            launches[k] += v
+    require(all(launches[k] > 0 for k in launches),
+            f"phase 26: a kernel, a K1 role or a block launch was not made on the main path "
+            f"{launches}")
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return records, launches, rows
+
+
 def run_phase(name, gt_torch, dev, workdir):
     """Run phase `name` (PHASE_RUNNERS; 21-23 on a one-rank NCCL group of
     their own) and return what the kernel report reads of it."""
@@ -6970,10 +7424,12 @@ def run_phase(name, gt_torch, dev, workdir):
             return phase_sharded_spectral_sparse(gt_torch, dev, workdir)[:3]
         if name == "24":
             return phase_batched(gt_torch, dev, workdir)[:2]
-        return phase_batched_family(gt_torch, dev)[:2]
+        if name == "25":
+            return phase_batched_family(gt_torch, dev)[:2]
+        return phase_batched_rest(gt_torch, dev)[:2]
 
 
-PHASE_RUNNERS = ("15", "17", "18", "19", "20", "21", "22", "23", "24", "25")
+PHASE_RUNNERS = ("15", "17", "18", "19", "20", "21", "22", "23", "24", "25", "26")
 # Phases 15 and 17-23 time no kernel: after the kernel phases they run in
 # these worker processes at once (each group one process, in order), which
 # the card time-slices; their walls share the card and the host. Grouped by
@@ -7161,15 +7617,20 @@ def main() -> int:
         # Phase 25: batched solves of the other solvers, SLQ's probes
         # batched, the batched launches of K3 and K4.
         p25_records, p25 = run_phase("25", gt_torch, dev, workdir)
+        # Phase 26: the rest of the batched solvers (transposes, deflation,
+        # recycling, blocks) and vmap(grad) through implicit_solve; K1's
+        # per-lane transposed launch.
+        p26_records, p26 = run_phase("26", gt_torch, dev, workdir)
     # Phases 15 and 17-23, which time no kernel, in worker processes at once.
     done = run_workers(WORKER_GROUPS)
     programs, family, short, p19, p20 = (done[k] for k in ("15", "17", "18", "19", "20"))
     (p21, p21_twins), (p22, p22_twins) = done["21"], done["22"]
     p23, p23_twins, rank_blocks = done["23"]
-    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - t_run:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-26 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(p24_records)
     records.update(p25_records)
+    records.update(p26_records)
     records.update(rdma_records)
     records.update(cd_records)
 
@@ -7227,6 +7688,8 @@ def main() -> int:
     p24_path = "block rows and batched solves (phase 24)"
     p25_path = ("batched short recurrences, GMRES family, Newton-Krylov, sparse CG and "
                 "SLQ (phase 25)")
+    p26_path = ("batched QMR, LSQR, LSMR, GMRES-DR, GCRO-DR, Newton gcrodr, block CG and "
+                "GMRES, vmap(grad) through implicit_solve (phase 26)")
     # Launches of the batched form (a block in one launch), by phase: the
     # block rows of phases 15-23 on plain tensors run their block
     # applications batched too (a DTensor block keeps one call a row).
@@ -7234,7 +7697,8 @@ def main() -> int:
                         p19_path: p19, p20_path: p20, p21_path: p21,
                         p21_twins_path: p21_twins, p22_path: p22,
                         p22_twins_path: p22_twins, p23_path: p23,
-                        p23_twins_path: p23_twins, p24_path: p24, p25_path: p25}
+                        p23_twins_path: p23_twins, p24_path: p24, p25_path: p25,
+                        p26_path: p26}
 
     def batched_fields(name):
         by = {path: counts.get(f"{name} batched", 0)
@@ -7261,7 +7725,7 @@ def main() -> int:
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
                + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"]
                + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"] + p24["K1"]
-               + p25["K1"],
+               + p25["K1"] + p26["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -7273,11 +7737,17 @@ def main() -> int:
                                  p21_path: p21["K1"], p21_twins_path: p21_twins["K1"],
                                  p22_path: p22["K1"], p22_twins_path: p22_twins["K1"],
                                  p23_path: p23["K1"], p23_twins_path: p23_twins["K1"],
-                                 p24_path: p24["K1"], p25_path: p25["K1"]},
+                                 p24_path: p24["K1"], p25_path: p25["K1"],
+                                 p26_path: p26["K1"]},
                **batched_fields("K1"),
                phase22_k1_halo=p22["K1 halo"], phase22_exchanges=p22["exchanges"],
                phase23_k1_halo=p23["K1 halo"], phase23_exchanges=p23["exchanges"],
                phase21_k1_halo=p21["K1 halo"],
+               phase26_k1_by_role={
+                   "forward": p26["K1 forward"],
+                   "transpose (per-lane and shared backward rules, one launch a set of "
+                   "lanes)": p26["K1 transpose"],
+                   "tangent (jvp rule)": p26["K1 tangent"]},
                phase19_k1_by_role={
                    "forward": p19["K1"] - p19["K1 transpose"] - p19["K1 tangent"],
                    "transpose (backward rule, mirrored coefficients)": p19["K1 transpose"],
@@ -7291,7 +7761,7 @@ def main() -> int:
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
                + short["K1rr"] + p19["K1rr"] + p20["K1rr"] + p21["K1rr"]
                + p21_twins["K1rr"] + p22["K1rr"] + p22_twins["K1rr"] + p23["K1rr"]
-               + p23_twins["K1rr"] + p24["K1rr"] + p25["K1rr"],
+               + p23_twins["K1rr"] + p24["K1rr"] + p25["K1rr"] + p26["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
@@ -7303,7 +7773,8 @@ def main() -> int:
                                  p21_twins_path: p21_twins["K1rr"],
                                  p22_path: p22["K1rr"], p22_twins_path: p22_twins["K1rr"],
                                  p23_path: p23["K1rr"], p23_twins_path: p23_twins["K1rr"],
-                                 p24_path: p24["K1rr"], p25_path: p25["K1rr"]},
+                                 p24_path: p24["K1rr"], p25_path: p25["K1rr"],
+                                 p26_path: p26["K1rr"]},
                **batched_fields("K1rr"),
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
@@ -7311,7 +7782,7 @@ def main() -> int:
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
                + short["K1cr"] + p19["K1cr"] + p20["K1cr"] + p21["K1cr"]
                + p21_twins["K1cr"] + p22["K1cr"] + p22_twins["K1cr"] + p23["K1cr"]
-               + p23_twins["K1cr"] + p24["K1cr"] + p25["K1cr"],
+               + p23_twins["K1cr"] + p24["K1cr"] + p25["K1cr"] + p26["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
@@ -7323,7 +7794,8 @@ def main() -> int:
                                  p21_twins_path: p21_twins["K1cr"],
                                  p22_path: p22["K1cr"], p22_twins_path: p22_twins["K1cr"],
                                  p23_path: p23["K1cr"], p23_twins_path: p23_twins["K1cr"],
-                                 p24_path: p24["K1cr"], p25_path: p25["K1cr"]},
+                                 p24_path: p24["K1cr"], p25_path: p25["K1cr"],
+                                 p26_path: p26["K1cr"]},
                **batched_fields("K1cr"),
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
@@ -7331,7 +7803,7 @@ def main() -> int:
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
                + p20["K2"] + p21["K2"] + p21_twins["K2"] + p22["K2"] + p22_twins["K2"]
-               + p23["K2"] + p23_twins["K2"] + p24["K2"] + p25["K2"],
+               + p23["K2"] + p23_twins["K2"] + p24["K2"] + p25["K2"] + p26["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
@@ -7343,7 +7815,8 @@ def main() -> int:
                                     p21_twins_path: p21_twins["K2"],
                                     p22_path: p22["K2"], p22_twins_path: p22_twins["K2"],
                                     p23_path: p23["K2"], p23_twins_path: p23_twins["K2"],
-                                    p24_path: p24["K2"], p25_path: p25["K2"]},
+                                    p24_path: p24["K2"], p25_path: p25["K2"],
+                                 p26_path: p26["K2"]},
                **batched_fields("K2"),
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
@@ -7372,7 +7845,13 @@ def main() -> int:
                singles_ms=[r["singles_ms"] for r in records["K1 batched"]
                            if r["case"] == "K1 batched 8x2048x2048 f32"][0],
                library_note="F.conv2d on the block (grouped, one cross a lane, for "
-                            "per-lane coefficients)"),
+                            "per-lane coefficients)",
+               per_lane_transposed=[
+                   {k: r.get(k) for k in ("case", "ms", "singles_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "max_abs_err")}
+                   for r in records["K1 per-lane transposed"] if "ms" in r],
+               nested_host_us=[r for r in records["K1 per-lane transposed"]
+                               if "ms" not in r][0]),
         report("K1rr batched", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/precond/multigrid.py:206", ["gmres_tpu/ops/stencil.py:170"],
                batched_fields("K1rr")["batched_launches"],

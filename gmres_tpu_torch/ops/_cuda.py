@@ -17,6 +17,7 @@ import ctypes
 import functools
 import glob
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -220,33 +221,95 @@ def vmapped(*ts) -> bool:
         isinstance(t, torch.Tensor) and _batched(t) for t in ts)
 
 
+def _vmap_levels():
+    """{level: batch size} of the ``torch.func.vmap`` transforms at the top
+    of the transform stack, down to the first transform of another kind
+    (empty where the innermost transform is not vmap)."""
+    sizes = {}
+    for interp in reversed(_fc.get_interpreter_stack() or ()):
+        if interp.key() != _fc.TransformType.Vmap:
+            break
+        sizes[interp.level()] = _fc.CVmapInterpreterPtr(interp).batchSize()
+    return sizes
+
+
+def _peel(a, sizes):
+    """(plain tensor, {level: its batch dim there}) for a tensor that vmap
+    levels among ``sizes`` wrap as batched tensors, each directly over the
+    next; None where any other transform wraps it."""
+    found = {}
+    while _functorch_wrapped(a):
+        level = _fc.maybe_get_level(a)
+        if not _batched(a) or level not in sizes:
+            return None
+        found[level] = _fc.maybe_get_bdim(a)
+        a = _fc.get_unwrapped(a)
+    return a, found
+
+
 def _lanes_of(args):
-    """(level, batch dims, plain args, lanes) where the innermost transform
-    is ``torch.func.vmap`` and wraps each tensor among ``args`` that any
-    transform wraps as a batched tensor of its level directly over a plain
-    tensor (the batch dims None for the other args, which stay as given),
-    and neither autograd nor forward-mode AD tracks a plain arg; None
-    otherwise (vmap composed with another transform, or a tracked
-    operand or coefficient)."""
-    top = _fc.peek_interpreter_stack()
-    if top is None or top.key() != _fc.TransformType.Vmap:
+    """(levels, their batch sizes, batch dims, plain args) where the innermost
+    transforms are ``torch.func.vmap`` levels and each tensor among
+    ``args`` that a transform wraps is batched at some of those levels
+    directly over a plain tensor (the batch dims None for the other args,
+    which stay as given), and neither autograd nor forward-mode AD tracks a
+    plain arg; None otherwise (vmap composed with another transform, or a
+    tracked operand or coefficient).
+
+    One level (``torch.func.vmap`` of an operator): each batched tensor
+    keeps its own batch dim, and the lanes are that level's batch size. Nested
+    levels (a lane that is itself a block: ``row_apply`` inside vmap): the
+    levels any arg is batched at, outermost first, are flattened into one
+    leading lane axis of their product of batch sizes, a tensor that is
+    not batched at one of them repeated along it."""
+    sizes = _vmap_levels()
+    if not sizes:
         return None
-    level, dims, plain, lanes = top.level(), [], [], None
+    peeled, used = [], set()
     for a in args:
         if isinstance(a, torch.Tensor) and _functorch_wrapped(a):
-            inner = _fc.get_unwrapped(a) if _batched(a) else None
-            if (inner is None or _fc.maybe_get_level(a) != level
-                    or _functorch_wrapped(inner)):
+            got = _peel(a, sizes)
+            if got is None:
                 return None
-            dims.append(_fc.maybe_get_bdim(a))
-            plain.append(inner)
-            lanes = inner.shape[dims[-1]]
+            peeled.append(got)
+            used.update(got[1])
         else:
-            dims.append(None)
-            plain.append(a)
-    if lanes is None or any(tracked_by(p) is not None for p in plain):
+            peeled.append((a, None))
+    if not used or any(tracked_by(p) is not None for p, _ in peeled):
         return None
-    return level, dims, plain, lanes
+    levels = sorted(used)
+    shape = [sizes[lv] for lv in levels]
+    if len(levels) == 1:
+        dims = [None if f is None else f[levels[0]] for _, f in peeled]
+        return levels, shape, dims, [p for p, _ in peeled]
+    dims, plain = [], []
+    for p, found in peeled:
+        if found is None:
+            dims.append(None)
+            plain.append(p)
+            continue
+        dims.append(0)
+        plain.append(_flatten_levels(p, found, levels, shape))
+    return levels, shape, dims, plain
+
+
+def _flatten_levels(p, found, levels, shape):
+    """A plain tensor batched at some of ``levels`` (``found``: level →
+    batch dim, each counted in the tensor one level up) as (Π shape, …):
+    the levels' batch dims moved first in order, the levels it is not
+    batched at repeated."""
+    # Unwrapping from the innermost level, each batch dim indexes the
+    # tensor left once the levels inside it are removed: recover the
+    # physical positions from the outermost level in.
+    lead = 0
+    for lv in levels:
+        if lv in found:
+            p = p.movedim(found[lv] + lead, lead)
+        else:
+            p = p.unsqueeze(lead).expand(*p.shape[:lead], shape[levels.index(lv)],
+                                         *p.shape[lead:])
+        lead += 1
+    return p.reshape((-1,) + tuple(p.shape[lead:]))
 
 
 def through_lanes(lanes_fn, function, *args):
@@ -256,19 +319,44 @@ def through_lanes(lanes_fn, function, *args):
     tensor or a tuple of them, lanes first) wrapped back at vmap's level.
     Unwrapping the one level here costs ~10 µs a call, against ~270 µs
     through an autograd.Function's vmap rule (functorch's Python
-    ``custom_function_call``; on the CPU, torch 2.13). Where vmap is
-    composed with another transform, or autograd or forward-mode AD tracks
-    an unwrapped operand or coefficient, ``function.apply(*args)``: functorch
-    calls its vmap rule at each level, and the rule keeps what tracks the
-    operands (K1's takes ``Stencil5Grid`` on the block)."""
+    ``custom_function_call``; on the CPU, torch 2.13). Nested vmap levels
+    (a block of rows in each lane) are one lane axis of the product of
+    their sizes for ``lanes_fn``, and the output is split back and wrapped
+    at each level. Where vmap is composed with another transform, or
+    autograd or forward-mode AD tracks an unwrapped operand or coefficient,
+    ``function.apply(*args)``: functorch calls its vmap rule at each level,
+    and the rule keeps what tracks the operands (K1's takes ``Stencil5Grid``
+    or ``Stencil5Lanes`` on the block)."""
     found = _lanes_of(args)
     if found is None:
         return function.apply(*args)
-    level, dims, plain, lanes = found
-    out = lanes_fn(dims, lanes, *plain)
+    levels, shape, dims, plain = found
+    out = lanes_fn(dims, math.prod(shape), *plain)
     if isinstance(out, tuple):
-        return tuple(_fc._add_batch_dim(o, 0, level) for o in out)
-    return _fc._add_batch_dim(out, 0, level)
+        return tuple(_rewrap(o, levels, shape) for o in out)
+    return _rewrap(out, levels, shape)
+
+
+def _rewrap(out, levels, shape):
+    """A (lanes, …) output wrapped back at ``levels`` (one lane axis of
+    their batch sizes ``shape``, split back where they are nested)."""
+    if len(levels) > 1:
+        out = out.reshape(tuple(shape) + tuple(out.shape[1:]))
+    for lv in levels:
+        out = _fc._add_batch_dim(out, 0, lv)
+    return out
+
+
+def has_lanes(t) -> bool:
+    """True where a ``torch.func.vmap`` level batches ``t`` under any
+    wrappers of other transforms: its value differs by lane, and reading
+    it as one number fails."""
+    while isinstance(t, torch.Tensor) and _functorch_wrapped is not None \
+            and _functorch_wrapped(t):
+        if _batched(t):
+            return True
+        t = _fc.get_unwrapped(t)
+    return False
 
 
 def tracked_by(t) -> str | None:

@@ -69,6 +69,7 @@ from gmres_tpu_torch.ops.stencil import (
     POISSON_COEFS,
     _coef_list,
     _coef_terms,
+    _flat_lanes,
     _halo_row,
     _lanes_first,
     _shared_coefs,
@@ -404,9 +405,11 @@ def poly_stencil_smoother_pallas(
     if _cuda.vmapped(r):
         return _cuda.through_lanes(_k2_lanes, ChebK, r, theta, tuple(steps), "routed",
                                    *_coef_terms(coefs))
-    poly_stencil_smoother_pallas.block_calls += int(r.dim() == 3)
+    poly_stencil_smoother_pallas.block_calls += int(r.dim() >= 3)
     if r.device.type == "cpu":
         return poly_stencil_smoother_plain(r, theta, steps, coefs)
+    if r.dim() > 3:
+        return chebk_cuda(_flat_lanes(r), theta, steps, coefs).reshape(r.shape)
     return chebk_cuda(r, theta, steps, coefs)
 
 

@@ -400,10 +400,13 @@ def residual_restrict(r: torch.Tensor, e: torch.Tensor,
     card); ``residual_restrict.block_calls`` counts calls on blocks."""
     if _cuda.vmapped(r, e):
         return _cuda.through_lanes(_rr_lanes, ResidualRestrict, r, e, *_coef_terms(coefs))
-    residual_restrict.block_calls += int(r.dim() == 3)
+    residual_restrict.block_calls += int(r.dim() >= 3)
     if r.device.type == "cpu":
         _check_levels("residual_restrict", r, e)
         return residual_restrict_plain(r, e, coefs)
+    if r.dim() > 3:
+        out = residual_restrict_cuda(_flat_lanes(r), _flat_lanes(e), coefs)
+        return out.reshape(r.shape[:-2] + out.shape[-2:])
     return residual_restrict_cuda(r, e, coefs)
 
 
@@ -417,10 +420,14 @@ def correct_residual(r: torch.Tensor, e: torch.Tensor, ec: torch.Tensor,
     if _cuda.vmapped(r, e, ec):
         return _cuda.through_lanes(_cr_lanes, CorrectResidual, r, e, ec,
                                    *_coef_terms(coefs))
-    correct_residual.block_calls += int(r.dim() == 3)
+    correct_residual.block_calls += int(r.dim() >= 3)
     if r.device.type == "cpu":
         _check_levels("correct_residual", r, e, ec)
         return correct_residual_plain(r, e, ec, coefs)
+    if r.dim() > 3:
+        e2, r2 = correct_residual_cuda(_flat_lanes(r), _flat_lanes(e), _flat_lanes(ec),
+                                       coefs)
+        return e2.reshape(e.shape), r2.reshape(r.shape)
     return correct_residual_cuda(r, e, ec, coefs)
 
 
@@ -593,7 +600,11 @@ class Stencil5Grid(torch.autograd.Function):
       ``_cuda.through_lanes`` without the Function where vmap is the only
       transform and nothing tracks the operands. Where autograd, forward-mode
       AD or another transform tracks them, the rule's call takes this
-      Function on the block, whose rules then act on the whole block."""
+      Function on the block (``Stencil5Lanes`` with per-lane
+      coefficients), whose rules then act on the whole block. A
+      coefficient that a vmap level batches under another transform (a
+      family's J·v inside vmap) stays a tensor in the rules (``_value``),
+      and their applications reach the vmap rule with it."""
 
     @staticmethod
     def forward(x, *coefs):
@@ -602,7 +613,7 @@ class Stencil5Grid(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         x, *coefs = inputs
-        ctx.vals = [float(c) for c in coefs]
+        ctx.vals = [_value(c) for c in coefs]
         ctx.coef_meta = [(c.shape, c.dtype) if isinstance(c, torch.Tensor) else None
                          for c in coefs]
         if any(m is not None for m in ctx.coef_meta):
@@ -648,8 +659,85 @@ class Stencil5Grid(torch.autograd.Function):
 
 # Applications of each rule (one launch each on the card, counted by the
 # wrapper too): how many of stencil5_cuda's launches were transposes and
-# tangents.
+# tangents (``Stencil5Lanes`` counts its own here too).
 Stencil5Grid.rule_applications = {"transpose": 0, "tangent": 0}
+
+
+def _value(c):
+    """A coefficient as a rule keeps it: its value as a float, or, where a
+    ``torch.func.vmap`` level batches it (an operator family swept over
+    lanes, read inside another transform), the detached tensor, which the
+    rule's applications pass on to the vmap rule as per-lane values."""
+    if isinstance(c, torch.Tensor) and _cuda.has_lanes(c):
+        return c.detach()
+    return float(c)
+
+
+# The coefficients' order in K1's transpose: (c, w, e, s, n) → (c, e, w, n, s).
+_MIRROR = (0, 2, 1, 4, 3)
+
+
+class Stencil5Lanes(torch.autograd.Function):
+    """K1 on a (lanes, rows, cols) block with a (lanes, 5) tensor of
+    coefficients, one set a lane, differentiable: the per-lane route's
+    counterpart of ``Stencil5Grid``.
+
+    ``Stencil5Lanes.apply(xb, coefs)``. The forward is one launch on the
+    block (the plain version on a CPU block). The rules:
+
+    * backward in x: one launch on the cotangent block with each lane's
+      coefficients mirrored, (c, e, w, n, s) (``_MIRROR``);
+    * backward in the coefficients: Σ ȳ·shiftₖ(x) over each lane's grid, a
+      (lanes, 5) cotangent;
+    * jvp: one launch on the tangent block with the same coefficients, plus
+      ċₖ·shiftₖ(x) for each lane where the coefficients carry a tangent.
+
+    ``_k1_per_lane`` takes it on the card where autograd, forward-mode AD or
+    a torch.func transform tracks the block or the coefficients (a vmap
+    rule's call under another transform); the rules' applications go
+    through it again, so they launch one K1 each and stay differentiable.
+    Applied to a CPU block, the same rules run on the plain version (the
+    tests' oracle for the card); ``_k1_per_lane`` itself keeps a CPU block
+    on plain torch, whose autograd gives a batched lane the transposes'
+    bits of its sequential solve. ``Stencil5Grid.rule_applications``
+    counts the applications by rule."""
+
+    @staticmethod
+    def forward(xb, coefs):
+        return _per_lane_apply(xb, coefs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        xb, coefs = inputs
+        ctx.coefs = coefs.detach()
+        ctx.save_for_backward(xb)
+        ctx.save_for_forward(xb)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (xb,) = ctx.saved_tensors
+        gx = gc = None
+        if ctx.needs_input_grad[0]:
+            Stencil5Grid.rule_applications["transpose"] += 1
+            gx = Stencil5Lanes.apply(gy, ctx.coefs[:, list(_MIRROR)])
+        if ctx.needs_input_grad[1]:
+            gc = torch.stack([torch.sum(gy * _shift(xb, *sh), dim=(-2, -1))
+                              for sh in _COEF_SHIFTS], dim=1).to(ctx.coefs.dtype)
+        return gx, gc
+
+    @staticmethod
+    def jvp(ctx, gx, gc):
+        (xb,) = ctx.saved_tensors
+        out = None
+        if gx is not None:
+            Stencil5Grid.rule_applications["tangent"] += 1
+            out = Stencil5Lanes.apply(gx, ctx.coefs)
+        if gc is not None:
+            gc = gc.to(xb.dtype)
+            for k, sh in enumerate(_COEF_SHIFTS):
+                term = gc[:, k, None, None] * _shift(xb, *sh)
+                out = term if out is None else out + term
+        return out
 
 
 def stencil5_grid(x: torch.Tensor, coefs=None) -> torch.Tensor:
@@ -672,7 +760,8 @@ def stencil_5pt_pallas(x: torch.Tensor, coefs=None) -> torch.Tensor:
     batched) the call goes through ``Stencil5Grid``'s vmap rule on either
     device: one call of this function on the lanes' (lanes, rows, cols)
     block, routed as a grid is (one K1 launch on the card), where
-    ``coefs`` may also be a (lanes, 5) tensor, one set a lane.
+    ``coefs`` may also be a (lanes, 5) tensor, one set a lane; nested vmap
+    levels (each lane a block of s grids) are one block of lanes·s grids.
     ``stencil_5pt_pallas.block_calls`` counts calls on a block."""
     if _per_lane(coefs):
         return _k1_per_lane(x, coefs)
@@ -681,9 +770,11 @@ def stencil_5pt_pallas(x: torch.Tensor, coefs=None) -> torch.Tensor:
         return _halo_route(x, "5pt", terms)
     if _cuda.vmapped(x, *terms):
         return _cuda.through_lanes(_k1_lanes, Stencil5Grid, x, *terms)
-    stencil_5pt_pallas.block_calls += int(x.dim() == 3)
+    stencil_5pt_pallas.block_calls += int(x.dim() >= 3)
     if x.device.type == "cpu":
         return stencil_5pt_general(x, *terms)
+    if x.dim() > 3:
+        return stencil_5pt_pallas(_flat_lanes(x), terms).reshape(x.shape)
     if _cuda.tracked_by(x) is None and all(_cuda.tracked_by(c) is None for c in terms):
         return stencil5_cuda(x, None, None, terms)
     return Stencil5Grid.apply(x, *terms)
@@ -692,21 +783,45 @@ def stencil_5pt_pallas(x: torch.Tensor, coefs=None) -> torch.Tensor:
 stencil_5pt_pallas.block_calls = 0
 
 
+def _flat_lanes(t):
+    """A (lanes, s, …, rows, cols) block as one (lanes·s·…, rows, cols)
+    block (a view where it can be), for one launch; None stays None."""
+    if t is None or t.dim() <= 3:
+        return t
+    return t.reshape((-1,) + tuple(t.shape[-2:]))
+
+
 def _k1_per_lane(xb: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
     """``stencil_5pt_pallas`` on a (lanes, rows, cols) block with a (lanes, 5)
     tensor of coefficients, one set a lane (each rounded to the block's
-    dtype, as a launch rounds it): the plain version for a CPU block, one
-    K1 launch for a CUDA block."""
+    dtype, as a launch rounds it): the plain version for a CPU block
+    (differentiable as plain torch), one K1 launch for a CUDA block, through
+    ``Stencil5Lanes`` where autograd, forward-mode AD or a torch.func
+    transform tracks the block or the coefficients. A (lanes, s, rows,
+    cols) block (each lane a block of s grids) is one launch on its
+    lanes·s grids, each lane's coefficients repeated down its s grids."""
     stencil_5pt_pallas.block_calls += 1
     if xb.device.type == "cpu":
+        return _per_lane_apply(xb, coefs)
+    lead = xb.shape[:-2]
+    flat = xb.reshape((-1,) + tuple(xb.shape[-2:]))
+    if lead.numel() != coefs.shape[0]:
+        coefs = coefs.repeat_interleave(lead.numel() // coefs.shape[0], dim=0)
+    if _cuda.tracked_by(flat) is not None or _cuda.tracked_by(coefs) is not None:
+        return Stencil5Lanes.apply(flat, coefs).reshape(xb.shape)
+    return stencil5_cuda(flat, None, None, coefs).reshape(xb.shape)
+
+
+def _per_lane_apply(xb: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
+    """The per-lane application itself: the plain version on a CPU block
+    (the coefficients broadcast down each lane's grids), one K1 launch on a
+    CUDA (lanes, rows, cols) block."""
+    if xb.device.type == "cpu":
         c = coefs.to(device=xb.device, dtype=xb.dtype)
-        return stencil_5pt_general(xb, *(c[:, k, None, None] for k in range(5)))
-    if _cuda.tracked_by(xb) is not None or _cuda.tracked_by(coefs) is not None:
-        raise NotImplementedError(
-            "stencil_5pt_pallas: coefficients that differ by lane reach K1 without "
-            "autograd or forward-mode rules on the card (ROADMAP: batched forms); "
-            "differentiate on CPU tensors, or run under torch.no_grad()")
-    return stencil5_cuda(xb, None, None, coefs)
+        shape = (c.shape[0],) + (1,) * (xb.dim() - 1)
+        return stencil_5pt_general(xb, *(c[:, k].reshape(shape) for k in range(5)))
+    # A rule's cotangent or tangent block may arrive as a strided view.
+    return stencil5_cuda(xb.contiguous(), None, None, coefs)
 
 
 # The TPU's row-blocked variant exists for VMEM; K1 takes any grid in one

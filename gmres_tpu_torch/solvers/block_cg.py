@@ -13,9 +13,15 @@ under the absolute ``tol``, and the returned residuals are the certified
 true ‖bᵢ − A xᵢ‖.
 
 JAX batches the single-vector operator and preconditioner with
-``jax.vmap``; here each block application is a loop over the s rows
-(``ops/blas.py:row_apply``): on the card one launch of the operator's (or the
-preconditioner's) kernels per row.
+``jax.vmap``; here each block application is ``ops/blas.py:row_apply``
+(``torch.func.vmap`` over the s rows: on the card one launch of each
+kernel of the operator's, or the preconditioner's, path for all rows).
+
+The solve is a generator of steps (``block_cg_steps``,
+``solvers/requests.py``): ``block_cg`` drives it on its own,
+``solvers/batched.py`` one a lane, each lane a block of s right-hand sides
+(a block application of every lane is one nested vmap, one launch a
+kernel for all lanes' rows).
 
 ``lax.while_loop`` becomes a Python loop. Host reads
 (``BlockCGResult.host_syncs``): the initial residuals, one an iteration
@@ -36,9 +42,9 @@ from gmres_tpu_torch.ops.blas import (
     _orthonormalize_block,
     as_plain,
     replicate_like,
-    row_apply,
 )
 from gmres_tpu_torch.solvers.gmres import _as_operator
+from gmres_tpu_torch.solvers.requests import Apply, Read, rows, run
 from gmres_tpu_torch.types import Preconditioner, SolverStatus, _fields_numpy
 
 
@@ -96,6 +102,13 @@ def block_cg(
       M: optional SPD preconditioner (single-vector callable).
       X0: optional (s, *shape) initial guesses.
     """
+    return run(block_cg_steps(A, B, tol=tol, max_iterations=max_iterations, M=M, X0=X0))
+
+
+def block_cg_steps(A, B, *, tol=1e-9, max_iterations=10_000, M=None, X0=None):
+    """``block_cg``'s solve as steps (``solvers/requests.py``), returning its
+    BlockCGResult: each block application one request (``requests.rows``;
+    in a batched solve one nested vmap, each lane a block)."""
     op1 = _as_operator(A, B.device)
     s = B.shape[0]
     dtype = B.dtype
@@ -104,10 +117,10 @@ def block_cg(
     eye = torch.eye(s, dtype=dtype, device=B.device)
 
     def a_block(v):
-        return row_apply(op1, v)
+        return (yield Apply(rows(op1), v))
 
     def m_block(v):
-        return row_apply(M, v) if M is not None else v
+        return (yield Apply(rows(M), v)) if M is not None else v
 
     def bdot(u, v):
         return as_plain(u.reshape(s, -1) @ v.reshape(s, -1).T)        # (s, s)
@@ -127,24 +140,24 @@ def block_cg(
         return torch.cholesky_solve(rhs, chol)
 
     x = torch.zeros_like(B) if X0 is None else X0
-    r = B - a_block(x) if X0 is not None else B
-    p, _ = _orthonormalize_block(m_block(r), eps)
-    status = int(SolverStatus.CONVERGED if bool(torch.max(rownorms(r)) < tol)
+    r = B - (yield from a_block(x)) if X0 is not None else B
+    p, _ = _orthonormalize_block((yield from m_block(r)), eps)
+    status = int(SolverStatus.CONVERGED if (yield Read(torch.max(rownorms(r)) < tol))
                  else SolverStatus.MAX_ITERATIONS)
     syncs = 1
     i = 0
     while i < max_iterations and status == SolverStatus.MAX_ITERATIONS:
-        q = a_block(p)
+        q = yield from a_block(p)
         g = bdot(p, q)                      # PᵀAP (s, s)
         alpha = solve_spd(g, bdot(p, r))    # Galerkin: PᵀR_new = 0
         x = x + comb(alpha, p)
         r = r - comb(alpha, q)
-        zn = m_block(r)
+        zn = yield from m_block(r)
         beta = -solve_spd(g, bdot(q, zn))   # A-orthogonalise against P
         p, _ = _orthonormalize_block(zn + comb(beta, p), eps)
         resn = rownorms(r)
-        converged, finite = torch.stack(
-            [torch.max(resn) < tol, torch.all(torch.isfinite(resn))]).tolist()
+        converged, finite = yield Read(torch.stack(
+            [torch.max(resn) < tol, torch.all(torch.isfinite(resn))]))
         syncs += 1
         if converged:
             status = int(SolverStatus.CONVERGED)
@@ -153,11 +166,11 @@ def block_cg(
         i += 1
 
     # Certified per-RHS true residuals.
-    res_true = rownorms(B - a_block(x))
+    res_true = rownorms(B - (yield from a_block(x)))
     residual = torch.max(res_true)
     if status == SolverStatus.CONVERGED:
         syncs += 1
-        if bool(residual >= tol):
+        if (yield Read(residual >= tol)):
             status = int(SolverStatus.BREAKDOWN)
     return BlockCGResult(x=x, iterations=i, residuals=res_true, residual=residual,
                          status=status, host_syncs=syncs)

@@ -10,9 +10,14 @@ squares by a dense QR of the ((m+1)s, ms) matrix; M linear and on the
 right, applied once to the combined correction.
 
 JAX batches the single-vector operator and preconditioner with
-``jax.vmap``, which adds a grid axis to a Pallas kernel. Here each is a
-loop over the block's s rows: on the card a block application of A (or
-of M) launches its kernels s times, once for each row.
+``jax.vmap``, which adds a grid axis to a Pallas kernel. Here each is
+``ops/blas.py:row_apply`` (``torch.func.vmap`` over the s rows: on the card
+one launch of each kernel on the path for all rows).
+
+The solve is a generator of steps (``block_gmres_steps``,
+``solvers/requests.py``): ``block_gmres`` drives it on its own,
+``solvers/batched.py`` one a lane, each lane a block (a block application
+of every lane one nested vmap).
 
 Host reads: the initial residuals and one per restart cycle
 (``BlockSolveResult.host_syncs``).
@@ -28,10 +33,10 @@ from gmres_tpu_torch.ops.blas import (
     _orthonormalize_block,
     as_plain,
     replicate_like,
-    row_apply,
     rows_like,
 )
 from gmres_tpu_torch.solvers.gmres import _as_operator
+from gmres_tpu_torch.solvers.requests import Apply, Read, rows, run
 from gmres_tpu_torch.types import BlockSolveResult, Preconditioner, SolverStatus
 
 
@@ -56,6 +61,16 @@ def block_gmres(
       M: linear right preconditioner (single-vector callable).
       x0: optional (s, *shape) initial guesses.
     """
+    return run(block_gmres_steps(A, B, restart=restart, tol=tol,
+                                 max_restarts=max_restarts, M=M, x0=x0))
+
+
+def block_gmres_steps(A, B, *, restart=30, tol=1e-8, max_restarts=100, M=None,
+                      x0=None):
+    """``block_gmres``'s solve as steps (``solvers/requests.py``), returning
+    its BlockSolveResult: each block application one request
+    (``requests.rows``; in a batched solve one nested vmap, each lane a
+    block)."""
     op1 = _as_operator(A, B.device)
     s = B.shape[0]
     dtype = B.dtype
@@ -65,10 +80,10 @@ def block_gmres(
     tiny = torch.finfo(dtype).tiny
 
     def vop(v):
-        return row_apply(op1, v)
+        return (yield Apply(rows(op1), v))
 
     def vprec(v):
-        return row_apply(M, v) if M is not None else v
+        return (yield Apply(rows(M), v)) if M is not None else v
 
     if x0 is None:
         x0 = torch.zeros_like(B)
@@ -76,7 +91,7 @@ def block_gmres(
     bsafe = torch.clamp(bnorms, min=tiny)
 
     def residual_block(x):
-        r = B - vop(x)
+        r = B - (yield from vop(x))
         return r, torch.sqrt(as_plain(torch.sum(r.reshape(s, -1) ** 2, dim=1))) / bsafe
 
     def cycle(r):
@@ -86,7 +101,7 @@ def block_gmres(
         basis[0] = v0
         hmat = torch.zeros(((m + 1) * s, m * s), dtype=dtype, device=dev)
         for t in range(m):
-            w = vop(vprec(basis[t]))
+            w = yield from vop((yield from vprec(basis[t])))
             v2 = basis[: t + 1].reshape(t + 1, s, -1)
             w2 = w.reshape(s, -1)
             h1 = as_plain(torch.tensordot(v2, w2, dims=([2], [1])))  # (t+1, s, s)
@@ -112,18 +127,18 @@ def block_gmres(
         v_m = basis[:m].reshape(m, s, -1)
         combo = torch.tensordot(replicate_like(y.reshape(m, s, s), v_m), v_m,
                                 dims=([0, 1], [0, 1])).reshape(B.shape)
-        return vprec(combo)
+        return (yield from vprec(combo))
 
-    r, rel = residual_block(x0)
-    converged = bool(torch.all(rel < tol) | torch.all(bnorms == 0))
+    r, rel = yield from residual_block(x0)
+    converged = yield Read(torch.all(rel < tol) | torch.all(bnorms == 0))
     syncs = 1
     breakdown = False
     x, k = x0, 0
     while k < max_restarts and not converged and not breakdown:
-        x = x + cycle(r)
-        r, rel = residual_block(x)
-        converged, breakdown = torch.stack(
-            [torch.all(rel < tol), ~torch.all(torch.isfinite(rel))]).tolist()
+        x = x + (yield from cycle(r))
+        r, rel = yield from residual_block(x)
+        converged, breakdown = yield Read(torch.stack(
+            [torch.all(rel < tol), ~torch.all(torch.isfinite(rel))]))
         syncs += 1
         k += 1
     if converged:

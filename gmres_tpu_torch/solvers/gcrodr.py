@@ -23,6 +23,10 @@ the combination coefficients go back to the device. ``deflation`` is "eig",
 Host reads: one boolean per inner step after the first (the cycle's
 convergence test), that one per cycle, one for the initial residual and
 one for the exit certification (``RecycledResult.host_syncs``).
+
+The solve is a generator of steps (``gcrodr_steps``, ``solvers/requests.py``):
+``gcrodr`` drives it on its own, ``solvers/batched.py`` one a lane (a
+recycle block a lane), and ``newton_krylov``'s gcrodr inner yields from it.
 """
 
 from __future__ import annotations
@@ -36,7 +40,6 @@ import torch
 from gmres_tpu_torch.ops.blas import (
     _orthonormalize_block,
     as_plain,
-    row_apply,
     row_combine,
     row_contract,
     rows_like,
@@ -51,7 +54,8 @@ from gmres_tpu_torch.solvers.gmres_dr import (
     _realify,
     _resolve_deflation,
 )
-from gmres_tpu_torch.types import LinearOperator, Preconditioner, SolverStatus
+from gmres_tpu_torch.solvers.requests import Apply, Read, rows, run
+from gmres_tpu_torch.types import Preconditioner, SolverStatus
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +123,18 @@ def gcrodr(
         float64 b every cycle boundary recomputes the true residual in
         float64 and decides convergence on it.
     """
+    return run(gcrodr_steps(A, b, k=k, restart=restart, tol=tol,
+                            max_restarts=max_restarts, M=M, recycle=recycle, x0=x0,
+                            deflation=deflation, inner_dtype=inner_dtype))
+
+
+def gcrodr_steps(A, b, *, k=10, restart=40, tol=1e-8, max_restarts=200, M=None,
+                 recycle=None, x0=None, deflation="auto", inner_dtype=None):
+    """``gcrodr``'s solve as steps (``solvers/requests.py``), returning its
+    RecycledResult. The cycle's small state comes back by one ``Read`` (in a
+    batched solve one host read for every lane at a cycle's end), each
+    lane's pencil and eigensolve run on its own float64 copy, and the
+    recycle import is one block application (``requests.rows``)."""
     if b.is_complex():
         raise ValueError("gcrodr supports real dtypes only")
     m = restart - k
@@ -126,7 +142,14 @@ def gcrodr(
         raise ValueError(
             f"need k >= 1 and restart >= k + 2, got k={k}, restart={restart}")
     deflation = _resolve_deflation(deflation)
-    op: LinearOperator = (lambda v: M(A(v))) if M is not None else A
+    def op(v):
+        av = yield Apply(A, v)
+        return (yield Apply(M, av)) if M is not None else av
+
+    def op_rows(block):
+        av = yield Apply(rows(A), block)
+        return (yield Apply(rows(M), av)) if M is not None else av
+
     dtype = b.dtype
     dev = b.device
     wdtype = inner_dtype if inner_dtype is not None else dtype
@@ -142,11 +165,11 @@ def gcrodr(
     def vnorm(v):
         return torch.sqrt(as_plain(torch.sum(v * v)))
 
-    rhs = M(b) if M is not None else b
+    rhs = (yield Apply(M, b)) if M is not None else b
     beta0 = vnorm(rhs)
     beta0s = torch.where(beta0 > 0, beta0, torch.ones_like(beta0))
     x = torch.zeros_like(b) if x0 is None else x0
-    r = rhs - op(x) if x0 is not None else rhs
+    r = rhs - (yield from op(x)) if x0 is not None else rhs
 
     def deflation_coefs(mat, nvec):
         """On the host: (dim, nvec) real coefficients spanning the
@@ -181,7 +204,7 @@ def gcrodr(
         syncs = 0
         t = 0
         while True:
-            w = op(basis[t])
+            w = yield from op(basis[t])
             bcol = row_contract(c_blk, w)
             w = w - row_combine(bcol, c_blk)
             hs = []
@@ -207,7 +230,7 @@ def gcrodr(
             if t >= m:
                 break
             syncs += 1
-            if not bool(rel >= tol):
+            if not (yield Read(rel >= tol)):
                 break
         y = masked_back_substitution(hrot, giv.g, t)
         return basis, hraw, bmat, y, g0 - hraw @ y, t, rel, syncs
@@ -217,7 +240,8 @@ def gcrodr(
         matrices of both recycle updates, in a float64 CPU copy."""
         parts = [rel.reshape(1), as_plain(torch.any(c_blk.abs() > 0)).reshape(1),
                  bmatdot(c_blk, u_blk), bmatdot(basis, u_blk), hraw, bmat]
-        host = torch.cat([p.to(F64).reshape(-1) for p in parts]).to(HOST)
+        host = torch.tensor((yield Read(torch.cat([p.to(F64).reshape(-1) for p in parts]))),
+                            dtype=F64, device=HOST)
         rel_h, live, cu, vu, hraw_h, bmat_h = torch.split(
             host, [1, 1, k * k, (m + 1) * k, (m + 1) * m, k * m])
         return (float(rel_h), bool(live), cu.reshape(k, k), vu.reshape(m + 1, k),
@@ -263,28 +287,30 @@ def gcrodr(
                 f"{tuple(recycle.shape)}")
         rec_w = recycle.to(dev, wdtype)
         # The one import cost: k applications of op, one a row.
-        u_blk, c_blk = renormalize(rec_w, row_apply(op, rec_w))
+        u_blk, c_blk = renormalize(rec_w, (yield from op_rows(rec_w)))
         cyc = 0
         rel0 = vnorm(r) / beta0s
     else:
         # Bootstrap: one plain cycle with zero recycle blocks, whose
         # harmonic Ritz vectors seed U.
         u0 = rows_like(k, b, wdtype)
-        basis, hraw, _, y, resid_coefs, t, rel0, inner = arnoldi_cycle(r, u0, u0)
+        basis, hraw, _, y, resid_coefs, t, rel0, inner = yield from arnoldi_cycle(r, u0, u0)
         syncs += inner
         x = x + row_combine(y, basis[:m])
         if mixed:
-            r = rhs - op(x)
+            r = rhs - (yield from op(x))
             rel0 = vnorm(r) / beta0s
         else:
             r = row_combine(resid_coefs, basis)
         history[0] = rel0
-        rel0, _, _, _, hraw_h, _ = host_state(rel0, u0, u0, basis, hraw,
-                                              torch.zeros((k, m), dtype=wdtype, device=dev))
+        rel0, _, _, _, hraw_h, _ = yield from host_state(
+            rel0, u0, u0, basis, hraw, torch.zeros((k, m), dtype=wdtype, device=dev))
         u_blk, c_blk = seed_from_hessenberg(basis, hraw_h)
         cyc = 1
-    status = (SolverStatus.CONVERGED if bool(rel0 < tol)
-              else SolverStatus.MAX_ITERATIONS)
+    # The bootstrap's residual came back with its host state; an imported
+    # recycle block's is read here.
+    conv = rel0 < tol if isinstance(rel0, float) else (yield Read(rel0 < tol))
+    status = SolverStatus.CONVERGED if conv else SolverStatus.MAX_ITERATIONS
     syncs += 1
 
     n_out = 0
@@ -292,16 +318,18 @@ def gcrodr(
         d = row_contract(c_blk, r.to(wdtype))
         x = x + row_combine(d, u_blk)
         r = r - row_combine(d, c_blk)
-        basis, hraw, bmat, y, resid_coefs, n_out, rel, inner = arnoldi_cycle(r, u_blk, c_blk)
+        basis, hraw, bmat, y, resid_coefs, n_out, rel, inner = yield from arnoldi_cycle(
+            r, u_blk, c_blk)
         syncs += inner
         x = x + row_combine(y, basis[:m]) + row_combine(-(bmat @ y), u_blk)
         if mixed:
-            r = rhs - op(x)
+            r = rhs - (yield from op(x))
             rel = vnorm(r) / beta0s
         else:
             r = row_combine(resid_coefs, basis)
         history[cyc] = rel
-        rel_h, live, cu, vu, hraw_h, bmat_h = host_state(rel, u_blk, c_blk, basis, hraw, bmat)
+        rel_h, live, cu, vu, hraw_h, bmat_h = yield from host_state(rel, u_blk, c_blk, basis,
+                                                                    hraw, bmat)
         syncs += 1
         # A live pair updates through the combined pencil; a zero pair (a
         # zero import, or a failed update) seeds from the plain Hessenberg.
@@ -316,8 +344,8 @@ def gcrodr(
         cyc += 1
 
     # Exit certification on the true (preconditioned) residual.
-    rel_true = vnorm(rhs - op(x)) / beta0s
-    missed = bool(rel_true >= tol)
+    rel_true = vnorm(rhs - (yield from op(x))) / beta0s
+    missed = yield Read(rel_true >= tol)
     syncs += 1
     if status == SolverStatus.CONVERGED and missed:
         status = SolverStatus.BREAKDOWN

@@ -31,6 +31,9 @@ subspace iteration never runs there (``gmres_tpu/solvers/gmres_dr.py``,
 Host reads: one boolean per inner iteration that tests convergence, that
 one per cycle, one for the initial residual and one for the exit
 certification (``GmresResult.host_syncs``).
+
+The solve is a generator of steps (``gmres_dr_steps``, ``solvers/requests.py``):
+``gmres_dr`` drives it on its own, ``solvers/batched.py`` one a lane.
 """
 
 from __future__ import annotations
@@ -43,13 +46,14 @@ from gmres_tpu_torch.ops.blas import gram, row_combine, rows_like, tree_vdot
 from gmres_tpu_torch.ops.givens import GivensState, givens_step
 from gmres_tpu_torch.ops.hessenberg_eig import eig_select
 from gmres_tpu_torch.ops.tri import masked_back_substitution, solve_small
-from gmres_tpu_torch.solvers.fgmres import _solve_1x1
+from gmres_tpu_torch.solvers.fgmres import _solve_1x1_steps
 from gmres_tpu_torch.solvers.gmres import (
     _as_operator,
     _cgs_pass,
     _nonzero_or_one,
     _v_err_mgsr,
 )
+from gmres_tpu_torch.solvers.requests import Apply, Read, run
 from gmres_tpu_torch.types import GmresResult, Preconditioner, SolverStatus
 
 HOST = torch.device("cpu")
@@ -119,9 +123,21 @@ def gmres_dr(
       deflation: "eig", "subspace" or "auto", validated; each runs the
         exact eigensolver extraction, as in gmres_tpu (module docstring).
     """
+    return run(gmres_dr_steps(A, b, restart=restart, deflate=deflate, tol=tol,
+                              max_restarts=max_restarts, M=M, x0=x0,
+                              compute_v_err=compute_v_err, deflation=deflation))
+
+
+def gmres_dr_steps(A, b, *, restart=30, deflate=10, tol=1e-8, max_restarts=1000,
+                   M=None, x0=None, compute_v_err=False, deflation="auto"):
+    """``gmres_dr``'s solve as steps (``solvers/requests.py``), returning its
+    GmresResult. The cycle's small state comes back by one ``Read`` (in a
+    batched solve one host read for every lane at a cycle's end), and each
+    lane's eigensolve runs on its own float64 copy, as its sequential solve
+    runs it."""
     op = _as_operator(A, b.device)
     if b.numel() == 1:
-        return _solve_1x1(op, b, x0, tol)
+        return (yield from _solve_1x1_steps(op, b, x0, tol))
     if x0 is None:
         x0 = torch.zeros_like(b)
     dtype = b.dtype
@@ -137,7 +153,7 @@ def gmres_dr(
     cols_kb = torch.arange(kb)
 
     def apply_m(v):
-        return M(v) if M is not None else v
+        return (yield Apply(M, v)) if M is not None else v
 
     def lead_block(hlead, c_ext, keff):
         """On the host: Ω with Q₀ᵀ of the lead block's QR embedded, the
@@ -163,7 +179,7 @@ def gmres_dr(
         syncs = 0
         t = keff
         while True:
-            w = op(apply_m(v_basis[t]))
+            w = yield Apply(op, (yield from apply_m(v_basis[t])))
             h1, w = _cgs_pass(v_basis[: t + 1], w)
             h2, w = _cgs_pass(v_basis[: t + 1], w)
             h_val = torch.sqrt(tree_vdot(w, w))
@@ -180,10 +196,10 @@ def gmres_dr(
             if t >= m:
                 break
             syncs += 1
-            if bool((rel < tol) | (h_val < tol)):
+            if (yield Read((rel < tol) | (h_val < tol))):
                 break
         y = masked_back_substitution(hmat, giv.g, t)
-        dx = apply_m(row_combine(y, v_basis[:m]))
+        dx = yield from apply_m(row_combine(y, v_basis[:m]))
         return dx, t, ferr, h_val, y, syncs
 
     def deflate_step(hraw, c_resid, usable):
@@ -226,13 +242,13 @@ def gmres_dr(
         return tmat, hlead, c_ext, keff
 
     def true_residual(x):
-        r = b - op(x)
+        r = b - (yield Apply(op, x))
         beta = torch.sqrt(tree_vdot(r, r))
         return r, beta, beta / torch.clamp(beta0, min=tiny)
 
-    r_init, beta_init, rel_init = true_residual(x0)
-    converged, beta_host = torch.stack(
-        [((beta0 == 0) | (rel_init < tol)).to(dtype), beta_init]).tolist()
+    r_init, beta_init, rel_init = yield from true_residual(x0)
+    converged, beta_host = yield Read(torch.stack(
+        [((beta0 == 0) | (rel_init < tol)).to(dtype), beta_init]))
     converged = bool(converged)
     syncs = 1
     v_init = rows_like(m + 1, b)
@@ -247,7 +263,8 @@ def gmres_dr(
     while kcount < max_restarts and not converged and not breakdown:
         omega, g, hmat, hraw = lead_block(hlead, c_ext, keff)
         v_basis = v_init
-        dx, n_out, ferr, hb, y, inner_syncs = cycle(v_basis, omega, g, hmat, hraw, keff)
+        dx, n_out, ferr, hb, y, inner_syncs = yield from cycle(v_basis, omega, g, hmat,
+                                                               hraw, keff)
         syncs += inner_syncs
         x = x + dx
         # The least-squares residual in V_{m+1} coordinates drives the next
@@ -255,8 +272,9 @@ def gmres_dr(
         c_resid = c_ext.to(dev, dtype) - hraw @ y
         conv = ferr[n_out - 1] < tol
         bd = ((hb < tol) & ~conv) | ~torch.isfinite(c_resid).all()
-        host = torch.cat([torch.stack([conv, bd]).to(dtype), c_resid,
-                          hraw.reshape(-1)]).to(HOST, F64)
+        host = torch.tensor((yield Read(torch.cat([torch.stack([conv, bd]).to(dtype),
+                                                   c_resid, hraw.reshape(-1)]))),
+                            dtype=F64, device=HOST)
         syncs += 1
         converged, breakdown = bool(host[0]), bool(host[1])
         kcount += 1
@@ -268,8 +286,8 @@ def gmres_dr(
 
     # Exit certification on the true residual: the deflated coordinate
     # recurrences are not trusted for the final claim.
-    _, _, rel_true = true_residual(x)
-    certified = bool(rel_true < tol * 10.0)
+    _, _, rel_true = yield from true_residual(x)
+    certified = yield Read(rel_true < tol * 10.0)
     syncs += 1
     if converged and certified:
         status = SolverStatus.CONVERGED

@@ -25,7 +25,7 @@ import torch
 from gmres_tpu_torch.ops.blas import tree_zeros_like
 from gmres_tpu_torch.solvers.cg import _in_dtype
 from gmres_tpu_torch.solvers.lsqr import _certify, _normalize
-from gmres_tpu_torch.solvers.qmr import derived_transpose
+from gmres_tpu_torch.solvers.requests import Apply, Read, run, transposed
 from gmres_tpu_torch.types import SolveResult, SolverStatus
 
 
@@ -48,6 +48,15 @@ def lsmr(
     the monotone |ζ̄|; ``AH`` the adjoint (derived when omitted).
     ``iterations`` counts bidiagonalisation steps; ``residual`` is the
     certified ‖b − Ax‖₂ and ``residual_history`` the ‖r‖ estimates."""
+    return run(lsmr_steps(A, b, x_like=x_like, AH=AH, tol=tol, atol=atol,
+                          max_iterations=max_iterations, damp=damp))
+
+
+def lsmr_steps(A, b, *, x_like=None, AH=None, tol=1e-9, atol=None,
+               max_iterations=10_000, damp=0.0):
+    """``lsmr``'s solve as steps (``solvers/requests.py``), returning its
+    SolveResult. Aᴴ is ``requests.transposed`` when derived: in a batched
+    solve one pullback for the lanes that ask together."""
     if x_like is None:
         x_like = b
     if atol is None:
@@ -55,7 +64,7 @@ def lsmr(
     rdtype = b.real.dtype if b.is_complex() else b.dtype
     tol, atol = _in_dtype(tol, rdtype), _in_dtype(atol, rdtype)
     if AH is None:
-        AH = derived_transpose(A, x_like)
+        AH = transposed(A, x_like)
     dev = b.device
     tiny = torch.finfo(rdtype).tiny
 
@@ -64,9 +73,9 @@ def lsmr(
 
     x = tree_zeros_like(x_like)
     u, beta1 = _normalize(b)
-    v, alpha1 = _normalize(AH(u))
+    v, alpha1 = _normalize((yield Apply(AH, u)))
     zetabar = alpha1 * beta1  # ‖Aᴴr₀‖
-    beta1_f, zetabar0_f = torch.stack([beta1, zetabar]).tolist()
+    beta1_f, zetabar0_f = yield Read(torch.stack([beta1, zetabar]))
     syncs = 1
     status = int(SolverStatus.CONVERGED if (beta1_f < tol or zetabar0_f < atol)
                  else SolverStatus.MAX_ITERATIONS)
@@ -82,8 +91,8 @@ def lsmr(
     i = 0
     while i < max_iterations and status == SolverStatus.MAX_ITERATIONS:
         # Golub–Kahan step: β u ← A v − α u ; α v ← Aᴴ u − β v.
-        u, beta = _normalize(A(v) - alpha * u)
-        v, alpha_n = _normalize(AH(u) - beta * v)
+        u, beta = _normalize((yield Apply(A, v)) - alpha * u)
+        v, alpha_n = _normalize((yield Apply(AH, u)) - beta * v)
 
         # Q̂ folds the damping row into the bidiagonal.
         alphahat = torch.hypot(alphabar, lam)
@@ -136,7 +145,7 @@ def lsmr(
         arnorm = zetabar.abs()  # the monotone ‖Aᴴr − damp²x‖ estimate
         alpha = alpha_n
 
-        res_f, ar_f = torch.stack([res_est, arnorm]).tolist()
+        res_f, ar_f = yield Read(torch.stack([res_est, arnorm]))
         syncs += 1
         history.append(res_f)
         if res_f < tol or ar_f < atol:
@@ -145,7 +154,8 @@ def lsmr(
             status = int(SolverStatus.BREAKDOWN)
         i += 1
 
-    res_true, res_f, status = _certify(A, AH, b, x, lam, tol, atol, status)
+    res_true, res_f, status = yield from _certify(A, AH, b, x, lam, tol, atol,
+                                                      status)
     syncs += 1
     res, res_f = (res_true, res_f) if i > 0 else (beta1, beta1_f)
     hist = torch.tensor(history + [res_f] * (max_iterations - i), dtype=rdtype,

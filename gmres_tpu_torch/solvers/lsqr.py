@@ -8,7 +8,7 @@ operators; ``x_like`` gives the solution's shape and dtype).
 
 The adjoint. gmres_tpu derives Aᴴ as conj ∘ linear_transpose ∘ conj; here
 it is the pullback of ``torch.func.vjp`` of A at ``x_like``
-(``solvers/qmr.py:derived_transpose``), which for a complex operator is
+(``solvers/requests.py:derived_transpose``), which for a complex operator is
 already the adjoint — conjugating around it would give Aᵀ, not Aᴴ. On a
 CUDA tensor a stencil A is K1's full-grid route, whose backward is one K1
 launch with the mirrored coefficients: a solve launches K1 once at setup
@@ -29,7 +29,7 @@ import torch
 
 from gmres_tpu_torch.ops.blas import tree_norm, tree_zeros_like
 from gmres_tpu_torch.solvers.cg import _in_dtype
-from gmres_tpu_torch.solvers.qmr import derived_transpose
+from gmres_tpu_torch.solvers.requests import Apply, Read, run, transposed
 from gmres_tpu_torch.types import SolveResult, SolverStatus
 
 
@@ -44,11 +44,12 @@ def _certify(A, AH, b, x, damp, tol, atol, status):
     """The certification both least-squares solvers share: ‖b − A x‖ and
     the gradient norm ‖Aᴴr − damp²x‖ from the true residual; a CONVERGED
     claim that neither confirms becomes BREAKDOWN. Returns the true
-    residual norm (a 0-d tensor and its value) and the status."""
-    r_true = b - A(x)
+    residual norm (a 0-d tensor and its value) and the status (steps:
+    ``solvers/requests.py``)."""
+    r_true = b - (yield Apply(A, x))
     res_true = tree_norm(r_true)
-    grad = AH(r_true) - damp * damp * x
-    res_f, grad_f = torch.stack([res_true, tree_norm(grad)]).tolist()
+    grad = (yield Apply(AH, r_true)) - damp * damp * x
+    res_f, grad_f = yield Read(torch.stack([res_true, tree_norm(grad)]))
     if status == SolverStatus.CONVERGED and not (res_f < tol or grad_f < atol):
         status = int(SolverStatus.BREAKDOWN)
     return res_true, res_f, status
@@ -72,6 +73,15 @@ def lsqr(
     adjoint (derived when omitted). ``iterations`` counts bidiagonalisation
     steps; ``residual`` is the certified ‖b − Ax‖₂ and
     ``residual_history`` the ‖r‖ estimates."""
+    return run(lsqr_steps(A, b, x_like=x_like, AH=AH, tol=tol, atol=atol,
+                          max_iterations=max_iterations, damp=damp))
+
+
+def lsqr_steps(A, b, *, x_like=None, AH=None, tol=1e-9, atol=None,
+               max_iterations=10_000, damp=0.0):
+    """``lsqr``'s solve as steps (``solvers/requests.py``), returning its
+    SolveResult. Aᴴ is ``requests.transposed`` when derived: in a batched
+    solve one pullback for the lanes that ask together."""
     if x_like is None:
         x_like = b
     if atol is None:
@@ -79,7 +89,7 @@ def lsqr(
     rdtype = b.real.dtype if b.is_complex() else b.dtype
     tol, atol = _in_dtype(tol, rdtype), _in_dtype(atol, rdtype)
     if AH is None:
-        AH = derived_transpose(A, x_like)
+        AH = transposed(A, x_like)
     dev = b.device
     tiny = torch.finfo(rdtype).tiny
 
@@ -88,11 +98,11 @@ def lsqr(
 
     x = tree_zeros_like(x_like)
     u, beta = _normalize(b)
-    v, alfa = _normalize(AH(u))
+    v, alfa = _normalize((yield Apply(AH, u)))
     w = v
     phibar, rhobar = beta, alfa
     arnorm0 = alfa * beta
-    beta_f, arnorm0_f = torch.stack([beta, arnorm0]).tolist()
+    beta_f, arnorm0_f = yield Read(torch.stack([beta, arnorm0]))
     syncs = 1
     status = int(SolverStatus.CONVERGED if (beta_f < tol or arnorm0_f < atol)
                  else SolverStatus.MAX_ITERATIONS)
@@ -102,8 +112,8 @@ def lsqr(
     i = 0
     while i < max_iterations and status == SolverStatus.MAX_ITERATIONS:
         # Golub–Kahan step: β u ← A v − α u ; α v ← Aᴴ u − β v.
-        u, beta_n = _normalize(A(v) - alfa * u)
-        v_new, alfa_n = _normalize(AH(u) - beta_n * v)
+        u, beta_n = _normalize((yield Apply(A, v)) - alfa * u)
+        v_new, alfa_n = _normalize((yield Apply(AH, u)) - beta_n * v)
         # The damping row first (Paige–Saunders eqn 4.10); ψ stays in the
         # augmented residual ‖(b − Ax; damp·x)‖.
         rhobar1 = torch.hypot(rhobar, dampr)
@@ -126,7 +136,7 @@ def lsqr(
         v, alfa = v_new, alfa_n
         res_est = torch.sqrt(phibar * phibar + res2_sq)
         arnorm = (phibar * alfa_n * c).abs()
-        res_f, ar_f = torch.stack([res_est, arnorm]).tolist()
+        res_f, ar_f = yield Read(torch.stack([res_est, arnorm]))
         syncs += 1
         history.append(res_f)
         if res_f < tol or ar_f < atol:
@@ -135,7 +145,8 @@ def lsqr(
             status = int(SolverStatus.BREAKDOWN)
         i += 1
 
-    res_true, res_f, status = _certify(A, AH, b, x, dampr, tol, atol, status)
+    res_true, res_f, status = yield from _certify(A, AH, b, x, dampr, tol, atol,
+                                                      status)
     syncs += 1
     res, res_f = (res_true, res_f) if i > 0 else (beta, beta_f)
     hist = torch.tensor(history + [res_f] * (max_iterations - i), dtype=rdtype,

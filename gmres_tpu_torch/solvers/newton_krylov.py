@@ -116,7 +116,7 @@ def newton_krylov_steps(F, x0, *, tol=1e-9, max_newton=50, M=None, inner="gmres"
     """``newton_krylov``'s solve as steps (``solvers/requests.py``),
     returning its NewtonResult."""
     from gmres_tpu_torch.solvers.fgmres import fgmres_steps
-    from gmres_tpu_torch.solvers.gcrodr import gcrodr
+    from gmres_tpu_torch.solvers.gcrodr import gcrodr_steps
     from gmres_tpu_torch.solvers.gmres import gmres_steps
 
     if forcing not in ("ew", "fixed"):
@@ -170,8 +170,9 @@ def newton_krylov_steps(F, x0, *, tol=1e-9, max_newton=50, M=None, inner="gmres"
         j_apply = At(jv_of_f, x)
         eta = forcing_term(i, fnorm_f, fnorm_prev_f, eta_prev)
         if use_recycling:
-            res = gcrodr(j_apply, -fx, k=recycle_k, restart=restart, tol=eta,
-                         max_restarts=max_restarts, M=M, recycle=u_rec)
+            res = yield from gcrodr_steps(j_apply, -fx, k=recycle_k, restart=restart,
+                                          tol=eta, max_restarts=max_restarts, M=M,
+                                          recycle=u_rec)
             u_rec = res.recycle
             # + recycle_k: the per-step import (op·U to rebuild C).
             inner_tot += recycle_k + (max(res.restarts - 1, 0) * (restart - recycle_k)

@@ -22,6 +22,14 @@ transpose the cycle's ``fori_loop`` (ROADMAP queue 3).
 One host read an iteration: ‖r‖ and the breakdown tests come back in one
 stacked tensor. ``SolveResult.host_syncs`` counts the reads: the initial
 residual, one per iteration and the certification.
+
+The loop is a generator of steps (``qmr_steps``): each application of A, M,
+their transposes and each read is a request to its runner
+(``solvers/requests.py``). ``qmr`` drives it on its own;
+``solvers/batched.py`` drives one per lane of a batched solve, where the
+lanes' transposes of one operator are one pullback of the vmapped operator
+(on a stencil one K1 launch with each lane's mirrored coefficients,
+``ops/stencil.py:Stencil5Lanes``).
 """
 
 from __future__ import annotations
@@ -33,6 +41,14 @@ import torch
 
 from gmres_tpu_torch.ops.blas import tree_norm, tree_vdot
 from gmres_tpu_torch.solvers.cg import _in_dtype
+from gmres_tpu_torch.solvers.requests import (  # noqa: F401 (derived_transpose)
+    Apply,
+    Read,
+    composed,
+    derived_transpose,
+    run,
+    transposed,
+)
 from gmres_tpu_torch.types import (
     LinearOperator,
     Preconditioner,
@@ -44,21 +60,6 @@ from gmres_tpu_torch.types import (
 def _safe(d: torch.Tensor) -> torch.Tensor:
     """d where |d| > 0, else 1 (a guarded divisor)."""
     return torch.where(d.abs() > 0, d, torch.ones_like(d))
-
-
-def derived_transpose(op, like: torch.Tensor):
-    """The transpose u ↦ opᵀ u of a linear operator, as the pullback of
-    ``torch.func.vjp`` of op at ``like`` (one application of op now; one
-    backward pass a call). For a complex operator the pullback is already
-    the adjoint opᴴ (PyTorch's convention for complex cotangents), which
-    gmres_tpu builds as conj ∘ linear_transpose ∘ conj."""
-    _, pullback = torch.func.vjp(op, like)
-
-    def apply_t(u: torch.Tensor) -> torch.Tensor:
-        (out,) = pullback(u)
-        return out
-
-    return apply_t
 
 
 def qmr(
@@ -81,28 +82,44 @@ def qmr(
     operator (M∘A)ᵀ, derived when omitted; ``MT`` the transpose of M alone,
     with which (M∘A)ᵀ = Aᵀ∘Mᵀ is composed and only Aᵀ derived. Complex b
     raises ValueError, as in gmres_tpu."""
+    return run(qmr_steps(A, b, tol=tol, max_iterations=max_iterations, M=M, x0=x0,
+                         AT=AT, MT=MT))
+
+
+def qmr_steps(A, b, *, tol=1e-9, max_iterations=10_000, M=None, x0=None, AT=None,
+              MT=None):
+    """``qmr``'s solve as steps (``solvers/requests.py``), returning its
+    SolveResult. Aᵀ (or (M∘A)ᵀ) is ``requests.transposed``: in a batched
+    solve one pullback for the lanes that ask together."""
     if b.is_complex():
         raise ValueError("qmr supports real dtypes only")
     dtype = b.dtype
     tol = _in_dtype(tol, dtype)
 
     def op(v):
-        return M(A(v)) if M is not None else A(v)
+        av = yield Apply(A, v)
+        return (yield Apply(M, av)) if M is not None else av
 
     if AT is None:
         if MT is not None and M is not None:
-            a_t = derived_transpose(A, b)
+            a_t = transposed(A, b)
 
-            def AT(u):
-                return a_t(MT(u))
+            def apply_t(u):
+                return (yield Apply(a_t, (yield Apply(MT, u))))
         else:
-            AT = derived_transpose(op, b)
+            op_t = transposed(composed(M, A) if M is not None else A, b)
 
-    rhs = M(b) if M is not None else b
+            def apply_t(u):
+                return (yield Apply(op_t, u))
+    else:
+        def apply_t(u):
+            return (yield Apply(AT, u))
+
+    rhs = (yield Apply(M, b)) if M is not None else b
     x = torch.zeros_like(rhs) if x0 is None else x0
-    r = rhs - op(x) if x0 is not None else rhs
+    r = rhs - (yield from op(x)) if x0 is not None else rhs
     beta0 = tree_norm(r)
-    beta0_f = float(beta0)
+    beta0_f = yield Read(beta0)
     syncs = 1
     zero_v = torch.zeros_like(r)
     one = torch.ones((), dtype=dtype, device=b.device)
@@ -123,11 +140,11 @@ def qmr(
         coef_q = z if first else rho * delta / _safe(eps_prev)
         p = v - coef_p * p
         q = w - coef_q * q
-        p_t = op(p)
+        p_t = yield from op(p)
         eps_i = tree_vdot(q, p_t)
         beta = eps_i / _safe(delta)
         v_t = p_t - beta * v
-        w_t = AT(q) - beta * w
+        w_t = (yield from apply_t(q)) - beta * w
         rho_next = tree_norm(v_t)
         xi_next = tree_norm(w_t)
         theta = rho_next / _safe(gamma * beta.abs())
@@ -139,8 +156,8 @@ def qmr(
         x = x + d
         r = r - s
         resid = tree_norm(r)
-        resid_f, delta_f, eps_f, rho_f, xi_f, beta_f = torch.stack(
-            [resid, delta, eps_i, rho_next, xi_next, beta]).tolist()
+        resid_f, delta_f, eps_f, rho_f, xi_f, beta_f = yield Read(torch.stack(
+            [resid, delta, eps_i, rho_next, xi_next, beta]))
         syncs += 1
         history.append(resid_f)
         if resid_f < tol:
@@ -156,8 +173,8 @@ def qmr(
         i += 1
 
     # Certify the true (preconditioned) residual.
-    res_true = tree_norm(rhs - op(x))
-    res_f = float(res_true)
+    res_true = tree_norm(rhs - (yield from op(x)))
+    res_f = yield Read(res_true)
     syncs += 1
     if status == SolverStatus.CONVERGED and res_f >= tol:
         status = int(SolverStatus.BREAKDOWN)

@@ -17,13 +17,27 @@ same order. ``run_lanes`` drives one generator per lane and answers the
 lanes' requests together: one ``torch.func.vmap`` application for the
 lanes that ask for the same operator (``LaneOperator``), one host read for
 the lanes that wait on a read.
+
+Operators made from the solve's A and M keep the lanes together:
+``transposed(A, like)`` is Aᵀ (the pullback of ``torch.func.vjp``; for a
+LaneOperator one pullback of the vmapped operator for the lanes that ask
+together, ``LaneTranspose``), ``composed(M, A)`` is M∘A, and
+``rows(A)`` is A on each row of a block (``ops/blas.py:row_apply``; for a
+LaneOperator one nested vmap, so a block of every lane's rows is one
+launch a kernel). ``capture_steps(call)`` takes the steps of the solve that
+a function of a solver starts (``run`` hands them out instead of running
+them), which is how ``implicit_solve``'s vmap rule batches a solver given
+as a function.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Generator, NamedTuple
 
 import torch
+
+from gmres_tpu_torch.ops.blas import row_apply
 
 
 class Apply(NamedTuple):
@@ -49,9 +63,10 @@ class At:
 
     def __init__(self, fn: Callable, *args):
         self.fn, self.args, self.calls = fn, args, 0
+        self.counted = self
 
     def __call__(self, v):
-        self.calls += 1
+        self.counted.calls += 1
         return self.fn(v, *self.args)
 
 
@@ -65,7 +80,7 @@ def _unfold(req: Apply):
 def _resolved(req: Apply):
     """``_unfold`` of a request being answered (counted in its ``At``)."""
     if isinstance(req.fn, At):
-        req.fn.calls += 1
+        req.fn.counted.calls += 1
     return _unfold(req)
 
 
@@ -75,9 +90,42 @@ def _key(fn, v, args) -> tuple:
             tuple((a.dtype, tuple(a.shape)) for a in args))
 
 
+_capture = threading.local()
+
+
+class _Captured(Exception):
+    """Raised by ``run`` while ``capture_steps`` waits: the steps it was
+    handed, not run."""
+
+    def __init__(self, steps):
+        super().__init__("steps captured")
+        self.steps = steps
+
+
+def capture_steps(call: Callable):
+    """The steps of the first solve that ``call()`` starts through ``run``
+    (every entry point of a solver that is a generator of steps), not run;
+    None where ``call`` returns before it starts one, or calls a
+    LaneOperator itself (``DirectCall``)."""
+    _capture.on = True
+    try:
+        call()
+    except _Captured as got:
+        return got.steps
+    except DirectCall:
+        return None
+    finally:
+        _capture.on = False
+    return None
+
+
 def run(steps: Generator):
     """Drive one solve's steps, answering each request as it comes; returns
-    the solve's result."""
+    the solve's result (or, while ``capture_steps`` waits, hands the steps
+    to it)."""
+    if getattr(_capture, "on", False):
+        _capture.on = False
+        raise _Captured(steps)
     try:
         req = next(steps)
         while True:
@@ -102,6 +150,69 @@ def derived(fn: Callable, key, make: Callable, lanes: bool = True) -> Callable:
     return derive(key, make, lanes) if derive is not None else make(fn)
 
 
+def derived_transpose(op, like: torch.Tensor):
+    """The transpose u ↦ opᵀ u of a linear operator, as the pullback of
+    ``torch.func.vjp`` of op at ``like`` (one application of op now; one
+    backward pass a call). For a complex operator the pullback is already
+    the adjoint opᴴ (PyTorch's convention for complex cotangents), which
+    gmres_tpu builds as conj ∘ linear_transpose ∘ conj."""
+    _, pullback = torch.func.vjp(op, like)
+
+    def apply_t(u: torch.Tensor) -> torch.Tensor:
+        (out,) = pullback(u)
+        return out
+
+    return apply_t
+
+
+def transposed(fn: Callable, like: torch.Tensor) -> Callable:
+    """fnᵀ for a solve's steps: ``derived_transpose(fn, like)`` for a plain
+    operator; for a batched solve's LaneOperator, its ``LaneTranspose`` at
+    this lane's ``like`` (an ``At``), so the lanes that ask together get one
+    pullback."""
+    if isinstance(fn, LaneOperator):
+        return At(fn.transpose(), like)
+    return derived_transpose(fn, like)
+
+
+def composed(outer: Callable, inner: Callable) -> Callable:
+    """outer∘inner (QMR's M∘A) for a solve's steps: one LaneOperator of the
+    composition, with inner's lane arguments, where inner is one."""
+    if isinstance(inner, LaneOperator):
+        out = outer.fn if isinstance(outer, LaneOperator) else outer
+        return inner.derive(("then", id(outer)),
+                            lambda f: lambda v, *a: out(f(v, *a)))
+    return lambda v: outer(inner(v))
+
+
+def _rows_fn(fn: Callable) -> Callable:
+    def on_rows(block, *args):
+        return row_apply(lambda v: fn(v, *args), block)
+
+    return on_rows
+
+
+def rows(fn: Callable) -> Callable:
+    """fn on each row of a (k, *shape) block (``row_apply``), for a solve's
+    steps: ``Apply(rows(A), block)``. A LaneOperator's is one LaneOperator
+    (a nested ``torch.func.vmap`` over the lanes' blocks); an ``At``'s
+    keeps its operands, shared by the rows, and counts in its ``calls`` (one
+    call a block, as ``row_apply`` calls it once)."""
+    if isinstance(fn, LaneOperator):
+        return fn.derive("rows", _rows_fn)
+    if isinstance(fn, At):
+        out = At(rows(fn.fn), *fn.args)
+        out.counted = fn.counted
+        return out
+    return _rows_fn(fn)
+
+
+class DirectCall(RuntimeError):
+    """A LaneOperator called directly: the code that called it is not steps
+    (a path of a solver that makes no request, or a solver function of the
+    caller's own)."""
+
+
 class LaneOperator:
     """A or M as each lane's steps see it: the runner answers its requests
     with ``torch.func.vmap`` over the lanes that make them. Calling it
@@ -114,9 +225,9 @@ class LaneOperator:
         self.lane_args = lane_args
         self._derived: dict = {}
 
-    def __call__(self, v):
-        raise RuntimeError("a batched solve's operator is applied by its runner "
-                           "(solvers/requests.py:run_lanes), not called directly")
+    def __call__(self, *args):
+        raise DirectCall("a batched solve's operator is applied by its runner "
+                         "(solvers/requests.py:run_lanes), not called directly")
 
     def derive(self, key, make: Callable, lanes: bool = True) -> "LaneOperator":
         op = self._derived.get(key)
@@ -124,6 +235,20 @@ class LaneOperator:
             op = self._derived[key] = LaneOperator(make(self.fn),
                                                    self.lane_args if lanes else ())
         return op
+
+    def transpose(self) -> "LaneTranspose":
+        op = self._derived.get("T")
+        if op is None:
+            op = self._derived["T"] = LaneTranspose(self)
+        return op
+
+    def lane_blocks(self, lanes: list) -> list:
+        """The lane arguments of ``lanes``, lanes first."""
+        if not self.lane_args:
+            return []
+        idx = torch.tensor(lanes, device=self.lane_args[0].device)
+        return [a if len(lanes) == a.shape[0] else a.index_select(0, idx)
+                for a in self.lane_args]
 
     def apply(self, vs: list, argss: list, lanes: list) -> list:
         """fn on each of the vectors ``vs`` (with each lane's operands
@@ -135,11 +260,39 @@ class LaneOperator:
             return [self.fn(vs[0].contiguous(), *(a.contiguous() for a in argss[0]),
                             *(a[lanes[0]] for a in self.lane_args))]
         blocks = [torch.stack(vs)] + [torch.stack(col) for col in zip(*argss)]
-        if self.lane_args:
-            idx = torch.tensor(lanes, device=self.lane_args[0].device)
-            blocks += [a if len(lanes) == a.shape[0] else a.index_select(0, idx)
-                       for a in self.lane_args]
-        return torch.func.vmap(self.fn)(*blocks).unbind()
+        return torch.func.vmap(self.fn)(*blocks, *self.lane_blocks(lanes)).unbind()
+
+
+class LaneTranspose(LaneOperator):
+    """The transpose of a LaneOperator, applied by ``run_lanes``: a request
+    ``Apply(At(T, like), u)`` (``transposed``) is uᵀ·A at the lane's
+    ``like``. The lanes that ask together get one pullback of
+    ``torch.func.vjp`` of the vmapped operator at their stacked ``like``s,
+    built once for that set of lanes and applied to each request (on a
+    stencil one K1 launch with each lane's mirrored coefficients); a lone
+    lane gets its sequential solve's ``derived_transpose``."""
+
+    def __init__(self, base: LaneOperator):
+        super().__init__(base.fn, base.lane_args)
+        self._pullbacks: dict = {}
+
+    def apply(self, vs: list, argss: list, lanes: list) -> list:
+        likes = [a[0] for a in argss]
+        key = tuple(lanes) + tuple(map(id, likes))
+        hit = self._pullbacks.get(key)
+        if hit is None:
+            if len(lanes) == 1:
+                own = [a[lanes[0]] for a in self.lane_args]
+                pullback = derived_transpose(lambda v: self.fn(v, *own), likes[0])
+            else:
+                blocks = self.lane_blocks(lanes)
+                pullback = derived_transpose(
+                    lambda vb: torch.func.vmap(self.fn)(vb, *blocks), torch.stack(likes))
+            # The likes are kept so that their ids stay theirs.
+            hit = self._pullbacks[key] = (likes, pullback)
+        if len(lanes) == 1:
+            return [hit[1](vs[0].contiguous())]
+        return hit[1](torch.stack(vs)).unbind()
 
 
 def _read_together(ts: list) -> list:
@@ -183,6 +336,7 @@ def run_lanes(gens: list):
     for i in range(n):
         advance(i, first=True)
     reads = 0
+    plain: dict = {}
     while any(p is not None for p in pending):
         groups: dict = {}
         for i, req in enumerate(pending):
@@ -191,7 +345,14 @@ def run_lanes(gens: list):
         if groups:
             lanes = max(groups.values(), key=len)
             taken = [_resolved(pending[i]) for i in lanes]
-            outs = taken[0][0].apply([t[1] for t in taken], [t[2] for t in taken], lanes)
+            fn = taken[0][0]
+            if not isinstance(fn, LaneOperator):
+                # A callable the caller shares by closure (a solver
+                # function's own M): vmapped over the lanes like M.
+                if id(fn) not in plain:
+                    plain[id(fn)] = (fn, LaneOperator(fn))
+                fn = plain[id(fn)][1]
+            outs = fn.apply([t[1] for t in taken], [t[2] for t in taken], lanes)
             for i, out in zip(lanes, outs):
                 advance(i, out)
             continue

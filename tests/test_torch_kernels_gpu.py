@@ -2198,3 +2198,151 @@ def test_batched_solves_on_the_card_equal_sequential(cuda_device):
         single = tt.bicgstab(lambda v: cd(v, g[k]), bcd[k], tol=1e-9)
         assert int(res.iterations[k]) == single.iterations
         assert torch.equal(res.x[k], single.x)
+
+
+# ---------------------------------------------------------------------------
+# K1's per-lane route with its rules, and nested (lanes, s) blocks: one
+# launch for all lanes' grids.
+# ---------------------------------------------------------------------------
+
+
+def _lane_coefs(lanes, device, seed=93):
+    c = seeded(seed, (lanes, 5)) * 0.3
+    c[:, 0] += 4.0
+    c[:, 1:] -= 1.0
+    return to_torch(c, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_per_lane_transpose_and_tangent_are_one_launch_each(cuda_device, dtype):
+    """Stencil5Lanes on the card: the transpose one K1 launch on the
+    cotangent block with each lane's mirrored coefficients, the tangent one
+    launch; each lane bitwise its single transposed launch; the coefficient
+    cotangent within rounding of the CPU rules'."""
+    lanes, n = 8, 256
+    c = _lane_coefs(lanes, cuda_device)
+    x = to_torch(seeded(94, (lanes, n, n)), cuda_device).to(dtype).requires_grad_()
+    ct = c.clone().requires_grad_()
+    gy = to_torch(seeded(95, (lanes, n, n)), cuda_device).to(dtype)
+    y = tst.Stencil5Lanes.apply(x, ct)
+    before = (tst.stencil5_cuda.launches, tst.stencil5_cuda.batched_launches)
+    gx, gc = torch.autograd.grad(y, (x, ct), gy)
+    torch.cuda.synchronize()
+    assert (tst.stencil5_cuda.launches - before[0],
+            tst.stencil5_cuda.batched_launches - before[1]) == (1, 1)
+    for k in range(lanes):
+        single = tst.stencil5_cuda(gy[k].contiguous(), None, None,
+                                   c[k, list(tst._MIRROR)].tolist())
+        assert torch.equal(gx[k], single), k
+    xc, cc = x.detach().cpu().requires_grad_(), c.cpu().requires_grad_()
+    _, gc_cpu = torch.autograd.grad(tst.Stencil5Lanes.apply(xc, cc), (xc, cc), gy.cpu())
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    torch.testing.assert_close(gc.cpu(), gc_cpu, rtol=tol, atol=tol)
+    tx = to_torch(seeded(96, (lanes, n, n)), cuda_device).to(dtype)
+    before = tst.stencil5_cuda.launches
+    _, t = torch.func.jvp(lambda v: tst.Stencil5Lanes.apply(v, c), (x.detach(),), (tx,))
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches - before == 2
+    assert torch.equal(t, tst.stencil5_cuda(tx, None, None, c))
+
+
+def test_transposes_of_a_gamma_family_under_vjp_of_vmap(cuda_device):
+    """A batched solve's transposes (requests.LaneTranspose): the pullback
+    of the vmapped operator family, one K1 launch an application, each lane
+    bitwise its sequential solve's derived transpose."""
+    lanes, n = 4, 512
+    gam = to_torch(np.array([0.1, 0.3, 0.5, 0.7]), cuda_device)
+    like = to_torch(seeded(97, (lanes, n, n)), cuda_device)
+    u = to_torch(seeded(98, (lanes, n, n)), cuda_device)
+
+    def a(v, g):
+        return tt.convection_diffusion_apply(v, g, 0.2)
+
+    _, pullback = torch.func.vjp(lambda vb: torch.func.vmap(a)(vb, gam), like)
+    before = (tst.stencil5_cuda.launches, tst.Stencil5Grid.rule_applications["transpose"])
+    (got,) = pullback(u)
+    torch.cuda.synchronize()
+    assert (tst.stencil5_cuda.launches - before[0],
+            tst.Stencil5Grid.rule_applications["transpose"] - before[1]) == (1, 1)
+    for k in range(lanes):
+        _, pb = torch.func.vjp(lambda v: a(v, gam[k]), like[k])
+        assert torch.equal(got[k], pb(u[k])[0]), k
+
+
+def test_nested_block_is_one_launch_a_kernel(cuda_device):
+    """A (lanes, s) block through row_apply inside vmap: one K1 launch (per
+    lane coefficients repeated down the rows) and one K1rr, K1cr and K2
+    launch a V-cycle application, each row bitwise its own launch."""
+    lanes, s, n = 3, 2, 256
+    gam = to_torch(np.array([0.2, 0.4, 0.6]), cuda_device)
+    x = to_torch(seeded(99, (lanes, s, n, n)), cuda_device)
+    before = tst.stencil5_cuda.launches
+    y = torch.func.vmap(lambda xl, g: tt.ops.blas.row_apply(
+        lambda v: tt.convection_diffusion_apply(v, g, 0.2), xl))(x, gam)
+    torch.cuda.synchronize()
+    assert tst.stencil5_cuda.launches - before == 1
+    for k in range(lanes):
+        for j in range(s):
+            assert torch.equal(y[k, j], tt.convection_diffusion_apply(
+                x[k, j].contiguous(), float(gam[k]), 0.2))
+    m = tt.poisson_multigrid_preconditioner(n)
+    counters = (tst.residual_restrict_cuda, tst.correct_residual_cuda, tfu.chebk_cuda)
+    m(x[0, 0])  # builds the cycle's plan
+    torch.cuda.synchronize()
+    single = [c.launches for c in counters]
+    z0 = m(x[0, 0].contiguous())
+    torch.cuda.synchronize()
+    per_apply = [c.launches - b for c, b in zip(counters, single)]
+    before = [c.launches for c in counters]
+    z = torch.func.vmap(lambda xl: tt.ops.blas.row_apply(m, xl))(x)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == per_apply
+    assert torch.equal(z[0, 0], z0)
+
+
+def test_batched_qmr_lanes_on_the_card_are_their_sequential_solves(cuda_device):
+    """batched_solve(qmr) over γ lanes on the card: each lane bitwise its
+    sequential solve; an iteration's transposes of all lanes one K1 launch."""
+    n = 32
+    gam = to_torch(np.array([0.2, 0.4, 0.6]), cuda_device)
+
+    def a(v, g):
+        return tt.convection_diffusion_apply(v, g, 0.2)
+
+    bs = torch.stack([a(torch.ones((n, n), dtype=torch.float64, device=cuda_device), g)
+                      for g in gam])
+    before = tst.Stencil5Grid.rule_applications["transpose"]
+    res = tt.batched_solve(tt.qmr, a, bs, lane_args=(gam,), tol=1e-9, max_iterations=3000)
+    torch.cuda.synchronize()
+    transposes = tst.Stencil5Grid.rule_applications["transpose"] - before
+    singles = [tt.qmr(lambda v, g=g: a(v, g), bs[k], tol=1e-9, max_iterations=3000)
+               for k, g in enumerate(gam)]
+    longest = max(s.iterations for s in singles)
+    assert longest <= transposes < sum(s.iterations for s in singles)
+    for k, single in enumerate(singles):
+        assert int(res.iterations[k]) == single.iterations and single.converged
+        assert torch.equal(res.x[k], single.x), k
+
+
+def test_implicit_vmap_of_grad_on_the_card(cuda_device):
+    """torch.func.vmap(torch.func.grad(loss)) through implicit_solve on the
+    card (convdiff, GMRES): the lanes' solves batched, each lane's gradient
+    within 1e-8 of its torch.func.grad."""
+    n = 64
+    b = torch.ones((n, n), dtype=torch.float64, device=cuda_device)
+
+    def solver(op, rhs):
+        return tt.gmres(op, rhs, restart=30, tol=1e-12, max_restarts=200,
+                        compute_v_err=False)
+
+    def loss(g):
+        return torch.sum(tt.implicit_solve(
+            lambda gm: (lambda v: tt.convection_diffusion_apply(v, gm, 0.1)), g, b,
+            solver=solver) ** 2)
+
+    gammas = to_torch(np.array([0.1, 0.3, 0.5]), cuda_device)
+    before = dict(tt.implicit_solve.lane_paths)
+    grads = torch.func.vmap(torch.func.grad(loss))(gammas)
+    assert tt.implicit_solve.lane_paths["batched"] - before["batched"] == 2
+    singles = torch.stack([torch.func.grad(loss)(g) for g in gammas])
+    torch.testing.assert_close(grads, singles, rtol=1e-8, atol=0)
