@@ -13,6 +13,8 @@
     python3 chip_smoke.py --phase23            # the build and phase 23 alone
     python3 chip_smoke.py --phase24            # the build and phase 24 alone
     python3 chip_smoke.py --phase25            # the build and phase 25 alone
+    python3 chip_smoke.py --phase26            # the build and phase 26 alone
+    python3 chip_smoke.py --phase27            # the build and phase 27 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -20,12 +22,13 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase15`` and ``--phase17`` to ``--phase25`` modes build the
+The ``--phase15`` and ``--phase17`` to ``--phase27`` modes build the
 kernels and run that phase alone, with its checks. The smoke run runs
-phases 1-14, 16, 24 and 25 in turn, then phases 15 and 17-23, which time no
-kernel, in four worker processes at once (``--worker OUT PHASE...``, each
-pickling what the kernel report reads of its phases to OUT; WORKER_GROUPS),
-and prints each worker's output in turn. Phases of the smoke run:
+phases 1-14, 16 and 24-26 in turn, then phases 15, 17-23 and 27, which time
+no kernel, in four worker processes at once (``--worker OUT PHASE...``, each
+pickling what the kernel report reads of its phases to OUT; WORKER_GROUPS:
+19; 15 and 18; 20, 21 and 27; 22, 17 and 23), and prints each worker's
+output in turn. Phases of the smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
    power limit as nvidia-smi reports them.
@@ -398,6 +401,42 @@ and prints each worker's output in turn. Phases of the smoke run:
     SLQ's probes as lanes, each with the launch counts set to 0 just before
     and read just after; each lane's counts and x its sequential run's to
     the bit.
+
+26. (h) K1's per-lane transposed launch (the backward rule of
+    ``ops/stencil.py:Stencil5Lanes``) on 8 lanes of 2048² f32 and f64, bitwise
+    against the launch and its 8 single transposed launches, with device ms,
+    the bound and a grouped ``F.conv2d``; then ``batched_solve`` of QMR (the
+    convdiff cycle and its transpose as MT), LSQR and LSMR over γ lanes,
+    GMRES-DR(30, 10) with cbpr2, GCRO-DR(40, 10) with the cycle over γ,
+    Newton–Krylov with the gcrodr inner over the Bratu λ-sweep, block CG and
+    block GMRES(30) with the V-cycle, and vmap(grad) through
+    ``implicit_solve`` over γ. Each row (``batched_row``): each lane's counts
+    and x its sequential run's to the bit, host reads the longest lane's,
+    K1's launches by role (forward, transpose, tangent) and K1rr, K1cr, K2
+    between the longest lane's and all lanes'; the batched wall against the
+    lanes in turn.
+27. ``batched_solve`` over the eigensolvers, matrix functions and time
+    steppers, in a worker: (a) ``lanczos_bounds`` on Poisson 1024² + s·I,
+    s ∈ P27_SHIFTS, 40 steps; (b) ``funm_lanczos`` (A^(-1/2)·b) and
+    ``expm_multiply`` (t 0.1 and a vector of 3 times) on the same lanes, 30
+    steps; (c) ``trace_funm`` log det on Poisson 512² + s·I, 8 probes a lane,
+    40 steps; (d) ``exponential_evolve`` on Poisson 256² + s·I, 5 steps,
+    constant forcing; (e) ``theta_evolve``, Crank–Nicolson, 5 steps:
+    GCRO-DR(40, 10) with the σ-shifted cycle on convdiff 256² over γx, and CG
+    with the V-cycle on Poisson 1024² + s·I; (f) LOBPCG + the V-cycle, k 4,
+    Poisson 1024² + s·I, rtol 1e-4; (g) Krylov–Schur on a complex basis on
+    convdiff 256² over γ (γx, 0.01), γx ∈ P27_EIG_GAMMAS, steps 40. Each row
+    (``batched_row``) beside the same lanes run one after another, the
+    launch counts set to 0 just before each run and read just after: each
+    lane's counts, status and outputs (bounds, y, samples, states,
+    eigenpairs) its sequential run's to the bit; host reads the longest
+    lane's; K1, K1rr, K1cr and K2 launches the longest lane's (the lockstep
+    rows (a)–(d)) or between the longest lane's and all lanes'; a numpy
+    check: the sine transform's closed form for (a), (b), (d), log det
+    within 3 standard errors, LOBPCG's λ within 1e-6 of the closed form,
+    each θ-step's ‖rhs − S u‖/‖rhs‖, each Krylov–Schur pair's ‖A x − λ x‖
+    under tol and its λ within 1e-6 of the closed form; the batched wall
+    against the lanes in turn.
 
 Phases 12–14 share one NCCL process group made by the script; phases 21,
 22 and 23 make one each. Any failure
@@ -6475,84 +6514,142 @@ def p24_block_rows(gt_torch, dev, workdir):
     return rows
 
 
-def p24_solve_row(gt_torch, label, solver, A, bs, kw, residual, *, lane_args=(),
-                  lane_op=None, lockstep=True, fields=("iterations", "status"),
-                  kernels=KERNELS, counters=None, phase="phase 24 (d)"):
-    """(d) One batched solve at full width after an untimed one, with the
-    launch counts set to 0 just before it and read just after, then each
-    lane's sequential solve on the card (after an untimed one of lane 0),
-    timed and counted the same way. Required: each lane's counts and x
-    those of its sequential solve, to the bit; one host read an iteration
-    for the batch (its host syncs the longest lane's); and each kernel's
-    launches those of the longest lane where the lanes run one sequence of
-    steps until each stops (`lockstep`: CG), else between the longest
-    lane's and all lanes' together (GMRES lanes split between restarts,
-    BiCGSTAB lanes at a residual replacement or a certification matvec
-    that another lane makes at another iteration; the runner then serves
-    the larger group first). A lone lane's application is single launches.
-    `residual(k, x)` (numpy float64) is returned for the caller's bound.
-    `kernels` and `counters` (mg_counters' form) name the kernels counted."""
+def lockstep_launches(label, batched, seqs, keys):
+    """A launch rule of batched_row: each of `keys` launched in the batched
+    run exactly as often as in the longest lane's sequential run (the lanes
+    run one sequence of steps until each stops: CG, the fixed-length
+    factorizations). Returns (longest, every)."""
+    longest = {k: max(s[k] for s in seqs) for k in keys}
+    every = {k: sum(s[k] for s in seqs) for k in keys}
+    require(all(batched[k] == longest[k] for k in keys),
+            f"{label}: launches { {k: batched[k] for k in keys} } against the longest "
+            f"lane's {longest}")
+    return longest, every
+
+
+def between_launches(label, batched, seqs, keys):
+    """A launch rule of batched_row: each of `keys` launched in the batched
+    run between the longest lane's sequential count and all lanes' together,
+    and not at all where no lane launched it (the lanes that wait on one
+    operator share a launch; a lane that stops earlier drops out; lanes
+    whose steps differ wait on different operators and the runner serves
+    the larger group first, so a change of waiting group costs one more
+    application; a transposed set of lanes that changes takes one more
+    forward for its pullback's primal). Returns (longest, every)."""
+    longest = {k: max(s[k] for s in seqs) for k in keys}
+    every = {k: sum(s[k] for s in seqs) for k in keys}
+    require(all(longest[k] <= batched[k] <= every[k] for k in keys if every[k] > 0),
+            f"{label}: launches { {k: batched[k] for k in keys} } against the longest "
+            f"lane's {longest} and all lanes' {every}")
+    require(all(batched[k] == 0 for k in keys if every[k] == 0),
+            f"{label}: launches { {k: batched[k] for k in keys} } where the lanes made "
+            f"none {every}")
+    return longest, every
+
+
+def batched_row(gt_torch, label, solver, A, bs, kw, residual, *, rule, phase, bound=None,
+                lane_args=(), lane_op=None, fields=("iterations", "status"), outputs=("x",),
+                statuses=(0,), counter=None, keys=KERNELS, counts=None, blocks=None,
+                need_batched=True, wrap=None, single=None):
+    """One batched-solve row of phases 24-27: ``batched_solve`` after an
+    untimed one, then each lane's sequential run (after an untimed one of
+    lane 0), every run with the counts set to 0 just before it and read
+    just after. Required: each lane's `fields` (counts) and `outputs`
+    (tensors) those of its sequential run, to the bit; the batch's host
+    reads the longest lane's; the launches of `keys` by `rule`
+    (lockstep_launches or between_launches); with `need_batched`, a launch
+    on a lane block of each of `keys` the batch launched; each lane's status
+    in `statuses`; and each lane's numpy float64 check `residual(k, out)`
+    finite and, where `bound` is given, at most `bound` (out: the lane's x
+    for a solve, else a dict of its `outputs` as numpy arrays). A lone
+    lane's application is single launches. `counter(reset)` reads the
+    launch counts (mg_counters by default), `counts` maps them to the row's
+    launches (as read by default), `blocks` to its launches on lane blocks,
+    kept apart where given. `wrap(call)` makes one call of a thunk and
+    returns its result with ``host_syncs`` (default: call()); `single(A_k,
+    b_k)` is a lane's sequential run (default solver(A_k, b_k, **kw));
+    `statuses` None for a result without a status."""
     import numpy as np
     import torch
 
-    counters = counters or mg_counters
+    counter = counter or mg_counters
+    counts = counts or (lambda c: c)
+    wrap = wrap or (lambda call: call())
+    single = single or (lambda a, b: solver(a, b, **kw))
     lanes = bs.shape[0]
     lane_op = lane_op or (lambda k: A)
-    gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw)
-    counters(reset=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    count = counters()
-    require(all(count[f"{k} batched"] > 0 for k in kernels if count[k] > 0),
-            f"{label}: no batched launch in a batched solve {count}")
-    solver(lane_op(0), bs[0], **kw)
-    seq, seq_walls, seq_launches = [], [], []
-    for k in range(lanes):
-        counters(reset=True)
+
+    def timed(call):
+        counter(reset=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        one = solver(lane_op(k), bs[k], **kw)
+        out = wrap(call)
         torch.cuda.synchronize()
-        seq_walls.append(time.perf_counter() - t0)
-        seq_launches.append({key: v for key, v in counters().items() if key in kernels})
-        seq.append(one)
+        wall = time.perf_counter() - t0
+        return out, wall, counter()
+
+    def batch():
+        return gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw)
+
+    wrap(batch)
+    res, wall, raw = timed(batch)
+    count = counts(raw)
+    if need_batched:
+        require(all(raw[f"{k} batched"] > 0 for k in keys if raw[k] > 0),
+                f"{phase} {label}: no batched launch in a batched solve {raw}")
+    wrap(lambda: single(lane_op(0), bs[0]))
+    seqs, seq_counts, seq_walls = [], [], []
+    for k in range(lanes):
+        one, w, raw_k = timed(lambda: single(lane_op(k), bs[k]))
+        seqs.append(one)
+        seq_walls.append(w)
+        seq_counts.append(counts(raw_k))
     diffs, errs = [], []
-    for k, one in enumerate(seq):
+    for k, one in enumerate(seqs):
         for name in fields:
             got, want = int(getattr(res, name)[k]), int(getattr(one, name))
-            require(got == want, f"{label} lane {k}: {name} {got}, sequential {want}")
-        diffs.append(float((res.x[k] - one.x).abs().max()))
-        errs.append(residual(k, res.x[k].detach().cpu().numpy().astype(np.float64)))
-    longest = {key: max(sl[key] for sl in seq_launches) for key in kernels}
-    every = {key: sum(sl[key] for sl in seq_launches) for key in kernels}
-    syncs = max(one.host_syncs for one in seq)
+            require(got == want, f"{phase} {label} lane {k}: {name} {got}, sequential {want}")
+        for name in outputs:
+            got, want = getattr(res, name)[k], getattr(one, name)
+            require(got.shape == want.shape,
+                    f"{phase} {label} lane {k}: {name} {tuple(got.shape)}, sequential "
+                    f"{tuple(want.shape)}")
+            diffs.append(float((got - want).abs().max()) if got.numel() else 0.0)
+        if outputs == ("x",):
+            out = res.x[k].detach().cpu().numpy().astype(np.float64)
+        else:
+            out = {name: getattr(res, name)[k].detach().cpu().numpy() for name in outputs}
+        errs.append(residual(k, out))
+    longest, every = rule(f"{phase} {label}", count, seq_counts, keys)
+    syncs = max(one.host_syncs for one in seqs)
     lane_counts = {name: [int(v) for v in getattr(res, name).tolist()] for name in fields}
-    print(f"{phase}: {label}, {lanes} lanes: {lane_counts}; host reads "
-          f"{res.host_syncs} (the longest lane's {syncs}); launches "
-          f"{ {k: count[k] for k in kernels} } (batched "
-          f"{ {k: count[f'{k} batched'] for k in kernels} }; the longest lane's sequential "
-          f"{longest}, "
-          f"all lanes' {every}); batched wall {wall:.4f} s, {lanes} sequential walls "
-          f"{sum(seq_walls):.4f} s ({sum(seq_walls) / wall:.2f}x); max |x − sequential x| "
-          f"{max(diffs):.3e}; numpy residuals {[f'{e:.3e}' for e in errs]}", flush=True)
-    require(all(int(v) == 0 for v in res.status.tolist()), f"{label}: status {res.status}")
-    require(max(diffs) == 0.0, f"{label}: x differs from the sequential x by {max(diffs):.3e}")
+    print(f"{phase}: {label}, {lanes} lanes: {lane_counts}; host reads {res.host_syncs} "
+          f"(the longest lane's {syncs}); launches { {k: count[k] for k in keys} } "
+          + (f"(on blocks {blocks(raw)}) " if blocks else
+             f"(batched { {k: raw[f'{k} batched'] for k in keys} }) ")
+          + f"(the longest lane's sequential {longest}, all lanes' {every}); batched wall "
+          f"{wall:.4f} s, the lanes in turn {sum(seq_walls):.4f} s "
+          f"({sum(seq_walls) / wall:.2f}x); max |output − sequential| {max(diffs):.3e}; "
+          f"numpy checks {[f'{e:.3e}' for e in errs]}"
+          + (f" (bound {bound:g})" if bound is not None else ""), flush=True)
+    require(statuses is None or all(int(v) in statuses for v in res.status.tolist()),
+            f"{phase} {label}: status {getattr(res, 'status', None)}")
+    require(max(diffs) == 0.0, f"{phase} {label}: outputs differ from the sequential ones by "
+            f"{max(diffs):.3e}")
     require(res.host_syncs == syncs,
-            f"{label}: {res.host_syncs} host reads, the longest lane's {syncs}")
-    require(all(count[k] == longest[k] if lockstep else longest[k] <= count[k] <= every[k]
-                for k in kernels),
-            f"{label}: launches {count} against the longest lane's {longest} and all "
-            f"lanes' {every}")
-    require(all(np.isfinite(e) for e in errs), f"{label}: residuals {errs}")
-    return {"label": label, "lanes": lanes, "counts": lane_counts, "host_syncs": res.host_syncs,
-            "longest_lane_host_syncs": syncs, "launches": count,
-            "x_max": res.x.reshape(lanes, -1).amax(dim=1).tolist(),
-            "longest_lane_launches": longest, "wall_s": wall,
-            "sequential_walls_s": seq_walls, "max_x_diff": max(diffs),
-            "numpy_residuals": errs}
+            f"{phase} {label}: {res.host_syncs} host reads, the longest lane's {syncs}")
+    require(all(np.isfinite(e) and (bound is None or e <= bound) for e in errs),
+            f"{phase} {label}: numpy checks {errs} against {bound}")
+    row = {"label": label, "lanes": lanes, "counts": lane_counts,
+           "host_syncs": res.host_syncs, "longest_lane_host_syncs": syncs,
+           "launches": count, "longest_lane_launches": longest,
+           "all_lanes_launches": every, "wall_s": wall, "sequential_walls_s": seq_walls,
+           "max_output_diff": max(diffs), "numpy_residuals": errs}
+    if blocks:
+        row["block_launches"] = blocks(raw)
+    if outputs == ("x",):
+        row["x_max"] = res.x.reshape(lanes, -1).amax(dim=1).tolist()
+    return row
 
 
 def p24_batched_solves(gt_torch, dev):
@@ -6576,10 +6673,11 @@ def p24_batched_solves(gt_torch, dev):
     bs = torch.as_tensor(b_np, device=dev)
     kw = dict(restart=10, tol=TOL, M=m_inv, inner_dtype=torch.float32, certify="true",
               compute_v_err=False)
-    row = p24_solve_row(gt_torch, f"mg {n}x{n} gmres(10) f32 cycles", gt_torch.gmres, op, bs,
-                        kw, lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))
-                                               / np.linalg.norm(b_np[k])),
-                        lockstep=False, fields=("iterations", "restarts", "status"))
+    row = batched_row(gt_torch, f"mg {n}x{n} gmres(10) f32 cycles", gt_torch.gmres, op, bs,
+                      kw, lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))
+                                             / np.linalg.norm(b_np[k])),
+                      rule=between_launches, phase="phase 24 (d)",
+                      fields=("iterations", "restarts", "status"))
     require(max(row["numpy_residuals"]) <= TOL, f"mg batched: {row['numpy_residuals']}")
     rows.append(row)
 
@@ -6588,9 +6686,10 @@ def p24_batched_solves(gt_torch, dev):
     b_np = np.stack([np_stencil(x) for x in gen.standard_normal((P24_SOLVE_LANES, n, n))])
     bs = torch.as_tensor(b_np, device=dev)
     kw = dict(tol=CG_TOL, rtol=1e-10, M=m_inv)
-    row = p24_solve_row(gt_torch, f"cg mg {n}x{n}", gt_torch.cg, op, bs, kw,
-                        lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))
-                                           / np.linalg.norm(b_np[k])))
+    row = batched_row(gt_torch, f"cg mg {n}x{n}", gt_torch.cg, op, bs, kw,
+                      lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil(x))
+                                         / np.linalg.norm(b_np[k])),
+                      rule=lockstep_launches, phase="phase 24 (d)")
     require(max(row["numpy_residuals"]) <= 1e-9, f"cg batched: {row['numpy_residuals']}")
     rows.append(row)
 
@@ -6606,11 +6705,12 @@ def p24_batched_solves(gt_torch, dev):
     b_np = bs.cpu().numpy()
     coefs = [(4.0, -(1.0 + gx), -(1.0 - gx), -(1.0 + 0.5 * gx), -(1.0 - 0.5 * gx))
              for gx in P24_GAMMAS]
-    row = p24_solve_row(
+    row = batched_row(
         gt_torch, f"bicgstab convdiff {n}x{n} over γ {list(P24_GAMMAS)}", gt_torch.bicgstab,
         cd, bs, dict(tol=CONVDIFF_TOL, M=m_inv),
         lambda k, x: float(np.linalg.norm(b_np[k] - np_stencil_general(x, coefs[k]))),
-        lane_args=(g,), lane_op=lambda k: (lambda v: cd(v, g[k])), lockstep=False)
+        rule=between_launches, phase="phase 24 (d)", lane_args=(g,),
+        lane_op=lambda k: (lambda v: cd(v, g[k])))
     require(max(row["numpy_residuals"]) <= CONVDIFF_TOL, f"bicgstab batched: {row}")
     rows.append(row)
     return rows
@@ -6759,14 +6859,12 @@ def p25_unit_rhs(n, lanes, seed, dev):
 
 
 def p25_row(gt_torch, label, solver, A, bs, kw, residual, bound, **extra):
-    """One phase 25 solve row (p24_solve_row with K3 and K4 counted) and its
-    numpy residual bound."""
-    row = p24_solve_row(gt_torch, label, solver, A, bs, kw, residual, lockstep=False,
-                        kernels=P25_KERNELS, counters=p25_counters, phase="phase 25 (b)",
-                        **extra)
-    require(max(row["numpy_residuals"]) <= bound,
-            f"phase 25 {label}: numpy residuals {row['numpy_residuals']} > {bound:g}")
-    return row
+    """One phase 25 solve row: batched_row with K3 and K4 counted, the
+    launches between the longest lane's and all lanes', the numpy residual
+    at most `bound`."""
+    return batched_row(gt_torch, label, solver, A, bs, kw, residual, bound=bound,
+                       rule=between_launches, phase="phase 25 (b)", keys=P25_KERNELS,
+                       counter=p25_counters, **extra)
 
 
 def p25_batched_solves(gt_torch, dev):
@@ -6955,6 +7053,7 @@ P26_IMPLICIT_GAMMAS = (0.1, 0.3, 0.5, 0.7)
 P26_K1_T = ((2048, "float32"), (2048, "float64"))  # (h): 8 lanes, transposed
 P26_K1_T_LANES = 8
 P26_KERNELS = ("K1", "K1rr", "K1cr", "K2")
+P26_COUNTS = P26_KERNELS + ("K1 transpose", "K1 tangent", "K1 forward")  # p26_counts' keys
 
 
 def p26_counts(count) -> dict:
@@ -6984,81 +7083,16 @@ def p26_timed(fn):
             {f"{k} batched": count[f"{k} batched"] for k in P26_KERNELS})
 
 
-def p26_compare_launches(label, batched, seqs):
-    """Each kernel's (and K1 role's) launches in the batched run between the
-    longest lane's sequential count and all lanes' together (the lanes that
-    wait on one operator share a launch; a lane that stops earlier drops
-    out, and a transposed set of lanes that changes takes one more forward
-    for its pullback's primal). Returns (longest, every)."""
-    keys = list(batched)
-    longest = {k: max(s[k] for s in seqs) for k in keys}
-    every = {k: sum(s[k] for s in seqs) for k in keys}
-    require(all(longest[k] <= batched[k] <= every[k] for k in keys if every[k] > 0),
-            f"phase 26 {label}: launches {batched} against the longest lane's {longest} "
-            f"and all lanes' {every}")
-    require(all(batched[k] == 0 for k in keys if every[k] == 0),
-            f"phase 26 {label}: launches {batched} where the lanes made none {every}")
-    return longest, every
-
-
-def p26_row(gt_torch, label, solver, A, bs, kw, residual, bound, *, lane_args=(),
-            lane_op=None, fields=("iterations", "status"), statuses=(0,)):
-    """One phase 26 row: the batched solve after an untimed one, then each
-    lane's sequential solve (after an untimed one of lane 0), every run with
-    the counts set to 0 just before it and read just after. Required: each
-    lane's `fields` and x those of its sequential solve to the bit; the
-    batch's host reads the longest lane's; the launches by kernel and by K1
-    role between the longest lane's and all lanes' (p26_compare_launches);
-    each lane's numpy float64 residual `residual(k, x)` finite and ≤ bound."""
-    import numpy as np
-
-    lanes = bs.shape[0]
-    lane_op = lane_op or (lambda k: A)
-    res, wall, count, on_blocks = p26_timed(
-        lambda: gt_torch.batched_solve(solver, A, bs, lane_args=lane_args, **kw))
-    solver(lane_op(0), bs[0], **kw)
-    seqs, seq_counts, seq_walls = [], [], []
-    for k in range(lanes):
-        import torch
-
-        rule_counters(reset=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one = solver(lane_op(k), bs[k], **kw)
-        torch.cuda.synchronize()
-        seq_walls.append(time.perf_counter() - t0)
-        seq_counts.append(p26_counts(rule_counters()))
-        seqs.append(one)
-    diffs, errs = [], []
-    for k, one in enumerate(seqs):
-        for name in fields:
-            got, want = int(getattr(res, name)[k]), int(getattr(one, name))
-            require(got == want, f"phase 26 {label} lane {k}: {name} {got}, sequential {want}")
-        diffs.append(float((res.x[k] - one.x).abs().max()))
-        errs.append(residual(k, res.x[k].detach().cpu().numpy().astype(np.float64)))
-    longest, every = p26_compare_launches(label, count, seq_counts)
-    syncs = max(one.host_syncs for one in seqs)
-    lane_counts = {name: [int(v) for v in getattr(res, name).tolist()] for name in fields}
-    print(f"phase 26: {label}, {lanes} lanes: {lane_counts}; host reads {res.host_syncs} "
-          f"(the longest lane's {syncs}); launches {count} (the longest lane's sequential "
-          f"{longest}, all lanes' {every}); batched wall {wall:.4f} s, the lanes in turn "
-          f"{sum(seq_walls):.4f} s ({sum(seq_walls) / wall:.2f}x); max |x − sequential x| "
-          f"{max(diffs):.3e}; numpy residuals {[f'{e:.3e}' for e in errs]} (bound {bound:g})",
-          flush=True)
-    require(all(int(v) in statuses for v in res.status.tolist()),
-            f"phase 26 {label}: status {res.status}")
-    require(max(diffs) == 0.0, f"phase 26 {label}: x differs from the sequential x by "
-            f"{max(diffs):.3e}")
-    require(res.host_syncs == syncs,
-            f"phase 26 {label}: {res.host_syncs} host reads, the longest lane's {syncs}")
-    require(all(np.isfinite(e) and e <= bound for e in errs),
-            f"phase 26 {label}: numpy residuals {errs} against {bound:g}")
-    return {"label": label, "lanes": lanes, "counts": lane_counts,
-            "host_syncs": res.host_syncs, "longest_lane_host_syncs": syncs,
-            "launches": count, "block_launches": on_blocks,
-            "longest_lane_launches": longest, "all_lanes_launches": every,
-            "wall_s": wall, "sequential_walls_s": seq_walls, "max_x_diff": max(diffs),
-            "numpy_residuals": errs}
+def p26_row(gt_torch, label, solver, A, bs, kw, residual, bound, **extra):
+    """One phase 26 row: batched_row with K1's launches split by role
+    (p26_counts) and those on lane blocks apart, each kernel and role
+    between the longest lane's and all lanes' (between_launches), the
+    numpy residual at most `bound`."""
+    return batched_row(gt_torch, label, solver, A, bs, kw, residual, bound=bound,
+                       rule=between_launches, phase="phase 26", counter=rule_counters,
+                       counts=p26_counts, keys=P26_COUNTS, need_batched=False,
+                       blocks=lambda c: {f"{k} batched": c[f"{k} batched"]
+                                         for k in P26_KERNELS}, **extra)
 
 
 def p26_convdiff(gt_torch, n, dev, gammas=P26_GAMMAS):
@@ -7269,7 +7303,7 @@ def p26_implicit_row(gt_torch, dev):
     with torch.no_grad():
         fd = [(float(loss(g + eps)) - float(loss(g - eps))) / (2 * eps) for g in gammas]
     fd_rel = max(abs(a - f) / abs(f) for a, f in zip(got, fd))
-    longest, every = p26_compare_launches("(g)", count, seq_counts)
+    longest, every = between_launches("phase 26 (g)", count, seq_counts, P26_COUNTS)
     print(f"phase 26: (g) vmap(grad(loss)) through implicit_solve, convdiff {n}x{n} over γ "
           f"{list(P26_IMPLICIT_GAMMAS)}: gradients {got}; torch.func.grad at each γ "
           f"{singles} (max rel {rel:.3e}, rtol 1e-8); central differences max rel "
@@ -7398,6 +7432,367 @@ def phase_batched_rest(gt_torch, dev):
     return records, launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: batched_solve over the eigensolvers, matrix functions and time
+# steppers (lanczos_bounds, funm_lanczos, expm_multiply, trace_funm,
+# exponential_evolve, theta_evolve, lobpcg, arnoldi_eigs).
+# ---------------------------------------------------------------------------
+
+P27_SHIFTS = (0.0, 0.5, 1.0, 2.0)            # Poisson + s·I, one s a lane
+P27_N = POISSON_1024                         # (a), (b), (e) cg, (f)
+P27_LANCZOS_STEPS, P27_FUNM_STEPS = 40, 30
+P27_TIMES = (0.1, 0.5, 1.0)                  # (b): expm_multiply's vector of times
+P27_SLQ = (SLQ_N, SLQ_PROBES[0], SLQ_STEPS)  # (c): 512², 8 probes a lane, 40 steps
+P27_EVOLVE_N, P27_EVOLVE_STEPS = EVOLVE_N, 5  # (d), (e) gcrodr: 256², 5 steps
+P27_EIG_GAMMAS = (0.02, 0.03, 0.04)          # (g): γx of convdiff 256², γy 0.01
+
+
+def lanczos_with_reads(call):
+    """lanczos_bounds' (lo, hi), with the host reads its call made (its
+    result carries none): each ``tolist`` of a CUDA tensor, which is how
+    the runners answer a Read (solvers/requests.py)."""
+    import types
+
+    import torch
+
+    real, reads = torch.Tensor.tolist, [0]
+
+    def counting(self, *args, **kwargs):
+        reads[0] += int(self.is_cuda)
+        return real(self, *args, **kwargs)
+
+    torch.Tensor.tolist = counting
+    try:
+        lo, hi = call()
+    finally:
+        torch.Tensor.tolist = real
+    return types.SimpleNamespace(lo=lo, hi=hi, host_syncs=reads[0])
+
+
+def p27_poisson_lanes(n):
+    """The family A(v, s) = Poisson(v) + s·v, the lanes' shifts on the card's
+    device of the caller, and the closed form: the sine matrix S (S A S is
+    diagonal) and the Poisson eigenvalues Λ (n, n)."""
+    import numpy as np
+
+    s_mat = np.sqrt(2.0 / (n + 1)) * np.sin(
+        np.outer(np.arange(1, n + 1), np.arange(1, n + 1)) * np.pi / (n + 1))
+    c = 2.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+    return s_mat, c[:, None] + c[None, :]
+
+
+def sine_apply(s_mat, x, fvals):
+    """f(A)·x for A = S diag(Λ) S: S ((S x S) ⊙ f(Λ)) S, in numpy."""
+    return s_mat @ ((s_mat @ x @ s_mat) * fvals) @ s_mat
+
+
+def p27_rows_poisson(gt_torch, dev):
+    """(a) lanczos_bounds, (b) funm_lanczos and expm_multiply on Poisson
+    1024² + s·I over P27_SHIFTS; (c) trace_funm log det on Poisson 512² + s·I,
+    8 probes a lane; (d) exponential Euler on Poisson 256² + s·I: each lane
+    held to its sequential run to the bit, and to the closed form by the
+    sine transform."""
+    import numpy as np
+    import torch
+
+    rows = []
+    lanes = len(P27_SHIFTS)
+    shifts = torch.tensor(P27_SHIFTS, dtype=torch.float64, device=dev)
+    n = P27_N
+    op = gt_torch.poisson_operator(n)
+
+    def fam(v, s):
+        return op(v) + s * v
+
+    def lane(k):
+        return lambda v: fam(v, shifts[k])
+
+    s_mat, lam = p27_poisson_lanes(n)
+    gen = np.random.default_rng(SEED + 270)
+    bs_np = gen.standard_normal((lanes, n, n))
+    bs = torch.as_tensor(bs_np, device=dev)
+
+    def bounds_check(k, out):
+        """The larger distance of (lo, hi) from the closed form's (λ_min,
+        λ_max), over the spectrum's width (inf for a negative lo): 40 steps
+        place both extreme Ritz values (widened by their residuals) within
+        1% of it, though neither is a guaranteed bound until they converge."""
+        lo, hi = float(out["lo"]), float(out["hi"])
+        lam_min, lam_max = lam.min() + P27_SHIFTS[k], lam.max() + P27_SHIFTS[k]
+        print(f"phase 27 (a): s {P27_SHIFTS[k]}: [{lo:.10f}, {hi:.10f}] against the closed "
+              f"form [{lam_min:.10f}, {lam_max:.10f}]", flush=True)
+        if lo < 0:
+            return float("inf")
+        return max(abs(lo - lam_min), abs(hi - lam_max)) / (lam_max - lam_min)
+
+    rows.append(batched_row(
+        gt_torch, f"(a) lanczos_bounds poisson {n}x{n} + s·I over s {list(P27_SHIFTS)}, "
+                  f"steps {P27_LANCZOS_STEPS}", gt_torch.lanczos_bounds, fam, bs,
+        dict(steps=P27_LANCZOS_STEPS), bounds_check, bound=1e-2, rule=lockstep_launches,
+        phase="phase 27", lane_args=(shifts,), lane_op=lane, fields=(),
+        outputs=("lo", "hi"), statuses=None, wrap=lanczos_with_reads))
+
+    def rho_bound(k, m):
+        """A relative bound of m-step Lanczos on f(x) = x^(−1/2): 2√κ ρ^m,
+        ρ = (√κ − 1)/(√κ + 1) (Chebyshev), κ the lane's condition."""
+        kappa = (lam.max() + P27_SHIFTS[k]) / (lam.min() + P27_SHIFTS[k])
+        rho = (np.sqrt(kappa) - 1) / (np.sqrt(kappa) + 1)
+        return max(2 * np.sqrt(kappa) * rho ** m, 1e-10)
+
+    def invsqrt_check(k, out):
+        exact = sine_apply(s_mat, bs_np[k], 1.0 / np.sqrt(lam + P27_SHIFTS[k]))
+        err = np.linalg.norm(out["y"] - exact) / np.linalg.norm(exact)
+        bound = rho_bound(k, P27_FUNM_STEPS)
+        print(f"phase 27 (b): s {P27_SHIFTS[k]}: A^(-1/2) b relative error against the sine "
+              f"transform {err:.3e} (Chebyshev bound {bound:.3e}; Saad's estimate "
+              f"{float(out['error_estimate']) / np.linalg.norm(exact):.3e})", flush=True)
+        return err / bound
+
+    rows.append(batched_row(
+        gt_torch, f"(b) funm_lanczos A^(-1/2) b poisson {n}x{n} + s·I, steps "
+                  f"{P27_FUNM_STEPS}", gt_torch.funm_lanczos, fam, bs,
+        dict(f=lambda x: 1 / torch.sqrt(x), steps=P27_FUNM_STEPS), invsqrt_check, bound=1.0,
+        rule=lockstep_launches, phase="phase 27", lane_args=(shifts,), lane_op=lane,
+        fields=(), outputs=("y", "error_estimate", "asymmetry"), statuses=None))
+    for t in (0.1, P27_TIMES):
+        times = np.atleast_1d(np.asarray(t, dtype=np.float64))
+
+        def expm_check(k, out, times=times):
+            y = out["y"].reshape((len(times), n, n))
+            errs = [np.linalg.norm(y[i] - e) / np.linalg.norm(e) for i, e in enumerate(
+                sine_apply(s_mat, bs_np[k], np.exp(-ti * (lam + P27_SHIFTS[k])))
+                for ti in times)]
+            return max(errs)
+
+        rows.append(batched_row(
+            gt_torch, f"(b) expm_multiply t {t} poisson {n}x{n} + s·I, steps {P27_FUNM_STEPS}",
+            gt_torch.expm_multiply, fam, bs, dict(t=t, steps=P27_FUNM_STEPS), expm_check,
+            bound=EXPM_ERROR, rule=lockstep_launches, phase="phase 27", lane_args=(shifts,),
+            lane_op=lane, fields=(), outputs=("y", "error_estimate", "asymmetry"),
+            statuses=None))
+
+    n, probes, steps = P27_SLQ
+    op_slq = gt_torch.poisson_operator(n)
+
+    def fam_slq(v, s):
+        return op_slq(v) + s * v
+
+    _, lam_slq = p27_poisson_lanes(n)
+    likes = torch.zeros((lanes, n, n), dtype=torch.float64, device=dev)
+
+    def logdet_check(k, out):
+        exact = float(np.sum(np.log(lam_slq + P27_SHIFTS[k])))
+        z = abs(float(out["value"]) - exact) / float(out["stderr"])
+        print(f"phase 27 (c): s {P27_SHIFTS[k]}: log det {float(out['value']):.6f} ± "
+              f"{float(out['stderr']):.6f}, closed form {exact:.6f} ({z:.2f} stderr)",
+              flush=True)
+        return z
+
+    kw = dict(n_probes=probes, steps=steps, key=0)
+    rows.append(batched_row(
+        gt_torch, f"(c) trace_funm log det poisson {n}x{n} + s·I, {probes} probes a lane, "
+                  f"steps {steps}", gt_torch.trace_funm, fam_slq, likes,
+        dict(f=torch.log, **kw), logdet_check, bound=3.0, rule=lockstep_launches,
+        phase="phase 27", lane_args=(shifts,),
+        lane_op=lambda k: (lambda v: fam_slq(v, shifts[k])), fields=(),
+        outputs=("samples", "value", "stderr"), statuses=None,
+        single=lambda a, x: gt_torch.trace_funm(a, torch.log, x, **kw)))
+
+    n = P27_EVOLVE_N
+    op_ev = gt_torch.poisson_operator(n)
+
+    def fam_ev(v, s):
+        return op_ev(v) + s * v
+
+    s_ev, lam_ev = p27_poisson_lanes(n)
+    u0_np = gen.standard_normal((lanes, n, n))
+    f_np = gen.standard_normal((n, n))
+    dt = 0.5
+    kw = dict(dt=dt, n_steps=P27_EVOLVE_STEPS, steps=P27_FUNM_STEPS,
+              forcing=torch.as_tensor(f_np, device=dev))
+
+    def euler_check(k, out):
+        lk = lam_ev + P27_SHIFTS[k]
+        decay = np.exp(-P27_EVOLVE_STEPS * dt * lk)
+        exact = (sine_apply(s_ev, u0_np[k], decay)
+                 + sine_apply(s_ev, f_np, (1.0 - decay) / lk))
+        return float(np.linalg.norm(out["u"] - exact) / np.linalg.norm(exact))
+
+    rows.append(batched_row(
+        gt_torch, f"(d) exponential_evolve poisson {n}x{n} + s·I, {P27_EVOLVE_STEPS} steps, "
+                  "constant forcing", gt_torch.exponential_evolve, fam_ev,
+        torch.as_tensor(u0_np, device=dev), kw, euler_check, bound=EXPM_ERROR,
+        rule=lockstep_launches, phase="phase 27", lane_args=(shifts,),
+        lane_op=lambda k: (lambda v: fam_ev(v, shifts[k])), fields=(),
+        outputs=("u", "error_estimates"), statuses=None))
+    return rows
+
+
+def p27_theta_rows(gt_torch, dev):
+    """(e) theta_evolve, Crank–Nicolson, dt 1, 5 steps: GCRO-DR(40, 10) with
+    the σ-shifted convdiff cycle (σ = 1/(θΔt) = 2, built at γ (0.4, 0.2),
+    shared) on convdiff 256² over γx P26_GAMMAS (γy 0.2), tol 1e-9; CG with
+    the SPD shifted cycle for L + 2I over θΔt on Poisson 1024² + s·I, tol
+    1e-10 (absolute, unit-norm u0s). Each lane held to its sequential run to the
+    bit (states, per-step counts, statuses, residuals, trajectory), and
+    each step's ‖rhs − S u‖/‖rhs‖ recomputed in numpy."""
+    import numpy as np
+    import torch
+
+    rows = []
+    n = P27_EVOLVE_N
+    cd, g, coefs, _, _ = p26_convdiff(gt_torch, n, dev)
+    gen = np.random.default_rng(SEED + 275)
+    u0_np = gen.standard_normal((len(P26_GAMMAS), n, n))
+    cyc = gt_torch.convection_diffusion_multigrid_preconditioner(n, 0.4, 0.2, shift=2.0)
+    theta, dt = 0.5, 1.0
+
+    def steps_check(u0s, apply_l):
+        def check(k, out):
+            prev, worst = u0s[k], 0.0
+            for u in out["trajectory"]:
+                rhs = prev - (1.0 - theta) * dt * apply_l(k, prev)
+                r = rhs - (u + theta * dt * apply_l(k, u))
+                worst = max(worst, float(np.linalg.norm(r) / np.linalg.norm(rhs)))
+                prev = u
+            return worst
+
+        return check
+
+    kw = dict(dt=dt, n_steps=P27_EVOLVE_STEPS, theta=theta, solver="gcrodr", tol=1e-9,
+              restart=40, recycle_k=10, max_restarts=100, M=lambda r: cyc(r) / (theta * dt),
+              save_trajectory=True)
+    rows.append(batched_row(
+        gt_torch, f"(e) theta_evolve gcrodr(40, 10) + σ-shifted cycle, convdiff {n}x{n} over "
+                  f"γ {list(P26_GAMMAS)}, {P27_EVOLVE_STEPS} steps", gt_torch.theta_evolve,
+        cd, torch.as_tensor(u0_np, device=dev), kw,
+        steps_check(u0_np, lambda k, v: np_stencil_general(v.copy(), coefs[k])),
+        bound=EVOLVE_MG_NUMPY, rule=between_launches, phase="phase 27", lane_args=(g,),
+        lane_op=lambda k: (lambda v: cd(v, g[k])), fields=("status", "inner_total"),
+        outputs=("u", "iterations", "statuses", "residuals", "trajectory")))
+
+    n = P27_N
+    op = gt_torch.poisson_operator(n)
+    shifts = torch.tensor(P27_SHIFTS, dtype=torch.float64, device=dev)
+
+    def fam(v, s):
+        return op(v) + s * v
+
+    u0_np = gen.standard_normal((len(P27_SHIFTS), n, n))
+    u0_np /= np.linalg.norm(u0_np.reshape(len(P27_SHIFTS), -1), axis=1)[:, None, None]
+    # S = θΔt·(L + σI), σ = 1/(θΔt) + s: the SPD cycle for L + 2I (shared by
+    # the lanes) over θΔt, as gmres_tpu's theta_evolve docstring prescribes
+    # for stiff steps (the plain Poisson cycle leaves M S's spectrum spread
+    # over [1, 1 + σ/λ_min]: at 1024² CG stops at its 500-iteration cap).
+    mg = gt_torch.helmholtz_shifted_laplacian_preconditioner(n, 1.0 / (theta * dt), shift=1.0)
+    kw = dict(dt=dt, n_steps=P27_EVOLVE_STEPS, theta=theta, solver="cg", tol=1e-10,
+              M=lambda r: mg(r) / (theta * dt), save_trajectory=True)
+    rows.append(batched_row(
+        gt_torch, f"(e) theta_evolve cg + mg, poisson {n}x{n} + s·I over s "
+                  f"{list(P27_SHIFTS)}, {P27_EVOLVE_STEPS} steps", gt_torch.theta_evolve,
+        fam, torch.as_tensor(u0_np, device=dev), kw,
+        steps_check(u0_np, lambda k, v: np_stencil(v) + P27_SHIFTS[k] * v), bound=1e-8,
+        rule=between_launches, phase="phase 27", lane_args=(shifts,),
+        lane_op=lambda k: (lambda v: fam(v, shifts[k])), fields=("status", "inner_total"),
+        outputs=("u", "iterations", "statuses", "residuals", "trajectory")))
+    return rows
+
+
+def p27_eig_rows(gt_torch, dev):
+    """(f) LOBPCG + the Poisson V-cycle, k EIG_K, on Poisson 1024² + s·I over
+    P27_SHIFTS (tol 0, rtol 1e-4, seeded start blocks): eigenvalues within
+    1e-6 relative of the closed form; (g) Krylov–Schur on a complex basis,
+    nev EIG_K, steps 40, tol 1e-8, on convdiff 256² over γ (γx, 0.01), γx in
+    P27_EIG_GAMMAS (the eig program's start for every lane): every pair's
+    ‖A x − λ x‖ recomputed in numpy under tol, eigenvalues within 1e-6
+    relative of the closed form. Each lane held to its sequential run to
+    the bit."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.benchmarks import cli
+    from gmres_tpu_torch.models.convection_diffusion import (
+        convection_diffusion_apply,
+        convection_diffusion_coefs,
+        convection_diffusion_eigenvalues,
+    )
+
+    rows = []
+    n, k = P27_N, EIG_K
+    op = gt_torch.poisson_operator(n)
+    shifts = torch.tensor(P27_SHIFTS, dtype=torch.float64, device=dev)
+
+    def fam(v, s):
+        return op(v) + s * v
+
+    x0 = torch.as_tensor(np.random.default_rng(SEED + 277).standard_normal(
+        (len(P27_SHIFTS), k, n, n)), device=dev)
+    exact = poisson_smallest(n, k)
+
+    def lobpcg_check(lane, out):
+        lam = np.sort(out["eigenvalues"])
+        return float(np.max(np.abs(lam - (exact + P27_SHIFTS[lane])))) / float(np.max(lam))
+
+    rows.append(batched_row(
+        gt_torch, f"(f) lobpcg k {k} + mg poisson {n}x{n} + s·I over s {list(P27_SHIFTS)}, "
+                  "rtol 1e-4", gt_torch.lobpcg, fam, x0,
+        dict(tol=0.0, rtol=1e-4, M=gt_torch.poisson_multigrid_preconditioner(n)),
+        lobpcg_check, bound=1e-6, rule=between_launches, phase="phase 27",
+        lane_args=(shifts,), lane_op=lambda lane: (lambda v: fam(v, shifts[lane])),
+        outputs=("eigenvalues", "x", "residuals")))
+
+    n, tol = EIG_CD_N, 1e-8
+    g = torch.tensor(P27_EIG_GAMMAS, dtype=torch.float64, device=dev)
+
+    def cd(v, gx):
+        return convection_diffusion_apply(v, gx, 0.01)
+
+    probe = cli._program_normal((n, n), torch.float64, dev)
+    probes = torch.stack([probe] * len(P27_EIG_GAMMAS))
+
+    def arnoldi_check(lane, out):
+        coefs = convection_diffusion_coefs(P27_EIG_GAMMAS[lane], 0.01)
+        lam, x = out["eigenvalues"], out["x"]
+        np_res = np.array([np.linalg.norm(np_complex_apply(x[i], coefs) - lam[i] * x[i])
+                           for i in range(k)])
+        want = convection_diffusion_eigenvalues(n, P27_EIG_GAMMAS[lane], 0.01)
+        want = cli._keyed(want[np.argsort(-np.abs(want))][:k])
+        err = float(np.max(np.abs(cli._keyed(lam) - want)))
+        print(f"phase 27 (g): γx {P27_EIG_GAMMAS[lane]}: numpy residuals "
+              f"{np.array2string(np_res, precision=3)} (tol {tol:g}), max |λ − closed form| "
+              f"{err:.3e}", flush=True)
+        require(err < 1e-6 * np.max(np.abs(want)),
+                f"phase 27 (g) γx {P27_EIG_GAMMAS[lane]}: eigenvalues {err} from the closed form")
+        return float(np.max(np_res)) / tol
+
+    rows.append(batched_row(
+        gt_torch, f"(g) arnoldi_eigs complex basis convdiff {n}x{n} over γ (γx, 0.01), γx "
+                  f"{list(P27_EIG_GAMMAS)}, k {k} steps {EIG_STEPS}", gt_torch.arnoldi_eigs,
+        cd, probes, dict(nev=k, steps=EIG_STEPS, which="LM", tol=tol, max_restarts=200),
+        arnoldi_check, bound=1.0, rule=between_launches, phase="phase 27", lane_args=(g,),
+        lane_op=lambda lane: (lambda v: cd(v, g[lane])),
+        outputs=("eigenvalues", "x", "residuals")))
+    return rows
+
+
+def phase_batched_spectral(gt_torch, dev):
+    """Phase 27: batched_solve over the eigensolvers, matrix functions and
+    time steppers beside the same lanes run one after another. Returns the
+    launches over the rows (each row's counts summed) and the rows."""
+    t_phase = time.perf_counter()
+    rows = (p27_rows_poisson(gt_torch, dev) + p27_theta_rows(gt_torch, dev)
+            + p27_eig_rows(gt_torch, dev))
+    launches = dict.fromkeys(mg_counters(), 0)
+    for r in rows:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    require(all(launches[f"{k} batched"] > 0 for k in KERNELS),
+            f"phase 27: a batched kernel was not launched on the main path {launches}")
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s; launches over the rows: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches, rows
+
+
 def run_phase(name, gt_torch, dev, workdir):
     """Run phase `name` (PHASE_RUNNERS; 21-23 on a one-rank NCCL group of
     their own) and return what the kernel report reads of it."""
@@ -7426,16 +7821,19 @@ def run_phase(name, gt_torch, dev, workdir):
             return phase_batched(gt_torch, dev, workdir)[:2]
         if name == "25":
             return phase_batched_family(gt_torch, dev)[:2]
-        return phase_batched_rest(gt_torch, dev)[:2]
+        if name == "26":
+            return phase_batched_rest(gt_torch, dev)[:2]
+        return phase_batched_spectral(gt_torch, dev)[0]
 
 
-PHASE_RUNNERS = ("15", "17", "18", "19", "20", "21", "22", "23", "24", "25", "26")
-# Phases 15 and 17-23 time no kernel: after the kernel phases they run in
-# these worker processes at once (each group one process, in order), which
-# the card time-slices; their walls share the card and the host. Grouped by
-# their walls run one after another on an H100 host: phase 19 ~224 s; 15
-# and 18 ~174; 20 and 21 ~168; 22, 17 and 23 ~189.
-WORKER_GROUPS = (("19",), ("15", "18"), ("20", "21"), ("22", "17", "23"))
+PHASE_RUNNERS = ("15", "17", "18", "19", "20", "21", "22", "23", "24", "25", "26", "27")
+# Phases 15, 17-23 and 27 time no kernel: after the kernel phases they run
+# in these worker processes at once (each group one process, in order),
+# which the card time-slices; their walls share the card and the host.
+# Grouped by their walls run one after another on an H100 host: phase 19
+# ~224 s; 15 and 18 ~174; 20 and 21 ~168, and 27 (~60 s predicted); 22, 17
+# and 23 ~189.
+WORKER_GROUPS = (("19",), ("15", "18"), ("20", "21", "27"), ("22", "17", "23"))
 
 
 def run_workers(groups) -> dict:
@@ -7623,10 +8021,11 @@ def main() -> int:
         p26_records, p26 = run_phase("26", gt_torch, dev, workdir)
     # Phases 15 and 17-23, which time no kernel, in worker processes at once.
     done = run_workers(WORKER_GROUPS)
-    programs, family, short, p19, p20 = (done[k] for k in ("15", "17", "18", "19", "20"))
+    programs, family, short, p19, p20, p27 = (done[k] for k in ("15", "17", "18", "19", "20",
+                                                                  "27"))
     (p21, p21_twins), (p22, p22_twins) = done["21"], done["22"]
     p23, p23_twins, rank_blocks = done["23"]
-    print(f"chip_smoke: phases 1-26 in {time.perf_counter() - t_run:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-27 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(p24_records)
     records.update(p25_records)
@@ -7690,6 +8089,8 @@ def main() -> int:
                 "SLQ (phase 25)")
     p26_path = ("batched QMR, LSQR, LSMR, GMRES-DR, GCRO-DR, Newton gcrodr, block CG and "
                 "GMRES, vmap(grad) through implicit_solve (phase 26)")
+    p27_path = ("batched lanczos_bounds, funm_lanczos, expm_multiply, trace_funm, "
+                "exponential_evolve, theta_evolve, LOBPCG and Krylov-Schur (phase 27)")
     # Launches of the batched form (a block in one launch), by phase: the
     # block rows of phases 15-23 on plain tensors run their block
     # applications batched too (a DTensor block keeps one call a row).
@@ -7698,7 +8099,7 @@ def main() -> int:
                         p21_twins_path: p21_twins, p22_path: p22,
                         p22_twins_path: p22_twins, p23_path: p23,
                         p23_twins_path: p23_twins, p24_path: p24, p25_path: p25,
-                        p26_path: p26}
+                        p26_path: p26, p27_path: p27}
 
     def batched_fields(name):
         by = {path: counts.get(f"{name} batched", 0)
@@ -7725,7 +8126,7 @@ def main() -> int:
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
                + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"]
                + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"] + p24["K1"]
-               + p25["K1"] + p26["K1"],
+               + p25["K1"] + p26["K1"] + p27["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -7738,7 +8139,7 @@ def main() -> int:
                                  p22_path: p22["K1"], p22_twins_path: p22_twins["K1"],
                                  p23_path: p23["K1"], p23_twins_path: p23_twins["K1"],
                                  p24_path: p24["K1"], p25_path: p25["K1"],
-                                 p26_path: p26["K1"]},
+                                 p26_path: p26["K1"], p27_path: p27["K1"]},
                **batched_fields("K1"),
                phase22_k1_halo=p22["K1 halo"], phase22_exchanges=p22["exchanges"],
                phase23_k1_halo=p23["K1 halo"], phase23_exchanges=p23["exchanges"],
@@ -7761,7 +8162,7 @@ def main() -> int:
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
                + short["K1rr"] + p19["K1rr"] + p20["K1rr"] + p21["K1rr"]
                + p21_twins["K1rr"] + p22["K1rr"] + p22_twins["K1rr"] + p23["K1rr"]
-               + p23_twins["K1rr"] + p24["K1rr"] + p25["K1rr"] + p26["K1rr"],
+               + p23_twins["K1rr"] + p24["K1rr"] + p25["K1rr"] + p26["K1rr"] + p27["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
@@ -7774,7 +8175,7 @@ def main() -> int:
                                  p22_path: p22["K1rr"], p22_twins_path: p22_twins["K1rr"],
                                  p23_path: p23["K1rr"], p23_twins_path: p23_twins["K1rr"],
                                  p24_path: p24["K1rr"], p25_path: p25["K1rr"],
-                                 p26_path: p26["K1rr"]},
+                                 p26_path: p26["K1rr"], p27_path: p27["K1rr"]},
                **batched_fields("K1rr"),
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
@@ -7782,7 +8183,7 @@ def main() -> int:
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
                + short["K1cr"] + p19["K1cr"] + p20["K1cr"] + p21["K1cr"]
                + p21_twins["K1cr"] + p22["K1cr"] + p22_twins["K1cr"] + p23["K1cr"]
-               + p23_twins["K1cr"] + p24["K1cr"] + p25["K1cr"] + p26["K1cr"],
+               + p23_twins["K1cr"] + p24["K1cr"] + p25["K1cr"] + p26["K1cr"] + p27["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
@@ -7795,7 +8196,7 @@ def main() -> int:
                                  p22_path: p22["K1cr"], p22_twins_path: p22_twins["K1cr"],
                                  p23_path: p23["K1cr"], p23_twins_path: p23_twins["K1cr"],
                                  p24_path: p24["K1cr"], p25_path: p25["K1cr"],
-                                 p26_path: p26["K1cr"]},
+                                 p26_path: p26["K1cr"], p27_path: p27["K1cr"]},
                **batched_fields("K1cr"),
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
@@ -7803,7 +8204,7 @@ def main() -> int:
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
                + p20["K2"] + p21["K2"] + p21_twins["K2"] + p22["K2"] + p22_twins["K2"]
-               + p23["K2"] + p23_twins["K2"] + p24["K2"] + p25["K2"] + p26["K2"],
+               + p23["K2"] + p23_twins["K2"] + p24["K2"] + p25["K2"] + p26["K2"] + p27["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
@@ -7816,7 +8217,7 @@ def main() -> int:
                                     p22_path: p22["K2"], p22_twins_path: p22_twins["K2"],
                                     p23_path: p23["K2"], p23_twins_path: p23_twins["K2"],
                                     p24_path: p24["K2"], p25_path: p25["K2"],
-                                 p26_path: p26["K2"]},
+                                    p26_path: p26["K2"], p27_path: p27["K2"]},
                **batched_fields("K2"),
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},

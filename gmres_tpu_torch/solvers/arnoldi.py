@@ -18,6 +18,12 @@ the Rayleigh block a cycle.
 A real operator is applied to a complex vector as A(re) + i·A(im), both
 parts made contiguous first, so a CUDA stencil is 2 launches of K1 per
 complex matvec and never sees a complex or strided input.
+
+The solve is a generator of steps (``arnoldi_eigs_steps``,
+``solvers/requests.py``), so a batched solve (``solvers/batched.py``) runs
+one a lane: the lanes' matvecs are vmapped applications and their Rayleigh
+blocks come back in one read, each lane's Schur form formed on its own
+host copy.
 """
 
 from __future__ import annotations
@@ -29,13 +35,13 @@ from gmres_tpu_torch.ops.blas import (
     as_plain,
     complex_from,
     complex_parts,
-    row_apply,
     row_combine,
     row_op,
     rows_like,
 )
 from gmres_tpu_torch.ops.hessenberg_eig import schur_eigvec, sorted_schur
-from gmres_tpu_torch.solvers.lanczos import arnoldi_expand
+from gmres_tpu_torch.solvers.lanczos import arnoldi_expand_steps
+from gmres_tpu_torch.solvers.requests import Apply, Read, derived, read_host, rows, run
 from gmres_tpu_torch.types import EigResult, LinearOperator, SolverStatus
 
 _WHICH_KEYS = ("LM", "SM", "LR", "SR")
@@ -51,18 +57,23 @@ def _sort_key(vals: np.ndarray, which: str) -> np.ndarray:
     }[which](vals)
 
 
+def _complex_of(fn):
+    def apply(v, *args):
+        re, im = complex_parts(v)
+        return complex_from(fn(re, *args), fn(im, *args))
+
+    return apply
+
+
 def complex_apply(A: LinearOperator, is_complex: bool):
     """A on a complex vector: A itself for a complex operator, else
     A(re) + i·A(im) on contiguous parts (a real kernel takes no strided
-    view)."""
+    view). For a batched solve's operator it is one operator derived from
+    it (``requests.derived``): its two applications a complex matvec are
+    one vmapped launch each for the lanes that wait together."""
     if is_complex:
         return A
-
-    def apply(v):
-        re, im = complex_parts(v)
-        return complex_from(A(re), A(im))
-
-    return apply
+    return derived(A, "complex", _complex_of)
 
 
 def arnoldi_eigs(
@@ -95,6 +106,17 @@ def arnoldi_eigs(
     ``residuals``, and ``iterations`` the restart cycles. host_syncs: one
     read of the Rayleigh block a cycle and one of the certified residuals.
     """
+    return run(arnoldi_eigs_steps(A, probe, nev=nev, steps=steps, which=which, tol=tol,
+                                  max_restarts=max_restarts, thick=thick))
+
+
+def arnoldi_eigs_steps(A, probe, *, nev=6, steps=40, which="LM", tol=1e-8,
+                       max_restarts=100, thick=None):
+    """``arnoldi_eigs`` as steps (``solvers/requests.py``): each complex
+    matvec one request (two applications of a real A), each cycle one read
+    of the Rayleigh block (in a batched solve one read for the lanes that
+    wait on it; each lane's Schur form on its own host copy), and the
+    certified residuals one block application and one read."""
     if which not in _WHICH_KEYS:
         raise ValueError(f"which must be one of {_WHICH_KEYS}")
     m = steps
@@ -112,12 +134,12 @@ def arnoldi_eigs(
     a_c = complex_apply(A, is_complex)
     syncs = 0
 
-    def analyze(smat):
-        """Sorted Schur form of the (m, m) block on the host: (t, z, s_row,
-        ys, rest, ok) with S = Z T Zᴴ, s_row = smat[m, :m]·Z, ys the nev
-        wanted eigenvectors of T (rows) and rest the Ritz residual estimates
-        |s_row·y_i| (complex128 / float64, CPU)."""
-        host = smat.detach().to("cpu", torch.complex128)
+    def analyze(host):
+        """Sorted Schur form of the (m, m) block of the complex128 CPU copy
+        ``host``: (t, z, s_row, ys, rest, ok) with S = Z T Zᴴ, s_row =
+        host[m, :m]·Z, ys the nev wanted eigenvectors of T (rows) and rest
+        the Ritz residual estimates |s_row·y_i| (complex128 / float64,
+        CPU)."""
         t, z, ok = sorted_schur(host[:m, :m], lambda d: _sort_key(d, which))
         s_row = host[m, :m] @ z
         if not ok:
@@ -147,8 +169,9 @@ def arnoldi_eigs(
     smat = torch.zeros((m + 1, m), dtype=cdtype, device=dev)
     start, cycles = 0, 0
     while True:
-        basis, smat = arnoldi_expand(a_c, basis, smat, start)
-        t, z, s_row, ys, rest, ok = analyze(smat)
+        basis, smat = yield from arnoldi_expand_steps(a_c, basis, smat, start)
+        host = yield from read_host(smat)
+        t, z, s_row, ys, rest, ok = analyze(host)
         syncs += 1
         cycles += 1
         if not (cycles < max_restarts and bool((rest >= tol).any()) and ok):
@@ -167,11 +190,11 @@ def arnoldi_eigs(
     x = row_op(torch.div, x, torch.where(xn > 0, xn, torch.ones_like(xn)))
     wanted = torch.diagonal(t)[:nev].to(dev, cdtype)
 
-    ax = row_apply(a_c, x)
+    ax = yield Apply(rows(a_c), x)
     lam_x = row_op(torch.mul, x, wanted)
     resid = torch.sqrt(as_plain(torch.sum((ax - lam_x).abs() ** 2, dim=axes))).to(rdtype)
     syncs += 1
-    if bool((resid < tol).all()):
+    if (yield Read((resid < tol).all())):
         status = SolverStatus.CONVERGED
     else:
         status = SolverStatus.MAX_ITERATIONS if ok else SolverStatus.BREAKDOWN

@@ -6,10 +6,15 @@ gt.cg(A, b, ...))(bs)`` solves many systems in one program: the
 state, and each application of A or M is one batched call for all lanes (a
 Pallas kernel gains a leading grid axis). ``batched_solve(solver, A, bs)``
 is that program here, for every solver of gmres_tpu's that ``jax.vmap``
-takes (``_STEPS``): cg, bicgstab, gmres, minres, cgs, tfqmr, bicgstabl,
-idrs, chebyshev_solve, sstep_cg, fgmres, lgmres, sstep_gmres, qmr, lsqr,
-lsmr, gmres_dr, gcrodr, block_cg, block_gmres and newton_krylov (with its
-gmres, fgmres or gcrodr inner).
+takes (``_STEPS``): the linear solvers cg, bicgstab, gmres, minres, cgs,
+tfqmr, bicgstabl, idrs, chebyshev_solve, sstep_cg, fgmres, lgmres,
+sstep_gmres, qmr, lsqr, lsmr, gmres_dr, gcrodr, block_cg and block_gmres;
+newton_krylov (with its gmres, fgmres or gcrodr inner); the eigensolvers
+lobpcg, arnoldi_eigs and lanczos_bounds; the matrix functions
+funm_lanczos, expm_multiply and trace_funm; and the time steppers
+theta_evolve and exponential_evolve. arnoldi_eigs_real and subspace_eigs
+take host numpy steps inside their loop, which ``jax.vmap`` cannot trace
+either: they raise NotImplementedError.
 
 Each lane runs its solver's own steps (``solvers/requests.py``): the
 operations of its sequential solve in the same order, so its iterations,
@@ -53,6 +58,24 @@ bs as (lanes, s, *grid), each lane a block: a block application of every
 lane is one nested ``torch.func.vmap``, one launch a kernel for the
 lanes' s rows (``ops/_cuda.py:through_lanes``); each lane's SVQB
 ``eigh`` runs as in its sequential solve.
+
+The spectral solvers take as bs their second positional argument with
+the lanes on axis 0: lobpcg's X0 (lanes, k, *grid), as the block solvers
+do (its A, M and B block applications one nested vmap each; its SVQB
+Grams, Rayleigh–Ritz matrices and decisions one read for the waiting
+lanes, each eigh on the lane's own copy); arnoldi_eigs' and
+lanczos_bounds' probe (a real A's two applications a complex matvec
+each one vmapped launch; each cycle's Rayleigh blocks one read, each
+lane's Schur form its own; lanczos_bounds returns a tuple of two (lanes,)
+tensors); funm_lanczos's and expm_multiply's b (each factorization's
+Hessenbergs one read); trace_funm's x_like (every lane the same probes
+from ``key``, the lanes × probes factorizations one lane each of the
+runner, each probe with its lane's arguments: one application an Arnoldi
+step for all of them); theta_evolve's and exponential_evolve's u0 (the
+shifted operator I + θΔt·L ``requests.derived`` from the lanes' A, each
+step's solve the lane's own steps and recycle block, so a lane's next
+step does not wait on the slowest lane's solve). f, t, key, forcing,
+explicit, M and B are shared by the lanes, as a closure shares them.
 """
 
 from __future__ import annotations
@@ -62,6 +85,7 @@ from typing import Callable, Optional
 
 import torch
 
+from gmres_tpu_torch.solvers.arnoldi import arnoldi_eigs, arnoldi_eigs_steps
 from gmres_tpu_torch.solvers.bicgstab import bicgstab, bicgstab_steps
 from gmres_tpu_torch.solvers.bicgstabl import bicgstabl, bicgstabl_steps
 from gmres_tpu_torch.solvers.block_cg import block_cg, block_cg_steps
@@ -69,12 +93,29 @@ from gmres_tpu_torch.solvers.block_gmres import block_gmres, block_gmres_steps
 from gmres_tpu_torch.solvers.cg import cg, cg_steps
 from gmres_tpu_torch.solvers.cgs import cgs, cgs_steps
 from gmres_tpu_torch.solvers.chebyshev import chebyshev_solve, chebyshev_solve_steps
+from gmres_tpu_torch.solvers.evolve import (
+    exponential_evolve,
+    exponential_evolve_steps,
+    theta_evolve,
+    theta_evolve_steps,
+)
 from gmres_tpu_torch.solvers.fgmres import fgmres, fgmres_steps
+from gmres_tpu_torch.solvers.funm import (
+    expm_multiply,
+    expm_multiply_steps,
+    funm_lanczos,
+    funm_lanczos_steps,
+    trace_funm,
+    trace_funm_lanes,
+)
 from gmres_tpu_torch.solvers.gcrodr import gcrodr, gcrodr_steps
 from gmres_tpu_torch.solvers.gmres import gmres, gmres_steps
 from gmres_tpu_torch.solvers.gmres_dr import gmres_dr, gmres_dr_steps
 from gmres_tpu_torch.solvers.idrs import idrs, idrs_steps
+from gmres_tpu_torch.solvers.krylov_schur_real import arnoldi_eigs_real
+from gmres_tpu_torch.solvers.lanczos import lanczos_bounds, lanczos_bounds_steps
 from gmres_tpu_torch.solvers.lgmres import lgmres, lgmres_steps
+from gmres_tpu_torch.solvers.lobpcg import lobpcg, lobpcg_steps
 from gmres_tpu_torch.solvers.lsmr import lsmr, lsmr_steps
 from gmres_tpu_torch.solvers.lsqr import lsqr, lsqr_steps
 from gmres_tpu_torch.solvers.minres import minres, minres_steps
@@ -83,6 +124,7 @@ from gmres_tpu_torch.solvers.qmr import qmr, qmr_steps
 from gmres_tpu_torch.solvers.requests import LaneOperator, run_lanes
 from gmres_tpu_torch.solvers.sstep import sstep_gmres, sstep_gmres_steps
 from gmres_tpu_torch.solvers.sstep_cg import sstep_cg, sstep_cg_steps
+from gmres_tpu_torch.solvers.subspace_eigs import subspace_eigs
 from gmres_tpu_torch.solvers.tfqmr import tfqmr, tfqmr_steps
 
 _STEPS = {cg: cg_steps, bicgstab: bicgstab_steps, gmres: gmres_steps,
@@ -92,15 +134,25 @@ _STEPS = {cg: cg_steps, bicgstab: bicgstab_steps, gmres: gmres_steps,
           fgmres: fgmres_steps, lgmres: lgmres_steps, sstep_gmres: sstep_gmres_steps,
           newton_krylov: newton_krylov_steps, qmr: qmr_steps, lsqr: lsqr_steps,
           lsmr: lsmr_steps, gmres_dr: gmres_dr_steps, gcrodr: gcrodr_steps,
-          block_cg: block_cg_steps, block_gmres: block_gmres_steps}
+          block_cg: block_cg_steps, block_gmres: block_gmres_steps,
+          lobpcg: lobpcg_steps, arnoldi_eigs: arnoldi_eigs_steps,
+          lanczos_bounds: lanczos_bounds_steps, funm_lanczos: funm_lanczos_steps,
+          expm_multiply: expm_multiply_steps, theta_evolve: theta_evolve_steps,
+          exponential_evolve: exponential_evolve_steps}
 
 # The caller's single-lane operators besides A and M, vmapped as M is.
-_LANE_OPERATOR_KEYWORDS = ("AT", "MT", "AH")
+_LANE_OPERATOR_KEYWORDS = ("AT", "MT", "AH", "B")
+
+# Solvers whose loop takes host numpy steps: gmres_tpu's jax.vmap cannot
+# trace them, and batched_solve does not take them.
+_HOST_LOOPS = (arnoldi_eigs_real, subspace_eigs)
 
 
 def _stack_results(results: list, reads: int, device):
     """The lanes' results as one result of their type, with a leading lane
     axis on every per-solve field; ``host_syncs`` the batch's reads."""
+    if isinstance(results[0], tuple):  # lanczos_bounds' (lo, hi)
+        return tuple(torch.stack(col) for col in zip(*results))
     fields = {}
     for f in dataclasses.fields(results[0]):
         vals = [getattr(r, f.name) for r in results]
@@ -113,48 +165,62 @@ def _stack_results(results: list, reads: int, device):
     return type(results[0])(**fields)
 
 
-def batched_solve(solver: Callable, A: Callable, bs: torch.Tensor, *,
+def batched_solve(solver: Callable, A: Callable, bs: torch.Tensor, /, *,
                   lane_args: tuple = (), M: Optional[Callable] = None, **kw):
     """Solve A x = bs[i] for every lane i with ``solver`` (JAX's
     ``jax.vmap(lambda b: solver(A, b, M=M, **kw))(bs)``).
 
-    solver: one of ``_STEPS`` (module docstring), with the keywords its
-      sequential call takes; anything else raises NotImplementedError (it
-      is not one of gmres_tpu's solvers that ``jax.vmap`` takes: the
-      eigensolvers, matrix functions and time steppers have their own
-      entry points).
+    solver: one of ``_STEPS`` or trace_funm (module docstring), with the
+      keywords its sequential call takes (f as a keyword for funm_lanczos
+      and trace_funm); arnoldi_eigs_real and subspace_eigs raise
+      NotImplementedError (their host numpy steps defeat gmres_tpu's
+      ``jax.vmap`` too), as does anything else.
     A, M: the single-lane callables of the solver, applied to the lanes
       through ``torch.func.vmap``; A is called as A(v, *lane_args_i)
       (newton_krylov's residual F as F(u, *lane_args_i)). The keywords
-      AT, MT (qmr) and AH (lsqr, lsmr) are single-lane callables too.
+      AT, MT (qmr), AH (lsqr, lsmr) and B (lobpcg) are single-lane
+      callables too, as is theta_evolve's explicit.
     bs: the right-hand sides, (lanes, *grid) (newton_krylov's x0s;
-      (lanes, s, *grid) for block_cg and block_gmres).
+      (lanes, s, *grid) for block_cg and block_gmres; the solver's second
+      positional argument for the spectral solvers: lobpcg's X0s
+      (lanes, k, *grid), the probes, b, x_like or u0).
     lane_args: tensors with the lanes on their first axis (an operator
       family swept over lanes).
     kw: the solver's own keywords, shared by the lanes (as a closure
-      shares them under ``jax.vmap``).
+      shares them under ``jax.vmap``); the first three arguments are
+      positional only, so theta_evolve's ``solver`` is one of them.
 
     Returns the solver's result type with a leading lane axis on every
     per-solve field (x, iterations, residual, status, the history, the
     GMRES family's restarts and v_err, Newton's inner iterations and J·v
-    products); ``host_syncs`` counts the batch's host reads.
+    products, eigenpairs, f(A)·b, SLQ samples, trajectories);
+    ``host_syncs`` counts the batch's host reads. lanczos_bounds gives its
+    (lo, hi) as two (lanes,) tensors.
     """
-    steps = _STEPS.get(solver)
-    if steps is None:
+    name = getattr(solver, "__name__", solver)
+    if solver in _HOST_LOOPS:
         raise NotImplementedError(
-            f"batched_solve does not take {getattr(solver, '__name__', solver)!r}: it "
-            "is not one of the linear or Newton solvers (the port's counterpart of "
-            "gmres_tpu's jax.vmap over a solver; ROADMAP queue 1, item 11)")
+            f"batched_solve does not take {name!r}: its loop takes host numpy steps, "
+            "which gmres_tpu's jax.vmap cannot trace either (ROADMAP queue 1, item 11)")
+    steps = _STEPS.get(solver)
+    if steps is None and solver is not trace_funm:
+        raise NotImplementedError(
+            f"batched_solve does not take {name!r}: it is not one of gmres_tpu's "
+            "solvers that jax.vmap takes (the port's counterpart of gmres_tpu's "
+            "jax.vmap over a solver; ROADMAP queue 1, item 11)")
     ops = {"M": M, **{k: kw[k] for k in _LANE_OPERATOR_KEYWORDS if kw.get(k) is not None}}
     if not callable(A) or not all(callable(f) for f in ops.values() if f is not None):
-        raise TypeError("batched_solve: A, M, AT, MT and AH must be callables on one "
-                        "lane")
+        raise TypeError("batched_solve: A, M, AT, MT, AH and B must be callables on "
+                        "one lane")
     n = bs.shape[0]
     lane_args = tuple(torch.as_tensor(a) for a in lane_args)
     for a in lane_args:
         if a.dim() == 0 or a.shape[0] != n:
             raise ValueError(f"batched_solve: each lane argument needs {n} lanes "
                              f"on its first axis, got shape {tuple(a.shape)}")
+    if solver is trace_funm:
+        return _stack_results(trace_funm_lanes(A, kw.pop("f"), bs, lane_args=lane_args,
+                                               **kw), 1, bs.device)
     a_lanes = LaneOperator(A, lane_args)
     kw.update({k: LaneOperator(f) for k, f in ops.items() if f is not None})
     results, reads = run_lanes([steps(a_lanes, bs[i], **kw) for i in range(n)])

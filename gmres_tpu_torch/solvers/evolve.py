@@ -14,7 +14,11 @@ action (``solvers/funm.py``).
 
 JAX's ``lax.scan`` over the steps is a Python loop here: each step's solve
 decides on the host as the solvers do, and its result (iterations,
-residual, status) is read once. The step counts follow JAX's
+residual, status) is read once. Both integrators are steps
+(``theta_evolve_steps``, ``exponential_evolve_steps``;
+``solvers/requests.py``), each step's solve yielding from its solver's
+steps, so a batched solve (``solvers/batched.py``) runs one trajectory a
+lane. The step counts follow JAX's
 (``evolve.py:225-235``): gmres counts (restarts − 1)·restart + iterations,
 gcrodr k + (restarts − 1)·(restart − k) + iterations.
 """
@@ -27,6 +31,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 from gmres_tpu_torch.ops.blas import rows_like
+from gmres_tpu_torch.solvers.requests import Apply, derived, run
 from gmres_tpu_torch.types import Preconditioner, SolverStatus
 
 
@@ -100,6 +105,22 @@ def theta_evolve(
         (``explicit_order`` 2, explicit Euler on the first step) or
         explicit Euler (1).
     """
+    return run(theta_evolve_steps(
+        L, u0, dt=dt, n_steps=n_steps, theta=theta, forcing=forcing, t0=t0, solver=solver,
+        M=M, tol=tol, max_iterations=max_iterations, restart=restart,
+        max_restarts=max_restarts, recycle_k=recycle_k, save_trajectory=save_trajectory,
+        explicit=explicit, explicit_order=explicit_order))
+
+
+def theta_evolve_steps(L, u0, *, dt, n_steps, theta=0.5, forcing=None, t0=0.0, solver="cg",
+                       M=None, tol=1e-10, max_iterations=500, restart=40, max_restarts=50,
+                       recycle_k=10, save_trajectory=False, explicit=None, explicit_order=2):
+    """``theta_evolve`` as steps (``solvers/requests.py``): the explicit
+    L(u) and C(u) are requests, the shifted operator S = I + θΔt·L is
+    ``requests.derived`` from L (in a batched solve one operator for every
+    lane, so the lanes' S applications are one launch), and each step's
+    solve yields from its solver's steps, the recycle block the lane's
+    own."""
     if solver not in ("cg", "bicgstab", "gmres", "gcrodr"):
         raise ValueError(f"unknown solver {solver!r}")
     if not 0.0 <= theta <= 1.0:
@@ -107,17 +128,16 @@ def theta_evolve(
     if explicit_order not in (1, 2):
         raise ValueError(f"explicit_order must be 1 or 2, got {explicit_order}")
 
-    from gmres_tpu_torch.solvers.bicgstab import bicgstab
-    from gmres_tpu_torch.solvers.cg import cg
-    from gmres_tpu_torch.solvers.gcrodr import gcrodr
-    from gmres_tpu_torch.solvers.gmres import gmres
+    from gmres_tpu_torch.solvers.bicgstab import bicgstab_steps
+    from gmres_tpu_torch.solvers.cg import cg_steps
+    from gmres_tpu_torch.solvers.gcrodr import gcrodr_steps
+    from gmres_tpu_torch.solvers.gmres import gmres_steps
 
     dtype, dev = u0.dtype, u0.device
     rdtype = dtype.to_real() if dtype.is_complex else dtype
     step_c = float(theta) * float(dt)
-
-    def shifted(v):
-        return v + step_c * L(v)
+    shifted = derived(L, ("theta", step_c),
+                      lambda fn: lambda v, *a: v + step_c * fn(v, *a))
 
     def f_avg(t_n):
         if forcing is None:
@@ -138,26 +158,29 @@ def theta_evolve(
         if theta == 1.0:  # backward Euler: no explicit matvec
             rhs = u + dt * f_avg(t_n)
         else:
-            rhs = u - ((1.0 - theta) * dt) * L(u) + dt * f_avg(t_n)
+            rhs = u - ((1.0 - theta) * dt) * (yield Apply(L, u)) + dt * f_avg(t_n)
         if explicit is not None:
-            c_now = explicit(u)
+            c_now = yield Apply(explicit, u)
             c_hat = (c_now if explicit_order == 1 or idx == 0
                      else 1.5 * c_now - 0.5 * c_prev)
             rhs = rhs - dt * c_hat
             c_prev = c_now
         if solver == "cg":
-            res = cg(shifted, rhs, tol=tol, max_iterations=max_iterations, M=M, x0=u)
+            res = yield from cg_steps(shifted, rhs, tol=tol, max_iterations=max_iterations,
+                                      M=M, x0=u)
             inner = res.iterations
         elif solver == "bicgstab":
-            res = bicgstab(shifted, rhs, tol=tol, max_iterations=max_iterations, M=M, x0=u)
+            res = yield from bicgstab_steps(shifted, rhs, tol=tol,
+                                            max_iterations=max_iterations, M=M, x0=u)
             inner = res.iterations
         elif solver == "gmres":
-            res = gmres(shifted, rhs, restart=restart, tol=tol, max_restarts=max_restarts,
-                        M=M, x0=u, compute_v_err=False)
+            res = yield from gmres_steps(shifted, rhs, restart=restart, tol=tol,
+                                         max_restarts=max_restarts, M=M, x0=u,
+                                         compute_v_err=False)
             inner = max(res.restarts - 1, 0) * restart + res.iterations
         else:
-            res = gcrodr(shifted, rhs, k=recycle_k, restart=restart, tol=tol,
-                         max_restarts=max_restarts, M=M, x0=u, recycle=rec)
+            res = yield from gcrodr_steps(shifted, rhs, k=recycle_k, restart=restart, tol=tol,
+                                          max_restarts=max_restarts, M=M, x0=u, recycle=rec)
             rec = res.recycle
             inner = (recycle_k + max(res.restarts - 1, 0) * (restart - recycle_k)
                      + res.iterations)
@@ -217,20 +240,30 @@ def exponential_evolve(
     u_{n+1} = e^{−Δt·L} u_n + Δt·φ₁(−Δt·L) f, the forcing propagator
     (I − e^{−ΔtL}) L⁻¹ f formed once (the arguments of
     ``gmres_tpu.exponential_evolve``)."""
-    from gmres_tpu_torch.solvers.funm import expm_multiply, funm_lanczos
+    return run(exponential_evolve_steps(L, u0, dt=dt, n_steps=n_steps, steps=steps,
+                                        forcing=forcing, save_trajectory=save_trajectory))
+
+
+def exponential_evolve_steps(L, u0, *, dt, n_steps, steps=30, forcing=None,
+                             save_trajectory=False):
+    """``exponential_evolve`` as steps (``solvers/requests.py``): the
+    forcing propagator's factorization, then one a step, each yielding
+    from ``funm``'s steps (one read of its Hessenberg)."""
+    from gmres_tpu_torch.solvers.funm import expm_multiply_steps, funm_lanczos_steps
 
     dtype, dev = u0.dtype, u0.device
     syncs = 0
     if forcing is None:
         g = torch.zeros_like(u0)
     else:
-        out = funm_lanczos(L, torch.as_tensor(forcing).to(dev, dtype),
-                           lambda s: (1.0 - torch.exp(-dt * s)) / s, steps=steps)
+        out = yield from funm_lanczos_steps(L, torch.as_tensor(forcing).to(dev, dtype),
+                                            lambda s: (1.0 - torch.exp(-dt * s)) / s,
+                                            steps=steps)
         g, syncs = out.y, out.host_syncs
     u = u0
     ests, snaps = [], []
     for _ in range(n_steps):
-        r = expm_multiply(L, u, dt, steps=steps)
+        r = yield from expm_multiply_steps(L, u, dt, steps=steps)
         u = r.y + g
         ests.append(r.error_estimate)
         syncs += r.host_syncs

@@ -11,6 +11,9 @@ projected matrix by a dense ``eigh`` of its symmetric part. That ``eigh``
 runs on a float64 CPU copy of H̄ (one read of the device per
 factorization), where JAX solves it in-jit; f therefore receives a float64
 CPU tensor of Ritz values (``torch.log``, ``lambda s: 1 / torch.sqrt(s)``).
+``funm_lanczos`` and ``expm_multiply`` are steps (``*_steps``,
+``solvers/requests.py``), so a batched solve (``solvers/batched.py``) runs
+one a lane and reads the lanes' Hessenbergs together.
 
 ``trace_funm`` batches its probes, as JAX ``jax.vmap``s them: each probe's
 factorization runs as steps (``arnoldi_factorization_steps``), one lane of
@@ -18,9 +21,10 @@ factorization runs as steps (``arnoldi_factorization_steps``), one lane of
 all probes (one ``torch.func.vmap``: one batched K1 launch for a stencil on
 the card) while each probe's reductions and updates run on its own
 tensors, its bits those of its factorization alone; the probes'
-Hessenbergs then come back in one read for the small eigenproblems. On a
-row-sharded x_like (a DTensor) the probes run one after another, one read
-each (a block application on a DTensor is one call a row, ROADMAP queue
+Hessenbergs then come back in one read for the small eigenproblems
+(``trace_funm_lanes``, which also runs a batched solve's lanes × probes).
+On a row-sharded x_like (a DTensor) the probes run one after another, one
+read each (a block application on a DTensor is one call a row, ROADMAP queue
 2). Its Rademacher probes cannot be JAX's (``PRNGKey`` draws have no torch
 counterpart): they come from one seam, ``_rademacher``.
 """
@@ -37,7 +41,7 @@ from gmres_tpu_torch.solvers.lanczos import (
     arnoldi_factorization,
     arnoldi_factorization_steps,
 )
-from gmres_tpu_torch.solvers.requests import LaneOperator, run_lanes
+from gmres_tpu_torch.solvers.requests import LaneOperator, read_host, run, run_lanes
 from gmres_tpu_torch.types import LinearOperator
 
 
@@ -96,9 +100,13 @@ def _host_eigh(host: torch.Tensor, steps: int):
     return theta, q, host[steps, steps - 1], torch.max(torch.abs(h - h.T))
 
 
-def _funm_core(A, b, steps):
-    basis, hmat = arnoldi_factorization(A, b, steps)
-    theta, q, beta_m, asym = _projected_eigh(hmat, steps)
+def _funm_core_steps(A, b, steps):
+    """The factorization of b and the eigh of its projected matrix, as
+    steps: ``steps`` applications of A, then one read of the Hessenberg
+    (in a batched solve one read for every lane waiting on it), whose
+    eigh runs on the lane's own float64 CPU copy."""
+    basis, hmat = yield from arnoldi_factorization_steps(A, b, steps)
+    theta, q, beta_m, asym = _host_eigh((yield from read_host(hmat)), steps)
     beta0 = torch.sqrt(tree_vdot(b, b))
     return basis, theta, q, beta0, beta_m, asym
 
@@ -114,7 +122,12 @@ def funm_lanczos(
     ``gmres_tpu.funm_lanczos``). f maps a float64 CPU tensor of Ritz values
     elementwise (it is evaluated only there, inside A's spectral
     interval)."""
-    basis, theta, q, beta0, beta_m, asym = _funm_core(A, b, steps)
+    return run(funm_lanczos_steps(A, b, f, steps=steps))
+
+
+def funm_lanczos_steps(A, b, f, *, steps=30):
+    """``funm_lanczos`` as steps (``solvers/requests.py``)."""
+    basis, theta, q, beta0, beta_m, asym = yield from _funm_core_steps(A, b, steps)
     w = q @ (f(theta) * q[0, :])  # f(H) e₁
     y = beta0 * row_combine(w.to(b.device, b.dtype), basis[:steps])
     err = beta0 * float(abs(beta_m) * abs(w[steps - 1]))
@@ -133,9 +146,14 @@ def expm_multiply(
     states decay; the arguments of ``gmres_tpu.expm_multiply``). t: a
     number, or a 1-D sequence of times, all from one factorization; y then
     gains a leading (nt,) axis."""
+    return run(expm_multiply_steps(A, b, t, steps=steps))
+
+
+def expm_multiply_steps(A, b, t=1.0, *, steps=30):
+    """``expm_multiply`` as steps (``solvers/requests.py``)."""
     scalar = torch.as_tensor(t).dim() == 0
     t_arr = torch.atleast_1d(torch.as_tensor(t, dtype=torch.float64))
-    basis, theta, q, beta0, beta_m, asym = _funm_core(A, b, steps)
+    basis, theta, q, beta0, beta_m, asym = yield from _funm_core_steps(A, b, steps)
     # (nt, m): f(H) e₁ for every time.
     w = torch.einsum("ij,tj,j->ti", q, torch.exp(-t_arr[:, None] * theta), q[0, :])
     y = beta0 * row_combine(w.T.to(b.device, b.dtype), basis[:steps])
@@ -169,27 +187,50 @@ def trace_funm(
     default 0). x_like gives the probes' shape, dtype and device; on a
     row-sharded x_like the probes are the same draws placed like it, so
     each rank runs the quadrature on its own rows."""
-    z = _rademacher(n_probes, tuple(x_like.shape), x_like.dtype, x_like.device,
-                    0 if key is None else key)
-    z = shard_rows_like(z, x_like)
-    if is_dtensor(x_like):
-        hosts = []
-        for i in range(n_probes):
-            _, hmat = arnoldi_factorization(A, z[i], steps)
-            hosts.append(hmat.detach().to("cpu", torch.float64))
-    else:
-        a_lanes = LaneOperator(A)
-        done, _ = run_lanes([arnoldi_factorization_steps(a_lanes, z[i], steps)
-                             for i in range(n_probes)])
-        # One read: every probe's Hessenberg.
-        hosts = torch.stack([hmat for _, hmat in done]).detach().to("cpu", torch.float64)
-    samples = []
+    if not is_dtensor(x_like):
+        return trace_funm_lanes(A, f, x_like[None], n_probes=n_probes, steps=steps,
+                                key=key)[0]
+    z = shard_rows_like(_rademacher(n_probes, tuple(x_like.shape), x_like.dtype,
+                                    x_like.device, 0 if key is None else key), x_like)
+    hosts = []
     for i in range(n_probes):
+        _, hmat = arnoldi_factorization(A, z[i], steps)
+        hosts.append(hmat.detach().to("cpu", torch.float64))
+    return _trace_result(f, z, hosts, steps, x_like, n_probes)
+
+
+def _trace_result(f, z, hosts, steps, like, syncs):
+    """The TraceResult of the probes z from their float64 Hessenbergs."""
+    samples = []
+    for i in range(z.shape[0]):
         theta, q, _, _ = _host_eigh(hosts[i], steps)
-        quad = torch.sum(f(theta) * q[0, :] ** 2).to(x_like.device, x_like.dtype)
+        quad = torch.sum(f(theta) * q[0, :] ** 2).to(like.device, like.dtype)
         samples.append(tree_vdot(z[i], z[i]) * quad)  # ‖z‖² = N for Rademacher
     samples = torch.stack(samples)
     value = torch.mean(samples)
-    stderr = torch.std(samples, correction=0) / (1.0 * n_probes) ** 0.5
-    return TraceResult(value=value, stderr=stderr, samples=samples,
-                       host_syncs=n_probes if is_dtensor(x_like) else 1)
+    stderr = torch.std(samples, correction=0) / (1.0 * z.shape[0]) ** 0.5
+    return TraceResult(value=value, stderr=stderr, samples=samples, host_syncs=syncs)
+
+
+def trace_funm_lanes(A, f, x_likes: torch.Tensor, *, lane_args: tuple = (),
+                     n_probes: int = 16, steps: int = 30, key=None) -> list:
+    """``trace_funm`` for each lane of ``x_likes`` (lanes, *shape) on the
+    operator A(v, *lane_args_i) (``batched_solve``; one lane for a plain
+    ``trace_funm``). Every lane draws the same probes from ``key``, as
+    ``jax.vmap`` over a closure does. The lanes × probes factorizations are
+    one lane each of ``run_lanes``, each probe carrying its lane's
+    arguments, so an Arnoldi step applies A once to all of them (one
+    ``torch.func.vmap``: one K1 launch, per-lane coefficients, on the
+    card); every Hessenberg then comes back in one read. Each lane's
+    samples are those of its sequential ``trace_funm`` to the bit."""
+    lanes = x_likes.shape[0]
+    like = x_likes[0]
+    z = _rademacher(n_probes, tuple(like.shape), like.dtype, like.device,
+                    0 if key is None else key)
+    a_lanes = LaneOperator(A, tuple(a.repeat_interleave(n_probes, dim=0) for a in lane_args))
+    done, _ = run_lanes([arnoldi_factorization_steps(a_lanes, z[i], steps)
+                         for _ in range(lanes) for i in range(n_probes)])
+    # One read: every probe's Hessenberg.
+    hosts = torch.stack([hmat for _, hmat in done]).detach().to("cpu", torch.float64)
+    return [_trace_result(f, z, hosts[k * n_probes:(k + 1) * n_probes], steps, like, 1)
+            for k in range(lanes)]

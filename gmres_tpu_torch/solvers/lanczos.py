@@ -12,9 +12,11 @@ recurrences read nothing back from the device, and Lanczos' breakdown
 freezes and pads with ``torch.where`` on the device, as JAX does. The
 small eigenproblems are host math, as in JAX, but here always on a
 float64 CPU copy of the (k, k) matrix: ``torch.linalg.eigh`` of the
-tridiagonal in ``lanczos_bounds`` and ``np.linalg.eigvals`` of the
-Hessenberg in ``arnoldi_ritz_values`` (JAX solves them in the probe's
-dtype, so float32 bounds may differ in their last bits).
+tridiagonal in ``lanczos_bounds`` (one read at the end; its steps,
+``lanczos_bounds_steps``, are one lane of a batched solve) and
+``np.linalg.eigvals`` of the Hessenberg in ``arnoldi_ritz_values`` (JAX
+solves them in the probe's dtype, so float32 bounds may differ in their
+last bits).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.ops.blas import row_combine, row_contract, rows_like, tree_vdot
-from gmres_tpu_torch.solvers.requests import Apply, run
+from gmres_tpu_torch.solvers.requests import Apply, read_host, run
 from gmres_tpu_torch.types import LinearOperator
 
 
@@ -49,6 +51,14 @@ def lanczos_bounds(
     freezes the recurrence and pads the remaining diagonal with the first
     Rayleigh quotient, which lies inside the spectrum.
     """
+    return run(lanczos_bounds_steps(A, probe, steps, rigorous))
+
+
+def lanczos_bounds_steps(A, probe: torch.Tensor, steps: int = 20, rigorous: bool = True):
+    """``lanczos_bounds`` as steps (``solvers/requests.py``): ``steps``
+    applications of A, then one read of the tridiagonal and the last β
+    together (in a batched solve one read for every lane), whose ``eigh``
+    runs on the lane's own float64 CPU copy."""
     dtype, device = probe.dtype, probe.device
     eps = torch.finfo(dtype).eps
     v = probe / torch.sqrt(tree_vdot(probe, probe))
@@ -59,7 +69,7 @@ def lanczos_bounds(
     beta_prev, scale = zero, zero
     dead = torch.zeros((), dtype=torch.bool, device=device)
     for i in range(steps):
-        w = A(v) - beta_prev * v_prev
+        w = (yield Apply(A, v)) - beta_prev * v_prev
         alpha = tree_vdot(w, v)
         w = w - alpha * v
         beta = torch.sqrt(tree_vdot(w, w))
@@ -73,11 +83,11 @@ def lanczos_bounds(
         v_prev, v, beta_prev, dead = v, v_next, beta_eff, stop
 
     # The (k, k) tridiagonal eigenproblem on a float64 CPU copy.
-    a64 = alphas.detach().to("cpu", torch.float64)
-    b64 = betas.detach().to("cpu", torch.float64)
+    host = yield from read_host(torch.cat([alphas, betas, beta_prev.reshape(1)]))
+    a64, b64 = host[:steps], host[steps:2 * steps]
     tri = torch.diag(a64) + torch.diag(b64[:-1], 1) + torch.diag(b64[:-1], -1)
     ritz, vecs = torch.linalg.eigh(tri)
-    resid = float(beta_prev) * torch.abs(vecs[-1, :])
+    resid = float(host[-1]) * torch.abs(vecs[-1, :])
     if rigorous:
         lo = max(float(ritz[0] - resid[0]), 0.0)
     else:

@@ -8,12 +8,16 @@ pairs, the zero first P) replaced by fallback directions before the
 orthonormalisation, P the implicit difference X⁺ − X(X·X⁺), and the
 Rayleigh–Ritz on the 3k×3k projected matrix.
 
-JAX's ``while_loop`` is a Python loop and its ``jax.vmap`` over the block a
-loop over rows: an iteration applies A to 3k rows, M to k and B (when
-given) to 3k. The small eigenproblems (each SVQB pass's Gram and the
-Rayleigh–Ritz matrix) are solved by ``eigh`` on float64 (complex128) CPU
-copies, each one read of the device (``EigResult.host_syncs``); the loop's
-decision is one more read an iteration.
+JAX's ``while_loop`` is a Python loop over steps (``lobpcg_steps``,
+``solvers/requests.py``) and its ``jax.vmap`` over the block one block
+application (``requests.rows``): an iteration applies A to 3k rows, M to k
+and B (when given) to 3k. The small eigenproblems (each SVQB pass's Gram
+and the Rayleigh–Ritz matrix) are solved by ``eigh`` on float64
+(complex128) CPU copies, each one read of the device
+(``EigResult.host_syncs``); the loop's decision is one more read an
+iteration. In a batched solve (``solvers/batched.py``) each lane is a
+block: the lanes' block applications are one nested vmap, and their reads
+one read.
 
 Random rows cannot be JAX's (``PRNGKey`` draws have no torch counterpart):
 the guard rows and the fallback directions come from two seams,
@@ -32,11 +36,11 @@ from gmres_tpu_torch.ops.blas import (
     gram,
     on_local,
     place_like,
-    row_apply,
     row_combine,
     row_op,
     shard_rows_like,
 )
+from gmres_tpu_torch.solvers.requests import Apply, read_host, rows, run
 from gmres_tpu_torch.types import EigResult, SolverStatus
 
 
@@ -56,11 +60,6 @@ def _fallback_rows(i: int, salt: int, shape, dtype, device) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen, dtype=dtype, device=device)
 
 
-def _host(t: torch.Tensor) -> torch.Tensor:
-    """A float64 (complex128) CPU copy: one read of the device."""
-    return t.detach().to("cpu", torch.complex128 if t.is_complex() else torch.float64)
-
-
 def _rows_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(p, *shape) × (q, *shape) → (p, q) Gram block conj(a)·bᵀ, a plain
     tensor (one all-reduce on a sharded block)."""
@@ -72,11 +71,12 @@ def _row_norms(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(as_plain(torch.sum(v.reshape(v.shape[0], -1).abs() ** 2, dim=1)))
 
 
-def _svqb_b(w, bw, eps, same):
-    """One SVQB pass in the B-inner product: the whitening of the Gram
-    conj(w)·(B w), formed on the host, applied to w and to B w (B·q by
-    recombination). ``same``: B is the identity, so B q is q."""
-    g = _host(_rows_dot(w, bw))
+def _svqb_b_steps(w, bw, eps, same):
+    """One SVQB pass in the B-inner product, as steps: the whitening of the
+    Gram conj(w)·(B w), read once and formed on the host, applied to w and
+    to B w (B·q by recombination). ``same``: B is the identity, so B q is
+    q."""
+    g = yield from read_host(_rows_dot(w, bw))
     d = torch.sqrt(torch.clamp(torch.diagonal(g).real, min=0.0))
     dinv = torch.where(d > 0, 1.0 / torch.where(d > 0, d, torch.ones_like(d)),
                        torch.zeros_like(d))
@@ -118,6 +118,17 @@ def lobpcg(
     B-orthonormal rows, iterations, residuals (k,), status (BREAKDOWN on a
     non-finite residual), host_syncs.
     """
+    return run(lobpcg_steps(A, X0, tol=tol, rtol=rtol, max_iterations=max_iterations,
+                            M=M, B=B, guard=guard))
+
+
+def lobpcg_steps(A, X0, *, tol=1e-6, rtol=0.0, max_iterations=200, M=None, B=None,
+                 guard=0):
+    """``lobpcg`` as steps (``solvers/requests.py``): each block
+    application of A, M and B one request on ``requests.rows`` (in a
+    batched solve one nested vmap, a launch a kernel for the lanes' rows),
+    and each SVQB Gram, Rayleigh–Ritz matrix and decision one read, its
+    eigh on the lane's own CPU copy."""
     k_out = X0.shape[0]
     dtype, dev = X0.dtype, X0.device
     shape = tuple(X0.shape[1:])
@@ -131,13 +142,13 @@ def lobpcg(
     syncs = 0
 
     def a_block(s):
-        return row_apply(A, s)
+        return (yield Apply(rows(A), s))
 
     def m_block(r):
-        return row_apply(M, r) if M is not None else r
+        return (yield Apply(rows(M), r)) if M is not None else r
 
     def b_block(s):
-        return row_apply(B, s) if B is not None else s
+        return (yield Apply(rows(B), s)) if B is not None else s
 
     def fill_degenerate(v, i, salt):
         """Rows with norm at most √eps times the block's largest are replaced
@@ -152,10 +163,10 @@ def lobpcg(
         """Jointly B-orthonormalise the rows, then Ritz-extract the k
         smallest pairs: (lam, x, r, resnorm)."""
         nonlocal syncs
-        q, bq = _svqb_b(s, b_block(s), eps, B is None)
-        q, bq = _svqb_b(q, bq, eps, B is None)
-        aq = a_block(q)
-        h = _host(_rows_dot(q, aq))
+        q, bq = yield from _svqb_b_steps(s, (yield from b_block(s)), eps, B is None)
+        q, bq = yield from _svqb_b_steps(q, bq, eps, B is None)
+        aq = yield from a_block(q)
+        h = yield from read_host(_rows_dot(q, aq))
         syncs += 3
         lam_all, c = torch.linalg.eigh(0.5 * (h + h.conj().T))
         ck = c[:, :k].to(dev, dtype)
@@ -178,7 +189,7 @@ def lobpcg(
         """One read: the convergence gate on the returned pairs, then (in the
         loop, as in JAX) the breakdown test on all."""
         nonlocal syncs
-        lam_h, res_h = _host(torch.stack([lam, res])).unbind(0)
+        lam_h, res_h = (yield from read_host(torch.stack([lam, res]))).unbind(0)
         syncs += 1
         thresh = torch.clamp(rtol * lam_h[:k_out].abs(), min=tol)
         if bool((res_h[:k_out] < thresh).all()):
@@ -187,17 +198,17 @@ def lobpcg(
             status = SolverStatus.BREAKDOWN
         return status
 
-    lam, x, r, resnorm = rayleigh_ritz(fill_degenerate(X0, -1, 0))
-    status = decide(lam, resnorm, SolverStatus.MAX_ITERATIONS, breakdown=False)
+    lam, x, r, resnorm = yield from rayleigh_ritz(fill_degenerate(X0, -1, 0))
+    status = yield from decide(lam, resnorm, SolverStatus.MAX_ITERATIONS, breakdown=False)
     p = torch.zeros_like(x)
     i = 0
     while i < max_iterations and status == SolverStatus.MAX_ITERATIONS:
-        w = fill_degenerate(m_block(r), i, 1)
+        w = fill_degenerate((yield from m_block(r)), i, 1)
         p_f = fill_degenerate(p, i, 2)
-        lam_n, x_n, r, resnorm = rayleigh_ritz(torch.cat([x, w, p_f], dim=0))
+        lam_n, x_n, r, resnorm = yield from rayleigh_ritz(torch.cat([x, w, p_f], dim=0))
         p = x_n - row_combine(_rows_dot(x, x_n), x)
         x, lam = x_n, lam_n
-        status = decide(lam, resnorm, status)
+        status = yield from decide(lam, resnorm, status)
         i += 1
     return EigResult(eigenvalues=lam[:k_out], x=x[:k_out], iterations=i,
                      residuals=resnorm[:k_out], status=int(status), host_syncs=syncs)

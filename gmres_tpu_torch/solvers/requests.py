@@ -119,6 +119,18 @@ def capture_steps(call: Callable):
     return None
 
 
+def read_host(t: torch.Tensor):
+    """Steps of one ``Read``: a float64 (complex128 for a complex ``t``)
+    CPU copy of ``t``, the values of ``t.detach().to("cpu", float64)``
+    (float64 holds each value exactly). A steps function's host
+    eigensolve runs on it, so in a batched solve each lane's small matrix
+    comes back in the one read of the lanes that wait together."""
+    real = torch.view_as_real(t.resolve_conj()) if t.is_complex() else t
+    vals = yield Read(real.detach().reshape(-1).to(torch.float64))
+    host = torch.tensor(vals, dtype=torch.float64).reshape(real.shape)
+    return torch.view_as_complex(host) if t.is_complex() else host
+
+
 def run(steps: Generator):
     """Drive one solve's steps, answering each request as it comes; returns
     the solve's result (or, while ``capture_steps`` waits, hands the steps

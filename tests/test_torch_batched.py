@@ -227,6 +227,6 @@ def test_unsupported_solver_and_arguments_raise():
     op = tt.poisson_operator(8)
     bs = torch.ones((2, 8, 8), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.batched_solve(tt.lobpcg, op, bs)
+        tt.batched_solve(tt.arnoldi_eigs_real, op, bs)
     with pytest.raises(ValueError, match="lanes"):
         tt.batched_solve(tt.cg, lambda v, g: op(v), bs, lane_args=(torch.ones(3),))

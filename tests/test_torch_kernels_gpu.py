@@ -1513,6 +1513,7 @@ def test_lobpcg_with_mg_launches_each_row(cuda_device, monkeypatch):
     the launches of two iterations are the block applications times one
     vector's."""
     from gmres_tpu_torch.solvers import lobpcg as lobpcg_mod
+    from gmres_tpu_torch.solvers import requests
 
     n, k, its = 128, 2, 2
     op = tt.poisson_operator(n)
@@ -1521,11 +1522,17 @@ def test_lobpcg_with_mg_launches_each_row(cuda_device, monkeypatch):
     x0 = to_torch(seeded(72, (k, n, n)), cuda_device)
     rows = {"A": [], "M": []}
 
-    def row_apply(fn, block):
-        rows["A" if fn.__wrapped__ is op else "M"].append(block.shape[0])
-        return tt.ops.blas.row_apply(fn, block)
+    def rows_of(fn):
+        # LOBPCG's block applications are requests on requests.rows(fn).
+        on_rows = requests.rows(fn)
 
-    monkeypatch.setattr(lobpcg_mod, "row_apply", row_apply)
+        def apply(block):
+            rows["A" if fn.__wrapped__ is op else "M"].append(block.shape[0])
+            return on_rows(block)
+
+        return apply
+
+    monkeypatch.setattr(lobpcg_mod, "rows", rows_of)
     res, per_m, calls, single, batched = _block_launches(
         lambda a, mm: tt.lobpcg(a, x0, tol=0.0, max_iterations=its, M=mm), op, m, v)
     assert res.iterations == its
