@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phase25            # the build and phase 25 alone
     python3 chip_smoke.py --phase26            # the build and phase 26 alone
     python3 chip_smoke.py --phase27            # the build and phase 27 alone
+    python3 chip_smoke.py --phase28            # the build and phase 28 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -22,13 +23,14 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase15`` and ``--phase17`` to ``--phase27`` modes build the
+The ``--phase15`` and ``--phase17`` to ``--phase28`` modes build the
 kernels and run that phase alone, with its checks. The smoke run runs
-phases 1-14, 16 and 24-26 in turn, then phases 15, 17-23 and 27, which time
-no kernel, in four worker processes at once (``--worker OUT PHASE...``, each
-pickling what the kernel report reads of its phases to OUT; WORKER_GROUPS:
-19; 15 and 18; 20, 21 and 27; 22, 17 and 23), and prints each worker's
-output in turn. Phases of the smoke run:
+phases 1-14, 16, 24-26 and 28 (a) in turn, then phases 15, 17-23, 27 and
+28 (b)-(c), which time no kernel, in four worker processes at once
+(``--worker OUT PHASE...``, each pickling what the kernel report reads of
+its phases to OUT; WORKER_GROUPS: 19 and 28; 15 and 18; 20, 21 and 27;
+22, 17 and 23), and prints each worker's output in turn. Phases of the
+smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
    power limit as nvidia-smi reports them.
@@ -438,8 +440,35 @@ output in turn. Phases of the smoke run:
     under tol and its λ within 1e-6 of the closed form; the batched wall
     against the lanes in turn.
 
+28. The halo route's batched form (a block of rows of a row-sharded grid:
+    one exchange and one launch, what gmres_tpu's jax.vmap makes of the
+    halo operators). (a) K1's halo form, K5 and K8's interior and edges on
+    8 lanes of 1024² float64 and 2048² float32, with random per-lane halo
+    rows and with a null side, each bitwise against its 8 single launches
+    and its plain lane form, with device ms by CUDA-graph replay, the bound
+    and one F.conv2d over the lanes (the only place per-lane halo rows run
+    on the card: one card is one rank, with no neighbour). (b) On a
+    one-rank NCCL group, one ``row_apply`` of 8 rows placed [Shard(1)]
+    through the halo operator, the halo cbpr2 and the order-4 halo
+    Chebyshev (1024² float64), the split Helmholtz operator (8 stacks of
+    2×1024² float64 placed [Shard(2)]: two launches of K1's halo form, one a
+    plane) and the two RDMA operators (2048² float32), beside the rows one
+    by one: one row's exchanges and launches (by the
+    wrappers' counts, and kernels by torch.profiler's two-profile rule),
+    each row bitwise its own call, both walls. (c) Solver rows on the same
+    group beside their twins on plain tensors, the counts set to 0 just
+    before each and read just after: block CG (halo operator + halo cbpr2,
+    1024² float64, s 8), LOBPCG (halo cbpr2 as M, 1024², k 4, held at
+    gmres_tpu's cap), the Nyström build on the halo operator (1024², rank
+    20), SLQ on a sharded 512² x_like (8 probes: samples bitwise the probes
+    one by one, log det within 3 stderr of the closed form) and block CG on
+    the RDMA route (1024² float32); counts against gmres_tpu's
+    (JAX_PHASE28, scripts/jax_phase28_counts.py) and the twin's, every
+    exchange followed by one launch of K1's halo form, K5 or K8, and each
+    of the row's kernels launched on lane blocks.
+
 Phases 12–14 share one NCCL process group made by the script; phases 21,
-22 and 23 make one each. Any failure
+22, 23 and 28 make one each. Any failure
 raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
 """
@@ -7793,6 +7822,505 @@ def phase_batched_spectral(gt_torch, dev):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the halo route's batched form (a block of rows of a row-sharded
+# grid: one exchange and one launch, as gmres_tpu's jax.vmap makes).
+# ---------------------------------------------------------------------------
+
+P28_LANES = 8
+P28_LANE_FORMS = ((1024, "float64"), (2048, "float32"))  # (a): 8 lanes each
+# (b): route: (N, dtype); "split" is a block of (2, N, N) stacks on [Shard(2)].
+P28_BLOCK = {"halo": (1024, "float64"), "split": (1024, "float64"),
+             "rdma": (2048, "float32")}
+P28_SPLIT_KH2, P28_SPLIT_DAMPING = 0.3, 0.2
+P28_N, P28_S = POISSON_1024, 8   # (c): block CG's side and right-hand sides
+P28_SEED = SEED + 28
+P28_BCG_TOL = 1e-6               # block CG float64: absolute per right-hand side
+P28_BCG_F32_TOL = 1e-1           # block CG float32 (RDMA route): absolute, ‖bᵢ‖ ~4.6e3
+# (c) LOBPCG: k, tol, max_iterations. With cbpr2 as M at 1024² neither
+# package converges in hundreds of iterations (gmres_tpu: not at 400 with
+# tol 1e-6, nor at 300 with rtol 1e-2), so the row is held to gmres_tpu's
+# status and cap, and its Ritz values to gmres_tpu's after the cap.
+P28_LOBPCG = (EIG_K, 1e-6, 100)
+# The capped Ritz values against gmres_tpu's, relative: mid-iteration, the
+# two packages' rounding moves them by ~1e-4 after 100 iterations (5.6e-5 to
+# 8.3e-5 on an H100 against gmres_tpu on the CPU).
+P28_RITZ_BAND = 1e-3
+P28_NYSTROM_RANK = 20
+P28_SLQ = (SLQ_N, SLQ_PROBES[0], SLQ_STEPS)  # 512², 8 probes, 40 steps
+P28_BAND = 2                     # the card's counts within 2 of gmres_tpu's CPU counts
+P28_WALL_REPS = 5                # (b): the median of 5 block calls, and of 5 loops
+# gmres_tpu's counts for (c), on the CPU at the same sizes on the same numpy
+# inputs (scripts/jax_phase28_counts.py): {row: its JSON line}.
+JAX_PHASE28 = {
+    "block_cg": {"iterations": 876, "status": 0},
+    "lobpcg": {"iterations": 100, "status": 1, "converged": False,
+               "eigenvalues": [0.00022287788313975134, 0.00032467258099876345,
+                               0.00035594897856387937, 0.0004178772439535989]},
+    "nystrom": {"lam_ends": [6.020137368740048, 6.048131689082068]},
+    "block_cg_rdma": {"iterations": 65, "status": 0},
+}
+
+
+def p28_jax(row):
+    """(iterations, status) of gmres_tpu's run of a phase 28 row, or None
+    where the table has none."""
+    got = JAX_PHASE28.get(row)
+    return None if got is None else (got["iterations"], got["status"])
+
+
+def p28_inputs(kind: str):
+    """(c)'s numpy inputs (scripts/jax_phase28_counts.py draws the same):
+    block CG's right-hand sides (float64: standard normal; float32: A·x* for
+    standard normal x*, whose true residual float32 can certify at
+    P28_BCG_F32_TOL, where a standard normal b's smooth part makes x too
+    large) and LOBPCG's start."""
+    import numpy as np
+
+    n, s = P28_N, P28_S
+    seed, shape = {"bcg": (P28_SEED, (s, n, n)), "bcg_f32": (P28_SEED + 1, (s, n, n)),
+                   "lobpcg": (P28_SEED + 2, (P28_LOBPCG[0], n, n))}[kind]
+    a = np.random.default_rng(seed).standard_normal(shape)
+    if kind == "bcg_f32":
+        return np.stack([np_stencil(x) for x in a]).astype(np.float32)
+    return a
+
+
+def p28_counters(reset: bool = False) -> dict:
+    """The halo route's launches (set to 0 first where `reset`): K1 (every
+    launch), K1's halo form, K5, K8's interior and edges, each also on lane
+    blocks ("… batched"), and the halo exchanges."""
+    from gmres_tpu_torch.ops import fused, stencil, stencil_rdma
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    wrappers = {"K1": stencil.stencil5_cuda, "K1 halo": stencil.stencil_5pt_pallas_halo,
+                "K5": fused.cheb2_cuda, "K8 interior": stencil_rdma.rdma_interior_cuda,
+                "K8 edges": stencil_rdma.rdma_edges_cuda}
+    if reset:
+        for w in wrappers.values():
+            w.launches = w.batched_launches = 0
+        halo_exchange.exchanges = 0
+    out = {name: w.launches for name, w in wrappers.items()}
+    out.update({f"{name} batched": w.batched_launches for name, w in wrappers.items()})
+    out["exchanges"] = halo_exchange.exchanges
+    return out
+
+
+def lanes_conv(x, top, bot, coefs7):
+    """The lane forms' yardstick: one F.conv2d over the lanes (the batch) of
+    the rows with their halo rows concatenated (zero rows for a null side,
+    built here, outside the timed call), padded only at the sides:
+    a·x + b·A(x) with per-lane halo rows."""
+    import torch
+    import torch.nn.functional as F
+
+    c0, cw, ce, cs, cn, a, b = coefs7
+    w = torch.tensor([[0.0, b * cs, 0.0], [b * cw, a + b * c0, b * ce],
+                      [0.0, b * cn, 0.0]], dtype=x.dtype, device=x.device).reshape(1, 1, 3, 3)
+    zero = torch.zeros_like(x[:, :1])
+    ext = torch.cat([zero if top is None else top, x, zero if bot is None else bot], dim=1)
+    return lambda: F.conv2d(ext[:, None], w, padding=(0, 1))[:, 0]
+
+
+def p28_kernels(dev):
+    """(a) K1's halo form, K5 and K8's interior and edges on 8 lanes of
+    1024² float64 and 2048² float32, with random per-lane halo rows and with
+    a null side: each bitwise against its 8 single launches and against its
+    plain lane form, with device ms by CUDA-graph replay, the bound and one
+    F.conv2d over the lanes."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.ops import fused, stencil
+    from gmres_tpu_torch.ops import stencil_rdma as rd
+
+    gen = np.random.default_rng(P28_SEED)
+    coefs = GENERAL_COEFS
+    d, alpha = fused.chebyshev_ref_scalars(*REF_EIG)
+    records = {"K1 halo lanes": [], "K5 lanes": [], "K8 interior lanes": [],
+               "K8 edges lanes": []}
+    print("phase 28 (a): K1's halo form, K5 and K8 on lane blocks with per-lane halo rows, "
+          "against 8 single launches and their plain lane forms", flush=True)
+    lanes = P28_LANES
+    for n, dts in P28_LANE_FORMS:
+        dt = getattr(torch, dts)
+        item = torch.empty((), dtype=dt).element_size()
+        xb = torch.as_tensor(gen.standard_normal((lanes, n, n))).to(dev, dt)
+        tops = torch.as_tensor(gen.standard_normal((lanes, 1, n))).to(dev, dt)
+        bots = torch.as_tensor(gen.standard_normal((lanes, 1, n))).to(dev, dt)
+        reps = 20 if n >= 2048 else 50
+        scal = fused.cheb2_scalars(d, alpha, coefs, dt)
+        c_op = rd._coefs7((*coefs, 0.0, 1.0), dt)
+        c_m = rd._coefs7((*coefs, 1.0 / d + alpha, -alpha / d), dt)
+        tag = f"{lanes}x{n}x{n} {'f32' if dt == torch.float32 else 'f64'}"
+
+        def lane(h, k):
+            return None if h is None else h[k]
+
+        for sides, top, bot in (("random halo rows", tops, bots),
+                                ("null bottom", tops, None)):
+            halo_bytes = item * n * lanes * (2 if bot is not None else 1)
+            records["K1 halo lanes"].append(p24_kernel_row(
+                f"K1 halo lanes {tag} {sides}",
+                lambda: stencil.stencil5_cuda(xb, top, bot, coefs),
+                lambda: [stencil.stencil5_cuda(xb[k], lane(top, k), lane(bot, k), coefs)
+                         for k in range(lanes)],
+                lambda: stencil.stencil_5pt_halo(xb, top, bot, coefs), 0.0,
+                (2 * lanes * n * n * item + halo_bytes, 9 * lanes * n * n, dt), reps,
+                library=lanes_conv(xb, top, bot, (*coefs, 0.0, 1.0))))
+            records["K5 lanes"].append(p24_kernel_row(
+                f"K5 lanes {tag} {sides}",
+                lambda: fused.cheb2_apply(xb, top, bot, scal),
+                lambda: [fused.cheb2_apply(xb[k], lane(top, k), lane(bot, k), scal)
+                         for k in range(lanes)],
+                lambda: fused.cheb2_plain(xb, top, bot, scal), 0.0,
+                (2 * lanes * n * n * item + halo_bytes, 14 * lanes * n * n, dt), reps,
+                library=lanes_conv(xb, top, bot, (*coefs, 1.0 / d + alpha, -alpha / d))))
+            # The edge step works in place: each call adds the corrections to
+            # its own buffer again, the first to the interior's output.
+            y0 = rd.rdma_interior_cuda(xb, c_m)
+            yw, yp, ys = y0.clone(), y0.clone(), [y0[k].clone() for k in range(lanes)]
+            records["K8 edges lanes"].append(p24_kernel_row(
+                f"K8 edges lanes {tag} {sides} cbpr2",
+                lambda: rd.rdma_edges_cuda(yw, top, bot, c_m),
+                lambda: [rd.rdma_edges_cuda(ys[k], lane(top, k), lane(bot, k), c_m)
+                         for k in range(lanes)],
+                lambda: rd.rdma_edges_plain(yp, top, bot, c_m), 0.0,
+                (2 * halo_bytes + halo_bytes, 2 * lanes * n * (2 if bot is not None else 1),
+                 dt), reps))
+        for label, c in (("operator", c_op), ("cbpr2", c_m)):
+            records["K8 interior lanes"].append(p24_kernel_row(
+                f"K8 interior lanes {tag} {label}",
+                lambda: rd.rdma_interior_cuda(xb, c),
+                lambda: [rd.rdma_interior_cuda(xb[k], c) for k in range(lanes)],
+                lambda: rd.rdma_interior_plain(xb, c), 0.0,
+                (2 * lanes * n * n * item, 12 * lanes * n * n, dt), reps,
+                library=lanes_conv(xb, None, None, c)))
+    return records
+
+
+def p28_wall(fn, reps=P28_WALL_REPS) -> float:
+    """The median host wall of `reps` calls of fn, each to a synchronisation."""
+    import numpy as np
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls))
+
+
+def p28_block_applications(gt_torch, dev, mesh):
+    """(b) One block application of 8 rows placed [Shard(1)] through
+    row_apply, beside the same rows applied one by one: the halo operator
+    (K1's halo form), the halo cbpr2 (K5) and the order-4 halo Chebyshev at
+    1024² float64, the split Helmholtz operator on 8 (2, 1024, 1024)
+    float64 stacks placed [Shard(2)] (two launches of K1's halo form, one a
+    plane), the RDMA operator and cbpr2 (K8) at 2048² float32. Held: the
+    block makes one row's exchanges and launches (lane launches), the rows
+    s times as many; the profiler's kernels a block application equal to a
+    row's (device_events; the split block's two more: each plane's lanes
+    made contiguous); each row bitwise its own call. The walls of both are
+    printed."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.ops.blas import row_apply
+    from gmres_tpu_torch.parallel.halo import (
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+
+    gen = np.random.default_rng(P28_SEED + 3)
+    s = P28_S
+    blocks = {}
+    for route, (n, dts) in P28_BLOCK.items():
+        stack = (2,) if route == "split" else ()
+        dim = 1 + len(stack)
+        x = torch.as_tensor(gen.standard_normal((s,) + stack + (n, n))).to(
+            dev, getattr(torch, dts))
+        blocks[route] = (x, distribute_tensor(x, mesh, [Shard(dim)]),
+                         [distribute_tensor(x[i], mesh, [Shard(dim - 1)]) for i in range(s)])
+    split = gt_torch.helmholtz_split_operator(P28_BLOCK["split"][0], P28_SPLIT_KH2,
+                                              damping=P28_SPLIT_DAMPING)
+    # (label, operator, route, exchanges, launches, kernel, the block's
+    # kernels beyond a row's)
+    cases = (
+        ("halo operator", gt_torch.halo_poisson_operator(mesh), "halo", 1, 1, "K1 halo", 0),
+        ("halo cbpr2", gt_torch.halo_chebyshev_preconditioner(mesh, *REF_EIG), "halo", 1,
+         1, "K5", 0),
+        ("halo chebyshev order 4",
+         gt_torch.halo_chebyshev_preconditioner(mesh, *REF_EIG, order=4), "halo", 3, 3,
+         "K1 halo", 0),
+        ("helmholtz split operator", split, "split", 1, 2, "K1 halo", 2),
+        ("rdma operator", rdma_stencil_operator(mesh), "rdma", 1, 1, "K8 interior", 0),
+        ("rdma cbpr2", rdma_chebyshev_preconditioner(mesh, *REF_EIG), "rdma", 1, 1,
+         "K8 interior", 0),
+    )
+    out = []
+    for label, op, route, per, launches, kernel, extra in cases:
+        x, blk, rows = blocks[route]
+        n, dts = P28_BLOCK[route]
+        tag = f"phase 28 (b) {label} {'x'.join(map(str, x.shape))} {dts}"
+
+        def block():
+            return row_apply(op, blk)
+
+        def one_by_one():
+            return [op(r) for r in rows]
+
+        block()
+        one_by_one()
+        p28_counters(reset=True)
+        y = block()
+        torch.cuda.synchronize()
+        count = p28_counters()
+        p28_counters(reset=True)
+        ys = one_by_one()
+        torch.cuda.synchronize()
+        count_rows = p28_counters()
+        bitwise = all(torch.equal(y.to_local()[i], ys[i].to_local()) for i in range(s))
+        wall, wall_rows = p28_wall(block), p28_wall(one_by_one)
+        kernels, kernels_row = device_events(block), device_events(lambda: op(rows[0]))
+        print(f"{tag}: block {count['exchanges']} exchanges, {count[kernel]} {kernel} "
+              f"launches ({count[kernel + ' batched']} on the lane block), {kernels} kernels "
+              f"(profiler); one by one {count_rows['exchanges']} exchanges, "
+              f"{count_rows[kernel]} launches, a row {kernels_row} kernels; rows bitwise "
+              f"{bitwise}; wall block {wall * 1e3:.3f} ms, rows one by one "
+              f"{wall_rows * 1e3:.3f} ms ({wall_rows / wall:.2f}x)", flush=True)
+        require(bitwise, f"{tag}: a row differs from its own call")
+        require(count["exchanges"] == per
+                and count[kernel] == count[kernel + " batched"] == launches,
+                f"{tag}: block {count}")
+        require(count_rows["exchanges"] == s * per and count_rows[kernel] == s * launches
+                and count_rows[kernel + " batched"] == 0, f"{tag}: rows {count_rows}")
+        require(count["K8 edges"] == count_rows["K8 edges"] == 0, f"{tag}: edge launches "
+                "on one rank")
+        require(kernels == kernels_row + extra, f"{tag}: {kernels} kernels a block "
+                f"application, {kernels_row} a row's (+{extra} expected)")
+        out.append({"label": label, "rows": s, "side": n, "dtype": dts, "count": count,
+                    "count_rows": count_rows, "kernels": kernels, "kernels_row": kernels_row,
+                    "wall_s": wall, "wall_rows_s": wall_rows})
+    return out
+
+
+def p28_solver_row(label, sharded, twin, counts, jax_counts, check, lanes_kernels,
+                   warm=True):
+    """One solver row of (c) on the one-rank mesh: the twin on plain tensors
+    (the same operators on the rank's own block), then the row on the
+    sharded block, each after an untimed run where `warm` (the rows of
+    seconds go without: a first call's one-time costs are small beside
+    them), timed to a synchronisation,
+    the launch counts set to 0 just before and read just after. Held: the
+    counts equal the twin's and, where `jax_counts` is given, (iterations
+    within P28_BAND, status equal) gmres_tpu's; `check(res, twin)` true;
+    each of `lanes_kernels` launched on lane blocks, and every exchange of
+    the row followed by one launch of K1's halo form, K5 or K8."""
+    import torch
+
+    tag = f"phase 28 (c) {label}"
+    walls, results, cnts = {}, {}, {}
+    for key, call in (("twin", twin), ("row", sharded)):
+        if warm:
+            call()
+        p28_counters(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[key] = call()
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        cnts[key] = p28_counters()
+    res, tw = results["row"], results["twin"]
+    count = cnts["row"]
+    got, want = counts(res), counts(tw)
+    lane_launches = sum(count[f"{k} batched"] for k in ("K1 halo", "K5", "K8 interior"))
+    print(f"{tag}: counts {got} (twin on plain tensors {want}; gmres_tpu {jax_counts}); "
+          f"wall {walls['row']:.4f} s, twin {walls['twin']:.4f} s "
+          f"({walls['row'] / walls['twin']:.2f}x); launches "
+          + ", ".join(f"{k} {v}" for k, v in count.items()), flush=True)
+    require(got == want, f"{tag}: counts {got}, twin {want}")
+    if jax_counts is not None:
+        require(got[-1] == jax_counts[-1] and abs(got[0] - jax_counts[0]) <= P28_BAND,
+                f"{tag}: counts {got}, gmres_tpu {jax_counts}")
+    require(check(res, tw), f"{tag}: check failed")
+    for k in lanes_kernels:
+        require(count[f"{k} batched"] > 0, f"{tag}: {k} not launched on a lane block")
+    require(count["exchanges"] == count["K1 halo"] + count["K5"] + count["K8 interior"]
+            and lane_launches > 0, f"{tag}: exchanges and launches {count}")
+    return {"label": label, "counts": got, "twin_counts": want, "jax_counts": jax_counts,
+            "wall_s": walls["row"], "twin_wall_s": walls["twin"], "count": count,
+            "twin_count": cnts["twin"]}
+
+
+def p28_solver_rows(gt_torch, dev, mesh):
+    """(c) block CG (halo operator + halo cbpr2, 1024² float64, s 8), LOBPCG
+    (halo operator, halo cbpr2 as M, 1024², k 4), the Nyström build on the
+    halo operator (1024², rank 20), trace_funm on a sharded 512² x_like
+    (8 probes) and block CG on the RDMA route (1024² float32, s 8), each
+    beside its twin on plain tensors."""
+    import numpy as np
+    import torch
+
+    from gmres_tpu_torch.parallel.halo import (
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+    from gmres_tpu_torch.solvers import funm
+    from gmres_tpu_torch.solvers.lanczos import arnoldi_factorization
+
+    def blk(a):
+        from torch.distributed.tensor import Shard, distribute_tensor
+
+        return distribute_tensor(torch.as_tensor(a).to(dev), mesh, [Shard(1)])
+
+    def rel(a, b):
+        a, b = whole(a).detach().cpu().numpy(), whole(b).detach().cpu().numpy()
+        return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
+
+    rows = []
+    n = P28_N
+    op = gt_torch.halo_poisson_operator(mesh)
+    plain_op = gt_torch.poisson_operator(n)
+    cbpr2 = gt_torch.halo_chebyshev_preconditioner(mesh, *REF_EIG)
+    b = p28_inputs("bcg")
+
+    def residual_ok(b_np, tol, scale=1.0):
+        """Status 0 and each column's numpy float64 ‖bᵢ − A xᵢ‖ under
+        scale·tol (tol absolute, as block CG takes it)."""
+        def check(res, twin):
+            xs = whole(res.x).double().cpu().numpy()
+            worst = max(float(np.linalg.norm(b_k - np_stencil(x_k)))
+                        for b_k, x_k in zip(b_np.astype(np.float64), xs))
+            print(f"  numpy ‖bᵢ − A xᵢ‖ at most {worst:.3e} (tol {tol:g}); x against the "
+                  f"twin {rel(res.x, twin.x):.3e}", flush=True)
+            return res.status == 0 and worst <= scale * tol
+        return check
+
+    rows.append(p28_solver_row(
+        f"block_cg halo operator + halo cbpr2 {n}x{n} f64 s {P28_S}",
+        lambda: gt_torch.block_cg(op, blk(b), tol=P28_BCG_TOL, M=cbpr2),
+        lambda: gt_torch.block_cg(plain_op, torch.as_tensor(b).to(dev), tol=P28_BCG_TOL,
+                                  M=cbpr2),
+        lambda r: (r.iterations, r.status), p28_jax("block_cg"),
+        residual_ok(b, P28_BCG_TOL, 1.01), ("K1 halo", "K5"), warm=False))
+    k, tol, cap = P28_LOBPCG
+    x0 = p28_inputs("lobpcg")
+    _, lam_exact = p27_poisson_lanes(n)
+    exact = np.sort(lam_exact.reshape(-1))[:k]
+    jrow = JAX_PHASE28.get("lobpcg")
+
+    def eig_ok(res, twin):
+        """Converged: λ within 1e-6 of the closed form. At the cap (as
+        gmres_tpu): Ritz values above the eigenvalues (Courant–Fischer) and
+        within P28_RITZ_BAND of gmres_tpu's after the same iterations."""
+        lam = res.eigenvalues.cpu().numpy()
+        gap = float(np.max(np.abs(lam - exact) / exact))
+        jgap = (float(np.max(np.abs(lam - np.array(jrow["eigenvalues"]))
+                             / np.array(jrow["eigenvalues"]))) if jrow else None)
+        print(f"  λ {np.array2string(lam, precision=10)} against the closed form "
+              f"{np.array2string(exact, precision=10)} ({gap:.2e} relative), gmres_tpu's "
+              f"{jgap} relative; twin {rel(res.eigenvalues, twin.eigenvalues):.2e}",
+              flush=True)
+        if res.status == 0:
+            return gap <= 1e-6
+        return bool(np.all(lam >= exact)) and (jgap is None or jgap <= P28_RITZ_BAND)
+
+    rows.append(p28_solver_row(
+        f"lobpcg halo operator + halo cbpr2 {n}x{n} k {k}",
+        lambda: gt_torch.lobpcg(op, blk(x0), tol=tol, max_iterations=cap, M=cbpr2),
+        lambda: gt_torch.lobpcg(plain_op, torch.as_tensor(x0).to(dev), tol=tol,
+                                max_iterations=cap, M=cbpr2),
+        lambda r: (r.iterations, r.status), p28_jax("lobpcg"), eig_ok, ("K1 halo", "K5")))
+    r = P28_NYSTROM_RANK
+    jlam = JAX_PHASE28.get("nystrom", {}).get("lam_ends")
+
+    def nystrom_ok(res, twin):
+        lam, lam_t = res[1].cpu().numpy(), twin[1].cpu().numpy()
+        ends = np.array([lam[-1], lam[0]])
+        print(f"  λ̂ ends {np.array2string(ends, precision=6)} (gmres_tpu's "
+              f"{jlam}, held to {NYSTROM_LAM_BAND:g} relative); twin "
+              f"{float(np.max(np.abs(lam - lam_t)) / lam_t[0]):.2e}", flush=True)
+        ok = float(np.max(np.abs(lam - lam_t)) / lam_t[0]) <= 1e-10
+        if jlam is not None:
+            ok = ok and bool(np.all(np.abs(ends - np.array(jlam)) <= NYSTROM_LAM_BAND
+                                    * np.array(jlam)))
+        return ok
+
+    zeros = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    rows.append(p28_solver_row(
+        f"nystrom build halo operator {n}x{n} rank {r}",
+        lambda: gt_torch.nystrom_preconditioner(op, gt_torch.shard_grid_vector(zeros, mesh),
+                                                rank=r),
+        lambda: gt_torch.nystrom_preconditioner(plain_op, zeros, rank=r),
+        lambda res: (res[1].shape[0],), None, nystrom_ok, ("K1 halo",), warm=False))
+    m, probes, steps = P28_SLQ
+    slq_op, plain_op_slq = gt_torch.halo_poisson_operator(mesh), gt_torch.poisson_operator(m)
+    like = torch.zeros((m, m), dtype=torch.float64, device=dev)
+    like_sh = gt_torch.shard_grid_vector(like, mesh)
+    c = 2.0 - 2.0 * np.cos(np.arange(1, m + 1) * np.pi / (m + 1))
+    logdet = float(np.sum(np.log(c[:, None] + c[None, :])))
+
+    def slq_ok(res, twin):
+        z = funm.shard_rows_like(funm._rademacher(probes, (m, m), like.dtype, dev, 0), like_sh)
+        hosts = [arnoldi_factorization(slq_op, z[i], steps)[1].to("cpu", torch.float64)
+                 for i in range(probes)]
+        seq = funm._trace_result(torch.log, z, hosts, steps, like_sh, probes)
+        same = torch.equal(res.samples.cpu(), seq.samples.cpu())
+        value, stderr = float(res.value), float(res.stderr)
+        print(f"  log det {value:.6f} ± {stderr:.6f}, closed form {logdet:.6f} "
+              f"({abs(value - logdet) / stderr:.2f} stderr); samples bitwise the probes one "
+              f"by one {same}; host syncs {res.host_syncs}", flush=True)
+        return same and abs(value - logdet) < 3 * stderr and res.host_syncs == 1
+
+    rows.append(p28_solver_row(
+        f"trace_funm log det halo operator {m}x{m} x_like [Shard(0)], {probes} probes, "
+        f"{steps} steps",
+        lambda: gt_torch.trace_funm(slq_op, torch.log, like_sh, n_probes=probes, steps=steps),
+        lambda: gt_torch.trace_funm(plain_op_slq, torch.log, like, n_probes=probes,
+                                    steps=steps),
+        lambda res: (res.samples.shape[0],), None, slq_ok, ("K1 halo",)))
+    rd_op, rd_m = rdma_stencil_operator(mesh), rdma_chebyshev_preconditioner(mesh, *REF_EIG)
+    b32 = p28_inputs("bcg_f32")
+    rows.append(p28_solver_row(
+        f"block_cg rdma operator + rdma cbpr2 {n}x{n} f32 s {P28_S}",
+        lambda: gt_torch.block_cg(rd_op, blk(b32), tol=P28_BCG_F32_TOL, M=rd_m),
+        lambda: gt_torch.block_cg(rd_op, torch.as_tensor(b32).to(dev), tol=P28_BCG_F32_TOL,
+                                  M=rd_m),
+        lambda r: (r.iterations, r.status), p28_jax("block_cg_rdma"),
+        residual_ok(b32, P28_BCG_F32_TOL, 2.0), ("K8 interior",)))
+    return rows
+
+
+def phase_halo_blocks(gt_torch, dev, workdir, kernels=True):
+    """Phase 28: (a) the lane forms (where `kernels`), then on a one-rank
+    NCCL group (b) the block applications and (c) the solver rows. Returns
+    (a)'s records, the launches over (b) and (c), and the rows."""
+    t_phase = time.perf_counter()
+    records = p28_kernels(dev) if kernels else {}
+    with one_rank_group(workdir, "rendezvous28"):
+        mesh = gt_torch.solver_mesh(1)
+        blocks = p28_block_applications(gt_torch, dev, mesh)
+        rows = p28_solver_rows(gt_torch, dev, mesh)
+    launches = dict.fromkeys(p28_counters(), 0)
+    for r in blocks:
+        for k, v in r["count"].items():
+            launches[k] += v
+    for r in rows:
+        for k, v in r["count"].items():
+            launches[k] += v
+    for k in ("K1 halo", "K5", "K8 interior"):
+        require(launches[f"{k} batched"] > 0, f"phase 28: {k} was not launched on a lane "
+                f"block on the main path ({launches})")
+    print(f"phase 28: {time.perf_counter() - t_phase:.1f} s; launches over (b) and (c): "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return records, launches, blocks + rows
+
+
 def run_phase(name, gt_torch, dev, workdir):
     """Run phase `name` (PHASE_RUNNERS; 21-23 on a one-rank NCCL group of
     their own) and return what the kernel report reads of it."""
@@ -7800,6 +8328,11 @@ def run_phase(name, gt_torch, dev, workdir):
 
     rank_group = (one_rank_group(workdir, f"rendezvous{name}") if name in ("21", "22", "23")
                   else contextlib.nullcontext())
+    if name == "28":
+        # (a) runs in the main process of the smoke run (its device times
+        # want the card to itself); alone (--phase28) it runs here.
+        return phase_halo_blocks(gt_torch, dev, workdir,
+                                 kernels=sys.argv[1:2] == ["--phase28"])[1:]
     with rank_group:
         if name == "15":
             return phase_programs(gt_torch, dev, workdir)
@@ -7826,14 +8359,15 @@ def run_phase(name, gt_torch, dev, workdir):
         return phase_batched_spectral(gt_torch, dev)[0]
 
 
-PHASE_RUNNERS = ("15", "17", "18", "19", "20", "21", "22", "23", "24", "25", "26", "27")
+PHASE_RUNNERS = ("15", "17", "18", "19", "20", "21", "22", "23", "24", "25", "26", "27",
+                 "28")
 # Phases 15, 17-23 and 27 time no kernel: after the kernel phases they run
 # in these worker processes at once (each group one process, in order),
 # which the card time-slices; their walls share the card and the host.
 # Grouped by their walls run one after another on an H100 host: phase 19
 # ~224 s; 15 and 18 ~174; 20 and 21 ~168, and 27 (~60 s predicted); 22, 17
-# and 23 ~189.
-WORKER_GROUPS = (("19",), ("15", "18"), ("20", "21", "27"), ("22", "17", "23"))
+# and 23 ~189; 28's (b) and (c) (~60 s predicted) run after 19.
+WORKER_GROUPS = (("19", "28"), ("15", "18"), ("20", "21", "27"), ("22", "17", "23"))
 
 
 def run_workers(groups) -> dict:
@@ -8019,17 +8553,23 @@ def main() -> int:
         # recycling, blocks) and vmap(grad) through implicit_solve; K1's
         # per-lane transposed launch.
         p26_records, p26 = run_phase("26", gt_torch, dev, workdir)
+        # Phase 28 (a): K1's halo form, K5 and K8 on lane blocks ((b) and (c)
+        # run in a worker).
+        p28_records = p28_kernels(dev)
     # Phases 15 and 17-23, which time no kernel, in worker processes at once.
     done = run_workers(WORKER_GROUPS)
     programs, family, short, p19, p20, p27 = (done[k] for k in ("15", "17", "18", "19", "20",
                                                                   "27"))
     (p21, p21_twins), (p22, p22_twins) = done["21"], done["22"]
     p23, p23_twins, rank_blocks = done["23"]
-    print(f"chip_smoke: phases 1-27 in {time.perf_counter() - t_run:.1f} s", flush=True)
+    p28, p28_rows = done["28"]
+    print(f"chip_smoke: phases 1-28 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(p24_records)
     records.update(p25_records)
     records.update(p26_records)
+    records.update(p28_records)
+    records["K8 lanes"] = records["K8 interior lanes"]
     records.update(rdma_records)
     records.update(cd_records)
 
@@ -8091,6 +8631,8 @@ def main() -> int:
                 "GMRES, vmap(grad) through implicit_solve (phase 26)")
     p27_path = ("batched lanczos_bounds, funm_lanczos, expm_multiply, trace_funm, "
                 "exponential_evolve, theta_evolve, LOBPCG and Krylov-Schur (phase 27)")
+    p28_path = ("the halo route's block form: block applications and solver rows on a "
+                "sharded block, one-rank mesh (phase 28)")
     # Launches of the batched form (a block in one launch), by phase: the
     # block rows of phases 15-23 on plain tensors run their block
     # applications batched too (a DTensor block keeps one call a row).
@@ -8099,7 +8641,7 @@ def main() -> int:
                         p21_twins_path: p21_twins, p22_path: p22,
                         p22_twins_path: p22_twins, p23_path: p23,
                         p23_twins_path: p23_twins, p24_path: p24, p25_path: p25,
-                        p26_path: p26, p27_path: p27}
+                        p26_path: p26, p27_path: p27, p28_path: p28}
 
     def batched_fields(name):
         by = {path: counts.get(f"{name} batched", 0)
@@ -8126,7 +8668,7 @@ def main() -> int:
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
                + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"]
                + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"] + p24["K1"]
-               + p25["K1"] + p26["K1"] + p27["K1"],
+               + p25["K1"] + p26["K1"] + p27["K1"] + p28["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -8139,7 +8681,8 @@ def main() -> int:
                                  p22_path: p22["K1"], p22_twins_path: p22_twins["K1"],
                                  p23_path: p23["K1"], p23_twins_path: p23_twins["K1"],
                                  p24_path: p24["K1"], p25_path: p25["K1"],
-                                 p26_path: p26["K1"], p27_path: p27["K1"]},
+                                 p26_path: p26["K1"], p27_path: p27["K1"],
+                                 p28_path: p28["K1"]},
                **batched_fields("K1"),
                phase22_k1_halo=p22["K1 halo"], phase22_exchanges=p22["exchanges"],
                phase23_k1_halo=p23["K1 halo"], phase23_exchanges=p23["exchanges"],
@@ -8342,10 +8885,11 @@ def main() -> int:
                library_note="torch.sparse_bsr_tensor @ X, X = (n, lanes)"),
         report("K5", "gmres_tpu_torch/csrc/cheb2_fused.cu",
                "gmres_tpu/ops/fused.py:129", [],
-               strong["K5"] + p21["K5"] + p21_twins["K5"],
+               strong["K5"] + p21["K5"] + p21_twins["K5"] + p28["K5"],
                f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows",
                launches_by_path={"strong-scaling (phase 12)": strong["K5"],
-                                 p21_path: p21["K5"], p21_twins_path: p21_twins["K5"]},
+                                 p21_path: p21["K5"], p21_twins_path: p21_twins["K5"],
+                                 p28_path: p28["K5"]},
                **timing("K5", f"K5 {STRONG_N}x{STRONG_N} f64 null halo rows")),
         report("K7a", "gmres_tpu_torch/csrc/cg_fused.cu",
                "gmres_tpu/ops/fused.py:50", [], k7_launches[0],
@@ -8366,9 +8910,11 @@ def main() -> int:
                nearest_library_ms=[r["nearest_library_ms"] for r in records["K6"]
                                    if "nearest_library_ms" in r][-1]),
         report("K8", "gmres_tpu_torch/csrc/stencil5_rdma.cu",
-               "gmres_tpu/ops/stencil_rdma.py:41", [], k8["interior"], k8_path,
-               launches_by_path={"rdma gmres and cg (phase 14), interior": k8["interior"]},
-               edge_launches=k8["edges"],
+               "gmres_tpu/ops/stencil_rdma.py:41", [], k8["interior"] + p28["K8 interior"],
+               k8_path,
+               launches_by_path={"rdma gmres and cg (phase 14), interior": k8["interior"],
+                                 p28_path: p28["K8 interior"]},
+               edge_launches=k8["edges"] + p28["K8 edges"],
                kernels_per_application={op: k8["applications"][op]["kernels"]
                                         for op in k8["applications"]},
                four_launch_ms=[r["four_launch_ms"] for r in records["K8"]
@@ -8377,6 +8923,44 @@ def main() -> int:
                hbm_ms=[r["ms"] for r in records["K8"]
                        if r["case"] == "K8 2048x2048 f32 operator, no halo rows"][0],
                **timing("K8", k8_path)),
+        report("K1 halo lanes", "gmres_tpu_torch/csrc/stencil5.cu",
+               "gmres_tpu/ops/stencil.py:170", ["gmres_tpu/parallel/halo.py:105-112"],
+               p28["K1 halo batched"], "K1 halo lanes 8x2048x2048 f32 random halo rows",
+               form="K1's halo form on a (lanes, rows, cols) block with (lanes, 1, cols) halo "
+                    "rows, lane ℓ's its own (null: a zero row), the lane on gridDim.y: a "
+                    "block of rows of a row-sharded grid (jax.vmap of the halo operator)",
+               launches_by_path={p28_path: p28["K1 halo batched"]},
+               singles_ms=[r["singles_ms"] for r in records["K1 halo lanes"]
+                           if r["case"] == "K1 halo lanes 8x2048x2048 f32 random halo rows"][0],
+               lanes_rows=lanes_rows("K1 halo lanes"),
+               library_note="F.conv2d over the lanes of the rows with their halo rows "
+                            "concatenated (the concatenation untimed)"),
+        report("K5 lanes", "gmres_tpu_torch/csrc/cheb2_fused.cu",
+               "gmres_tpu/ops/fused.py:157", ["gmres_tpu/parallel/halo.py:240-250"],
+               p28["K5 batched"], "K5 lanes 8x2048x2048 f32 random halo rows",
+               form="K5 on a (lanes, rows, cols) block with per-lane halo rows, the lane on "
+                    "gridDim.y (jax.vmap of the halo cbpr2)",
+               launches_by_path={p28_path: p28["K5 batched"]},
+               singles_ms=[r["singles_ms"] for r in records["K5 lanes"]
+                           if r["case"] == "K5 lanes 8x2048x2048 f32 random halo rows"][0],
+               lanes_rows=lanes_rows("K5 lanes"),
+               library_note="F.conv2d over the lanes of K5's affine cross on the rows with "
+                            "their halo rows concatenated"),
+        report("K8 lanes", "gmres_tpu_torch/csrc/stencil5_rdma.cu",
+               "gmres_tpu/ops/stencil_rdma.py:186", ["gmres_tpu/parallel/halo.py:138-145",
+                                                     "gmres_tpu/parallel/halo.py:178-185"],
+               p28["K8 interior batched"], "K8 interior lanes 8x2048x2048 f32 operator",
+               form="K8's interior and edges on a (lanes, rows, cols) block, per-lane halo "
+                    "rows for the edges, the lane on gridDim.y (jax.vmap of the RDMA "
+                    "operators); no edge launch on one rank",
+               launches_by_path={p28_path: p28["K8 interior batched"]},
+               edge_launches=p28["K8 edges batched"],
+               singles_ms=[r["singles_ms"] for r in records["K8 lanes"]
+                           if r["case"] == "K8 interior lanes 8x2048x2048 f32 operator"][0],
+               lanes_rows=lanes_rows("K8 lanes"),
+               edges_rows=lanes_rows("K8 edges lanes"),
+               library_note="F.conv2d over the lanes of the affine cross (the interior; the "
+                            "edges have no library call)"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -29,6 +29,15 @@
 // path's K5 → K1 chain in CUDA-graph replay, which no path runs (PERF.md).
 // Neither is used.
 //
+// Lanes. A contiguous (lanes, rows, cols) block of grids is one launch, the
+// lane on gridDim.y, with per-lane halo rows: `top` and `bot` are then
+// (lanes, cols) arrays, lane ℓ's row at ℓ·cols (null: a zero row in every
+// lane). That is the halo route's block form, what jax.vmap makes of the
+// cbpr2 kernel: s rows of a row-sharded grid take one exchange of their
+// boundary rows and one launch. A lane's threads run one grid's arithmetic on
+// the lane's slice, so every lane gives the bits of its own launch. The
+// scalars are one set for every lane (the preconditioner's).
+//
 // Rounding: the stencil sum in the order of the plain PyTorch version
 // (c0·r + cw·W + ce·E + cs·S + cn·N, left to right), then the epilogue in the
 // JAX kernel's order, with 1/d rounded to the dtype on the host. The library is
@@ -55,6 +64,11 @@ cheb2_kernel(const T* __restrict__ r, const T* __restrict__ top,
              Cheb2<T> p) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= (long long)rows * cols) return;
+  const long long lane = (long long)blockIdx.y * rows * cols;
+  r += lane;
+  z += lane;
+  if (top != nullptr) top += (long long)blockIdx.y * cols;
+  if (bot != nullptr) bot += (long long)blockIdx.y * cols;
   const int i = (int)(idx / cols);
   const int j = (int)(idx - (long long)i * cols);
   const T zero = T(0);
@@ -68,13 +82,15 @@ cheb2_kernel(const T* __restrict__ r, const T* __restrict__ top,
 }
 
 template <typename T>
-int launch(const T* r, const T* top, const T* bot, T* z, int rows, int cols,
-           Cheb2<T> p, int device, void* stream) {
+int launch(const T* r, const T* top, const T* bot, T* z, int lanes, int rows,
+           int cols, Cheb2<T> p, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   const long long work = (long long)rows * cols;
-  cheb2_kernel<T><<<(unsigned)((work + kThreads - 1) / kThreads), kThreads, 0,
-                    (cudaStream_t)stream>>>(r, top, bot, z, rows, cols, p);
+  const dim3 grid((unsigned)((work + kThreads - 1) / kThreads), (unsigned)lanes);
+  cheb2_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(r, top, bot, z,
+                                                               rows, cols, p);
   return (int)cudaGetLastError();
 }
 
@@ -82,19 +98,21 @@ int launch(const T* r, const T* top, const T* bot, T* z, int rows, int cols,
 
 extern "C" {
 
+// `lanes` grids of (rows, cols) in one contiguous block; top, bot: (lanes,
+// cols) arrays of halo rows, or null for zero rows.
 int gt_cheb2_f32(const float* r, const float* top, const float* bot, float* z,
-                 int rows, int cols, float inv_d, float alpha, float c0,
-                 float cw, float ce, float cs, float cn, int device,
+                 int lanes, int rows, int cols, float inv_d, float alpha,
+                 float c0, float cw, float ce, float cs, float cn, int device,
                  void* stream) {
-  return launch<float>(r, top, bot, z, rows, cols,
+  return launch<float>(r, top, bot, z, lanes, rows, cols,
                        {inv_d, alpha, c0, cw, ce, cs, cn}, device, stream);
 }
 
 int gt_cheb2_f64(const double* r, const double* top, const double* bot,
-                 double* z, int rows, int cols, double inv_d, double alpha,
-                 double c0, double cw, double ce, double cs, double cn,
-                 int device, void* stream) {
-  return launch<double>(r, top, bot, z, rows, cols,
+                 double* z, int lanes, int rows, int cols, double inv_d,
+                 double alpha, double c0, double cw, double ce, double cs,
+                 double cn, int device, void* stream) {
+  return launch<double>(r, top, bot, z, lanes, rows, cols,
                         {inv_d, alpha, c0, cw, ce, cs, cn}, device, stream);
 }
 

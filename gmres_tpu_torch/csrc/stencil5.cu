@@ -76,7 +76,11 @@
 // on the lane's slice, so every lane gives the bits of its own launch. The
 // plain stencil also takes a (lanes, 5) device array of coefficients, one set
 // per lane (an operator family swept over lanes; null: the five values
-// given to every lane); the halo rows are for one grid only. At 2048²
+// given to every lane), and per-lane halo rows: `top` and `bot` are then
+// (lanes, cols) arrays, lane ℓ's row at ℓ·cols (a null pointer is a zero row
+// in every lane). That is the halo route's block form: a block of s rows of a
+// row-sharded grid, what jax.vmap makes of the halo kernel, is one exchange of
+// the s rows' boundary rows and one launch. At 2048²
 // float32 a lane already fills the card (4096 CTAs), so the lanes save
 // launches, not bandwidth; below ~512² they also fill the card where one grid
 // does not (22 CTAs at 150²).
@@ -154,6 +158,9 @@ stencil5_kernel(const T* __restrict__ x, const T* __restrict__ top,
   const long long lane = (long long)blockIdx.y * rows * cols;
   x += lane;
   y += lane;
+  // Lane ℓ's halo rows: row ℓ of the (lanes, cols) arrays.
+  if (top != nullptr) top += (long long)blockIdx.y * cols;
+  if (bot != nullptr) bot += (long long)blockIdx.y * cols;
   const Coefs5<T> c = lane_coefs(c0, per_lane);
   const int i = (int)(t / nv);
   const int j = (int)(t - (long long)i * nv) * V;
@@ -304,14 +311,12 @@ bool aligned(const void* p, int bytes) {
   return p == nullptr || reinterpret_cast<unsigned long long>(p) % bytes == 0;
 }
 
-// Halo rows belong to one grid: several lanes take none.
+// `top` and `bot`, where not null, hold one row a lane.
 template <typename T>
 int stencil5(const T* x, const T* top, const T* bot, T* y, int lanes, int rows,
              int cols, Coefs5<T> c, const T* per_lane, int device, void* stream) {
   constexpr int V = 16 / sizeof(T);
-  if (lanes > 1 && (top != nullptr || bot != nullptr))
-    return (int)cudaErrorInvalidValue;
-  // Every lane's first row on a chunk boundary too.
+  // Every lane's first row (and halo row) on a chunk boundary too.
   const bool lanes_aligned = lanes == 1 || ((long long)rows * cols * sizeof(T)) % 16 == 0;
   if ((long long)rows * cols >= kChunkPoints && cols % V == 0 && lanes_aligned &&
       aligned(x, 16) && aligned(top, 16) && aligned(bot, 16) && aligned(y, 16))
@@ -350,8 +355,9 @@ int correct_residual(const T* r, const T* e, const T* ec, T* e_out, T* r_out,
 
 extern "C" {
 
-// `lanes` grids of (rows, cols) in one contiguous block; per_lane: a
-// (lanes, 5) device array of coefficients, or null for c0 … cn in every lane.
+// `lanes` grids of (rows, cols) in one contiguous block; top, bot: (lanes,
+// cols) arrays of halo rows, or null for zero rows; per_lane: a (lanes, 5)
+// device array of coefficients, or null for c0 … cn in every lane.
 int gt_stencil5_f32(const float* x, const float* top, const float* bot, float* y,
                     int lanes, int rows, int cols, float c0, float cw, float ce,
                     float cs, float cn, const float* per_lane, int device,

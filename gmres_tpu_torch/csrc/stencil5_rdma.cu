@@ -42,6 +42,16 @@
 // bound at 2048² float32 against 1.92× one point a thread). `edges` is one
 // thread per column.
 //
+// Lanes. Each entry also takes a contiguous (lanes, rows, cols) block of grids
+// in one launch, the lane on gridDim.y, and `edges` per-lane halo rows: `top`
+// and `bot` are then (lanes, cols) arrays, lane ℓ's row at ℓ·cols (null: no
+// correction on that side in any lane). That is the route's block form, what
+// jax.vmap makes of the TPU kernel: s rows of a row-sharded grid post one
+// message each way for the s rows' boundary rows, one `interior` launch and,
+// where a neighbour exists, one `edges` launch. A lane's threads run one
+// grid's arithmetic on the lane's slice, so every lane gives the bits of its
+// own launches.
+//
 // Rounding: the sums in the plain version's order, (a, b) and the stencil
 // coefficients rounded to the block's type on the host, b·cs and b·cn
 // multiplied here in that type, -fmad=false: the target is bit-identity with
@@ -89,6 +99,9 @@ rdma_interior_kernel(const T* __restrict__ x, T* __restrict__ y, int rows,
   const int nv = cols / V;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)rows * nv) return;
+  const long long lane = (long long)blockIdx.y * rows * cols;
+  x += lane;
+  y += lane;
   const int i = (int)(t / nv);
   const int j = (int)(t - (long long)i * nv) * V;
   const long long idx = (long long)i * cols + j;
@@ -115,6 +128,9 @@ __global__ void rdma_edges_kernel(T* __restrict__ y, const T* __restrict__ top,
                                   T b, T cs, T cn) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= cols) return;
+  y += (long long)blockIdx.y * rows * cols;
+  if (top != nullptr) top += (long long)blockIdx.y * cols;
+  if (bot != nullptr) bot += (long long)blockIdx.y * cols;
   if (top != nullptr) y[j] = y[j] + (b * cs) * top[j];
   if (bot != nullptr) {
     const long long last = (long long)(rows - 1) * cols + j;
@@ -126,40 +142,44 @@ bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-// One thread per unit of `work`, in 256-thread CTAs (one CTA of whole warps
-// for less work), as K1 launches.
+// One thread per unit of `work` of each lane, in 256-thread CTAs (one CTA of
+// whole warps for less work), the lane on gridDim.y, as K1 launches.
 template <typename T, int V>
-int launch_interior(const T* x, T* y, int rows, int cols, Affine7<T> c,
-                    cudaStream_t stream) {
+int launch_interior(const T* x, T* y, int lanes, int rows, int cols,
+                    Affine7<T> c, cudaStream_t stream) {
   const long long work = (long long)rows * (cols / V);
-  const dim3 grid((unsigned)((work + kThreads - 1) / kThreads));
+  const dim3 grid((unsigned)((work + kThreads - 1) / kThreads), (unsigned)lanes);
   const dim3 block(work > 0 && work < kThreads ? 32 * (unsigned)((work + 31) / 32)
                                                : kThreads);
   rdma_interior_kernel<T, V><<<grid, block, 0, stream>>>(x, y, rows, cols, c);
   return (int)cudaGetLastError();
 }
 
+// A lane's grid holds whole rows of a multiple of V points on the chunk
+// path, so every lane's first row stays on a 16-byte boundary.
 template <typename T>
-int interior(const T* x, T* y, int rows, int cols, Affine7<T> c, int device,
-             void* stream) {
+int interior(const T* x, T* y, int lanes, int rows, int cols, Affine7<T> c,
+             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   constexpr int V = 16 / sizeof(T);
   const cudaStream_t s = (cudaStream_t)stream;
   if ((long long)rows * cols >= kChunkPoints && cols % V == 0 && aligned16(x) &&
       aligned16(y))
-    return launch_interior<T, V>(x, y, rows, cols, c, s);
-  return launch_interior<T, 1>(x, y, rows, cols, c, s);
+    return launch_interior<T, V>(x, y, lanes, rows, cols, c, s);
+  return launch_interior<T, 1>(x, y, lanes, rows, cols, c, s);
 }
 
 template <typename T>
-int edges(T* y, const T* top, const T* bot, int rows, int cols, T b, T cs,
-          T cn, int device, void* stream) {
+int edges(T* y, const T* top, const T* bot, int lanes, int rows, int cols,
+          T b, T cs, T cn, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  rdma_edges_kernel<T><<<(cols + kEdgeBlock - 1) / kEdgeBlock, kEdgeBlock, 0,
-                         (cudaStream_t)stream>>>(y, top, bot, rows, cols, b, cs,
-                                                 cn);
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((cols + kEdgeBlock - 1) / kEdgeBlock), (unsigned)lanes);
+  rdma_edges_kernel<T><<<grid, kEdgeBlock, 0, (cudaStream_t)stream>>>(
+      y, top, bot, rows, cols, b, cs, cn);
   return (int)cudaGetLastError();
 }
 
@@ -167,30 +187,34 @@ int edges(T* y, const T* top, const T* bot, int rows, int cols, T b, T cs,
 
 extern "C" {
 
-int gt_rdma_interior_f32(const float* x, float* y, int rows, int cols, float c0,
-                         float cw, float ce, float cs, float cn, float a,
-                         float b, int device, void* stream) {
-  return interior<float>(x, y, rows, cols, {c0, cw, ce, cs, cn, a, b}, device,
-                         stream);
+// `lanes` grids of (rows, cols) in one contiguous block (1: one grid).
+int gt_rdma_interior_f32(const float* x, float* y, int lanes, int rows, int cols,
+                         float c0, float cw, float ce, float cs, float cn,
+                         float a, float b, int device, void* stream) {
+  return interior<float>(x, y, lanes, rows, cols, {c0, cw, ce, cs, cn, a, b},
+                         device, stream);
 }
 
-int gt_rdma_interior_f64(const double* x, double* y, int rows, int cols,
-                         double c0, double cw, double ce, double cs, double cn,
-                         double a, double b, int device, void* stream) {
-  return interior<double>(x, y, rows, cols, {c0, cw, ce, cs, cn, a, b}, device,
-                          stream);
+int gt_rdma_interior_f64(const double* x, double* y, int lanes, int rows,
+                         int cols, double c0, double cw, double ce, double cs,
+                         double cn, double a, double b, int device,
+                         void* stream) {
+  return interior<double>(x, y, lanes, rows, cols, {c0, cw, ce, cs, cn, a, b},
+                          device, stream);
 }
 
-int gt_rdma_edges_f32(float* y, const float* top, const float* bot, int rows,
-                      int cols, float b, float cs, float cn, int device,
-                      void* stream) {
-  return edges<float>(y, top, bot, rows, cols, b, cs, cn, device, stream);
+// top, bot: (lanes, cols) arrays of halo rows, or null for no correction.
+int gt_rdma_edges_f32(float* y, const float* top, const float* bot, int lanes,
+                      int rows, int cols, float b, float cs, float cn,
+                      int device, void* stream) {
+  return edges<float>(y, top, bot, lanes, rows, cols, b, cs, cn, device, stream);
 }
 
-int gt_rdma_edges_f64(double* y, const double* top, const double* bot, int rows,
-                      int cols, double b, double cs, double cn, int device,
-                      void* stream) {
-  return edges<double>(y, top, bot, rows, cols, b, cs, cn, device, stream);
+int gt_rdma_edges_f64(double* y, const double* top, const double* bot,
+                      int lanes, int rows, int cols, double b, double cs,
+                      double cn, int device, void* stream) {
+  return edges<double>(y, top, bot, lanes, rows, cols, b, cs, cn, device,
+                       stream);
 }
 
 }  // extern "C"

@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from gmres_tpu_torch.ops.blas import row_blocks
 from gmres_tpu_torch.ops.stencil import on_sharded_grid, stencil_5pt_routed_general
 
 
@@ -49,7 +50,7 @@ def anisotropic_operator(nsize: int, eps: float) -> Callable:
     def apply(x: torch.Tensor) -> torch.Tensor:
         return anisotropic_apply(x, eps)
 
-    return apply
+    return row_blocks(apply)
 
 
 def anisotropic_matrix(nsize: int, eps: float, dtype=torch.float64,

@@ -21,6 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from gmres_tpu_torch.ops.blas import row_blocks
 from gmres_tpu_torch.ops.stencil import stencil_5pt_routed_general
 
 
@@ -69,7 +70,7 @@ def convection_diffusion_operator(
     def apply_grid(x: torch.Tensor) -> torch.Tensor:
         return stencil_5pt_routed_general(x, c)
 
-    return apply_grid
+    return row_blocks(apply_grid)
 
 
 def convection_diffusion_matrix(

@@ -20,7 +20,11 @@ On a row-sharded DTensor each operator takes the DTensor route
 (``parallel/halo.py``): the real one K1's halo form, the complex one the
 plain complex halo form, and the split operator on a ``[Shard(1)]`` stack
 (``P(None, "grid", None)`` in gmres_tpu) one exchange of both planes' rows
-and two K1 halo-form launches.
+and two K1 halo-form launches; on a block of s stacks placed ``[Shard(2)]``
+(``ops/blas.py:row_apply``) one exchange of the s stacks' rows and two
+launches of K1's halo form on lanes, one a plane, each lane the s stacks'
+plane. The operators are marked as taking such a block whole
+(``ops/blas.py:row_blocks``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from gmres_tpu_torch.ops.stencil import (
     stencil_5pt_pallas_halo,
     stencil_5pt_routed_general,
 )
+from gmres_tpu_torch.ops.blas import row_blocks
 from gmres_tpu_torch.parallel.halo import HaloForm, sharded_apply
 
 
@@ -85,7 +90,7 @@ def helmholtz_operator(nsize: int, kh2: float = 0.5,
     def apply_grid(x: torch.Tensor) -> torch.Tensor:
         return _apply(x, c)
 
-    return apply_grid
+    return row_blocks(apply_grid)
 
 
 def helmholtz_matrix(nsize: int, kh2: float = 0.5, dtype=torch.float64,
@@ -112,16 +117,19 @@ def helmholtz_split_operator(nsize: int, kh2: float = 0.5,
     Laplacians (K1 on the card) plus the rotation of the centre term. The
     stack is an ordinary real vector to every solver (its 2-norm is the
     complex field's). A ``[Shard(1)]`` DTensor stack takes one exchange of
-    both planes' rows and K1's halo form on each plane."""
+    both planes' rows and K1's halo form on each plane; a (s, 2, N, N)
+    block of stacks placed ``[Shard(2)]`` takes one exchange and K1's halo
+    form once a plane on the s stacks' planes as lanes."""
     kh2 = float(kh2)
     alpha = float(damping)
 
     def rotate(u, lap_r, lap_i):
-        ur, ui = u[0], u[1]
+        # A stack (2, rows, N) or a block of stacks (s, 2, rows, N).
+        ur, ui = u[..., 0, :, :], u[..., 1, :, :]
         # −(1 + iα)·kh2·u: re −kh2·(ur − α·ui), im −kh2·(α·ur + ui)
         out_r = lap_r - kh2 * (ur - alpha * ui)
         out_i = lap_i - kh2 * (alpha * ur + ui)
-        return torch.stack([out_r, out_i])
+        return torch.stack([out_r, out_i], dim=-3)
 
     def local(u, top, bottom):
         return rotate(u, *split_laplacians(u, top, bottom, POISSON_COEFS))
@@ -130,23 +138,27 @@ def helmholtz_split_operator(nsize: int, kh2: float = 0.5,
 
     def apply_pair(u: torch.Tensor) -> torch.Tensor:
         if on_sharded_grid(u):
-            return sharded_apply(u, forms, lambda mesh: HaloForm(mesh, local, 1, 0),
+            return sharded_apply(u, forms,
+                                 lambda mesh: HaloForm(mesh, local, 1, 0, lanes=True),
                                  apply_pair, dim=1)
         return rotate(u, stencil_5pt_routed_general(u[0], POISSON_COEFS),
                       stencil_5pt_routed_general(u[1], POISSON_COEFS))
 
-    return apply_pair
+    return row_blocks(apply_pair)
 
 
 def split_laplacians(u: torch.Tensor, top, bottom, coefs):
     """The 5-point stencil ``coefs`` on both planes of a (2, rows, N) block
     of a split stack, ``top``/``bottom`` its (2, 1, N) halo rows (None: zero
     rows): two launches of K1's halo form on a CUDA block, its plain version
-    on a CPU one."""
-    def plane(h, k):
-        return None if h is None else h[k]
+    on a CPU one. A (s, 2, rows, N) block of s stacks with (s, 2, 1, N) halo
+    rows: the same two launches, each on the s stacks' plane as lanes
+    (made contiguous), each lane the bits of its own stack's."""
+    def plane(t, k):
+        return None if t is None else t[..., k, :, :].contiguous()
 
-    return tuple(stencil_5pt_pallas_halo(u[k], plane(top, k), plane(bottom, k), coefs)
+    return tuple(stencil_5pt_pallas_halo(plane(u, k), plane(top, k), plane(bottom, k),
+                                         coefs)
                  for k in (0, 1))
 
 

@@ -15,9 +15,11 @@ from typing import Callable
 
 import torch
 
+from gmres_tpu_torch.ops.blas import row_blocks
 from gmres_tpu_torch.ops.stencil import stencil_5pt_routed
 
 
+@row_blocks
 def poisson_apply(x: torch.Tensor) -> torch.Tensor:
     """y = A·x for the 5-point Laplacian; x is (N, N) or flat (N²,)."""
     if x.dim() == 1:

@@ -14,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from gmres_tpu_torch.ops.blas import row_blocks
 from gmres_tpu_torch.ops.stencil import stencil_7pt_apply
 
 
@@ -24,6 +25,7 @@ def poisson3d_operator(nsize: int) -> Callable:
     return stencil_7pt_apply
 
 
+@row_blocks
 def poisson3d_apply(x: torch.Tensor) -> torch.Tensor:
     return stencil_7pt_apply(x)
 

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gmres_tpu_torch.ops.blas import place_like
+from gmres_tpu_torch.ops.blas import place_like, row_blocks
 from gmres_tpu_torch.ops.stencil import on_sharded_grid, prolong_repeat, restrict_sum
 from gmres_tpu_torch.parallel.halo import HaloForm, sharded_apply
 
@@ -95,7 +95,7 @@ def _faces_operator(faces) -> Callable:
             return sharded_apply(x, forms, make, apply)
         return _faces_halo(faces, x)
 
-    return apply
+    return row_blocks(apply)
 
 
 def _faces_halo(faces, x: torch.Tensor, top=None, bottom=None) -> torch.Tensor:

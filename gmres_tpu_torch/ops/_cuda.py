@@ -13,6 +13,7 @@ check (the scheme of ``native/loader.py``). The build directory,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
@@ -113,8 +114,8 @@ def load() -> ctypes.CDLL:
         for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
             # K1, K1rr, K1cr and K2 take a lane count: the grids are one
             # contiguous (lanes, rows, cols) block (1 for one grid).
-            # K1 also takes a (lanes, 5) device array of per-lane
-            # coefficients (null: the five values given).
+            # K1 also takes (lanes, cols) halo rows and a (lanes, 5) device
+            # array of per-lane coefficients (null: the five values given).
             fn = getattr(lib, f"gt_stencil5_{suffix}")
             fn.argtypes = ([vp, vp, vp, vp, i32, i32, i32] + [real] * 5
                            + [vp, i32, vp])
@@ -129,14 +130,15 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, real, vp, i32, vp,
                            i32, i32, i32, i32, i32, vp]
             fn.restype = i32
+            # K5 and K8 take a lane count too, with (lanes, cols) halo rows.
             fn = getattr(lib, f"gt_cheb2_{suffix}")
-            fn.argtypes = [vp, vp, vp, vp, i32, i32] + [real] * 7 + [i32, vp]
+            fn.argtypes = [vp, vp, vp, vp, i32, i32, i32] + [real] * 7 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_rdma_interior_{suffix}")
-            fn.argtypes = [vp, vp, i32, i32] + [real] * 7 + [i32, vp]
+            fn.argtypes = [vp, vp, i32, i32, i32] + [real] * 7 + [i32, vp]
             fn.restype = i32
             fn = getattr(lib, f"gt_rdma_edges_{suffix}")
-            fn.argtypes = [vp, vp, vp, i32, i32] + [real] * 3 + [i32, vp]
+            fn.argtypes = [vp, vp, vp, i32, i32, i32] + [real] * 3 + [i32, vp]
             fn.restype = i32
         lib.gt_stencil5_dd.argtypes = ([vp] * 4 + [i32, i32]
                                        + [ctypes.c_double] * 5 + [i32, vp])
@@ -337,6 +339,29 @@ def through_lanes(lanes_fn, function, *args):
     return _rewrap(out, levels, shape)
 
 
+@contextlib.contextmanager
+def below_vmap():
+    """The ``torch.func.vmap`` levels at the top of the transform stack set
+    aside while the body runs: a block form that unwrapped its operands
+    (``parallel/halo.py:BlockSharded``) runs on them as no transform sees
+    them, so that DTensor's own autograd.Functions (``to_local``,
+    ``from_local``) meet no active transform. It pops and pushes functorch's
+    dynamic layer stack (``torch._functorch.pyfunctorch``), a private API
+    that a torch release may change (ROADMAP queue 2; the block tests of
+    tests/test_torch_halo_blocks.py fail first if it does)."""
+    from torch._functorch.pyfunctorch import (
+        pop_dynamic_layer_stack,
+        push_dynamic_layer_stack,
+    )
+
+    popped = [pop_dynamic_layer_stack() for _ in range(len(_vmap_levels()))]
+    try:
+        yield
+    finally:
+        for layer in reversed(popped):
+            push_dynamic_layer_stack(layer)
+
+
 def _rewrap(out, levels, shape):
     """A (lanes, …) output wrapped back at ``levels`` (one lane axis of
     their batch sizes ``shape``, split back where they are nested)."""
@@ -399,15 +424,19 @@ def refuse_transforms(what: str, kernel: str, *tensors) -> None:
                 "plain versions), or run under torch.no_grad(). Under torch.func.vmap, "
                 "call the routed entries of K1–K4 (stencil_5pt_pallas, "
                 "residual_restrict, correct_residual, poly_stencil_smoother_pallas, "
-                "the sparse operators), which batch; K5–K8 have no vmap rule "
-                "(ROADMAP: batched forms of K5–K8).")
+                "the sparse operators), which batch; K5 and K8 batch on the halo route "
+                "(a block of rows of a row-sharded grid through ops/blas.py:row_apply: "
+                "one exchange, one launch); K6 and K7 have no vmap rule (ROADMAP: "
+                "batched forms of K6 and K7).")
 
 
 # Where a DTensor goes instead of a kernel wrapper, by kernel.
 _DTENSOR_ROUTES = {
     "K1": "a plain operator takes a DTensor through the halo route "
           "(ops/stencil.py:stencil_5pt_pallas -> parallel/halo.py: one halo "
-          "exchange and K1's halo form on each rank's block)",
+          "exchange and K1's halo form on each rank's block; a block of rows "
+          "through ops/blas.py:row_apply, one exchange and one launch of the "
+          "halo form on the rank's (rows, …) lane block)",
     "K1rr": "a cycle on a row-sharded DTensor runs on each rank's block: the mesh= "
             "cycle, or a mesh=None cycle's distributed cycle on the DTensor's mesh "
             "(precond/multigrid.py:_on_the_operands_mesh, ROADMAP item 8.6b)",
@@ -415,10 +444,15 @@ _DTENSOR_ROUTES = {
           "cycle, or a mesh=None cycle's distributed cycle on the DTensor's mesh "
           "(precond/multigrid.py:_on_the_operands_mesh, ROADMAP item 8.6b); K2 sees "
           "the plain levels below its replicated level only",
-    "K5": "cbpr2 on a row-sharded DTensor is halo_chebyshev_preconditioner(mesh, ...)",
+    "K5": "cbpr2 on a row-sharded DTensor is halo_chebyshev_preconditioner(mesh, ...), "
+          "and on a block of rows of one row_apply of it (one exchange, one launch on "
+          "the rank's lane block)",
     "K6": "the pair stencils take each rank's block, never a DTensor",
     "K7a": "the CG updates take each rank's block, never a DTensor",
-    "K8": "the RDMA route on a row-sharded DTensor is rdma_stencil_operator(mesh)",
+    "K8": "the RDMA route on a row-sharded DTensor is rdma_stencil_operator(mesh) or "
+          "rdma_chebyshev_preconditioner(mesh, ...), and on a block of rows one "
+          "row_apply of either (one message each way, one interior launch on the "
+          "rank's lane block)",
     "K3": "a sparse operator on a row-sharded DTensor applies each rank's rows: K3 on "
           "the rank's DIA rows, x widened by a halo exchange "
           "(ops/sparse.py:_RankRows, ROADMAP item 8.7)",

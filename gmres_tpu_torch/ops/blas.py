@@ -44,7 +44,8 @@ else:  # a torch built without distributed: no tensor is a DTensor
 
 
 def is_dtensor(x) -> bool:
-    """True for a ``torch.distributed.tensor.DTensor``."""
+    """True for a ``torch.distributed.tensor.DTensor`` (not for a tensor
+    that a ``torch.func`` transform wraps around one: ``dtensor_of``)."""
     return isinstance(x, DTensor)
 
 
@@ -64,8 +65,13 @@ def dtensor_of(x):
 def as_plain(t: torch.Tensor) -> torch.Tensor:
     """A plain tensor holding the whole value of ``t``: a DTensor's
     partial sums are all-reduced over its mesh (one collective), a
-    replicated DTensor is unwrapped; a plain tensor is returned as is."""
-    return t.full_tensor() if is_dtensor(t) else t
+    replicated DTensor is unwrapped; a plain tensor is returned as is. A
+    DTensor that vmap batches (a block of rows) raises: a reduction over
+    the mesh has no block form (``refuse_row_block``)."""
+    if is_dtensor(t):
+        return t.full_tensor()
+    refuse_row_block("a reduction over the mesh", t)
+    return t
 
 
 def mesh_sum(part: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -253,16 +259,75 @@ def complex_parts(v: torch.Tensor):
             on_local(lambda t: t.imag.contiguous(), v))
 
 
+def row_blocks(fn, *parts):
+    """fn marked as taking a sharded block of rows whole (returned): on a
+    DTensor block, ``row_apply`` then calls it once under
+    ``torch.func.vmap``, where it calls an unmarked fn once a row. The
+    halo route's operators are marked (``parallel/halo.py:BlockSharded``,
+    the plain stencils and the models' operators). With ``parts``, fn is
+    marked only where every one of them is (fn built of them and of
+    elementwise work, such as a composition or a Chebyshev
+    semi-iteration)."""
+    if all(takes_row_blocks(p) for p in parts):
+        fn.takes_row_blocks = True
+    return fn
+
+
+def takes_row_blocks(fn) -> bool:
+    """True where fn is marked by ``row_blocks``."""
+    return getattr(fn, "takes_row_blocks", False) is True
+
+
+def _vmapped_dtensor(x) -> bool:
+    """True where x is a DTensor that a ``torch.func.vmap`` level batches
+    (inside ``row_apply``'s vmap over a sharded block)."""
+    batched = False
+    while (_functorch is not None and isinstance(x, torch.Tensor)
+           and _functorch.is_functorch_wrapped_tensor(x)):
+        batched = batched or _functorch.is_batchedtensor(x)
+        x = _functorch.get_unwrapped(x)
+    return batched and isinstance(x, DTensor)
+
+
+def refuse_row_block(what: str, *ts) -> None:
+    """Raise NotImplementedError where one of ``ts`` is a DTensor that vmap
+    batches: ``what`` (a route that reads a rank's block or reduces over
+    the mesh) has no block form, and an fn that reaches it must not be
+    marked by ``row_blocks`` (row_apply then calls it once a row)."""
+    if any(_vmapped_dtensor(t) for t in ts):
+        raise NotImplementedError(
+            f"{what} has no block form on a sharded block of rows: an operator that "
+            "reaches it is applied one row at a time (ops/blas.py:row_apply with an fn "
+            "not marked by row_blocks; ROADMAP queue 2)")
+
+
 def row_apply(fn, rows: torch.Tensor) -> torch.Tensor:
     """fn on each row of the block (JAX's ``jax.vmap(fn)``): on a plain block
     ``torch.func.vmap(fn)``, so that each kernel on fn's path (K1 and its
     V-cycle forms, K2, K3, K4) launches once for all rows through its vmap
     rule (``ops/stencil.py``, ``ops/fused.py``, ``ops/sparse.py``), each row
-    with the bits of its own call. On
-    a DTensor block, one call of fn per row (the halo route's batched form
-    is ROADMAP work)."""
+    with the bits of its own call.
+
+    A DTensor block (s rows of a row-sharded grid, ``[Shard(1)]``) takes the
+    same vmap where fn is marked as taking it whole (``row_blocks``), which
+    the halo route's operators are (``parallel/halo.py:BlockSharded``): the
+    halo operator, every halo form, cbpr2, the RDMA operators, the plain
+    stencils and the models' operators on a DTensor make one exchange of
+    the s rows' boundary rows and one launch (K1's halo form, K5, K8) for
+    the block, each row the bits of its own call, and a Chebyshev
+    semi-iteration over one of them one of each a sweep. The decision is
+    made before fn runs. Still one call of fn a row, on the row's DTensor:
+    a block that autograd or forward-mode AD tracks, and an fn that is not
+    marked, such as the distributed V-cycle (the ``mesh=`` cycles, and a
+    ``mesh=None`` cycle on a DTensor), the sparse operators (their rank
+    rows, ``ops/sparse.py:_RankRows``), a preconditioner built on a sharded
+    basis (deflation, Nyström: reductions over the mesh), a composition
+    with any of these, or an operator of the caller's own."""
     if is_dtensor(rows):
-        return torch.stack([fn(rows[i]) for i in range(rows.shape[0])])
+        from gmres_tpu_torch.ops._cuda import tracked_by
+
+        if not takes_row_blocks(fn) or tracked_by(rows) is not None:
+            return torch.stack([fn(rows[i]) for i in range(rows.shape[0])])
     return torch.func.vmap(fn)(rows)
 
 

@@ -456,7 +456,9 @@ def cheb2_scalars(d: float, alpha: float, coefs, dtype) -> list[float]:
 def cheb2_plain(r, top, bottom, scal) -> torch.Tensor:
     """The plain PyTorch version of K5 on ``cheb2_scalars``, in the JAX
     kernel's operation order (``_cheb_kernel``): z = r·(1/d) + α(r −
-    A(r)·(1/d)). A halo row of None is a zero row."""
+    A(r)·(1/d)). A halo row of None is a zero row. A (lanes, rows, N) block
+    takes (lanes, 1, N) halo rows, lane ℓ's its own, each lane the bits of
+    its own call."""
     inv_d, alpha_r, *c = scal
     ar = stencil_5pt_halo(r, top, bottom, c)
     return r * inv_d + alpha_r * (r - ar * inv_d)
@@ -470,30 +472,38 @@ def chebyshev_poisson_fused_plain(r, top, bottom, d, alpha,
 
 
 def _cheb2_launch(r, top, bottom, scal) -> torch.Tensor:
-    _cuda.check_grid("cheb2_cuda", "K5", r)
+    _cuda.check_grid("cheb2_cuda", "K5", r, lanes=True)
     top_p = _halo_row(top, r, "cheb2_cuda", "K5")
     bot_p = _halo_row(bottom, r, "cheb2_cuda", "K5")
     z = torch.empty_like(r)
+    lanes = r.shape[0] if r.dim() == 3 else 1
     rc = _cuda.entry("gt_cheb2", r.dtype)(
-        r.data_ptr(), top_p, bot_p, z.data_ptr(), r.shape[0], r.shape[1], *scal,
-        r.device.index, _cuda.stream_of(r))
+        r.data_ptr(), top_p, bot_p, z.data_ptr(), lanes, r.shape[-2], r.shape[-1],
+        *scal, r.device.index, _cuda.stream_of(r))
     _cuda.check(rc, "cheb2_cuda")
     cheb2_cuda.launches += 1
+    cheb2_cuda.batched_launches += int(r.dim() == 3)
     return z
 
 
 def cheb2_cuda(r, top, bottom, d, alpha, coefs=POISSON_COEFS) -> torch.Tensor:
     """Launch K5 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
-    rows, None for a zero row. ``cheb2_cuda.launches`` counts launches."""
+    rows, None for a zero row. On a (lanes, rows, N) block, one launch for
+    all lanes with (lanes, 1, N) halo rows, lane ℓ's its own (the halo
+    route's block form), each lane the bits of its own launch.
+    ``cheb2_cuda.launches`` counts launches, ``.batched_launches`` those on
+    a block."""
     _coef_list(coefs, "cheb2_cuda", "K5")  # refuses a tracked coefficient
     return _cheb2_launch(r, top, bottom, cheb2_scalars(d, alpha, coefs, r.dtype))
 
 
 cheb2_cuda.launches = 0
+cheb2_cuda.batched_launches = 0
 
 
 def cheb2_apply(r, top, bottom, scal) -> torch.Tensor:
-    """cbpr2 on a (rows, N) block with scalars already rounded by
+    """cbpr2 on a (rows, N) block, or a (lanes, rows, N) block with
+    (lanes, 1, N) halo rows, with scalars already rounded by
     ``cheb2_scalars``, routed by device: ``cheb2_plain`` for a CPU tensor,
     K5 for a CUDA tensor. The halo preconditioner's per-application entry."""
     if r.device.type == "cpu":

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.ops import _cuda
-from gmres_tpu_torch.ops.blas import is_dtensor
+from gmres_tpu_torch.ops.blas import is_dtensor, refuse_row_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -848,6 +848,9 @@ def sparse_operator(a) -> Callable:
 
     def apply(x: torch.Tensor) -> torch.Tensor:
         _check_same_device("sparse_operator", x, ref)
+        # Not marked by row_blocks: a block of rows of a sharded x goes row
+        # by row (ROADMAP queue 2).
+        refuse_row_block("a sparse operator's rank rows", x)
         if is_dtensor(x):
             from gmres_tpu_torch.parallel.halo import sharded_apply
 

@@ -42,7 +42,10 @@ NotImplementedError. While ``parallel/halo.py:blockwise_jvp`` runs on
 this thread, a plain tensor is taken as this rank's block of a row-sharded
 grid and takes the same forms (how Newton–Krylov applies J·v to each
 rank's block); that mode and its state belong to ``parallel/halo.py``,
-which ``on_sharded_grid`` asks. No route gathers the grid.
+which ``on_sharded_grid`` asks. No route gathers the grid. The
+one-argument operators (``stencil_5pt_apply``, ``stencil_7pt_apply``,
+``stencil_5pt_pallas``, ``stencil_5pt_routed``) are marked as taking a
+block of rows of a sharded grid whole (``ops/blas.py:row_blocks``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from gmres_tpu_torch.ops import _cuda
-from gmres_tpu_torch.ops.blas import dtensor_of
+from gmres_tpu_torch.ops.blas import dtensor_of, row_blocks
 from gmres_tpu_torch.ops.dd import dd_from_f64, dd_to_f64
 
 POISSON_COEFS = (4.0, -1.0, -1.0, -1.0, -1.0)
@@ -111,6 +114,7 @@ def stencil_5pt_general(
     )
 
 
+@row_blocks
 def stencil_5pt_apply(x: torch.Tensor) -> torch.Tensor:
     """Laplacian special case: y = 4x − (W+E+S+N)."""
     return stencil_5pt_general(x, *POISSON_COEFS)
@@ -143,6 +147,7 @@ def stencil_7pt_general(x: torch.Tensor, center: float,
     return center * x + off * s
 
 
+@row_blocks
 def stencil_7pt_apply(x: torch.Tensor) -> torch.Tensor:
     """3-D Laplacian special case: y = 6x − Σ face neighbours."""
     return stencil_7pt_general(x, 6.0)
@@ -177,20 +182,24 @@ def stencil_5pt_halo(
 ) -> torch.Tensor:
     """Stencil over a (rows, N) block with explicit halo rows: ``top`` is
     the row above the block, ``bottom`` the row below (zeros at the
-    physical boundary; None is a zero row, as K1 reads a null pointer)."""
+    physical boundary; None is a zero row, as K1 reads a null pointer). A
+    (lanes, rows, N) block takes (lanes, 1, N) halo rows, lane ℓ's its own
+    (the halo route's block form), and gives each lane the bits of its own
+    call."""
     c0, cw, ce, cs, cn = coefs
+    shape = tuple(x.shape[:-2]) + (1, x.shape[-1])
 
     def row(h):
         if h is None:
-            return torch.zeros((1, x.shape[1]), dtype=x.dtype, device=x.device)
-        return h.reshape(1, -1)
+            return torch.zeros(shape, dtype=x.dtype, device=x.device)
+        return h.reshape(shape)
 
-    ext = torch.cat([row(top), x, row(bottom)], dim=0)
-    mid = ext[1:-1, :]
-    up = ext[:-2, :]
-    down = ext[2:, :]
-    left = F.pad(mid[:, :-1], (1, 0))
-    right = F.pad(mid[:, 1:], (0, 1))
+    ext = torch.cat([row(top), x, row(bottom)], dim=-2)
+    mid = ext[..., 1:-1, :]
+    up = ext[..., :-2, :]
+    down = ext[..., 2:, :]
+    left = F.pad(mid[..., :-1], (1, 0))
+    right = F.pad(mid[..., 1:], (0, 1))
     return c0 * mid + cw * left + ce * right + cs * up + cn * down
 
 
@@ -229,15 +238,20 @@ def _coef_list(coefs, what: str | None = None, kernel: str | None = None) -> lis
 
 
 def _halo_row(h, x: torch.Tensor, what: str, kernel: str):
-    """Pointer of a (N,) or (1, N) halo row matching x, or None."""
+    """Pointer of a (N,) or (1, N) halo row matching the grid x, or of a
+    (lanes, 1, N) or (lanes, N) block of them, lane ℓ's row its own, matching
+    the (lanes, rows, N) block x; or None."""
     if h is None:
         return None
     _cuda.refuse_dtensor(what, kernel, h)
     _cuda.refuse_transforms(what, kernel, h)
-    if (h.device != x.device or h.dtype != x.dtype
-            or h.numel() != x.shape[1] or not h.is_contiguous()):
+    lanes = x.shape[0] if x.dim() == 3 else 1
+    if (h.device != x.device or h.dtype != x.dtype or not h.is_contiguous()
+            or h.numel() != lanes * x.shape[-1]
+            or (x.dim() == 3 and (h.dim() < 2 or h.shape[0] != lanes))):
+        want = f"({lanes}, 1, {x.shape[-1]})" if x.dim() == 3 else f"({x.shape[-1]},)"
         raise ValueError(
-            f"{what}: halo row must be a contiguous ({x.shape[1]},) tensor "
+            f"{what}: halo row must be a contiguous {want} tensor "
             f"of {x.dtype} on {x.device}"
         )
     return h.data_ptr()
@@ -251,12 +265,14 @@ def _per_lane(coefs) -> bool:
 def stencil5_cuda(x: torch.Tensor, top=None, bottom=None,
                   coefs=None) -> torch.Tensor:
     """Launch K1 on a CUDA (rows, N) block; ``top``/``bottom`` are the halo
-    rows, None for a zero row. On a (lanes, rows, N) block with zero halos
-    (what jax.vmap makes of the Pallas kernel: a leading grid axis), one
-    launch for all lanes, each lane the bits of its own launch; ``coefs``
-    may then be a (lanes, 5) tensor, one set a lane (copied to the card in
-    the block's dtype, no host read). ``stencil5_cuda.launches`` counts
-    launches, ``.batched_launches`` those on a block. No autograd rule: a
+    rows, None for a zero row. On a (lanes, rows, N) block (what jax.vmap
+    makes of the Pallas kernel: a leading grid axis), one launch for all
+    lanes, each lane the bits of its own launch; the halo rows are then
+    (lanes, 1, N) blocks, lane ℓ's row its own (the halo route's block
+    form), and ``coefs`` may be a (lanes, 5) tensor, one set a lane (copied
+    to the card in the block's dtype, no host read).
+    ``stencil5_cuda.launches`` counts launches, ``.batched_launches`` those
+    on a block. No autograd rule: a
     tracked operand, halo row or coefficient raises
     (``_cuda.refuse_transforms``); the differentiable full-grid route is
     ``stencil5_grid``."""
@@ -274,8 +290,6 @@ def stencil5_cuda(x: torch.Tensor, top=None, bottom=None,
             raise ValueError(f"stencil5_cuda: per-lane coefficients must be ({lanes}, 5) "
                              f"on a block, got {tuple(coefs.shape)}")
         per_lane = coefs.to(device=x.device, dtype=x.dtype).contiguous()
-    if x.dim() == 3 and (top is not None or bottom is not None):
-        raise ValueError("stencil5_cuda: a (lanes, rows, cols) block takes zero halos")
     top_p = _halo_row(top, x, "stencil5_cuda", "K1")
     bot_p = _halo_row(bottom, x, "stencil5_cuda", "K1")
     y = torch.empty_like(x)
@@ -533,19 +547,25 @@ def stencil_5pt_pallas_halo(
 ) -> torch.Tensor:
     """Stencil over a (rows, N) block with explicit (N,) or (1, N) halo
     rows, None for a zero row: the plain version for a CPU tensor, K1 for a
-    CUDA tensor. ``stencil_5pt_pallas_halo.launches`` counts the K1 launches
-    taken through this halo form (each one also counted by
-    ``stencil5_cuda.launches``). The block is a rank's own: a DTensor raises
-    TypeError on either device (``_cuda.refuse_dtensor``)."""
+    CUDA tensor. A (lanes, rows, N) block of s rows' blocks (the halo
+    route's block form) takes (lanes, 1, N) halo rows, lane ℓ's its own: one
+    launch, each lane the bits of its own call.
+    ``stencil_5pt_pallas_halo.launches`` counts the K1 launches taken
+    through this halo form (each one also counted by
+    ``stencil5_cuda.launches``), ``.batched_launches`` those on a block. The
+    block is a rank's own: a DTensor raises TypeError on either device
+    (``_cuda.refuse_dtensor``)."""
     _cuda.refuse_dtensor("stencil_5pt_pallas_halo", "K1", x, top, bottom)
     if x.device.type == "cpu":
         return stencil_5pt_halo(x, top, bottom, _coef_terms(coefs))
     y = stencil5_cuda(x, top, bottom, coefs)
     stencil_5pt_pallas_halo.launches += 1
+    stencil_5pt_pallas_halo.batched_launches += int(x.dim() == 3)
     return y
 
 
 stencil_5pt_pallas_halo.launches = 0
+stencil_5pt_pallas_halo.batched_launches = 0
 
 
 # The coefficients' neighbour shifts, in (center, west, east, south, north)
@@ -747,6 +767,7 @@ def stencil5_grid(x: torch.Tensor, coefs=None) -> torch.Tensor:
     return Stencil5Grid.apply(x, *_coef_terms(coefs))
 
 
+@row_blocks
 def stencil_5pt_pallas(x: torch.Tensor, coefs=None) -> torch.Tensor:
     """Stencil on a full (N, N) grid with zero (Dirichlet) halos: the plain
     version for a CPU tensor (differentiable as plain torch, as gmres_tpu's
@@ -829,6 +850,7 @@ def _per_lane_apply(xb: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
 stencil_5pt_pallas_blocked = stencil_5pt_pallas
 
 
+@row_blocks
 def stencil_5pt_routed(x: torch.Tensor) -> torch.Tensor:
     """Laplacian stencil routed by device (see module docstring)."""
     return stencil_5pt_pallas(x, POISSON_COEFS)

@@ -26,6 +26,12 @@ TPU kernel adds a zero row; that changes at most the sign of an exact zero
 versions of both steps. JAX's ``num_devices``, ``collective_id``,
 ``interpret`` and ``detect_races`` have no counterpart: the process group
 carries the first two, and the device decides the rest.
+
+The block form (what jax.vmap makes of the TPU kernel). A (lanes, rows, N)
+block of s rows' blocks of a row-sharded grid is one application: one
+message each way carries the s rows' first and last rows, one ``interior``
+launch takes the block, and one ``edges`` launch the (lanes, 1, N) halo
+rows, lane ℓ's its own; each lane gives the bits of its own application.
 """
 
 from __future__ import annotations
@@ -102,7 +108,8 @@ def _edge_scales(c: list[float], dtype: torch.dtype) -> list[float]:
 
 
 def rdma_interior_plain(x: torch.Tensor, c: list[float]) -> torch.Tensor:
-    """The plain version of K8's interior step (zero halo rows)."""
+    """The plain version of K8's interior step (zero halo rows), on a grid
+    or a (lanes, rows, N) block of them."""
     c0, cw, ce, cs, cn, a, b = c
     return a * x + b * stencil_5pt_general(x, c0, cw, ce, cs, cn)
 
@@ -110,61 +117,77 @@ def rdma_interior_plain(x: torch.Tensor, c: list[float]) -> torch.Tensor:
 def rdma_edges_plain(y: torch.Tensor, top, bottom, c: list[float]) -> torch.Tensor:
     """The plain version of K8's edge step, in place on ``y``: row 0, then
     the last row (a one-row block takes both, in that order). A None row is
-    no correction."""
+    no correction. On a (lanes, rows, N) block the halo rows are (lanes, 1,
+    N), lane ℓ's its own."""
     bcs, bcn = _edge_scales(c, y.dtype)
+    row = tuple(y.shape[:-2]) + (y.shape[-1],)
     if top is not None:
-        y[0] = y[0] + bcs * top.reshape(-1)
+        y[..., 0, :] = y[..., 0, :] + bcs * top.reshape(row)
     if bottom is not None:
-        y[-1] = y[-1] + bcn * bottom.reshape(-1)
+        y[..., -1, :] = y[..., -1, :] + bcn * bottom.reshape(row)
     return y
 
 
+def _lanes(x: torch.Tensor) -> int:
+    return x.shape[0] if x.dim() == 3 else 1
+
+
 def rdma_interior_cuda(x: torch.Tensor, c: list[float]) -> torch.Tensor:
-    """Launch K8's interior step on a CUDA block; ``c`` is the rounded
-    (c0, cw, ce, cs, cn, a, b). ``rdma_interior_cuda.launches`` counts
-    launches: one per application of the operator."""
-    _cuda.check_grid("rdma_interior_cuda", "K8", x)
+    """Launch K8's interior step on a CUDA block, or once on a (lanes, rows,
+    N) block of them; ``c`` is the rounded (c0, cw, ce, cs, cn, a, b).
+    ``rdma_interior_cuda.launches`` counts launches: one per application of
+    the operator (to a grid or to a block of rows); ``.batched_launches``
+    those on a block."""
+    _cuda.check_grid("rdma_interior_cuda", "K8", x, lanes=True)
     y = torch.empty_like(x)
     rc = _cuda.entry("gt_rdma_interior", x.dtype)(
-        x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1], *c,
+        x.data_ptr(), y.data_ptr(), _lanes(x), x.shape[-2], x.shape[-1], *c,
         x.device.index, _cuda.stream_of(x))
     _cuda.check(rc, "rdma_interior_cuda")
     rdma_interior_cuda.launches += 1
+    rdma_interior_cuda.batched_launches += int(x.dim() == 3)
     return y
 
 
 rdma_interior_cuda.launches = 0
+rdma_interior_cuda.batched_launches = 0
 
 
 def rdma_edges_cuda(y: torch.Tensor, top, bottom, c: list[float]) -> torch.Tensor:
     """Launch K8's edge step on a CUDA block, in place on ``y``, for the
-    halo rows given (None: no correction on that side). With neither row
-    there is nothing to correct and nothing launches.
-    ``rdma_edges_cuda.launches`` counts launches."""
-    _cuda.check_grid("rdma_edges_cuda", "K8", y)
+    halo rows given (None: no correction on that side); on a (lanes, rows,
+    N) block, one launch with (lanes, 1, N) halo rows, lane ℓ's its own.
+    With neither row there is nothing to correct and nothing launches.
+    ``rdma_edges_cuda.launches`` counts launches, ``.batched_launches``
+    those on a block."""
+    _cuda.check_grid("rdma_edges_cuda", "K8", y, lanes=True)
     top_p = _halo_row(top, y, "rdma_edges_cuda", "K8")
     bot_p = _halo_row(bottom, y, "rdma_edges_cuda", "K8")
     if top_p is None and bot_p is None:
         return y
     rc = _cuda.entry("gt_rdma_edges", y.dtype)(
-        y.data_ptr(), top_p, bot_p, y.shape[0], y.shape[1], c[6], c[3], c[4],
-        y.device.index, _cuda.stream_of(y))
+        y.data_ptr(), top_p, bot_p, _lanes(y), y.shape[-2], y.shape[-1], c[6], c[3],
+        c[4], y.device.index, _cuda.stream_of(y))
     _cuda.check(rc, "rdma_edges_cuda")
     rdma_edges_cuda.launches += 1
+    rdma_edges_cuda.batched_launches += int(y.dim() == 3)
     return y
 
 
 rdma_edges_cuda.launches = 0
+rdma_edges_cuda.batched_launches = 0
 
 
 def rdma_apply(blk: torch.Tensor, c: list[float], group, neighbours) -> torch.Tensor:
     """One application on this rank's block, with ``c`` the coefficients
     rounded to the block's dtype by ``_coefs7`` and ``neighbours`` from
-    ``_neighbours(group)``: the RDMA operators' per-application entry."""
+    ``_neighbours(group)``: the RDMA operators' per-application entry. A
+    (lanes, rows, N) block of s rows' blocks is one application of the
+    block form: one message each way for the s rows, one launch a step."""
     cuda = blk.device.type != "cpu"
     if cuda:  # refuse before any message is posted, or the peers would hang
-        _cuda.check_grid("stencil_5pt_rdma", "K8", blk)
-    top, bottom, wait = post_halo_rows(blk, group, neighbours)
+        _cuda.check_grid("stencil_5pt_rdma", "K8", blk, lanes=True)
+    top, bottom, wait = post_halo_rows(blk, group, neighbours, blk.dim() - 2)
     y = rdma_interior_cuda(blk, c) if cuda else rdma_interior_plain(blk, c)
     if top is None and bottom is None:
         return y

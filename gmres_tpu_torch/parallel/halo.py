@@ -83,10 +83,29 @@ Newton–Krylov's J·v runs ``torch.func.jvp`` on each rank's block so.
 Inside that mode only tensors shaped like the rank's block may be
 stenciled; ``sharded_apply`` raises on any other.
 
+The block form (what gmres_tpu's ``jax.vmap`` makes of a shard_map'd halo
+operator). ``ops/blas.py:row_apply`` applies an operator to a (s, N, N)
+block of s grids, a DTensor placed ``[Shard(1)]``, as ``torch.func.vmap``
+over the rows; every operator here (``BlockSharded``: the halo operator,
+every halo form, cbpr2, the RDMA operators, and the plain stencils through
+``sharded_apply``) takes the vmapped DTensor whole: one ``local_map`` over
+the block, sharded along its grid rows, one exchange of the s rows'
+boundary slices in each direction (``_halo_rows`` along the rows dimension
+of the (s, rows, N) local block) and one application of the form to the
+rank's (s, rows, N) block with (s, 1, N) halo rows, each row the bits of its
+own call: K1's halo form, K5 and K8 each take the lanes in one launch on the
+card; the plain forms map over the rows with ``torch.func.vmap``. The
+Chebyshev semi-iteration of order > 2 is elementwise vector work between
+applications of the halo operator, so vmap carries it. These operators are
+marked as taking the block whole (``ops/blas.py:row_blocks``), and
+row_apply decides by the mark before it calls one. A block that autograd or
+another transform tracks, and an operator that is not marked, goes one row
+at a time.
+
 ``halo_exchange.exchanges`` counts the exchanges of the halo route (the
-operators, every halo form, cbpr2 and the sharded levels of the
-distributed multigrid cycles; not the RDMA route), one per application on
-every rank.
+operators, every halo form, cbpr2 and the sharded levels of the distributed
+multigrid cycles) and of the RDMA operators, one per application on every
+rank, an application to a block of rows included.
 """
 
 from __future__ import annotations
@@ -96,8 +115,9 @@ from typing import Callable, Tuple
 
 import torch
 
+from gmres_tpu_torch.ops import _cuda
 from gmres_tpu_torch.ops._cuda import tracked_by
-from gmres_tpu_torch.ops.blas import dtensor_of, per_mesh
+from gmres_tpu_torch.ops.blas import dtensor_of, is_dtensor, per_mesh, refuse_row_block
 from gmres_tpu_torch.ops.fused import (
     cheb2_apply,
     cheb2_scalars,
@@ -156,9 +176,11 @@ def halo_apply_local(blk: torch.Tensor, coefs, group, neighbours) -> torch.Tenso
     """One application of the 5-point stencil ``coefs`` to this rank's
     block: one halo exchange over ``group`` with the ``neighbours`` of
     ``_neighbours(group)``, then K1's halo form on a CUDA block (its plain
-    version on a CPU block)."""
-    top, bottom = _halo_rows(blk, group, neighbours)
-    return stencil_5pt_pallas_halo(blk, top, bottom, coefs)
+    version on a CPU block). A (s, rows, N) block of s rows' blocks (the
+    block form) is one exchange of the s rows' boundary rows and one
+    launch."""
+    top, bottom = _halo_rows(blk, group, neighbours, blk.dim() - 2)
+    return stencil_5pt_pallas_halo(blk.contiguous(), top, bottom, coefs)
 
 
 def _sharded(mesh, fn: Callable, dim: int = 0) -> Callable:
@@ -169,6 +191,79 @@ def _sharded(mesh, fn: Callable, dim: int = 0) -> Callable:
 
     return local_map(fn, out_placements=[Shard(dim)], in_placements=([Shard(dim)],),
                      device_mesh=mesh)
+
+
+def _vmapped_rows(x):
+    """(vmap levels, their batch sizes, batch dim, block) where
+    ``torch.func.vmap`` levels (row_apply's) batch x and nothing else wraps
+    or tracks it: the block is the tensor they batch, the levels' rows in
+    one axis (nested levels flattened first) at the batch dim — a DTensor
+    ((s, N, N) placed ``[Shard(1)]`` for a block of row-sharded grids) or a
+    plain tensor (the rank's own rows). None otherwise."""
+    if not _cuda.vmapped(x):
+        return None
+    found = _cuda._lanes_of((x,))
+    if found is None:
+        return None
+    levels, sizes, (bdim,), (blk,) = found
+    return levels, sizes, bdim, blk
+
+
+class BlockSharded:
+    """``local`` on each rank's block of a DTensor sharded along ``dim`` of
+    a 1-D mesh (``local_map``; a plain tensor is this rank's block as it
+    is), and the block form: where ``torch.func.vmap`` batches the DTensor
+    (``ops/blas.py:row_apply`` over a block of rows), one ``local_map``
+    over the block, sharded along ``dim + 1``, and one call of ``rows`` on
+    each rank's (s, …) block of the s rows (default ``local``, which then
+    takes either). The rows come back wrapped at vmap's levels. A block
+    placed otherwise raises NotImplementedError. Marked as taking a block
+    of rows whole (``ops/blas.py:row_blocks``).
+
+    ``on_rows`` sets the vmap levels aside (``_cuda.below_vmap``) while it
+    works on the DTensor, which rests on functorch's private dynamic layer
+    stack (ROADMAP queue 2)."""
+
+    takes_row_blocks = True
+
+    def __init__(self, mesh, local: Callable, rows: Callable | None = None, dim: int = 0):
+        self.mesh, self.dim = mesh, dim
+        self.rows = local if rows is None else rows
+        self.untracked = _sharded(mesh, local, dim)
+        self.block = _sharded(mesh, self.rows, dim + 1)
+
+    def on_rows(self, found) -> torch.Tensor:
+        """The block form on ``_vmapped_rows``' find: on a plain block (the
+        rank's own rows, as a plain tensor is the rank's block) ``rows``
+        itself; on a DTensor, ``rows`` on each rank's block of it."""
+        from torch.distributed.tensor import Shard
+
+        levels, sizes, bdim, blk = found
+        if not is_dtensor(blk):
+            blk = blk if bdim in (None, 0) else blk.movedim(bdim, 0)
+            return _cuda._rewrap(self.rows(blk.contiguous()), levels, sizes)
+        with _cuda.below_vmap():
+            if bdim not in (None, 0):
+                blk = blk.movedim(bdim, 0)
+            mesh = blk.device_mesh
+            if (mesh != self.mesh or tuple(blk.placements) != (Shard(self.dim + 1),)
+                    or blk.shape[self.dim + 1] % mesh.size()):
+                raise NotImplementedError(
+                    f"a block of shape {tuple(blk.shape)} placed {tuple(blk.placements)}: "
+                    f"the block form takes [Shard({self.dim + 1})] on the operator's mesh, "
+                    "evenly")
+            out = self.block(blk)
+        return _cuda._rewrap(out, levels, sizes)
+
+    def batched(self, x: torch.Tensor):
+        """The block form where vmap batches x (``on_rows``); None
+        otherwise."""
+        found = _vmapped_rows(x)
+        return None if found is None else self.on_rows(found)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.batched(x)
+        return self.untracked(x) if out is None else out
 
 
 class HaloStencil(torch.autograd.Function):
@@ -207,26 +302,51 @@ class HaloStencil(torch.autograd.Function):
 HaloStencil.rule_applications = {"transpose": 0, "tangent": 0}
 
 
-class HaloForm:
+class HaloForm(BlockSharded):
     """The local form ``local(blk, top, bottom)`` on each rank's block of a
     grid sharded along ``dim`` of a 1-D mesh, after one exchange of the
     block's first and last slices along ``dim`` (``_halo_rows``). Called on
     a DTensor sharded so it returns one; on a plain tensor, this rank's
-    block. No transpose or tangent rule: a tracked input raises
-    NotImplementedError."""
+    block. On a block of rows (``row_apply``), one exchange of the rows'
+    slices and the form on the rows (``apply_rows``): with ``lanes``,
+    ``local`` itself takes the (s, …) block with (s, …) halo slices, each
+    row the bits of its own call (the split stack's form, which launches
+    K1's halo form once a plane on the card); otherwise ``local`` is mapped
+    over the rows with ``torch.func.vmap``, so it must be plain torch. No
+    transpose or tangent rule: a tracked input raises NotImplementedError."""
 
-    def __init__(self, mesh, local: Callable, dim: int = 0, axis=GRID_AXIS):
-        self.mesh, self.axis, self.dim, self.local = mesh, axis, dim, local
+    def __init__(self, mesh, local: Callable, dim: int = 0, axis=GRID_AXIS,
+                 lanes: bool = False):
+        self.axis, self.local, self.lanes = axis, local, lanes
         self.group = mesh.get_group(axis)
         self.neighbours = _neighbours(self.group)
-        self.untracked = _sharded(mesh, self.apply_local, dim)
+        super().__init__(mesh, self.apply_local, self.apply_rows, dim)
 
     def apply_local(self, blk: torch.Tensor) -> torch.Tensor:
         """The form on this rank's block (one exchange, one application)."""
         top, bottom = _halo_rows(blk, self.group, self.neighbours, self.dim)
         return self.local(blk, top, bottom)
 
+    def apply_rows(self, blk: torch.Tensor) -> torch.Tensor:
+        """The form on this rank's (s, …) block of s rows: one exchange of
+        the s rows' slices, then ``local`` on the block (``lanes``) or on
+        each row with its own halo slices (``torch.func.vmap``)."""
+        top, bottom = _halo_rows(blk, self.group, self.neighbours, self.dim + 1)
+        if self.lanes:
+            return self.local(blk, top, bottom)
+        halos = [h for h in (top, bottom) if h is not None]
+
+        def one(b, *hs):
+            got = iter(hs)
+            return self.local(b, next(got) if top is not None else None,
+                              next(got) if bottom is not None else None)
+
+        return torch.func.vmap(one)(blk, *halos)
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.batched(x)
+        if out is not None:
+            return out
         why = tracked_by(x)
         if why is not None:
             raise NotImplementedError(
@@ -250,8 +370,11 @@ class HaloOperator(HaloForm):
         self._mirror = None
 
     def apply_local(self, blk: torch.Tensor) -> torch.Tensor:
-        """The operator on this rank's block (one exchange, one stencil)."""
+        """The operator on this rank's block, or on its (s, rows, N) block
+        of s rows (one exchange, one stencil: K1's halo form on lanes)."""
         return halo_apply_local(blk, self.coefs, self.group, self.neighbours)
+
+    apply_rows = apply_local
 
     @property
     def mirror(self) -> "HaloOperator":
@@ -262,6 +385,9 @@ class HaloOperator(HaloForm):
         return self._mirror
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.batched(x)
+        if out is not None:
+            return out
         if tracked_by(x) is None:
             return self.untracked(x)
         return HaloStencil.apply(x, self)
@@ -309,6 +435,10 @@ def sharded_apply(x: torch.Tensor, forms: dict, make: Callable,
     * anything else: NotImplementedError (ROADMAP queue 1, item 8.5). No
       placement is gathered.
 
+    Under ``row_apply``'s vmap over a block of rows (a DTensor that vmap
+    batches), the form's block form (``BlockSharded``): one exchange and one
+    application for the rows.
+
     A plain x, inside ``blockwise_jvp``, is this rank's block and takes the
     form of its mesh; it must have the block's shape (ValueError otherwise).
     A DTensor that a ``torch.func`` transform wraps is dispatched by the
@@ -316,6 +446,12 @@ def sharded_apply(x: torch.Tensor, forms: dict, make: Callable,
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     inner = dtensor_of(x)
+    found = _vmapped_rows(x) if inner is not None else None
+    if found is not None and is_dtensor(found[3]):
+        form = per_mesh(forms, found[3].device_mesh, make)
+        if not isinstance(form, BlockSharded):
+            refuse_row_block("this operator's sharded route", x)
+        return form.on_rows(found)
     if inner is None:
         mesh, shape = _blockwise.block
         if tuple(x.shape) != shape:
@@ -426,10 +562,12 @@ def sharded_stencil(x: torch.Tensor, kind: str, coefs) -> torch.Tensor:
                          lambda t: stencil_5pt_pallas(t, coefs))
 
 
-def _rdma_local(coefs7, group) -> Callable:
-    """The RDMA route's per-block application of ``coefs7`` over ``group``:
-    the neighbours found once, the coefficients rounded once per dtype when
-    first applied."""
+def _rdma_route(mesh, coefs7, group) -> BlockSharded:
+    """The RDMA route's application of ``coefs7`` over ``group`` on each
+    rank's block, or on its (s, rows, N) block of s rows (one message each
+    way, one launch a step): the neighbours found once, the coefficients
+    rounded once per dtype when first applied. Each application counts one
+    exchange in ``halo_exchange.exchanges``."""
     neighbours = _neighbours(group)
     rounded = {}
 
@@ -437,9 +575,10 @@ def _rdma_local(coefs7, group) -> Callable:
         c = rounded.get(blk.dtype)
         if c is None:
             c = rounded[blk.dtype] = _coefs7(coefs7, blk.dtype)
-        return rdma_apply(blk, c, group, neighbours)
+        halo_exchange.exchanges += 1
+        return rdma_apply(blk.contiguous(), c, group, neighbours)
 
-    return apply_local
+    return BlockSharded(mesh, apply_local)
 
 
 def rdma_stencil_operator(
@@ -453,8 +592,7 @@ def rdma_stencil_operator(
     same LinearOperator contract and boundary semantics as
     :func:`halo_stencil_operator`; K8 on a CUDA block, its plain version on
     a CPU block, in float32 or float64."""
-    return _sharded(mesh, _rdma_local((*(float(c) for c in coefs), 0.0, 1.0),
-                                      mesh.get_group(axis)))
+    return _rdma_route(mesh, (*(float(c) for c in coefs), 0.0, 1.0), mesh.get_group(axis))
 
 
 def rdma_chebyshev_preconditioner(
@@ -471,7 +609,7 @@ def rdma_chebyshev_preconditioner(
     block's dtype as gmres_tpu rounds them (not K5's host-rounded 1/d)."""
     d, alpha = chebyshev_ref_scalars(lam_min, lam_max)
     coefs7 = (*(float(c) for c in coefs), 1.0 / d + alpha, -alpha / d)
-    return _sharded(mesh, _rdma_local(coefs7, mesh.get_group(axis)))
+    return _rdma_route(mesh, coefs7, mesh.get_group(axis))
 
 
 def halo_poisson_operator(mesh) -> Callable:
@@ -511,8 +649,9 @@ def halo_chebyshev_preconditioner(
             for dt in (torch.float32, torch.float64)}
 
     def m_inv_local(r_blk):
-        top, bottom = _halo_rows(r_blk, group, neighbours)
+        # A (s, rows, N) block of s rows: one exchange, one K5 launch.
+        top, bottom = _halo_rows(r_blk, group, neighbours, r_blk.dim() - 2)
         s = scal.get(r_blk.dtype) or cheb2_scalars(d, alpha, coefs, r_blk.dtype)
-        return cheb2_apply(r_blk, top, bottom, s)
+        return cheb2_apply(r_blk.contiguous(), top, bottom, s)
 
-    return _sharded(mesh, m_inv_local)
+    return BlockSharded(mesh, m_inv_local)

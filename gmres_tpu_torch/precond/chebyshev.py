@@ -5,7 +5,9 @@ Counterpart of ``gmres_tpu/precond/chebyshev.py``:
 * ``chebyshev_preconditioner`` — the reference's cbpr2 closed form at
   order 2 (``reference_form=True``), or the order-k semi-iteration, both
   written around the caller's operator A in plain PyTorch (A itself may
-  be a kernel: ``poisson_operator`` launches K1 on a CUDA tensor).
+  be a kernel: ``poisson_operator`` launches K1 on a CUDA tensor); it
+  takes a block of rows of a sharded grid whole where A does
+  (``ops/blas.py:row_blocks``).
 * ``chebyshev_stencil_preconditioner`` — the semi-iteration specialised to
   a 5-point stencil, routed by device to kernel K2 (a CUDA tensor) or its
   plain version (a CPU tensor). It replaces the TPU routing on
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from gmres_tpu_torch.ops.blas import row_blocks
 from gmres_tpu_torch.ops.fused import (
     chebyshev_k_scalars,
     chebyshev_ref_scalars,
@@ -49,7 +52,7 @@ def chebyshev_preconditioner(
             z = r / d
             return z + alpha * (r - A(z))
 
-        return m_inv
+        return row_blocks(m_inv, A)
 
     theta, _, steps = chebyshev_k_scalars(lam_min, lam_max, order)
     pairs = [(steps[2 * s], steps[2 * s + 1]) for s in range(order - 1)]
@@ -63,7 +66,7 @@ def chebyshev_preconditioner(
             z = z + d0
         return z
 
-    return m_inv
+    return row_blocks(m_inv, A)
 
 
 def chebyshev_stencil_preconditioner(

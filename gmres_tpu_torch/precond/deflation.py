@@ -32,6 +32,7 @@ import torch
 from gmres_tpu_torch.ops.blas import (
     is_dtensor,
     per_mesh,
+    refuse_row_block,
     row_apply,
     row_combine,
     row_contract,
@@ -84,6 +85,8 @@ def coarse_space_preconditioner(
                         lambda _: (shard_rows_like(W, r), shard_rows_like(aw, r)))
 
     def apply(r):
+        # Not marked by row_blocks: reductions over the mesh (ROADMAP queue 2).
+        refuse_row_block("the deflation application", r)
         W, aw = blocks(r)
         y = solve_g(row_contract(W, r))                # G⁻¹ Wᵀ r
         # (I − A Q) r, with A·(W c) = (AW)·c: no operator call.

@@ -86,7 +86,7 @@ from gmres_tpu_torch.ops.stencil import (  # noqa: F401  (transfers re-exported)
     stencil_5pt_routed_general,
 )
 from gmres_tpu_torch.models.helmholtz import split_laplacians
-from gmres_tpu_torch.ops.blas import dtensor_of, on_local
+from gmres_tpu_torch.ops.blas import dtensor_of, on_local, refuse_row_block
 from gmres_tpu_torch.precond.chebyshev import chebyshev_stencil_preconditioner
 from gmres_tpu_torch.solvers.lanczos import (
     arnoldi_ritz_values,
@@ -196,8 +196,15 @@ def _distributed_cycle(mesh, sizes, replicate_from, local_apply, smooth_local,
             return cycle(blk.to(internal_dtype), 0).to(blk.dtype)
         return cycle(blk, 0)
 
-    m_inv = local_map(m_inv_local, out_placements=[Shard(dim)],
-                      in_placements=([Shard(dim)],), device_mesh=mesh)
+    mapped = local_map(m_inv_local, out_placements=[Shard(dim)],
+                       in_placements=([Shard(dim)],), device_mesh=mesh)
+
+    def m_inv(r):
+        # Not marked by row_blocks: row_apply gives it a block of rows one
+        # row at a time (ROADMAP queue 2).
+        refuse_row_block("the distributed V-cycle", r)
+        return mapped(r)
+
     m_inv.replicate_from = replicate_from
     return m_inv
 

@@ -36,6 +36,7 @@ from gmres_tpu_torch.ops.blas import (
     is_dtensor,
     on_local,
     per_mesh,
+    refuse_row_block,
     row_apply,
     row_combine,
     row_contract,
@@ -109,6 +110,8 @@ def nystrom_preconditioner(
     placed = {}
 
     def apply(rvec: torch.Tensor) -> torch.Tensor:
+        # Not marked by row_blocks: reductions over the mesh (ROADMAP queue 2).
+        refuse_row_block("the Nyström application", rvec)
         if is_dtensor(rvec):
             u_r = per_mesh(placed, rvec.device_mesh,
                            lambda _: u if is_dtensor(u) else shard_rows_like(u, rvec))

@@ -23,9 +23,12 @@ the card) while each probe's reductions and updates run on its own
 tensors, its bits those of its factorization alone; the probes'
 Hessenbergs then come back in one read for the small eigenproblems
 (``trace_funm_lanes``, which also runs a batched solve's lanes × probes).
-On a row-sharded x_like (a DTensor) the probes run one after another, one
-read each (a block application on a DTensor is one call a row, ROADMAP queue
-2). Its Rademacher probes cannot be JAX's (``PRNGKey`` draws have no torch
+On a row-sharded x_like (a DTensor) the probes are the same draws placed
+like it and run as the same lanes: an Arnoldi step's application of A is
+one ``row_apply`` of the probes' sharded block, so a halo-route operator
+makes one exchange and one launch for all of them (``parallel/halo.py``'s
+block form), and each probe's reductions are its own all-reduces. Its
+Rademacher probes cannot be JAX's (``PRNGKey`` draws have no torch
 counterpart): they come from one seam, ``_rademacher``.
 """
 
@@ -36,11 +39,8 @@ from typing import Any, Callable
 
 import torch
 
-from gmres_tpu_torch.ops.blas import is_dtensor, row_combine, shard_rows_like, tree_vdot
-from gmres_tpu_torch.solvers.lanczos import (
-    arnoldi_factorization,
-    arnoldi_factorization_steps,
-)
+from gmres_tpu_torch.ops.blas import row_combine, shard_rows_like, tree_vdot
+from gmres_tpu_torch.solvers.lanczos import arnoldi_factorization_steps
 from gmres_tpu_torch.solvers.requests import LaneOperator, read_host, run, run_lanes
 from gmres_tpu_torch.types import LinearOperator
 
@@ -186,17 +186,10 @@ def trace_funm(
     z (the arguments of ``gmres_tpu.trace_funm``; ``key`` is an int seed,
     default 0). x_like gives the probes' shape, dtype and device; on a
     row-sharded x_like the probes are the same draws placed like it, so
-    each rank runs the quadrature on its own rows."""
-    if not is_dtensor(x_like):
-        return trace_funm_lanes(A, f, x_like[None], n_probes=n_probes, steps=steps,
-                                key=key)[0]
-    z = shard_rows_like(_rademacher(n_probes, tuple(x_like.shape), x_like.dtype,
-                                    x_like.device, 0 if key is None else key), x_like)
-    hosts = []
-    for i in range(n_probes):
-        _, hmat = arnoldi_factorization(A, z[i], steps)
-        hosts.append(hmat.detach().to("cpu", torch.float64))
-    return _trace_result(f, z, hosts, steps, x_like, n_probes)
+    each rank runs the quadrature on its own rows, the probes batched as on
+    a plain x_like."""
+    return trace_funm_lanes(A, f, x_like[None], n_probes=n_probes, steps=steps,
+                            key=key)[0]
 
 
 def _trace_result(f, z, hosts, steps, like, syncs):
@@ -225,8 +218,8 @@ def trace_funm_lanes(A, f, x_likes: torch.Tensor, *, lane_args: tuple = (),
     samples are those of its sequential ``trace_funm`` to the bit."""
     lanes = x_likes.shape[0]
     like = x_likes[0]
-    z = _rademacher(n_probes, tuple(like.shape), like.dtype, like.device,
-                    0 if key is None else key)
+    z = shard_rows_like(_rademacher(n_probes, tuple(like.shape), like.dtype, like.device,
+                                    0 if key is None else key), like)
     a_lanes = LaneOperator(A, tuple(a.repeat_interleave(n_probes, dim=0) for a in lane_args))
     done, _ = run_lanes([arnoldi_factorization_steps(a_lanes, z[i], steps)
                          for _ in range(lanes) for i in range(n_probes)])

@@ -21,8 +21,9 @@ the lanes that wait on a read.
 Operators made from the solve's A and M keep the lanes together:
 ``transposed(A, like)`` is Aᵀ (the pullback of ``torch.func.vjp``; for a
 LaneOperator one pullback of the vmapped operator for the lanes that ask
-together, ``LaneTranspose``), ``composed(M, A)`` is M∘A, and
-``rows(A)`` is A on each row of a block (``ops/blas.py:row_apply``; for a
+together, ``LaneTranspose``), ``composed(M, A)`` is M∘A (taking a block
+of rows of a sharded grid whole where both do, ``ops/blas.py:row_blocks``),
+and ``rows(A)`` is A on each row of a block (``ops/blas.py:row_apply``; for a
 LaneOperator one nested vmap, so a block of every lane's rows is one
 launch a kernel). ``capture_steps(call)`` takes the steps of the solve that
 a function of a solver starts (``run`` hands them out instead of running
@@ -37,7 +38,7 @@ from typing import Callable, Generator, NamedTuple
 
 import torch
 
-from gmres_tpu_torch.ops.blas import row_apply
+from gmres_tpu_torch.ops.blas import is_dtensor, row_apply, row_blocks
 
 
 class Apply(NamedTuple):
@@ -193,13 +194,13 @@ def composed(outer: Callable, inner: Callable) -> Callable:
     if isinstance(inner, LaneOperator):
         out = outer.fn if isinstance(outer, LaneOperator) else outer
         return inner.derive(("then", id(outer)),
-                            lambda f: lambda v, *a: out(f(v, *a)))
-    return lambda v: outer(inner(v))
+                            lambda f: row_blocks(lambda v, *a: out(f(v, *a)), out, f))
+    return row_blocks(lambda v: outer(inner(v)), outer, inner)
 
 
 def _rows_fn(fn: Callable) -> Callable:
     def on_rows(block, *args):
-        return row_apply(lambda v: fn(v, *args), block)
+        return row_apply(row_blocks(lambda v: fn(v, *args), fn), block)
 
     return on_rows
 
@@ -266,12 +267,17 @@ class LaneOperator:
         """fn on each of the vectors ``vs`` (with each lane's operands
         ``argss``) of ``lanes``: one ``torch.func.vmap`` application on
         their stacks, or the plain call where one lane waits (the same
-        bits, without vmap's host cost)."""
+        bits, without vmap's host cost). Row-sharded vectors (DTensors) with
+        no operands of their own stack into a sharded block of rows for one
+        ``row_apply``, which a halo-route fn takes whole (its block form)
+        and any other fn one row at a time."""
         if len(lanes) == 1:
             # A lane's vector may be a view of a batched output.
             return [self.fn(vs[0].contiguous(), *(a.contiguous() for a in argss[0]),
                             *(a[lanes[0]] for a in self.lane_args))]
         blocks = [torch.stack(vs)] + [torch.stack(col) for col in zip(*argss)]
+        if is_dtensor(blocks[0]) and len(blocks) == 1 and not self.lane_args:
+            return row_apply(self.fn, blocks[0]).unbind()
         return torch.func.vmap(self.fn)(*blocks, *self.lane_blocks(lanes)).unbind()
 
 

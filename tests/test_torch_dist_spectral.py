@@ -19,6 +19,7 @@ import gc
 import os
 import weakref
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,6 +49,8 @@ def _cases():
         "evolve_u0": u0,
         "evolve_forcing": np.random.default_rng(12).standard_normal((n, n)),
         "cycle_r": np.random.default_rng(13).standard_normal((worker.N_CYCLE,) * 2),
+        "nystrom_sketch": np.asarray(jax.random.normal(
+            jax.random.PRNGKey(0), (worker.N_NYSTROM_RANK, n, n), jnp.float64)),
     }
 
 
@@ -69,6 +72,16 @@ def _jax(cases):
                                               steps=30).y)
     out["theta"] = gt.theta_evolve(L, jnp.asarray(cases["evolve_u0"]), dt=0.5, n_steps=6,
                                    solver="cg", tol=1e-12)
+    # gmres_tpu's Nyström build on its halo operator, on a sharded x_like
+    # of the 8-device mesh (jax.vmap of the operator over the sketch).
+    from gmres_tpu.parallel.halo import halo_poisson_operator
+    from gmres_tpu.parallel.mesh import shard_grid_vector, solver_mesh
+
+    mesh, n = solver_mesh(8), worker.N_FUNM
+    _, lam = gt.nystrom_preconditioner(
+        halo_poisson_operator(mesh), shard_grid_vector(jnp.zeros((n, n)), mesh),
+        rank=worker.N_NYSTROM_RANK)
+    out["nystrom_halo_lam"] = np.asarray(lam)
     return out
 
 
@@ -214,7 +227,11 @@ def test_exponential_evolve_on_a_sharded_u0(dist_run):
 def test_trace_funm_probes_placed_like_x_like(dist_run):
     """trace_funm on a [Shard(0)] x_like: the plain run's value within 1e-12
     relative; every probe a DTensor whose rank block is the rank's rows
-    only."""
+    only. The probes run batched, as on a plain x_like: one exchange an
+    Arnoldi step for the 4 probes (the halo route's block form), the
+    Hessenbergs in one host read, and each probe's samples bitwise those of
+    the same probes factorized one after another (the plain Poisson
+    operator and the halo operator alike)."""
     port, _ = dist_run
     value, plain = float(port["slq_value"]), float(port["slq_plain_value"])
     assert abs(value - plain) <= 1e-12 * abs(plain)
@@ -223,7 +240,25 @@ def test_trace_funm_probes_placed_like_x_like(dist_run):
     assert probes.shape[0] == 4 and np.all(probes[:, 0] == 1)
     world = n // int(probes[0, 1])
     assert world in WORLDS and np.all(probes[:, 1:] == (n // world, n))
-    assert int(port["slq_exchanges"]) == 4 * 20  # one an application of A
+    assert int(port["slq_exchanges"]) == int(port["slq_halo_exchanges"]) == 20
+    assert int(port["slq_host_syncs"]) == 1
+    for key in ("slq", "slq_halo"):
+        np.testing.assert_array_equal(port[f"{key}_samples"],
+                                      port[f"{key}_one_by_one_samples"])
+    np.testing.assert_allclose(port["slq_samples"], port["slq_plain_samples"],
+                               rtol=1e-12)
+
+
+def test_nystrom_build_on_the_halo_operator_matches_jax(dist_run):
+    """The Nyström preconditioner built on the halo operator and a sharded
+    x_like (its sketch's rows a block application each pass: one exchange
+    an application to the r rows), gmres_tpu's sketch patched in: λ̂ equal
+    to gmres_tpu's build on its halo operator to 1e-10 relative
+    (tests/test_torch_dist_models.py's Nyström bound), with two exchanges in
+    all (the power pass and the r matvecs)."""
+    port, ref = dist_run
+    np.testing.assert_allclose(port["nystrom_halo_lam"], ref["nystrom_halo_lam"], rtol=1e-10)
+    assert int(port["nystrom_halo_exchanges"]) == 2
 
 
 CYCLES = ["poisson", "convdiff", "convdiff_mixed_auto", "helmholtz_spd"]

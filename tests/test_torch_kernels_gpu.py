@@ -763,6 +763,162 @@ def test_k8_refuses_what_it_does_not_take(cuda_device):
                             torch.zeros(16, device=cuda_device), c)
 
 
+# ---------------------------------------------------------------------------
+# K1's halo form, K5 and K8 on lanes: the halo route's block form (a block of
+# rows of a row-sharded grid, per-lane halo rows, one launch).
+# ---------------------------------------------------------------------------
+
+LANE_BLOCKS = [((8, 1024, 1024), torch.float64), ((8, 2048, 2048), torch.float32),
+               ((3, 76, 304), torch.float64), ((5, 75, 301), torch.float32)]
+LANE_SIDES = ["both", "top", "bottom", "none"]
+
+
+def _lane_block(shape, dtype, dev, sides, seed):
+    """A (lanes, rows, cols) block and its (lanes, 1, cols) halo rows, random
+    per lane, None on the sides ``sides`` leaves out."""
+    lanes, _, cols = shape
+    x = to_torch(seeded(seed, shape), dev).to(dtype)
+    top, bot = (to_torch(seeded(seed + k, (lanes, 1, cols)), dev).to(dtype) for k in (1, 2))
+    return (x, top if sides in ("both", "top") else None,
+            bot if sides in ("both", "bottom") else None)
+
+
+def _each_lane(fn, x, top, bot):
+    """fn on each lane with its own halo rows, stacked."""
+    return torch.stack([fn(x[i], None if top is None else top[i],
+                           None if bot is None else bot[i]) for i in range(x.shape[0])])
+
+
+@pytest.mark.parametrize("shape,dtype", LANE_BLOCKS)
+@pytest.mark.parametrize("sides", LANE_SIDES)
+def test_k1_halo_lanes_bitwise(cuda_device, shape, dtype, sides):
+    """K1's halo form on a block with per-lane halo rows: one launch (a
+    batched one), each lane bitwise its own launch, and the plain lane form
+    bitwise (-fmad=false). The 2048² float32 lanes take 16-byte row chunks."""
+    x, top, bot = _lane_block(shape, dtype, cuda_device, sides, 990)
+    before = (tst.stencil5_cuda.launches, tst.stencil5_cuda.batched_launches,
+              tst.stencil_5pt_pallas_halo.batched_launches)
+    y = tst.stencil_5pt_pallas_halo(x, top, bot, COEFS)
+    torch.cuda.synchronize()
+    assert (tst.stencil5_cuda.launches, tst.stencil5_cuda.batched_launches,
+            tst.stencil_5pt_pallas_halo.batched_launches) == tuple(b + 1 for b in before)
+    singles = _each_lane(lambda v, t, b: tst.stencil5_cuda(v, t, b, COEFS), x, top, bot)
+    assert torch.equal(y, singles)
+    torch.testing.assert_close(y, tst.stencil_5pt_halo(x, top, bot, COEFS), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,dtype", LANE_BLOCKS)
+@pytest.mark.parametrize("sides", LANE_SIDES)
+def test_k5_lanes_bitwise(cuda_device, shape, dtype, sides):
+    """K5 on a block with per-lane halo rows: one launch, each lane bitwise
+    its own launch and the plain lane form bitwise."""
+    x, top, bot = _lane_block(shape, dtype, cuda_device, sides, 993)
+    scal = tfu.cheb2_scalars(*tfu.chebyshev_ref_scalars(0.2, 8.2), COEFS, dtype)
+    before = (tfu.cheb2_cuda.launches, tfu.cheb2_cuda.batched_launches)
+    z = tfu.cheb2_apply(x, top, bot, scal)
+    torch.cuda.synchronize()
+    assert (tfu.cheb2_cuda.launches, tfu.cheb2_cuda.batched_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(z, _each_lane(lambda v, t, b: tfu.cheb2_apply(v, t, b, scal),
+                                     x, top, bot))
+    torch.testing.assert_close(z, tfu.cheb2_plain(x, top, bot, scal), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,dtype", LANE_BLOCKS)
+@pytest.mark.parametrize("sides", LANE_SIDES)
+def test_k8_lanes_bitwise(cuda_device, shape, dtype, sides):
+    """K8's interior and edges on a block with per-lane halo rows, for the
+    stencil and cbpr2's affine form: one interior launch and, where a row
+    is given, one edge launch; each lane bitwise its own launches and the
+    plain lane forms bitwise."""
+    d, alpha = tfu.chebyshev_ref_scalars(0.2, 8.2)
+    x, top, bot = _lane_block(shape, dtype, cuda_device, sides, 996)
+    edge = int(top is not None or bot is not None)
+    for ab in ((0.0, 1.0), (1.0 / d + alpha, -alpha / d)):
+        c = trd._coefs7((*COEFS, *ab), dtype)
+
+        def k8(v, t, b):
+            return trd.rdma_edges_cuda(trd.rdma_interior_cuda(v, c), t, b, c)
+
+        before = (trd.rdma_interior_cuda.batched_launches, trd.rdma_edges_cuda.batched_launches)
+        y = k8(x, top, bot)
+        torch.cuda.synchronize()
+        assert (trd.rdma_interior_cuda.batched_launches,
+                trd.rdma_edges_cuda.batched_launches) == (before[0] + 1, before[1] + edge)
+        assert torch.equal(y, _each_lane(k8, x, top, bot))
+        plain = trd.rdma_edges_plain(trd.rdma_interior_plain(x, c), top, bot, c)
+        torch.testing.assert_close(y, plain, rtol=0, atol=0)
+
+
+def test_lane_halo_rows_refused_when_they_do_not_match(cuda_device):
+    """A block's halo rows must be (lanes, 1, cols), one a lane: one row for
+    every lane, or another lane count, raises before any launch."""
+    x = torch.zeros((4, 8, 16), device=cuda_device)
+    before = tst.stencil5_cuda.launches
+    for bad in (torch.zeros((1, 16), device=cuda_device),
+                torch.zeros((3, 1, 16), device=cuda_device)):
+        with pytest.raises(ValueError, match="halo row"):
+            tst.stencil5_cuda(x, bad, None)
+        with pytest.raises(ValueError, match="halo row"):
+            tfu.cheb2_apply(x, None, bad, [1.0] * 7)
+        with pytest.raises(ValueError, match="halo row"):
+            trd.rdma_edges_cuda(x, bad, None, [1.0] * 7)
+    assert tst.stencil5_cuda.launches == before
+
+
+def test_halo_block_is_one_exchange_and_one_launch(cuda_device, tmp_path):
+    """On a one-rank NCCL mesh, row_apply of the halo operator, the halo
+    cbpr2 and the two RDMA operators to a (4, 256, 256) block placed
+    [Shard(1)]: one exchange and one launch of the lane form a block (K1's
+    halo form, K5, K8's interior; no edge launch), each row bitwise its own
+    call; the order-4 Chebyshev makes one of each a sweep, and the split
+    Helmholtz operator on a (4, 2, 256, 256) block placed [Shard(2)] one
+    exchange and two launches of K1's halo form on lanes (one a plane), as
+    one stack's application does."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.ops.blas import row_apply
+    from gmres_tpu_torch.parallel.halo import (
+        halo_exchange,
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = tt.solver_mesh(1)
+        x = to_torch(seeded(999, (4, 256, 256)), cuda_device)
+        stacks = to_torch(seeded(998, (4, 2, 256, 256)), cuda_device)
+        k1 = tst.stencil_5pt_pallas_halo
+        # (operator, block, its grid rows' axis, exchanges, launches, wrapper)
+        cases = (
+            (tt.halo_poisson_operator(mesh), x, 1, 1, 1, k1),
+            (tt.halo_chebyshev_preconditioner(mesh, 0.2, 8.2), x, 1, 1, 1, tfu.cheb2_cuda),
+            (tt.halo_chebyshev_preconditioner(mesh, 0.2, 8.2, order=4), x, 1, 3, 3, k1),
+            (tt.helmholtz_split_operator(256, 0.3, damping=0.2), stacks, 2, 1, 2, k1),
+            (rdma_stencil_operator(mesh), x.float(), 1, 1, 1, trd.rdma_interior_cuda),
+            (rdma_chebyshev_preconditioner(mesh, 0.2, 8.2), x.float(), 1, 1, 1,
+             trd.rdma_interior_cuda),
+        )
+        for op, v, dim, exchanges, launches, wrapper in cases:
+            blk = distribute_tensor(v, mesh, [Shard(dim)])
+            halo_exchange.exchanges = 0
+            before = (wrapper.launches, wrapper.batched_launches, trd.rdma_edges_cuda.launches)
+            y = row_apply(op, blk)
+            torch.cuda.synchronize()
+            assert halo_exchange.exchanges == exchanges
+            assert (wrapper.launches, wrapper.batched_launches) == (
+                before[0] + launches, before[1] + launches)
+            assert trd.rdma_edges_cuda.launches == before[2]
+            for i in range(v.shape[0]):
+                row = distribute_tensor(v[i], mesh, [Shard(dim - 1)])
+                assert torch.equal(y.to_local()[i], op(row).to_local())
+    finally:
+        dist.destroy_process_group()
+
+
 def _bicgstab_64(device, calls=None):
     n = 64
     op = tt.poisson_operator(n)

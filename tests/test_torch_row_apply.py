@@ -226,18 +226,28 @@ def test_batched_k2_matches_vmapped_pallas(order):
 
 
 def test_dtensor_block_keeps_the_loop(tmp_path):
-    """On a block sharded along its grid rows over two gloo ranks,
-    row_apply calls the operator once a row with the row's DTensor, and the
+    """On a block sharded along its grid rows over two gloo ranks, row_apply
+    calls the Poisson operator, through a wrapper marked as taking the block
+    whole (row_blocks), once, under vmap (the halo route's block form: one
+    exchange for the rows); it keeps the loop, one call a row with the
+    row's DTensor and no call before it, for the same operator through a
+    wrapper that is not marked, and for the mesh=None V-cycle, which has no
+    block form on a DTensor (row_blocks leaves its wrapper unmarked). Each
     assembled result is the plain block's."""
     rows = seeded(51, (3, 16, 16))
     mp.spawn(worker.run, args=(2, str(tmp_path / "rendezvous"), str(tmp_path), rows),
              nprocs=2, join=True)
-    op = tt.poisson_operator(16)
-    expected = to_np(_loop(op, to_torch(rows)))
+    poisson = to_np(_loop(tt.poisson_operator(16), to_torch(rows)))
+    expected = {"": poisson, "loop_": poisson,
+                "cycle_": to_np(_loop(tt.poisson_multigrid_preconditioner(16),
+                                      to_torch(rows)))}
     for rank in range(2):
         got = np.load(tmp_path / f"rank{rank}.npz")
-        assert list(got["seen"]) == ["DTensor"] * 3
-        np.testing.assert_array_equal(got["out"], expected)
+        assert list(got["seen"]) == ["Tensor"]
+        assert list(got["loop_seen"]) == ["DTensor"] * 3
+        assert list(got["cycle_seen"]) == ["DTensor"] * 3
+        for key, want in expected.items():
+            np.testing.assert_array_equal(got[f"{key}out"], want)
 
 
 def test_vmap_inside_grad_takes_the_function_rules():

@@ -39,6 +39,7 @@ N_KS_REAL = 16     # tests/test_krylov_schur_real.py:133
 N_SUBSPACE = 32    # tests/test_subspace_eigs.py:81
 N_FUNM = 64        # tests/test_funm.py:110, tests/test_evolve.py:142
 N_CYCLE = 64
+N_NYSTROM_RANK = 12  # tests/test_nystrom.py:91's rank
 # Subspace iteration at gmres_tpu's γ, and at one where the dominant Ritz
 # values are not chaotic (the convection–diffusion default γ).
 SUBSPACE_GAMMAS = {"chaotic": (1.5, 0.4), "calm": (0.4, 0.2)}
@@ -119,6 +120,7 @@ def _eigensolvers(mesh, cases: dict, out: dict) -> None:
 def _functions(mesh, cases: dict, out: dict) -> None:
     import gmres_tpu_torch as tt
     from gmres_tpu_torch.solvers import funm
+    from gmres_tpu_torch.solvers.lanczos import arnoldi_factorization
 
     n = N_FUNM
     L = tt.poisson_operator(n)
@@ -141,26 +143,56 @@ def _functions(mesh, cases: dict, out: dict) -> None:
     plain = tt.exponential_evolve(L, torch.as_tensor(u0), forcing=torch.as_tensor(f), **kw)
     out["exp_evolve_plain"] = plain.u.numpy()
     out["exp_evolve_plain_estimates"] = plain.error_estimates.numpy()
-    # trace_funm: the probes placed like x_like (each rank's rows tapped).
+    # trace_funm: the probes placed like x_like (each rank's rows tapped),
+    # batched as lanes; then the same probes one after another.
     seen = []
-    original = funm.arnoldi_factorization
+    original = funm.arnoldi_factorization_steps
 
     def tapped(A, z, steps):
         seen.append((type(z).__name__, tuple(z.to_local().shape)
                      if hasattr(z, "to_local") else tuple(z.shape)))
         return original(A, z, steps)
 
-    funm.arnoldi_factorization = tapped
+    funm.arnoldi_factorization_steps = tapped
     try:
         res = _counted(out, "slq", lambda: tt.trace_funm(L, torch.log, bs, n_probes=4,
                                                          steps=20))
     finally:
-        funm.arnoldi_factorization = original
+        funm.arnoldi_factorization_steps = original
     out["slq_probes"] = np.array([[t == "DTensor", *shape] for t, shape in seen])
     out["slq_value"] = np.asarray(float(res.value))
     out["slq_samples"] = res.samples.numpy()
+    out["slq_host_syncs"] = np.asarray(res.host_syncs)
+    z = funm.shard_rows_like(funm._rademacher(4, (n, n), bs.dtype, bs.device, 0), bs)
+    hosts = [arnoldi_factorization(L, z[i], 20)[1].to("cpu", torch.float64)
+             for i in range(4)]
+    one_by_one = funm._trace_result(torch.log, z, hosts, 20, bs, 4)
+    out["slq_one_by_one_samples"] = one_by_one.samples.numpy()
+    # The halo operator's probes, batched and one by one alike.
+    halo = tt.halo_poisson_operator(mesh)
+    res = _counted(out, "slq_halo", lambda: tt.trace_funm(halo, torch.log, bs, n_probes=4,
+                                                          steps=20))
+    out["slq_halo_samples"] = res.samples.numpy()
+    hosts = [arnoldi_factorization(halo, z[i], 20)[1].to("cpu", torch.float64)
+             for i in range(4)]
+    out["slq_halo_one_by_one_samples"] = funm._trace_result(
+        torch.log, z, hosts, 20, bs, 4).samples.numpy()
     plain = tt.trace_funm(L, torch.log, torch.as_tensor(b), n_probes=4, steps=20)
     out["slq_plain_value"] = np.asarray(float(plain.value))
+    out["slq_plain_samples"] = plain.samples.numpy()
+    # The Nyström build on the halo operator (a block application of A to
+    # the sketch's sharded rows), gmres_tpu's sketch patched in.
+    from gmres_tpu_torch.precond import nystrom as tnys
+
+    original_sketch = tnys._sketch
+    tnys._sketch = lambda rank, shape, dtype, device, key: torch.as_tensor(
+        cases["nystrom_sketch"]).to(device, dtype)
+    try:
+        _, lam = _counted(out, "nystrom_halo", lambda: tt.nystrom_preconditioner(
+            halo, _place(np.zeros((n, n)), mesh), rank=N_NYSTROM_RANK))
+    finally:
+        tnys._sketch = original_sketch
+    out["nystrom_halo_lam"] = lam.numpy()
 
 
 def _cycles(mesh, cases: dict, out: dict) -> None:

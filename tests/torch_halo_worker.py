@@ -15,6 +15,8 @@ so each spawned process starts with torch alone.
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import os
 
 import numpy as np
@@ -179,3 +181,148 @@ def run_cli(rank: int, world: int, init_file: str, out_dir: str, runs: dict) -> 
                     f.write(f"{type(exc).__name__}: {exc}")
     finally:
         dist.destroy_process_group()
+
+
+# The block form (tests/test_torch_halo_blocks.py): s rows of a row-sharded
+# grid in one application.
+N_BLOCK = 32       # the halo routes' block side, float64
+N_RDMA_BLOCK = 16  # the RDMA routes' block side, float32 (N_RDMA_CG's)
+N_3D = 8           # the 7-point stencil's cube side (a plain operator's halo form)
+KH2 = 0.3          # the complex Helmholtz operator's k²h² (a complex halo form)
+SPLIT_ROUTES = ("helmholtz_split",)  # (s, 2, N, N) stacks: rows on the third axis
+
+
+def run_blocks(rank: int, world: int, init_file: str, out_dir: str, cases: dict) -> None:
+    """One rank of tests/test_torch_halo_blocks.py: every halo-route
+    operator on a (s, N, N) block placed ``[Shard(1)]`` through
+    ``ops/blas.py:row_apply``, beside each row's own call, with the halo
+    exchanges of each; then block CG and LOBPCG on a sharded block. Keys
+    ending ``_blk`` hold this rank's block along axis 1 (``assembled``)."""
+    import gmres_tpu_torch as tt
+
+    torch.set_num_threads(1)
+    mesh = tt.init_multihost(f"file://{init_file}", world, rank, device_type="cpu")
+    try:
+        out = {}
+        _drive_blocks(mesh, cases, out)
+        _drive_block_solvers(mesh, cases, out)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def block_routes(mesh, cases: dict) -> dict:
+    """{route: (operator, block)}: every halo-route operator of the port and
+    the block it takes here (numpy), a block of s grids along its first
+    axis; the split stack's grid rows are its third axis, every other
+    block's its second (``SPLIT_ROUTES``)."""
+    import gmres_tpu_torch as tt
+    from gmres_tpu_torch.parallel.halo import (
+        rdma_chebyshev_preconditioner,
+        rdma_stencil_operator,
+    )
+
+    x, x32 = cases["blk"], cases["blk_rdma"]
+    return {
+        "poisson": (tt.halo_poisson_operator(mesh), x),
+        "general": (tt.halo_stencil_operator(mesh, cases["coefs"]), x),
+        "cbpr2": (tt.halo_chebyshev_preconditioner(mesh, 0.2, 8.2), x),
+        "cheb4": (tt.halo_chebyshev_preconditioner(mesh, 0.2, 8.2, order=4), x),
+        "plain_poisson": (tt.poisson_operator(N_BLOCK), x),
+        "helmholtz_complex": (tt.helmholtz_operator(N_BLOCK, KH2, damping=0.2),
+                              cases["blk_complex"]),
+        "helmholtz_split": (tt.helmholtz_split_operator(N_BLOCK, KH2, damping=0.2),
+                            cases["blk_split"]),
+        "poisson3d": (tt.poisson3d_operator(N_3D), cases["blk_3d"]),
+        "varcoef": (tt.varcoef_operator(torch.as_tensor(cases["c_varcoef"])), x),
+        "rdma": (rdma_stencil_operator(mesh), x32),
+        "rdma_asym": (rdma_stencil_operator(mesh, cases["coefs_asym"]), x32),
+        "rdma_cbpr2": (rdma_chebyshev_preconditioner(mesh, 0.2, 8.2), x32),
+    }
+
+
+# The kernel entries of the halo route, by the module that calls each.
+KERNEL_ENTRIES = (("gmres_tpu_torch.models.helmholtz", "stencil_5pt_pallas_halo"),
+                  ("gmres_tpu_torch.parallel.halo", "stencil_5pt_pallas_halo"),
+                  ("gmres_tpu_torch.parallel.halo", "cheb2_apply"),
+                  ("gmres_tpu_torch.parallel.halo", "rdma_apply"))
+
+
+@contextlib.contextmanager
+def kernel_entries(calls: list):
+    """Each call of a kernel entry of the halo route appends whether a
+    ``torch.func.vmap`` level batches its block (on the card a batched
+    block has no storage to launch on)."""
+    from gmres_tpu_torch.ops import _cuda
+
+    saved = []
+    for module, name in KERNEL_ENTRIES:
+        mod = importlib.import_module(module)
+        entry = getattr(mod, name)
+
+        def tapped(x, *args, entry=entry):
+            calls.append(_cuda.vmapped(x))
+            return entry(x, *args)
+
+        saved.append((mod, name, entry))
+        setattr(mod, name, tapped)
+    try:
+        yield
+    finally:
+        for mod, name, entry in saved:
+            setattr(mod, name, entry)
+
+
+def _drive_blocks(mesh, cases: dict, out: dict) -> None:
+    """Each route's block application (its exchanges and kernel entry calls
+    counted) beside the rows applied one by one (theirs counted), and
+    whether every row is bitwise its own call."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.ops.blas import row_apply
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    for name, (op, blk) in block_routes(mesh, cases).items():
+        dim = 1 + (name in SPLIT_ROUTES)
+        xb = distribute_tensor(torch.as_tensor(blk), mesh, [Shard(dim)])
+        halo_exchange.exchanges = 0
+        block_calls, row_calls = [], []
+        with kernel_entries(block_calls):
+            y = row_apply(op, xb)
+        block_exchanges = halo_exchange.exchanges
+        halo_exchange.exchanges = 0
+        with kernel_entries(row_calls):
+            rows = [op(distribute_tensor(torch.as_tensor(blk[i]), mesh, [Shard(dim - 1)]))
+                    for i in range(blk.shape[0])]
+        row_exchanges = halo_exchange.exchanges / blk.shape[0]
+        # Kernel entry calls of the block, those on a batched block, a row's.
+        out[f"{name}_entries"] = np.array([len(block_calls), sum(block_calls),
+                                           len(row_calls) / blk.shape[0]])
+        # The rank's rows along axis 1 (a split stack's moved there).
+        out[f"{name}_blk"] = np.moveaxis(y.to_local().numpy(), dim, 1)
+        out[f"{name}_placements"] = np.asarray(str(tuple(y.placements)))
+        out[f"{name}_exchanges"] = np.array([block_exchanges, row_exchanges])
+        out[f"{name}_bitwise"] = np.asarray(all(
+            torch.equal(y.to_local()[i], r.to_local()) for i, r in enumerate(rows)))
+
+
+def _drive_block_solvers(mesh, cases: dict, out: dict) -> None:
+    """Block CG (the halo operator, the halo cbpr2) and LOBPCG (the halo
+    operator, the halo cbpr2 as M) on blocks placed ``[Shard(1)]``."""
+    import gmres_tpu_torch as tt
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    op = tt.halo_poisson_operator(mesh)
+    m = tt.halo_chebyshev_preconditioner(mesh, 0.2, 8.2)
+    b = distribute_tensor(torch.as_tensor(cases["B_cg"]), mesh, [Shard(1)])
+    halo_exchange.exchanges = 0
+    res = tt.block_cg(op, b, tol=1e-9, M=m)
+    out["block_cg_exchanges"] = np.asarray(halo_exchange.exchanges)
+    out["block_cg_x_blk"] = res.x.to_local().numpy()
+    out["block_cg_counts"] = np.array([res.iterations, res.status])
+    x0 = distribute_tensor(torch.as_tensor(cases["lobpcg_x0"]), mesh, [Shard(1)])
+    res = tt.lobpcg(op, x0, tol=1e-8, max_iterations=100, M=m)
+    out["lobpcg_eigenvalues"] = np.asarray(res.eigenvalues)
+    out["lobpcg_counts"] = np.array([res.iterations, res.status])
