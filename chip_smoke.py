@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phase26            # the build and phase 26 alone
     python3 chip_smoke.py --phase27            # the build and phase 27 alone
     python3 chip_smoke.py --phase28            # the build and phase 28 alone
+    python3 chip_smoke.py --phase29            # the build and phase 29 alone
 
 Run from the root of a checkout on a machine with an H100 (the kernels are
 built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
@@ -23,13 +24,13 @@ built for sm_90a). It imports torch, numpy and gmres_tpu_torch only. The
 that can take each multigrid shape (16² to 4096², orders 3, 8 and 32,
 float32 and float64), holds each bitwise to the per-sweep path and times it
 by CUDA-graph replay; ops/fused.py's chebk_plan is set from that table.
-The ``--phase15`` and ``--phase17`` to ``--phase28`` modes build the
+The ``--phase15`` and ``--phase17`` to ``--phase29`` modes build the
 kernels and run that phase alone, with its checks. The smoke run runs
-phases 1-14, 16, 24-26 and 28 (a) in turn, then phases 15, 17-23, 27 and
-28 (b)-(c), which time no kernel, in four worker processes at once
+phases 1-14, 16, 24-26 and 28 (a) in turn, then phases 15, 17-23, 27, 28
+(b)-(c) and 29, which time no kernel, in four worker processes at once
 (``--worker OUT PHASE...``, each pickling what the kernel report reads of
-its phases to OUT; WORKER_GROUPS: 19 and 28; 15 and 18; 20, 21 and 27;
-22, 17 and 23), and prints each worker's output in turn. Phases of the
+its phases to OUT; WORKER_GROUPS: 19; 15, 18 and 28; 20, 21 and 27; 22,
+17, 23 and 29), and prints each worker's output in turn. Phases of the
 smoke run:
 
 1. Require CUDA (exit non-zero without it); print the card's name and
@@ -466,9 +467,29 @@ smoke run:
     (JAX_PHASE28, scripts/jax_phase28_counts.py) and the twin's, every
     exchange followed by one launch of K1's halo form, K5 or K8, and each
     of the row's kernels launched on lane blocks.
+29. The distributed V-cycles and the sparse operators' rank rows on a
+    block of rows (one exchange a sharded-level application and one
+    all-gather a block, what gmres_tpu's jax.vmap makes of its mesh= cycle
+    and sparse operator), on a one-rank NCCL group. (a) One ``row_apply``
+    of 8 rows beside the rows one by one: the mesh= Poisson cycle at 2048²
+    float32 (replicate_below at its default: every level sharded, K1's halo
+    form on lanes; and 512: one all-gather, then K1rr, K1cr and K2 on lane
+    blocks under vmap), the mesh=None cycle on a DTensor at 300², BASELINE
+    config 3's convection–diffusion cycle at 1024², the split CSL cycle at
+    512² float32 (stacks placed [Shard(2)]) and the 3-D cycle at 128³. (b)
+    The same for sparse_operator on HYB 1000² float64, DIA 2048² float32
+    (one exchange, one K3 lane launch), BSR 16 × 128² float32 (one K4 lane
+    launch) and CSR, COO, ELL 512² (one all-gather). Each: one row's
+    exchanges, all-gathers and launches, all on lane blocks (by the
+    wrappers' counts; kernels by torch.profiler), each row bitwise its own
+    call, the walls of both (medians of 5). (c) Block CG with the mesh=
+    cycle (1024² float64, s 8), LOBPCG with the mesh=None cycle (1024², k
+    4) and block CG with cbpr2 on HYB 1000² (s 4), each beside its twin on
+    plain tensors, counts against gmres_tpu's (JAX_PHASE29,
+    scripts/jax_phase29_counts.py) and the twin's.
 
 Phases 12–14 share one NCCL process group made by the script; phases 21,
-22, 23 and 28 make one each. Any failure
+22, 23, 28 and 29 make one each. Any failure
 raises and exits non-zero. The line before the last is the
 kernel report (JSON); the last line is the result (JSON).
 """
@@ -554,8 +575,13 @@ HBM_SETS = 4
 # Applications profiled per operator in phase 12's launch count.
 HALO_APPLICATIONS = 20
 # A profile's warm-up step (host seconds after its spin kernels; its events
-# are dropped) and the most profiles device_events takes for one count.
+# are dropped), the host seconds between the recorded step's edges and fn
+# (the profiler keeps only the device events inside the step's host-clock
+# window; scripts/profile_edges.py counts the profiles that lose fn's
+# kernels with and without the gap) and the most profiles device_events
+# takes for one count.
 PROFILE_WARMUP_S = 0.01
+PROFILE_EDGE_S = 0.02
 PROFILE_TRIES = 5
 # Phase 15: the bicgstab program's grids (test_bicgstab.f90's range ends) and
 # gmres_tpu's iteration counts there (cbpr2 on REF_EIG, float64, tol 1e-9
@@ -1761,14 +1787,17 @@ def timed(solve):
     return res, time.perf_counter() - t0
 
 
-def profiled(fn):
+def profiled(fn, edge=PROFILE_EDGE_S):
     """fn() under torch.profiler. The first device events of a profile can
     go missing (16 of 20 one-kernel applications were counted once; on a
     loaded host two profiles in turn gave 0.4 kernels an application for
     1), so the profiler first runs a warm-up step, whose events it drops,
     and the recorded step opens and closes with spin kernels
-    (torch.cuda._sleep), which device_kernels leaves out. Returns fn's
-    result, the host seconds it took, and the profile's key_averages."""
+    (torch.cuda._sleep), which device_kernels leaves out, and with `edge`
+    host seconds on either side of fn, so that fn's kernels lie inside the
+    step's window however the device's timestamps sit on the host clock
+    (scripts/profile_edges.py varies it). Returns fn's result, the host
+    seconds it took, and the profile's key_averages."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1784,10 +1813,12 @@ def profiled(fn):
         time.sleep(PROFILE_WARMUP_S)
         prof.step()
         spin()
+        time.sleep(edge)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        time.sleep(edge)
         spin()
     return out, seconds, prof.key_averages()
 
@@ -8321,6 +8352,388 @@ def phase_halo_blocks(gt_torch, dev, workdir, kernels=True):
     return records, launches, blocks + rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the distributed V-cycle and the sparse operators' rank rows on a
+# sharded block of rows (one exchange a sharded-level application and one
+# all-gather a block, as gmres_tpu's jax.vmap makes them).
+# ---------------------------------------------------------------------------
+
+P29_S = 8                        # rows in a block
+P29_SEED = SEED + 29
+P29_POISSON = (2048, "float32")  # (a): the mesh= Poisson cycle, mg 2048²'s dtype
+P29_BELOW = 512                  # (a): its replicate_below: 256² and below whole
+P29_NONE_N = 300                 # (a): the mesh=None cycle on a DTensor (mg 300²)
+P29_CD_N = 1024                  # (a): BASELINE config 3's cycle (auto, float32 inside)
+P29_CSL = (512, "float32")       # (a): the split CSL cycle, phase 19's 512² f32
+P29_3D_N = 128                   # (a): the 3-D cycle (phase 18's 128³)
+P29_HYB_N, P29_SPMV_N = 1000, 512   # (b): HYB f64; CSR, COO, ELL f64
+P29_DIA = (2048, "float32")      # (b): DIA
+P29_BCG = (1024, 8, 1e-6)        # (c): block CG + the mesh= cycle: side, s, abs tol
+P29_LOBPCG = (1024, EIG_K, 1e-4, 200)   # (c): side, k, rtol, cap (phase 20's)
+P29_HYB_BCG = (1000, 4, 1e-6)    # (c): block CG + cbpr2 on HYB: side, s, abs tol
+P29_BAND = 2                     # the card's counts within 2 of gmres_tpu's CPU counts
+P29_WALL_REPS = 5                # (a): medians of 5 block calls and of 5 loops
+P29_KERNELS = ("K1", "K1 halo", "K1rr", "K1cr", "K2", "K3", "K4")
+# gmres_tpu's counts for (c), on the CPU at the same sizes on the same numpy
+# inputs (scripts/jax_phase29_counts.py): {row: its JSON line}.
+JAX_PHASE29 = {
+    "block_cg_mg": {"iterations": 13, "status": 0},
+    "lobpcg_mg": {"iterations": 21, "status": 0, "converged": True,
+                  "eigenvalues": [1.87880483994012e-05, 4.6970032750812776e-05,
+                                  4.697003275081292e-05, 7.51520171023446e-05]},
+    "block_cg_hyb": {"iterations": 1124, "status": 0},
+}
+
+
+def p29_inputs(kind: str):
+    """(c)'s numpy inputs (scripts/jax_phase29_counts.py draws the same):
+    the right-hand sides of block CG with the cycle (s, n, n) and on HYB (s,
+    n²), standard normal, and LOBPCG's start (k, n, n)."""
+    import numpy as np
+
+    n, s, _ = P29_BCG
+    seed, shape = {"bcg": (P29_SEED, (s, n, n)),
+                   "lobpcg": (P29_SEED + 1, (P29_LOBPCG[1],) + (P29_LOBPCG[0],) * 2),
+                   "bcg_hyb": (P29_SEED + 2, (P29_HYB_BCG[1], P29_HYB_BCG[0] ** 2))}[kind]
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+def p29_counters(reset: bool = False) -> dict:
+    """p23_counters with each kernel's launches on lane blocks ("… batched":
+    K1's halo form's apart from K1's)."""
+    from gmres_tpu_torch.ops import sparse, stencil
+
+    wrappers = {"K1 halo": stencil.stencil_5pt_pallas_halo, "K3": sparse.dia_spmv_cuda,
+                "K4": sparse.bsr_spmv_cuda}
+    if reset:
+        for w in wrappers.values():
+            w.batched_launches = 0
+    out = p23_counters(reset)
+    out.update({f"{name} batched": w.batched_launches for name, w in wrappers.items()})
+    return out
+
+
+def p29_block_row(label, fn, x, dim, mesh, *, gathers, needs, extra_kernels=0,
+                  same_kernels=True, rtol=0.0):
+    """One block application: `fn` on the (8, …) block x placed
+    [Shard(dim)] through row_apply, beside its rows placed [Shard(dim − 1)]
+    one by one, each after an untimed call, the counts set to 0 just before
+    and read just after. Held: each row bitwise its own call (where `rtol`
+    is 0; else within it, relative to the row's largest entry); the block's
+    exchanges and explicit all-gathers one row's (`gathers` all-gathers);
+    every kernel's launches one row's, all on lane blocks (the rows' none);
+    each kernel of `needs` launched; and, where `same_kernels`, the
+    profiler's kernels a block application a row's plus `extra_kernels`
+    (copies of the lanes' strided planes). The walls of both are printed."""
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.ops.blas import row_apply
+
+    s = x.shape[0]
+    blk = distribute_tensor(x, mesh, [Shard(dim)])
+    rows = [distribute_tensor(x[i], mesh, [Shard(dim - 1)]) for i in range(s)]
+    tag = f"phase 29 {label} {'x'.join(map(str, x.shape))} {str(x.dtype)[6:]}"
+
+    def block():
+        return row_apply(fn, blk)
+
+    def one_by_one():
+        return [fn(r) for r in rows]
+
+    block()
+    one_by_one()
+    counts = {}
+    for key, call in (("block", block), ("rows", one_by_one)):
+        calls = {"all-gathers": 0}
+        p29_counters(reset=True)
+        with counted_all_gathers(calls):
+            out = call()
+            torch.cuda.synchronize()
+        counts[key] = {**p29_counters(), "all-gathers": calls["all-gathers"]}
+        if key == "block":
+            y = out.to_local()
+        else:
+            ys = [r.to_local() for r in out]
+    count, count_rows = counts["block"], counts["rows"]
+    gap = max(float((y[i] - ys[i]).abs().max() / ys[i].abs().max()) for i in range(s))
+    bitwise = all(torch.equal(y[i], ys[i]) for i in range(s))
+    wall, wall_rows = p28_wall(block, P29_WALL_REPS), p28_wall(one_by_one, P29_WALL_REPS)
+    kernels, kernels_row = device_events(block), device_events(lambda: fn(rows[0]))
+    launched = {k: count[k] for k in P29_KERNELS if count[k]}
+    print(f"{tag}: block {count['exchanges']} exchanges, {count['all-gathers']} "
+          f"all-gathers, launches {launched} (on lane blocks "
+          f"{ {k: count[k + ' batched'] for k in launched} }), "
+          f"{kernels} kernels (profiler); one by one {count_rows['exchanges']} exchanges, "
+          f"{count_rows['all-gathers']} all-gathers, launches "
+          f"{ {k: count_rows[k] for k in P29_KERNELS if count_rows[k]} }, a row {kernels_row} "
+          f"kernels; rows bitwise {bitwise} (largest gap {gap:.2e}); wall block "
+          f"{wall * 1e3:.3f} ms, rows one by one "
+          f"{wall_rows * 1e3:.3f} ms ({wall_rows / wall:.2f}x)", flush=True)
+    require(bitwise if rtol == 0.0 else gap <= rtol,
+            f"{tag}: a row differs from its own call by {gap:.2e} (held to {rtol:g})")
+    require(count["all-gathers"] == gathers and count_rows["all-gathers"] == s * gathers,
+            f"{tag}: all-gathers {count['all-gathers']}, rows {count_rows['all-gathers']}")
+    require(count_rows["exchanges"] == s * count["exchanges"],
+            f"{tag}: exchanges {count['exchanges']}, rows {count_rows['exchanges']}")
+    for k in P29_KERNELS:
+        require(count_rows[k] == s * count[k], f"{tag}: {k} {count[k]}, rows {count_rows[k]}")
+        require(count[f"{k} batched"] == count[k] and count_rows[f"{k} batched"] == 0,
+                f"{tag}: {k} on lane blocks {count[f'{k} batched']} of {count[k]}, rows "
+                f"{count_rows[f'{k} batched']}")
+    for k in needs:
+        require(count[k] > 0, f"{tag}: {k} not launched")
+    if same_kernels:
+        require(kernels == kernels_row + extra_kernels,
+                f"{tag}: {kernels} kernels a block application, {kernels_row} a row's "
+                f"(+{extra_kernels} expected)")
+    return {"label": label, "shape": list(x.shape), "dtype": str(x.dtype)[6:], "count": count,
+            "count_rows": count_rows, "kernels": kernels, "kernels_row": kernels_row,
+            "wall_s": wall, "wall_rows_s": wall_rows}
+
+
+def p29_cycles(gt_torch, dev, mesh):
+    """(a) One row_apply of 8 rows of each distributed cycle beside the rows
+    one by one: the mesh= Poisson cycle at 2048² float32 with
+    replicate_below at its default (every level sharded on one rank: K1's
+    halo form on lanes only) and at 512 (one all-gather; 256² and below
+    once under vmap: K1rr, K1cr and K2 on lane blocks); the mesh=None cycle
+    on a DTensor at 300²; BASELINE config 3's convection–diffusion cycle
+    (auto smoother, float32 inside) at 1024²; the split CSL cycle at 512²
+    float32 (8 stacks placed [Shard(2)]: two K1 halo lane launches an
+    exchange, each plane's lanes copied contiguous); the 3-D cycle at 128³
+    (plain torch)."""
+    import numpy as np
+    import torch
+
+    gen = np.random.default_rng(P29_SEED + 3)
+    s = P29_S
+
+    def block(shape, dts):
+        return torch.as_tensor(gen.standard_normal((s,) + shape)).to(dev, getattr(torch, dts))
+
+    rows = []
+    n, dts = P29_POISSON
+    x = block((n, n), dts)
+    for below, gathers, needs in ((None, 0, ("K1 halo",)),
+                                  (P29_BELOW, 1, ("K1 halo", "K1rr", "K1cr", "K2"))):
+        m = gt_torch.poisson_multigrid_preconditioner(n, mesh=mesh, replicate_below=below)
+        rows.append(p29_block_row(
+            f"(a) mesh= poisson cycle replicate_below {below} (levels {m.replicate_from} of "
+            f"{m.levels} sharded)", m, x, 1, mesh, gathers=gathers, needs=needs,
+            extra_kernels=2 * gathers))
+    n = P29_NONE_N
+    rows.append(p29_block_row("(a) mesh=None poisson cycle on a DTensor",
+                              gt_torch.poisson_multigrid_preconditioner(n),
+                              block((n, n), "float64"), 1, mesh, gathers=0,
+                              needs=("K1 halo",)))
+    n = P29_CD_N
+    m = gt_torch.convection_diffusion_multigrid_preconditioner(
+        n, 0.4, 0.2, mesh=mesh, smoother="auto", internal_dtype=torch.float32)
+    rows.append(p29_block_row("(a) mesh= convdiff cycle (BASELINE config 3: auto, float32 "
+                              "inside)", m, block((n, n), "float64"), 1, mesh, gathers=0,
+                              needs=("K1 halo",)))
+    n, dts = P29_CSL
+    kh2 = HELM_FACTOR * gt_torch.helmholtz_lambda_min(n, 0.0)
+    m = gt_torch.csl_multigrid_preconditioner(n, kh2, layout="split", mesh=mesh)
+    x = block((2, n, n), dts)
+    rows.append(p29_block_row("(a) mesh= split CSL cycle, stacks [Shard(2)]", m, x, 2, mesh,
+                              gathers=0, needs=("K1 halo",), same_kernels=False))
+    csl = rows[-1]
+    require(csl["count"]["K1 halo"] == 2 * csl["count"]["exchanges"],
+            f"phase 29 split CSL: {csl['count']['K1 halo']} K1 halo launches for "
+            f"{csl['count']['exchanges']} exchanges (two a stencil)")
+    require(csl["kernels"] == csl["kernels_row"] + csl["count"]["K1 halo"],
+            f"phase 29 split CSL: {csl['kernels']} kernels a block, {csl['kernels_row']} a "
+            f"stack's (+{csl['count']['K1 halo']} expected: a plane's lanes copied a launch)")
+    n = P29_3D_N
+    rows.append(p29_block_row("(a) mesh= 3-D cycle (plain torch)",
+                              gt_torch.poisson3d_multigrid_preconditioner(n, mesh=mesh),
+                              block((n, n, n), "float64"), 1, mesh, gathers=0, needs=()))
+    return rows
+
+
+def p29_sparse(gt_torch, dev, mesh):
+    """(b) One row_apply of each sparse operator to 8 rows placed [Shard(1)]
+    beside the rows one by one: HYB 1000² float64 and DIA 2048² float32 (one
+    exchange, one K3 lane launch), BSR of 16 block rows of 128² float32 (one
+    exchange, one K4 lane launch), CSR, COO and ELL 512² float64 (one
+    all-gather of the (8, n) block, plain torch; the lanes' transposes two
+    more kernels, and vmap's gathers, so their kernels are printed, not
+    held). CSR and COO sum into their rows with index_add, which on the
+    card adds in atomic order, so a block's rows are held to phase 23's
+    1e-12 of their own calls, not to their bits."""
+    import torch
+
+    from gmres_tpu_torch.ops.sparse import csr_row_ids
+
+    gen = torch.Generator(device=dev).manual_seed(P29_SEED + 4)
+    n = P29_SPMV_N
+    csr = gt_torch.poisson_csr(n, device=dev)
+    mats = {"hyb f64": gt_torch.csr_to_hyb(gt_torch.poisson_csr(P29_HYB_N, device=dev)),
+            "dia f32": cast_dia(gt_torch, gt_torch.poisson_dia(P29_DIA[0], device=dev),
+                                torch.float32),
+            "bsr f32": block_tridiagonal(gt_torch, *P23_BSR, torch.float32, dev, gen),
+            "csr f64": csr,
+            "coo f64": gt_torch.COOMatrix(data=csr.data, row=csr_row_ids(csr),
+                                          col=csr.indices, shape=csr.shape),
+            "ell f64": gt_torch.csr_to_ell(csr)}
+    rows = []
+    for name, a in mats.items():
+        dt = a.dia.data.dtype if hasattr(a, "dia") else a.data.dtype
+        x = torch.randn((P29_S, a.shape[1]), generator=gen, device=dev,
+                        dtype=torch.float64).to(dt)
+        band = name[:3] in ("hyb", "dia", "bsr")
+        kernel = "K4" if name.startswith("bsr") else "K3"
+        rows.append(p29_block_row(f"(b) sparse_operator {name} {a.shape[0]} rows",
+                                  gt_torch.sparse_operator(a), x, 1, mesh,
+                                  gathers=0 if band else 1, needs=(kernel,) if band else (),
+                                  same_kernels=band,
+                                  rtol=1e-12 if name[:3] in ("csr", "coo") else 0.0))
+        got = rows[-1]["count"]
+        require(got["exchanges"] == int(band) and got[kernel] == int(band),
+                f"phase 29 (b) {name}: {got['exchanges']} exchanges, {got[kernel]} {kernel}")
+    return rows
+
+
+def p29_solver_row(label, sharded, twin, counts, jax_counts, check, lanes_kernels):
+    """One solver row of (c): the twin on plain tensors, then the row on the
+    sharded block, each after an untimed run, timed to a synchronisation,
+    the counts set to 0 just before and read just after. Held: the counts
+    equal the twin's and, where gmres_tpu's are given, iterations within
+    P29_BAND and status equal; `check(res, twin)`; each of `lanes_kernels`
+    launched on lane blocks, and every exchange followed by one launch of
+    K1's halo form or K3."""
+    import torch
+
+    tag = f"phase 29 (c) {label}"
+    walls, results, cnts = {}, {}, {}
+    for key, call in (("twin", twin), ("row", sharded)):
+        call()
+        calls = {"all-gathers": 0}
+        p29_counters(reset=True)
+        with counted_all_gathers(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[key] = call()
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+        cnts[key] = {**p29_counters(), "all-gathers": calls["all-gathers"]}
+    res, tw = results["row"], results["twin"]
+    count = cnts["row"]
+    got, want = counts(res), counts(tw)
+    print(f"{tag}: counts {got} (twin on plain tensors {want}; gmres_tpu {jax_counts}); "
+          f"wall {walls['row']:.4f} s, twin {walls['twin']:.4f} s "
+          f"({walls['row'] / walls['twin']:.2f}x); launches "
+          + ", ".join(f"{k} {v}" for k, v in count.items()), flush=True)
+    require(got == want, f"{tag}: counts {got}, twin {want}")
+    if jax_counts is not None:
+        require(got[-1] == jax_counts[-1] and abs(got[0] - jax_counts[0]) <= P29_BAND,
+                f"{tag}: counts {got}, gmres_tpu {jax_counts}")
+    require(check(res, tw), f"{tag}: check failed")
+    for k in lanes_kernels:
+        require(count[f"{k} batched"] > 0, f"{tag}: {k} not launched on a lane block")
+    require(count["exchanges"] == count["K1 halo"] + count["K3"] and count["all-gathers"] == 0,
+            f"{tag}: exchanges, launches and all-gathers {count}")
+    return {"label": label, "counts": got, "twin_counts": want, "jax_counts": jax_counts,
+            "wall_s": walls["row"], "twin_wall_s": walls["twin"], "count": count,
+            "twin_count": cnts["twin"]}
+
+
+def p29_jax(row):
+    """(iterations, status) of gmres_tpu's run of a phase 29 row, or None."""
+    got = JAX_PHASE29.get(row)
+    return None if got is None else (got["iterations"], got["status"])
+
+
+def p29_solvers(gt_torch, dev, mesh):
+    """(c) block CG with the mesh= Poisson cycle (1024² float64, s 8),
+    LOBPCG with the mesh=None cycle (1024², k 4, phase 20's rtol) and block
+    CG with cbpr2 on the HYB operator (1000², s 4), each on a block placed
+    [Shard(1)] beside its twin on plain tensors (the mesh=None cycle, the
+    same operator)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    def blk(a):
+        return distribute_tensor(torch.as_tensor(a).to(dev), mesh, [Shard(1)])
+
+    def rel(a, b):
+        a, b = whole(a).detach().cpu().numpy(), whole(b).detach().cpu().numpy()
+        return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300)
+
+    def x_close(res, twin):
+        gap = rel(res.x, twin.x)
+        print(f"  x against the twin {gap:.3e}", flush=True)
+        return res.status == 0 and gap <= 1e-10
+
+    rows = []
+    n, s, tol = P29_BCG
+    op = gt_torch.poisson_operator(n)
+    mg = gt_torch.poisson_multigrid_preconditioner(n, mesh=mesh)
+    b = p29_inputs("bcg")
+    rows.append(p29_solver_row(
+        f"block_cg + the mesh= cycle {n}x{n} f64 s {s}",
+        lambda: gt_torch.block_cg(op, blk(b), tol=tol, M=mg),
+        lambda: gt_torch.block_cg(op, torch.as_tensor(b).to(dev), tol=tol,
+                                  M=gt_torch.poisson_multigrid_preconditioner(n)),
+        lambda r: (r.iterations, r.status), p29_jax("block_cg_mg"), x_close, ("K1 halo",)))
+    n, k, rtol, cap = P29_LOBPCG
+    x0 = p29_inputs("lobpcg")
+    m_none = gt_torch.poisson_multigrid_preconditioner(n)
+    _, lam_exact = p27_poisson_lanes(n)
+    exact = np.sort(lam_exact.reshape(-1))[:k]
+
+    def eig_ok(res, twin):
+        lam = res.eigenvalues.cpu().numpy()
+        gap = float(np.max(np.abs(lam - exact) / exact))
+        print(f"  λ {np.array2string(lam, precision=10)} against the closed form "
+              f"({gap:.2e} relative); twin {rel(res.eigenvalues, twin.eigenvalues):.2e}",
+              flush=True)
+        return res.status == 0 and gap <= 1e-6 and rel(res.eigenvalues,
+                                                      twin.eigenvalues) <= 1e-10
+
+    rows.append(p29_solver_row(
+        f"lobpcg + the mesh=None cycle {n}x{n} k {k}",
+        lambda: gt_torch.lobpcg(op, blk(x0), tol=0.0, rtol=rtol, max_iterations=cap, M=m_none),
+        lambda: gt_torch.lobpcg(op, torch.as_tensor(x0).to(dev), tol=0.0, rtol=rtol,
+                                max_iterations=cap, M=m_none),
+        lambda r: (r.iterations, r.status), p29_jax("lobpcg_mg"), eig_ok, ("K1 halo",)))
+    n, s, tol = P29_HYB_BCG
+    hyb = gt_torch.sparse_operator(gt_torch.csr_to_hyb(gt_torch.poisson_csr(n, device=dev)))
+    cbpr2 = gt_torch.chebyshev_preconditioner(hyb, *REF_EIG)
+    b = p29_inputs("bcg_hyb")
+    rows.append(p29_solver_row(
+        f"block_cg + cbpr2 on HYB {n}x{n} f64 s {s}",
+        lambda: gt_torch.block_cg(hyb, blk(b), tol=tol, M=cbpr2),
+        lambda: gt_torch.block_cg(hyb, torch.as_tensor(b).to(dev), tol=tol, M=cbpr2),
+        lambda r: (r.iterations, r.status), p29_jax("block_cg_hyb"), x_close, ("K3",)))
+    return rows
+
+
+def phase_cycle_blocks(gt_torch, dev, workdir):
+    """Phase 29 on a one-rank NCCL group: (a) the cycles' and (b) the sparse
+    operators' block applications, then (c) the solver rows. Returns the
+    launches over (a)-(c) and the rows."""
+    t_phase = time.perf_counter()
+    with one_rank_group(workdir, "rendezvous29"):
+        mesh = gt_torch.solver_mesh(1)
+        rows = (p29_cycles(gt_torch, dev, mesh) + p29_sparse(gt_torch, dev, mesh)
+                + p29_solvers(gt_torch, dev, mesh))
+    launches = dict.fromkeys(p29_counters(), 0)
+    for r in rows:
+        for key, v in r["count"].items():
+            if key in launches:
+                launches[key] += v
+    for key in ("K1 halo", "K1rr", "K1cr", "K2", "K3", "K4"):
+        require(launches[f"{key} batched"] > 0, f"phase 29: {key} was not launched on a lane "
+                f"block on the main path ({launches})")
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s; launches over (a)-(c): "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return launches, rows
+
+
 def run_phase(name, gt_torch, dev, workdir):
     """Run phase `name` (PHASE_RUNNERS; 21-23 on a one-rank NCCL group of
     their own) and return what the kernel report reads of it."""
@@ -8356,18 +8769,23 @@ def run_phase(name, gt_torch, dev, workdir):
             return phase_batched_family(gt_torch, dev)[:2]
         if name == "26":
             return phase_batched_rest(gt_torch, dev)[:2]
+        if name == "29":
+            return phase_cycle_blocks(gt_torch, dev, workdir)
         return phase_batched_spectral(gt_torch, dev)[0]
 
 
 PHASE_RUNNERS = ("15", "17", "18", "19", "20", "21", "22", "23", "24", "25", "26", "27",
-                 "28")
+                 "28", "29")
 # Phases 15, 17-23 and 27 time no kernel: after the kernel phases they run
 # in these worker processes at once (each group one process, in order),
 # which the card time-slices; their walls share the card and the host.
-# Grouped by their walls run one after another on an H100 host: phase 19
-# ~224 s; 15 and 18 ~174; 20 and 21 ~168, and 27 (~60 s predicted); 22, 17
-# and 23 ~189; 28's (b) and (c) (~60 s predicted) run after 19.
-WORKER_GROUPS = (("19", "28"), ("15", "18"), ("20", "21", "27"), ("22", "17", "23"))
+# Grouped by their walls on an H100 host (H100 80GB HBM3, 700 W; the four
+# at once, 1.3x the times of the fastest host seen): phase 19 212 s; 15, 18
+# and 28's (b)-(c) 133 + 37 + 61; 20, 21 and 27 101 + 57 + 70; 22, 17, 23
+# and 29 65 + 59 + 39 + 77.
+WORKER_GROUPS = (("19",), ("15", "18", "28"), ("20", "21", "27"), ("22", "17", "23", "29"))
+# Lines of a failed worker's output repeated on standard error.
+WORKER_TAIL_LINES = 40
 
 
 def run_workers(groups) -> dict:
@@ -8390,16 +8808,24 @@ def run_workers(groups) -> dict:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        done = {}
+        done, failed = {}, []
         for group, log, out, proc in procs:
             log.seek(0)
-            print(f"== worker: phases {', '.join(group)} (exit {proc.returncode})", flush=True)
-            print(log.read(), end="", flush=True)
+            text = log.read()
             log.close()
-            require(proc.returncode == 0,
-                    f"phases {', '.join(group)}: the worker exited {proc.returncode}")
+            print(f"== worker: phases {', '.join(group)} (exit {proc.returncode})", flush=True)
+            print(text, end="", flush=True)
+            if proc.returncode != 0:
+                failed.append(f"phases {', '.join(group)}: the worker exited {proc.returncode}")
+                # The end of a failed worker's output on standard error too,
+                # beside the traceback of the require below.
+                print(f"== worker: phases {', '.join(group)} (exit {proc.returncode}), "
+                      "the end of its output:", *text.splitlines()[-WORKER_TAIL_LINES:],
+                      sep="\n", file=sys.stderr, flush=True)
+                continue
             with open(out, "rb") as f:
                 done.update(pickle.load(f))
+        require(not failed, "; ".join(failed))
         return done
 
 
@@ -8563,7 +8989,8 @@ def main() -> int:
     (p21, p21_twins), (p22, p22_twins) = done["21"], done["22"]
     p23, p23_twins, rank_blocks = done["23"]
     p28, p28_rows = done["28"]
-    print(f"chip_smoke: phases 1-28 in {time.perf_counter() - t_run:.1f} s", flush=True)
+    p29, p29_rows = done["29"]
+    print(f"chip_smoke: phases 1-29 in {time.perf_counter() - t_run:.1f} s", flush=True)
     records.update(dd_records)
     records.update(p24_records)
     records.update(p25_records)
@@ -8633,6 +9060,8 @@ def main() -> int:
                 "exponential_evolve, theta_evolve, LOBPCG and Krylov-Schur (phase 27)")
     p28_path = ("the halo route's block form: block applications and solver rows on a "
                 "sharded block, one-rank mesh (phase 28)")
+    p29_path = ("the distributed V-cycles' and the sparse operators' block form: block "
+                "applications and solver rows on a sharded block, one-rank mesh (phase 29)")
     # Launches of the batched form (a block in one launch), by phase: the
     # block rows of phases 15-23 on plain tensors run their block
     # applications batched too (a DTensor block keeps one call a row).
@@ -8641,7 +9070,7 @@ def main() -> int:
                         p21_twins_path: p21_twins, p22_path: p22,
                         p22_twins_path: p22_twins, p23_path: p23,
                         p23_twins_path: p23_twins, p24_path: p24, p25_path: p25,
-                        p26_path: p26, p27_path: p27, p28_path: p28}
+                        p26_path: p26, p27_path: p27, p28_path: p28, p29_path: p29}
 
     def batched_fields(name):
         by = {path: counts.get(f"{name} batched", 0)
@@ -8668,7 +9097,7 @@ def main() -> int:
                mg_k1 + strong["K1"] + roof["K1"] + programs["K1"] + family["K1"]
                + short["K1"] + p19["K1"] + p20["K1"] + p21["K1"] + p21_twins["K1"]
                + p22["K1"] + p22_twins["K1"] + p23["K1"] + p23_twins["K1"] + p24["K1"]
-               + p25["K1"] + p26["K1"] + p27["K1"] + p28["K1"],
+               + p25["K1"] + p26["K1"] + p27["K1"] + p28["K1"] + p29["K1"],
                "K1 2048x2048 f32 null halo rows, 16-byte row chunks",
                launches_by_path={"mg (phase 4)": mg_k1,
                                  "strong-scaling (phase 12)": strong["K1"],
@@ -8682,7 +9111,7 @@ def main() -> int:
                                  p23_path: p23["K1"], p23_twins_path: p23_twins["K1"],
                                  p24_path: p24["K1"], p25_path: p25["K1"],
                                  p26_path: p26["K1"], p27_path: p27["K1"],
-                                 p28_path: p28["K1"]},
+                                 p28_path: p28["K1"], p29_path: p29["K1"]},
                **batched_fields("K1"),
                phase22_k1_halo=p22["K1 halo"], phase22_exchanges=p22["exchanges"],
                phase23_k1_halo=p23["K1 halo"], phase23_exchanges=p23["exchanges"],
@@ -8705,7 +9134,8 @@ def main() -> int:
                mg_count["K1rr"] + roof["K1rr"] + programs["K1rr"] + family["K1rr"]
                + short["K1rr"] + p19["K1rr"] + p20["K1rr"] + p21["K1rr"]
                + p21_twins["K1rr"] + p22["K1rr"] + p22_twins["K1rr"] + p23["K1rr"]
-               + p23_twins["K1rr"] + p24["K1rr"] + p25["K1rr"] + p26["K1rr"] + p27["K1rr"],
+               + p23_twins["K1rr"] + p24["K1rr"] + p25["K1rr"] + p26["K1rr"] + p27["K1rr"]
+               + p29["K1rr"],
                "K1 residual-restrict 300x300 -> 150 f32",
                form="residual-restrict: restrict_sum(r - A e) in one launch",
                launches_by_path={"mg (phase 4)": mg_count["K1rr"], roofline_path: roof["K1rr"],
@@ -8718,7 +9148,8 @@ def main() -> int:
                                  p22_path: p22["K1rr"], p22_twins_path: p22_twins["K1rr"],
                                  p23_path: p23["K1rr"], p23_twins_path: p23_twins["K1rr"],
                                  p24_path: p24["K1rr"], p25_path: p25["K1rr"],
-                                 p26_path: p26["K1rr"], p27_path: p27["K1rr"]},
+                                 p26_path: p26["K1rr"], p27_path: p27["K1rr"],
+                                 p29_path: p29["K1rr"]},
                **batched_fields("K1rr"),
                **timing("K1rr", "K1 residual-restrict 300x300 -> 150 f32"), mg=mg_report),
         report("K1cr", "gmres_tpu_torch/csrc/stencil5.cu",
@@ -8726,7 +9157,8 @@ def main() -> int:
                mg_count["K1cr"] + roof["K1cr"] + programs["K1cr"] + family["K1cr"]
                + short["K1cr"] + p19["K1cr"] + p20["K1cr"] + p21["K1cr"]
                + p21_twins["K1cr"] + p22["K1cr"] + p22_twins["K1cr"] + p23["K1cr"]
-               + p23_twins["K1cr"] + p24["K1cr"] + p25["K1cr"] + p26["K1cr"] + p27["K1cr"],
+               + p23_twins["K1cr"] + p24["K1cr"] + p25["K1cr"] + p26["K1cr"] + p27["K1cr"]
+               + p29["K1cr"],
                "K1 correct-residual 300x300 <- 150 f32",
                form="correct-residual: e + prolong_repeat(ec) and r - A(e + prolong_repeat(ec))",
                launches_by_path={"mg (phase 4)": mg_count["K1cr"], roofline_path: roof["K1cr"],
@@ -8739,7 +9171,8 @@ def main() -> int:
                                  p22_path: p22["K1cr"], p22_twins_path: p22_twins["K1cr"],
                                  p23_path: p23["K1cr"], p23_twins_path: p23_twins["K1cr"],
                                  p24_path: p24["K1cr"], p25_path: p25["K1cr"],
-                                 p26_path: p26["K1cr"], p27_path: p27["K1cr"]},
+                                 p26_path: p26["K1cr"], p27_path: p27["K1cr"],
+                                 p29_path: p29["K1cr"]},
                **batched_fields("K1cr"),
                library_note="no single PyTorch call computes both outputs",
                **timing("K1cr", "K1 correct-residual 300x300 <- 150 f32")),
@@ -8747,7 +9180,8 @@ def main() -> int:
                "gmres_tpu/ops/fused.py:187", ["gmres_tpu/ops/fused.py:388"],
                mg_k2 + roof["K2"] + programs["K2"] + family["K2"] + short["K2"] + p19["K2"]
                + p20["K2"] + p21["K2"] + p21_twins["K2"] + p22["K2"] + p22_twins["K2"]
-               + p23["K2"] + p23_twins["K2"] + p24["K2"] + p25["K2"] + p26["K2"] + p27["K2"],
+               + p23["K2"] + p23_twins["K2"] + p24["K2"] + p25["K2"] + p26["K2"] + p27["K2"]
+               + p29["K2"],
                "K2 order 3 2048x2048 f32",
                launches_by_path=mg_k2_paths,
                launches_by_program={"mg (phase 4)": mg_k2, roofline_path: roof["K2"],
@@ -8760,7 +9194,8 @@ def main() -> int:
                                     p22_path: p22["K2"], p22_twins_path: p22_twins["K2"],
                                     p23_path: p23["K2"], p23_twins_path: p23_twins["K2"],
                                     p24_path: p24["K2"], p25_path: p25["K2"],
-                                    p26_path: p26["K2"], p27_path: p27["K2"]},
+                                    p26_path: p26["K2"], p27_path: p27["K2"],
+                                    p29_path: p29["K2"]},
                **batched_fields("K2"),
                family_launches_by_path={p: family[f"K2 {p}"]
                                         for p in ("cluster", "tiled", "sweep")},
@@ -8845,40 +9280,41 @@ def main() -> int:
                **k2_paths_fields("K2 convdiff")),
         report("K3", "gmres_tpu_torch/csrc/dia_spmv.cu",
                "gmres_tpu/ops/sparse.py:567", [],
-               launches["K3"] + p23["K3"] + p23_twins["K3"] + p25["K3"],
+               launches["K3"] + p23["K3"] + p23_twins["K3"] + p25["K3"] + p29["K3"],
                f"K3 HYB {CG_GRIDS[-1]}x{CG_GRIDS[-1]} f64",
                launches_by_path={"cg and the sparse solvers (phases 8-10)": launches["K3"],
                                  p23_path: p23["K3"], p23_twins_path: p23_twins["K3"],
-                                 p25_path: p25["K3"]},
+                                 p25_path: p25["K3"], p29_path: p29["K3"]},
                rank_block_max_abs_err=max(rank_blocks["K3 torch.float32"],
                                           rank_blocks["K3 torch.float64"])),
         report("K4", "gmres_tpu_torch/csrc/bsr_spmv.cu",
                "gmres_tpu/ops/sparse.py:488", [],
-               launches["K4"] + p23["K4"] + p23_twins["K4"] + p25["K4"],
+               launches["K4"] + p23["K4"] + p23_twins["K4"] + p25["K4"] + p29["K4"],
                f"K4 {BSR_CASES[-1][0]} f32",
                launches_by_path={"the sparse solvers (phases 9-10)": launches["K4"],
                                  p23_path: p23["K4"], p23_twins_path: p23_twins["K4"],
-                                 p25_path: p25["K4"]},
+                                 p25_path: p25["K4"], p29_path: p29["K4"]},
                rank_block_max_abs_err=rank_blocks["K4 float32"]),
         report("K3 batched", "gmres_tpu_torch/csrc/dia_spmv.cu",
                "gmres_tpu/ops/sparse.py:644", ["gmres_tpu/ops/sparse.py:567"],
-               p25["K3 batched"], f"K3 batched HYB {P25_K3_N}x{P25_K3_N} f64 {P25_LANES} lanes",
+               p25["K3 batched"] + p29["K3 batched"],
+               f"K3 batched HYB {P25_K3_N}x{P25_K3_N} f64 {P25_LANES} lanes",
                form="a (lanes, n) block in one launch, one DIA matrix for every lane, the "
                     "lanes in chunks (gridDim.y): each matrix entry read once a chunk of "
                     "L lanes (sparse.spmv_lanes_plan)",
-               launches_by_path={p25_path: p25["K3 batched"]},
+               launches_by_path={p25_path: p25["K3 batched"], p29_path: p29["K3 batched"]},
                singles_ms=records["K3 batched"][0]["singles_ms"],
                lanes_rows=lanes_rows("K3 batched"),
                single_retimed_ms=records["K3 single"][0]["ms"],
                library_note="torch.sparse_csr_tensor @ X, X = (n, lanes) (cuSPARSE SpMM)"),
         report("K4 batched", "gmres_tpu_torch/csrc/bsr_spmv.cu",
                "gmres_tpu/ops/sparse.py:544", ["gmres_tpu/ops/sparse.py:488"],
-               p25["K4 batched"],
+               p25["K4 batched"] + p29["K4 batched"],
                f"K4 batched {P25_K4[0]} block rows bs={P25_K4[1]} f32 {P25_K4_LANES[0][1]} lanes",
                form="a (lanes, n) block in one launch, one BSR matrix for every lane, the "
                     "lanes in chunks (the grid's fastest index): each matrix entry read "
                     "once a chunk of L lanes (sparse.spmv_lanes_plan)",
-               launches_by_path={p25_path: p25["K4 batched"]},
+               launches_by_path={p25_path: p25["K4 batched"], p29_path: p29["K4 batched"]},
                singles_ms=records["K4 batched"][0]["singles_ms"],
                lanes_rows=lanes_rows("K4 batched"),
                single_retimed_ms=records["K4 single"][0]["ms"],
@@ -8925,11 +9361,13 @@ def main() -> int:
                **timing("K8", k8_path)),
         report("K1 halo lanes", "gmres_tpu_torch/csrc/stencil5.cu",
                "gmres_tpu/ops/stencil.py:170", ["gmres_tpu/parallel/halo.py:105-112"],
-               p28["K1 halo batched"], "K1 halo lanes 8x2048x2048 f32 random halo rows",
+               p28["K1 halo batched"] + p29["K1 halo batched"],
+               "K1 halo lanes 8x2048x2048 f32 random halo rows",
                form="K1's halo form on a (lanes, rows, cols) block with (lanes, 1, cols) halo "
                     "rows, lane ℓ's its own (null: a zero row), the lane on gridDim.y: a "
                     "block of rows of a row-sharded grid (jax.vmap of the halo operator)",
-               launches_by_path={p28_path: p28["K1 halo batched"]},
+               launches_by_path={p28_path: p28["K1 halo batched"],
+                                 p29_path: p29["K1 halo batched"]},
                singles_ms=[r["singles_ms"] for r in records["K1 halo lanes"]
                            if r["case"] == "K1 halo lanes 8x2048x2048 f32 random halo rows"][0],
                lanes_rows=lanes_rows("K1 halo lanes"),

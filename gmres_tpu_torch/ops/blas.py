@@ -264,9 +264,11 @@ def row_blocks(fn, *parts):
     DTensor block, ``row_apply`` then calls it once under
     ``torch.func.vmap``, where it calls an unmarked fn once a row. The
     halo route's operators are marked (``parallel/halo.py:BlockSharded``,
-    the plain stencils and the models' operators). With ``parts``, fn is
-    marked only where every one of them is (fn built of them and of
-    elementwise work, such as a composition or a Chebyshev
+    the plain stencils and the models' operators), as are the distributed
+    V-cycles (the ``mesh=`` cycles, and the ``mesh=None`` cycles, which
+    take a DTensor on its mesh) and the sparse operators (their rank rows).
+    With ``parts``, fn is marked only where every one of them is (fn built
+    of them and of elementwise work, such as a composition or a Chebyshev
     semi-iteration)."""
     if all(takes_row_blocks(p) for p in parts):
         fn.takes_row_blocks = True
@@ -315,14 +317,18 @@ def row_apply(fn, rows: torch.Tensor) -> torch.Tensor:
     stencils and the models' operators on a DTensor make one exchange of
     the s rows' boundary rows and one launch (K1's halo form, K5, K8) for
     the block, each row the bits of its own call, and a Chebyshev
-    semi-iteration over one of them one of each a sweep. The decision is
-    made before fn runs. Still one call of fn a row, on the row's DTensor:
-    a block that autograd or forward-mode AD tracks, and an fn that is not
-    marked, such as the distributed V-cycle (the ``mesh=`` cycles, and a
-    ``mesh=None`` cycle on a DTensor), the sparse operators (their rank
-    rows, ``ops/sparse.py:_RankRows``), a preconditioner built on a sharded
-    basis (deflation, Nyström: reductions over the mesh), a composition
-    with any of these, or an operator of the caller's own."""
+    semi-iteration over one of them one of each a sweep. The distributed
+    V-cycle (``precond/multigrid.py:_distributed_cycle``: the ``mesh=``
+    cycles, and a ``mesh=None`` cycle on a DTensor) makes one exchange a
+    sharded-level application and one all-gather at its replicated level
+    for the block, and runs the levels below once under vmap; a sparse
+    operator's rank rows (``ops/sparse.py:_RankRows``) make one exchange
+    or one all-gather and one K3 or K4 launch. The decision is made before
+    fn runs. Still one call of fn a row, on the row's DTensor: a block that
+    autograd or forward-mode AD tracks, and an fn that is not marked, such
+    as a preconditioner built on a sharded basis (deflation, Nyström:
+    reductions over the mesh, which ``refuse_row_block`` guards), a
+    composition with one, or an operator of the caller's own."""
     if is_dtensor(rows):
         from gmres_tpu_torch.ops._cuda import tracked_by
 

@@ -36,7 +36,10 @@ Counterpart of ``gmres_tpu/ops/sparse.py``, with the same names:
   partitions the gathers and rolls: a band (DIA, HYB's DIA part, BSR)
   after one halo exchange of its width, with K3 or K4 on the rank's rows,
   the other formats after one all-gather of x. The kernels see the rank's
-  plain tensors only.
+  plain tensors only. A block of s rows of a sharded x (``ops/blas.py:
+  row_apply``, what ``jax.vmap`` makes of the operator) makes one row's
+  collectives for the s rows and one K3 or K4 launch on the rank's lane
+  block.
 
 JAX's ``use_pallas``, ``interpret`` and ``block_rows`` have no
 counterpart: the tensor's device decides, and one launch covers any size.
@@ -53,7 +56,7 @@ import numpy as np
 import torch
 
 from gmres_tpu_torch.ops import _cuda
-from gmres_tpu_torch.ops.blas import is_dtensor, refuse_row_block
+from gmres_tpu_torch.ops.blas import dtensor_of, row_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -827,7 +830,12 @@ def sparse_operator(a) -> Callable:
     (``[Shard(0)]`` on a 1-D mesh, evenly, a square matrix) it gives a flat
     ``[Shard(0)]`` y, each rank applying its rows of the matrix, which every
     rank holds whole; ``[Replicate()]`` is the plain product on the local
-    tensor; any other placement raises NotImplementedError."""
+    tensor; any other placement raises NotImplementedError. A block of s
+    rows of a row-sharded x, a (s, n) DTensor placed ``[Shard(1)]`` under
+    ``ops/blas.py:row_apply`` (what gmres_tpu's ``jax.vmap`` makes of the
+    operator), takes the rank rows' block form: the collectives of one row
+    and one kernel launch for the s rows. So the operator is marked as
+    taking it whole (``row_blocks``)."""
     if isinstance(a, CSRMatrix):
         rows = csr_row_ids(a)
         spmv, ref = (lambda x: csr_spmv(a, x, rows=rows)), a.data
@@ -846,15 +854,13 @@ def sparse_operator(a) -> Callable:
 
     rank_rows: dict = {}
 
+    @row_blocks
     def apply(x: torch.Tensor) -> torch.Tensor:
         _check_same_device("sparse_operator", x, ref)
-        # Not marked by row_blocks: a block of rows of a sharded x goes row
-        # by row (ROADMAP queue 2).
-        refuse_row_block("a sparse operator's rank rows", x)
-        if is_dtensor(x):
+        if dtensor_of(x) is not None:
             from gmres_tpu_torch.parallel.halo import sharded_apply
 
-            return sharded_apply(x, rank_rows, lambda mesh: _RankRows(a, mesh), spmv)
+            return sharded_apply(x, rank_rows, lambda mesh: _RankRows(a, mesh).form, spmv)
         return spmv(x)
 
     return apply
@@ -865,15 +871,17 @@ def sparse_operator(a) -> Callable:
 # ---------------------------------------------------------------------------
 
 
-def all_gather_flat(blk: torch.Tensor, group) -> torch.Tensor:
+def all_gather_flat(blk: torch.Tensor, group, lanes: bool = False) -> torch.Tensor:
     """The whole flat vector from every rank's flat block over ``group``:
-    one explicit all-gather (so a one-rank group issues it too)."""
-    part = blk.reshape(-1).contiguous()
-    whole = torch.empty(part.numel() * torch.distributed.get_world_size(group),
-                        dtype=part.dtype, device=part.device)
+    one explicit all-gather (so a one-rank group issues it too). With
+    ``lanes``, ``blk`` is a (s, m) block of s vectors' blocks and the whole
+    (s, d·m) block comes back from the same one all-gather."""
+    part = blk.T.contiguous() if lanes else blk.reshape(-1).contiguous()
+    whole = torch.empty((part.shape[0] * torch.distributed.get_world_size(group),)
+                        + tuple(part.shape[1:]), dtype=part.dtype, device=part.device)
     # Not all_gather_single, its newer name: torch 2.11 lacks it.
     torch.distributed.all_gather_into_tensor(whole, part, group=group)
-    return whole
+    return whole.T.contiguous() if lanes else whole
 
 
 def row_block(a, lo: int, hi: int):
@@ -914,10 +922,20 @@ class _RankRows:
     So a DIA, a HYB without residue and a BSR whose band fits are one
     exchange and no all-gather an application; the others one all-gather.
     Every rank slices its rows once (``sparse_operator`` keeps this object
-    per mesh); the kernels see the rank's plain tensors only."""
+    per mesh); the kernels see the rank's plain tensors only.
+
+    ``form`` is the application as a ``parallel/halo.py:BlockSharded``:
+    ``local`` on a flat ``[Shard(0)]`` x, and its block form on a (s, n) x
+    placed ``[Shard(1)]`` (s rows under ``ops/blas.py:row_apply``), where
+    the s rows make the collectives of one row (one exchange of the (s, h)
+    band slices each way, or one all-gather of the (s, m) block) and the
+    band one lane launch of K3 or K4 on the (s, width) widened block; the
+    gathered formats' plain products map over the rows (``torch.func.vmap``).
+    Each row gets the bits of its own application."""
 
     def __init__(self, a, mesh):
         from gmres_tpu_torch.ops.stencil_rdma import _neighbours
+        from gmres_tpu_torch.parallel.halo import BlockSharded
 
         n_rows, n_cols = a.shape
         d = mesh.size()
@@ -933,18 +951,21 @@ class _RankRows:
         self.m, self.lo = m, lo
         self.halo = 0  # the band's width where it is exchanged
         self.gathers = False
-        self.rows = self.band = None
+        # The product of the gathered rows with the whole x; the band's rows.
+        self.scattered = self.band = None
         if isinstance(a, (CSRMatrix, COOMatrix, ELLMatrix)):
-            self.rows, self.gathers = row_block(a, lo, lo + m), True
-            self.row_ids = csr_row_ids(self.rows) if isinstance(a, CSRMatrix) else None
+            self.scattered, self.gathers = _rows_product(row_block(a, lo, lo + m)), True
         elif isinstance(a, HYBMatrix):
             if a.ell is not None:
-                self.rows, self.gathers = row_block(a.ell, lo, lo + m), True
+                self.scattered = _rows_product(row_block(a.ell, lo, lo + m))
+                self.gathers = True
             self.band = self._dia_rows(a.dia)
         elif isinstance(a, DIAMatrix):
             self.band = self._dia_rows(a)
         else:
             self.band = self._bsr_rows(a)
+        self.form = BlockSharded(mesh, lambda xb: self.local(xb.reshape(-1)),
+                                 lambda blk: self.local(blk.reshape(blk.shape[0], -1)))
 
     def _window(self, h: int):
         """(halo width exchanged, shift of x's block in the widened x, widened
@@ -984,35 +1005,39 @@ class _RankRows:
                          shape=(self.m, width))
 
     def local(self, xb: torch.Tensor) -> torch.Tensor:
-        """This rank's y block from its flat x block (the collectives of one
+        """This rank's y block from its flat x block, or a (s, m) y block from
+        a (s, m) block of s rows' x blocks (the collectives of one
         application included)."""
         from gmres_tpu_torch.parallel.halo import _halo_rows
 
-        whole = all_gather_flat(xb, self.group) if self.gathers else None
+        xb = xb.contiguous()
+        lanes = xb.dim() == 2
+        whole = all_gather_flat(xb, self.group, lanes) if self.gathers else None
         y = None
         if self.band is not None:
             if whole is not None:
                 xw = whole
             elif self.halo:
-                top, bottom = _halo_rows(xb, self.group, self.neighbours, 0, self.halo)
+                top, bottom = _halo_rows(xb, self.group, self.neighbours, xb.dim() - 1,
+                                         self.halo)
                 parts = [t for t in (top, xb, bottom) if t is not None]
-                xw = torch.cat(parts) if len(parts) > 1 else xb
+                xw = torch.cat(parts, dim=-1) if len(parts) > 1 else xb
             else:
                 xw = xb
             y = (bsr_spmv_pallas if isinstance(self.band, BSRMatrix)
                  else dia_spmv_pallas)(self.band, xw)
-        if self.rows is not None:
-            if isinstance(self.rows, CSRMatrix):
-                yr = csr_spmv(self.rows, whole, self.row_ids)
-            elif isinstance(self.rows, COOMatrix):
-                yr = coo_spmv(self.rows, whole)
-            else:
-                yr = ell_spmv(self.rows, whole)
+        if self.scattered is not None:
+            yr = torch.func.vmap(self.scattered)(whole) if lanes else self.scattered(whole)
             y = yr if y is None else y + yr
         return y
 
-    def __call__(self, x):
-        from torch.distributed.tensor import DTensor, Shard
 
-        y = self.local(x.to_local().reshape(-1).contiguous())
-        return DTensor.from_local(y, self.mesh, [Shard(0)], run_check=False)
+def _rows_product(rows) -> Callable:
+    """The plain product of a CSR, COO or ELL block of rows (``row_block``)
+    with a whole x."""
+    if isinstance(rows, CSRMatrix):
+        ids = csr_row_ids(rows)
+        return lambda x: csr_spmv(rows, x, ids)
+    if isinstance(rows, COOMatrix):
+        return lambda x: coo_spmv(rows, x)
+    return lambda x: ell_spmv(rows, x)

@@ -121,7 +121,8 @@ def stencil_5pt_apply(x: torch.Tensor) -> torch.Tensor:
 
 
 def _shift3(x: torch.Tensor, d0: int, axis: int) -> torch.Tensor:
-    """Single-axis shift of a 3-D grid by ``d0`` with zero fill."""
+    """Single-axis shift of a 3-D grid (or of each lane of a block of them,
+    ``axis`` counted from the end) by ``d0`` with zero fill."""
     y = torch.zeros_like(x)
     n = x.shape[axis]
     if d0 > 0:
@@ -159,17 +160,21 @@ def stencil_7pt_halo(x: torch.Tensor, top, bottom, center: float,
     planes along axis 0: ``top`` the plane before the block, ``bottom`` the
     one after (None is a zero plane, the physical boundary). The neighbours
     are summed in ``stencil_7pt_general``'s order, so a block with its true
-    halo planes gives the bits of the whole grid's rows."""
+    halo planes gives the bits of the whole grid's rows. A (lanes, planes,
+    N, N) block takes (lanes, 1, N, N) halo planes, lane ℓ's its own, and
+    gives each lane the bits of its own call."""
+    shape = tuple(x.shape[:-3]) + (1,) + tuple(x.shape[-2:])
+
     def plane(h):
         if h is None:
-            return torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-        return h.reshape((1,) + tuple(x.shape[1:]))
+            return torch.zeros(shape, dtype=x.dtype, device=x.device)
+        return h.reshape(shape)
 
-    ext = torch.cat([plane(top), x, plane(bottom)], dim=0)
+    ext = torch.cat([plane(top), x, plane(bottom)], dim=-3)
     s = (
-        ext[:-2] + ext[2:]
-        + _shift3(x, 1, 1) + _shift3(x, -1, 1)
-        + _shift3(x, 1, 2) + _shift3(x, -1, 2)
+        ext[..., :-2, :, :] + ext[..., 2:, :, :]
+        + _shift3(x, 1, -2) + _shift3(x, -1, -2)
+        + _shift3(x, 1, -1) + _shift3(x, -1, -1)
     )
     return center * x + off * s
 

@@ -98,9 +98,11 @@ card; the plain forms map over the rows with ``torch.func.vmap``. The
 Chebyshev semi-iteration of order > 2 is elementwise vector work between
 applications of the halo operator, so vmap carries it. These operators are
 marked as taking the block whole (``ops/blas.py:row_blocks``), and
-row_apply decides by the mark before it calls one. A block that autograd or
-another transform tracks, and an operator that is not marked, goes one row
-at a time.
+row_apply decides by the mark before it calls one. The distributed V-cycle
+(``precond/multigrid.py:_distributed_cycle``) and the sparse operators'
+rank rows (``ops/sparse.py:_RankRows``) are ``BlockSharded`` too. A block
+that autograd or another transform tracks, and an operator that is not
+marked, goes one row at a time.
 
 ``halo_exchange.exchanges`` counts the exchanges of the halo route (the
 operators, every halo form, cbpr2 and the sharded levels of the distributed

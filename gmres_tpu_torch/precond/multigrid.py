@@ -44,7 +44,11 @@ split CSL stack (sharded along its rows, dimension 1), the plain 7-point
 form with whole halo planes for the 3-D cycle — and one all-gather a
 cycle gives every rank the first level below, which the ``mesh=None``
 cycle solves whole (K1's forms and K2 where it has them). JAX's GSPMD
-makes the same split with sharding constraints.
+makes the same split with sharding constraints. A block of s rows of a
+sharded grid (``ops/blas.py:row_apply``, what ``jax.vmap`` makes of the
+cycle) runs the cycle once on the rank's (s, …) block: the exchanges and
+the all-gather of one row's cycle, each kernel launched once for the s
+rows.
 
 ``poisson3d_multigrid_preconditioner`` (with ``restrict_sum3d`` and
 ``prolong_repeat3d``) is the JAX 3-D cycle for the 7-point stencil, plain
@@ -86,7 +90,7 @@ from gmres_tpu_torch.ops.stencil import (  # noqa: F401  (transfers re-exported)
     stencil_5pt_routed_general,
 )
 from gmres_tpu_torch.models.helmholtz import split_laplacians
-from gmres_tpu_torch.ops.blas import dtensor_of, on_local, refuse_row_block
+from gmres_tpu_torch.ops.blas import dtensor_of, on_local, row_blocks
 from gmres_tpu_torch.precond.chebyshev import chebyshev_stencil_preconditioner
 from gmres_tpu_torch.solvers.lanczos import (
     arnoldi_ritz_values,
@@ -154,11 +158,19 @@ def _distributed_cycle(mesh, sizes, replicate_from, local_apply, smooth_local,
     level)`` (the ``mesh=None`` cycle from that level down, routed by
     device) solves with no communication; the hand-back up is this rank's
     slice of it. ``internal_dtype`` runs the cycle in that dtype, as the
-    plain cycles do."""
-    from torch.distributed.tensor import Shard
-    from torch.distributed.tensor.experimental import local_map
+    plain cycles do.
 
-    from gmres_tpu_torch.parallel.halo import _halo_rows, _neighbours
+    The block form (``parallel/halo.py:BlockSharded``: ``ops/blas.py:
+    row_apply`` over s rows placed ``[Shard(dim + 1)]``, what gmres_tpu's
+    ``jax.vmap`` makes of its cycle) runs the same cycle once on the rank's
+    (s, …) block: the local forms, smoothers and transfers take the lanes
+    first, a sharded-level application is one exchange along ``dim + 1``
+    for the s rows (one lane launch of K1's halo form on the card), the
+    replicated level one all-gather of the whole block, and the
+    ``mesh=None`` cycle below it runs once under ``torch.func.vmap`` on the
+    s gathered grids (one batched launch of each kernel a step). Each row
+    gets the bits of its own call."""
+    from gmres_tpu_torch.parallel.halo import BlockSharded, _halo_rows, _neighbours
     from gmres_tpu_torch.parallel.mesh import GRID_AXIS
 
     group = mesh.get_group(GRID_AXIS)
@@ -167,44 +179,41 @@ def _distributed_cycle(mesh, sizes, replicate_from, local_apply, smooth_local,
     n_levels = len(sizes)
     restrict, prolong = transfers
 
-    def halo(x):
-        return _halo_rows(x, group, neighbours, dim)
-
-    def cycle(r, l):
+    def cycle(r, l, lanes):
+        d = dim + lanes  # the grid-row axis, after the lanes' axis
         if l == replicate_from:
-            rows = r.shape[dim]
-            part = r.movedim(dim, 0).contiguous()
+            rows = r.shape[d]
+            part = r.movedim(d, 0).contiguous()
             whole = torch.empty((rows * n_ranks,) + tuple(part.shape[1:]), dtype=r.dtype,
                                 device=r.device)
             # Not all_gather_single, its newer name: torch 2.11 lacks it.
             dist.all_gather_into_tensor(whole, part, group=group)
-            z = plain_v_cycle(whole.movedim(0, dim).contiguous(), l)
-            return z.narrow(dim, me * rows, rows).contiguous()
+            whole = whole.movedim(0, d).contiguous()
+            if lanes:
+                z = torch.func.vmap(lambda t: plain_v_cycle(t, l))(whole)
+            else:
+                z = plain_v_cycle(whole, l)
+            return z.narrow(d, me * rows, rows).contiguous()
 
         def apply(x):
-            return local_apply(x, l, halo)
+            return local_apply(x, l, lambda t: _halo_rows(t, group, neighbours, d))
 
         if l == n_levels - 1:
             return smooth_local(r, l, "coarse", apply)
         e = smooth_local(r, l, "pre", apply)
-        ec = cycle(restrict(r - apply(e)), l + 1)
+        ec = cycle(restrict(r - apply(e)), l + 1, lanes)
         e = e + prolong(ec)
         return e + smooth_local(r - apply(e), l, "post", apply)
 
-    def m_inv_local(blk):
-        if internal_dtype is not None and blk.dtype != internal_dtype:
-            return cycle(blk.to(internal_dtype), 0).to(blk.dtype)
-        return cycle(blk, 0)
+    def on(lanes):
+        def m_inv_local(blk):
+            if internal_dtype is not None and blk.dtype != internal_dtype:
+                return cycle(blk.to(internal_dtype), 0, lanes).to(blk.dtype)
+            return cycle(blk, 0, lanes)
 
-    mapped = local_map(m_inv_local, out_placements=[Shard(dim)],
-                       in_placements=([Shard(dim)],), device_mesh=mesh)
+        return m_inv_local
 
-    def m_inv(r):
-        # Not marked by row_blocks: row_apply gives it a block of rows one
-        # row at a time (ROADMAP queue 2).
-        refuse_row_block("the distributed V-cycle", r)
-        return mapped(r)
-
+    m_inv = BlockSharded(mesh, on(False), on(True), dim)
     m_inv.replicate_from = replicate_from
     return m_inv
 
@@ -215,11 +224,16 @@ def _on_the_operands_mesh(m_inv: Callable, distributed: Callable) -> Callable:
     per mesh (``parallel/halo.py:sharded_apply``: ``[Shard(0)]`` on a 1-D
     mesh, evenly; ``[Replicate()]`` takes ``m_inv`` on the local tensor).
     So a DTensor never reaches a kernel wrapper, and the one all-gather an
-    application is the cycle's own, at its first replicated level."""
+    application is the cycle's own, at its first replicated level. A block
+    of rows of a row-sharded grid takes the distributed cycle's block form
+    (one exchange a sharded-level application and one all-gather for the
+    rows); so the cycle is marked as taking it whole
+    (``ops/blas.py:row_blocks``)."""
     from gmres_tpu_torch.parallel.halo import sharded_apply
 
     cycles: dict = {}
 
+    @row_blocks
     def apply(r: torch.Tensor) -> torch.Tensor:
         if dtensor_of(r) is None:
             return m_inv(r)
@@ -230,7 +244,9 @@ def _on_the_operands_mesh(m_inv: Callable, distributed: Callable) -> Callable:
 
 def _stencil_levels(level_coefs) -> Callable:
     """``_distributed_cycle``'s ``local_apply`` for real 5-point levels with
-    coefficients ``level_coefs[l]``: K1's halo form on a CUDA block."""
+    coefficients ``level_coefs[l]``: K1's halo form on a CUDA block, one
+    launch for a (s, rows, N) block of s rows with their (s, 1, N) halo
+    rows."""
     def local_apply(x, l, halo):
         return stencil_5pt_pallas_halo(x, *halo(x), level_coefs[l])
 
@@ -519,12 +535,13 @@ def convection_diffusion_multigrid_preconditioner(
         # A sweep is the red update then the black one, each a masked Jacobi
         # step whose stencil reads only the other colour: exactly a
         # Gauss-Seidel iteration in checkerboard order. ``row0`` is the
-        # global index of r's first row (a sharded level's block).
+        # global index of r's first row (a sharded level's block). The
+        # masks are one grid's, broadcast over the lanes of a block of rows.
         apply = apply or (lambda x: apply_l(x, l))
-        key = (tuple(r.shape), row0, r.device)
+        key = (tuple(r.shape[-2:]), row0, r.device)
         if key not in masks:
-            ii = row0 + torch.arange(r.shape[0], device=r.device)[:, None]
-            jj = torch.arange(r.shape[1], device=r.device)[None, :]
+            ii = row0 + torch.arange(r.shape[-2], device=r.device)[:, None]
+            jj = torch.arange(r.shape[-1], device=r.device)[None, :]
             red = ((ii + jj) % 2) == rb_parity
             masks[key] = (red, ~red)
         red, black = masks[key]
@@ -566,7 +583,7 @@ def convection_diffusion_multigrid_preconditioner(
         def smooth_local(r, l, kind, apply):
             iters = {"pre": pre_smooth, "post": post_smooth, "coarse": coarse_iters}[kind]
             if smoothers[l] == "rbgs":
-                return rbgs(r, l, iters, apply, row0=rank * r.shape[0])
+                return rbgs(r, l, iters, apply, row0=rank * r.shape[-2])
             if smoothers[l] == "chebyshev":
                 poly = plans[l, iters]
                 return poly_recurrence(r, poly.theta, poly.steps, apply)
@@ -737,9 +754,12 @@ def csl_multigrid_preconditioner(
     if layout == "split":
         nb_coefs = (0.0, -1.0, -1.0, -1.0, -1.0)
 
+        # The planes are the third axis from the end, so that a (s, 2, rows,
+        # N) block of s stacks takes the same expressions.
         def cmul(c, z):
-            zr, zi = z[0], z[1]
-            return torch.stack([c.real * zr - c.imag * zi, c.imag * zr + c.real * zi])
+            zr, zi = z.select(-3, 0), z.select(-3, 1)
+            return torch.stack([c.real * zr - c.imag * zi, c.imag * zr + c.real * zi],
+                               dim=-3)
 
         def apply_l(x, l):
             nb = torch.stack([stencil_5pt_routed_general(x[0], nb_coefs),
@@ -747,16 +767,11 @@ def csl_multigrid_preconditioner(
             return cmul(coefs[l][0], x) + nb
 
         def local_apply(x, l, halo):
-            return cmul(coefs[l][0], x) + torch.stack(split_laplacians(x, *halo(x), nb_coefs))
+            return cmul(coefs[l][0], x) + torch.stack(
+                split_laplacians(x, *halo(x), nb_coefs), dim=-3)
 
         def scale_step(l, v):
             return cmul(omega / coefs[l][0], v)
-
-        def restrict_(x):
-            return torch.stack([restrict_sum(x[0]), restrict_sum(x[1])])
-
-        def prolong_(x):
-            return torch.stack([prolong_repeat(x[0]), prolong_repeat(x[1])])
     else:
         def apply_l(x, l):
             return stencil_5pt_general(x, *coefs[l])
@@ -766,9 +781,6 @@ def csl_multigrid_preconditioner(
 
         def scale_step(l, v):
             return (omega / coefs[l][0]) * v
-
-        restrict_ = restrict_sum
-        prolong_ = prolong_repeat
 
     def smooth(r, l, iters, apply=None):
         apply = apply or (lambda x: apply_l(x, l))
@@ -781,8 +793,10 @@ def csl_multigrid_preconditioner(
         if l == levels - 1:
             return smooth(r, l, coarse_iters)
         e = smooth(r, l, pre_smooth)
-        rc = restrict_(r - apply_l(e, l))
-        e = e + prolong_(v_cycle(rc, l + 1))
+        # The transfers act on the last two axes: each plane of a split
+        # stack, each lane of a block of rows.
+        rc = restrict_sum(r - apply_l(e, l))
+        e = e + prolong_repeat(v_cycle(rc, l + 1))
         return e + smooth(r - apply_l(e, l), l, post_smooth)
 
     def m_inv(r: torch.Tensor) -> torch.Tensor:
@@ -796,8 +810,7 @@ def csl_multigrid_preconditioner(
 
         m_inv = _distributed_cycle(
             mesh, sizes, _replicate_from(sizes, mesh, replicate_below), local_apply,
-            smooth_local, v_cycle, transfers=(restrict_, prolong_),
-            dim=1 if layout == "split" else 0)
+            smooth_local, v_cycle, dim=1 if layout == "split" else 0)
 
     per_level = (pre_smooth - 1) + (post_smooth - 1) + 4
     m_inv.fine_equiv_sweeps = sum(
@@ -812,16 +825,17 @@ def restrict_sum3d(x: torch.Tensor) -> torch.Tensor:
     """(2m,)³ → (m,)³ by 2×2×2 block sum × 1/2 (the 3-D consistency
     factor: the h²-scaled operator gains 4 per coarsening while a block
     holds 8 cells), summed axis by axis in the JAX order."""
-    y = x[0::2] + x[1::2]
-    y = y[:, 0::2] + y[:, 1::2]
-    return 0.5 * (y[:, :, 0::2] + y[:, :, 1::2])
+    y = x[..., 0::2, :, :] + x[..., 1::2, :, :]
+    y = y[..., 0::2, :] + y[..., 1::2, :]
+    return 0.5 * (y[..., 0::2] + y[..., 1::2])
 
 
 def prolong_repeat3d(x: torch.Tensor) -> torch.Tensor:
     """(m,)³ → (2m,)³ by replication (adjoint of ``restrict_sum3d`` up to
-    its factor)."""
-    return (x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
-            .repeat_interleave(2, dim=2))
+    its factor). Both transfers act on the last three axes, so a (s, …)
+    block of s grids transfers each."""
+    return (x.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
+            .repeat_interleave(2, dim=-1))
 
 
 def poisson3d_multigrid_preconditioner(

@@ -3,8 +3,8 @@ mesh, at d = 2 and 4.
 
 Each world size is one spawn of d gloo processes on the CPU
 (tests/torch_dist_worker.py), rendezvous on a file under the test's
-temporary directory, every case in the same processes. Meanwhile the
-parent runs gmres_tpu on the first d of conftest.py's 8 virtual CPU
+temporary directory, every case in the same processes; the two spawns
+start together. Meanwhile the parent runs gmres_tpu on the first d of conftest.py's 8 virtual CPU
 devices, with the same numpy-seeded inputs row-sharded over them: the
 Poisson and convection–diffusion operators under GSPMD as gmres_tpu's own
 sharded tests run them, the halo operators (shard_map) for Householder
@@ -44,7 +44,7 @@ from gmres_tpu.parallel.halo import (
 )
 from gmres_tpu.parallel.mesh import shard_grid_vector, solver_mesh
 from tests import torch_dist_worker as worker
-from tests.torch_parity import np_poisson, rel_err, seeded
+from tests.torch_parity import gmres_tpu_in_child, np_poisson, rel_err, seeded
 
 N_FAM, N_MG, N_T = worker.N_FAM, worker.N_MG, worker.N_T
 WEAK_SCALING = ["weak-scaling", "--nsize-per-device", "32", "--restart", "10",
@@ -165,23 +165,12 @@ def _jax(world, cases):
     return out
 
 
-@pytest.fixture(scope="module", params=(2, 4), ids=lambda w: f"world{w}")
-def dist_run(request, tmp_path_factory):
-    """(port, jax, world, out_dir): the worker's assembled outputs and
-    gmres_tpu's results at one world size. The spawn runs while the parent
-    computes gmres_tpu's side."""
-    world = request.param
-    out_dir = tmp_path_factory.mktemp(f"dist_world{world}")
-    cases = _cases(world)
-    ctx = mp.spawn(worker.run, args=(world, os.path.join(out_dir, "rendezvous"),
-                                     str(out_dir), cases),
-                   nprocs=world, join=False)
-    try:
-        ref = _jax(world, cases)
-        jax_main(cases["weak_scaling_argv"] + ["--jsonl", str(out_dir / "jax-ws.jsonl")])
-    finally:
-        while not ctx.join():
-            pass
+WORLDS = (2, 4)
+
+
+def _assembled(out_dir, world) -> dict:
+    """The worker's ranks' outputs: ``_blk`` keys joined along axis 1, 2-D
+    arrays along axis 0, every other key equal on every rank."""
     ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz")) for r in range(world)]
     port = {}
     for key in ranks[0].files:
@@ -194,7 +183,49 @@ def dist_run(request, tmp_path_factory):
             for v in vals[1:]:
                 np.testing.assert_array_equal(v, vals[0], err_msg=key)
             port[key] = vals[0]
-    return port, ref, world, out_dir
+    return port
+
+
+def _jax_side(world, cases, out_dir):
+    """gmres_tpu's results at one world size, and its weak-scaling program's
+    rows in out_dir/jax-ws.jsonl."""
+    ref = _jax(world, cases)
+    jax_main(cases["weak_scaling_argv"] + ["--jsonl", os.path.join(out_dir, "jax-ws.jsonl")])
+    return ref
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """{world: (port, jax, world, out_dir)} for both world sizes: the
+    worker's assembled outputs and gmres_tpu's results. The two spawns run
+    at once (their ranks mostly wait on messages) while gmres_tpu's side
+    runs for each, the last world's in a process of its own beside the
+    parent's."""
+    runs, refs = {}, {}
+    try:
+        for world in WORLDS:
+            out_dir = tmp_path_factory.mktemp(f"dist_world{world}")
+            cases = _cases(world)
+            runs[world] = (out_dir, cases, mp.spawn(
+                worker.run, args=(world, os.path.join(out_dir, "rendezvous"),
+                                  str(out_dir), cases), nprocs=world, join=False))
+        last = WORLDS[-1]
+        child = gmres_tpu_in_child(_jax_side, last, runs[last][1], str(runs[last][0]))
+        for world in WORLDS[:-1]:
+            refs[world] = _jax_side(world, runs[world][1], str(runs[world][0]))
+        refs[last] = child()
+    finally:
+        for _, _, ctx in runs.values():
+            while not ctx.join():
+                pass
+    return {world: (_assembled(out_dir, world), refs[world], world, out_dir)
+            for world, (out_dir, _, _) in runs.items()}
+
+
+@pytest.fixture(params=WORLDS, ids=lambda w: f"world{w}")
+def dist_run(request, worlds):
+    """(port, jax, world, out_dir) at one world size."""
+    return worlds[request.param]
 
 
 def _counts(port, name):

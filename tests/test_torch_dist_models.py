@@ -35,7 +35,7 @@ import gmres_tpu as gt
 from gmres_tpu.parallel.mesh import solver_mesh
 from gmres_tpu.precond.multigrid import csl_multigrid_preconditioner
 from tests import torch_dist_models_worker as worker
-from tests.torch_parity import assembled as _assembled, one_rank_mesh, rel_err
+from tests.torch_parity import assembled as _assembled, gmres_tpu_in_child, one_rank_mesh, rel_err
 
 N, N_ANISO, N_3D, N_IMPL = worker.N, worker.N_ANISO, worker.N_3D, worker.N_IMPL
 KH2, CSL_BELOW = worker.KH2, worker.CSL_BELOW
@@ -186,8 +186,9 @@ WORLDS = (2, 4)
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """{world: (port, jax, world)} for both world sizes. The two spawns run
-    at once (their ranks mostly wait on messages) while the parent computes
-    gmres_tpu's side for each."""
+    at once (their ranks mostly wait on messages) while gmres_tpu's side
+    runs for each, the last world's in a process of its own beside the
+    parent's."""
     cases = _cases()
     runs = {}
     try:
@@ -196,7 +197,9 @@ def worlds(tmp_path_factory):
             runs[world] = (out_dir, mp.spawn(
                 worker.run, args=(world, os.path.join(out_dir, "rendezvous"),
                                   str(out_dir), cases), nprocs=world, join=False))
-        refs = {world: _jax(world, cases) for world in WORLDS}
+        child = gmres_tpu_in_child(_jax, WORLDS[-1], cases)
+        refs = {world: _jax(world, cases) for world in WORLDS[:-1]}
+        refs[WORLDS[-1]] = child()
     finally:
         for _, ctx in runs.values():
             while not ctx.join():

@@ -14,8 +14,10 @@ matrices; gmres_tpu's sharded tests of the formats are mirrored with their
 arguments.
 """
 
+import functools
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -87,15 +89,22 @@ def test_format_on_a_sharded_x(port, name, gathers, exchanges):
     assert int(port[f"{name}_exchanges"]) == exchanges
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_product(name):
+    """gmres_tpu's plain product of the format ``name`` with x (its numpy
+    arrays handed to gmres_tpu's container), jitted (an eager DIA of a few
+    hundred diagonals takes ~4× as long), once for both world sizes."""
+    cases = _cases()
+    a = worker.matrices(cases)[name]
+    return np.asarray(jax.jit(jsp.sparse_operator(_to_jax(a)))(jnp.asarray(cases["x"])))
+
+
 @pytest.mark.parametrize("name", [r[0] for r in ROUTES])
 def test_format_matches_gmres_tpu(port, name):
     """The sharded product is gmres_tpu's plain product of the same matrix
     (its numpy arrays handed to gmres_tpu's container) within 1e-13
     relative."""
-    a = worker.matrices(_cases())[name]
-    x = jnp.asarray(_cases()["x"])
-    ref = np.asarray(jsp.sparse_operator(_to_jax(a))(x))
-    assert rel_err(port[name], ref) <= 1e-13
+    assert rel_err(port[name], _jax_product(name)) <= 1e-13
 
 
 def _to_jax(a):

@@ -1,4 +1,5 @@
-"""The halo route's block form against gmres_tpu's ``jax.vmap`` of the same
+"""The block form of the halo route, the distributed V-cycles and the sparse
+operators' rank rows against gmres_tpu's ``jax.vmap`` of the same
 operators, at 1, 2 and 4 ranks, and the lane forms of the plain versions.
 
 A block of s rows of a row-sharded grid (a (s, N, N) DTensor placed
@@ -30,18 +31,38 @@ while the parent runs gmres_tpu on the same numpy inputs:
 * block CG (halo operator, halo cbpr2) and LOBPCG (halo operator, halo
   cbpr2 as M) on sharded blocks: gmres_tpu's counts and status, X to 1e-9
   relative and the eigenvalues to rtol 1e-9 (tests/test_torch_dist.py's
-  and tests/test_torch_dist_spectral.py's solver tolerances).
+  and tests/test_torch_dist_spectral.py's solver tolerances);
+* in the same spawns (tests/torch_dist_blocks_worker.py): every ``mesh=``
+  cycle (Poisson; convection–diffusion with its Chebyshev, Jacobi and
+  red-black smoothers; Helmholtz SPD; CSL split on (3, 2, 32, 32) blocks
+  and complex; 3-D on (3, 8, 8, 8)), with ``replicate_below`` at its
+  default and set so that a level is replicated, and the ``mesh=None``
+  Poisson cycle on a DTensor block, against ``jax.vmap`` of gmres_tpu's
+  ``mesh=`` cycle (default ``replicate_below``: where the levels are
+  replicated moves data, not arithmetic) on the 8-device mesh within 1e-13
+  relative (tests/test_multigrid.py:123's bound); ``sparse_operator`` of
+  every format of tests/test_torch_dist_sparse.py (its wide-band DIA a
+  five-diagonal one, offsets 0, ±1, ±200) on a (3, 256) block against
+  ``jax.vmap`` of gmres_tpu's, within that test's 1e-13; each row bitwise
+  its own call, a block's halo exchanges, all-gathers and collectives one
+  row's (one all-gather exactly where a level is replicated or a format
+  gathers); block CG with the ``mesh=`` Poisson cycle, LOBPCG (k 4) with
+  the ``mesh=None`` cycle and block CG with cbpr2 on the sharded HYB
+  operator held to gmres_tpu's counts and status, X to 1e-9 and the
+  eigenvalues to rtol 1e-9.
 
 The lane forms of the plain versions (K1's halo form, K5, K8's interior
 and edges) run in-process: a (lanes, rows, N) block with random per-lane
 halo rows, and with a side or both null, is bitwise each lane's own call.
 So do, on a one-rank gloo mesh, vmap of a halo-route operator over a plain
-block (the rank's own rows: one exchange) and the operators that have no
-block form (the Nyström application, a sparse operator, the distributed
-V-cycle, a composition with it), which ``row_apply`` applies row by row
-because they are not marked as taking the block whole
-(``ops/blas.py:row_blocks``), and which raise NotImplementedError under a
-vmap of their own.
+block (the rank's own rows: one exchange); the operators that have no
+block form (the Nyström and deflation applications, a composition with
+one, an operator of the caller's own), which ``row_apply`` applies row by
+row because they are not marked as taking the block whole
+(``ops/blas.py:row_blocks``), the first two raising NotImplementedError
+under a vmap of their own; and the sparse operators, the distributed
+V-cycles and a composition with one, which are marked and take the block
+whole.
 """
 
 import os
@@ -56,7 +77,9 @@ from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as P
 
 import gmres_tpu as gt
+from torch.distributed.tensor import Shard, distribute_tensor
 from gmres_tpu.models.convection_diffusion import convection_diffusion_coefs
+from gmres_tpu.ops import sparse as jsp
 from gmres_tpu.parallel.halo import (
     halo_chebyshev_preconditioner,
     halo_poisson_operator,
@@ -65,10 +88,14 @@ from gmres_tpu.parallel.halo import (
     rdma_stencil_operator,
 )
 from gmres_tpu.parallel.mesh import solver_mesh
+from gmres_tpu.precond.multigrid import csl_multigrid_preconditioner
 from gmres_tpu_torch.ops import fused as tfu
 from gmres_tpu_torch.ops import stencil as tst
 from gmres_tpu_torch.ops import stencil_rdma as trd
+from tests import torch_dist_blocks_worker as cycle_worker
 from tests import torch_halo_worker as worker
+from tests.test_torch_dist_sparse import _cases as sparse_cases
+from tests.test_torch_dist_sparse import _to_jax
 from tests.torch_parity import assembled, rel_err, seeded
 
 WORLDS = (1, 2, 4)
@@ -98,6 +125,7 @@ def _cases():
         "coefs_asym": convection_diffusion_coefs(0.7, 0.3),
         "B_cg": seeded(955, (S, n, n)),
         "lobpcg_x0": np.random.default_rng(956).standard_normal((4, n, n)),
+        "cycle_blocks": _cycle_cases(),
     }
 
 
@@ -153,6 +181,7 @@ def _jax(cases):
         _block(cases["B_cg"], mesh))
     ref["lobpcg"] = gt.lobpcg(op, _block(cases["lobpcg_x0"], mesh), tol=1e-8,
                               max_iterations=100, M=m)
+    ref.update(_cycle_jax(cases["cycle_blocks"], mesh))
     return ref
 
 
@@ -228,6 +257,152 @@ def test_lobpcg_on_the_halo_route_matches_jax(run):
     assert iterations == int(r.iterations)
     np.testing.assert_allclose(port["lobpcg_eigenvalues"], np.asarray(r.eigenvalues),
                                rtol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The distributed V-cycles and the sparse operators' rank rows on a sharded
+# block (tests/torch_dist_blocks_worker.py, in the same spawns).
+# ---------------------------------------------------------------------------
+
+N, N_3D, KH2 = cycle_worker.N, cycle_worker.N_3D, cycle_worker.KH2
+CYCLES = [f"{name}_{setting}" for name in cycle_worker.CYCLES for setting in cycle_worker.BELOW]
+CYCLES.append("poisson_none")
+SPARSE = ("csr", "coo", "ell", "dia", "hyb", "hyb_residue", "bsr_band", "bsr_wide",
+          "dia_wide")
+# The formats that gather x whole (one all-gather), on more than one rank;
+# the others exchange their band (one exchange). On one rank every band fits.
+GATHERED = ("csr", "coo", "ell", "hyb_residue", "bsr_wide", "dia_wide")
+
+
+def _cycle_cases():
+    """The numpy inputs of tests/torch_dist_blocks_worker.py's cases, blocks
+    of S rows."""
+    r = seeded(990, (S, N, N))
+    return {
+        "r": r,
+        "r_split": np.stack([r, seeded(991, (S, N, N))], axis=1),
+        "r_complex": r + 1j * seeded(991, (S, N, N)),
+        "r3": seeded(992, (S, N_3D, N_3D, N_3D)),
+        "sparse": sparse_cases(),
+        "wide_band": sum(np.diag(seeded(997 + k, (256 - abs(off),)), off)
+                         for k, off in enumerate((-200, -1, 0, 1, 200))),
+        "x_flat": seeded(993, (S, 256)),
+        "probes": {m: np.asarray(jax.random.normal(jax.random.PRNGKey(0), (m, m),
+                                                   jnp.float64)) for m in (N, N // 2)},
+        "B_cg": seeded(994, (S, N, N)),
+        "lobpcg_x0": np.random.default_rng(995).standard_normal((4, N, N)),
+        "B_flat": seeded(996, (S, 256)),
+    }
+
+
+def _jax_cycle(name, mesh):
+    """gmres_tpu's ``mesh=`` cycle ``name`` (default ``replicate_below``)."""
+    if name == "poisson":
+        return gt.poisson_multigrid_preconditioner(N, mesh=mesh)
+    if name.startswith("convdiff_"):
+        return gt.convection_diffusion_multigrid_preconditioner(
+            N, 0.4, 0.2, smoother=name[len("convdiff_"):], mesh=mesh)
+    if name == "helmholtz":
+        return gt.helmholtz_shifted_laplacian_preconditioner(N, KH2, mesh=mesh)
+    if name.startswith("csl_"):
+        return csl_multigrid_preconditioner(N, KH2, layout=name[len("csl_"):], mesh=mesh)
+    return gt.poisson3d_multigrid_preconditioner(N_3D, mesh=mesh)
+
+
+def _cycle_jax(cases, mesh):
+    """gmres_tpu's side of the cycle and sparse cases on the 8-device mesh:
+    jax.vmap of every mesh= cycle (``cycle_…``) and sparse operator, the
+    two block CG solves and LOBPCG."""
+    ref = {}
+    for name, (key, dim) in cycle_worker.CYCLES.items():
+        out = np.asarray(jax.jit(jax.vmap(_jax_cycle(name, mesh)))(
+            _block(cases[key], mesh, dim)))
+        # The rows along axis 1, as the worker writes them.
+        ref[f"cycle_{name}"] = np.moveaxis(out, dim, 1)
+    x = _block(cases["x_flat"], mesh)
+    for name, a in cycle_worker.sparse_matrices(cases).items():
+        op = jsp.sparse_operator(_to_jax(a))
+        ref[f"sparse_{name}"] = np.asarray(jax.jit(jax.vmap(op))(x))
+    ref["block_cg_mg"] = jax.jit(lambda b: gt.block_cg(
+        gt.poisson_operator(N), b, tol=1e-9,
+        M=gt.poisson_multigrid_preconditioner(N, mesh=mesh)))(_block(cases["B_cg"], mesh))
+    ref["lobpcg_mg"] = gt.lobpcg(gt.poisson_operator(N), jnp.asarray(cases["lobpcg_x0"]),
+                                 tol=1e-8, max_iterations=100,
+                                 M=gt.poisson_multigrid_preconditioner(N))
+    op = jsp.sparse_operator(_to_jax(cycle_worker.sparse_matrices(cases)["hyb"]))
+    ref["block_cg_hyb"] = jax.jit(lambda b: gt.block_cg(
+        op, b, tol=1e-9, M=gt.chebyshev_preconditioner(op, 0.2, 8.2)))(
+        _block(cases["B_flat"], mesh))
+    return ref
+
+
+def _held(port, key, want, tol):
+    """The block form of ``key``: marked, gmres_tpu's output within tol,
+    each row bitwise its own call, and one row's exchanges, all-gathers and
+    collectives; returns (exchanges, all-gathers, collectives)."""
+    got = port[key]
+    assert bool(port[f"{key}_marked"])
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert rel_err(got, want) < tol
+    assert bool(port[f"{key}_bitwise"])
+    block, row = port[f"{key}_comm"]
+    assert tuple(block) == tuple(row)
+    return tuple(int(v) for v in block)
+
+
+@pytest.mark.parametrize("name", CYCLES)
+def test_cycle_block_matches_jax_vmap(run, name):
+    """One row_apply of each distributed cycle to a sharded block: jax.vmap
+    of gmres_tpu's mesh= cycle within 1e-13 relative, each row bitwise its
+    own call, the grid rows still sharded, one row's exchanges, and one
+    all-gather exactly where a level is replicated (no other collective)."""
+    _, port, ref = run
+    cycle = name.rsplit("_", 1)[0]
+    exchanges, gathers, collectives = _held(port, name, ref[f"cycle_{cycle}"], 1e-13)
+    dim = 1 + (cycle == "csl_split")
+    assert str(port[f"{name}_placements"]) == f"(Shard(dim={dim}),)"
+    assert collectives == gathers
+    if name != "poisson_none":
+        replicate_from, levels = (int(v) for v in port[f"{name}_levels"])
+        assert gathers == int(replicate_from < levels)
+        assert exchanges > 0 or replicate_from == 0
+        if name.endswith("_replicated"):
+            assert replicate_from < levels
+
+
+@pytest.mark.parametrize("name", SPARSE)
+def test_sparse_block_matches_jax_vmap(run, name):
+    """One row_apply of each format's sparse operator to a sharded (3, 256)
+    block: jax.vmap of gmres_tpu's sparse_operator within 1e-13 relative,
+    each row bitwise its own application, and one row's collectives: one
+    exchange of the band, or one all-gather of x."""
+    world, port, ref = run
+    key = f"sparse_{name}"
+    exchanges, gathers, collectives = _held(port, key, ref[key], 1e-13)
+    assert str(port[f"{key}_placements"]) == "(Shard(dim=1),)"
+    assert collectives == gathers
+    gathered = name in GATHERED and (world > 1 or name not in ("bsr_wide", "dia_wide"))
+    assert (exchanges, gathers) == ((0, 1) if gathered else (1, 0))
+
+
+@pytest.mark.parametrize("name", ["block_cg_mg", "lobpcg_mg", "block_cg_hyb"])
+def test_block_solvers_with_block_forms(run, name):
+    """Block CG with the mesh= Poisson cycle, LOBPCG with the mesh=None
+    cycle and block CG with cbpr2 on the HYB operator, each on a sharded
+    block: gmres_tpu's iterations and status, X to 1e-9 or the eigenvalues
+    to rtol 1e-9."""
+    _, port, ref = run
+    r = ref[name]
+    iterations, status = (int(v) for v in port[f"{name}_counts"])
+    assert status == 0
+    assert iterations == int(r.iterations)
+    if name == "lobpcg_mg":
+        assert bool(r.converged)
+        np.testing.assert_allclose(port[f"{name}_eigenvalues"], np.asarray(r.eigenvalues),
+                                   rtol=1e-9)
+    else:
+        assert int(r.status) == 0
+        np.testing.assert_allclose(port[f"{name}_x"], np.asarray(r.x), atol=1e-9)
 
 
 # ---------------------------------------------------------------------------
@@ -318,19 +493,41 @@ def test_vmapped_plain_rows_take_the_block_form(tmp_path, name):
         assert torch.equal(y, torch.stack([op(x[i]) for i in range(S)]))
 
 
+def _rows_of(fn, xb, blk, mesh):
+    """fn on the sharded block through row_apply, with the type of each
+    argument fn is called with, the block's halo exchanges, its rows
+    applied one by one as DTensors and their exchanges."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from gmres_tpu_torch.ops.blas import row_apply, row_blocks
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    seen = []
+
+    def counted(v):
+        seen.append(type(v).__name__)
+        return fn(v)
+
+    halo_exchange.exchanges = 0
+    y = row_apply(row_blocks(counted, fn), xb).full_tensor()
+    block_exchanges = halo_exchange.exchanges
+    halo_exchange.exchanges = 0
+    rows = [fn(distribute_tensor(blk[i], mesh, [Shard(0)])).full_tensor()
+            for i in range(S)]
+    return y, seen, block_exchanges, rows, halo_exchange.exchanges
+
+
 def test_operators_without_a_block_form_go_row_by_row(tmp_path):
     """On a sharded block, operators that are not marked as taking it whole
     (ops/blas.py:row_blocks) go one row at a time in row_apply, each call
     on the row's DTensor and none before the rows: the Nyström
-    preconditioner built on a sharded x_like (its application reduces over
-    the mesh), a sparse operator (its rank rows), the mesh=None V-cycle
-    (the distributed cycle) and M∘A (requests.composed) of that cycle and
-    the halo operator, whose exchanges are then s times one row's (none
-    spent on the block). Each row is bitwise its own call. Batched by
-    vmap, each of the first three raises NotImplementedError (no block
-    form) before it communicates."""
-    from torch.distributed.tensor import Shard, distribute_tensor
-
+    preconditioner built on a sharded x_like and the deflation
+    preconditioner (their applications reduce over the mesh), M∘A
+    (requests.composed) of the Nyström preconditioner and the halo
+    operator, and an operator of the caller's own around the halo operator,
+    whose exchanges are then s times one row's (none spent on the block).
+    Each row is bitwise its own call. Batched by vmap, each of the first
+    two raises NotImplementedError (no block form) before it communicates."""
     import gmres_tpu_torch as tt
     from gmres_tpu_torch.ops.blas import row_apply, takes_row_blocks
     from gmres_tpu_torch.parallel.halo import halo_exchange
@@ -344,14 +541,15 @@ def test_operators_without_a_block_form_go_row_by_row(tmp_path):
             tt.poisson_operator(n), tt.shard_grid_vector(torch.zeros((n, n),
                                                                      dtype=torch.float64),
                                                          mesh), rank=4)
-        dia = tt.sparse_operator(tt.poisson_dia(n, device="cpu"))
-        cycle = tt.poisson_multigrid_preconditioner(n)
-        m_a = composed(cycle, tt.halo_poisson_operator(mesh))
-        assert takes_row_blocks(tt.halo_poisson_operator(mesh))
-        for fn, blk, refuses in ((m_ny, x, True), (dia, x.reshape(S, -1), True),
-                                 (cycle, x, True), (m_a, x, False)):
+        m_defl = tt.coarse_space_preconditioner(
+            tt.poisson_operator(n), tt.dirichlet_poisson_modes(n, 3, device="cpu"))
+        halo = tt.halo_poisson_operator(mesh)
+        m_a = composed(m_ny, halo)
+        own = lambda v: 2.0 * halo(v)  # noqa: E731  (the caller's own operator)
+        assert takes_row_blocks(halo)
+        for fn, refuses in ((m_ny, True), (m_defl, True), (m_a, False), (own, False)):
             assert not takes_row_blocks(fn)
-            xb = distribute_tensor(blk, mesh, [Shard(1)])
+            xb = distribute_tensor(x, mesh, [Shard(1)])
             if refuses:
                 halo_exchange.exchanges = 0
                 with pytest.raises(NotImplementedError, match="no block form"):
@@ -369,6 +567,53 @@ def test_operators_without_a_block_form_go_row_by_row(tmp_path):
             assert seen == ["DTensor"] * S
             halo_exchange.exchanges = 0
             for i in range(S):
-                row = distribute_tensor(blk[i], mesh, [Shard(0)])
+                row = distribute_tensor(x[i], mesh, [Shard(0)])
                 assert torch.equal(y[i], fn(row).full_tensor())
             assert block_exchanges == halo_exchange.exchanges
+
+
+def _scattered(n):
+    """4·I with ten scattered off-diagonal entries: a HYB with an ELL
+    residue."""
+    a = 4.0 * np.eye(n)
+    rng = np.random.default_rng(972)
+    a[rng.integers(0, n, 10), rng.integers(0, n, 10)] += 1.0
+    return a
+
+
+@pytest.mark.parametrize("name", ["dia", "csr", "hyb_residue", "cycle", "mesh_cycle",
+                                  "cycle_after_halo"])
+def test_cycles_and_sparse_operators_take_the_block_form(tmp_path, name):
+    """On a sharded block, a sparse operator (its rank rows), the mesh=None
+    V-cycle on a DTensor, the mesh= cycle with a replicated level and M∘A
+    (requests.composed) of the cycle and the halo operator are marked as
+    taking the block whole: row_apply calls each once under vmap, with the
+    block's exchanges those of one row's application, and each row bitwise
+    its own call."""
+    import gmres_tpu_torch as tt
+    from gmres_tpu_torch.ops.blas import takes_row_blocks
+    from gmres_tpu_torch.solvers.requests import composed
+    from tests.torch_parity import one_rank_mesh
+
+    n = 16
+    x = torch.as_tensor(seeded(971, (S, n, n)))
+    with one_rank_mesh(str(tmp_path)) as mesh:
+        fn = {
+            "dia": lambda: tt.sparse_operator(tt.poisson_dia(n, device="cpu")),
+            "csr": lambda: tt.sparse_operator(tt.poisson_csr(n, device="cpu")),
+            "hyb_residue": lambda: tt.sparse_operator(tt.csr_to_hyb(tt.csr_from_dense(
+                _scattered(n * n), device="cpu"))),
+            "cycle": lambda: tt.poisson_multigrid_preconditioner(n),
+            "mesh_cycle": lambda: tt.poisson_multigrid_preconditioner(
+                n, levels=2, mesh=mesh, replicate_below=n),
+            "cycle_after_halo": lambda: composed(tt.poisson_multigrid_preconditioner(n),
+                                                 tt.halo_poisson_operator(mesh)),
+        }[name]()
+        assert takes_row_blocks(fn)
+        blk = x if "cycle" in name else x.reshape(S, -1)
+        xb = distribute_tensor(blk, mesh, [Shard(1)])
+        y, seen, block_exchanges, rows, row_exchanges = _rows_of(fn, xb, blk, mesh)
+        assert len(seen) == 1 and seen != ["DTensor"]
+        assert block_exchanges * S == row_exchanges
+        for i in range(S):
+            assert torch.equal(y[i], rows[i])

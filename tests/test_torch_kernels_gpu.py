@@ -919,6 +919,62 @@ def test_halo_block_is_one_exchange_and_one_launch(cuda_device, tmp_path):
         dist.destroy_process_group()
 
 
+def test_cycle_and_sparse_blocks_are_one_launch_a_kernel(cuda_device, tmp_path):
+    """On a one-rank NCCL mesh, row_apply of the mesh= Poisson cycle (256²,
+    replicate_below 128: two sharded levels, then one all-gather and the
+    levels below once under vmap) and of the DIA and BSR operators to a
+    (4, …) block placed [Shard(1)]: one row's exchanges and all-gathers,
+    every kernel launched one row's times and only on lane blocks (K1's
+    halo form, K1rr, K1cr, K2; K3; K4), each row bitwise its own call."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from gmres_tpu_torch.ops.blas import row_apply
+    from gmres_tpu_torch.parallel.halo import halo_exchange
+
+    wrappers = (tst.stencil_5pt_pallas_halo, tst.residual_restrict_cuda,
+                tst.correct_residual_cuda, tfu.chebk_cuda, tsp.dia_spmv_cuda,
+                tsp.bsr_spmv_cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = tt.solver_mesh(1)
+        x = to_torch(seeded(997, (4, 256, 256)), cuda_device)
+        bsr = tt.bsr_from_dense(np.kron(np.eye(8), np.ones((16, 16)))
+                                + np.eye(128, k=16), 16, device=cuda_device)
+        cases = ((tt.poisson_multigrid_preconditioner(256, mesh=mesh, replicate_below=128),
+                  x),
+                 (tt.sparse_operator(tt.poisson_dia(256, device=cuda_device)),
+                  x.reshape(4, -1)),
+                 (tt.sparse_operator(bsr), x.reshape(4, -1)[:, :128].contiguous()))
+        for op, v in cases:
+            blk = distribute_tensor(v, mesh, [Shard(1)])
+            rows = [distribute_tensor(v[i], mesh, [Shard(0)]) for i in range(v.shape[0])]
+            counts = {}
+            for key, call in (("block", lambda: [row_apply(op, blk)]),
+                              ("rows", lambda: [op(r) for r in rows])):
+                halo_exchange.exchanges = 0
+                before = [(w.launches, w.batched_launches) for w in wrappers]
+                out = call()
+                torch.cuda.synchronize()
+                counts[key] = (halo_exchange.exchanges,
+                               [(w.launches - b[0], w.batched_launches - b[1])
+                                for w, b in zip(wrappers, before)])
+                if key == "block":
+                    y = out[0].to_local()
+                else:
+                    ys = [r.to_local() for r in out]
+            (ex, block), (ex_rows, each) = counts["block"], counts["rows"]
+            assert ex_rows == v.shape[0] * ex
+            assert any(n for n, _ in block)
+            for (n, lanes), (n_rows, lanes_rows) in zip(block, each):
+                assert n == lanes and n_rows == v.shape[0] * n and lanes_rows == 0
+            for i in range(v.shape[0]):
+                assert torch.equal(y[i], ys[i])
+    finally:
+        dist.destroy_process_group()
+
+
 def _bicgstab_64(device, calls=None):
     n = 64
     op = tt.poisson_operator(n)
@@ -1882,6 +1938,33 @@ def test_k4_on_a_rank_block_rows(cuda_device, dtype, rtol):
     assert tsp.bsr_spmv_cuda.launches == before + 1
     torch.testing.assert_close(y, tsp.bsr_spmv_pallas(a, x)[4 * bs:8 * bs], rtol=0, atol=0)
     assert rel_err(y, tsp.bsr_spmv(local, xw)) < rtol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_k4_lanes_on_a_rank_block(cuda_device, dtype):
+    """K3 and K4 on 4 lanes of an interior rank's rows, as the sparse
+    operators' block form launches them (n_cols ≠ n_rows: x widened by the
+    band, offsets or block columns shifted): one batched launch each, each
+    lane the bits of its own single launch on the same rank block."""
+    n, bs, lanes = 256, 128, 4
+    a = tt.poisson_dia(n, dtype=dtype, device=cuda_device)
+    m, h = n * n // 4, n
+    local = tsp.DIAMatrix(data=a.data[:, m:2 * m].contiguous(),
+                          offsets=tuple(o + h for o in a.offsets), shape=(m, m + 2 * h))
+    b = _block_tridiagonal(cuda_device, dtype, 16, bs)
+    local_b = tsp.BSRMatrix(data=b.data[4:8].contiguous(),
+                            block_cols=(b.block_cols[4:8] - 3).contiguous(),
+                            shape=(4 * bs, 6 * bs))
+    for spmv, mat, wrapper in ((tsp.dia_spmv_pallas, local, tsp.dia_spmv_cuda),
+                               (tsp.bsr_spmv_pallas, local_b, tsp.bsr_spmv_cuda)):
+        xw = to_torch(seeded(82, (lanes, mat.shape[1])), cuda_device).to(dtype)
+        before = wrapper.batched_launches
+        y = spmv(mat, xw)
+        torch.cuda.synchronize()
+        assert wrapper.batched_launches == before + 1
+        assert tuple(y.shape) == (lanes, mat.shape[0])
+        for i in range(lanes):
+            torch.testing.assert_close(y[i], spmv(mat, xw[i].contiguous()), rtol=0, atol=0)
 
 
 def _one_rank_nccl(tmp_path):

@@ -229,11 +229,11 @@ def test_dtensor_block_keeps_the_loop(tmp_path):
     """On a block sharded along its grid rows over two gloo ranks, row_apply
     calls the Poisson operator, through a wrapper marked as taking the block
     whole (row_blocks), once, under vmap (the halo route's block form: one
-    exchange for the rows); it keeps the loop, one call a row with the
-    row's DTensor and no call before it, for the same operator through a
-    wrapper that is not marked, and for the mesh=None V-cycle, which has no
-    block form on a DTensor (row_blocks leaves its wrapper unmarked). Each
-    assembled result is the plain block's."""
+    exchange for the rows), and the mesh=None V-cycle, whose distributed
+    cycle takes the block whole too (row_blocks marks its wrapper), once
+    likewise; it keeps the loop, one call a row with the row's DTensor and
+    no call before it, for the same operator through a wrapper that is not
+    marked. Each assembled result is the plain block's."""
     rows = seeded(51, (3, 16, 16))
     mp.spawn(worker.run, args=(2, str(tmp_path / "rendezvous"), str(tmp_path), rows),
              nprocs=2, join=True)
@@ -245,7 +245,7 @@ def test_dtensor_block_keeps_the_loop(tmp_path):
         got = np.load(tmp_path / f"rank{rank}.npz")
         assert list(got["seen"]) == ["Tensor"]
         assert list(got["loop_seen"]) == ["DTensor"] * 3
-        assert list(got["cycle_seen"]) == ["DTensor"] * 3
+        assert list(got["cycle_seen"]) == ["Tensor"]
         for key, want in expected.items():
             np.testing.assert_array_equal(got[f"{key}out"], want)
 

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tests import torch_dist_blocks_worker
+
 
 def run(rank: int, world: int, init_file: str, out_dir: str, cases: dict) -> None:
     import gmres_tpu_torch as tt
@@ -196,8 +198,10 @@ def run_blocks(rank: int, world: int, init_file: str, out_dir: str, cases: dict)
     """One rank of tests/test_torch_halo_blocks.py: every halo-route
     operator on a (s, N, N) block placed ``[Shard(1)]`` through
     ``ops/blas.py:row_apply``, beside each row's own call, with the halo
-    exchanges of each; then block CG and LOBPCG on a sharded block. Keys
-    ending ``_blk`` hold this rank's block along axis 1 (``assembled``)."""
+    exchanges of each; then block CG and LOBPCG on a sharded block; then
+    the distributed V-cycles and the sparse operators on sharded blocks
+    (tests/torch_dist_blocks_worker.py). Keys ending ``_blk`` hold this
+    rank's block along axis 1 (``assembled``)."""
     import gmres_tpu_torch as tt
 
     torch.set_num_threads(1)
@@ -206,6 +210,7 @@ def run_blocks(rank: int, world: int, init_file: str, out_dir: str, cases: dict)
         out = {}
         _drive_blocks(mesh, cases, out)
         _drive_block_solvers(mesh, cases, out)
+        torch_dist_blocks_worker.drive(mesh, cases["cycle_blocks"], out)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

@@ -64,6 +64,30 @@ def np_poisson(x: np.ndarray) -> np.ndarray:
     return y
 
 
+def _numpy_of(fn, args):
+    """fn(*args) in a spawned process: JAX set up as conftest.py sets it up
+    (the CPU, 8 devices, float64), the result's arrays as numpy."""
+    import jax
+
+    import tests.conftest  # noqa: F401  (the JAX configuration)
+
+    return jax.tree_util.tree_map(np.asarray, fn(*args))
+
+
+def gmres_tpu_in_child(fn, *args):
+    """Start fn(*args) (a module-level function that runs gmres_tpu) in a
+    spawned process, so that it runs beside the caller's own gmres_tpu
+    work; returns a function that waits for its result, arrays as numpy."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    future = pool.submit(_numpy_of, fn, args)
+    pool.shutdown(wait=False)
+    return future.result
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test where there is none."""
